@@ -1,0 +1,87 @@
+// K1: member-table target sampler.
+//
+// Replaces corrosion_tpu/sim/pswim.py:82 psample_member_targets, with
+// swim.py:111 _dup_before, swim.py:39 _compact_targets and the
+// pswim.py:76 _unpack_word of the pswim.py:64 _pack_tables words.
+//
+// Per node: read `over` drawn bucket slots (the [over, N] randint draws
+// stay outside, in rng.py), gather the packed (pkey+1)<<19 | (pid+1)
+// word of each, keep the valid candidates (not empty, not self, not
+// believed DOWN), drop any that repeats an EARLIER valid candidate, and
+// prefix-compact the survivors into `count` output slots padded with -1.
+//
+// Bound on the H100: bytes.  Per node it reads `over` 4-byte slots
+// (coalesced: the draws are [over, N], so thread `node` reads column
+// `node`) and gathers `over` 4-byte table words from its own 256-byte
+// table row, then writes `count` ints; there is no arithmetic to speak
+// of.  Design: one thread per node keeps all <= 16 candidates in
+// registers (the loops are unrolled to MAX_OVER with a runtime guard),
+// so the dedup and the compaction never touch memory and the only
+// device-memory traffic is the draws, the gathered words and the output.
+//
+// Unsigned trap: the packed word's top bit is set once pkey+1 >= 4096,
+// so the word is read as uint32_t and shifted logically.  DOWN is tested
+// as (key & 3), which is floor-mod 4 like jnp's `%` also for the -1
+// sentinel (3 != DOWN either way).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int PACK_SHIFT = 19;
+constexpr uint32_t PACK_MASK = (1u << PACK_SHIFT) - 1u;
+constexpr int DOWN = 2;
+constexpr int MAX_OVER = 16;
+
+__global__ void sample_targets_kernel(const uint32_t* __restrict__ table,
+                                      const int32_t* __restrict__ slots,
+                                      int32_t* __restrict__ out, int n,
+                                      int m, int over, int count) {
+  int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= n) return;
+  const uint32_t* row = table + (size_t)node * m;
+  int cand[MAX_OVER];
+  bool valid[MAX_OVER];
+#pragma unroll
+  for (int j = 0; j < MAX_OVER; ++j) {
+    cand[j] = -1;
+    valid[j] = false;
+    if (j < over) {
+      int slot = slots[(size_t)j * n + node];
+      // jnp gathers clamp out-of-range indices; so does this one
+      slot = slot < 0 ? 0 : (slot >= m ? m - 1 : slot);
+      uint32_t w = row[slot];
+      int pid = (int)(w & PACK_MASK) - 1;
+      int key = (int)(w >> PACK_SHIFT) - 1;
+      cand[j] = pid;
+      valid[j] = pid >= 0 && pid != node && (key & 3) != DOWN && key >= 0;
+    }
+  }
+  int filled = 0;
+  int32_t* dst = out + (size_t)node * count;
+#pragma unroll
+  for (int j = 0; j < MAX_OVER; ++j) {
+    bool keep = valid[j];
+#pragma unroll
+    for (int i = 0; i < j; ++i) {
+      keep = keep && !(valid[i] && cand[i] == cand[j]);
+    }
+    if (keep && filled < count) dst[filled++] = cand[j];
+  }
+  for (; filled < count; ++filled) dst[filled] = -1;
+}
+
+}  // namespace
+
+extern "C" int corro_sample_targets(const void* table, const void* slots,
+                                    void* out, int n, int m, int over,
+                                    int count, void* stream) {
+  if (over > MAX_OVER || count > over || n <= 0) return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  int blocks = (n + threads - 1) / threads;
+  sample_targets_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)table, (const int32_t*)slots, (int32_t*)out, n, m,
+      over, count);
+  return (int)cudaGetLastError();
+}

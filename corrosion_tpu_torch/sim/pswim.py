@@ -1,0 +1,303 @@
+"""Partial-view SWIM on direct-mapped member tables — the port of
+``corrosion_tpu/sim/pswim.py`` (same state machine, same RNG stream).
+
+Two hot functions run hand-written kernels on the card: the member
+sampler (`sample_candidates`, K1) and the table merge (`merge_entries`,
+K4).  Each wrapper takes the plain torch version, beside it here, for a
+CPU tensor and the kernel for a CUDA tensor.  The ``heard`` scatter-max,
+the announce feedback and the bucket refill stay plain torch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..device import shr
+from ..kernels.build import check
+from . import rng
+from .state import ALIVE, DOWN, SUSPECT, SimConfig, SimState
+from .swim import _compact_targets, _dup_before, _reachable
+from .topology import Topology
+
+ID_BITS = 18
+ID_CAP = 1 << ID_BITS
+INC_CLAMP = 2046
+PACK_SHIFT = ID_BITS + 1
+PACK_MASK = (1 << PACK_SHIFT) - 1
+
+
+def _pack_tables(pid: torch.Tensor, pkey: torch.Tensor) -> torch.Tensor:
+    """One u32 word per bucket, ``(pkey+1) << PACK_SHIFT | (pid+1)``, in
+    its int32 carrier (the top bit is set once pkey+1 >= 4096)."""
+    return ((pkey + 1) << PACK_SHIFT) | (pid + 1)
+
+
+def _unpack_word(w: torch.Tensor):
+    pid = (w & PACK_MASK) - 1
+    pkey = shr(w, PACK_SHIFT) - 1
+    return pid, pkey
+
+
+# -- K1: member-table sampler ------------------------------------------------
+
+
+def sample_candidates_plain(
+    table: torch.Tensor, slots: torch.Tensor, count: int
+) -> torch.Tensor:
+    """Plain version of K1: gather the drawn buckets' packed words, keep
+    valid distinct candidates, compact into ``count`` slots."""
+    over, n = slots.shape
+    m = table.shape[1]
+    me = torch.arange(n, dtype=torch.int32, device=table.device)[None, :]
+    words = table.reshape(-1)[(me * m + slots).long()]  # [over, N]
+    cand, ckey = _unpack_word(words)
+    valid = (cand >= 0) & (cand != me) & (ckey % 4 != DOWN) & (ckey >= 0)
+    valid &= ~_dup_before(cand, valid)
+    return _compact_targets(cand, valid, count)
+
+
+def sample_candidates(
+    table: torch.Tensor, slots: torch.Tensor, count: int
+) -> torch.Tensor:
+    """i32[N, count] targets from packed tables ``[N, M]`` and bucket
+    draws ``[over, N]``; K1 on the card."""
+    if table.device.type == "cpu":
+        return sample_candidates_plain(table, slots, count)
+    n, m = table.shape
+    over = slots.shape[0]
+    check("table", table, torch.int32, (n, m))
+    check("slots", slots, torch.int32, (over, n))
+    out = torch.empty((n, count), dtype=torch.int32, device=table.device)
+    kernels.SAMPLE_TARGETS.launch([table, slots, out], [n, m, over, count])
+    return out
+
+
+def psample_member_targets(
+    state: SimState, cfg: SimConfig, key: torch.Tensor, count: int
+) -> torch.Tensor:
+    """i32[N, count] targets drawn from each node's member table (believed
+    not-DOWN buckets); -1 marks unfilled slots."""
+    n, m = state.pid.shape
+    slots = rng.randint(key, (4 * count, n), 0, m)
+    return sample_candidates(_pack_tables(state.pid, state.pkey), slots, count)
+
+
+# -- K4: table merge ---------------------------------------------------------
+
+
+def merge_entries_plain(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t, gc):
+    """Plain version of K4 (JAX ``_merge_entries``)."""
+    n, m = pid.shape
+    old_pkey = pkey
+    bucket = torch.where(e_id >= 0, e_id % m, 0).long()
+    dst = e_dst.long()
+    cur_id = pid[dst, bucket]
+    cur_key = pkey[dst, bucket]
+    cur_since = psince[dst, bucket]
+
+    match = e_ok & (cur_id == e_id)
+    flat = dst * m + bucket
+    pkey = pkey.reshape(-1).scatter_reduce(
+        0, flat, torch.where(match, e_key, -1), "amax"
+    ).reshape(n, m)
+
+    aged_down = (cur_key % 4 == DOWN) & (
+        (cur_since < 0) | (t - cur_since >= gc)
+    )
+    repl_ok = (
+        e_ok & ~match & (e_key % 4 == ALIVE) & ((cur_id < 0) | aged_down)
+    )
+    packed = torch.where(repl_ok, e_key * ID_CAP + e_id, -1)
+    winner = torch.full((n * m,), -1, dtype=torch.int32, device=pid.device)
+    winner = winner.scatter_reduce(0, flat, packed, "amax").reshape(n, m)
+    still_free = (pid < 0) | (pkey % 4 == DOWN)
+    do_repl = (winner >= 0) & still_free
+    pid = torch.where(do_repl, winner % ID_CAP, pid)
+    pkey = torch.where(do_repl, winner // ID_CAP, pkey)
+    psince = torch.where(do_repl, -1, psince)
+
+    changed = pkey != old_pkey
+    st = pkey % 4
+    psince = torch.where(changed & (st != ALIVE), t, psince)
+    psince = torch.where(changed & (st == ALIVE), -1, psince)
+    return pid, pkey, psince.to(torch.int32)
+
+
+def merge_entries(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t: int,
+                  gc: int):
+    """Merge flat gossip/announce entries into the receivers' tables;
+    returns new (pid, pkey, psince).  K4 on the card."""
+    if pid.device.type == "cpu":
+        return merge_entries_plain(
+            pid, pkey, psince, e_dst, e_id, e_key, e_ok, t, gc
+        )
+    n, m = pid.shape
+    e = e_dst.shape[0]
+    for name, x in (("pid", pid), ("pkey", pkey), ("psince", psince)):
+        check(name, x, torch.int32, (n, m))
+    for name, x in (("e_dst", e_dst), ("e_id", e_id), ("e_key", e_key)):
+        check(name, x, torch.int32, (e,))
+    check("e_ok", e_ok, torch.bool, (e,))
+    pkey_out = pkey.clone()
+    pid_out = torch.empty_like(pid)
+    psince_out = torch.empty_like(psince)
+    winner = torch.full_like(pid, -1)
+    kernels.MERGE_ENTRIES.launch(
+        [pid, pkey, psince, pid_out, pkey_out, psince_out, winner,
+         e_dst, e_id, e_key, e_ok],
+        [e, n, m, t, gc],
+    )
+    return pid_out, pkey_out, psince_out
+
+
+# -- the step ----------------------------------------------------------------
+
+
+def pswim_step(
+    state: SimState, cfg: SimConfig, topo: Topology, key: torch.Tensor,
+    faults=None,
+) -> SimState:
+    """One partial-view SWIM tick: probe, suspicion timeout, gossip and
+    announce merge, bucket refill, refute (JAX ``pswim_step``)."""
+    n, m = state.pid.shape
+    k = cfg.gossip_entries
+    ks = rng.split(key, 11)
+    k_probe, k_relay = ks[0], ks[2]
+    k_gossip, k_pick, k_ann, k_rot, k_rid = ks[4], ks[5], ks[7], ks[9], ks[10]
+    dev = state.pid.device
+    t = int(state.t)
+    me = torch.arange(n, dtype=torch.int32, device=dev)
+    up = state.alive == ALIVE
+    pid, pkey, psince = state.pid, state.pkey, state.psince
+
+    # -- 1. probe
+    target = psample_member_targets(state, cfg, k_probe, 1)[:, 0]
+    do_probe = up & (t % cfg.probe_period_rounds == 0) & (target >= 0)
+    target = torch.clamp(target, min=0)
+    direct = _reachable(state, topo, me, target, faults)
+    ip = cfg.indirect_probes
+    relays = psample_member_targets(state, cfg, k_relay, ip)
+    relay_ok = relays >= 0
+    relays = torch.clamp(relays, min=0)
+    leg1 = _reachable(
+        state, topo, me.repeat_interleave(ip), relays.reshape(-1), faults
+    ).reshape(n, ip)
+    leg2 = _reachable(
+        state, topo, relays.reshape(-1), target.repeat_interleave(ip), faults
+    ).reshape(n, ip)
+    acked = direct | (leg1 & leg2 & relay_ok).any(dim=1)
+    probe_failed = do_probe & ~acked
+
+    rows = me.long()
+    t_bucket = (target % m).long()
+    cur = pkey[rows, t_bucket]
+    newly_suspect = (
+        probe_failed & (pid[rows, t_bucket] == target) & (cur % 4 == ALIVE)
+    )
+    pkey = pkey.clone()
+    psince = psince.clone()
+    pkey[rows, t_bucket] = torch.where(newly_suspect, cur - ALIVE + SUSPECT, cur)
+    psince[rows, t_bucket] = torch.where(
+        newly_suspect, t, psince[rows, t_bucket]
+    )
+
+    # -- 2. suspicion timeout
+    expired = (
+        (pkey >= 0)
+        & (pkey % 4 == SUSPECT)
+        & (psince >= 0)
+        & (t - psince >= cfg.suspect_timeout_rounds)
+    )
+    pkey = torch.where(expired, pkey - SUSPECT + DOWN, pkey)
+    psince = torch.where(expired, t, psince)
+
+    # -- 3. gossip + announce entries
+    f = cfg.fanout
+    g_targets = psample_member_targets(state, cfg, k_gossip, f)  # [N, F]
+    gsrc = me.repeat_interleave(f)
+    gdst = g_targets.reshape(-1)
+    g_valid = gdst >= 0
+    gdst = torch.clamp(gdst, min=0)
+    g_ok = _reachable(state, topo, gsrc, gdst, faults) & g_valid
+    ptbl = _pack_tables(pid, pkey)
+    snd_id, snd_key = _unpack_word(ptbl[gdst.long(), (gsrc % m).long()])
+    g_ok &= ~((snd_id == gsrc) & (snd_key % 4 == DOWN))
+
+    picks = rng.randint(k_pick, (n, k), 0, m)
+    sel_id, sel_key = _unpack_word(torch.gather(ptbl, 1, picks.long()))
+    self_claim = torch.clamp(state.incarnation, max=INC_CLAMP) * 4 + ALIVE
+    ent_id = torch.cat([sel_id, me[:, None]], dim=1)  # [N, k+1]
+    ent_key = torch.cat([sel_key, self_claim[:, None]], dim=1)
+    e_dst = gdst.reshape(n, f, 1).expand(n, f, k + 1).reshape(-1)
+    e_id = ent_id[:, None, :].expand(n, f, k + 1).reshape(-1)
+    e_key = ent_key[:, None, :].expand(n, f, k + 1).reshape(-1)
+    e_ok = (
+        g_ok.reshape(n, f, 1).expand(n, f, k + 1).reshape(-1)
+        & (e_id >= 0)
+        & (e_key >= 0)
+    )
+    # an entry about the receiver is a refutation trigger
+    self_hit = e_ok & (e_id == e_dst) & (e_key % 4 != ALIVE)
+    heard = torch.full((n,), -1, dtype=torch.int32, device=dev).scatter_reduce(
+        0, e_dst.long(), torch.where(self_hit, e_key, -1), "amax"
+    )
+    heard_suspect = heard >= 0
+    heard_inc = torch.where(heard_suspect, heard // 4, -1)
+    e_ok &= e_id != e_dst
+
+    stagger = (t + me) % cfg.announce_interval_rounds == 0
+    ann_target = rng.randint(k_ann, (n,), 0, n)
+    ann_ok = (
+        stagger & up & (ann_target != me)
+        & _reachable(state, topo, me, ann_target, faults)
+    )
+    all_dst = torch.cat([e_dst, ann_target])
+    all_id = torch.cat([e_id, me])
+    all_ok = torch.cat([e_ok, ann_ok])
+
+    tgt_id, tgt_key = _unpack_word(ptbl[ann_target.long(), (me % m).long()])
+    ann_fb = ann_ok & (tgt_id == me) & (tgt_key % 4 != ALIVE)
+    fb_inc = torch.where(ann_fb, tgt_key // 4, -1)
+    refuted_claim = (
+        torch.clamp(torch.maximum(self_claim // 4, fb_inc) + 1, max=INC_CLAMP)
+        * 4 + ALIVE
+    )
+    all_key = torch.cat(
+        [e_key, torch.where(ann_fb, refuted_claim, self_claim)]
+    )
+
+    pid, pkey, psince = merge_entries(
+        pid, pkey, psince, all_dst.contiguous(), all_id.contiguous(),
+        all_key.contiguous(), all_ok.contiguous(), t, cfg.down_gc_rounds,
+    )
+
+    # -- 3c. bucket refill
+    rb = rng.randint(k_rot, (n,), 0, m)
+    rbl = rb.long()
+    cur_rb_key = pkey[rows, rbl]
+    cur_rb_since = psince[rows, rbl]
+    rb_aged_down = (cur_rb_key % 4 == DOWN) & (
+        (cur_rb_since < 0) | (t - cur_rb_since >= cfg.down_gc_rounds)
+    )
+    per = (n + m - 1) // m
+    rid = rb + m * rng.randint(k_rid, (n,), 0, per)
+    refill = (
+        stagger & up & ((pid[rows, rbl] < 0) | rb_aged_down)
+        & (rid < n) & (rid != me)
+    )
+    pid[rows, rbl] = torch.where(refill, rid, pid[rows, rbl])
+    pkey[rows, rbl] = torch.where(refill, ALIVE, pkey[rows, rbl])
+    psince[rows, rbl] = torch.where(refill, -1, psince[rows, rbl])
+
+    # -- 4. refute
+    refuting = (ann_fb | heard_suspect) & up
+    bumped = torch.clamp(
+        torch.maximum(torch.maximum(state.incarnation, fb_inc), heard_inc) + 1,
+        max=INC_CLAMP,
+    )
+    incarnation = torch.where(refuting, bumped, state.incarnation)
+    return state._replace(
+        pid=pid, pkey=pkey, psince=psince,
+        incarnation=incarnation.to(torch.int32),
+    )

@@ -1,0 +1,99 @@
+"""Topology and link model — the port's copy of the flat default path of
+``corrosion_tpu/sim/topology.py``.
+
+The `Topology` dataclass keeps every JAX field, so a configuration reads
+the same in both packages; the paths the 100k write storm does not take
+(geo tiers, loss, degree caps, a measured delay matrix) raise
+`NotImplementedError` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from .state import ALIVE
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    n_regions: int = 1
+    intra_delay: int = 0
+    inter_delay: int = 1
+    loss: float = 0.0
+    n_azs: int = 1
+    az_delay: int = 0
+    az_loss: float = 0.0
+    inter_loss: float = 0.0
+    degree_classes: Tuple[int, ...] = ()
+    region_delay_matrix: Tuple[Tuple[int, ...], ...] = ()
+
+    def __post_init__(self):
+        if self.n_regions < 1 or self.n_azs < 1:
+            raise ValueError("n_regions and n_azs must be >= 1")
+        for name in ("loss", "az_loss", "inter_loss"):
+            p = getattr(self, name)
+            if not 0.0 <= p <= 1.0:
+                raise ValueError(f"{name}={p} outside [0, 1]")
+
+    @property
+    def max_delay(self) -> int:
+        if self.region_delay_matrix:
+            return max(d for row in self.region_delay_matrix for d in row)
+        return max(self.intra_delay, self.az_delay, self.inter_delay)
+
+
+def require_flat(topo: Topology) -> None:
+    """Refuse the topology paths the port has not reached yet."""
+    if topo.loss > 0 or topo.az_loss > 0 or topo.inter_loss > 0:
+        raise NotImplementedError(
+            "lossy topologies are not ported yet (ROADMAP B1 bernoulli/"
+            "aligned_u8_bits, B12 edge_payload_drop)"
+        )
+    if topo.n_azs > 1 or topo.region_delay_matrix:
+        raise NotImplementedError(
+            "geo-tiered topologies are not ported yet (ROADMAP B15)"
+        )
+    if topo.degree_classes:
+        raise NotImplementedError(
+            "heterogeneous degree caps are not ported yet (ROADMAP B15)"
+        )
+
+
+def regions(n_nodes: int, n_regions: int, device) -> torch.Tensor:
+    """Contiguous region assignment."""
+    per = max(1, n_nodes // n_regions)
+    idx = torch.arange(n_nodes, dtype=torch.int32, device=device)
+    return torch.clamp(idx // per, max=n_regions - 1)
+
+
+def apply_degree_caps(targets: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """Identity on topologies without degree classes (the only kind the
+    port runs; `require_flat` refuses the others)."""
+    require_flat(topo)
+    return targets
+
+
+def edge_delay(
+    topo: Topology, region: torch.Tensor, src: torch.Tensor, dst: torch.Tensor
+) -> torch.Tensor:
+    """Delay class (rounds) per edge from region distance (single AZ)."""
+    require_flat(topo)
+    same_r = region[src] == region[dst]
+    return torch.where(same_r, topo.intra_delay, topo.inter_delay).to(
+        torch.int32
+    )
+
+
+def edge_alive(
+    group: torch.Tensor, alive: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor,
+) -> torch.Tensor:
+    """Reachability per edge: same partition group, both endpoints up."""
+    return (
+        (group[src] == group[dst])
+        & (alive[src] == ALIVE)
+        & (alive[dst] == ALIVE)
+    )

@@ -1,0 +1,68 @@
+"""Package rules of the PyTorch/CUDA port: it imports nothing of JAX or
+of the JAX package, its entry points refuse to drift to the CPU, its
+wrappers check what reaches C, and each CUDA source names the JAX
+function it replaces at the right line."""
+
+import ast
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from corrosion_tpu_torch.device import resolve_device
+from corrosion_tpu_torch.kernels.build import CSRC, SOURCES, check
+from corrosion_tpu_torch.sim.runner import config_write_storm_100k
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "corrosion_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_port_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "corrosion_tpu"), (
+            f"{path.relative_to(ROOT)} imports {mod}"
+        )
+
+
+def test_entry_points_refuse_cuda_without_card():
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        config_write_storm_100k(n_nodes=512, n_payloads=256)  # default cuda
+
+
+def test_wrapper_check_refuses_what_c_cannot_take():
+    x = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        check("x", x, torch.int32, (4, 8))
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_cuda_source_names_the_jax_function_it_replaces(source):
+    head = (CSRC / source).read_text()[:2000]
+    m = re.search(r"corrosion_tpu/sim/(\w+\.py):(\d+)\s+(?://\s*)?(\w+)",
+                  head)
+    assert m, f"{source} does not name the JAX function it replaces"
+    jax_file = ROOT / "corrosion_tpu" / "sim" / m.group(1)
+    line = jax_file.read_text().splitlines()[int(m.group(2)) - 1]
+    assert line.startswith(f"def {m.group(3)}("), (source, line)
