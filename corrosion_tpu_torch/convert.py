@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .sim.packed import pack_bits, unpack_bits
+from .sim.words import pack_bits, unpack_bits
 from .sim.state import PayloadMeta, SimConfig, SimState
 
 _JAX_DTYPES = {

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface under ``corrosion_tpu_torch/_build/``
 (gitignored), at first use, and loaded with ``ctypes``.  `build_all`
 starts one ``nvcc`` per source at once and waits for all of them.  The
-library name carries a hash of the source, so an edited source never
-loads a stale build.
+library name carries a hash of the source and of every ``csrc`` header
+it includes (``#include "x.cuh"``, followed through headers), so an
+edited source or header never loads a stale build.
 
 `Kernel` is one C entry point: it checks the launch's return code (a
 ``cudaError_t``; a refused launch raises here, it never runs silently)
@@ -17,10 +18,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -32,8 +34,10 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "sample_targets.cu", "broadcast_scatter.cu", "sync_pull.cu",
-    "merge_entries.cu",
+    "merge_entries.cu", "threefry.cu", "gaps_refresh.cu",
+    "converge_fold.cu", "word_phases.cu",
 )
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -48,9 +52,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+def local_includes(source: str, csrc: Path = CSRC) -> list:
+    """The ``csrc`` files ``source`` includes by quoted name, directly or
+    through another of them, sorted."""
+    found, todo = set(), [source]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall((csrc / todo.pop()).read_text()):
+            if name not in found:
+                found.add(name)
+                todo.append(name)
+    return sorted(found)
+
+
+def _lib_path(source: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256()
+    for name in (source, *local_includes(source, csrc)):
+        h.update(name.encode())
+        h.update((csrc / name).read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(sources: Sequence[str] = SOURCES, verbose: bool = False):
@@ -103,9 +122,11 @@ class Kernel:
         self.n_ints = n_ints
         self.launches = 0
 
-    def launch(self, pointers: Sequence[torch.Tensor], ints: Sequence[int]):
-        """Call the launcher on ``pointers`` (CUDA tensors, in order),
-        then ``ints``, then the current stream; count the launch."""
+    def launch(self, pointers: Sequence[Optional[torch.Tensor]],
+               ints: Sequence[int]):
+        """Call the launcher on ``pointers`` (CUDA tensors in order; None
+        passes a null pointer), then ``ints``, then the current stream;
+        count the launch."""
         if len(ints) != self.n_ints:
             raise ValueError(f"{self.name}: expected {self.n_ints} ints")
         if self.source not in _LOADED:
@@ -118,7 +139,8 @@ class Kernel:
             + [ctypes.c_void_p]
         )
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(p.data_ptr() for p in pointers), *ints, stream)
+        err = fn(*(None if p is None else p.data_ptr() for p in pointers),
+                 *ints, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch failed with cudaError_t {err}"

@@ -1,15 +1,24 @@
 """Fixed-K version-gap interval tensors — the port of the V ≤ 32 word
 path of ``corrosion_tpu/sim/gaps.py`` (``_extract_gaps_words``) and of
-``gaps_to_mask``.  Plain torch in this slice (ROADMAP B6)."""
+``gaps_to_mask``.
+
+`refresh_gaps` is the round's bookkeeping refresh: heads, gap intervals
+and the overflow count straight from the have words.  On the card it is
+one launch of K6 (``kernels/csrc/gaps_refresh.cu``); on the CPU it runs
+`refresh_gaps_plain`, the composition group_grid → version_heads →
+`extract_gaps` that JAX runs."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import kernels
 from ..device import popcount, shr
-from .state import SimConfig
+from ..kernels.build import check
+from .state import SimConfig, version_heads
+from .words import group_grid
 
 
 class GapTensors(NamedTuple):
@@ -24,10 +33,7 @@ def extract_gaps(
     """Run-length-extract needed version ranges into K interval slots:
     the maximal runs of untouched versions below each head."""
     n, a, v = touched.shape
-    if v > 32:
-        raise NotImplementedError(
-            "the dense gap extraction (V > 32) is not ported yet (B13)"
-        )
+    _require_word_path(v)
     k = cfg.gap_slots
     dev = touched.device
     shifts = torch.arange(v, dtype=torch.int64, device=dev)
@@ -64,6 +70,45 @@ def extract_gaps(
     last_missing = popcount(sm)
     hi[:, :, k - 1] = torch.where(overflow, last_missing, hi[:, :, k - 1])
     return GapTensors(lo=lo, hi=hi, overflow=overflow)
+
+
+def _require_word_path(n_versions: int) -> None:
+    if n_versions > 32:
+        raise NotImplementedError(
+            "the dense gap extraction (V > 32) is not ported yet (B13)"
+        )
+
+
+def refresh_gaps_plain(have_w: torch.Tensor, cfg: SimConfig):
+    """Plain version of K6."""
+    touched = group_grid(have_w, cfg, "any")  # [N, A, V]
+    heads = version_heads(touched)
+    gaps = extract_gaps(touched, heads, cfg)
+    return heads, gaps.lo, gaps.hi, gaps.overflow.sum(dtype=torch.int32)
+
+
+def refresh_gaps(
+    have_w: torch.Tensor, cfg: SimConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(heads i32[N, A], gap_lo i32[N, A, K], gap_hi i32[N, A, K], the
+    number of (node, actor) rows that overflowed K as an i32 scalar) from
+    the have words [N, W]; K6 on the card."""
+    if have_w.device.type == "cpu":
+        return refresh_gaps_plain(have_w, cfg)
+    n, w = have_w.shape
+    a, v = cfg.n_writers, cfg.n_versions
+    c, k = cfg.chunks_per_version, cfg.gap_slots
+    _require_word_path(v)
+    check("have", have_w, torch.int32, (n, w))
+    dev = have_w.device
+    heads = torch.empty((n, a), dtype=torch.int32, device=dev)
+    lo = torch.empty((n, a, k), dtype=torch.int32, device=dev)
+    hi = torch.empty((n, a, k), dtype=torch.int32, device=dev)
+    n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    kernels.GAPS_REFRESH.launch(
+        [have_w, heads, lo, hi, n_overflow], [n, w, a, v, c, k]
+    )
+    return heads, lo, hi, n_overflow
 
 
 def gaps_to_mask(

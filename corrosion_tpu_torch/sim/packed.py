@@ -2,18 +2,30 @@
 ``corrosion_tpu/sim/packed.py`` for the faultless, telemetry-free
 envelope the 100k write storm runs.
 
-Words ride int32 carriers (`..device`).  One layout differs from JAX:
-the broadcast delay ring ``inflight`` is u32 words ``[D, N, W]``
-written by an OR scatter (K2, `scatter_sending`), where JAX keeps a
-dense u8 ``[D, N, P]`` ring because XLA lacks an OR scatter
-(packed.py:285-293); the sent values are 0/1, so the bits agree, and
-`deliver_packed` no longer packs the ring.
+Words ride int32 carriers (`..device`; the packing helpers and
+chunk-group folds are `.words`).  One layout differs from JAX: the
+broadcast delay ring ``inflight`` is u32 words ``[D, N, W]`` written by
+an OR scatter (K2, `scatter_sending`), where JAX keeps a dense u8
+``[D, N, P]`` ring because XLA lacks an OR scatter (packed.py:285-293);
+the sent values are 0/1, so the bits agree, and `deliver_packed` no
+longer packs the ring.
 
-Two hot functions run hand-written kernels on the card: the ring
-scatter (K2) and the sync pull (K3, `sync_pull`).  Each wrapper takes
-the plain torch version beside it for a CPU tensor.  `run_packed` is a
-Python loop that reads the done flag once per round (a CUDA graph is
-ROADMAP B9).  The round counter ``t`` lives on the host.
+Every phase of the round runs hand-written kernels on the card: the
+word phases (K8: `inject_packed`, `spend_relay`, `deliver_packed`), the
+ring scatter (K2), the sync pull (K3) and the convergence record (K7,
+`converge_record`) here; the draws (K5, `.rng`), the member sampler and
+table merge (K1, K4, `.pswim`) and the gap refresh (K6, `.gaps`).  Each
+wrapper takes the plain torch version beside it for a CPU tensor.
+
+**In place.**  The word phases and the pull update the carry's tensors
+(``have``, the relay planes, both rings) and ``injected_p`` in place, on
+the card and on the CPU alike: no caller reads a carry again once the
+next phase has it, and `pack_state` gives the loop tensors of its own.
+A caller that needs the old carry clones it first.
+
+`run_packed` is a Python loop that reads K7's done flag once per round
+(a CUDA graph is ROADMAP B9).  The round counter ``t`` lives on the
+host.
 """
 
 from __future__ import annotations
@@ -23,12 +35,12 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .. import kernels
-from ..device import ONES, i32, shr
+from ..device import ONES
 from ..kernels.build import check
 from . import rng
-from .gaps import extract_gaps, gaps_to_mask
+from .gaps import gaps_to_mask, refresh_gaps
 from .round import RunMetrics, new_metrics
-from .state import ALIVE, PayloadMeta, SimConfig, SimState, version_heads
+from .state import ALIVE, PayloadMeta, SimConfig, SimState
 from .swim import sample_member_targets, swim_step
 from .topology import (
     Topology,
@@ -36,6 +48,16 @@ from .topology import (
     edge_alive,
     edge_delay,
     regions,
+)
+from .words import (
+    all_chunks_words,
+    and_rows,
+    fold_any,
+    grid_to_words,
+    group_low_bits_mask,
+    pack_bits,
+    smear_groups,
+    unpack_bits,
 )
 
 
@@ -58,23 +80,6 @@ def _require_unmetered(budget_bytes) -> None:
         )
 
 
-def pack_bits(x: torch.Tensor) -> torch.Tensor:
-    """bool/u8[..., P] → int32-carried u32 words [..., P/32], LSB-first."""
-    *lead, p = x.shape
-    b = (x > 0).reshape(*lead, p // 32, 32).to(torch.int32)
-    shifts = torch.arange(32, dtype=torch.int32, device=x.device)
-    # distinct bits: no partial sum leaves the int32 range (bit 31 is the
-    # carrier's -2^31), so the int32 sum is exactly the OR
-    return (b << shifts).sum(dim=-1, dtype=torch.int32)
-
-
-def unpack_bits(w: torch.Tensor, p: int) -> torch.Tensor:
-    """int32-carried words [..., W] → bool[..., P]."""
-    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
-    bits = (w[..., None] >> shifts) & 1
-    return bits.to(torch.bool).reshape(*w.shape[:-1], p)
-
-
 # -- bitsliced 4-bit counters ------------------------------------------------
 
 
@@ -89,103 +94,23 @@ class Planes(NamedTuple):
         return self.r0 | self.r1 | self.r2 | self.r3
 
 
-def planes_set(planes: Planes, where: torch.Tensor, value: int) -> Planes:
-    """Set the counter to ``value`` (0..15) at every bit of ``where``."""
-    return Planes(*(
-        (plane & ~where) | (where if (value >> k) & 1 else 0)
-        for k, plane in enumerate(planes)
-    ))
+def planes_set_(planes: Planes, where: torch.Tensor, value: int) -> None:
+    """Set the counter to ``value`` (0..15) at every bit of ``where``, in
+    place."""
+    for k, plane in enumerate(planes):
+        plane &= ~where
+        if (value >> k) & 1:
+            plane |= where
 
 
-def planes_dec(planes: Planes, where: torch.Tensor) -> Planes:
-    """Decrement at every bit of ``where`` (ripple borrow; callers
-    guarantee where ⊆ nonzero)."""
-    r0, r1, r2, r3 = planes
+def planes_dec_(planes: Planes, where: torch.Tensor) -> None:
+    """Decrement at every bit of ``where``, in place (ripple borrow;
+    callers guarantee where ⊆ nonzero)."""
     borrow = where
-    n0 = r0 ^ borrow
-    borrow = borrow & ~r0
-    n1 = r1 ^ borrow
-    borrow = borrow & ~r1
-    n2 = r2 ^ borrow
-    borrow = borrow & ~r2
-    n3 = r3 ^ borrow
-    return Planes(n0, n1, n2, n3)
-
-
-# -- chunk-group folds -------------------------------------------------------
-
-
-def _fold_all(w: torch.Tensor, c: int) -> torch.Tensor:
-    step = 1
-    while step < c:
-        w = w & shr(w, step)
-        step *= 2
-    return w
-
-
-def _fold_any(w: torch.Tensor, c: int) -> torch.Tensor:
-    step = 1
-    while step < c:
-        w = w | shr(w, step)
-        step *= 2
-    return w
-
-
-def _group_low_bits_mask(c: int) -> int:
-    """The u32 mask with a bit at every multiple of c, as an int32 value."""
-    return i32(sum(1 << i for i in range(0, 32, c)))
-
-
-def _smear_groups(low: torch.Tensor, c: int) -> torch.Tensor:
-    """Broadcast each aligned c-bit group's low bit across the group."""
-    w = low
-    step = 1
-    while step < c:
-        w = w | (w << step)
-        step *= 2
-    return w
-
-
-def group_grid(w: torch.Tensor, cfg: SimConfig, mode: str) -> torch.Tensor:
-    """have-words [..., W] → bool[..., A, V] version grid (all/any chunks)."""
-    c = cfg.chunks_per_version
-    fold = _fold_all if mode == "all" else _fold_any
-    low = fold(w, c) & _group_low_bits_mask(c)
-    shifts = torch.arange(0, 32, c, dtype=torch.int32, device=w.device)
-    bits = (low[..., None] >> shifts) & 1  # [..., W, 32/c]
-    grid = bits.reshape(*w.shape[:-1], cfg.n_versions, cfg.n_writers)
-    return grid.transpose(-1, -2).to(torch.bool)  # [..., A, V]
-
-
-def grid_to_words(x_av: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """bool[..., A, V] → words [..., W] with each (v, a) group's C bits
-    set where the grid is True (inverse of group_grid)."""
-    c = cfg.chunks_per_version
-    va = x_av.transpose(-1, -2).reshape(
-        *x_av.shape[:-2], cfg.n_versions * cfg.n_writers
-    )
-    per_word = 32 // c
-    g = va.reshape(*va.shape[:-1], va.shape[-1] // per_word, per_word)
-    shifts = torch.arange(0, 32, c, dtype=torch.int64, device=x_av.device)
-    low = (g.to(torch.int64) << shifts).sum(dim=-1).to(torch.int32)
-    return _smear_groups(low, c)
-
-
-def all_chunks_words(have_w: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """Word mask: every bit of version v's group set iff ALL its chunks
-    are held."""
-    c = cfg.chunks_per_version
-    return _smear_groups(_fold_all(have_w, c) & _group_low_bits_mask(c), c)
-
-
-def _and_rows(x: torch.Tensor) -> torch.Tensor:
-    """Bitwise AND of the rows of [R, W] words (torch has no AND reduction:
-    a halving fold, log2(R) steps)."""
-    while x.shape[0] > 1:
-        if x.shape[0] % 2:
-            x = torch.cat([x, torch.full_like(x[:1], ONES)])
-        x = x[0::2] & x[1::2]
-    return x[0]
+    for plane in planes:
+        nxt = borrow & ~plane
+        plane ^= borrow
+        borrow = nxt
 
 
 # -- packed state ------------------------------------------------------------
@@ -202,7 +127,7 @@ def pack_state(state: SimState, cfg: SimConfig) -> PackedCarry:
     relay = state.relay_left.to(torch.int32)
     return PackedCarry(
         have=pack_bits(state.have),
-        inflight=state.inflight,
+        inflight=state.inflight.clone(),  # the loop updates it in place
         relay=Planes(*(pack_bits((relay >> k) & 1) for k in range(4))),
         sync_buf=pack_bits(state.sync_inflight),
     )
@@ -242,10 +167,11 @@ def shrink_state(state: SimState) -> SimState:
 # -- the packed phases -------------------------------------------------------
 
 
-def inject_packed(
+def inject_packed_plain(
     carry: PackedCarry, injected_p: torch.Tensor, t: int, meta: PayloadMeta,
     cfg: SimConfig, alive: torch.Tensor,
 ) -> Tuple[PackedCarry, torch.Tensor]:
+    """Plain version of K8's inject, in place."""
     n = cfg.n_nodes
     w = cfg.n_payloads // 32
     dev = carry.have.device
@@ -258,13 +184,79 @@ def inject_packed(
         0, (meta.actor * w + idx // 32).long(), contrib
     ).reshape(n, w)
     newly = own & ~carry.have
-    return (
-        carry._replace(
-            have=carry.have | own,
-            relay=planes_set(carry.relay, newly, cfg.max_transmissions),
-        ),
-        injected_p | pack_bits(injecting),
+    carry.have.bitwise_or_(own)
+    planes_set_(carry.relay, newly, cfg.max_transmissions)
+    injected_p |= pack_bits(injecting)
+    return carry, injected_p
+
+
+def inject_packed(
+    carry: PackedCarry, injected_p: torch.Tensor, t: int, meta: PayloadMeta,
+    cfg: SimConfig, alive: torch.Tensor,
+) -> Tuple[PackedCarry, torch.Tensor]:
+    """Inject round t's payloads at their up writers: ``have``, the relay
+    planes (armed to max_transmissions where new) and ``injected_p``
+    are updated in place.  K8 on the card."""
+    if carry.have.device.type == "cpu":
+        return inject_packed_plain(carry, injected_p, t, meta, cfg, alive)
+    n, w = carry.have.shape
+    p = cfg.n_payloads
+    _check_words(carry, n, w)
+    check("injected_p", injected_p, torch.int32, (w,))
+    check("meta.round", meta.round, torch.int32, (p,))
+    check("meta.actor", meta.actor, torch.int32, (p,))
+    check("alive", alive, torch.uint8, (n,))
+    kernels.WORD_INJECT.launch(
+        [meta.round, meta.actor, alive, carry.have, *carry.relay, injected_p],
+        [n, w, p, t, cfg.max_transmissions],
     )
+    return carry, injected_p
+
+
+def _check_words(carry: PackedCarry, n: int, w: int) -> None:
+    check("have", carry.have, torch.int32, (n, w))
+    for k, plane in enumerate(carry.relay):
+        check(f"relay.r{k}", plane, torch.int32, (n, w))
+
+
+def spend_relay_plain(
+    carry: PackedCarry, injected_p: torch.Tensor, targets: torch.Tensor,
+    alive: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of K8's spend: the sending words; the relay planes
+    count down in place."""
+    n = targets.shape[0]
+    sending = carry.have & carry.relay.nonzero & injected_p[None, :]
+    me = torch.arange(n, dtype=torch.int32, device=targets.device)
+    attempted = (targets >= 0) & (targets != me[:, None])
+    any_attempt = attempted.any(dim=1) & (alive == ALIVE)
+    planes_dec_(carry.relay, torch.where(any_attempt[:, None], sending, 0))
+    return sending
+
+
+def spend_relay(
+    carry: PackedCarry, injected_p: torch.Tensor, targets: torch.Tensor,
+    alive: torch.Tensor,
+) -> torch.Tensor:
+    """The broadcast's sending words ``have & relay-nonzero &
+    injected_p``; where an up row attempted a send (a target neither -1
+    nor itself) its relay counters drop by one at the sent bits, in
+    place.  The budget spends on the ATTEMPT: the sender sees neither
+    cuts nor dead targets.  K8 on the card."""
+    if carry.have.device.type == "cpu":
+        return spend_relay_plain(carry, injected_p, targets, alive)
+    n, w = carry.have.shape
+    f = targets.shape[1]
+    _check_words(carry, n, w)
+    check("injected_p", injected_p, torch.int32, (w,))
+    check("targets", targets, torch.int32, (n, f))
+    check("alive", alive, torch.uint8, (n,))
+    sending = torch.empty_like(carry.have)
+    kernels.WORD_SPEND.launch(
+        [carry.have, *carry.relay, injected_p, targets, alive, sending],
+        [n, w, f],
+    )
+    return sending
 
 
 def scatter_sending_plain(ring, sending, dst, slot, ok, fanout: int) -> None:
@@ -304,10 +296,11 @@ def broadcast_packed(
     cfg: SimConfig, topo: Topology, region: torch.Tensor, key: torch.Tensor,
     meta: PayloadMeta,
 ) -> PackedCarry:
+    """Fan-out push: draw targets, spend the relay budget (K8) and OR
+    the sent words into the delay ring (K2), in place."""
     n, f = cfg.n_nodes, cfg.fanout
     k_targets = rng.split(key, 3)[0]  # k_drop, k_ring0 unused when flat
     _require_unmetered(cfg.rate_limit_bytes_round)
-    sending = carry.have & carry.relay.nonzero & injected_p[None, :]
     targets = sample_member_targets(state, cfg, k_targets, f)  # [N, F]
     if topo.n_regions > 1:
         raise NotImplementedError(
@@ -315,6 +308,7 @@ def broadcast_packed(
             "yet (ROADMAP B15)"
         )
     targets = apply_degree_caps(targets, topo)
+    sending = spend_relay(carry, injected_p, targets, state.alive)
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
     src = me.repeat_interleave(f)
     dst = targets.reshape(-1)
@@ -325,34 +319,40 @@ def broadcast_packed(
     delay = edge_delay(topo, region, src, dst)
     d_slots = carry.inflight.shape[0]
     slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
-    inflight = carry.inflight.clone()
-    scatter_sending(inflight, sending, dst, slot, ok, f)
+    scatter_sending(carry.inflight, sending, dst, slot, ok, f)
+    return carry
 
-    # the budget spends on the ATTEMPT: the sender sees neither cuts nor
-    # dead targets, only what it tried to send
-    attempted = (targets >= 0) & (targets != me[:, None])
-    any_attempt = attempted.any(dim=1) & (state.alive == ALIVE)
-    spent = torch.where(any_attempt[:, None], sending, 0)
-    return carry._replace(
-        inflight=inflight, relay=planes_dec(carry.relay, spent)
-    )
+
+def deliver_packed_plain(
+    carry: PackedCarry, t: int, cfg: SimConfig
+) -> PackedCarry:
+    """Plain version of K8's deliver, in place."""
+    slot = t % carry.inflight.shape[0]
+    arriving = carry.inflight[slot]
+    newly = arriving & ~carry.have
+    carry.have.bitwise_or_(arriving | carry.sync_buf[slot])
+    planes_set_(carry.relay, newly, max(cfg.max_transmissions - 1, 1))
+    carry.inflight[slot] = 0
+    carry.sync_buf[slot] = 0
+    return carry
 
 
 def deliver_packed(carry: PackedCarry, t: int, cfg: SimConfig) -> PackedCarry:
     """Broadcast arrivals re-arm the relay budget; the sync ring's slot t
-    merges into have without re-arming."""
+    merges into have without re-arming; both slots are cleared.  In
+    place; K8 on the card."""
+    if carry.have.device.type == "cpu":
+        return deliver_packed_plain(carry, t, cfg)
+    n, w = carry.have.shape
     d_slots = carry.inflight.shape[0]
-    slot = t % d_slots
-    arriving = carry.inflight[slot]
-    newly = arriving & ~carry.have
-    have = carry.have | arriving | carry.sync_buf[slot]
-    relay = planes_set(carry.relay, newly, max(cfg.max_transmissions - 1, 1))
-    inflight = carry.inflight.clone()
-    inflight[slot] = 0
-    sync_buf = carry.sync_buf.clone()
-    sync_buf[slot] = 0
-    return PackedCarry(have=have, inflight=inflight, relay=relay,
-                       sync_buf=sync_buf)
+    _check_words(carry, n, w)
+    check("inflight", carry.inflight, torch.int32, (d_slots, n, w))
+    check("sync_buf", carry.sync_buf, torch.int32, (d_slots, n, w))
+    kernels.WORD_DELIVER.launch(
+        [carry.inflight, carry.sync_buf, carry.have, *carry.relay],
+        [n, w, d_slots, t % d_slots, max(cfg.max_transmissions - 1, 1)],
+    )
+    return carry
 
 
 def sync_pull_plain(masks, miss, peers, ok, slot_words) -> torch.Tensor:
@@ -400,8 +400,8 @@ def sync_packed(
     key: torch.Tensor, meta: PayloadMeta,
 ):
     """Anti-entropy on packed words: per-node group-uniform masks from the
-    advertised heads/gaps, the per-edge pull on the card (K3), and the
-    fruitfulness-adaptive backoff."""
+    advertised heads/gaps, the per-edge pull into the sync ring's slot
+    t + 1 (K3, in place), and the fruitfulness-adaptive backoff."""
     n, s = cfg.n_nodes, cfg.sync_peers
     ks = rng.split(key, 3)
     k_peers, k_rearm = ks[0], ks[2]
@@ -427,10 +427,9 @@ def sync_packed(
     _require_unmetered(cfg.sync_budget_bytes)
 
     d_slots = carry.sync_buf.shape[0]
-    sync_buf = carry.sync_buf.clone()
     fruitful = sync_pull(
         masks, miss_w, dst.reshape(n, s), ok.reshape(n, s),
-        sync_buf[(int(state.t) + 1) % d_slots],
+        carry.sync_buf[(int(state.t) + 1) % d_slots],
     )
 
     backoff = torch.where(
@@ -444,7 +443,80 @@ def sync_packed(
     ).to(torch.int32)
     rearm = rng.randint(k_rearm, (n,), 1, backoff + 1)
     countdown = torch.where(due, rearm, state.sync_countdown - 1)
-    return carry._replace(sync_buf=sync_buf), countdown, backoff
+    return carry, countdown, backoff
+
+
+# -- the convergence record -------------------------------------------------
+
+# K7's row pass: nodes per block, so the wrapper sizes the partial rows
+CONVERGE_ROWS_PER_BLOCK = 256
+
+
+def converge_record_plain(
+    have: torch.Tensor, injected_p: torch.Tensor, alive: torch.Tensor,
+    metrics: RunMetrics, meta: PayloadMeta, t: int, cfg: SimConfig,
+):
+    """Plain version of K7."""
+    up = alive == ALIVE
+    c = cfg.chunks_per_version
+    comp_w = all_chunks_words(have, cfg)
+    act_w = smear_groups(fold_any(injected_p, c) & group_low_bits_mask(c), c)
+    masked = torch.where(up[:, None], comp_w, ONES)
+    payload_done = unpack_bits(and_rows(masked) & act_w, cfg.n_payloads)
+    coverage_at = torch.where(
+        (metrics.coverage_at < 0) & payload_done, t, metrics.coverage_at
+    ).to(torch.int32)
+    node_done = ((comp_w | ~act_w[None, :]) == ONES).all(dim=1) & up
+    all_injected = (meta.round <= t).all()
+    converged_at = torch.where(
+        (metrics.converged_at < 0) & node_done & all_injected,
+        t, metrics.converged_at,
+    ).to(torch.int32)
+    done = (meta.round <= t + 1).all() & ((converged_at >= 0) | ~up).all()
+    return coverage_at, converged_at, done
+
+
+def converge_record(
+    have: torch.Tensor, injected_p: torch.Tensor, alive: torch.Tensor,
+    metrics: RunMetrics, meta: PayloadMeta, t: int, cfg: SimConfig,
+):
+    """Round t's convergence record on words: (coverage_at i32[P],
+    converged_at i32[N], done) — the stamps of payloads complete on
+    every up node and of nodes holding every active version, and the
+    run's exit flag for round t + 1 (`_converged_done` on the new
+    metrics), a bool scalar that stays on the device.  K7 on the card:
+    a row pass and a one-block finish."""
+    if have.device.type == "cpu":
+        return converge_record_plain(
+            have, injected_p, alive, metrics, meta, t, cfg
+        )
+    n, w = have.shape
+    p = cfg.n_payloads
+    c = cfg.chunks_per_version
+    check("have", have, torch.int32, (n, w))
+    check("injected_p", injected_p, torch.int32, (w,))
+    check("alive", alive, torch.uint8, (n,))
+    check("meta.round", meta.round, torch.int32, (p,))
+    check("converged_at", metrics.converged_at, torch.int32, (n,))
+    check("coverage_at", metrics.coverage_at, torch.int32, (p,))
+    rows = CONVERGE_ROWS_PER_BLOCK
+    blocks = -(-n // rows)
+    dev = have.device
+    partial = torch.empty((blocks, w + 1), dtype=torch.int32, device=dev)
+    converged_at = torch.empty_like(metrics.converged_at)
+    coverage_at = torch.empty_like(metrics.coverage_at)
+    done = torch.empty((), dtype=torch.bool, device=dev)
+    kernels.CONVERGE_ROWS.launch(
+        [have, injected_p, alive, meta.round, metrics.converged_at,
+         converged_at, partial],
+        [n, w, c, p, t, rows],
+    )
+    kernels.CONVERGE_FINISH.launch(
+        [partial, injected_p, meta.round, metrics.coverage_at, coverage_at,
+         done],
+        [blocks, w, c, p, t],
+    )
+    return coverage_at, converged_at, done
 
 
 # -- the round and the loop --------------------------------------------------
@@ -457,7 +529,10 @@ def packed_round_step(
 ):
     """One gossip tick on packed words, phase-for-phase and PRNG-stream
     identical to JAX's ``packed_round_step``: inject → broadcast → sync →
-    deliver → SWIM → bookkeeping refresh → convergence record."""
+    deliver → SWIM → bookkeeping refresh → convergence record.  Updates
+    ``carry`` and ``injected_p`` in place and returns (state, carry,
+    injected_p, metrics, done), where ``done`` is JAX's
+    ``_converged_done`` after the round, on the device."""
     ks = rng.split(state.key, 4)
     state = state._replace(key=ks[0])
     k_bcast, k_sync, k_swim = ks[1], ks[2], ks[3]
@@ -474,48 +549,34 @@ def packed_round_step(
     carry = deliver_packed(carry, t, cfg)
     state = swim_step(state, cfg, topo, k_swim)
 
-    touched = group_grid(carry.have, cfg, "any")  # [N, A, V]
-    heads = version_heads(touched)
-    gaps = extract_gaps(touched, heads, cfg)
-    state = state._replace(heads=heads, gap_lo=gaps.lo, gap_hi=gaps.hi)
-    frac = gaps.overflow.sum().to(torch.float32) / torch.tensor(
-        float(gaps.overflow.numel()), dtype=torch.float32,
-        device=gaps.overflow.device,
+    heads, gap_lo, gap_hi, n_overflow = refresh_gaps(carry.have, cfg)
+    state = state._replace(heads=heads, gap_lo=gap_lo, gap_hi=gap_hi)
+    # JAX's overflow.mean(f32): the count over the cell count, both f32
+    # (a tensor divisor: torch multiplies by the reciprocal of a scalar)
+    frac = n_overflow.to(torch.float32) / torch.full(
+        (), float(heads.numel()), dtype=torch.float32, device=heads.device
     )
     overflow_frac = torch.maximum(metrics.overflow_frac, frac)
 
-    up = state.alive == ALIVE
-    c = cfg.chunks_per_version
-    comp_w = all_chunks_words(carry.have, cfg)
-    act_w = _smear_groups(
-        _fold_any(injected_p, c) & _group_low_bits_mask(c), c
-    )
-    masked = torch.where(up[:, None], comp_w, ONES)
-    payload_done = unpack_bits(_and_rows(masked) & act_w, cfg.n_payloads)
-    coverage_at = torch.where(
-        (metrics.coverage_at < 0) & payload_done, t, metrics.coverage_at
-    )
-    node_done = ((comp_w | ~act_w[None, :]) == ONES).all(dim=1) & up
-    all_injected = (meta.round <= t).all()
-    converged_at = torch.where(
-        (metrics.converged_at < 0) & node_done & all_injected,
-        t, metrics.converged_at,
+    coverage_at, converged_at, done = converge_record(
+        carry.have, injected_p, state.alive, metrics, meta, t, cfg
     )
     out_metrics = RunMetrics(
-        coverage_at=coverage_at.to(torch.int32),
-        converged_at=converged_at.to(torch.int32),
+        coverage_at=coverage_at,
+        converged_at=converged_at,
         overflow_frac=overflow_frac,
         order_violations=metrics.order_violations,
     )
     state = state._replace(t=state.t + 1)
-    return state, carry, injected_p, out_metrics
+    return state, carry, injected_p, out_metrics, done
 
 
 def _converged_done(
     slim: SimState, metrics: RunMetrics, meta: PayloadMeta
 ) -> torch.Tensor:
     """Exit predicate: every payload injected and every up node
-    converged (a device bool)."""
+    converged (a device bool); the loop takes it from K7 after each
+    round and evaluates it here only before the first."""
     all_injected = (meta.round <= int(slim.t)).all()
     return all_injected & (
         (metrics.converged_at >= 0) | (slim.alive != ALIVE)
@@ -536,10 +597,9 @@ def run_packed(
     slim = shrink_state(state)
     done = _converged_done(slim, metrics, meta)
     while int(slim.t) < max_rounds and not bool(done):
-        slim, carry, inj, metrics = packed_round_step(
+        slim, carry, inj, metrics, done = packed_round_step(
             slim, carry, inj, metrics, meta, cfg, topo, region
         )
-        done = _converged_done(slim, metrics, meta)
     full = unpack_into_state(carry, slim, cfg)
     full = full._replace(
         injected=unpack_bits(inj, cfg.n_payloads).to(torch.uint8)

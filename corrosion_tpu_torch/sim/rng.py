@@ -7,24 +7,32 @@ Bit-for-bit the draws ``jax.random`` makes with
 ``_randint``).  A key is an int64 tensor of shape ``[2]`` holding the
 two u32 halves; there is no global generator.
 
-All arithmetic runs on int64 carriers masked to 32 bits after every
-operation, on the CPU and on the card alike.  That matters beyond
+On a key that lies on the card, `split`, `fold_in`, `bits` and
+`randint` each launch K5 (``kernels/csrc/threefry.cu``), which reads the
+key through its pointer: no draw copies a key to the host.  On a CPU key
+they run the plain versions below, whose arithmetic runs on int64
+carriers masked to 32 bits after every operation.  That matters beyond
 style: ``randint`` squares ``2^16 % span`` *in u32*, which wraps before
 its ``% span`` — at span = 100000 an unmasked int64 product gives a
-different multiplier and wrong draws for every node-range draw.
+different multiplier and wrong draws for every node-range draw.  The
+kernel computes in ``uint32_t`` and gets the wrap for free.
 
 Counters are ``iota_2x32_shape``: the high word is 0 and the low word
-the flat index, so shapes stay below 2^32 elements.
+the flat index, so shapes stay below 2^31 elements (the kernels' int
+sizes; jax's own limit is 2^32).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Union
 
 import torch
 
-from ..device import MASK32
+from .. import kernels
+from ..device import MASK32, i32
+from ..kernels.build import check
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -35,7 +43,8 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 
 def threefry2x32(k1, k2, x1, x2):
     """The 20-round threefry2x32 hash of counter pairs (x1, x2) under key
-    (k1, k2): int64 tensors (or ints) holding u32 values."""
+    (k1, k2): int64 tensors (or ints) holding u32 values.  The plain
+    versions' hash; the kernels' is ``kernels/csrc/threefry.cuh``."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     a = (x1 + ks[0]) & MASK32
     b = (x2 + ks[1]) & MASK32
@@ -62,34 +71,117 @@ def prng_key(seed: int, device) -> torch.Tensor:
     return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
 
 
-def _hash_counts(key: torch.Tensor, shape: Sequence[int]):
+def _size(shape: Sequence[int]) -> int:
     size = math.prod(shape)
-    if size >= 1 << 32:
-        raise ValueError("counter shapes must stay below 2^32 elements")
-    lo = torch.arange(size, dtype=torch.int64, device=key.device)
+    if size >= 1 << 31:
+        raise ValueError("counter shapes must stay below 2^31 elements")
+    return size
+
+
+def _hash_counts(key: torch.Tensor, size: int, base: int = 0):
+    lo = (torch.arange(size, dtype=torch.int64, device=key.device)
+          + base) & MASK32
     return threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+
+
+def _threefry(key: torch.Tensor, size: int, base: int, pairs: bool):
+    """K5's hash entry: int64 ``[size, 2]`` pairs (``pairs``) or ``[size]``
+    xors of the hashes of counters ``base + i``."""
+    check("key", key, torch.int64, (2,))
+    shape = (size, 2) if pairs else (size,)
+    out = torch.empty(shape, dtype=torch.int64, device=key.device)
+    if size:
+        kernels.THREEFRY.launch([key, out], [size, i32(base), int(pairs)])
+    return out
+
+
+def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    b1, b2 = _hash_counts(key, _size((num,)))
+    return torch.stack([b1, b2], dim=-1)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: int64 ``[num, 2]``."""
-    b1, b2 = _hash_counts(key, (num,))
-    return torch.stack([b1, b2], dim=-1)
+    if key.device.type == "cpu":
+        return split_plain(key, num)
+    return _threefry(key, _size((num,)), 0, True)
+
+
+def fold_in_plain(key: torch.Tensor, data: int) -> torch.Tensor:
+    b1, b2 = _hash_counts(key, 1, data & MASK32)
+    return torch.cat([b1, b2])
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``."""
-    b1, b2 = threefry2x32(key[0], key[1], 0, data & MASK32)
-    return torch.stack([b1, b2])
+    if key.device.type == "cpu":
+        return fold_in_plain(key, data)
+    return _threefry(key, 1, data & MASK32, True).reshape(2)
+
+
+def bits_plain(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    b1, b2 = _hash_counts(key, _size(shape))
+    return (b1 ^ b2).reshape(tuple(shape))
 
 
 def bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 in [0, 2^32)."""
-    b1, b2 = _hash_counts(key, tuple(shape))
-    return (b1 ^ b2).reshape(tuple(shape))
+    if key.device.type == "cpu":
+        return bits_plain(key, shape)
+    return _threefry(key, _size(shape), 0, False).reshape(tuple(shape))
 
 
 _I32_MAX = (1 << 31) - 1
 _I32_MIN = -(1 << 31)
+
+
+def _check_minval(minval: int) -> None:
+    if not _I32_MIN < minval <= _I32_MAX:
+        # minval = int32 min with an out-of-range maxval is jax's span
+        # 2^32, which wraps to 0 — no caller draws over the whole range
+        raise ValueError(f"minval {minval} outside (-2^31, 2^31)")
+
+
+def _span_multiplier(hi: torch.Tensor, minval: int):
+    """jax _randint's span and u32 multiplier for int64 maxvals ``hi``."""
+    hi_out_of_range = hi > _I32_MAX
+    hi = hi.clamp(_I32_MIN, _I32_MAX)
+    span = (hi - minval) & MASK32
+    span = torch.where(hi <= minval, torch.ones_like(span), span)
+    span = torch.where(
+        hi_out_of_range & (hi > minval), (span + 1) & MASK32, span
+    )
+    multiplier = torch.remainder(torch.full_like(span, 1 << 16), span)
+    return span, _mul32(multiplier, multiplier) % span
+
+
+def randint_plain(
+    key: torch.Tensor,
+    shape: Sequence[int],
+    minval: int,
+    maxval: Union[int, torch.Tensor],
+) -> torch.Tensor:
+    _check_minval(minval)
+    if isinstance(maxval, torch.Tensor):
+        hi = maxval.to(torch.int64)
+    else:  # a fill, not a host copy: the plain draws stay graph-capturable
+        hi = torch.full((), int(maxval), dtype=torch.int64, device=key.device)
+    span, multiplier = _span_multiplier(hi, minval)
+    k = split_plain(key, 2)
+    higher = bits_plain(k[0], shape)
+    lower = bits_plain(k[1], shape)
+    offset = (_mul32(higher % span, multiplier) + lower % span) & MASK32
+    offset = offset % span
+    return (minval + offset).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar_span(minval: int, maxval: int):
+    """`_span_multiplier` of a scalar maxval as host ints, for K5 (once
+    per (minval, maxval): the round draws the same spans every time)."""
+    span, mult = _span_multiplier(torch.tensor(maxval, dtype=torch.int64),
+                                  minval)
+    return int(span), int(mult)
 
 
 def randint(
@@ -100,26 +192,29 @@ def randint(
 ) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``;
     ``maxval`` is an int or an integer tensor broadcastable to
-    ``shape``.  Returns int32."""
-    if not _I32_MIN < minval <= _I32_MAX:
-        # minval = int32 min with an out-of-range maxval is jax's span
-        # 2^32, which wraps to 0 — no caller draws over the whole range
-        raise ValueError(f"minval {minval} outside (-2^31, 2^31)")
-    hi = torch.as_tensor(maxval, device=key.device).to(torch.int64)
-    hi_out_of_range = hi > _I32_MAX
-    hi = hi.clamp(_I32_MIN, _I32_MAX)
-
-    k = split(key, 2)
-    higher = bits(k[0], shape)
-    lower = bits(k[1], shape)
-
-    span = (hi - minval) & MASK32
-    span = torch.where(hi <= minval, torch.ones_like(span), span)
-    span = torch.where(
-        hi_out_of_range & (hi > minval), (span + 1) & MASK32, span
+    ``shape``.  Returns int32.  On the card one K5 launch draws it all."""
+    if key.device.type == "cpu":
+        return randint_plain(key, shape, minval, maxval)
+    _check_minval(minval)
+    shape = tuple(shape)
+    size = _size(shape)
+    check("key", key, torch.int64, (2,))
+    out = torch.empty(shape, dtype=torch.int32, device=key.device)
+    if not size:
+        return out
+    if isinstance(maxval, torch.Tensor):
+        if maxval.dtype not in (torch.int32, torch.int64):
+            raise TypeError(
+                f"maxval must be int32 or int64, got {maxval.dtype}"
+            )
+        hi = maxval.expand(shape).contiguous()
+        check("maxval", hi, hi.dtype, shape)
+        per_element = 1 if hi.dtype == torch.int32 else 2
+        span = mult = 0
+    else:
+        hi, per_element = None, 0
+        span, mult = _scalar_span(minval, int(maxval))
+    kernels.RANDINT.launch(
+        [key, hi, out], [size, minval, i32(span), i32(mult), per_element]
     )
-    multiplier = torch.remainder(torch.full_like(span, 1 << 16), span)
-    multiplier = _mul32(multiplier, multiplier) % span
-    offset = (_mul32(higher % span, multiplier) + lower % span) & MASK32
-    offset = offset % span
-    return (minval + offset).to(torch.int32)
+    return out

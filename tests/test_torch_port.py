@@ -1,16 +1,19 @@
 """Package rules of the PyTorch/CUDA port: it imports nothing of JAX or
 of the JAX package, its entry points refuse to drift to the CPU, its
-wrappers check what reaches C, and each CUDA source names the JAX
-function it replaces at the right line."""
+wrappers check what reaches C, each CUDA source names the JAX function
+it replaces at the right line, and a built library's name follows every
+header its source includes."""
 
 import ast
 import re
+import shutil
 from pathlib import Path
 
 import pytest
 import torch
 
 from corrosion_tpu_torch.device import resolve_device
+from corrosion_tpu_torch.kernels import build
 from corrosion_tpu_torch.kernels.build import CSRC, SOURCES, check
 from corrosion_tpu_torch.sim.runner import config_write_storm_100k
 
@@ -66,3 +69,35 @@ def test_cuda_source_names_the_jax_function_it_replaces(source):
     jax_file = ROOT / "corrosion_tpu" / "sim" / m.group(1)
     line = jax_file.read_text().splitlines()[int(m.group(2)) - 1]
     assert line.startswith(f"def {m.group(3)}("), (source, line)
+
+
+def test_library_name_follows_included_headers(tmp_path):
+    """An edit to a header a source includes, directly or through another
+    header, renames the source's library, so a stale build never loads;
+    an edit to an unrelated file does not."""
+    shutil.copytree(CSRC, tmp_path, dirs_exist_ok=True)
+    assert build.local_includes("threefry.cu", tmp_path) == ["threefry.cuh"]
+    before = build._lib_path("threefry.cu", tmp_path)
+    assert before == build._lib_path("threefry.cu")  # same bytes, same name
+    header = tmp_path / "threefry.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = build._lib_path("threefry.cu", tmp_path)
+    assert edited != before
+
+    (tmp_path / "inner.cuh").write_text("#pragma once\n")
+    header.write_text(header.read_text() + '#include "inner.cuh"\n')
+    assert build.local_includes("threefry.cu", tmp_path) == [
+        "inner.cuh", "threefry.cuh"]
+    nested = build._lib_path("threefry.cu", tmp_path)
+    (tmp_path / "inner.cuh").write_text("#pragma once\n// edited\n")
+    assert build._lib_path("threefry.cu", tmp_path) != nested
+
+    other = build._lib_path("sync_pull.cu", tmp_path)
+    header.write_text(header.read_text() + "// again\n")
+    assert build._lib_path("sync_pull.cu", tmp_path) == other
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_cuda_source_includes_exist(source):
+    for name in build.local_includes(source):
+        assert (CSRC / name).is_file(), (source, name)

@@ -109,3 +109,30 @@ def test_randint_u32_wrap():
         [(h % span * mult + l % span) % span for h, l in zip(hi, lo)]
     )
     assert (unwrapped != want).mean() > 0.9
+
+
+@pytest.mark.parametrize("minval, maxval", ((0, 1), (1, 2), (1, 1), (5, -3)))
+def test_randint_span_of_one(minval, maxval):
+    """A scalar span of 1, and maxval <= minval (jax's hi <= minval
+    branch): every draw is minval, through the same hashes."""
+    key = jax.random.PRNGKey(11)
+    want = np.asarray(jax.random.randint(key, (1000,), minval, maxval,
+                                         jnp.int32))
+    got = _np(rng.randint(rng.prng_key(11, "cpu"), (1000,), minval, maxval))
+    np.testing.assert_array_equal(want, got)
+    assert (got == minval).all()
+
+
+def test_randint_array_maxval_at_or_below_minval():
+    """Per-element maxval with entries at and below minval beside real
+    spans (the rearm's shape with degenerate backoffs)."""
+    g = np.random.default_rng(5)
+    maxval = g.integers(-2, 40, 50_000).astype(np.int32)
+    key = jax.random.PRNGKey(5)
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.randint(key, (50_000,), 1, jnp.asarray(maxval),
+                                      jnp.int32)),
+        _np(rng.randint(rng.prng_key(5, "cpu"), (50_000,), 1,
+                        torch.from_numpy(maxval))),
+    )
+

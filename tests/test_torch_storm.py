@@ -125,7 +125,7 @@ def test_storm_512_round_by_round(cfgs):
         jslim, jcarry, jinj, jmet = step(
             jslim, jcarry, jinj, jmet, jmeta, jcfg, JaxTopology(), jregion
         )
-        pslim, pcarry, pinj, pmet = packed.packed_round_step(
+        pslim, pcarry, pinj, pmet, pdone = packed.packed_round_step(
             pslim, pcarry, pinj, pmet, pmeta, pcfg, Topology(), pregion
         )
         label = f"round {r}"
@@ -141,6 +141,7 @@ def test_storm_512_round_by_round(cfgs):
         _assert_metrics(jmet, pmet, label)
         jdone = bool(jpacked._converged_done(jslim, jmet, jmeta))
         assert jdone == bool(packed._converged_done(pslim, pmet, pmeta))
+        assert jdone == bool(pdone), f"{label}: the round's done flag"
         if jdone:
             break
     assert jdone and int(jslim.t) == goldens.STORM_512_SEED7["rounds"]
