@@ -6,27 +6,36 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the eight CUDA kernels K1–K8 from
+2. build the eleven CUDA kernels K1–K11 from the ten sources in
    ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
-   k = 8, A = 16, V = 8, C = 4, K = 8), call each kernel's wrappers and
-   their plain torch versions on the same card tensors, require exact
-   equality, and time both (CUDA events around a CUDA-graph replay of 20
-   calls, after warm-up; kernels that update in place are timed with
-   their inputs restored before every call, less the restore's own
+   k = 8, A = 16, V = 8, C = 4, K = 8; the fault storm's plan: Kb = 2,
+   Kl = 1, threshold 38, E up to 300000), call each kernel's wrappers
+   and their plain torch versions on the same card tensors, require
+   exact equality, and time both (CUDA events around a CUDA-graph replay
+   of 20 calls, after warm-up; kernels that update in place are timed
+   with their inputs restored before every call, less the restore's own
    time).  The inputs reach each kernel's traps: words with bit 31 set,
    spans 100000, 64 and 1, a per-element maxval and minval 1, gap rows
-   with more than K runs, dead rows;
-4. run the 512-node seed-7 write storm on the card and hold its final
-   state digest, rounds and p99 against the pinned JAX goldens;
+   with more than K runs, dead rows, self-edges and both sides of the
+   partition, probe draws whose size is not a multiple of 128, a wiped
+   row, both values of the fault loop's done flag;
+4. run the 512-node seed-7 write storm and fault storm on the card and
+   hold their final state digests, rounds and p99 against the pinned JAX
+   goldens;
 5. with every launch counter at 0, run ``config_write_storm_100k(seed=0)``
    on the card, hold rounds, p99 and the state digest against the pinned
-   JAX goldens, and require every entry point of every kernel to have
+   JAX goldens, and require every entry point of K1–K8 to have launched;
+6. with every launch counter at 0 again, run
+   ``config_packed_fault_storm(seed=0)`` (the fault storm, then its
+   faultless twin), hold the fault run's rounds, p99 and digest against
+   the goldens, and require every entry point of K1–K11 to have
    launched;
-6. profile the storm's first rounds (host wall, device time by kernel
-   from ``torch.profiler``, the device's idle share);
-7. print the card line, the kernels JSON line, then the one-line result
+7. profile the first 3 rounds of both storms and the fault storm's
+   12-round loss window (host wall, device time by kernel from
+   ``torch.profiler``, the device's idle share);
+8. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -45,10 +54,11 @@ import numpy as np
 import torch
 
 # H100 SXM device-memory rate (NVIDIA data sheet): the bound of every
-# kernel here but K5 is the bytes it must move
+# kernel here but K5 and K10 is the bytes it must move
 HBM_BYTES_PER_S = 3.35e12
-# K5 is bound by integer instructions: Hopper issues 64 INT32 lanes per
-# SM per clock (4 partitions × 16), over the card's SMs at its max clock
+# K5 and K10 are bound by integer instructions: Hopper issues 64 INT32
+# lanes per SM per clock (4 partitions × 16), over the card's SMs at its
+# max clock
 INT32_LANES_PER_SM = 64
 # u32 operations the kernels do, counted from the sources: a threefry2x32
 # hash is 2 + 5 × (4 × 3 + 2) adds, xors and funnel shifts; a randint
@@ -98,6 +108,23 @@ def _time_ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
+def _time_eager_ms(fn) -> float:
+    """Device milliseconds per call of a function that syncs with the
+    host (and so cannot be captured in a graph): CUDA events around REPS
+    eager calls after WARMUP, launch overhead included."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
 def _time_inplace_ms(fn, restore) -> float:
     """`_time_ms` of a function that updates its inputs in place: each
     call runs on inputs ``restore`` put back, and the restore's own time
@@ -114,29 +141,37 @@ KERNEL_SYMBOLS = (
     "merge_scatter_kernel", "merge_apply_kernel", "threefry_kernel",
     "randint_kernel", "gaps_refresh_kernel", "converge_rows_kernel",
     "converge_finish_kernel", "inject_kernel", "spend_kernel",
-    "deliver_kernel",
+    "deliver_kernel", "fault_edges_kernel", "fault_reach_kernel",
+    "node_faults_kernel",
 )
 
 
-def profile_storm(dev, rounds=3):
+def profile_storm(dev, rounds=3, faults=False):
     """Where a 100k storm round's time goes on the card: the first
-    ``rounds`` rounds on the host clock, then again under torch.profiler
-    for device time by kernel (its own run: the profiler slows the
-    host)."""
+    ``rounds`` rounds of the faultless storm, or with ``faults`` of the
+    fault storm (inside its loss window), on the host clock, then again
+    under torch.profiler for device time by kernel (its own run: the
+    profiler slows the host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
     from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
-    from corrosion_tpu_torch.sim.runner import _write_storm
+    from corrosion_tpu_torch.sim.runner import _write_storm, storm_fault_plan
     from corrosion_tpu_torch.sim.topology import Topology
 
     cfg, meta = _write_storm(100_000, 512, dev)
+    if faults:
+        fplan = compile_plan(storm_fault_plan(100_000, 0), cfg, device=dev)
 
     def run():
         state = new_sim(cfg, 0, dev)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        run_to_convergence(state, meta, cfg, Topology(), rounds)
+        if faults:
+            run_fault_plan(state, meta, cfg, Topology(), fplan, rounds)
+        else:
+            run_to_convergence(state, meta, cfg, Topology(), rounds)
         torch.cuda.synchronize()
         return time.monotonic() - t0
 
@@ -158,12 +193,17 @@ def profile_storm(dev, rounds=3):
     # int64 elementwise kernels: the threefry's carriers (and index casts)
     long_us = sum(us for key, us, _ in device if "<long" in key)
     return {
+        "storm": "fault" if faults else "faultless",
         "device_kernel_names": len(device),
         "rounds": rounds,
         "wall_ms_per_round": wall / rounds * 1e3,
         "device_ms_per_round": total_us / 1e3 / rounds,
         "idle_share": 1.0 - total_us / 1e6 / wall,
         "port_kernels_ms_per_round": ours_us / 1e3 / rounds,
+        "port_kernel_ms_per_round": {
+            sym: sum(us for key, us, _ in device if sym in key) / 1e3 / rounds
+            for sym in KERNEL_SYMBOLS
+        },
         "int64_kernels_ms_per_round": long_us / 1e3 / rounds,
         "device_launches_per_round": sum(c for _, _, c in device) / rounds,
         "top": [
@@ -318,6 +358,7 @@ def compare_kernels(dev, seed=0, n=100_000):
     rows.append(compare_gaps_refresh(dev, rng, n, w))
     rows.append(compare_converge_fold(dev, rng, n, w))
     rows.append(compare_word_phases(dev, rng, n, w, f))
+    rows += compare_fault_seam(dev, rng, n, w, f)
     for row in rows:
         row.setdefault("bound_by", "bytes")
         row.update(route="cuda", library_ms=None)
@@ -426,7 +467,9 @@ def compare_gaps_refresh(dev, g, n, w):
 def compare_converge_fold(dev, g, n, w):
     """K7 with dead rows and all-ones words (bit 31 set): once with holes
     (payload stamps only), once complete past the last injection (node
-    stamps and the done flag)."""
+    stamps and the done flag); then the fault loop's exit mode at the
+    fault storm's horizon 21: before it, at it, and at it with an up row
+    wiped after its sticky stamp (done must fall back to False)."""
     from corrosion_tpu_torch.sim import packed
     from corrosion_tpu_torch.sim.round import RunMetrics
 
@@ -450,19 +493,30 @@ def compare_converge_fold(dev, g, n, w):
         overflow_frac=torch.zeros((), device=dev),
         order_violations=torch.zeros((), dtype=torch.int32, device=dev),
     )
+    wiped = full.copy()
+    victim = int(np.flatnonzero(~dead)[0])
+    wiped[victim] = 0
+    stamped = metrics._replace(converged_at=metrics.converged_at.clone())
+    stamped.converged_at[victim] = 3
     cases = []
-    for words, t in ((holes, 10), (full, 20)):
+    for words, t, m, horizon in ((holes, 10, metrics, None),
+                                 (full, 20, metrics, None),
+                                 (full, 19, metrics, 21),
+                                 (full, 20, metrics, 21),
+                                 (wiped, 20, stamped, 21)):
         have = torch.as_tensor(words.view(np.int32), device=dev)
-        args = (have, inj, alive, metrics, meta, t, cfg)
+        args = (have, inj, alive, m, meta, t, cfg, horizon)
         cases.append((args, packed.converge_record(*args),
                       packed.converge_record_plain(*args)))
     equal, err = True, 0
     for _, got, want in cases:
         e, x = _equal_all(got, want)
         equal, err = equal and e, max(err, x)
-    if [bool(c[2][2]) for c in cases] != [False, True]:
-        raise AssertionError("K7 inputs do not reach both done values")
+    if [bool(c[2][2]) for c in cases] != [False, True, False, True, False]:
+        raise AssertionError("K7 inputs do not reach both done values in "
+                             "both modes")
     args = cases[0][0]
+    exit_args = cases[3][0]  # the fault loop's exit mode, done reached
     return dict(
         name="converge_fold",
         source="corrosion_tpu_torch/kernels/csrc/converge_fold.cu",
@@ -470,6 +524,9 @@ def compare_converge_fold(dev, g, n, w):
         equal=equal, max_abs_err=err,
         ms=_time_ms(lambda: packed.converge_record(*args)),
         plain_ms=_time_ms(lambda: packed.converge_record_plain(*args)),
+        exit_mode_ms=_time_ms(lambda: packed.converge_record(*exit_args)),
+        exit_mode_plain_ms=_time_ms(
+            lambda: packed.converge_record_plain(*exit_args)),
         # have, injected_p, alive, meta.round; converged_at and
         # coverage_at in and out; the done flag
         bound_ms=_bound_ms(n * w * 4 + w * 4 + n + p * 4 + n * 4 * 2
@@ -562,6 +619,240 @@ def compare_word_phases(dev, g, n, w, f):
     )
 
 
+def _storm_fault_round(dev, n, t):
+    """The 100k fault storm's config, compiled plan and round t's slice."""
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim.runner import storm_fault_plan
+
+    cfg, meta = _storm_cfg(n, dev)
+    fplan = faults.compile_plan(storm_fault_plan(n, 0), cfg, device=dev)
+    return cfg, meta, fplan, faults.round_faults(fplan, t)
+
+
+def _fault_edge_calls(fs, rf, key, calls):
+    """A fault-storm round's K9 calls through ``fs`` (the wrappers, or the
+    plain versions): the five probe reach calls, the sync sessions' cut
+    in either direction, and the wire's cuts and thresholds."""
+    out = []
+    for kind, src, dst, ok in calls:
+        if kind == "reach":
+            out.append(fs.reach(ok.clone(), rf, key, src, dst))
+        elif kind == "session":
+            out.append(fs.session(rf, src, dst))
+        else:
+            out += list(fs.wire(rf, src, dst, ok.clone()))
+    return out
+
+
+def compare_fault_seam(dev, g, n, w, f):
+    """K9, K10 and K11 at the 100k fault storm's shapes and plan, on
+    round 5 (loss and partition on) and the wipe round 20."""
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim import rng as trng
+
+    cfg, meta, fplan, rf = _storm_fault_round(dev, n, 5)
+    key = trng.prng_key(99, dev)
+
+    def edges(e, per_node=None):
+        src = (torch.arange(n, dtype=torch.int32, device=dev)
+               .repeat_interleave(per_node) if per_node
+               else torch.as_tensor(g.integers(0, n, e), dtype=torch.int32,
+                                    device=dev))
+        dst = g.integers(0, n, e)
+        self_edge = g.random(e) < 0.05
+        dst = torch.as_tensor(dst, dtype=torch.int32, device=dev)
+        dst = torch.where(torch.as_tensor(self_edge, device=dev), src, dst)
+        ok = torch.as_tensor(g.random(e) < 0.9, device=dev)
+        return src, dst.contiguous(), ok
+
+    # the round's calls: probe direct, relay legs, gossip, announce;
+    # sessions; the wire (E = N, 3N, 3N, 3N, N; 3N; 3N)
+    calls = [("reach", *edges(n, 1)), ("reach", *edges(3 * n, 3)),
+             ("reach", *edges(3 * n)), ("reach", *edges(3 * n, 3)),
+             ("reach", *edges(n, 1)), ("session", *edges(3 * n, 3)),
+             ("wire", *edges(3 * n, 3))]
+    if all(c[1].shape[0] % 128 == 0 for c in calls if c[0] == "reach"):
+        raise AssertionError("K9 inputs reach no padded probe draw")
+    kern = SimpleNamespace(reach=faults.fault_reach_,
+                           session=faults.fault_session_refused,
+                           wire=faults.fault_wire_effects)
+    plain = SimpleNamespace(
+        reach=faults.fault_reach_plain,
+        session=lambda rf, s, d: (faults._block_plain(rf, s, d)
+                                  | faults._block_plain(rf, d, s)),
+        wire=lambda rf, s, d, ok: (
+            ok.__iand__(~faults._block_plain(rf, s, d)),
+            faults._loss_plain(rf, s, d)),
+    )
+    got = _fault_edge_calls(kern, rf, key, calls)
+    want = _fault_edge_calls(plain, rf, key, calls)
+    equal, err = _equal_all(got, want)
+    # the queries on their own, on the wire's edges
+    _, ws, wd, _ = calls[-1]
+    for q, ref in ((faults.fault_edge_block, faults._block_plain),
+                   (faults.fault_edge_loss, faults._loss_plain)):
+        e2, x2 = _equal_all([q(rf, ws, wd)], [ref(rf, ws, wd)])
+        equal, err = equal and e2, max(err, x2)
+    blk, thr = faults._block_plain(rf, ws, wd), want[-1]
+    if not (bool(blk.any()) and bool((~blk & (ws != wd)).any())
+            and bool((ws == wd).any()) and int(thr.max()) == 38):
+        raise AssertionError("K9 inputs miss a partition side, a "
+                             "self-edge or the loss threshold")
+    kl = int(rf.loss_src.shape[0])
+    kb = int(rf.block_src.shape[0])
+    nbytes = sum(c[1].shape[0] * 8 for c in calls)  # the edge ids
+    nbytes += sum(c[1].shape[0] * (2 if c[0] == "reach" else 1)
+                  for c in calls)  # ok in and out, or the cut out
+    nbytes += 3 * n + 1 + n * 2 * (kb + kl) * len(calls)  # wire's thr, masks
+    # distinct draw words of the reach calls' edges that need one
+    words = 0
+    for (kind, src, dst, ok), out in zip(calls, got):
+        if kind == "reach":
+            need = (ok & ~faults._block_plain(rf, src, dst)
+                    & (faults._loss_plain(rf, src, dst) > 0))
+            idx = torch.nonzero(need).flatten() // 4
+            words += int(torch.unique(idx).numel())
+    rate = _int32_ops_per_s()
+    ops = words * OPS_PER_HASH
+    k9 = dict(
+        name="fault_edges",
+        source="corrosion_tpu_torch/kernels/csrc/fault_edges.cu",
+        replaces="corrosion_tpu/sim/faults.py:182",
+        equal=equal, max_abs_err=err,
+        ms=_time_ms(lambda: _fault_edge_calls(kern, rf, key, calls)),
+        plain_ms=_time_ms(lambda: _fault_edge_calls(plain, rf, key, calls)),
+        bound_ms=max(_bound_ms(nbytes), ops / rate * 1e3),
+        bound_by="bytes" if _bound_ms(nbytes) >= ops / rate * 1e3
+        else "operations",
+        calls=len(calls),
+    )
+
+    # K10: the wire's scatter with the loss drawn in the kernel
+    sending = _random_words(g, (n, w), dev, 4)
+    _, src, dst, ok0 = calls[-1]
+    ok = ok0.clone()
+    ok, thr = faults.fault_wire_effects(rf, src, dst, ok)
+    dst = torch.clamp(dst, min=0)
+    slot = torch.full_like(dst, 5 % 2)
+    ring0 = _random_words(g, (2, n, w), dev, 6)
+    seed = int(rf.seed)
+    got_r, want_r = ring0.clone(), ring0.clone()
+    packed.scatter_sending_lossy(got_r, sending, dst, slot, ok, thr, key,
+                                 seed, f)
+    packed.scatter_sending_lossy_plain(want_r, sending, dst, slot, ok, thr,
+                                       key, seed, f)
+    lossless = ring0.clone()
+    packed.scatter_sending_plain(lossless, sending, dst, slot, ok, f)
+    if torch.equal(lossless, want_r):
+        raise AssertionError("K10 inputs drop no payload")
+    live = ok & (thr > 0)
+    sent_words = (sending.repeat_interleave(f, dim=0) != 0) & live[:, None]
+    hashes = int(sent_words.sum()) * 8
+    rows_touched = torch.unique((slot.long() * n + dst.long())[ok]).numel()
+    k10_bytes = (sending.numel() * 4 + src.shape[0] * 10
+                 + rows_touched * w * 4 * 2)
+    k10_ops = hashes * OPS_PER_HASH
+    ring_k, ring_p = ring0.clone(), ring0.clone()
+    k10 = dict(
+        name="broadcast_scatter_lossy",
+        source="corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
+        replaces="corrosion_tpu/sim/faults.py:260",
+        equal=bool(torch.equal(got_r, want_r)),
+        max_abs_err=_max_abs_err(got_r, want_r),
+        ms=_time_ms(lambda: packed.scatter_sending_lossy(
+            ring_k, sending, dst, slot, ok, thr, key, seed, f)),
+        # the plain version finds its pairs with a host sync: eager
+        plain_ms=_time_eager_ms(lambda: packed.scatter_sending_lossy_plain(
+            ring_p, sending, dst, slot, ok, thr, key, seed, f)),
+        bound_ms=max(_bound_ms(k10_bytes), k10_ops / rate * 1e3),
+        bound_by="operations" if k10_ops / rate * 1e3 > _bound_ms(k10_bytes)
+        else "bytes",
+        ops=k10_ops, hashes=hashes,
+    )
+    return [k9, k10, compare_node_faults(dev, g, n, w, cfg, fplan)]
+
+
+def compare_node_faults(dev, g, n, w, cfg, fplan):
+    """K11 on round 20 of the fault storm (node 1's restart: an override
+    and a wiped row) and round 8 (its crash: an override only), on a
+    mid-storm slim state and carry."""
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim.state import init_state
+
+    m, t = cfg.member_slots, 20
+    slim = packed.shrink_state(init_state(cfg, torch.tensor(
+        [0, 5], dtype=torch.int64, device=dev)))
+    pid, pkey, psince = _random_tables(g, n, m, t)
+    a, k = cfg.n_writers, cfg.gap_slots
+    slim = slim._replace(
+        pid=torch.as_tensor(pid, dtype=torch.int32, device=dev),
+        pkey=torch.as_tensor(pkey, dtype=torch.int32, device=dev),
+        psince=torch.as_tensor(psince, dtype=torch.int32, device=dev),
+        heads=torch.as_tensor(g.integers(1, 9, (n, a)), dtype=torch.int32,
+                              device=dev),
+        gap_lo=torch.as_tensor(g.integers(0, 9, (n, a, k)),
+                               dtype=torch.int32, device=dev),
+        gap_hi=torch.as_tensor(g.integers(0, 9, (n, a, k)),
+                               dtype=torch.int32, device=dev),
+        alive=torch.as_tensor((g.random(n) < 0.05) * 2, dtype=torch.uint8,
+                              device=dev),
+    )
+    carry = packed.PackedCarry(
+        have=_random_words(g, (n, w), dev),
+        inflight=_random_words(g, (2, n, w), dev, 3),
+        relay=packed.Planes(*(_random_words(g, (n, w), dev, 2)
+                              for _ in range(4))),
+        sync_buf=_random_words(g, (2, n, w), dev, 3),
+    )
+    names = ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey", "psince")
+
+    def flat(sl, c):
+        return [getattr(sl, x) for x in names] + [
+            c.have, *c.relay, c.inflight, c.sync_buf]
+
+    def unflat(xs):
+        sl = slim._replace(**dict(zip(names, xs[:7])))
+        return sl, packed.PackedCarry(have=xs[7], relay=packed.Planes(
+            *xs[8:12]), inflight=xs[12], sync_buf=xs[13])
+
+    base = flat(slim, carry)
+    plain = lambda sl, c, rf: (  # noqa: E731
+        faults.apply_node_faults(sl, rf), packed.apply_carry_faults(c, rf))
+    equal, err = True, 0
+    for r in (20, 8):
+        rf = faults.round_faults(fplan, r)
+        outs = []
+        for fn in (packed.apply_round_faults, plain):
+            xs = [x.clone() for x in base]
+            fn(*unflat(xs), rf)
+            outs.append(xs)
+        e, x = _equal_all(outs[0], outs[1])
+        equal, err = equal and e, max(err, x)
+        if r == 20 and (int(rf.wipe.sum()) != 1
+                        or torch.equal(outs[0][7], base[7])):
+            raise AssertionError("K11 inputs wipe no row")
+    rf = faults.round_faults(fplan, t)
+    work = [x.clone() for x in base]
+
+    def restore():
+        for dst, src in zip(work, base):
+            dst.copy_(src)
+
+    wiped = int(rf.wipe.sum())
+    row = (w * (5 + 2 * 2) + a + 2 * a * k + 3 * m) * 4
+    return dict(
+        name="node_faults",
+        source="corrosion_tpu_torch/kernels/csrc/node_faults.cu",
+        replaces="corrosion_tpu/sim/faults.py:703",
+        equal=equal, max_abs_err=err,
+        ms=_time_inplace_ms(
+            lambda: packed.apply_round_faults(*unflat(work), rf), restore),
+        plain_ms=_time_inplace_ms(lambda: plain(*unflat(work), rf), restore),
+        # the override, the wipe mask and alive in and out; wiped rows out
+        bound_ms=_bound_ms(n * 4 + wiped * row),
+    )
+
+
 def _storm_check(result, golden, label):
     from corrosion_tpu_torch.convert import state_digest
 
@@ -580,17 +871,48 @@ def _storm_check(result, golden, label):
         raise AssertionError(f"{label}: did not converge")
 
 
+def _fault_record(final, metrics, wall):
+    """A fault run's record in `_storm_check`'s terms."""
+    from corrosion_tpu_torch.sim.runner import _node_convergence
+
+    conv = _node_convergence(metrics, final)
+    return {"state": final, "rounds": int(final.t), "wall_clock_s": wall,
+            "converged": conv["unconverged_nodes"] == 0, **conv}
+
+
+def _path_launches(kernels, rows, label):
+    """Read every entry point's launch count after a path ran from 0,
+    require each entry of ``rows``' kernels to have launched, and return
+    the counts of every kernel row."""
+    entries = {kern.name: kern.launches for kern in kernels.KERNELS}
+    off = [row for row in kernels.PORTED if row not in rows]
+    print(f"{label} launches={json.dumps(entries)} off_path={off}",
+          flush=True)
+    for row in rows:
+        for kern in kernels.PORTED[row]:
+            if kern.launches <= 0:
+                raise AssertionError(f"kernel entry {kern.name} never "
+                                     f"launched on the {label} path")
+    return {row: sum(k.launches for k in entries_)
+            for row, entries_ in kernels.PORTED.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU",
               file=sys.stderr)
         return 2
     from corrosion_tpu_torch import goldens, kernels
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim.round import new_sim
     from corrosion_tpu_torch.sim.runner import (
         _write_storm,
+        config_packed_fault_storm,
         config_write_storm_100k,
         run_scenario,
+        storm_fault_plan,
     )
+    from corrosion_tpu_torch.sim.topology import Topology
 
     dev = torch.device("cuda")
     card = _card_line()
@@ -608,27 +930,60 @@ def main() -> int:
     small = run_scenario(cfg, meta, seed=7, max_rounds=600, device=dev,
                          return_state=True)
     _storm_check(small, goldens.STORM_512_SEED7, "storm_512_seed7")
+    fplan = faults.compile_plan(storm_fault_plan(512, 7), cfg,
+                                factored=True, device=dev)
+    t0 = time.monotonic()
+    final, metrics = faults.run_fault_plan(
+        new_sim(cfg, 7, dev), meta, cfg, Topology(), fplan, max_rounds=600)
+    torch.cuda.synchronize()
+    _storm_check(_fault_record(final, metrics, time.monotonic() - t0),
+                 goldens.FAULT_STORM_512_SEED7, "fault_storm_512_seed7")
 
+    # path 1, the faultless storm: K1-K8
+    faultless_rows = list(kernels.PORTED)[:8]
     kernels.reset_launch_counts()
     big = config_write_storm_100k(seed=0, device=dev, return_state=True)
-    entries = {kern.name: kern.launches for kern in kernels.KERNELS}
+    launches = _path_launches(kernels, faultless_rows, "storm_100k")
     _storm_check(big, goldens.STORM_100K_SEED0, "storm_100k_seed0")
-    print(f"storm_100k launches={json.dumps(entries)} "
-          f"rounds={big['rounds']} "
-          f"p99={big['p99_node_convergence_round']}", flush=True)
-    for name, count in entries.items():
-        if count <= 0:
-            raise AssertionError(f"kernel entry {name} never launched on "
-                                 "the main path")
-    launches = {
-        row: sum(kern.launches for kern in group)
-        for row, group in kernels.PORTED.items()
-    }
+
+    # path 2, the 100k fault storm alone: K1 and K3-K11.  Every fault
+    # round scatters through K10, so K2 is off this path.
+    cfg, meta = _write_storm(100_000, 512, dev)
+    fplan = faults.compile_plan(storm_fault_plan(100_000, 0), cfg,
+                                device=dev)
+    state = new_sim(cfg, 0, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    final, metrics = faults.run_fault_plan(
+        state, meta, cfg, Topology(), fplan, max_rounds=3000)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    fault_launches = _path_launches(
+        kernels, [row for row in kernels.PORTED if row != "broadcast_scatter"],
+        "fault_storm_100k")
+    _storm_check(_fault_record(final, metrics, wall),
+                 goldens.FAULT_STORM_100K_SEED0, "fault_storm_100k")
+
+    # the fault storm's entry point, with its faultless twin
+    fault = config_packed_fault_storm(seed=0, device=dev, return_state=True)
+    _storm_check(fault, goldens.FAULT_STORM_100K_SEED0,
+                 "config_packed_fault_storm")
+    print("config_packed_fault_storm: " + json.dumps({
+        k: v for k, v in fault.items() if k not in ("state", "metrics")}),
+        flush=True)
 
     print("profile: " + json.dumps(profile_storm(dev)), flush=True)
+    print("profile: " + json.dumps(profile_storm(dev, faults=True)),
+          flush=True)
+    # the whole loss window, where most nodes send and K10 draws most
+    print("profile: " + json.dumps(profile_storm(dev, 12, faults=True)),
+          flush=True)
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = (launches if row["name"] in faultless_rows
+                           else fault_launches)[row["name"]]
+        row["fault_path_launches"] = fault_launches[row["name"]]
         row["kernel_ms"] = row["ms"]
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

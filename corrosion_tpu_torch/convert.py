@@ -6,7 +6,9 @@ u8 for ``have``, the rings and ``relay_left``; u32 for ``key`` and
 ``incarnation``; i8 for ``view``; i32 for the rest.  The port's word
 ring ``inflight [D, N, W]`` goes back to JAX's dense u8 ``[D, N, P]``.
 `state_digest` is the blake2b fingerprint the JAX suite pins final
-states with, taken over `state_to_numpy`.
+states with, taken over `state_to_numpy`.  `fault_plan_from_numpy` maps
+a compiled factored fault plan across, so both packages can run the
+very same plan.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .sim.faults import FactoredFaultPlan
 from .sim.words import pack_bits, unpack_bits
 from .sim.state import PayloadMeta, SimConfig, SimState
 
@@ -76,6 +79,22 @@ def meta_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> PayloadMeta:
         name: torch.from_numpy(np.asarray(d[name]).astype(np.int32)).to(dev)
         for name in PayloadMeta._fields
     })
+
+
+def fault_plan_from_numpy(
+    d: Dict[str, np.ndarray], device="cuda"
+) -> FactoredFaultPlan:
+    """The port's `FactoredFaultPlan` from JAX's (numpy arrays under its
+    field names, in its dtypes); ``seed`` stays on the host."""
+    dev = resolve_device(device)
+    fields = {}
+    for name in FactoredFaultPlan._fields:
+        arr = np.array(d[name])  # a writable copy
+        if name == "seed":
+            fields[name] = torch.tensor(int(arr), dtype=torch.int32)
+        else:
+            fields[name] = torch.from_numpy(arr).to(dev)
+    return FactoredFaultPlan(**fields)
 
 
 def state_digest(state: SimState, skip: Iterable[str] = ("pview",)) -> str:

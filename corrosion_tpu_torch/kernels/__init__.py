@@ -10,13 +10,21 @@ replaces:
 - K5 `THREEFRY`, `RANDINT` — `sim.rng.split`, `fold_in`, `bits`,
   `randint`;
 - K6 `GAPS_REFRESH` — `sim.gaps.refresh_gaps`;
-- K7 `CONVERGE_ROWS`, `CONVERGE_FINISH` — `sim.packed.converge_record`;
+- K7 `CONVERGE_ROWS`, `CONVERGE_FINISH` — `sim.packed.converge_record`
+  (with the fault loop's exit mode);
 - K8 `WORD_INJECT`, `WORD_SPEND`, `WORD_DELIVER` —
-  `sim.packed.inject_packed`, `spend_relay`, `deliver_packed`.
+  `sim.packed.inject_packed`, `spend_relay`, `deliver_packed`;
+- K9 `FAULT_EDGES`, `FAULT_REACH` — `sim.faults.fault_edge_block`,
+  `fault_edge_loss`, `fault_session_refused`, `fault_wire_effects`,
+  `fault_reach_`;
+- K10 `BROADCAST_SCATTER_LOSSY` (in K2's source) —
+  `sim.packed.scatter_sending_lossy`;
+- K11 `NODE_FAULTS` — `sim.packed.apply_round_faults`.
 
 A wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other.  `PORTED` groups
-the entry points by kernel, in K order.
+the entry points by kernel, in K order (K10 is a second entry point of
+K2's source with a row of its own).
 """
 
 from .build import Kernel, build_all
@@ -26,6 +34,10 @@ SAMPLE_TARGETS = Kernel(
 )
 BROADCAST_SCATTER = Kernel(
     "broadcast_scatter", "broadcast_scatter.cu", "corro_broadcast_scatter", 4
+)
+BROADCAST_SCATTER_LOSSY = Kernel(
+    "broadcast_scatter_lossy", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_lossy", 6,
 )
 SYNC_PULL = Kernel("sync_pull", "sync_pull.cu", "corro_sync_pull", 3)
 MERGE_ENTRIES = Kernel(
@@ -37,16 +49,20 @@ GAPS_REFRESH = Kernel(
     "gaps_refresh", "gaps_refresh.cu", "corro_gaps_refresh", 6
 )
 CONVERGE_ROWS = Kernel(
-    "converge_rows", "converge_fold.cu", "corro_converge_rows", 6
+    "converge_rows", "converge_fold.cu", "corro_converge_rows", 7
 )
 CONVERGE_FINISH = Kernel(
-    "converge_finish", "converge_fold.cu", "corro_converge_finish", 5
+    "converge_finish", "converge_fold.cu", "corro_converge_finish", 6
 )
 WORD_INJECT = Kernel("word_inject", "word_phases.cu", "corro_word_inject", 5)
 WORD_SPEND = Kernel("word_spend", "word_phases.cu", "corro_word_spend", 3)
 WORD_DELIVER = Kernel(
     "word_deliver", "word_phases.cu", "corro_word_deliver", 5
 )
+
+FAULT_EDGES = Kernel("fault_edges", "fault_edges.cu", "corro_fault_edges", 7)
+FAULT_REACH = Kernel("fault_reach", "fault_edges.cu", "corro_fault_reach", 8)
+NODE_FAULTS = Kernel("node_faults", "node_faults.cu", "corro_node_faults", 6)
 
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
@@ -57,6 +73,9 @@ PORTED = {
     "gaps_refresh": (GAPS_REFRESH,),
     "converge_fold": (CONVERGE_ROWS, CONVERGE_FINISH),
     "word_phases": (WORD_INJECT, WORD_SPEND, WORD_DELIVER),
+    "fault_edges": (FAULT_EDGES, FAULT_REACH),
+    "broadcast_scatter_lossy": (BROADCAST_SCATTER_LOSSY,),
+    "node_faults": (NODE_FAULTS,),
 }
 KERNELS = tuple(k for entries in PORTED.values() for k in entries)
 
@@ -67,8 +86,9 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "BROADCAST_SCATTER", "CONVERGE_FINISH", "CONVERGE_ROWS", "GAPS_REFRESH",
-    "KERNELS", "Kernel", "MERGE_ENTRIES", "PORTED", "RANDINT",
+    "BROADCAST_SCATTER", "BROADCAST_SCATTER_LOSSY", "CONVERGE_FINISH",
+    "CONVERGE_ROWS", "FAULT_EDGES", "FAULT_REACH", "GAPS_REFRESH",
+    "KERNELS", "Kernel", "MERGE_ENTRIES", "NODE_FAULTS", "PORTED", "RANDINT",
     "SAMPLE_TARGETS", "SYNC_PULL", "THREEFRY", "WORD_DELIVER", "WORD_INJECT",
     "WORD_SPEND", "build_all", "reset_launch_counts",
 ]

@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 SOURCES = (
     "sample_targets.cu", "broadcast_scatter.cu", "sync_pull.cu",
     "merge_entries.cu", "threefry.cu", "gaps_refresh.cu",
-    "converge_fold.cu", "word_phases.cu",
+    "converge_fold.cu", "word_phases.cu", "fault_edges.cu",
+    "node_faults.cu",
 )
 _LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 

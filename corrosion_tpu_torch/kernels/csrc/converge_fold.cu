@@ -23,6 +23,15 @@
 //           counter _converged_done reads) and every node settled.
 // AND is order-free, so the atomics leave the result deterministic.
 //
+// The fault loop's exit mode (corrosion_tpu/sim/packed.py:1027
+// run_packed_faults, its _fault_done over packed.py:1007
+// all_have_words): rows takes `fresh` = 1 and the block's last entry
+// ANDs "done now" (node_ok || !up, the fresh all-have predicate a
+// crash-with-wipe can undo) instead of the sticky stamps; finish takes
+// the plan's horizon and the flag also needs t + 1 >= horizon.  The
+// stamps themselves are the same in both modes.  horizon < 0 and
+// fresh = 0 are the faultless loop's flag.
+//
 // Bound on the H100: bytes — the have words once (N*W*4), alive, the
 // converged_at stamps in and out, coverage_at in and out: 7.6 MB at the
 // storm.  Design: a thread walks its node's W words (L1 serves the row
@@ -66,7 +75,7 @@ __global__ void converge_rows_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ round_of,
     const int32_t* __restrict__ converged_in,
     int32_t* __restrict__ converged_out, uint32_t* __restrict__ partial,
-    int n, int w, int c, int p, int t) {
+    int n, int w, int c, int p, int t, int fresh) {
   extern __shared__ uint32_t col[];  // [w + 1]
   for (int k = threadIdx.x; k <= w; k += blockDim.x) col[k] = kOnes;
   bool injected_by_t = true;
@@ -93,7 +102,7 @@ __global__ void converge_rows_kernel(
     int32_t conv = converged_in[node];
     if (conv < 0 && node_ok && up && all_injected) conv = t;
     converged_out[node] = conv;
-    settled = conv >= 0 || !up;
+    settled = fresh ? (node_ok || !up) : (conv >= 0 || !up);
   }
   int block_settled = __syncthreads_and(settled);
   uint32_t* row = partial + (size_t)blockIdx.x * (w + 1);
@@ -106,7 +115,7 @@ __global__ void converge_finish_kernel(
     const int32_t* __restrict__ round_of,
     const int32_t* __restrict__ coverage_in,
     int32_t* __restrict__ coverage_out, uint8_t* __restrict__ done,
-    int n_blocks, int w, int c, int p, int t) {
+    int n_blocks, int w, int c, int p, int t, int horizon) {
   extern __shared__ uint32_t col[];  // [w + 1]
   for (int k = threadIdx.x; k <= w; k += blockDim.x) col[k] = kOnes;
   __syncthreads();
@@ -128,7 +137,10 @@ __global__ void converge_finish_kernel(
     int32_t cov = coverage_in[q];
     coverage_out[q] = (cov < 0 && payload_done) ? t : cov;
   }
-  if (threadIdx.x == 0) done[0] = all_injected_next && col[w] == kOnes;
+  if (threadIdx.x == 0) {
+    done[0] = all_injected_next && col[w] == kOnes &&
+              (horizon < 0 || t + 1 >= horizon);
+  }
 }
 
 bool geometry_ok(int w, int c, int p) {
@@ -142,7 +154,8 @@ extern "C" int corro_converge_rows(const void* have, const void* injected,
                                    const void* converged_in,
                                    void* converged_out, void* partial, int n,
                                    int w, int c, int p, int t,
-                                   int rows_per_block, void* stream) {
+                                   int rows_per_block, int fresh,
+                                   void* stream) {
   if (n <= 0 || !geometry_ok(w, c, p) || rows_per_block <= 0 ||
       rows_per_block > 1024 || rows_per_block % 32)
     return (int)cudaErrorInvalidValue;
@@ -152,7 +165,7 @@ extern "C" int corro_converge_rows(const void* have, const void* injected,
                          (cudaStream_t)stream>>>(
       (const uint32_t*)have, (const uint32_t*)injected, (const uint8_t*)alive,
       (const int32_t*)round_of, (const int32_t*)converged_in,
-      (int32_t*)converged_out, (uint32_t*)partial, n, w, c, p, t);
+      (int32_t*)converged_out, (uint32_t*)partial, n, w, c, p, t, fresh);
   return (int)cudaGetLastError();
 }
 
@@ -161,13 +174,14 @@ extern "C" int corro_converge_finish(const void* partial, const void* injected,
                                      const void* coverage_in,
                                      void* coverage_out, void* done,
                                      int n_blocks, int w, int c, int p, int t,
-                                     void* stream) {
+                                     int horizon, void* stream) {
   if (n_blocks <= 0 || !geometry_ok(w, c, p))
     return (int)cudaErrorInvalidValue;
   size_t smem = (size_t)(w + 1) * sizeof(uint32_t);
   converge_finish_kernel<<<1, 256, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)partial, (const uint32_t*)injected,
       (const int32_t*)round_of, (const int32_t*)coverage_in,
-      (int32_t*)coverage_out, (uint8_t*)done, n_blocks, w, c, p, t);
+      (int32_t*)coverage_out, (uint8_t*)done, n_blocks, w, c, p, t,
+      horizon);
   return (int)cudaGetLastError();
 }

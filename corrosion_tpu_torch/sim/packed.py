@@ -1,6 +1,7 @@
 """The bitpacked round on u32 words — the port of
-``corrosion_tpu/sim/packed.py`` for the faultless, telemetry-free
-envelope the 100k write storm runs.
+``corrosion_tpu/sim/packed.py`` for the telemetry-free envelope the 100k
+write storm runs, faultless (`run_packed`) and under a factored fault
+plan (`run_packed_faults`).
 
 Words ride int32 carriers (`..device`; the packing helpers and
 chunk-group folds are `.words`).  One layout differs from JAX: the
@@ -14,8 +15,11 @@ Every phase of the round runs hand-written kernels on the card: the
 word phases (K8: `inject_packed`, `spend_relay`, `deliver_packed`), the
 ring scatter (K2), the sync pull (K3) and the convergence record (K7,
 `converge_record`) here; the draws (K5, `.rng`), the member sampler and
-table merge (K1, K4, `.pswim`) and the gap refresh (K6, `.gaps`).  Each
-wrapper takes the plain torch version beside it for a CPU tensor.
+table merge (K1, K4, `.pswim`) and the gap refresh (K6, `.gaps`).  Under
+a fault plan the edge queries run K9 (`.faults`), the lossy ring
+scatter K10 (`scatter_sending_lossy`) and the node faults K11
+(`apply_round_faults`).  Each wrapper takes the plain torch version
+beside it for a CPU tensor.
 
 **In place.**  The word phases and the pull update the carry's tensors
 (``have``, the relay planes, both rings) and ``injected_p`` in place, on
@@ -23,14 +27,14 @@ the card and on the CPU alike: no caller reads a carry again once the
 next phase has it, and `pack_state` gives the loop tensors of its own.
 A caller that needs the old carry clones it first.
 
-`run_packed` is a Python loop that reads K7's done flag once per round
-(a CUDA graph is ROADMAP B9).  The round counter ``t`` lives on the
-host.
+`run_packed` and `run_packed_faults` are Python loops that read K7's
+done flag once per round (a CUDA graph is ROADMAP B9).  The round
+counter ``t`` lives on the host.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,6 +42,17 @@ from .. import kernels
 from ..device import ONES
 from ..kernels.build import check
 from . import rng
+from .faults import (
+    WIRE_LOSS_TAG,
+    FactoredFaultPlan,
+    FactoredRoundFaults,
+    apply_node_faults,
+    fault_key,
+    fault_session_delay,
+    fault_session_refused,
+    fault_wire_effects,
+    round_faults,
+)
 from .gaps import gaps_to_mask, refresh_gaps
 from .round import RunMetrics, new_metrics
 from .state import ALIVE, PayloadMeta, SimConfig, SimState
@@ -259,18 +274,28 @@ def spend_relay(
     return sending
 
 
-def scatter_sending_plain(ring, sending, dst, slot, ok, fanout: int) -> None:
-    """Plain version of K2, in place: OR sending[e // fanout] into
-    ring[slot[e], dst[e]] for every ok edge (an unpacked u8 scatter-max,
-    as JAX does it)."""
+def _or_rows_plain(ring, edge_words, dst, slot) -> None:
+    """OR each edge's words [E, W] into ring[slot[e], dst[e]] in place,
+    as an unpacked u8 scatter-max (JAX's form; a zero word is a no-op)."""
     d, n, w = ring.shape
     p = w * 32
-    sent = unpack_bits(sending, p).repeat_interleave(fanout, dim=0)
-    sent = (sent & ok[:, None]).to(torch.uint8)  # [E, P]; 0 is a no-op
+    sent = unpack_bits(edge_words, p).to(torch.uint8)  # [E, P]
     rows = slot.long() * n + dst.long()
     dense = unpack_bits(ring.reshape(d * n, w), p).to(torch.uint8)
     dense.scatter_reduce_(0, rows[:, None].expand(-1, p), sent, "amax")
     ring.copy_(pack_bits(dense).reshape(d, n, w))
+
+
+def _edge_words(sending, ok, fanout: int) -> torch.Tensor:
+    """Each edge's sender words [E, W], zero on edges that are not ok."""
+    words = sending.repeat_interleave(fanout, dim=0)
+    return torch.where(ok[:, None], words, 0)
+
+
+def scatter_sending_plain(ring, sending, dst, slot, ok, fanout: int) -> None:
+    """Plain version of K2, in place: OR sending[e // fanout] into
+    ring[slot[e], dst[e]] for every ok edge."""
+    _or_rows_plain(ring, _edge_words(sending, ok, fanout), dst, slot)
 
 
 def scatter_sending(ring, sending, dst, slot, ok, fanout: int) -> None:
@@ -291,13 +316,79 @@ def scatter_sending(ring, sending, dst, slot, ok, fanout: int) -> None:
     )
 
 
+# (edge, word) pairs per chunk of the plain lossy scatter's draw: 2^17
+# pairs are 2^20 hashes, so the int64 threefry temporaries stay near 8 MB
+_LOSS_CHUNK_PAIRS = 1 << 17
+
+
+def scatter_sending_lossy_plain(
+    ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int
+) -> None:
+    """Plain version of K10, in place: K2 with payload q of edge e
+    dropped where byte e*P + q of the wire-loss draw is below thr[e].
+    Like the kernel it draws only the words of (edge, word) pairs that
+    send something under a threshold, in chunks (it syncs with the host
+    to find them)."""
+    w = ring.shape[2]
+    k_floss = fault_key(key, seed, WIRE_LOSS_TAG)
+    words = _edge_words(sending, ok, fanout)
+    need = (words != 0) & (thr > 0)[:, None]
+    e_idx, k_idx = torch.nonzero(need, as_tuple=True)
+    dev = words.device
+    j = torch.arange(8, dtype=torch.int64, device=dev)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=dev)
+    for i0 in range(0, e_idx.numel(), _LOSS_CHUNK_PAIRS):
+        e_c = e_idx[i0:i0 + _LOSS_CHUNK_PAIRS]
+        k_c = k_idx[i0:i0 + _LOSS_CHUNK_PAIRS]
+        # the eight u32 words holding bytes e*P + 32k .. +31
+        ctr = ((e_c * 8 * w + 8 * k_c)[:, None] + j).reshape(-1)
+        b1, b2 = rng.threefry2x32(k_floss[0], k_floss[1],
+                                  torch.zeros_like(ctr), ctr)
+        byte = (((b1 ^ b2)[:, None] >> shifts) & 0xFF).reshape(-1, 32)
+        keep = pack_bits(byte >= thr[e_c, None].to(torch.int64))
+        words[e_c, k_c] &= keep.reshape(-1)
+    _or_rows_plain(ring, words, dst, slot)
+
+
+def scatter_sending_lossy(
+    ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int
+) -> None:
+    """`scatter_sending` under the fault plan's wire loss, in place:
+    payload q of edge e is dropped where byte e*P + q of
+    ``aligned_u8_bits(fold_in(fold_in(key, seed), 101), [E, P])`` is
+    below the edge's threshold thr[e] (JAX ``fault_wire_effects``'
+    drop bits; ``key`` is the broadcast phase key).  K10 on the card,
+    which draws the bits itself."""
+    if ring.device.type == "cpu":
+        scatter_sending_lossy_plain(
+            ring, sending, dst, slot, ok, thr, key, seed, fanout
+        )
+        return
+    d, n, w = ring.shape
+    e = n * fanout
+    check("ring", ring, torch.int32, (d, n, w))
+    check("sending", sending, torch.int32, (n, w))
+    check("dst", dst, torch.int32, (e,))
+    check("slot", slot, torch.int32, (e,))
+    check("ok", ok, torch.bool, (e,))
+    check("thr", thr, torch.uint8, (e,))
+    check("key", key, torch.int64, (2,))
+    kernels.BROADCAST_SCATTER_LOSSY.launch(
+        [ring, sending, dst, slot, ok, thr, key],
+        [n, d, w, fanout, seed, WIRE_LOSS_TAG],
+    )
+
+
 def broadcast_packed(
     carry: PackedCarry, injected_p: torch.Tensor, state: SimState,
     cfg: SimConfig, topo: Topology, region: torch.Tensor, key: torch.Tensor,
-    meta: PayloadMeta,
+    meta: PayloadMeta, faults: Optional[FactoredRoundFaults] = None,
 ) -> PackedCarry:
     """Fan-out push: draw targets, spend the relay budget (K8) and OR
-    the sent words into the delay ring (K2), in place."""
+    the sent words into the delay ring (K2), in place.  Under ``faults``
+    cuts clear edges and the wire loss drops payloads per (edge,
+    payload) (K9, then K10 in place of K2); the relay still spends on
+    the attempt."""
     n, f = cfg.n_nodes, cfg.fanout
     k_targets = rng.split(key, 3)[0]  # k_drop, k_ring0 unused when flat
     _require_unmetered(cfg.rate_limit_bytes_round)
@@ -317,9 +408,18 @@ def broadcast_packed(
     ok &= edge_alive(state.group, state.alive, src, dst)
     ok &= dst != src
     delay = edge_delay(topo, region, src, dst)
+    thr = None
+    if faults is not None:
+        ok, thr = fault_wire_effects(faults, src, dst, ok)
     d_slots = carry.inflight.shape[0]
     slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
-    scatter_sending(carry.inflight, sending, dst, slot, ok, f)
+    if thr is None:
+        scatter_sending(carry.inflight, sending, dst, slot, ok, f)
+    else:
+        scatter_sending_lossy(
+            carry.inflight, sending, dst, slot, ok, thr, key,
+            int(faults.seed), f,
+        )
     return carry
 
 
@@ -398,10 +498,13 @@ def sync_pull(masks, miss, peers, ok, slot_words) -> torch.Tensor:
 def sync_packed(
     carry: PackedCarry, state: SimState, cfg: SimConfig, topo: Topology,
     key: torch.Tensor, meta: PayloadMeta,
+    faults: Optional[FactoredRoundFaults] = None,
 ):
     """Anti-entropy on packed words: per-node group-uniform masks from the
     advertised heads/gaps, the per-edge pull into the sync ring's slot
-    t + 1 (K3, in place), and the fruitfulness-adaptive backoff."""
+    t + 1 (K3, in place), and the fruitfulness-adaptive backoff.  Under
+    ``faults`` a session dies on a cut in either direction (K9); loss
+    never bites the reliable bi-stream."""
     n, s = cfg.n_nodes, cfg.sync_peers
     ks = rng.split(key, 3)
     k_peers, k_rearm = ks[0], ks[2]
@@ -415,6 +518,11 @@ def sync_packed(
     ok &= edge_alive(state.group, state.alive, src, dst)
     ok &= due[src.long()]
     ok &= dst != src
+    if faults is not None:
+        refused = fault_session_refused(faults, src, dst)
+        if refused is not None:
+            ok &= ~refused
+        fault_session_delay(faults, src, dst)  # raises on delay factors
 
     v = cfg.n_versions
     v_idx = torch.arange(1, v + 1, dtype=torch.int32, device=peers.device)
@@ -455,6 +563,7 @@ CONVERGE_ROWS_PER_BLOCK = 256
 def converge_record_plain(
     have: torch.Tensor, injected_p: torch.Tensor, alive: torch.Tensor,
     metrics: RunMetrics, meta: PayloadMeta, t: int, cfg: SimConfig,
+    horizon: Optional[int] = None,
 ):
     """Plain version of K7."""
     up = alive == ALIVE
@@ -472,23 +581,30 @@ def converge_record_plain(
         (metrics.converged_at < 0) & node_done & all_injected,
         t, metrics.converged_at,
     ).to(torch.int32)
-    done = (meta.round <= t + 1).all() & ((converged_at >= 0) | ~up).all()
+    settled = (converged_at >= 0) if horizon is None else node_done
+    done = (meta.round <= t + 1).all() & (settled | ~up).all()
+    if horizon is not None and t + 1 < horizon:
+        done = torch.zeros_like(done)
     return coverage_at, converged_at, done
 
 
 def converge_record(
     have: torch.Tensor, injected_p: torch.Tensor, alive: torch.Tensor,
     metrics: RunMetrics, meta: PayloadMeta, t: int, cfg: SimConfig,
+    horizon: Optional[int] = None,
 ):
     """Round t's convergence record on words: (coverage_at i32[P],
     converged_at i32[N], done) — the stamps of payloads complete on
     every up node and of nodes holding every active version, and the
-    run's exit flag for round t + 1 (`_converged_done` on the new
-    metrics), a bool scalar that stays on the device.  K7 on the card:
-    a row pass and a one-block finish."""
+    run's exit flag for round t + 1, a bool scalar that stays on the
+    device: `_converged_done` on the new metrics, or with a fault plan's
+    ``horizon`` the fault loop's flag — t + 1 ≥ horizon and the FRESH
+    all-have predicate (`all_have_words`), which a wipe after a node's
+    sticky stamp can undo.  K7 on the card: a row pass and a one-block
+    finish."""
     if have.device.type == "cpu":
         return converge_record_plain(
-            have, injected_p, alive, metrics, meta, t, cfg
+            have, injected_p, alive, metrics, meta, t, cfg, horizon
         )
     n, w = have.shape
     p = cfg.n_payloads
@@ -509,12 +625,12 @@ def converge_record(
     kernels.CONVERGE_ROWS.launch(
         [have, injected_p, alive, meta.round, metrics.converged_at,
          converged_at, partial],
-        [n, w, c, p, t, rows],
+        [n, w, c, p, t, rows, int(horizon is not None)],
     )
     kernels.CONVERGE_FINISH.launch(
         [partial, injected_p, meta.round, metrics.coverage_at, coverage_at,
          done],
-        [blocks, w, c, p, t],
+        [blocks, w, c, p, t, -1 if horizon is None else horizon],
     )
     return coverage_at, converged_at, done
 
@@ -525,14 +641,17 @@ def converge_record(
 def packed_round_step(
     state: SimState, carry: PackedCarry, injected_p: torch.Tensor,
     metrics: RunMetrics, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
-    region: torch.Tensor,
+    region: torch.Tensor, faults: Optional[FactoredRoundFaults] = None,
+    horizon: Optional[int] = None,
 ):
     """One gossip tick on packed words, phase-for-phase and PRNG-stream
     identical to JAX's ``packed_round_step``: inject → broadcast → sync →
-    deliver → SWIM → bookkeeping refresh → convergence record.  Updates
-    ``carry`` and ``injected_p`` in place and returns (state, carry,
-    injected_p, metrics, done), where ``done`` is JAX's
-    ``_converged_done`` after the round, on the device."""
+    deliver → SWIM → bookkeeping refresh → convergence record, with the
+    round's ``faults`` in broadcast, sync and SWIM.  Updates ``carry``
+    and ``injected_p`` in place and returns (state, carry, injected_p,
+    metrics, done), where ``done`` is the loop's exit flag after the
+    round, on the device: JAX's ``_converged_done``, or with a fault
+    plan's ``horizon`` its fault loop's (`converge_record`)."""
     ks = rng.split(state.key, 4)
     state = state._replace(key=ks[0])
     k_bcast, k_sync, k_swim = ks[1], ks[2], ks[3]
@@ -542,12 +661,14 @@ def packed_round_step(
         carry, injected_p, t, meta, cfg, state.alive
     )
     carry = broadcast_packed(
-        carry, injected_p, state, cfg, topo, region, k_bcast, meta
+        carry, injected_p, state, cfg, topo, region, k_bcast, meta, faults
     )
-    carry, countdown, backoff = sync_packed(carry, state, cfg, topo, k_sync, meta)
+    carry, countdown, backoff = sync_packed(
+        carry, state, cfg, topo, k_sync, meta, faults
+    )
     state = state._replace(sync_countdown=countdown, sync_backoff=backoff)
     carry = deliver_packed(carry, t, cfg)
-    state = swim_step(state, cfg, topo, k_swim)
+    state = swim_step(state, cfg, topo, k_swim, faults)
 
     heads, gap_lo, gap_hi, n_overflow = refresh_gaps(carry.have, cfg)
     state = state._replace(heads=heads, gap_lo=gap_lo, gap_hi=gap_hi)
@@ -559,7 +680,7 @@ def packed_round_step(
     overflow_frac = torch.maximum(metrics.overflow_frac, frac)
 
     coverage_at, converged_at, done = converge_record(
-        carry.have, injected_p, state.alive, metrics, meta, t, cfg
+        carry.have, injected_p, state.alive, metrics, meta, t, cfg, horizon
     )
     out_metrics = RunMetrics(
         coverage_at=coverage_at,
@@ -599,6 +720,112 @@ def run_packed(
     while int(slim.t) < max_rounds and not bool(done):
         slim, carry, inj, metrics, done = packed_round_step(
             slim, carry, inj, metrics, meta, cfg, topo, region
+        )
+    full = unpack_into_state(carry, slim, cfg)
+    full = full._replace(
+        injected=unpack_bits(inj, cfg.n_payloads).to(torch.uint8)
+    )
+    return full, metrics
+
+
+# -- the packed fault seam ---------------------------------------------------
+
+
+def apply_carry_faults(
+    carry: PackedCarry, rf: FactoredRoundFaults
+) -> PackedCarry:
+    """Packed twin of `faults.apply_node_faults`' payload wipe, IN PLACE:
+    a crash-with-wipe zeroes the node's have words, its four relay
+    planes and its row in every slot of both word rings."""
+    w = rf.wipe
+    for x in (carry.have, *carry.relay):
+        x.copy_(torch.where(w[:, None], 0, x))
+    for x in (carry.inflight, carry.sync_buf):
+        x.copy_(torch.where(w[None, :, None], 0, x))
+    return carry
+
+
+def apply_round_faults(
+    slim: SimState, carry: PackedCarry, rf: FactoredRoundFaults
+) -> Tuple[SimState, PackedCarry]:
+    """A round's node faults before its phases, IN PLACE on the slim
+    state (alive override; a wipe's heads, gaps and member table) and on
+    the carry (a wipe's payload words).  The plain version is
+    `faults.apply_node_faults` then `apply_carry_faults`; K11 does both
+    in one launch on the card."""
+    if carry.have.device.type == "cpu":
+        return apply_node_faults(slim, rf), apply_carry_faults(carry, rf)
+    n, w = carry.have.shape
+    d_slots = carry.inflight.shape[0]
+    a = slim.heads.shape[1]
+    ak = slim.gap_lo.shape[1] * slim.gap_lo.shape[2]
+    m = slim.pid.shape[1]
+    _check_words(carry, n, w)
+    check("inflight", carry.inflight, torch.int32, (d_slots, n, w))
+    check("sync_buf", carry.sync_buf, torch.int32, (d_slots, n, w))
+    check("rf.alive", rf.alive, torch.int8, (n,))
+    check("rf.wipe", rf.wipe, torch.bool, (n,))
+    check("alive", slim.alive, torch.uint8, (n,))
+    check("heads", slim.heads, torch.int32, (n, a))
+    for name in ("gap_lo", "gap_hi"):
+        check(name, getattr(slim, name), torch.int32, slim.gap_lo.shape)
+    for name in ("pid", "pkey", "psince"):
+        check(name, getattr(slim, name), torch.int32, (n, m))
+    kernels.NODE_FAULTS.launch(
+        [rf.alive, rf.wipe, slim.alive, carry.have, *carry.relay,
+         carry.inflight, carry.sync_buf, slim.heads, slim.gap_lo,
+         slim.gap_hi, slim.pid, slim.pkey, slim.psince],
+        [n, w, d_slots, a, ak, m],
+    )
+    return slim, carry
+
+
+def all_have_words(
+    carry: PackedCarry, injected_p: torch.Tensor, state: SimState,
+    meta: PayloadMeta, cfg: SimConfig,
+) -> torch.Tensor:
+    """Every up node holds every injected version completely, computed
+    FRESH from the words (the sticky metrics must not mask a wipe after
+    convergence); a device bool.  The loop takes it from K7 after each
+    round and evaluates it here only before the first."""
+    up = state.alive == ALIVE
+    c = cfg.chunks_per_version
+    comp_w = all_chunks_words(carry.have, cfg)
+    act_w = smear_groups(fold_any(injected_p, c) & group_low_bits_mask(c), c)
+    node_done = ((comp_w | ~act_w[None, :]) == ONES).all(dim=1) | ~up
+    return (meta.round <= int(state.t)).all() & node_done.all()
+
+
+def run_packed_faults(
+    state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
+    fplan: FactoredFaultPlan, max_rounds: int,
+):
+    """`run_packed` under a fault schedule: before every round the
+    round's node faults hit the slim state and the carry
+    (`apply_round_faults`), and the round runs with its fault slice.
+    The loop never exits before the plan's horizon, then only on the
+    fresh all-have predicate.  Returns (SimState, RunMetrics)."""
+    dev = state.have.device
+    region = regions(cfg.n_nodes, topo.n_regions, dev)
+    metrics = new_metrics(cfg, dev)
+    carry = pack_state(state, cfg)
+    inj = pack_bits(state.injected)
+    slim = shrink_state(state)
+    # the node faults write these in place: give the loop its own
+    slim = slim._replace(**{
+        name: getattr(slim, name).clone()
+        for name in ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
+                     "psince")
+    })
+    horizon = fplan.horizon
+    done = (torch.zeros((), dtype=torch.bool, device=dev)
+            if int(slim.t) < horizon
+            else all_have_words(carry, inj, slim, meta, cfg))
+    while int(slim.t) < max_rounds and not bool(done):
+        rf = round_faults(fplan, int(slim.t))
+        slim, carry = apply_round_faults(slim, carry, rf)
+        slim, carry, inj, metrics, done = packed_round_step(
+            slim, carry, inj, metrics, meta, cfg, topo, region, rf, horizon
         )
     full = unpack_into_state(carry, slim, cfg)
     full = full._replace(

@@ -159,12 +159,16 @@ def pswim_step(
     faults=None,
 ) -> SimState:
     """One partial-view SWIM tick: probe, suspicion timeout, gossip and
-    announce merge, bucket refill, refute (JAX ``pswim_step``)."""
+    announce merge, bucket refill, refute (JAX ``pswim_step``).  Under
+    ``faults`` every probe, relay leg, gossip and announce message
+    passes the plan's cuts and loss in `_reachable`, each with its own
+    loss key of the split."""
     n, m = state.pid.shape
     k = cfg.gossip_entries
     ks = rng.split(key, 11)
-    k_probe, k_relay = ks[0], ks[2]
-    k_gossip, k_pick, k_ann, k_rot, k_rid = ks[4], ks[5], ks[7], ks[9], ks[10]
+    k_probe, k_ploss, k_relay, k_rloss = ks[0], ks[1], ks[2], ks[3]
+    k_gossip, k_pick, k_gloss, k_ann = ks[4], ks[5], ks[6], ks[7]
+    k_aloss, k_rot, k_rid = ks[8], ks[9], ks[10]
     dev = state.pid.device
     t = int(state.t)
     me = torch.arange(n, dtype=torch.int32, device=dev)
@@ -175,16 +179,21 @@ def pswim_step(
     target = psample_member_targets(state, cfg, k_probe, 1)[:, 0]
     do_probe = up & (t % cfg.probe_period_rounds == 0) & (target >= 0)
     target = torch.clamp(target, min=0)
-    direct = _reachable(state, topo, me, target, faults)
+    direct = _reachable(state, topo, k_ploss, me, target, faults)
     ip = cfg.indirect_probes
     relays = psample_member_targets(state, cfg, k_relay, ip)
     relay_ok = relays >= 0
     relays = torch.clamp(relays, min=0)
+    # split is pure: skipping it when no fault draws uses the keys
+    # moves no other draw
+    hop_keys = (k_rloss, k_rloss) if faults is None else rng.split(k_rloss, 2)
     leg1 = _reachable(
-        state, topo, me.repeat_interleave(ip), relays.reshape(-1), faults
+        state, topo, hop_keys[0], me.repeat_interleave(ip),
+        relays.reshape(-1), faults,
     ).reshape(n, ip)
     leg2 = _reachable(
-        state, topo, relays.reshape(-1), target.repeat_interleave(ip), faults
+        state, topo, hop_keys[1], relays.reshape(-1),
+        target.repeat_interleave(ip), faults,
     ).reshape(n, ip)
     acked = direct | (leg1 & leg2 & relay_ok).any(dim=1)
     probe_failed = do_probe & ~acked
@@ -219,7 +228,7 @@ def pswim_step(
     gdst = g_targets.reshape(-1)
     g_valid = gdst >= 0
     gdst = torch.clamp(gdst, min=0)
-    g_ok = _reachable(state, topo, gsrc, gdst, faults) & g_valid
+    g_ok = _reachable(state, topo, k_gloss, gsrc, gdst, faults) & g_valid
     ptbl = _pack_tables(pid, pkey)
     snd_id, snd_key = _unpack_word(ptbl[gdst.long(), (gsrc % m).long()])
     g_ok &= ~((snd_id == gsrc) & (snd_key % 4 == DOWN))
@@ -250,7 +259,7 @@ def pswim_step(
     ann_target = rng.randint(k_ann, (n,), 0, n)
     ann_ok = (
         stagger & up & (ann_target != me)
-        & _reachable(state, topo, me, ann_target, faults)
+        & _reachable(state, topo, k_aloss, me, ann_target, faults)
     )
     all_dst = torch.cat([e_dst, ann_target])
     all_id = torch.cat([e_id, me])

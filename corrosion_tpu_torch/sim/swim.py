@@ -1,14 +1,16 @@
 """SWIM sampling helpers and dispatch — the port's copy of the parts of
 ``corrosion_tpu/sim/swim.py`` the partial-view storm runs: the
-transposed ``[over, N]`` dedup/compaction helpers, flat loss-free
-reachability, and the partial-view dispatch of `sample_member_targets`
-and `swim_step`.  Full-view SWIM (ROADMAP B14) is not ported; the
-uniform ground-truth sampler (ROADMAP A4) raises."""
+transposed ``[over, N]`` dedup/compaction helpers, reachability on a
+flat loss-free topology with the fault plan's cuts and probe loss, and
+the partial-view dispatch of `sample_member_targets` and `swim_step`.
+Full-view SWIM (ROADMAP B14) is not ported; the uniform ground-truth
+sampler (ROADMAP A4) raises."""
 
 from __future__ import annotations
 
 import torch
 
+from .faults import fault_reach_
 from .state import ALIVE, SimConfig, SimState
 from .topology import Topology, require_flat
 
@@ -40,20 +42,24 @@ def _dup_before(cand: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def _reachable(
-    state: SimState, topo: Topology, src: torch.Tensor, dst: torch.Tensor,
-    faults=None,
+    state: SimState, topo: Topology, key: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor, faults=None,
 ) -> torch.Tensor:
     """Ground-truth reachability of a probe src→dst on a flat, loss-free
-    topology without a FaultPlan (the storm's case).  Loss and faults
-    draw extra RNG (ROADMAP B1, B12) and raise until ported."""
+    topology (topology loss is ROADMAP B15).  ``faults`` (a
+    `faults.FactoredRoundFaults`) adds the plan's directed cuts and its
+    per-edge loss, drawn from ``fold_in(fold_in(key, seed), 103)``
+    (`faults.fault_reach_`, K9 on the card); without it ``key`` draws
+    nothing."""
     require_flat(topo)
-    if faults is not None:
-        raise NotImplementedError("the fault seam is not ported yet (B12)")
-    return (
+    ok = (
         (state.group[src] == state.group[dst])
         & (state.alive[src] == ALIVE)
         & (state.alive[dst] == ALIVE)
     )
+    if faults is not None:
+        ok = fault_reach_(ok, faults, key, src, dst)
+    return ok
 
 
 def sample_member_targets(

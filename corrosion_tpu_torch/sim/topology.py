@@ -5,6 +5,8 @@ The `Topology` dataclass keeps every JAX field, so a configuration reads
 the same in both packages; the paths the 100k write storm does not take
 (geo tiers, loss, degree caps, a measured delay matrix) raise
 `NotImplementedError` naming the ROADMAP item that brings them.
+`aligned_u8_bits` is the u8 draw the fault plan's loss paths compare
+against their thresholds.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from . import rng
 from .state import ALIVE
 
 
@@ -97,3 +100,20 @@ def edge_alive(
         & (alive[src] == ALIVE)
         & (alive[dst] == ALIVE)
     )
+
+
+def aligned_u8_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """u8 threefry draw of ``shape`` (JAX ``topology.aligned_u8_bits``):
+    u32 words from ``bits``, each unpacked into four little-endian
+    bytes.  A flat size that is not a multiple of 128 draws the next
+    multiple and keeps the prefix (jax's padding rule; under the
+    partitionable counters word i never depends on the draw's length,
+    so the kept bytes are those of the shorter draw)."""
+    size = 1
+    for d in shape:
+        size *= int(d)
+    pad = size if size % 128 == 0 else -(-size // 128) * 128
+    words = rng.bits(key, (pad // 4,))  # int64 holding u32 words
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=key.device)
+    flat = ((words[:, None] >> shifts) & 0xFF).to(torch.uint8).reshape(pad)
+    return flat[:size].reshape(tuple(shape))

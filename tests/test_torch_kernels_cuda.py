@@ -12,9 +12,15 @@ import pytest
 import torch
 
 from corrosion_tpu_torch import kernels
-from corrosion_tpu_torch.sim import gaps, packed, pswim, rng
+from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+from corrosion_tpu_torch.sim import faults, gaps, packed, pswim, rng
 from corrosion_tpu_torch.sim.round import RunMetrics
-from corrosion_tpu_torch.sim.state import SimConfig, uniform_payloads
+from corrosion_tpu_torch.sim.runner import storm_fault_plan
+from corrosion_tpu_torch.sim.state import (
+    SimConfig,
+    init_state,
+    uniform_payloads,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -301,3 +307,166 @@ def test_word_deliver(card, n, w, d, t):
     _launched(kernels.WORD_DELIVER, before)
     packed.deliver_packed_plain(want, t, cfg)
     _assert_carry_equal(got, want)
+
+
+def _fault_plan(kind, n):
+    """The storm's plan, or one with two overlapping losses (a composite
+    factor), a one-way cut and a range crash with a wipe."""
+    if kind == "storm":
+        return storm_fault_plan(n, 3)
+    return FaultPlan(n_nodes=n, seed=5, events=(
+        FaultEvent("loss", 0, 10, p=0.2),
+        FaultEvent("loss", 5, 15, src=f"0:{3 * n // 5}",
+                   dst=f"{n // 5}:{n}", p=0.3),
+        FaultEvent("partition", 3, 9, src=f"0:{n // 2}", dst=f"{n // 2}:{n}"),
+        FaultEvent("crash", 4, 12, node=f"{n // 10}:{n // 5 + 1}", wipe=True),
+    ))
+
+
+def _round(card, kind, n, t):
+    cfg = _storm_cfg(n)
+    fplan = faults.compile_plan(_fault_plan(kind, n), cfg, factored=True,
+                                device=card)
+    return cfg, fplan, faults.round_faults(fplan, t)
+
+
+def _fault_edges(g, n, e, dev):
+    src = g.integers(0, n, e)
+    dst = np.where(g.random(e) < 0.1, src, g.integers(0, n, e))
+    return _i32(src, dev), _i32(dst, dev)
+
+
+@pytest.mark.parametrize("kind", ("storm", "overlap"))
+@pytest.mark.parametrize("n", (10, 257, 3000))
+@pytest.mark.parametrize("t", (0, 5, 7, 13))
+def test_fault_edges(card, kind, n, t):
+    _, _, rf = _round(card, kind, n, t)
+    g = np.random.default_rng(n + t)
+    src, dst = _fault_edges(g, n, 3 * n + 5, card)
+    for fn, plain in (
+        (faults.fault_edge_block, faults._block_plain),
+        (faults.fault_edge_loss, faults._loss_plain),
+        (faults.fault_session_refused,
+         lambda rf, s, d: (faults._block_plain(rf, s, d)
+                           | faults._block_plain(rf, d, s))),
+    ):
+        before = kernels.FAULT_EDGES.launches
+        got = fn(rf, src, dst)
+        _launched(kernels.FAULT_EDGES, before)
+        want = plain(rf, src, dst)
+        assert got.dtype == want.dtype and torch.equal(got, want), fn
+    ok = torch.as_tensor(g.random(src.shape[0]) < 0.8, device=card)
+    got_ok, got_thr = faults.fault_wire_effects(rf, src, dst, ok.clone())
+    want_ok = ok & ~faults._block_plain(rf, src, dst)
+    assert torch.equal(got_ok, want_ok)
+    assert torch.equal(got_thr, faults._loss_plain(rf, src, dst))
+
+
+@pytest.mark.parametrize("kind", ("storm", "overlap"))
+@pytest.mark.parametrize("n, e", ((10, 30), (257, 257), (3000, 9000),
+                                  (1000, 128 * 7)))
+@pytest.mark.parametrize("t", (2, 6, 13))
+def test_fault_reach(card, kind, n, e, t):
+    _, _, rf = _round(card, kind, n, t)
+    g = np.random.default_rng(n + e + t)
+    src, dst = _fault_edges(g, n, e, card)
+    ok = torch.as_tensor(g.random(e) < 0.9, device=card)
+    key = rng.prng_key(n + t, card)
+    before = kernels.FAULT_REACH.launches
+    got = faults.fault_reach_(ok.clone(), rf, key, src, dst)
+    _launched(kernels.FAULT_REACH, before)
+    want = faults.fault_reach_plain(ok.clone(), rf, key, src, dst)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n, w, f", ((10, 1, 3), (1000, 16, 3), (333, 8, 2)))
+@pytest.mark.parametrize("t", (1, 5, 13))
+def test_broadcast_scatter_lossy(card, n, w, f, t):
+    _, _, rf = _round(card, "overlap", n, t)
+    g = np.random.default_rng(n + t)
+    ring = _words(g, (2, n, w), card)
+    sending = _words(g, (n, w), card)
+    src = torch.arange(n, dtype=torch.int32, device=card).repeat_interleave(f)
+    dst = _i32(g.integers(0, n, n * f), card)
+    slot = _i32(g.integers(0, 2, n * f), card)
+    ok = torch.as_tensor(g.random(n * f) < 0.8, device=card)
+    ok, thr = faults.fault_wire_effects(rf, src, dst, ok)
+    key = rng.prng_key(t, card)
+    got, want = ring.clone(), ring.clone()
+    before = kernels.BROADCAST_SCATTER_LOSSY.launches
+    packed.scatter_sending_lossy(got, sending, dst, slot, ok, thr, key, 77, f)
+    _launched(kernels.BROADCAST_SCATTER_LOSSY, before)
+    packed.scatter_sending_lossy_plain(want, sending, dst, slot, ok, thr, key,
+                                       77, f)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ("storm", "overlap"))
+@pytest.mark.parametrize("n", (10, 257, 3000))
+@pytest.mark.parametrize("t", (4, 8, 12, 20))
+def test_node_faults(card, kind, n, t):
+    cfg, _, rf = _round(card, kind, n, t)
+    g = np.random.default_rng(n + t)
+    pid, pkey, psince = _tables(g, n, cfg.member_slots)
+    a, k = cfg.n_writers, cfg.gap_slots
+    slim = packed.shrink_state(init_state(cfg, rng.prng_key(1, card)))
+    slim = slim._replace(
+        pid=_i32(pid, card), pkey=_i32(pkey, card), psince=_i32(psince, card),
+        heads=_i32(g.integers(0, 9, (n, a)), card),
+        gap_lo=_i32(g.integers(0, 9, (n, a, k)), card),
+        gap_hi=_i32(g.integers(0, 9, (n, a, k)), card),
+        alive=torch.as_tensor((g.random(n) < 0.2) * 2, dtype=torch.uint8,
+                              device=card),
+    )
+    c0 = _carry(g, n, cfg.n_payloads // 32, cfg.n_delay_slots, card)
+    names = ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey", "psince")
+
+    def copy():
+        return slim._replace(**{x: getattr(slim, x).clone() for x in names})
+
+    got_s, got_c = copy(), _clone(c0)
+    before = kernels.NODE_FAULTS.launches
+    packed.apply_round_faults(got_s, got_c, rf)
+    _launched(kernels.NODE_FAULTS, before)
+    want_s = faults.apply_node_faults(copy(), rf)
+    want_c = packed.apply_carry_faults(_clone(c0), rf)
+    _assert_carry_equal(got_c, want_c)
+    for x in names:
+        assert torch.equal(getattr(got_s, x), getattr(want_s, x)), x
+
+
+@pytest.mark.parametrize("n", (1, 257, 3000))
+@pytest.mark.parametrize("t, horizon", ((5, 21), (19, 21), (20, 21),
+                                        (30, 21)))
+@pytest.mark.parametrize("wiped", (False, True))
+def test_converge_record_fault_exit(card, n, t, horizon, wiped):
+    """K7's exit mode: t + 1 >= horizon and the fresh all-have predicate,
+    which a wipe after a node's sticky stamp undoes."""
+    cfg = _storm_cfg(n)
+    meta = uniform_payloads(cfg, card, inject_every=2)
+    g = np.random.default_rng(n + t)
+    w = cfg.n_payloads // 32
+    full = np.full((n, w), 0xFFFFFFFF, dtype=np.uint32)
+    dead = g.random(n) < 0.2
+    dead[0] = False
+    if wiped:
+        full[0] = 0
+    have = _i32(full.view(np.int32), card)
+    inj = torch.full((w,), -1, dtype=torch.int32, device=card)
+    alive = torch.as_tensor(dead * 2, dtype=torch.uint8, device=card)
+    metrics = RunMetrics(
+        coverage_at=torch.full((cfg.n_payloads,), -1, dtype=torch.int32,
+                               device=card),
+        converged_at=_i32(np.where(g.random(n) < 0.9, 3, -1), card),
+        overflow_frac=torch.zeros((), device=card),
+        order_violations=torch.zeros((), dtype=torch.int32, device=card),
+    )
+    before = kernels.CONVERGE_FINISH.launches
+    got = packed.converge_record(have, inj, alive, metrics, meta, t, cfg,
+                                 horizon)
+    _launched(kernels.CONVERGE_FINISH, before)
+    want = packed.converge_record_plain(have, inj, alive, metrics, meta, t,
+                                        cfg, horizon)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert bool(got[2]) == (t + 1 >= horizon and not wiped)

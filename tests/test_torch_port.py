@@ -15,7 +15,10 @@ import torch
 from corrosion_tpu_torch.device import resolve_device
 from corrosion_tpu_torch.kernels import build
 from corrosion_tpu_torch.kernels.build import CSRC, SOURCES, check
-from corrosion_tpu_torch.sim.runner import config_write_storm_100k
+from corrosion_tpu_torch.sim.runner import (
+    config_packed_fault_storm,
+    config_write_storm_100k,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "corrosion_tpu_torch").rglob("*.py")) + [
@@ -50,8 +53,9 @@ def test_entry_points_refuse_cuda_without_card():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device("cuda")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        config_write_storm_100k(n_nodes=512, n_payloads=256)  # default cuda
+    for entry in (config_write_storm_100k, config_packed_fault_storm):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(n_nodes=512, n_payloads=256)  # default cuda
 
 
 def test_wrapper_check_refuses_what_c_cannot_take():
