@@ -6,7 +6,7 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the eleven CUDA kernels K1–K11 from the ten sources in
+2. build the fifteen CUDA kernels K1–K15 from the fourteen sources in
    ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -21,21 +21,36 @@ result line):
    with more than K runs, dead rows, self-edges and both sides of the
    partition, probe draws whose size is not a multiple of 128, a wiped
    row, both values of the fault loop's done flag;
+   then K1's uniform entry and K12–K15 the same way at the dense paths'
+   shapes — partition-heal-10k's (N = 10000, P = 256, A = 4, V = 64,
+   K = 8, F = S = 3, D = 3, two regions) for K12–K14, broadcast-1k's
+   (N = 1000, A = 8, V = 32) for K14's word-branch shape, the churn's
+   (N = 4096, F = 3) for K15 and K1 — with more than K gap runs, byte
+   budgets that bind, a loss threshold of 51, SUSPECT cells past the
+   timeout, DOWN receivers and refuting nodes;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
 5. with every launch counter at 0, run ``config_write_storm_100k(seed=0)``
    on the card, hold rounds, p99 and the state digest against the pinned
    JAX goldens, and require every entry point of K1–K8 to have launched;
-6. with every launch counter at 0 again, run
-   ``config_packed_fault_storm(seed=0)`` (the fault storm, then its
-   faultless twin), hold the fault run's rounds, p99 and digest against
-   the goldens, and require every entry point of K1–K11 to have
-   launched;
-7. profile the first 3 rounds of both storms and the fault storm's
-   12-round loss window (host wall, device time by kernel from
-   ``torch.profiler``, the device's idle share);
-8. print the card line, the kernels JSON line, then the one-line result
+6. with every launch counter at 0 again, run the 100k fault storm alone
+   (``run_fault_plan``), hold its rounds, p99 and digest against the
+   goldens and require every entry point of K1's table sampler and
+   K3–K11 to have launched; then ``config_packed_fault_storm(seed=0)``
+   (the fault storm, then its faultless twin) for
+   ``fault_over_faultless``;
+7. each from launch counters at 0: ``config_partition_heal_10k(seed=0)``
+   (K1, K4, K5, K12–K14), ``config_broadcast_1k(seed=0)`` and
+   ``config_ground_truth_3node(seed=0)`` (K1's uniform entry, K5,
+   K12–K14), ``membership_churn(4096, seed=0)`` (those and K15), each
+   held against its goldens (heal round, rounds, p99, digest; the
+   churn's detect round, digest and false DOWNs);
+8. profile the first 3 rounds of both storms, the fault storm's
+   12-round loss window and 10 partitioned rounds of partition-heal-10k
+   (host wall, device time by kernel from ``torch.profiler``, the
+   device's idle share);
+9. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -45,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -142,19 +158,72 @@ KERNEL_SYMBOLS = (
     "randint_kernel", "gaps_refresh_kernel", "converge_rows_kernel",
     "converge_finish_kernel", "inject_kernel", "spend_kernel",
     "deliver_kernel", "fault_edges_kernel", "fault_reach_kernel",
-    "node_faults_kernel",
+    "node_faults_kernel", "sample_uniform_kernel", "dense_inject_kernel",
+    "dense_broadcast_kernel", "dense_deliver_kernel", "dense_sync_kernel",
+    "dense_gaps_rows_kernel", "dense_gaps_finish_kernel",
+    "swim_timeout_kernel", "swim_merge_kernel", "swim_apply_kernel",
 )
 
 
-def profile_storm(dev, rounds=3, faults=False):
-    """Where a 100k storm round's time goes on the card: the first
-    ``rounds`` rounds of the faultless storm, or with ``faults`` of the
-    fault storm (inside its loss window), on the host clock, then again
-    under torch.profiler for device time by kernel (its own run: the
-    profiler slows the host)."""
+def _is_symbol(sym: str, key: str) -> bool:
+    """Whether profiler kernel name ``key`` is kernel ``sym`` (not just
+    one that ends in it, as dense_deliver_kernel ends in
+    deliver_kernel)."""
+    return re.search(r"(?<!\w)" + sym + r"\b", key) is not None
+
+
+def _profile(run, rounds, label):
+    """Where a run's time goes on the card: ``run()`` (which returns its
+    host wall in seconds) once to warm up, once on the host clock, then
+    again under torch.profiler for device time by kernel (its own run:
+    the profiler slows the host); per round over ``rounds``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run()
+    wall = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    # device-side events only: an aten op's CPU event also reports the
+    # device time of the kernels it launched, which would count twice
+    device = [
+        (ev.key, ev.self_device_time_total, ev.count)
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+    ]
+    device.sort(key=lambda row: -row[1])
+    total_us = sum(us for _, us, _ in device)
+    ours_us = sum(us for key, us, _ in device
+                  if any(_is_symbol(sym, key) for sym in KERNEL_SYMBOLS))
+    # int64 elementwise kernels: the threefry's carriers (and index casts)
+    long_us = sum(us for key, us, _ in device if "<long" in key)
+    return {
+        "run": label,
+        "device_kernel_names": len(device),
+        "rounds": rounds,
+        "wall_ms_per_round": wall / rounds * 1e3,
+        "device_ms_per_round": total_us / 1e3 / rounds,
+        "idle_share": 1.0 - total_us / 1e6 / wall,
+        "port_kernels_ms_per_round": ours_us / 1e3 / rounds,
+        "port_kernel_ms_per_round": {
+            sym: sum(us for key, us, _ in device
+                     if _is_symbol(sym, key)) / 1e3 / rounds
+            for sym in KERNEL_SYMBOLS
+            if any(_is_symbol(sym, key) for key, _, _ in device)
+        },
+        "int64_kernels_ms_per_round": long_us / 1e3 / rounds,
+        "device_launches_per_round": sum(c for _, _, c in device) / rounds,
+        "top": [
+            {"kernel": key[:90], "ms_per_round": us / 1e3 / rounds,
+             "launches_per_round": count / rounds}
+            for key, us, count in device[:10]
+        ],
+    }
+
+
+def profile_storm(dev, rounds=3, faults=False):
+    """The first ``rounds`` rounds of the 100k faultless storm, or with
+    ``faults`` of the fault storm (inside its loss window)."""
     from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
     from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
     from corrosion_tpu_torch.sim.runner import _write_storm, storm_fault_plan
@@ -175,43 +244,38 @@ def profile_storm(dev, rounds=3, faults=False):
         torch.cuda.synchronize()
         return time.monotonic() - t0
 
-    run()
-    wall = run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-    # device-side events only: an aten op's CPU event also reports the
-    # device time of the kernels it launched, which would count twice
-    device = [
-        (ev.key, ev.self_device_time_total, ev.count)
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-    ]
-    device.sort(key=lambda row: -row[1])
-    total_us = sum(us for _, us, _ in device)
-    ours_us = sum(us for key, us, _ in device
-                  if any(sym in key for sym in KERNEL_SYMBOLS))
-    # int64 elementwise kernels: the threefry's carriers (and index casts)
-    long_us = sum(us for key, us, _ in device if "<long" in key)
-    return {
-        "storm": "fault" if faults else "faultless",
-        "device_kernel_names": len(device),
-        "rounds": rounds,
-        "wall_ms_per_round": wall / rounds * 1e3,
-        "device_ms_per_round": total_us / 1e3 / rounds,
-        "idle_share": 1.0 - total_us / 1e6 / wall,
-        "port_kernels_ms_per_round": ours_us / 1e3 / rounds,
-        "port_kernel_ms_per_round": {
-            sym: sum(us for key, us, _ in device if sym in key) / 1e3 / rounds
-            for sym in KERNEL_SYMBOLS
-        },
-        "int64_kernels_ms_per_round": long_us / 1e3 / rounds,
-        "device_launches_per_round": sum(c for _, _, c in device) / rounds,
-        "top": [
-            {"kernel": key[:90], "ms_per_round": us / 1e3 / rounds,
-             "launches_per_round": count / rounds}
-            for key, us, count in device[:10]
-        ],
-    }
+    return _profile(run, rounds, "fault storm-100k" if faults
+                    else "storm-100k")
+
+
+def profile_heal(dev, rounds=10):
+    """``rounds`` partitioned dense rounds of partition-heal-10k through
+    `round_step_` on an owned state, as `config_partition_heal_10k`
+    runs them, after the state is built (setup is outside the clock)."""
+    from corrosion_tpu_torch.sim.round import (
+        new_metrics, new_sim, own_state, round_step_)
+    from corrosion_tpu_torch.sim.runner import heal_config
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    n = 10_000
+    cfg, meta = heal_config(n, dev)
+    topo = Topology(n_regions=2, inter_delay=2)
+    region = regions(n, 2, dev)
+
+    def run():
+        state = new_sim(cfg, 0, dev)
+        state = own_state(state._replace(
+            group=(torch.arange(n, device=dev) >= n // 2).to(torch.int32)))
+        metrics = new_metrics(cfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            state, metrics, _ = round_step_(state, metrics, meta, cfg, topo,
+                                            region)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, "partition-heal-10k")
 
 
 def _bound_ms(nbytes: int) -> float:
@@ -853,21 +917,445 @@ def compare_node_faults(dev, g, n, w, cfg, fplan):
     )
 
 
+# -- the dense round's kernels: K1's uniform entry, K12-K15 ------------------
+
+
+def _u8(g, shape, p_one, dev):
+    """u8 0/1 cells, each 1 with probability ``p_one``."""
+    return torch.as_tensor((g.random(shape) < p_one).astype(np.uint8),
+                           device=dev)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _changed_bytes(before, after) -> int:
+    """Bytes of the cells an in-place function changed: what it must
+    write at least."""
+    return sum(int((a != b).sum()) * a.element_size()
+               for a, b in zip(before, after))
+
+
+def _timed(timed, fn, restore=None):
+    if not timed:
+        return None
+    return _time_inplace_ms(fn, restore) if restore else _time_ms(fn)
+
+
+def _row(name, source, replaces, equal, err, ms, plain_ms, nbytes, **extra):
+    """A kernel row bound by the bytes it must move."""
+    return dict(name=name, source=source, replaces=replaces, equal=equal,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=_bound_ms(nbytes), bound_by="bytes", bytes=nbytes,
+                **extra)
+
+
+def compare_sample_uniform(dev, g, n=4096, count=3, timed=True):
+    """K1's uniform entry on a churn-shaped draw (N = 4096, the gossip
+    fanout 3): self candidates, beliefs with DOWN cells, repeats, rows
+    left short; and on the same draw without beliefs (ground truth)."""
+    from corrosion_tpu_torch.sim import swim
+
+    over = 4 * count
+    me = np.arange(n)[None, :]
+    cand = g.integers(0, n, (over, n))
+    cand = np.where(g.random((over, n)) < 0.05, me, cand)
+    cand[1] = np.where(g.random(n) < 0.3, cand[0], cand[1])  # repeats
+    cand_t = torch.as_tensor(cand, dtype=torch.int32, device=dev)
+    view = torch.as_tensor(
+        np.where(g.random((n, n)) < 0.5, 2, g.integers(0, 2, (n, n))),
+        dtype=torch.int8, device=dev)
+    got = [swim.sample_uniform(cand_t, v, count) for v in (view, None)]
+    want = [swim.sample_uniform_plain(cand_t, v, count) for v in (view, None)]
+    equal, err = _equal_all(got, want)
+    if not (bool((want[0] == -1).any()) and bool((cand_t == torch.arange(
+            n, device=dev)).any())):
+        raise AssertionError("K1 uniform inputs leave no row short or draw "
+                             "no self candidate")
+    return _row(
+        "sample_uniform", "corrosion_tpu_torch/kernels/csrc/sample_targets.cu",
+        "corrosion_tpu/sim/swim.py:59", equal, err,
+        _timed(timed, lambda: swim.sample_uniform(cand_t, view, count)),
+        _timed(timed, lambda: swim.sample_uniform_plain(cand_t, view, count)),
+        # the draws, one belief byte per draw, the output
+        cand_t.numel() * 5 + n * count * 4,
+    )
+
+
+def _dense_round_inputs(g, dev, cfg, meta, t):
+    """A mid-run dense state at ``cfg``'s shape: half the cells held,
+    relay budgets on held cells, the payloads of rounds <= t injected,
+    sparse rings, 3% dead nodes, a quarter split."""
+    n, p = cfg.n_nodes, cfg.n_payloads
+    have = _u8(g, (n, p), 0.5, dev)
+    relay = (torch.as_tensor(g.integers(0, cfg.max_transmissions + 1, (n, p)),
+                             dtype=torch.uint8, device=dev) * have)
+    injected = (meta.round <= t).to(torch.uint8)
+    d = cfg.n_delay_slots
+    ring = _u8(g, (d, n, p), 0.05, dev)
+    sync_ring = _u8(g, (d, n, p), 0.02, dev)
+    alive = torch.as_tensor((g.random(n) < 0.03) * 2, dtype=torch.uint8,
+                            device=dev)
+    # a split off the region boundary, so both delay classes carry edges
+    group = (torch.arange(n, device=dev) >= n // 4).to(torch.int32)
+    return have, relay, injected, ring, sync_ring, alive, group
+
+
+def _dense_round_phases(bc, xs, meta, cfg, targets, dst, slot, ok, key,
+                        budget, thr, t, kernel=True):
+    """One round's K12 phases on ``xs`` (have, relay, injected, ring,
+    sync_ring, alive), in place: the wrappers, or the plain versions."""
+    have, relay, injected, ring, sync_ring, alive = xs
+    inj = bc.inject_dense if kernel else bc.inject_dense_plain
+    send = bc.broadcast_send if kernel else bc.broadcast_send_plain
+    dlv = bc.deliver_dense if kernel else bc.deliver_dense_plain
+    inj(have, relay, injected, meta, alive, t, cfg.max_transmissions)
+    send(have, relay, injected, meta.nbytes, budget, targets, dst, slot, ok,
+         alive, key, thr, ring)
+    dlv(ring, sync_ring, have, relay, t % ring.shape[0],
+        max(cfg.max_transmissions - 1, 1))
+
+
+def compare_dense_phases(dev, g, n=10_000, timed=True):
+    """K12 at partition-heal-10k's shapes (P = 256, F = 3, D = 3, two
+    regions, a partition): the path's case (unmetered, lossless) and a
+    trap case with a binding byte budget and a loss threshold 0 < 51 <
+    256, each a whole round (inject, broadcast, deliver)."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim.runner import heal_config
+    from corrosion_tpu_torch.sim.topology import (
+        Topology, edge_alive, edge_delay, regions)
+
+    cfg, meta = heal_config(n, dev)
+    f, t = cfg.fanout, 20
+    have, relay, injected, ring, sync_ring, alive, group = \
+        _dense_round_inputs(g, dev, cfg, meta, t)
+    me = np.arange(n)[:, None]
+    tg = np.where(g.random((n, f)) < 0.05, -1, g.integers(0, n, (n, f)))
+    targets = torch.as_tensor(np.where(g.random((n, f)) < 0.02, me, tg),
+                              dtype=torch.int32, device=dev)
+    topo = Topology(n_regions=2, inter_delay=2)
+    region = regions(n, 2, dev)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = targets.reshape(-1)
+    ok = dst >= 0
+    dst = torch.clamp(dst, min=0)
+    ok &= edge_alive(group, alive, src, dst) & (dst != src)
+    slot = ((t + edge_delay(topo, region, src, dst)) % cfg.n_delay_slots).to(
+        torch.int32)
+    key = trng.prng_key(77, dev)
+    base = [have, relay, injected, ring, sync_ring, alive]
+    budget_trap = 20 * 8192 + 4096
+    equal, err, runs = True, 0, {}
+    for label, budget, thr in (("path", None, 0), ("trap", budget_trap, 51),
+                               ("lossless_trap", budget_trap, 0)):
+        outs = []
+        for kernel in (True, False):
+            xs = [x.clone() for x in base]
+            _dense_round_phases(bc, xs, meta, cfg, targets, dst, slot, ok,
+                                key, budget, thr, t, kernel)
+            outs.append(xs)
+        e, x = _equal_all(outs[0], outs[1])
+        equal, err = equal and e, max(err, x)
+        runs[label] = outs[1]
+    eligible = (have > 0) & (relay > 0) & (injected > 0)[None, :]
+    if int(eligible.sum(dim=1).max()) * 8192 <= budget_trap:
+        raise AssertionError("K12 inputs: the byte budget never binds")
+    if _equal_all(runs["trap"], runs["lossless_trap"])[0]:
+        raise AssertionError("K12 inputs: the loss drops no payload")
+    work = [x.clone() for x in base]
+
+    def restore():
+        for dst_, src_ in zip(work, base):
+            dst_.copy_(src_)
+
+    def round_(kernel, budget=None, thr=0):
+        return lambda: _dense_round_phases(
+            bc, work, meta, cfg, targets, dst, slot, ok, key, budget, thr, t,
+            kernel)
+
+    e = n * f
+    nbytes = (_nbytes(have, relay, injected, meta.nbytes, meta.round,
+                      meta.actor, alive, targets, dst, slot, ok)
+              + 2 * n * cfg.n_payloads  # the two ring slots deliver reads
+              + _changed_bytes(base[:5], runs["path"][:5]))
+    # the trap's hashes: one per sending (edge, payload) cell of an ok edge
+    sending = eligible.repeat_interleave(f, dim=0) & ok[:, None]
+    hashes = int(sending.sum())
+    return _row(
+        "dense_phases", "corrosion_tpu_torch/kernels/csrc/dense_phases.cu",
+        "corrosion_tpu/sim/broadcast.py:32", equal, err,
+        _timed(timed, round_(True), restore),
+        _timed(timed, round_(False), restore), nbytes,
+        trap_ms=_timed(timed, round_(True, budget_trap, 51), restore),
+        trap_plain_ms=_timed(timed, round_(False, budget_trap, 51), restore),
+        trap_hash_ops=hashes * OPS_PER_HASH, edges=e,
+    )
+
+
+def _advertised(g, dev, cfg, have, t):
+    """heads and gap slots as a node advertises them: from a lagging
+    copy of its have rows (the bookkeeping of an earlier round)."""
+    from corrosion_tpu_torch.sim.round import dense_record_plain, new_metrics
+
+    lag = have & _u8(g, tuple(have.shape), 0.8, have.device)
+    meta_round = torch.zeros(cfg.n_payloads, dtype=torch.int32,
+                             device=have.device)
+    meta = SimpleNamespace(round=meta_round)
+    heads, lo, hi, n_over, *_ = dense_record_plain(
+        lag, torch.ones(cfg.n_payloads, dtype=torch.uint8, device=dev),
+        torch.zeros(cfg.n_nodes, dtype=torch.uint8, device=dev),
+        new_metrics(cfg, dev), meta, t, cfg)
+    return heads, lo, hi, int(n_over)
+
+
+def compare_dense_sync(dev, g, n=10_000, timed=True):
+    """K13 at partition-heal-10k's shapes (P = 256, A = 4, V = 64, K = 8,
+    S = 3): advertised gaps with more than K runs, self and dead peers,
+    unmetered (the path) and under a binding sync budget."""
+    from corrosion_tpu_torch.sim import sync
+    from corrosion_tpu_torch.sim.runner import heal_config
+
+    cfg, meta = heal_config(n, dev)
+    s = cfg.sync_peers
+    have = _u8(g, (n, cfg.n_payloads), 0.5, dev)
+    heads, lo, hi, n_over = _advertised(g, dev, cfg, have, 40)
+    if n_over == 0:
+        raise AssertionError("K13 inputs: no advertised row has more than "
+                             "K gap runs")
+    me = np.arange(n)[:, None]
+    peers = np.where(g.random((n, s)) < 0.03, me, g.integers(0, n, (n, s)))
+    peers = torch.as_tensor(peers, dtype=torch.int32, device=dev)
+    ok = torch.as_tensor(g.random((n, s)) < 0.7, device=dev) & (
+        peers != torch.arange(n, device=dev)[:, None])
+    slot0 = _u8(g, (n, cfg.n_payloads), 0.01, dev)
+    budget_trap = 6 * 8192 + 100
+    equal, err, outs = True, 0, {}
+    for budget in (None, budget_trap):
+        got_slot, want_slot = slot0.clone(), slot0.clone()
+        got = sync.sync_pull_dense(have, heads, lo, hi, peers, ok, meta.nbytes,
+                                   budget, got_slot, cfg)
+        want = sync.sync_pull_dense_plain(have, heads, lo, hi, peers, ok,
+                                          meta.nbytes, budget, want_slot, cfg)
+        e, x = _equal_all([got, got_slot], [want, want_slot])
+        equal, err = equal and e, max(err, x)
+        outs[budget] = want_slot
+    if torch.equal(outs[None], outs[budget_trap]):
+        raise AssertionError("K13 inputs: the sync budget never binds")
+    work = slot0.clone()
+
+    def restore():
+        work.copy_(slot0)
+
+    nbytes = (_nbytes(have, heads, lo, hi, peers, ok, meta.nbytes)
+              + _changed_bytes([slot0], [outs[None]]) + n)
+    return _row(
+        "dense_sync", "corrosion_tpu_torch/kernels/csrc/dense_sync.cu",
+        "corrosion_tpu/sim/sync.py:122", equal, err,
+        _timed(timed, lambda: sync.sync_pull_dense(
+            have, heads, lo, hi, peers, ok, meta.nbytes, None, work, cfg),
+            restore),
+        _timed(timed, lambda: sync.sync_pull_dense_plain(
+            have, heads, lo, hi, peers, ok, meta.nbytes, None, work, cfg),
+            restore),
+        nbytes,
+        trap_ms=_timed(timed, lambda: sync.sync_pull_dense(
+            have, heads, lo, hi, peers, ok, meta.nbytes, budget_trap, work,
+            cfg), restore),
+    )
+
+
+def _dense_record_cases(g, dev, cfg, meta):
+    """K14's cases: holes (runs past K, dead rows, stamps set and unset)
+    mid-injection, then every cell held after the last injection (node
+    stamps and the done flag), and the same with one up row short."""
+    from corrosion_tpu_torch.sim.round import RunMetrics
+
+    n, p = cfg.n_nodes, cfg.n_payloads
+    last = int(meta.round.max())
+    alive = torch.as_tensor((g.random(n) < 0.05) * 2, dtype=torch.uint8,
+                            device=dev)
+    metrics = RunMetrics(
+        coverage_at=torch.as_tensor(np.where(g.random(p) < 0.2, 2, -1),
+                                    dtype=torch.int32, device=dev),
+        converged_at=torch.as_tensor(np.where(g.random(n) < 0.2, 3, -1),
+                                     dtype=torch.int32, device=dev),
+        overflow_frac=torch.zeros((), device=dev),
+        order_violations=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    holes = _u8(g, (n, p), 0.5, dev)
+    full = torch.ones((n, p), dtype=torch.uint8, device=dev)
+    short = full.clone()
+    short[int(np.flatnonzero(alive.cpu().numpy() == 0)[0]), 0] = 0
+    inj_mid = (meta.round <= last // 2).to(torch.uint8)
+    inj_all = torch.ones(p, dtype=torch.uint8, device=dev)
+    return [(holes, inj_mid, alive, metrics, meta, last // 2, cfg),
+            (full, inj_all, alive, metrics, meta, last + 2, cfg),
+            (short, inj_all, alive, metrics, meta, last + 2, cfg)]
+
+
+def compare_dense_gaps(dev, g, n=10_000, n_writers=4, n_payloads=256,
+                       timed=True, name="dense_gaps"):
+    """K14 at partition-heal-10k's shapes (A = 4, V = 64, K = 8: JAX's
+    dense branch) or broadcast-1k's (A = 8, V = 32: its word branch)."""
+    from corrosion_tpu_torch.sim.round import dense_record, dense_record_plain
+    from corrosion_tpu_torch.sim.state import SimConfig, uniform_payloads
+
+    cfg = SimConfig(n_nodes=n, n_payloads=n_payloads, n_writers=n_writers)
+    meta = uniform_payloads(cfg, dev, inject_every=1)
+    cases = _dense_record_cases(g, dev, cfg, meta)
+    equal, err, dones = True, 0, []
+    for args in cases:
+        got, want = dense_record(*args), dense_record_plain(*args)
+        e, x = _equal_all(got, want)
+        equal, err = equal and e, max(err, x)
+        dones.append(bool(want[6]))
+        if args is cases[0] and int(want[3]) == 0:
+            raise AssertionError("K14 inputs overflow no row")
+    if dones != [False, True, False]:
+        raise AssertionError("K14 inputs do not reach both done values")
+    args = cases[0]
+    a, k = cfg.n_writers, cfg.gap_slots
+    p = cfg.n_payloads
+    nbytes = (n * p + p + n + p * 4 + n * 4 * 2 + p * 4 * 2
+              + n * a * 4 * (1 + 2 * k) + 4 + 1)
+    return _row(
+        name, "corrosion_tpu_torch/kernels/csrc/dense_gaps.cu",
+        "corrosion_tpu/sim/gaps.py:64", equal, err,
+        _timed(timed, lambda: dense_record(*args)),
+        _timed(timed, lambda: dense_record_plain(*args)), nbytes,
+        n_versions=cfg.n_versions,
+    )
+
+
+def _swim_passes(sw, xs, gdst, g_ok, f, ann_target, ann_claim, up,
+                 heard_down, fb_inc, t, timeout, kernel=True):
+    """K15's three passes on ``xs`` (view, vinc, since, incarnation) in
+    place, with the gossip receiver filter between them as swim_step
+    has it; returns the belief keys, the merged keys and the new
+    incarnations."""
+    view, vinc, since, inc = xs
+    if kernel:
+        timeout_, merge, apply_ = (sw.swim_timeout_, sw.swim_merge,
+                                   sw.swim_apply_)
+    else:
+        timeout_, merge, apply_ = (sw.swim_timeout_plain, sw.swim_merge_plain,
+                                   sw.swim_apply_plain)
+    key = timeout_(view, vinc, since, t, timeout)
+    n = view.shape[0]
+    gsrc = torch.arange(n, device=view.device).repeat_interleave(f)
+    ok = g_ok & (view[gdst.long(), gsrc] != 2)
+    merged = merge(key, gdst, ok, f, ann_target, ann_claim)
+    return key, merged, apply_(view, vinc, since, key, merged, inc, up,
+                               heard_down, fb_inc, t)
+
+
+def compare_swim_full(dev, g, n=4096, f=3, timed=True):
+    """K15 at churn-full-4096's shapes (N = 4096, F = 3): SUSPECT cells
+    past the timeout, DOWN receivers, announce claims, refuting nodes."""
+    from corrosion_tpu_torch.sim import swim as sw
+
+    t, timeout = 40, 13
+    view = torch.as_tensor(g.choice(3, (n, n), p=[0.8, 0.1, 0.1]),
+                           dtype=torch.int8, device=dev)
+    vinc = torch.as_tensor(g.integers(0, 6, (n, n)), dtype=torch.int32,
+                           device=dev)
+    since = torch.as_tensor(np.where(g.random((n, n)) < 0.5,
+                                     g.integers(0, t + 1, (n, n)), -1),
+                            dtype=torch.int32, device=dev)
+    inc = torch.as_tensor(g.integers(0, 6, n), dtype=torch.int32, device=dev)
+    gdst = torch.as_tensor(g.integers(0, n, n * f), dtype=torch.int32,
+                           device=dev)
+    g_ok = torch.as_tensor(g.random(n * f) < 0.9, device=dev)
+    ann_target = torch.as_tensor(g.integers(0, n, n), dtype=torch.int32,
+                                 device=dev)
+    ann_claim = torch.where(torch.as_tensor(g.random(n) < 0.3, device=dev),
+                            inc * 4, -1).to(torch.int32)
+    up = torch.as_tensor(g.random(n) < 0.95, device=dev)
+    heard_down = torch.as_tensor(g.random(n) < 0.05, device=dev)
+    fb_inc = torch.as_tensor(np.where(g.random(n) < 0.05,
+                                      g.integers(0, 8, n), -1),
+                             dtype=torch.int32, device=dev)
+    base = [view, vinc, since, inc]
+    args = (gdst, g_ok, f, ann_target, ann_claim, up, heard_down, fb_inc, t,
+            timeout)
+    outs = []
+    for kernel in (True, False):
+        xs = [x.clone() for x in base]
+        res = _swim_passes(sw, xs, *args, kernel=kernel)
+        outs.append(list(res) + xs)
+    equal, err = _equal_all(outs[0], outs[1])
+    key, merged, new_inc, v_after = outs[1][:4]
+    expired = (view == 1) & (since >= 0) & (t - since >= timeout)
+    if not (bool(expired.any()) and bool((new_inc != inc).any())
+            and bool((merged > key).any()) and bool((v_after == 2).any())):
+        raise AssertionError("K15 inputs time out, refute or merge nothing")
+    work = [x.clone() for x in base]
+
+    def restore():
+        for dst_, src_ in zip(work, base):
+            dst_.copy_(src_)
+
+    # swim_step's belief update reads view, vinc and since once and
+    # writes the cells it changes; the belief keys and the merged
+    # buffer are the passes' own and do not count
+    cells = n * n
+    nbytes = (cells * (1 + 4 + 4)  # view, vinc, since
+              + n * f * 5  # gossip edges: gdst, g_ok
+              + n * 4 * 4 + n * 2  # ann_target, ann_claim, inc, fb_inc;
+              # up, heard_down
+              + _changed_bytes(base, outs[1][3:]))
+    return _row(
+        "swim_full", "corrosion_tpu_torch/kernels/csrc/swim_full.cu",
+        "corrosion_tpu/sim/swim.py:185", equal, err,
+        _timed(timed, lambda: _swim_passes(sw, work, *args), restore),
+        _timed(timed, lambda: _swim_passes(sw, work, *args, kernel=False),
+               restore),
+        nbytes,
+    )
+
+
+def compare_dense_kernels(dev, seed=1):
+    """Phase 3b: K1's uniform entry and K12-K15 against their plain
+    versions at the dense paths' shapes."""
+    g = np.random.default_rng(seed)
+    rows = [
+        compare_sample_uniform(dev, g),
+        compare_dense_phases(dev, g),
+        compare_dense_sync(dev, g),
+        compare_dense_gaps(dev, g),
+        compare_swim_full(dev, g),
+    ]
+    # broadcast-1k's shapes: K1 without beliefs is checked above on the
+    # churn draw; K14 at V = 32 (JAX's word branch) is checked here
+    word = compare_dense_gaps(dev, g, n=1000, n_writers=8, timed=False,
+                              name="dense_gaps_v32")
+    rows[3]["equal"] = rows[3]["equal"] and word["equal"]
+    rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], word["max_abs_err"])
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
 def _storm_check(result, golden, label):
+    """Hold a run's record against its golden: every golden key (the
+    digest from the record's final state), then convergence — or, for
+    the membership churn, detection."""
     from corrosion_tpu_torch.convert import state_digest
 
-    got = {
-        "rounds": result["rounds"],
-        "p99_node_convergence_round": result["p99_node_convergence_round"],
-        "digest": state_digest(result["state"]),
-    }
+    got = {key: state_digest(result["state"]) if key == "digest"
+           else result[key] for key in golden}
     print(f"{label}: {json.dumps(got)} wall_clock_s="
           f"{result['wall_clock_s']:.3f}", flush=True)
     for key, want in golden.items():
         if got[key] != want:
             raise AssertionError(f"{label}: {key} {got[key]!r} != golden "
                                  f"{want!r}")
-    if not result["converged"]:
+    if not result.get("converged", result.get("detect_round", -1) >= 0):
         raise AssertionError(f"{label}: did not converge")
 
 
@@ -907,8 +1395,12 @@ def main() -> int:
     from corrosion_tpu_torch.sim.round import new_sim
     from corrosion_tpu_torch.sim.runner import (
         _write_storm,
+        config_broadcast_1k,
+        config_ground_truth_3node,
         config_packed_fault_storm,
+        config_partition_heal_10k,
         config_write_storm_100k,
+        membership_churn,
         run_scenario,
         storm_fault_plan,
     )
@@ -924,6 +1416,8 @@ def main() -> int:
 
     rows = compare_kernels(dev)
     print("kernel comparisons equal at storm shapes", flush=True)
+    dense_kernel_rows = compare_dense_kernels(dev)
+    print("kernel comparisons equal at the dense paths' shapes", flush=True)
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -940,14 +1434,16 @@ def main() -> int:
                  goldens.FAULT_STORM_512_SEED7, "fault_storm_512_seed7")
 
     # path 1, the faultless storm: K1-K8
-    faultless_rows = list(kernels.PORTED)[:8]
+    faultless_rows = ["sample_targets", "broadcast_scatter", "sync_pull",
+                      "merge_entries", "threefry", "gaps_refresh",
+                      "converge_fold", "word_phases"]
     kernels.reset_launch_counts()
     big = config_write_storm_100k(seed=0, device=dev, return_state=True)
     launches = _path_launches(kernels, faultless_rows, "storm_100k")
     _storm_check(big, goldens.STORM_100K_SEED0, "storm_100k_seed0")
 
-    # path 2, the 100k fault storm alone: K1 and K3-K11.  Every fault
-    # round scatters through K10, so K2 is off this path.
+    # path 2, the 100k fault storm alone: K1's table entry and K3-K11.
+    # Every fault round scatters through K10, so K2 is off this path.
     cfg, meta = _write_storm(100_000, 512, dev)
     fplan = faults.compile_plan(storm_fault_plan(100_000, 0), cfg,
                                 device=dev)
@@ -960,7 +1456,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     fault_launches = _path_launches(
-        kernels, [row for row in kernels.PORTED if row != "broadcast_scatter"],
+        kernels, [row for row in faultless_rows if row != "broadcast_scatter"]
+        + ["fault_edges", "broadcast_scatter_lossy", "node_faults"],
         "fault_storm_100k")
     _storm_check(_fault_record(final, metrics, wall),
                  goldens.FAULT_STORM_100K_SEED0, "fault_storm_100k")
@@ -973,17 +1470,55 @@ def main() -> int:
         k: v for k, v in fault.items() if k not in ("state", "metrics")}),
         flush=True)
 
+    # path 3, partition-heal-10k: the dense round with partial-view
+    # SWIM, two regions (ring0 tiering): K1, K4, K5 and K12-K14
+    dense_rows = ["dense_phases", "dense_sync", "dense_gaps"]
+    kernels.reset_launch_counts()
+    heal = config_partition_heal_10k(seed=0, device=dev, return_state=True)
+    heal_launches = _path_launches(
+        kernels, ["sample_targets", "merge_entries", "threefry", *dense_rows],
+        "partition_heal_10k")
+    _storm_check(heal, goldens.PARTITION_HEAL_10K_SEED0, "partition_heal_10k")
+
+    # path 4, broadcast-1k and the 3-node ground truth (metered budgets):
+    # ground-truth membership, so the uniform sampler (K1's second
+    # entry), K5 and K12-K14
+    uniform_rows = ["sample_uniform", "threefry", *dense_rows]
+    for label, entry, golden in (
+            ("broadcast_1k", config_broadcast_1k, goldens.BROADCAST_1K_SEED0),
+            ("ground_truth_3node", config_ground_truth_3node,
+             goldens.GROUND_TRUTH_3NODE_SEED0)):
+        kernels.reset_launch_counts()
+        result = entry(seed=0, device=dev, return_state=True)
+        _path_launches(kernels, uniform_rows, label)
+        _storm_check(result, golden, label)
+
+    # path 5, churn-full-4096: full-view SWIM on [4096, 4096] beliefs,
+    # K1's uniform entry filtering by them, and K15
+    kernels.reset_launch_counts()
+    churn = membership_churn(4096, seed=0, device=dev, return_state=True)
+    churn_launches = _path_launches(kernels, [*uniform_rows, "swim_full"],
+                                    "churn_full_4096")
+    _storm_check(churn, goldens.CHURN_FULL_4096_SEED0, "churn_full_4096")
+
     print("profile: " + json.dumps(profile_storm(dev)), flush=True)
     print("profile: " + json.dumps(profile_storm(dev, faults=True)),
           flush=True)
     # the whole loss window, where most nodes send and K10 draws most
     print("profile: " + json.dumps(profile_storm(dev, 12, faults=True)),
           flush=True)
+    print("profile: " + json.dumps(profile_heal(dev)), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
                            else fault_launches)[row["name"]]
         row["fault_path_launches"] = fault_launches[row["name"]]
+    for row in dense_kernel_rows:
+        path = churn_launches if row["name"] in (
+            "sample_uniform", "swim_full") else heal_launches
+        row["launches"] = path[row["name"]]
+    rows += dense_kernel_rows
+    for row in rows:
         row["kernel_ms"] = row["ms"]
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -22,7 +22,7 @@ import torch
 from .device import resolve_device
 from .sim.faults import FactoredFaultPlan
 from .sim.words import pack_bits, unpack_bits
-from .sim.state import PayloadMeta, SimConfig, SimState
+from .sim.state import PayloadMeta, SimConfig, SimState, packed_supported
 
 _JAX_DTYPES = {
     "t": np.int32,
@@ -42,9 +42,8 @@ def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:
     """The port's state as numpy arrays in JAX's field names and dtypes."""
     out = {}
     for name, value in zip(SimState._fields, state):
-        if name == "inflight":
-            d, n, w = value.shape
-            value = unpack_bits(value, w * 32)
+        if name == "inflight" and value.dtype == torch.int32:
+            value = unpack_bits(value, value.shape[-1] * 32)
         arr = value.detach().cpu().numpy()
         out[name] = arr.astype(_JAX_DTYPES.get(name, np.int32))
     return out
@@ -62,13 +61,15 @@ def state_from_numpy(
             fields[name] = torch.tensor(int(arr), dtype=torch.int32)
         elif name == "key":
             fields[name] = torch.from_numpy(arr.astype(np.int64)).to(dev)
-        elif name == "inflight":
+        elif name == "inflight" and packed_supported(cfg):
             fields[name] = pack_bits(torch.from_numpy(arr).to(dev))
         elif arr.dtype in (np.uint8, np.int8):
             fields[name] = torch.from_numpy(arr).to(dev)
         else:
             fields[name] = torch.from_numpy(arr.astype(np.int32)).to(dev)
-    if fields["inflight"].shape[-1] * 32 != cfg.n_payloads and cfg.n_payloads:
+    ring = fields["inflight"]
+    width = ring.shape[-1] * (32 if ring.dtype == torch.int32 else 1)
+    if width != cfg.n_payloads:
         raise ValueError("inflight ring does not match cfg.n_payloads")
     return SimState(**fields)
 

@@ -1,13 +1,14 @@
 """Results of the JAX reference pinned for runs without JAX.
 
 Each entry is what the JAX package (``corrosion_tpu``, jax 0.9.0 on the
-CPU) produces for the write storm at the given size and seed, faultless
-or under ``storm_fault_plan`` (factored): rounds to convergence, the
-p99 node-convergence round, and the blake2b digest of the final state
-(`convert.state_digest`, equal to the JAX suite's ``_digest``).
-``chip_smoke.py`` holds the port's runs on the card against them;
-``tests/test_torch_storm.py`` and ``tests/test_torch_fault_storm.py``
-hold them against live JAX (the 100k entries under ``-m slow``).
+CPU) produces for one scenario and seed: rounds to convergence, the p99
+node-convergence round, and the blake2b digest of the final state
+(`convert.state_digest`, equal to the JAX suite's ``_digest``); the
+comment above each names the JAX call.  ``chip_smoke.py`` holds the
+port's runs on the card against them; ``tests/test_torch_storm.py``,
+``tests/test_torch_fault_storm.py``, ``tests/test_torch_dense.py`` and
+``tests/test_torch_swim_full.py`` hold them against live JAX (the
+largest under ``-m slow``).
 """
 
 # _write_storm(512, 256) with packed_min_cells=0, seed 7
@@ -37,4 +38,40 @@ FAULT_STORM_100K_SEED0 = {
     "rounds": 29,
     "p99_node_convergence_round": 25.0,
     "digest": "1cd8919e20ad0df8",
+}
+
+# runner.config_ground_truth_3node(seed=0), its final state from
+# run_to_convergence(new_sim(cfg, 0), meta, cfg, Topology(), 2000)
+GROUND_TRUTH_3NODE_SEED0 = {
+    "rounds": 64,
+    "p99_node_convergence_round": 63.0,
+    "digest": "d6d63ed7637675ce",
+}
+
+# runner.config_broadcast_1k(seed=0): 1000 nodes, 8 writers x 32
+# versions, budgets dropped by optimize_budgets, the dense round
+BROADCAST_1K_SEED0 = {
+    "rounds": 73,
+    "p99_node_convergence_round": 69.0,
+    "digest": "c0523861b0f30759",
+}
+
+# runner.config_partition_heal_10k(seed=0): round_step over 60
+# partitioned rounds, then run_to_convergence after the heal
+PARTITION_HEAL_10K_SEED0 = {
+    "heal_round": 60,
+    "rounds": 96,
+    "rounds_after_heal": 36,
+    "p99_node_convergence_round": 87.0,
+    "digest": "5878edbabd4f1678",
+}
+
+# SimConfig.wan_tuned(4096, n_payloads=1, swim_full_view=True), every
+# third node killed at t = 0, round_step until every survivor believes
+# every dead node DOWN (telemetry.run_membership_detect's predicate),
+# seed 0: the round counter then, the state's digest, (up, up) DOWNs
+CHURN_FULL_4096_SEED0 = {
+    "detect_round": 46,
+    "digest": "ba94e70d5efbab4c",
+    "false_downs": 0,
 }

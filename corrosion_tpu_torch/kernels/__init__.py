@@ -19,12 +19,20 @@ replaces:
   `fault_reach_`;
 - K10 `BROADCAST_SCATTER_LOSSY` (in K2's source) —
   `sim.packed.scatter_sending_lossy`;
-- K11 `NODE_FAULTS` — `sim.packed.apply_round_faults`.
+- K11 `NODE_FAULTS` — `sim.packed.apply_round_faults`;
+- K1's second entry `SAMPLE_UNIFORM` (in K1's source) —
+  `sim.swim.sample_uniform`;
+- K12 `DENSE_INJECT`, `DENSE_BROADCAST`, `DENSE_DELIVER` —
+  `sim.broadcast.inject_dense`, `broadcast_send`, `deliver_dense`;
+- K13 `DENSE_SYNC` — `sim.sync.sync_pull_dense`;
+- K14 `DENSE_GAPS_ROWS`, `DENSE_GAPS_FINISH` — `sim.round.dense_record`;
+- K15 `SWIM_TIMEOUT`, `SWIM_MERGE`, `SWIM_APPLY` —
+  `sim.swim.swim_timeout_`, `swim_merge`, `swim_apply_`.
 
 A wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other.  `PORTED` groups
 the entry points by kernel, in K order (K10 is a second entry point of
-K2's source with a row of its own).
+K2's source with a row of its own, and so is K1's uniform entry).
 """
 
 from .build import Kernel, build_all
@@ -64,6 +72,29 @@ FAULT_EDGES = Kernel("fault_edges", "fault_edges.cu", "corro_fault_edges", 7)
 FAULT_REACH = Kernel("fault_reach", "fault_edges.cu", "corro_fault_reach", 8)
 NODE_FAULTS = Kernel("node_faults", "node_faults.cu", "corro_node_faults", 6)
 
+SAMPLE_UNIFORM = Kernel(
+    "sample_uniform", "sample_targets.cu", "corro_sample_uniform", 3
+)
+DENSE_INJECT = Kernel(
+    "dense_inject", "dense_phases.cu", "corro_dense_inject", 4
+)
+DENSE_BROADCAST = Kernel(
+    "dense_broadcast", "dense_phases.cu", "corro_dense_broadcast", 6
+)
+DENSE_DELIVER = Kernel(
+    "dense_deliver", "dense_phases.cu", "corro_dense_deliver", 4
+)
+DENSE_SYNC = Kernel("dense_sync", "dense_sync.cu", "corro_dense_sync", 7)
+DENSE_GAPS_ROWS = Kernel(
+    "dense_gaps_rows", "dense_gaps.cu", "corro_dense_gaps_rows", 8
+)
+DENSE_GAPS_FINISH = Kernel(
+    "dense_gaps_finish", "dense_gaps.cu", "corro_dense_gaps_finish", 6
+)
+SWIM_TIMEOUT = Kernel("swim_timeout", "swim_full.cu", "corro_swim_timeout", 3)
+SWIM_MERGE = Kernel("swim_merge", "swim_full.cu", "corro_swim_merge", 2)
+SWIM_APPLY = Kernel("swim_apply", "swim_full.cu", "corro_swim_apply", 2)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -76,6 +107,11 @@ PORTED = {
     "fault_edges": (FAULT_EDGES, FAULT_REACH),
     "broadcast_scatter_lossy": (BROADCAST_SCATTER_LOSSY,),
     "node_faults": (NODE_FAULTS,),
+    "sample_uniform": (SAMPLE_UNIFORM,),
+    "dense_phases": (DENSE_INJECT, DENSE_BROADCAST, DENSE_DELIVER),
+    "dense_sync": (DENSE_SYNC,),
+    "dense_gaps": (DENSE_GAPS_ROWS, DENSE_GAPS_FINISH),
+    "swim_full": (SWIM_TIMEOUT, SWIM_MERGE, SWIM_APPLY),
 }
 KERNELS = tuple(k for entries in PORTED.values() for k in entries)
 
@@ -87,8 +123,11 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_LOSSY", "CONVERGE_FINISH",
-    "CONVERGE_ROWS", "FAULT_EDGES", "FAULT_REACH", "GAPS_REFRESH",
-    "KERNELS", "Kernel", "MERGE_ENTRIES", "NODE_FAULTS", "PORTED", "RANDINT",
-    "SAMPLE_TARGETS", "SYNC_PULL", "THREEFRY", "WORD_DELIVER", "WORD_INJECT",
-    "WORD_SPEND", "build_all", "reset_launch_counts",
+    "CONVERGE_ROWS", "DENSE_BROADCAST", "DENSE_DELIVER", "DENSE_GAPS_FINISH",
+    "DENSE_GAPS_ROWS", "DENSE_INJECT", "DENSE_SYNC", "FAULT_EDGES",
+    "FAULT_REACH", "GAPS_REFRESH", "KERNELS", "Kernel", "MERGE_ENTRIES",
+    "NODE_FAULTS", "PORTED", "RANDINT", "SAMPLE_TARGETS", "SAMPLE_UNIFORM",
+    "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL", "THREEFRY",
+    "WORD_DELIVER", "WORD_INJECT", "WORD_SPEND", "build_all",
+    "reset_launch_counts",
 ]

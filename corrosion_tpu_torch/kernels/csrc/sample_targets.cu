@@ -23,6 +23,16 @@
 // so the word is read as uint32_t and shifted logically.  DOWN is tested
 // as (key & 3), which is floor-mod 4 like jnp's `%` also for the -1
 // sentinel (3 != DOWN either way).
+//
+// Second entry point, corro_sample_uniform: the uniform sampler of
+// corrosion_tpu/sim/swim.py:59 sample_member_targets (swim.py:95-108).
+// The `over` candidates of a node are column `node` of a [over, N]
+// randint draw (K5) themselves, not table words; a candidate is valid
+// when it is not the node and, given the full-view beliefs `view`
+// (i8[N, N], null for ground-truth membership), the node does not
+// believe it DOWN (view[node, cand] != DOWN).  Dedup and compaction are
+// K1's.  Bound: bytes — the draws, one gathered belief byte each from
+// the node's own view row, the output.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,6 +82,44 @@ __global__ void sample_targets_kernel(const uint32_t* __restrict__ table,
   for (; filled < count; ++filled) dst[filled] = -1;
 }
 
+__global__ void sample_uniform_kernel(const int32_t* __restrict__ cands,
+                                      const int8_t* __restrict__ view,
+                                      int32_t* __restrict__ out, int n,
+                                      int over, int count) {
+  int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= n) return;
+  int cand[MAX_OVER];
+  bool valid[MAX_OVER];
+#pragma unroll
+  for (int j = 0; j < MAX_OVER; ++j) {
+    cand[j] = -1;
+    valid[j] = false;
+    if (j < over) {
+      int c = cands[(size_t)j * n + node];
+      cand[j] = c;
+      bool ok = c != node;
+      if (view != nullptr) {
+        // jnp gathers clamp out-of-range indices; so does this one
+        int col = c < 0 ? 0 : (c >= n ? n - 1 : c);
+        ok = ok && view[(size_t)node * n + col] != DOWN;
+      }
+      valid[j] = ok;
+    }
+  }
+  int filled = 0;
+  int32_t* dst = out + (size_t)node * count;
+#pragma unroll
+  for (int j = 0; j < MAX_OVER; ++j) {
+    bool keep = valid[j];
+#pragma unroll
+    for (int i = 0; i < j; ++i) {
+      keep = keep && !(valid[i] && cand[i] == cand[j]);
+    }
+    if (keep && filled < count) dst[filled++] = cand[j];
+  }
+  for (; filled < count; ++filled) dst[filled] = -1;
+}
+
 }  // namespace
 
 extern "C" int corro_sample_targets(const void* table, const void* slots,
@@ -83,5 +131,17 @@ extern "C" int corro_sample_targets(const void* table, const void* slots,
   sample_targets_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)table, (const int32_t*)slots, (int32_t*)out, n, m,
       over, count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_sample_uniform(const void* cands, const void* view,
+                                    void* out, int n, int over, int count,
+                                    void* stream) {
+  if (over > MAX_OVER || count > over || n <= 0) return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  int blocks = (n + threads - 1) / threads;
+  sample_uniform_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cands, (const int8_t*)view, (int32_t*)out, n, over,
+      count);
   return (int)cudaGetLastError();
 }

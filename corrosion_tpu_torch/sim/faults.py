@@ -593,15 +593,16 @@ def run_fault_plan(
     """Advance rounds under the fault schedule until the cluster holds
     every payload AND the schedule is exhausted (a plan may crash a node
     after convergence), or ``max_rounds``; returns (SimState,
-    RunMetrics).  Only the packed envelope is ported (the dense round is
-    ROADMAP B13)."""
-    from .packed import packed_supported, run_packed_faults
+    RunMetrics).  Only the packed envelope is ported (faults on the dense
+    round are ROADMAP B12 rest)."""
+    from .packed import run_packed_faults
+    from .state import packed_supported
     from .round import validate
 
     validate(cfg, topo)
     if not packed_supported(cfg, topo):
         raise NotImplementedError(
-            "the dense round is not ported yet (ROADMAP B13); this "
-            "configuration is outside the packed envelope"
+            "faults on the dense round are not ported yet (ROADMAP B12 "
+            "rest); this configuration is outside the packed envelope"
         )
     return run_packed_faults(state, meta, cfg, topo, fplan, max_rounds)

@@ -1,12 +1,15 @@
-"""Fixed-K version-gap interval tensors — the port of the V ≤ 32 word
-path of ``corrosion_tpu/sim/gaps.py`` (``_extract_gaps_words``) and of
-``gaps_to_mask``.
+"""Fixed-K version-gap interval tensors — the port of
+``corrosion_tpu/sim/gaps.py``: `extract_gaps` in both of JAX's forms
+(``_extract_gaps_words`` for V ≤ 32, ``_extract_gaps_dense`` past it;
+the same `GapTensors` either way) and ``gaps_to_mask``.
 
-`refresh_gaps` is the round's bookkeeping refresh: heads, gap intervals
-and the overflow count straight from the have words.  On the card it is
-one launch of K6 (``kernels/csrc/gaps_refresh.cu``); on the CPU it runs
-`refresh_gaps_plain`, the composition group_grid → version_heads →
-`extract_gaps` that JAX runs."""
+`refresh_gaps` is the packed round's bookkeeping refresh: heads, gap
+intervals and the overflow count straight from the have words.  On the
+card it is one launch of K6 (``kernels/csrc/gaps_refresh.cu``); on the
+CPU it runs `refresh_gaps_plain`, the composition group_grid →
+version_heads → `extract_gaps` that JAX runs.  The dense round's refresh
+rides K14 with its convergence record (`.round.dense_record`).
+"""
 
 from __future__ import annotations
 
@@ -32,8 +35,44 @@ def extract_gaps(
 ) -> GapTensors:
     """Run-length-extract needed version ranges into K interval slots:
     the maximal runs of untouched versions below each head."""
+    if touched.shape[2] <= 32:
+        return _extract_gaps_words(touched, heads, cfg)
+    return _extract_gaps_dense(touched, heads, cfg)
+
+
+def _extract_gaps_dense(
+    touched: torch.Tensor, heads: torch.Tensor, cfg: SimConfig
+) -> GapTensors:
+    """The [N, A, V] form: run starts and ends by neighbour compares, the
+    run index by a cumsum, one masked max per slot."""
     n, a, v = touched.shape
-    _require_word_path(v)
+    k = cfg.gap_slots
+    v_idx = torch.arange(1, v + 1, dtype=torch.int32, device=touched.device)
+    missing = ~touched & (v_idx[None, None, :] <= heads[:, :, None])
+    prev = torch.nn.functional.pad(missing[:, :, :-1], (1, 0))
+    nxt = torch.nn.functional.pad(missing[:, :, 1:], (0, 1))
+    start = missing & ~prev
+    end = missing & ~nxt
+    rank = torch.cumsum(start.to(torch.int32), dim=2)
+    overflow = rank[:, :, -1] > k
+    lo, hi = [], []
+    for slot in range(k):
+        in_slot = rank == slot + 1
+        lo.append(torch.where(start & in_slot, v_idx, 0).amax(dim=2))
+        hi.append(torch.where(end & in_slot, v_idx, 0).amax(dim=2))
+    lo = torch.stack(lo, dim=-1).to(torch.int32)
+    hi = torch.stack(hi, dim=-1).to(torch.int32)
+    last_missing = torch.where(missing, v_idx, 0).amax(dim=2)
+    hi[:, :, k - 1] = torch.where(overflow, last_missing, hi[:, :, k - 1])
+    return GapTensors(lo=lo, hi=hi, overflow=overflow)
+
+
+def _extract_gaps_words(
+    touched: torch.Tensor, heads: torch.Tensor, cfg: SimConfig
+) -> GapTensors:
+    """The V ≤ 32 form: the version axis packs into one u32 word per
+    (node, actor), and the runs are bit operations on [N, A] words."""
+    n, a, v = touched.shape
     k = cfg.gap_slots
     dev = touched.device
     shifts = torch.arange(v, dtype=torch.int64, device=dev)
@@ -75,7 +114,8 @@ def extract_gaps(
 def _require_word_path(n_versions: int) -> None:
     if n_versions > 32:
         raise NotImplementedError(
-            "the dense gap extraction (V > 32) is not ported yet (B13)"
+            "K6 refreshes gaps in words (V <= 32); the packed round past "
+            "32 versions per writer is not ported yet (ROADMAP A4)"
         )
 
 

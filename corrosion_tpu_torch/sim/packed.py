@@ -1,7 +1,9 @@
 """The bitpacked round on u32 words — the port of
 ``corrosion_tpu/sim/packed.py`` for the telemetry-free envelope the 100k
 write storm runs, faultless (`run_packed`) and under a factored fault
-plan (`run_packed_faults`).
+plan (`run_packed_faults`), over one region or several (ring0 tiering,
+shared with the dense round).  Metered byte budgets take the plain word
+budget (`budget_prefix_words`), so they run on the CPU only.
 
 Words ride int32 carriers (`..device`; the packing helpers and
 chunk-group folds are `.words`).  One layout differs from JAX: the
@@ -42,6 +44,7 @@ from .. import kernels
 from ..device import ONES
 from ..kernels.build import check
 from . import rng
+from .broadcast import ring0_targets
 from .faults import (
     WIRE_LOSS_TAG,
     FactoredFaultPlan,
@@ -54,8 +57,14 @@ from .faults import (
     round_faults,
 )
 from .gaps import gaps_to_mask, refresh_gaps
-from .round import RunMetrics, new_metrics
-from .state import ALIVE, PayloadMeta, SimConfig, SimState
+from .round import RunMetrics, new_metrics, overflow_fraction
+from .state import (
+    ALIVE,
+    PayloadMeta,
+    SimConfig,
+    SimState,
+    budget_prefix_mask,
+)
 from .swim import sample_member_targets, swim_step
 from .topology import (
     Topology,
@@ -76,22 +85,39 @@ from .words import (
 )
 
 
-def packed_supported(cfg: SimConfig, topo: Topology) -> bool:
-    c = cfg.chunks_per_version
-    return (
-        cfg.allow_packed
-        and cfg.n_nodes * cfg.n_payloads >= cfg.packed_min_cells
-        and cfg.n_payloads % 32 == 0
-        and c in (1, 2, 4, 8, 16, 32)
-        and cfg.max_transmissions < 16
-    )
-
-
 def _require_unmetered(budget_bytes) -> None:
+    """The card has no kernel for the word budget yet."""
     if budget_bytes is not None:
         raise NotImplementedError(
-            "byte budgets (budget_prefix_words) are not ported yet "
-            "(ROADMAP B11); optimize_budgets drops budgets that cannot bind"
+            "the packed word budget (budget_prefix_words) has no kernel "
+            "yet (ROADMAP B11); optimize_budgets drops budgets that "
+            "cannot bind"
+        )
+
+
+def budget_prefix_words(
+    elig_w: torch.Tensor, budget_bytes, nbytes: torch.Tensor
+) -> torch.Tensor:
+    """Word twin of `.state.budget_prefix_mask` (JAX
+    ``budget_prefix_words``, which gives the dense mask's bits): the
+    version-major prefix of set bits whose byte total fits the budget,
+    per row; None is unmetered.  Only the plain version is ported: on
+    the CPU it unpacks, meters and packs; a metered card round raises
+    (its kernel is ROADMAP B11)."""
+    if budget_bytes is None:
+        return elig_w
+    if elig_w.device.type != "cpu":
+        _require_unmetered(budget_bytes)
+    p = elig_w.shape[-1] * 32
+    return pack_bits(budget_prefix_mask(unpack_bits(elig_w, p), budget_bytes,
+                                        nbytes))
+
+
+def _require_lossless(topo: Topology) -> None:
+    if topo.loss > 0:
+        raise NotImplementedError(
+            "topology loss on the packed round is not ported yet (ROADMAP "
+            "B12 rest); the dense round runs it"
         )
 
 
@@ -236,12 +262,13 @@ def _check_words(carry: PackedCarry, n: int, w: int) -> None:
 
 def spend_relay_plain(
     carry: PackedCarry, injected_p: torch.Tensor, targets: torch.Tensor,
-    alive: torch.Tensor,
+    alive: torch.Tensor, budget=None, nbytes=None,
 ) -> torch.Tensor:
     """Plain version of K8's spend: the sending words; the relay planes
     count down in place."""
     n = targets.shape[0]
     sending = carry.have & carry.relay.nonzero & injected_p[None, :]
+    sending = budget_prefix_words(sending, budget, nbytes)
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
     attempted = (targets >= 0) & (targets != me[:, None])
     any_attempt = attempted.any(dim=1) & (alive == ALIVE)
@@ -251,15 +278,18 @@ def spend_relay_plain(
 
 def spend_relay(
     carry: PackedCarry, injected_p: torch.Tensor, targets: torch.Tensor,
-    alive: torch.Tensor,
+    alive: torch.Tensor, budget=None, nbytes=None,
 ) -> torch.Tensor:
     """The broadcast's sending words ``have & relay-nonzero &
-    injected_p``; where an up row attempted a send (a target neither -1
-    nor itself) its relay counters drop by one at the sent bits, in
-    place.  The budget spends on the ATTEMPT: the sender sees neither
-    cuts nor dead targets.  K8 on the card."""
+    injected_p``, metered by `budget_prefix_words` (``budget`` bytes of
+    ``nbytes``; None is unmetered); where an up row attempted a send (a
+    target neither -1 nor itself) its relay counters drop by one at the
+    sent bits, in place.  The budget spends on the ATTEMPT: the sender
+    sees neither cuts nor dead targets.  K8 on the card."""
     if carry.have.device.type == "cpu":
-        return spend_relay_plain(carry, injected_p, targets, alive)
+        return spend_relay_plain(carry, injected_p, targets, alive, budget,
+                                 nbytes)
+    _require_unmetered(budget)
     n, w = carry.have.shape
     f = targets.shape[1]
     _check_words(carry, n, w)
@@ -390,16 +420,14 @@ def broadcast_packed(
     payload) (K9, then K10 in place of K2); the relay still spends on
     the attempt."""
     n, f = cfg.n_nodes, cfg.fanout
-    k_targets = rng.split(key, 3)[0]  # k_drop, k_ring0 unused when flat
-    _require_unmetered(cfg.rate_limit_bytes_round)
+    ks = rng.split(key, 3)  # k_drop unused: the packed envelope is lossless
+    k_targets, k_ring0 = ks[0], ks[2]
+    _require_lossless(topo)
     targets = sample_member_targets(state, cfg, k_targets, f)  # [N, F]
-    if topo.n_regions > 1:
-        raise NotImplementedError(
-            "multi-region broadcast (ring0-first tiering) is not ported "
-            "yet (ROADMAP B15)"
-        )
+    targets = ring0_targets(state, cfg, topo, region, k_ring0, targets)
     targets = apply_degree_caps(targets, topo)
-    sending = spend_relay(carry, injected_p, targets, state.alive)
+    sending = spend_relay(carry, injected_p, targets, state.alive,
+                          cfg.rate_limit_bytes_round, meta.nbytes)
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
     src = me.repeat_interleave(f)
     dst = targets.reshape(-1)
@@ -455,9 +483,11 @@ def deliver_packed(carry: PackedCarry, t: int, cfg: SimConfig) -> PackedCarry:
     return carry
 
 
-def sync_pull_plain(masks, miss, peers, ok, slot_words) -> torch.Tensor:
-    """Plain version of K3: OR the need words pulled from every ok peer
-    into ``slot_words`` in place; returns bool[N] fruitful."""
+def sync_pull_plain(masks, miss, peers, ok, slot_words, budget=None,
+                    nbytes=None) -> torch.Tensor:
+    """Plain version of K3: OR the need words pulled from every ok peer,
+    each edge metered by `budget_prefix_words`, into ``slot_words`` in
+    place; returns bool[N] fruitful."""
     haves_w, partial_w, below_w, have_w = masks.unbind(dim=1)
     d = masks[peers.long()]  # [N, S, 4, W]
     haves_d, partial_d, below_d, have_d = d.unbind(dim=2)
@@ -468,6 +498,9 @@ def sync_pull_plain(masks, miss, peers, ok, slot_words) -> torch.Tensor:
     )
     need = wanted & have_d & ~have_w[:, None, :]
     need = torch.where(ok[:, :, None], need, 0)
+    n, s, w = need.shape
+    need = budget_prefix_words(need.reshape(n * s, w), budget,
+                               nbytes).reshape(n, s, w)
     pulled = need[:, 0]
     for s in range(1, need.shape[1]):
         pulled = pulled | need[:, s]
@@ -475,12 +508,15 @@ def sync_pull_plain(masks, miss, peers, ok, slot_words) -> torch.Tensor:
     return (pulled != 0).any(dim=1)
 
 
-def sync_pull(masks, miss, peers, ok, slot_words) -> torch.Tensor:
-    """Gather the S peers' mask rows, apply the need algebra and OR the
-    pulled words into ``slot_words`` in place; returns bool[N] fruitful.
-    K3 on the card."""
+def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
+              nbytes=None) -> torch.Tensor:
+    """Gather the S peers' mask rows, apply the need algebra, meter each
+    edge by ``budget`` (None: unmetered) and OR the pulled words into
+    ``slot_words`` in place; returns bool[N] fruitful.  K3 on the card."""
     if masks.device.type == "cpu":
-        return sync_pull_plain(masks, miss, peers, ok, slot_words)
+        return sync_pull_plain(masks, miss, peers, ok, slot_words, budget,
+                               nbytes)
+    _require_unmetered(budget)
     n, _, w = masks.shape
     s = peers.shape[1]
     check("masks", masks, torch.int32, (n, 4, w))
@@ -532,12 +568,12 @@ def sync_packed(
     haves_w = below_w & ~miss_w & comp_w
     partial_w = below_w & ~miss_w & ~comp_w
     masks = torch.stack([haves_w, partial_w, below_w, carry.have], dim=1)
-    _require_unmetered(cfg.sync_budget_bytes)
 
     d_slots = carry.sync_buf.shape[0]
     fruitful = sync_pull(
         masks, miss_w, dst.reshape(n, s), ok.reshape(n, s),
         carry.sync_buf[(int(state.t) + 1) % d_slots],
+        cfg.sync_budget_bytes, meta.nbytes,
     )
 
     backoff = torch.where(
@@ -672,12 +708,9 @@ def packed_round_step(
 
     heads, gap_lo, gap_hi, n_overflow = refresh_gaps(carry.have, cfg)
     state = state._replace(heads=heads, gap_lo=gap_lo, gap_hi=gap_hi)
-    # JAX's overflow.mean(f32): the count over the cell count, both f32
-    # (a tensor divisor: torch multiplies by the reciprocal of a scalar)
-    frac = n_overflow.to(torch.float32) / torch.full(
-        (), float(heads.numel()), dtype=torch.float32, device=heads.device
+    overflow_frac = torch.maximum(
+        metrics.overflow_frac, overflow_fraction(n_overflow, heads.numel())
     )
-    overflow_frac = torch.maximum(metrics.overflow_frac, frac)
 
     coverage_at, converged_at, done = converge_record(
         carry.have, injected_p, state.alive, metrics, meta, t, cfg, horizon

@@ -184,9 +184,10 @@ def pswim_step(
     relays = psample_member_targets(state, cfg, k_relay, ip)
     relay_ok = relays >= 0
     relays = torch.clamp(relays, min=0)
-    # split is pure: skipping it when no fault draws uses the keys
-    # moves no other draw
-    hop_keys = (k_rloss, k_rloss) if faults is None else rng.split(k_rloss, 2)
+    # split is pure: skipping it when no loss draws uses the keys moves
+    # no other draw
+    draws = faults is not None or topo.loss > 0
+    hop_keys = rng.split(k_rloss, 2) if draws else (k_rloss, k_rloss)
     leg1 = _reachable(
         state, topo, hop_keys[0], me.repeat_interleave(ip),
         relays.reshape(-1), faults,

@@ -7,6 +7,9 @@ Bit-for-bit the draws ``jax.random`` makes with
 ``_randint``).  A key is an int64 tensor of shape ``[2]`` holding the
 two u32 halves; there is no global generator.
 
+`uniform` and `bernoulli` are jax's f32 transforms of a `bits` draw
+(``_uniform``, ``_bernoulli`` in its default mode "low").
+
 On a key that lies on the card, `split`, `fold_in`, `bits` and
 `randint` each launch K5 (``kernels/csrc/threefry.cu``), which reads the
 key through its pointer: no draw copies a key to the host.  On a CPU key
@@ -218,3 +221,25 @@ def randint(
         [key, hi, out], [size, minval, i32(span), i32(mult), per_element]
     )
     return out
+
+
+def uniform(
+    key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+    maxval: float = 1.0,
+) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
+    top 23 bits of each u32 draw OR'd into 1.0f's bit pattern, bitcast,
+    then ``- 1``, the scale and ``max(minval, ...)`` in f32."""
+    float_bits = (bits(key, shape) >> 9) | 0x3F800000  # < 2^31: fits i32
+    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]):
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``
+    (f32, mode "low"): ``uniform(key, shape) < p``."""
+    return uniform(key, shape) < torch.tensor(
+        p, dtype=torch.float32, device=key.device
+    )

@@ -1,7 +1,22 @@
-"""Run driver: `run_to_convergence` over the packed envelope — the port
-of ``corrosion_tpu/sim/round.py``'s entry points.  The dense round
-(ROADMAP B13), telemetry (B10) and mesh sharding (B17) are not ported;
-asking for them raises instead of silently running something else."""
+"""The round and its run loop — the port of ``corrosion_tpu/sim/round.py``:
+`round_step` (the dense round on JAX's u8 state) and `run_to_convergence`,
+which takes the packed envelope to `.packed.run_packed` and runs the
+dense round otherwise.  Telemetry (ROADMAP B10) and mesh sharding (B17)
+are not ported; asking for them raises instead of silently running
+something else.
+
+One dense round is inject → broadcast → sync → deliver → SWIM →
+bookkeeping refresh → convergence record, phase for phase and draw for
+draw JAX's.  Its last two phases are one function here,
+`dense_record`: heads, the K gap slots, the overflow count, both
+convergence stamps and the run's exit flag, from ``have`` in one pass —
+K14 (``kernels/csrc/dense_gaps.cu``, a rows pass and a one-block finish)
+on the card, the JAX composition on the CPU.
+
+The phases update the state's payload tensors and beliefs in place:
+`round_step` clones a caller's state first, `run_to_convergence` once
+for the whole loop, which reads K14's done flag once per round.
+"""
 
 from __future__ import annotations
 
@@ -9,10 +24,24 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..device import resolve_device
+from ..kernels.build import check
 from . import rng
-from .state import PayloadMeta, SimConfig, SimState, init_state
-from .topology import Topology
+from .state import (
+    ALIVE,
+    PayloadMeta,
+    SimConfig,
+    SimState,
+    complete_versions,
+    grid_to_payload,
+    init_state,
+    packed_supported,
+    touched_versions,
+    version_active,
+    version_heads,
+)
+from .topology import Topology, regions
 
 
 class RunMetrics(NamedTuple):
@@ -46,6 +75,192 @@ def validate(cfg: SimConfig, topo: Topology) -> None:
         )
 
 
+def overflow_fraction(n_overflow: torch.Tensor, cells: int) -> torch.Tensor:
+    """JAX's ``overflow.mean(f32)``: the count over the cell count, both
+    f32 (a tensor divisor: torch multiplies by the reciprocal of a
+    scalar)."""
+    return n_overflow.to(torch.float32) / torch.full(
+        (), float(cells), dtype=torch.float32, device=n_overflow.device
+    )
+
+
+# -- K14: the dense bookkeeping refresh and convergence record ---------------
+
+# K14's rows pass: nodes per block (one warp per node, 8 warps, each
+# taking a node in turn), so the wrapper sizes the partial rows
+DENSE_ROWS_PER_BLOCK = 64
+
+
+def dense_record_plain(have, injected, alive, metrics: RunMetrics,
+                       meta: PayloadMeta, t: int, cfg: SimConfig):
+    """Plain version of K14: JAX's gaps and converge blocks."""
+    from .gaps import extract_gaps
+
+    touched = touched_versions(have, cfg)
+    heads = version_heads(touched)
+    gaps = extract_gaps(touched, heads, cfg)
+    up = alive == ALIVE
+    comp = complete_versions(have, cfg)
+    act = version_active(injected, cfg)
+    version_done = (comp | ~up[:, None, None]).all(dim=0) & act
+    payload_done = grid_to_payload(version_done, cfg)
+    coverage_at = torch.where(
+        (metrics.coverage_at < 0) & payload_done, t, metrics.coverage_at
+    ).to(torch.int32)
+    node_done = (comp | ~act[None]).all(dim=2).all(dim=1) & up
+    all_injected = (meta.round <= t).all()
+    converged_at = torch.where(
+        (metrics.converged_at < 0) & node_done & all_injected, t,
+        metrics.converged_at,
+    ).to(torch.int32)
+    done = (meta.round <= t + 1).all() & ((converged_at >= 0) | ~up).all()
+    return (heads, gaps.lo, gaps.hi, gaps.overflow.sum(dtype=torch.int32),
+            coverage_at, converged_at, done)
+
+
+def dense_record(have, injected, alive, metrics: RunMetrics,
+                 meta: PayloadMeta, t: int, cfg: SimConfig):
+    """Round t's bookkeeping and convergence record from the dense state:
+    (heads i32[N, A], gap_lo, gap_hi i32[N, A, K], the overflow count
+    i32, coverage_at i32[P], converged_at i32[N], done) — the advertised
+    heads and gap runs of every (node, actor) with the overflow clamp,
+    the stamps of payloads complete on every up node and of nodes
+    holding every active version, and the loop's exit flag for round
+    t + 1 (every payload injected, every up node converged), a bool that
+    stays on the device.  K14 on the card: a rows pass and a one-block
+    finish."""
+    if have.device.type == "cpu":
+        return dense_record_plain(have, injected, alive, metrics, meta, t,
+                                  cfg)
+    n, p = have.shape
+    a, v = cfg.n_writers, cfg.n_versions
+    c, k = cfg.chunks_per_version, cfg.gap_slots
+    check("have", have, torch.uint8, (n, p))
+    check("injected", injected, torch.uint8, (p,))
+    check("alive", alive, torch.uint8, (n,))
+    check("meta.round", meta.round, torch.int32, (p,))
+    check("converged_at", metrics.converged_at, torch.int32, (n,))
+    check("coverage_at", metrics.coverage_at, torch.int32, (p,))
+    dev = have.device
+    blocks = -(-n // DENSE_ROWS_PER_BLOCK)
+    words = -(-v // 32)
+    heads = torch.empty((n, a), dtype=torch.int32, device=dev)
+    lo = torch.empty((n, a, k), dtype=torch.int32, device=dev)
+    hi = torch.empty((n, a, k), dtype=torch.int32, device=dev)
+    n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    partial = torch.empty((blocks, a * words + 1), dtype=torch.int32,
+                          device=dev)
+    converged_at = torch.empty_like(metrics.converged_at)
+    coverage_at = torch.empty_like(metrics.coverage_at)
+    done = torch.empty((), dtype=torch.bool, device=dev)
+    kernels.DENSE_GAPS_ROWS.launch(
+        [have, injected, alive, meta.round, metrics.converged_at, heads, lo,
+         hi, n_overflow, converged_at, partial],
+        [n, p, a, v, c, k, t, DENSE_ROWS_PER_BLOCK],
+    )
+    kernels.DENSE_GAPS_FINISH.launch(
+        [partial, injected, meta.round, metrics.coverage_at, coverage_at,
+         done],
+        [blocks, p, a, v, c, t],
+    )
+    return heads, lo, hi, n_overflow, coverage_at, converged_at, done
+
+
+# -- the dense round ---------------------------------------------------------
+
+# the fields the dense phases update in place
+_OWNED = ("have", "injected", "relay_left", "inflight", "sync_inflight",
+          "view", "vinc", "suspect_since")
+
+
+def own_state(state: SimState) -> SimState:
+    """``state`` with tensors of its own where the round writes in place."""
+    return state._replace(**{f: getattr(state, f).clone() for f in _OWNED})
+
+
+def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
+                cfg: SimConfig, topo: Topology, region: torch.Tensor):
+    """One dense round on a state whose tensors it owns (`own_state`),
+    updating them in place: (state, metrics, done), where ``done`` is
+    the loop's exit flag after the round, on the device."""
+    from .broadcast import broadcast_step, deliver_step, inject_step
+    from .swim import swim_step
+    from .sync import sync_step
+
+    if state.inflight.dtype != torch.uint8:
+        raise ValueError("the dense round needs the u8 ring (this state "
+                         "was built for the packed envelope)")
+    ks = rng.split(state.key, 4)
+    state = state._replace(key=ks[0])
+    k_bcast, k_sync, k_swim = ks[1], ks[2], ks[3]
+    t = int(state.t)
+    state = inject_step(state, meta, cfg)
+    state = broadcast_step(state, meta, cfg, topo, region, k_bcast)
+    state = sync_step(state, meta, cfg, topo, k_sync)
+    state = deliver_step(state, cfg)
+    state = swim_step(state, cfg, topo, k_swim)
+    heads, lo, hi, n_overflow, coverage_at, converged_at, done = dense_record(
+        state.have, state.injected, state.alive, metrics, meta, t, cfg
+    )
+    overflow_frac = torch.maximum(
+        metrics.overflow_frac, overflow_fraction(n_overflow, heads.numel())
+    )
+    state = state._replace(heads=heads, gap_lo=lo, gap_hi=hi, t=state.t + 1)
+    metrics = RunMetrics(
+        coverage_at=coverage_at,
+        converged_at=converged_at,
+        overflow_frac=overflow_frac,
+        order_violations=metrics.order_violations,
+    )
+    return state, metrics, done
+
+
+def round_step(
+    state: SimState, metrics: RunMetrics, meta: PayloadMeta, cfg: SimConfig,
+    topo: Topology, region: torch.Tensor, faults=None, trace=None,
+):
+    """One gossip tick for the whole cluster on the dense state (JAX
+    ``round_step``): returns the new (state, metrics); ``state`` itself
+    is left as it was."""
+    if faults is not None:
+        raise NotImplementedError(
+            "faults on the dense round are not ported yet (ROADMAP B12 "
+            "rest)"
+        )
+    if trace is not None:
+        raise NotImplementedError("telemetry is not ported yet (ROADMAP B10)")
+    validate(cfg, topo)
+    state, metrics, _ = round_step_(own_state(state), metrics, meta, cfg,
+                                    topo, region)
+    return state, metrics
+
+
+def _converged_done(state: SimState, metrics: RunMetrics,
+                    meta: PayloadMeta) -> torch.Tensor:
+    """Exit predicate: every payload injected and every up node
+    converged (a device bool); the loop takes it from K14 after each
+    round and evaluates it here only before the first."""
+    all_injected = (meta.round <= int(state.t)).all()
+    return all_injected & (
+        (metrics.converged_at >= 0) | (state.alive != ALIVE)
+    ).all()
+
+
+def run_dense(state: SimState, meta: PayloadMeta, cfg: SimConfig,
+              topo: Topology, max_rounds: int):
+    """The dense round until convergence or ``max_rounds``: a Python loop
+    with one host read of the device done flag per round."""
+    dev = state.have.device
+    region = regions(cfg.n_nodes, topo.n_regions, dev)
+    metrics = new_metrics(cfg, dev)
+    state = own_state(state)
+    done = _converged_done(state, metrics, meta)
+    while int(state.t) < max_rounds and not bool(done):
+        state, metrics, done = round_step_(state, metrics, meta, cfg, topo,
+                                           region)
+    return state, metrics
+
+
 def run_to_convergence(
     state: SimState,
     meta: PayloadMeta,
@@ -56,22 +271,21 @@ def run_to_convergence(
     mesh=None,
 ):
     """Advance rounds until every up node holds every injected version or
-    ``max_rounds``; returns (SimState, RunMetrics).  Only the packed
-    envelope without telemetry on one device is ported."""
-    from .packed import packed_supported, run_packed
+    ``max_rounds``; returns (SimState, RunMetrics).  The packed envelope
+    runs `.packed.run_packed`, every other configuration the dense
+    round; both without telemetry on one device."""
+    from .packed import run_packed
 
     if telemetry:
         raise NotImplementedError("telemetry is not ported yet (ROADMAP B10)")
     if mesh is not None:
         raise NotImplementedError("mesh sharding is not ported yet (B17)")
     validate(cfg, topo)
-    if not packed_supported(cfg, topo):
-        raise NotImplementedError(
-            "the dense round is not ported yet (ROADMAP B13); this "
-            "configuration is outside the packed envelope"
-        )
-    return run_packed(state, meta, cfg, topo, max_rounds)
+    if packed_supported(cfg, topo):
+        return run_packed(state, meta, cfg, topo, max_rounds)
+    return run_dense(state, meta, cfg, topo, max_rounds)
 
 
 def new_sim(cfg: SimConfig, seed: int = 0, device="cuda") -> SimState:
     return init_state(cfg, rng.prng_key(seed, resolve_device(device)))
+

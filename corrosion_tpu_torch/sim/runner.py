@@ -1,8 +1,8 @@
-"""Scenario runner for the port: `run_scenario`, the 100k-node write
-storm and the packed fault storm (``corrosion_tpu/sim/runner.py``
-``run_scenario``, ``_write_storm``, ``config_write_storm_100k``,
-``storm_fault_plan``, ``config_packed_fault_storm``), returning the same
-result keys.  One device, no mesh; the wall clock brackets a run with
+"""Scenario runner for the port: `run_scenario` and the runner's configs
+(``corrosion_tpu/sim/runner.py``): the 3-node ground truth, broadcast-1k
+and partition-heal-10k on the dense round, the 100k-node write storm and
+the packed fault storm on the packed round, returning the same result
+keys.  One device, no mesh; the wall clock brackets a run with
 ``torch.cuda.synchronize()`` on both ends when it runs on the card."""
 
 from __future__ import annotations
@@ -16,12 +16,28 @@ import torch
 from ..device import resolve_device
 from ..faults import FaultEvent, FaultPlan
 from .faults import compile_plan, run_fault_plan
-from .packed import packed_supported
-from .round import RunMetrics, new_sim, run_to_convergence
-from .state import ALIVE, PayloadMeta, SimConfig, optimize_budgets, uniform_payloads
-from .topology import Topology
+from .round import (
+    RunMetrics,
+    new_metrics,
+    new_sim,
+    own_state,
+    round_step_,
+    run_to_convergence,
+    validate,
+)
+from .state import (
+    ALIVE,
+    DOWN,
+    PayloadMeta,
+    SimConfig,
+    optimize_budgets,
+    packed_supported,
+    uniform_payloads,
+)
+from .topology import Topology, regions
 
 ROUND_SECONDS = 0.5
+CHURN_MAX_ROUNDS = 400  # `membership_churn`'s cap; 4096 nodes detect at 46
 
 
 def _percentile(arr: np.ndarray, q: float) -> float:
@@ -91,6 +107,143 @@ def run_scenario(
     }
     if return_state:
         result["state"] = final
+        result["metrics"] = metrics
+    return result
+
+
+def config_ground_truth_3node(
+    seed: int = 0, device="cuda", return_state: bool = False
+) -> Dict[str, float]:
+    """Config #1: three nodes, 64 payloads, ground-truth membership, both
+    byte budgets metered (they cannot bind, but the prefix runs)."""
+    cfg = SimConfig(n_nodes=3, n_payloads=64, fanout=2, sync_interval_rounds=4)
+    meta = uniform_payloads(cfg, resolve_device(device), inject_every=1)
+    return run_scenario(cfg, meta, seed=seed, device=device,
+                        return_state=return_state)
+
+
+def config_broadcast_1k(
+    seed: int = 0,
+    topo_family=None,
+    sampler=None,
+    proto_family=None,
+    device="cuda",
+    return_state: bool = False,
+) -> Dict[str, float]:
+    """Config #3: 1000 nodes, 8 writers × 32 versions, ground-truth
+    membership, one region.  The topology, sampler and protocol axes are
+    ROADMAP B15 and raise."""
+    if topo_family or sampler or proto_family:
+        raise NotImplementedError(
+            "the topology, sampler and protocol axes are not ported yet "
+            "(ROADMAP B15)"
+        )
+    cfg = SimConfig(n_nodes=1000, n_payloads=256, n_writers=8, fanout=3,
+                    n_delay_slots=4)
+    meta = uniform_payloads(cfg, resolve_device(device), inject_every=2)
+    return run_scenario(optimize_budgets(cfg, meta), meta, seed=seed,
+                        device=device, return_state=return_state)
+
+
+def heal_config(n_nodes: int, device="cuda"):
+    """Partition-heal's config and payloads: 4 writers × 64 versions,
+    partial-view SWIM with 32 buckets, 3 ring slots (inter-region delay
+    2 plus sync's t + 1)."""
+    cfg = SimConfig.wan_tuned(
+        n_nodes, n_payloads=256, n_writers=4, fanout=3,
+        swim_partial_view=True, member_slots=32, n_delay_slots=3,
+    )
+    meta = uniform_payloads(cfg, resolve_device(device), inject_every=1)
+    return optimize_budgets(cfg, meta), meta
+
+
+def config_partition_heal_10k(
+    seed: int = 0, device="cuda", return_state: bool = False
+) -> Dict[str, float]:
+    """Config #4: 10 000 nodes in two regions, the two halves partitioned
+    for the first 60 rounds with writers on both sides, then healed and
+    run to convergence; the convergence record is the healed run's."""
+    dev = resolve_device(device)
+    cfg, meta = heal_config(10_000, dev)
+    topo = Topology(n_regions=2, inter_delay=2)
+    validate(cfg, topo)
+    region = regions(cfg.n_nodes, topo.n_regions, dev)
+    state = new_sim(cfg, seed, dev)
+    half = torch.arange(cfg.n_nodes, device=dev) >= cfg.n_nodes // 2
+    state = own_state(state._replace(group=half.to(torch.int32)))
+    metrics = new_metrics(cfg, dev)
+    _sync(dev)
+    t0 = time.monotonic()
+    for _ in range(60):
+        state, metrics, _ = round_step_(state, metrics, meta, cfg, topo,
+                                        region)
+    state = state._replace(group=torch.zeros_like(state.group))
+    heal_round = int(state.t)
+    final, metrics = run_to_convergence(state, meta, cfg, topo, 2000)
+    _sync(dev)
+    wall = time.monotonic() - t0
+    rounds = int(final.t)
+    conv = _node_convergence(metrics, final)
+    result = {
+        "n_nodes": cfg.n_nodes,
+        "heal_round": heal_round,
+        "rounds": rounds,
+        "rounds_after_heal": rounds - heal_round,
+        "p99_node_convergence_round": conv["p99_node_convergence_round"],
+        "converged": conv["unconverged_nodes"] == 0,
+        "unconverged_nodes": conv["unconverged_nodes"],
+        "wall_clock_s": wall,
+    }
+    if return_state:
+        result["state"] = final
+        result["metrics"] = metrics
+    return result
+
+
+def membership_churn(
+    n_nodes: int, seed: int = 0, device="cuda", return_state: bool = False
+) -> Dict[str, object]:
+    """Full-view membership churn: a ``wan_tuned`` cluster with one
+    payload kills every third node at t = 0 (the ``swim-churn-64``
+    campaign shape at any size) and runs dense rounds until every
+    survivor believes every dead node DOWN — the detection predicate of
+    JAX ``telemetry.run_membership_detect``, computed on the device and
+    read once per round.  ``detect_round`` is the round counter after
+    that round (-1 if `CHURN_MAX_ROUNDS` pass first); ``false_downs``
+    counts (up, up) pairs believed DOWN then."""
+    dev = resolve_device(device)
+    cfg = SimConfig.wan_tuned(n_nodes, n_payloads=1, swim_full_view=True)
+    meta = uniform_payloads(cfg, dev, inject_every=1)
+    topo = Topology()
+    region = regions(n_nodes, topo.n_regions, dev)
+    state = new_sim(cfg, seed, dev)
+    validate(cfg, topo)
+    kill = torch.arange(n_nodes, device=dev) % 3 == 0
+    state = own_state(state._replace(
+        alive=torch.where(kill, DOWN, ALIVE).to(torch.uint8)))
+    up = ~kill
+    watched = up[:, None] & kill[None, :]
+    metrics = new_metrics(cfg, dev)
+    _sync(dev)
+    t0 = time.monotonic()
+    detect_round = -1
+    while int(state.t) < CHURN_MAX_ROUNDS:
+        state, metrics, _ = round_step_(state, metrics, meta, cfg, topo,
+                                        region)
+        if bool(((state.view == DOWN) | ~watched).all()):
+            detect_round = int(state.t)
+            break
+    _sync(dev)
+    wall = time.monotonic() - t0
+    pairs = up[:, None] & up[None, :]
+    result = {
+        "n_nodes": n_nodes,
+        "detect_round": detect_round,
+        "false_downs": int(((state.view == DOWN) & pairs).sum()),
+        "wall_clock_s": wall,
+    }
+    if return_state:
+        result["state"] = state
         result["metrics"] = metrics
     return result
 

@@ -4,11 +4,13 @@
 Carrier dtypes (see `..device`): u8 stays u8; u32 ``incarnation`` rides
 int32 (values are clamped far below 2^31); the PRNG ``key`` is int64
 ``[2]`` holding the u32 halves.  One layout differs from JAX on
-purpose: ``inflight``, the broadcast delay ring, is u32 words
+purpose, and only inside the packed envelope (`packed_supported`):
+there ``inflight``, the broadcast delay ring, is u32 words
 ``[D, N, W]`` (int32 carriers) written by an OR scatter on the card,
 where JAX keeps dense u8 ``[D, N, P]`` only because XLA has no OR
 scatter.  The bits are the same — the sent values are 0/1 — and
-`..convert.state_to_numpy` unpacks the ring back to u8.
+`..convert.state_to_numpy` unpacks the ring back to u8.  Outside the
+envelope the dense round runs and ``inflight`` is JAX's u8 ring.
 """
 
 from __future__ import annotations
@@ -30,13 +32,24 @@ def max_transmissions_for(n_live: int, base: int) -> int:
     return max(base, round(base * math.log2(max(2, n_live + 2)) / 5.0))
 
 
+# the scenario axes (ROADMAP B15) and the one value the port runs
+_AXIS_DEFAULTS = {
+    "peer_sampler": "uniform",
+    "dissemination": "push",
+    "fanout_schedule": "flat",
+    "sync_cadence": "periodic",
+    "ordering": "none",
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Static configuration: the fields of the JAX ``SimConfig`` that the
-    packed partial-view storm reads, with the same names and defaults.
-    The knobs of paths the port does not run yet (full-view SWIM, the
-    PeerSwap sampler, protocol variants, telemetry) arrive with the
-    slices that port them (ROADMAP B10, B14, B15)."""
+    packed and the dense round read, with the same names and defaults.
+    The scenario axes (the PeerSwap sampler and the protocol variants,
+    ROADMAP B15) keep their fields so a configuration reads the same in
+    both packages, and refuse any value but their default; telemetry's
+    ``trace_every`` arrives with B10."""
 
     n_nodes: int
     n_payloads: int
@@ -50,18 +63,26 @@ class SimConfig:
     sync_backoff_max_rounds: int = 0
     sync_peers: int = 3
     sync_budget_bytes: Optional[int] = 4 * 1024 * 1024
+    swim_full_view: bool = False
     swim_partial_view: bool = False
     member_slots: int = 64
     gossip_entries: int = 8
     down_gc_rounds: int = 600
+    couple_membership: bool = True
     announce_interval_rounds: int = 4
     probe_period_rounds: int = 2
     suspect_timeout_rounds: int = 6
     indirect_probes: int = 3
+    ring0_first: bool = True
     n_delay_slots: int = 4
     allow_packed: bool = True
     packed_min_cells: int = 10 * 1024 * 1024
     default_payload_bytes: int = 8 * 1024
+    peer_sampler: str = "uniform"
+    dissemination: str = "push"
+    fanout_schedule: str = "flat"
+    sync_cadence: str = "periodic"
+    ordering: str = "none"
 
     def __post_init__(self) -> None:
         wave = self.n_writers * self.chunks_per_version
@@ -70,8 +91,16 @@ class SimConfig:
                 f"n_payloads={self.n_payloads} must be a multiple of "
                 f"n_writers*chunks_per_version={wave} (version-major grid)"
             )
+        if self.swim_full_view and self.swim_partial_view:
+            raise ValueError("pick ONE of swim_full_view / swim_partial_view")
         if self.swim_partial_view and self.n_nodes > 262144:
             raise ValueError("partial-view SWIM supports at most 2^18 nodes")
+        for name, default in _AXIS_DEFAULTS.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: the scenario axes "
+                    "are not ported yet (ROADMAP B15)"
+                )
 
     @classmethod
     def wan_tuned(cls, n_nodes: int, **kw) -> "SimConfig":
@@ -93,6 +122,60 @@ class SimConfig:
 
     def sync_backoff_cap(self) -> int:
         return self.sync_backoff_max_rounds or 4 * self.sync_interval_rounds
+
+
+def packed_supported(cfg: SimConfig, topo=None) -> bool:
+    """The configurations the bitpacked round takes (JAX
+    ``packed.packed_supported``; the topology does not enter)."""
+    c = cfg.chunks_per_version
+    return (
+        cfg.allow_packed
+        and cfg.n_nodes * cfg.n_payloads >= cfg.packed_min_cells
+        and cfg.n_payloads % 32 == 0
+        and c in (1, 2, 4, 8, 16, 32)
+        and cfg.max_transmissions < 16
+    )
+
+
+# -- (actor, version, chunk) grid views of the payload axis ------------------
+# Payload index p = (v * A + a) * C + c (version-major, uniform_payloads).
+
+
+def chunk_grid(have: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """bool[N, A, V, C] chunk-occupancy grid from have[N, P]."""
+    n = have.shape[0]
+    g = (have > 0).reshape(
+        n, cfg.n_versions, cfg.n_writers, cfg.chunks_per_version
+    )
+    return g.permute(0, 2, 1, 3)
+
+
+def complete_versions(have: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """bool[N, A, V]: every chunk of the version held (the apply gate)."""
+    return chunk_grid(have, cfg).all(dim=3)
+
+
+def touched_versions(have: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """bool[N, A, V]: some chunk of the version held."""
+    return chunk_grid(have, cfg).any(dim=3)
+
+
+def grid_to_payload(x_av: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """A per-(actor, version) array [..., A, V] on the payload axis
+    [..., P]."""
+    swapped = x_av.transpose(-1, -2)  # [..., V, A]
+    tiled = swapped.unsqueeze(-1).expand(
+        *swapped.shape, cfg.chunks_per_version
+    )
+    return tiled.reshape(*x_av.shape[:-2], cfg.n_payloads)
+
+
+def version_active(injected: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """bool[A, V]: some chunk of the version was injected."""
+    g = (injected > 0).reshape(
+        cfg.n_versions, cfg.n_writers, cfg.chunks_per_version
+    )
+    return g.any(dim=2).T
 
 
 def version_heads(touched: torch.Tensor) -> torch.Tensor:
@@ -125,16 +208,18 @@ class SimState(NamedTuple):
     have: torch.Tensor  # u8[N, P]
     injected: torch.Tensor  # u8[P]
     relay_left: torch.Tensor  # u8[N, P]
-    inflight: torch.Tensor  # int32-carried u32 words [D, N, W] (see module doc)
+    # u8[D, N, P], or in the packed envelope int32-carried u32 words
+    # [D, N, W] (see the module doc)
+    inflight: torch.Tensor
     sync_inflight: torch.Tensor  # u8[D, N, P]
     sync_countdown: torch.Tensor  # i32[N]
     sync_backoff: torch.Tensor  # i32[N]
     alive: torch.Tensor  # u8[N]
     incarnation: torch.Tensor  # i32[N] (u32 in JAX)
     group: torch.Tensor  # i32[N]
-    view: torch.Tensor  # i8[0, 0]: full-view SWIM is not ported yet
-    vinc: torch.Tensor  # i32[0, 0]
-    suspect_since: torch.Tensor  # i32[0, 0]
+    view: torch.Tensor  # i8[N, N] full-view beliefs, or [0, 0]
+    vinc: torch.Tensor  # i32[N, N] or [0, 0]
+    suspect_since: torch.Tensor  # i32[N, N] or [0, 0]
     converged_at: torch.Tensor  # i32[N]
     heads: torch.Tensor  # i32[N, A]
     gap_lo: torch.Tensor  # i32[N, A, K]
@@ -161,11 +246,7 @@ def init_state(cfg: SimConfig, key: torch.Tensor) -> SimState:
     dev = key.device
     n, p = cfg.n_nodes, cfg.n_payloads
     d = cfg.n_delay_slots
-    if p % 32:
-        raise NotImplementedError(
-            "the word ring needs n_payloads % 32 == 0; the dense round is "
-            "not ported yet (ROADMAP B13)"
-        )
+    swim_n = n if cfg.swim_full_view else 0
     pm = cfg.member_slots if cfg.swim_partial_view else 0
     keys = rng.split(key, 3)
     key, sub, kview = keys[0], keys[1], keys[2]
@@ -188,16 +269,17 @@ def init_state(cfg: SimConfig, key: torch.Tensor) -> SimState:
         have=z(n, p, dtype=u8),
         injected=z(p, dtype=u8),
         relay_left=z(n, p, dtype=u8),
-        inflight=z(d, n, p // 32),
+        inflight=(z(d, n, p // 32) if packed_supported(cfg)
+                  else z(d, n, p, dtype=u8)),
         sync_inflight=z(d, n, p, dtype=u8),
         sync_countdown=rng.randint(sub, (n,), 0, cfg.sync_interval_rounds),
         sync_backoff=z(n, fill=cfg.sync_interval_rounds),
         alive=z(n, dtype=u8),
         incarnation=z(n),
         group=z(n),
-        view=z(0, 0, dtype=torch.int8),
-        vinc=z(0, 0),
-        suspect_since=z(0, 0, fill=-1),
+        view=z(swim_n, swim_n, dtype=torch.int8),
+        vinc=z(swim_n, swim_n),
+        suspect_since=z(swim_n, swim_n, fill=-1),
         converged_at=z(n, fill=-1),
         heads=z(n, cfg.n_writers),
         gap_lo=z(n, cfg.n_writers, cfg.gap_slots),
@@ -207,6 +289,45 @@ def init_state(cfg: SimConfig, key: torch.Tensor) -> SimState:
         psince=z(n, pm, fill=-1),
         pview=z(n, 0),
     )
+
+
+def _cumsum_last(x: torch.Tensor, block: int = 64) -> torch.Tensor:
+    """Exact i32 prefix sum over the last axis, two-level blocked as JAX
+    ``state._cumsum_last`` does (the same integers either way)."""
+    *lead, p = x.shape
+    if p % block or p < 2 * block:
+        return torch.cumsum(x, dim=-1, dtype=torch.int32)
+    xb = x.reshape(*lead, p // block, block)
+    within = torch.cumsum(xb, dim=-1, dtype=torch.int32)
+    tot = within[..., -1]
+    off = torch.cumsum(tot, dim=-1, dtype=torch.int32) - tot
+    return (within + off[..., None]).reshape(*lead, p)
+
+
+def budget_prefix_mask(
+    mask: torch.Tensor, budget_bytes: Optional[int], nbytes: torch.Tensor
+) -> torch.Tensor:
+    """Oldest-first byte budget (JAX ``state.budget_prefix_mask``): keep
+    the prefix of True entries along the last axis whose cumulative size
+    fits ``budget_bytes``; None is statically unmetered.  Past 32 767
+    payloads the sum rides two exact i32 lanes (KiB and sub-KiB), as in
+    JAX."""
+    if budget_bytes is None:
+        return mask
+    p = mask.shape[-1]
+    if p >= 1 << 21:
+        raise ValueError(
+            f"byte budget supports at most 2^21-1 payloads, got {p}"
+        )
+    sizes = torch.where(mask, nbytes.to(torch.int32), 0)
+    if p <= 32767:
+        return mask & (_cumsum_last(sizes) <= budget_bytes)
+    hi = _cumsum_last(sizes >> 10)
+    lo = _cumsum_last(sizes & 1023)
+    hi = hi + (lo >> 10)
+    lo = lo & 1023
+    bhi, blo = budget_bytes >> 10, budget_bytes & 1023
+    return mask & ((hi < bhi) | ((hi == bhi) & (lo <= blo)))
 
 
 def optimize_budgets(cfg: SimConfig, meta: PayloadMeta) -> SimConfig:

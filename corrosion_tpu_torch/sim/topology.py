@@ -1,12 +1,13 @@
-"""Topology and link model — the port's copy of the flat default path of
-``corrosion_tpu/sim/topology.py``.
+"""Topology and link model — the port's copy of the flat paths of
+``corrosion_tpu/sim/topology.py``: regions with intra/inter delays and
+one loss class for every edge.
 
 The `Topology` dataclass keeps every JAX field, so a configuration reads
-the same in both packages; the paths the 100k write storm does not take
-(geo tiers, loss, degree caps, a measured delay matrix) raise
+the same in both packages; the paths the port does not take yet (geo
+tiers with their own loss, degree caps, a measured delay matrix) raise
 `NotImplementedError` naming the ROADMAP item that brings them.
-`aligned_u8_bits` is the u8 draw the fault plan's loss paths compare
-against their thresholds.
+`aligned_u8_bits` is the u8 draw the flat wire loss (`edge_payload_drop`)
+and the fault plan's loss paths compare against their thresholds.
 """
 
 from __future__ import annotations
@@ -48,12 +49,31 @@ class Topology:
         return max(self.intra_delay, self.az_delay, self.inter_delay)
 
 
+def loss_threshold(p: float) -> int:
+    """Loss probability → the u8 compare threshold (JAX ``_thr``)."""
+    return int(round(p * 256.0))
+
+
+def loss_tiered(topo: Topology) -> bool:
+    """Whether the loss tiers differ (JAX ``loss_tiered``)."""
+    base = loss_threshold(topo.loss)
+    tiers = {base}
+    if topo.n_azs > 1:
+        tiers.add(loss_threshold(topo.az_loss) if topo.az_loss > 0 else base)
+    if topo.n_regions > 1:
+        tiers.add(
+            loss_threshold(topo.inter_loss) if topo.inter_loss > 0 else base
+        )
+    return len(tiers) > 1
+
+
 def require_flat(topo: Topology) -> None:
-    """Refuse the topology paths the port has not reached yet."""
-    if topo.loss > 0 or topo.az_loss > 0 or topo.inter_loss > 0:
+    """Refuse the topology paths the port has not reached yet: one loss
+    class over every edge is flat, tiers of their own are not."""
+    if loss_tiered(topo):
         raise NotImplementedError(
-            "lossy topologies are not ported yet (ROADMAP B1 bernoulli/"
-            "aligned_u8_bits, B12 edge_payload_drop)"
+            "tiered topology loss is not ported yet (ROADMAP B12 rest, "
+            "tiered_edge_drop)"
         )
     if topo.n_azs > 1 or topo.region_delay_matrix:
         raise NotImplementedError(
@@ -100,6 +120,23 @@ def edge_alive(
         & (alive[src] == ALIVE)
         & (alive[dst] == ALIVE)
     )
+
+
+def edge_payload_drop(
+    topo: Topology, key: torch.Tensor, n_edges: int, n_payloads: int
+) -> torch.Tensor:
+    """bool[E, P] per-(edge, payload) loss of the flat topology (JAX
+    ``edge_payload_drop``'s legacy branch): nothing below a threshold of
+    1 (no draw), everything at 256 or more, else ``aligned_u8_bits`` of
+    ``key`` below the threshold."""
+    require_flat(topo)
+    thr = loss_threshold(topo.loss)
+    dev = key.device
+    if topo.loss <= 0.0 or thr == 0:
+        return torch.zeros((n_edges, n_payloads), dtype=torch.bool, device=dev)
+    if thr >= 256:
+        return torch.ones((n_edges, n_payloads), dtype=torch.bool, device=dev)
+    return aligned_u8_bits(key, (n_edges, n_payloads)) < thr
 
 
 def aligned_u8_bits(key: torch.Tensor, shape) -> torch.Tensor:

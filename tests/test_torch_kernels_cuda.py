@@ -470,3 +470,95 @@ def test_converge_record_fault_exit(card, n, t, horizon, wiped):
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and torch.equal(x, y)
     assert bool(got[2]) == (t + 1 >= horizon and not wiped)
+
+
+# -- the dense round: K1's uniform entry and K12-K15 --------------------------
+# chip_smoke.py's comparisons at small and ragged shapes; each raises when
+# its inputs miss a trap and reports whether kernel and plain agree
+
+
+def _smoke():
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("n", (31, 257, 3000))
+@pytest.mark.parametrize("count", (1, 3))
+def test_sample_uniform(card, n, count):
+    row = _smoke().compare_sample_uniform(
+        card, np.random.default_rng(n), n=n, count=count, timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n", (64, 1001))
+def test_dense_phases(card, n):
+    row = _smoke().compare_dense_phases(card, np.random.default_rng(n), n=n,
+                                        timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n", (64, 1001))
+def test_dense_sync(card, n):
+    row = _smoke().compare_dense_sync(card, np.random.default_rng(n), n=n,
+                                      timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n, n_writers, n_payloads", (
+    (37, 4, 256), (1000, 8, 256), (300, 2, 192), (65, 1, 64)))
+def test_dense_gaps(card, n, n_writers, n_payloads):
+    row = _smoke().compare_dense_gaps(
+        card, np.random.default_rng(n), n=n, n_writers=n_writers,
+        n_payloads=n_payloads, timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n, f", ((31, 2), (300, 3), (1024, 3)))
+def test_swim_full(card, n, f):
+    row = _smoke().compare_swim_full(card, np.random.default_rng(n), n=n,
+                                     f=f, timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("name", ("dense3", "lossy9", "churn64", "heal512"))
+def test_dense_run_on_card_equals_cpu(card, name):
+    """A whole dense run through every kernel on the card equals the
+    plain versions' run on the CPU, state for state."""
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim import runner
+    from corrosion_tpu_torch.sim.round import (
+        new_metrics, new_sim, round_step, run_to_convergence)
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    def run(dev):
+        if name == "churn64":
+            return runner.membership_churn(64, 0, device=dev,
+                                           return_state=True)["state"]
+        if name == "heal512":
+            cfg, meta = runner.heal_config(512, dev)
+            topo = Topology(n_regions=2, inter_delay=2)
+            region = regions(512, 2, dev)
+            state = new_sim(cfg, 0, dev)
+            half = torch.arange(512, device=dev) >= 256
+            state = state._replace(group=half.to(torch.int32))
+            metrics = new_metrics(cfg, dev)
+            for _ in range(20):
+                state, metrics = round_step(state, metrics, meta, cfg, topo,
+                                            region)
+            state = state._replace(group=torch.zeros_like(state.group))
+            return run_to_convergence(state, meta, cfg, topo, 2000)[0]
+        topo = Topology()
+        kw = dict(n_nodes=24, n_payloads=16, fanout=2)
+        if name == "lossy9":
+            topo = Topology(n_regions=2, inter_delay=2, loss=0.2)
+            kw.update(swim_full_view=True)
+        else:
+            kw.update(sync_interval_rounds=4)
+        cfg = SimConfig(**kw)
+        meta = uniform_payloads(cfg, dev, inject_every=1)
+        seed = 9 if name == "lossy9" else 3
+        return run_to_convergence(new_sim(cfg, seed, dev), meta, cfg, topo,
+                                  400)[0]
+
+    assert state_digest(run(card)) == state_digest(run("cpu"))

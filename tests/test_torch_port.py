@@ -16,8 +16,12 @@ from corrosion_tpu_torch.device import resolve_device
 from corrosion_tpu_torch.kernels import build
 from corrosion_tpu_torch.kernels.build import CSRC, SOURCES, check
 from corrosion_tpu_torch.sim.runner import (
+    config_broadcast_1k,
+    config_ground_truth_3node,
     config_packed_fault_storm,
+    config_partition_heal_10k,
     config_write_storm_100k,
+    membership_churn,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -56,6 +60,12 @@ def test_entry_points_refuse_cuda_without_card():
     for entry in (config_write_storm_100k, config_packed_fault_storm):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(n_nodes=512, n_payloads=256)  # default cuda
+    for entry, kw in ((config_ground_truth_3node, {}),
+                      (config_broadcast_1k, {}),
+                      (config_partition_heal_10k, {}),
+                      (membership_churn, dict(n_nodes=64))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(**kw)  # default cuda
 
 
 def test_wrapper_check_refuses_what_c_cannot_take():

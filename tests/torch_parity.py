@@ -3,6 +3,7 @@ inputs made from a seed with numpy, handed to the JAX reference and to
 the port (device="cpu", plain torch versions), and compared exactly."""
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -72,3 +73,25 @@ def random_tables(rng, n, m, t):
     )
     return (pid.astype(np.int32), pkey.astype(np.int32),
             psince.astype(np.int32))
+
+
+def jax_digest(state, skip=("pview",)) -> str:
+    """tests/sim/test_topo.py's _digest of a JAX state (blake2b over its
+    fields), live — the port's `convert.state_digest` must equal it."""
+    h = hashlib.blake2b(digest_size=8)
+    for f, v in zip(type(state)._fields, state):
+        if f in skip:
+            continue
+        h.update(f.encode())
+        h.update(np.ascontiguousarray(np.asarray(v)).tobytes())
+    return h.hexdigest()
+
+
+def assert_states_equal(jax_state, port_state, label: str) -> None:
+    assert_fields_equal(fields(jax_state), port_fields(port_state), label)
+
+
+def assert_metrics_equal(jax_metrics, port_metrics, label: str) -> None:
+    """RunMetrics field for field, exactly: overflow_frac is one f32 mean
+    (an exact integer sum over an f32 cell count) on both sides."""
+    assert_fields_equal(fields(jax_metrics), fields(port_metrics), label)
