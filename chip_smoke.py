@@ -6,7 +6,7 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the fifteen CUDA kernels K1–K15 from the fourteen sources in
+2. build the sixteen CUDA kernels K1–K16 from the fifteen sources in
    ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -28,6 +28,14 @@ result line):
    (N = 4096, F = 3) for K15 and K1 — with more than K gap runs, byte
    budgets that bind, a loss threshold of 51, SUSPECT cells past the
    timeout, DOWN receivers and refuting nodes;
+   then K16, K3's metered entry, K10's topology stream and K6 past 32
+   versions at gapstress-25.6k's shapes (N = 25600, P = 8192, W = 256,
+   A = 8, V = 128, C = 8, K = 8, F = S = 3, D = 4) and K14 at the
+   distortion control's (N = 1024, K = 64) — budgets that bind, a budget
+   of 1, empty rows, P = 65536 (the two-lane branch), needs the grant
+   cuts to nothing, both loss streams alone and together, a severed
+   channel, runs across version-word edges, heads at 32j, V = 40, more
+   than 32 runs in a row;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -46,11 +54,17 @@ result line):
    K12–K14), ``membership_churn(4096, seed=0)`` (those and K15), each
    held against its goldens (heal round, rounds, p99, digest; the
    churn's detect round, digest and false DOWNs);
-8. profile the first 3 rounds of both storms, the fault storm's
-   12-round loss window and 10 partitioned rounds of partition-heal-10k
-   (host wall, device time by kernel from ``torch.profiler``, the
-   device's idle share);
-9. print the card line, the kernels JSON line, then the one-line result
+8. each from launch counters at 0: ``config_write_storm_gapstress(
+   seed=1, n_nodes=25600)`` on the packed round (K1, K3's metered
+   entry, K4–K8, K10, K16), held against its golden (rounds, both p99s,
+   ``gap_overflow_frac_max``, digest), and ``config_gapstress_distortion(
+   seed=0, n_nodes=1024)`` on the dense round (K1, K4, K5, K12–K14; K =
+   8 and K = 64), held against its golden;
+9. profile the first 3 rounds of both storms, the fault storm's
+   12-round loss window, 10 partitioned rounds of partition-heal-10k and
+   the first 3 rounds of gapstress-25.6k (host wall, device time by
+   kernel from ``torch.profiler``, the device's idle share);
+10. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -162,6 +176,8 @@ KERNEL_SYMBOLS = (
     "dense_broadcast_kernel", "dense_deliver_kernel", "dense_sync_kernel",
     "dense_gaps_rows_kernel", "dense_gaps_finish_kernel",
     "swim_timeout_kernel", "swim_merge_kernel", "swim_apply_kernel",
+    "budget_words_kernel", "sync_pull_metered_kernel",
+    "gaps_refresh_wide_kernel",
 )
 
 
@@ -172,18 +188,24 @@ def _is_symbol(sym: str, key: str) -> bool:
     return re.search(r"(?<!\w)" + sym + r"\b", key) is not None
 
 
-def _profile(run, rounds, label):
+def _profile(run, rounds, label, setup=None):
     """Where a run's time goes on the card: ``run()`` (which returns its
     host wall in seconds) once to warm up, once on the host clock, then
     again under torch.profiler for device time by kernel (its own run:
-    the profiler slows the host); per round over ``rounds``."""
+    the profiler slows the host); per round over ``rounds``.  With
+    ``setup`` each run is ``run(setup())``, the setup outside the
+    profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run()
-    wall = run()
+    def args():
+        return () if setup is None else (setup(),)
+
+    run(*args())
+    wall = run(*args())
+    profiled = args()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+        run(*profiled)
     # device-side events only: an aten op's CPU event also reports the
     # device time of the kernels it launched, which would count twice
     device = [
@@ -276,6 +298,40 @@ def profile_heal(dev, rounds=10):
         return time.monotonic() - t0
 
     return _profile(run, rounds, "partition-heal-10k")
+
+
+def profile_gapstress(dev, rounds=3):
+    """The burst's first ``rounds`` rounds of gapstress-25.6k (seed 1):
+    every version injected at round 0, both budgets binding, 30 % loss.
+    `run_packed`'s loop, with its setup (new_sim, pack_state: ~210 M
+    cells) outside the clock and the profiler."""
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim.round import new_metrics, new_sim
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    cfg, meta = _gapstress(GAPSTRESS_N, dev)
+    topo = Topology(loss=0.3)
+    region = regions(cfg.n_nodes, 1, dev)
+
+    def setup():
+        state = new_sim(cfg, 1, dev)
+        out = (packed.shrink_state(state), packed.pack_state(state, cfg),
+               packed.pack_bits(state.injected), new_metrics(cfg, dev))
+        torch.cuda.synchronize()
+        return out
+
+    def run(loop):
+        slim, carry, inj, metrics = loop
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            slim, carry, inj, metrics, done = packed.packed_round_step(
+                slim, carry, inj, metrics, meta, cfg, topo, region)
+            bool(done)  # run_packed's one host read a round
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, "gapstress-25.6k", setup)
 
 
 def _bound_ms(nbytes: int) -> float:
@@ -1167,10 +1223,11 @@ def compare_dense_sync(dev, g, n=10_000, timed=True):
     )
 
 
-def _dense_record_cases(g, dev, cfg, meta):
-    """K14's cases: holes (runs past K, dead rows, stamps set and unset)
-    mid-injection, then every cell held after the last injection (node
-    stamps and the done flag), and the same with one up row short."""
+def _dense_record_cases(g, dev, cfg, meta, p_one=0.5):
+    """K14's cases: holes (each chunk held with probability ``p_one``:
+    runs past K, dead rows, stamps set and unset) mid-injection, then
+    every cell held after the last injection (node stamps and the done
+    flag), and the same with one up row short."""
     from corrosion_tpu_torch.sim.round import RunMetrics
 
     n, p = cfg.n_nodes, cfg.n_payloads
@@ -1185,7 +1242,7 @@ def _dense_record_cases(g, dev, cfg, meta):
         overflow_frac=torch.zeros((), device=dev),
         order_violations=torch.zeros((), dtype=torch.int32, device=dev),
     )
-    holes = _u8(g, (n, p), 0.5, dev)
+    holes = _u8(g, (n, p), p_one, dev)
     full = torch.ones((n, p), dtype=torch.uint8, device=dev)
     short = full.clone()
     short[int(np.flatnonzero(alive.cpu().numpy() == 0)[0]), 0] = 0
@@ -1197,23 +1254,31 @@ def _dense_record_cases(g, dev, cfg, meta):
 
 
 def compare_dense_gaps(dev, g, n=10_000, n_writers=4, n_payloads=256,
-                       timed=True, name="dense_gaps"):
+                       timed=True, name="dense_gaps", gap_slots=8,
+                       chunks=1, p_one=0.5):
     """K14 at partition-heal-10k's shapes (A = 4, V = 64, K = 8: JAX's
-    dense branch) or broadcast-1k's (A = 8, V = 32: its word branch)."""
+    dense branch), broadcast-1k's (A = 8, V = 32: its word branch) or the
+    gapstress distortion control's (A = 8, V = 128, C = 8, K = 64: more
+    than 32 runs in a row, past the register cap K14 had)."""
     from corrosion_tpu_torch.sim.round import dense_record, dense_record_plain
     from corrosion_tpu_torch.sim.state import SimConfig, uniform_payloads
 
-    cfg = SimConfig(n_nodes=n, n_payloads=n_payloads, n_writers=n_writers)
+    cfg = SimConfig(n_nodes=n, n_payloads=n_payloads, n_writers=n_writers,
+                    chunks_per_version=chunks, gap_slots=gap_slots)
     meta = uniform_payloads(cfg, dev, inject_every=1)
-    cases = _dense_record_cases(g, dev, cfg, meta)
+    cases = _dense_record_cases(g, dev, cfg, meta, p_one)
     equal, err, dones = True, 0, []
     for args in cases:
         got, want = dense_record(*args), dense_record_plain(*args)
         e, x = _equal_all(got, want)
         equal, err = equal and e, max(err, x)
         dones.append(bool(want[6]))
-        if args is cases[0] and int(want[3]) == 0:
+        if args is not cases[0]:
+            continue
+        if gap_slots <= 32 and int(want[3]) == 0:
             raise AssertionError("K14 inputs overflow no row")
+        if gap_slots > 32 and not bool((want[1][..., 32] > 0).any()):
+            raise AssertionError("K14 inputs fill no slot past 32")
     if dones != [False, True, False]:
         raise AssertionError("K14 inputs do not reach both done values")
     args = cases[0]
@@ -1341,6 +1406,266 @@ def compare_dense_kernels(dev, seed=1):
     return rows
 
 
+# -- the gapstress storm's kernels: K16, K3's metered entry, K10's topology
+# stream, K6 past 32 versions, and K14 at K = 64 ----------------------------
+
+GAPSTRESS_N = 25_600
+
+
+def _gapstress(n, dev, gap_slots=8):
+    """The gapstress config and payloads (sizes 1 B - 8 KiB)."""
+    from corrosion_tpu_torch.sim.runner import (
+        _gapstress_cfg, gapstress_payload_sizes)
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+
+    cfg = _gapstress_cfg(n, gap_slots)
+    meta = uniform_payloads(cfg, dev, inject_every=0,
+                            payload_bytes=gapstress_payload_sizes(
+                                cfg.n_payloads))
+    return cfg, meta
+
+
+def compare_budget_words(dev, g, n=GAPSTRESS_N, timed=True):
+    """K16 on the broadcast governor's rows (N x W = 256 over the
+    gapstress sizes, half the bits set: about 9.5 MB a row) under its
+    5 MiB budget and a budget of 1, with empty rows; and on 64 rows of
+    P = 65 536 (JAX's two-lane branch) under 9 MB."""
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim.runner import gapstress_payload_sizes
+
+    cfg, meta = _gapstress(n, dev)
+    w = cfg.n_payloads // 32
+    elig = _random_words(g, (n, w), dev)
+    elig[::97] = 0
+    big_p = 65_536
+    big_sizes = torch.as_tensor(gapstress_payload_sizes(big_p), device=dev)
+    cases = [(elig, cfg.rate_limit_bytes_round, meta.nbytes),
+             (elig, 1, meta.nbytes),
+             (_random_words(g, (64, big_p // 32), dev), 9_000_000,
+              big_sizes)]
+    equal, err, outs = True, 0, []
+    for words, budget, sizes in cases:
+        got = packed.budget_prefix_words(words, budget, sizes)
+        want = packed.budget_prefix_words_plain(words, budget, sizes)
+        e, x = _equal_all([got], [want])
+        equal, err = equal and e, max(err, x)
+        outs.append(want)
+    for (words, _, _), want in zip(cases, outs):
+        if torch.equal(words, want) or not bool(want.any()):
+            raise AssertionError("K16 inputs: a budget keeps all or nothing")
+    budget = cfg.rate_limit_bytes_round
+    return _row(
+        "budget_words", "corrosion_tpu_torch/kernels/csrc/budget_words.cu",
+        "corrosion_tpu/sim/packed.py:102", equal, err,
+        _timed(timed, lambda: packed.budget_prefix_words(elig, budget,
+                                                         meta.nbytes)),
+        _timed(timed, lambda: packed.budget_prefix_words_plain(
+            elig, budget, meta.nbytes)),
+        # the rows in and out, the sizes
+        _nbytes(elig, meta.nbytes) + elig.numel() * 4,
+        kernel="budget_words",
+    )
+
+
+def compare_sync_pull_metered(dev, g, n=GAPSTRESS_N, timed=True):
+    """K3's metered entry at gapstress's shapes (W = 256, S = 3) under the
+    4 MiB grant (it binds: each edge needs megabytes) and a grant of 1
+    (edges with a need that pull nothing, so fruitful falls), with self
+    and dead peers and words that carry bit 31."""
+    from corrosion_tpu_torch.sim import packed
+
+    cfg, meta = _gapstress(n, dev)
+    w, s = cfg.n_payloads // 32, cfg.sync_peers
+    masks = _random_words(g, (n, 4, w), dev)
+    # even rows serve (7 bits in 8 held), odd rows lag (1 in 8), so a
+    # lagging puller needs most of a serving peer's megabytes
+    serving = ~_random_words(g, (n, w), dev, 3)
+    lagging = _random_words(g, (n, w), dev, 3)
+    masks[:, 3] = torch.where(torch.arange(n, device=dev)[:, None] % 2 == 0,
+                              serving, lagging)
+    miss = _random_words(g, (n, w), dev, 2)
+    me = np.arange(n)[:, None]
+    peers = np.where(g.random((n, s)) < 0.03, me,
+                     2 * g.integers(0, n // 2, (n, s)))
+    peers = torch.as_tensor(peers, dtype=torch.int32, device=dev)
+    ok = torch.as_tensor(g.random((n, s)) < 0.7, device=dev)
+    buf0 = torch.zeros((n, w), dtype=torch.int32, device=dev)
+    grant = cfg.sync_budget_bytes
+    equal, err, outs = True, 0, {}
+    for budget in (None, grant, 1):
+        got_buf, want_buf = buf0.clone(), buf0.clone()
+        want = packed.sync_pull_plain(masks, miss, peers, ok, want_buf,
+                                      budget, meta.nbytes)
+        outs[budget] = (want, want_buf)
+        if budget is None:
+            continue
+        got = packed.sync_pull(masks, miss, peers, ok, got_buf, budget,
+                               meta.nbytes)
+        e, x = _equal_all([got, got_buf], [want, want_buf])
+        equal, err = equal and e, max(err, x)
+    if torch.equal(outs[None][1], outs[grant][1]):
+        raise AssertionError("K3 metered inputs: the grant never binds")
+    if not bool((outs[None][0] & ~outs[1][0]).any()):
+        raise AssertionError("K3 metered inputs: no need is granted nothing")
+    if not bool((outs[grant][1] < 0).any()):
+        raise AssertionError("K3 metered inputs pull no word with bit 31")
+    work = buf0.clone()
+
+    def restore():
+        work.zero_()
+
+    return _row(
+        "sync_pull_metered", "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
+        "corrosion_tpu/sim/packed.py:1238", equal, err,
+        _timed(timed, lambda: packed.sync_pull(
+            masks, miss, peers, ok, work, grant, meta.nbytes), restore),
+        _timed(timed, lambda: packed.sync_pull_plain(
+            masks, miss, peers, ok, work, grant, meta.nbytes), restore),
+        # masks, miss, peers and ok once, the slot in and out, fruitful,
+        # the sizes
+        _nbytes(masks, miss, peers, ok, meta.nbytes) + n * w * 4 * 2 + n,
+        kernel="sync_pull_metered",
+    )
+
+
+def compare_scatter_topo(dev, g, n=GAPSTRESS_N, timed=True):
+    """K10 at gapstress's shapes (E = 3N, W = 256, D = 4): the topology
+    stream alone at round(0.3 * 256) = 77 (the path), the fault stream
+    alone, both at once, and a severed channel (256) with and without
+    fault loss."""
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim.topology import loss_threshold
+
+    cfg, _ = _gapstress(n, dev)
+    w, f, d = cfg.n_payloads // 32, cfg.fanout, cfg.n_delay_slots
+    e = n * f
+    sending = _random_words(g, (n, w), dev, 4)
+    dst = torch.as_tensor(g.integers(0, n, e), dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(g.integers(0, d, e), dtype=torch.int32,
+                           device=dev)
+    ok = torch.as_tensor(g.random(e) < 0.9, device=dev)
+    thr = torch.as_tensor(np.where(g.random(e) < 0.3, 0,
+                                   g.integers(1, 80, e)),
+                          dtype=torch.uint8, device=dev)
+    key, topo_key = trng.prng_key(5, dev), trng.prng_key(6, dev)
+    topo_thr = loss_threshold(0.3)
+    ring0 = _random_words(g, (d, n, w), dev, 6)
+    lossless = ring0.clone()
+    packed.scatter_sending_plain(lossless, sending, dst, slot, ok, f)
+    cases = {"topology": (None, topo_thr), "fault": (thr, 0),
+             "both": (thr, topo_thr), "severed": (None, 256),
+             "severed_fault": (thr, 256)}
+    equal, err, outs = True, 0, {}
+    for name, (t, tt) in cases.items():
+        got, want = ring0.clone(), ring0.clone()
+        args = (sending, dst, slot, ok, t, key, 11, f, tt, topo_key)
+        packed.scatter_sending_lossy(got, *args)
+        packed.scatter_sending_lossy_plain(want, *args)
+        e_, x = _equal_all([got], [want])
+        equal, err = equal and e_, max(err, x)
+        outs[name] = want
+    if any(torch.equal(outs[k], lossless)
+           for k in ("topology", "fault", "both")):
+        raise AssertionError("K10 inputs: a lossy stream drops nothing")
+    if (torch.equal(outs["both"], outs["topology"])
+            or torch.equal(outs["both"], outs["fault"])):
+        raise AssertionError("K10 inputs: the two streams do not compose")
+    if not (torch.equal(outs["severed"], ring0)
+            and torch.equal(outs["severed_fault"], ring0)):
+        raise AssertionError("K10: a severed channel let a payload through")
+    live = (sending.repeat_interleave(f, dim=0) != 0) & ok[:, None]
+    hashes = int(live.sum()) * 8
+    rows_touched = torch.unique((slot.long() * n + dst.long())[ok]).numel()
+    nbytes = sending.numel() * 4 + e * 9 + rows_touched * w * 4 * 2
+    ops = hashes * OPS_PER_HASH
+    rate = _int32_ops_per_s()
+    ring_k, ring_p = ring0.clone(), ring0.clone()
+    args = (sending, dst, slot, ok, None, key, 11, f, topo_thr, topo_key)
+    return dict(
+        name="broadcast_scatter_lossy_topo",
+        source="corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
+        replaces="corrosion_tpu/sim/topology.py:267",
+        equal=equal, max_abs_err=err,
+        ms=_timed(timed, lambda: packed.scatter_sending_lossy(ring_k, *args)),
+        # the plain version finds its pairs with a host sync: eager
+        plain_ms=_time_eager_ms(lambda: packed.scatter_sending_lossy_plain(
+            ring_p, *args)) if timed else None,
+        bound_ms=max(_bound_ms(nbytes), ops / rate * 1e3),
+        bound_by="operations" if ops / rate * 1e3 > _bound_ms(nbytes)
+        else "bytes",
+        ops=ops, hashes=hashes, bytes=nbytes,
+        kernel="broadcast_scatter_lossy",
+    )
+
+
+def compare_gaps_wide(dev, g, n=GAPSTRESS_N, timed=True):
+    """K6 past 32 versions at gapstress's shapes (A = 8, V = 128, C = 8,
+    K = 8; one chunk bit in 16 set, so 40 % of versions touched: many
+    runs, overflow, runs across version-word edges, heads at 32j, empty
+    rows) and at V = 40, not a multiple of 32."""
+    from corrosion_tpu_torch.sim import gaps
+
+    cfg, _ = _gapstress(n, dev)
+    w = cfg.n_payloads // 32
+    have = _random_words(g, (n, w), dev, 4)
+    have[::101] = 0
+    # rows that hold no version past 32, 64 or 96 (a version is 64 bits,
+    # two words): their heads land on 32j where that version is touched
+    for i, words in enumerate((64, 128, 192)):
+        have[i::21, words:] = 0
+    narrow = dataclasses.replace(cfg, n_payloads=40 * 64)
+    cases = [(have, cfg), (have[:, :narrow.n_payloads // 32].contiguous(),
+                           narrow)]
+    equal, err = True, 0
+    for words, c in cases:
+        got = gaps.refresh_gaps(words, c)
+        want = gaps.refresh_gaps_plain(words, c)
+        e, x = _equal_all(got, want)
+        equal, err = equal and e, max(err, x)
+        heads, lo, hi, n_over = want
+        crosses = (lo > 0) & ((lo - 1) // 32 != (hi - 1) // 32)
+        if not (int(n_over) > 0 and bool(crosses.any())
+                and bool(((heads % 32 == 0) & (heads > 0)).any())
+                and bool((heads == 0).any())):
+            raise AssertionError(f"K6 inputs at V = {c.n_versions} miss "
+                                 "an overflow, a run across a word edge, "
+                                 "a head at 32j or an empty row")
+    a, k = cfg.n_writers, cfg.gap_slots
+    return _row(
+        "gaps_refresh_v128",
+        "corrosion_tpu_torch/kernels/csrc/gaps_refresh.cu",
+        "corrosion_tpu/sim/gaps.py:64", equal, err,
+        _timed(timed, lambda: gaps.refresh_gaps(have, cfg)),
+        _timed(timed, lambda: gaps.refresh_gaps_plain(have, cfg)),
+        # the have words in; heads, lo, hi and the count out
+        n * w * 4 + n * a * 4 + 2 * n * a * k * 4 + 4,
+        kernel="gaps_refresh",
+    )
+
+
+def compare_gapstress_kernels(dev, seed=2):
+    """Phase 3c: K16, K3's metered entry, K10's topology stream and K6
+    past 32 versions at gapstress-25.6k's shapes, and K14 at the
+    distortion control's (N = 1024, V = 128, C = 8, K = 64)."""
+    g = np.random.default_rng(seed)
+    rows = [
+        compare_budget_words(dev, g),
+        compare_sync_pull_metered(dev, g),
+        compare_scatter_topo(dev, g),
+        compare_gaps_wide(dev, g),
+        compare_dense_gaps(dev, g, n=1024, n_writers=8, n_payloads=8192,
+                           chunks=8, gap_slots=64, p_one=0.083,
+                           name="dense_gaps_k64"),
+    ]
+    rows[-1]["kernel"] = "dense_gaps"
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
 def _storm_check(result, golden, label):
     """Hold a run's record against its golden: every golden key (the
     digest from the record's final state), then convergence — or, for
@@ -1396,10 +1721,12 @@ def main() -> int:
     from corrosion_tpu_torch.sim.runner import (
         _write_storm,
         config_broadcast_1k,
+        config_gapstress_distortion,
         config_ground_truth_3node,
         config_packed_fault_storm,
         config_partition_heal_10k,
         config_write_storm_100k,
+        config_write_storm_gapstress,
         membership_churn,
         run_scenario,
         storm_fault_plan,
@@ -1418,6 +1745,8 @@ def main() -> int:
     print("kernel comparisons equal at storm shapes", flush=True)
     dense_kernel_rows = compare_dense_kernels(dev)
     print("kernel comparisons equal at the dense paths' shapes", flush=True)
+    gap_kernel_rows = compare_gapstress_kernels(dev)
+    print("kernel comparisons equal at gapstress's shapes", flush=True)
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -1501,6 +1830,36 @@ def main() -> int:
                                     "churn_full_4096")
     _storm_check(churn, goldens.CHURN_FULL_4096_SEED0, "churn_full_4096")
 
+    # path 6, gapstress-25.6k: the packed round under both byte budgets
+    # (K16, K3's metered entry, K8's metered spend), the flat 30 % loss
+    # on every round's scatter (K10's topology stream, so K2 is off the
+    # path) and V = 128 gaps (K6's walk)
+    gap_rows = ["sample_targets", "merge_entries", "threefry", "gaps_refresh",
+                "converge_fold", "word_phases", "sync_pull_metered",
+                "budget_words", "broadcast_scatter_lossy"]
+    kernels.reset_launch_counts()
+    gapstress = config_write_storm_gapstress(seed=1, n_nodes=GAPSTRESS_N,
+                                             device=dev, return_state=True)
+    gap_launches = _path_launches(kernels, gap_rows, "gapstress_25600")
+    if gapstress["round_path"] != "packed":
+        raise AssertionError("gapstress_25600 did not take the packed round")
+    _storm_check(gapstress, goldens.GAPSTRESS_25600_SEED1, "gapstress_25600")
+
+    # path 7, the K-clamp distortion at 1024 nodes: the dense round at
+    # K = 8 and at the K = 64 control (K14 past 32 slots)
+    kernels.reset_launch_counts()
+    dist = config_gapstress_distortion(seed=0, n_nodes=1024, device=dev,
+                                       return_state=True)
+    dist_launches = _path_launches(
+        kernels, ["sample_targets", "merge_entries", "threefry", *dense_rows],
+        "gapstress_distortion_1024")
+    golden = goldens.GAPSTRESS_DISTORTION_1024_SEED0
+    for run in ("stressed", "control"):
+        _storm_check(dist[run], golden[run], f"gapstress_distortion_{run}")
+    if dist["distortion_rounds"] != golden["distortion_rounds"]:
+        raise AssertionError("gapstress_distortion: distortion_rounds "
+                             f"{dist['distortion_rounds']} != golden")
+
     print("profile: " + json.dumps(profile_storm(dev)), flush=True)
     print("profile: " + json.dumps(profile_storm(dev, faults=True)),
           flush=True)
@@ -1508,6 +1867,8 @@ def main() -> int:
     print("profile: " + json.dumps(profile_storm(dev, 12, faults=True)),
           flush=True)
     print("profile: " + json.dumps(profile_heal(dev)), flush=True)
+    print("profile_gapstress: " + json.dumps(profile_gapstress(dev)),
+          flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -1518,6 +1879,10 @@ def main() -> int:
             "sample_uniform", "swim_full") else heal_launches
         row["launches"] = path[row["name"]]
     rows += dense_kernel_rows
+    for row in gap_kernel_rows:
+        path = dist_launches if row["kernel"] == "dense_gaps" else gap_launches
+        row["launches"] = path[row["kernel"]]
+    rows += gap_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     print(card, flush=True)

@@ -2,12 +2,14 @@
 
 Each entry is what the JAX package (``corrosion_tpu``, jax 0.9.0 on the
 CPU) produces for one scenario and seed: rounds to convergence, the p99
-node-convergence round, and the blake2b digest of the final state
-(`convert.state_digest`, equal to the JAX suite's ``_digest``); the
-comment above each names the JAX call.  ``chip_smoke.py`` holds the
-port's runs on the card against them; ``tests/test_torch_storm.py``,
-``tests/test_torch_fault_storm.py``, ``tests/test_torch_dense.py`` and
-``tests/test_torch_swim_full.py`` hold them against live JAX (the
+node-convergence round (the gapstress entries also the p99 payload
+latency and the largest gap-overflow share), and the blake2b digest of
+the final state (`convert.state_digest`, equal to the JAX suite's
+``_digest``); the comment above each names the JAX call.
+``chip_smoke.py`` holds the port's runs on the card against them;
+``tests/test_torch_storm.py``, ``tests/test_torch_fault_storm.py``,
+``tests/test_torch_dense.py``, ``tests/test_torch_swim_full.py`` and
+``tests/test_torch_gapstress.py`` hold them against live JAX (the
 largest under ``-m slow``).
 """
 
@@ -74,4 +76,46 @@ CHURN_FULL_4096_SEED0 = {
     "detect_round": 46,
     "digest": "ba94e70d5efbab4c",
     "false_downs": 0,
+}
+
+# runner.config_write_storm_gapstress(seed=1, n_nodes=25600): the bench's
+# own rung (config #5b), 8192 payloads (V = 128, K = 8), 30 % flat loss,
+# both byte budgets binding, the packed round
+GAPSTRESS_25600_SEED1 = {
+    "rounds": 42,
+    "p99_node_convergence_round": 34.0,
+    "p99_payload_latency_rounds": 40.0,
+    "gap_overflow_frac_max": 0.3996679484844208,
+    "digest": "c00323c9ab9cd35b",
+}
+
+# runner.config_write_storm_gapstress(seed=1, n_nodes=4096): the bench's
+# CPU rung, the packed round
+GAPSTRESS_4096_SEED1 = {
+    "rounds": 50,
+    "p99_node_convergence_round": 32.0,
+    "p99_payload_latency_rounds": 38.0,
+    "gap_overflow_frac_max": 0.28094482421875,
+    "digest": "b6e643f01aa5357e",
+}
+
+# runner.config_gapstress_distortion(seed=0, n_nodes=1024): the gapstress
+# scenario at K = 8 and at the K = 64 control, each on the dense round
+# (1024 x 8192 cells is under packed_min_cells)
+GAPSTRESS_DISTORTION_1024_SEED0 = {
+    "stressed": {
+        "rounds": 35,
+        "p99_node_convergence_round": 29.0,
+        "p99_payload_latency_rounds": 34.0,
+        "gap_overflow_frac_max": 0.1939697265625,
+        "digest": "752f9209dd4f17cb",
+    },
+    "control": {
+        "rounds": 35,
+        "p99_node_convergence_round": 29.0,
+        "p99_payload_latency_rounds": 34.0,
+        "gap_overflow_frac_max": 0.0,
+        "digest": "6f58fc855b9ca158",
+    },
+    "distortion_rounds": 0,
 }

@@ -27,12 +27,16 @@ replaces:
 - K13 `DENSE_SYNC` — `sim.sync.sync_pull_dense`;
 - K14 `DENSE_GAPS_ROWS`, `DENSE_GAPS_FINISH` — `sim.round.dense_record`;
 - K15 `SWIM_TIMEOUT`, `SWIM_MERGE`, `SWIM_APPLY` —
-  `sim.swim.swim_timeout_`, `swim_merge`, `swim_apply_`.
+  `sim.swim.swim_timeout_`, `swim_merge`, `swim_apply_`;
+- K16 `BUDGET_WORDS` — `sim.packed.budget_prefix_words`;
+- K3's metered entry `SYNC_PULL_METERED` (in K3's source, with K16's
+  row scan) — `sim.packed.sync_pull` under a sync budget.
 
 A wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other.  `PORTED` groups
 the entry points by kernel, in K order (K10 is a second entry point of
-K2's source with a row of its own, and so is K1's uniform entry).
+K2's source with a row of its own, and so are K1's uniform entry and
+K3's metered entry).
 """
 
 from .build import Kernel, build_all
@@ -45,7 +49,7 @@ BROADCAST_SCATTER = Kernel(
 )
 BROADCAST_SCATTER_LOSSY = Kernel(
     "broadcast_scatter_lossy", "broadcast_scatter.cu",
-    "corro_broadcast_scatter_lossy", 6,
+    "corro_broadcast_scatter_lossy", 7,
 )
 SYNC_PULL = Kernel("sync_pull", "sync_pull.cu", "corro_sync_pull", 3)
 MERGE_ENTRIES = Kernel(
@@ -63,7 +67,7 @@ CONVERGE_FINISH = Kernel(
     "converge_finish", "converge_fold.cu", "corro_converge_finish", 6
 )
 WORD_INJECT = Kernel("word_inject", "word_phases.cu", "corro_word_inject", 5)
-WORD_SPEND = Kernel("word_spend", "word_phases.cu", "corro_word_spend", 3)
+WORD_SPEND = Kernel("word_spend", "word_phases.cu", "corro_word_spend", 4)
 WORD_DELIVER = Kernel(
     "word_deliver", "word_phases.cu", "corro_word_deliver", 5
 )
@@ -94,6 +98,12 @@ DENSE_GAPS_FINISH = Kernel(
 SWIM_TIMEOUT = Kernel("swim_timeout", "swim_full.cu", "corro_swim_timeout", 3)
 SWIM_MERGE = Kernel("swim_merge", "swim_full.cu", "corro_swim_merge", 2)
 SWIM_APPLY = Kernel("swim_apply", "swim_full.cu", "corro_swim_apply", 2)
+BUDGET_WORDS = Kernel(
+    "budget_words", "budget_words.cu", "corro_budget_words", 3
+)
+SYNC_PULL_METERED = Kernel(
+    "sync_pull_metered", "sync_pull.cu", "corro_sync_pull_metered", 4
+)
 
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
@@ -112,6 +122,8 @@ PORTED = {
     "dense_sync": (DENSE_SYNC,),
     "dense_gaps": (DENSE_GAPS_ROWS, DENSE_GAPS_FINISH),
     "swim_full": (SWIM_TIMEOUT, SWIM_MERGE, SWIM_APPLY),
+    "budget_words": (BUDGET_WORDS,),
+    "sync_pull_metered": (SYNC_PULL_METERED,),
 }
 KERNELS = tuple(k for entries in PORTED.values() for k in entries)
 
@@ -122,12 +134,13 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "BROADCAST_SCATTER", "BROADCAST_SCATTER_LOSSY", "CONVERGE_FINISH",
-    "CONVERGE_ROWS", "DENSE_BROADCAST", "DENSE_DELIVER", "DENSE_GAPS_FINISH",
-    "DENSE_GAPS_ROWS", "DENSE_INJECT", "DENSE_SYNC", "FAULT_EDGES",
+    "BROADCAST_SCATTER", "BROADCAST_SCATTER_LOSSY", "BUDGET_WORDS",
+    "CONVERGE_FINISH", "CONVERGE_ROWS", "DENSE_BROADCAST", "DENSE_DELIVER",
+    "DENSE_GAPS_FINISH", "DENSE_GAPS_ROWS", "DENSE_INJECT", "DENSE_SYNC",
+    "FAULT_EDGES",
     "FAULT_REACH", "GAPS_REFRESH", "KERNELS", "Kernel", "MERGE_ENTRIES",
     "NODE_FAULTS", "PORTED", "RANDINT", "SAMPLE_TARGETS", "SAMPLE_UNIFORM",
-    "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL", "THREEFRY",
-    "WORD_DELIVER", "WORD_INJECT", "WORD_SPEND", "build_all",
-    "reset_launch_counts",
+    "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL",
+    "SYNC_PULL_METERED", "THREEFRY", "WORD_DELIVER", "WORD_INJECT",
+    "WORD_SPEND", "build_all", "reset_launch_counts",
 ]

@@ -37,7 +37,7 @@ SOURCES = (
     "merge_entries.cu", "threefry.cu", "gaps_refresh.cu",
     "converge_fold.cu", "word_phases.cu", "fault_edges.cu",
     "node_faults.cu", "dense_phases.cu", "dense_sync.cu", "dense_gaps.cu",
-    "swim_full.cu",
+    "swim_full.cu", "budget_words.cu",
 )
 _LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 

@@ -21,20 +21,29 @@
 // contiguous 64-byte runs; a zero word issues no atomic at all, which
 // skips most of the ring traffic once relay budgets run out.
 //
-// K10, the second entry point, runs the same kernel with the fault
-// plan's per-(edge, payload) wire loss drawn in the kernel (the loss
-// bits of corrosion_tpu/sim/faults.py:260 fault_wire_effects,
-// faults.py:274-284): payload q of edge e is dropped when byte
-// e*P + q of aligned_u8_bits(fold_in(fold_in(key, seed), 101), [E, P])
-// is below the edge's threshold thr[e] (from K9).  A thread's 32
-// payloads are bytes e*P + 32k .. +31, the eight u32 words from
-// e*P/4 + 8k, each the hash of counter (0, word) — word i of a bits draw
-// does not depend on the draw's length.  The thread ANDs sending[src, k]
-// with the 32-bit keep mask (byte >= thr) before the atomicOr.  An edge
-// with thr 0 draws nothing (no u8 is below 0), and neither does a zero
-// word; jax draws the whole [E, P] every round, with the same result.
-// Bound in the loss window: operations — E*P/4 hashes of ~72 u32
-// operations each; outside it, K2's bytes.
+// K10, the second entry point, runs the same kernel with the wire's
+// per-(edge, payload) loss drawn in the kernel, from up to two streams
+// whose drops OR (a bit survives only if both draws keep it):
+//   topology  the flat Topology.loss of corrosion_tpu/sim/topology.py:267
+//             edge_payload_drop (called at packed.py:451): byte e*P + q
+//             of aligned_u8_bits(k_drop, [E, P]) below one threshold
+//             topo_thr = round(loss * 256); k_drop is the broadcast key's
+//             second split, used as it is; topo_thr 0 draws nothing and
+//             256 or more drops every payload without a draw;
+//   fault     the fault plan's loss of corrosion_tpu/sim/faults.py:260
+//             fault_wire_effects (faults.py:274-284): byte e*P + q of
+//             aligned_u8_bits(fold_in(fold_in(key, seed), 101), [E, P])
+//             below the edge's threshold thr[e] (from K9).
+// A thread's 32 payloads are bytes e*P + 32k .. +31, the eight u32 words
+// from e*P/4 + 8k, each the hash of counter (0, word) — word i of a bits
+// draw does not depend on the draw's length.  The counter e*8W + 8k + j
+// is a u32: at gapstress (E = 76 800, W = 256) it stays below 1.6e8.
+// The thread ANDs sending[src, k] with each live stream's 32-bit keep
+// mask (byte >= threshold) before the atomicOr.  A stream is hashed only
+// where it can drop: an edge with fault thr 0 skips the fault stream, a
+// zero word skips both; jax draws the whole [E, P] every round, with the
+// same result.  Bound in a lossy round: operations — up to E*P/4 hashes
+// of ~72 u32 operations each per stream; outside it, K2's bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,14 +52,32 @@
 
 namespace {
 
-// One body for both entry points: K2 passes a null `thr` and `key` and
-// draws nothing.
+// The keep mask of one thread's 32 payloads under one stream: bit 4j + b
+// set where byte b of draw word base + j is at least the threshold.
+__device__ __forceinline__ uint32_t keep_mask(uint32_t k1, uint32_t k2,
+                                              uint32_t base, uint32_t t) {
+  uint32_t keep = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    corro::Pair h = corro::threefry2x32(k1, k2, 0u, base + j);
+    uint32_t word = h.a ^ h.b;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (((word >> (8 * b)) & 0xFFu) >= t) keep |= 1u << (4 * j + b);
+    }
+  }
+  return keep;
+}
+
+// One body for both entry points: K2 passes null `thr`, `key` and
+// `topo_key` and draws nothing; K10 passes the streams it has.
 __global__ void broadcast_scatter_kernel(
     uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
     const bool* __restrict__ ok, const uint8_t* __restrict__ thr,
-    const int64_t* __restrict__ key, int n, int d_slots, int w, int fanout,
-    int n_edges, uint32_t seed, uint32_t tag) {
+    const int64_t* __restrict__ key, const int64_t* __restrict__ topo_key,
+    int n, int d_slots, int w, int fanout, int n_edges, uint32_t seed,
+    uint32_t tag, int topo_thr) {
   __shared__ uint32_t folded[2];
   if (thr != nullptr) {
     if (threadIdx.x == 0) {
@@ -69,20 +96,16 @@ __global__ void broadcast_scatter_kernel(
   if (!ok[e]) return;
   uint32_t v = sending[(size_t)(e / fanout) * w + k];
   if (v == 0u) return;
+  if (topo_thr >= 256) return;  // a severed channel: every payload drops
+  uint32_t base = (uint32_t)e * (8u * (uint32_t)w) + 8u * (uint32_t)k;
+  if (topo_thr > 0) {
+    v &= keep_mask((uint32_t)topo_key[0], (uint32_t)topo_key[1], base,
+                   (uint32_t)topo_thr);
+    if (v == 0u) return;
+  }
   uint32_t t = thr != nullptr ? thr[e] : 0u;
   if (t != 0u) {
-    uint32_t base = (uint32_t)e * (8u * (uint32_t)w) + 8u * (uint32_t)k;
-    uint32_t keep = 0u;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      corro::Pair h = corro::threefry2x32(folded[0], folded[1], 0u, base + j);
-      uint32_t word = h.a ^ h.b;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if (((word >> (8 * b)) & 0xFFu) >= t) keep |= 1u << (4 * j + b);
-      }
-    }
-    v &= keep;
+    v &= keep_mask(folded[0], folded[1], base, t);
     if (v == 0u) return;
   }
   int row = dst[e];
@@ -105,16 +128,22 @@ extern "C" int corro_broadcast_scatter(void* ring, const void* sending,
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
   broadcast_scatter_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
-      (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, n, d_slots, w,
-      fanout, n_edges, 0u, 0u);
+      (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr, n,
+      d_slots, w, fanout, n_edges, 0u, 0u, 0);
   return (int)cudaGetLastError();
 }
 
+// `thr` and `key` are null without fault loss, `topo_key` is null when
+// topo_thr is 0 (no topology loss).
 extern "C" int corro_broadcast_scatter_lossy(
     void* ring, const void* sending, const void* dst, const void* slot,
-    const void* ok, const void* thr, const void* key, int n, int d_slots,
-    int w, int fanout, int seed, int tag, void* stream) {
-  if (n <= 0 || w <= 0 || fanout <= 0) return (int)cudaErrorInvalidValue;
+    const void* ok, const void* thr, const void* key, const void* topo_key,
+    int n, int d_slots, int w, int fanout, int seed, int tag, int topo_thr,
+    void* stream) {
+  if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 ||
+      (thr == nullptr) != (key == nullptr) ||
+      (topo_thr > 0 && topo_thr < 256 && topo_key == nullptr))
+    return (int)cudaErrorInvalidValue;
   int n_edges = n * fanout;
   // the draw's word index e*8w + 8k + j is a u32 counter
   if ((unsigned long long)n_edges * 8ull * (unsigned long long)w >=
@@ -126,7 +155,7 @@ extern "C" int corro_broadcast_scatter_lossy(
   broadcast_scatter_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, (const uint8_t*)thr,
-      (const int64_t*)key, n, d_slots, w, fanout, n_edges, (uint32_t)seed,
-      (uint32_t)tag);
+      (const int64_t*)key, (const int64_t*)topo_key, n, d_slots, w, fanout,
+      n_edges, (uint32_t)seed, (uint32_t)tag, topo_thr);
   return (int)cudaGetLastError();
 }

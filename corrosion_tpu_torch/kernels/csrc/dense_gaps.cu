@@ -41,7 +41,9 @@
 // out (N*A*(1 + 2K)*4), converged_at in and out, coverage_at in and out.
 // Design: a lane's C chunk bytes of version v are contiguous and the
 // warp's lanes read adjacent groups, so a node's row streams through L1
-// once; the slots stay in registers (K <= 32) until one write each.
+// once; a slot is written when its run closes (runs past K only count),
+// the unfilled slots are zeroed at the end, and only slot K-1's overflow
+// end waits for the walk to finish — so no register array caps K.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,7 +52,6 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarps = 8;
-constexpr int MAX_K = 32;
 constexpr uint32_t kOnes = 0xFFFFFFFFu;
 
 __device__ __forceinline__ bool version_act(const uint8_t* __restrict__ inj,
@@ -92,8 +93,9 @@ __global__ void dense_gaps_rows_kernel(
     const uint8_t* row = have + (size_t)node * p;
     bool node_ok = true;
     for (int a = lane; a < a_writers; a += kWarp) {
-      int lo[MAX_K], hi[MAX_K];
-      for (int k = 0; k < MAX_K; ++k) lo[k] = hi[k] = 0;
+      size_t na = (size_t)node * a_writers + a;
+      int32_t* lo = gap_lo + na * k_slots;
+      int32_t* hi = gap_hi + na * k_slots;
       int head = 0, pending = 0, runs = 0, last_missing = 0;
       uint32_t done_word = kOnes;
       for (int v = 1; v <= v_versions; ++v) {
@@ -129,15 +131,11 @@ __global__ void dense_gaps_rows_kernel(
           done_word = kOnes;
         }
       }
+      for (int k = runs; k < k_slots; ++k) lo[k] = hi[k] = 0;
       bool overflow = runs > k_slots;
       if (overflow) hi[k_slots - 1] = last_missing;
       overflowed += overflow;
-      size_t na = (size_t)node * a_writers + a;
       heads[na] = head;
-      for (int k = 0; k < k_slots; ++k) {
-        gap_lo[na * k_slots + k] = lo[k];
-        gap_hi[na * k_slots + k] = hi[k];
-      }
     }
     bool node_done = __all_sync(0xFFFFFFFFu, node_ok) && up;
     if (lane == 0) {
@@ -194,7 +192,7 @@ __global__ void dense_gaps_finish_kernel(
 bool geometry_ok(int p, int a_writers, int v_versions, int c_chunks,
                  int k_slots) {
   return p > 0 && a_writers > 0 && v_versions > 0 && c_chunks > 0 &&
-         k_slots > 0 && k_slots <= MAX_K &&
+         k_slots > 0 &&
          (size_t)a_writers * v_versions * c_chunks == (size_t)p &&
          // the shared version_done words must fit in 48 KiB
          ((size_t)a_writers * ((v_versions + 31) / 32) + 1) * 4 <= 48 * 1024;

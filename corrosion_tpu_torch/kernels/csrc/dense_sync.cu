@@ -32,7 +32,7 @@
 // (S + 1 rows of P bytes), their heads and gap rows, nbytes, the slot row
 // written where granted, the flag.  Design: the puller's side is derived
 // once per chunk and reused for all S edges; a row's comp bit reads its C
-// chunk bytes, which L1 serves after the first lane; K <= 32 gap slots
+// chunk bytes, which L1 serves after the first lane; the K gap slots
 // are scanned from the (cached) gap rows.
 
 #include <cstdint>

@@ -22,7 +22,12 @@
 //            attempted a send (an up node with a target that is neither
 //            -1 nor itself) the planes count the sent bits down by one
 //            (a ripple borrow; sending is inside relay-nonzero, so no
-//            counter wraps).
+//            counter wraps).  Under the broadcast's byte governor the
+//            spend is two launches around K16 (JAX order: eligible,
+//            budget, sending, the spend on the attempt): mode 1 writes
+//            the eligible words and spends nothing, K16 meters them into
+//            the sending words, and mode 2 spends those (a subset of the
+//            eligible bits, so still inside relay-nonzero).
 //   deliver  one thread per (node, word): the broadcast ring's slot t % D
 //            arrives; newly = arriving & ~have re-arms the counters to
 //            max(max_transmissions - 1, 1); have |= arriving | the sync
@@ -75,16 +80,21 @@ __global__ void spend_kernel(const uint32_t* __restrict__ have,
                              const int32_t* __restrict__ targets,
                              const uint8_t* __restrict__ alive,
                              uint32_t* __restrict__ sending, int n, int w,
-                             int fanout) {
+                             int fanout, int mode) {
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * w) return;
   int node = (int)(i / w);
   int k = (int)(i % w);
   uint32_t r0 = planes.r[0][i], r1 = planes.r[1][i];
   uint32_t r2 = planes.r[2][i], r3 = planes.r[3][i];
-  uint32_t s = have[i] & (r0 | r1 | r2 | r3) & injected[k];
-  sending[i] = s;
-  if (s == 0u || alive[node] != 0) return;
+  uint32_t s;
+  if (mode == 2) {
+    s = sending[i];
+  } else {
+    s = have[i] & (r0 | r1 | r2 | r3) & injected[k];
+    sending[i] = s;
+  }
+  if (mode == 1 || s == 0u || alive[node] != 0) return;
   bool attempted = false;
   for (int j = 0; j < fanout; ++j) {
     int32_t tg = targets[(size_t)node * fanout + j];
@@ -152,13 +162,15 @@ extern "C" int corro_word_spend(const void* have, void* r0, void* r1, void* r2,
                                 void* r3, const void* injected,
                                 const void* targets, const void* alive,
                                 void* sending, int n, int w, int fanout,
-                                void* stream) {
-  if (n <= 0 || w <= 0 || fanout <= 0) return (int)cudaErrorInvalidValue;
+                                int mode, void* stream) {
+  // mode 0: unmetered spend; 1: eligible words only; 2: spend `sending`
+  if (n <= 0 || w <= 0 || fanout <= 0 || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
   spend_kernel<<<blocks_for((size_t)n * w, 256), 256, 0,
                  (cudaStream_t)stream>>>(
       (const uint32_t*)have, plane_ptrs(r0, r1, r2, r3),
       (const uint32_t*)injected, (const int32_t*)targets,
-      (const uint8_t*)alive, (uint32_t*)sending, n, w, fanout);
+      (const uint8_t*)alive, (uint32_t*)sending, n, w, fanout, mode);
   return (int)cudaGetLastError();
 }
 

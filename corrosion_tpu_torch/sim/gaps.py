@@ -5,7 +5,9 @@ the same `GapTensors` either way) and ``gaps_to_mask``.
 
 `refresh_gaps` is the packed round's bookkeeping refresh: heads, gap
 intervals and the overflow count straight from the have words.  On the
-card it is one launch of K6 (``kernels/csrc/gaps_refresh.cu``); on the
+card it is one launch of K6 (``kernels/csrc/gaps_refresh.cu``: one
+version word per (node, actor) up to 32 versions, a walk over version
+words past that); on the
 CPU it runs `refresh_gaps_plain`, the composition group_grid →
 version_heads → `extract_gaps` that JAX runs.  The dense round's refresh
 rides K14 with its convergence record (`.round.dense_record`).
@@ -111,14 +113,6 @@ def _extract_gaps_words(
     return GapTensors(lo=lo, hi=hi, overflow=overflow)
 
 
-def _require_word_path(n_versions: int) -> None:
-    if n_versions > 32:
-        raise NotImplementedError(
-            "K6 refreshes gaps in words (V <= 32); the packed round past "
-            "32 versions per writer is not ported yet (ROADMAP A4)"
-        )
-
-
 def refresh_gaps_plain(have_w: torch.Tensor, cfg: SimConfig):
     """Plain version of K6."""
     touched = group_grid(have_w, cfg, "any")  # [N, A, V]
@@ -138,7 +132,6 @@ def refresh_gaps(
     n, w = have_w.shape
     a, v = cfg.n_writers, cfg.n_versions
     c, k = cfg.chunks_per_version, cfg.gap_slots
-    _require_word_path(v)
     check("have", have_w, torch.int32, (n, w))
     dev = have_w.device
     heads = torch.empty((n, a), dtype=torch.int32, device=dev)

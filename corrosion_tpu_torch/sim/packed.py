@@ -1,9 +1,9 @@
 """The bitpacked round on u32 words — the port of
 ``corrosion_tpu/sim/packed.py`` for the telemetry-free envelope the 100k
-write storm runs, faultless (`run_packed`) and under a factored fault
-plan (`run_packed_faults`), over one region or several (ring0 tiering,
-shared with the dense round).  Metered byte budgets take the plain word
-budget (`budget_prefix_words`), so they run on the CPU only.
+write storm and the gapstress storm run, faultless (`run_packed`) and
+under a factored fault plan (`run_packed_faults`), over one region or
+several (ring0 tiering, shared with the dense round), with the byte
+budgets metered and the flat topology loss drawn on the wire.
 
 Words ride int32 carriers (`..device`; the packing helpers and
 chunk-group folds are `.words`).  One layout differs from JAX: the
@@ -17,9 +17,11 @@ Every phase of the round runs hand-written kernels on the card: the
 word phases (K8: `inject_packed`, `spend_relay`, `deliver_packed`), the
 ring scatter (K2), the sync pull (K3) and the convergence record (K7,
 `converge_record`) here; the draws (K5, `.rng`), the member sampler and
-table merge (K1, K4, `.pswim`) and the gap refresh (K6, `.gaps`).  Under
-a fault plan the edge queries run K9 (`.faults`), the lossy ring
-scatter K10 (`scatter_sending_lossy`) and the node faults K11
+table merge (K1, K4, `.pswim`) and the gap refresh (K6, `.gaps`).  The
+byte budgets run K16 (`budget_prefix_words`, the broadcast governor)
+and K3's metered entry (the sync grant).  Under the flat topology loss
+or a fault plan the ring scatter is K10 (`scatter_sending_lossy`); a
+plan's edge queries run K9 (`.faults`) and its node faults K11
 (`apply_round_faults`).  Each wrapper takes the plain torch version
 beside it for a CPU tensor.
 
@@ -71,6 +73,7 @@ from .topology import (
     apply_degree_caps,
     edge_alive,
     edge_delay,
+    loss_threshold,
     regions,
 )
 from .words import (
@@ -85,40 +88,51 @@ from .words import (
 )
 
 
-def _require_unmetered(budget_bytes) -> None:
-    """The card has no kernel for the word budget yet."""
-    if budget_bytes is not None:
-        raise NotImplementedError(
-            "the packed word budget (budget_prefix_words) has no kernel "
-            "yet (ROADMAP B11); optimize_budgets drops budgets that "
-            "cannot bind"
+def budget_prefix_words_plain(
+    elig_w: torch.Tensor, budget_bytes, nbytes: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of K16: unpack, meter with the dense
+    `.state.budget_prefix_mask`, pack (JAX's word form gives the same
+    bits)."""
+    if budget_bytes is None:
+        return elig_w
+    p = elig_w.shape[-1] * 32
+    return pack_bits(budget_prefix_mask(unpack_bits(elig_w, p), budget_bytes,
+                                        nbytes))
+
+
+def _check_budget(budget_bytes: int, nbytes: torch.Tensor, w: int) -> None:
+    """What K16's row scan takes: JAX's payload limit, an i32 budget, the
+    sizes of the W words' payloads."""
+    p = w * 32
+    if p >= 1 << 21:
+        raise ValueError(
+            f"byte budget supports at most 2^21-1 payloads, got {p}"
         )
+    if not -(1 << 31) <= budget_bytes < 1 << 31:
+        raise ValueError(f"byte budget {budget_bytes} is not an i32")
+    check("nbytes", nbytes, torch.int32, (p,))
 
 
 def budget_prefix_words(
     elig_w: torch.Tensor, budget_bytes, nbytes: torch.Tensor
 ) -> torch.Tensor:
     """Word twin of `.state.budget_prefix_mask` (JAX
-    ``budget_prefix_words``, which gives the dense mask's bits): the
-    version-major prefix of set bits whose byte total fits the budget,
-    per row; None is unmetered.  Only the plain version is ported: on
-    the CPU it unpacks, meters and packs; a metered card round raises
-    (its kernel is ROADMAP B11)."""
+    ``budget_prefix_words``): per row of ``elig_w`` [R, W], the
+    payload-index prefix of set bits whose byte total (``nbytes`` i32[P])
+    fits ``budget_bytes``; None is unmetered.  K16 on the card."""
     if budget_bytes is None:
         return elig_w
-    if elig_w.device.type != "cpu":
-        _require_unmetered(budget_bytes)
-    p = elig_w.shape[-1] * 32
-    return pack_bits(budget_prefix_mask(unpack_bits(elig_w, p), budget_bytes,
-                                        nbytes))
-
-
-def _require_lossless(topo: Topology) -> None:
-    if topo.loss > 0:
-        raise NotImplementedError(
-            "topology loss on the packed round is not ported yet (ROADMAP "
-            "B12 rest); the dense round runs it"
-        )
+    if elig_w.device.type == "cpu":
+        return budget_prefix_words_plain(elig_w, budget_bytes, nbytes)
+    rows, w = elig_w.shape
+    check("elig_w", elig_w, torch.int32, (rows, w))
+    _check_budget(budget_bytes, nbytes, w)
+    out = torch.empty_like(elig_w)
+    if rows:
+        kernels.BUDGET_WORDS.launch([elig_w, nbytes, out],
+                                    [rows, w, budget_bytes])
+    return out
 
 
 # -- bitsliced 4-bit counters ------------------------------------------------
@@ -268,7 +282,7 @@ def spend_relay_plain(
     count down in place."""
     n = targets.shape[0]
     sending = carry.have & carry.relay.nonzero & injected_p[None, :]
-    sending = budget_prefix_words(sending, budget, nbytes)
+    sending = budget_prefix_words_plain(sending, budget, nbytes)
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
     attempted = (targets >= 0) & (targets != me[:, None])
     any_attempt = attempted.any(dim=1) & (alive == ALIVE)
@@ -285,11 +299,11 @@ def spend_relay(
     ``nbytes``; None is unmetered); where an up row attempted a send (a
     target neither -1 nor itself) its relay counters drop by one at the
     sent bits, in place.  The budget spends on the ATTEMPT: the sender
-    sees neither cuts nor dead targets.  K8 on the card."""
+    sees neither cuts nor dead targets.  K8 on the card, around K16 when
+    metered."""
     if carry.have.device.type == "cpu":
         return spend_relay_plain(carry, injected_p, targets, alive, budget,
                                  nbytes)
-    _require_unmetered(budget)
     n, w = carry.have.shape
     f = targets.shape[1]
     _check_words(carry, n, w)
@@ -297,10 +311,15 @@ def spend_relay(
     check("targets", targets, torch.int32, (n, f))
     check("alive", alive, torch.uint8, (n,))
     sending = torch.empty_like(carry.have)
-    kernels.WORD_SPEND.launch(
-        [carry.have, *carry.relay, injected_p, targets, alive, sending],
-        [n, w, f],
-    )
+    args = [carry.have, *carry.relay, injected_p, targets, alive]
+    if budget is None:
+        kernels.WORD_SPEND.launch([*args, sending], [n, w, f, 0])
+        return sending
+    # metered: the eligible words (mode 1), K16's prefix, the spend of
+    # the metered words (mode 2)
+    kernels.WORD_SPEND.launch([*args, sending], [n, w, f, 1])
+    sending = budget_prefix_words(sending, budget, nbytes)
+    kernels.WORD_SPEND.launch([*args, sending], [n, w, f, 2])
     return sending
 
 
@@ -351,17 +370,13 @@ def scatter_sending(ring, sending, dst, slot, ok, fanout: int) -> None:
 _LOSS_CHUNK_PAIRS = 1 << 17
 
 
-def scatter_sending_lossy_plain(
-    ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int
-) -> None:
-    """Plain version of K10, in place: K2 with payload q of edge e
-    dropped where byte e*P + q of the wire-loss draw is below thr[e].
-    Like the kernel it draws only the words of (edge, word) pairs that
-    send something under a threshold, in chunks (it syncs with the host
-    to find them)."""
-    w = ring.shape[2]
-    k_floss = fault_key(key, seed, WIRE_LOSS_TAG)
-    words = _edge_words(sending, ok, fanout)
+def _keep_stream_(words, thr, key) -> None:
+    """AND each (edge, word) of ``words`` [E, W] with the keep bits of
+    one loss stream, in place: payload 32k + b of edge e survives where
+    byte e*P + 32k + b of ``aligned_u8_bits(key, [E, P])`` is at least
+    thr[e].  Draws only the words of pairs that send something under a
+    threshold, in chunks (it syncs with the host to find them)."""
+    w = words.shape[1]
     need = (words != 0) & (thr > 0)[:, None]
     e_idx, k_idx = torch.nonzero(need, as_tuple=True)
     dev = words.device
@@ -372,26 +387,48 @@ def scatter_sending_lossy_plain(
         k_c = k_idx[i0:i0 + _LOSS_CHUNK_PAIRS]
         # the eight u32 words holding bytes e*P + 32k .. +31
         ctr = ((e_c * 8 * w + 8 * k_c)[:, None] + j).reshape(-1)
-        b1, b2 = rng.threefry2x32(k_floss[0], k_floss[1],
-                                  torch.zeros_like(ctr), ctr)
+        b1, b2 = rng.threefry2x32(key[0], key[1], torch.zeros_like(ctr), ctr)
         byte = (((b1 ^ b2)[:, None] >> shifts) & 0xFF).reshape(-1, 32)
         keep = pack_bits(byte >= thr[e_c, None].to(torch.int64))
         words[e_c, k_c] &= keep.reshape(-1)
+
+
+def scatter_sending_lossy_plain(
+    ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int,
+    topo_thr: int = 0, topo_key=None,
+) -> None:
+    """Plain version of K10, in place: K2 with payload q of edge e
+    dropped where the topology stream (byte e*P + q of the ``topo_key``
+    draw below ``topo_thr``; 256 or more drops all) or the fault stream
+    (the wire-loss draw below thr[e]) drops it."""
+    words = _edge_words(sending, ok, fanout)
+    if topo_thr >= 256:
+        words.zero_()
+    elif topo_thr > 0:
+        _keep_stream_(words, torch.full_like(dst, topo_thr), topo_key)
+    if thr is not None:
+        _keep_stream_(words, thr, fault_key(key, seed, WIRE_LOSS_TAG))
     _or_rows_plain(ring, words, dst, slot)
 
 
 def scatter_sending_lossy(
-    ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int
+    ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int,
+    topo_thr: int = 0, topo_key=None,
 ) -> None:
-    """`scatter_sending` under the fault plan's wire loss, in place:
-    payload q of edge e is dropped where byte e*P + q of
-    ``aligned_u8_bits(fold_in(fold_in(key, seed), 101), [E, P])`` is
-    below the edge's threshold thr[e] (JAX ``fault_wire_effects``'
-    drop bits; ``key`` is the broadcast phase key).  K10 on the card,
-    which draws the bits itself."""
+    """`scatter_sending` under the wire's loss, in place: payload q of
+    edge e is dropped where either stream drops it — the flat topology
+    loss, byte e*P + q of ``aligned_u8_bits(topo_key, [E, P])`` below
+    ``topo_thr`` (JAX ``edge_payload_drop``; ``topo_key`` is the
+    broadcast key's ``k_drop``, 0 draws nothing, 256 or more drops
+    everything), or the fault plan's, byte e*P + q of
+    ``aligned_u8_bits(fold_in(fold_in(key, seed), 101), [E, P])`` below
+    thr[e] (JAX ``fault_wire_effects``' drop bits; ``key`` is the
+    broadcast phase key; ``thr`` None is no fault loss).  K10 on the
+    card, which draws the bits itself."""
     if ring.device.type == "cpu":
         scatter_sending_lossy_plain(
-            ring, sending, dst, slot, ok, thr, key, seed, fanout
+            ring, sending, dst, slot, ok, thr, key, seed, fanout, topo_thr,
+            topo_key,
         )
         return
     d, n, w = ring.shape
@@ -401,11 +438,16 @@ def scatter_sending_lossy(
     check("dst", dst, torch.int32, (e,))
     check("slot", slot, torch.int32, (e,))
     check("ok", ok, torch.bool, (e,))
-    check("thr", thr, torch.uint8, (e,))
-    check("key", key, torch.int64, (2,))
+    if thr is not None:
+        check("thr", thr, torch.uint8, (e,))
+        check("key", key, torch.int64, (2,))
+    if 0 < topo_thr < 256:
+        check("topo_key", topo_key, torch.int64, (2,))
     kernels.BROADCAST_SCATTER_LOSSY.launch(
-        [ring, sending, dst, slot, ok, thr, key],
-        [n, d, w, fanout, seed, WIRE_LOSS_TAG],
+        [ring, sending, dst, slot, ok, thr,
+         None if thr is None else key,
+         topo_key if 0 < topo_thr < 256 else None],
+        [n, d, w, fanout, seed, WIRE_LOSS_TAG, topo_thr],
     )
 
 
@@ -414,18 +456,17 @@ def broadcast_packed(
     cfg: SimConfig, topo: Topology, region: torch.Tensor, key: torch.Tensor,
     meta: PayloadMeta, faults: Optional[FactoredRoundFaults] = None,
 ) -> PackedCarry:
-    """Fan-out push: draw targets, spend the relay budget (K8) and OR
-    the sent words into the delay ring (K2), in place.  Under ``faults``
-    cuts clear edges and the wire loss drops payloads per (edge,
-    payload) (K9, then K10 in place of K2); the relay still spends on
-    the attempt."""
+    """Fan-out push: draw targets, spend the relay budget (K8, metered by
+    K16 under the byte governor) and OR the sent words into the delay
+    ring (K2), in place.  Under the flat topology loss or ``faults``
+    (cuts clear edges, K9) the scatter drops payloads per (edge,
+    payload) from the topology's and the plan's loss draws (K10 in
+    place of K2); the relay still spends on the attempt."""
     n, f = cfg.n_nodes, cfg.fanout
-    ks = rng.split(key, 3)  # k_drop unused: the packed envelope is lossless
-    k_targets, k_ring0 = ks[0], ks[2]
-    _require_lossless(topo)
+    k_targets, k_drop, k_ring0 = rng.split(key, 3)
     targets = sample_member_targets(state, cfg, k_targets, f)  # [N, F]
     targets = ring0_targets(state, cfg, topo, region, k_ring0, targets)
-    targets = apply_degree_caps(targets, topo)
+    targets = apply_degree_caps(targets, topo)  # refuses tiered loss
     sending = spend_relay(carry, injected_p, targets, state.alive,
                           cfg.rate_limit_bytes_round, meta.nbytes)
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
@@ -439,14 +480,15 @@ def broadcast_packed(
     thr = None
     if faults is not None:
         ok, thr = fault_wire_effects(faults, src, dst, ok)
+    topo_thr = loss_threshold(topo.loss) if topo.loss > 0 else 0
     d_slots = carry.inflight.shape[0]
     slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
-    if thr is None:
+    if thr is None and topo_thr == 0:
         scatter_sending(carry.inflight, sending, dst, slot, ok, f)
     else:
         scatter_sending_lossy(
             carry.inflight, sending, dst, slot, ok, thr, key,
-            int(faults.seed), f,
+            0 if faults is None else int(faults.seed), f, topo_thr, k_drop,
         )
     return carry
 
@@ -486,8 +528,8 @@ def deliver_packed(carry: PackedCarry, t: int, cfg: SimConfig) -> PackedCarry:
 def sync_pull_plain(masks, miss, peers, ok, slot_words, budget=None,
                     nbytes=None) -> torch.Tensor:
     """Plain version of K3: OR the need words pulled from every ok peer,
-    each edge metered by `budget_prefix_words`, into ``slot_words`` in
-    place; returns bool[N] fruitful."""
+    each edge metered by `budget_prefix_words_plain`, into
+    ``slot_words`` in place; returns bool[N] fruitful."""
     haves_w, partial_w, below_w, have_w = masks.unbind(dim=1)
     d = masks[peers.long()]  # [N, S, 4, W]
     haves_d, partial_d, below_d, have_d = d.unbind(dim=2)
@@ -499,8 +541,8 @@ def sync_pull_plain(masks, miss, peers, ok, slot_words, budget=None,
     need = wanted & have_d & ~have_w[:, None, :]
     need = torch.where(ok[:, :, None], need, 0)
     n, s, w = need.shape
-    need = budget_prefix_words(need.reshape(n * s, w), budget,
-                               nbytes).reshape(n, s, w)
+    need = budget_prefix_words_plain(need.reshape(n * s, w), budget,
+                                     nbytes).reshape(n, s, w)
     pulled = need[:, 0]
     for s in range(1, need.shape[1]):
         pulled = pulled | need[:, s]
@@ -512,11 +554,11 @@ def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
               nbytes=None) -> torch.Tensor:
     """Gather the S peers' mask rows, apply the need algebra, meter each
     edge by ``budget`` (None: unmetered) and OR the pulled words into
-    ``slot_words`` in place; returns bool[N] fruitful.  K3 on the card."""
+    ``slot_words`` in place; returns bool[N] fruitful.  K3 on the card,
+    its metered entry (K16's row scan per edge) under a budget."""
     if masks.device.type == "cpu":
         return sync_pull_plain(masks, miss, peers, ok, slot_words, budget,
                                nbytes)
-    _require_unmetered(budget)
     n, _, w = masks.shape
     s = peers.shape[1]
     check("masks", masks, torch.int32, (n, 4, w))
@@ -525,9 +567,12 @@ def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
     check("ok", ok, torch.bool, (n, s))
     check("slot_words", slot_words, torch.int32, (n, w))
     fruitful = torch.zeros(n, dtype=torch.uint8, device=masks.device)
-    kernels.SYNC_PULL.launch(
-        [masks, miss, peers, ok, slot_words, fruitful], [n, w, s]
-    )
+    args = [masks, miss, peers, ok, slot_words, fruitful]
+    if budget is None:
+        kernels.SYNC_PULL.launch(args, [n, w, s])
+        return fruitful.to(torch.bool)
+    _check_budget(budget, nbytes, w)
+    kernels.SYNC_PULL_METERED.launch([*args, nbytes], [n, w, s, budget])
     return fruitful.to(torch.bool)
 
 

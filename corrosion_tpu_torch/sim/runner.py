@@ -1,9 +1,11 @@
 """Scenario runner for the port: `run_scenario` and the runner's configs
 (``corrosion_tpu/sim/runner.py``): the 3-node ground truth, broadcast-1k
-and partition-heal-10k on the dense round, the 100k-node write storm and
-the packed fault storm on the packed round, returning the same result
-keys.  One device, no mesh; the wall clock brackets a run with
-``torch.cuda.synchronize()`` on both ends when it runs on the card."""
+and partition-heal-10k on the dense round, the 100k-node write storm,
+the packed fault storm and the gapstress storm (config #5b, on the
+packed round from 1280 nodes) with its K-clamp distortion pair,
+returning the same result keys.  One device, no mesh; the wall clock
+brackets a run with ``torch.cuda.synchronize()`` on both ends when it
+runs on the card."""
 
 from __future__ import annotations
 
@@ -359,3 +361,81 @@ def config_packed_fault_storm(
         result["state"] = final
         result["metrics"] = metrics
     return result
+
+
+def _gapstress_cfg(n_nodes: int, gap_slots: int) -> SimConfig:
+    return SimConfig.wan_tuned(
+        n_nodes,
+        n_payloads=8192,  # 128 versions × 8 writers × 8 chunks: V ≫ K
+        n_writers=8,
+        chunks_per_version=8,
+        gap_slots=gap_slots,
+        fanout=3,
+        sync_interval_rounds=8,
+        sync_peers=3,
+        swim_partial_view=True,
+        member_slots=64,
+    )
+
+
+def gapstress_payload_sizes(p: int) -> np.ndarray:
+    """Mixed 1 B – 8 KiB changeset sizes in a deterministic cycle (JAX
+    ``gapstress_payload_sizes``)."""
+    cycle = np.array([1, 64, 512, 1024, 4096, 8192], np.int32)
+    return np.resize(cycle, p)
+
+
+def config_write_storm_gapstress(
+    seed: int = 0,
+    n_nodes: int = 10_000,
+    gap_slots: int = 8,
+    loss: float = 0.3,
+    max_rounds: int = 4000,
+    device="cuda",
+    return_state: bool = False,
+) -> Dict[str, float]:
+    """Config #5b, the storm that stresses the gap machinery: 8 writers ×
+    128 versions × 8 chunks (V = 128 over K = 8 gap slots), every version
+    injected at round 0, 30 % flat wire loss, mixed 1 B – 8 KiB payloads
+    (about 19 MB in all, so the 5 MiB broadcast governor and the 4 MiB
+    sync grant both bind).  Reports ``gap_overflow_frac_max``.  JAX's
+    compile-only prime has nothing to do here; its telemetry and trace
+    are ROADMAP B10."""
+    dev = resolve_device(device)
+    cfg = _gapstress_cfg(n_nodes, gap_slots)
+    meta = uniform_payloads(
+        cfg, dev, inject_every=0,
+        payload_bytes=gapstress_payload_sizes(cfg.n_payloads),
+    )
+    return run_scenario(
+        cfg, meta, topo=Topology(loss=loss), seed=seed,
+        max_rounds=max_rounds, device=dev, return_state=return_state,
+    )
+
+
+def config_gapstress_distortion(
+    seed: int = 0, n_nodes: int = 1024, control_slots: int = 64,
+    device="cuda", return_state: bool = False,
+) -> Dict[str, object]:
+    """The K-clamp distortion: the gapstress scenario at K = 8 (overflow
+    forced) against a control at ``control_slots`` where every gap run
+    fits; distortion is the extra rounds and p99 latency K = 8 costs.
+    With ``return_state`` both records carry their final state."""
+    stressed = config_write_storm_gapstress(
+        seed, n_nodes, gap_slots=8, device=device, return_state=return_state
+    )
+    control = config_write_storm_gapstress(
+        seed, n_nodes, gap_slots=control_slots, device=device,
+        return_state=return_state,
+    )
+    return {
+        "stressed": stressed,
+        "control": control,
+        "overflow_frac_max_stressed": stressed["gap_overflow_frac_max"],
+        "overflow_frac_max_control": control["gap_overflow_frac_max"],
+        "distortion_rounds": stressed["rounds"] - control["rounds"],
+        "distortion_p99_latency_rounds": (
+            stressed["p99_payload_latency_rounds"]
+            - control["p99_payload_latency_rounds"]
+        ),
+    }

@@ -181,6 +181,10 @@ def _bits_words(g, n, p, p_bit, dev):
 @pytest.mark.parametrize("c, a, v, k, p_bit", (
     (1, 16, 32, 8, 0.6), (4, 16, 8, 2, 0.2), (4, 16, 8, 8, 0.2),
     (32, 2, 16, 3, 0.03), (2, 3, 32, 4, 0.4),
+    # past 32 versions: the walk over version words (gapstress's shape,
+    # V not a multiple of 32, K past 32)
+    (8, 8, 128, 8, 0.06), (2, 4, 96, 4, 0.3), (2, 4, 40, 2, 0.4),
+    (1, 3, 64, 2, 0.5), (32, 1, 33, 3, 0.02), (8, 8, 128, 64, 0.06),
 ))
 def test_gaps_refresh(card, n, c, a, v, k, p_bit):
     cfg = SimConfig(n_nodes=n, n_payloads=a * v * c, n_writers=a,
@@ -562,3 +566,133 @@ def test_dense_run_on_card_equals_cpu(card, name):
                                   400)[0]
 
     assert state_digest(run(card)) == state_digest(run("cpu"))
+
+
+# -- the gapstress storm: K16, K3's metered entry, K10's topology stream,
+# K6 past 32 versions, K14 at K = 64, K8's metered spend ---------------------
+
+
+@pytest.mark.parametrize("rows, p", ((1, 256), (33, 8192), (300, 8192),
+                                     (5, 65536)))
+@pytest.mark.parametrize("budget", (0, 1, 17_000, 5 * 1024 * 1024))
+def test_budget_words(card, rows, p, budget):
+    from corrosion_tpu_torch.sim.runner import gapstress_payload_sizes
+
+    g = np.random.default_rng(rows + p)
+    words = _words(g, (rows, p // 32), card)
+    words[::7] = 0
+    sizes = _i32(gapstress_payload_sizes(p), card)
+    before = kernels.BUDGET_WORDS.launches
+    got = packed.budget_prefix_words(words, budget, sizes)
+    _launched(kernels.BUDGET_WORDS, before)
+    assert torch.equal(got, packed.budget_prefix_words_plain(words, budget,
+                                                             sizes))
+
+
+@pytest.mark.parametrize("n", (64, 1001))
+def test_budget_words_gapstress(card, n):
+    row = _smoke().compare_budget_words(card, np.random.default_rng(n), n=n,
+                                        timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n", (64, 1001))
+def test_sync_pull_metered(card, n):
+    before = kernels.SYNC_PULL_METERED.launches
+    row = _smoke().compare_sync_pull_metered(
+        card, np.random.default_rng(n), n=n, timed=False)
+    # one launch under each grant, the 4 MiB one and 1
+    assert kernels.SYNC_PULL_METERED.launches == before + 2
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n", (64, 999))
+def test_scatter_topology_loss(card, n):
+    row = _smoke().compare_scatter_topo(card, np.random.default_rng(n), n=n,
+                                        timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n", (300, 2100))
+def test_gaps_refresh_wide(card, n):
+    row = _smoke().compare_gaps_wide(card, np.random.default_rng(n), n=n,
+                                     timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n", (37, 300))
+def test_dense_gaps_past_32_slots(card, n):
+    row = _smoke().compare_dense_gaps(
+        card, np.random.default_rng(n), n=n, n_writers=8, n_payloads=8192,
+        chunks=8, gap_slots=64, p_one=0.083, timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n, w, f", ((1, 16, 3), (257, 256, 3), (3000, 8, 2)))
+@pytest.mark.parametrize("budget", (1, 40_000))
+def test_word_spend_metered(card, n, w, f, budget):
+    from corrosion_tpu_torch.sim.runner import gapstress_payload_sizes
+
+    g = np.random.default_rng(n + w)
+    c0 = _carry(g, n, w, 2, card)
+    inj = _words(g, (w,), card)
+    targets = _i32(np.where(g.random((n, f)) < 0.3, -1,
+                            g.integers(0, n, (n, f))), card)
+    alive = torch.as_tensor((g.random(n) < 0.2) * 2, dtype=torch.uint8,
+                            device=card)
+    sizes = _i32(gapstress_payload_sizes(w * 32), card)
+    got, want = _clone(c0), _clone(c0)
+    before = kernels.BUDGET_WORDS.launches
+    sent = packed.spend_relay(got, inj, targets, alive, budget, sizes)
+    _launched(kernels.BUDGET_WORDS, before)
+    want_sent = packed.spend_relay_plain(want, inj, targets, alive, budget,
+                                         sizes)
+    assert torch.equal(sent, want_sent)
+    _assert_carry_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ("lockstep24", "v64", "fault48"))
+def test_gapstress_packed_run_on_card_equals_cpu(card, name):
+    """A metered, lossy packed run on the card launches K16, K3's metered
+    entry, K10 and K6 (past 32 versions for v64), raises nothing, and
+    ends in the CPU run's state."""
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.runner import gapstress_payload_sizes
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    kw = dict(gap_slots=4, fanout=2, sync_interval_rounds=3,
+              swim_partial_view=True, member_slots=8, packed_min_cells=0,
+              rate_limit_bytes_round=32 * 1024, sync_budget_bytes=24 * 1024)
+    if name == "v64":
+        kw.update(n_payloads=512, n_writers=4, chunks_per_version=2)
+        n = 64
+    else:
+        kw.update(n_payloads=256, n_writers=4, chunks_per_version=4,
+                  n_delay_slots=2)
+        n = 48 if name == "fault48" else 24
+    cfg = SimConfig.wan_tuned(n, **kw)
+
+    def run(dev):
+        meta = uniform_payloads(
+            cfg, dev, inject_every=0,
+            payload_bytes=gapstress_payload_sizes(cfg.n_payloads))
+        topo = Topology(loss=0.3 if name != "fault48" else 0.2)
+        state = new_sim(cfg, 29, dev)
+        if name == "fault48":
+            plan = FaultPlan(n_nodes=n, seed=11, events=(
+                FaultEvent("loss", 0, 18, p=0.3),
+                FaultEvent("partition", 3, 12, src="0:16", dst="16:48"),
+            ))
+            fplan = faults.compile_plan(plan, cfg, topo, factored=True,
+                                        device=dev)
+            return faults.run_fault_plan(state, meta, cfg, topo, fplan,
+                                         400)[0]
+        return run_to_convergence(state, meta, cfg, topo, 400)[0]
+
+    kernels.reset_launch_counts()
+    on_card = run(card)
+    for kern in (kernels.BUDGET_WORDS, kernels.SYNC_PULL_METERED,
+                 kernels.BROADCAST_SCATTER_LOSSY, kernels.GAPS_REFRESH):
+        assert kern.launches > 0, kern.name
+    assert state_digest(on_card) == state_digest(run("cpu"))

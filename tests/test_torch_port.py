@@ -17,10 +17,12 @@ from corrosion_tpu_torch.kernels import build
 from corrosion_tpu_torch.kernels.build import CSRC, SOURCES, check
 from corrosion_tpu_torch.sim.runner import (
     config_broadcast_1k,
+    config_gapstress_distortion,
     config_ground_truth_3node,
     config_packed_fault_storm,
     config_partition_heal_10k,
     config_write_storm_100k,
+    config_write_storm_gapstress,
     membership_churn,
 )
 
@@ -63,7 +65,9 @@ def test_entry_points_refuse_cuda_without_card():
     for entry, kw in ((config_ground_truth_3node, {}),
                       (config_broadcast_1k, {}),
                       (config_partition_heal_10k, {}),
-                      (membership_churn, dict(n_nodes=64))):
+                      (membership_churn, dict(n_nodes=64)),
+                      (config_write_storm_gapstress, dict(n_nodes=64)),
+                      (config_gapstress_distortion, dict(n_nodes=64))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(**kw)  # default cuda
 
