@@ -6,7 +6,7 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the sixteen CUDA kernels K1–K16 from the fifteen sources in
+2. build the nineteen CUDA kernels K1–K19 from the eighteen sources in
    ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -36,6 +36,16 @@ result line):
    cuts to nothing, both loss streams alone and together, a severed
    channel, runs across version-word edges, heads at 32j, V = 40, more
    than 32 runs in a row;
+   then the flight recorder's kernels: K17's grant and coverage entries,
+   K18 and K19 at the storm's shapes (E = 300000) and gapstress's (rows
+   marked gs), K17's dense entry and K18's rows entry at gapstress-1024's
+   (N = 1024, P = 8192), and the telemetry outputs of K3 (granted words;
+   its metered entry at gapstress's), K9 (cut and refused counts) and
+   K10 (dropped frames) at the fault storm's round 5 and under
+   gapstress's topology stream, K12 (per-node frames and bytes, dropped
+   frames) and K13 (grant counts) at gapstress-1024's — words with bit
+   31 set, byte totals past 2^31, a decimated scratch row, a full-view
+   row, drops, cuts and refusals;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -60,11 +70,24 @@ result line):
    ``gap_overflow_frac_max``, digest), and ``config_gapstress_distortion(
    seed=0, n_nodes=1024)`` on the dense round (K1, K4, K5, K12–K14; K =
    8 and K = 64), held against its golden;
-9. profile the first 3 rounds of both storms, the fault storm's
+9. the flight recorder: each from launch counters at 0,
+   ``config_write_storm_100k(seed=0, telemetry=True)``, the 100k fault
+   storm through ``run_fault_plan(telemetry=True)``,
+   ``config_write_storm_gapstress(seed=1, n_nodes=25600,
+   telemetry=True)``, the same at 1024 nodes and seed 0 (the dense
+   round under loss), ``config_broadcast_1k`` and
+   ``config_ground_truth_3node`` with ``telemetry=True``: each gives its
+   goldens above and its telemetry golden (every summary key but
+   ``wire_bytes`` exactly; each round's f32 byte channels within
+   (m + 1)·2⁻²⁴ of the total for the m terms JAX adds), K17–K19 launch
+   (and on no telemetry-off path above); then
+   ``config_fault_storm_telemetry(seed=0)``'s per-round plain and
+   telemetry milliseconds, printed with the card;
+10. profile the first 3 rounds of both storms, the fault storm's
    12-round loss window, 10 partitioned rounds of partition-heal-10k and
    the first 3 rounds of gapstress-25.6k (host wall, device time by
    kernel from ``torch.profiler``, the device's idle share);
-10. print the card line, the kernels JSON line, then the one-line result
+11. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -96,6 +119,14 @@ INT32_LANES_PER_SM = 64
 OPS_PER_HASH = 72
 OPS_PER_RANDINT = 2 * (OPS_PER_HASH + 1) + 5
 WARMUP, REPS = 3, 20
+# calls timed of a plain version that takes a tenth of a second or more
+SLOW_PLAIN_REPS = 3
+# device launches (kernels, copies, fills) of `profile_storm`'s first 3
+# rounds with the flight recorder off, setup included, as the port made
+# them before the recorder existed: the faultless storm's and the fault
+# storm's.  Recording must add nothing to a run that does not record.
+STORM_OFF_LAUNCHES = 1526
+FAULT_STORM_OFF_LAUNCHES = 1560
 
 
 def _smi(query: str) -> str:
@@ -116,16 +147,16 @@ def _int32_ops_per_s() -> float:
     return sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
-def _time_ms(fn) -> float:
-    """Device milliseconds per call: after WARMUP eager calls, REPS calls
-    are captured in one CUDA graph, whose replay is timed with CUDA
+def _time_ms(fn, reps=REPS) -> float:
+    """Device milliseconds per call: after WARMUP eager calls, ``reps``
+    calls are captured in one CUDA graph, whose replay is timed with CUDA
     events — the host's launch overhead stays out of the number."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -135,24 +166,24 @@ def _time_ms(fn) -> float:
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
+    return start.elapsed_time(end) / reps
 
 
-def _time_eager_ms(fn) -> float:
+def _time_eager_ms(fn, reps=REPS) -> float:
     """Device milliseconds per call of a function that syncs with the
-    host (and so cannot be captured in a graph): CUDA events around REPS
-    eager calls after WARMUP, launch overhead included."""
+    host (and so cannot be captured in a graph): CUDA events around
+    ``reps`` eager calls after WARMUP, launch overhead included."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
+    return start.elapsed_time(end) / reps
 
 
 def _time_inplace_ms(fn, restore) -> float:
@@ -177,7 +208,9 @@ KERNEL_SYMBOLS = (
     "dense_gaps_rows_kernel", "dense_gaps_finish_kernel",
     "swim_timeout_kernel", "swim_merge_kernel", "swim_apply_kernel",
     "budget_words_kernel", "sync_pull_metered_kernel",
-    "gaps_refresh_wide_kernel",
+    "gaps_refresh_wide_kernel", "trace_counts_words_kernel",
+    "trace_counts_dense_kernel", "trace_wire_words_kernel",
+    "trace_wire_rows_kernel", "trace_row_kernel",
 )
 
 
@@ -243,9 +276,10 @@ def _profile(run, rounds, label, setup=None):
     }
 
 
-def profile_storm(dev, rounds=3, faults=False):
+def profile_storm(dev, rounds=3, faults=False, telemetry=False):
     """The first ``rounds`` rounds of the 100k faultless storm, or with
-    ``faults`` of the fault storm (inside its loss window)."""
+    ``faults`` of the fault storm (inside its loss window); with
+    ``telemetry`` the flight recorder on."""
     from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
     from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
     from corrosion_tpu_torch.sim.runner import _write_storm, storm_fault_plan
@@ -260,14 +294,16 @@ def profile_storm(dev, rounds=3, faults=False):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         if faults:
-            run_fault_plan(state, meta, cfg, Topology(), fplan, rounds)
+            run_fault_plan(state, meta, cfg, Topology(), fplan, rounds,
+                           telemetry)
         else:
-            run_to_convergence(state, meta, cfg, Topology(), rounds)
+            run_to_convergence(state, meta, cfg, Topology(), rounds,
+                               telemetry)
         torch.cuda.synchronize()
         return time.monotonic() - t0
 
-    return _profile(run, rounds, "fault storm-100k" if faults
-                    else "storm-100k")
+    label = "fault storm-100k" if faults else "storm-100k"
+    return _profile(run, rounds, label + (" telemetry" if telemetry else ""))
 
 
 def profile_heal(dev, rounds=10):
@@ -1588,9 +1624,10 @@ def compare_scatter_topo(dev, g, n=GAPSTRESS_N, timed=True):
         replaces="corrosion_tpu/sim/topology.py:267",
         equal=equal, max_abs_err=err,
         ms=_timed(timed, lambda: packed.scatter_sending_lossy(ring_k, *args)),
-        # the plain version finds its pairs with a host sync: eager
+        # the plain version finds its pairs with a host sync: eager, and
+        # at ~0.3 s a call, few of them
         plain_ms=_time_eager_ms(lambda: packed.scatter_sending_lossy_plain(
-            ring_p, *args)) if timed else None,
+            ring_p, *args), SLOW_PLAIN_REPS) if timed else None,
         bound_ms=max(_bound_ms(nbytes), ops / rate * 1e3),
         bound_by="operations" if ops / rate * 1e3 > _bound_ms(nbytes)
         else "bytes",
@@ -1666,6 +1703,529 @@ def compare_gapstress_kernels(dev, seed=2):
     return rows
 
 
+# -- the flight recorder: K17-K19 and the telemetry outputs of K3, K9,
+# K10, K12 and K13 ---------------------------------------------------------
+
+STORM_N = 100_000
+DENSE_GAPSTRESS_N = 1024
+_TRACE_SRC = "corrosion_tpu_torch/kernels/csrc/"
+
+
+def _acc(dev):
+    """A zeroed int64 accumulator, as a trace's slots are."""
+    return torch.zeros((), dtype=torch.int64, device=dev)
+
+
+def _alive(g, n, dev):
+    return torch.as_tensor((g.random(n) < 0.03) * 2, dtype=torch.uint8,
+                           device=dev)
+
+
+def compare_trace_counts(dev, g, n, w, e, label="", timed=True):
+    """K17's grant and coverage entries as a round runs them: the
+    per-payload counts of [E, W] granted words, and the coverage (up
+    rows) and delivered (held now, not at round start) counts of [N, W]
+    have words, with words that carry bit 31, added to a count row."""
+    from corrosion_tpu_torch.sim import fused, telemetry
+
+    p = w * 32
+    granted = _random_words(g, (e, w), dev, 2)
+    have = _random_words(g, (n, w), dev)
+    have0 = have & _random_words(g, (n, w), dev)
+    alive = _alive(g, n, dev)
+    if not (bool((granted < 0).any()) and bool((have < 0).any())):
+        raise AssertionError("K17 inputs carry no word with bit 31")
+
+    def kernel(out):
+        telemetry.count_words_(out[2], granted)
+        telemetry.coverage_delivered_(out[0:2], have, have0, alive)
+
+    def plain(out):
+        out[2] += fused.word_bit_counts(granted, p)
+        cov, dlv = telemetry.word_coverage_delivered(have, have0, alive == 0,
+                                                     p)
+        out[0] += cov
+        out[1] += dlv
+
+    got = torch.full((3, p), 7, dtype=torch.int32, device=dev)
+    want = got.clone()
+    kernel(got)
+    plain(want)
+    work = torch.zeros_like(got)
+    return _row(
+        f"trace_counts{label}", _TRACE_SRC + "trace_counts.cu",
+        "corrosion_tpu/sim/fused.py:109", bool(torch.equal(got, want)),
+        _max_abs_err(got, want), _timed(timed, lambda: kernel(work)),
+        _timed(timed, lambda: plain(work)),
+        # the words in, the three count rows in and out
+        _nbytes(granted, have, have0, alive) + 2 * 3 * p * 4,
+        kernel="trace_counts",
+    )
+
+
+def compare_trace_counts_dense(dev, g, n=DENSE_GAPSTRESS_N, p=8192,
+                               timed=True):
+    """K17's dense entry at gapstress-1024's shape (u8 [N, P])."""
+    from corrosion_tpu_torch.sim import telemetry
+
+    have = _u8(g, (n, p), 0.5, dev)
+    have0 = have & _u8(g, (n, p), 0.7, dev)
+    alive = _alive(g, n, dev)
+
+    def kernel(out):
+        telemetry.coverage_delivered_dense_(out, have, have0, alive)
+
+    def plain(out):
+        cov, dlv = telemetry.coverage_delivered_dense_plain(have, have0,
+                                                            alive)
+        out[0] += cov
+        out[1] += dlv
+
+    got = torch.full((2, p), 3, dtype=torch.int32, device=dev)
+    want = got.clone()
+    kernel(got)
+    plain(want)
+    work = torch.zeros_like(got)
+    return _row(
+        "trace_counts_dense", _TRACE_SRC + "trace_counts.cu",
+        "corrosion_tpu/sim/telemetry.py:290", bool(torch.equal(got, want)),
+        _max_abs_err(got, want), _timed(timed, lambda: kernel(work)),
+        _timed(timed, lambda: plain(work)),
+        _nbytes(have, have0, alive) + 2 * 2 * p * 4,
+        kernel="trace_counts_dense",
+    )
+
+
+def compare_trace_wire(dev, g, n, w, f, nbytes, label="", timed=True):
+    """K18's words entry: the frames and bytes of [N, W] sending words on
+    the ok edges, added to the int64 accumulators; the byte total passes
+    2^31."""
+    from corrosion_tpu_torch.sim import telemetry
+
+    sending = _random_words(g, (n, w), dev, 3)
+    ok = torch.as_tensor(g.random(n * f) < 0.9, device=dev)
+    want_f, want_b = telemetry.wire_words_plain(sending, nbytes, ok, f)
+    if int(want_b) < 1 << 31:
+        raise AssertionError("K18 inputs: the byte total fits 32 bits")
+    got = torch.tensor([5, 1 << 40], dtype=torch.int64, device=dev)
+    want = got + torch.stack([want_f, want_b])
+    telemetry.wire_words_(got, sending, nbytes, ok, f)
+    work = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def plain():
+        fr, by = telemetry.wire_words_plain(sending, nbytes, ok, f)
+        work[0] += fr
+        work[1] += by
+
+    return _row(
+        f"trace_wire{label}", _TRACE_SRC + "trace_wire.cu",
+        "corrosion_tpu/sim/fused.py:192", bool(torch.equal(got, want)),
+        _max_abs_err(got, want),
+        _timed(timed, lambda: telemetry.wire_words_(work, sending, nbytes, ok,
+                                                    f)),
+        _timed(timed, plain), _nbytes(sending, nbytes, ok) + 2 * 8,
+        kernel="trace_wire",
+    )
+
+
+def compare_trace_wire_rows(dev, g, n=DENSE_GAPSTRESS_N, f=3, timed=True):
+    """K18's rows entry at gapstress-1024's shape: K12's per-node frames
+    and bytes folded over the ok edges."""
+    from corrosion_tpu_torch.sim import fused, telemetry
+
+    frames = torch.as_tensor(g.integers(0, 8193, n), dtype=torch.int32,
+                             device=dev)
+    byte_tot = torch.as_tensor(g.integers(0, 1 << 26, n), dtype=torch.int32,
+                               device=dev)
+    ok = torch.as_tensor(g.random(n * f) < 0.9, device=dev)
+    got = torch.zeros(2, dtype=torch.int64, device=dev)
+    telemetry.wire_rows_(got, frames, byte_tot, ok, f)
+    want = torch.stack(fused.fold_over_edges(frames, byte_tot, ok, f))
+    if int(want[1]) < 1 << 31:
+        raise AssertionError("K18 rows inputs: the byte total fits 32 bits")
+    work = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def plain():
+        fr, by = fused.fold_over_edges(frames, byte_tot, ok, f)
+        work[0] += fr
+        work[1] += by
+
+    return _row(
+        "trace_wire_rows", _TRACE_SRC + "trace_wire.cu",
+        "corrosion_tpu/sim/fused.py:225", bool(torch.equal(got, want)),
+        _max_abs_err(got, want),
+        _timed(timed, lambda: telemetry.wire_rows_(work, frames, byte_tot, ok,
+                                                   f)),
+        _timed(timed, plain), _nbytes(frames, byte_tot, ok) + 2 * 8,
+        kernel="trace_wire_rows",
+    )
+
+
+def _trace_row_case(g, dev, n, p, nbytes, swim, faults, every=1,
+                    rounds=40, m=64):
+    """A trace mid-run and the rest of a row's inputs: accumulators that
+    pass 2^31 bytes, count rows, a member table (partial view) or beliefs
+    (full view), a fault slice, session and overflow totals."""
+    from corrosion_tpu_torch.sim import telemetry
+    from corrosion_tpu_torch.sim.state import SimConfig
+
+    kw = ({"swim_partial_view": True, "member_slots": m} if swim == "partial"
+          else {"swim_full_view": True} if swim == "full" else {})
+    cfg = SimConfig(n_nodes=n, n_payloads=p, trace_every=every, **kw)
+    trace = telemetry.new_trace(cfg, rounds, dev)
+    for name in telemetry.CHANNELS:
+        t = getattr(trace, name)
+        t.copy_(torch.as_tensor(g.integers(0, 99, tuple(t.shape)),
+                                dtype=t.dtype, device=dev))
+    trace.acc[:5] = torch.as_tensor(
+        [g.integers(0, 1 << 31), (1 << 36) + int(g.integers(0, 1 << 20)),
+         g.integers(0, 1 << 30), g.integers(0, 1 << 20),
+         g.integers(0, 1 << 20)], dtype=torch.int64, device=dev)
+    trace.counts.copy_(torch.as_tensor(g.integers(0, 3 * n, (3, p)),
+                                       dtype=torch.int32, device=dev))
+    state = SimpleNamespace(pid=None, pkey=None, view=None)
+    if swim == "partial":
+        pid, pkey, _ = _random_tables(g, n, m, 40)
+        state.pid = torch.as_tensor(pid, dtype=torch.int32, device=dev)
+        state.pkey = torch.as_tensor(pkey, dtype=torch.int32, device=dev)
+    elif swim == "full":
+        state.view = torch.as_tensor(g.integers(-1, 3, (n, n)),
+                                     dtype=torch.int8, device=dev)
+    rf = None
+    if faults:
+        rf = SimpleNamespace(
+            alive=torch.as_tensor(g.integers(-1, 3, n), dtype=torch.int8,
+                                  device=dev),
+            wipe=torch.as_tensor(g.random(n) < 0.01, device=dev))
+    kw = dict(alive=_alive(g, n, dev), state=state, cfg=cfg, rf=rf,
+              sync_ok=torch.as_tensor(g.random(3 * n) < 0.3, device=dev),
+              n_overflow=torch.tensor(int(g.integers(0, n)),
+                                      dtype=torch.int32, device=dev),
+              nbytes=nbytes)
+    return trace, kw
+
+
+def _clone_trace(trace):
+    return type(trace)(*(t.clone() for t in trace))
+
+
+def compare_trace_row(dev, g, n, p, nbytes, label="", timed=True):
+    """K19 writing a row of a partial-view fault run (row 7), the scratch
+    row of a decimated one, and a full-view row, each against the plain
+    version on copies of the same trace: every channel, and the
+    accumulators zeroed."""
+    from corrosion_tpu_torch.sim import telemetry
+
+    cases = [("partial", True, 1, 7), ("partial", True, 3, 8)]
+    if not label:
+        cases.append(("full", False, 1, 3))
+    equal, err, timed_case = True, 0, None
+    for swim, faults, every, t in cases:
+        nn = 4096 if swim == "full" else n
+        base, kw = _trace_row_case(g, dev, nn, p, nbytes, swim, faults,
+                                   every)
+        row = telemetry.trace_row(base, t, every)
+        got, want = _clone_trace(base), _clone_trace(base)
+        telemetry.record_row(got, row, **kw)
+        telemetry.record_row_plain(want, row, **kw)
+        e, x = _equal_all(list(got), list(want))
+        equal, err = equal and e, max(err, x)
+        if bool(got.acc.any()) or bool(got.counts.any()):
+            raise AssertionError("K19 left an accumulator set")
+        timed_case = timed_case or (base, kw)  # the first: row 7, faults
+    work = _clone_trace(timed_case[0])
+    kw = timed_case[1]
+    m = kw["state"].pid.shape[1]
+    return _row(
+        f"trace_row{label}", _TRACE_SRC + "trace_row.cu",
+        "corrosion_tpu/sim/telemetry.py:202", equal, err,
+        _timed(timed, lambda: telemetry.record_row(work, 7, **kw)),
+        _timed(timed, lambda: telemetry.record_row_plain(work, 7, **kw)),
+        # alive, the member table, the fault slice, the sessions, the
+        # sizes and count rows in; the row, the zeroed rows and totals out
+        n * (1 + 8 * m + 2 + 3) + p * 4 * (1 + 3 + 3 + 2) + 12 * 8 * 2 + 64,
+        kernel="trace_row",
+    )
+
+
+def compare_trace_outputs(dev, g, timed=True, n=STORM_N,
+                          n_gs=GAPSTRESS_N, n_dense=DENSE_GAPSTRESS_N):
+    """The telemetry outputs of kernels already ported, each launch with
+    its output against the plain version with it: K3's granted words at
+    the storm's shapes and its metered entry's at gapstress's, K9's cut
+    and refused counts and K10's dropped frames at the fault storm's
+    round 5, K10's dropped frames under gapstress's topology stream, and
+    K12's per-node frames, bytes and dropped frames and K13's grant
+    counts at gapstress-1024's dense shape."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import faults, packed, sync
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim.topology import loss_threshold
+
+    rows = []
+
+    # K3 and its metered entry: the granted words
+    for label, nn, w, budget, kern in (
+            ("sync_pull_granted", n, 16, None, "sync_pull"),
+            ("sync_pull_metered_granted", n_gs, 256, 4 * 1024 * 1024,
+             "sync_pull_metered")):
+        cfg, meta = (_storm_cfg(nn, dev) if budget is None
+                     else _gapstress(nn, dev))
+        s = 3
+        masks = _random_words(g, (nn, 4, w), dev)
+        miss = _random_words(g, (nn, w), dev, 2)
+        peers = torch.as_tensor(g.integers(0, nn, (nn, s)), dtype=torch.int32,
+                                device=dev)
+        ok = torch.as_tensor(g.random((nn, s)) < 0.7, device=dev)
+        outs = []
+        for fn in (packed.sync_pull, packed.sync_pull_plain):
+            buf = torch.zeros((nn, w), dtype=torch.int32, device=dev)
+            granted = torch.full((nn * s, w), -1, dtype=torch.int32,
+                                 device=dev)
+            fr = fn(masks, miss, peers, ok, buf, budget, meta.nbytes, granted)
+            outs.append([fr, buf, granted])
+        e, x = _equal_all(outs[0], outs[1])
+        if not bool((outs[1][2] < 0).any()):
+            raise AssertionError(f"{label} inputs grant no word with bit 31")
+        work = torch.zeros((nn, w), dtype=torch.int32, device=dev)
+        granted = torch.empty((nn * s, w), dtype=torch.int32, device=dev)
+        rows.append(_row(
+            label, _TRACE_SRC + "sync_pull.cu",
+            "corrosion_tpu/sim/packed.py:1238", e, x,
+            _timed(timed, lambda: packed.sync_pull(
+                masks, miss, peers, ok, work, budget, meta.nbytes, granted)),
+            # the metered plain version takes ~0.08 s a call: few calls
+            _time_ms(lambda: packed.sync_pull_plain(
+                masks, miss, peers, ok, work, budget, meta.nbytes, granted),
+                REPS if budget is None else SLOW_PLAIN_REPS)
+            if timed else None,
+            _nbytes(masks, miss, peers, ok, meta.nbytes, granted)
+            + nn * w * 4 * 2 + nn, kernel=kern))
+
+    # K9's counts and K10's dropped frames at the fault storm's round 5
+    cfg, meta, fplan, rf = _storm_fault_round(dev, n, 5)
+    f, w = cfg.fanout, cfg.n_payloads // 32
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = torch.as_tensor(g.integers(0, n, n * f), dtype=torch.int32,
+                          device=dev)
+    ok0 = torch.as_tensor(g.random(n * f) < 0.9, device=dev)
+    counts = []
+    for kernel in (True, False):
+        ok_w, ok_s, cut, refused = (ok0.clone(), ok0.clone(), _acc(dev),
+                                    _acc(dev))
+        if kernel:
+            _, thr = faults.fault_wire_effects(rf, src, dst, ok_w, cut)
+            faults.fault_session_refused(rf, src, dst, ok_s, refused)
+        else:
+            blk = faults._block_plain(rf, src, dst)
+            cut += (ok_w & blk).sum()
+            ok_w &= ~blk
+            thr = faults._loss_plain(rf, src, dst)
+            ref = blk | faults._block_plain(rf, dst, src)
+            refused += (ok_s & ref).sum()
+            ok_s &= ~ref
+        counts.append([ok_w, ok_s, cut, refused, thr])
+    e9, x9 = _equal_all(counts[0], counts[1])
+    if int(counts[1][2]) == 0 or int(counts[1][3]) == 0:
+        raise AssertionError("K9 count inputs cut and refuse nothing")
+
+    def k9(kernel):
+        ok_w, ok_s, cut, refused = (ok0.clone(), ok0.clone(), _acc(dev),
+                                    _acc(dev))
+        if kernel:
+            faults.fault_wire_effects(rf, src, dst, ok_w, cut)
+            faults.fault_session_refused(rf, src, dst, ok_s, refused)
+        else:
+            blk = faults._block_plain(rf, src, dst)
+            cut += (ok_w & blk).sum()
+            ref = blk | faults._block_plain(rf, dst, src)
+            refused += (ok_s & ref).sum()
+
+    rows.append(_row(
+        "fault_edges_counts", _TRACE_SRC + "fault_edges.cu",
+        "corrosion_tpu/sim/faults.py:260", e9, x9,
+        _timed(timed, lambda: k9(True)), _timed(timed, lambda: k9(False)),
+        # two edge lists, the masks, ok in and out twice, thr, the counts
+        n * f * (8 + 4 + 1) + 4 * n * 2 + 16, kernel="fault_edges"))
+
+    ok_w, thr = counts[1][0], counts[1][4]
+    key = trng.prng_key(99, dev)
+    gs_cfg, _ = _gapstress(n_gs, dev)
+    gw, gd = gs_cfg.n_payloads // 32, gs_cfg.n_delay_slots
+    g_ok = torch.as_tensor(g.random(n_gs * f) < 0.9, device=dev)
+    # (label, ring, sending, dst, slot, ok, the streams, the edges hashed)
+    cases = (
+        ("broadcast_scatter_lossy_dropped",
+         _random_words(g, (2, n, w), dev, 6),
+         _random_words(g, (n, w), dev, 4), dst, torch.full_like(dst, 1),
+         ok_w, dict(thr=thr, key=key, seed=int(rf.seed)), ok_w & (thr > 0)),
+        # an empty ring: the drops, not the ring's old words, are the point
+        ("broadcast_scatter_lossy_topo_dropped",
+         torch.zeros((gd, n_gs, gw), dtype=torch.int32, device=dev),
+         _random_words(g, (n_gs, gw), dev, 4),
+         torch.as_tensor(g.integers(0, n_gs, n_gs * f), dtype=torch.int32,
+                         device=dev),
+         torch.as_tensor(g.integers(0, gd, n_gs * f), dtype=torch.int32,
+                         device=dev),
+         g_ok, dict(thr=None, key=key, seed=0, topo_thr=loss_threshold(0.3),
+                    topo_key=trng.prng_key(6, dev)), g_ok),
+    )
+    rate = _int32_ops_per_s()
+    for label, ring0, snd, dst_, slot_, ok_, streams, hashed in cases:
+
+        def scatter(fn, ring, dropped):
+            fn(ring, snd, dst_, slot_, ok_, streams["thr"], streams["key"],
+               streams["seed"], f, streams.get("topo_thr", 0),
+               streams.get("topo_key"), dropped)
+
+        outs = []
+        for fn in (packed.scatter_sending_lossy,
+                   packed.scatter_sending_lossy_plain):
+            ring, dropped = ring0.clone(), _acc(dev)
+            scatter(fn, ring, dropped)
+            outs.append([ring, dropped])
+        e, x = _equal_all(outs[0], outs[1])
+        if int(outs[1][1]) == 0:
+            raise AssertionError(f"{label} inputs drop nothing")
+        live = (snd.repeat_interleave(f, dim=0) != 0) & hashed[:, None]
+        ops = int(live.sum()) * 8 * OPS_PER_HASH
+        nb = snd.numel() * 4 + dst_.shape[0] * 10 + ring0.numel() * 4 * 2
+        ring_k, ring_p, d_k, d_p = (ring0.clone(), ring0.clone(), _acc(dev),
+                                    _acc(dev))
+        rows.append(dict(
+            name=label, source=_TRACE_SRC + "broadcast_scatter.cu",
+            replaces="corrosion_tpu/sim/packed.py:369", equal=e,
+            max_abs_err=x,
+            ms=_timed(timed, lambda: scatter(packed.scatter_sending_lossy,
+                                             ring_k, d_k)),
+            # the plain version finds its pairs with a host sync: eager,
+            # and few calls of it under the topology stream (~0.3 s each)
+            plain_ms=_time_eager_ms(lambda: scatter(
+                packed.scatter_sending_lossy_plain, ring_p, d_p),
+                REPS if streams["thr"] is not None else SLOW_PLAIN_REPS)
+            if timed else None,
+            bound_ms=max(_bound_ms(nb), ops / rate * 1e3),
+            bound_by="operations" if ops / rate * 1e3 > _bound_ms(nb)
+            else "bytes",
+            kernel="broadcast_scatter_lossy"))
+
+    # K12 and K13 at gapstress-1024's dense shape
+    cfg, meta = _gapstress(n_dense, dev)
+    t = 0
+    have, relay, injected, ring, sync_ring, alive, group = \
+        _dense_round_inputs(g, dev, cfg, meta, t)
+    f = cfg.fanout
+    targets = torch.as_tensor(g.integers(0, n_dense, (n_dense, f)),
+                              dtype=torch.int32, device=dev)
+    dst = targets.reshape(-1)
+    src = torch.arange(n_dense, dtype=torch.int32,
+                       device=dev).repeat_interleave(f)
+    ok = (dst != src) & (torch.as_tensor(g.random(n_dense * f) < 0.95,
+                                         device=dev))
+    slot = torch.full_like(dst, t % cfg.n_delay_slots)
+    key = trng.prng_key(71, dev)
+    thr = loss_threshold(0.3)
+    budget = cfg.rate_limit_bytes_round
+
+    def k12(fn, outs):
+        rel, rng_ = relay.clone(), ring.clone()
+        rf_, rb_, dr_ = outs
+        fn(have, rel, injected, meta.nbytes, budget, targets, dst, slot, ok,
+           alive, key, thr, rng_, rf_, rb_, dr_)
+        return [rel, rng_, rf_, rb_, dr_]
+
+    def k12_outs():
+        return (torch.full((n_dense,), -5, dtype=torch.int32, device=dev),
+                torch.full((n_dense,), -5, dtype=torch.int32, device=dev),
+                _acc(dev))
+
+    got = k12(bc.broadcast_send, k12_outs())
+    want = k12(bc.broadcast_send_plain, k12_outs())
+    e, x = _equal_all(got, want)
+    eligible = (have > 0) & (relay > 0) & (injected > 0)[None, :]
+    heaviest = int((eligible.to(torch.int64) * meta.nbytes.to(torch.int64))
+                   .sum(dim=1).max())
+    if int(want[4]) == 0 or heaviest <= budget:
+        raise AssertionError("K12 telemetry inputs: nothing lost or the "
+                             "budget never binds")
+    outs_k, outs_p = k12_outs(), k12_outs()
+    rows.append(_row(
+        "dense_phases_telemetry", _TRACE_SRC + "dense_phases.cu",
+        "corrosion_tpu/sim/broadcast.py:32", e, x,
+        _timed(timed, lambda: k12(bc.broadcast_send, outs_k)),
+        _timed(timed, lambda: k12(bc.broadcast_send_plain, outs_p)),
+        _nbytes(have, relay, injected, meta.nbytes, targets, dst, slot, ok,
+                alive) + n_dense * 8 + 8, kernel="dense_phases"))
+
+    heads, lo, hi, _ = _advertised(g, dev, cfg, have, 10)
+    peers = torch.as_tensor(g.integers(0, n_dense, (n_dense, 3)),
+                            dtype=torch.int32, device=dev)
+    pok = torch.as_tensor(g.random((n_dense, 3)) < 0.7, device=dev)
+    outs = []
+    for fn in (sync.sync_pull_dense, sync.sync_pull_dense_plain):
+        slot_ring = torch.zeros_like(have)
+        cnt = torch.full((cfg.n_payloads,), 9, dtype=torch.int32, device=dev)
+        fr = fn(have, heads, lo, hi, peers, pok, meta.nbytes,
+                cfg.sync_budget_bytes, slot_ring, cfg, cnt)
+        outs.append([fr, slot_ring, cnt])
+    e, x = _equal_all(outs[0], outs[1])
+    work = torch.zeros_like(have)
+    cnt = torch.zeros(cfg.n_payloads, dtype=torch.int32, device=dev)
+    rows.append(_row(
+        "dense_sync_counts", _TRACE_SRC + "dense_sync.cu",
+        "corrosion_tpu/sim/sync.py:122", e, x,
+        _timed(timed, lambda: sync.sync_pull_dense(
+            have, heads, lo, hi, peers, pok, meta.nbytes,
+            cfg.sync_budget_bytes, work, cfg, cnt)),
+        _timed(timed, lambda: sync.sync_pull_dense_plain(
+            have, heads, lo, hi, peers, pok, meta.nbytes,
+            cfg.sync_budget_bytes, work, cfg, cnt)),
+        _nbytes(have, heads, lo, hi, peers, pok, meta.nbytes, cnt) * 1
+        + n_dense * cfg.n_payloads, kernel="dense_sync"))
+    return rows
+
+
+def compare_trace_kernels(dev, seed=3):
+    """Phase 3d: K17-K19 at the storm's shapes (N = 100000, W = 16,
+    E = 300000, M = 64) and gapstress's (N = 25600, W = 256, mixed
+    sizes; rows marked gs), K17's dense entry and K18's rows entry at
+    gapstress-1024's, and the telemetry outputs of K3, K9, K10, K12 and
+    K13; every row with a trap (bit 31, byte totals past 2^31, a
+    decimated scratch row, a full view, drops and cuts)."""
+    from corrosion_tpu_torch.sim.runner import _write_storm
+
+    g = np.random.default_rng(seed)
+    _, storm_meta = _write_storm(STORM_N, 512, dev)
+    _, gs_meta = _gapstress(GAPSTRESS_N, dev)
+    rows = [
+        compare_trace_counts(dev, g, STORM_N, 16, 3 * STORM_N),
+        compare_trace_counts(dev, g, GAPSTRESS_N, 256, 3 * GAPSTRESS_N,
+                             "_gs"),
+        compare_trace_counts_dense(dev, g),
+        compare_trace_wire(dev, g, STORM_N, 16, 3, storm_meta.nbytes),
+        compare_trace_wire(dev, g, GAPSTRESS_N, 256, 3, gs_meta.nbytes,
+                           "_gs"),
+        compare_trace_wire_rows(dev, g),
+        compare_trace_row(dev, g, STORM_N, 512, storm_meta.nbytes),
+        compare_trace_row(dev, g, GAPSTRESS_N, 8192, gs_meta.nbytes, "_gs"),
+        *compare_trace_outputs(dev, g),
+    ]
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+_START = time.monotonic()
+
+
+def _lap(label: str) -> None:
+    """Print the seconds the script has run, after ``label``."""
+    print(f"elapsed_s={time.monotonic() - _START:.1f} after {label}",
+          flush=True)
+
+
 def _storm_check(result, golden, label):
     """Hold a run's record against its golden: every golden key (the
     digest from the record's final state), then convergence — or, for
@@ -1693,10 +2253,11 @@ def _fault_record(final, metrics, wall):
             "converged": conv["unconverged_nodes"] == 0, **conv}
 
 
-def _path_launches(kernels, rows, label):
+def _path_launches(kernels, rows, label, telemetry=False):
     """Read every entry point's launch count after a path ran from 0,
-    require each entry of ``rows``' kernels to have launched, and return
-    the counts of every kernel row."""
+    require each entry of ``rows``' kernels to have launched — and,
+    without ``telemetry``, no entry of the flight recorder's kernels —
+    and return the counts of every kernel row."""
     entries = {kern.name: kern.launches for kern in kernels.KERNELS}
     off = [row for row in kernels.PORTED if row not in rows]
     print(f"{label} launches={json.dumps(entries)} off_path={off}",
@@ -1706,8 +2267,57 @@ def _path_launches(kernels, rows, label):
             if kern.launches <= 0:
                 raise AssertionError(f"kernel entry {kern.name} never "
                                      f"launched on the {label} path")
+    if not telemetry:
+        on = [kern.name for row in kernels.TRACE_ROWS
+              for kern in kernels.PORTED[row] if kern.launches]
+        if on:
+            raise AssertionError(f"flight recorder kernels {on} launched "
+                                 f"on the telemetry-off {label} path")
     return {row: sum(k.launches for k in entries_)
             for row, entries_ in kernels.PORTED.items()}
+
+
+F32_ULP = 2.0 ** -24
+
+
+def _telemetry_check(result, golden, m_bcast, m_sync, label):
+    """Hold a telemetry run against its golden: every key of the summary
+    block but ``wire_bytes`` exactly (the coverage-curve digest, latency
+    percentiles, frames, drops, cuts, refusals, crashes, wipes, sessions,
+    SWIM peaks, overflow rounds), and each round's f32 byte channels
+    within (m + 1)·2⁻²⁴·S of JAX's for the m f32 terms JAX adds (the
+    port's row is the exact total S rounded once); ``wire_bytes`` within
+    the rows' bounds plus both sums' rounding.  Returns the largest
+    relative gap of a row."""
+    from corrosion_tpu_torch.sim.telemetry import trace_host
+
+    got = dict(result["telemetry"])
+    wire = got.pop("wire_bytes")
+    if got != golden["summary"]:
+        raise AssertionError(f"{label}: telemetry summary {got} != golden "
+                             f"{golden['summary']}")
+    rounds = result["rounds"]
+    host = trace_host(result["trace"], rounds)
+    worst, bounds = 0.0, {}
+    for channel, key, m in (("bcast_bytes", "broadcast", m_bcast),
+                            ("sync_bytes", "sync", m_sync)):
+        port = host[channel].astype(np.float64)
+        want = np.asarray(golden[channel], np.float64)
+        exact_hi = np.abs(port) * (1 + F32_ULP)
+        bound = (m + 1) * F32_ULP * exact_hi
+        gap = np.abs(want - port)
+        if want.shape != port.shape or bool((gap > bound).any()):
+            raise AssertionError(f"{label}: {channel} outside the f32 bound")
+        worst = max(worst, float((gap / np.maximum(port, 1)).max()))
+        total = float(exact_hi.sum())
+        limit = float(bound.sum()) + 2 * rounds * F32_ULP * total + 0.1
+        if abs(wire[key] - golden["wire_bytes"][key]) > limit:
+            raise AssertionError(f"{label}: wire_bytes.{key} {wire[key]} vs "
+                                 f"golden {golden['wire_bytes'][key]}")
+        bounds[key] = limit
+    print(f"{label}: telemetry {json.dumps(got)} wire_bytes={json.dumps(wire)}"
+          f" f32_worst_relative_gap={worst!r}", flush=True)
+    return worst
 
 
 def main() -> int:
@@ -1721,6 +2331,7 @@ def main() -> int:
     from corrosion_tpu_torch.sim.runner import (
         _write_storm,
         config_broadcast_1k,
+        config_fault_storm_telemetry,
         config_gapstress_distortion,
         config_ground_truth_3node,
         config_packed_fault_storm,
@@ -1731,6 +2342,7 @@ def main() -> int:
         run_scenario,
         storm_fault_plan,
     )
+    from corrosion_tpu_torch.sim.telemetry import trace_host, trace_summary
     from corrosion_tpu_torch.sim.topology import Topology
 
     dev = torch.device("cuda")
@@ -1743,10 +2355,16 @@ def main() -> int:
 
     rows = compare_kernels(dev)
     print("kernel comparisons equal at storm shapes", flush=True)
+    _lap("storm kernel comparisons")
     dense_kernel_rows = compare_dense_kernels(dev)
     print("kernel comparisons equal at the dense paths' shapes", flush=True)
+    _lap("dense kernel comparisons")
     gap_kernel_rows = compare_gapstress_kernels(dev)
     print("kernel comparisons equal at gapstress's shapes", flush=True)
+    _lap("gapstress kernel comparisons")
+    trace_kernel_rows = compare_trace_kernels(dev)
+    print("kernel comparisons equal for the flight recorder", flush=True)
+    _lap("flight recorder kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -1860,8 +2478,118 @@ def main() -> int:
         raise AssertionError("gapstress_distortion: distortion_rounds "
                              f"{dist['distortion_rounds']} != golden")
 
-    print("profile: " + json.dumps(profile_storm(dev)), flush=True)
-    print("profile: " + json.dumps(profile_storm(dev, faults=True)),
+    _lap("paths 1-7")
+    # path 8, the flight recorder: every path the JAX runner lets record
+    # a trace, with telemetry on, each from zeroed counters — its goldens
+    # (rounds, p99s, overflow, digest) do not move, its telemetry golden
+    # holds, and K17-K19 launch
+    packed_trace = ["trace_counts", "trace_wire", "trace_row"]
+    dense_trace = ["trace_counts_dense", "trace_wire_rows", "trace_row"]
+    tel_launches, f32_gaps = {}, {}
+    kernels.reset_launch_counts()
+    run = config_write_storm_100k(seed=0, telemetry=True, device=dev,
+                                  return_state=True)
+    tel_launches["storm"] = _path_launches(
+        kernels, faultless_rows + packed_trace, "storm_100k_telemetry", True)
+    _storm_check(run, goldens.STORM_100K_SEED0, "storm_100k_telemetry")
+    f32_gaps["storm_100k"] = _telemetry_check(
+        run, goldens.STORM_100K_SEED0_TELEMETRY, 300_000, 512,
+        "storm_100k_telemetry")
+
+    cfg, meta = _write_storm(100_000, 512, dev)
+    fplan = faults.compile_plan(storm_fault_plan(100_000, 0), cfg,
+                                device=dev)
+    state = new_sim(cfg, 0, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    final, metrics, trace = faults.run_fault_plan(
+        state, meta, cfg, Topology(), fplan, max_rounds=3000,
+        telemetry=True)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    tel_launches["fault"] = _path_launches(
+        kernels, [row for row in faultless_rows if row != "broadcast_scatter"]
+        + ["fault_edges", "broadcast_scatter_lossy", "node_faults",
+           *packed_trace], "fault_storm_100k_telemetry", True)
+    run = _fault_record(final, metrics, wall)
+    run["trace"] = trace
+    run["telemetry"] = trace_summary(trace_host(trace, run["rounds"]),
+                                     run["rounds"], cfg)
+    _storm_check(run, goldens.FAULT_STORM_100K_SEED0,
+                 "fault_storm_100k_telemetry")
+    f32_gaps["fault_storm_100k"] = _telemetry_check(
+        run, goldens.FAULT_STORM_100K_SEED0_TELEMETRY, 300_000, 512,
+        "fault_storm_100k_telemetry")
+
+    kernels.reset_launch_counts()
+    run = config_write_storm_gapstress(seed=1, n_nodes=GAPSTRESS_N,
+                                       telemetry=True, device=dev,
+                                       return_state=True)
+    tel_launches["gapstress"] = _path_launches(
+        kernels, gap_rows + packed_trace, "gapstress_25600_telemetry", True)
+    _storm_check(run, goldens.GAPSTRESS_25600_SEED1,
+                 "gapstress_25600_telemetry")
+    f32_gaps["gapstress_25600"] = _telemetry_check(
+        run, goldens.GAPSTRESS_25600_SEED1_TELEMETRY, 3 * GAPSTRESS_N, 8192,
+        "gapstress_25600_telemetry")
+
+    kernels.reset_launch_counts()
+    run = config_write_storm_gapstress(seed=0, n_nodes=DENSE_GAPSTRESS_N,
+                                       telemetry=True, device=dev,
+                                       return_state=True)
+    tel_launches["gapstress_1024"] = _path_launches(
+        kernels, ["sample_targets", "merge_entries", "threefry", *dense_rows,
+                  *dense_trace], "gapstress_1024_telemetry", True)
+    if run["round_path"] != "dense":
+        raise AssertionError("gapstress_1024 did not take the dense round")
+    _storm_check(run, goldens.GAPSTRESS_DISTORTION_1024_SEED0["stressed"],
+                 "gapstress_1024_telemetry")
+    f32_gaps["gapstress_1024"] = _telemetry_check(
+        run, goldens.GAPSTRESS_1024_SEED0_TELEMETRY, 3 * DENSE_GAPSTRESS_N,
+        8192, "gapstress_1024_telemetry")
+
+    for label, entry, golden, tel_golden, m in (
+            ("broadcast_1k", config_broadcast_1k, goldens.BROADCAST_1K_SEED0,
+             goldens.BROADCAST_1K_SEED0_TELEMETRY, (3000, 256)),
+            ("ground_truth_3node", config_ground_truth_3node,
+             goldens.GROUND_TRUTH_3NODE_SEED0,
+             goldens.GROUND_TRUTH_3NODE_SEED0_TELEMETRY, (6, 64))):
+        kernels.reset_launch_counts()
+        run = entry(seed=0, telemetry=True, device=dev, return_state=True)
+        tel_launches[label] = _path_launches(
+            kernels, uniform_rows + dense_trace, f"{label}_telemetry", True)
+        _storm_check(run, golden, f"{label}_telemetry")
+        f32_gaps[label] = _telemetry_check(run, tel_golden, *m,
+                                           f"{label}_telemetry")
+
+    # the bench's telemetry rung: the per-round cost of the recorder
+    rung = config_fault_storm_telemetry(seed=0, device=dev)
+    summary = {k: v for k, v in rung["telemetry"].items()
+               if k != "wire_bytes"}
+    if (summary != goldens.FAULT_STORM_100K_SEED0_TELEMETRY["summary"]
+            or rung["rounds"] != goldens.FAULT_STORM_100K_SEED0["rounds"]
+            or not rung["converged"]):
+        raise AssertionError("config_fault_storm_telemetry: its run is not "
+                             "the golden fault storm")
+    print(f"config_fault_storm_telemetry: {json.dumps(rung)} card={card}",
+          flush=True)
+    print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
+
+    _lap("path 8, the flight recorder")
+    storm_profile = profile_storm(dev)
+    print("profile: " + json.dumps(storm_profile), flush=True)
+    fault_profile = profile_storm(dev, faults=True)
+    print("profile: " + json.dumps(fault_profile), flush=True)
+    for prof, want in ((storm_profile, STORM_OFF_LAUNCHES),
+                       (fault_profile, FAULT_STORM_OFF_LAUNCHES)):
+        got = round(prof["device_launches_per_round"] * prof["rounds"])
+        if got != want:
+            raise AssertionError(f"{prof['run']}: {got} launches in "
+                                 f"{prof['rounds']} telemetry-off rounds, "
+                                 f"not {want}")
+    # the recorder's share of a round: the same rounds with it on
+    print("profile: " + json.dumps(profile_storm(dev, telemetry=True)),
           flush=True)
     # the whole loss window, where most nodes send and K10 draws most
     print("profile: " + json.dumps(profile_storm(dev, 12, faults=True)),
@@ -1883,8 +2611,23 @@ def main() -> int:
         path = dist_launches if row["kernel"] == "dense_gaps" else gap_launches
         row["launches"] = path[row["kernel"]]
     rows += gap_kernel_rows
+    # each flight-recorder row reads its kernel's launches on the
+    # telemetry path whose shapes it was compared at
+    trace_path = {"trace_counts": "storm", "trace_wire": "storm",
+                  "trace_row": "storm", "sync_pull_granted": "storm",
+                  "fault_edges_counts": "fault",
+                  "broadcast_scatter_lossy_dropped": "fault",
+                  "sync_pull_metered_granted": "gapstress",
+                  "broadcast_scatter_lossy_topo_dropped": "gapstress"}
+    for row in trace_kernel_rows:
+        path = trace_path.get(row["name"], "gapstress" if row["name"].endswith(
+            "_gs") else "gapstress_1024")
+        row["launches"] = tel_launches[path][row["kernel"]]
+        row["path"] = path
+    rows += trace_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
+    _lap("profiles")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,13 +30,22 @@ replaces:
   `sim.swim.swim_timeout_`, `swim_merge`, `swim_apply_`;
 - K16 `BUDGET_WORDS` — `sim.packed.budget_prefix_words`;
 - K3's metered entry `SYNC_PULL_METERED` (in K3's source, with K16's
-  row scan) — `sim.packed.sync_pull` under a sync budget.
+  row scan) — `sim.packed.sync_pull` under a sync budget;
+- K17 `TRACE_COUNTS`, `TRACE_COVERAGE`, `TRACE_COVERAGE_DENSE` —
+  `sim.telemetry.count_words_`, `coverage_delivered_`,
+  `coverage_delivered_dense_`;
+- K18 `TRACE_WIRE_WORDS`, `TRACE_WIRE_ROWS` — `sim.telemetry.wire_words_`,
+  `wire_rows_`;
+- K19 `TRACE_ROW` — `sim.telemetry.record_row`.
+
+K17–K19 run only when a run records a trace; so do the telemetry
+outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
 A wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other.  `PORTED` groups
 the entry points by kernel, in K order (K10 is a second entry point of
-K2's source with a row of its own, and so are K1's uniform entry and
-K3's metered entry).
+K2's source with a row of its own, and so are K1's uniform entry, K3's
+metered entry, and the dense round's entries of K17 and K18).
 """
 
 from .build import Kernel, build_all
@@ -105,6 +114,24 @@ SYNC_PULL_METERED = Kernel(
     "sync_pull_metered", "sync_pull.cu", "corro_sync_pull_metered", 4
 )
 
+TRACE_COUNTS = Kernel(
+    "trace_counts", "trace_counts.cu", "corro_trace_counts", 2
+)
+TRACE_COVERAGE = Kernel(
+    "trace_coverage", "trace_counts.cu", "corro_trace_coverage", 2
+)
+TRACE_COVERAGE_DENSE = Kernel(
+    "trace_coverage_dense", "trace_counts.cu", "corro_trace_coverage_dense",
+    2,
+)
+TRACE_WIRE_WORDS = Kernel(
+    "trace_wire_words", "trace_wire.cu", "corro_trace_wire_words", 3
+)
+TRACE_WIRE_ROWS = Kernel(
+    "trace_wire_rows", "trace_wire.cu", "corro_trace_wire_rows", 2
+)
+TRACE_ROW = Kernel("trace_row", "trace_row.cu", "corro_trace_row", 6)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -124,7 +151,16 @@ PORTED = {
     "swim_full": (SWIM_TIMEOUT, SWIM_MERGE, SWIM_APPLY),
     "budget_words": (BUDGET_WORDS,),
     "sync_pull_metered": (SYNC_PULL_METERED,),
+    "trace_counts": (TRACE_COUNTS, TRACE_COVERAGE),
+    "trace_counts_dense": (TRACE_COVERAGE_DENSE,),
+    "trace_wire": (TRACE_WIRE_WORDS,),
+    "trace_wire_rows": (TRACE_WIRE_ROWS,),
+    "trace_row": (TRACE_ROW,),
 }
+#: the rows of the flight recorder's kernels, which no telemetry-off run
+#: launches
+TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
+              "trace_wire_rows", "trace_row")
 KERNELS = tuple(k for entries in PORTED.values() for k in entries)
 
 
@@ -141,6 +177,8 @@ __all__ = [
     "FAULT_REACH", "GAPS_REFRESH", "KERNELS", "Kernel", "MERGE_ENTRIES",
     "NODE_FAULTS", "PORTED", "RANDINT", "SAMPLE_TARGETS", "SAMPLE_UNIFORM",
     "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL",
-    "SYNC_PULL_METERED", "THREEFRY", "WORD_DELIVER", "WORD_INJECT",
-    "WORD_SPEND", "build_all", "reset_launch_counts",
+    "SYNC_PULL_METERED", "THREEFRY", "TRACE_COUNTS", "TRACE_COVERAGE",
+    "TRACE_COVERAGE_DENSE", "TRACE_ROW", "TRACE_ROWS", "TRACE_WIRE_ROWS",
+    "TRACE_WIRE_WORDS", "WORD_DELIVER", "WORD_INJECT", "WORD_SPEND",
+    "build_all", "reset_launch_counts",
 ]

@@ -44,6 +44,13 @@
 // zero word skips both; jax draws the whole [E, P] every round, with the
 // same result.  Bound in a lossy round: operations — up to E*P/4 hashes
 // of ~72 u32 operations each per stream; outside it, K2's bytes.
+//
+// With the flight recorder on, K10 also counts the frames the wire ate
+// (corrosion_tpu/sim/packed.py:573-581: popcount of drop & sending on ok
+// edges, both streams): each thread counts the bits its keep masks
+// cleared, the block sums them in shared memory and adds once to the
+// int64 `dropped` accumulator.  A null `dropped` (telemetry off) skips
+// the count; the scatter is the same either way.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,16 +76,50 @@ __device__ __forceinline__ uint32_t keep_mask(uint32_t k1, uint32_t k2,
   return keep;
 }
 
-// One body for both entry points: K2 passes null `thr`, `key` and
-// `topo_key` and draws nothing; K10 passes the streams it has.
+// One edge word: OR what survives the live streams into the ring and
+// return how many of the word's sent bits the streams dropped.
+__device__ __forceinline__ uint32_t scatter_word(
+    uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
+    const bool* __restrict__ ok, const uint8_t* __restrict__ thr,
+    const int64_t* __restrict__ topo_key, const uint32_t* folded, size_t i,
+    int n, int d_slots, int w, int fanout, int topo_thr) {
+  int e = (int)(i / w);
+  int k = (int)(i % w);
+  if (!ok[e]) return 0u;
+  uint32_t sent = sending[(size_t)(e / fanout) * w + k];
+  if (sent == 0u) return 0u;
+  if (topo_thr >= 256) return __popc(sent);  // a severed channel
+  uint32_t v = sent;
+  uint32_t base = (uint32_t)e * (8u * (uint32_t)w) + 8u * (uint32_t)k;
+  if (topo_thr > 0) {
+    v &= keep_mask((uint32_t)topo_key[0], (uint32_t)topo_key[1], base,
+                   (uint32_t)topo_thr);
+  }
+  uint32_t t = thr != nullptr ? thr[e] : 0u;
+  if (t != 0u && v != 0u) v &= keep_mask(folded[0], folded[1], base, t);
+  if (v != 0u) {
+    int row = dst[e];
+    int s = slot[e];
+    // jnp scatters drop out-of-range updates; so does this one
+    if (row >= 0 && row < n && s >= 0 && s < d_slots)
+      atomicOr(&ring[((size_t)s * n + row) * w + k], v);
+  }
+  return __popc(sent & ~v);
+}
+
+// One body for both entry points: K2 passes null `thr`, `key`,
+// `topo_key` and `dropped` and draws nothing; K10 passes the streams it
+// has, and `dropped` when the flight recorder counts.
 __global__ void broadcast_scatter_kernel(
     uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
     const bool* __restrict__ ok, const uint8_t* __restrict__ thr,
     const int64_t* __restrict__ key, const int64_t* __restrict__ topo_key,
-    int n, int d_slots, int w, int fanout, int n_edges, uint32_t seed,
-    uint32_t tag, int topo_thr) {
+    unsigned long long* __restrict__ dropped, int n, int d_slots, int w,
+    int fanout, int n_edges, uint32_t seed, uint32_t tag, int topo_thr) {
   __shared__ uint32_t folded[2];
+  __shared__ unsigned long long lost_block;
   if (thr != nullptr) {
     if (threadIdx.x == 0) {
       corro::Pair f = corro::threefry2x32((uint32_t)key[0],
@@ -90,29 +131,19 @@ __global__ void broadcast_scatter_kernel(
     __syncthreads();
   }
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)n_edges * w) return;
-  int e = (int)(i / w);
-  int k = (int)(i % w);
-  if (!ok[e]) return;
-  uint32_t v = sending[(size_t)(e / fanout) * w + k];
-  if (v == 0u) return;
-  if (topo_thr >= 256) return;  // a severed channel: every payload drops
-  uint32_t base = (uint32_t)e * (8u * (uint32_t)w) + 8u * (uint32_t)k;
-  if (topo_thr > 0) {
-    v &= keep_mask((uint32_t)topo_key[0], (uint32_t)topo_key[1], base,
-                   (uint32_t)topo_thr);
-    if (v == 0u) return;
-  }
-  uint32_t t = thr != nullptr ? thr[e] : 0u;
-  if (t != 0u) {
-    v &= keep_mask(folded[0], folded[1], base, t);
-    if (v == 0u) return;
-  }
-  int row = dst[e];
-  int s = slot[e];
-  // jnp scatters drop out-of-range updates; so does this one
-  if (row < 0 || row >= n || s < 0 || s >= d_slots) return;
-  atomicOr(&ring[((size_t)s * n + row) * w + k], v);
+  uint32_t lost = 0u;
+  if (i < (size_t)n_edges * w)
+    lost = scatter_word(ring, sending, dst, slot, ok, thr, topo_key, folded,
+                        i, n, d_slots, w, fanout, topo_thr);
+  if (dropped == nullptr) return;
+  if (threadIdx.x == 0) lost_block = 0ull;
+  __syncthreads();
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) lost += __shfl_xor_sync(0xFFFFFFFFu, lost, d);
+  if ((threadIdx.x & 31) == 0 && lost)
+    atomicAdd(&lost_block, (unsigned long long)lost);
+  __syncthreads();
+  if (threadIdx.x == 0 && lost_block) atomicAdd(dropped, lost_block);
 }
 
 }  // namespace
@@ -128,18 +159,19 @@ extern "C" int corro_broadcast_scatter(void* ring, const void* sending,
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
   broadcast_scatter_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
-      (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr, n,
-      d_slots, w, fanout, n_edges, 0u, 0u, 0);
+      (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
+      nullptr, n, d_slots, w, fanout, n_edges, 0u, 0u, 0);
   return (int)cudaGetLastError();
 }
 
 // `thr` and `key` are null without fault loss, `topo_key` is null when
-// topo_thr is 0 (no topology loss).
+// topo_thr is 0 (no topology loss), `dropped` is null when nothing counts
+// the lost frames.
 extern "C" int corro_broadcast_scatter_lossy(
     void* ring, const void* sending, const void* dst, const void* slot,
     const void* ok, const void* thr, const void* key, const void* topo_key,
-    int n, int d_slots, int w, int fanout, int seed, int tag, int topo_thr,
-    void* stream) {
+    void* dropped, int n, int d_slots, int w, int fanout, int seed, int tag,
+    int topo_thr, void* stream) {
   if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 ||
       (thr == nullptr) != (key == nullptr) ||
       (topo_thr > 0 && topo_thr < 256 && topo_key == nullptr))
@@ -155,7 +187,7 @@ extern "C" int corro_broadcast_scatter_lossy(
   broadcast_scatter_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, (const uint8_t*)thr,
-      (const int64_t*)key, (const int64_t*)topo_key, n, d_slots, w, fanout,
-      n_edges, (uint32_t)seed, (uint32_t)tag, topo_thr);
+      (const int64_t*)key, (const int64_t*)topo_key,
+      (unsigned long long*)dropped, n, d_slots, w, fanout, n_edges, (uint32_t)seed, (uint32_t)tag, topo_thr);
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,14 @@
 // under a threshold hash anything; jax draws the whole [E, P] mask with
 // the same result.
 //
+// With the flight recorder on, the broadcast entry also writes each
+// row's transmitted frames and bytes (corrosion_tpu/sim/fused.py:225
+// dense_send_stats: the count and the byte total of its sending
+// payloads, i32 [N], which K18 folds over the ok edges) and adds the
+// frames the loss ate on ok edges to an int64 accumulator `dropped`
+// (broadcast.py:259-281) — per-lane counts, one warp sum, one add a row.
+// Null pointers (telemetry off) skip all of it.
+//
 // Bound on the H100: bytes outside loss — have and relay read, relay
 // written where sent, the ring bytes stored, deliver's have, relay and
 // two slots; with loss, the hashes of the sending cells (~72 u32
@@ -89,14 +97,21 @@ __device__ __forceinline__ long long warp_inclusive_scan(long long v,
   return v;
 }
 
+__device__ __forceinline__ long long warp_sum(long long v) {
+#pragma unroll
+  for (int d = kWarp / 2; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
+  return v;
+}
+
 __global__ void dense_broadcast_kernel(
     const uint8_t* __restrict__ have, uint8_t* __restrict__ relay,
     const uint8_t* __restrict__ injected, const int32_t* __restrict__ nbytes,
     const int32_t* __restrict__ targets, const int32_t* __restrict__ dst,
     const int32_t* __restrict__ slot, const bool* __restrict__ ok,
     const uint8_t* __restrict__ alive, const int64_t* __restrict__ key,
-    uint8_t* __restrict__ ring, int n, int p, int f, int d_slots,
-    int budget, int thr) {
+    uint8_t* __restrict__ ring, int32_t* __restrict__ row_frames,
+    int32_t* __restrict__ row_bytes, unsigned long long* __restrict__ dropped,
+    int n, int p, int f, int d_slots, int budget, int thr) {
   int row = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp);
   int lane = threadIdx.x & (kWarp - 1);
   if (row >= n) return;  // whole warps leave together
@@ -112,6 +127,7 @@ __global__ void dense_broadcast_kernel(
     k2 = (uint32_t)key[1];
   }
   long long running = 0;
+  long long sent_frames = 0, sent_bytes = 0, lost_frames = 0;
   for (int base = 0; base < p; base += kWarp) {
     int q = base + lane;
     size_t cell = (size_t)row * p + q;
@@ -124,6 +140,8 @@ __global__ void dense_broadcast_kernel(
       running = __shfl_sync(0xFFFFFFFFu, cum, kWarp - 1);
     }
     if (!sending) continue;
+    sent_frames += 1;
+    sent_bytes += nbytes[q];
     for (int j = 0; j < f; ++j) {
       size_t e = (size_t)row * f + j;
       if (!ok[e]) continue;
@@ -134,7 +152,10 @@ __global__ void dense_broadcast_kernel(
         uint32_t byte = ((h.a ^ h.b) >> (8u * (b & 3u))) & 0xFFu;
         lost = byte < (uint32_t)thr;
       }
-      if (lost) continue;
+      if (lost) {
+        lost_frames += 1;
+        continue;
+      }
       int r = dst[e];
       int s = slot[e];
       // jnp scatters drop out-of-range updates; so does this one
@@ -142,6 +163,19 @@ __global__ void dense_broadcast_kernel(
       ring[((size_t)s * n + r) * p + q] = 1;
     }
     if (any_attempt) relay[cell] -= 1;
+  }
+  if (row_frames != nullptr) {
+    sent_frames = warp_sum(sent_frames);
+    sent_bytes = warp_sum(sent_bytes);
+    if (lane == 0) {
+      row_frames[row] = (int32_t)sent_frames;
+      row_bytes[row] = (int32_t)sent_bytes;
+    }
+  }
+  if (dropped != nullptr) {
+    lost_frames = warp_sum(lost_frames);
+    if (lane == 0 && lost_frames)
+      atomicAdd(dropped, (unsigned long long)lost_frames);
   }
 }
 
@@ -184,9 +218,11 @@ extern "C" int corro_dense_inject(const void* round_of, const void* actor,
 extern "C" int corro_dense_broadcast(
     const void* have, void* relay, const void* injected, const void* nbytes,
     const void* targets, const void* dst, const void* slot, const void* ok,
-    const void* alive, const void* key, void* ring, int n, int p, int f,
-    int d_slots, int budget, int thr, void* stream) {
-  if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256)
+    const void* alive, const void* key, void* ring, void* row_frames,
+    void* row_bytes, void* dropped, int n, int p, int f, int d_slots,
+    int budget, int thr, void* stream) {
+  if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
+      (row_frames == nullptr) != (row_bytes == nullptr))
     return (int)cudaErrorInvalidValue;
   // the draw's byte index e*P + q is a u32 counter (times 4)
   if ((unsigned long long)n * f * p >= (1ull << 32))
@@ -197,7 +233,9 @@ extern "C" int corro_dense_broadcast(
       (const uint8_t*)have, (uint8_t*)relay, (const uint8_t*)injected,
       (const int32_t*)nbytes, (const int32_t*)targets, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, (const uint8_t*)alive,
-      (const int64_t*)key, (uint8_t*)ring, n, p, f, d_slots, budget, thr);
+      (const int64_t*)key, (uint8_t*)ring, (int32_t*)row_frames,
+      (int32_t*)row_bytes, (unsigned long long*)dropped, n, p, f, d_slots,
+      budget, thr);
   return (int)cudaGetLastError();
 }
 

@@ -28,6 +28,14 @@
 // stores 1 into slot[n, q] where any edge granted (the slot holds 0/1,
 // so JAX's max is that store) and the warp ballots the fruitful flag.
 //
+// With the flight recorder on, the kernel also adds each payload's
+// grant count (edges that granted it, corrosion_tpu/sim/sync.py:286
+// `jnp.sum(granted, axis=0)`) into the i32 [P] row `counts`: every lane
+// knows how many of its row's S edges granted its payload, the block
+// sums its rows' counts in shared memory (P ints) and adds once per
+// payload — per-cell global atomics would serialize.  A null `counts`
+// (telemetry off) skips it.
+//
 // Bound on the H100: bytes — have rows of the puller and its S servers
 // (S + 1 rows of P bytes), their heads and gap rows, nbytes, the slot row
 // written where granted, the flag.  Design: the puller's side is derived
@@ -77,16 +85,16 @@ __device__ __forceinline__ long long warp_inclusive_scan(long long v,
   return v;
 }
 
-__global__ void dense_sync_kernel(
+// One puller's row: the warp's whole pass (whole warps take a row or
+// none, so the shuffles see every lane).
+__device__ __forceinline__ void pull_row(
     const uint8_t* __restrict__ have, const int32_t* __restrict__ heads,
     const int32_t* __restrict__ gap_lo, const int32_t* __restrict__ gap_hi,
     const int32_t* __restrict__ peers, const bool* __restrict__ ok,
     const int32_t* __restrict__ nbytes, uint8_t* __restrict__ slot_ring,
-    bool* __restrict__ fruitful, int n, int p, int s_peers, int a_writers,
-    int c_chunks, int k_slots, int budget) {
-  int row = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp);
-  int lane = threadIdx.x & (kWarp - 1);
-  if (row >= n) return;  // whole warps leave together
+    bool* __restrict__ fruitful, int* block_counts, int row, int lane, int n,
+    int p, int s_peers, int a_writers, int c_chunks, int k_slots,
+    int budget) {
   long long running[MAX_S];
   for (int j = 0; j < MAX_S; ++j) running[j] = 0;
   bool any_grant = false;
@@ -106,6 +114,7 @@ __global__ void dense_sync_kernel(
     bool partial_me = me.below && !me.miss && !me.comp;
     int head_me = live ? heads[(size_t)row * a_writers + a] : 0;
     bool pulled = false;
+    int grants = 0;
     for (int j = 0; j < s_peers; ++j) {
       bool edge_ok = ok[(size_t)row * s_peers + j];
       int d = peers[(size_t)row * s_peers + j];
@@ -128,12 +137,38 @@ __global__ void dense_sync_kernel(
         running[j] = __shfl_sync(0xFFFFFFFFu, cum, kWarp - 1);
       }
       pulled |= granted;
+      grants += granted;
     }
+    if (block_counts != nullptr && grants) atomicAdd(&block_counts[q], grants);
     if (pulled) slot_ring[(size_t)row * p + q] = 1;
     any_grant |= pulled;
   }
   bool f = __any_sync(0xFFFFFFFFu, any_grant);
   if (lane == 0) fruitful[row] = f;
+}
+
+__global__ void dense_sync_kernel(
+    const uint8_t* __restrict__ have, const int32_t* __restrict__ heads,
+    const int32_t* __restrict__ gap_lo, const int32_t* __restrict__ gap_hi,
+    const int32_t* __restrict__ peers, const bool* __restrict__ ok,
+    const int32_t* __restrict__ nbytes, uint8_t* __restrict__ slot_ring,
+    bool* __restrict__ fruitful, int32_t* __restrict__ counts, int n, int p,
+    int s_peers, int a_writers, int c_chunks, int k_slots, int budget) {
+  extern __shared__ int block_counts[];  // [P] when counts is given
+  int row = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp);
+  int lane = threadIdx.x & (kWarp - 1);
+  if (counts != nullptr) {
+    for (int q = threadIdx.x; q < p; q += blockDim.x) block_counts[q] = 0;
+    __syncthreads();
+  }
+  if (row < n) pull_row(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
+                        slot_ring, fruitful,
+                        counts != nullptr ? block_counts : nullptr, row, lane,
+                        n, p, s_peers, a_writers, c_chunks, k_slots, budget);
+  if (counts == nullptr) return;
+  __syncthreads();
+  for (int q = threadIdx.x; q < p; q += blockDim.x)
+    if (block_counts[q]) atomicAdd(&counts[q], block_counts[q]);
 }
 
 }  // namespace
@@ -142,18 +177,25 @@ extern "C" int corro_dense_sync(const void* have, const void* heads,
                                 const void* gap_lo, const void* gap_hi,
                                 const void* peers, const void* ok,
                                 const void* nbytes, void* slot_ring,
-                                void* fruitful, int n, int p, int s_peers,
-                                int a_writers, int c_chunks, int k_slots,
-                                int budget, void* stream) {
+                                void* fruitful, void* counts, int n, int p,
+                                int s_peers, int a_writers, int c_chunks,
+                                int k_slots, int budget, void* stream) {
   if (n <= 0 || p <= 0 || s_peers <= 0 || s_peers > MAX_S || a_writers <= 0 ||
       c_chunks <= 0 || k_slots <= 0 || p % (a_writers * c_chunks))
     return (int)cudaErrorInvalidValue;
   int threads = 256;
   unsigned blocks = (unsigned)(((size_t)n * kWarp + threads - 1) / threads);
-  dense_sync_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  size_t smem = counts != nullptr ? (size_t)p * sizeof(int) : 0;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dense_sync_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dense_sync_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)have, (const int32_t*)heads, (const int32_t*)gap_lo,
       (const int32_t*)gap_hi, (const int32_t*)peers, (const bool*)ok,
-      (const int32_t*)nbytes, (uint8_t*)slot_ring, (bool*)fruitful, n, p,
-      s_peers, a_writers, c_chunks, k_slots, budget);
+      (const int32_t*)nbytes, (uint8_t*)slot_ring, (bool*)fruitful,
+      (int32_t*)counts, n, p, s_peers, a_writers, c_chunks, k_slots, budget);
   return (int)cudaGetLastError();
 }

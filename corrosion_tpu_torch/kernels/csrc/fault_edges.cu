@@ -28,6 +28,13 @@
 //                      Each block derives the folded key once; an edge
 //                      with no threshold draws nothing (no u8 is below 0).
 //
+// With the flight recorder on, corro_fault_edges also counts into an
+// int64 accumulator the ok edges its cut clears (`count`, which needs
+// `ok`): the broadcast's cut edges (corrosion_tpu/sim/packed.py:471-477,
+// sum(ok_pre & ~ok)) and the sync's refused sessions (packed.py:1194-1196,
+// sum(ok & refused)).  Each warp ballots its hits and the block adds
+// once.  A null `count` (telemetry off) counts nothing.
+//
 // Bound on the H100: launch latency.  An edge reads two int32 ids and
 // K mask bytes at each of them; at the storm's E <= 300000 and K <= 2
 // that is under 4 MB, about a microsecond of memory time, below the
@@ -82,16 +89,30 @@ __global__ void fault_edges_kernel(Factors b, Factors l,
                                    const int32_t* __restrict__ dst,
                                    uint8_t* __restrict__ cut_out,
                                    uint8_t* __restrict__ thr_out,
-                                   uint8_t* __restrict__ ok, int n, int e,
-                                   int sym) {
+                                   uint8_t* __restrict__ ok,
+                                   unsigned long long* __restrict__ count,
+                                   int n, int e, int sym) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= e) return;
-  int s = src[i], d = dst[i];
-  bool valid = in_range(s, d, n);
-  bool c = valid && (cut(b, n, s, d) || (sym && cut(b, n, d, s)));
-  if (cut_out) cut_out[i] = c;
-  if (thr_out) thr_out[i] = valid ? loss_threshold(l, thr, n, s, d) : 0;
-  if (ok && c) ok[i] = 0;
+  bool cleared = false;
+  if (i < e) {
+    int s = src[i], d = dst[i];
+    bool valid = in_range(s, d, n);
+    bool c = valid && (cut(b, n, s, d) || (sym && cut(b, n, d, s)));
+    if (cut_out) cut_out[i] = c;
+    if (thr_out) thr_out[i] = valid ? loss_threshold(l, thr, n, s, d) : 0;
+    if (ok && c) {
+      cleared = ok[i] != 0;
+      ok[i] = 0;
+    }
+  }
+  if (count == nullptr) return;
+  __shared__ unsigned int hits;
+  if (threadIdx.x == 0) hits = 0u;
+  __syncthreads();
+  unsigned int warp_hits = __popc(__ballot_sync(0xFFFFFFFFu, cleared));
+  if ((threadIdx.x & 31) == 0 && warp_hits) atomicAdd(&hits, warp_hits);
+  __syncthreads();
+  if (threadIdx.x == 0 && hits) atomicAdd(count, (unsigned long long)hits);
 }
 
 __global__ void fault_reach_kernel(Factors b, Factors l,
@@ -139,10 +160,11 @@ extern "C" int corro_fault_edges(const void* b_on, const void* b_src,
                                  const void* l_src, const void* l_dst,
                                  const void* l_thr, const void* src,
                                  const void* dst, void* cut_out,
-                                 void* thr_out, void* ok, int kb,
-                                 int b_stride, int kl, int l_stride, int n,
-                                 int e, int sym, void* stream) {
-  if (!shapes_ok(kb, kl, n, e)) return (int)cudaErrorInvalidValue;
+                                 void* thr_out, void* ok, void* count,
+                                 int kb, int b_stride, int kl, int l_stride,
+                                 int n, int e, int sym, void* stream) {
+  if (!shapes_ok(kb, kl, n, e) || (count != nullptr && ok == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (e == 0) return (int)cudaSuccess;
   Factors b{(const uint8_t*)b_on, (const uint8_t*)b_src,
             (const uint8_t*)b_dst, kb, b_stride};
@@ -151,7 +173,8 @@ extern "C" int corro_fault_edges(const void* b_on, const void* b_src,
   unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
   fault_edges_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       b, l, (const uint8_t*)l_thr, (const int32_t*)src, (const int32_t*)dst,
-      (uint8_t*)cut_out, (uint8_t*)thr_out, (uint8_t*)ok, n, e, sym);
+      (uint8_t*)cut_out, (uint8_t*)thr_out, (uint8_t*)ok,
+      (unsigned long long*)count, n, e, sym);
   return (int)cudaGetLastError();
 }
 

@@ -41,6 +41,13 @@
 // warp per edge: the warp writes its need row to shared memory (S*W
 // words, 3 KB at gapstress's W = 256), meters it in place with the row
 // scan, and the block ORs the S rows into the slot.
+//
+// With the flight recorder on, both entries also write each edge's
+// granted words to `granted` [E, W] (zero where the edge is not ok): the
+// sync grant of corrosion_tpu/sim/packed.py:1238 that JAX pins for its
+// per-payload grant counts (packed.py:1302-1322), which the pull itself
+// folds into the ring and never keeps.  K17 counts them.  A null
+// `granted` (telemetry off) writes nothing more.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,7 +75,8 @@ __global__ void sync_pull_kernel(const uint32_t* __restrict__ masks,
                                  const int32_t* __restrict__ peers,
                                  const bool* __restrict__ ok,
                                  uint32_t* __restrict__ slot_words,
-                                 uint8_t* __restrict__ fruitful, int n, int w,
+                                 uint8_t* __restrict__ fruitful,
+                                 uint32_t* __restrict__ granted, int n, int w,
                                  int s_peers) {
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * w) return;
@@ -82,11 +90,13 @@ __global__ void sync_pull_kernel(const uint32_t* __restrict__ masks,
   uint32_t pulled = 0u;
   for (int s = 0; s < s_peers; ++s) {
     size_t e = (size_t)node * s_peers + s;
-    if (!ok[e]) continue;
     int p = peers[e];
-    if (p < 0 || p >= n) continue;
-    pulled |= need_word(masks + (size_t)p * 4 * w, w, k, miss_w, partial_w,
-                        below_w, have_w);
+    uint32_t g = 0u;
+    if (ok[e] && p >= 0 && p < n)
+      g = need_word(masks + (size_t)p * 4 * w, w, k, miss_w, partial_w,
+                    below_w, have_w);
+    if (granted) granted[e * w + k] = g;
+    pulled |= g;
   }
   if (pulled != 0u) {
     slot_words[(size_t)node * w + k] |= pulled;
@@ -100,8 +110,8 @@ __global__ void sync_pull_metered_kernel(
     const uint32_t* __restrict__ masks, const uint32_t* __restrict__ miss,
     const int32_t* __restrict__ peers, const bool* __restrict__ ok,
     uint32_t* __restrict__ slot_words, uint8_t* __restrict__ fruitful,
-    const int32_t* __restrict__ nbytes, int n, int w, int s_peers,
-    long long budget) {
+    const int32_t* __restrict__ nbytes, uint32_t* __restrict__ granted, int n,
+    int w, int s_peers, long long budget) {
   extern __shared__ uint32_t need[];  // [S, W]
   int node = blockIdx.x;
   int warp = threadIdx.x / 32;
@@ -123,6 +133,10 @@ __global__ void sync_pull_metered_kernel(
     corro::budget_row(row, row, w, nbytes, budget);
   }
   __syncthreads();
+  if (granted) {
+    uint32_t* out = granted + (size_t)node * s_peers * w;
+    for (int i = threadIdx.x; i < s_peers * w; i += blockDim.x) out[i] = need[i];
+  }
   bool any = false;
   for (int k = threadIdx.x; k < w; k += blockDim.x) {
     uint32_t pulled = 0u;
@@ -139,24 +153,25 @@ __global__ void sync_pull_metered_kernel(
 
 extern "C" int corro_sync_pull(const void* masks, const void* miss,
                                const void* peers, const void* ok,
-                               void* slot_words, void* fruitful, int n, int w,
-                               int s_peers, void* stream) {
+                               void* slot_words, void* fruitful,
+                               void* granted, int n, int w, int s_peers,
+                               void* stream) {
   if (n <= 0 || w <= 0 || s_peers <= 0) return (int)cudaErrorInvalidValue;
   size_t total = (size_t)n * w;
   int threads = 256;
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
   sync_pull_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)masks, (const uint32_t*)miss, (const int32_t*)peers,
-      (const bool*)ok, (uint32_t*)slot_words, (uint8_t*)fruitful, n, w,
-      s_peers);
+      (const bool*)ok, (uint32_t*)slot_words, (uint8_t*)fruitful,
+      (uint32_t*)granted, n, w, s_peers);
   return (int)cudaGetLastError();
 }
 
 extern "C" int corro_sync_pull_metered(const void* masks, const void* miss,
                                        const void* peers, const void* ok,
                                        void* slot_words, void* fruitful,
-                                       const void* nbytes, int n, int w,
-                                       int s_peers, int budget,
+                                       const void* nbytes, void* granted,
+                                       int n, int w, int s_peers, int budget,
                                        void* stream) {
   if (n <= 0 || w <= 0 || w >= (1 << 16) || s_peers <= 0)
     return (int)cudaErrorInvalidValue;
@@ -172,6 +187,7 @@ extern "C" int corro_sync_pull_metered(const void* masks, const void* miss,
                              (cudaStream_t)stream>>>(
       (const uint32_t*)masks, (const uint32_t*)miss, (const int32_t*)peers,
       (const bool*)ok, (uint32_t*)slot_words, (uint8_t*)fruitful,
-      (const int32_t*)nbytes, n, w, s_peers, (long long)budget);
+      (const int32_t*)nbytes, (uint32_t*)granted, n, w, s_peers,
+      (long long)budget);
   return (int)cudaGetLastError();
 }

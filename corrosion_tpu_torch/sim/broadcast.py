@@ -1,6 +1,6 @@
 """The dense broadcast phases — the port of
 ``corrosion_tpu/sim/broadcast.py`` (``broadcast_step`` in its push,
-flat-schedule, telemetry-free form, ``deliver_step`` with ordering
+flat-schedule form with its wire telemetry, ``deliver_step`` with ordering
 "none", ``inject_step``) on JAX's u8 state: ``have``, ``relay_left``
 ``[N, P]``, ``injected [P]`` and the delay rings ``inflight``,
 ``sync_inflight`` ``[D, N, P]``.
@@ -38,7 +38,15 @@ from .state import (
     SimState,
     budget_prefix_mask,
 )
+from .fused import dense_send_stats
 from .swim import sample_member_targets
+from .telemetry import (
+    WIRE,
+    RoundTrace,
+    acc_slot,
+    wire_loss_active,
+    wire_rows_,
+)
 from .topology import (
     Topology,
     aligned_u8_bits,
@@ -132,9 +140,10 @@ def _check_rows(have, relay, n: int, p: int) -> None:
 
 
 def broadcast_send_plain(have, relay, injected, nbytes, budget, targets, dst,
-                         slot, ok, alive, key, thr: int, ring) -> None:
+                         slot, ok, alive, key, thr: int, ring, row_frames=None,
+                         row_bytes=None, dropped=None) -> None:
     """Plain version of K12's broadcast, in place on ``relay`` and
-    ``ring``."""
+    ``ring`` (and the telemetry outputs when given)."""
     n, p = have.shape
     f = targets.shape[1]
     d = ring.shape[0]
@@ -152,6 +161,13 @@ def broadcast_send_plain(have, relay, injected, nbytes, budget, targets, dst,
     ).to(torch.uint8).reshape(n * f, p)
     rows = (slot.long() * n + dst.long())[:, None].expand(-1, p)
     ring.view(d * n, p).scatter_reduce_(0, rows, sent, "amax")
+    if row_frames is not None:
+        frames, byte_tot = dense_send_stats(sending, nbytes)
+        row_frames.copy_(frames)
+        row_bytes.copy_(byte_tot)
+    if dropped is not None:
+        dropped += (ok.reshape(n, f, 1) & drop.reshape(n, f, p)
+                    & sending[:, None, :]).sum()
     me = torch.arange(n, dtype=torch.int32, device=have.device)
     attempted = (targets >= 0) & (targets != me[:, None])
     any_attempt = attempted.any(dim=1) & (alive == ALIVE)
@@ -160,7 +176,8 @@ def broadcast_send_plain(have, relay, injected, nbytes, budget, targets, dst,
 
 def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
                    targets, dst, slot, ok, alive, key, thr: int,
-                   ring) -> None:
+                   ring, row_frames=None, row_bytes=None,
+                   dropped=None) -> None:
     """The broadcast's sends, in place: each node's eligible payloads
     (held, relay budget left, injected), cut to the oldest-first prefix
     within ``budget`` bytes (None: unmetered), go to each ok edge's ring
@@ -168,11 +185,15 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
     lost where byte e*P + q of ``aligned_u8_bits(key, [E, P])`` is below
     ``thr`` (0: no loss, ≥ 256: all lost) — and where an up node
     attempted a send (a target neither -1 nor itself) its relay budget
-    drops by one at every sent payload.  K12 on the card, which draws
-    the loss bits itself."""
+    drops by one at every sent payload.  The flight recorder's outputs,
+    when given: each node's sent frames and bytes i32[N] (``row_frames``,
+    ``row_bytes``) and the frames lost on ok edges, added to the int64
+    accumulator ``dropped``.  K12 on the card, which draws the loss bits
+    itself."""
     if have.device.type == "cpu":
         broadcast_send_plain(have, relay, injected, nbytes, budget, targets,
-                             dst, slot, ok, alive, key, thr, ring)
+                             dst, slot, ok, alive, key, thr, ring, row_frames,
+                             row_bytes, dropped)
         return
     n, p = have.shape
     f = targets.shape[1]
@@ -188,9 +209,14 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
     check("alive", alive, torch.uint8, (n,))
     check("key", key, torch.int64, (2,))
     check("ring", ring, torch.uint8, (d, n, p))
+    if row_frames is not None:
+        check("row_frames", row_frames, torch.int32, (n,))
+        check("row_bytes", row_bytes, torch.int32, (n,))
+    if dropped is not None:
+        check("dropped", dropped, torch.int64, ())
     kernels.DENSE_BROADCAST.launch(
         [have, relay, injected, nbytes, targets, dst, slot, ok, alive, key,
-         ring],
+         ring, row_frames, row_bytes, dropped],
         [n, p, f, d, -1 if budget is None else budget, min(thr, 256)],
     )
 
@@ -198,11 +224,14 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
 def broadcast_step(
     state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
     region: torch.Tensor, key: torch.Tensor, faults=None,
+    trace: Optional[RoundTrace] = None,
 ) -> SimState:
     """Fan-out push over the dense state, in place on ``relay_left`` and
     ``inflight`` (JAX ``broadcast_step``: targets from the believed
     member list, ring0 tiering, flat per-(edge, payload) loss from
-    ``k_drop``, delivery slot t + edge delay)."""
+    ``k_drop``, delivery slot t + edge delay).  With a ``trace`` the
+    wire's frames, bytes (K12's per-node outputs, folded over the ok
+    edges by K18) and lost frames (K12) go to its accumulators."""
     if faults is not None:
         raise NotImplementedError(
             "faults on the dense round are not ported yet (ROADMAP B12 "
@@ -226,11 +255,20 @@ def broadcast_step(
     d_slots = state.inflight.shape[0]
     slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
     thr = loss_threshold(topo.loss) if topo.loss > 0 else 0
+    row_frames = row_bytes = dropped = None
+    if trace is not None:
+        row_frames = torch.empty(n, dtype=torch.int32, device=me.device)
+        row_bytes = torch.empty_like(row_frames)
+        if wire_loss_active(topo, None):
+            dropped = acc_slot(trace, "bcast_dropped")
     broadcast_send(
         state.have, state.relay_left, state.injected, meta.nbytes,
         cfg.rate_limit_bytes_round, targets.contiguous(), dst, slot, ok,
-        state.alive, k_drop, thr, state.inflight,
+        state.alive, k_drop, thr, state.inflight, row_frames, row_bytes,
+        dropped,
     )
+    if trace is not None:
+        wire_rows_(trace.acc[WIRE], row_frames, row_bytes, ok, f)
     return state
 
 

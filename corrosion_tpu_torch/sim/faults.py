@@ -431,10 +431,11 @@ def _k9_args(faults, src, dst, blocks: bool, losses: bool):
 
 
 def _fault_edges(faults, src, dst, blocks, losses, cut=False, thr=False,
-                 ok=None, sym=False):
+                 ok=None, sym=False, count=None):
     """One K9 query launch: the cut (with ``sym`` OR the reversed edge's)
     and/or the threshold as new tensors, and/or ``ok`` cleared in place
-    on a cut."""
+    on a cut, adding the ok edges it clears to the int64 accumulator
+    ``count`` when given."""
     ptrs, ints = _k9_args(faults, src, dst, blocks, losses)
     e = src.shape[0]
     cut_out = (torch.empty(e, dtype=torch.bool, device=src.device)
@@ -443,7 +444,9 @@ def _fault_edges(faults, src, dst, blocks, losses, cut=False, thr=False,
                if thr else None)
     if ok is not None:
         check("ok", ok, torch.bool, (e,))
-    kernels.FAULT_EDGES.launch(ptrs + [cut_out, thr_out, ok],
+    if count is not None:
+        check("count", count, torch.int64, ())
+    kernels.FAULT_EDGES.launch(ptrs + [cut_out, thr_out, ok, count],
                                ints + [int(sym)])
     return cut_out, thr_out
 
@@ -469,14 +472,25 @@ def fault_edge_loss(faults: FactoredRoundFaults, src, dst):
     return _fault_edges(faults, src, dst, False, True, thr=True)[1]
 
 
-def fault_session_refused(faults: FactoredRoundFaults, src, dst):
+def fault_session_refused(faults: FactoredRoundFaults, src, dst, ok=None,
+                          count=None):
     """bool[E] (or None): the sync session is refused — a cut in EITHER
-    direction kills the bidirectional stream.  K9 on the card."""
+    direction kills the bidirectional stream.  With ``ok`` the refused
+    sessions are also cleared from it in place, and with ``count`` (an
+    int64 accumulator, the flight recorder's) the ok sessions refused
+    are added to it.  K9 on the card."""
     if faults.block_src.shape[0] == 0:
         return None
     if src.device.type == "cpu":
-        return _block_plain(faults, src, dst) | _block_plain(faults, dst, src)
-    return _fault_edges(faults, src, dst, True, False, cut=True, sym=True)[0]
+        refused = _block_plain(faults, src, dst) | _block_plain(faults, dst,
+                                                                src)
+        if ok is not None:
+            if count is not None:
+                count += (ok & refused).sum()
+            ok &= ~refused
+        return refused
+    return _fault_edges(faults, src, dst, True, False, cut=True, sym=True,
+                        ok=ok, count=count)[0]
 
 
 def fault_session_delay(faults: FactoredRoundFaults, src, dst):
@@ -486,13 +500,15 @@ def fault_session_delay(faults: FactoredRoundFaults, src, dst):
     return None
 
 
-def fault_wire_effects(faults: FactoredRoundFaults, src, dst, ok):
+def fault_wire_effects(faults: FactoredRoundFaults, src, dst, ok, cut=None):
     """The broadcast's fault seam, its per-edge half: cuts clear ``ok``
-    IN PLACE, and the extra-loss thresholds come back as u8[E] (None
-    when the plan has no loss).  The per-(edge, payload) loss draw that
-    JAX ORs into ``drop`` here (fold_in key 101 on the broadcast phase
-    key) is made by the ring scatter that consumes the thresholds
-    (`packed.scatter_sending_lossy`, K10).  K9 on the card."""
+    IN PLACE (adding the ok edges they sever to the int64 accumulator
+    ``cut`` when given, the flight recorder's), and the extra-loss
+    thresholds come back as u8[E] (None when the plan has no loss).  The
+    per-(edge, payload) loss draw that JAX ORs into ``drop`` here
+    (fold_in key 101 on the broadcast phase key) is made by the ring
+    scatter that consumes the thresholds (`packed.scatter_sending_lossy`,
+    K10).  K9 on the card."""
     _require_no_delay(faults)
     has_block = faults.block_src.shape[0] > 0
     has_loss = faults.loss_src.shape[0] > 0
@@ -500,10 +516,14 @@ def fault_wire_effects(faults: FactoredRoundFaults, src, dst, ok):
         return ok, None
     if src.device.type == "cpu":
         if has_block:
-            ok &= ~_block_plain(faults, src, dst)
+            hit = _block_plain(faults, src, dst)
+            if cut is not None:
+                cut += (ok & hit).sum()
+            ok &= ~hit
         return ok, _loss_plain(faults, src, dst) if has_loss else None
     _, thr = _fault_edges(faults, src, dst, has_block, has_loss,
-                          thr=has_loss, ok=ok)
+                          thr=has_loss, ok=ok,
+                          count=cut if has_block else None)
     return ok, thr
 
 
@@ -589,11 +609,13 @@ def run_fault_plan(
     topo: Topology,
     fplan: FactoredFaultPlan,
     max_rounds: int = 1000,
+    telemetry: bool = False,
 ):
     """Advance rounds under the fault schedule until the cluster holds
     every payload AND the schedule is exhausted (a plan may crash a node
     after convergence), or ``max_rounds``; returns (SimState,
-    RunMetrics).  Only the packed envelope is ported (faults on the dense
+    RunMetrics), and with ``telemetry`` the run's `.telemetry.RoundTrace`
+    third.  Only the packed envelope is ported (faults on the dense
     round are ROADMAP B12 rest)."""
     from .packed import run_packed_faults
     from .state import packed_supported
@@ -605,4 +627,5 @@ def run_fault_plan(
             "faults on the dense round are not ported yet (ROADMAP B12 "
             "rest); this configuration is outside the packed envelope"
         )
-    return run_packed_faults(state, meta, cfg, topo, fplan, max_rounds)
+    return run_packed_faults(state, meta, cfg, topo, fplan, max_rounds,
+                             telemetry)

@@ -1,9 +1,10 @@
 """The bitpacked round on u32 words — the port of
-``corrosion_tpu/sim/packed.py`` for the telemetry-free envelope the 100k
-write storm and the gapstress storm run, faultless (`run_packed`) and
-under a factored fault plan (`run_packed_faults`), over one region or
-several (ring0 tiering, shared with the dense round), with the byte
-budgets metered and the flat topology loss drawn on the wire.
+``corrosion_tpu/sim/packed.py`` for the envelope the 100k write storm
+and the gapstress storm run, faultless (`run_packed`) and under a
+factored fault plan (`run_packed_faults`), over one region or several
+(ring0 tiering, shared with the dense round), with the byte budgets
+metered, the flat topology loss drawn on the wire, and the flight
+recorder (`.telemetry`) when a run asks for it.
 
 Words ride int32 carriers (`..device`; the packing helpers and
 chunk-group folds are `.words`).  One layout differs from JAX: the
@@ -43,7 +44,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import kernels
-from ..device import ONES
+from ..device import ONES, popcount
 from ..kernels.build import check
 from . import rng
 from .broadcast import ring0_targets
@@ -68,6 +69,20 @@ from .state import (
     budget_prefix_mask,
 )
 from .swim import sample_member_targets, swim_step
+from .telemetry import (
+    COVERAGE,
+    GRANTS,
+    WIRE,
+    RoundTrace,
+    acc_slot,
+    count_words_,
+    coverage_delivered_,
+    new_trace,
+    record_row,
+    trace_row,
+    wire_loss_active,
+    wire_words_,
+)
 from .topology import (
     Topology,
     apply_degree_caps,
@@ -395,25 +410,29 @@ def _keep_stream_(words, thr, key) -> None:
 
 def scatter_sending_lossy_plain(
     ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int,
-    topo_thr: int = 0, topo_key=None,
+    topo_thr: int = 0, topo_key=None, dropped=None,
 ) -> None:
     """Plain version of K10, in place: K2 with payload q of edge e
     dropped where the topology stream (byte e*P + q of the ``topo_key``
     draw below ``topo_thr``; 256 or more drops all) or the fault stream
-    (the wire-loss draw below thr[e]) drops it."""
+    (the wire-loss draw below thr[e]) drops it; the dropped frames are
+    added to ``dropped`` when given."""
     words = _edge_words(sending, ok, fanout)
+    sent = words.clone() if dropped is not None else None
     if topo_thr >= 256:
         words.zero_()
     elif topo_thr > 0:
         _keep_stream_(words, torch.full_like(dst, topo_thr), topo_key)
     if thr is not None:
         _keep_stream_(words, thr, fault_key(key, seed, WIRE_LOSS_TAG))
+    if dropped is not None:
+        dropped += popcount(sent & ~words).sum()
     _or_rows_plain(ring, words, dst, slot)
 
 
 def scatter_sending_lossy(
     ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int,
-    topo_thr: int = 0, topo_key=None,
+    topo_thr: int = 0, topo_key=None, dropped=None,
 ) -> None:
     """`scatter_sending` under the wire's loss, in place: payload q of
     edge e is dropped where either stream drops it — the flat topology
@@ -423,12 +442,14 @@ def scatter_sending_lossy(
     everything), or the fault plan's, byte e*P + q of
     ``aligned_u8_bits(fold_in(fold_in(key, seed), 101), [E, P])`` below
     thr[e] (JAX ``fault_wire_effects``' drop bits; ``key`` is the
-    broadcast phase key; ``thr`` None is no fault loss).  K10 on the
-    card, which draws the bits itself."""
+    broadcast phase key; ``thr`` None is no fault loss).  With
+    ``dropped`` (an int64 accumulator, the flight recorder's) the frames
+    the two streams ate on ok edges are added to it.  K10 on the card,
+    which draws the bits itself."""
     if ring.device.type == "cpu":
         scatter_sending_lossy_plain(
             ring, sending, dst, slot, ok, thr, key, seed, fanout, topo_thr,
-            topo_key,
+            topo_key, dropped,
         )
         return
     d, n, w = ring.shape
@@ -443,10 +464,12 @@ def scatter_sending_lossy(
         check("key", key, torch.int64, (2,))
     if 0 < topo_thr < 256:
         check("topo_key", topo_key, torch.int64, (2,))
+    if dropped is not None:
+        check("dropped", dropped, torch.int64, ())
     kernels.BROADCAST_SCATTER_LOSSY.launch(
         [ring, sending, dst, slot, ok, thr,
          None if thr is None else key,
-         topo_key if 0 < topo_thr < 256 else None],
+         topo_key if 0 < topo_thr < 256 else None, dropped],
         [n, d, w, fanout, seed, WIRE_LOSS_TAG, topo_thr],
     )
 
@@ -455,13 +478,17 @@ def broadcast_packed(
     carry: PackedCarry, injected_p: torch.Tensor, state: SimState,
     cfg: SimConfig, topo: Topology, region: torch.Tensor, key: torch.Tensor,
     meta: PayloadMeta, faults: Optional[FactoredRoundFaults] = None,
+    trace: Optional[RoundTrace] = None,
 ) -> PackedCarry:
     """Fan-out push: draw targets, spend the relay budget (K8, metered by
     K16 under the byte governor) and OR the sent words into the delay
     ring (K2), in place.  Under the flat topology loss or ``faults``
     (cuts clear edges, K9) the scatter drops payloads per (edge,
     payload) from the topology's and the plan's loss draws (K10 in
-    place of K2); the relay still spends on the attempt."""
+    place of K2); the relay still spends on the attempt.  With a
+    ``trace`` the wire's telemetry goes to its accumulators: the frames
+    and bytes sent on live edges (K18), the cut edges (K9) and the
+    frames the loss ate (K10)."""
     n, f = cfg.n_nodes, cfg.fanout
     k_targets, k_drop, k_ring0 = rng.split(key, 3)
     targets = sample_member_targets(state, cfg, k_targets, f)  # [N, F]
@@ -479,7 +506,11 @@ def broadcast_packed(
     delay = edge_delay(topo, region, src, dst)
     thr = None
     if faults is not None:
-        ok, thr = fault_wire_effects(faults, src, dst, ok)
+        ok, thr = fault_wire_effects(
+            faults, src, dst, ok,
+            cut=None if trace is None else acc_slot(trace, "bcast_cut"))
+    if trace is not None:
+        wire_words_(trace.acc[WIRE], sending, meta.nbytes, ok, f)
     topo_thr = loss_threshold(topo.loss) if topo.loss > 0 else 0
     d_slots = carry.inflight.shape[0]
     slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
@@ -489,6 +520,8 @@ def broadcast_packed(
         scatter_sending_lossy(
             carry.inflight, sending, dst, slot, ok, thr, key,
             0 if faults is None else int(faults.seed), f, topo_thr, k_drop,
+            None if trace is None or not wire_loss_active(topo, faults)
+            else acc_slot(trace, "bcast_dropped"),
         )
     return carry
 
@@ -526,10 +559,11 @@ def deliver_packed(carry: PackedCarry, t: int, cfg: SimConfig) -> PackedCarry:
 
 
 def sync_pull_plain(masks, miss, peers, ok, slot_words, budget=None,
-                    nbytes=None) -> torch.Tensor:
+                    nbytes=None, granted=None) -> torch.Tensor:
     """Plain version of K3: OR the need words pulled from every ok peer,
     each edge metered by `budget_prefix_words_plain`, into
-    ``slot_words`` in place; returns bool[N] fruitful."""
+    ``slot_words`` in place (and each edge's granted words into
+    ``granted`` when given); returns bool[N] fruitful."""
     haves_w, partial_w, below_w, have_w = masks.unbind(dim=1)
     d = masks[peers.long()]  # [N, S, 4, W]
     haves_d, partial_d, below_d, have_d = d.unbind(dim=2)
@@ -543,6 +577,8 @@ def sync_pull_plain(masks, miss, peers, ok, slot_words, budget=None,
     n, s, w = need.shape
     need = budget_prefix_words_plain(need.reshape(n * s, w), budget,
                                      nbytes).reshape(n, s, w)
+    if granted is not None:
+        granted.copy_(need.reshape(n * s, w))
     pulled = need[:, 0]
     for s in range(1, need.shape[1]):
         pulled = pulled | need[:, s]
@@ -551,14 +587,16 @@ def sync_pull_plain(masks, miss, peers, ok, slot_words, budget=None,
 
 
 def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
-              nbytes=None) -> torch.Tensor:
+              nbytes=None, granted=None) -> torch.Tensor:
     """Gather the S peers' mask rows, apply the need algebra, meter each
     edge by ``budget`` (None: unmetered) and OR the pulled words into
-    ``slot_words`` in place; returns bool[N] fruitful.  K3 on the card,
-    its metered entry (K16's row scan per edge) under a budget."""
+    ``slot_words`` in place; returns bool[N] fruitful.  With ``granted``
+    [N * S, W] each edge's granted words are written there too (the
+    flight recorder's grant counts).  K3 on the card, its metered entry
+    (K16's row scan per edge) under a budget."""
     if masks.device.type == "cpu":
         return sync_pull_plain(masks, miss, peers, ok, slot_words, budget,
-                               nbytes)
+                               nbytes, granted)
     n, _, w = masks.shape
     s = peers.shape[1]
     check("masks", masks, torch.int32, (n, 4, w))
@@ -566,13 +604,16 @@ def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
     check("peers", peers, torch.int32, (n, s))
     check("ok", ok, torch.bool, (n, s))
     check("slot_words", slot_words, torch.int32, (n, w))
+    if granted is not None:
+        check("granted", granted, torch.int32, (n * s, w))
     fruitful = torch.zeros(n, dtype=torch.uint8, device=masks.device)
     args = [masks, miss, peers, ok, slot_words, fruitful]
     if budget is None:
-        kernels.SYNC_PULL.launch(args, [n, w, s])
+        kernels.SYNC_PULL.launch([*args, granted], [n, w, s])
         return fruitful.to(torch.bool)
     _check_budget(budget, nbytes, w)
-    kernels.SYNC_PULL_METERED.launch([*args, nbytes], [n, w, s, budget])
+    kernels.SYNC_PULL_METERED.launch([*args, nbytes, granted],
+                                     [n, w, s, budget])
     return fruitful.to(torch.bool)
 
 
@@ -580,12 +621,17 @@ def sync_packed(
     carry: PackedCarry, state: SimState, cfg: SimConfig, topo: Topology,
     key: torch.Tensor, meta: PayloadMeta,
     faults: Optional[FactoredRoundFaults] = None,
+    trace: Optional[RoundTrace] = None,
 ):
     """Anti-entropy on packed words: per-node group-uniform masks from the
     advertised heads/gaps, the per-edge pull into the sync ring's slot
     t + 1 (K3, in place), and the fruitfulness-adaptive backoff.  Under
     ``faults`` a session dies on a cut in either direction (K9); loss
-    never bites the reliable bi-stream."""
+    never bites the reliable bi-stream.  Returns (carry, countdown,
+    backoff); with a ``trace`` the refused sessions (K9) and the
+    per-payload grant counts of K3's granted words (K17) go to its
+    accumulators, and the sessions' ok mask bool[N * S] comes back
+    fourth."""
     n, s = cfg.n_nodes, cfg.sync_peers
     ks = rng.split(key, 3)
     k_peers, k_rearm = ks[0], ks[2]
@@ -600,7 +646,11 @@ def sync_packed(
     ok &= due[src.long()]
     ok &= dst != src
     if faults is not None:
-        refused = fault_session_refused(faults, src, dst)
+        if trace is None:
+            refused = fault_session_refused(faults, src, dst)
+        else:
+            refused = fault_session_refused(
+                faults, src, dst, ok, acc_slot(trace, "sync_refused"))
         if refused is not None:
             ok &= ~refused
         fault_session_delay(faults, src, dst)  # raises on delay factors
@@ -615,11 +665,16 @@ def sync_packed(
     masks = torch.stack([haves_w, partial_w, below_w, carry.have], dim=1)
 
     d_slots = carry.sync_buf.shape[0]
+    granted = (None if trace is None else
+               torch.empty((n * s, carry.have.shape[1]), dtype=torch.int32,
+                           device=peers.device))
     fruitful = sync_pull(
         masks, miss_w, dst.reshape(n, s), ok.reshape(n, s),
         carry.sync_buf[(int(state.t) + 1) % d_slots],
-        cfg.sync_budget_bytes, meta.nbytes,
+        cfg.sync_budget_bytes, meta.nbytes, granted,
     )
+    if trace is not None:
+        count_words_(trace.counts[GRANTS], granted)
 
     backoff = torch.where(
         due & fruitful,
@@ -632,6 +687,8 @@ def sync_packed(
     ).to(torch.int32)
     rearm = rng.randint(k_rearm, (n,), 1, backoff + 1)
     countdown = torch.where(due, rearm, state.sync_countdown - 1)
+    if trace is not None:
+        return carry, countdown, backoff, ok
     return carry, countdown, backoff
 
 
@@ -723,7 +780,7 @@ def packed_round_step(
     state: SimState, carry: PackedCarry, injected_p: torch.Tensor,
     metrics: RunMetrics, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
     region: torch.Tensor, faults: Optional[FactoredRoundFaults] = None,
-    horizon: Optional[int] = None,
+    horizon: Optional[int] = None, trace: Optional[RoundTrace] = None,
 ):
     """One gossip tick on packed words, phase-for-phase and PRNG-stream
     identical to JAX's ``packed_round_step``: inject → broadcast → sync →
@@ -732,21 +789,32 @@ def packed_round_step(
     and ``injected_p`` in place and returns (state, carry, injected_p,
     metrics, done), where ``done`` is the loop's exit flag after the
     round, on the device: JAX's ``_converged_done``, or with a fault
-    plan's ``horizon`` its fault loop's (`converge_record`)."""
+    plan's ``horizon`` its fault loop's (`converge_record`).  With a
+    ``trace`` the round's row is recorded in it, in place: the phases
+    feed its accumulators, then K17 counts coverage and delivered and
+    K19 writes the row (with the fault slice's crashes and wipes)."""
     ks = rng.split(state.key, 4)
     state = state._replace(key=ks[0])
     k_bcast, k_sync, k_swim = ks[1], ks[2], ks[3]
     t = int(state.t)
+    have0_w = None if trace is None else carry.have.clone()
 
     carry, injected_p = inject_packed(
         carry, injected_p, t, meta, cfg, state.alive
     )
     carry = broadcast_packed(
-        carry, injected_p, state, cfg, topo, region, k_bcast, meta, faults
+        carry, injected_p, state, cfg, topo, region, k_bcast, meta, faults,
+        trace,
     )
-    carry, countdown, backoff = sync_packed(
-        carry, state, cfg, topo, k_sync, meta, faults
-    )
+    sync_ok = None
+    if trace is None:
+        carry, countdown, backoff = sync_packed(
+            carry, state, cfg, topo, k_sync, meta, faults
+        )
+    else:
+        carry, countdown, backoff, sync_ok = sync_packed(
+            carry, state, cfg, topo, k_sync, meta, faults, trace
+        )
     state = state._replace(sync_countdown=countdown, sync_backoff=backoff)
     carry = deliver_packed(carry, t, cfg)
     state = swim_step(state, cfg, topo, k_swim, faults)
@@ -766,6 +834,12 @@ def packed_round_step(
         overflow_frac=overflow_frac,
         order_violations=metrics.order_violations,
     )
+    if trace is not None:
+        coverage_delivered_(trace.counts[COVERAGE:GRANTS], carry.have,
+                            have0_w, state.alive)
+        record_row(trace, trace_row(trace, t, cfg.trace_every),
+                   alive=state.alive, state=state, cfg=cfg, rf=faults,
+                   sync_ok=sync_ok, n_overflow=n_overflow, nbytes=meta.nbytes)
     state = state._replace(t=state.t + 1)
     return state, carry, injected_p, out_metrics, done
 
@@ -784,25 +858,29 @@ def _converged_done(
 
 def run_packed(
     state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
-    max_rounds: int,
+    max_rounds: int, telemetry: bool = False,
 ):
     """Pack once, loop rounds on words until convergence or
-    ``max_rounds``, unpack once.  Returns (SimState, RunMetrics)."""
+    ``max_rounds``, unpack once.  Returns (SimState, RunMetrics), and
+    with ``telemetry`` the run's `RoundTrace` third."""
     dev = state.have.device
     region = regions(cfg.n_nodes, topo.n_regions, dev)
     metrics = new_metrics(cfg, dev)
     carry = pack_state(state, cfg)
     inj = pack_bits(state.injected)
     slim = shrink_state(state)
+    trace = new_trace(cfg, max_rounds, dev) if telemetry else None
     done = _converged_done(slim, metrics, meta)
     while int(slim.t) < max_rounds and not bool(done):
         slim, carry, inj, metrics, done = packed_round_step(
-            slim, carry, inj, metrics, meta, cfg, topo, region
+            slim, carry, inj, metrics, meta, cfg, topo, region, trace=trace
         )
     full = unpack_into_state(carry, slim, cfg)
     full = full._replace(
         injected=unpack_bits(inj, cfg.n_payloads).to(torch.uint8)
     )
+    if telemetry:
+        return full, metrics, trace
     return full, metrics
 
 
@@ -876,13 +954,15 @@ def all_have_words(
 
 def run_packed_faults(
     state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
-    fplan: FactoredFaultPlan, max_rounds: int,
+    fplan: FactoredFaultPlan, max_rounds: int, telemetry: bool = False,
 ):
     """`run_packed` under a fault schedule: before every round the
     round's node faults hit the slim state and the carry
     (`apply_round_faults`), and the round runs with its fault slice.
     The loop never exits before the plan's horizon, then only on the
-    fresh all-have predicate.  Returns (SimState, RunMetrics)."""
+    fresh all-have predicate.  Returns (SimState, RunMetrics), and with
+    ``telemetry`` the run's `RoundTrace` third (each row with its
+    round's crashes and wipes)."""
     dev = state.have.device
     region = regions(cfg.n_nodes, topo.n_regions, dev)
     metrics = new_metrics(cfg, dev)
@@ -896,6 +976,7 @@ def run_packed_faults(
                      "psince")
     })
     horizon = fplan.horizon
+    trace = new_trace(cfg, max_rounds, dev) if telemetry else None
     done = (torch.zeros((), dtype=torch.bool, device=dev)
             if int(slim.t) < horizon
             else all_have_words(carry, inj, slim, meta, cfg))
@@ -903,10 +984,13 @@ def run_packed_faults(
         rf = round_faults(fplan, int(slim.t))
         slim, carry = apply_round_faults(slim, carry, rf)
         slim, carry, inj, metrics, done = packed_round_step(
-            slim, carry, inj, metrics, meta, cfg, topo, region, rf, horizon
+            slim, carry, inj, metrics, meta, cfg, topo, region, rf, horizon,
+            trace,
         )
     full = unpack_into_state(carry, slim, cfg)
     full = full._replace(
         injected=unpack_bits(inj, cfg.n_payloads).to(torch.uint8)
     )
+    if telemetry:
+        return full, metrics, trace
     return full, metrics

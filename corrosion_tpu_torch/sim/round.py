@@ -1,9 +1,10 @@
 """The round and its run loop — the port of ``corrosion_tpu/sim/round.py``:
 `round_step` (the dense round on JAX's u8 state) and `run_to_convergence`,
 which takes the packed envelope to `.packed.run_packed` and runs the
-dense round otherwise.  Telemetry (ROADMAP B10) and mesh sharding (B17)
-are not ported; asking for them raises instead of silently running
-something else.
+dense round otherwise, either with the flight recorder
+(``telemetry=True``, `.telemetry`).  Mesh sharding (ROADMAP B17) is not
+ported; asking for it raises instead of silently running something
+else.
 
 One dense round is inject → broadcast → sync → deliver → SWIM →
 bookkeeping refresh → convergence record, phase for phase and draw for
@@ -41,6 +42,14 @@ from .state import (
     touched_versions,
     version_active,
     version_heads,
+)
+from .telemetry import (
+    COVERAGE,
+    GRANTS,
+    coverage_delivered_dense_,
+    new_trace,
+    record_row,
+    trace_row,
 )
 from .topology import Topology, regions
 
@@ -182,10 +191,14 @@ def own_state(state: SimState) -> SimState:
 
 
 def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
-                cfg: SimConfig, topo: Topology, region: torch.Tensor):
+                cfg: SimConfig, topo: Topology, region: torch.Tensor,
+                trace=None):
     """One dense round on a state whose tensors it owns (`own_state`),
     updating them in place: (state, metrics, done), where ``done`` is
-    the loop's exit flag after the round, on the device."""
+    the loop's exit flag after the round, on the device.  With a
+    ``trace`` the round's row is recorded in it, in place: the phases
+    feed its accumulators, then K17's dense entry counts coverage and
+    delivered and K19 writes the row."""
     from .broadcast import broadcast_step, deliver_step, inject_step
     from .swim import swim_step
     from .sync import sync_step
@@ -197,9 +210,16 @@ def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
     state = state._replace(key=ks[0])
     k_bcast, k_sync, k_swim = ks[1], ks[2], ks[3]
     t = int(state.t)
+    have0 = None if trace is None else state.have.clone()
     state = inject_step(state, meta, cfg)
-    state = broadcast_step(state, meta, cfg, topo, region, k_bcast)
-    state = sync_step(state, meta, cfg, topo, k_sync)
+    state = broadcast_step(state, meta, cfg, topo, region, k_bcast,
+                           trace=trace)
+    sync_ok = None
+    if trace is None:
+        state = sync_step(state, meta, cfg, topo, k_sync)
+    else:
+        state, sync_ok = sync_step(state, meta, cfg, topo, k_sync,
+                                   trace=trace)
     state = deliver_step(state, cfg)
     state = swim_step(state, cfg, topo, k_swim)
     heads, lo, hi, n_overflow, coverage_at, converged_at, done = dense_record(
@@ -208,6 +228,12 @@ def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
     overflow_frac = torch.maximum(
         metrics.overflow_frac, overflow_fraction(n_overflow, heads.numel())
     )
+    if trace is not None:
+        coverage_delivered_dense_(trace.counts[COVERAGE:GRANTS], state.have,
+                                  have0, state.alive)
+        record_row(trace, trace_row(trace, t, cfg.trace_every),
+                   alive=state.alive, state=state, cfg=cfg, rf=None,
+                   sync_ok=sync_ok, n_overflow=n_overflow, nbytes=meta.nbytes)
     state = state._replace(heads=heads, gap_lo=lo, gap_hi=hi, t=state.t + 1)
     metrics = RunMetrics(
         coverage_at=coverage_at,
@@ -223,18 +249,20 @@ def round_step(
     topo: Topology, region: torch.Tensor, faults=None, trace=None,
 ):
     """One gossip tick for the whole cluster on the dense state (JAX
-    ``round_step``): returns the new (state, metrics); ``state`` itself
-    is left as it was."""
+    ``round_step``): returns the new (state, metrics), and with a
+    ``trace`` (a `.telemetry.RoundTrace`, whose row of this round is
+    written in place) the trace third; ``state`` itself is left as it
+    was."""
     if faults is not None:
         raise NotImplementedError(
             "faults on the dense round are not ported yet (ROADMAP B12 "
             "rest)"
         )
-    if trace is not None:
-        raise NotImplementedError("telemetry is not ported yet (ROADMAP B10)")
     validate(cfg, topo)
     state, metrics, _ = round_step_(own_state(state), metrics, meta, cfg,
-                                    topo, region)
+                                    topo, region, trace)
+    if trace is not None:
+        return state, metrics, trace
     return state, metrics
 
 
@@ -250,17 +278,21 @@ def _converged_done(state: SimState, metrics: RunMetrics,
 
 
 def run_dense(state: SimState, meta: PayloadMeta, cfg: SimConfig,
-              topo: Topology, max_rounds: int):
+              topo: Topology, max_rounds: int, telemetry: bool = False):
     """The dense round until convergence or ``max_rounds``: a Python loop
-    with one host read of the device done flag per round."""
+    with one host read of the device done flag per round.  Returns
+    (state, metrics), and with ``telemetry`` the run's trace third."""
     dev = state.have.device
     region = regions(cfg.n_nodes, topo.n_regions, dev)
     metrics = new_metrics(cfg, dev)
     state = own_state(state)
+    trace = new_trace(cfg, max_rounds, dev) if telemetry else None
     done = _converged_done(state, metrics, meta)
     while int(state.t) < max_rounds and not bool(done):
         state, metrics, done = round_step_(state, metrics, meta, cfg, topo,
-                                           region)
+                                           region, trace)
+    if telemetry:
+        return state, metrics, trace
     return state, metrics
 
 
@@ -274,19 +306,18 @@ def run_to_convergence(
     mesh=None,
 ):
     """Advance rounds until every up node holds every injected version or
-    ``max_rounds``; returns (SimState, RunMetrics).  The packed envelope
-    runs `.packed.run_packed`, every other configuration the dense
-    round; both without telemetry on one device."""
+    ``max_rounds``; returns (SimState, RunMetrics), and with
+    ``telemetry`` the run's `.telemetry.RoundTrace` third.  The packed
+    envelope runs `.packed.run_packed`, every other configuration the
+    dense round; both on one device."""
     from .packed import run_packed
 
-    if telemetry:
-        raise NotImplementedError("telemetry is not ported yet (ROADMAP B10)")
     if mesh is not None:
         raise NotImplementedError("mesh sharding is not ported yet (B17)")
     validate(cfg, topo)
     if packed_supported(cfg, topo):
-        return run_packed(state, meta, cfg, topo, max_rounds)
-    return run_dense(state, meta, cfg, topo, max_rounds)
+        return run_packed(state, meta, cfg, topo, max_rounds, telemetry)
+    return run_dense(state, meta, cfg, topo, max_rounds, telemetry)
 
 
 def new_sim(cfg: SimConfig, seed: int = 0, device="cuda") -> SimState:

@@ -1,16 +1,19 @@
 """Scenario runner for the port: `run_scenario` and the runner's configs
 (``corrosion_tpu/sim/runner.py``): the 3-node ground truth, broadcast-1k
 and partition-heal-10k on the dense round, the 100k-node write storm,
-the packed fault storm and the gapstress storm (config #5b, on the
-packed round from 1280 nodes) with its K-clamp distortion pair,
-returning the same result keys.  One device, no mesh; the wall clock
-brackets a run with ``torch.cuda.synchronize()`` on both ends when it
-runs on the card."""
+the packed fault storm and its flight-recorder rung
+(`config_fault_storm_telemetry`), and the gapstress storm (config #5b,
+on the packed round from 1280 nodes) with its K-clamp distortion pair,
+returning the same result keys.  The configs JAX lets record a trace
+take ``telemetry`` and ``trace_path`` (`.telemetry`): the record gains
+the ``telemetry`` summary block and the path the flight-recorder JSONL.
+One device, no mesh; the wall clock brackets a run with
+``torch.cuda.synchronize()`` on both ends when it runs on the card."""
 
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +39,7 @@ from .state import (
     packed_supported,
     uniform_payloads,
 )
+from .telemetry import trace_host, trace_summary, write_flight_jsonl
 from .topology import Topology, regions
 
 ROUND_SECONDS = 0.5
@@ -63,25 +67,58 @@ def _node_convergence(metrics: RunMetrics, final) -> Dict[str, float]:
     }
 
 
+def _timed_s(fn, dev: torch.device) -> float:
+    """Seconds ``fn()`` takes: CUDA events around it on the card (then a
+    wait for the end event), the host clock on the CPU."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def _telemetry_record(result, trace, rounds: int, cfg: SimConfig,
+                      trace_path, header) -> None:
+    """A run's ``telemetry`` summary block, and its flight JSONL."""
+    host = trace_host(trace, rounds)
+    result["telemetry"] = trace_summary(host, rounds, cfg)
+    if trace_path:
+        write_flight_jsonl(trace_path, host, rounds, cfg, header=header)
+
+
 def run_scenario(
     cfg: SimConfig,
     meta: PayloadMeta,
     topo: Topology = Topology(),
     seed: int = 0,
     max_rounds: int = 2000,
+    telemetry: bool = False,
+    trace_path: Optional[str] = None,
     device="cuda",
     return_state: bool = False,
 ) -> Dict[str, float]:
-    """Run one scenario to convergence on ``device``.  With
-    ``return_state`` the record also carries the final ``state`` and
-    ``metrics`` (for digests and comparisons)."""
+    """Run one scenario to convergence on ``device``.  ``telemetry`` (or
+    a ``trace_path``) records the flight recorder: the record gains the
+    deterministic ``telemetry`` summary and ``trace_path`` the per-round
+    JSONL.  With ``return_state`` the record also carries the final
+    ``state``, ``metrics`` and the ``trace`` (None without telemetry),
+    for digests and comparisons."""
+    telemetry = telemetry or trace_path is not None
     dev = resolve_device(device)
     state = new_sim(cfg, seed, dev)
     _sync(dev)
     t0 = time.monotonic()
-    final, metrics = run_to_convergence(state, meta, cfg, topo, max_rounds)
+    out = run_to_convergence(state, meta, cfg, topo, max_rounds, telemetry)
     _sync(dev)
     wall = time.monotonic() - t0
+    final, metrics = out[0], out[1]
+    trace = out[2] if telemetry else None
 
     cov = metrics.coverage_at.cpu().numpy()
     inj = meta.round.cpu().numpy()
@@ -107,25 +144,33 @@ def run_scenario(
         "rounds_per_sec": rounds / wall if wall > 0 else float("inf"),
         "node_rounds_per_sec": rounds * cfg.n_nodes / wall if wall > 0 else 0.0,
     }
+    if trace is not None:
+        _telemetry_record(result, trace, rounds, cfg, trace_path,
+                          {"seed": seed, "scenario": "run_scenario"})
     if return_state:
         result["state"] = final
         result["metrics"] = metrics
+        result["trace"] = trace
     return result
 
 
 def config_ground_truth_3node(
-    seed: int = 0, device="cuda", return_state: bool = False
+    seed: int = 0, telemetry: bool = False, trace_path: Optional[str] = None,
+    device="cuda", return_state: bool = False,
 ) -> Dict[str, float]:
     """Config #1: three nodes, 64 payloads, ground-truth membership, both
     byte budgets metered (they cannot bind, but the prefix runs)."""
     cfg = SimConfig(n_nodes=3, n_payloads=64, fanout=2, sync_interval_rounds=4)
     meta = uniform_payloads(cfg, resolve_device(device), inject_every=1)
-    return run_scenario(cfg, meta, seed=seed, device=device,
+    return run_scenario(cfg, meta, seed=seed, telemetry=telemetry,
+                        trace_path=trace_path, device=device,
                         return_state=return_state)
 
 
 def config_broadcast_1k(
     seed: int = 0,
+    telemetry: bool = False,
+    trace_path: Optional[str] = None,
     topo_family=None,
     sampler=None,
     proto_family=None,
@@ -144,6 +189,7 @@ def config_broadcast_1k(
                     n_delay_slots=4)
     meta = uniform_payloads(cfg, resolve_device(device), inject_every=2)
     return run_scenario(optimize_budgets(cfg, meta), meta, seed=seed,
+                        telemetry=telemetry, trace_path=trace_path,
                         device=device, return_state=return_state)
 
 
@@ -274,6 +320,8 @@ def config_write_storm_100k(
     seed: int = 0,
     n_nodes: int = 100_000,
     n_payloads: int = 512,
+    telemetry: bool = False,
+    trace_path: Optional[str] = None,
     device="cuda",
     return_state: bool = False,
 ) -> Dict[str, float]:
@@ -281,8 +329,8 @@ def config_write_storm_100k(
     time-to-convergence."""
     cfg, meta = _write_storm(n_nodes, n_payloads, device)
     return run_scenario(
-        cfg, meta, seed=seed, max_rounds=3000, device=device,
-        return_state=return_state,
+        cfg, meta, seed=seed, max_rounds=3000, telemetry=telemetry,
+        trace_path=trace_path, device=device, return_state=return_state,
     )
 
 
@@ -363,6 +411,105 @@ def config_packed_fault_storm(
     return result
 
 
+def measure_overhead_pair(
+    cfg: SimConfig,
+    meta: PayloadMeta,
+    topo: Topology = Topology(),
+    seed: int = 17,
+    k_rounds: int = 8,
+    reps: int = 5,
+    fplan=None,
+    device="cuda",
+) -> Tuple[float, float]:
+    """Interleaved plain/telemetry per-round seconds (JAX
+    ``perf.measure_overhead_pair``): the first ``k_rounds`` rounds of a
+    fresh state, through `run_fault_plan` under ``fplan`` or
+    `run_to_convergence` without, with and without the flight recorder,
+    each timed whole (packing and the trace included, as JAX's jitted
+    k-round body is) with CUDA events on the card; one warm-up of each,
+    then ``reps`` plain/telemetry pairs in turn, and the per-variant
+    minimum over k.  Returns ``(per_round_plain_s,
+    per_round_telemetry_s)``."""
+    dev = resolve_device(device)
+
+    def run_once(telemetry: bool) -> float:
+        state = new_sim(cfg, seed, dev)
+        if fplan is not None:
+            return _timed_s(lambda: run_fault_plan(
+                state, meta, cfg, topo, fplan, k_rounds, telemetry), dev)
+        return _timed_s(lambda: run_to_convergence(
+            state, meta, cfg, topo, k_rounds, telemetry), dev)
+
+    run_once(False)
+    run_once(True)
+    plain, tel = [], []
+    for _ in range(reps):
+        plain.append(run_once(False))
+        tel.append(run_once(True))
+    return min(plain) / k_rounds, min(tel) / k_rounds
+
+
+def config_fault_storm_telemetry(
+    seed: int = 0,
+    n_nodes: int = 100_000,
+    n_payloads: int = 512,
+    microbench_rounds: int = 4,
+    trace_path: Optional[str] = None,
+    device="cuda",
+    return_state: bool = False,
+) -> Dict[str, object]:
+    """The packed fault storm with the flight recorder on: the
+    interleaved per-round microbench of the telemetry round against the
+    plain one (`measure_overhead_pair`, ``per_round_overhead_frac``),
+    then a full telemetry-on run of the storm schedule with its summary
+    block (and ``trace_path``'s JSONL).  JAX's record keys but
+    ``sanity``, which waits for a port of ``sim/perf.py``'s wall check
+    (ROADMAP A11).  With ``return_state`` the record also carries the
+    run's final ``state``, ``metrics`` and ``trace``."""
+    dev = resolve_device(device)
+    cfg, meta = _write_storm(n_nodes, n_payloads, dev)
+    topo = Topology()
+    plan = storm_fault_plan(n_nodes, seed)
+    fplan = compile_plan(plan, cfg, topo, device=dev)
+    packed = packed_supported(cfg, topo)
+    pr_plain, pr_tel = measure_overhead_pair(
+        cfg, meta, seed=seed + 1000, k_rounds=microbench_rounds,
+        fplan=fplan, device=dev,
+    )
+    state = new_sim(cfg, seed, dev)
+    _sync(dev)
+    t0 = time.monotonic()
+    final, metrics, trace = run_fault_plan(
+        state, meta, cfg, topo, fplan, max_rounds=3000, telemetry=True
+    )
+    _sync(dev)
+    wall = time.monotonic() - t0
+    rounds = int(final.t)
+    conv = _node_convergence(metrics, final)
+    result = {
+        "n_nodes": n_nodes,
+        "n_payloads": n_payloads,
+        "round_path": "packed" if packed else "dense",
+        "plan_seed": seed,
+        "rounds": rounds,
+        "converged": (conv["unconverged_nodes"] == 0
+                      and rounds >= plan.horizon),
+        "unconverged_nodes": conv["unconverged_nodes"],
+        "wall_clock_s": wall,
+        "per_round_plain_ms": round(pr_plain * 1e3, 3),
+        "per_round_telemetry_ms": round(pr_tel * 1e3, 3),
+        "per_round_overhead_frac": (round(pr_tel / pr_plain - 1.0, 4)
+                                    if pr_plain > 0 else None),
+    }
+    _telemetry_record(result, trace, rounds, cfg, trace_path,
+                      {"scenario": "packed_fault_storm", "seed": seed})
+    if return_state:
+        result["state"] = final
+        result["metrics"] = metrics
+        result["trace"] = trace
+    return result
+
+
 def _gapstress_cfg(n_nodes: int, gap_slots: int) -> SimConfig:
     return SimConfig.wan_tuned(
         n_nodes,
@@ -391,6 +538,8 @@ def config_write_storm_gapstress(
     gap_slots: int = 8,
     loss: float = 0.3,
     max_rounds: int = 4000,
+    telemetry: bool = False,
+    trace_path: Optional[str] = None,
     device="cuda",
     return_state: bool = False,
 ) -> Dict[str, float]:
@@ -399,8 +548,7 @@ def config_write_storm_gapstress(
     injected at round 0, 30 % flat wire loss, mixed 1 B – 8 KiB payloads
     (about 19 MB in all, so the 5 MiB broadcast governor and the 4 MiB
     sync grant both bind).  Reports ``gap_overflow_frac_max``.  JAX's
-    compile-only prime has nothing to do here; its telemetry and trace
-    are ROADMAP B10."""
+    compile-only prime has nothing to do here."""
     dev = resolve_device(device)
     cfg = _gapstress_cfg(n_nodes, gap_slots)
     meta = uniform_payloads(
@@ -409,7 +557,8 @@ def config_write_storm_gapstress(
     )
     return run_scenario(
         cfg, meta, topo=Topology(loss=loss), seed=seed,
-        max_rounds=max_rounds, device=dev, return_state=return_state,
+        max_rounds=max_rounds, telemetry=telemetry, trace_path=trace_path,
+        device=dev, return_state=return_state,
     )
 
 

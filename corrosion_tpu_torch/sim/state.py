@@ -48,8 +48,9 @@ class SimConfig:
     packed and the dense round read, with the same names and defaults.
     The scenario axes (the PeerSwap sampler and the protocol variants,
     ROADMAP B15) keep their fields so a configuration reads the same in
-    both packages, and refuse any value but their default; telemetry's
-    ``trace_every`` arrives with B10."""
+    both packages, and refuse any value but their default.
+    ``trace_every`` is the flight recorder's round stride (`.telemetry`):
+    row t is recorded only when t % trace_every == 0."""
 
     n_nodes: int
     n_payloads: int
@@ -78,6 +79,7 @@ class SimConfig:
     allow_packed: bool = True
     packed_min_cells: int = 10 * 1024 * 1024
     default_payload_bytes: int = 8 * 1024
+    trace_every: int = 1
     peer_sampler: str = "uniform"
     dissemination: str = "push"
     fanout_schedule: str = "flat"
@@ -85,6 +87,10 @@ class SimConfig:
     ordering: str = "none"
 
     def __post_init__(self) -> None:
+        if self.trace_every < 1:
+            raise ValueError(
+                f"trace_every must be >= 1, got {self.trace_every}"
+            )
         wave = self.n_writers * self.chunks_per_version
         if self.n_payloads % wave != 0:
             raise ValueError(

@@ -1,7 +1,7 @@
 """Anti-entropy sync on the dense state — the port of
 ``corrosion_tpu/sim/sync.py`` (``node_sync_masks``, ``edge_needs``,
 ``sync_step``) in the periodic cadence without faults, metered or
-unmetered.
+unmetered, with its session telemetry.
 
 A due node pulls from ``sync_peers`` sampled members; per edge the
 wanted versions are the three need classes of the advertised
@@ -35,6 +35,7 @@ from .state import (
     grid_to_payload,
 )
 from .swim import sample_member_targets
+from .telemetry import GRANTS, RoundTrace
 from .topology import Topology, edge_alive
 
 
@@ -84,8 +85,10 @@ def edge_needs(
 
 
 def sync_pull_dense_plain(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
-                          budget, slot_ring, cfg: SimConfig) -> torch.Tensor:
-    """Plain version of K13, in place on ``slot_ring``."""
+                          budget, slot_ring, cfg: SimConfig,
+                          counts=None) -> torch.Tensor:
+    """Plain version of K13, in place on ``slot_ring`` (and ``counts``
+    when given)."""
     n, s = peers.shape
     p = have.shape[1]
     src = torch.arange(n, dtype=torch.int32, device=have.device)
@@ -93,21 +96,25 @@ def sync_pull_dense_plain(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
     need = _edge_needs(have, heads, gap_lo, gap_hi, cfg, src,
                        peers.reshape(-1)) & ok.reshape(-1)[:, None]
     granted = budget_prefix_mask(need, budget, nbytes).reshape(n, s, p)
+    if counts is not None:
+        counts += granted.sum(dim=(0, 1), dtype=torch.int32)
     slot_ring |= granted.any(dim=1).to(torch.uint8)
     return granted.any(dim=2).any(dim=1)
 
 
 def sync_pull_dense(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
-                    budget: Optional[int], slot_ring,
-                    cfg: SimConfig) -> torch.Tensor:
+                    budget: Optional[int], slot_ring, cfg: SimConfig,
+                    counts=None) -> torch.Tensor:
     """Each node n pulls from its peers ``peers[n, s]`` where ``ok``:
     per edge the needs (`edge_needs`), cut to the oldest-first prefix
     within ``budget`` bytes (None: unmetered), are ORed into ``slot_ring``
     (the sync ring's slot t + 1, u8 [N, P]) in place; returns bool[N]
-    fruitful (some edge granted something).  K13 on the card."""
+    fruitful (some edge granted something).  With ``counts`` i32[P] (the
+    flight recorder's grant row) each payload's granting edges are added
+    to it.  K13 on the card."""
     if have.device.type == "cpu":
         return sync_pull_dense_plain(have, heads, gap_lo, gap_hi, peers, ok,
-                                     nbytes, budget, slot_ring, cfg)
+                                     nbytes, budget, slot_ring, cfg, counts)
     n, p = have.shape
     s = peers.shape[1]
     a, k = cfg.n_writers, cfg.gap_slots
@@ -119,10 +126,12 @@ def sync_pull_dense(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
     check("ok", ok, torch.bool, (n, s))
     check("nbytes", nbytes, torch.int32, (p,))
     check("slot_ring", slot_ring, torch.uint8, (n, p))
+    if counts is not None:
+        check("counts", counts, torch.int32, (p,))
     fruitful = torch.empty(n, dtype=torch.bool, device=have.device)
     kernels.DENSE_SYNC.launch(
         [have, heads, gap_lo, gap_hi, peers, ok, nbytes, slot_ring,
-         fruitful],
+         fruitful, counts],
         [n, p, s, a, cfg.chunks_per_version, k,
          -1 if budget is None else budget],
     )
@@ -131,11 +140,13 @@ def sync_pull_dense(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
 
 def sync_step(
     state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
-    key: torch.Tensor, faults=None,
-) -> SimState:
+    key: torch.Tensor, faults=None, trace: Optional[RoundTrace] = None,
+):
     """Anti-entropy round (JAX ``sync_step``): due nodes pull into the
     sync ring's slot t + 1 (in place), then the fruitfulness-adaptive
-    backoff and the re-arm draw."""
+    backoff and the re-arm draw.  Returns the state; with a ``trace``
+    the per-payload grant counts go to its grant row (K13) and the
+    sessions' ok mask bool[N * S] comes back second."""
     if faults is not None:
         raise NotImplementedError(
             "faults on the dense round are not ported yet (ROADMAP B12 "
@@ -161,6 +172,7 @@ def sync_step(
         dst.reshape(n, s), ok.reshape(n, s), meta.nbytes,
         cfg.sync_budget_bytes,
         state.sync_inflight[(int(state.t) + 1) % d_slots], cfg,
+        None if trace is None else trace.counts[GRANTS],
     )
     backoff = torch.where(
         due & fruitful,
@@ -173,5 +185,8 @@ def sync_step(
     ).to(torch.int32)
     rearm = rng.randint(k_rearm, (n,), 1, backoff + 1)
     countdown = torch.where(due, rearm, state.sync_countdown - 1)
-    return state._replace(sync_countdown=countdown.to(torch.int32),
-                          sync_backoff=backoff)
+    state = state._replace(sync_countdown=countdown.to(torch.int32),
+                           sync_backoff=backoff)
+    if trace is not None:
+        return state, ok
+    return state

@@ -696,3 +696,140 @@ def test_gapstress_packed_run_on_card_equals_cpu(card, name):
                  kernels.BROADCAST_SCATTER_LOSSY, kernels.GAPS_REFRESH):
         assert kern.launches > 0, kern.name
     assert state_digest(on_card) == state_digest(run("cpu"))
+
+
+# -- the flight recorder: K17-K19 and the telemetry outputs of K3, K9,
+# K10, K12 and K13 -----------------------------------------------------------
+
+
+def _sizes(dev, p, size=60_000):
+    """Payload sizes large enough that the byte folds pass 2^31."""
+    return torch.full((p,), size, dtype=torch.int32, device=dev)
+
+
+# rows not a multiple of 15 (K17's nibble chunk) and one that is
+@pytest.mark.parametrize("n, w, e", ((1003, 5, 3009), (15, 1, 45),
+                                     (3000, 16, 9001), (301, 256, 903)))
+def test_trace_counts(card, n, w, e):
+    row = _smoke().compare_trace_counts(card, np.random.default_rng(n), n, w,
+                                        e, timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n, p", ((100, 8192), (37, 96), (1024, 8192)))
+def test_trace_counts_dense(card, n, p):
+    row = _smoke().compare_trace_counts_dense(
+        card, np.random.default_rng(n), n=n, p=p, timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n, w", ((1001, 16), (300, 256), (7, 3)))
+def test_trace_wire(card, n, w):
+    size = 60_000 if n > 7 else 1 << 30  # seven nodes pass 2^31 too
+    row = _smoke().compare_trace_wire(card, np.random.default_rng(n), n, w,
+                                      3, _sizes(card, w * 32, size),
+                                      timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n", (999, 1024))
+def test_trace_wire_rows(card, n):
+    row = _smoke().compare_trace_wire_rows(card, np.random.default_rng(n),
+                                           n=n, timed=False)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("n, p", ((3001, 512), (600, 8192), (5, 32)))
+def test_trace_row(card, n, p):
+    from corrosion_tpu_torch.sim.runner import gapstress_payload_sizes
+
+    sizes = torch.as_tensor(gapstress_payload_sizes(p), device=card)
+    row = _smoke().compare_trace_row(card, np.random.default_rng(n), n, p,
+                                     sizes, timed=False)
+    assert row["equal"], row
+
+
+def test_trace_outputs(card):
+    rows = _smoke().compare_trace_outputs(card, np.random.default_rng(4),
+                                          timed=False, n=3000, n_gs=600,
+                                          n_dense=200)
+    for row in rows:
+        assert row["equal"], row
+
+
+def _telemetry_run(name, dev, telemetry=True):
+    """A whole run on ``dev``, with the flight recorder unless told not
+    to: the packed storm and fault storm at 512 nodes, gapstress at 64
+    nodes on the dense round and forced onto the packed one (lossy,
+    metered), the dense bool branch (full view under loss, P = 16) and a
+    decimated 3-node run."""
+    import dataclasses
+
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.runner import (
+        _gapstress_cfg, _write_storm, gapstress_payload_sizes)
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    topo, seed = Topology(), 0
+    if name in ("storm512", "fault512"):
+        cfg, meta = _write_storm(512, 256, dev)
+        cfg = dataclasses.replace(cfg, packed_min_cells=0)
+        seed = 7
+        if name == "fault512":
+            plan = faults.compile_plan(storm_fault_plan(512, 7), cfg, topo,
+                                       factored=True, device=dev)
+            return faults.run_fault_plan(new_sim(cfg, seed, dev), meta, cfg,
+                                         topo, plan, 600, telemetry)
+    elif name in ("gs64", "gs64_packed"):
+        cfg = _gapstress_cfg(64, 8)
+        if name == "gs64_packed":
+            cfg = dataclasses.replace(cfg, packed_min_cells=0)
+        meta = uniform_payloads(cfg, dev, inject_every=0,
+                                payload_bytes=gapstress_payload_sizes(8192))
+        topo, seed = Topology(loss=0.3), 1
+    elif name == "lossy9":
+        cfg = SimConfig(n_nodes=24, n_payloads=16, fanout=2, n_delay_slots=4,
+                        swim_full_view=True)
+        meta = uniform_payloads(cfg, dev, inject_every=1)
+        topo, seed = Topology(n_regions=2, inter_delay=2, loss=0.2), 9
+    else:  # 3node_every3
+        cfg = SimConfig(n_nodes=3, n_payloads=64, fanout=2,
+                        sync_interval_rounds=4, trace_every=3)
+        meta = uniform_payloads(cfg, dev, inject_every=1)
+    return run_to_convergence(new_sim(cfg, seed, dev), meta, cfg, topo, 600,
+                              telemetry)
+
+
+@pytest.mark.parametrize("name", ("storm512", "fault512", "gs64",
+                                  "gs64_packed", "lossy9", "3node_every3"))
+def test_telemetry_run_on_card_equals_cpu(card, name):
+    """A whole run with telemetry on the card records the CPU run's trace
+    bit for bit (f32 channels included: both round the same exact
+    totals), ends in its state, and launches K17-K19; without telemetry
+    the same run launches none of them and every other kernel exactly as
+    often."""
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim import telemetry
+
+    kernels.reset_launch_counts()
+    final, _, trace = _telemetry_run(name, card)
+    on = {k.name: k.launches for k in kernels.KERNELS}
+    packed_run = name in ("storm512", "fault512", "gs64_packed")
+    for row in ("trace_row",) + (
+            ("trace_counts", "trace_wire") if packed_run
+            else ("trace_counts_dense", "trace_wire_rows")):
+        for kern in kernels.PORTED[row]:
+            assert kern.launches > 0, kern.name
+    cpu_final, _, cpu_trace = _telemetry_run(name, "cpu")
+    assert state_digest(final) == state_digest(cpu_final)
+    for f in telemetry.CHANNELS:
+        assert torch.equal(getattr(trace, f).cpu(), getattr(cpu_trace, f)), f
+
+    trace_entries = {k.name for row in kernels.TRACE_ROWS
+                     for k in kernels.PORTED[row]}
+    kernels.reset_launch_counts()
+    off_final, _ = _telemetry_run(name, card, telemetry=False)
+    assert state_digest(off_final) == state_digest(final)
+    for kern in kernels.KERNELS:
+        want = 0 if kern.name in trace_entries else on[kern.name]
+        assert kern.launches == want, (kern.name, kern.launches, want)

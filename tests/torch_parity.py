@@ -2,8 +2,11 @@
 inputs made from a seed with numpy, handed to the JAX reference and to
 the port (device="cpu", plain torch versions), and compared exactly."""
 
+import contextlib
 import dataclasses
 import hashlib
+import importlib
+import sys
 
 import numpy as np
 import torch
@@ -95,3 +98,43 @@ def assert_metrics_equal(jax_metrics, port_metrics, label: str) -> None:
     """RunMetrics field for field, exactly: overflow_frac is one f32 mean
     (an exact integer sum over an f32 cell count) on both sides."""
     assert_fields_equal(fields(jax_metrics), fields(port_metrics), label)
+
+
+_JAX_TELEMETRY = "corrosion_tpu.sim.telemetry"
+
+
+@contextlib.contextmanager
+def jax_telemetry():
+    """The JAX flight recorder, importable for the length of a ``with``.
+
+    ``corrosion_tpu/sim/telemetry.py:77`` tests ``_ob_p not in
+    batching.primitive_batchers``; under jax 0.9.0 that object is a
+    ``PrimitiveBatchersProxy`` without ``__contains__``, so the import
+    raises TypeError.  Inside the block the proxy answers ``in`` from
+    the batcher table it writes to (jax already registers the
+    optimization barrier there, so the module registers nothing) and
+    the module is yielded.  On exit the patch is removed, the module is
+    dropped from ``sys.modules`` and from its package, and jax's
+    in-memory compile caches are cleared, so nothing traced under the
+    shim serves a later caller: every other test in the same worker
+    sees the JAX package exactly as it would without this block."""
+    import jax
+    from jax._src.interpreters import batching
+
+    proxy = batching.PrimitiveBatchersProxy
+    had = "__contains__" in proxy.__dict__
+    old = proxy.__dict__.get("__contains__")
+    proxy.__contains__ = lambda self, prim: (
+        prim in batching.fancy_primitive_batchers)
+    try:
+        yield importlib.import_module(_JAX_TELEMETRY)
+    finally:
+        if had:
+            proxy.__contains__ = old
+        else:
+            del proxy.__contains__
+        sys.modules.pop(_JAX_TELEMETRY, None)
+        package = sys.modules.get("corrosion_tpu.sim")
+        if package is not None and hasattr(package, "telemetry"):
+            delattr(package, "telemetry")
+        jax.clear_caches()
