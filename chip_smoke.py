@@ -6,7 +6,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the nineteen CUDA kernels K1–K19 from the eighteen sources in
+2. build the nineteen CUDA kernels K1–K19 (with the latency entries of
+   K3, K9 and K10) from the eighteen sources in
    ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -46,6 +47,18 @@ result line):
    frames) and K13 (grant counts) at gapstress-1024's — words with bit
    31 set, byte totals past 2^31, a decimated scratch row, a full-view
    row, drops, cuts and refusals;
+   then the latency entries at latency-storm-100k's shapes and round 6
+   (N = 100000, W = 16, E = 300000, S = 3, D = 4; its plan: the fault
+   storm's, then a one-round delay and a one-round jitter on every link
+   out of the first sixth, rounds 2-15): K9's (fault delay, jitter
+   bound, session delay, on that plan and on one with overlapping
+   delays and jitters), K10's jitter stream (alone, with the fault loss,
+   with both losses) and K3's delay entry (and its metered entry with
+   the same classes), printing that each of the slice's six traps was
+   reached: randint's multiplier wrapping to 0, the i32 draw's element
+   index, bits of one word in two slots across the ring's wrap, a slot
+   already holding an earlier round's grant, overlapping events and
+   self-edges, jitter with both loss streams off;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -83,11 +96,19 @@ result line):
    (and on no telemetry-off path above); then
    ``config_fault_storm_telemetry(seed=0)``'s per-round plain and
    telemetry milliseconds, printed with the card;
-10. profile the first 3 rounds of both storms, the fault storm's
-   12-round loss window, 10 partitioned rounds of partition-heal-10k and
-   the first 3 rounds of gapstress-25.6k (host wall, device time by
-   kernel from ``torch.profiler``, the device's idle share);
-11. print the card line, the kernels JSON line, then the one-line result
+10. latency-storm-100k from launch counters at 0, without and with the
+   recorder, through ``run_fault_plan``: its golden (rounds, p99,
+   digest), with the recorder its telemetry golden, and every entry of
+   K1, K2, K4–K8, K9's reach and latency entries, K10 and its jitter
+   stream, K11 and K3's delay entry launched;
+11. profile the first 3 rounds of both storms (their telemetry-off
+   launches held at the counts the port made before the recorder), the
+   fault storm's 12-round loss window, 10 partitioned rounds of
+   partition-heal-10k, the first 3 rounds of gapstress-25.6k and rounds
+   6-8 of latency-storm-100k and of the same config without its latency
+   pair (host wall, device time by kernel from
+   ``torch.profiler``, the device's idle share);
+12. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -127,6 +148,10 @@ SLOW_PLAIN_REPS = 3
 # storm's.  Recording must add nothing to a run that does not record.
 STORM_OFF_LAUNCHES = 1526
 FAULT_STORM_OFF_LAUNCHES = 1560
+#: the round of latency-storm-100k the latency comparisons and profile
+#: slice: inside the loss, cut, delay and jitter windows, where a delayed
+#: slot (6 + 1) % 4 = 3 wraps to 0 under jitter
+LATENCY_T = 6
 
 
 def _smi(query: str) -> str:
@@ -368,6 +393,66 @@ def profile_gapstress(dev, rounds=3):
         return time.monotonic() - t0
 
     return _profile(run, rounds, "gapstress-25.6k", setup)
+
+
+def profile_latency(dev, start=LATENCY_T, rounds=3, latency=True):
+    """``rounds`` rounds of latency-storm-100k from round ``start``
+    (inside its loss, cut, delay and jitter windows) through the fault
+    loop's body, as `run_fault_plan` runs them (its one host read a
+    round included); the first ``start`` rounds are setup, outside the
+    clock and the profiler.  Without ``latency`` the same rounds of the
+    same config under the fault storm's plan alone, for the latency
+    pair's cost."""
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim.round import new_metrics, new_sim
+    from corrosion_tpu_torch.sim.runner import storm_fault_plan
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    cfg, meta, fplan = _latency_storm(STORM_N, dev)
+    if not latency:
+        fplan = faults.compile_plan(storm_fault_plan(STORM_N, 0), cfg,
+                                    device=dev)
+    topo = Topology()
+    region = regions(cfg.n_nodes, 1, dev)
+    activity = faults.host_activity(fplan)
+    horizon = fplan.horizon
+
+    def step(loop):
+        slim, carry, inj, metrics = loop
+        t = int(slim.t)
+        rf = faults.round_faults(fplan, t)
+        slim, carry = packed.apply_round_faults(slim, carry, rf)
+        slim, carry, inj, metrics, done = packed.packed_round_step(
+            slim, carry, inj, metrics, meta, cfg, topo, region, rf, horizon,
+            None, activity[min(t, horizon)])
+        bool(done)
+        return slim, carry, inj, metrics
+
+    def setup():
+        state = new_sim(cfg, 0, dev)
+        slim = packed.shrink_state(state)
+        slim = slim._replace(**{
+            name: getattr(slim, name).clone()
+            for name in ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
+                         "psince")})
+        loop = (slim, packed.pack_state(state, cfg),
+                packed.pack_bits(state.injected), new_metrics(cfg, dev))
+        for _ in range(start):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return loop
+
+    def run(loop):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    label = "latency storm-100k" if latency else "fault storm-100k (D = 4)"
+    return _profile(run, rounds, f"{label} rounds {start}-"
+                    f"{start + rounds - 1}", setup)
 
 
 def _bound_ms(nbytes: int) -> float:
@@ -795,8 +880,8 @@ def _fault_edge_calls(fs, rf, key, calls):
             out.append(fs.reach(ok.clone(), rf, key, src, dst))
         elif kind == "session":
             out.append(fs.session(rf, src, dst))
-        else:
-            out += list(fs.wire(rf, src, dst, ok.clone()))
+        else:  # a plan without latency factors: (ok, thr)
+            out += list(fs.wire(rf, src, dst, ok.clone()))[:2]
     return out
 
 
@@ -887,7 +972,7 @@ def compare_fault_seam(dev, g, n, w, f):
     sending = _random_words(g, (n, w), dev, 4)
     _, src, dst, ok0 = calls[-1]
     ok = ok0.clone()
-    ok, thr = faults.fault_wire_effects(rf, src, dst, ok)
+    ok, thr, _, _ = faults.fault_wire_effects(rf, src, dst, ok)
     dst = torch.clamp(dst, min=0)
     slot = torch.full_like(dst, 5 % 2)
     ring0 = _random_words(g, (2, n, w), dev, 6)
@@ -2014,7 +2099,8 @@ def compare_trace_outputs(dev, g, timed=True, n=STORM_N,
         ok_w, ok_s, cut, refused = (ok0.clone(), ok0.clone(), _acc(dev),
                                     _acc(dev))
         if kernel:
-            _, thr = faults.fault_wire_effects(rf, src, dst, ok_w, cut)
+            _, thr, _, _ = faults.fault_wire_effects(rf, src, dst, ok_w,
+                                                     cut)
             faults.fault_session_refused(rf, src, dst, ok_s, refused)
         else:
             blk = faults._block_plain(rf, src, dst)
@@ -2217,6 +2303,322 @@ def compare_trace_kernels(dev, seed=3):
     return rows
 
 
+# -- the latency storm's kernels: K9's latency entry, K10's jitter stream,
+# K3's delay entry ------------------------------------------------------------
+
+def latency_storm_plan(n, seed=0):
+    """`storm_fault_plan`'s events, then JAX's "storm-mix" latency pair
+    (tests/sim/test_packed_equivalence.py) over the first sixth of the
+    nodes: one round of delay and up to one of jitter on every link out
+    of them, rounds 2-15 (the plan tests/torch_parity.py builds)."""
+    from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+    from corrosion_tpu_torch.sim.runner import storm_fault_plan
+
+    base = storm_fault_plan(n, seed)
+    sel = f"0:{n // 6}"
+    return FaultPlan(n_nodes=n, seed=base.seed, events=(
+        *base.events,
+        FaultEvent("delay", 2, 16, src=sel, dst="*", delay_rounds=1),
+        FaultEvent("jitter", 2, 16, src=sel, dst="*", delay_rounds=1),
+    ))
+
+
+def _latency_storm(n, dev):
+    """latency-storm-n: the write storm with four delay slots (the one
+    change: compile_plan needs 1 + delay 1 + jitter 1 < n_delay_slots),
+    its payloads and its compiled plan."""
+    from corrosion_tpu_torch.sim import faults
+
+    cfg, meta = _storm_cfg(n, dev)
+    cfg = dataclasses.replace(cfg, n_delay_slots=4)
+    return cfg, meta, faults.compile_plan(latency_storm_plan(n), cfg,
+                                          device=dev)
+
+
+def _trap(number, what, reached):
+    print(f"latency trap {number} ({what}): "
+          f"{'reached' if reached else 'NOT reached'}", flush=True)
+    if not reached:
+        raise AssertionError(f"latency trap {number} not reached: {what}")
+
+
+def _overlap_plan(n):
+    """Delays and jitters that overlap: the latency pair, a two-round
+    delay into the first half (sums of 3), a two-round jitter out of the
+    nodes n/12 to 3n/10 (a max of 2), rounds 2-15."""
+    from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+
+    plan = latency_storm_plan(n)
+    return FaultPlan(n_nodes=n, seed=plan.seed, events=(
+        *plan.events,
+        FaultEvent("delay", 2, 16, src="*", dst=f"0:{n // 2}",
+                   delay_rounds=2),
+        FaultEvent("jitter", 2, 16, src=f"{n // 12}:{3 * n // 10}",
+                   dst="*", delay_rounds=2),
+    ))
+
+
+def compare_fault_latency(dev, g, n=STORM_N, timed=True):
+    """K9's latency entry at the latency storm's round 6 (E = 3N): the
+    wire's cuts, thresholds, fault delay and jitter bound, the session's
+    refusals (counted) and session delay, each in one launch, and the
+    three queries alone — on the path's plan and on one whose delays add
+    (3 rounds), whose jitters take a max (2) and whose session delay is
+    the reversed edge's; self-edges on both sides of every mask."""
+    from corrosion_tpu_torch.sim import faults
+
+    cfg, _, fplan = _latency_storm(n, dev)
+    f = cfg.fanout
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = np.where(g.random(n * f) < 0.05, np.repeat(np.arange(n), f),
+                   g.integers(0, n, n * f))
+    dst = torch.as_tensor(dst, dtype=torch.int32, device=dev)
+    ok0 = torch.as_tensor(g.random(n * f) < 0.9, device=dev)
+    wide = dataclasses.replace(cfg, n_delay_slots=8)
+    overlap = faults.compile_plan(_overlap_plan(n), wide, device=dev)
+
+    def calls(rf, kernel):
+        ok_w, ok_s, refused = ok0.clone(), ok0.clone(), _acc(dev)
+        if kernel:
+            wire = faults.fault_wire_effects(rf, src, dst, ok_w)
+            session = faults.fault_session_effects(rf, src, dst, ok_s,
+                                                   refused)
+            return [*wire, *session, ok_s, refused]
+        blk = faults._block_plain(rf, src, dst)
+        ok_w &= ~blk
+        ref = blk | faults._block_plain(rf, dst, src)
+        refused += (ok_s & ref).sum()
+        ok_s &= ~ref
+        return [ok_w, faults._loss_plain(rf, src, dst),
+                faults._delay_plain(rf, src, dst),
+                faults._jitter_plain(rf, src, dst), ref,
+                faults._session_delay_plain(rf, src, dst), ok_s, refused]
+
+    equal, err = True, 0
+    for plan in (fplan, overlap):
+        rf = faults.round_faults(plan, LATENCY_T)
+        got, want = calls(rf, True), calls(rf, False)
+        e, x = _equal_all(got, want)
+        equal, err = equal and e, max(err, x)
+        for q, ref in ((faults.fault_edge_delay, faults._delay_plain),
+                       (faults.fault_edge_jitter, faults._jitter_plain),
+                       (faults.fault_session_delay,
+                        faults._session_delay_plain)):
+            e, x = _equal_all([q(rf, src, dst)], [ref(rf, src, dst)])
+            equal, err = equal and e, max(err, x)
+    delay, jit, sdelay = want[2], want[3], want[5]
+    self_edge = src == dst
+    _trap(5, "overlapping delays add, jitters take the max, the session "
+          "the slower direction, self-edges never fault",
+          int(delay.max()) == 3 and int(jit.max()) == 2
+          and bool((sdelay > delay).any())
+          and not bool(delay[self_edge].any() or jit[self_edge].any()
+                       or sdelay[self_edge].any())
+          and bool(self_edge.any()))
+    rf = faults.round_faults(fplan, LATENCY_T)
+    e = n * f
+    nbytes = (e * 8  # the edge ids
+              + _nbytes(rf.block_src, rf.block_dst, rf.loss_src, rf.loss_dst,
+                        rf.delay_src, rf.delay_dst, rf.jitter_src,
+                        rf.jitter_dst)
+              + e * (2 + 1 + 4 + 4)  # ok in and out, thr, delay, jit
+              + e * (2 + 1 + 4) + 8)  # ok, cut, session delay, the count
+    return _row(
+        "fault_edges_delay", "corrosion_tpu_torch/kernels/csrc/fault_edges.cu",
+        "corrosion_tpu/sim/faults.py:226", equal, err,
+        _timed(timed, lambda: calls(rf, True)),
+        _timed(timed, lambda: calls(rf, False)), nbytes,
+        kernel="fault_edges_delay")
+
+
+def compare_scatter_jitter(dev, g, n=STORM_N, timed=True):
+    """K10's jitter stream at the latency storm's round 6 (E = 3N, W =
+    16, D = 4): jitter alone (rounds 12-15: both loss streams off), with
+    the fault plan's loss (rounds 2-11), and with the flat topology loss
+    too; slots from K9's fault delay, so a jittered bit of a delayed
+    edge wraps from slot 3 to 0."""
+    from corrosion_tpu_torch.device import popcount
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim.topology import loss_threshold
+
+    cfg, _, fplan = _latency_storm(n, dev)
+    f, w, d = cfg.fanout, cfg.n_payloads // 32, cfg.n_delay_slots
+    e = n * f
+    rf = faults.round_faults(fplan, LATENCY_T)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = torch.as_tensor(g.integers(0, n, e), dtype=torch.int32, device=dev)
+    ok = torch.as_tensor(g.random(e) < 0.9, device=dev)
+    ok, thr, fdelay, jit = faults.fault_wire_effects(rf, src, dst, ok)
+    slot = ((LATENCY_T + fdelay) % d).to(torch.int32)
+    sending = _random_words(g, (n, w), dev, 1)
+    key, topo_key = trng.prng_key(7, dev), trng.prng_key(8, dev)
+    seed = int(rf.seed)
+    topo_thr = loss_threshold(0.3)
+    ring0 = _random_words(g, (d, n, w), dev, 6)
+    cases = {"jitter": (None, 0), "jitter_fault_loss": (thr, 0),
+             "jitter_both_losses": (thr, topo_thr)}
+    equal, err, outs = True, 0, {}
+    for name, (t, tt) in cases.items():
+        got, want = ring0.clone(), ring0.clone()
+        args = (sending, dst, slot, ok, t, key, seed, f, tt, topo_key)
+        packed.scatter_sending_lossy(got, *args, jit=jit)
+        packed.scatter_sending_lossy_plain(want, *args, jit=jit)
+        e_, x = _equal_all([got], [want])
+        equal, err = equal and e_, max(err, x)
+        outs[name] = want
+    unjittered = ring0.clone()
+    packed.scatter_sending_plain(unjittered, sending, dst, slot, ok, f)
+
+    # the traps, from the plain version's own pieces
+    span, mult = trng.scalar_span(0, packed.JITTER_MAX)
+    jkey = faults.fault_key(key, seed, faults.JITTER_TAG)
+    live = (jit > 0) & ok
+    e_idx = torch.nonzero(live).flatten()[:4096]
+    idx = (e_idx[:, None].long() * (32 * w)
+           + torch.arange(32 * w, device=dev)).reshape(-1)
+    sub = trng.split_plain(jkey, 2)
+    zeros = torch.zeros_like(idx)
+    h1, h2 = trng.threefry2x32(sub[0][0], sub[0][1], zeros, idx)
+    l1, l2 = trng.threefry2x32(sub[1][0], sub[1][1], zeros, idx)
+    right = trng.randint_at_plain(jkey, idx, 0, packed.JITTER_MAX).long()
+    wrong = ((h1 ^ h2) % span * 2 + (l1 ^ l2) % span) % span
+    _trap(1, "randint's multiplier (2^16)^2 wraps to 0 in u32: the higher "
+          "draw drops out, where an exact 2 changes the draws",
+          mult == 0 and bool((right != wrong).any())
+          and torch.equal(right, (l1 ^ l2) % span))
+    whole = trng.randint(jkey, (int(e_idx.max()) + 1, 32 * w), 0,
+                         packed.JITTER_MAX)
+    _trap(2, "the jitter draw's element index is e*P + q of the i32 draw, "
+          "whatever the draw's length",
+          torch.equal(whole.reshape(-1)[idx].long(), right))
+    offsets = (right % 2).reshape(-1, w, 32)
+    bits = ((sending.repeat_interleave(f, dim=0)[e_idx].long()[:, :, None]
+             >> torch.arange(32, device=dev)) & 1).bool()
+    split = ((offsets == 0) & bits).any(2) & ((offsets == 1) & bits).any(2)
+    wraps = (slot[e_idx] == d - 1)[:, None] & ((offsets == 1) & bits).any(2)
+    _trap(3, "bits of one word land in two slots, and slot 3 + 1 wraps to "
+          "0 (three slots written from one destination row)",
+          bool(split.any()) and bool(wraps.any()))
+    _trap(6, "the jitter stream with both loss streams off (rounds 12-15) "
+          "moves bits",
+          not torch.equal(outs["jitter"], unjittered))
+    if torch.equal(outs["jitter_fault_loss"], outs["jitter"]) or \
+            torch.equal(outs["jitter_both_losses"],
+                        outs["jitter_fault_loss"]):
+        raise AssertionError("K10 jitter inputs: a loss stream drops nothing")
+
+    # the bound of the path's case (jitter and the fault loss): a hash per
+    # sent bit of a jittered edge that survives the loss, eight per sent
+    # word of an edge under a threshold; the bytes of K10's rows
+    words = packed._edge_words(sending, ok, f)
+    loss_hashes = int(((words != 0) & (thr > 0)[:, None]).sum()) * 8
+    packed._keep_stream_(words, thr, faults.fault_key(
+        key, seed, faults.WIRE_LOSS_TAG))  # what the loss lets through
+    jitter_hashes = int(popcount(words[jit > 0]).sum())
+    rows_touched = torch.unique((slot.long() * n + dst.long())[ok]).numel()
+    nbytes = (sending.numel() * 4 + e * (4 + 4 + 1 + 1 + 4)
+              + 2 * rows_touched * w * 4 * 2)
+    ops = (loss_hashes + jitter_hashes) * OPS_PER_HASH
+    rate = _int32_ops_per_s()
+    ring_k, ring_p = ring0.clone(), ring0.clone()
+    args = (sending, dst, slot, ok, thr, key, seed, f)
+    return dict(
+        name="broadcast_scatter_jitter",
+        source="corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
+        replaces="corrosion_tpu/sim/faults.py:285",
+        equal=equal, max_abs_err=err,
+        ms=_timed(timed, lambda: packed.scatter_sending_lossy(
+            ring_k, *args, jit=jit)),
+        plain_ms=_time_eager_ms(lambda: packed.scatter_sending_lossy_plain(
+            ring_p, *args, jit=jit), SLOW_PLAIN_REPS) if timed else None,
+        bound_ms=max(_bound_ms(nbytes), ops / rate * 1e3),
+        bound_by="operations" if ops / rate * 1e3 > _bound_ms(nbytes)
+        else "bytes",
+        ops=ops, hashes=loss_hashes + jitter_hashes, bytes=nbytes,
+        kernel="broadcast_scatter_jitter",
+    )
+
+
+def compare_sync_delay(dev, g, n=STORM_N, timed=True):
+    """K3's delay entry, and its metered entry with the same classes, at
+    the latency storm's shapes (N = 100000, W = 16, S = 3, D = 4) with
+    the session delays of its round 6 (K9's): two consecutive rounds on
+    a ring whose slots already hold words — round t + 1's class-0 slot is
+    round t's class-1 slot — against the plain class loop, with words
+    that carry bit 31."""
+    from corrosion_tpu_torch.sim import faults, packed
+
+    cfg, meta, fplan = _latency_storm(n, dev)
+    w, s, d = cfg.n_payloads // 32, cfg.sync_peers, cfg.n_delay_slots
+    rf = faults.round_faults(fplan, LATENCY_T)
+    masks = _random_words(g, (n, 4, w), dev)
+    miss = _random_words(g, (n, w), dev, 2)
+    peers = torch.as_tensor(g.integers(0, n, (n, s)), dtype=torch.int32,
+                            device=dev)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(s)
+    ok = torch.as_tensor(g.random(n * s) < 0.7, device=dev)
+    _, sdelay = faults.fault_session_effects(rf, src, peers.reshape(-1), ok)
+    ok = ok.reshape(n, s)
+    ring0 = _random_words(g, (d, n, w), dev, 5)
+    budget = 3 * 8 * 1024  # three 8 KiB payloads an edge: it binds
+    equal, err = True, 0
+    for b in (None, budget):
+        got, want = ring0.clone(), ring0.clone()
+        for r in range(2):
+            slot = (LATENCY_T + 1 + r) % d
+            args = (masks, miss, peers, ok)
+            kw = dict(budget=b, nbytes=meta.nbytes, sdelay=sdelay, slot=slot)
+            fr_k = packed.sync_pull(*args, got, **kw)
+            fr_p = packed.sync_pull_plain(*args, want, **kw)
+            e_, x = _equal_all([fr_k, got], [fr_p, want])
+            equal, err = equal and e_, max(err, x)
+        if b is None:
+            classes_pulled = want
+    if torch.equal(want, classes_pulled):
+        raise AssertionError("K3 delay inputs: the sync budget never binds")
+    grew = classes_pulled & ~ring0
+    _trap(4, "a slot written by round t's class 1 is round t + 1's class 0: "
+          "read-OR-write keeps both (and bit 31 words)",
+          bool(((ring0 != 0) & (grew != 0))[(LATENCY_T + 2) % d].any())
+          and bool((sdelay == 1).any()) and bool((sdelay == 0).any())
+          and bool((grew < 0).any()))
+    work = ring0.clone()
+
+    def restore():
+        work.copy_(ring0)
+
+    slot = (LATENCY_T + 1) % d
+    nbytes = (_nbytes(masks, miss, peers, ok, sdelay)
+              + 2 * 2 * n * w * 4 + n)  # two slots in and out, fruitful
+    rows = [_row(
+        "sync_pull_delay", "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
+        "corrosion_tpu/sim/packed.py:1256", equal, err,
+        _timed(timed, lambda: packed.sync_pull(
+            masks, miss, peers, ok, work, sdelay=sdelay, slot=slot), restore),
+        _timed(timed, lambda: packed.sync_pull_plain(
+            masks, miss, peers, ok, work, sdelay=sdelay, slot=slot), restore),
+        nbytes, kernel="sync_pull_delay")]
+    rows[0]["metered_ms"] = _timed(timed, lambda: packed.sync_pull(
+        masks, miss, peers, ok, work, budget, meta.nbytes, sdelay=sdelay,
+        slot=slot), restore)
+    return rows
+
+
+def compare_latency_kernels(dev, seed=4):
+    """Phase 3e: K9's latency entry, K10's jitter stream and K3's delay
+    entry (plain and metered) at the latency storm's shapes, every trap
+    of the slice reached."""
+    g = np.random.default_rng(seed)
+    rows = [compare_fault_latency(dev, g), compare_scatter_jitter(dev, g),
+            *compare_sync_delay(dev, g)]
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
 _START = time.monotonic()
 
 
@@ -2365,6 +2767,10 @@ def main() -> int:
     trace_kernel_rows = compare_trace_kernels(dev)
     print("kernel comparisons equal for the flight recorder", flush=True)
     _lap("flight recorder kernel comparisons")
+    latency_kernel_rows = compare_latency_kernels(dev)
+    print("kernel comparisons equal at the latency storm's shapes",
+          flush=True)
+    _lap("latency kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -2574,9 +2980,49 @@ def main() -> int:
                              "the golden fault storm")
     print(f"config_fault_storm_telemetry: {json.dumps(rung)} card={card}",
           flush=True)
-    print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
 
     _lap("path 8, the flight recorder")
+    # path 9, latency-storm-100k: the fault storm with a delay and a
+    # jitter over the first sixth, from zeroed counters, without and
+    # with the recorder.  K9's wire and session calls take its latency
+    # entry, K10 its jitter stream in rounds 2-15 (its loss streams
+    # alone in rounds 0-1, K2 from round 16), K3 its delay entry.
+    latency_rows = ["sample_targets", "broadcast_scatter", "merge_entries",
+                    "threefry", "gaps_refresh", "converge_fold",
+                    "word_phases", "broadcast_scatter_lossy", "node_faults",
+                    "fault_edges_delay", "broadcast_scatter_jitter",
+                    "sync_pull_delay"]
+    cfg, meta, fplan = _latency_storm(STORM_N, dev)
+    latency_launches = {}
+    for tel in (False, True):
+        label = "latency_storm_100k" + ("_telemetry" if tel else "")
+        state = new_sim(cfg, 0, dev)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = faults.run_fault_plan(state, meta, cfg, Topology(), fplan,
+                                    max_rounds=3000, telemetry=tel)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        latency_launches[tel] = _path_launches(
+            kernels, latency_rows + (packed_trace if tel else []), label, tel)
+        if kernels.FAULT_REACH.launches <= 0:
+            raise AssertionError(f"fault_reach never launched on {label}")
+        run = _fault_record(out[0], out[1], wall)
+        _storm_check(run, goldens.LATENCY_STORM_100K_SEED0, label)
+        if tel:
+            run["trace"] = out[2]
+            run["telemetry"] = trace_summary(
+                trace_host(out[2], run["rounds"]), run["rounds"], cfg)
+            f32_gaps["latency_storm_100k"] = _telemetry_check(
+                run, goldens.LATENCY_STORM_100K_SEED0_TELEMETRY, 300_000,
+                512, label)
+    print("latency_storm_100k launches per round: " + json.dumps({
+        row: latency_launches[False][row] / goldens.LATENCY_STORM_100K_SEED0[
+            "rounds"] for row in latency_rows}), flush=True)
+    print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
+    _lap("path 9, the latency storm")
+
     storm_profile = profile_storm(dev)
     print("profile: " + json.dumps(storm_profile), flush=True)
     fault_profile = profile_storm(dev, faults=True)
@@ -2597,6 +3043,11 @@ def main() -> int:
     print("profile: " + json.dumps(profile_heal(dev)), flush=True)
     print("profile_gapstress: " + json.dumps(profile_gapstress(dev)),
           flush=True)
+    # a latency-window round, then the same rounds without the latency
+    # pair: what the delay, jitter and session delays cost
+    for latency in (True, False):
+        print("profile_latency: " + json.dumps(
+            profile_latency(dev, latency=latency)), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -2625,6 +3076,10 @@ def main() -> int:
         row["launches"] = tel_launches[path][row["kernel"]]
         row["path"] = path
     rows += trace_kernel_rows
+    for row in latency_kernel_rows:
+        row["launches"] = latency_launches[False][row["kernel"]]
+        row["path"] = "latency_storm_100k"
+    rows += latency_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

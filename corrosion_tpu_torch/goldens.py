@@ -8,9 +8,9 @@ the final state (`convert.state_digest`, equal to the JAX suite's
 ``_digest``); the comment above each names the JAX call.
 ``chip_smoke.py`` holds the port's runs on the card against them;
 ``tests/test_torch_storm.py``, ``tests/test_torch_fault_storm.py``,
-``tests/test_torch_dense.py``, ``tests/test_torch_swim_full.py`` and
-``tests/test_torch_gapstress.py`` hold them against live JAX (the
-largest under ``-m slow``).  The ``*_TELEMETRY`` entries at the end are
+``tests/test_torch_dense.py``, ``tests/test_torch_swim_full.py``,
+``tests/test_torch_gapstress.py`` and ``tests/test_torch_latency.py``
+hold them against live JAX (the largest under ``-m slow``).  The ``*_TELEMETRY`` entries at the end are
 the same runs' flight-recorder summaries and per-round byte channels;
 ``tests/test_torch_telemetry.py`` holds the 3-node and broadcast-1k ones
 against live JAX.
@@ -43,6 +43,20 @@ FAULT_STORM_100K_SEED0 = {
     "rounds": 29,
     "p99_node_convergence_round": 25.0,
     "digest": "1cd8919e20ad0df8",
+}
+
+# the latency storm: cfg, meta = _write_storm(100000, 512) with
+# n_delay_slots=4 (the one change to the storm: compile_plan needs the
+# topology's 1 + delay 1 + jitter 1 < n_delay_slots), and
+# run_fault_plan(new_sim(cfg, 0), meta, cfg, Topology(),
+# compile_plan(plan, cfg, Topology()), max_rounds=3000), where plan is
+# storm_fault_plan(100000, 0)'s events followed by
+# FaultEvent("delay", 2, 16, src="0:16666", dst="*", delay_rounds=1) and
+# FaultEvent("jitter", 2, 16, src="0:16666", dst="*", delay_rounds=1)
+LATENCY_STORM_100K_SEED0 = {
+    "rounds": 29,
+    "p99_node_convergence_round": 26.0,
+    "digest": "652c9355f037a8c9",
 }
 
 # runner.config_ground_truth_3node(seed=0), its final state from
@@ -379,4 +393,40 @@ BROADCAST_1K_SEED0_TELEMETRY = {'summary': {'rounds': 73,
                 9756672.0, 9428992.0, 8953856.0, 10354688.0, 8912896.0,
                 9199616.0, 7954432.0, 10919936.0, 9781248.0, 10428416.0,
                 7446528.0, 8593408.0, 1679360.0, 122880.0, 49152.0, 49152.0,
+                0.0]}
+
+# the latency storm's run above with telemetry=True, then trace_summary
+# (tests/test_torch_latency.py re-derives both latency entries under -m slow)
+LATENCY_STORM_100K_SEED0_TELEMETRY = {'summary': {'rounds': 29,
+             'coverage_curve_digest': '38c877501a4dd467',
+             'coverage_latency_rounds': {'p50': 23.0,
+                                         'p95': 27.0,
+                                         'p99': 28.0,
+                                         'uncovered_payloads': 0},
+             'wire_frames': {'broadcast': 1398233452, 'sync': 12604442},
+             'fault': {'dropped_frames': 629767,
+                       'cut_edges': 1800283,
+                       'refused_sessions': 212426,
+                       'crash_node_rounds': 12,
+                       'wipes': 1},
+             'sync_sessions': 976668,
+             'swim': {'peak_suspect': 296781, 'peak_down': 203417},
+             'gap_overflow_rounds': 0},
+ 'wire_bytes': {'broadcast': 11454329651200.0,
+                'sync': 103255588864.0,
+                'per_round_mean': 398537422071.2},
+ 'bcast_bytes': [1572864.0, 5578752.0, 21282816.0, 64610304.0, 101621760.0,
+                 219021312.0, 461365248.0, 988495872.0, 2082742272.0,
+                 4368924672.0, 8925650944.0, 17416830976.0, 31116156928.0,
+                 51798245376.0, 75383021568.0, 100426252288.0, 250371915776.0,
+                 361044738048.0, 476414312448.0, 604279865344.0,
+                 744786558976.0, 885490450432.0, 1009682022400.0,
+                 1112550146048.0, 1177866862592.0, 1185302970368.0,
+                 1160944418816.0, 1119693176832.0, 1072519708672.0],
+ 'sync_bytes': [0.0, 704512.0, 2211840.0, 9461760.0, 15507456.0, 35233792.0,
+                82526208.0, 185925632.0, 128851968.0, 339812352.0, 687546368.0,
+                1257177088.0, 2001903616.0, 2608177152.0, 3083149312.0,
+                3336871936.0, 8711536640.0, 9300484096.0, 10752499712.0,
+                12484943872.0, 12928385024.0, 12227780608.0, 10626080768.0,
+                8344870912.0, 3515695104.0, 538894336.0, 46555136.0, 2801664.0,
                 0.0]}

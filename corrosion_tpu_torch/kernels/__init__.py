@@ -36,7 +36,17 @@ replaces:
   `coverage_delivered_dense_`;
 - K18 `TRACE_WIRE_WORDS`, `TRACE_WIRE_ROWS` — `sim.telemetry.wire_words_`,
   `wire_rows_`;
-- K19 `TRACE_ROW` — `sim.telemetry.record_row`.
+- K19 `TRACE_ROW` — `sim.telemetry.record_row`;
+- K9's latency entry `FAULT_EDGES_DELAY` (K9's launcher, counted apart)
+  — `sim.faults.fault_edge_delay`, `fault_edge_jitter`,
+  `fault_session_delay`, `fault_session_effects` and
+  `fault_wire_effects` under a plan with delay or jitter factors;
+- K10's jitter stream `BROADCAST_SCATTER_JITTER` (K10's launcher,
+  counted apart) — `sim.packed.scatter_sending_lossy` in a round with
+  jitter;
+- K3's delay entry `SYNC_PULL_DELAY` (K3's launcher, counted apart) —
+  `sim.packed.sync_pull` with session delays (the metered entry takes
+  them too, and counts as itself).
 
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
@@ -45,7 +55,9 @@ A wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other.  `PORTED` groups
 the entry points by kernel, in K order (K10 is a second entry point of
 K2's source with a row of its own, and so are K1's uniform entry, K3's
-metered entry, and the dense round's entries of K17 and K18).
+metered entry, the dense round's entries of K17 and K18, and this
+slice's three latency entries, which share a C launcher with the entry
+they extend and keep counts of their own).
 """
 
 from .build import Kernel, build_all
@@ -58,9 +70,9 @@ BROADCAST_SCATTER = Kernel(
 )
 BROADCAST_SCATTER_LOSSY = Kernel(
     "broadcast_scatter_lossy", "broadcast_scatter.cu",
-    "corro_broadcast_scatter_lossy", 7,
+    "corro_broadcast_scatter_lossy", 10,
 )
-SYNC_PULL = Kernel("sync_pull", "sync_pull.cu", "corro_sync_pull", 3)
+SYNC_PULL = Kernel("sync_pull", "sync_pull.cu", "corro_sync_pull", 5)
 MERGE_ENTRIES = Kernel(
     "merge_entries", "merge_entries.cu", "corro_merge_entries", 5
 )
@@ -81,7 +93,9 @@ WORD_DELIVER = Kernel(
     "word_deliver", "word_phases.cu", "corro_word_deliver", 5
 )
 
-FAULT_EDGES = Kernel("fault_edges", "fault_edges.cu", "corro_fault_edges", 7)
+FAULT_EDGES = Kernel(
+    "fault_edges", "fault_edges.cu", "corro_fault_edges", 11
+)
 FAULT_REACH = Kernel("fault_reach", "fault_edges.cu", "corro_fault_reach", 8)
 NODE_FAULTS = Kernel("node_faults", "node_faults.cu", "corro_node_faults", 6)
 
@@ -111,7 +125,7 @@ BUDGET_WORDS = Kernel(
     "budget_words", "budget_words.cu", "corro_budget_words", 3
 )
 SYNC_PULL_METERED = Kernel(
-    "sync_pull_metered", "sync_pull.cu", "corro_sync_pull_metered", 4
+    "sync_pull_metered", "sync_pull.cu", "corro_sync_pull_metered", 6
 )
 
 TRACE_COUNTS = Kernel(
@@ -131,6 +145,16 @@ TRACE_WIRE_ROWS = Kernel(
     "trace_wire_rows", "trace_wire.cu", "corro_trace_wire_rows", 2
 )
 TRACE_ROW = Kernel("trace_row", "trace_row.cu", "corro_trace_row", 6)
+
+FAULT_EDGES_DELAY = Kernel(
+    "fault_edges_delay", "fault_edges.cu", "corro_fault_edges", 11
+)
+BROADCAST_SCATTER_JITTER = Kernel(
+    "broadcast_scatter_jitter", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_lossy", 10,
+)
+SYNC_PULL_DELAY = Kernel("sync_pull_delay", "sync_pull.cu", "corro_sync_pull",
+                         5)
 
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
@@ -156,6 +180,9 @@ PORTED = {
     "trace_wire": (TRACE_WIRE_WORDS,),
     "trace_wire_rows": (TRACE_WIRE_ROWS,),
     "trace_row": (TRACE_ROW,),
+    "fault_edges_delay": (FAULT_EDGES_DELAY,),
+    "broadcast_scatter_jitter": (BROADCAST_SCATTER_JITTER,),
+    "sync_pull_delay": (SYNC_PULL_DELAY,),
 }
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
@@ -170,14 +197,15 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "BROADCAST_SCATTER", "BROADCAST_SCATTER_LOSSY", "BUDGET_WORDS",
+    "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
+    "BROADCAST_SCATTER_LOSSY", "BUDGET_WORDS",
     "CONVERGE_FINISH", "CONVERGE_ROWS", "DENSE_BROADCAST", "DENSE_DELIVER",
     "DENSE_GAPS_FINISH", "DENSE_GAPS_ROWS", "DENSE_INJECT", "DENSE_SYNC",
-    "FAULT_EDGES",
+    "FAULT_EDGES", "FAULT_EDGES_DELAY",
     "FAULT_REACH", "GAPS_REFRESH", "KERNELS", "Kernel", "MERGE_ENTRIES",
     "NODE_FAULTS", "PORTED", "RANDINT", "SAMPLE_TARGETS", "SAMPLE_UNIFORM",
     "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL",
-    "SYNC_PULL_METERED", "THREEFRY", "TRACE_COUNTS", "TRACE_COVERAGE",
+    "SYNC_PULL_DELAY", "SYNC_PULL_METERED", "THREEFRY", "TRACE_COUNTS", "TRACE_COVERAGE",
     "TRACE_COVERAGE_DENSE", "TRACE_ROW", "TRACE_ROWS", "TRACE_WIRE_ROWS",
     "TRACE_WIRE_WORDS", "WORD_DELIVER", "WORD_INJECT", "WORD_SPEND",
     "build_all", "reset_launch_counts",

@@ -45,6 +45,32 @@
 // same result.  Bound in a lossy round: operations — up to E*P/4 hashes
 // of ~72 u32 operations each per stream; outside it, K2's bytes.
 //
+// K10's third stream, the fault plan's jitter (corrosion_tpu/sim/
+// faults.py:285-299 and the per-(edge, payload) ring scatter of
+// corrosion_tpu/sim/packed.py:492-506), reorders messages within a
+// flush: payload q of edge e lands in slot (slot[e] + j) % D with
+//   j = randint(fold_in(fold_in(key, seed), 102), [E, P], 0, 2^31 - 1)
+//       [e, q] % (jit[e] + 1)      where jit[e] > 0, else 0
+// (slot[e] already holds t + the topology's and the plan's fixed delay;
+// jit[e] is K9's jitter bound).  randint splits its key in two and
+// hashes element e*P + q under each half (u32 draws `higher` and
+// `lower`, one hash each), then offset = ((higher % span) * mult +
+// lower % span) % span in u32, span = 2^31 - 1 and mult = (2^16 % span)^2
+// % span computed in u32, where 2^32 wraps to 0: the multiplier is 0
+// and `higher` drops out, so the kernel skips its hash when the
+// wrapper's mult is 0 (exact; it hashes it for any other mult).  The
+// element index e*P + q is the i32 draw's (one hash per element per
+// key), not the loss streams' u8 index; it must stay below 2^32.
+// Each thread draws only the bits that survive the loss streams on an
+// edge with jit[e] > 0, keeps one 32-bit mask per slot offset in
+// registers (offsets 0..3; a bound of 4 or more ORs bit by bit) and
+// issues one atomicOr per nonzero mask.  An edge without jitter sends
+// its word to slot[e] in one atomicOr, as K2.  JAX draws the whole
+// [E, P] whenever the plan has a jitter factor; threefry is
+// counter-based, so skipping the draws no bit needs changes nothing.
+// Bound in a jittered round: operations — one hash (~72 u32
+// operations) per sent bit of a jittered edge.
+//
 // With the flight recorder on, K10 also counts the frames the wire ate
 // (corrosion_tpu/sim/packed.py:573-581: popcount of drop & sending on ok
 // edges, both streams): each thread counts the bits its keep masks
@@ -76,14 +102,68 @@ __device__ __forceinline__ uint32_t keep_mask(uint32_t k1, uint32_t k2,
   return keep;
 }
 
+// The jitter stream's keys and randint constants, per block.
+struct Jitter {
+  const int32_t* jit;  // [E] jitter bound, or null: no jitter stream
+  uint32_t sub[4];     // randint's two subkeys of the folded key
+  uint32_t span, mult;
+};
+
+constexpr int kFastOffsets = 4;
+
+// OR the surviving bits `v` of edge e's word k into the ring, each bit
+// at slot (s + j) % D for its jitter draw j in [0, jb].
+__device__ __forceinline__ void jitter_or(uint32_t* __restrict__ ring,
+                                          const Jitter& jt, uint32_t v,
+                                          int e, int k, int row, int s,
+                                          int jb, int n, int d_slots, int w) {
+  const uint32_t idx0 = (uint32_t)e * (32u * (uint32_t)w) + 32u * (uint32_t)k;
+  const bool fast = jb < kFastOffsets;
+  uint32_t m[kFastOffsets] = {0u, 0u, 0u, 0u};
+  while (v) {
+    int b = __ffs(v) - 1;
+    v &= v - 1u;
+    corro::Pair lo = corro::threefry2x32(jt.sub[2], jt.sub[3], 0u, idx0 + b);
+    uint32_t off = (lo.a ^ lo.b) % jt.span;
+    if (jt.mult != 0u) {
+      corro::Pair hi =
+          corro::threefry2x32(jt.sub[0], jt.sub[1], 0u, idx0 + b);
+      off = ((hi.a ^ hi.b) % jt.span) * jt.mult + off;
+    }
+    off %= jt.span;  // the draw, in [0, 2^31 - 1)
+    uint32_t j = off % (uint32_t)(jb + 1);
+    uint32_t bit = 1u << b;
+    if (fast) {
+#pragma unroll
+      for (int o = 0; o < kFastOffsets; ++o)
+        if (j == (uint32_t)o) m[o] |= bit;
+    } else {
+      uint32_t slot_b = ((uint32_t)s + j) % (uint32_t)d_slots;
+      atomicOr(&ring[((size_t)slot_b * n + row) * w + k], bit);
+    }
+  }
+  if (!fast) return;
+#pragma unroll
+  for (int o = 0; o < kFastOffsets; ++o) {
+    if (m[o]) {
+      uint32_t slot_o = ((uint32_t)s + (uint32_t)o) % (uint32_t)d_slots;
+      atomicOr(&ring[((size_t)slot_o * n + row) * w + k], m[o]);
+    }
+  }
+}
+
 // One edge word: OR what survives the live streams into the ring and
-// return how many of the word's sent bits the streams dropped.
+// return how many of the word's sent bits the streams dropped.  The
+// jitter path is compiled only into the jitter instantiation, so K2's
+// and K10's loss-only launches keep their registers (and occupancy).
+template <bool kJitter>
 __device__ __forceinline__ uint32_t scatter_word(
     uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
     const bool* __restrict__ ok, const uint8_t* __restrict__ thr,
-    const int64_t* __restrict__ topo_key, const uint32_t* folded, size_t i,
-    int n, int d_slots, int w, int fanout, int topo_thr) {
+    const int64_t* __restrict__ topo_key, const uint32_t* folded,
+    const Jitter& jt, size_t i, int n, int d_slots, int w, int fanout,
+    int topo_thr) {
   int e = (int)(i / w);
   int k = (int)(i % w);
   if (!ok[e]) return 0u;
@@ -102,39 +182,64 @@ __device__ __forceinline__ uint32_t scatter_word(
     int row = dst[e];
     int s = slot[e];
     // jnp scatters drop out-of-range updates; so does this one
-    if (row >= 0 && row < n && s >= 0 && s < d_slots)
-      atomicOr(&ring[((size_t)s * n + row) * w + k], v);
+    if (row >= 0 && row < n && s >= 0 && s < d_slots) {
+      int jb = kJitter ? jt.jit[e] : 0;
+      if (jb > 0)
+        jitter_or(ring, jt, v, e, k, row, s, jb, n, d_slots, w);
+      else
+        atomicOr(&ring[((size_t)s * n + row) * w + k], v);
+    }
   }
   return __popc(sent & ~v);
 }
 
 // One body for both entry points: K2 passes null `thr`, `key`,
-// `topo_key` and `dropped` and draws nothing; K10 passes the streams it
-// has, and `dropped` when the flight recorder counts.
+// `topo_key`, `dropped` and `jit` and draws nothing; K10 passes the
+// streams it has, and `dropped` when the flight recorder counts.
+template <bool kJitter>
 __global__ void broadcast_scatter_kernel(
     uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
     const bool* __restrict__ ok, const uint8_t* __restrict__ thr,
     const int64_t* __restrict__ key, const int64_t* __restrict__ topo_key,
-    unsigned long long* __restrict__ dropped, int n, int d_slots, int w,
-    int fanout, int n_edges, uint32_t seed, uint32_t tag, int topo_thr) {
+    unsigned long long* __restrict__ dropped,
+    const int32_t* __restrict__ jit, int n, int d_slots, int w, int fanout,
+    int n_edges, uint32_t seed, uint32_t tag, int topo_thr, uint32_t jit_tag,
+    uint32_t span, uint32_t mult) {
   __shared__ uint32_t folded[2];
+  __shared__ uint32_t jsub[4];
   __shared__ unsigned long long lost_block;
-  if (thr != nullptr) {
+  if (thr != nullptr || kJitter) {
     if (threadIdx.x == 0) {
       corro::Pair f = corro::threefry2x32((uint32_t)key[0],
                                           (uint32_t)key[1], 0u, seed);
       corro::Pair g = corro::threefry2x32(f.a, f.b, 0u, tag);
       folded[0] = g.a;
       folded[1] = g.b;
+      if (kJitter) {
+        // randint(fold_in(fold_in(key, seed), jit_tag)): split(., 2)
+        corro::Pair h = corro::threefry2x32(f.a, f.b, 0u, jit_tag);
+        corro::Pair s0 = corro::threefry2x32(h.a, h.b, 0u, 0u);
+        corro::Pair s1 = corro::threefry2x32(h.a, h.b, 0u, 1u);
+        jsub[0] = s0.a;
+        jsub[1] = s0.b;
+        jsub[2] = s1.a;
+        jsub[3] = s1.b;
+      }
     }
     __syncthreads();
+  }
+  Jitter jt{jit, {0u, 0u, 0u, 0u}, span, mult};
+  if (kJitter) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) jt.sub[q] = jsub[q];
   }
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t lost = 0u;
   if (i < (size_t)n_edges * w)
-    lost = scatter_word(ring, sending, dst, slot, ok, thr, topo_key, folded,
-                        i, n, d_slots, w, fanout, topo_thr);
+    lost = scatter_word<kJitter>(ring, sending, dst, slot, ok, thr, topo_key,
+                                 folded, jt, i, n, d_slots, w, fanout,
+                                 topo_thr);
   if (dropped == nullptr) return;
   if (threadIdx.x == 0) lost_block = 0ull;
   __syncthreads();
@@ -157,37 +262,49 @@ extern "C" int corro_broadcast_scatter(void* ring, const void* sending,
   size_t total = (size_t)n_edges * w;
   int threads = 256;
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  broadcast_scatter_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  broadcast_scatter_kernel<false>
+      <<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
-      nullptr, n, d_slots, w, fanout, n_edges, 0u, 0u, 0);
+      nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u, 0u, 0, 0u, 1u,
+      0u);
   return (int)cudaGetLastError();
 }
 
-// `thr` and `key` are null without fault loss, `topo_key` is null when
-// topo_thr is 0 (no topology loss), `dropped` is null when nothing counts
-// the lost frames.
+// `thr` is null without fault loss and `jit` without jitter; `key` (the
+// broadcast phase key both fault streams fold) is null when both are;
+// `topo_key` is null when topo_thr is 0 (no topology loss), `dropped` is
+// null when nothing counts the lost frames.  `span` and `mult` are
+// randint's for the jitter draw's bounds.
 extern "C" int corro_broadcast_scatter_lossy(
     void* ring, const void* sending, const void* dst, const void* slot,
     const void* ok, const void* thr, const void* key, const void* topo_key,
-    void* dropped, int n, int d_slots, int w, int fanout, int seed, int tag,
-    int topo_thr, void* stream) {
-  if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 ||
-      (thr == nullptr) != (key == nullptr) ||
+    void* dropped, const void* jit, int n, int d_slots, int w, int fanout,
+    int seed, int tag, int topo_thr, int jit_tag, int span, int mult,
+    void* stream) {
+  if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 || d_slots <= 0 ||
+      ((thr != nullptr || jit != nullptr) != (key != nullptr)) ||
+      (jit != nullptr && span == 0) ||
       (topo_thr > 0 && topo_thr < 256 && topo_key == nullptr))
     return (int)cudaErrorInvalidValue;
   int n_edges = n * fanout;
-  // the draw's word index e*8w + 8k + j is a u32 counter
-  if ((unsigned long long)n_edges * 8ull * (unsigned long long)w >=
+  // the loss draws' word index e*8w + 8k + j and the jitter draw's
+  // element index e*32w + 32k + b are u32 counters
+  unsigned long long per_word = jit != nullptr ? 32ull : 8ull;
+  if ((unsigned long long)n_edges * per_word * (unsigned long long)w >=
       (1ull << 32))
     return (int)cudaErrorInvalidValue;
   size_t total = (size_t)n_edges * w;
   int threads = 256;
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  broadcast_scatter_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  auto kernel = jit != nullptr ? broadcast_scatter_kernel<true>
+                                : broadcast_scatter_kernel<false>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, (const uint8_t*)thr,
       (const int64_t*)key, (const int64_t*)topo_key,
-      (unsigned long long*)dropped, n, d_slots, w, fanout, n_edges, (uint32_t)seed, (uint32_t)tag, topo_thr);
+      (unsigned long long*)dropped, (const int32_t*)jit, n, d_slots, w,
+      fanout, n_edges, (uint32_t)seed, (uint32_t)tag, topo_thr,
+      (uint32_t)jit_tag, (uint32_t)span, (uint32_t)mult);
   return (int)cudaGetLastError();
 }

@@ -2,23 +2,33 @@
 //
 // Replaces corrosion_tpu/sim/faults.py:182 _factored_hits and what the
 // round builds on it: faults.py:195 fault_edge_block, :207
-// fault_edge_loss, :303 fault_session_refused, the cut and threshold
-// half of :260 fault_wire_effects, and the fault branch of
-// corrosion_tpu/sim/swim.py:125 _reachable (swim.py:161-181).  The plain
-// versions are in corrosion_tpu_torch/sim/faults.py.
+// fault_edge_loss, :226 fault_edge_delay, :243 fault_edge_jitter, :303
+// fault_session_refused, :312 fault_session_delay, the per-edge half of
+// :260 fault_wire_effects (cuts, thresholds, the fixed delay, the
+// jitter bound), and the fault branch of corrosion_tpu/sim/swim.py:125
+// _reachable (swim.py:161-181).  The plain versions are in
+// corrosion_tpu_torch/sim/faults.py.
 //
 // A factor k hits edge (s, d) this round when on[k] & src_mask[k, s] &
 // dst_mask[k, d] and s != d: self-edges never fault (the probe relay
 // legs do evaluate (x, x) edges).  An edge is cut when any block factor
 // hits it; its extra loss threshold is the max of the hitting loss
-// factors' thresholds (0 when none hits).  `on` is a column of the
-// plan's [K, R+1] active matrix, read with its stride.
+// factors' thresholds (0 when none hits); its fault delay is the SUM of
+// the hitting delay factors' rounds (overlapping delays add); its
+// jitter bound the MAX of the hitting jitter factors' rounds (0 when
+// none hits); its session delay the max of its own delay and the
+// reversed edge's (the slower direction bounds the bidirectional sync
+// stream).  `on` is a column of the plan's [K, R+1] active matrix, read
+// with its stride.
 //
-// Two entry points, one thread per edge:
+// Two C functions, one thread per edge:
 //   corro_fault_edges  writes the cut (optionally OR the reversed edge's
 //                      cut: a sync session dies on a cut in either
 //                      direction) and/or the threshold, and/or clears
-//                      ok[e] on a cut — the query, session and wire calls;
+//                      ok[e] on a cut, and/or the three i32 latency
+//                      outputs (fault delay, jitter bound, session
+//                      delay) — the query, session and wire calls, each
+//                      one pass over the factors;
 //   corro_fault_reach  _reachable's whole fault branch in place:
 //                      ok[e] &= !cut & !(u8 bits[e] < thr[e]), the bits
 //                      being aligned_u8_bits(fold_in(fold_in(key, seed),
@@ -27,6 +37,9 @@
 //                      counter (0, i) whatever the draw's padded length.
 //                      Each block derives the folded key once; an edge
 //                      with no threshold draws nothing (no u8 is below 0).
+// The wrappers launch corro_fault_edges through two counters: the
+// latency entry (`FAULT_EDGES_DELAY`) whenever a call asks for a latency
+// output, the plain entry (`FAULT_EDGES`) otherwise.
 //
 // With the flight recorder on, corro_fault_edges also counts into an
 // int64 accumulator the ok edges its cut clears (`count`, which needs
@@ -36,10 +49,12 @@
 // once.  A null `count` (telemetry off) counts nothing.
 //
 // Bound on the H100: launch latency.  An edge reads two int32 ids and
-// K mask bytes at each of them; at the storm's E <= 300000 and K <= 2
-// that is under 4 MB, about a microsecond of memory time, below the
-// cost of a launch.  Design: the simplest one-pass form; the masks of a
-// half-split partition are byte arrays the caches hold whole.
+// K mask bytes at each of them, and writes at most 14 bytes; at the
+// storm's E <= 300000 and K <= 2 per class that is under 8 MB (the
+// latency outputs add 3.6 MB), a few microseconds of memory time at
+// most, near the cost of a launch.  Design: the simplest one-pass form;
+// the masks of a half-split partition or a first-sixth delay are byte
+// arrays the caches hold whole.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -79,11 +94,43 @@ __device__ __forceinline__ uint8_t loss_threshold(const Factors& l,
   return m;
 }
 
+// The summed rounds of the hitting factors (fault delay) or their max
+// (jitter bound), 0 on a self-edge.
+__device__ __forceinline__ int32_t delay_sum(const Factors& f,
+                                            const int32_t* val, int n, int s,
+                                            int d) {
+  int32_t sum = 0;
+  if (s == d) return sum;
+  for (int kk = 0; kk < f.k; ++kk)
+    if (hits(f, kk, n, s, d)) sum += val[kk];
+  return sum;
+}
+
+__device__ __forceinline__ int32_t jitter_max(const Factors& f,
+                                             const int32_t* val, int n,
+                                             int s, int d) {
+  int32_t m = 0;
+  if (s == d) return m;
+  for (int kk = 0; kk < f.k; ++kk)
+    if (hits(f, kk, n, s, d) && val[kk] > m) m = val[kk];
+  return m;
+}
+
+struct Latency {
+  Factors delay;
+  const int32_t* delay_rounds;  // [kd]
+  Factors jitter;
+  const int32_t* jitter_rounds;  // [kj]
+  int32_t* delay_out;            // [e] or null
+  int32_t* jit_out;              // [e] or null
+  int32_t* sdelay_out;           // [e] or null
+};
+
 __device__ __forceinline__ bool in_range(int s, int d, int n) {
   return s >= 0 && s < n && d >= 0 && d < n;
 }
 
-__global__ void fault_edges_kernel(Factors b, Factors l,
+__global__ void fault_edges_kernel(Factors b, Factors l, Latency lat,
                                    const uint8_t* __restrict__ thr,
                                    const int32_t* __restrict__ src,
                                    const int32_t* __restrict__ dst,
@@ -100,6 +147,19 @@ __global__ void fault_edges_kernel(Factors b, Factors l,
     bool c = valid && (cut(b, n, s, d) || (sym && cut(b, n, d, s)));
     if (cut_out) cut_out[i] = c;
     if (thr_out) thr_out[i] = valid ? loss_threshold(l, thr, n, s, d) : 0;
+    if (lat.delay_out || lat.sdelay_out) {
+      int32_t fwd = valid ? delay_sum(lat.delay, lat.delay_rounds, n, s, d)
+                          : 0;
+      if (lat.delay_out) lat.delay_out[i] = fwd;
+      if (lat.sdelay_out) {
+        int32_t rev =
+            valid ? delay_sum(lat.delay, lat.delay_rounds, n, d, s) : 0;
+        lat.sdelay_out[i] = fwd > rev ? fwd : rev;
+      }
+    }
+    if (lat.jit_out)
+      lat.jit_out[i] =
+          valid ? jitter_max(lat.jitter, lat.jitter_rounds, n, s, d) : 0;
     if (ok && c) {
       cleared = ok[i] != 0;
       ok[i] = 0;
@@ -155,26 +215,38 @@ bool shapes_ok(int kb, int kl, int n, int e) {
 
 }  // namespace
 
-extern "C" int corro_fault_edges(const void* b_on, const void* b_src,
-                                 const void* b_dst, const void* l_on,
-                                 const void* l_src, const void* l_dst,
-                                 const void* l_thr, const void* src,
-                                 const void* dst, void* cut_out,
-                                 void* thr_out, void* ok, void* count,
-                                 int kb, int b_stride, int kl, int l_stride,
-                                 int n, int e, int sym, void* stream) {
-  if (!shapes_ok(kb, kl, n, e) || (count != nullptr && ok == nullptr))
+// The latency outputs need their class: `delay_out` and `sdelay_out`
+// read the delay factors (kd of them), `jit_out` the jitter factors.
+extern "C" int corro_fault_edges(
+    const void* b_on, const void* b_src, const void* b_dst, const void* l_on,
+    const void* l_src, const void* l_dst, const void* l_thr,
+    const void* d_on, const void* d_src, const void* d_dst,
+    const void* d_val, const void* j_on, const void* j_src,
+    const void* j_dst, const void* j_val, const void* src, const void* dst,
+    void* cut_out, void* thr_out, void* ok, void* count, void* delay_out,
+    void* jit_out, void* sdelay_out, int kb, int b_stride, int kl,
+    int l_stride, int kd, int d_stride, int kj, int j_stride, int n, int e,
+    int sym, void* stream) {
+  if (!shapes_ok(kb, kl, n, e) || kd < 0 || kj < 0 ||
+      (count != nullptr && ok == nullptr))
     return (int)cudaErrorInvalidValue;
   if (e == 0) return (int)cudaSuccess;
   Factors b{(const uint8_t*)b_on, (const uint8_t*)b_src,
             (const uint8_t*)b_dst, kb, b_stride};
   Factors l{(const uint8_t*)l_on, (const uint8_t*)l_src,
             (const uint8_t*)l_dst, kl, l_stride};
+  Latency lat{Factors{(const uint8_t*)d_on, (const uint8_t*)d_src,
+                      (const uint8_t*)d_dst, kd, d_stride},
+              (const int32_t*)d_val,
+              Factors{(const uint8_t*)j_on, (const uint8_t*)j_src,
+                      (const uint8_t*)j_dst, kj, j_stride},
+              (const int32_t*)j_val, (int32_t*)delay_out, (int32_t*)jit_out,
+              (int32_t*)sdelay_out};
   unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
   fault_edges_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      b, l, (const uint8_t*)l_thr, (const int32_t*)src, (const int32_t*)dst,
-      (uint8_t*)cut_out, (uint8_t*)thr_out, (uint8_t*)ok,
-      (unsigned long long*)count, n, e, sym);
+      b, l, lat, (const uint8_t*)l_thr, (const int32_t*)src,
+      (const int32_t*)dst, (uint8_t*)cut_out, (uint8_t*)thr_out,
+      (uint8_t*)ok, (unsigned long long*)count, n, e, sym);
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,8 @@
 // the sync ring, at slot t + 1, so slot (t + 1) % D was last written by
 // round t - D's sync and cleared by round t + 1 - D's deliver — for any
 // D >= 2 (the storm's 2, gapstress's 4).  The kernel writes OR, which
-// stays right for any word.
+// stays right for any word, and which the delay classes below need: with
+// them the slot may already hold grants.
 //
 // Bound on the H100: bytes.  Per node it gathers S peers' 4W-word rows
 // (random rows of 256 bytes at W = 16) and reads its own rows once.
@@ -41,6 +42,24 @@
 // warp per edge: the warp writes its need row to shared memory (S*W
 // words, 3 KB at gapstress's W = 256), meters it in place with the row
 // scan, and the block ORs the S rows into the slot.
+//
+// Delay classes (corrosion_tpu/sim/packed.py:1250-1279, K3's delay
+// entry): under a fault plan with delay factors each edge carries its
+// session delay sdelay[e] (K9's, the slower direction of the pair), and
+// its grant lands d = sdelay[e] rounds late, in ring slot (base + d) % D
+// of the whole sync ring [D, N, W] (base = (t + 1) % D); JAX folds the
+// classes d = 0..D-2 one by one, each as a read-OR-write of its slot,
+// because the slot may already hold an earlier round's slower grant (a
+// slot written in round t - 1 with d = 1 is round t's d = 0 slot: an
+// overwrite, or a max of u32 words, would lose grants).  A thread folds
+// its S edges into one register accumulator per class (classes 0..3; a
+// later class ORs straight into its slot) and ORs each nonzero
+// accumulator into its own slot word; it owns that word in every slot,
+// so no atomics.  fruitful counts every granted word, whatever its class
+// (JAX's granted.any), and a class past D - 2 lands nowhere, as in JAX's
+// loop (compile_plan keeps every delay below it).  Without delays the
+// entries take the one slot as a ring of D = 1, class 0.  The metered
+// entry folds its shared need rows the same way.
 //
 // With the flight recorder on, both entries also write each edge's
 // granted words to `granted` [E, W] (zero where the edge is not ok): the
@@ -55,6 +74,56 @@
 #include "budget_words.cuh"
 
 namespace {
+
+constexpr int kFastClasses = 4;
+
+// The sync ring and the session delays of one launch.
+struct Classes {
+  uint32_t* ring;         // [d_slots, n, w]
+  const int32_t* sdelay;  // [n * s_peers], or null: every edge class 0
+  int d_slots, base;
+};
+
+// Folds one (node, word)'s granted words by class and ORs them into the
+// ring: add(g, e) per edge, then flush().
+struct ClassFold {
+  Classes c;
+  size_t row;  // node * w + k, the word's offset within a slot
+  size_t slot_stride;
+  uint32_t acc[kFastClasses];
+  bool any;
+
+  __device__ ClassFold(const Classes& c_, size_t row_, size_t slot_stride_)
+      : c(c_), row(row_), slot_stride(slot_stride_), any(false) {
+#pragma unroll
+    for (int d = 0; d < kFastClasses; ++d) acc[d] = 0u;
+  }
+
+  __device__ __forceinline__ uint32_t* word(int d) const {
+    return c.ring + (size_t)((c.base + d) % c.d_slots) * slot_stride + row;
+  }
+
+  __device__ __forceinline__ void add(uint32_t g, size_t e) {
+    if (g == 0u) return;
+    any = true;
+    int d = c.sdelay != nullptr ? c.sdelay[e] : 0;
+    int classes = c.sdelay != nullptr ? c.d_slots - 1 : 1;
+    if (d < 0 || d >= classes) return;  // JAX's loop never reaches it
+    if (d < kFastClasses) {
+#pragma unroll
+      for (int q = 0; q < kFastClasses; ++q)
+        if (d == q) acc[q] |= g;
+    } else {
+      *word(d) |= g;
+    }
+  }
+
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int d = 0; d < kFastClasses; ++d)
+      if (acc[d] != 0u) *word(d) |= acc[d];
+  }
+};
 
 __device__ __forceinline__ uint32_t need_word(const uint32_t* __restrict__ d,
                                               int w, int k, uint32_t miss_w,
@@ -73,8 +142,7 @@ __device__ __forceinline__ uint32_t need_word(const uint32_t* __restrict__ d,
 __global__ void sync_pull_kernel(const uint32_t* __restrict__ masks,
                                  const uint32_t* __restrict__ miss,
                                  const int32_t* __restrict__ peers,
-                                 const bool* __restrict__ ok,
-                                 uint32_t* __restrict__ slot_words,
+                                 const bool* __restrict__ ok, Classes cls,
                                  uint8_t* __restrict__ fruitful,
                                  uint32_t* __restrict__ granted, int n, int w,
                                  int s_peers) {
@@ -87,7 +155,7 @@ __global__ void sync_pull_kernel(const uint32_t* __restrict__ masks,
   uint32_t partial_w = own[w + k];
   uint32_t below_w = own[2 * w + k];
   uint32_t have_w = own[3 * w + k];
-  uint32_t pulled = 0u;
+  ClassFold fold(cls, i, (size_t)n * w);
   for (int s = 0; s < s_peers; ++s) {
     size_t e = (size_t)node * s_peers + s;
     int p = peers[e];
@@ -96,12 +164,10 @@ __global__ void sync_pull_kernel(const uint32_t* __restrict__ masks,
       g = need_word(masks + (size_t)p * 4 * w, w, k, miss_w, partial_w,
                     below_w, have_w);
     if (granted) granted[e * w + k] = g;
-    pulled |= g;
+    fold.add(g, e);
   }
-  if (pulled != 0u) {
-    slot_words[(size_t)node * w + k] |= pulled;
-    fruitful[node] = 1;
-  }
+  fold.flush();
+  if (fold.any) fruitful[node] = 1;
 }
 
 constexpr int kMaxWarps = 8;
@@ -109,7 +175,7 @@ constexpr int kMaxWarps = 8;
 __global__ void sync_pull_metered_kernel(
     const uint32_t* __restrict__ masks, const uint32_t* __restrict__ miss,
     const int32_t* __restrict__ peers, const bool* __restrict__ ok,
-    uint32_t* __restrict__ slot_words, uint8_t* __restrict__ fruitful,
+    Classes cls, uint8_t* __restrict__ fruitful,
     const int32_t* __restrict__ nbytes, uint32_t* __restrict__ granted, int n,
     int w, int s_peers, long long budget) {
   extern __shared__ uint32_t need[];  // [S, W]
@@ -139,41 +205,48 @@ __global__ void sync_pull_metered_kernel(
   }
   bool any = false;
   for (int k = threadIdx.x; k < w; k += blockDim.x) {
-    uint32_t pulled = 0u;
-    for (int s = 0; s < s_peers; ++s) pulled |= need[(size_t)s * w + k];
-    if (pulled != 0u) {
-      slot_words[(size_t)node * w + k] |= pulled;
-      any = true;
-    }
+    ClassFold fold(cls, (size_t)node * w + k, (size_t)n * w);
+    for (int s = 0; s < s_peers; ++s)
+      fold.add(need[(size_t)s * w + k], (size_t)node * s_peers + s);
+    fold.flush();
+    any |= fold.any;
   }
   if (__syncthreads_or(any) && threadIdx.x == 0) fruitful[node] = 1;
 }
 
 }  // namespace
 
+// `ring` is the sync ring [d_slots, n, w] and `sdelay` the edges' session
+// delays (null: every grant lands in slot `base`; the wrappers then pass
+// the one slot as a ring of d_slots = 1).
 extern "C" int corro_sync_pull(const void* masks, const void* miss,
                                const void* peers, const void* ok,
-                               void* slot_words, void* fruitful,
-                               void* granted, int n, int w, int s_peers,
-                               void* stream) {
-  if (n <= 0 || w <= 0 || s_peers <= 0) return (int)cudaErrorInvalidValue;
+                               void* ring, void* fruitful, void* granted,
+                               const void* sdelay, int n, int w, int s_peers,
+                               int d_slots, int base, void* stream) {
+  if (n <= 0 || w <= 0 || s_peers <= 0 || d_slots <= 0 || base < 0 ||
+      base >= d_slots)
+    return (int)cudaErrorInvalidValue;
   size_t total = (size_t)n * w;
   int threads = 256;
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  Classes cls{(uint32_t*)ring, (const int32_t*)sdelay, d_slots, base};
   sync_pull_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)masks, (const uint32_t*)miss, (const int32_t*)peers,
-      (const bool*)ok, (uint32_t*)slot_words, (uint8_t*)fruitful,
-      (uint32_t*)granted, n, w, s_peers);
+      (const bool*)ok, cls, (uint8_t*)fruitful, (uint32_t*)granted, n, w,
+      s_peers);
   return (int)cudaGetLastError();
 }
 
 extern "C" int corro_sync_pull_metered(const void* masks, const void* miss,
                                        const void* peers, const void* ok,
-                                       void* slot_words, void* fruitful,
+                                       void* ring, void* fruitful,
                                        const void* nbytes, void* granted,
-                                       int n, int w, int s_peers, int budget,
-                                       void* stream) {
-  if (n <= 0 || w <= 0 || w >= (1 << 16) || s_peers <= 0)
+                                       const void* sdelay, int n, int w,
+                                       int s_peers, int d_slots, int base,
+                                       int budget, void* stream) {
+  if (n <= 0 || w <= 0 || w >= (1 << 16) || s_peers <= 0 || d_slots <= 0 ||
+      base < 0 || base >= d_slots)
     return (int)cudaErrorInvalidValue;
   size_t smem = (size_t)s_peers * w * sizeof(uint32_t);
   if (smem > 48 * 1024) {
@@ -183,11 +256,11 @@ extern "C" int corro_sync_pull_metered(const void* masks, const void* miss,
     if (err != cudaSuccess) return (int)err;
   }
   int warps = s_peers < kMaxWarps ? s_peers : kMaxWarps;
+  Classes cls{(uint32_t*)ring, (const int32_t*)sdelay, d_slots, base};
   sync_pull_metered_kernel<<<(unsigned)n, warps * 32, smem,
                              (cudaStream_t)stream>>>(
       (const uint32_t*)masks, (const uint32_t*)miss, (const int32_t*)peers,
-      (const bool*)ok, (uint32_t*)slot_words, (uint8_t*)fruitful,
-      (const int32_t*)nbytes, (uint32_t*)granted, n, w, s_peers,
-      (long long)budget);
+      (const bool*)ok, cls, (uint8_t*)fruitful, (const int32_t*)nbytes,
+      (uint32_t*)granted, n, w, s_peers, (long long)budget);
   return (int)cudaGetLastError();
 }

@@ -17,14 +17,20 @@ the round counter, because every fault key is
 not ported (ROADMAP B12) and raises.
 
 **The edge queries.**  `fault_edge_block`, `fault_edge_loss`,
-`fault_session_refused`, the cut and threshold half of
-`fault_wire_effects`, and `fault_reach_` (`swim._reachable`'s fault
-branch) run K9 (``kernels/csrc/fault_edges.cu``) on the card and the
-plain versions beside them on the CPU.  The per-(edge, payload) wire
-loss draw itself rides the ring scatter (K10,
-`packed.scatter_sending_lossy`).  Delay and jitter factors are not
-ported (ROADMAP B12): a plan that has them compiles, and the round
-raises when it reaches them.
+`fault_edge_delay` (overlapping delays add), `fault_edge_jitter`
+(overlapping jitters take the max), `fault_session_refused`,
+`fault_session_delay` (the slower direction of the pair), their
+one-launch pairings `fault_wire_effects` (the broadcast's cuts,
+thresholds, fault delay and jitter bound) and `fault_session_effects`,
+and `fault_reach_` (`swim._reachable`'s fault branch) run K9
+(``kernels/csrc/fault_edges.cu``; its latency entry when a call asks
+for a delay, jitter or session delay) on the card and the plain
+versions beside them on the CPU.  The per-(edge, payload) draws, wire
+loss and jitter, ride the ring scatter (K10's streams,
+`packed.scatter_sending_lossy`), and the session delays the sync's
+delay classes (K3's delay entry, `packed.sync_pull`).
+`host_activity` is the host's copy of each round's loss and jitter
+activity, which picks the round's ring scatter without a device read.
 """
 
 from __future__ import annotations
@@ -43,8 +49,10 @@ from .state import ALIVE, DOWN, PayloadMeta, SimConfig, SimState
 from .topology import Topology, aligned_u8_bits
 
 #: fold_in tags of the fault draws (jax's, `fault_wire_effects` and
-#: `swim._reachable`): per-(edge, payload) wire loss, per-edge probe loss
+#: `swim._reachable`): per-(edge, payload) wire loss and jitter, per-edge
+#: probe loss
 WIRE_LOSS_TAG = 101
+JITTER_TAG = 102
 PROBE_LOSS_TAG = 103
 
 #: auto-factor threshold: `compile_plan` lowers to the factored form at
@@ -337,7 +345,7 @@ def compile_plan_factored(
     l_act, l_src, l_dst, l_thr = _stack(losses, np.uint8)
     d_act, d_src, d_dst, d_val = _stack(delays, np.int32)
     j_act, j_src, j_dst, j_val = _stack(jitters, np.int32)
-    return FactoredFaultPlan(
+    fplan = FactoredFaultPlan(
         alive=put(alive), wipe=put(wipe),
         seed=torch.tensor(derive_seed(plan.seed, "sim") & 0x7FFFFFFF,
                           dtype=torch.int32),
@@ -348,6 +356,17 @@ def compile_plan_factored(
         jitter_active=j_act, jitter_src=j_src, jitter_dst=j_dst,
         jitter_rounds=j_val,
     )
+
+    def rounds_of(terms):
+        on = np.zeros(rounds + 1, np.bool_)
+        for term in terms:
+            on |= term[0]
+        return on.tolist()
+
+    setattr(fplan.alive, _ACTIVITY_ATTR, [
+        RoundActivity(a, b)
+        for a, b in zip(rounds_of(losses), rounds_of(jitters))])
+    return fplan
 
 
 def round_faults(fplan: FactoredFaultPlan, t: int) -> FactoredRoundFaults:
@@ -370,16 +389,34 @@ def round_faults(fplan: FactoredFaultPlan, t: int) -> FactoredRoundFaults:
     )
 
 
+class RoundActivity(NamedTuple):
+    """Host bools of one round: does any loss factor, or any jitter
+    factor, apply in it."""
+
+    loss: bool
+    jitter: bool
+
+
+#: the attribute of a compiled plan's ``alive`` tensor that carries its
+#: `host_activity` (the plan's fields are JAX's, so it rides a tensor)
+_ACTIVITY_ATTR = "host_activity"
+
+
+def host_activity(fplan: FactoredFaultPlan) -> list:
+    """Each round's `RoundActivity`, rounds 0..horizon, on the host, for
+    each round's choice of ring scatter (`packed.broadcast_packed`).
+    `compile_plan` keeps the copy from the numpy it compiled, so no run
+    reads the device for it; a plan made elsewhere (`convert.
+    fault_plan_from_numpy`) is read once."""
+    known = getattr(fplan.alive, _ACTIVITY_ATTR, None)
+    if known is not None:
+        return known
+    loss = fplan.loss_active.any(dim=0).cpu().tolist()
+    jitter = fplan.jitter_active.any(dim=0).cpu().tolist()
+    return [RoundActivity(a, b) for a, b in zip(loss, jitter)]
+
+
 # -- per-edge fault evaluation ------------------------------------------------
-
-
-def _require_no_delay(faults: FactoredRoundFaults) -> None:
-    if faults.delay_src.shape[0] or faults.jitter_src.shape[0]:
-        raise NotImplementedError(
-            "fault delay and jitter (fault_edge_delay/jitter, the "
-            "per-(edge, payload) ring scatter, sync delay classes) are not "
-            "ported yet (ROADMAP B12)"
-        )
 
 
 def _factored_hits(on, src_m, dst_m, src, dst) -> torch.Tensor:
@@ -403,52 +440,100 @@ def _loss_plain(faults, src, dst) -> torch.Tensor:
     return torch.where(hit, faults.loss_thr[:, None], zero).amax(dim=0)
 
 
+def _delay_plain(faults, src, dst) -> torch.Tensor:
+    """i32[E]: overlapping delay factors ADD."""
+    hit = _factored_hits(
+        faults.delay_on, faults.delay_src, faults.delay_dst, src, dst
+    )
+    return torch.where(hit, faults.delay_rounds[:, None], 0).sum(
+        dim=0, dtype=torch.int32)
+
+
+def _jitter_plain(faults, src, dst) -> torch.Tensor:
+    """i32[E]: overlapping jitter factors take the max (0 where none
+    hits)."""
+    hit = _factored_hits(
+        faults.jitter_on, faults.jitter_src, faults.jitter_dst, src, dst
+    )
+    vals = torch.where(hit, faults.jitter_rounds[:, None], 0)
+    if vals.shape[0] == 0:
+        return torch.zeros(src.shape, dtype=torch.int32, device=src.device)
+    return vals.amax(dim=0).to(torch.int32)
+
+
+def _session_delay_plain(faults, src, dst) -> torch.Tensor:
+    return torch.maximum(_delay_plain(faults, src, dst),
+                         _delay_plain(faults, dst, src))
+
+
+def _factor_args(name, on, sm, dm, use: bool, n: int):
+    """One factor class's pointers (on bits, masks) and ints (K, the on
+    column's stride) after the wrapper-side checks; a class left out
+    passes K = 0."""
+    check(f"{name} src mask", sm, torch.bool, (sm.shape[0], n))
+    check(f"{name} dst mask", dm, torch.bool, (sm.shape[0], n))
+    if not on.is_cuda or on.dtype != torch.bool or on.shape != (
+            sm.shape[0],):
+        raise ValueError("factor on bits must be a CUDA bool [K] view")
+    k = sm.shape[0] if use else 0
+    return [on, sm, dm], [k, on.stride(0) if on.numel() else 0]
+
+
 def _k9_args(faults, src, dst, blocks: bool, losses: bool):
-    """K9's factor pointers and ints (kb, b_stride, kl, l_stride, n, e)
-    after the wrapper-side checks; a class left out passes K = 0."""
+    """K9's block and loss factor pointers and ints (kb, b_stride, kl,
+    l_stride) after the wrapper-side checks, then n and e."""
     n = faults.alive.shape[0]
     e = src.shape[0]
     check("src", src, torch.int32, (e,))
     check("dst", dst, torch.int32, (e,))
-    ints = []
-    for on, sm, dm, use in (
-        (faults.block_on, faults.block_src, faults.block_dst, blocks),
-        (faults.loss_on, faults.loss_src, faults.loss_dst, losses),
-    ):
-        k = sm.shape[0] if use else 0
-        check("factor src mask", sm, torch.bool, (sm.shape[0], n))
-        check("factor dst mask", dm, torch.bool, (sm.shape[0], n))
-        if not on.is_cuda or on.dtype != torch.bool or on.shape != (
-                sm.shape[0],):
-            raise ValueError("factor on bits must be a CUDA bool [K] view")
-        ints += [k, on.stride(0) if on.numel() else 0]
+    bp, bi = _factor_args("block", faults.block_on, faults.block_src,
+                          faults.block_dst, blocks, n)
+    lp, li = _factor_args("loss", faults.loss_on, faults.loss_src,
+                          faults.loss_dst, losses, n)
     check("loss_thr", faults.loss_thr, torch.uint8,
           (faults.loss_src.shape[0],))
-    ptrs = [faults.block_on, faults.block_src, faults.block_dst,
-            faults.loss_on, faults.loss_src, faults.loss_dst,
-            faults.loss_thr, src, dst]
-    return ptrs, ints + [n, e]
+    return bp + lp + [faults.loss_thr, src, dst], bi + li + [n, e]
 
 
 def _fault_edges(faults, src, dst, blocks, losses, cut=False, thr=False,
-                 ok=None, sym=False, count=None):
+                 ok=None, sym=False, count=None, delay=False, jit=False,
+                 sdelay=False):
     """One K9 query launch: the cut (with ``sym`` OR the reversed edge's)
     and/or the threshold as new tensors, and/or ``ok`` cleared in place
     on a cut, adding the ok edges it clears to the int64 accumulator
-    ``count`` when given."""
+    ``count`` when given; with ``delay``, ``jit`` or ``sdelay`` also the
+    fault delay, jitter bound or session delay as new i32[E] tensors (the
+    latency entry).  Returns (cut, thr, delay, jit, sdelay), None for
+    each output not asked for."""
     ptrs, ints = _k9_args(faults, src, dst, blocks, losses)
-    e = src.shape[0]
-    cut_out = (torch.empty(e, dtype=torch.bool, device=src.device)
-               if cut else None)
-    thr_out = (torch.empty(e, dtype=torch.uint8, device=src.device)
-               if thr else None)
+    n, e = ints[-2:]
+    latency = delay or jit or sdelay
+    dp, di = _factor_args("delay", faults.delay_on, faults.delay_src,
+                          faults.delay_dst, delay or sdelay, n)
+    jp, ji = _factor_args("jitter", faults.jitter_on, faults.jitter_src,
+                          faults.jitter_dst, jit, n)
+    check("delay_rounds", faults.delay_rounds, torch.int32,
+          (faults.delay_src.shape[0],))
+    check("jitter_rounds", faults.jitter_rounds, torch.int32,
+          (faults.jitter_src.shape[0],))
+
+    def out(want, dtype):
+        return torch.empty(e, dtype=dtype, device=src.device) if want else None
+
+    outs = (out(cut, torch.bool), out(thr, torch.uint8),
+            out(delay, torch.int32), out(jit, torch.int32),
+            out(sdelay, torch.int32))
     if ok is not None:
         check("ok", ok, torch.bool, (e,))
     if count is not None:
         check("count", count, torch.int64, ())
-    kernels.FAULT_EDGES.launch(ptrs + [cut_out, thr_out, ok, count],
-                               ints + [int(sym)])
-    return cut_out, thr_out
+    kernel = kernels.FAULT_EDGES_DELAY if latency else kernels.FAULT_EDGES
+    kernel.launch(
+        ptrs[:7] + dp + [faults.delay_rounds] + jp + [faults.jitter_rounds]
+        + ptrs[7:] + [outs[0], outs[1], ok, count, *outs[2:]],
+        ints[:4] + di + ji + [n, e, int(sym)],
+    )
+    return outs
 
 
 def fault_edge_block(faults: FactoredRoundFaults, src, dst):
@@ -470,6 +555,28 @@ def fault_edge_loss(faults: FactoredRoundFaults, src, dst):
     if src.device.type == "cpu":
         return _loss_plain(faults, src, dst)
     return _fault_edges(faults, src, dst, False, True, thr=True)[1]
+
+
+def fault_edge_delay(faults: FactoredRoundFaults, src, dst):
+    """i32[E] extra fixed delay (rounds) at the given edges — the SUM of
+    the hitting delay factors' rounds — or None when the plan has no
+    delay factors.  K9's latency entry on the card."""
+    if faults.delay_src.shape[0] == 0:
+        return None
+    if src.device.type == "cpu":
+        return _delay_plain(faults, src, dst)
+    return _fault_edges(faults, src, dst, False, False, delay=True)[2]
+
+
+def fault_edge_jitter(faults: FactoredRoundFaults, src, dst):
+    """i32[E] bound on the per-message extra delay at the given edges —
+    the MAX of the hitting jitter factors' rounds — or None when the plan
+    has no jitter factors.  K9's latency entry on the card."""
+    if faults.jitter_src.shape[0] == 0:
+        return None
+    if src.device.type == "cpu":
+        return _jitter_plain(faults, src, dst)
+    return _fault_edges(faults, src, dst, False, False, jit=True)[3]
 
 
 def fault_session_refused(faults: FactoredRoundFaults, src, dst, ok=None,
@@ -494,37 +601,72 @@ def fault_session_refused(faults: FactoredRoundFaults, src, dst, ok=None,
 
 
 def fault_session_delay(faults: FactoredRoundFaults, src, dst):
-    """Extra sync-session RTT: None without delay factors (the only
-    ported case)."""
-    _require_no_delay(faults)
-    return None
+    """i32[E] (or None without delay factors): the extra sync-session
+    RTT — the slower direction of the pair, max(delay(src, dst),
+    delay(dst, src)), bounds the bidirectional stream; jitter stays out
+    (the reliable stream smooths it).  K9's latency entry on the card."""
+    if faults.delay_src.shape[0] == 0:
+        return None
+    if src.device.type == "cpu":
+        return _session_delay_plain(faults, src, dst)
+    return _fault_edges(faults, src, dst, False, False, sdelay=True)[4]
+
+
+def fault_session_effects(faults: FactoredRoundFaults, src, dst, ok=None,
+                          count=None):
+    """(`fault_session_refused`, `fault_session_delay`) of the same
+    edges, with the same ``ok`` and ``count``, from one K9 launch on the
+    card (two queries' work in one pass over the factors).  A plan
+    without delay factors makes exactly `fault_session_refused`'s
+    call."""
+    if faults.delay_src.shape[0] == 0:
+        return fault_session_refused(faults, src, dst, ok, count), None
+    if src.device.type == "cpu":
+        return (fault_session_refused(faults, src, dst, ok, count),
+                _session_delay_plain(faults, src, dst))
+    has_block = faults.block_src.shape[0] > 0
+    outs = _fault_edges(faults, src, dst, has_block, False, cut=has_block,
+                        sym=True, ok=ok if has_block else None,
+                        count=count if has_block else None, sdelay=True)
+    return outs[0], outs[4]
 
 
 def fault_wire_effects(faults: FactoredRoundFaults, src, dst, ok, cut=None):
     """The broadcast's fault seam, its per-edge half: cuts clear ``ok``
     IN PLACE (adding the ok edges they sever to the int64 accumulator
-    ``cut`` when given, the flight recorder's), and the extra-loss
-    thresholds come back as u8[E] (None when the plan has no loss).  The
-    per-(edge, payload) loss draw that JAX ORs into ``drop`` here
-    (fold_in key 101 on the broadcast phase key) is made by the ring
-    scatter that consumes the thresholds (`packed.scatter_sending_lossy`,
-    K10).  K9 on the card."""
-    _require_no_delay(faults)
+    ``cut`` when given, the flight recorder's); returns (ok, thr, delay,
+    jit) — the u8[E] extra-loss thresholds, the i32[E] fault delay that
+    adds to the topology's, and the i32[E] jitter bound, each None when
+    the plan has no factor of its class.  The per-(edge, payload) draws
+    JAX makes here — the loss bits it ORs into ``drop`` (fold_in key 101
+    on the broadcast phase key) and the jitter it adds to each payload's
+    delay (fold_in key 102, ``randint(0, 2^31 - 1) % (jit + 1)`` where
+    jit > 0) — are made by the ring scatter that consumes these
+    (`packed.scatter_sending_lossy`, K10's streams).  One K9 launch on
+    the card: the latency entry when the plan has delay or jitter
+    factors."""
     has_block = faults.block_src.shape[0] > 0
     has_loss = faults.loss_src.shape[0] > 0
-    if not (has_block or has_loss):
-        return ok, None
+    has_delay = faults.delay_src.shape[0] > 0
+    has_jit = faults.jitter_src.shape[0] > 0
+    if not (has_block or has_loss or has_delay or has_jit):
+        return ok, None, None, None
     if src.device.type == "cpu":
         if has_block:
             hit = _block_plain(faults, src, dst)
             if cut is not None:
                 cut += (ok & hit).sum()
             ok &= ~hit
-        return ok, _loss_plain(faults, src, dst) if has_loss else None
-    _, thr = _fault_edges(faults, src, dst, has_block, has_loss,
-                          thr=has_loss, ok=ok,
-                          count=cut if has_block else None)
-    return ok, thr
+        return (ok,
+                _loss_plain(faults, src, dst) if has_loss else None,
+                _delay_plain(faults, src, dst) if has_delay else None,
+                _jitter_plain(faults, src, dst) if has_jit else None)
+    _, thr, delay, jit, _ = _fault_edges(
+        faults, src, dst, has_block, has_loss, thr=has_loss,
+        ok=ok if has_block else None, count=cut if has_block else None,
+        delay=has_delay, jit=has_jit,
+    )
+    return ok, thr, delay, jit
 
 
 def fault_key(key: torch.Tensor, seed: int, tag: int) -> torch.Tensor:

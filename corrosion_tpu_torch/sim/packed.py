@@ -44,19 +44,21 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import kernels
-from ..device import ONES, popcount
+from ..device import ONES, i32, popcount
 from ..kernels.build import check
 from . import rng
 from .broadcast import ring0_targets
 from .faults import (
+    JITTER_TAG,
     WIRE_LOSS_TAG,
     FactoredFaultPlan,
     FactoredRoundFaults,
+    RoundActivity,
     apply_node_faults,
     fault_key,
-    fault_session_delay,
-    fault_session_refused,
+    fault_session_effects,
     fault_wire_effects,
+    host_activity,
     round_faults,
 )
 from .gaps import gaps_to_mask, refresh_gaps
@@ -408,15 +410,53 @@ def _keep_stream_(words, thr, key) -> None:
         words[e_c, k_c] &= keep.reshape(-1)
 
 
+#: the jitter draw's bounds: ``randint(key, [E, P], 0, 2^31 - 1)``
+JITTER_MAX = (1 << 31) - 1
+
+
+def _jitter_rows_plain(ring, words, dst, slot, jit, key) -> None:
+    """OR each edge's words [E, W] into the ring in place, bit q of edge
+    e at slot (slot[e] + j) % D, j = element e*P + q of ``randint(key,
+    [E, P], 0, 2^31 - 1)`` mod (jit[e] + 1) where jit[e] > 0 (JAX's
+    per-(edge, payload) ``delay_ep`` scatter); other edges' words go to
+    slot[e] whole.  Draws only the bits of jittered edges that send, in
+    chunks (it syncs with the host to find them)."""
+    d, n, w = ring.shape
+    p = w * 32
+    jittered = (jit > 0)[:, None] & (words != 0)
+    _or_rows_plain(ring, torch.where(jittered, 0, words), dst, slot)
+    e_idx, k_idx = torch.nonzero(jittered, as_tuple=True)
+    if e_idx.numel() == 0:
+        return
+    dev = words.device
+    b = torch.arange(32, dtype=torch.int64, device=dev)
+    dense = unpack_bits(ring.reshape(d * n, w), p).to(torch.uint8)
+    flat = dense.reshape(-1)
+    for i0 in range(0, e_idx.numel(), _LOSS_CHUNK_PAIRS):
+        e_c = e_idx[i0:i0 + _LOSS_CHUNK_PAIRS]
+        k_c = k_idx[i0:i0 + _LOSS_CHUNK_PAIRS]
+        q = (32 * k_c)[:, None] + b  # [pairs, 32] payload indices
+        sent = ((words[e_c, k_c].long()[:, None] >> b) & 1).bool()
+        draw = rng.randint_at_plain(key, e_c[:, None] * p + q, 0,
+                                    JITTER_MAX)
+        j = draw % (jit[e_c, None] + 1)
+        slot_b = (slot[e_c, None] + j) % d
+        rows = slot_b.long() * n + dst[e_c, None].long()
+        flat[(rows * p + q)[sent]] = 1
+    ring.copy_(pack_bits(dense).reshape(d, n, w))
+
+
 def scatter_sending_lossy_plain(
     ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int,
-    topo_thr: int = 0, topo_key=None, dropped=None,
+    topo_thr: int = 0, topo_key=None, dropped=None, jit=None,
 ) -> None:
     """Plain version of K10, in place: K2 with payload q of edge e
     dropped where the topology stream (byte e*P + q of the ``topo_key``
     draw below ``topo_thr``; 256 or more drops all) or the fault stream
-    (the wire-loss draw below thr[e]) drops it; the dropped frames are
-    added to ``dropped`` when given."""
+    (the wire-loss draw below thr[e]) drops it, and with ``jit`` each
+    surviving payload of a jittered edge in its own slot
+    (`_jitter_rows_plain`); the dropped frames are added to ``dropped``
+    when given."""
     words = _edge_words(sending, ok, fanout)
     sent = words.clone() if dropped is not None else None
     if topo_thr >= 256:
@@ -427,12 +467,16 @@ def scatter_sending_lossy_plain(
         _keep_stream_(words, thr, fault_key(key, seed, WIRE_LOSS_TAG))
     if dropped is not None:
         dropped += popcount(sent & ~words).sum()
-    _or_rows_plain(ring, words, dst, slot)
+    if jit is None:
+        _or_rows_plain(ring, words, dst, slot)
+    else:
+        _jitter_rows_plain(ring, words, dst, slot, jit,
+                           fault_key(key, seed, JITTER_TAG))
 
 
 def scatter_sending_lossy(
     ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int,
-    topo_thr: int = 0, topo_key=None, dropped=None,
+    topo_thr: int = 0, topo_key=None, dropped=None, jit=None,
 ) -> None:
     """`scatter_sending` under the wire's loss, in place: payload q of
     edge e is dropped where either stream drops it — the flat topology
@@ -444,12 +488,17 @@ def scatter_sending_lossy(
     thr[e] (JAX ``fault_wire_effects``' drop bits; ``key`` is the
     broadcast phase key; ``thr`` None is no fault loss).  With
     ``dropped`` (an int64 accumulator, the flight recorder's) the frames
-    the two streams ate on ok edges are added to it.  K10 on the card,
-    which draws the bits itself."""
+    the two streams ate on ok edges are added to it.  With ``jit`` (i32[E]
+    jitter bounds, K9's; None is no jitter this round) the third stream
+    delays each surviving payload q of an edge with jit[e] > 0 by
+    element e*P + q of ``randint(fold_in(fold_in(key, seed), 102), [E,
+    P], 0, 2^31 - 1)`` mod (jit[e] + 1) rounds past slot[e] (JAX
+    ``fault_wire_effects``' ``delay_ep``).  K10 on the card, which draws
+    the bits itself; its jitter stream counts as its own entry."""
     if ring.device.type == "cpu":
         scatter_sending_lossy_plain(
             ring, sending, dst, slot, ok, thr, key, seed, fanout, topo_thr,
-            topo_key, dropped,
+            topo_key, dropped, jit,
         )
         return
     d, n, w = ring.shape
@@ -461,16 +510,23 @@ def scatter_sending_lossy(
     check("ok", ok, torch.bool, (e,))
     if thr is not None:
         check("thr", thr, torch.uint8, (e,))
+    if jit is not None:
+        check("jit", jit, torch.int32, (e,))
+    if thr is not None or jit is not None:
         check("key", key, torch.int64, (2,))
     if 0 < topo_thr < 256:
         check("topo_key", topo_key, torch.int64, (2,))
     if dropped is not None:
         check("dropped", dropped, torch.int64, ())
-    kernels.BROADCAST_SCATTER_LOSSY.launch(
+    span, mult = rng.scalar_span(0, JITTER_MAX)
+    kernel = (kernels.BROADCAST_SCATTER_LOSSY if jit is None
+              else kernels.BROADCAST_SCATTER_JITTER)
+    kernel.launch(
         [ring, sending, dst, slot, ok, thr,
-         None if thr is None else key,
-         topo_key if 0 < topo_thr < 256 else None, dropped],
-        [n, d, w, fanout, seed, WIRE_LOSS_TAG, topo_thr],
+         None if thr is None and jit is None else key,
+         topo_key if 0 < topo_thr < 256 else None, dropped, jit],
+        [n, d, w, fanout, seed, WIRE_LOSS_TAG, topo_thr, JITTER_TAG,
+         i32(span), i32(mult)],
     )
 
 
@@ -478,17 +534,25 @@ def broadcast_packed(
     carry: PackedCarry, injected_p: torch.Tensor, state: SimState,
     cfg: SimConfig, topo: Topology, region: torch.Tensor, key: torch.Tensor,
     meta: PayloadMeta, faults: Optional[FactoredRoundFaults] = None,
-    trace: Optional[RoundTrace] = None,
+    trace: Optional[RoundTrace] = None, active: Optional[RoundActivity] = None,
 ) -> PackedCarry:
     """Fan-out push: draw targets, spend the relay budget (K8, metered by
     K16 under the byte governor) and OR the sent words into the delay
-    ring (K2), in place.  Under the flat topology loss or ``faults``
-    (cuts clear edges, K9) the scatter drops payloads per (edge,
-    payload) from the topology's and the plan's loss draws (K10 in
-    place of K2); the relay still spends on the attempt.  With a
-    ``trace`` the wire's telemetry goes to its accumulators: the frames
-    and bytes sent on live edges (K18), the cut edges (K9) and the
-    frames the loss ate (K10)."""
+    ring (K2), in place.  Under ``faults`` cuts clear edges and the
+    plan's fixed delay adds to each edge's slot (K9).  Under the flat
+    topology loss or the plan's loss the scatter drops payloads per
+    (edge, payload) from the topology's and the plan's loss draws, and
+    under the plan's jitter each surviving payload of a jittered edge
+    lands in its own slot (K10's streams in place of K2); the relay
+    still spends on the attempt.  ``active`` (the host's copy of the
+    round's loss and jitter activity, `faults.host_activity`) leaves out
+    the streams of classes that do not apply this round, so a round with
+    neither runs K2; without it every class the plan has runs.  JAX
+    scatters per payload in every round of a plan with a jitter factor;
+    with a jitter bound of 0 everywhere that is the row scatter, so the
+    port's choice changes no bit.  With a ``trace`` the wire's telemetry
+    goes to its accumulators: the frames and bytes sent on live edges
+    (K18), the cut edges (K9) and the frames the loss ate (K10)."""
     n, f = cfg.n_nodes, cfg.fanout
     k_targets, k_drop, k_ring0 = rng.split(key, 3)
     targets = sample_member_targets(state, cfg, k_targets, f)  # [N, F]
@@ -504,24 +568,29 @@ def broadcast_packed(
     ok &= edge_alive(state.group, state.alive, src, dst)
     ok &= dst != src
     delay = edge_delay(topo, region, src, dst)
-    thr = None
+    thr = jit = None
     if faults is not None:
-        ok, thr = fault_wire_effects(
+        ok, thr, fdelay, jit = fault_wire_effects(
             faults, src, dst, ok,
             cut=None if trace is None else acc_slot(trace, "bcast_cut"))
+        if fdelay is not None:
+            delay = delay + fdelay
+        if active is not None:
+            thr = thr if active.loss else None
+            jit = jit if active.jitter else None
     if trace is not None:
         wire_words_(trace.acc[WIRE], sending, meta.nbytes, ok, f)
     topo_thr = loss_threshold(topo.loss) if topo.loss > 0 else 0
     d_slots = carry.inflight.shape[0]
     slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
-    if thr is None and topo_thr == 0:
+    if thr is None and jit is None and topo_thr == 0:
         scatter_sending(carry.inflight, sending, dst, slot, ok, f)
     else:
         scatter_sending_lossy(
             carry.inflight, sending, dst, slot, ok, thr, key,
             0 if faults is None else int(faults.seed), f, topo_thr, k_drop,
             None if trace is None or not wire_loss_active(topo, faults)
-            else acc_slot(trace, "bcast_dropped"),
+            else acc_slot(trace, "bcast_dropped"), jit,
         )
     return carry
 
@@ -559,11 +628,13 @@ def deliver_packed(carry: PackedCarry, t: int, cfg: SimConfig) -> PackedCarry:
 
 
 def sync_pull_plain(masks, miss, peers, ok, slot_words, budget=None,
-                    nbytes=None, granted=None) -> torch.Tensor:
+                    nbytes=None, granted=None, sdelay=None,
+                    slot: int = 0) -> torch.Tensor:
     """Plain version of K3: OR the need words pulled from every ok peer,
     each edge metered by `budget_prefix_words_plain`, into
-    ``slot_words`` in place (and each edge's granted words into
-    ``granted`` when given); returns bool[N] fruitful."""
+    ``slot_words`` in place — with ``sdelay`` each delay class d < D - 1
+    into ring slot (slot + d) % D (JAX's class loop) — and each edge's
+    granted words into ``granted`` when given; returns bool[N] fruitful."""
     haves_w, partial_w, below_w, have_w = masks.unbind(dim=1)
     d = masks[peers.long()]  # [N, S, 4, W]
     haves_d, partial_d, below_d, have_d = d.unbind(dim=2)
@@ -579,41 +650,69 @@ def sync_pull_plain(masks, miss, peers, ok, slot_words, budget=None,
                                      nbytes).reshape(n, s, w)
     if granted is not None:
         granted.copy_(need.reshape(n * s, w))
+    if sdelay is None:
+        slot_words |= _fold_peers(need)
+    else:
+        d_slots = slot_words.shape[0]
+        classes = sdelay.reshape(n, s, 1)
+        for c in range(d_slots - 1):
+            slot_words[(slot + c) % d_slots] |= _fold_peers(
+                torch.where(classes == c, need, 0))
+    return (need != 0).any(dim=2).any(dim=1)
+
+
+def _fold_peers(need: torch.Tensor) -> torch.Tensor:
+    """OR of [N, S, W] over the peers."""
     pulled = need[:, 0]
     for s in range(1, need.shape[1]):
         pulled = pulled | need[:, s]
-    slot_words |= pulled
-    return (pulled != 0).any(dim=1)
+    return pulled
 
 
 def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
-              nbytes=None, granted=None) -> torch.Tensor:
+              nbytes=None, granted=None, sdelay=None,
+              slot: int = 0) -> torch.Tensor:
     """Gather the S peers' mask rows, apply the need algebra, meter each
     edge by ``budget`` (None: unmetered) and OR the pulled words into
-    ``slot_words`` in place; returns bool[N] fruitful.  With ``granted``
-    [N * S, W] each edge's granted words are written there too (the
-    flight recorder's grant counts).  K3 on the card, its metered entry
-    (K16's row scan per edge) under a budget."""
+    ``slot_words`` [N, W] in place; returns bool[N] fruitful.  With
+    ``sdelay`` (i32[N * S] session delays, K9's) ``slot_words`` is the
+    whole sync ring [D, N, W] and edge e's grant lands in slot (slot +
+    sdelay[e]) % D, a read-OR-write: the slot may hold an earlier
+    round's slower grant (classes past D - 2 land nowhere, as in JAX).
+    With ``granted`` [N * S, W] each edge's granted words are written
+    there too (the flight recorder's grant counts, every class).  K3 on
+    the card — its delay entry with ``sdelay``, its metered entry (K16's
+    row scan per edge, delay classes too) under a budget."""
     if masks.device.type == "cpu":
         return sync_pull_plain(masks, miss, peers, ok, slot_words, budget,
-                               nbytes, granted)
+                               nbytes, granted, sdelay, slot)
     n, _, w = masks.shape
     s = peers.shape[1]
     check("masks", masks, torch.int32, (n, 4, w))
     check("miss", miss, torch.int32, (n, w))
     check("peers", peers, torch.int32, (n, s))
     check("ok", ok, torch.bool, (n, s))
-    check("slot_words", slot_words, torch.int32, (n, w))
+    if sdelay is None:
+        check("slot_words", slot_words, torch.int32, (n, w))
+        d_slots, slot = 1, 0
+    else:
+        d_slots = slot_words.shape[0]
+        check("sync ring", slot_words, torch.int32, (d_slots, n, w))
+        check("sdelay", sdelay, torch.int32, (n * s,))
+        if not 0 <= slot < d_slots:
+            raise ValueError(f"slot {slot} outside the ring of {d_slots}")
     if granted is not None:
         check("granted", granted, torch.int32, (n * s, w))
     fruitful = torch.zeros(n, dtype=torch.uint8, device=masks.device)
     args = [masks, miss, peers, ok, slot_words, fruitful]
     if budget is None:
-        kernels.SYNC_PULL.launch([*args, granted], [n, w, s])
+        kernel = (kernels.SYNC_PULL if sdelay is None
+                  else kernels.SYNC_PULL_DELAY)
+        kernel.launch([*args, granted, sdelay], [n, w, s, d_slots, slot])
         return fruitful.to(torch.bool)
     _check_budget(budget, nbytes, w)
-    kernels.SYNC_PULL_METERED.launch([*args, nbytes, granted],
-                                     [n, w, s, budget])
+    kernels.SYNC_PULL_METERED.launch([*args, nbytes, granted, sdelay],
+                                     [n, w, s, d_slots, slot, budget])
     return fruitful.to(torch.bool)
 
 
@@ -626,11 +725,14 @@ def sync_packed(
     """Anti-entropy on packed words: per-node group-uniform masks from the
     advertised heads/gaps, the per-edge pull into the sync ring's slot
     t + 1 (K3, in place), and the fruitfulness-adaptive backoff.  Under
-    ``faults`` a session dies on a cut in either direction (K9); loss
-    never bites the reliable bi-stream.  Returns (carry, countdown,
-    backoff); with a ``trace`` the refused sessions (K9) and the
-    per-payload grant counts of K3's granted words (K17) go to its
-    accumulators, and the sessions' ok mask bool[N * S] comes back
+    ``faults`` a session dies on a cut in either direction, and under a
+    plan with delay factors each session's grant lands its session delay
+    (the slower direction's fault delay) later, in slot t + 1 + d (K9,
+    then K3's delay entry); loss and jitter never bite the reliable
+    bi-stream.  Returns (carry, countdown, backoff); with a ``trace``
+    the refused sessions (K9) and the per-payload grant counts of K3's
+    granted words (K17) go to its accumulators, and the sessions' ok
+    mask bool[N * S] comes back
     fourth."""
     n, s = cfg.n_nodes, cfg.sync_peers
     ks = rng.split(key, 3)
@@ -645,15 +747,15 @@ def sync_packed(
     ok &= edge_alive(state.group, state.alive, src, dst)
     ok &= due[src.long()]
     ok &= dst != src
+    sdelay = None
     if faults is not None:
         if trace is None:
-            refused = fault_session_refused(faults, src, dst)
+            refused, sdelay = fault_session_effects(faults, src, dst)
         else:
-            refused = fault_session_refused(
+            refused, sdelay = fault_session_effects(
                 faults, src, dst, ok, acc_slot(trace, "sync_refused"))
         if refused is not None:
             ok &= ~refused
-        fault_session_delay(faults, src, dst)  # raises on delay factors
 
     v = cfg.n_versions
     v_idx = torch.arange(1, v + 1, dtype=torch.int32, device=peers.device)
@@ -668,10 +770,11 @@ def sync_packed(
     granted = (None if trace is None else
                torch.empty((n * s, carry.have.shape[1]), dtype=torch.int32,
                            device=peers.device))
+    slot = (int(state.t) + 1) % d_slots
     fruitful = sync_pull(
         masks, miss_w, dst.reshape(n, s), ok.reshape(n, s),
-        carry.sync_buf[(int(state.t) + 1) % d_slots],
-        cfg.sync_budget_bytes, meta.nbytes, granted,
+        carry.sync_buf[slot] if sdelay is None else carry.sync_buf,
+        cfg.sync_budget_bytes, meta.nbytes, granted, sdelay, slot,
     )
     if trace is not None:
         count_words_(trace.counts[GRANTS], granted)
@@ -781,6 +884,7 @@ def packed_round_step(
     metrics: RunMetrics, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
     region: torch.Tensor, faults: Optional[FactoredRoundFaults] = None,
     horizon: Optional[int] = None, trace: Optional[RoundTrace] = None,
+    active: Optional[RoundActivity] = None,
 ):
     """One gossip tick on packed words, phase-for-phase and PRNG-stream
     identical to JAX's ``packed_round_step``: inject → broadcast → sync →
@@ -792,7 +896,9 @@ def packed_round_step(
     plan's ``horizon`` its fault loop's (`converge_record`).  With a
     ``trace`` the round's row is recorded in it, in place: the phases
     feed its accumulators, then K17 counts coverage and delivered and
-    K19 writes the row (with the fault slice's crashes and wipes)."""
+    K19 writes the row (with the fault slice's crashes and wipes).
+    ``active`` is the host's copy of the round's loss and jitter activity
+    (`broadcast_packed`)."""
     ks = rng.split(state.key, 4)
     state = state._replace(key=ks[0])
     k_bcast, k_sync, k_swim = ks[1], ks[2], ks[3]
@@ -804,7 +910,7 @@ def packed_round_step(
     )
     carry = broadcast_packed(
         carry, injected_p, state, cfg, topo, region, k_bcast, meta, faults,
-        trace,
+        trace, active,
     )
     sync_ok = None
     if trace is None:
@@ -960,7 +1066,9 @@ def run_packed_faults(
     round's node faults hit the slim state and the carry
     (`apply_round_faults`), and the round runs with its fault slice.
     The loop never exits before the plan's horizon, then only on the
-    fresh all-have predicate.  Returns (SimState, RunMetrics), and with
+    fresh all-have predicate.  It copies the plan's loss and jitter
+    activity to the host once, before the first round
+    (`faults.host_activity`), for each round's choice of ring scatter.  Returns (SimState, RunMetrics), and with
     ``telemetry`` the run's `RoundTrace` third (each row with its
     round's crashes and wipes)."""
     dev = state.have.device
@@ -976,16 +1084,18 @@ def run_packed_faults(
                      "psince")
     })
     horizon = fplan.horizon
+    activity = host_activity(fplan)
     trace = new_trace(cfg, max_rounds, dev) if telemetry else None
     done = (torch.zeros((), dtype=torch.bool, device=dev)
             if int(slim.t) < horizon
             else all_have_words(carry, inj, slim, meta, cfg))
     while int(slim.t) < max_rounds and not bool(done):
-        rf = round_faults(fplan, int(slim.t))
+        t = int(slim.t)
+        rf = round_faults(fplan, t)
         slim, carry = apply_round_faults(slim, carry, rf)
         slim, carry, inj, metrics, done = packed_round_step(
             slim, carry, inj, metrics, meta, cfg, topo, region, rf, horizon,
-            trace,
+            trace, activity[min(t, horizon)],
         )
     full = unpack_into_state(carry, slim, cfg)
     full = full._replace(

@@ -178,10 +178,28 @@ def randint_plain(
     return (minval + offset).to(torch.int32)
 
 
+def randint_at_plain(key: torch.Tensor, idx: torch.Tensor, minval: int,
+                     maxval: int) -> torch.Tensor:
+    """The draws of ``randint(key, shape, minval, maxval)`` at the flat
+    element indices ``idx`` (int64) of ``shape``, without drawing the
+    rest: element i's draw hashes counter i under each half of the split
+    key, whatever the shape."""
+    _check_minval(minval)
+    span, mult = scalar_span(minval, int(maxval))
+    k = split_plain(key, 2)
+    ctr = idx & MASK32
+    zeros = torch.zeros_like(ctr)
+    h1, h2 = threefry2x32(k[0][0], k[0][1], zeros, ctr)
+    l1, l2 = threefry2x32(k[1][0], k[1][1], zeros, ctr)
+    offset = (_mul32((h1 ^ h2) % span, mult) + (l1 ^ l2) % span) & MASK32
+    return (minval + offset % span).to(torch.int32)
+
+
 @functools.lru_cache(maxsize=None)
-def _scalar_span(minval: int, maxval: int):
-    """`_span_multiplier` of a scalar maxval as host ints, for K5 (once
-    per (minval, maxval): the round draws the same spans every time)."""
+def scalar_span(minval: int, maxval: int):
+    """`_span_multiplier` of a scalar maxval as host ints, for K5 and
+    K10's jitter stream (once per (minval, maxval): the round draws the
+    same spans every time)."""
     span, mult = _span_multiplier(torch.tensor(maxval, dtype=torch.int64),
                                   minval)
     return int(span), int(mult)
@@ -216,7 +234,7 @@ def randint(
         span = mult = 0
     else:
         hi, per_element = None, 0
-        span, mult = _scalar_span(minval, int(maxval))
+        span, mult = scalar_span(minval, int(maxval))
     kernels.RANDINT.launch(
         [key, hi, out], [size, minval, i32(span), i32(mult), per_element]
     )

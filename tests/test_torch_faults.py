@@ -170,8 +170,8 @@ def test_edge_queries_match_jax(cfgs, name, t):
         jnp.zeros((3000, P), bool), jnp.zeros(3000, jnp.int32),
     )
     pok = torch.from_numpy(ok0.copy())
-    pok2, pthr = faults.fault_wire_effects(prf, ps, pd, pok)
-    assert pok2 is pok
+    pok2, pthr, pdelay, pjit = faults.fault_wire_effects(prf, ps, pd, pok)
+    assert pok2 is pok and pdelay is None and pjit is None
     np.testing.assert_array_equal(np.asarray(jok), pok.numpy())
     np.testing.assert_array_equal(
         np.asarray(jfaults.fault_edge_loss(jrf, js, jd)), pthr.numpy())
@@ -427,19 +427,45 @@ def test_packed_round_step_with_faults_matches_jax(cfgs, name):
                                       getattr(pmet, f).numpy(), err_msg=f)
 
 
-def test_delay_factors_raise_in_the_round(cfgs):
-    _, _, pcfg, _ = cfgs
-    plan = pfaults_mod.FaultPlan(n_nodes=N, seed=1, events=(
-        pfaults_mod.FaultEvent("delay", 0, 4, delay_rounds=0),
-        pfaults_mod.FaultEvent("loss", 0, 4, p=0.1),
-    ))
-    cfg = dataclasses.replace(pcfg, n_delay_slots=4)
-    pf = faults.compile_plan(plan, cfg, Topology(), factored=True,
-                             device="cpu")
-    rf = faults.round_faults(pf, 0)
-    src = torch.arange(8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B12"):
-        faults.fault_wire_effects(rf, src, src.flip(0),
-                                  torch.ones(8, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="B12"):
-        faults.fault_session_delay(rf, src, src.flip(0))
+def test_delay_factors_in_the_round_match_jax(cfgs):
+    """A plan with a delay factor (of 0 rounds, beside a loss) reaches
+    the round: the wire seam's cut, thresholds and fault delay, and the
+    session delay, equal JAX's on random edges inside and past the
+    window; the plan has no jitter factor, so neither side jitters."""
+    jcfg, _, pcfg, _ = cfgs
+
+    def plan(mod):
+        return mod.FaultPlan(n_nodes=N, seed=1, events=(
+            mod.FaultEvent("delay", 0, 4, delay_rounds=0),
+            mod.FaultEvent("loss", 0, 4, p=0.1),
+        ))
+
+    jf = jfaults.compile_plan(plan(jfaults_mod),
+                              dataclasses.replace(jcfg, n_delay_slots=4),
+                              JaxTopology(), factored=True)
+    pf = faults.compile_plan(plan(pfaults_mod),
+                             dataclasses.replace(pcfg, n_delay_slots=4),
+                             Topology(), factored=True, device="cpu")
+    g = np.random.default_rng(4)
+    for t in (0, 3, 4):
+        jrf, prf = jfaults.round_faults(jf, jnp.int32(t)), \
+            faults.round_faults(pf, t)
+        src, dst = _edges(g, 1000)
+        js, jd = jnp.asarray(src), jnp.asarray(dst)
+        ok0 = g.random(1000) < 0.9
+        jok, _, jdelay, jdelay_ep = jfaults.fault_wire_effects(
+            jrf, jax.random.PRNGKey(t), js, jd, P, jnp.asarray(ok0),
+            jnp.zeros((1000, P), bool), jnp.zeros(1000, jnp.int32),
+        )
+        pok, pthr, pdelay, pjit = faults.fault_wire_effects(
+            prf, torch.from_numpy(src), torch.from_numpy(dst),
+            torch.from_numpy(ok0.copy()))
+        np.testing.assert_array_equal(np.asarray(jok), pok.numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jfaults.fault_edge_loss(jrf, js, jd)), pthr.numpy())
+        np.testing.assert_array_equal(np.asarray(jdelay), pdelay.numpy())
+        assert jdelay_ep is None and pjit is None
+        np.testing.assert_array_equal(
+            np.asarray(jfaults.fault_session_delay(jrf, js, jd)),
+            faults.fault_session_delay(prf, torch.from_numpy(src),
+                                       torch.from_numpy(dst)).numpy())

@@ -360,7 +360,8 @@ def test_fault_edges(card, kind, n, t):
         want = plain(rf, src, dst)
         assert got.dtype == want.dtype and torch.equal(got, want), fn
     ok = torch.as_tensor(g.random(src.shape[0]) < 0.8, device=card)
-    got_ok, got_thr = faults.fault_wire_effects(rf, src, dst, ok.clone())
+    got_ok, got_thr, _, _ = faults.fault_wire_effects(rf, src, dst,
+                                                      ok.clone())
     want_ok = ok & ~faults._block_plain(rf, src, dst)
     assert torch.equal(got_ok, want_ok)
     assert torch.equal(got_thr, faults._loss_plain(rf, src, dst))
@@ -394,7 +395,7 @@ def test_broadcast_scatter_lossy(card, n, w, f, t):
     dst = _i32(g.integers(0, n, n * f), card)
     slot = _i32(g.integers(0, 2, n * f), card)
     ok = torch.as_tensor(g.random(n * f) < 0.8, device=card)
-    ok, thr = faults.fault_wire_effects(rf, src, dst, ok)
+    ok, thr, _, _ = faults.fault_wire_effects(rf, src, dst, ok)
     key = rng.prng_key(t, card)
     got, want = ring.clone(), ring.clone()
     before = kernels.BROADCAST_SCATTER_LOSSY.launches
@@ -833,3 +834,134 @@ def test_telemetry_run_on_card_equals_cpu(card, name):
     for kern in kernels.KERNELS:
         want = 0 if kern.name in trace_entries else on[kern.name]
         assert kern.launches == want, (kern.name, kern.launches, want)
+
+
+# -- the latency storm: K9's latency entry, K10's jitter stream, K3's delay
+# entry (chip_smoke.py's comparisons at small shapes, then ragged ones)
+
+
+@pytest.mark.parametrize("n", (1200, 3000))
+def test_fault_latency(card, n):
+    before = kernels.FAULT_EDGES_DELAY.launches
+    row = _smoke().compare_fault_latency(card, np.random.default_rng(n),
+                                         n=n, timed=False)
+    assert row["equal"], row
+    assert kernels.FAULT_EDGES_DELAY.launches > before
+
+
+@pytest.mark.parametrize("n", (1200, 3000))
+def test_scatter_jitter(card, n):
+    before = kernels.BROADCAST_SCATTER_JITTER.launches
+    row = _smoke().compare_scatter_jitter(card, np.random.default_rng(n),
+                                          n=n, timed=False)
+    assert row["equal"], row
+    assert kernels.BROADCAST_SCATTER_JITTER.launches == before + 3
+
+
+@pytest.mark.parametrize("n", (1200, 3000))
+def test_sync_delay(card, n):
+    before = (kernels.SYNC_PULL_DELAY.launches,
+              kernels.SYNC_PULL_METERED.launches)
+    rows = _smoke().compare_sync_delay(card, np.random.default_rng(n), n=n,
+                                       timed=False)
+    assert all(row["equal"] for row in rows), rows
+    assert kernels.SYNC_PULL_DELAY.launches == before[0] + 2
+    assert kernels.SYNC_PULL_METERED.launches == before[1] + 2
+
+
+@pytest.mark.parametrize("n, w, f, d, jb", (
+    (10, 1, 3, 4, 1), (333, 8, 2, 4, 3), (1000, 16, 3, 8, 6)))
+def test_scatter_jitter_bounds(card, n, w, f, d, jb):
+    """Jitter bounds 0..jb per edge (4 or more take the per-bit path), any
+    slot of a ring of d, with and without the fault loss."""
+    g = np.random.default_rng(n + jb)
+    ring = _words(g, (d, n, w), card)
+    sending = _words(g, (n, w), card)
+    dst = _i32(g.integers(0, n, n * f), card)
+    slot = _i32(g.integers(0, d, n * f), card)
+    ok = torch.as_tensor(g.random(n * f) < 0.8, device=card)
+    jit = _i32(g.integers(0, jb + 1, n * f), card)
+    thr = torch.as_tensor(g.integers(0, 120, n * f), dtype=torch.uint8,
+                          device=card)
+    key = rng.prng_key(jb, card)
+    for t in (None, thr):
+        got, want = ring.clone(), ring.clone()
+        before = kernels.BROADCAST_SCATTER_JITTER.launches
+        packed.scatter_sending_lossy(got, sending, dst, slot, ok, t, key, 5,
+                                     f, jit=jit)
+        _launched(kernels.BROADCAST_SCATTER_JITTER, before)
+        packed.scatter_sending_lossy_plain(want, sending, dst, slot, ok, t,
+                                           key, 5, f, jit=jit)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n, w, s, d", (
+    (7, 1, 3, 2), (257, 16, 3, 4), (1000, 8, 5, 7)))
+def test_sync_pull_classes(card, n, w, s, d):
+    """Session delays 0..d (classes past d - 2 land nowhere; 4 or more OR
+    straight into their slot), unmetered and metered, on a ring that
+    already holds words."""
+    g = np.random.default_rng(n + d)
+    masks = _words(g, (n, 4, w), card)
+    miss = _words(g, (n, w), card)
+    peers = _i32(g.integers(0, n, (n, s)), card)
+    ok = torch.as_tensor(g.random((n, s)) < 0.8, device=card)
+    sdelay = _i32(g.integers(0, d + 1, n * s), card)
+    nbytes = _i32(np.full(w * 32, 8192), card)
+    ring = _words(g, (d, n, w), card) & _words(g, (d, n, w), card)
+    for budget in (None, 3 * 8192):
+        got, want = ring.clone(), ring.clone()
+        kern = (kernels.SYNC_PULL_DELAY if budget is None
+                else kernels.SYNC_PULL_METERED)
+        before = kern.launches
+        fr = packed.sync_pull(masks, miss, peers, ok, got, budget, nbytes,
+                              sdelay=sdelay, slot=d - 1)
+        _launched(kern, before)
+        want_fr = packed.sync_pull_plain(masks, miss, peers, ok, want, budget,
+                                         nbytes, sdelay=sdelay, slot=d - 1)
+        assert torch.equal(fr, want_fr) and torch.equal(got, want)
+
+
+def _latency_run(dev, telemetry):
+    """JAX's 48-node "storm-mix" lockstep plan through `run_fault_plan`."""
+    from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    cfg = SimConfig.wan_tuned(
+        48, n_payloads=128, n_writers=4, chunks_per_version=4, fanout=3,
+        sync_interval_rounds=4, swim_partial_view=True, member_slots=16,
+        rate_limit_bytes_round=None, sync_budget_bytes=None,
+        packed_min_cells=0, n_delay_slots=4)
+    meta = uniform_payloads(cfg, dev, inject_every=2)
+    plan = FaultPlan(n_nodes=48, seed=5, events=(
+        FaultEvent("loss", 0, 20, p=0.3),
+        FaultEvent("partition", 4, 14, src="0:24", dst="24:48",
+                   symmetric=True),
+        FaultEvent("delay", 2, 16, src="0:8", dst="*", delay_rounds=1),
+        FaultEvent("jitter", 2, 16, src="0:8", dst="*", delay_rounds=1),
+        FaultEvent("crash", 10, 22, node=2, wipe=True),
+    ))
+    fplan = faults.compile_plan(plan, cfg, Topology(), factored=True,
+                                device=dev)
+    return faults.run_fault_plan(new_sim(cfg, 9, dev), meta, cfg, Topology(),
+                                 fplan, 100, telemetry)
+
+
+@pytest.mark.parametrize("telemetry", (False, True))
+def test_latency_run_on_card_equals_cpu(card, telemetry):
+    """The storm-mix plan (loss, a cut, the latency pair, a wipe) on the
+    card ends in the CPU run's state (and records its trace), through
+    K9's latency entry, K10's jitter stream and K3's delay entry."""
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    kernels.reset_launch_counts()
+    out = _latency_run(card, telemetry)
+    for kern in (kernels.FAULT_EDGES_DELAY, kernels.BROADCAST_SCATTER_JITTER,
+                 kernels.SYNC_PULL_DELAY):
+        assert kern.launches > 0, kern.name
+    cpu = _latency_run("cpu", telemetry)
+    assert state_digest(out[0]) == state_digest(cpu[0])
+    if telemetry:
+        for f in tel.CHANNELS:
+            assert torch.equal(getattr(out[2], f).cpu(), getattr(cpu[2], f)), f

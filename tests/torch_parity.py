@@ -11,9 +11,13 @@ import sys
 import numpy as np
 import torch
 
+from corrosion_tpu import faults as jax_faults
 from corrosion_tpu.sim.runner import _write_storm as jax_write_storm
+from corrosion_tpu.sim.runner import storm_fault_plan as jax_storm_fault_plan
+from corrosion_tpu_torch import faults as port_faults
 from corrosion_tpu_torch.convert import state_from_numpy, state_to_numpy
 from corrosion_tpu_torch.sim.runner import _write_storm as port_write_storm
+from corrosion_tpu_torch.sim.runner import storm_fault_plan
 
 # the suite runs under xdist beside wall-clock-sensitive tests (the host
 # ground-truth calibration skips when its event loop starves): one
@@ -49,6 +53,26 @@ def storm_configs(n_nodes: int, n_payloads: int):
         dataclasses.replace(jcfg, packed_min_cells=0), jmeta,
         dataclasses.replace(pcfg, packed_min_cells=0), pmeta,
     )
+
+
+def latency_storm_plans(n_nodes: int, seed: int = 0):
+    """(jax FaultPlan, port FaultPlan) of the latency storm:
+    `storm_fault_plan`'s events, then JAX's "storm-mix" latency pair
+    (tests/sim/test_packed_equivalence.py) over the first sixth of the
+    nodes — a delay of one round and a jitter of up to one round on every
+    link out of them, rounds 2-15."""
+    out = []
+    for mod, storm in ((jax_faults, jax_storm_fault_plan),
+                       (port_faults, storm_fault_plan)):
+        base = storm(n_nodes, seed)
+        sel = f"0:{n_nodes // 6}"
+        out.append(mod.FaultPlan(n_nodes=n_nodes, seed=base.seed, events=(
+            *base.events,
+            mod.FaultEvent("delay", 2, 16, src=sel, dst="*", delay_rounds=1),
+            mod.FaultEvent("jitter", 2, 16, src=sel, dst="*",
+                           delay_rounds=1),
+        )))
+    return tuple(out)
 
 
 def to_port(jax_state, cfg):
