@@ -7,7 +7,8 @@ result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the nineteen CUDA kernels K1–K19 (with the latency entries of
-   K3, K9 and K10) from the eighteen sources in
+   K3, K9 and K10 and the dense fault entries of K11–K14) from the
+   eighteen sources in
    ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -59,6 +60,16 @@ result line):
    index, bits of one word in two slots across the ring's wrap, a slot
    already holding an earlier round's grant, overlapping events and
    self-edges, jitter with both loss streams off;
+   then the dense fault entries at the dense storms' shapes (N = 100000,
+   P = 512, F = S = 3; D = 2 for the fault storm's round 5, D = 4 for
+   the latency storm's round 6): K11's dense entry (a wiped row and an
+   override, also on the 4096-node full view), K12's fault entry (the
+   fault loss, the fault delay, jitter, the dropped count and per-node
+   frames), K13's delay entry (unmetered and metered) and K14's exit
+   mode, printing that each of their traps was reached: jitter bounds 0,
+   1 and 4 on one ring, randint's multiplier wrapping to 0, both loss
+   streams on one cell, a session delay of D - 2 into a slot that holds
+   grants, a wipe after convergence;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -101,14 +112,26 @@ result line):
    digest), with the recorder its telemetry golden, and every entry of
    K1, K2, K4–K8, K9's reach and latency entries, K10 and its jitter
    stream, K11 and K3's delay entry launched;
-11. profile the first 3 rounds of both storms (their telemetry-off
-   launches held at the counts the port made before the recorder), the
+11. each from launch counters at 0, through ``run_fault_plan`` on the
+   dense round (``allow_packed=False``): dense-fault-storm-100k without
+   and with the recorder (its golden and telemetry golden; K1, K4, K5,
+   K9, K11's dense entry, K12 and its fault entry, K13, K14's exit
+   mode), dense-latency-storm-100k (its golden; K9's latency entry and
+   K13's delay entry), each also equal to the packed run of the same
+   storm on the card in have, heads, alive, relay budgets, injected and
+   both stamps; then full-view-fault-storm-4096 (JAX's 4096-node
+   acceptance storm on full-view SWIM: K1's uniform entry, K15 with K9's
+   reach), held against its golden;
+12. profile the first 3 rounds of both storms (their telemetry-off
+   launches held at the counts the port made before the recorder; run
+   right after the build, since the profiler's count depends on what
+   the process ran before), the
    fault storm's 12-round loss window, 10 partitioned rounds of
    partition-heal-10k, the first 3 rounds of gapstress-25.6k and rounds
    6-8 of latency-storm-100k and of the same config without its latency
-   pair (host wall, device time by kernel from
-   ``torch.profiler``, the device's idle share);
-12. print the card line, the kernels JSON line, then the one-line result
+   pair, rounds 5-7 of dense-fault-storm-100k (host wall, device time by
+   kernel from ``torch.profiler``, the device's idle share);
+13. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -145,13 +168,18 @@ SLOW_PLAIN_REPS = 3
 # device launches (kernels, copies, fills) of `profile_storm`'s first 3
 # rounds with the flight recorder off, setup included, as the port made
 # them before the recorder existed: the faultless storm's and the fault
-# storm's.  Recording must add nothing to a run that does not record.
+# storm's, counted in a process that has run nothing else.  Recording
+# must add nothing to a run that does not record.
 STORM_OFF_LAUNCHES = 1526
 FAULT_STORM_OFF_LAUNCHES = 1560
 #: the round of latency-storm-100k the latency comparisons and profile
 #: slice: inside the loss, cut, delay and jitter windows, where a delayed
 #: slot (6 + 1) % 4 = 3 wraps to 0 under jitter
 LATENCY_T = 6
+#: the round of dense-fault-storm-100k its entries are compared at and its
+#: profile starts from: inside its loss and half-split windows (rounds
+#: 0-11 and 4-15)
+DENSE_FAULT_T = 5
 
 
 def _smi(query: str) -> str:
@@ -452,6 +480,58 @@ def profile_latency(dev, start=LATENCY_T, rounds=3, latency=True):
 
     label = "latency storm-100k" if latency else "fault storm-100k (D = 4)"
     return _profile(run, rounds, f"{label} rounds {start}-"
+                    f"{start + rounds - 1}", setup)
+
+
+def profile_dense_fault(dev, start=DENSE_FAULT_T, rounds=3):
+    """``rounds`` rounds of dense-fault-storm-100k from round ``start``
+    (inside its loss and half-split windows) through the dense fault
+    loop's body, as `run_fault_plan` runs them (node faults, the round
+    with its slice, the one host read of the flag); the first ``start``
+    rounds are setup, outside the clock and the profiler."""
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim.round import (
+        new_metrics, new_sim, own_state, round_step_)
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    cfg, meta, fplan = _dense_fault_storm(STORM_N, dev)
+    topo = Topology()
+    region = regions(cfg.n_nodes, 1, dev)
+    activity = faults.host_activity(fplan)
+    horizon = fplan.horizon
+
+    def step(loop):
+        state, metrics = loop
+        t = int(state.t)
+        rf = faults.round_faults(fplan, t)
+        state = faults.apply_node_faults(state, rf)
+        state, metrics, done = round_step_(
+            state, metrics, meta, cfg, topo, region, None, rf, horizon,
+            activity[min(t, horizon)])
+        bool(done)
+        return state, metrics
+
+    def setup():
+        state = own_state(new_sim(cfg, 0, dev))
+        state = state._replace(**{
+            name: getattr(state, name).clone()
+            for name in ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
+                         "psince")})
+        loop = (state, new_metrics(cfg, dev))
+        for _ in range(start):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return loop
+
+    def run(loop):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, f"dense fault storm-100k rounds {start}-"
                     f"{start + rounds - 1}", setup)
 
 
@@ -1058,7 +1138,8 @@ def compare_node_faults(dev, g, n, w, cfg, fplan):
 
     base = flat(slim, carry)
     plain = lambda sl, c, rf: (  # noqa: E731
-        faults.apply_node_faults(sl, rf), packed.apply_carry_faults(c, rf))
+        faults.apply_node_faults_plain(sl, rf),
+        packed.apply_carry_faults(c, rf))
     equal, err = True, 0
     for r in (20, 8):
         rf = faults.round_faults(fplan, r)
@@ -2336,10 +2417,13 @@ def _latency_storm(n, dev):
 
 
 def _trap(number, what, reached):
-    print(f"latency trap {number} ({what}): "
+    """Print whether trap ``number`` (an int for the latency slice's,
+    "dense n" for the dense fault entries') was reached; fail if not."""
+    label = number if isinstance(number, str) else f"latency {number}"
+    print(f"trap {label} ({what}): "
           f"{'reached' if reached else 'NOT reached'}", flush=True)
     if not reached:
-        raise AssertionError(f"latency trap {number} not reached: {what}")
+        raise AssertionError(f"trap {label} not reached: {what}")
 
 
 def _overlap_plan(n):
@@ -2619,6 +2703,438 @@ def compare_latency_kernels(dev, seed=4):
     return rows
 
 
+# -- the dense round's fault entries: K11's dense entry, K12's fault entry,
+# K13's delay entry, K14's exit mode -------------------------------------------
+
+
+def _dense_fault_storm(n, dev, plan_seed=0, **changes):
+    """The fault storm on the dense round (JAX's ``allow_packed=False``):
+    its config, payloads and compiled plan."""
+    from corrosion_tpu_torch.sim.runner import fault_storm
+
+    return fault_storm(n, 512, plan_seed, dev, allow_packed=False, **changes)
+
+
+def _full_view_storm(dev):
+    """full-view-fault-storm-4096: JAX's 4096-node acceptance storm (plan
+    seed 3) on full-view SWIM and the dense round."""
+    return _dense_fault_storm(4096, dev, 3, swim_partial_view=False,
+                              swim_full_view=True)
+
+
+def _dense_latency_storm(n, dev):
+    """latency-storm-n on the dense round."""
+    cfg, meta, fplan = _latency_storm(n, dev)
+    return dataclasses.replace(cfg, allow_packed=False), meta, fplan
+
+
+def _dense_state(g, dev, cfg, t):
+    """A mid-storm dense state at ``cfg``'s shapes from numpy: half the
+    cells held, relay budgets on them, the payloads of rounds <= t
+    injected, sparse rings, 3% dead nodes, random member tables or full
+    view beliefs, gap rows."""
+    from corrosion_tpu_torch.sim.state import init_state
+
+    n, p, d = cfg.n_nodes, cfg.n_payloads, cfg.n_delay_slots
+    a, k, m = cfg.n_writers, cfg.gap_slots, cfg.member_slots
+    state = init_state(cfg, torch.tensor([0, 9], dtype=torch.int64,
+                                         device=dev))
+    have = _u8(g, (n, p), 0.5, dev)
+    v = cfg.n_versions
+
+    def i32(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+    rep = dict(
+        have=have,
+        relay_left=torch.as_tensor(g.integers(0, 4, (n, p)),
+                                   dtype=torch.uint8, device=dev) * have,
+        injected=_u8(g, (p,), 0.9, dev),
+        inflight=_u8(g, (d, n, p), 0.05, dev),
+        sync_inflight=_u8(g, (d, n, p), 0.02, dev),
+        alive=torch.as_tensor((g.random(n) < 0.03) * 2, dtype=torch.uint8,
+                              device=dev),
+        heads=i32(g.integers(0, v + 1, (n, a))),
+        gap_lo=i32(g.integers(0, v + 1, (n, a, k))),
+        gap_hi=i32(g.integers(0, v + 1, (n, a, k))),
+    )
+    if cfg.swim_partial_view:
+        pid, pkey, psince = _random_tables(g, n, m, t)
+        rep.update(pid=i32(pid), pkey=i32(pkey), psince=i32(psince))
+    if cfg.swim_full_view:
+        rep.update(
+            view=torch.as_tensor(g.integers(0, 3, (n, n)), dtype=torch.int8,
+                                 device=dev),
+            vinc=i32(g.integers(0, 5, (n, n))),
+            suspect_since=i32(np.where(g.random((n, n)) < 0.3,
+                                       g.integers(0, t + 1, (n, n)), -1)))
+    return state._replace(t=torch.tensor(t, dtype=torch.int32), **rep)
+
+
+def _clone_state(state):
+    return state._replace(**{f: x.clone() for f, x in zip(state._fields,
+                                                          state)})
+
+
+def compare_node_faults_dense(dev, g, n=STORM_N, timed=True):
+    """K11's dense entry on the dense fault storm's state (N = 100000,
+    P = 512, D = 2, M = 64) at round 20 (node 1's restart: an override
+    and a wiped row, after the storm converged on it) and round 8 (its
+    crash: an override only), and on the full-view storm's (N = 4096,
+    view [N, N] i8) at its round 20: every field of the state."""
+    from corrosion_tpu_torch.sim import faults
+
+    equal, err = True, 0
+    cases = []
+    for label, (cfg, _, fplan) in (
+            ("partial", _dense_fault_storm(n, dev)),
+            ("full", _full_view_storm(dev))):
+        state = _dense_state(g, dev, cfg, 20)
+        for r in (20, 8):
+            rf = faults.round_faults(fplan, r)
+            got = faults.apply_node_faults(_clone_state(state), rf)
+            want = faults.apply_node_faults_plain(_clone_state(state), rf)
+            e, x = _equal_all([x for x in got if x.numel()],
+                              [x for x in want if x.numel()])
+            equal, err = equal and e, max(err, x)
+            if r == 20:
+                wiped = int(np.flatnonzero(rf.wipe.cpu().numpy())[0])
+                if torch.equal(got.have[wiped], state.have[wiped]) or (
+                        label == "full" and torch.equal(
+                            got.view[wiped], state.view[wiped])):
+                    raise AssertionError(f"K11 dense inputs ({label}) wipe "
+                                         "no row")
+                cases.append((state, rf))
+    state, rf = cases[0]
+    work = _clone_state(state)
+    wiped = torch.nonzero(rf.wipe).flatten()
+
+    def restore():
+        # what K11 writes: alive, and the wiped node's rows (its ring rows
+        # on dim 1); a copy of the whole state would drown its time
+        work.alive.copy_(state.alive)
+        for name in ("have", "relay_left", "heads", "gap_lo", "gap_hi",
+                     "pid", "pkey", "psince"):
+            getattr(work, name)[wiped] = getattr(state, name)[wiped]
+        for name in ("inflight", "sync_inflight"):
+            getattr(work, name)[:, wiped] = getattr(state, name)[:, wiped]
+
+    cfg = _dense_fault_storm(n, dev)[0]
+    p, d, a = cfg.n_payloads, cfg.n_delay_slots, cfg.n_writers
+    row = p * (2 + 2 * d) + (a + 2 * a * cfg.gap_slots
+                             + 3 * cfg.member_slots) * 4
+    return _row(
+        "node_faults_dense", "corrosion_tpu_torch/kernels/csrc/node_faults.cu",
+        "corrosion_tpu/sim/faults.py:703", equal, err,
+        _timed(timed, lambda: faults.apply_node_faults(work, rf), restore),
+        _timed(timed, lambda: faults.apply_node_faults_plain(work, rf),
+               restore),
+        # the override, the wipe mask and alive in and out; the wiped row
+        n * 4 + int(rf.wipe.sum()) * row, kernel="node_faults_dense")
+
+
+def _wire_case(g, dev, cfg, meta, fplan, t, topo_loss=0.0):
+    """One round's broadcast inputs on a mid-storm dense state: random
+    targets (self and -1 among them), the edges, K9's cuts, fault
+    thresholds, fault delay and jitter bounds, the slots."""
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim.topology import edge_alive, loss_threshold
+
+    n, f = cfg.n_nodes, cfg.fanout
+    state = _dense_state(g, dev, cfg, t)
+    me = np.arange(n)[:, None]
+    tg = np.where(g.random((n, f)) < 0.03, -1, g.integers(0, n, (n, f)))
+    targets = torch.as_tensor(np.where(g.random((n, f)) < 0.02, me, tg),
+                              dtype=torch.int32, device=dev)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = targets.reshape(-1)
+    ok = dst >= 0
+    dst = torch.clamp(dst, min=0)
+    ok &= edge_alive(state.group, state.alive, src, dst) & (dst != src)
+    rf = faults.round_faults(fplan, t)
+    ok, fthr, fdelay, jit = faults.fault_wire_effects(rf, src, dst, ok)
+    delay = torch.zeros_like(src) if fdelay is None else fdelay
+    slot = ((t + delay) % cfg.n_delay_slots).to(torch.int32)
+    key = trng.prng_key(100 + t, dev)
+    ks = trng.split(key, 3)
+    return SimpleNamespace(
+        state=state, targets=targets, src=src, dst=dst, ok=ok, fthr=fthr,
+        jit=jit, slot=slot, key=key, k_drop=ks[1], seed=int(rf.seed),
+        thr=loss_threshold(topo_loss) if topo_loss > 0 else 0, meta=meta,
+        cfg=cfg)
+
+
+def _wire_send(c, kernel, dropped=None, frames=None, ring=None, relay=None):
+    """K12's fault entry (or its plain version) on case ``c``, in place on
+    ``ring`` and ``relay`` (the case's own when not given)."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+
+    send = bc.broadcast_send if kernel else bc.broadcast_send_plain
+    s = c.state
+    row_frames = row_bytes = None
+    if frames is not None:
+        row_frames, row_bytes = frames
+    send(s.have, s.relay_left if relay is None else relay, s.injected,
+         c.meta.nbytes, c.cfg.rate_limit_bytes_round, c.targets, c.dst,
+         c.slot, c.ok, s.alive, c.k_drop, c.thr,
+         s.inflight if ring is None else ring, row_frames, row_bytes,
+         dropped, c.key, c.fthr, c.jit, c.seed)
+
+
+def compare_broadcast_fault(dev, g, n=STORM_N, timed=True):
+    """K12's fault entry at the dense storms' shapes (N = 100000, P = 512,
+    F = 3): the dense fault storm's round 5 (the fault loss on every
+    edge, the half split's cuts; D = 2), the dense latency storm's round
+    6 (with the fault delay and jitter bounds 0 and 1; D = 4), and a trap
+    case at D = 8 with the flat topology loss (both loss streams on one
+    cell) and jitter bounds 0, 1 and 4 — each against the plain version
+    with the dropped count and the per-node frames and bytes, printing
+    the slice's traps as reached."""
+    from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim.topology import aligned_u8_bits
+
+    cfg, meta, fplan = _dense_fault_storm(n, dev)
+    lcfg, lmeta, lplan = _dense_latency_storm(n, dev)
+    wide = dataclasses.replace(lcfg, n_delay_slots=8)
+    plan = latency_storm_plan(n)
+    trap_plan = faults.compile_plan(FaultPlan(
+        n_nodes=n, seed=plan.seed, events=(
+            *plan.events,
+            FaultEvent("jitter", 2, 16, src=f"{n // 2}:{n}", dst="*",
+                       delay_rounds=4))), wide, device=dev)
+    cases = {
+        "path": _wire_case(g, dev, cfg, meta, fplan, DENSE_FAULT_T),
+        "latency": _wire_case(g, dev, lcfg, lmeta, lplan, LATENCY_T),
+        "trap": _wire_case(g, dev, wide, lmeta, trap_plan, LATENCY_T, 0.3),
+    }
+    equal, err = True, 0
+    for c in cases.values():
+        outs = []
+        for kernel in (True, False):
+            ring, relay = c.state.inflight.clone(), c.state.relay_left.clone()
+            dropped = torch.zeros((), dtype=torch.int64, device=dev)
+            frames = (torch.empty(n, dtype=torch.int32, device=dev),
+                      torch.empty(n, dtype=torch.int32, device=dev))
+            _wire_send(c, kernel, dropped, frames, ring, relay)
+            outs.append([ring, relay, dropped, *frames])
+        e, x = _equal_all(outs[0], outs[1])
+        equal, err = equal and e, max(err, x)
+
+    # the traps, from the plain version's own pieces
+    c = cases["trap"]
+    jit_values = set(torch.unique(c.jit[c.ok]).tolist())
+    _trap("dense 1", "jitter bounds 0, 1 and 4 on one ring",
+          {0, 1, 4} <= jit_values)
+    span, mult = trng.scalar_span(0, (1 << 31) - 1)
+    jkey = faults.fault_key(c.key, c.seed, faults.JITTER_TAG)
+    e_idx = torch.nonzero(c.jit > 0).flatten()[:2048]
+    idx = (e_idx[:, None].long() * cfg.n_payloads
+           + torch.arange(cfg.n_payloads, device=dev)).reshape(-1)
+    sub = trng.split_plain(jkey, 2)
+    zeros = torch.zeros_like(idx)
+    h1, h2 = trng.threefry2x32(sub[0][0], sub[0][1], zeros, idx)
+    l1, l2 = trng.threefry2x32(sub[1][0], sub[1][1], zeros, idx)
+    right = trng.randint_at_plain(jkey, idx, 0, (1 << 31) - 1).long()
+    wrong = ((h1 ^ h2) % span * 2 + (l1 ^ l2) % span) % span
+    _trap("dense 2", "randint's multiplier wraps to 0 (an exact 2 changes "
+          "the jitter draws)",
+          mult == 0 and bool((right != wrong).any())
+          and torch.equal(right, (l1 ^ l2) % span))
+    e = n * cfg.fanout
+    p = cfg.n_payloads
+    sending = ((c.state.have > 0) & (c.state.relay_left > 0)
+               & (c.state.injected > 0)[None, :]).repeat_interleave(
+                   cfg.fanout, dim=0) & c.ok[:, None]
+    topo_drop = aligned_u8_bits(c.k_drop, (e, p)) < c.thr
+    fault_drop = aligned_u8_bits(faults.fault_key(
+        c.key, c.seed, faults.WIRE_LOSS_TAG), (e, p)) < c.fthr[:, None]
+    _trap("dense 3", "both loss streams drop one cell (and each alone)",
+          bool((sending & topo_drop & fault_drop).any())
+          and bool((sending & topo_drop & ~fault_drop).any())
+          and bool((sending & ~topo_drop & fault_drop).any()))
+    del sending, topo_drop, fault_drop
+
+    c = cases["path"]
+    base = [c.state.inflight, c.state.relay_left]
+    work = [x.clone() for x in base]
+
+    def restore():
+        for dst_, src_ in zip(work, base):
+            dst_.copy_(src_)
+
+    # the bound of the path's case: the hashes of the draw words its ok
+    # (edge, sending payload) cells under a fault threshold need, or the
+    # bytes it must move, whichever is larger
+    sending = ((c.state.have > 0) & (c.state.relay_left > 0)
+               & (c.state.injected > 0)[None, :]).repeat_interleave(
+                   cfg.fanout, dim=0) & c.ok[:, None] & (c.fthr > 0)[:, None]
+    hashes = int(sending.reshape(e, p // 4, 4).any(dim=2).sum())
+    del sending
+    after = [x.clone() for x in base]
+    _wire_send(c, True, ring=after[0], relay=after[1])
+    nbytes = (_nbytes(c.state.have, c.state.relay_left, c.state.injected,
+                      meta.nbytes, c.targets, c.dst, c.slot, c.ok,
+                      c.state.alive, c.fthr)
+              + _changed_bytes(base, after))
+    ops = hashes * OPS_PER_HASH
+    rate = _int32_ops_per_s()
+    bound = max(_bound_ms(nbytes), ops / rate * 1e3)
+    return dict(
+        name="dense_broadcast_fault",
+        source="corrosion_tpu_torch/kernels/csrc/dense_phases.cu",
+        replaces="corrosion_tpu/sim/broadcast.py:124",
+        equal=equal, max_abs_err=err,
+        ms=_timed(timed, lambda: _wire_send(c, True, ring=work[0],
+                                            relay=work[1]), restore),
+        plain_ms=_timed(timed, lambda: _wire_send(
+            c, False, ring=work[0], relay=work[1]), restore),
+        bound_ms=bound,
+        bound_by="operations" if ops / rate * 1e3 > _bound_ms(nbytes)
+        else "bytes",
+        ops=ops, hashes=hashes, bytes=nbytes, kernel="dense_broadcast_fault")
+
+
+def _session_delay_plan(n):
+    """A delay of one round on every link out of the first sixth and one
+    on every link into the first half, rounds 2-15: a session between the
+    two takes 2 = D - 2 rounds at D = 4."""
+    from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+
+    return FaultPlan(n_nodes=n, seed=0, events=(
+        FaultEvent("delay", 2, 16, src=f"0:{n // 6}", dst="*",
+                   delay_rounds=1),
+        FaultEvent("delay", 2, 16, src="*", dst=f"0:{n // 2}",
+                   delay_rounds=1)))
+
+
+def compare_sync_delay_dense(dev, g, n=STORM_N, timed=True):
+    """K13's delay entry at the dense latency storm's shapes (N = 100000,
+    P = 512, S = 3, D = 4) with session delays 0, 1 and 2 = D - 2 (K9's,
+    on a plan whose two delays add), on a ring whose slots already hold
+    grants, unmetered (the path) and under a sync budget that binds:
+    the ring, the fruitful flags and the grant counts."""
+    from corrosion_tpu_torch.sim import faults, sync
+
+    cfg, meta, _ = _dense_latency_storm(n, dev)
+    s, d = cfg.sync_peers, cfg.n_delay_slots
+    fplan = faults.compile_plan(_session_delay_plan(n), cfg, device=dev)
+    state = _dense_state(g, dev, cfg, LATENCY_T)
+    heads, lo, hi, _ = _advertised(g, dev, cfg, state.have, LATENCY_T)
+    peers = torch.as_tensor(g.integers(0, n, (n, s)), dtype=torch.int32,
+                            device=dev)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(s)
+    ok = torch.as_tensor(g.random((n, s)) < 0.7, device=dev)
+    rf = faults.round_faults(fplan, LATENCY_T)
+    sdelay = faults.fault_session_delay(rf, src, peers.reshape(-1))
+    slot = (LATENCY_T + 1) % d
+    ring0 = state.sync_inflight
+    args = (state.have, heads, lo, hi, peers, ok, meta.nbytes)
+    equal, err, rings = True, 0, {}
+    for budget in (None, 3 * 8 * 1024):
+        outs = []
+        for fn in (sync.sync_pull_dense, sync.sync_pull_dense_plain):
+            ring = ring0.clone()
+            counts = torch.zeros(cfg.n_payloads, dtype=torch.int32,
+                                 device=dev)
+            fr = fn(*args, budget, ring, cfg, counts, sdelay, slot)
+            outs.append([fr, ring, counts])
+        e, x = _equal_all(outs[0], outs[1])
+        equal, err = equal and e, max(err, x)
+        rings[budget] = outs[1][1]
+    if torch.equal(rings[None], rings[3 * 8 * 1024]):
+        raise AssertionError("K13 delay inputs: the sync budget never binds")
+    grew = (rings[None] != 0) & (ring0 == 0)
+    far = (slot + d - 2) % d
+    _trap("dense 4", "a session delay of D - 2 lands in slot t + 1 + D - 2, "
+          "a slot that already holds grants",
+          int(sdelay.max()) == d - 2 and bool(grew[far].any())
+          and bool((ring0[far] != 0).any()))
+    work = ring0.clone()
+
+    def restore():
+        work.copy_(ring0)
+
+    nbytes = (_nbytes(state.have, heads, lo, hi, peers, ok, meta.nbytes,
+                      sdelay)
+              + int(grew.sum()) + n)  # the grants stored, fruitful
+    return _row(
+        "dense_sync_delay", "corrosion_tpu_torch/kernels/csrc/dense_sync.cu",
+        "corrosion_tpu/sim/sync.py:165", equal, err,
+        _timed(timed, lambda: sync.sync_pull_dense(
+            *args, None, work, cfg, None, sdelay, slot), restore),
+        _timed(timed, lambda: sync.sync_pull_dense_plain(
+            *args, None, work, cfg, None, sdelay, slot), restore),
+        nbytes, kernel="dense_sync_delay")
+
+
+def compare_dense_gaps_exit(dev, g, n=STORM_N, timed=True):
+    """K14's exit mode at the dense storm's shapes (N = 100000, P = 512,
+    A = 16, V = 8, C = 4, K = 8) after every payload was injected: every
+    up node holding everything but one wiped after its sticky stamp (the
+    plain mode would exit; the fault loop must not), before and after
+    the plan's horizon, and with the wiped row healed — both values of
+    the flag."""
+    from corrosion_tpu_torch.sim.round import (
+        RunMetrics, dense_record, dense_record_plain)
+
+    cfg, meta, _ = _dense_fault_storm(n, dev)
+    p = cfg.n_payloads
+    t = int(meta.round.max()) + 2
+    alive = torch.as_tensor((g.random(n) < 0.03) * 2, dtype=torch.uint8,
+                            device=dev)
+    up = np.flatnonzero(alive.cpu().numpy() == 0)
+    have = torch.ones((n, p), dtype=torch.uint8, device=dev)
+    have[int(up[1])] = 0  # wiped after it converged
+    metrics = RunMetrics(
+        coverage_at=torch.full((p,), 2, dtype=torch.int32, device=dev),
+        converged_at=torch.full((n,), 4, dtype=torch.int32, device=dev),
+        overflow_frac=torch.zeros((), device=dev),
+        order_violations=torch.zeros((), dtype=torch.int32, device=dev))
+    inj = torch.ones(p, dtype=torch.uint8, device=dev)
+    healed = torch.ones_like(have)
+    cases = [(have, t - 1), (have, t + 5), (healed, t - 1), (healed, t + 5)]
+    equal, err, dones = True, 0, []
+    for h, horizon in cases:
+        args = (h, inj, alive, metrics, meta, t, cfg)
+        got = dense_record(*args, horizon=horizon)
+        want = dense_record_plain(*args, horizon=horizon)
+        e, x = _equal_all(list(got), list(want))
+        equal, err = equal and e, max(err, x)
+        dones.append(bool(want[6]))
+    sticky = dense_record_plain(have, inj, alive, metrics, meta, t, cfg)
+    _trap("dense 5", "a wipe after convergence: the sticky stamps would "
+          "exit, the fresh exit mode does not (and does once healed, past "
+          "the horizon only)",
+          bool(sticky[6]) and dones == [False, False, True, False])
+    args = (have, inj, alive, metrics, meta, t, cfg)
+    a, k = cfg.n_writers, cfg.gap_slots
+    nbytes = (n * p + p + n + p * 4 + n * 4 * 2 + p * 4 * 2
+              + n * a * 4 * (1 + 2 * k) + 4 + 1)
+    return _row(
+        "dense_gaps_exit", "corrosion_tpu_torch/kernels/csrc/dense_gaps.cu",
+        "corrosion_tpu/sim/faults.py:748", equal, err,
+        _timed(timed, lambda: dense_record(*args, horizon=t - 1)),
+        _timed(timed, lambda: dense_record_plain(*args, horizon=t - 1)),
+        nbytes, kernel="dense_gaps_exit")
+
+
+def compare_dense_fault_kernels(dev, seed=5):
+    """Phase 3f: K11's dense entry, K12's fault entry, K13's delay entry
+    and K14's exit mode at the dense storms' shapes, every trap of the
+    slice reached."""
+    g = np.random.default_rng(seed)
+    rows = [compare_node_faults_dense(dev, g), compare_broadcast_fault(dev, g),
+            compare_sync_delay_dense(dev, g), compare_dense_gaps_exit(dev, g)]
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
 _START = time.monotonic()
 
 
@@ -2677,6 +3193,49 @@ def _path_launches(kernels, rows, label, telemetry=False):
                                  f"on the telemetry-off {label} path")
     return {row: sum(k.launches for k in entries_)
             for row, entries_ in kernels.PORTED.items()}
+
+
+def _timed_fault_run(cfg, meta, fplan, seed, dev, telemetry=False):
+    """A fault run from zeroed launch counters through `run_fault_plan`:
+    its output and its record in `_storm_check`'s terms."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    state = new_sim(cfg, seed, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = faults.run_fault_plan(state, meta, cfg, Topology(), fplan,
+                                max_rounds=3000, telemetry=telemetry)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {"out": out, "run": _fault_record(out[0], out[1], wall)}
+
+
+def _same_as_packed(dense, packed_run, label):
+    """JAX's dense == packed contract (tests/sim/test_packed_equivalence.py
+    test_fault_storm_4096_packed_vs_dense): the same have, heads, alive,
+    relay budgets and injected flags, and the same convergence and
+    coverage stamps, as the packed run of the same storm on this card."""
+    for name in ("have", "heads", "alive", "relay_left", "injected"):
+        if not torch.equal(getattr(dense[0], name),
+                           getattr(packed_run[0], name)):
+            raise AssertionError(f"{label}: {name} differs from the packed "
+                                 "run's")
+    for name in ("converged_at", "coverage_at"):
+        if not torch.equal(getattr(dense[1], name),
+                           getattr(packed_run[1], name)):
+            raise AssertionError(f"{label}: {name} differs from the packed "
+                                 "run's")
+    print(f"{label}: have, heads, alive, relay_left, injected, converged_at "
+          "and coverage_at equal to the packed run's", flush=True)
+
+
+def _per_round(launches, rows, rounds, label):
+    print(f"{label} launches per round: " + json.dumps(
+        {row: launches[row] / rounds for row in rows}), flush=True)
 
 
 F32_ULP = 2.0 ** -24
@@ -2755,6 +3314,21 @@ def main() -> int:
     kernels.build_all(verbose=True)
     print(f"build_s={time.monotonic() - t0:.2f}", flush=True)
 
+    # the storms' telemetry-off launches, first: the count the profiler
+    # gives depends on what the process ran before (a few launches fewer
+    # after the comparison phases), so it is held in a fresh process;
+    # then the recorder's share of the same rounds
+    storm_profiles = [profile_storm(dev), profile_storm(dev, faults=True)]
+    for prof, want in zip(storm_profiles, (STORM_OFF_LAUNCHES,
+                                           FAULT_STORM_OFF_LAUNCHES)):
+        got = round(prof["device_launches_per_round"] * prof["rounds"])
+        if got != want:
+            raise AssertionError(f"{prof['run']}: {got} launches in "
+                                 f"{prof['rounds']} telemetry-off rounds, "
+                                 f"not {want}")
+    storm_profiles.append(profile_storm(dev, telemetry=True))
+    _lap("the storms' launch profiles")
+
     rows = compare_kernels(dev)
     print("kernel comparisons equal at storm shapes", flush=True)
     _lap("storm kernel comparisons")
@@ -2771,6 +3345,10 @@ def main() -> int:
     print("kernel comparisons equal at the latency storm's shapes",
           flush=True)
     _lap("latency kernel comparisons")
+    dense_fault_kernel_rows = compare_dense_fault_kernels(dev)
+    print("kernel comparisons equal at the dense fault storms' shapes",
+          flush=True)
+    _lap("dense fault kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -2808,6 +3386,7 @@ def main() -> int:
         state, meta, cfg, Topology(), fplan, max_rounds=3000)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    packed_fault = (final, metrics)
     fault_launches = _path_launches(
         kernels, [row for row in faultless_rows if row != "broadcast_scatter"]
         + ["fault_edges", "broadcast_scatter_lossy", "node_faults"],
@@ -3010,6 +3589,8 @@ def main() -> int:
             raise AssertionError(f"fault_reach never launched on {label}")
         run = _fault_record(out[0], out[1], wall)
         _storm_check(run, goldens.LATENCY_STORM_100K_SEED0, label)
+        if not tel:
+            packed_latency = out
         if tel:
             run["trace"] = out[2]
             run["telemetry"] = trace_summary(
@@ -3020,23 +3601,79 @@ def main() -> int:
     print("latency_storm_100k launches per round: " + json.dumps({
         row: latency_launches[False][row] / goldens.LATENCY_STORM_100K_SEED0[
             "rounds"] for row in latency_rows}), flush=True)
-    print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
     _lap("path 9, the latency storm")
 
-    storm_profile = profile_storm(dev)
-    print("profile: " + json.dumps(storm_profile), flush=True)
-    fault_profile = profile_storm(dev, faults=True)
-    print("profile: " + json.dumps(fault_profile), flush=True)
-    for prof, want in ((storm_profile, STORM_OFF_LAUNCHES),
-                       (fault_profile, FAULT_STORM_OFF_LAUNCHES)):
-        got = round(prof["device_launches_per_round"] * prof["rounds"])
-        if got != want:
-            raise AssertionError(f"{prof['run']}: {got} launches in "
-                                 f"{prof['rounds']} telemetry-off rounds, "
-                                 f"not {want}")
-    # the recorder's share of a round: the same rounds with it on
-    print("profile: " + json.dumps(profile_storm(dev, telemetry=True)),
-          flush=True)
+    # path 10, dense-fault-storm-100k: the fault storm on the dense round
+    # (JAX's allow_packed=False) from zeroed counters, without and with
+    # the recorder: partial-view SWIM (K1, K4), K5, K9, K11's dense
+    # entry, K12 and its fault entry (the loss window), K13, K14's exit
+    # mode; its golden, and JAX's dense == packed contract against path
+    # 2's packed run on this card
+    dense_fault_rows = ["sample_targets", "merge_entries", "threefry",
+                        "fault_edges", "dense_phases", "dense_sync",
+                        "node_faults_dense", "dense_broadcast_fault",
+                        "dense_gaps_exit"]
+    cfg, meta, fplan = _dense_fault_storm(STORM_N, dev)
+    dense_fault_launches = {}
+    for tel in (False, True):
+        label = "dense_fault_storm_100k" + ("_telemetry" if tel else "")
+        out = _timed_fault_run(cfg, meta, fplan, 0, dev, tel)
+        dense_fault_launches[tel] = _path_launches(
+            kernels, dense_fault_rows + (dense_trace if tel else []), label,
+            tel)
+        _storm_check(out["run"], goldens.DENSE_FAULT_STORM_100K_SEED0, label)
+        _same_as_packed(out["out"], packed_fault, label)
+        if tel:
+            run = out["run"]
+            run["trace"] = out["out"][2]
+            run["telemetry"] = trace_summary(
+                trace_host(run["trace"], run["rounds"]), run["rounds"], cfg)
+            f32_gaps["dense_fault_storm_100k"] = _telemetry_check(
+                run, goldens.DENSE_FAULT_STORM_100K_SEED0_TELEMETRY, 300_000,
+                512, label)
+    _per_round(dense_fault_launches[False], dense_fault_rows,
+               goldens.DENSE_FAULT_STORM_100K_SEED0["rounds"],
+               "dense_fault_storm_100k")
+    print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
+    _lap("path 10, the dense fault storm")
+
+    # path 11, dense-latency-storm-100k: the latency storm on the dense
+    # round — K9's latency entry, K12's fault entry with the jitter draw,
+    # K13's delay entry every round — against the packed run of path 9
+    dense_latency_rows = ["sample_targets", "merge_entries", "threefry",
+                          "fault_edges_delay", "dense_phases",
+                          "dense_sync_delay", "node_faults_dense",
+                          "dense_broadcast_fault", "dense_gaps_exit"]
+    cfg, meta, fplan = _dense_latency_storm(STORM_N, dev)
+    out = _timed_fault_run(cfg, meta, fplan, 0, dev)
+    dense_latency_launches = _path_launches(
+        kernels, dense_latency_rows, "dense_latency_storm_100k")
+    if kernels.FAULT_REACH.launches <= 0:
+        raise AssertionError("fault_reach never launched on "
+                             "dense_latency_storm_100k")
+    _storm_check(out["run"], goldens.DENSE_LATENCY_STORM_100K_SEED0,
+                 "dense_latency_storm_100k")
+    _same_as_packed(out["out"], packed_latency, "dense_latency_storm_100k")
+    _per_round(dense_latency_launches, dense_latency_rows,
+               goldens.DENSE_LATENCY_STORM_100K_SEED0["rounds"],
+               "dense_latency_storm_100k")
+
+    # path 12, full-view-fault-storm-4096: JAX's 4096-node acceptance
+    # storm on full-view SWIM (K1's uniform entry, K15 with K9's reach on
+    # every probe leg, K11's view wipe) and the dense round
+    fv_rows = ["sample_uniform", "threefry", "fault_edges", "dense_phases",
+               "dense_sync", "swim_full", "node_faults_dense",
+               "dense_broadcast_fault", "dense_gaps_exit"]
+    cfg, meta, fplan = _full_view_storm(dev)
+    out = _timed_fault_run(cfg, meta, fplan, 7, dev)
+    fv_launches = _path_launches(kernels, fv_rows,
+                                 "full_view_fault_storm_4096")
+    _storm_check(out["run"], goldens.FULL_VIEW_FAULT_STORM_4096_SEED7,
+                 "full_view_fault_storm_4096")
+    _lap("paths 11-12, the dense latency storm and the full view")
+
+    for prof in storm_profiles:
+        print("profile: " + json.dumps(prof), flush=True)
     # the whole loss window, where most nodes send and K10 draws most
     print("profile: " + json.dumps(profile_storm(dev, 12, faults=True)),
           flush=True)
@@ -3048,6 +3685,8 @@ def main() -> int:
     for latency in (True, False):
         print("profile_latency: " + json.dumps(
             profile_latency(dev, latency=latency)), flush=True)
+    print("profile_dense_fault: " + json.dumps(profile_dense_fault(dev)),
+          flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -3080,6 +3719,17 @@ def main() -> int:
         row["launches"] = latency_launches[False][row["kernel"]]
         row["path"] = "latency_storm_100k"
     rows += latency_kernel_rows
+    for row in dense_fault_kernel_rows:
+        path, counts = (
+            ("dense_latency_storm_100k", dense_latency_launches)
+            if row["kernel"] == "dense_sync_delay"
+            else ("dense_fault_storm_100k", dense_fault_launches[False]))
+        row["launches"] = counts[row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            "dense_latency_storm_100k": dense_latency_launches[row["kernel"]],
+            "full_view_fault_storm_4096": fv_launches[row["kernel"]]}
+    rows += dense_fault_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

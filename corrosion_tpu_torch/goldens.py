@@ -9,7 +9,8 @@ the final state (`convert.state_digest`, equal to the JAX suite's
 ``chip_smoke.py`` holds the port's runs on the card against them;
 ``tests/test_torch_storm.py``, ``tests/test_torch_fault_storm.py``,
 ``tests/test_torch_dense.py``, ``tests/test_torch_swim_full.py``,
-``tests/test_torch_gapstress.py`` and ``tests/test_torch_latency.py``
+``tests/test_torch_gapstress.py``, ``tests/test_torch_latency.py`` and
+``tests/test_torch_dense_faults.py``
 hold them against live JAX (the largest under ``-m slow``).  The ``*_TELEMETRY`` entries at the end are
 the same runs' flight-recorder summaries and per-round byte channels;
 ``tests/test_torch_telemetry.py`` holds the 3-node and broadcast-1k ones
@@ -57,6 +58,38 @@ LATENCY_STORM_100K_SEED0 = {
     "rounds": 29,
     "p99_node_convergence_round": 26.0,
     "digest": "652c9355f037a8c9",
+}
+
+# the same fault storm on the dense round: _write_storm(100000, 512) with
+# allow_packed=False (JAX's dense == packed contract), run_fault_plan(
+# new_sim(cfg, 0), meta, cfg, Topology(), compile_plan(storm_fault_plan(
+# 100000, 0), cfg, Topology()), max_rounds=3000) — pinned from live JAX's
+# dense run on the CPU, which gives the packed run's results bit for bit
+DENSE_FAULT_STORM_100K_SEED0 = {
+    "rounds": 29,
+    "p99_node_convergence_round": 25.0,
+    "digest": "1cd8919e20ad0df8",
+}
+
+# the latency storm on the dense round: LATENCY_STORM_100K_SEED0's run
+# with allow_packed=False, pinned from live JAX's dense run on the CPU
+# (the packed run's results again)
+DENSE_LATENCY_STORM_100K_SEED0 = {
+    "rounds": 29,
+    "p99_node_convergence_round": 26.0,
+    "digest": "652c9355f037a8c9",
+}
+
+# JAX's 4096-node acceptance storm (tests/sim/test_packed_equivalence.py
+# test_fault_storm_4096_packed_vs_dense) on full-view membership:
+# _write_storm(4096, 512) with swim_partial_view=False,
+# swim_full_view=True, allow_packed=False, run_fault_plan(new_sim(cfg, 7),
+# meta, cfg, Topology(), compile_plan(storm_fault_plan(4096, seed=3), cfg,
+# Topology()), 1000)
+FULL_VIEW_FAULT_STORM_4096_SEED7 = {
+    "rounds": 26,
+    "p99_node_convergence_round": 24.0,
+    "digest": "3e833122b5aaa8ee",
 }
 
 # runner.config_ground_truth_3node(seed=0), its final state from
@@ -430,3 +463,8 @@ LATENCY_STORM_100K_SEED0_TELEMETRY = {'summary': {'rounds': 29,
                 12484943872.0, 12928385024.0, 12227780608.0, 10626080768.0,
                 8344870912.0, 3515695104.0, 538894336.0, 46555136.0, 2801664.0,
                 0.0]}
+
+# the dense fault storm's run (DENSE_FAULT_STORM_100K_SEED0) with
+# telemetry=True, from live JAX's dense run on the CPU: every key and row
+# equal to the packed run's entry above
+DENSE_FAULT_STORM_100K_SEED0_TELEMETRY = FAULT_STORM_100K_SEED0_TELEMETRY

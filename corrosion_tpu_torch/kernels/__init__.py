@@ -46,7 +46,15 @@ replaces:
   jitter;
 - K3's delay entry `SYNC_PULL_DELAY` (K3's launcher, counted apart) —
   `sim.packed.sync_pull` with session delays (the metered entry takes
-  them too, and counts as itself).
+  them too, and counts as itself);
+- the dense round's fault entries, each counted apart: K12's
+  `DENSE_BROADCAST_FAULT` (its own C entry, a second instantiation of
+  the broadcast kernel) — `sim.broadcast.broadcast_send` with the plan's
+  loss or jitter; K13's delay entry `DENSE_SYNC_DELAY` (K13's launcher)
+  — `sim.sync.sync_pull_dense` with session delays; K11's dense entry
+  `NODE_FAULTS_DENSE` — `sim.faults.apply_node_faults`; K14's exit mode
+  `DENSE_GAPS_ROWS_EXIT`, `DENSE_GAPS_FINISH_EXIT` (K14's launchers) —
+  `sim.round.dense_record` with a fault plan's horizon.
 
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
@@ -56,8 +64,8 @@ CUDA tensor; it never falls back from one to the other.  `PORTED` groups
 the entry points by kernel, in K order (K10 is a second entry point of
 K2's source with a row of its own, and so are K1's uniform entry, K3's
 metered entry, the dense round's entries of K17 and K18, and this
-slice's three latency entries, which share a C launcher with the entry
-they extend and keep counts of their own).
+latency and dense fault entries, which extend an entry of their kernel
+and keep counts of their own).
 """
 
 from .build import Kernel, build_all
@@ -97,7 +105,7 @@ FAULT_EDGES = Kernel(
     "fault_edges", "fault_edges.cu", "corro_fault_edges", 11
 )
 FAULT_REACH = Kernel("fault_reach", "fault_edges.cu", "corro_fault_reach", 8)
-NODE_FAULTS = Kernel("node_faults", "node_faults.cu", "corro_node_faults", 6)
+NODE_FAULTS = Kernel("node_faults", "node_faults.cu", "corro_node_faults", 7)
 
 SAMPLE_UNIFORM = Kernel(
     "sample_uniform", "sample_targets.cu", "corro_sample_uniform", 3
@@ -111,12 +119,12 @@ DENSE_BROADCAST = Kernel(
 DENSE_DELIVER = Kernel(
     "dense_deliver", "dense_phases.cu", "corro_dense_deliver", 4
 )
-DENSE_SYNC = Kernel("dense_sync", "dense_sync.cu", "corro_dense_sync", 7)
+DENSE_SYNC = Kernel("dense_sync", "dense_sync.cu", "corro_dense_sync", 9)
 DENSE_GAPS_ROWS = Kernel(
-    "dense_gaps_rows", "dense_gaps.cu", "corro_dense_gaps_rows", 8
+    "dense_gaps_rows", "dense_gaps.cu", "corro_dense_gaps_rows", 9
 )
 DENSE_GAPS_FINISH = Kernel(
-    "dense_gaps_finish", "dense_gaps.cu", "corro_dense_gaps_finish", 6
+    "dense_gaps_finish", "dense_gaps.cu", "corro_dense_gaps_finish", 7
 )
 SWIM_TIMEOUT = Kernel("swim_timeout", "swim_full.cu", "corro_swim_timeout", 3)
 SWIM_MERGE = Kernel("swim_merge", "swim_full.cu", "corro_swim_merge", 2)
@@ -156,6 +164,22 @@ BROADCAST_SCATTER_JITTER = Kernel(
 SYNC_PULL_DELAY = Kernel("sync_pull_delay", "sync_pull.cu", "corro_sync_pull",
                          5)
 
+DENSE_BROADCAST_FAULT = Kernel(
+    "dense_broadcast_fault", "dense_phases.cu", "corro_dense_broadcast_fault",
+    11,
+)
+DENSE_SYNC_DELAY = Kernel("dense_sync_delay", "dense_sync.cu",
+                          "corro_dense_sync", 9)
+NODE_FAULTS_DENSE = Kernel(
+    "node_faults_dense", "node_faults.cu", "corro_node_faults_dense", 7
+)
+DENSE_GAPS_ROWS_EXIT = Kernel(
+    "dense_gaps_rows_exit", "dense_gaps.cu", "corro_dense_gaps_rows", 9
+)
+DENSE_GAPS_FINISH_EXIT = Kernel(
+    "dense_gaps_finish_exit", "dense_gaps.cu", "corro_dense_gaps_finish", 7
+)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -183,6 +207,10 @@ PORTED = {
     "fault_edges_delay": (FAULT_EDGES_DELAY,),
     "broadcast_scatter_jitter": (BROADCAST_SCATTER_JITTER,),
     "sync_pull_delay": (SYNC_PULL_DELAY,),
+    "dense_broadcast_fault": (DENSE_BROADCAST_FAULT,),
+    "dense_sync_delay": (DENSE_SYNC_DELAY,),
+    "node_faults_dense": (NODE_FAULTS_DENSE,),
+    "dense_gaps_exit": (DENSE_GAPS_ROWS_EXIT, DENSE_GAPS_FINISH_EXIT),
 }
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
@@ -199,11 +227,13 @@ def reset_launch_counts() -> None:
 __all__ = [
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
     "BROADCAST_SCATTER_LOSSY", "BUDGET_WORDS",
-    "CONVERGE_FINISH", "CONVERGE_ROWS", "DENSE_BROADCAST", "DENSE_DELIVER",
-    "DENSE_GAPS_FINISH", "DENSE_GAPS_ROWS", "DENSE_INJECT", "DENSE_SYNC",
+    "CONVERGE_FINISH", "CONVERGE_ROWS", "DENSE_BROADCAST",
+    "DENSE_BROADCAST_FAULT", "DENSE_DELIVER", "DENSE_GAPS_FINISH",
+    "DENSE_GAPS_FINISH_EXIT", "DENSE_GAPS_ROWS", "DENSE_GAPS_ROWS_EXIT",
+    "DENSE_INJECT", "DENSE_SYNC", "DENSE_SYNC_DELAY",
     "FAULT_EDGES", "FAULT_EDGES_DELAY",
     "FAULT_REACH", "GAPS_REFRESH", "KERNELS", "Kernel", "MERGE_ENTRIES",
-    "NODE_FAULTS", "PORTED", "RANDINT", "SAMPLE_TARGETS", "SAMPLE_UNIFORM",
+    "NODE_FAULTS", "NODE_FAULTS_DENSE", "PORTED", "RANDINT", "SAMPLE_TARGETS", "SAMPLE_UNIFORM",
     "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL",
     "SYNC_PULL_DELAY", "SYNC_PULL_METERED", "THREEFRY", "TRACE_COUNTS", "TRACE_COVERAGE",
     "TRACE_COVERAGE_DENSE", "TRACE_ROW", "TRACE_ROWS", "TRACE_WIRE_ROWS",

@@ -123,14 +123,8 @@ __device__ __forceinline__ void jitter_or(uint32_t* __restrict__ ring,
   while (v) {
     int b = __ffs(v) - 1;
     v &= v - 1u;
-    corro::Pair lo = corro::threefry2x32(jt.sub[2], jt.sub[3], 0u, idx0 + b);
-    uint32_t off = (lo.a ^ lo.b) % jt.span;
-    if (jt.mult != 0u) {
-      corro::Pair hi =
-          corro::threefry2x32(jt.sub[0], jt.sub[1], 0u, idx0 + b);
-      off = ((hi.a ^ hi.b) % jt.span) * jt.mult + off;
-    }
-    off %= jt.span;  // the draw, in [0, 2^31 - 1)
+    // the draw, in [0, 2^31 - 1)
+    uint32_t off = corro::randint_at(jt.sub, jt.span, jt.mult, idx0 + b);
     uint32_t j = off % (uint32_t)(jb + 1);
     uint32_t bit = 1u << b;
     if (fast) {
@@ -211,21 +205,13 @@ __global__ void broadcast_scatter_kernel(
   __shared__ unsigned long long lost_block;
   if (thr != nullptr || kJitter) {
     if (threadIdx.x == 0) {
-      corro::Pair f = corro::threefry2x32((uint32_t)key[0],
-                                          (uint32_t)key[1], 0u, seed);
-      corro::Pair g = corro::threefry2x32(f.a, f.b, 0u, tag);
+      corro::Pair f = corro::fold_in(
+          corro::Pair{(uint32_t)key[0], (uint32_t)key[1]}, seed);
+      corro::Pair g = corro::fold_in(f, tag);
       folded[0] = g.a;
       folded[1] = g.b;
-      if (kJitter) {
-        // randint(fold_in(fold_in(key, seed), jit_tag)): split(., 2)
-        corro::Pair h = corro::threefry2x32(f.a, f.b, 0u, jit_tag);
-        corro::Pair s0 = corro::threefry2x32(h.a, h.b, 0u, 0u);
-        corro::Pair s1 = corro::threefry2x32(h.a, h.b, 0u, 1u);
-        jsub[0] = s0.a;
-        jsub[1] = s0.b;
-        jsub[2] = s1.a;
-        jsub[3] = s1.b;
-      }
+      // randint(fold_in(fold_in(key, seed), jit_tag)): split(., 2)
+      if (kJitter) corro::randint_subkeys(corro::fold_in(f, jit_tag), jsub);
     }
     __syncthreads();
   }

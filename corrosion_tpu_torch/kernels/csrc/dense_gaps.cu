@@ -37,6 +37,14 @@
 // AND and add are order-free, so the atomics leave the result
 // deterministic.
 //
+// The fault loop's exit mode (corrosion_tpu/sim/faults.py:748 _all_have
+// with :801 _done, the dense loop of :797-842): a node is settled when
+// it is down or holds every active version FRESH from its have row —
+// the same warp vote as node_done without the up gate, not the sticky
+// converged_at, so a wipe after convergence un-settles the node — and
+// the flag also needs t + 1 >= the plan's horizon (horizon < 0: the
+// plain mode).  The stamps are the same in both modes.
+//
 // Bound on the H100: bytes — the have rows once (N*P), heads and lo/hi
 // out (N*A*(1 + 2K)*4), converged_at in and out, coverage_at in and out.
 // Design: a lane's C chunk bytes of version v are contiguous and the
@@ -71,7 +79,7 @@ __global__ void dense_gaps_rows_kernel(
     int32_t* __restrict__ overflow_count,
     int32_t* __restrict__ converged_out, uint32_t* __restrict__ partial,
     int n, int p, int a_writers, int v_versions, int c_chunks, int k_slots,
-    int t, int rows_per_block) {
+    int t, int rows_per_block, int exit_mode) {
   extern __shared__ uint32_t col[];  // [A * VW + 1]
   int vw = (v_versions + 31) / 32;
   int width = a_writers * vw;
@@ -137,12 +145,14 @@ __global__ void dense_gaps_rows_kernel(
       overflowed += overflow;
       heads[na] = head;
     }
-    bool node_done = __all_sync(0xFFFFFFFFu, node_ok) && up;
+    bool node_all = __all_sync(0xFFFFFFFFu, node_ok);
+    bool node_done = node_all && up;
     if (lane == 0) {
       int32_t conv = converged_in[node];
       if (conv < 0 && node_done && all_injected) conv = t;
       converged_out[node] = conv;
-      settled_all &= conv >= 0 || !up;
+      // the exit mode settles on the fresh completeness, not the stamp
+      settled_all &= (exit_mode ? node_all : conv >= 0) || !up;
     }
   }
   for (int d = 16; d > 0; d >>= 1) {
@@ -160,7 +170,8 @@ __global__ void dense_gaps_finish_kernel(
     const int32_t* __restrict__ round_of,
     const int32_t* __restrict__ coverage_in,
     int32_t* __restrict__ coverage_out, bool* __restrict__ done,
-    int n_blocks, int p, int a_writers, int v_versions, int c_chunks, int t) {
+    int n_blocks, int p, int a_writers, int v_versions, int c_chunks, int t,
+    int horizon) {
   extern __shared__ uint32_t col[];  // [A * VW + 1]
   int vw = (v_versions + 31) / 32;
   int width = a_writers * vw;
@@ -186,7 +197,9 @@ __global__ void dense_gaps_finish_kernel(
     int32_t cov = coverage_in[q];
     coverage_out[q] = (cov < 0 && version_done) ? t : cov;
   }
-  if (threadIdx.x == 0) done[0] = all_injected_next && col[width] == kOnes;
+  if (threadIdx.x == 0)
+    done[0] = all_injected_next && col[width] == kOnes &&
+              (horizon < 0 || t + 1 >= horizon);
 }
 
 bool geometry_ok(int p, int a_writers, int v_versions, int c_chunks,
@@ -205,7 +218,7 @@ extern "C" int corro_dense_gaps_rows(
     const void* round_of, const void* converged_in, void* heads, void* gap_lo,
     void* gap_hi, void* overflow_count, void* converged_out, void* partial,
     int n, int p, int a_writers, int v_versions, int c_chunks, int k_slots,
-    int t, int rows_per_block, void* stream) {
+    int t, int rows_per_block, int exit_mode, void* stream) {
   if (n <= 0 || rows_per_block <= 0 ||
       !geometry_ok(p, a_writers, v_versions, c_chunks, k_slots))
     return (int)cudaErrorInvalidValue;
@@ -218,7 +231,8 @@ extern "C" int corro_dense_gaps_rows(
       (const int32_t*)round_of, (const int32_t*)converged_in,
       (int32_t*)heads, (int32_t*)gap_lo, (int32_t*)gap_hi,
       (int32_t*)overflow_count, (int32_t*)converged_out, (uint32_t*)partial,
-      n, p, a_writers, v_versions, c_chunks, k_slots, t, rows_per_block);
+      n, p, a_writers, v_versions, c_chunks, k_slots, t, rows_per_block,
+      exit_mode);
   return (int)cudaGetLastError();
 }
 
@@ -229,7 +243,7 @@ extern "C" int corro_dense_gaps_finish(const void* partial,
                                        void* coverage_out, void* done,
                                        int n_blocks, int p, int a_writers,
                                        int v_versions, int c_chunks, int t,
-                                       void* stream) {
+                                       int horizon, void* stream) {
   if (n_blocks <= 0 || !geometry_ok(p, a_writers, v_versions, c_chunks, 1))
     return (int)cudaErrorInvalidValue;
   size_t smem =
@@ -238,6 +252,6 @@ extern "C" int corro_dense_gaps_finish(const void* partial,
       (const uint32_t*)partial, (const uint8_t*)injected,
       (const int32_t*)round_of, (const int32_t*)coverage_in,
       (int32_t*)coverage_out, (bool*)done, n_blocks, p, a_writers,
-      v_versions, c_chunks, t);
+      v_versions, c_chunks, t, horizon);
   return (int)cudaGetLastError();
 }

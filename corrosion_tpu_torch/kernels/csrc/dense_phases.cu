@@ -43,12 +43,35 @@
 // under a threshold hash anything; jax draws the whole [E, P] mask with
 // the same result.
 //
+// The fault entry (corro_dense_broadcast_fault, a second instantiation
+// of the broadcast kernel, so the plain entry keeps its registers) adds
+// the fault plan's per-(edge, payload) draws of broadcast.py:124-185,
+// corrosion_tpu/sim/faults.py:260 fault_wire_effects (its cuts are
+// already out of `ok` and its fixed delay in `slot`, both from K9):
+//   loss    payload q of edge e is also lost where byte e*P + q of
+//           aligned_u8_bits(fold_in(fold_in(phase_key, seed), 101), [E, P])
+//           is below the edge's threshold fthr[e] — the phase key, not
+//           the topology stream's k_drop; the two drops OR, so a payload
+//           the topology already lost draws nothing more;
+//   jitter  a surviving payload of an edge with jit[e] > 0 lands in slot
+//           (slot[e] + j) % D, j = element e*P + q of randint(fold_in(
+//           fold_in(phase_key, seed), 102), [E, P], 0, 2^31 - 1) mod
+//           (jit[e] + 1) (broadcast.py:166-179); at that span randint's
+//           u32 multiplier wraps to 0 and its `higher` hash drops out
+//           (corro::randint_at).
+// The ring still holds 0/1, so each cell is an idempotent store of 1
+// and the per-payload slots need no atomics.  The block folds the two
+// keys once, in shared memory.  Bound in a lossy or jittered round:
+// operations — one hash per ok (edge, sending payload) under a fault
+// threshold, and one per surviving payload of a jittered edge.
+//
 // With the flight recorder on, the broadcast entry also writes each
 // row's transmitted frames and bytes (corrosion_tpu/sim/fused.py:225
 // dense_send_stats: the count and the byte total of its sending
 // payloads, i32 [N], which K18 folds over the ok edges) and adds the
-// frames the loss ate on ok edges to an int64 accumulator `dropped`
-// (broadcast.py:259-281) — per-lane counts, one warp sum, one add a row.
+// frames the loss ate on ok edges (either stream) to an int64
+// accumulator `dropped` (broadcast.py:259-281) — per-lane counts, one
+// warp sum, one add a row.
 // Null pointers (telemetry off) skip all of it.
 //
 // Bound on the H100: bytes outside loss — have and relay read, relay
@@ -103,6 +126,25 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;
 }
 
+// Byte b of aligned_u8_bits(key, ·): byte b % 4 of the hash of word b / 4.
+__device__ __forceinline__ uint32_t draw_byte(uint32_t k1, uint32_t k2,
+                                              uint32_t b) {
+  corro::Pair h = corro::threefry2x32(k1, k2, 0u, b >> 2);
+  return ((h.a ^ h.b) >> (8u * (b & 3u))) & 0xFFu;
+}
+
+// The fault entry's draws (null thr and jit: the plain entry, which
+// draws neither): the plan's u8 loss thresholds and jitter bounds per
+// edge, the folded loss key and randint's subkeys of the jitter key.
+struct FaultDraws {
+  const uint8_t* thr;
+  const int32_t* jit;
+  uint32_t loss[2];
+  uint32_t sub[4];
+  uint32_t span, mult;
+};
+
+template <bool kFault>
 __global__ void dense_broadcast_kernel(
     const uint8_t* __restrict__ have, uint8_t* __restrict__ relay,
     const uint8_t* __restrict__ injected, const int32_t* __restrict__ nbytes,
@@ -111,7 +153,28 @@ __global__ void dense_broadcast_kernel(
     const uint8_t* __restrict__ alive, const int64_t* __restrict__ key,
     uint8_t* __restrict__ ring, int32_t* __restrict__ row_frames,
     int32_t* __restrict__ row_bytes, unsigned long long* __restrict__ dropped,
-    int n, int p, int f, int d_slots, int budget, int thr) {
+    const int64_t* __restrict__ phase_key, const uint8_t* __restrict__ fthr,
+    const int32_t* __restrict__ jit, int n, int p, int f, int d_slots,
+    int budget, int thr, uint32_t seed, uint32_t loss_tag, uint32_t jit_tag,
+    uint32_t span, uint32_t mult) {
+  FaultDraws fd{fthr, jit, {0u, 0u}, {0u, 0u, 0u, 0u}, span, mult};
+  if (kFault) {
+    // fold_in(fold_in(phase_key, seed), tag) once a block
+    __shared__ uint32_t keys[6];
+    if (threadIdx.x == 0) {
+      corro::Pair folded = corro::fold_in(
+          corro::Pair{(uint32_t)phase_key[0], (uint32_t)phase_key[1]}, seed);
+      corro::Pair lk = corro::fold_in(folded, loss_tag);
+      keys[0] = lk.a;
+      keys[1] = lk.b;
+      corro::randint_subkeys(corro::fold_in(folded, jit_tag), keys + 2);
+    }
+    __syncthreads();
+    fd.loss[0] = keys[0];
+    fd.loss[1] = keys[1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fd.sub[i] = keys[2 + i];
+  }
   int row = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp);
   int lane = threadIdx.x & (kWarp - 1);
   if (row >= n) return;  // whole warps leave together
@@ -145,12 +208,13 @@ __global__ void dense_broadcast_kernel(
     for (int j = 0; j < f; ++j) {
       size_t e = (size_t)row * f + j;
       if (!ok[e]) continue;
+      // byte (and i32 element) e*P + q of the [E, P] draws
+      uint32_t b = (uint32_t)(e * p + q);
       bool lost = thr >= 256;
-      if (thr > 0 && thr < 256) {
-        uint32_t b = (uint32_t)(e * p + q);
-        corro::Pair h = corro::threefry2x32(k1, k2, 0u, b >> 2);
-        uint32_t byte = ((h.a ^ h.b) >> (8u * (b & 3u))) & 0xFFu;
-        lost = byte < (uint32_t)thr;
+      if (thr > 0 && thr < 256) lost = draw_byte(k1, k2, b) < (uint32_t)thr;
+      if (kFault && !lost && fd.thr != nullptr) {
+        uint32_t t = fd.thr[e];
+        lost = t != 0u && draw_byte(fd.loss[0], fd.loss[1], b) < t;
       }
       if (lost) {
         lost_frames += 1;
@@ -160,6 +224,14 @@ __global__ void dense_broadcast_kernel(
       int s = slot[e];
       // jnp scatters drop out-of-range updates; so does this one
       if (r < 0 || r >= n || s < 0 || s >= d_slots) continue;
+      if (kFault && fd.jit != nullptr) {
+        int jb = fd.jit[e];
+        if (jb > 0) {
+          uint32_t off = corro::randint_at(fd.sub, fd.span, fd.mult, b);
+          s = (int)(((uint32_t)s + off % (uint32_t)(jb + 1)) %
+                    (uint32_t)d_slots);
+        }
+      }
       ring[((size_t)s * n + r) * p + q] = 1;
     }
     if (any_attempt) relay[cell] -= 1;
@@ -215,28 +287,72 @@ extern "C" int corro_dense_inject(const void* round_of, const void* actor,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+int launch_broadcast(bool fault, const void* have, void* relay,
+                     const void* injected, const void* nbytes,
+                     const void* targets, const void* dst, const void* slot,
+                     const void* ok, const void* alive, const void* key,
+                     void* ring, void* row_frames, void* row_bytes,
+                     void* dropped, const void* phase_key, const void* fthr,
+                     const void* jit, int n, int p, int f, int d_slots,
+                     int budget, int thr, int seed, int loss_tag, int jit_tag,
+                     int span, int mult, void* stream) {
+  if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
+      (row_frames == nullptr) != (row_bytes == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (fault && (phase_key == nullptr || (fthr == nullptr && jit == nullptr) ||
+                (jit != nullptr && span == 0)))
+    return (int)cudaErrorInvalidValue;
+  // the draws' byte and element index e*P + q is a u32 counter
+  if ((unsigned long long)n * f * p >= (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  auto kernel = fault ? dense_broadcast_kernel<true>
+                      : dense_broadcast_kernel<false>;
+  kernel<<<blocks_for((size_t)n * kWarp, threads), threads, 0,
+           (cudaStream_t)stream>>>(
+      (const uint8_t*)have, (uint8_t*)relay, (const uint8_t*)injected,
+      (const int32_t*)nbytes, (const int32_t*)targets, (const int32_t*)dst,
+      (const int32_t*)slot, (const bool*)ok, (const uint8_t*)alive,
+      (const int64_t*)key, (uint8_t*)ring, (int32_t*)row_frames,
+      (int32_t*)row_bytes, (unsigned long long*)dropped,
+      (const int64_t*)phase_key, (const uint8_t*)fthr, (const int32_t*)jit,
+      n, p, f, d_slots, budget, thr, (uint32_t)seed, (uint32_t)loss_tag,
+      (uint32_t)jit_tag, (uint32_t)span, (uint32_t)mult);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int corro_dense_broadcast(
     const void* have, void* relay, const void* injected, const void* nbytes,
     const void* targets, const void* dst, const void* slot, const void* ok,
     const void* alive, const void* key, void* ring, void* row_frames,
     void* row_bytes, void* dropped, int n, int p, int f, int d_slots,
     int budget, int thr, void* stream) {
-  if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
-      (row_frames == nullptr) != (row_bytes == nullptr))
-    return (int)cudaErrorInvalidValue;
-  // the draw's byte index e*P + q is a u32 counter (times 4)
-  if ((unsigned long long)n * f * p >= (1ull << 32))
-    return (int)cudaErrorInvalidValue;
-  int threads = 256;
-  dense_broadcast_kernel<<<blocks_for((size_t)n * kWarp, threads), threads, 0,
-                           (cudaStream_t)stream>>>(
-      (const uint8_t*)have, (uint8_t*)relay, (const uint8_t*)injected,
-      (const int32_t*)nbytes, (const int32_t*)targets, (const int32_t*)dst,
-      (const int32_t*)slot, (const bool*)ok, (const uint8_t*)alive,
-      (const int64_t*)key, (uint8_t*)ring, (int32_t*)row_frames,
-      (int32_t*)row_bytes, (unsigned long long*)dropped, n, p, f, d_slots,
-      budget, thr);
-  return (int)cudaGetLastError();
+  return launch_broadcast(false, have, relay, injected, nbytes, targets, dst,
+                          slot, ok, alive, key, ring, row_frames, row_bytes,
+                          dropped, nullptr, nullptr, nullptr, n, p, f,
+                          d_slots, budget, thr, 0, 0, 0, 1, 0, stream);
+}
+
+// The fault entry: `phase_key` is the broadcast phase key both fault
+// draws fold; `fthr` is null in a round without fault loss and `jit` in
+// one without jitter (not both); `span` and `mult` are randint's for the
+// jitter draw's bounds [0, 2^31 - 1).
+extern "C" int corro_dense_broadcast_fault(
+    const void* have, void* relay, const void* injected, const void* nbytes,
+    const void* targets, const void* dst, const void* slot, const void* ok,
+    const void* alive, const void* key, void* ring, void* row_frames,
+    void* row_bytes, void* dropped, const void* phase_key, const void* fthr,
+    const void* jit, int n, int p, int f, int d_slots, int budget, int thr,
+    int seed, int loss_tag, int jit_tag, int span, int mult, void* stream) {
+  return launch_broadcast(true, have, relay, injected, nbytes, targets, dst,
+                          slot, ok, alive, key, ring, row_frames, row_bytes,
+                          dropped, phase_key, fthr, jit, n, p, f, d_slots,
+                          budget, thr, seed, loss_tag, jit_tag, span, mult,
+                          stream);
 }
 
 extern "C" int corro_dense_deliver(void* ring, void* sync_ring, void* have,

@@ -28,6 +28,16 @@
 // stores 1 into slot[n, q] where any edge granted (the slot holds 0/1,
 // so JAX's max is that store) and the warp ballots the fruitful flag.
 //
+// The delay entry (the same launcher with session delays) takes the
+// fault branch of sync.py:165-243: under a plan with delay factors edge
+// e's grants land in ring slot (t + 1 + sdelay[e]) % D (sync.py:238-243,
+// JAX's per-edge scatter-max; sdelay is K9's session delay, the slower
+// direction's fault delay; refused sessions are already out of `ok`).
+// The lane keeps one bit per ring slot its edges' grants reach and
+// stores 1 into each — K3's delay-entry design on u8 rows; zero-delay
+// edges land at t + 1 as in the plain entry, and `fruitful` covers every
+// edge.
+//
 // With the flight recorder on, the kernel also adds each payload's
 // grant count (edges that granted it, corrosion_tpu/sim/sync.py:286
 // `jnp.sum(granted, axis=0)`) into the i32 [P] row `counts`: every lane
@@ -91,10 +101,11 @@ __device__ __forceinline__ void pull_row(
     const uint8_t* __restrict__ have, const int32_t* __restrict__ heads,
     const int32_t* __restrict__ gap_lo, const int32_t* __restrict__ gap_hi,
     const int32_t* __restrict__ peers, const bool* __restrict__ ok,
-    const int32_t* __restrict__ nbytes, uint8_t* __restrict__ slot_ring,
-    bool* __restrict__ fruitful, int* block_counts, int row, int lane, int n,
-    int p, int s_peers, int a_writers, int c_chunks, int k_slots,
-    int budget) {
+    const int32_t* __restrict__ nbytes, uint8_t* __restrict__ ring,
+    bool* __restrict__ fruitful, int* block_counts,
+    const int32_t* __restrict__ sdelay, int row, int lane, int n, int p,
+    int s_peers, int a_writers, int c_chunks, int k_slots, int budget,
+    int d_slots, int slot) {
   long long running[MAX_S];
   for (int j = 0; j < MAX_S; ++j) running[j] = 0;
   bool any_grant = false;
@@ -113,7 +124,7 @@ __device__ __forceinline__ void pull_row(
     }
     bool partial_me = me.below && !me.miss && !me.comp;
     int head_me = live ? heads[(size_t)row * a_writers + a] : 0;
-    bool pulled = false;
+    uint32_t slots = 0u;  // bit x: some edge's grant lands in ring slot x
     int grants = 0;
     for (int j = 0; j < s_peers; ++j) {
       bool edge_ok = ok[(size_t)row * s_peers + j];
@@ -136,12 +147,22 @@ __device__ __forceinline__ void pull_row(
         granted = need && cum <= (long long)budget;
         running[j] = __shfl_sync(0xFFFFFFFFu, cum, kWarp - 1);
       }
-      pulled |= granted;
+      if (granted) {
+        uint32_t sd = sdelay != nullptr
+                          ? (uint32_t)sdelay[(size_t)row * s_peers + j]
+                          : 0u;
+        slots |= 1u << (((uint32_t)slot + sd) % (uint32_t)d_slots);
+      }
       grants += granted;
     }
     if (block_counts != nullptr && grants) atomicAdd(&block_counts[q], grants);
-    if (pulled) slot_ring[(size_t)row * p + q] = 1;
-    any_grant |= pulled;
+    // the ring holds 0/1 and this (row, q) is the lane's own in every
+    // slot: a store of 1 is JAX's max, without atomics
+    for (uint32_t left = slots; left != 0u; left &= left - 1u) {
+      int x = __ffs((int)left) - 1;
+      ring[((size_t)x * n + row) * p + q] = 1;
+    }
+    any_grant |= slots != 0u;
   }
   bool f = __any_sync(0xFFFFFFFFu, any_grant);
   if (lane == 0) fruitful[row] = f;
@@ -151,9 +172,11 @@ __global__ void dense_sync_kernel(
     const uint8_t* __restrict__ have, const int32_t* __restrict__ heads,
     const int32_t* __restrict__ gap_lo, const int32_t* __restrict__ gap_hi,
     const int32_t* __restrict__ peers, const bool* __restrict__ ok,
-    const int32_t* __restrict__ nbytes, uint8_t* __restrict__ slot_ring,
-    bool* __restrict__ fruitful, int32_t* __restrict__ counts, int n, int p,
-    int s_peers, int a_writers, int c_chunks, int k_slots, int budget) {
+    const int32_t* __restrict__ nbytes, uint8_t* __restrict__ ring,
+    bool* __restrict__ fruitful, int32_t* __restrict__ counts,
+    const int32_t* __restrict__ sdelay, int n, int p, int s_peers,
+    int a_writers, int c_chunks, int k_slots, int budget, int d_slots,
+    int slot) {
   extern __shared__ int block_counts[];  // [P] when counts is given
   int row = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp);
   int lane = threadIdx.x & (kWarp - 1);
@@ -161,10 +184,10 @@ __global__ void dense_sync_kernel(
     for (int q = threadIdx.x; q < p; q += blockDim.x) block_counts[q] = 0;
     __syncthreads();
   }
-  if (row < n) pull_row(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
-                        slot_ring, fruitful,
-                        counts != nullptr ? block_counts : nullptr, row, lane,
-                        n, p, s_peers, a_writers, c_chunks, k_slots, budget);
+  if (row < n) pull_row(have, heads, gap_lo, gap_hi, peers, ok, nbytes, ring,
+                        fruitful, counts != nullptr ? block_counts : nullptr,
+                        sdelay, row, lane, n, p, s_peers, a_writers, c_chunks,
+                        k_slots, budget, d_slots, slot);
   if (counts == nullptr) return;
   __syncthreads();
   for (int q = threadIdx.x; q < p; q += blockDim.x)
@@ -173,15 +196,21 @@ __global__ void dense_sync_kernel(
 
 }  // namespace
 
+// `ring` is the sync ring [D, N, P] with the pull's slot t + 1 given as
+// `slot`; without session delays (null `sdelay`) the caller may pass the
+// slot's own [N, P] row with D = 1 and slot 0.
 extern "C" int corro_dense_sync(const void* have, const void* heads,
                                 const void* gap_lo, const void* gap_hi,
                                 const void* peers, const void* ok,
-                                const void* nbytes, void* slot_ring,
-                                void* fruitful, void* counts, int n, int p,
+                                const void* nbytes, void* ring,
+                                void* fruitful, void* counts,
+                                const void* sdelay, int n, int p,
                                 int s_peers, int a_writers, int c_chunks,
-                                int k_slots, int budget, void* stream) {
+                                int k_slots, int budget, int d_slots,
+                                int slot, void* stream) {
   if (n <= 0 || p <= 0 || s_peers <= 0 || s_peers > MAX_S || a_writers <= 0 ||
-      c_chunks <= 0 || k_slots <= 0 || p % (a_writers * c_chunks))
+      c_chunks <= 0 || k_slots <= 0 || p % (a_writers * c_chunks) ||
+      d_slots <= 0 || d_slots > 32 || slot < 0 || slot >= d_slots)
     return (int)cudaErrorInvalidValue;
   int threads = 256;
   unsigned blocks = (unsigned)(((size_t)n * kWarp + threads - 1) / threads);
@@ -195,7 +224,8 @@ extern "C" int corro_dense_sync(const void* have, const void* heads,
   dense_sync_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)have, (const int32_t*)heads, (const int32_t*)gap_lo,
       (const int32_t*)gap_hi, (const int32_t*)peers, (const bool*)ok,
-      (const int32_t*)nbytes, (uint8_t*)slot_ring, (bool*)fruitful,
-      (int32_t*)counts, n, p, s_peers, a_writers, c_chunks, k_slots, budget);
+      (const int32_t*)nbytes, (uint8_t*)ring, (bool*)fruitful,
+      (int32_t*)counts, (const int32_t*)sdelay, n, p, s_peers, a_writers,
+      c_chunks, k_slots, budget, d_slots, slot);
   return (int)cudaGetLastError();
 }

@@ -44,4 +44,38 @@ __device__ __forceinline__ Pair threefry2x32(uint32_t k1, uint32_t k2,
   return Pair{a, b};
 }
 
+// jax.random.fold_in(key, data): the hash of counter (0, data).
+__device__ __forceinline__ Pair fold_in(Pair key, uint32_t data) {
+  return threefry2x32(key.a, key.b, 0u, data);
+}
+
+// randint's two subkeys, split(key, 2): the hashes of counters (0, 0)
+// and (0, 1), as sub[0..1] (for `higher`) and sub[2..3] (for `lower`).
+__device__ __forceinline__ void randint_subkeys(Pair key, uint32_t sub[4]) {
+  Pair s0 = threefry2x32(key.a, key.b, 0u, 0u);
+  Pair s1 = threefry2x32(key.a, key.b, 0u, 1u);
+  sub[0] = s0.a;
+  sub[1] = s0.b;
+  sub[2] = s1.a;
+  sub[3] = s1.b;
+}
+
+// randint(key, shape, 0, maxval)'s draw at flat element idx, from its
+// subkeys and its span and u32 multiplier (the wrapper's, from maxval):
+// offset = ((higher % span) * mult + lower % span) % span in u32, each
+// draw the xor of the element's hash under its subkey.  A multiplier of
+// 0 (span 2^31 - 1, where (2^16)^2 wraps) drops `higher`, so its hash is
+// skipped.
+__device__ __forceinline__ uint32_t randint_at(const uint32_t sub[4],
+                                               uint32_t span, uint32_t mult,
+                                               uint32_t idx) {
+  Pair lo = threefry2x32(sub[2], sub[3], 0u, idx);
+  uint32_t off = (lo.a ^ lo.b) % span;
+  if (mult != 0u) {
+    Pair hi = threefry2x32(sub[0], sub[1], 0u, idx);
+    off = ((hi.a ^ hi.b) % span) * mult + off;
+  }
+  return off % span;
+}
+
 }  // namespace corro

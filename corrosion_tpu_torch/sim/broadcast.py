@@ -1,7 +1,7 @@
 """The dense broadcast phases — the port of
 ``corrosion_tpu/sim/broadcast.py`` (``broadcast_step`` in its push,
 flat-schedule form with its wire telemetry, ``deliver_step`` with ordering
-"none", ``inject_step``) on JAX's u8 state: ``have``, ``relay_left``
+"none", ``inject_step``), with its fault branch, on JAX's u8 state: ``have``, ``relay_left``
 ``[N, P]``, ``injected [P]`` and the delay rings ``inflight``,
 ``sync_inflight`` ``[D, N, P]``.
 
@@ -11,7 +11,8 @@ card and the plain torch version beside its wrapper on the CPU:
 - `inject_dense` — origin nodes take round t's payloads;
 - `broadcast_send` — the eligible mask, the oldest-first byte budget,
   the flat wire loss per (edge, payload), the ring write and the relay
-  spend;
+  spend; under a fault plan its fault entry also draws the plan's loss
+  and jitter per (edge, payload);
 - `deliver_dense` — pop slot t of both rings.
 
 The target draw, ring0 tiering (`ring0_targets`, shared with the packed
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from ..device import i32
 from ..kernels.build import check
 from . import rng
 from .state import (
@@ -38,6 +40,7 @@ from .state import (
     SimState,
     budget_prefix_mask,
 )
+from .faults import JITTER_TAG, WIRE_LOSS_TAG, fault_key, fault_wire_effects
 from .fused import dense_send_stats
 from .swim import sample_member_targets
 from .telemetry import (
@@ -141,9 +144,10 @@ def _check_rows(have, relay, n: int, p: int) -> None:
 
 def broadcast_send_plain(have, relay, injected, nbytes, budget, targets, dst,
                          slot, ok, alive, key, thr: int, ring, row_frames=None,
-                         row_bytes=None, dropped=None) -> None:
-    """Plain version of K12's broadcast, in place on ``relay`` and
-    ``ring`` (and the telemetry outputs when given)."""
+                         row_bytes=None, dropped=None, phase_key=None,
+                         fthr=None, jit=None, seed: int = 0) -> None:
+    """Plain version of K12's broadcast and of its fault entry, in place
+    on ``relay`` and ``ring`` (and the telemetry outputs when given)."""
     n, p = have.shape
     f = targets.shape[1]
     d = ring.shape[0]
@@ -155,12 +159,28 @@ def broadcast_send_plain(have, relay, injected, nbytes, budget, targets, dst,
         drop = torch.ones((n * f, p), dtype=torch.bool, device=have.device)
     else:
         drop = aligned_u8_bits(key, (n * f, p)) < thr
+    if fthr is not None:
+        fbits = aligned_u8_bits(
+            fault_key(phase_key, seed, WIRE_LOSS_TAG), (n * f, p))
+        drop |= fbits < fthr[:, None]
     sent = torch.where(
         ok.reshape(n, f, 1) & ~drop.reshape(n, f, p), sending[:, None, :],
         False,
     ).to(torch.uint8).reshape(n * f, p)
-    rows = (slot.long() * n + dst.long())[:, None].expand(-1, p)
-    ring.view(d * n, p).scatter_reduce_(0, rows, sent, "amax")
+    if jit is None:
+        rows = (slot.long() * n + dst.long())[:, None].expand(-1, p)
+        ring.view(d * n, p).scatter_reduce_(0, rows, sent, "amax")
+    else:
+        cells = torch.arange(n * f * p, dtype=torch.int64,
+                             device=have.device).reshape(n * f, p)
+        draw = rng.randint_at_plain(
+            fault_key(phase_key, seed, JITTER_TAG), cells, 0, _I32_MAX)
+        j = torch.where(jit[:, None] > 0, draw % (jit[:, None] + 1), 0)
+        slot_ep = (slot[:, None] + j) % d
+        flat = (slot_ep.long() * n + dst.long()[:, None]) * p + torch.arange(
+            p, device=have.device)
+        ring.view(-1).scatter_reduce_(0, flat.reshape(-1), sent.reshape(-1),
+                                      "amax")
     if row_frames is not None:
         frames, byte_tot = dense_send_stats(sending, nbytes)
         row_frames.copy_(frames)
@@ -177,7 +197,8 @@ def broadcast_send_plain(have, relay, injected, nbytes, budget, targets, dst,
 def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
                    targets, dst, slot, ok, alive, key, thr: int,
                    ring, row_frames=None, row_bytes=None,
-                   dropped=None) -> None:
+                   dropped=None, phase_key=None, fthr=None, jit=None,
+                   seed: int = 0) -> None:
     """The broadcast's sends, in place: each node's eligible payloads
     (held, relay budget left, injected), cut to the oldest-first prefix
     within ``budget`` bytes (None: unmetered), go to each ok edge's ring
@@ -188,12 +209,23 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
     drops by one at every sent payload.  The flight recorder's outputs,
     when given: each node's sent frames and bytes i32[N] (``row_frames``,
     ``row_bytes``) and the frames lost on ok edges, added to the int64
-    accumulator ``dropped``.  K12 on the card, which draws the loss bits
-    itself."""
+    accumulator ``dropped``.
+
+    Under a fault plan (JAX ``fault_wire_effects``' per-(edge, payload)
+    half, K12's fault entry): with ``fthr`` (u8[E], K9's thresholds) the
+    payload is also lost where byte e*P + q of ``aligned_u8_bits(
+    fold_in(fold_in(phase_key, seed), 101), [E, P])`` is below fthr[e];
+    with ``jit`` (i32[E], K9's jitter bounds) a payload of an edge with
+    jit[e] > 0 lands in slot (slot[e] + j) % D, j = element e*P + q of
+    ``randint(fold_in(fold_in(phase_key, seed), 102), [E, P], 0,
+    2^31 - 1)`` mod (jit[e] + 1).  ``phase_key`` is the broadcast phase
+    key (not ``key``, its ``k_drop`` split).  K12 on the card, which
+    draws the bits itself."""
+    fault = fthr is not None or jit is not None
     if have.device.type == "cpu":
         broadcast_send_plain(have, relay, injected, nbytes, budget, targets,
                              dst, slot, ok, alive, key, thr, ring, row_frames,
-                             row_bytes, dropped)
+                             row_bytes, dropped, phase_key, fthr, jit, seed)
         return
     n, p = have.shape
     f = targets.shape[1]
@@ -214,29 +246,41 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
         check("row_bytes", row_bytes, torch.int32, (n,))
     if dropped is not None:
         check("dropped", dropped, torch.int64, ())
-    kernels.DENSE_BROADCAST.launch(
-        [have, relay, injected, nbytes, targets, dst, slot, ok, alive, key,
-         ring, row_frames, row_bytes, dropped],
-        [n, p, f, d, -1 if budget is None else budget, min(thr, 256)],
+    ptrs = [have, relay, injected, nbytes, targets, dst, slot, ok, alive, key,
+            ring, row_frames, row_bytes, dropped]
+    ints = [n, p, f, d, -1 if budget is None else budget, min(thr, 256)]
+    if not fault:
+        kernels.DENSE_BROADCAST.launch(ptrs, ints)
+        return
+    check("phase_key", phase_key, torch.int64, (2,))
+    if fthr is not None:
+        check("fthr", fthr, torch.uint8, (e,))
+    if jit is not None:
+        check("jit", jit, torch.int32, (e,))
+    span, mult = rng.scalar_span(0, _I32_MAX)
+    kernels.DENSE_BROADCAST_FAULT.launch(
+        ptrs + [phase_key, fthr, jit],
+        ints + [seed, WIRE_LOSS_TAG, JITTER_TAG, i32(span), i32(mult)],
     )
 
 
 def broadcast_step(
     state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
     region: torch.Tensor, key: torch.Tensor, faults=None,
-    trace: Optional[RoundTrace] = None,
+    trace: Optional[RoundTrace] = None, active=None,
 ) -> SimState:
     """Fan-out push over the dense state, in place on ``relay_left`` and
     ``inflight`` (JAX ``broadcast_step``: targets from the believed
     member list, ring0 tiering, flat per-(edge, payload) loss from
-    ``k_drop``, delivery slot t + edge delay).  With a ``trace`` the
-    wire's frames, bytes (K12's per-node outputs, folded over the ok
-    edges by K18) and lost frames (K12) go to its accumulators."""
-    if faults is not None:
-        raise NotImplementedError(
-            "faults on the dense round are not ported yet (ROADMAP B12 "
-            "rest)"
-        )
+    ``k_drop``, delivery slot t + edge delay).  Under ``faults`` (JAX's
+    fault branch, ``fault_wire_effects``) cuts clear edges and the
+    plan's fixed delay adds to each edge's (K9), and the plan's loss and
+    jitter are drawn per (edge, payload) by K12's fault entry; ``active``
+    (the host's copy of the round's loss and jitter activity) leaves out
+    the classes that do not apply this round, which changes no bit.
+    With a ``trace`` the wire's frames, bytes (K12's per-node outputs,
+    folded over the ok edges by K18), cut edges (K9) and lost frames
+    (K12) go to its accumulators."""
     n = state.have.shape[0]
     f = cfg.fanout
     ks = rng.split(key, 3)
@@ -252,6 +296,16 @@ def broadcast_step(
     ok &= edge_alive(state.group, state.alive, src, dst)
     ok &= dst != src
     delay = edge_delay(topo, region, src, dst)
+    fthr = jit = None
+    if faults is not None:
+        ok, fthr, fdelay, jit = fault_wire_effects(
+            faults, src, dst, ok,
+            cut=None if trace is None else acc_slot(trace, "bcast_cut"))
+        if fdelay is not None:
+            delay = delay + fdelay
+        if active is not None:
+            fthr = fthr if active.loss else None
+            jit = jit if active.jitter else None
     d_slots = state.inflight.shape[0]
     slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
     thr = loss_threshold(topo.loss) if topo.loss > 0 else 0
@@ -259,13 +313,13 @@ def broadcast_step(
     if trace is not None:
         row_frames = torch.empty(n, dtype=torch.int32, device=me.device)
         row_bytes = torch.empty_like(row_frames)
-        if wire_loss_active(topo, None):
+        if wire_loss_active(topo, faults):
             dropped = acc_slot(trace, "bcast_dropped")
     broadcast_send(
         state.have, state.relay_left, state.injected, meta.nbytes,
         cfg.rate_limit_bytes_round, targets.contiguous(), dst, slot, ok,
         state.alive, k_drop, thr, state.inflight, row_frames, row_bytes,
-        dropped,
+        dropped, key, fthr, jit, 0 if faults is None else int(faults.seed),
     )
     if trace is not None:
         wire_rows_(trace.acc[WIRE], row_frames, row_bytes, ok, f)

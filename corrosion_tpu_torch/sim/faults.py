@@ -1,7 +1,7 @@
 """FaultPlan → sim tensors — the port of the factored half of
 ``corrosion_tpu/sim/faults.py``: the compiled plan, the per-edge fault
-queries the round asks, the node faults, and `run_fault_plan` over the
-packed envelope.
+queries the round asks, the node faults, and `run_fault_plan` on the
+packed round and on the dense one.
 
 **The compiled plan.**  `compile_plan` lowers a `..faults.FaultPlan`
 straight from its events into a `FactoredFaultPlan`: each link event is
@@ -29,8 +29,15 @@ versions beside them on the CPU.  The per-(edge, payload) draws, wire
 loss and jitter, ride the ring scatter (K10's streams,
 `packed.scatter_sending_lossy`), and the session delays the sync's
 delay classes (K3's delay entry, `packed.sync_pull`).
-`host_activity` is the host's copy of each round's loss and jitter
-activity, which picks the round's ring scatter without a device read.
+On the dense round the same draws ride K12's fault entry
+(`broadcast.broadcast_send`) and the session delays K13's delay entry
+(`sync.sync_pull_dense`).  `host_activity` is the host's copy of each
+round's loss and jitter activity, which picks the round's ring scatter
+without a device read.
+
+**The node faults** (`apply_node_faults`) are K11's dense entry on the
+dense state and its word entry (`packed.apply_round_faults`) on the
+packed carry.
 """
 
 from __future__ import annotations
@@ -45,7 +52,15 @@ from ..device import resolve_device
 from ..faults import FaultPlan, derive_seed, sel_indices
 from ..kernels.build import check
 from . import rng
-from .state import ALIVE, DOWN, PayloadMeta, SimConfig, SimState
+from .state import (
+    ALIVE,
+    DOWN,
+    PayloadMeta,
+    SimConfig,
+    SimState,
+    complete_versions,
+    version_active,
+)
 from .topology import Topology, aligned_u8_bits
 
 #: fold_in tags of the fault draws (jax's, `fault_wire_effects` and
@@ -719,26 +734,82 @@ def _zero_rows_(x: torch.Tensor, rows: torch.Tensor, node_dim: int,
     x.copy_(torch.where(rows.reshape(shape), fill, x))
 
 
-def apply_node_faults(state: SimState, rf: FactoredRoundFaults) -> SimState:
-    """Crash, restart and wipe, before the round's phases, IN PLACE: the
-    alive override, then on wiped nodes zeroed payload rows (have, relay
-    budgets, both delivery rings), bookkeeping (heads, gaps) and an
-    empty member table, so the node rejoins cold and recovers through
-    anti-entropy.  On the packed loop's slim state the payload tensors
-    are zero-width and `packed.apply_carry_faults` wipes the carry; K11
-    (`packed.apply_round_faults`) does both on the card."""
+def apply_node_faults_plain(state: SimState,
+                            rf: FactoredRoundFaults) -> SimState:
+    """Plain version of K11's dense entry (and, on the packed loop's
+    slim state, whose payload tensors are zero-width, of its node half),
+    in place."""
     state.alive.copy_(torch.where(
         rf.alive >= 0, rf.alive.to(state.alive.dtype), state.alive
     ))
     w = rf.wipe
     for x in (state.have, state.relay_left, state.heads, state.gap_lo,
-              state.gap_hi):
+              state.gap_hi, state.view, state.vinc):
         _zero_rows_(x, w, 0)
     for x in (state.inflight, state.sync_inflight):
         _zero_rows_(x, w, 1)
-    for x in (state.pid, state.pkey, state.psince, state.pview):
+    for x in (state.suspect_since, state.pid, state.pkey, state.psince,
+              state.pview):
         _zero_rows_(x, w, 0, -1)
     return state
+
+
+def apply_node_faults(state: SimState, rf: FactoredRoundFaults) -> SimState:
+    """Crash, restart and wipe, before the round's phases, IN PLACE: the
+    alive override, then on wiped nodes zeroed payload rows (have, relay
+    budgets, their row in every slot of both delivery rings),
+    bookkeeping (heads, gaps), the full view's row back to its
+    optimistic init (view and vinc 0, suspect_since -1) and an empty
+    member table (pid, pkey, psince -1), so the node rejoins cold
+    and recovers through anti-entropy.  K11's dense entry on the card
+    (the dense state's u8 rows); the packed loop's slim state and carry
+    take K11's word entry (`packed.apply_round_faults`)."""
+    if state.alive.device.type == "cpu":
+        return apply_node_faults_plain(state, rf)
+    n, p = state.have.shape
+    d = state.inflight.shape[0]
+    a = state.heads.shape[1]
+    ak = state.gap_lo.shape[1] * state.gap_lo.shape[2]
+    m = state.pid.shape[1]
+    fv = state.view.shape[0]
+    check("rf.alive", rf.alive, torch.int8, (n,))
+    check("rf.wipe", rf.wipe, torch.bool, (n,))
+    check("alive", state.alive, torch.uint8, (n,))
+    for name in ("have", "relay_left"):
+        check(name, getattr(state, name), torch.uint8, (n, p))
+    for name in ("inflight", "sync_inflight"):
+        check(name, getattr(state, name), torch.uint8, (d, n, p))
+    check("heads", state.heads, torch.int32, (n, a))
+    for name in ("gap_lo", "gap_hi"):
+        check(name, getattr(state, name), torch.int32, state.gap_lo.shape)
+    for name in ("pid", "pkey", "psince"):
+        check(name, getattr(state, name), torch.int32, (n, m))
+    check("view", state.view, torch.int8, (fv, fv))
+    for name in ("vinc", "suspect_since"):
+        check(name, getattr(state, name), torch.int32, (fv, fv))
+    if fv not in (0, n):
+        raise ValueError("the full view must be [N, N] or empty")
+    kernels.NODE_FAULTS_DENSE.launch(
+        [rf.alive, rf.wipe, state.alive, state.have, state.relay_left,
+         state.inflight, state.sync_inflight, state.heads, state.gap_lo,
+         state.gap_hi, state.pid, state.pkey, state.psince, state.view,
+         state.vinc, state.suspect_since],
+        [n, p, d, a, ak, m, fv],
+    )
+    return state
+
+
+def all_have(state: SimState, meta: PayloadMeta, cfg: SimConfig):
+    """Every up node holds every injected version completely, computed
+    FRESH from ``have`` (JAX ``_all_have``: the sticky ``converged_at``
+    must not mask a wipe after convergence); a device bool.  The dense
+    fault loop takes it from K14's exit mode after each round and
+    evaluates it here only before the first."""
+    up = state.alive == ALIVE
+    comp = complete_versions(state.have, cfg)
+    act = version_active(state.injected, cfg)
+    node_done = (comp | ~act[None]).all(dim=2).all(dim=1) | ~up
+    return (meta.round <= int(state.t)).all() & node_done.all()
 
 
 # -- the run loop ------------------------------------------------------------
@@ -757,17 +828,46 @@ def run_fault_plan(
     every payload AND the schedule is exhausted (a plan may crash a node
     after convergence), or ``max_rounds``; returns (SimState,
     RunMetrics), and with ``telemetry`` the run's `.telemetry.RoundTrace`
-    third.  Only the packed envelope is ported (faults on the dense
-    round are ROADMAP B12 rest)."""
+    third (each row with its round's crashes and wipes).  The packed
+    envelope runs `.packed.run_packed_faults`, every other configuration
+    the dense round: before each round its node faults
+    (`apply_node_faults`), then the round with its fault slice; the loop
+    never exits before the plan's horizon, then only on the fresh
+    all-have predicate (`all_have`, K14's exit mode).  Each round's loss
+    and jitter activity is copied to the host once (`host_activity`)."""
     from .packed import run_packed_faults
+    from .round import new_metrics, own_state, round_step_, validate
     from .state import packed_supported
-    from .round import validate
+    from .telemetry import new_trace
+    from .topology import regions
 
     validate(cfg, topo)
-    if not packed_supported(cfg, topo):
-        raise NotImplementedError(
-            "faults on the dense round are not ported yet (ROADMAP B12 "
-            "rest); this configuration is outside the packed envelope"
+    if packed_supported(cfg, topo):
+        return run_packed_faults(state, meta, cfg, topo, fplan, max_rounds,
+                                 telemetry)
+    dev = state.have.device
+    region = regions(cfg.n_nodes, topo.n_regions, dev)
+    metrics = new_metrics(cfg, dev)
+    # the node faults write these in place too: give the loop its own
+    state = own_state(state)
+    state = state._replace(**{
+        name: getattr(state, name).clone()
+        for name in ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
+                     "psince", "pview")
+    })
+    horizon = fplan.horizon
+    activity = host_activity(fplan)
+    trace = new_trace(cfg, max_rounds, dev) if telemetry else None
+    done = (torch.zeros((), dtype=torch.bool, device=dev)
+            if int(state.t) < horizon else all_have(state, meta, cfg))
+    while int(state.t) < max_rounds and not bool(done):
+        t = int(state.t)
+        rf = round_faults(fplan, t)
+        state = apply_node_faults(state, rf)
+        state, metrics, done = round_step_(
+            state, metrics, meta, cfg, topo, region, trace, faults=rf,
+            horizon=horizon, active=activity[min(t, horizon)],
         )
-    return run_packed_faults(state, meta, cfg, topo, fplan, max_rounds,
-                             telemetry)
+    if telemetry:
+        return state, metrics, trace
+    return state, metrics

@@ -54,7 +54,7 @@ from .faults import (
     FactoredFaultPlan,
     FactoredRoundFaults,
     RoundActivity,
-    apply_node_faults,
+    apply_node_faults_plain,
     fault_key,
     fault_session_effects,
     fault_wire_effects,
@@ -1011,12 +1011,14 @@ def apply_round_faults(
     slim: SimState, carry: PackedCarry, rf: FactoredRoundFaults
 ) -> Tuple[SimState, PackedCarry]:
     """A round's node faults before its phases, IN PLACE on the slim
-    state (alive override; a wipe's heads, gaps and member table) and on
-    the carry (a wipe's payload words).  The plain version is
-    `faults.apply_node_faults` then `apply_carry_faults`; K11 does both
-    in one launch on the card."""
+    state (alive override; a wipe's heads, gaps, member table and
+    full-view row) and on the carry (a wipe's payload words).  The plain
+    version is `faults.apply_node_faults_plain` then
+    `apply_carry_faults`; K11's word entry does both in one launch on
+    the card."""
     if carry.have.device.type == "cpu":
-        return apply_node_faults(slim, rf), apply_carry_faults(carry, rf)
+        return (apply_node_faults_plain(slim, rf),
+                apply_carry_faults(carry, rf))
     n, w = carry.have.shape
     d_slots = carry.inflight.shape[0]
     a = slim.heads.shape[1]
@@ -1033,11 +1035,16 @@ def apply_round_faults(
         check(name, getattr(slim, name), torch.int32, slim.gap_lo.shape)
     for name in ("pid", "pkey", "psince"):
         check(name, getattr(slim, name), torch.int32, (n, m))
+    fv = slim.view.shape[0]
+    check("view", slim.view, torch.int8, (fv, fv))
+    for name in ("vinc", "suspect_since"):
+        check(name, getattr(slim, name), torch.int32, (fv, fv))
     kernels.NODE_FAULTS.launch(
         [rf.alive, rf.wipe, slim.alive, carry.have, *carry.relay,
          carry.inflight, carry.sync_buf, slim.heads, slim.gap_lo,
-         slim.gap_hi, slim.pid, slim.pkey, slim.psince],
-        [n, w, d_slots, a, ak, m],
+         slim.gap_hi, slim.pid, slim.pkey, slim.psince, slim.view,
+         slim.vinc, slim.suspect_since],
+        [n, w, d_slots, a, ak, m, fv],
     )
     return slim, carry
 
@@ -1081,7 +1088,7 @@ def run_packed_faults(
     slim = slim._replace(**{
         name: getattr(slim, name).clone()
         for name in ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
-                     "psince")
+                     "psince", "view", "vinc", "suspect_since")
     })
     horizon = fplan.horizon
     activity = host_activity(fplan)

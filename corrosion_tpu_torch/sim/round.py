@@ -1,5 +1,6 @@
 """The round and its run loop — the port of ``corrosion_tpu/sim/round.py``:
-`round_step` (the dense round on JAX's u8 state) and `run_to_convergence`,
+`round_step` (the dense round on JAX's u8 state, with or without a fault
+plan's round slice) and `run_to_convergence`,
 which takes the packed envelope to `.packed.run_packed` and runs the
 dense round otherwise, either with the flight recorder
 (``telemetry=True``, `.telemetry`).  Mesh sharding (ROADMAP B17) is not
@@ -104,8 +105,11 @@ DENSE_ROWS_PER_BLOCK = 64
 
 
 def dense_record_plain(have, injected, alive, metrics: RunMetrics,
-                       meta: PayloadMeta, t: int, cfg: SimConfig):
-    """Plain version of K14: JAX's gaps and converge blocks."""
+                       meta: PayloadMeta, t: int, cfg: SimConfig,
+                       horizon=None):
+    """Plain version of K14: JAX's gaps and converge blocks, and the
+    exit predicate of its dense loop (`round._converged_done` of the new
+    metrics, or with ``horizon`` the fault loop's ``_done``)."""
     from .gaps import extract_gaps
 
     touched = touched_versions(have, cfg)
@@ -125,13 +129,19 @@ def dense_record_plain(have, injected, alive, metrics: RunMetrics,
         (metrics.converged_at < 0) & node_done & all_injected, t,
         metrics.converged_at,
     ).to(torch.int32)
-    done = (meta.round <= t + 1).all() & ((converged_at >= 0) | ~up).all()
+    if horizon is None:
+        done = (meta.round <= t + 1).all() & ((converged_at >= 0) | ~up).all()
+    else:
+        node_all = (comp | ~act[None]).all(dim=2).all(dim=1)
+        done = (meta.round <= t + 1).all() & (node_all | ~up).all()
+        if t + 1 < horizon:
+            done = torch.zeros_like(done)
     return (heads, gaps.lo, gaps.hi, gaps.overflow.sum(dtype=torch.int32),
             coverage_at, converged_at, done)
 
 
 def dense_record(have, injected, alive, metrics: RunMetrics,
-                 meta: PayloadMeta, t: int, cfg: SimConfig):
+                 meta: PayloadMeta, t: int, cfg: SimConfig, horizon=None):
     """Round t's bookkeeping and convergence record from the dense state:
     (heads i32[N, A], gap_lo, gap_hi i32[N, A, K], the overflow count
     i32, coverage_at i32[P], converged_at i32[N], done) — the advertised
@@ -139,11 +149,14 @@ def dense_record(have, injected, alive, metrics: RunMetrics,
     the stamps of payloads complete on every up node and of nodes
     holding every active version, and the loop's exit flag for round
     t + 1 (every payload injected, every up node converged), a bool that
-    stays on the device.  K14 on the card: a rows pass and a one-block
-    finish."""
+    stays on the device.  With a fault plan's ``horizon`` the flag is
+    the fault loop's (K14's exit mode): t + 1 ≥ horizon and every up
+    node holding every active version FRESH from ``have`` (JAX
+    ``faults._all_have``), which a wipe after a node's sticky stamp
+    undoes.  K14 on the card: a rows pass and a one-block finish."""
     if have.device.type == "cpu":
         return dense_record_plain(have, injected, alive, metrics, meta, t,
-                                  cfg)
+                                  cfg, horizon)
     n, p = have.shape
     a, v = cfg.n_writers, cfg.n_versions
     c, k = cfg.chunks_per_version, cfg.gap_slots
@@ -165,15 +178,20 @@ def dense_record(have, injected, alive, metrics: RunMetrics,
     converged_at = torch.empty_like(metrics.converged_at)
     coverage_at = torch.empty_like(metrics.coverage_at)
     done = torch.empty((), dtype=torch.bool, device=dev)
-    kernels.DENSE_GAPS_ROWS.launch(
+    exit_mode = horizon is not None
+    rows_k, finish_k = ((kernels.DENSE_GAPS_ROWS_EXIT,
+                         kernels.DENSE_GAPS_FINISH_EXIT) if exit_mode
+                        else (kernels.DENSE_GAPS_ROWS,
+                              kernels.DENSE_GAPS_FINISH))
+    rows_k.launch(
         [have, injected, alive, meta.round, metrics.converged_at, heads, lo,
          hi, n_overflow, converged_at, partial],
-        [n, p, a, v, c, k, t, DENSE_ROWS_PER_BLOCK],
+        [n, p, a, v, c, k, t, DENSE_ROWS_PER_BLOCK, int(exit_mode)],
     )
-    kernels.DENSE_GAPS_FINISH.launch(
+    finish_k.launch(
         [partial, injected, meta.round, metrics.coverage_at, coverage_at,
          done],
-        [blocks, p, a, v, c, t],
+        [blocks, p, a, v, c, t, horizon if exit_mode else -1],
     )
     return heads, lo, hi, n_overflow, coverage_at, converged_at, done
 
@@ -192,13 +210,21 @@ def own_state(state: SimState) -> SimState:
 
 def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
                 cfg: SimConfig, topo: Topology, region: torch.Tensor,
-                trace=None):
+                trace=None, faults=None, horizon=None, active=None):
     """One dense round on a state whose tensors it owns (`own_state`),
     updating them in place: (state, metrics, done), where ``done`` is
-    the loop's exit flag after the round, on the device.  With a
-    ``trace`` the round's row is recorded in it, in place: the phases
-    feed its accumulators, then K17's dense entry counts coverage and
-    delivered and K19 writes the row."""
+    the loop's exit flag after the round, on the device.  ``faults`` (a
+    `.faults.FactoredRoundFaults` slice, whose node faults the caller
+    has applied) reaches every phase: cuts, loss, delay and jitter on
+    the broadcast wire, refused sessions and session delays on the sync,
+    cuts and loss on SWIM's probes; with the plan's ``horizon`` the flag
+    is the fault loop's (`dense_record`), and ``active`` (the host's copy
+    of the round's loss and jitter activity) leaves the classes that do
+    not apply this round out of the broadcast.  With a ``trace`` the
+    round's row is recorded in it, in place: the phases feed its
+    accumulators, then K17's dense entry counts coverage and delivered
+    and K19 writes the row (with the fault slice's crashes and
+    wipes)."""
     from .broadcast import broadcast_step, deliver_step, inject_step
     from .swim import swim_step
     from .sync import sync_step
@@ -212,18 +238,19 @@ def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
     t = int(state.t)
     have0 = None if trace is None else state.have.clone()
     state = inject_step(state, meta, cfg)
-    state = broadcast_step(state, meta, cfg, topo, region, k_bcast,
-                           trace=trace)
+    state = broadcast_step(state, meta, cfg, topo, region, k_bcast, faults,
+                           trace=trace, active=active)
     sync_ok = None
     if trace is None:
-        state = sync_step(state, meta, cfg, topo, k_sync)
+        state = sync_step(state, meta, cfg, topo, k_sync, faults)
     else:
-        state, sync_ok = sync_step(state, meta, cfg, topo, k_sync,
+        state, sync_ok = sync_step(state, meta, cfg, topo, k_sync, faults,
                                    trace=trace)
     state = deliver_step(state, cfg)
-    state = swim_step(state, cfg, topo, k_swim)
+    state = swim_step(state, cfg, topo, k_swim, faults)
     heads, lo, hi, n_overflow, coverage_at, converged_at, done = dense_record(
-        state.have, state.injected, state.alive, metrics, meta, t, cfg
+        state.have, state.injected, state.alive, metrics, meta, t, cfg,
+        horizon,
     )
     overflow_frac = torch.maximum(
         metrics.overflow_frac, overflow_fraction(n_overflow, heads.numel())
@@ -232,7 +259,7 @@ def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
         coverage_delivered_dense_(trace.counts[COVERAGE:GRANTS], state.have,
                                   have0, state.alive)
         record_row(trace, trace_row(trace, t, cfg.trace_every),
-                   alive=state.alive, state=state, cfg=cfg, rf=None,
+                   alive=state.alive, state=state, cfg=cfg, rf=faults,
                    sync_ok=sync_ok, n_overflow=n_overflow, nbytes=meta.nbytes)
     state = state._replace(heads=heads, gap_lo=lo, gap_hi=hi, t=state.t + 1)
     metrics = RunMetrics(
@@ -252,15 +279,12 @@ def round_step(
     ``round_step``): returns the new (state, metrics), and with a
     ``trace`` (a `.telemetry.RoundTrace`, whose row of this round is
     written in place) the trace third; ``state`` itself is left as it
-    was."""
-    if faults is not None:
-        raise NotImplementedError(
-            "faults on the dense round are not ported yet (ROADMAP B12 "
-            "rest)"
-        )
+    was.  ``faults`` (a factored plan's round slice, `.faults.
+    round_faults`) threads the plan through every phase; its node
+    faults are the caller's (`.faults.apply_node_faults`), as in JAX."""
     validate(cfg, topo)
     state, metrics, _ = round_step_(own_state(state), metrics, meta, cfg,
-                                    topo, region, trace)
+                                    topo, region, trace, faults)
     if trace is not None:
         return state, metrics, trace
     return state, metrics

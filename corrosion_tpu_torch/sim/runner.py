@@ -2,8 +2,10 @@
 (``corrosion_tpu/sim/runner.py``): the 3-node ground truth, broadcast-1k
 and partition-heal-10k on the dense round, the 100k-node write storm,
 the packed fault storm and its flight-recorder rung
-(`config_fault_storm_telemetry`), and the gapstress storm (config #5b,
-on the packed round from 1280 nodes) with its K-clamp distortion pair,
+(`config_fault_storm_telemetry`) with their setup `fault_storm` (which
+also puts the storm on the dense round, or on full-view SWIM), and the
+gapstress storm (config #5b, on the packed round from 1280 nodes) with
+its K-clamp distortion pair,
 returning the same result keys.  The configs JAX lets record a trace
 take ``telemetry`` and ``trace_path`` (`.telemetry`): the record gains
 the ``telemetry`` summary block and the path the flight-recorder JSONL.
@@ -12,6 +14,7 @@ One device, no mesh; the wall clock brackets a run with
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, Optional, Tuple
 
@@ -353,6 +356,23 @@ def storm_fault_plan(n_nodes: int, seed: int = 0) -> FaultPlan:
     )
 
 
+def fault_storm(n_nodes: int, n_payloads: int = 512, plan_seed: int = 0,
+                device="cuda", **changes):
+    """The fault storm's (cfg, meta, compiled plan): `_write_storm`'s
+    config with ``changes`` applied as JAX's callers apply them
+    (``dataclasses.replace``: ``allow_packed=False`` puts the storm on
+    the dense round, as JAX's 4096-node acceptance test does), under
+    ``storm_fault_plan(n_nodes, plan_seed)`` in the factored form (JAX's
+    at storm scale; below 1024 nodes JAX compiles the matrix form, which
+    it pins as equal and the port does not have)."""
+    dev = resolve_device(device)
+    cfg, meta = _write_storm(n_nodes, n_payloads, dev)
+    cfg = dataclasses.replace(cfg, **changes)
+    plan = storm_fault_plan(n_nodes, plan_seed)
+    return cfg, meta, compile_plan(plan, cfg, Topology(), factored=True,
+                                   device=dev)
+
+
 def config_packed_fault_storm(
     seed: int = 0,
     n_nodes: int = 100_000,
@@ -370,10 +390,8 @@ def config_packed_fault_storm(
     record also carries the fault run's final ``state`` and
     ``metrics``."""
     dev = resolve_device(device)
-    cfg, meta = _write_storm(n_nodes, n_payloads, dev)
+    cfg, meta, fplan = fault_storm(n_nodes, n_payloads, seed, dev)
     topo = Topology()
-    plan = storm_fault_plan(n_nodes, seed)
-    fplan = compile_plan(plan, cfg, topo, device=dev)
     state = new_sim(cfg, seed, dev)
     _sync(dev)
     t0 = time.monotonic()
@@ -394,11 +412,11 @@ def config_packed_fault_storm(
         "n_devices": 1,
         "mesh": None,
         "round_path": "packed" if packed_supported(cfg, topo) else "dense",
-        "plan_horizon": plan.horizon,
+        "plan_horizon": fplan.horizon,
         "plan_seed": seed,
         "rounds": rounds,
         "converged": (conv["unconverged_nodes"] == 0
-                      and rounds >= plan.horizon),
+                      and rounds >= fplan.horizon),
         **conv,
         "wall_clock_s": wall,
         "faultless_wall_clock_s": fl_wall,
@@ -467,10 +485,8 @@ def config_fault_storm_telemetry(
     (ROADMAP A11).  With ``return_state`` the record also carries the
     run's final ``state``, ``metrics`` and ``trace``."""
     dev = resolve_device(device)
-    cfg, meta = _write_storm(n_nodes, n_payloads, dev)
+    cfg, meta, fplan = fault_storm(n_nodes, n_payloads, seed, dev)
     topo = Topology()
-    plan = storm_fault_plan(n_nodes, seed)
-    fplan = compile_plan(plan, cfg, topo, device=dev)
     packed = packed_supported(cfg, topo)
     pr_plain, pr_tel = measure_overhead_pair(
         cfg, meta, seed=seed + 1000, k_rounds=microbench_rounds,
@@ -493,7 +509,7 @@ def config_fault_storm_telemetry(
         "plan_seed": seed,
         "rounds": rounds,
         "converged": (conv["unconverged_nodes"] == 0
-                      and rounds >= plan.horizon),
+                      and rounds >= fplan.horizon),
         "unconverged_nodes": conv["unconverged_nodes"],
         "wall_clock_s": wall,
         "per_round_plain_ms": round(pr_plain * 1e3, 3),

@@ -267,17 +267,16 @@ def swim_step(
     """One SWIM tick: partial view (`.pswim.pswim_step`), full view here,
     or nothing for ground-truth membership.  The full-view tick updates
     ``view``, ``vinc`` and ``suspect_since`` IN PLACE (the dense round
-    owns them) and returns the state with the new incarnations."""
+    owns them) and returns the state with the new incarnations.  Under
+    ``faults`` every reach it asks — the direct probe, both relay legs,
+    gossip and announce — takes the plan's cuts and probe loss
+    (`_reachable`, K9's reach entry)."""
     if cfg.swim_partial_view:
         from .pswim import pswim_step
 
         return pswim_step(state, cfg, topo, key, faults)
     if not cfg.swim_full_view:
         return state
-    if faults is not None:
-        raise NotImplementedError(
-            "faults on full-view SWIM are not ported yet (ROADMAP B12 rest)"
-        )
     n = state.alive.shape[0]
     ks = rng.split(key, 8)
     k_probe, k_ploss, k_relay, k_rloss = ks[0], ks[1], ks[2], ks[3]
@@ -298,7 +297,7 @@ def swim_step(
     target = sample_member_targets(state, cfg, k_probe, 1)[:, 0]
     do_probe = up & (t % cfg.probe_period_rounds == 0) & (target >= 0)
     target = torch.clamp(target, min=0)
-    direct = _reachable(state, topo, k_ploss, me, target)
+    direct = _reachable(state, topo, k_ploss, me, target, faults)
     ip = cfg.indirect_probes
     relays = sample_member_targets(state, cfg, k_relay, ip)
     relay_ok = relays >= 0
@@ -306,11 +305,11 @@ def swim_step(
     hop_keys = rng.split(k_rloss, 2)
     leg1 = _reachable(
         state, topo, hop_keys[0], me.repeat_interleave(ip),
-        relays.reshape(-1),
+        relays.reshape(-1), faults,
     ).reshape(n, ip)
     leg2 = _reachable(
         state, topo, hop_keys[1], relays.reshape(-1),
-        target.repeat_interleave(ip),
+        target.repeat_interleave(ip), faults,
     ).reshape(n, ip)
     acked = direct | (leg1 & leg2 & relay_ok).any(dim=1)
     probe_failed = do_probe & ~acked & (target != me)
@@ -329,7 +328,7 @@ def swim_step(
     gdst = g_targets.reshape(-1)
     g_valid = gdst >= 0
     gdst = torch.clamp(gdst, min=0)
-    g_ok = _reachable(state, topo, k_gloss, gsrc, gdst) & g_valid
+    g_ok = _reachable(state, topo, k_gloss, gsrc, gdst, faults) & g_valid
     g_ok &= view[gdst.long(), gsrc.long()] != DOWN
 
     # -- 3b. announce, with the receiver's belief fed back
@@ -337,7 +336,7 @@ def swim_step(
     ann_target = rng.randint(k_ann, (n,), 0, n)
     ann_ok = (
         stagger & up & (ann_target != me)
-        & _reachable(state, topo, k_aloss, me, ann_target)
+        & _reachable(state, topo, k_aloss, me, ann_target, faults)
     )
     self_claim = state.incarnation * 4 + ALIVE
     at = ann_target.long()

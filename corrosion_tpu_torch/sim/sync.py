@@ -1,7 +1,8 @@
 """Anti-entropy sync on the dense state — the port of
 ``corrosion_tpu/sim/sync.py`` (``node_sync_masks``, ``edge_needs``,
-``sync_step``) in the periodic cadence without faults, metered or
-unmetered, with its session telemetry.
+``sync_step``) in the periodic cadence, metered or unmetered, with its
+fault branch (refused sessions, session delays) and its session
+telemetry.
 
 A due node pulls from ``sync_peers`` sampled members; per edge the
 wanted versions are the three need classes of the advertised
@@ -9,7 +10,8 @@ bookkeeping (my gap ranges the peer fully holds, my partial versions
 the peer holds, the peer's head catch-up), granted at chunk level
 (held by the server, lacking at the puller), cut per edge to the
 oldest-first prefix within the sync byte budget, and ORed into the
-sync ring's slot t + 1.  That per-edge pull is one launch of K13
+sync ring's slot t + 1 (under fault latency, slot t + 1 + the edge's
+session delay).  That per-edge pull is one launch of K13
 (``kernels/csrc/dense_sync.cu``) on the card (`sync_pull_dense`); the
 plain version beside it composes `edge_needs` and
 `.state.budget_prefix_mask` as JAX does.  The peer draw, the backoff and
@@ -34,8 +36,9 @@ from .state import (
     complete_versions,
     grid_to_payload,
 )
+from .faults import fault_session_effects
 from .swim import sample_member_targets
-from .telemetry import GRANTS, RoundTrace
+from .telemetry import GRANTS, RoundTrace, acc_slot
 from .topology import Topology, edge_alive
 
 
@@ -86,35 +89,47 @@ def edge_needs(
 
 def sync_pull_dense_plain(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
                           budget, slot_ring, cfg: SimConfig,
-                          counts=None) -> torch.Tensor:
-    """Plain version of K13, in place on ``slot_ring`` (and ``counts``
-    when given)."""
+                          counts=None, sdelay=None,
+                          slot: int = 0) -> torch.Tensor:
+    """Plain version of K13 and of its delay entry, in place on
+    ``slot_ring`` (and ``counts`` when given)."""
     n, s = peers.shape
     p = have.shape[1]
     src = torch.arange(n, dtype=torch.int32, device=have.device)
     src = src.repeat_interleave(s)
     need = _edge_needs(have, heads, gap_lo, gap_hi, cfg, src,
                        peers.reshape(-1)) & ok.reshape(-1)[:, None]
-    granted = budget_prefix_mask(need, budget, nbytes).reshape(n, s, p)
+    granted = budget_prefix_mask(need, budget, nbytes)
     if counts is not None:
-        counts += granted.sum(dim=(0, 1), dtype=torch.int32)
-    slot_ring |= granted.any(dim=1).to(torch.uint8)
-    return granted.any(dim=2).any(dim=1)
+        counts += granted.sum(dim=0, dtype=torch.int32)
+    if sdelay is None:
+        slot_ring |= granted.reshape(n, s, p).any(dim=1).to(torch.uint8)
+    else:
+        d = slot_ring.shape[0]
+        rows = ((slot + sdelay.long()) % d) * n + src.long()
+        slot_ring.view(d * n, p).scatter_reduce_(
+            0, rows[:, None].expand(-1, p), granted.to(torch.uint8), "amax")
+    return granted.reshape(n, s, p).any(dim=2).any(dim=1)
 
 
 def sync_pull_dense(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
                     budget: Optional[int], slot_ring, cfg: SimConfig,
-                    counts=None) -> torch.Tensor:
+                    counts=None, sdelay=None, slot: int = 0) -> torch.Tensor:
     """Each node n pulls from its peers ``peers[n, s]`` where ``ok``:
     per edge the needs (`edge_needs`), cut to the oldest-first prefix
     within ``budget`` bytes (None: unmetered), are ORed into ``slot_ring``
     (the sync ring's slot t + 1, u8 [N, P]) in place; returns bool[N]
-    fruitful (some edge granted something).  With ``counts`` i32[P] (the
-    flight recorder's grant row) each payload's granting edges are added
-    to it.  K13 on the card."""
+    fruitful (some edge granted something).  With ``sdelay`` (i32[N*S],
+    the fault plan's session delays) ``slot_ring`` is the whole ring
+    [D, N, P] and edge e's grants land in slot (``slot`` + sdelay[e]) %
+    D, ``slot`` being t + 1 (JAX's per-edge scatter under fault
+    latency, K13's delay entry).  With ``counts`` i32[P] (the flight
+    recorder's grant row) each payload's granting edges are added to it.
+    K13 on the card."""
     if have.device.type == "cpu":
         return sync_pull_dense_plain(have, heads, gap_lo, gap_hi, peers, ok,
-                                     nbytes, budget, slot_ring, cfg, counts)
+                                     nbytes, budget, slot_ring, cfg, counts,
+                                     sdelay, slot)
     n, p = have.shape
     s = peers.shape[1]
     a, k = cfg.n_writers, cfg.gap_slots
@@ -125,16 +140,21 @@ def sync_pull_dense(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
     check("peers", peers, torch.int32, (n, s))
     check("ok", ok, torch.bool, (n, s))
     check("nbytes", nbytes, torch.int32, (p,))
-    check("slot_ring", slot_ring, torch.uint8, (n, p))
     if counts is not None:
         check("counts", counts, torch.int32, (p,))
     fruitful = torch.empty(n, dtype=torch.bool, device=have.device)
-    kernels.DENSE_SYNC.launch(
-        [have, heads, gap_lo, gap_hi, peers, ok, nbytes, slot_ring,
-         fruitful, counts],
-        [n, p, s, a, cfg.chunks_per_version, k,
-         -1 if budget is None else budget],
-    )
+    ptrs = [have, heads, gap_lo, gap_hi, peers, ok, nbytes, slot_ring,
+            fruitful, counts]
+    ints = [n, p, s, a, cfg.chunks_per_version, k,
+            -1 if budget is None else budget]
+    if sdelay is None:
+        check("slot_ring", slot_ring, torch.uint8, (n, p))
+        kernels.DENSE_SYNC.launch(ptrs + [None], ints + [1, 0])
+    else:
+        d = slot_ring.shape[0]
+        check("slot_ring", slot_ring, torch.uint8, (d, n, p))
+        check("sdelay", sdelay, torch.int32, (n * s,))
+        kernels.DENSE_SYNC_DELAY.launch(ptrs + [sdelay], ints + [d, slot])
     return fruitful
 
 
@@ -144,14 +164,13 @@ def sync_step(
 ):
     """Anti-entropy round (JAX ``sync_step``): due nodes pull into the
     sync ring's slot t + 1 (in place), then the fruitfulness-adaptive
-    backoff and the re-arm draw.  Returns the state; with a ``trace``
-    the per-payload grant counts go to its grant row (K13) and the
-    sessions' ok mask bool[N * S] comes back second."""
-    if faults is not None:
-        raise NotImplementedError(
-            "faults on the dense round are not ported yet (ROADMAP B12 "
-            "rest)"
-        )
+    backoff and the re-arm draw.  Under ``faults`` a session dies on a
+    cut in either direction, and under a plan with delay factors each
+    edge's grants land in slot t + 1 + its session delay (the slower
+    direction's fault delay), both from one K9 launch.  Returns the
+    state; with a ``trace`` the refused sessions (K9) and the per-payload
+    grant counts (K13) go to its accumulators and the sessions' ok mask
+    bool[N * S] comes back second."""
     n = state.have.shape[0]
     s = cfg.sync_peers
     ks = rng.split(key, 3)
@@ -166,13 +185,20 @@ def sync_step(
     ok &= edge_alive(state.group, state.alive, src, dst)
     ok &= due[src.long()]
     ok &= dst != src
+    sdelay = None
+    if faults is not None:
+        # the refused count is taken before the mask clears them
+        _, sdelay = fault_session_effects(
+            faults, src, dst, ok,
+            None if trace is None else acc_slot(trace, "sync_refused"))
     d_slots = state.sync_inflight.shape[0]
+    slot = (int(state.t) + 1) % d_slots
     fruitful = sync_pull_dense(
         state.have, state.heads, state.gap_lo, state.gap_hi,
         dst.reshape(n, s), ok.reshape(n, s), meta.nbytes,
         cfg.sync_budget_bytes,
-        state.sync_inflight[(int(state.t) + 1) % d_slots], cfg,
-        None if trace is None else trace.counts[GRANTS],
+        state.sync_inflight[slot] if sdelay is None else state.sync_inflight,
+        cfg, None if trace is None else trace.counts[GRANTS], sdelay, slot,
     )
     backoff = torch.where(
         due & fruitful,

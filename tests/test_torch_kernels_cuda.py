@@ -433,7 +433,7 @@ def test_node_faults(card, kind, n, t):
     before = kernels.NODE_FAULTS.launches
     packed.apply_round_faults(got_s, got_c, rf)
     _launched(kernels.NODE_FAULTS, before)
-    want_s = faults.apply_node_faults(copy(), rf)
+    want_s = faults.apply_node_faults_plain(copy(), rf)
     want_c = packed.apply_carry_faults(_clone(c0), rf)
     _assert_carry_equal(got_c, want_c)
     for x in names:
@@ -962,6 +962,139 @@ def test_latency_run_on_card_equals_cpu(card, telemetry):
         assert kern.launches > 0, kern.name
     cpu = _latency_run("cpu", telemetry)
     assert state_digest(out[0]) == state_digest(cpu[0])
+    if telemetry:
+        for f in tel.CHANNELS:
+            assert torch.equal(getattr(out[2], f).cpu(), getattr(cpu[2], f)), f
+
+
+# -- the dense round's fault entries: K11's dense entry, K12's fault entry,
+# K13's delay entry, K14's exit mode (chip_smoke.py's comparisons, each
+# reaching its traps, at small node counts)
+
+
+@pytest.mark.parametrize("n", (1200, 3001))
+def test_node_faults_dense(card, n):
+    before = kernels.NODE_FAULTS_DENSE.launches
+    row = _smoke().compare_node_faults_dense(card, np.random.default_rng(n),
+                                             n=n, timed=False)
+    assert row["equal"], row
+    assert kernels.NODE_FAULTS_DENSE.launches == before + 4
+
+
+@pytest.mark.parametrize("n", (1200, 3001))
+def test_broadcast_fault(card, n):
+    before = kernels.DENSE_BROADCAST_FAULT.launches
+    row = _smoke().compare_broadcast_fault(card, np.random.default_rng(n),
+                                           n=n, timed=False)
+    assert row["equal"], row
+    assert kernels.DENSE_BROADCAST_FAULT.launches > before
+
+
+@pytest.mark.parametrize("n", (1200, 3001))
+def test_sync_delay_dense(card, n):
+    before = kernels.DENSE_SYNC_DELAY.launches
+    row = _smoke().compare_sync_delay_dense(card, np.random.default_rng(n),
+                                            n=n, timed=False)
+    assert row["equal"], row
+    assert kernels.DENSE_SYNC_DELAY.launches == before + 2
+
+
+@pytest.mark.parametrize("n", (1200, 3001))
+def test_dense_gaps_exit(card, n):
+    before = kernels.DENSE_GAPS_FINISH_EXIT.launches
+    row = _smoke().compare_dense_gaps_exit(card, np.random.default_rng(n),
+                                           n=n, timed=False)
+    assert row["equal"], row
+    assert kernels.DENSE_GAPS_FINISH_EXIT.launches == before + 4
+
+
+def test_packed_node_faults_wipe_full_view(card):
+    """K11's word entry now also puts a wiped node's full-view row back
+    to its init (view 0, vinc 0, suspect_since -1), as the plain
+    version does."""
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    n = 300
+    cfg = SimConfig(n_nodes=n, n_payloads=64, swim_full_view=True,
+                    packed_min_cells=0)
+    plan = FaultPlan(n_nodes=n, seed=1, events=(
+        FaultEvent("crash", 1, 3, node="5:9", wipe=True),))
+    g = np.random.default_rng(3)
+    view, vinc, since = (g.integers(0, 3, (n, n)), g.integers(0, 4, (n, n)),
+                         g.integers(-1, 3, (n, n)))
+    out = []
+    for dev in (card, "cpu"):
+        state = init_state(cfg, rng.prng_key(2, dev))
+        state = state._replace(
+            view=torch.as_tensor(view, dtype=torch.int8, device=dev),
+            vinc=_i32(vinc, dev), suspect_since=_i32(since, dev))
+        fplan = faults.compile_plan(plan, cfg, Topology(), factored=True,
+                                    device=dev)
+        slim, carry = packed.apply_round_faults(
+            packed.shrink_state(state), packed.pack_state(state, cfg),
+            faults.round_faults(fplan, 3))
+        out.append((slim, carry))
+    for got, want in zip(out[0][0], out[1][0]):
+        assert torch.equal(got.cpu(), want)
+    assert (out[1][0].view[5:9] == 0).all()
+
+
+def _dense_fault_run(dev, telemetry, full_view=False):
+    """JAX's 48-node "storm-mix" plan (tests/sim/test_packed_equivalence.py)
+    on the dense round, or the full-view storm at 64 nodes."""
+    from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.runner import fault_storm
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    if full_view:
+        cfg, meta, fplan = fault_storm(
+            64, 128, 3, dev, swim_partial_view=False, swim_full_view=True,
+            allow_packed=False)
+        seed = 7
+    else:
+        cfg = SimConfig.wan_tuned(
+            48, n_payloads=128, n_writers=4, chunks_per_version=4, fanout=3,
+            sync_interval_rounds=4, swim_partial_view=True, member_slots=16,
+            rate_limit_bytes_round=None, sync_budget_bytes=None,
+            n_delay_slots=4, allow_packed=False)
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        plan = FaultPlan(n_nodes=48, seed=5, events=(
+            FaultEvent("loss", 0, 20, p=0.3),
+            FaultEvent("partition", 4, 14, src="0:24", dst="24:48",
+                       symmetric=True),
+            FaultEvent("delay", 2, 16, src="0:8", dst="*", delay_rounds=1),
+            FaultEvent("jitter", 2, 16, src="0:8", dst="*", delay_rounds=1),
+            FaultEvent("crash", 10, 22, node=2, wipe=True),
+        ))
+        fplan = faults.compile_plan(plan, cfg, Topology(), factored=True,
+                                    device=dev)
+        seed = 9
+    return faults.run_fault_plan(new_sim(cfg, seed, dev), meta, cfg,
+                                 Topology(), fplan, 300, telemetry)
+
+
+@pytest.mark.parametrize("telemetry", (False, True))
+@pytest.mark.parametrize("full_view", (False, True))
+def test_dense_fault_run_on_card_equals_cpu(card, telemetry, full_view):
+    """A fault plan on the dense round (the storm-mix plan: loss, a cut,
+    the latency pair, a wipe; or the full-view storm) ends on the card in
+    the CPU run's state and records its trace, through K11's dense entry,
+    K12's fault entry, K14's exit mode (and K13's delay entry)."""
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    kernels.reset_launch_counts()
+    out = _dense_fault_run(card, telemetry, full_view)
+    used = [kernels.NODE_FAULTS_DENSE, kernels.DENSE_BROADCAST_FAULT,
+            kernels.DENSE_GAPS_ROWS_EXIT, kernels.DENSE_GAPS_FINISH_EXIT]
+    if not full_view:
+        used.append(kernels.DENSE_SYNC_DELAY)
+    for kern in used:
+        assert kern.launches > 0, kern.name
+    cpu = _dense_fault_run("cpu", telemetry, full_view)
+    assert state_digest(out[0]) == state_digest(cpu[0])
+    for a, b in zip(out[1], cpu[1]):
+        assert torch.equal(a.cpu(), b)
     if telemetry:
         for f in tel.CHANNELS:
             assert torch.equal(getattr(out[2], f).cpu(), getattr(cpu[2], f)), f

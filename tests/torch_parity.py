@@ -162,3 +162,55 @@ def jax_telemetry():
         if package is not None and hasattr(package, "telemetry"):
             delattr(package, "telemetry")
         jax.clear_caches()
+
+
+def port_config(jcfg):
+    """The port's SimConfig with every field of JAX's ``jcfg``."""
+    from corrosion_tpu_torch.sim.state import SimConfig
+
+    return SimConfig(**{f.name: getattr(jcfg, f.name)
+                        for f in dataclasses.fields(SimConfig)})
+
+
+def plan_pair(n_nodes: int, seed: int, events):
+    """(jax FaultPlan, port FaultPlan) of ``events(FaultEvent)``, the same
+    events built with each package's own event class."""
+    return tuple(
+        mod.FaultPlan(n_nodes=n_nodes, seed=seed,
+                      events=tuple(events(mod.FaultEvent)))
+        for mod in (jax_faults, port_faults))
+
+
+#: tests/sim/test_packed_equivalence.py's ``_FAULT_PLANS`` (48 nodes), as
+#: functions of the event class
+FAULT_PLANS_48 = {
+    "loss": lambda ev: (ev("loss", 0, 20, p=0.35),),
+    "asym-partition": lambda ev: (
+        ev("partition", 2, 16, src="0:24", dst="24:48"),),
+    "crash-wipe": lambda ev: (ev("crash", 6, 18, node=2, wipe=True),),
+    "latency": lambda ev: (
+        ev("delay", 2, 16, src="0:8", dst="*", delay_rounds=1),
+        ev("jitter", 2, 16, src="0:8", dst="*", delay_rounds=1),
+    ),
+    "storm-mix": lambda ev: (
+        ev("loss", 0, 20, p=0.3),
+        ev("partition", 4, 14, src="0:24", dst="24:48", symmetric=True),
+        ev("delay", 2, 16, src="0:8", dst="*", delay_rounds=1),
+        ev("jitter", 2, 16, src="0:8", dst="*", delay_rounds=1),
+        ev("crash", 10, 22, node=2, wipe=True),
+    ),
+}
+
+
+def demo_events(ev, n_nodes: int = 3, rounds: int = 36):
+    """``corrosion_tpu/faults.py`` ``demo_plan``'s events (the fault
+    campaign's): a loss burst, an asymmetric cut, delay and jitter on one
+    link, a crash-with-wipe of the last node."""
+    third = rounds // 3
+    return (
+        ev("loss", 0, rounds, p=0.4),
+        ev("partition", third // 2, third, src=n_nodes - 1, dst=0),
+        ev("delay", 2, 2 * third, src=0, dst=1, delay_rounds=1),
+        ev("jitter", 2, 2 * third, src=0, dst=1, delay_rounds=1),
+        ev("crash", 2 * third, rounds - 2, node=n_nodes - 1, wipe=True),
+    )
