@@ -7,8 +7,8 @@ result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the nineteen CUDA kernels K1–K19 (with the latency entries of
-   K3, K9 and K10 and the dense fault entries of K11–K14) from the
-   eighteen sources in
+   K3, K9 and K10, the dense fault entries of K11–K14 and K9's matrix
+   entry K9m) from the eighteen sources in
    ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -70,6 +70,13 @@ result line):
    1 and 4 on one ring, randint's multiplier wrapping to 0, both loss
    streams on one cell, a session delay of D - 2 into a slot that holds
    grants, a wipe after convergence;
+   then K9m's edge and reach entries at fault-storm-1000's shapes (N =
+   1000, E = 3000, its matrix plan's round 5: cut and loss slabs) and
+   at the forced-matrix full-view storm's (N = 4096, E = 12288, 704 MiB
+   of slabs), printing that each of its six traps was reached: absent
+   classes as null slabs, (x, x) legs, a loss that compiled to a cut, a
+   one-way cut refusing sessions from both ends, the clamp row past the
+   horizon, N not a multiple of 32;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -122,16 +129,29 @@ result line):
    both stamps; then full-view-fault-storm-4096 (JAX's 4096-node
    acceptance storm on full-view SWIM: K1's uniform entry, K15 with K9's
    reach), held against its golden;
-12. profile the first 3 rounds of both storms (their telemetry-off
+12. the matrix plans, each from launch counters at 0 and each requiring
+   K9m's entries and no launch of K9's factored ones: fault-storm-1000
+   (the fault storm at 1000 nodes, where JAX's ``compile_plan`` picks
+   the matrix form; the dense round, partial-view SWIM), printing the
+   matrix lowering's host time, then through its entry point
+   ``config_packed_fault_storm(seed=0, n_nodes=1000)``; the 3-node
+   fault campaign (``demo_plan(seed=0)``) through ``run_fault_plan``
+   and through ``run_fault_plan_checked`` (its per-round digest list and
+   coverage markers); full-view-fault-storm-4096 and the packed fault
+   storm at 4096 (``packed_min_cells=0``) on forced matrix plans, the
+   packed one also equal to its factored twin; each held against its
+   golden;
+13. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
    the process ran before), the
    fault storm's 12-round loss window, 10 partitioned rounds of
    partition-heal-10k, the first 3 rounds of gapstress-25.6k and rounds
    6-8 of latency-storm-100k and of the same config without its latency
-   pair, rounds 5-7 of dense-fault-storm-100k (host wall, device time by
-   kernel from ``torch.profiler``, the device's idle share);
-13. print the card line, the kernels JSON line, then the one-line result
+   pair, rounds 5-7 of dense-fault-storm-100k and of fault-storm-1000
+   (host wall, device time by kernel from ``torch.profiler``, the
+   device's idle share);
+14. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -140,6 +160,7 @@ Nothing runs on the CPU: without a card the script exits at once.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import re
 import subprocess
@@ -264,6 +285,7 @@ KERNEL_SYMBOLS = (
     "gaps_refresh_wide_kernel", "trace_counts_words_kernel",
     "trace_counts_dense_kernel", "trace_wire_words_kernel",
     "trace_wire_rows_kernel", "trace_row_kernel",
+    "fault_edges_matrix_kernel", "fault_reach_matrix_kernel",
 )
 
 
@@ -2709,10 +2731,12 @@ def compare_latency_kernels(dev, seed=4):
 
 def _dense_fault_storm(n, dev, plan_seed=0, **changes):
     """The fault storm on the dense round (JAX's ``allow_packed=False``):
-    its config, payloads and compiled plan."""
+    its config, payloads and compiled plan, factored (JAX's form at these
+    node counts; path 15 forces the matrix one)."""
     from corrosion_tpu_torch.sim.runner import fault_storm
 
-    return fault_storm(n, 512, plan_seed, dev, allow_packed=False, **changes)
+    return fault_storm(n, 512, plan_seed, dev, factored=True,
+                       allow_packed=False, **changes)
 
 
 def _full_view_storm(dev):
@@ -3135,6 +3159,265 @@ def compare_dense_fault_kernels(dev, seed=5):
     return rows
 
 
+# -- K9's matrix entry (K9m): the matrix plans' per-edge queries -----------------
+
+#: fault-storm-1000: JAX's matrix plan at the largest node count its
+#: `compile_plan` leaves in the matrix form by default
+MATRIX_N = 1000
+#: the round the matrix comparisons and profile slice: inside the loss
+#: and half-split windows (rounds 0-11 and 4-15)
+MATRIX_T = 5
+
+
+def matrix_trap_plan(n, seed=0):
+    """A matrix plan reaching K9m's traps at n nodes: the storm's loss
+    burst, losses of 0.99 out of and 0.995 into the first eighth that
+    fold with it past 255.5/256 (a cut where they meet: 1 - 0.85 · 0.01
+    · 0.005), a one-way cut from the first half to the second (sessions
+    refused from both ends), the latency pair out of the first sixth and
+    a wiped node (four delay slots)."""
+    from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+
+    half, eighth, sixth = n // 2, f"0:{n // 8}", f"0:{n // 6}"
+    return FaultPlan(n_nodes=n, seed=seed, events=(
+        FaultEvent("loss", 0, 12, p=0.15),
+        FaultEvent("loss", 3, 9, src=eighth, dst="*", p=0.99),
+        FaultEvent("loss", 3, 9, src="*", dst=eighth, p=0.995),
+        FaultEvent("partition", 4, 16, src=f"0:{half}", dst=f"{half}:{n}"),
+        FaultEvent("delay", 2, 10, src=sixth, dst="*", delay_rounds=1),
+        FaultEvent("jitter", 2, 10, src=sixth, dst="*", delay_rounds=1),
+        FaultEvent("crash", 8, 20, node=1, wipe=True),
+    ))
+
+
+def _matrix_storm(n, dev, **changes):
+    """The fault storm at n nodes on its matrix plan (JAX's default below
+    1024 nodes, forced above): config, payloads, plan and the host
+    seconds of the matrix lowering."""
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim.runner import storm_fault_plan
+
+    plan_seed = changes.pop("plan_seed", 0)
+    cfg, meta = _storm_cfg(n, dev)
+    cfg = dataclasses.replace(cfg, **changes)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fplan = faults.compile_plan(storm_fault_plan(n, plan_seed), cfg,
+                                factored=False, device=dev)
+    torch.cuda.synchronize()
+    return cfg, meta, fplan, time.monotonic() - t0
+
+
+def _matrix_edge_lists(g, n, f, dev):
+    """E = n·f edges out of every node, one in 20 a self-edge, and an ok
+    mask with one in ten cleared."""
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = np.where(g.random(n * f) < 0.05, np.repeat(np.arange(n), f),
+                   g.integers(0, n, n * f))
+    dst = torch.as_tensor(dst, dtype=torch.int32, device=dev)
+    return src, dst, torch.as_tensor(g.random(n * f) < 0.9, device=dev)
+
+
+def _matrix_calls(rf, src, dst, ok0, kernel):
+    """The wire's call (cuts clearing ok, thresholds, delay, jitter), the
+    session's (refusals both ways, counted, and the session delay), and
+    the four queries alone: K9m's launches, or their plain gathers."""
+    from corrosion_tpu_torch.sim import faults
+
+    dev = src.device
+    ok_w, ok_s, cut, refused = ok0.clone(), ok0.clone(), _acc(dev), _acc(dev)
+    if kernel:
+        wire = faults.fault_wire_effects(rf, src, dst, ok_w, cut)
+        session = faults.fault_session_effects(rf, src, dst, ok_s, refused)
+        alone = [q(rf, src, dst) for q in (
+            faults.fault_edge_block, faults.fault_edge_loss,
+            faults.fault_edge_delay, faults.fault_edge_jitter)]
+        return [x for x in (*wire, *session, ok_s, cut, refused, *alone)
+                if x is not None]
+    has = {c: getattr(rf, c) is not None
+           for c in ("block", "loss", "delay", "jitter")}
+    blk = faults._block_plain(rf, src, dst) if has["block"] else None
+    if blk is not None:
+        cut += (ok_w & blk).sum()
+        ok_w &= ~blk
+    ref = None
+    if blk is not None:
+        ref = blk | faults._block_plain(rf, dst, src)
+        refused += (ok_s & ref).sum()
+        ok_s &= ~ref
+    thr = faults._loss_plain(rf, src, dst) if has["loss"] else None
+    delay = faults._delay_plain(rf, src, dst) if has["delay"] else None
+    jit = faults._jitter_plain(rf, src, dst) if has["jitter"] else None
+    sdelay = (faults._session_delay_plain(rf, src, dst) if has["delay"]
+              else None)
+    return [x for x in (ok_w, thr, delay, jit, ref, sdelay, ok_s, cut,
+                        refused, blk, thr, delay, jit) if x is not None]
+
+
+def _matrix_reach(rf, src, dst, ok0, key, kernel):
+    from corrosion_tpu_torch.sim import faults
+
+    ok = ok0.clone()
+    if kernel:
+        return faults.fault_reach_(ok, rf, key, src, dst)
+    return faults.fault_reach_plain(ok, rf, key, src, dst)
+
+
+def _matrix_case(dev, g, fplan, t, f, label, timed):
+    """K9m's two entries on round t of ``fplan`` at E = N·f, against their
+    plain versions on the same card tensors: the equality, the largest
+    gap, both rows' times and bytes, and the plain outputs for the
+    traps."""
+    from corrosion_tpu_torch.sim import faults
+
+    rf = faults.round_faults(fplan, t)
+    n = rf.alive.shape[0]
+    src, dst, ok0 = _matrix_edge_lists(g, n, f, dev)
+    key = torch.as_tensor(g.integers(0, 2**32, 2), dtype=torch.int64,
+                          device=dev)
+    got = _matrix_calls(rf, src, dst, ok0, True)
+    want = _matrix_calls(rf, src, dst, ok0, False)
+    equal, err = _equal_all(got, want)
+    r_got = _matrix_reach(rf, src, dst, ok0, key, True)
+    r_want = _matrix_reach(rf, src, dst, ok0, key, False)
+    r_equal, r_err = _equal_all([r_got], [r_want])
+    e = n * f
+    classes = sum(x is not None for x in (rf.block, rf.loss, rf.delay,
+                                          rf.jitter))
+    latency = (rf.delay is not None) + (rf.jitter is not None)
+    # ids, then one cell of each class the wire reads, two block and two
+    # delay cells for the session, the alone queries' cells again; ok in
+    # and out twice, the outputs (u8 cut and thr, i32 latency), two counts
+    edge_bytes = (e * 8 + e * (2 * classes + 2 + 2 * (rf.delay is not None))
+                  + e * 4 + e * (1 + 1) * 2 + e * 4 * (2 * latency) + 16)
+    reach_bytes = e * 8 + e * 2 + e * 2 + 16
+    extra = dict(shape=label, e=e, n=n, t=t, classes=classes)
+    rows = [
+        _row("fault_edges_matrix" + label,
+             "corrosion_tpu_torch/kernels/csrc/fault_edges.cu",
+             "corrosion_tpu/sim/faults.py:195", equal, err,
+             _timed(timed, lambda: _matrix_calls(rf, src, dst, ok0, True)),
+             _timed(timed, lambda: _matrix_calls(rf, src, dst, ok0, False)),
+             edge_bytes, kernel="fault_edges_matrix", **extra),
+        _row("fault_reach_matrix" + label,
+             "corrosion_tpu_torch/kernels/csrc/fault_edges.cu",
+             "corrosion_tpu/sim/swim.py:161", r_equal, r_err,
+             _timed(timed, lambda: _matrix_reach(rf, src, dst, ok0, key,
+                                                 True)),
+             _timed(timed, lambda: _matrix_reach(rf, src, dst, ok0, key,
+                                                 False)),
+             reach_bytes, kernel="fault_reach_matrix", **extra),
+    ]
+    return rows, rf, src, dst, want
+
+
+def compare_matrix_fault_kernels(dev, seed=6, n=MATRIX_N, big=4096,
+                                 timed=True):
+    """Phase 3g: K9m's edge and reach entries against their plain
+    versions at fault-storm-1000's shapes (N = 1000, not a multiple of
+    32; its matrix plan, cut and loss, round 5, E = 3N), on the trap
+    plan at the same shapes, past the horizon (the clamp row), and at
+    the forced-matrix full-view storm's (N = 4096, E = 3N, 740 MB of
+    slabs), every trap reached.  Returns the timed rows of the path's
+    shapes and of the 4096 shapes."""
+    from corrosion_tpu_torch.sim import faults
+
+    g = np.random.default_rng(seed)
+    _, _, storm, _ = _matrix_storm(n, dev)
+    rows, rf, src, dst, _ = _matrix_case(dev, g, storm, MATRIX_T, 3, "",
+                                         timed)
+    _trap("matrix 1", "absent classes ride null slabs (no delay, no jitter)",
+          rf.delay is None and rf.jitter is None and rf.block is not None
+          and rf.loss is not None)
+    trap_cfg = dataclasses.replace(_storm_cfg(n, dev)[0], n_delay_slots=4)
+    traps = faults.compile_plan(matrix_trap_plan(n), trap_cfg,
+                                factored=False, device=dev)
+    case, rf, src, dst, want = _matrix_case(dev, g, traps, MATRIX_T, 3,
+                                            "_traps", False)
+    blk = faults._block_plain(rf, src, dst)
+    self_edge = src == dst
+    eighth = n // 8
+    _trap("matrix 2", "(x, x) legs never fault",
+          bool(self_edge.any()) and not bool(blk[self_edge].any())
+          and not bool(faults._loss_plain(rf, src, dst)[self_edge].any()))
+    folded = (src < eighth) & (dst < eighth) & ~self_edge
+    _trap("matrix 3", "a loss that compiled to a cut",
+          bool(folded.any()) and bool(blk[folded].all())
+          and not bool(faults._loss_plain(rf, src, dst)[folded].any()))
+    half = n // 2
+    back = (src >= half) & (dst < half)
+    refused = blk | faults._block_plain(rf, dst, src)
+    _trap("matrix 4", "an asymmetric cut read in both directions",
+          bool(back.any()) and not bool(blk[back].any())
+          and bool(refused[back].all())
+          and bool((faults._session_delay_plain(rf, src, dst)
+                    > faults._delay_plain(rf, src, dst)).any()))
+    clamp, rf, _, _, want = _matrix_case(dev, g, storm, 99, 3, "_clamp",
+                                         False)
+    _trap("matrix 5", "a round past the horizon reads the clear row",
+          rf.block.data_ptr() == storm.block[storm.horizon].data_ptr()
+          and not bool(rf.block.any()) and not bool(rf.loss.any()))
+    _trap("matrix 6", f"N = {n} is not a multiple of 32", n % 32 != 0)
+    del storm, traps
+    _, _, wide, _ = _matrix_storm(big, dev, plan_seed=3,
+                                  swim_partial_view=False,
+                                  swim_full_view=True, allow_packed=False)
+    wide_rows, _, _, _, _ = _matrix_case(dev, g, wide, MATRIX_T, 3, "_4096",
+                                         timed)
+    del wide
+    for row in rows + case + clamp + wide_rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows + wide_rows
+
+
+def profile_matrix_fault(dev, start=MATRIX_T, rounds=3):
+    """Rounds ``start`` to ``start + rounds - 1`` of fault-storm-1000 on
+    its matrix plan through the dense fault loop's body (node faults,
+    the round with its slice, the one host read of the flag); the rounds
+    before are setup."""
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim.round import new_metrics, new_sim, round_step_
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    cfg, meta, fplan, _ = _matrix_storm(MATRIX_N, dev)
+    topo = Topology()
+    region = regions(cfg.n_nodes, 1, dev)
+    activity = faults.host_activity(fplan)
+    horizon = fplan.horizon
+
+    def step(loop):
+        state, metrics = loop
+        t = int(state.t)
+        rf = faults.round_faults(fplan, t)
+        state = faults.apply_node_faults(state, rf)
+        state, metrics, done = round_step_(
+            state, metrics, meta, cfg, topo, region, None, rf, horizon,
+            activity[min(t, horizon)])
+        bool(done)
+        return state, metrics
+
+    def setup():
+        loop = (faults._own_fault_state(new_sim(cfg, 0, dev)),
+                new_metrics(cfg, dev))
+        for _ in range(start):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return loop
+
+    def run(loop):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, f"fault-storm-1000 (matrix) rounds {start}-"
+                    f"{start + rounds - 1}", setup)
+
+
 _START = time.monotonic()
 
 
@@ -3287,6 +3570,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from corrosion_tpu_torch import goldens, kernels
+    from corrosion_tpu_torch.convert import state_digest
     from corrosion_tpu_torch.sim import faults
     from corrosion_tpu_torch.sim.round import new_sim
     from corrosion_tpu_torch.sim.runner import (
@@ -3349,6 +3633,9 @@ def main() -> int:
     print("kernel comparisons equal at the dense fault storms' shapes",
           flush=True)
     _lap("dense fault kernel comparisons")
+    matrix_kernel_rows = compare_matrix_fault_kernels(dev)
+    print("kernel comparisons equal at the matrix plans' shapes", flush=True)
+    _lap("matrix fault kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -3672,6 +3959,139 @@ def main() -> int:
                  "full_view_fault_storm_4096")
     _lap("paths 11-12, the dense latency storm and the full view")
 
+    # path 13, fault-storm-1000: the fault storm where JAX's compile_plan
+    # picks the matrix form, alone through run_fault_plan from zeroed
+    # counters — the dense round with partial-view SWIM, K9m for every
+    # edge query (K9's factored entries never launch) — then through its
+    # entry point, config_packed_fault_storm(n_nodes=1000)
+    matrix_rows = ["fault_edges_matrix", "fault_reach_matrix"]
+    factored_k9 = ["fault_edges", "fault_edges_delay"]
+    fs1000_rows = ["sample_targets", "merge_entries", "threefry",
+                   "dense_phases", "dense_sync", "node_faults_dense",
+                   "dense_broadcast_fault", "dense_gaps_exit", *matrix_rows]
+
+    def no_factored_k9(label):
+        on = [k.name for row in factored_k9 for k in kernels.PORTED[row]
+              if k.launches]
+        if on:
+            raise AssertionError(f"{label}: factored K9 entries {on} "
+                                 "launched on a matrix plan")
+
+    cfg, meta, fplan, compile_s = _matrix_storm(MATRIX_N, dev)
+    print(f"fault_storm_1000: matrix plan {tuple(fplan.block.shape)} cut and "
+          f"loss (delay {fplan.delay}, jitter {fplan.jitter}), host compile "
+          f"{compile_s * 1e3:.1f} ms card={card}", flush=True)
+    out = _timed_fault_run(cfg, meta, fplan, 0, dev)
+    fs1000_launches = _path_launches(kernels, fs1000_rows, "fault_storm_1000")
+    no_factored_k9("fault_storm_1000")
+    _storm_check(out["run"], goldens.FAULT_STORM_1000_SEED0,
+                 "fault_storm_1000")
+    _per_round(fs1000_launches, fs1000_rows,
+               goldens.FAULT_STORM_1000_SEED0["rounds"], "fault_storm_1000")
+    entry = config_packed_fault_storm(seed=0, n_nodes=MATRIX_N, device=dev,
+                                      return_state=True)
+    _storm_check(entry, goldens.FAULT_STORM_1000_SEED0,
+                 "config_packed_fault_storm_1000")
+    print("config_packed_fault_storm_1000: " + json.dumps({
+        k: v for k, v in entry.items() if k not in ("state", "metrics")}),
+        flush=True)
+
+    # path 14, the 3-node fault campaign (demo_plan(seed=0), the matrix
+    # plan) on the card: run_fault_plan, then the checked driver with the
+    # sim invariants, each from zeroed counters, against JAX's goldens
+    from corrosion_tpu_torch.faults import demo_plan
+    from corrosion_tpu_torch.invariants import Catalog
+    from corrosion_tpu_torch.sim.state import SimConfig, uniform_payloads
+
+    camp_cfg = SimConfig(n_nodes=3, n_payloads=16, fanout=2,
+                         sync_interval_rounds=4, n_delay_slots=4)
+    camp_meta = uniform_payloads(camp_cfg, dev, inject_every=1)
+    camp_plan = faults.compile_plan(demo_plan(seed=0), camp_cfg, device=dev)
+    if not isinstance(camp_plan, faults.SimFaultPlan):
+        raise AssertionError("the 3-node campaign did not compile the matrix "
+                             "plan")
+    campaign_rows = ["sample_uniform", "threefry", "node_faults_dense",
+                     "dense_broadcast_fault", "dense_sync_delay",
+                     "fault_edges_matrix"]
+    out = _timed_fault_run(camp_cfg, camp_meta, camp_plan, 0, dev)
+    campaign_launches = _path_launches(
+        kernels, campaign_rows + ["dense_gaps_exit"], "fault_campaign_3node")
+    no_factored_k9("fault_campaign_3node")
+    _storm_check(out["run"], goldens.FAULT_CAMPAIGN_3NODE_SEED0,
+                 "fault_campaign_3node")
+    catalog = Catalog()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    final, _, digests = faults.run_fault_plan_checked(
+        demo_plan(seed=0), new_sim(camp_cfg, 0, dev), camp_meta, camp_cfg,
+        max_rounds=400, catalog=catalog)
+    checked_wall = time.monotonic() - t0
+    checked_launches = _path_launches(
+        kernels, campaign_rows + ["dense_gaps"], "fault_campaign_3node_checked")
+    no_factored_k9("fault_campaign_3node_checked")
+    listed = hashlib.blake2b(digest_size=8)
+    for d in digests:
+        listed.update(d.encode())
+    got = {"n_digests": len(digests), "last_digest": digests[-1],
+           "digest_list": listed.hexdigest()}
+    print(f"fault_campaign_3node_checked: {json.dumps(got)} markers="
+          f"{json.dumps(catalog.report())} wall_clock_s={checked_wall:.3f}",
+          flush=True)
+    if got != goldens.FAULT_CAMPAIGN_3NODE_SEED0_CHECKED:
+        raise AssertionError("fault_campaign_3node_checked: digests != golden")
+    if state_digest(final) != goldens.FAULT_CAMPAIGN_3NODE_SEED0["digest"]:
+        raise AssertionError("fault_campaign_3node_checked: final state")
+    if catalog.unfired_sometimes() or sorted(catalog.report()) != \
+            demo_plan().coverage_markers():
+        raise AssertionError("fault_campaign_3node_checked: markers")
+
+    # path 15, full-view-fault-storm-4096 on the forced matrix form
+    # (factored=False: 22 × 4096² cut and loss slabs on the card): path
+    # 12's storm and golden, K9m in place of K9
+    fvm_rows = [row for row in fv_rows if row != "fault_edges"] + matrix_rows
+    cfg, meta, fplan, compile_s = _matrix_storm(
+        4096, dev, plan_seed=3, swim_partial_view=False, swim_full_view=True,
+        allow_packed=False)
+    print(f"full_view_fault_storm_4096_matrix: plan "
+          f"{tuple(fplan.block.shape)}, "
+          f"{(fplan.block.numel() + fplan.loss.numel()) / 2**20:.0f} MiB, "
+          f"host compile {compile_s * 1e3:.1f} ms", flush=True)
+    out = _timed_fault_run(cfg, meta, fplan, 7, dev)
+    fvm_launches = _path_launches(kernels, fvm_rows,
+                                  "full_view_fault_storm_4096_matrix")
+    no_factored_k9("full_view_fault_storm_4096_matrix")
+    _storm_check(out["run"], goldens.FULL_VIEW_FAULT_STORM_4096_SEED7,
+                 "full_view_fault_storm_4096_matrix")
+    del fplan, out
+
+    # path 16, a packed run on a matrix plan: the 4096-node fault storm
+    # inside the packed envelope (packed_min_cells=0), forced matrix, then
+    # the same run on the factored plan; equal to each other and to the
+    # golden (live JAX)
+    packed_rows = ["sample_targets", "sync_pull", "merge_entries", "threefry",
+                   "gaps_refresh", "converge_fold", "word_phases",
+                   "broadcast_scatter_lossy", "node_faults", *matrix_rows]
+    cfg, meta, fplan, _ = _matrix_storm(4096, dev, packed_min_cells=0)
+    out = _timed_fault_run(cfg, meta, fplan, 0, dev)
+    pm_launches = _path_launches(kernels, packed_rows,
+                                 "packed_fault_storm_4096_matrix")
+    no_factored_k9("packed_fault_storm_4096_matrix")
+    _storm_check(out["run"], goldens.PACKED_FAULT_STORM_4096_SEED0,
+                 "packed_fault_storm_4096_matrix")
+    del fplan
+    fac = faults.compile_plan(storm_fault_plan(4096, 0), cfg, factored=True,
+                              device=dev)
+    twin = _timed_fault_run(cfg, meta, fac, 0, dev)
+    _storm_check(twin["run"], goldens.PACKED_FAULT_STORM_4096_SEED0,
+                 "packed_fault_storm_4096_factored")
+    if state_digest(twin["out"][0]) != state_digest(out["out"][0]) or any(
+            not torch.equal(a, b) for a, b in zip(twin["out"][1],
+                                                   out["out"][1])):
+        raise AssertionError("packed_fault_storm_4096: matrix != factored")
+    print("packed_fault_storm_4096: the matrix run's state and metrics "
+          "equal the factored run's", flush=True)
+    _lap("paths 13-16, the matrix plans")
+
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
     # the whole loss window, where most nodes send and K10 draws most
@@ -3686,6 +4106,8 @@ def main() -> int:
         print("profile_latency: " + json.dumps(
             profile_latency(dev, latency=latency)), flush=True)
     print("profile_dense_fault: " + json.dumps(profile_dense_fault(dev)),
+          flush=True)
+    print("profile_matrix_fault: " + json.dumps(profile_matrix_fault(dev)),
           flush=True)
 
     for row in rows:
@@ -3730,6 +4152,20 @@ def main() -> int:
             "dense_latency_storm_100k": dense_latency_launches[row["kernel"]],
             "full_view_fault_storm_4096": fv_launches[row["kernel"]]}
     rows += dense_fault_kernel_rows
+    other = {"fault_campaign_3node": campaign_launches,
+             "fault_campaign_3node_checked": checked_launches,
+             "full_view_fault_storm_4096_matrix": fvm_launches,
+             "packed_fault_storm_4096_matrix": pm_launches}
+    for row in matrix_kernel_rows:
+        path, counts = (
+            ("full_view_fault_storm_4096_matrix", fvm_launches)
+            if row["name"].endswith("_4096")
+            else ("fault_storm_1000", fs1000_launches))
+        row["launches"] = counts[row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]] for label, c in other.items()}
+    rows += matrix_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

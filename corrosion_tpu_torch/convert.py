@@ -7,8 +7,8 @@ u8 for ``have``, the rings and ``relay_left``; u32 for ``key`` and
 ring ``inflight [D, N, W]`` goes back to JAX's dense u8 ``[D, N, P]``.
 `state_digest` is the blake2b fingerprint the JAX suite pins final
 states with, taken over `state_to_numpy`.  `fault_plan_from_numpy` maps
-a compiled factored fault plan across, so both packages can run the
-very same plan.
+a compiled fault plan across, factored or matrix (its absent classes
+None), so both packages can run the very same plan.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .sim.faults import FactoredFaultPlan
+from .sim.faults import FactoredFaultPlan, SimFaultPlan
 from .sim.words import pack_bits, unpack_bits
 from .sim.state import PayloadMeta, SimConfig, SimState, packed_supported
 
@@ -82,20 +82,26 @@ def meta_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> PayloadMeta:
     })
 
 
-def fault_plan_from_numpy(
-    d: Dict[str, np.ndarray], device="cuda"
-) -> FactoredFaultPlan:
-    """The port's `FactoredFaultPlan` from JAX's (numpy arrays under its
-    field names, in its dtypes); ``seed`` stays on the host."""
+def fault_plan_from_numpy(d: Dict[str, np.ndarray], device="cuda"):
+    """The port's compiled plan from JAX's (numpy arrays under its field
+    names, in its dtypes): a `SimFaultPlan` when ``d`` has the matrix
+    fields, whose absent classes (None, or an object array holding None)
+    stay None, else a `FactoredFaultPlan`; ``seed`` stays on the host."""
     dev = resolve_device(device)
+    form = SimFaultPlan if "block" in d else FactoredFaultPlan
     fields = {}
-    for name in FactoredFaultPlan._fields:
-        arr = np.array(d[name])  # a writable copy
+    for name in form._fields:
+        value = d[name]
+        if value is None or (isinstance(value, np.ndarray)
+                             and value.dtype == object):
+            fields[name] = None
+            continue
+        arr = np.array(value)  # a writable copy
         if name == "seed":
             fields[name] = torch.tensor(int(arr), dtype=torch.int32)
         else:
             fields[name] = torch.from_numpy(arr).to(dev)
-    return FactoredFaultPlan(**fields)
+    return form(**fields)
 
 
 def state_digest(state: SimState, skip: Iterable[str] = ("pview",)) -> str:

@@ -9,9 +9,10 @@ the final state (`convert.state_digest`, equal to the JAX suite's
 ``chip_smoke.py`` holds the port's runs on the card against them;
 ``tests/test_torch_storm.py``, ``tests/test_torch_fault_storm.py``,
 ``tests/test_torch_dense.py``, ``tests/test_torch_swim_full.py``,
-``tests/test_torch_gapstress.py``, ``tests/test_torch_latency.py`` and
-``tests/test_torch_dense_faults.py``
-hold them against live JAX (the largest under ``-m slow``).  The ``*_TELEMETRY`` entries at the end are
+``tests/test_torch_gapstress.py``, ``tests/test_torch_latency.py``,
+``tests/test_torch_dense_faults.py`` and
+``tests/test_torch_matrix_faults.py`` hold them against live JAX (the
+largest under ``-m slow``).  The ``*_TELEMETRY`` entries at the end are
 the same runs' flight-recorder summaries and per-round byte channels;
 ``tests/test_torch_telemetry.py`` holds the 3-node and broadcast-1k ones
 against live JAX.
@@ -90,6 +91,44 @@ FULL_VIEW_FAULT_STORM_4096_SEED7 = {
     "rounds": 26,
     "p99_node_convergence_round": 24.0,
     "digest": "3e833122b5aaa8ee",
+}
+
+# config_packed_fault_storm(seed=0, n_nodes=1000)'s fault run: _write_storm(
+# 1000, 512) (the dense round, partial-view SWIM), run_fault_plan(new_sim(
+# cfg, 0), meta, cfg, Topology(), compile_plan(storm_fault_plan(1000, 0),
+# cfg, Topology()), 3000) — the matrix plan [22, 1000, 1000], cut and loss
+FAULT_STORM_1000_SEED0 = {
+    "rounds": 24,
+    "p99_node_convergence_round": 22.0,
+    "digest": "660add80364fb2f9",
+}
+
+# the 3-node fault campaign (fault_campaign_3node_spec(0)'s scenario:
+# SimConfig(n_nodes=3, n_payloads=16, fanout=2, sync_interval_rounds=4,
+# n_delay_slots=4), uniform_payloads(cfg, inject_every=1), new_sim(cfg, 0),
+# demo_plan(seed=0), the matrix plan): run_fault_plan(..., 1000) gives
+# rounds, p99 and digest; run_fault_plan_checked(..., max_rounds=400) the
+# per-round digests, whose count, last entry and blake2b-8 over the
+# entries' ASCII in order are pinned (the final state is the same)
+FAULT_CAMPAIGN_3NODE_SEED0 = {
+    "rounds": 41,
+    "p99_node_convergence_round": 17.96,
+    "digest": "1e2f75d5f2b1a911",
+}
+FAULT_CAMPAIGN_3NODE_SEED0_CHECKED = {
+    "n_digests": 41,
+    "last_digest": "9b3d6d3e274298e9",
+    "digest_list": "12db1511c2db23c8",
+}
+
+# _write_storm(4096, 512) with packed_min_cells=0 (the packed round),
+# run_fault_plan(new_sim(cfg, 0), meta, cfg, Topology(), compile_plan(
+# storm_fault_plan(4096, 0), cfg, Topology(), factored=True), 3000); the
+# port runs it on the matrix form too, which JAX pins as equal
+PACKED_FAULT_STORM_4096_SEED0 = {
+    "rounds": 33,
+    "p99_node_convergence_round": 23.0,
+    "digest": "f3ad275debd555bd",
 }
 
 # runner.config_ground_truth_3node(seed=0), its final state from

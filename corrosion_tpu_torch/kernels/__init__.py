@@ -54,7 +54,10 @@ replaces:
   — `sim.sync.sync_pull_dense` with session delays; K11's dense entry
   `NODE_FAULTS_DENSE` — `sim.faults.apply_node_faults`; K14's exit mode
   `DENSE_GAPS_ROWS_EXIT`, `DENSE_GAPS_FINISH_EXIT` (K14's launchers) —
-  `sim.round.dense_record` with a fault plan's horizon.
+  `sim.round.dense_record` with a fault plan's horizon;
+- K9's matrix entry (K9m) `FAULT_EDGES_MATRIX`, `FAULT_REACH_MATRIX` (in
+  K9's source, one row each) — the same `sim.faults` queries on a matrix
+  plan's round slice (`RoundFaults`).
 
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
@@ -180,6 +183,13 @@ DENSE_GAPS_FINISH_EXIT = Kernel(
     "dense_gaps_finish_exit", "dense_gaps.cu", "corro_dense_gaps_finish", 7
 )
 
+FAULT_EDGES_MATRIX = Kernel(
+    "fault_edges_matrix", "fault_edges.cu", "corro_fault_edges_matrix", 3
+)
+FAULT_REACH_MATRIX = Kernel(
+    "fault_reach_matrix", "fault_edges.cu", "corro_fault_reach_matrix", 4
+)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -211,6 +221,8 @@ PORTED = {
     "dense_sync_delay": (DENSE_SYNC_DELAY,),
     "node_faults_dense": (NODE_FAULTS_DENSE,),
     "dense_gaps_exit": (DENSE_GAPS_ROWS_EXIT, DENSE_GAPS_FINISH_EXIT),
+    "fault_edges_matrix": (FAULT_EDGES_MATRIX,),
+    "fault_reach_matrix": (FAULT_REACH_MATRIX,),
 }
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
@@ -231,8 +243,8 @@ __all__ = [
     "DENSE_BROADCAST_FAULT", "DENSE_DELIVER", "DENSE_GAPS_FINISH",
     "DENSE_GAPS_FINISH_EXIT", "DENSE_GAPS_ROWS", "DENSE_GAPS_ROWS_EXIT",
     "DENSE_INJECT", "DENSE_SYNC", "DENSE_SYNC_DELAY",
-    "FAULT_EDGES", "FAULT_EDGES_DELAY",
-    "FAULT_REACH", "GAPS_REFRESH", "KERNELS", "Kernel", "MERGE_ENTRIES",
+    "FAULT_EDGES", "FAULT_EDGES_DELAY", "FAULT_EDGES_MATRIX",
+    "FAULT_REACH", "FAULT_REACH_MATRIX", "GAPS_REFRESH", "KERNELS", "Kernel", "MERGE_ENTRIES",
     "NODE_FAULTS", "NODE_FAULTS_DENSE", "PORTED", "RANDINT", "SAMPLE_TARGETS", "SAMPLE_UNIFORM",
     "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL",
     "SYNC_PULL_DELAY", "SYNC_PULL_METERED", "THREEFRY", "TRACE_COUNTS", "TRACE_COVERAGE",

@@ -48,6 +48,19 @@
 // sum(ok & refused)).  Each warp ballots its hits and the block adds
 // once.  A null `count` (telemetry off) counts nothing.
 //
+// K9m, the matrix entry (corro_fault_edges_matrix, corro_fault_reach_matrix):
+// the same outputs for a matrix plan's round slice (faults.py:88
+// SimFaultPlan, :108 RoundFaults, the matrix branches of :195-256
+// fault_edge_block/loss/delay/jitter, :303 fault_session_refused, :312
+// fault_session_delay, swim.py:161-181 on a RoundFaults).  One thread
+// per edge gathers the round's row-major [N, N] slabs at s·N + d (and
+// d·N + s for the session outputs), with 64-bit offsets: a forced
+// matrix plan at 4096 nodes holds 16.8 M cells a slab.  A class absent
+// from the plan is a null slab and reads as 0: no load.  The slabs
+// carry the merged values already (the compiler folded overlapping
+// events), so there is no factor loop; the diagonal is clear by
+// construction.
+//
 // Bound on the H100: launch latency.  An edge reads two int32 ids and
 // K mask bytes at each of them, and writes at most 14 bytes; at the
 // storm's E <= 300000 and K <= 2 per class that is under 8 MB (the
@@ -207,6 +220,85 @@ __global__ void fault_reach_kernel(Factors b, Factors l,
   if (byte < t) ok[i] = 0;
 }
 
+// The matrix entry's cell reader: slab[s·n + d], or 0 for an absent
+// class (a null slab).
+__device__ __forceinline__ uint8_t cell(const uint8_t* __restrict__ slab,
+                                        int n, int s, int d) {
+  return slab ? slab[(size_t)s * (size_t)n + (size_t)d] : (uint8_t)0;
+}
+
+__global__ void fault_edges_matrix_kernel(
+    const uint8_t* __restrict__ blk, const uint8_t* __restrict__ loss,
+    const uint8_t* __restrict__ delay, const uint8_t* __restrict__ jitter,
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    uint8_t* __restrict__ cut_out, uint8_t* __restrict__ thr_out,
+    uint8_t* __restrict__ ok, unsigned long long* __restrict__ count,
+    int32_t* __restrict__ delay_out, int32_t* __restrict__ jit_out,
+    int32_t* __restrict__ sdelay_out, int n, int e, int sym) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool cleared = false;
+  if (i < e) {
+    int s = src[i], d = dst[i];
+    bool valid = in_range(s, d, n);
+    bool c = false;
+    if (valid && (cut_out || ok))
+      c = cell(blk, n, s, d) || (sym && cell(blk, n, d, s));
+    if (cut_out) cut_out[i] = c;
+    if (thr_out) thr_out[i] = valid ? cell(loss, n, s, d) : 0;
+    if (delay_out || sdelay_out) {
+      int32_t fwd = valid ? cell(delay, n, s, d) : 0;
+      if (delay_out) delay_out[i] = fwd;
+      if (sdelay_out) {
+        int32_t rev = valid ? cell(delay, n, d, s) : 0;
+        sdelay_out[i] = fwd > rev ? fwd : rev;
+      }
+    }
+    if (jit_out) jit_out[i] = valid ? cell(jitter, n, s, d) : 0;
+    if (ok && c) {
+      cleared = ok[i] != 0;
+      ok[i] = 0;
+    }
+  }
+  if (count == nullptr) return;
+  __shared__ unsigned int hits;
+  if (threadIdx.x == 0) hits = 0u;
+  __syncthreads();
+  unsigned int warp_hits = __popc(__ballot_sync(0xFFFFFFFFu, cleared));
+  if ((threadIdx.x & 31) == 0 && warp_hits) atomicAdd(&hits, warp_hits);
+  __syncthreads();
+  if (threadIdx.x == 0 && hits) atomicAdd(count, (unsigned long long)hits);
+}
+
+__global__ void fault_reach_matrix_kernel(
+    const uint8_t* __restrict__ blk, const uint8_t* __restrict__ loss,
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    const int64_t* __restrict__ key, uint8_t* __restrict__ ok, int n, int e,
+    uint32_t seed, uint32_t tag) {
+  __shared__ uint32_t folded[2];
+  if (threadIdx.x == 0) {
+    corro::Pair f = corro::threefry2x32((uint32_t)key[0], (uint32_t)key[1],
+                                        0u, seed);
+    corro::Pair g = corro::threefry2x32(f.a, f.b, 0u, tag);
+    folded[0] = g.a;
+    folded[1] = g.b;
+  }
+  __syncthreads();
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= e || !ok[i]) return;  // a cleared ok stays cleared
+  int s = src[i], d = dst[i];
+  if (!in_range(s, d, n)) return;
+  if (cell(blk, n, s, d)) {
+    ok[i] = 0;
+    return;
+  }
+  uint8_t t = cell(loss, n, s, d);
+  if (t == 0) return;
+  corro::Pair h = corro::threefry2x32(folded[0], folded[1], 0u,
+                                      (uint32_t)i >> 2);
+  uint32_t byte = ((h.a ^ h.b) >> (8 * (i & 3))) & 0xFFu;
+  if (byte < t) ok[i] = 0;
+}
+
 constexpr int kThreads = 256;
 
 bool shapes_ok(int kb, int kl, int n, int e) {
@@ -269,5 +361,41 @@ extern "C" int corro_fault_reach(const void* b_on, const void* b_src,
       b, l, (const uint8_t*)l_thr, (const int32_t*)src, (const int32_t*)dst,
       (const int64_t*)key, (uint8_t*)ok, n, e, (uint32_t)seed,
       (uint32_t)tag);
+  return (int)cudaGetLastError();
+}
+
+// K9m: the matrix slabs of one round (each [n, n] row-major, null when
+// the class is absent or not asked for), the same outputs as
+// corro_fault_edges.
+extern "C" int corro_fault_edges_matrix(
+    const void* blk, const void* loss, const void* delay, const void* jitter,
+    const void* src, const void* dst, void* cut_out, void* thr_out, void* ok,
+    void* count, void* delay_out, void* jit_out, void* sdelay_out, int n,
+    int e, int sym, void* stream) {
+  if (n <= 0 || e < 0 || (count != nullptr && ok == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (e == 0) return (int)cudaSuccess;
+  unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
+  fault_edges_matrix_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)blk, (const uint8_t*)loss, (const uint8_t*)delay,
+      (const uint8_t*)jitter, (const int32_t*)src, (const int32_t*)dst,
+      (uint8_t*)cut_out, (uint8_t*)thr_out, (uint8_t*)ok,
+      (unsigned long long*)count, (int32_t*)delay_out, (int32_t*)jit_out,
+      (int32_t*)sdelay_out, n, e, sym);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_fault_reach_matrix(const void* blk, const void* loss,
+                                        const void* src, const void* dst,
+                                        const void* key, void* ok, int n,
+                                        int e, int seed, int tag,
+                                        void* stream) {
+  if (n <= 0 || e < 0) return (int)cudaErrorInvalidValue;
+  if (e == 0) return (int)cudaSuccess;
+  unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
+  fault_reach_matrix_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)blk, (const uint8_t*)loss, (const int32_t*)src,
+      (const int32_t*)dst, (const int64_t*)key, (uint8_t*)ok, n, e,
+      (uint32_t)seed, (uint32_t)tag);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 """The bitpacked round on u32 words — the port of
 ``corrosion_tpu/sim/packed.py`` for the envelope the 100k write storm
 and the gapstress storm run, faultless (`run_packed`) and under a
-factored fault plan (`run_packed_faults`), over one region or several
+fault plan of either form (`run_packed_faults`), over one region or several
 (ring0 tiering, shared with the dense round), with the byte budgets
 metered, the flat topology loss drawn on the wire, and the flight
 recorder (`.telemetry`) when a run asks for it.
@@ -22,7 +22,7 @@ table merge (K1, K4, `.pswim`) and the gap refresh (K6, `.gaps`).  The
 byte budgets run K16 (`budget_prefix_words`, the broadcast governor)
 and K3's metered entry (the sync grant).  Under the flat topology loss
 or a fault plan the ring scatter is K10 (`scatter_sending_lossy`); a
-plan's edge queries run K9 (`.faults`) and its node faults K11
+plan's edge queries run K9 or K9m (`.faults`) and its node faults K11
 (`apply_round_faults`).  Each wrapper takes the plain torch version
 beside it for a CPU tensor.
 
@@ -51,8 +51,8 @@ from .broadcast import ring0_targets
 from .faults import (
     JITTER_TAG,
     WIRE_LOSS_TAG,
-    FactoredFaultPlan,
-    FactoredRoundFaults,
+    AnyFaultPlan,
+    AnyRoundFaults,
     RoundActivity,
     apply_node_faults_plain,
     fault_key,
@@ -533,7 +533,7 @@ def scatter_sending_lossy(
 def broadcast_packed(
     carry: PackedCarry, injected_p: torch.Tensor, state: SimState,
     cfg: SimConfig, topo: Topology, region: torch.Tensor, key: torch.Tensor,
-    meta: PayloadMeta, faults: Optional[FactoredRoundFaults] = None,
+    meta: PayloadMeta, faults: Optional[AnyRoundFaults] = None,
     trace: Optional[RoundTrace] = None, active: Optional[RoundActivity] = None,
 ) -> PackedCarry:
     """Fan-out push: draw targets, spend the relay budget (K8, metered by
@@ -719,7 +719,7 @@ def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
 def sync_packed(
     carry: PackedCarry, state: SimState, cfg: SimConfig, topo: Topology,
     key: torch.Tensor, meta: PayloadMeta,
-    faults: Optional[FactoredRoundFaults] = None,
+    faults: Optional[AnyRoundFaults] = None,
     trace: Optional[RoundTrace] = None,
 ):
     """Anti-entropy on packed words: per-node group-uniform masks from the
@@ -882,7 +882,7 @@ def converge_record(
 def packed_round_step(
     state: SimState, carry: PackedCarry, injected_p: torch.Tensor,
     metrics: RunMetrics, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
-    region: torch.Tensor, faults: Optional[FactoredRoundFaults] = None,
+    region: torch.Tensor, faults: Optional[AnyRoundFaults] = None,
     horizon: Optional[int] = None, trace: Optional[RoundTrace] = None,
     active: Optional[RoundActivity] = None,
 ):
@@ -994,7 +994,7 @@ def run_packed(
 
 
 def apply_carry_faults(
-    carry: PackedCarry, rf: FactoredRoundFaults
+    carry: PackedCarry, rf: AnyRoundFaults
 ) -> PackedCarry:
     """Packed twin of `faults.apply_node_faults`' payload wipe, IN PLACE:
     a crash-with-wipe zeroes the node's have words, its four relay
@@ -1008,7 +1008,7 @@ def apply_carry_faults(
 
 
 def apply_round_faults(
-    slim: SimState, carry: PackedCarry, rf: FactoredRoundFaults
+    slim: SimState, carry: PackedCarry, rf: AnyRoundFaults
 ) -> Tuple[SimState, PackedCarry]:
     """A round's node faults before its phases, IN PLACE on the slim
     state (alive override; a wipe's heads, gaps, member table and
@@ -1067,7 +1067,7 @@ def all_have_words(
 
 def run_packed_faults(
     state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
-    fplan: FactoredFaultPlan, max_rounds: int, telemetry: bool = False,
+    fplan: AnyFaultPlan, max_rounds: int, telemetry: bool = False,
 ):
     """`run_packed` under a fault schedule: before every round the
     round's node faults hit the slim state and the carry

@@ -214,8 +214,8 @@ def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
     """One dense round on a state whose tensors it owns (`own_state`),
     updating them in place: (state, metrics, done), where ``done`` is
     the loop's exit flag after the round, on the device.  ``faults`` (a
-    `.faults.FactoredRoundFaults` slice, whose node faults the caller
-    has applied) reaches every phase: cuts, loss, delay and jitter on
+    round slice of either plan form, `.faults.round_faults`, whose node
+    faults the caller has applied) reaches every phase: cuts, loss, delay and jitter on
     the broadcast wire, refused sessions and session delays on the sync,
     cuts and loss on SWIM's probes; with the plan's ``horizon`` the flag
     is the fault loop's (`dense_record`), and ``active`` (the host's copy
@@ -279,7 +279,7 @@ def round_step(
     ``round_step``): returns the new (state, metrics), and with a
     ``trace`` (a `.telemetry.RoundTrace`, whose row of this round is
     written in place) the trace third; ``state`` itself is left as it
-    was.  ``faults`` (a factored plan's round slice, `.faults.
+    was.  ``faults`` (a plan's round slice, matrix or factored, `.faults.
     round_faults`) threads the plan through every phase; its node
     faults are the caller's (`.faults.apply_node_faults`), as in JAX."""
     validate(cfg, topo)

@@ -357,19 +357,20 @@ def storm_fault_plan(n_nodes: int, seed: int = 0) -> FaultPlan:
 
 
 def fault_storm(n_nodes: int, n_payloads: int = 512, plan_seed: int = 0,
-                device="cuda", **changes):
+                device="cuda", factored: Optional[bool] = None, **changes):
     """The fault storm's (cfg, meta, compiled plan): `_write_storm`'s
     config with ``changes`` applied as JAX's callers apply them
     (``dataclasses.replace``: ``allow_packed=False`` puts the storm on
     the dense round, as JAX's 4096-node acceptance test does), under
-    ``storm_fault_plan(n_nodes, plan_seed)`` in the factored form (JAX's
-    at storm scale; below 1024 nodes JAX compiles the matrix form, which
-    it pins as equal and the port does not have)."""
+    ``storm_fault_plan(n_nodes, plan_seed)`` compiled as ``factored``
+    asks: None lets `compile_plan` choose, as JAX's
+    ``config_packed_fault_storm`` does (the matrix form below 1024
+    nodes, the factored one at storm scale)."""
     dev = resolve_device(device)
     cfg, meta = _write_storm(n_nodes, n_payloads, dev)
     cfg = dataclasses.replace(cfg, **changes)
     plan = storm_fault_plan(n_nodes, plan_seed)
-    return cfg, meta, compile_plan(plan, cfg, Topology(), factored=True,
+    return cfg, meta, compile_plan(plan, cfg, Topology(), factored=factored,
                                    device=dev)
 
 

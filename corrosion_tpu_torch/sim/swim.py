@@ -71,10 +71,10 @@ def _reachable(
     """Ground-truth reachability of a probe src→dst on a flat topology:
     same partition group, both ends up, and — with ``topo.loss`` — not
     lost to ``bernoulli(key, loss, src.shape)`` (JAX's legacy flat
-    branch).  ``faults`` (a `faults.FactoredRoundFaults`) adds the plan's
-    directed cuts and its per-edge loss, drawn from
-    ``fold_in(fold_in(key, seed), 103)`` (`faults.fault_reach_`, K9 on
-    the card)."""
+    branch).  ``faults`` (a round slice of either plan form) adds the
+    plan's directed cuts and its per-edge loss, drawn from
+    ``fold_in(fold_in(key, seed), 103)`` (`faults.fault_reach_`, K9's
+    reach entry or K9m's on the card)."""
     require_flat(topo)
     ok = (
         (state.group[src] == state.group[dst])

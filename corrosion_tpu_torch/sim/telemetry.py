@@ -162,10 +162,17 @@ def acc_slot(trace: RoundTrace, name: str) -> torch.Tensor:
 
 def wire_loss_active(topo, faults) -> bool:
     """Can the broadcast wire drop frames in this scenario: the flat
-    topology loss, or a fault plan with loss factors."""
+    topology loss, or a fault plan with loss (a matrix slice's ``loss``
+    slab, or loss factors)."""
     if int(round(topo.loss * 256.0)) > 0:
         return True
-    return faults is not None and faults.loss_thr.shape[0] > 0
+    if faults is None:
+        return False
+    from .faults import RoundFaults
+
+    if isinstance(faults, RoundFaults):
+        return faults.loss is not None
+    return faults.loss_thr.shape[0] > 0
 
 
 def swim_belief_counts(state, cfg: SimConfig):

@@ -463,8 +463,8 @@ def test_full_view_fault_storm_64_matches_jax(record):
     setup `fault_storm` builds the same config."""
     jcfg, jmeta = _full_view_storm(64, 128)
     pcfg, pmeta, pfp = fault_storm(
-        64, 128, 3, "cpu", swim_partial_view=False, swim_full_view=True,
-        allow_packed=False)
+        64, 128, 3, "cpu", factored=True, swim_partial_view=False,
+        swim_full_view=True, allow_packed=False)
     assert pcfg == port_config(jcfg)
     assert_fields_equal(fields(jmeta), fields(pmeta), "meta")
     from corrosion_tpu.sim.runner import storm_fault_plan as jplan_of
@@ -493,16 +493,18 @@ def test_full_view_fault_storm_64_matches_jax(record):
 def test_dense_fault_entry_points_default_to_the_card():
     """`fault_storm` (and through it the dense and full-view storms)
     places its tensors on the card unless the caller asks for the CPU,
-    and refuses without one; the matrix plan still raises."""
+    and refuses without one; below 1024 nodes it compiles JAX's default,
+    the matrix plan, now ported (tests/test_torch_matrix_faults.py)."""
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fault_storm(64, 128, allow_packed=False)
-    cfg, _, _ = fault_storm(64, 128, device="cpu", allow_packed=False)
+    cfg, _, fplan = fault_storm(64, 128, device="cpu", allow_packed=False)
+    assert isinstance(fplan, faults.SimFaultPlan)
     from corrosion_tpu_torch.sim.runner import storm_fault_plan
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        faults.compile_plan(storm_fault_plan(64, 0), cfg, device="cpu")
+    assert isinstance(faults.compile_plan(storm_fault_plan(64, 0), cfg,
+                                          device="cpu"), faults.SimFaultPlan)
 
 
 # -- the card's goldens, from live JAX -------------------------------------------

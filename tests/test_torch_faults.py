@@ -99,12 +99,31 @@ def test_compile_plan_matches_jax(cfgs, name):
 
 
 def test_compile_plan_matrix_form_is_not_ported(cfgs):
+    """The matrix form is ported now (tests/test_torch_matrix_faults.py
+    holds it against JAX's): ``factored=False`` and ``None`` (below 1024
+    nodes) compile a `SimFaultPlan` whose slabs give the factored form's
+    per-edge answers at every edge of every round (the threshold off cut
+    edges), as JAX pins the two forms equal."""
     _, _, pcfg, _ = cfgs
     plan = storm_fault_plan(N, 7)
+    fac = faults.compile_plan(plan, pcfg, Topology(), factored=True,
+                              device="cpu")
     for factored in (False, None):  # None picks the matrix form below 1024
-        with pytest.raises(NotImplementedError, match="B12"):
-            faults.compile_plan(plan, pcfg, Topology(), factored=factored,
-                                device="cpu")
+        mat = faults.compile_plan(plan, pcfg, Topology(), factored=factored,
+                                  device="cpu")
+        assert isinstance(mat, faults.SimFaultPlan)
+        assert mat.block.shape == (mat.horizon + 1, N, N)
+        assert torch.equal(mat.alive, fac.alive)
+        assert torch.equal(mat.wipe, fac.wipe) and int(mat.seed) == int(
+            fac.seed)
+    src = torch.arange(N, dtype=torch.int32).repeat_interleave(N)
+    dst = torch.arange(N, dtype=torch.int32).repeat(N)
+    for t in (0, 5, 21, 40):
+        rm, rf = faults.round_faults(mat, t), faults.round_faults(fac, t)
+        cut = faults.fault_edge_block(rm, src, dst)
+        assert torch.equal(cut, faults.fault_edge_block(rf, src, dst))
+        assert torch.equal(faults.fault_edge_loss(rm, src, dst)[~cut],
+                           faults.fault_edge_loss(rf, src, dst)[~cut])
 
 
 def test_derive_seed_and_selectors_match_jax():

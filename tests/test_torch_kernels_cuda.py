@@ -7,6 +7,8 @@ runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1048,8 +1050,8 @@ def _dense_fault_run(dev, telemetry, full_view=False):
 
     if full_view:
         cfg, meta, fplan = fault_storm(
-            64, 128, 3, dev, swim_partial_view=False, swim_full_view=True,
-            allow_packed=False)
+            64, 128, 3, dev, factored=True, swim_partial_view=False,
+            swim_full_view=True, allow_packed=False)
         seed = 7
     else:
         cfg = SimConfig.wan_tuned(
@@ -1096,5 +1098,76 @@ def test_dense_fault_run_on_card_equals_cpu(card, telemetry, full_view):
     for a, b in zip(out[1], cpu[1]):
         assert torch.equal(a.cpu(), b)
     if telemetry:
+        for f in tel.CHANNELS:
+            assert torch.equal(getattr(out[2], f).cpu(), getattr(cpu[2], f)), f
+
+
+# -- K9's matrix entry (K9m): a matrix plan's per-edge queries
+# (chip_smoke.py's comparison, every trap reached, at small node counts;
+# then whole matrix-plan runs on the card against the CPU)
+
+
+@pytest.mark.parametrize("n, big", ((1000, 256), (333, 96)))
+def test_fault_edges_matrix(card, n, big):
+    before = (kernels.FAULT_EDGES_MATRIX.launches,
+              kernels.FAULT_REACH_MATRIX.launches)
+    rows = _smoke().compare_matrix_fault_kernels(card, n=n, big=big,
+                                                 timed=False)
+    assert all(row["equal"] for row in rows), rows
+    assert kernels.FAULT_EDGES_MATRIX.launches > before[0]
+    assert kernels.FAULT_REACH_MATRIX.launches > before[1]
+
+
+def _matrix_run(dev, name):
+    """A matrix-plan run: the 3-node fault campaign (run_fault_plan, or
+    the checked driver with its digests), or the fault storm at 96 nodes
+    on the packed round."""
+    from corrosion_tpu_torch.faults import demo_plan
+    from corrosion_tpu_torch.invariants import Catalog
+    from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.runner import _write_storm
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    if name == "packed96":
+        cfg, meta = _write_storm(96, 128, dev)
+        cfg = dataclasses.replace(cfg, packed_min_cells=0)
+        fplan = faults.compile_plan(storm_fault_plan(96, 0), cfg,
+                                    factored=False, device=dev)
+        return faults.run_fault_plan(new_sim(cfg, 0, dev), meta, cfg,
+                                     Topology(), fplan, 300)
+    cfg = SimConfig(n_nodes=3, n_payloads=16, fanout=2,
+                    sync_interval_rounds=4, n_delay_slots=4)
+    meta = uniform_payloads(cfg, dev, inject_every=1)
+    if name == "checked":
+        return faults.run_fault_plan_checked(
+            demo_plan(seed=0), new_sim(cfg, 0, dev), meta, cfg,
+            max_rounds=400, catalog=Catalog())
+    fplan = faults.compile_plan(demo_plan(seed=0), cfg, device=dev)
+    return faults.run_fault_plan(new_sim(cfg, 0, dev), meta, cfg, Topology(),
+                                 fplan, 1000, name == "telemetry")
+
+
+@pytest.mark.parametrize("name", ("campaign", "telemetry", "checked",
+                                  "packed96"))
+def test_matrix_run_on_card_equals_cpu(card, name):
+    """A matrix-plan run ends on the card in the CPU run's state, metrics
+    (and trace, digests), through K9m and never K9's factored entries."""
+    from corrosion_tpu_torch.convert import state_digest
+
+    kernels.reset_launch_counts()
+    out = _matrix_run(card, name)
+    assert kernels.FAULT_EDGES_MATRIX.launches > 0
+    assert kernels.FAULT_EDGES.launches == kernels.FAULT_REACH.launches == 0
+    if name == "packed96":
+        assert kernels.FAULT_REACH_MATRIX.launches > 0
+    cpu = _matrix_run("cpu", name)
+    assert state_digest(out[0]) == state_digest(cpu[0])
+    for a, b in zip(out[1], cpu[1]):
+        assert torch.equal(a.cpu(), b)
+    if name == "checked":
+        assert out[2] == cpu[2] and len(out[2]) == 41
+    if name == "telemetry":
+        from corrosion_tpu_torch.sim import telemetry as tel
+
         for f in tel.CHANNELS:
             assert torch.equal(getattr(out[2], f).cpu(), getattr(cpu[2], f)), f
