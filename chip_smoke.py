@@ -6,11 +6,11 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the nineteen CUDA kernels K1–K19 (with the latency entries of
-   K3, K9 and K10, the dense fault entries of K11–K14 and K9's matrix
-   entry K9m) from the eighteen sources in
-   ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
-   process per source, in parallel);
+2. build the twenty-one CUDA kernels K1–K21 (with the latency entries
+   of K3, K9 and K10, the dense fault entries of K11–K14, K9's matrix
+   entry K9m, K1's view entry and the tiered instantiations of K10 and
+   K12) from the twenty sources in ``corrosion_tpu_torch/kernels/csrc``
+   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
    k = 8, A = 16, V = 8, C = 4, K = 8; the fault storm's plan: Kb = 2,
    Kl = 1, threshold 38, E up to 300000), call each kernel's wrappers
@@ -77,6 +77,23 @@ result line):
    classes as null slabs, (x, x) legs, a loss that compiled to a cut, a
    one-way cut refusing sessions from both ends, the clamp row past the
    horizon, N not a multiple of 32;
+   then the topology axis (phase 3h): K20's edge entry at the tiered
+   storms' shapes (E = 300000; wan-3x2's AZ delays into D = 3 and
+   wan-fly-6r's measured matrix into D = 6, with and without a fault
+   delay), its caps entry on hetero-degree's targets [100000, 3], its
+   reach entry at E = 100000 and 300000 and on a topology whose
+   cross-region tier is at certainty, K10's tiered instantiation at
+   storm-wan-3x2's shapes (W = 16; alone, with the fault stream and its
+   dropped count, pinned), K12's at broadcast-1k's (N = 1000, P = 256),
+   K1's view entry at storm-peerswap-25.6k's (N = 25600, V = 16; counts
+   3 and 1, and with full-view beliefs at N = 4096) and K21 at the same
+   shapes, printing that each of the twelve traps was reached: the
+   matrix's delays 0–5, the last region's remainder clamping its AZ,
+   caps 1–3, a padded reach draw, the certainty pin on probes, on the
+   packed wire and on the dense wire, the tiered and fault streams
+   composing, empty/self/repeated view candidates, the believed-DOWN
+   filter, down nodes with unreachable partners and wiped views, and
+   g == t % V with several offers to one partner;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -141,17 +158,29 @@ result line):
    storm at 4096 (``packed_min_cells=0``) on forced matrix plans, the
    packed one also equal to its factored twin; each held against its
    golden;
-13. profile the first 3 rounds of both storms (their telemetry-off
+13. the topology axis, each from launch counters at 0 through its entry
+   point: ``config_write_storm_100k(seed=0, topo_family=...)`` for
+   wan-3x2 (also with ``telemetry=True``: its telemetry golden, the
+   dropped frames from the tiered stream), wan-fly-6r and hetero-degree,
+   ``config_write_storm_100k(seed=0, n_nodes=25600, sampler="peerswap")``
+   and ``config_broadcast_1k(seed=0, topo_family="wan-3x2",
+   sampler="peerswap")``, each held against its golden (rounds, p99s,
+   digest, and under PeerSwap the view's digest) with K20's entries, the
+   tiered K10 or K12, K1's view entry and K21 launched where the path
+   runs them (and K2, K10's flat entry, K1's table entry and K4 not
+   where it does not);
+14. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
    the process ran before), the
    fault storm's 12-round loss window, 10 partitioned rounds of
    partition-heal-10k, the first 3 rounds of gapstress-25.6k and rounds
    6-8 of latency-storm-100k and of the same config without its latency
-   pair, rounds 5-7 of dense-fault-storm-100k and of fault-storm-1000
+   pair, rounds 5-7 of dense-fault-storm-100k and of fault-storm-1000,
+   the first 3 rounds of storm-wan-3x2-100k and of storm-peerswap-25.6k
    (host wall, device time by kernel from ``torch.profiler``, the
    device's idle share);
-14. print the card line, the kernels JSON line, then the one-line result
+15. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -286,6 +315,9 @@ KERNEL_SYMBOLS = (
     "trace_counts_dense_kernel", "trace_wire_words_kernel",
     "trace_wire_rows_kernel", "trace_row_kernel",
     "fault_edges_matrix_kernel", "fault_reach_matrix_kernel",
+    "edge_slots_kernel", "degree_caps_kernel", "edge_reach_kernel",
+    "sample_view_kernel", "peerswap_partner_kernel", "peerswap_swap_kernel",
+    "peerswap_land_kernel",
 )
 
 
@@ -351,16 +383,20 @@ def _profile(run, rounds, label, setup=None):
     }
 
 
-def profile_storm(dev, rounds=3, faults=False, telemetry=False):
+def profile_storm(dev, rounds=3, faults=False, telemetry=False, n=100_000,
+                  topo_family=None, sampler=None):
     """The first ``rounds`` rounds of the 100k faultless storm, or with
     ``faults`` of the fault storm (inside its loss window); with
-    ``telemetry`` the flight recorder on."""
+    ``telemetry`` the flight recorder on; at ``n`` nodes, over a
+    topology family, under a peer sampler when asked."""
     from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
     from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
-    from corrosion_tpu_torch.sim.runner import _write_storm, storm_fault_plan
+    from corrosion_tpu_torch.sim.runner import (
+        _resolve_topo, _write_storm, storm_fault_plan)
     from corrosion_tpu_torch.sim.topology import Topology
 
-    cfg, meta = _write_storm(100_000, 512, dev)
+    topo = _resolve_topo(topo_family)
+    cfg, meta = _write_storm(n, 512, dev, topo, sampler)
     if faults:
         fplan = compile_plan(storm_fault_plan(100_000, 0), cfg, device=dev)
 
@@ -372,12 +408,13 @@ def profile_storm(dev, rounds=3, faults=False, telemetry=False):
             run_fault_plan(state, meta, cfg, Topology(), fplan, rounds,
                            telemetry)
         else:
-            run_to_convergence(state, meta, cfg, Topology(), rounds,
-                               telemetry)
+            run_to_convergence(state, meta, cfg, topo, rounds, telemetry)
         torch.cuda.synchronize()
         return time.monotonic() - t0
 
-    label = "fault storm-100k" if faults else "storm-100k"
+    label = ("fault storm" if faults else "storm") + (
+        f"-{topo_family}" if topo_family else "") + (
+        f"-{sampler}" if sampler else "") + f"-{n / 1000:g}k"
     return _profile(run, rounds, label + (" telemetry" if telemetry else ""))
 
 
@@ -3418,6 +3455,469 @@ def profile_matrix_fault(dev, start=MATRIX_T, rounds=3):
                     f"{start + rounds - 1}", setup)
 
 
+# -- the topology axis: K20, K21, K1's view entry, K10's and K12's tiered ----
+# -- instantiations ------------------------------------------------------------
+
+#: the PeerSwap storm's node count (JAX's protocol-frontier sampler cell)
+PEERSWAP_N = 25_600
+
+
+def _topo(family=None, **kw):
+    from corrosion_tpu_torch.sim.runner import _resolve_topo
+
+    topo = _resolve_topo(family)
+    return dataclasses.replace(topo, **kw) if kw else topo
+
+
+#: a synthetic topology whose cross-region tier is at certainty (p·256 =
+#: 256): the one that reaches JAX's raw >= 256 pin (no family does)
+def _pin_topo():
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    return Topology(n_regions=2, inter_loss=1.0)
+
+
+def _boundary_ids(n, topo):
+    """The node ids on each side of every region and AZ block edge, and
+    the last id (the last region's remainder)."""
+    per = max(1, n // topo.n_regions)
+    per_az = max(1, per // topo.n_azs)
+    ids = {0, n - 1}
+    for r in range(topo.n_regions):
+        for a in range(topo.n_azs + 1):
+            edge = r * per + a * per_az
+            ids.update(x for x in (edge - 1, edge) if 0 <= x < n)
+    return sorted(ids)
+
+
+def _edge_list(g, n, e, dev, boundary):
+    """E random (src, dst) pairs, every pair of ``boundary`` ids among
+    them, one in 20 a self-edge."""
+    b = np.asarray(boundary)
+    pairs = np.stack(np.meshgrid(b, b), -1).reshape(-1, 2)
+    src = g.integers(0, n, e)
+    dst = np.where(g.random(e) < 0.05, src, g.integers(0, n, e))
+    src[:len(pairs)], dst[:len(pairs)] = pairs[:, 0], pairs[:, 1]
+    return (torch.as_tensor(src, dtype=torch.int32, device=dev),
+            torch.as_tensor(dst, dtype=torch.int32, device=dev))
+
+
+def compare_edge_slots(dev, g, n=STORM_N, timed=True):
+    """K20's edge entry at the storms' shapes (E = 300000): wan-3x2 (AZ
+    delays 0/1/2, D = 3) and wan-fly-6r (the measured matrix, D = 6),
+    each at a round and with a fault plan's fixed delay added."""
+    from corrosion_tpu_torch.sim import topology as tp
+
+    rows = []
+    for family, d in (("wan-3x2", 3), ("wan-fly-6r", 6)):
+        topo = _topo(family)
+        region = tp.regions(n, topo.n_regions, dev)
+        src, dst = _edge_list(g, n, 3 * n, dev, _boundary_ids(n, topo))
+        fdelay = torch.as_tensor(g.integers(0, 2, 3 * n), dtype=torch.int32,
+                                 device=dev)
+        t = 7
+        got = [tp.edge_slot(topo, region, src, dst, t, d, fd)
+               for fd in (None, fdelay)]
+        want = [tp.edge_slot_plain(topo, region, src, dst, t, d, fd)
+                for fd in (None, fdelay)]
+        equal, err = _equal_all(got, want)
+        delays = set(tp.edge_delay(topo, region, src, dst).unique().tolist())
+        if family == "wan-fly-6r":
+            _trap("topo 1", "wan-fly-6r's matrix delays 0-5 into a ring of "
+                  "D = 6", delays == set(range(6)))
+        else:
+            az = tp.azs(n, topo, dev)
+            per = n // 3
+            _trap("topo 2", f"the last region's remainder: its local AZ "
+                  f"clamps (node {n - 1} in AZ 5)",
+                  int(az[n - 1]) == 5 and (n - 1 - 2 * per) // (per // 2) >= 2
+                  and delays == {0, 1, 2})
+        e = 3 * n
+        rows.append(_row(
+            f"edge_slots_{family}",
+            "corrosion_tpu_torch/kernels/csrc/edge_classes.cu",
+            "corrosion_tpu/sim/topology.py:157", equal, err,
+            _timed(timed, lambda: tp.edge_slot(topo, region, src, dst, t, d)),
+            _timed(timed, lambda: tp.edge_slot_plain(topo, region, src, dst,
+                                                     t, d)),
+            e * 12, kernel="edge_slots", e=e, d=d))
+    return rows
+
+
+def compare_degree_caps(dev, g, n=STORM_N, timed=True):
+    """K20's caps entry at the hetero-degree storm's targets [100000, 3]
+    (caps 3, 2, 1 round-robin), -1 slots among them."""
+    from corrosion_tpu_torch.sim import topology as tp
+
+    topo = _topo("hetero-degree")
+    tg = np.where(g.random((n, 3)) < 0.05, -1, g.integers(0, n, (n, 3)))
+    targets = torch.as_tensor(tg, dtype=torch.int32, device=dev)
+    got = tp.apply_degree_caps(targets.clone(), topo)
+    want = tp.apply_degree_caps_plain(targets, topo)
+    equal, err = _equal_all([got], [want])
+    masked = (want == -1) & (targets != -1)
+    caps = tp.node_degrees(n, topo, dev)
+    _trap("topo 3", "caps 1, 2 and 3 each present, 1 and 2 masking slots",
+          set(caps.unique().tolist()) == {1, 2, 3}
+          and bool(masked[caps == 1].any()) and bool(masked[caps == 2].any())
+          and not bool(masked[caps == 3].any()))
+    work = targets.clone()
+    return _row(
+        "degree_caps", "corrosion_tpu_torch/kernels/csrc/edge_classes.cu",
+        "corrosion_tpu/sim/topology.py:142", equal, err,
+        _timed(timed, lambda: tp.apply_degree_caps(work, topo),
+               lambda: work.copy_(targets)),
+        _timed(timed, lambda: tp.apply_degree_caps_plain(targets, topo)),
+        targets.numel() * 4 + _changed_bytes([targets], [want]),
+        kernel="degree_caps")
+
+
+def compare_edge_reach(dev, g, n=STORM_N, timed=True):
+    """K20's reach entry: wan-3x2's tiers at E = N = 100000 (a probe
+    leg: 100000 bytes pad to 100096 in JAX's draw) and at E = 300000 (a
+    gossip or relay leg), and the pin topology's certainty tier."""
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim import topology as tp
+
+    rows = []
+    key = trng.prng_key(21, dev)
+    for label, topo, e in (("", _topo("wan-3x2"), n),
+                           ("_e300k", _topo("wan-3x2"), 3 * n),
+                           ("_pin", _pin_topo(), n)):
+        src, dst = _edge_list(g, n, e, dev, _boundary_ids(n, topo))
+        ok0 = torch.as_tensor(g.random(e) < 0.9, device=dev)
+        got = tp.tiered_reach_(ok0.clone(), topo, n, key, src, dst)
+        want = tp.tiered_reach_plain(ok0.clone(), topo, n, key, src, dst)
+        equal, err = _equal_all([got], [want])
+        region = tp.regions(n, topo.n_regions, dev)
+        raw = tp.edge_loss_thresholds_raw(topo, region, src, dst)
+        if label == "":
+            _trap("topo 4", f"E = {e}: the draw's {e} bytes are not a "
+                  "multiple of 128, and every lossy tier drops some edge",
+                  e % 128 != 0 and all(
+                      bool((ok0 & ~want & (raw == thr)).any())
+                      for thr in set(tp.loss_tiers(topo)) - {0}))
+        if label == "_pin":
+            _trap("topo 5", "the certainty pin: a tier at 256 cuts every "
+                  "edge of it", bool((raw >= 256).any())
+                  and not bool(want[raw >= 256].any()))
+        hashes = int((ok0 & (raw > 0) & (raw < 256)).sum())
+        ops = hashes * OPS_PER_HASH
+        nbytes = e * 8 + e * 2
+        rate = _int32_ops_per_s()
+        work = ok0.clone()
+        rows.append(dict(
+            name="edge_reach" + label,
+            source="corrosion_tpu_torch/kernels/csrc/edge_classes.cu",
+            replaces="corrosion_tpu/sim/swim.py:125", equal=equal,
+            max_abs_err=err,
+            ms=_timed(timed, lambda: tp.tiered_reach_(work, topo, n, key,
+                                                      src, dst),
+                      lambda: work.copy_(ok0)),
+            plain_ms=_timed(timed, lambda: tp.tiered_reach_plain(
+                ok0.clone(), topo, n, key, src, dst)),
+            bound_ms=max(_bound_ms(nbytes), ops / rate * 1e3),
+            bound_by="operations" if ops / rate * 1e3 > _bound_ms(nbytes)
+            else "bytes", ops=ops, hashes=hashes, bytes=nbytes, e=e,
+            kernel="edge_reach"))
+    return rows
+
+
+def compare_scatter_tiered(dev, g, n=STORM_N, timed=True):
+    """K10's tiered instantiation at storm-wan-3x2-100k's shapes (E =
+    300000, W = 16, D = 3): the tiered stream alone, with the fault
+    stream and the dropped count, and on the pin topology."""
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim import topology as tp
+
+    f, w, d = 3, 16, 3
+    e = n * f
+    sending = _random_words(g, (n, w), dev, 2)
+    dst = torch.as_tensor(g.integers(0, n, e), dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(g.integers(0, d, e), dtype=torch.int32,
+                           device=dev)
+    ok = torch.as_tensor(g.random(e) < 0.9, device=dev)
+    thr = torch.as_tensor(np.where(g.random(e) < 0.5, 0,
+                                   g.integers(1, 60, e)),
+                          dtype=torch.uint8, device=dev)
+    key, topo_key = trng.prng_key(8, dev), trng.prng_key(9, dev)
+    ring0 = _random_words(g, (d, n, w), dev, 6)
+    lossless = ring0.clone()
+    packed.scatter_sending_plain(lossless, sending, dst, slot, ok, f)
+    wan, pin = _topo("wan-3x2"), _pin_topo()
+    cases = {"tiered": (None, wan), "both": (thr, wan),
+             "fault": (thr, None), "pin": (None, pin)}
+    equal, err, outs, drops = True, 0, {}, {}
+    for name, (t, tiers) in cases.items():
+        got, want = ring0.clone(), ring0.clone()
+        dk, dp = _acc(dev), _acc(dev)
+        args = (sending, dst, slot, ok, t, key, 11, f, 0, topo_key)
+        packed.scatter_sending_lossy(got, *args, dk, None, tiers)
+        packed.scatter_sending_lossy_plain(want, *args, dp, None, tiers)
+        e_, x = _equal_all([got, dk], [want, dp])
+        equal, err = equal and e_, max(err, x)
+        outs[name], drops[name] = want, int(dp)
+    _trap("topo 6", "the tiered and fault streams compose (each drops, the "
+          "OR differs from each)",
+          not torch.equal(outs["tiered"], lossless)
+          and not torch.equal(outs["both"], outs["tiered"])
+          and not torch.equal(outs["both"], outs["fault"])
+          and drops["both"] > max(drops["tiered"], drops["fault"]))
+    region = tp.regions(n, 2, dev)
+    src = torch.arange(n, dtype=torch.int32,
+                       device=dev).repeat_interleave(f)
+    cross = ok & (region[src] != region[dst])
+    sent_cross = int((cross[:, None] & (sending.repeat_interleave(
+        f, dim=0) != 0)).sum())
+    _trap("topo 7", "the certainty pin on the wire: every frame of a "
+          "cross-region edge dropped", sent_cross > 0
+          and drops["pin"] == int(torch.where(
+              cross[:, None], _popcount_rows(sending, f), 0).sum()))
+    tiers = wan
+    wan_raw = tp.edge_loss_thresholds_raw(wan, tp.regions(n, 3, dev), src,
+                                          dst)
+    live = ((sending.repeat_interleave(f, dim=0) != 0) & ok[:, None]
+            & ((wan_raw > 0) & (wan_raw < 256))[:, None])
+    hashes = int(live.sum()) * 8
+    rows_touched = torch.unique((slot.long() * n + dst.long())[ok]).numel()
+    nbytes = sending.numel() * 4 + e * 9 + rows_touched * w * 4 * 2
+    ops = hashes * OPS_PER_HASH
+    rate = _int32_ops_per_s()
+    ring_k, ring_p = ring0.clone(), ring0.clone()
+    args = (sending, dst, slot, ok, None, key, 11, f, 0, topo_key, None,
+            None, tiers)
+    return dict(
+        name="broadcast_scatter_tiered",
+        source="corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
+        replaces="corrosion_tpu/sim/topology.py:240",
+        equal=equal, max_abs_err=err,
+        ms=_timed(timed, lambda: packed.scatter_sending_lossy(ring_k, *args)),
+        plain_ms=_time_eager_ms(lambda: packed.scatter_sending_lossy_plain(
+            ring_p, *args), SLOW_PLAIN_REPS) if timed else None,
+        bound_ms=max(_bound_ms(nbytes), ops / rate * 1e3),
+        bound_by="operations" if ops / rate * 1e3 > _bound_ms(nbytes)
+        else "bytes", ops=ops, hashes=hashes, bytes=nbytes,
+        kernel="broadcast_scatter_tiered")
+
+
+def _popcount_rows(sending, f):
+    """Each edge's sent frames (the popcount of its sender's words)."""
+    from corrosion_tpu_torch.device import popcount
+
+    return popcount(sending).sum(dim=1).repeat_interleave(f)[:, None]
+
+
+def compare_dense_tiered(dev, g, n=1000, timed=True):
+    """K12's tiered instantiation at broadcast-1k-wan-3x2's shapes (N =
+    1000, P = 256, F = 3, D = 4): the tiered stream with the per-node
+    frames and the dropped count, with a fault plan's loss, and on the
+    pin topology."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim import topology as tp
+    from corrosion_tpu_torch.sim.state import SimConfig, uniform_payloads
+
+    cfg = SimConfig(n_nodes=n, n_payloads=256, n_writers=8, fanout=3,
+                    n_delay_slots=4, rate_limit_bytes_round=None)
+    meta = uniform_payloads(cfg, dev, inject_every=2)
+    have, relay, injected, ring, _, alive, _ = _dense_round_inputs(
+        g, dev, cfg, meta, 30)
+    f, p, e = cfg.fanout, cfg.n_payloads, n * cfg.fanout
+    tg = np.where(g.random((n, f)) < 0.03, -1, g.integers(0, n, (n, f)))
+    targets = torch.as_tensor(tg, dtype=torch.int32, device=dev)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = torch.clamp(targets.reshape(-1), min=0)
+    ok = (targets.reshape(-1) >= 0) & (dst != src) & torch.as_tensor(
+        g.random(e) < 0.95, device=dev)
+    slot = torch.as_tensor(g.integers(0, 4, e), dtype=torch.int32,
+                           device=dev)
+    fthr = torch.as_tensor(np.where(g.random(e) < 0.5, 0,
+                                    g.integers(1, 80, e)),
+                           dtype=torch.uint8, device=dev)
+    k_drop, phase_key = trng.prng_key(31, dev), trng.prng_key(32, dev)
+
+    def send(kernel, tiers, fthr_, out):
+        r, rl, frames, nbytes_, dropped = out
+        fn = bc.broadcast_send if kernel else bc.broadcast_send_plain
+        fn(have, rl, injected, meta.nbytes, None, targets, dst, slot, ok,
+           alive, k_drop, 0, r, frames, nbytes_, dropped,
+           phase_key if fthr_ is not None else None, fthr_, None, 5, tiers)
+
+    def fresh():
+        return (ring.clone(), relay.clone(),
+                torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev), _acc(dev))
+
+    wan, pin = _topo("wan-3x2"), _pin_topo()
+    equal, err, drops = True, 0, {}
+    for name, (tiers, fthr_) in {"tiered": (wan, None), "fault": (wan, fthr),
+                                 "pin": (pin, None)}.items():
+        got, want = fresh(), fresh()
+        send(True, tiers, fthr_, got)
+        send(False, tiers, fthr_, want)
+        e_, x = _equal_all(list(got), list(want))
+        equal, err = equal and e_, max(err, x)
+        drops[name] = int(want[4])
+    region = tp.regions(n, 2, dev)
+    cross = ok & (region[src] != region[dst])
+    _trap("topo 8", "the dense certainty pin and the fault stream on top of "
+          "the tiers", bool(cross.any()) and drops["pin"] > 0
+          and drops["fault"] > drops["tiered"] > 0)
+    wan_raw = tp.edge_loss_thresholds_raw(wan, tp.regions(n, 3, dev), src,
+                                          dst)
+    sending = (have > 0) & (relay > 0) & (injected > 0)[None, :]
+    per_row = sending.sum(dim=1).repeat_interleave(f)
+    hashes = int(per_row[ok & (wan_raw > 0) & (wan_raw < 256)].sum())
+    ops = hashes * OPS_PER_HASH
+    nbytes = (have.numel() * 2 + p * 8 + e * 13
+              + int(per_row[ok].sum()) + int(sending.sum()))
+    rate = _int32_ops_per_s()
+    kout, pout = fresh(), fresh()
+    return dict(
+        name="dense_broadcast_tiered",
+        source="corrosion_tpu_torch/kernels/csrc/dense_phases.cu",
+        replaces="corrosion_tpu/sim/topology.py:240",
+        equal=equal, max_abs_err=err,
+        ms=_timed(timed, lambda: send(True, wan, None, kout),
+                  lambda: kout[1].copy_(relay)),
+        plain_ms=_timed(timed, lambda: send(False, wan, None, pout),
+                        lambda: pout[1].copy_(relay)),
+        bound_ms=max(_bound_ms(nbytes), ops / rate * 1e3),
+        bound_by="operations" if ops / rate * 1e3 > _bound_ms(nbytes)
+        else "bytes", ops=ops, hashes=hashes, bytes=nbytes,
+        kernel="dense_broadcast_tiered")
+
+
+def _random_views(g, n, v, dev, wiped=0.02):
+    """PeerSwap views [N, V]: random ids, one in eight slots empty, some
+    self entries and repeats, ``wiped`` of the rows all empty."""
+    ids = g.integers(0, n, (n, v))
+    ids = np.where(g.random((n, v)) < 0.125, -1, ids)
+    me = np.arange(n)[:, None]
+    ids = np.where(g.random((n, v)) < 0.03, me, ids)
+    ids[:, 1] = np.where(g.random(n) < 0.2, ids[:, 0], ids[:, 1])
+    ids[g.random(n) < wiped] = -1
+    return torch.as_tensor(ids, dtype=torch.int32, device=dev)
+
+
+def compare_sample_view(dev, g, n=PEERSWAP_N, v=16, timed=True):
+    """K1's view entry at storm-peerswap-25.6k's shapes (N = 25600, V =
+    16) for the fan-out (count 3) and one target (count 1), ground-truth
+    membership; and with full-view beliefs at N = 4096 (the DOWN
+    filter)."""
+    from corrosion_tpu_torch.topo import sampler
+
+    rows = []
+    for label, nn, count, beliefs in (("", n, 3, False), ("_c1", n, 1, False),
+                                      ("_beliefs", 4096, 3, True)):
+        pview = _random_views(g, nn, v, dev)
+        slots = torch.as_tensor(g.integers(0, v, (4 * count, nn)),
+                                dtype=torch.int32, device=dev)
+        view = (torch.as_tensor(g.integers(0, 3, (nn, nn)), dtype=torch.int8,
+                                device=dev) if beliefs else None)
+        got = sampler.sample_view(pview, slots, view, count)
+        want = sampler.sample_view_plain(pview, slots, view, count)
+        equal, err = _equal_all([got], [want])
+        cand = torch.gather(pview, 1, slots.T.long())
+        me = torch.arange(nn, device=dev)[:, None]
+        if label == "":
+            _trap("topo 9", "view candidates that are empty, self and "
+                  "repeats; rows left short",
+                  bool((cand < 0).any()) and bool((cand == me).any())
+                  and bool((cand[:, 0] == cand[:, 1]).any())
+                  and bool((want == -1).any()))
+        if beliefs:
+            safe = torch.clamp(cand, min=0)
+            _trap("topo 10", "the believed-DOWN filter under coupled full "
+                  "view", bool((view.gather(1, safe.long()) == 2)[
+                      cand >= 0].any()))
+        rows.append(_row(
+            "sample_view" + label,
+            "corrosion_tpu_torch/kernels/csrc/sample_targets.cu",
+            "corrosion_tpu/topo/sampler.py:57", equal, err,
+            _timed(timed, lambda: sampler.sample_view(pview, slots, view,
+                                                      count)),
+            _timed(timed, lambda: sampler.sample_view_plain(pview, slots,
+                                                            view, count)),
+            slots.numel() * (8 + (1 if beliefs else 0)) + nn * count * 4,
+            kernel="sample_view", count=count, n=nn))
+    return rows
+
+
+def compare_peerswap(dev, g, n=PEERSWAP_N, v=16, timed=True):
+    """K21 at storm-peerswap-25.6k's shapes (N = 25600, V = 16, announce
+    interval 7): down nodes, unreachable partners, wiped views, partner
+    slots c with g = (c + 1) % V == t % V, several offers to one partner,
+    a partner's slot t % V both read and overwritten."""
+    from corrosion_tpu_torch.topo import sampler
+
+    t, interval = 37, 7
+    pview = _random_views(g, n, v, dev)
+    # a hub: many views hold node 5, so several nodes offer to it
+    pview[:, 0] = torch.where(torch.as_tensor(g.random(n) < 0.01, device=dev),
+                              5, pview[:, 0])
+    c = torch.as_tensor(np.where(g.random(n) < 0.1, (t % v - 1) % v,
+                                 g.integers(0, v, n)), dtype=torch.int32,
+                        device=dev)
+    c[torch.arange(n, device=dev) % 97 == 0] = 0
+    reach = torch.as_tensor(g.random(n) < 0.85, device=dev)
+    alive = torch.as_tensor((g.random(n) < 0.03) * 2, dtype=torch.uint8,
+                            device=dev)
+    rb = torch.as_tensor(g.integers(0, v, n), dtype=torch.int32, device=dev)
+    rid = torch.as_tensor(g.integers(0, n, n), dtype=torch.int32, device=dev)
+
+    def run(kernel):
+        part = sampler.peerswap_partner if kernel else \
+            sampler.peerswap_partner_plain
+        app = sampler.peerswap_apply if kernel else \
+            sampler.peerswap_apply_plain
+        pc, winner = part(pview, c)
+        out = app(pview, c, reach, alive, rb, rid, winner, t, interval)
+        return [pc, winner, out]
+
+    got, want = run(True), run(False)
+    equal, err = _equal_all(got, want)
+    pc, winner, out = want
+    rows_ = torch.arange(n, device=dev)
+    partner = pview[rows_, c.long()]
+    ok = (partner >= 0) & (pc != rows_) & (alive == 0) & reach
+    offers = torch.bincount(pc[ok].long(), minlength=n)
+    _trap("topo 11", "down nodes, unreachable partners and wiped views",
+          bool((alive != 0).any()) and bool((~reach & (partner >= 0)).any())
+          and bool((pview < 0).all(dim=1).any()))
+    _trap("topo 12", "g == t % V with a landed offer, several offers to one "
+          "partner, a partner slot read and overwritten in one tick",
+          bool((ok & ((c + 1) % v == t % v) & (winner >= 0)).any())
+          and int(offers.max()) >= 2
+          and bool((winner[pc[ok].long()] >= 0).any()))
+    nbytes = pview.numel() * 8 + n * 4 * 7
+    return [_row(
+        "peerswap", "corrosion_tpu_torch/kernels/csrc/peerswap.cu",
+        "corrosion_tpu/topo/sampler.py:81", equal, err,
+        _timed(timed, lambda: run(True)), _timed(timed, lambda: run(False)),
+        nbytes, kernel="peerswap", n=n, v=v)]
+
+
+def compare_topology_kernels(dev, seed=7, timed=True):
+    """Phase 3h: K20's three entries, K10's and K12's tiered
+    instantiations, K1's view entry and K21 against their plain versions
+    at the slice's shapes, every trap reached."""
+    g = np.random.default_rng(seed)
+    rows = (compare_edge_slots(dev, g, timed=timed)
+            + [compare_degree_caps(dev, g, timed=timed)]
+            + compare_edge_reach(dev, g, timed=timed)
+            + [compare_scatter_tiered(dev, g, timed=timed),
+               compare_dense_tiered(dev, g, timed=timed)]
+            + compare_sample_view(dev, g, timed=timed)
+            + compare_peerswap(dev, g, timed=timed))
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
 _START = time.monotonic()
 
 
@@ -3431,9 +3931,10 @@ def _storm_check(result, golden, label):
     """Hold a run's record against its golden: every golden key (the
     digest from the record's final state), then convergence — or, for
     the membership churn, detection."""
-    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.convert import pview_digest, state_digest
 
-    got = {key: state_digest(result["state"]) if key == "digest"
+    digests = {"digest": state_digest, "pview_digest": pview_digest}
+    got = {key: digests[key](result["state"]) if key in digests
            else result[key] for key in golden}
     print(f"{label}: {json.dumps(got)} wall_clock_s="
           f"{result['wall_clock_s']:.3f}", flush=True)
@@ -3636,6 +4137,9 @@ def main() -> int:
     matrix_kernel_rows = compare_matrix_fault_kernels(dev)
     print("kernel comparisons equal at the matrix plans' shapes", flush=True)
     _lap("matrix fault kernel comparisons")
+    topo_kernel_rows = compare_topology_kernels(dev)
+    print("kernel comparisons equal at the topology axis' shapes", flush=True)
+    _lap("topology kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -4092,6 +4596,89 @@ def main() -> int:
           "equal the factored run's", flush=True)
     _lap("paths 13-16, the matrix plans")
 
+    # paths 17-21, the topology axis, each from zeroed counters through
+    # its entry point.  The geo-tiered storms draw every round's wire loss
+    # through K10's tiered instantiation (K2 and K10's flat entry stay off
+    # the path), their slots through K20's edge entry and their probes'
+    # loss through K20's reach entry; hetero-degree caps its targets
+    # through K20's caps entry; under PeerSwap every target comes from K1's
+    # view entry and the view swaps through K21 (ground-truth membership:
+    # no member table, K1's table entry and K4 stay off)
+    storm_core = ["sync_pull", "threefry", "gaps_refresh", "converge_fold",
+                  "word_phases"]
+    tiered_rows = ["sample_targets", "merge_entries", *storm_core,
+                   "broadcast_scatter_tiered", "edge_slots", "edge_reach"]
+    topo_paths = (
+        ("storm_wan_3x2_100k", dict(topo_family="wan-3x2"), tiered_rows,
+         goldens.STORM_WAN_3X2_100K_SEED0),
+        ("storm_wan_fly_6r_100k", dict(topo_family="wan-fly-6r"),
+         tiered_rows, goldens.STORM_WAN_FLY_6R_100K_SEED0),
+        ("storm_hetero_degree_100k", dict(topo_family="hetero-degree"),
+         ["sample_targets", "merge_entries", "broadcast_scatter", *storm_core,
+          "degree_caps"], goldens.STORM_HETERO_DEGREE_100K_SEED0),
+        ("storm_peerswap_25600", dict(n_nodes=PEERSWAP_N, sampler="peerswap"),
+         ["sample_view", "peerswap", "broadcast_scatter", *storm_core],
+         goldens.STORM_PEERSWAP_25600_SEED0),
+    )
+    topo_launches = {}
+    for label, kw, path_rows, golden in topo_paths:
+        kernels.reset_launch_counts()
+        run = config_write_storm_100k(seed=0, device=dev, return_state=True,
+                                      **kw)
+        topo_launches[label] = _path_launches(kernels, path_rows, label)
+        if run["round_path"] != "packed":
+            raise AssertionError(f"{label} did not take the packed round")
+        _storm_check(run, golden, label)
+        _per_round(topo_launches[label], path_rows, run["rounds"], label)
+    off = {"storm_wan_3x2_100k": ["broadcast_scatter",
+                                  "broadcast_scatter_lossy"],
+           "storm_peerswap_25600": ["sample_targets", "merge_entries"]}
+    for label, rows_off in off.items():
+        on = [row for row in rows_off if topo_launches[label][row]]
+        if on:
+            raise AssertionError(f"{label}: {on} launched off its path")
+
+    # the headline tiered storm with the flight recorder: the dropped
+    # frames come from the tiered stream (K10's tiered instantiation's
+    # count)
+    packed_trace_rows = ["trace_counts", "trace_wire", "trace_row"]
+    kernels.reset_launch_counts()
+    run = config_write_storm_100k(seed=0, topo_family="wan-3x2",
+                                  telemetry=True, device=dev,
+                                  return_state=True)
+    topo_launches["storm_wan_3x2_100k_telemetry"] = _path_launches(
+        kernels, tiered_rows + packed_trace_rows,
+        "storm_wan_3x2_100k_telemetry", True)
+    _storm_check(run, goldens.STORM_WAN_3X2_100K_SEED0,
+                 "storm_wan_3x2_100k_telemetry")
+    f32_gaps["storm_wan_3x2_100k"] = _telemetry_check(
+        run, goldens.STORM_WAN_3X2_100K_SEED0_TELEMETRY, 300_000, 512,
+        "storm_wan_3x2_100k_telemetry")
+
+    # path 21, broadcast-1k on wan-3x2 under PeerSwap: the dense round
+    # (K12's tiered instantiation with its inject and deliver, K13, K14),
+    # K20's slots and the swap tick's reach, K1's view entry and K21
+    b1k_rows = ["sample_view", "peerswap", "threefry", "dense_sync",
+                "dense_gaps", "dense_broadcast_tiered", "edge_slots",
+                "edge_reach"]
+    kernels.reset_launch_counts()
+    run = config_broadcast_1k(seed=0, topo_family="wan-3x2",
+                              sampler="peerswap", device=dev,
+                              return_state=True)
+    topo_launches["broadcast_1k_wan_3x2_peerswap"] = _path_launches(
+        kernels, b1k_rows, "broadcast_1k_wan_3x2_peerswap")
+    for kern in (kernels.DENSE_INJECT, kernels.DENSE_DELIVER):
+        if kern.launches <= 0:
+            raise AssertionError(f"{kern.name} never launched on "
+                                 "broadcast_1k_wan_3x2_peerswap")
+    if run["round_path"] != "dense":
+        raise AssertionError("broadcast_1k_wan_3x2_peerswap did not take the "
+                             "dense round")
+    _storm_check(run, goldens.BROADCAST_1K_WAN_3X2_PEERSWAP_SEED0,
+                 "broadcast_1k_wan_3x2_peerswap")
+    print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
+    _lap("paths 17-21, the topology axis")
+
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
     # the whole loss window, where most nodes send and K10 draws most
@@ -4109,6 +4696,10 @@ def main() -> int:
           flush=True)
     print("profile_matrix_fault: " + json.dumps(profile_matrix_fault(dev)),
           flush=True)
+    for kw in (dict(topo_family="wan-3x2"),
+               dict(n=PEERSWAP_N, sampler="peerswap")):
+        print("profile_topology: " + json.dumps(profile_storm(dev, **kw)),
+              flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -4166,6 +4757,22 @@ def main() -> int:
         row["other_paths_launches"] = {
             label: c[row["kernel"]] for label, c in other.items()}
     rows += matrix_kernel_rows
+    # each topology row reads its kernel's launches on the path whose
+    # shapes it was compared at
+    topo_path = {"edge_slots_wan-fly-6r": "storm_wan_fly_6r_100k",
+                 "degree_caps": "storm_hetero_degree_100k",
+                 "dense_broadcast_tiered": "broadcast_1k_wan_3x2_peerswap",
+                 "sample_view_beliefs": "broadcast_1k_wan_3x2_peerswap",
+                 "sample_view": "storm_peerswap_25600",
+                 "sample_view_c1": "storm_peerswap_25600",
+                 "peerswap": "storm_peerswap_25600"}
+    for row in topo_kernel_rows:
+        path = topo_path.get(row["name"], "storm_wan_3x2_100k")
+        row["launches"] = topo_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]] for label, c in topo_launches.items()}
+    rows += topo_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

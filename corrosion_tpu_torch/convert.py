@@ -6,7 +6,9 @@ u8 for ``have``, the rings and ``relay_left``; u32 for ``key`` and
 ``incarnation``; i8 for ``view``; i32 for the rest.  The port's word
 ring ``inflight [D, N, W]`` goes back to JAX's dense u8 ``[D, N, P]``.
 `state_digest` is the blake2b fingerprint the JAX suite pins final
-states with, taken over `state_to_numpy`.  `fault_plan_from_numpy` maps
+states with, taken over `state_to_numpy` (it skips the PeerSwap view
+``pview`` by default, as the JAX suite's does; `pview_digest` is the
+same fingerprint over ``pview`` alone).  `fault_plan_from_numpy` maps
 a compiled fault plan across, factored or matrix (its absent classes
 None), so both packages can run the very same plan.
 """
@@ -115,3 +117,10 @@ def state_digest(state: SimState, skip: Iterable[str] = ("pview",)) -> str:
         h.update(name.encode())
         h.update(np.ascontiguousarray(arr).tobytes())
     return h.hexdigest()
+
+
+def pview_digest(state: SimState) -> str:
+    """blake2b over the PeerSwap view alone (``pview``, the field
+    `state_digest` skips by default), in the same layout."""
+    return state_digest(state, skip=[f for f in SimState._fields
+                                     if f != "pview"])

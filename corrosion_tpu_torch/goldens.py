@@ -507,3 +507,97 @@ LATENCY_STORM_100K_SEED0_TELEMETRY = {'summary': {'rounds': 29,
 # telemetry=True, from live JAX's dense run on the CPU: every key and row
 # equal to the packed run's entry above
 DENSE_FAULT_STORM_100K_SEED0_TELEMETRY = FAULT_STORM_100K_SEED0_TELEMETRY
+
+# -- the topology axis: geo-tiered families and the PeerSwap sampler --------
+# rounds, p99 node-convergence round, p99 payload latency (rounds) and the
+# state digest of each run (jax 0.9.0 on the CPU, run_to_convergence of
+# the config's own state, meta and topology)
+
+# config_write_storm_100k(seed=0, topo_family="wan-3x2"): 3 regions × 2 AZs,
+# delays 0/1/2 (3 ring slots), loss 0 / 2 % / 10 % by tier
+STORM_WAN_3X2_100K_SEED0 = {
+    "rounds": 38,
+    "p99_node_convergence_round": 34.0,
+    "p99_payload_latency_rounds": 24.0,
+    "digest": "72bb7596220d68d6",
+}
+
+# config_write_storm_100k(seed=0, topo_family="wan-fly-6r"): six regions,
+# the measured-RTT delay matrix 0-5 (6 ring slots), 5 % cross-region loss
+STORM_WAN_FLY_6R_100K_SEED0 = {
+    "rounds": 38,
+    "p99_node_convergence_round": 34.0,
+    "p99_payload_latency_rounds": 24.0,
+    "digest": "30148051f1f32cc9",
+}
+
+# config_write_storm_100k(seed=0, topo_family="hetero-degree"): fan-out
+# caps 3/2/1 round-robin on the flat topology
+STORM_HETERO_DEGREE_100K_SEED0 = {
+    "rounds": 33,
+    "p99_node_convergence_round": 28.0,
+    "p99_payload_latency_rounds": 19.0,
+    "digest": "6636b2bbf0a6ae07",
+}
+
+# config_write_storm_100k(seed=0, n_nodes=25600, n_payloads=512,
+# sampler="peerswap"): the packed round, ground-truth membership, V = 16;
+# ``pview_digest`` is `convert.pview_digest` of the final view
+STORM_PEERSWAP_25600_SEED0 = {
+    "rounds": 39,
+    "p99_node_convergence_round": 25.0,
+    "p99_payload_latency_rounds": 24.0,
+    "digest": "88f6fafd442852d1",
+    "pview_digest": "84599380bf2cec63",
+}
+
+# config_broadcast_1k(seed=0, topo_family="wan-3x2", sampler="peerswap"):
+# the dense round
+BROADCAST_1K_WAN_3X2_PEERSWAP_SEED0 = {
+    "rounds": 78,
+    "p99_node_convergence_round": 75.0,
+    "p99_payload_latency_rounds": 16.0,
+    "digest": "b82531302e9d0fa9",
+    "pview_digest": "a54c20a560f2a181",
+}
+
+# config_write_storm_100k(seed=0, topo_family="wan-3x2", telemetry=True):
+# the dropped-frames channel comes from the tiered stream
+STORM_WAN_3X2_100K_SEED0_TELEMETRY = {'summary': {'rounds': 38,
+             'coverage_curve_digest': 'eb1b28ae3890fcd5',
+             'coverage_latency_rounds': {'p50': 28.0,
+                                         'p95': 36.0,
+                                         'p99': 36.0,
+                                         'uncovered_payloads': 0},
+             'wire_frames': {'broadcast': 1682614020, 'sync': 23526292},
+             'fault': {'dropped_frames': 119431448,
+                       'cut_edges': 0,
+                       'refused_sessions': 0,
+                       'crash_node_rounds': 0,
+                       'wipes': 0},
+             'sync_sessions': 1577835,
+             'swim': {'peak_suspect': 178, 'peak_down': 216},
+             'gap_overflow_rounds': 0},
+ 'wire_bytes': {'broadcast': 13783972970496.0,
+                'sync': 192727367680.0,
+                'per_round_mean': 367807903636.2},
+ 'bcast_bytes': [1572864.0, 2162688.0, 5603328.0, 12484608.0, 25534464.0,
+                 54607872.0, 115777536.0, 244383744.0, 508968960.0,
+                 1063845888.0, 2239070208.0, 4658036736.0, 9606905856.0,
+                 19536740352.0, 38520938496.0, 71969218560.0, 123545296896.0,
+                 189669605376.0, 262029279232.0, 334446231552.0,
+                 404627587072.0, 473417482240.0, 541382213632.0,
+                 608986791936.0, 676075405312.0, 741954420736.0,
+                 805258723328.0, 861490511872.0, 904930197504.0,
+                 927614435328.0, 922143948800.0, 888188043264.0,
+                 832201555968.0, 765062283264.0, 695836475392.0,
+                 627046285312.0, 558830387200.0, 490671243264.0],
+ 'sync_bytes': [0.0, 196608.0, 491520.0, 2187264.0, 3932160.0, 9945088.0,
+                23994368.0, 51986432.0, 35250176.0, 92536832.0, 181706752.0,
+                389611520.0, 840531968.0, 1754939392.0, 3426918400.0,
+                6004768768.0, 8884576256.0, 10979475456.0, 11582914560.0,
+                12012347392.0, 12156878848.0, 12554010624.0, 12758122496.0,
+                12950888448.0, 13069967360.0, 13079601152.0, 13170663424.0,
+                12774137856.0, 11570167808.0, 9860399104.0, 7151861760.0,
+                3799810048.0, 1264467968.0, 252338176.0, 32907264.0,
+                2433024.0, 368640.0, 49152.0]}

@@ -59,6 +59,18 @@ replaces:
   K9's source, one row each) — the same `sim.faults` queries on a matrix
   plan's round slice (`RoundFaults`).
 
+- the topology axis (PR 10): K20 `EDGE_SLOTS`, `DEGREE_CAPS`,
+  `EDGE_REACH` (``edge_classes.cu``, one row each) —
+  `sim.topology.edge_slot`, `apply_degree_caps`, `tiered_reach_`; K10's
+  tiered instantiation `BROADCAST_SCATTER_TIERED` (K10's source) —
+  `sim.packed.scatter_sending_lossy` under tiered loss; K12's tiered
+  instantiation `DENSE_BROADCAST_TIERED` (K12's source) —
+  `sim.broadcast.broadcast_send` under tiered loss; K1's view entry
+  `SAMPLE_VIEW` (K1's source) — `topo.sampler.sample_view`; K21
+  `PEERSWAP_PARTNER`, `PEERSWAP_SWAP`, `PEERSWAP_LAND`
+  (``peerswap.cu``) — `topo.sampler.peerswap_partner`,
+  `peerswap_apply`.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -190,6 +202,27 @@ FAULT_REACH_MATRIX = Kernel(
     "fault_reach_matrix", "fault_edges.cu", "corro_fault_reach_matrix", 4
 )
 
+EDGE_SLOTS = Kernel("edge_slots", "edge_classes.cu", "corro_edge_slots", 3)
+DEGREE_CAPS = Kernel("degree_caps", "edge_classes.cu", "corro_degree_caps",
+                     2)
+EDGE_REACH = Kernel("edge_reach", "edge_classes.cu", "corro_edge_reach", 2)
+BROADCAST_SCATTER_TIERED = Kernel(
+    "broadcast_scatter_tiered", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_tiered", 10,
+)
+DENSE_BROADCAST_TIERED = Kernel(
+    "dense_broadcast_tiered", "dense_phases.cu",
+    "corro_dense_broadcast_tiered", 11,
+)
+SAMPLE_VIEW = Kernel("sample_view", "sample_targets.cu", "corro_sample_view",
+                     4)
+PEERSWAP_PARTNER = Kernel("peerswap_partner", "peerswap.cu",
+                          "corro_peerswap_partner", 2)
+PEERSWAP_SWAP = Kernel("peerswap_swap", "peerswap.cu", "corro_peerswap_swap",
+                       3)
+PEERSWAP_LAND = Kernel("peerswap_land", "peerswap.cu", "corro_peerswap_land",
+                       4)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -223,6 +256,13 @@ PORTED = {
     "dense_gaps_exit": (DENSE_GAPS_ROWS_EXIT, DENSE_GAPS_FINISH_EXIT),
     "fault_edges_matrix": (FAULT_EDGES_MATRIX,),
     "fault_reach_matrix": (FAULT_REACH_MATRIX,),
+    "edge_slots": (EDGE_SLOTS,),
+    "degree_caps": (DEGREE_CAPS,),
+    "edge_reach": (EDGE_REACH,),
+    "broadcast_scatter_tiered": (BROADCAST_SCATTER_TIERED,),
+    "dense_broadcast_tiered": (DENSE_BROADCAST_TIERED,),
+    "sample_view": (SAMPLE_VIEW,),
+    "peerswap": (PEERSWAP_PARTNER, PEERSWAP_SWAP, PEERSWAP_LAND),
 }
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
@@ -238,14 +278,17 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
-    "BROADCAST_SCATTER_LOSSY", "BUDGET_WORDS",
-    "CONVERGE_FINISH", "CONVERGE_ROWS", "DENSE_BROADCAST",
-    "DENSE_BROADCAST_FAULT", "DENSE_DELIVER", "DENSE_GAPS_FINISH",
-    "DENSE_GAPS_FINISH_EXIT", "DENSE_GAPS_ROWS", "DENSE_GAPS_ROWS_EXIT",
-    "DENSE_INJECT", "DENSE_SYNC", "DENSE_SYNC_DELAY",
+    "BROADCAST_SCATTER_LOSSY", "BROADCAST_SCATTER_TIERED", "BUDGET_WORDS",
+    "CONVERGE_FINISH", "CONVERGE_ROWS", "DEGREE_CAPS", "DENSE_BROADCAST",
+    "DENSE_BROADCAST_FAULT", "DENSE_BROADCAST_TIERED", "DENSE_DELIVER",
+    "DENSE_GAPS_FINISH", "DENSE_GAPS_FINISH_EXIT", "DENSE_GAPS_ROWS",
+    "DENSE_GAPS_ROWS_EXIT", "DENSE_INJECT", "DENSE_SYNC", "DENSE_SYNC_DELAY",
+    "EDGE_REACH", "EDGE_SLOTS",
     "FAULT_EDGES", "FAULT_EDGES_DELAY", "FAULT_EDGES_MATRIX",
-    "FAULT_REACH", "FAULT_REACH_MATRIX", "GAPS_REFRESH", "KERNELS", "Kernel", "MERGE_ENTRIES",
-    "NODE_FAULTS", "NODE_FAULTS_DENSE", "PORTED", "RANDINT", "SAMPLE_TARGETS", "SAMPLE_UNIFORM",
+    "FAULT_REACH", "FAULT_REACH_MATRIX", "GAPS_REFRESH", "KERNELS", "Kernel",
+    "MERGE_ENTRIES", "NODE_FAULTS", "NODE_FAULTS_DENSE", "PEERSWAP_LAND",
+    "PEERSWAP_PARTNER", "PEERSWAP_SWAP", "PORTED", "RANDINT",
+    "SAMPLE_TARGETS", "SAMPLE_UNIFORM", "SAMPLE_VIEW",
     "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL",
     "SYNC_PULL_DELAY", "SYNC_PULL_METERED", "THREEFRY", "TRACE_COUNTS", "TRACE_COVERAGE",
     "TRACE_COVERAGE_DENSE", "TRACE_ROW", "TRACE_ROWS", "TRACE_WIRE_ROWS",

@@ -77,11 +77,27 @@
 // cleared, the block sums them in shared memory and adds once to the
 // int64 `dropped` accumulator.  A null `dropped` (telemetry off) skips
 // the count; the scatter is the same either way.
+//
+// K10's tiered instantiation (corro_broadcast_scatter_tiered, counted as
+// broadcast_scatter_tiered) is the topology stream of a geo-tiered
+// topology: corrosion_tpu/sim/topology.py:240 tiered_edge_drop, which
+// :267 edge_payload_drop takes in place of the flat branch when the
+// tiers differ (called at packed.py:451 with src/dst/region).  It draws
+// the SAME bytes e*P + q of aligned_u8_bits(k_drop, [E, P]) as the flat
+// stream, but compares each against its edge's raw tier threshold
+// (topo_tiers.cuh: same AZ, cross-AZ, cross-region, from the two node
+// ids of the edge — its sender e / fanout and dst[e]) instead of one
+// scalar; an edge whose tier is at certainty (raw >= 256, JAX's pin)
+// drops every payload without a draw, and one of threshold 0 draws
+// nothing.  The fault and jitter streams are K10's, unchanged.  Bound:
+// operations, as K10's topology stream — one hash per sending (edge,
+// word of 4 payloads) on an edge of a lossy tier.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
+#include "topo_tiers.cuh"
 
 namespace {
 
@@ -150,19 +166,21 @@ __device__ __forceinline__ void jitter_or(uint32_t* __restrict__ ring,
 // return how many of the word's sent bits the streams dropped.  The
 // jitter path is compiled only into the jitter instantiation, so K2's
 // and K10's loss-only launches keep their registers (and occupancy).
-template <bool kJitter>
+template <bool kJitter, bool kTiered>
 __device__ __forceinline__ uint32_t scatter_word(
     uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
     const bool* __restrict__ ok, const uint8_t* __restrict__ thr,
     const int64_t* __restrict__ topo_key, const uint32_t* folded,
-    const Jitter& jt, size_t i, int n, int d_slots, int w, int fanout,
-    int topo_thr) {
+    const Jitter& jt, const int32_t* __restrict__ tiers, size_t i, int n,
+    int d_slots, int w, int fanout, int topo_thr) {
   int e = (int)(i / w);
   int k = (int)(i % w);
   if (!ok[e]) return 0u;
   uint32_t sent = sending[(size_t)(e / fanout) * w + k];
   if (sent == 0u) return 0u;
+  // the edge's tier threshold replaces the scalar one
+  if (kTiered) topo_thr = corro::topo_loss_raw(tiers, e / fanout, dst[e]);
   if (topo_thr >= 256) return __popc(sent);  // a severed channel
   uint32_t v = sent;
   uint32_t base = (uint32_t)e * (8u * (uint32_t)w) + 8u * (uint32_t)k;
@@ -190,14 +208,15 @@ __device__ __forceinline__ uint32_t scatter_word(
 // One body for both entry points: K2 passes null `thr`, `key`,
 // `topo_key`, `dropped` and `jit` and draws nothing; K10 passes the
 // streams it has, and `dropped` when the flight recorder counts.
-template <bool kJitter>
+template <bool kJitter, bool kTiered>
 __global__ void broadcast_scatter_kernel(
     uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
     const bool* __restrict__ ok, const uint8_t* __restrict__ thr,
     const int64_t* __restrict__ key, const int64_t* __restrict__ topo_key,
     unsigned long long* __restrict__ dropped,
-    const int32_t* __restrict__ jit, int n, int d_slots, int w, int fanout,
+    const int32_t* __restrict__ jit, const int32_t* __restrict__ tiers,
+    int n, int d_slots, int w, int fanout,
     int n_edges, uint32_t seed, uint32_t tag, int topo_thr, uint32_t jit_tag,
     uint32_t span, uint32_t mult) {
   __shared__ uint32_t folded[2];
@@ -223,9 +242,9 @@ __global__ void broadcast_scatter_kernel(
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t lost = 0u;
   if (i < (size_t)n_edges * w)
-    lost = scatter_word<kJitter>(ring, sending, dst, slot, ok, thr, topo_key,
-                                 folded, jt, i, n, d_slots, w, fanout,
-                                 topo_thr);
+    lost = scatter_word<kJitter, kTiered>(ring, sending, dst, slot, ok, thr,
+                                          topo_key, folded, jt, tiers, i, n,
+                                          d_slots, w, fanout, topo_thr);
   if (dropped == nullptr) return;
   if (threadIdx.x == 0) lost_block = 0ull;
   __syncthreads();
@@ -248,29 +267,28 @@ extern "C" int corro_broadcast_scatter(void* ring, const void* sending,
   size_t total = (size_t)n_edges * w;
   int threads = 256;
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  broadcast_scatter_kernel<false>
+  broadcast_scatter_kernel<false, false>
       <<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
-      nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u, 0u, 0, 0u, 1u,
-      0u);
+      nullptr, nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u, 0u, 0,
+      0u, 1u, 0u);
   return (int)cudaGetLastError();
 }
 
-// `thr` is null without fault loss and `jit` without jitter; `key` (the
-// broadcast phase key both fault streams fold) is null when both are;
-// `topo_key` is null when topo_thr is 0 (no topology loss), `dropped` is
-// null when nothing counts the lost frames.  `span` and `mult` are
-// randint's for the jitter draw's bounds.
-extern "C" int corro_broadcast_scatter_lossy(
-    void* ring, const void* sending, const void* dst, const void* slot,
-    const void* ok, const void* thr, const void* key, const void* topo_key,
-    void* dropped, const void* jit, int n, int d_slots, int w, int fanout,
-    int seed, int tag, int topo_thr, int jit_tag, int span, int mult,
-    void* stream) {
+namespace {
+
+int launch_lossy(const void* ring, const void* sending, const void* dst,
+                 const void* slot, const void* ok, const void* thr,
+                 const void* key, const void* topo_key, void* dropped,
+                 const void* jit, const void* tiers, int n, int d_slots,
+                 int w, int fanout, int seed, int tag, int topo_thr,
+                 int jit_tag, int span, int mult, void* stream) {
+  bool tiered = tiers != nullptr;
   if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 || d_slots <= 0 ||
       ((thr != nullptr || jit != nullptr) != (key != nullptr)) ||
       (jit != nullptr && span == 0) ||
+      (tiered && (topo_thr != 0 || topo_key == nullptr)) ||
       (topo_thr > 0 && topo_thr < 256 && topo_key == nullptr))
     return (int)cudaErrorInvalidValue;
   int n_edges = n * fanout;
@@ -283,14 +301,50 @@ extern "C" int corro_broadcast_scatter_lossy(
   size_t total = (size_t)n_edges * w;
   int threads = 256;
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  auto kernel = jit != nullptr ? broadcast_scatter_kernel<true>
-                                : broadcast_scatter_kernel<false>;
+  auto kernel = jit != nullptr
+                    ? (tiered ? broadcast_scatter_kernel<true, true>
+                              : broadcast_scatter_kernel<true, false>)
+                    : (tiered ? broadcast_scatter_kernel<false, true>
+                              : broadcast_scatter_kernel<false, false>);
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, (const uint8_t*)thr,
       (const int64_t*)key, (const int64_t*)topo_key,
-      (unsigned long long*)dropped, (const int32_t*)jit, n, d_slots, w,
-      fanout, n_edges, (uint32_t)seed, (uint32_t)tag, topo_thr,
-      (uint32_t)jit_tag, (uint32_t)span, (uint32_t)mult);
+      (unsigned long long*)dropped, (const int32_t*)jit,
+      (const int32_t*)tiers, n, d_slots, w, fanout, n_edges, (uint32_t)seed,
+      (uint32_t)tag, topo_thr, (uint32_t)jit_tag, (uint32_t)span,
+      (uint32_t)mult);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// `thr` is null without fault loss and `jit` without jitter; `key` (the
+// broadcast phase key both fault streams fold) is null when both are;
+// `topo_key` is null when topo_thr is 0 (no topology loss), `dropped` is
+// null when nothing counts the lost frames.  `span` and `mult` are
+// randint's for the jitter draw's bounds.
+extern "C" int corro_broadcast_scatter_lossy(
+    void* ring, const void* sending, const void* dst, const void* slot,
+    const void* ok, const void* thr, const void* key, const void* topo_key,
+    void* dropped, const void* jit, int n, int d_slots, int w, int fanout,
+    int seed, int tag, int topo_thr, int jit_tag, int span, int mult,
+    void* stream) {
+  return launch_lossy(ring, sending, dst, slot, ok, thr, key, topo_key,
+                      dropped, jit, nullptr, n, d_slots, w, fanout, seed, tag,
+                      topo_thr, jit_tag, span, mult, stream);
+}
+
+// The tiered instantiation: K10's arguments with topo_thr 0, `topo_key`
+// the broadcast key's k_drop (required) and `tiers` the topology's table.
+extern "C" int corro_broadcast_scatter_tiered(
+    void* ring, const void* sending, const void* dst, const void* slot,
+    const void* ok, const void* thr, const void* key, const void* topo_key,
+    void* dropped, const void* jit, const void* tiers, int n, int d_slots,
+    int w, int fanout, int seed, int tag, int topo_thr, int jit_tag,
+    int span, int mult, void* stream) {
+  if (tiers == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_lossy(ring, sending, dst, slot, ok, thr, key, topo_key,
+                      dropped, jit, tiers, n, d_slots, w, fanout, seed, tag,
+                      topo_thr, jit_tag, span, mult, stream);
 }

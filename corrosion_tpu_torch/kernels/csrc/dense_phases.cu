@@ -81,11 +81,24 @@
 // coalesced; the scan is five shuffles of an int64; a lane does its
 // cell's F edges itself, so a row's sends are one 32-byte segment per
 // edge and chunk.
+//
+// The tiered instantiation (corro_dense_broadcast_tiered, counted as
+// dense_broadcast_tiered) takes a geo-tiered topology's loss,
+// corrosion_tpu/sim/topology.py:240 tiered_edge_drop (through :267
+// edge_payload_drop's tiered branch, called at broadcast.py:120 with
+// src/dst/region): the same byte e*P + q of aligned_u8_bits(key, [E, P])
+// as the flat draw, compared against the edge's raw tier threshold
+// (topo_tiers.cuh, from the row and dst[e]) instead of the scalar thr;
+// an edge at certainty (raw >= 256) loses every payload without a draw.
+// With a fault plan's loss or jitter it draws them as the fault entry
+// does.  Bound: operations in a lossy round — one hash per ok (edge,
+// sending payload) on an edge of a lossy tier.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
+#include "topo_tiers.cuh"
 
 namespace {
 
@@ -144,7 +157,7 @@ struct FaultDraws {
   uint32_t span, mult;
 };
 
-template <bool kFault>
+template <bool kFault, bool kTiered>
 __global__ void dense_broadcast_kernel(
     const uint8_t* __restrict__ have, uint8_t* __restrict__ relay,
     const uint8_t* __restrict__ injected, const int32_t* __restrict__ nbytes,
@@ -154,9 +167,9 @@ __global__ void dense_broadcast_kernel(
     uint8_t* __restrict__ ring, int32_t* __restrict__ row_frames,
     int32_t* __restrict__ row_bytes, unsigned long long* __restrict__ dropped,
     const int64_t* __restrict__ phase_key, const uint8_t* __restrict__ fthr,
-    const int32_t* __restrict__ jit, int n, int p, int f, int d_slots,
-    int budget, int thr, uint32_t seed, uint32_t loss_tag, uint32_t jit_tag,
-    uint32_t span, uint32_t mult) {
+    const int32_t* __restrict__ jit, const int32_t* __restrict__ tiers,
+    int n, int p, int f, int d_slots, int budget, int thr, uint32_t seed,
+    uint32_t loss_tag, uint32_t jit_tag, uint32_t span, uint32_t mult) {
   FaultDraws fd{fthr, jit, {0u, 0u}, {0u, 0u, 0u, 0u}, span, mult};
   if (kFault) {
     // fold_in(fold_in(phase_key, seed), tag) once a block
@@ -185,7 +198,7 @@ __global__ void dense_broadcast_kernel(
   }
   bool any_attempt = __any_sync(0xFFFFFFFFu, attempt) && alive[row] == 0;
   uint32_t k1 = 0u, k2 = 0u;
-  if (thr > 0 && thr < 256) {
+  if (kTiered || (thr > 0 && thr < 256)) {
     k1 = (uint32_t)key[0];
     k2 = (uint32_t)key[1];
   }
@@ -210,8 +223,10 @@ __global__ void dense_broadcast_kernel(
       if (!ok[e]) continue;
       // byte (and i32 element) e*P + q of the [E, P] draws
       uint32_t b = (uint32_t)(e * p + q);
-      bool lost = thr >= 256;
-      if (thr > 0 && thr < 256) lost = draw_byte(k1, k2, b) < (uint32_t)thr;
+      // the edge's tier threshold replaces the scalar one
+      int tthr = kTiered ? corro::topo_loss_raw(tiers, row, dst[e]) : thr;
+      bool lost = tthr >= 256;
+      if (tthr > 0 && tthr < 256) lost = draw_byte(k1, k2, b) < (uint32_t)tthr;
       if (kFault && !lost && fd.thr != nullptr) {
         uint32_t t = fd.thr[e];
         lost = t != 0u && draw_byte(fd.loss[0], fd.loss[1], b) < t;
@@ -295,11 +310,13 @@ int launch_broadcast(bool fault, const void* have, void* relay,
                      const void* ok, const void* alive, const void* key,
                      void* ring, void* row_frames, void* row_bytes,
                      void* dropped, const void* phase_key, const void* fthr,
-                     const void* jit, int n, int p, int f, int d_slots,
-                     int budget, int thr, int seed, int loss_tag, int jit_tag,
-                     int span, int mult, void* stream) {
+                     const void* jit, const void* tiers, int n, int p, int f,
+                     int d_slots, int budget, int thr, int seed, int loss_tag,
+                     int jit_tag, int span, int mult, void* stream) {
+  bool tiered = tiers != nullptr;
   if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
-      (row_frames == nullptr) != (row_bytes == nullptr))
+      (row_frames == nullptr) != (row_bytes == nullptr) ||
+      (tiered && thr != 0))
     return (int)cudaErrorInvalidValue;
   if (fault && (phase_key == nullptr || (fthr == nullptr && jit == nullptr) ||
                 (jit != nullptr && span == 0)))
@@ -308,8 +325,10 @@ int launch_broadcast(bool fault, const void* have, void* relay,
   if ((unsigned long long)n * f * p >= (1ull << 32))
     return (int)cudaErrorInvalidValue;
   int threads = 256;
-  auto kernel = fault ? dense_broadcast_kernel<true>
-                      : dense_broadcast_kernel<false>;
+  auto kernel = fault ? (tiered ? dense_broadcast_kernel<true, true>
+                               : dense_broadcast_kernel<true, false>)
+                      : (tiered ? dense_broadcast_kernel<false, true>
+                                : dense_broadcast_kernel<false, false>);
   kernel<<<blocks_for((size_t)n * kWarp, threads), threads, 0,
            (cudaStream_t)stream>>>(
       (const uint8_t*)have, (uint8_t*)relay, (const uint8_t*)injected,
@@ -318,7 +337,8 @@ int launch_broadcast(bool fault, const void* have, void* relay,
       (const int64_t*)key, (uint8_t*)ring, (int32_t*)row_frames,
       (int32_t*)row_bytes, (unsigned long long*)dropped,
       (const int64_t*)phase_key, (const uint8_t*)fthr, (const int32_t*)jit,
-      n, p, f, d_slots, budget, thr, (uint32_t)seed, (uint32_t)loss_tag,
+      (const int32_t*)tiers, n, p, f, d_slots, budget, thr, (uint32_t)seed,
+      (uint32_t)loss_tag,
       (uint32_t)jit_tag, (uint32_t)span, (uint32_t)mult);
   return (int)cudaGetLastError();
 }
@@ -333,8 +353,8 @@ extern "C" int corro_dense_broadcast(
     int budget, int thr, void* stream) {
   return launch_broadcast(false, have, relay, injected, nbytes, targets, dst,
                           slot, ok, alive, key, ring, row_frames, row_bytes,
-                          dropped, nullptr, nullptr, nullptr, n, p, f,
-                          d_slots, budget, thr, 0, 0, 0, 1, 0, stream);
+                          dropped, nullptr, nullptr, nullptr, nullptr, n, p,
+                          f, d_slots, budget, thr, 0, 0, 0, 1, 0, stream);
 }
 
 // The fault entry: `phase_key` is the broadcast phase key both fault
@@ -350,7 +370,27 @@ extern "C" int corro_dense_broadcast_fault(
     int seed, int loss_tag, int jit_tag, int span, int mult, void* stream) {
   return launch_broadcast(true, have, relay, injected, nbytes, targets, dst,
                           slot, ok, alive, key, ring, row_frames, row_bytes,
-                          dropped, phase_key, fthr, jit, n, p, f, d_slots,
+                          dropped, phase_key, fthr, jit, nullptr, n, p, f,
+                          d_slots, budget, thr, seed, loss_tag, jit_tag, span,
+                          mult, stream);
+}
+
+// The tiered instantiation: the fault entry's arguments (`phase_key`,
+// `fthr` and `jit` all null in a round without fault draws) and `tiers`,
+// the topology's table; `thr` must be 0 (the tiers replace it).
+extern "C" int corro_dense_broadcast_tiered(
+    const void* have, void* relay, const void* injected, const void* nbytes,
+    const void* targets, const void* dst, const void* slot, const void* ok,
+    const void* alive, const void* key, void* ring, void* row_frames,
+    void* row_bytes, void* dropped, const void* phase_key, const void* fthr,
+    const void* jit, const void* tiers, int n, int p, int f, int d_slots,
+    int budget, int thr, int seed, int loss_tag, int jit_tag, int span,
+    int mult, void* stream) {
+  if (tiers == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_broadcast(fthr != nullptr || jit != nullptr, have, relay,
+                          injected, nbytes, targets, dst, slot, ok, alive,
+                          key, ring, row_frames, row_bytes, dropped,
+                          phase_key, fthr, jit, tiers, n, p, f, d_slots,
                           budget, thr, seed, loss_tag, jit_tag, span, mult,
                           stream);
 }

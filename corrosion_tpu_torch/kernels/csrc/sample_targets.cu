@@ -33,6 +33,17 @@
 // believe it DOWN (view[node, cand] != DOWN).  Dedup and compaction are
 // K1's.  Bound: bytes — the draws, one gathered belief byte each from
 // the node's own view row, the output.
+//
+// Third entry point, corro_sample_view: the PeerSwap view sampler of
+// corrosion_tpu/topo/sampler.py:57 psample_view_targets, which
+// swim.py:59 sample_member_targets dispatches to under peer_sampler
+// "peerswap" (swim.py:86-94).  Candidate o of a node is pview[node,
+// slots[o, node]] (slots: a [over, N] randint draw over [0, V)); it is
+// valid when it is a peer (>= 0), not the node and, given full-view
+// beliefs, not believed DOWN (view[node, max(cand, 0)]).  Dedup and
+// compaction are K1's (`keep_compact`, shared by all three entries).
+// Bound: bytes — the slot draws, one gathered 4-byte view entry each
+// from the node's own 64-byte view row, the output.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,6 +54,26 @@ constexpr int PACK_SHIFT = 19;
 constexpr uint32_t PACK_MASK = (1u << PACK_SHIFT) - 1u;
 constexpr int DOWN = 2;
 constexpr int MAX_OVER = 16;
+
+// Drop each valid candidate that repeats an EARLIER valid one
+// (swim.py:111 _dup_before), then prefix-compact the survivors into the
+// node's `count` output slots, -1 padding (swim.py:39 _compact_targets).
+__device__ __forceinline__ void keep_compact(const int (&cand)[MAX_OVER],
+                                             const bool (&valid)[MAX_OVER],
+                                             int32_t* __restrict__ dst,
+                                             int count) {
+  int filled = 0;
+#pragma unroll
+  for (int j = 0; j < MAX_OVER; ++j) {
+    bool keep = valid[j];
+#pragma unroll
+    for (int i = 0; i < j; ++i) {
+      keep = keep && !(valid[i] && cand[i] == cand[j]);
+    }
+    if (keep && filled < count) dst[filled++] = cand[j];
+  }
+  for (; filled < count; ++filled) dst[filled] = -1;
+}
 
 __global__ void sample_targets_kernel(const uint32_t* __restrict__ table,
                                       const int32_t* __restrict__ slots,
@@ -68,18 +99,7 @@ __global__ void sample_targets_kernel(const uint32_t* __restrict__ table,
       valid[j] = pid >= 0 && pid != node && (key & 3) != DOWN && key >= 0;
     }
   }
-  int filled = 0;
-  int32_t* dst = out + (size_t)node * count;
-#pragma unroll
-  for (int j = 0; j < MAX_OVER; ++j) {
-    bool keep = valid[j];
-#pragma unroll
-    for (int i = 0; i < j; ++i) {
-      keep = keep && !(valid[i] && cand[i] == cand[j]);
-    }
-    if (keep && filled < count) dst[filled++] = cand[j];
-  }
-  for (; filled < count; ++filled) dst[filled] = -1;
+  keep_compact(cand, valid, out + (size_t)node * count, count);
 }
 
 __global__ void sample_uniform_kernel(const int32_t* __restrict__ cands,
@@ -106,18 +126,38 @@ __global__ void sample_uniform_kernel(const int32_t* __restrict__ cands,
       valid[j] = ok;
     }
   }
-  int filled = 0;
-  int32_t* dst = out + (size_t)node * count;
+  keep_compact(cand, valid, out + (size_t)node * count, count);
+}
+
+__global__ void sample_view_kernel(const int32_t* __restrict__ pview,
+                                   const int32_t* __restrict__ slots,
+                                   const int8_t* __restrict__ view,
+                                   int32_t* __restrict__ out, int n, int v,
+                                   int over, int count) {
+  int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= n) return;
+  const int32_t* row = pview + (size_t)node * v;
+  int cand[MAX_OVER];
+  bool valid[MAX_OVER];
 #pragma unroll
   for (int j = 0; j < MAX_OVER; ++j) {
-    bool keep = valid[j];
-#pragma unroll
-    for (int i = 0; i < j; ++i) {
-      keep = keep && !(valid[i] && cand[i] == cand[j]);
+    cand[j] = -1;
+    valid[j] = false;
+    if (j < over) {
+      int slot = slots[(size_t)j * n + node];
+      // jnp gathers clamp out-of-range indices; so does this one
+      slot = slot < 0 ? 0 : (slot >= v ? v - 1 : slot);
+      int c = row[slot];
+      cand[j] = c;
+      bool ok = c >= 0 && c != node;
+      if (view != nullptr) {
+        int col = c < 0 ? 0 : (c >= n ? n - 1 : c);
+        ok = ok && view[(size_t)node * n + col] != DOWN;
+      }
+      valid[j] = ok;
     }
-    if (keep && filled < count) dst[filled++] = cand[j];
   }
-  for (; filled < count; ++filled) dst[filled] = -1;
+  keep_compact(cand, valid, out + (size_t)node * count, count);
 }
 
 }  // namespace
@@ -143,5 +183,18 @@ extern "C" int corro_sample_uniform(const void* cands, const void* view,
   sample_uniform_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)cands, (const int8_t*)view, (int32_t*)out, n, over,
       count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_sample_view(const void* pview, const void* slots,
+                                 const void* view, void* out, int n, int v,
+                                 int over, int count, void* stream) {
+  if (over > MAX_OVER || count > over || n <= 0 || v <= 0)
+    return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  int blocks = (n + threads - 1) / threads;
+  sample_view_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pview, (const int32_t*)slots, (const int8_t*)view,
+      (int32_t*)out, n, v, over, count);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,10 @@ card and the plain torch version beside its wrapper on the CPU:
 
 - `inject_dense` — origin nodes take round t's payloads;
 - `broadcast_send` — the eligible mask, the oldest-first byte budget,
-  the flat wire loss per (edge, payload), the ring write and the relay
-  spend; under a fault plan its fault entry also draws the plan's loss
-  and jitter per (edge, payload);
+  the wire loss per (edge, payload) (flat, or per-edge tier thresholds
+  in its tiered instantiation), the ring write and the relay spend;
+  under a fault plan its fault entry also draws the plan's loss and
+  jitter per (edge, payload);
 - `deliver_dense` — pop slot t of both rings.
 
 The target draw, ring0 tiering (`ring0_targets`, shared with the packed
@@ -55,8 +56,12 @@ from .topology import (
     aligned_u8_bits,
     apply_degree_caps,
     edge_alive,
-    edge_delay,
+    edge_slot,
     loss_threshold,
+    regions,
+    tiered_edge_drop,
+    topo_table,
+    wire_tiers,
 )
 
 _I32_MAX = (1 << 31) - 1
@@ -145,15 +150,23 @@ def _check_rows(have, relay, n: int, p: int) -> None:
 def broadcast_send_plain(have, relay, injected, nbytes, budget, targets, dst,
                          slot, ok, alive, key, thr: int, ring, row_frames=None,
                          row_bytes=None, dropped=None, phase_key=None,
-                         fthr=None, jit=None, seed: int = 0) -> None:
-    """Plain version of K12's broadcast and of its fault entry, in place
-    on ``relay`` and ``ring`` (and the telemetry outputs when given)."""
+                         fthr=None, jit=None, seed: int = 0,
+                         tiers: Optional[Topology] = None) -> None:
+    """Plain version of K12's broadcast, of its fault entry and of its
+    tiered instantiation, in place on ``relay`` and ``ring`` (and the
+    telemetry outputs when given)."""
     n, p = have.shape
     f = targets.shape[1]
     d = ring.shape[0]
     eligible = (have > 0) & (relay > 0) & (injected > 0)[None, :]
     sending = budget_prefix_mask(eligible, budget, nbytes)
-    if thr <= 0:
+    if tiers is not None:
+        src = torch.arange(n, dtype=torch.int32,
+                           device=have.device).repeat_interleave(f)
+        region = regions(n, tiers.n_regions, have.device)
+        drop = tiered_edge_drop(tiers, key, region, src, dst,
+                                (n * f, p))
+    elif thr <= 0:
         drop = torch.zeros((n * f, p), dtype=torch.bool, device=have.device)
     elif thr >= 256:
         drop = torch.ones((n * f, p), dtype=torch.bool, device=have.device)
@@ -198,7 +211,7 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
                    targets, dst, slot, ok, alive, key, thr: int,
                    ring, row_frames=None, row_bytes=None,
                    dropped=None, phase_key=None, fthr=None, jit=None,
-                   seed: int = 0) -> None:
+                   seed: int = 0, tiers: Optional[Topology] = None) -> None:
     """The broadcast's sends, in place: each node's eligible payloads
     (held, relay budget left, injected), cut to the oldest-first prefix
     within ``budget`` bytes (None: unmetered), go to each ok edge's ring
@@ -219,13 +232,21 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
     jit[e] > 0 lands in slot (slot[e] + j) % D, j = element e*P + q of
     ``randint(fold_in(fold_in(phase_key, seed), 102), [E, P], 0,
     2^31 - 1)`` mod (jit[e] + 1).  ``phase_key`` is the broadcast phase
-    key (not ``key``, its ``k_drop`` split).  K12 on the card, which
-    draws the bits itself."""
+    key (not ``key``, its ``k_drop`` split).
+
+    Under tiered topology loss (``tiers``, the topology,
+    `topology.wire_tiers`; ``thr``
+    is then 0) the topology stream compares the same ``key`` draw against
+    each edge's tier threshold, and a tier at certainty (256 or more)
+    loses every payload of its edges (JAX ``tiered_edge_drop`` via
+    ``edge_payload_drop``): K12's tiered instantiation, with or without
+    the fault draws.  K12 on the card, which draws the bits itself."""
     fault = fthr is not None or jit is not None
     if have.device.type == "cpu":
         broadcast_send_plain(have, relay, injected, nbytes, budget, targets,
                              dst, slot, ok, alive, key, thr, ring, row_frames,
-                             row_bytes, dropped, phase_key, fthr, jit, seed)
+                             row_bytes, dropped, phase_key, fthr, jit, seed,
+                             tiers)
         return
     n, p = have.shape
     f = targets.shape[1]
@@ -249,19 +270,25 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
     ptrs = [have, relay, injected, nbytes, targets, dst, slot, ok, alive, key,
             ring, row_frames, row_bytes, dropped]
     ints = [n, p, f, d, -1 if budget is None else budget, min(thr, 256)]
-    if not fault:
+    if not fault and tiers is None:
         kernels.DENSE_BROADCAST.launch(ptrs, ints)
         return
-    check("phase_key", phase_key, torch.int64, (2,))
+    if fault:
+        check("phase_key", phase_key, torch.int64, (2,))
     if fthr is not None:
         check("fthr", fthr, torch.uint8, (e,))
     if jit is not None:
         check("jit", jit, torch.int32, (e,))
     span, mult = rng.scalar_span(0, _I32_MAX)
-    kernels.DENSE_BROADCAST_FAULT.launch(
-        ptrs + [phase_key, fthr, jit],
-        ints + [seed, WIRE_LOSS_TAG, JITTER_TAG, i32(span), i32(mult)],
-    )
+    ptrs += [phase_key if fault else None, fthr, jit]
+    ints += [seed, WIRE_LOSS_TAG, JITTER_TAG, i32(span), i32(mult)]
+    if tiers is not None:
+        if thr != 0:
+            raise ValueError("tiered loss replaces the flat threshold")
+        kernels.DENSE_BROADCAST_TIERED.launch(
+            ptrs + [topo_table(tiers, n, have.device)], ints)
+        return
+    kernels.DENSE_BROADCAST_FAULT.launch(ptrs, ints)
 
 
 def broadcast_step(
@@ -271,8 +298,10 @@ def broadcast_step(
 ) -> SimState:
     """Fan-out push over the dense state, in place on ``relay_left`` and
     ``inflight`` (JAX ``broadcast_step``: targets from the believed
-    member list, ring0 tiering, flat per-(edge, payload) loss from
-    ``k_drop``, delivery slot t + edge delay).  Under ``faults`` (JAX's
+    member list, ring0 tiering, the topology's degree caps (K20), flat or
+    tiered per-(edge, payload) loss from ``k_drop`` (K12, or its tiered
+    instantiation), delivery slot t + edge delay (K20 for AZ or matrix
+    delay classes)).  Under ``faults`` (JAX's
     fault branch, ``fault_wire_effects``) cuts clear edges and the
     plan's fixed delay adds to each edge's (K9), and the plan's loss and
     jitter are drawn per (edge, payload) by K12's fault entry; ``active``
@@ -295,20 +324,19 @@ def broadcast_step(
     dst = torch.clamp(dst, min=0)
     ok &= edge_alive(state.group, state.alive, src, dst)
     ok &= dst != src
-    delay = edge_delay(topo, region, src, dst)
-    fthr = jit = None
+    fthr = jit = fdelay = None
     if faults is not None:
         ok, fthr, fdelay, jit = fault_wire_effects(
             faults, src, dst, ok,
             cut=None if trace is None else acc_slot(trace, "bcast_cut"))
-        if fdelay is not None:
-            delay = delay + fdelay
         if active is not None:
             fthr = fthr if active.loss else None
             jit = jit if active.jitter else None
-    d_slots = state.inflight.shape[0]
-    slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
-    thr = loss_threshold(topo.loss) if topo.loss > 0 else 0
+    slot = edge_slot(topo, region, src, dst, int(state.t),
+                     state.inflight.shape[0], fdelay)
+    tiers = wire_tiers(topo)
+    thr = (loss_threshold(topo.loss)
+           if topo.loss > 0 and tiers is None else 0)
     row_frames = row_bytes = dropped = None
     if trace is not None:
         row_frames = torch.empty(n, dtype=torch.int32, device=me.device)
@@ -320,6 +348,7 @@ def broadcast_step(
         cfg.rate_limit_bytes_round, targets.contiguous(), dst, slot, ok,
         state.alive, k_drop, thr, state.inflight, row_frames, row_bytes,
         dropped, key, fthr, jit, 0 if faults is None else int(faults.seed),
+        tiers,
     )
     if trace is not None:
         wire_rows_(trace.acc[WIRE], row_frames, row_bytes, ok, f)

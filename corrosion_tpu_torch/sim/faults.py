@@ -1041,6 +1041,17 @@ def apply_node_faults_plain(state: SimState,
     return state
 
 
+def refuse_peerswap(peerswap: bool) -> None:
+    """Fault plans under the PeerSwap sampler are not ported: JAX's
+    crash-with-wipe also empties the wiped node's view
+    (``faults.py:742-745``), which K11 does not do on the card."""
+    if peerswap:
+        raise NotImplementedError(
+            "fault plans under peer_sampler='peerswap' are not ported yet "
+            "(ROADMAP A10: the crash-with-wipe of the PeerSwap view)"
+        )
+
+
 def apply_node_faults(state: SimState, rf: AnyRoundFaults) -> SimState:
     """Crash, restart and wipe, before the round's phases, IN PLACE: the
     alive override, then on wiped nodes zeroed payload rows (have, relay
@@ -1053,6 +1064,7 @@ def apply_node_faults(state: SimState, rf: AnyRoundFaults) -> SimState:
     take K11's word entry (`packed.apply_round_faults`)."""
     if state.alive.device.type == "cpu":
         return apply_node_faults_plain(state, rf)
+    refuse_peerswap(state.pview.shape[1] > 0)
     n, p = state.have.shape
     d = state.inflight.shape[0]
     a = state.heads.shape[1]
@@ -1142,6 +1154,7 @@ def run_fault_plan(
     from .topology import regions
 
     validate(cfg, topo)
+    refuse_peerswap(cfg.peer_sampler == "peerswap")
     if packed_supported(cfg, topo):
         return run_packed_faults(state, meta, cfg, topo, fplan, max_rounds,
                                  telemetry)
@@ -1200,6 +1213,7 @@ def run_fault_plan_checked(
 
     catalog = catalog or CATALOG
     validate(cfg, topo)
+    refuse_peerswap(cfg.peer_sampler == "peerswap")
     dev = state.have.device
     fplan = compile_plan(plan, cfg, topo, device=dev)
     region = regions(cfg.n_nodes, topo.n_regions, dev)

@@ -21,7 +21,8 @@ ring scatter (K2), the sync pull (K3) and the convergence record (K7,
 table merge (K1, K4, `.pswim`) and the gap refresh (K6, `.gaps`).  The
 byte budgets run K16 (`budget_prefix_words`, the broadcast governor)
 and K3's metered entry (the sync grant).  Under the flat topology loss
-or a fault plan the ring scatter is K10 (`scatter_sending_lossy`); a
+or a fault plan the ring scatter is K10 (`scatter_sending_lossy`), under
+tiered topology loss its tiered instantiation; a
 plan's edge queries run K9 or K9m (`.faults`) and its node faults K11
 (`apply_round_faults`).  Each wrapper takes the plain torch version
 beside it for a CPU tensor.
@@ -59,6 +60,7 @@ from .faults import (
     fault_session_effects,
     fault_wire_effects,
     host_activity,
+    refuse_peerswap,
     round_faults,
 )
 from .gaps import gaps_to_mask, refresh_gaps
@@ -89,9 +91,12 @@ from .topology import (
     Topology,
     apply_degree_caps,
     edge_alive,
-    edge_delay,
+    edge_loss_thresholds_raw,
+    edge_slot,
     loss_threshold,
     regions,
+    topo_table,
+    wire_tiers,
 )
 from .words import (
     all_chunks_words,
@@ -449,17 +454,28 @@ def _jitter_rows_plain(ring, words, dst, slot, jit, key) -> None:
 def scatter_sending_lossy_plain(
     ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int,
     topo_thr: int = 0, topo_key=None, dropped=None, jit=None,
+    tiers: Optional[Topology] = None,
 ) -> None:
-    """Plain version of K10, in place: K2 with payload q of edge e
-    dropped where the topology stream (byte e*P + q of the ``topo_key``
-    draw below ``topo_thr``; 256 or more drops all) or the fault stream
+    """Plain version of K10 and its tiered instantiation, in place: K2
+    with payload q of edge e dropped where the topology stream (byte
+    e*P + q of the ``topo_key`` draw below ``topo_thr``, or with
+    ``tiers`` below the edge's tier threshold; 256 or more drops all) or
+    the fault stream
     (the wire-loss draw below thr[e]) drops it, and with ``jit`` each
     surviving payload of a jittered edge in its own slot
     (`_jitter_rows_plain`); the dropped frames are added to ``dropped``
     when given."""
     words = _edge_words(sending, ok, fanout)
     sent = words.clone() if dropped is not None else None
-    if topo_thr >= 256:
+    if tiers is not None:
+        n = sending.shape[0]
+        region = regions(n, tiers.n_regions, words.device)
+        src = torch.arange(n, dtype=torch.int32,
+                           device=words.device).repeat_interleave(fanout)
+        raw = edge_loss_thresholds_raw(tiers, region, src, dst)
+        words[raw >= 256] = 0
+        _keep_stream_(words, torch.where(raw >= 256, 0, raw), topo_key)
+    elif topo_thr >= 256:
         words.zero_()
     elif topo_thr > 0:
         _keep_stream_(words, torch.full_like(dst, topo_thr), topo_key)
@@ -477,6 +493,7 @@ def scatter_sending_lossy_plain(
 def scatter_sending_lossy(
     ring, sending, dst, slot, ok, thr, key, seed: int, fanout: int,
     topo_thr: int = 0, topo_key=None, dropped=None, jit=None,
+    tiers: Optional[Topology] = None,
 ) -> None:
     """`scatter_sending` under the wire's loss, in place: payload q of
     edge e is dropped where either stream drops it — the flat topology
@@ -493,12 +510,18 @@ def scatter_sending_lossy(
     delays each surviving payload q of an edge with jit[e] > 0 by
     element e*P + q of ``randint(fold_in(fold_in(key, seed), 102), [E,
     P], 0, 2^31 - 1)`` mod (jit[e] + 1) rounds past slot[e] (JAX
-    ``fault_wire_effects``' ``delay_ep``).  K10 on the card, which draws
-    the bits itself; its jitter stream counts as its own entry."""
+    ``fault_wire_effects``' ``delay_ep``).  With ``tiers`` (a topology whose
+    loss is tiered, `topology.wire_tiers`; ``topo_thr`` is then 0) the
+    topology stream compares the same ``topo_key`` draw against each
+    edge's tier threshold instead, and an edge whose tier is at
+    certainty (256 or more) drops every payload (JAX ``tiered_edge_drop``
+    via ``edge_payload_drop``).  K10 on the card, which draws the bits
+    itself; its jitter stream and its tiered instantiation count as
+    entries of their own."""
     if ring.device.type == "cpu":
         scatter_sending_lossy_plain(
             ring, sending, dst, slot, ok, thr, key, seed, fanout, topo_thr,
-            topo_key, dropped, jit,
+            topo_key, dropped, jit, tiers,
         )
         return
     d, n, w = ring.shape
@@ -514,20 +537,26 @@ def scatter_sending_lossy(
         check("jit", jit, torch.int32, (e,))
     if thr is not None or jit is not None:
         check("key", key, torch.int64, (2,))
-    if 0 < topo_thr < 256:
+    if 0 < topo_thr < 256 or tiers is not None:
         check("topo_key", topo_key, torch.int64, (2,))
     if dropped is not None:
         check("dropped", dropped, torch.int64, ())
     span, mult = rng.scalar_span(0, JITTER_MAX)
+    ptrs = [ring, sending, dst, slot, ok, thr,
+            None if thr is None and jit is None else key,
+            topo_key if 0 < topo_thr < 256 or tiers is not None else None,
+            dropped, jit]
+    ints = [n, d, w, fanout, seed, WIRE_LOSS_TAG, topo_thr, JITTER_TAG,
+            i32(span), i32(mult)]
+    if tiers is not None:
+        if topo_thr != 0:
+            raise ValueError("tiered loss replaces the flat threshold")
+        kernels.BROADCAST_SCATTER_TIERED.launch(
+            ptrs + [topo_table(tiers, n, ring.device)], ints)
+        return
     kernel = (kernels.BROADCAST_SCATTER_LOSSY if jit is None
               else kernels.BROADCAST_SCATTER_JITTER)
-    kernel.launch(
-        [ring, sending, dst, slot, ok, thr,
-         None if thr is None and jit is None else key,
-         topo_key if 0 < topo_thr < 256 else None, dropped, jit],
-        [n, d, w, fanout, seed, WIRE_LOSS_TAG, topo_thr, JITTER_TAG,
-         i32(span), i32(mult)],
-    )
+    kernel.launch(ptrs, ints)
 
 
 def broadcast_packed(
@@ -536,12 +565,14 @@ def broadcast_packed(
     meta: PayloadMeta, faults: Optional[AnyRoundFaults] = None,
     trace: Optional[RoundTrace] = None, active: Optional[RoundActivity] = None,
 ) -> PackedCarry:
-    """Fan-out push: draw targets, spend the relay budget (K8, metered by
-    K16 under the byte governor) and OR the sent words into the delay
-    ring (K2), in place.  Under ``faults`` cuts clear edges and the
-    plan's fixed delay adds to each edge's slot (K9).  Under the flat
-    topology loss or the plan's loss the scatter drops payloads per
-    (edge, payload) from the topology's and the plan's loss draws, and
+    """Fan-out push: draw targets (capped by the topology's degree
+    classes, K20), spend the relay budget (K8, metered by K16 under the
+    byte governor) and OR the sent words into the delay ring (K2) at each
+    edge's slot (a geo-tiered or measured-matrix delay class: K20), in
+    place.  Under ``faults`` cuts clear edges and the plan's fixed delay
+    adds to each edge's slot (K9).  Under the topology's loss (flat or
+    tiered) or the plan's loss the scatter drops payloads per (edge,
+    payload) from the topology's and the plan's loss draws, and
     under the plan's jitter each surviving payload of a jittered edge
     lands in its own slot (K10's streams in place of K2); the relay
     still spends on the attempt.  ``active`` (the host's copy of the
@@ -557,7 +588,7 @@ def broadcast_packed(
     k_targets, k_drop, k_ring0 = rng.split(key, 3)
     targets = sample_member_targets(state, cfg, k_targets, f)  # [N, F]
     targets = ring0_targets(state, cfg, topo, region, k_ring0, targets)
-    targets = apply_degree_caps(targets, topo)  # refuses tiered loss
+    targets = apply_degree_caps(targets, topo)
     sending = spend_relay(carry, injected_p, targets, state.alive,
                           cfg.rate_limit_bytes_round, meta.nbytes)
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
@@ -567,30 +598,32 @@ def broadcast_packed(
     dst = torch.clamp(dst, min=0)
     ok &= edge_alive(state.group, state.alive, src, dst)
     ok &= dst != src
-    delay = edge_delay(topo, region, src, dst)
-    thr = jit = None
+    thr = jit = fdelay = None
     if faults is not None:
         ok, thr, fdelay, jit = fault_wire_effects(
             faults, src, dst, ok,
             cut=None if trace is None else acc_slot(trace, "bcast_cut"))
-        if fdelay is not None:
-            delay = delay + fdelay
         if active is not None:
             thr = thr if active.loss else None
             jit = jit if active.jitter else None
     if trace is not None:
         wire_words_(trace.acc[WIRE], sending, meta.nbytes, ok, f)
-    topo_thr = loss_threshold(topo.loss) if topo.loss > 0 else 0
-    d_slots = carry.inflight.shape[0]
-    slot = ((int(state.t) + delay) % d_slots).to(torch.int32)
-    if thr is None and jit is None and topo_thr == 0:
+    tiers = wire_tiers(topo)
+    topo_thr = (loss_threshold(topo.loss)
+                if topo.loss > 0 and tiers is None else 0)
+    slot = edge_slot(topo, region, src, dst, int(state.t),
+                     carry.inflight.shape[0], fdelay)
+    if thr is None and jit is None and topo_thr == 0 and tiers is None:
         scatter_sending(carry.inflight, sending, dst, slot, ok, f)
     else:
+        # the tiers ride a keyword only when present: the flat call keeps
+        # its arguments
         scatter_sending_lossy(
             carry.inflight, sending, dst, slot, ok, thr, key,
             0 if faults is None else int(faults.seed), f, topo_thr, k_drop,
             None if trace is None or not wire_loss_active(topo, faults)
             else acc_slot(trace, "bcast_dropped"), jit,
+            **({} if tiers is None else {"tiers": tiers}),
         )
     return carry
 
@@ -887,9 +920,11 @@ def packed_round_step(
     active: Optional[RoundActivity] = None,
 ):
     """One gossip tick on packed words, phase-for-phase and PRNG-stream
-    identical to JAX's ``packed_round_step``: inject → broadcast → sync →
-    deliver → SWIM → bookkeeping refresh → convergence record, with the
-    round's ``faults`` in broadcast, sync and SWIM.  Updates ``carry``
+    identical to JAX's ``packed_round_step``: (under PeerSwap the view
+    swap, `..topo.sampler.peerswap_step`, on a fifth phase key) inject →
+    broadcast → sync → deliver → SWIM → bookkeeping refresh →
+    convergence record, with the round's ``faults`` in the swap,
+    broadcast, sync and SWIM.  Updates ``carry``
     and ``injected_p`` in place and returns (state, carry, injected_p,
     metrics, done), where ``done`` is the loop's exit flag after the
     round, on the device: JAX's ``_converged_done``, or with a fault
@@ -899,9 +934,16 @@ def packed_round_step(
     K19 writes the row (with the fault slice's crashes and wipes).
     ``active`` is the host's copy of the round's loss and jitter activity
     (`broadcast_packed`)."""
-    ks = rng.split(state.key, 4)
+    peerswap = cfg.peer_sampler == "peerswap"
+    ks = rng.split(state.key, 5 if peerswap else 4)
     state = state._replace(key=ks[0])
     k_bcast, k_sync, k_swim = ks[1], ks[2], ks[3]
+    if peerswap:
+        # the view swap tick, before inject, so this round's target
+        # draws sample the swapped views (JAX's phase order)
+        from ..topo.sampler import peerswap_step
+
+        state = peerswap_step(state, cfg, topo, ks[4], faults)
     t = int(state.t)
     have0_w = None if trace is None else carry.have.clone()
 
@@ -1019,6 +1061,7 @@ def apply_round_faults(
     if carry.have.device.type == "cpu":
         return (apply_node_faults_plain(slim, rf),
                 apply_carry_faults(carry, rf))
+    refuse_peerswap(slim.pview.shape[1] > 0)
     n, w = carry.have.shape
     d_slots = carry.inflight.shape[0]
     a = slim.heads.shape[1]

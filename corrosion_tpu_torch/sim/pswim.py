@@ -18,7 +18,7 @@ from ..kernels.build import check
 from . import rng
 from .state import ALIVE, DOWN, SUSPECT, SimConfig, SimState
 from .swim import _compact_targets, _dup_before, _reachable
-from .topology import Topology
+from .topology import Topology, loss_tiered
 
 ID_BITS = 18
 ID_CAP = 1 << ID_BITS
@@ -186,7 +186,7 @@ def pswim_step(
     relays = torch.clamp(relays, min=0)
     # split is pure: skipping it when no loss draws uses the keys moves
     # no other draw
-    draws = faults is not None or topo.loss > 0
+    draws = faults is not None or topo.loss > 0 or loss_tiered(topo)
     hop_keys = rng.split(k_rloss, 2) if draws else (k_rloss, k_rloss)
     leg1 = _reachable(
         state, topo, hop_keys[0], me.repeat_interleave(ip),

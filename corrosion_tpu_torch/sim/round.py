@@ -7,8 +7,9 @@ dense round otherwise, either with the flight recorder
 ported; asking for it raises instead of silently running something
 else.
 
-One dense round is inject → broadcast → sync → deliver → SWIM →
-bookkeeping refresh → convergence record, phase for phase and draw for
+One dense round is (under PeerSwap the view swap, then) inject →
+broadcast → sync → deliver → SWIM → bookkeeping refresh → convergence
+record, phase for phase and draw for
 draw JAX's.  Its last two phases are one function here,
 `dense_record`: heads, the K gap slots, the overflow count, both
 convergence stamps and the run's exit flag, from ``have`` in one pass —
@@ -77,12 +78,19 @@ def new_metrics(cfg: SimConfig, device) -> RunMetrics:
 
 
 def validate(cfg: SimConfig, topo: Topology) -> None:
-    """The delay ring must represent every edge delay (sync uses t+1)."""
+    """The delay ring must represent every edge delay (sync uses t+1),
+    and the degree classes must fit inside the fan-out slots."""
     max_delay = max(topo.max_delay, 1)
     if max_delay >= cfg.n_delay_slots:
         raise ValueError(
             f"max edge delay {max_delay} rounds needs n_delay_slots > "
             f"{max_delay}, got {cfg.n_delay_slots}"
+        )
+    if topo.degree_classes and max(topo.degree_classes) > cfg.fanout:
+        raise ValueError(
+            f"degree_classes {topo.degree_classes} exceed fanout="
+            f"{cfg.fanout}; degree caps mask fan-out slots, they cannot "
+            "add slots"
         )
 
 
@@ -232,9 +240,15 @@ def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
     if state.inflight.dtype != torch.uint8:
         raise ValueError("the dense round needs the u8 ring (this state "
                          "was built for the packed envelope)")
-    ks = rng.split(state.key, 4)
+    peerswap = cfg.peer_sampler == "peerswap"
+    ks = rng.split(state.key, 5 if peerswap else 4)
     state = state._replace(key=ks[0])
     k_bcast, k_sync, k_swim = ks[1], ks[2], ks[3]
+    if peerswap:
+        # the view swap tick before the phases (JAX's order)
+        from ..topo.sampler import peerswap_step
+
+        state = peerswap_step(state, cfg, topo, ks[4], faults)
     t = int(state.t)
     have0 = None if trace is None else state.have.clone()
     state = inject_step(state, meta, cfg)

@@ -1,6 +1,8 @@
 """Scenario runner for the port: `run_scenario` and the runner's configs
 (``corrosion_tpu/sim/runner.py``): the 3-node ground truth, broadcast-1k
-and partition-heal-10k on the dense round, the 100k-node write storm,
+and partition-heal-10k on the dense round, the 100k-node write storm
+(broadcast-1k and the storm also over a named topology family and under
+the PeerSwap sampler, `_resolve_topo`),
 the packed fault storm and its flight-recorder rung
 (`config_fault_storm_telemetry`) with their setup `fault_storm` (which
 also puts the storm on the dense round, or on full-view SWIM), and the
@@ -43,6 +45,7 @@ from .state import (
     uniform_payloads,
 )
 from .telemetry import trace_host, trace_summary, write_flight_jsonl
+from ..topo.families import family_topology
 from .topology import Topology, regions
 
 ROUND_SECONDS = 0.5
@@ -170,29 +173,43 @@ def config_ground_truth_3node(
                         return_state=return_state)
 
 
+def _resolve_topo(topo_family: Optional[str]) -> Topology:
+    """Named topology family → Topology (None: the flat default)."""
+    if not topo_family:
+        return Topology()
+    return Topology(**family_topology(topo_family))
+
+
+def _refuse_proto(proto_family) -> None:
+    if proto_family:
+        raise NotImplementedError(
+            "the protocol axis is not ported yet (ROADMAP A10, B15)"
+        )
+
+
 def config_broadcast_1k(
     seed: int = 0,
     telemetry: bool = False,
     trace_path: Optional[str] = None,
-    topo_family=None,
-    sampler=None,
+    topo_family: Optional[str] = None,
+    sampler: Optional[str] = None,
     proto_family=None,
     device="cuda",
     return_state: bool = False,
 ) -> Dict[str, float]:
     """Config #3: 1000 nodes, 8 writers × 32 versions, ground-truth
-    membership, one region.  The topology, sampler and protocol axes are
-    ROADMAP B15 and raise."""
-    if topo_family or sampler or proto_family:
-        raise NotImplementedError(
-            "the topology, sampler and protocol axes are not ported yet "
-            "(ROADMAP B15)"
-        )
+    membership, on the dense round; ``topo_family`` names a topology
+    family (`..topo.families`, default flat) and ``sampler`` the peer
+    sampler ("peerswap" or the uniform default).  The protocol axis
+    (``proto_family``) is ROADMAP A10's other half and raises."""
+    _refuse_proto(proto_family)
+    topo = _resolve_topo(topo_family)
     cfg = SimConfig(n_nodes=1000, n_payloads=256, n_writers=8, fanout=3,
-                    n_delay_slots=4)
+                    n_delay_slots=max(4, topo.max_delay + 1),
+                    peer_sampler=sampler or "uniform")
     meta = uniform_payloads(cfg, resolve_device(device), inject_every=2)
-    return run_scenario(optimize_budgets(cfg, meta), meta, seed=seed,
-                        telemetry=telemetry, trace_path=trace_path,
+    return run_scenario(optimize_budgets(cfg, meta), meta, topo=topo,
+                        seed=seed, telemetry=telemetry, trace_path=trace_path,
                         device=device, return_state=return_state)
 
 
@@ -300,9 +317,13 @@ def membership_churn(
 
 
 def _write_storm(n_nodes: int, n_payloads: int, device="cuda",
-                 topo: Topology = Topology()):
+                 topo: Topology = Topology(), sampler: Optional[str] = None):
     """The multi-writer chunked write storm's config and payloads: 16
-    writers × 4 chunks, partial-view SWIM up to 2^18 nodes."""
+    writers × 4 chunks, partial-view SWIM up to 2^18 nodes — except under
+    the PeerSwap ``sampler``, whose view is the sampler, so the storm
+    runs ground-truth membership — and a ring deep enough for the
+    topology's deepest delay class."""
+    peerswap = (sampler or "uniform") == "peerswap"
     cfg = SimConfig.wan_tuned(
         n_nodes,
         n_payloads=n_payloads,
@@ -311,8 +332,9 @@ def _write_storm(n_nodes: int, n_payloads: int, device="cuda",
         fanout=3,
         sync_interval_rounds=8,
         sync_peers=3,
-        swim_partial_view=n_nodes <= 262144,
+        swim_partial_view=n_nodes <= 262144 and not peerswap,
         member_slots=64,
+        peer_sampler=sampler or "uniform",
         n_delay_slots=max(2, topo.max_delay + 1),
     )
     meta = uniform_payloads(cfg, resolve_device(device), inject_every=2)
@@ -325,15 +347,24 @@ def config_write_storm_100k(
     n_payloads: int = 512,
     telemetry: bool = False,
     trace_path: Optional[str] = None,
+    topo_family: Optional[str] = None,
+    sampler: Optional[str] = None,
+    proto_family=None,
     device="cuda",
     return_state: bool = False,
 ) -> Dict[str, float]:
     """Config #5: 100k nodes, multi-writer chunked write storm, p99
-    time-to-convergence."""
-    cfg, meta = _write_storm(n_nodes, n_payloads, device)
+    time-to-convergence; ``topo_family`` runs it over a named topology
+    family and ``sampler="peerswap"`` under the PeerSwap sampler (with
+    ground-truth membership).  The protocol axis (``proto_family``)
+    raises (ROADMAP A10)."""
+    _refuse_proto(proto_family)
+    topo = _resolve_topo(topo_family)
+    cfg, meta = _write_storm(n_nodes, n_payloads, device, topo, sampler)
     return run_scenario(
-        cfg, meta, seed=seed, max_rounds=3000, telemetry=telemetry,
-        trace_path=trace_path, device=device, return_state=return_state,
+        cfg, meta, topo=topo, seed=seed, max_rounds=3000,
+        telemetry=telemetry, trace_path=trace_path, device=device,
+        return_state=return_state,
     )
 
 

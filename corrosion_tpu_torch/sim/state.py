@@ -32,9 +32,9 @@ def max_transmissions_for(n_live: int, base: int) -> int:
     return max(base, round(base * math.log2(max(2, n_live + 2)) / 5.0))
 
 
-# the scenario axes (ROADMAP B15) and the one value the port runs
+# the protocol axis (ROADMAP A10, its protocol half, with B15's rest) and
+# the one value the port runs
 _AXIS_DEFAULTS = {
-    "peer_sampler": "uniform",
     "dissemination": "push",
     "fanout_schedule": "flat",
     "sync_cadence": "periodic",
@@ -46,9 +46,11 @@ _AXIS_DEFAULTS = {
 class SimConfig:
     """Static configuration: the fields of the JAX ``SimConfig`` that the
     packed and the dense round read, with the same names and defaults.
-    The scenario axes (the PeerSwap sampler and the protocol variants,
-    ROADMAP B15) keep their fields so a configuration reads the same in
-    both packages, and refuse any value but their default.
+    ``peer_sampler`` takes JAX's two values ("uniform", "peerswap" with
+    a view of ``view_slots`` peers, `..topo.sampler`).  The protocol
+    variants (ROADMAP A10's protocol axis) keep their fields so a
+    configuration reads the same in both packages, and refuse any value
+    but their default.
     ``trace_every`` is the flight recorder's round stride (`.telemetry`):
     row t is recorded only when t % trace_every == 0."""
 
@@ -81,6 +83,7 @@ class SimConfig:
     default_payload_bytes: int = 8 * 1024
     trace_every: int = 1
     peer_sampler: str = "uniform"
+    view_slots: int = 16
     dissemination: str = "push"
     fanout_schedule: str = "flat"
     sync_cadence: str = "periodic"
@@ -101,11 +104,24 @@ class SimConfig:
             raise ValueError("pick ONE of swim_full_view / swim_partial_view")
         if self.swim_partial_view and self.n_nodes > 262144:
             raise ValueError("partial-view SWIM supports at most 2^18 nodes")
+        if self.peer_sampler not in ("uniform", "peerswap"):
+            raise ValueError(
+                f"unknown peer_sampler {self.peer_sampler!r} "
+                "(use 'uniform' or 'peerswap')"
+            )
+        if self.peer_sampler == "peerswap":
+            if self.view_slots < 2:
+                raise ValueError("peerswap needs view_slots >= 2")
+            if self.swim_partial_view:
+                raise ValueError(
+                    "peer_sampler='peerswap' is incompatible with "
+                    "swim_partial_view (the member tables ARE a sampler)"
+                )
         for name, default in _AXIS_DEFAULTS.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the scenario axes "
-                    "are not ported yet (ROADMAP B15)"
+                    f"{name}={getattr(self, name)!r}: the protocol axis "
+                    "is not ported yet (ROADMAP A10, B15)"
                 )
 
     @classmethod
@@ -233,7 +249,7 @@ class SimState(NamedTuple):
     pid: torch.Tensor  # i32[N, M]
     pkey: torch.Tensor  # i32[N, M]
     psince: torch.Tensor  # i32[N, M]
-    pview: torch.Tensor  # i32[N, 0]: the PeerSwap sampler is not ported yet
+    pview: torch.Tensor  # i32[N, V] PeerSwap view (-1 empty), or [N, 0]
 
 
 def init_pview(cfg: SimConfig, key: torch.Tensor) -> torch.Tensor:
@@ -254,7 +270,16 @@ def init_state(cfg: SimConfig, key: torch.Tensor) -> SimState:
     d = cfg.n_delay_slots
     swim_n = n if cfg.swim_full_view else 0
     pm = cfg.member_slots if cfg.swim_partial_view else 0
-    keys = rng.split(key, 3)
+    if cfg.peer_sampler == "peerswap":
+        # the view's key is a fourth split; the uniform default keeps
+        # the three-way split
+        from ..topo.sampler import init_peer_view
+
+        keys = rng.split(key, 4)
+        pview = init_peer_view(cfg, keys[3])
+    else:
+        keys = rng.split(key, 3)
+        pview = torch.zeros((n, 0), dtype=torch.int32, device=dev)
     key, sub, kview = keys[0], keys[1], keys[2]
     if cfg.swim_partial_view:
         pid = init_pview(cfg, kview)
@@ -293,7 +318,7 @@ def init_state(cfg: SimConfig, key: torch.Tensor) -> SimState:
         pid=pid,
         pkey=pkey,
         psince=z(n, pm, fill=-1),
-        pview=z(n, 0),
+        pview=pview,
     )
 
 

@@ -1,9 +1,10 @@
 """SWIM membership — the port of ``corrosion_tpu/sim/swim.py``: the
 transposed ``[over, N]`` dedup/compaction helpers, ground-truth
-reachability (flat topologies, their loss, and a fault plan's cuts and
-probe loss), the member sampler in all three modes, and the full-view
-`swim_step` on ``[N, N]`` belief matrices (the partial-view step is
-`.pswim.pswim_step`).
+reachability (the topology's flat or tiered loss, and a fault plan's
+cuts and probe loss), the member sampler in all its modes (partial
+view, PeerSwap view, uniform with or without full-view beliefs), and
+the full-view `swim_step` on ``[N, N]`` belief matrices (the
+partial-view step is `.pswim.pswim_step`).
 
 Two hot functions run hand-written kernels on the card:
 
@@ -35,7 +36,7 @@ from ..kernels.build import check
 from . import rng
 from .faults import fault_reach_
 from .state import ALIVE, DOWN, SUSPECT, SimConfig, SimState
-from .topology import Topology, require_flat
+from .topology import Topology, loss_tiered, tiered_reach_
 
 
 def _compact_targets(
@@ -68,20 +69,23 @@ def _reachable(
     state: SimState, topo: Topology, key: torch.Tensor, src: torch.Tensor,
     dst: torch.Tensor, faults=None,
 ) -> torch.Tensor:
-    """Ground-truth reachability of a probe src→dst on a flat topology:
-    same partition group, both ends up, and — with ``topo.loss`` — not
-    lost to ``bernoulli(key, loss, src.shape)`` (JAX's legacy flat
-    branch).  ``faults`` (a round slice of either plan form) adds the
+    """Ground-truth reachability of a probe src→dst: same partition group,
+    both ends up, and not lost — under tiered loss to the aligned u8
+    draw of ``fold_in(key, 104)`` against each edge's tier threshold
+    (`topology.tiered_reach_`, K20's reach entry on the card), on a flat
+    lossy topology to ``bernoulli(key, loss, src.shape)`` (JAX's legacy
+    flat branch).  ``faults`` (a round slice of either plan form) adds the
     plan's directed cuts and its per-edge loss, drawn from
     ``fold_in(fold_in(key, seed), 103)`` (`faults.fault_reach_`, K9's
     reach entry or K9m's on the card)."""
-    require_flat(topo)
     ok = (
         (state.group[src] == state.group[dst])
         & (state.alive[src] == ALIVE)
         & (state.alive[dst] == ALIVE)
     )
-    if topo.loss > 0:
+    if loss_tiered(topo):
+        ok = tiered_reach_(ok, topo, state.alive.shape[0], key, src, dst)
+    elif topo.loss > 0:
         ok &= ~rng.bernoulli(key, topo.loss, tuple(src.shape))
     if faults is not None:
         ok = fault_reach_(ok, faults, key, src, dst)
@@ -128,12 +132,17 @@ def sample_member_targets(
 ) -> torch.Tensor:
     """i32[N, count] targets from each node's believed member list
     (-1 marks unfilled slots): the partial-view tables when coupled,
-    else ``4 * count`` uniform candidates (JAX
-    ``swim.sample_member_targets``)."""
+    else the PeerSwap view under ``peer_sampler="peerswap"``
+    (`..topo.sampler.psample_view_targets`), else ``4 * count`` uniform
+    candidates (JAX ``swim.sample_member_targets``)."""
     if cfg.swim_partial_view and cfg.couple_membership:
         from .pswim import psample_member_targets
 
         return psample_member_targets(state, cfg, key, count)
+    if cfg.peer_sampler == "peerswap":
+        from ..topo.sampler import psample_view_targets
+
+        return psample_view_targets(state, cfg, key, count)
     n = state.alive.shape[0]
     cand = rng.randint(key, (4 * count, n), 0, n)
     coupled = cfg.swim_full_view and cfg.couple_membership

@@ -162,9 +162,12 @@ def acc_slot(trace: RoundTrace, name: str) -> torch.Tensor:
 
 def wire_loss_active(topo, faults) -> bool:
     """Can the broadcast wire drop frames in this scenario: the flat
-    topology loss, or a fault plan with loss (a matrix slice's ``loss``
-    slab, or loss factors)."""
-    if int(round(topo.loss * 256.0)) > 0:
+    topology loss, tiered topology loss (some applicable tier differs,
+    so one is nonzero), or a fault plan with loss (a matrix slice's
+    ``loss`` slab, or loss factors)."""
+    from .topology import loss_tiered
+
+    if int(round(topo.loss * 256.0)) > 0 or loss_tiered(topo):
         return True
     if faults is None:
         return False

@@ -151,17 +151,58 @@ def test_edge_payload_drop_flat_matches_jax(loss):
 
 
 def test_tiered_loss_and_scenario_axes_refuse():
-    with pytest.raises(NotImplementedError, match="B12"):
-        ptopo.require_flat(ptopo.Topology(n_regions=2, loss=0.1,
-                                          inter_loss=0.3))
-    for name, value in (("peer_sampler", "peerswap"),
-                        ("dissemination", "push-pull"),
+    """The protocol axis still refuses (its four knobs and the runner's
+    ``proto_family``, naming the ROADMAP item); tiered loss and the
+    PeerSwap sampler, which refused here before the topology axis was
+    ported, now equal JAX: the tiered wire draw and the PeerSwap initial
+    state (tests/test_torch_topology_tiers.py and test_torch_peerswap.py
+    hold the rest of the axis)."""
+    topo_kw = dict(n_regions=2, loss=0.1, inter_loss=0.3)
+    src = np.repeat(np.arange(40), 3).astype(np.int32)
+    dst = np.random.default_rng(0).integers(0, 40, 120).astype(np.int32)
+    want = jtopo.edge_payload_drop(
+        jtopo.Topology(**topo_kw), jax.random.PRNGKey(4), 120, 16,
+        src=jnp.asarray(src), dst=jnp.asarray(dst),
+        region=jtopo.regions(40, 2))
+    got = ptopo.edge_payload_drop(
+        ptopo.Topology(**topo_kw), rng.prng_key(4, "cpu"), 120, 16,
+        src=torch.as_tensor(src), dst=torch.as_tensor(dst),
+        region=ptopo.regions(40, 2, "cpu"))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    jcfg = jstate.SimConfig(n_nodes=4, n_payloads=4, peer_sampler="peerswap")
+    pcfg = pstate.SimConfig(n_nodes=4, n_payloads=4, peer_sampler="peerswap")
+    assert_states_equal(jstate.init_state(jcfg, jax.random.PRNGKey(2)),
+                        pstate.init_state(pcfg, rng.prng_key(2, "cpu")),
+                        "peerswap init")
+    for name, value in (("dissemination", "push-pull"),
                         ("fanout_schedule", "decay"),
                         ("sync_cadence", "eager"), ("ordering", "fifo")):
-        with pytest.raises(NotImplementedError, match="B15"):
+        with pytest.raises(NotImplementedError, match="A10"):
             pstate.SimConfig(n_nodes=4, n_payloads=4, **{name: value})
-    with pytest.raises(NotImplementedError, match="B15"):
-        runner.config_broadcast_1k(sampler="peerswap", device="cpu")
+    for entry in (runner.config_broadcast_1k, runner.config_write_storm_100k):
+        with pytest.raises(NotImplementedError, match="A10"):
+            entry(proto_family="push-pull", device="cpu")
+
+
+def test_fault_plan_under_peerswap_refuses():
+    """A fault plan under the PeerSwap sampler raises, naming ROADMAP A10:
+    JAX's crash-with-wipe also empties the wiped node's view, which K11
+    does not do on the card, so the port refuses the combination on both
+    devices rather than run it to a different state (run_fault_plan and
+    the checked driver)."""
+    from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+    from corrosion_tpu_torch.sim import faults as pfaults
+
+    cfg = pstate.SimConfig(n_nodes=12, n_payloads=8, peer_sampler="peerswap")
+    meta = pstate.uniform_payloads(cfg, "cpu")
+    plan = FaultPlan(n_nodes=12, seed=0, events=(
+        FaultEvent("crash", 2, 6, node=1, wipe=True),))
+    fplan = pfaults.compile_plan(plan, cfg, device="cpu")
+    state = pround.new_sim(cfg, 0, "cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        pfaults.run_fault_plan(state, meta, cfg, ptopo.Topology(), fplan)
+    with pytest.raises(NotImplementedError, match="A10"):
+        pfaults.run_fault_plan_checked(plan, state, meta, cfg)
 
 
 @pytest.mark.parametrize("v, k", ((32, 8), (32, 2), (64, 8), (64, 3),

@@ -1171,3 +1171,57 @@ def test_matrix_run_on_card_equals_cpu(card, name):
 
         for f in tel.CHANNELS:
             assert torch.equal(getattr(out[2], f).cpu(), getattr(cpu[2], f)), f
+
+
+# -- the topology axis: K20, K21, K1's view entry, the tiered K10 and K12 ----
+
+
+@pytest.mark.parametrize("n", (1201, 3001))
+def test_topology_kernels(card, n):
+    """chip_smoke.py's phase 3h comparisons at small node counts the
+    regions and AZs do not divide, every trap reached."""
+    cs = _smoke()
+    g = np.random.default_rng(n)
+    before = {k.name: k.launches for k in kernels.KERNELS}
+    rows = (cs.compare_edge_slots(card, g, n, timed=False)
+            + [cs.compare_degree_caps(card, g, n, timed=False)]
+            + cs.compare_edge_reach(card, g, n, timed=False)
+            + [cs.compare_scatter_tiered(card, g, n, timed=False),
+               cs.compare_dense_tiered(card, g, n, timed=False)]
+            + cs.compare_sample_view(card, g, n, timed=False)
+            + cs.compare_peerswap(card, g, n, timed=False))
+    assert all(row["equal"] for row in rows), rows
+    for row in ("edge_slots", "degree_caps", "edge_reach",
+                "broadcast_scatter_tiered", "dense_broadcast_tiered",
+                "sample_view", "peerswap"):
+        for kern in kernels.PORTED[row]:
+            assert kern.launches > before[kern.name], kern.name
+
+
+def _topology_run(dev, family, sampler, packed, telemetry):
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.runner import _resolve_topo, _write_storm
+
+    topo = _resolve_topo(family)
+    cfg, meta = _write_storm(240, 128, dev, topo, sampler)
+    change = dict(packed_min_cells=0) if packed else dict(allow_packed=False)
+    cfg = dataclasses.replace(cfg, **change)
+    return run_to_convergence(new_sim(cfg, 5, dev), meta, cfg, topo, 400,
+                              telemetry)
+
+
+@pytest.mark.parametrize("packed", (True, False), ids=("packed", "dense"))
+@pytest.mark.parametrize("family, sampler, telemetry", (
+    ("wan-3x2", None, True), ("wan-fly-6r", None, False),
+    ("hetero-degree", "peerswap", False), ("wan-3x2", "peerswap", True)))
+def test_topology_run_on_card_equals_cpu(card, family, sampler, telemetry,
+                                         packed):
+    """A small storm over each kind of topology and under PeerSwap on the
+    card, every state tensor (the view included), metric and trace
+    channel equal to the same run's plain versions on the CPU."""
+    got = _topology_run(card, family, sampler, packed, telemetry)
+    want = _topology_run(torch.device("cpu"), family, sampler, packed,
+                         telemetry)
+    for a, b in zip(got, want):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y), name

@@ -81,12 +81,12 @@ def test_wrapper_check_refuses_what_c_cannot_take():
 @pytest.mark.parametrize("source", SOURCES)
 def test_cuda_source_names_the_jax_function_it_replaces(source):
     head = (CSRC / source).read_text()[:2000]
-    m = re.search(r"corrosion_tpu/sim/(\w+\.py):(\d+)\s+(?://\s*)?(\w+)",
-                  head)
+    m = re.search(
+        r"corrosion_tpu/(sim|topo)/(\w+\.py):(\d+)\s+(?://\s*)?(\w+)", head)
     assert m, f"{source} does not name the JAX function it replaces"
-    jax_file = ROOT / "corrosion_tpu" / "sim" / m.group(1)
-    line = jax_file.read_text().splitlines()[int(m.group(2)) - 1]
-    assert line.startswith(f"def {m.group(3)}("), (source, line)
+    jax_file = ROOT / "corrosion_tpu" / m.group(1) / m.group(2)
+    line = jax_file.read_text().splitlines()[int(m.group(3)) - 1]
+    assert line.startswith(f"def {m.group(4)}("), (source, line)
 
 
 def test_library_name_follows_included_headers(tmp_path):

@@ -214,3 +214,40 @@ def demo_events(ev, n_nodes: int = 3, rounds: int = 36):
         ev("jitter", 2, 2 * third, src=0, dst=1, delay_rounds=1),
         ev("crash", 2 * third, rounds - 2, node=n_nodes - 1, wipe=True),
     )
+
+
+#: the topology-axis runs' scale (tests/test_torch_topology_tiers.py and
+#: tests/test_torch_peerswap.py): `_write_storm` at a few hundred nodes
+N_RUN, P_RUN, SEED = 300, 128, 3
+
+
+def topology_storm(family, sampler, packed):
+    """(jax cfg, meta, topo, port cfg, meta, topo) of `_write_storm` at
+    N_RUN nodes over topology ``family`` under ``sampler``, on the packed
+    round (the envelope forced open) or the dense one."""
+    from corrosion_tpu.sim.runner import _resolve_topo as jax_resolve_topo
+    from corrosion_tpu_torch.sim.runner import _resolve_topo
+
+    jt, pt = jax_resolve_topo(family), _resolve_topo(family)
+    jcfg, jmeta = jax_write_storm(N_RUN, P_RUN, topo=jt, sampler=sampler)
+    pcfg, pmeta = port_write_storm(N_RUN, P_RUN, "cpu", pt, sampler)
+    ch = dict(packed_min_cells=0) if packed else dict(allow_packed=False)
+    return (dataclasses.replace(jcfg, **ch), jmeta, jt,
+            dataclasses.replace(pcfg, **ch), pmeta, pt)
+
+
+def run_topology_pair(family, sampler, packed):
+    """Both packages' runs of `topology_storm` to convergence, final
+    state (the view included) and RunMetrics equal field for field."""
+    from corrosion_tpu.sim import round as jround
+    from corrosion_tpu_torch.sim import round as pround
+
+    jcfg, jmeta, jt, pcfg, pmeta, pt = topology_storm(family, sampler, packed)
+    jout = jround.run_to_convergence(jround.new_sim(jcfg, SEED), jmeta, jcfg,
+                                     jt, 400)
+    pout = pround.run_to_convergence(pround.new_sim(pcfg, SEED, "cpu"),
+                                     pmeta, pcfg, pt, 400)
+    label = f"{family}/{sampler or 'uniform'}/{'packed' if packed else 'dense'}"
+    assert_states_equal(jout[0], pout[0], label)
+    assert_metrics_equal(jout[1], pout[1], label)
+    return jout, pout
