@@ -6,11 +6,13 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the twenty-one CUDA kernels K1–K21 (with the latency entries
+2. build the twenty-two CUDA kernels K1–K22 (with the latency entries
    of K3, K9 and K10, the dense fault entries of K11–K14, K9's matrix
-   entry K9m, K1's view entry and the tiered instantiations of K10 and
-   K12) from the twenty sources in ``corrosion_tpu_torch/kernels/csrc``
-   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
+   entry K9m, K1's view entry, the tiered instantiations of K10 and
+   K12, and the protocol axis's instantiations of K8, K10, K12, K18 and
+   K20) from the twenty-one sources in
+   ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``
+   (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
    k = 8, A = 16, V = 8, C = 4, K = 8; the fault storm's plan: Kb = 2,
    Kl = 1, threshold 38, E up to 300000), call each kernel's wrappers
@@ -94,6 +96,20 @@ result line):
    composing, empty/self/repeated view candidates, the believed-DOWN
    filter, down nodes with unreachable partners and wiped views, and
    g == t % V with several offers to one partner;
+   then the protocol axis (phase 3i): K10p (the push-pull response
+   scatter: loss-free, with the flat and fault streams, tiered on
+   wan-3x2) at the storm's shapes (E = 300000, W = 16, D = 3) under a
+   one-way plan's session mask and reverse thresholds (K9), K12p's three
+   forms at broadcast-1k's (N = 1000, P = 256, a binding budget), K8f at
+   the storm's and K12f-o at broadcast-1k's and at N = 10000 with C = 4,
+   K22's word entry at the storm's and its u8 entry at broadcast-1k's
+   and the dense storm's, K20's schedule instantiation on the storm's
+   targets and K18's pull entries, printing that each of its traps was
+   reached: a pull refused only by the reverse cut, reverse tier loss
+   under wan-3x2, the pull jitter-free under a jitter plan, a binding
+   responder budget, a FIFO arrival whose predecessor is held but for
+   one chunk (packed and dense), the origin-row exemption, a decay step
+   crossing R composed after the degree caps;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -169,7 +185,17 @@ result line):
    tiered K10 or K12, K1's view entry and K21 launched where the path
    runs them (and K2, K10's flat entry, K1's table entry and K4 not
    where it does not);
-14. profile the first 3 rounds of both storms (their telemetry-off
+14. the protocol axis, each from launch counters at 0 through its entry
+   point: ``config_write_storm_100k(seed=0, proto_family=...)`` for all
+   six families (baseline's launches equal path 5's), the 100k fault
+   storm and ``topo_family="wan-3x2"`` with ``telemetry=True`` under
+   push-pull, ``config_broadcast_1k(seed=0, proto_family=...)`` for
+   push-pull (also over flat-lossy and wan-3x2, and with the recorder),
+   lab-ordered and lab-ordered-broken, each held against its golden with
+   the run's ``order_violations``, with K10p's, K12p's, K8f's, K12f-o's,
+   K22's, K20's schedule's and K18's pull entries launched where the path
+   runs them and not where it does not;
+15. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
    the process ran before), the
@@ -177,10 +203,11 @@ result line):
    partition-heal-10k, the first 3 rounds of gapstress-25.6k and rounds
    6-8 of latency-storm-100k and of the same config without its latency
    pair, rounds 5-7 of dense-fault-storm-100k and of fault-storm-1000,
-   the first 3 rounds of storm-wan-3x2-100k and of storm-peerswap-25.6k
-   (host wall, device time by kernel from ``torch.profiler``, the
-   device's idle share);
-15. print the card line, the kernels JSON line, then the one-line result
+   the first 3 rounds of storm-wan-3x2-100k, storm-peerswap-25.6k and
+   the push-pull and lab-ordered storms (host wall, device time by
+   kernel from ``torch.profiler``, the device's idle share; the storm
+   under the baseline family is held to 1526 launches too);
+16. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -317,7 +344,10 @@ KERNEL_SYMBOLS = (
     "fault_edges_matrix_kernel", "fault_reach_matrix_kernel",
     "edge_slots_kernel", "degree_caps_kernel", "edge_reach_kernel",
     "sample_view_kernel", "peerswap_partner_kernel", "peerswap_swap_kernel",
-    "peerswap_land_kernel",
+    "peerswap_land_kernel", "broadcast_pull_kernel", "dense_pull_kernel",
+    "deliver_fifo_kernel", "dense_deliver_fifo_kernel", "order_words_kernel",
+    "order_dense_kernel", "degree_caps_sched_kernel",
+    "trace_wire_words_pull_kernel", "trace_wire_rows_pull_kernel",
 )
 
 
@@ -384,11 +414,12 @@ def _profile(run, rounds, label, setup=None):
 
 
 def profile_storm(dev, rounds=3, faults=False, telemetry=False, n=100_000,
-                  topo_family=None, sampler=None):
+                  topo_family=None, sampler=None, proto_family=None):
     """The first ``rounds`` rounds of the 100k faultless storm, or with
     ``faults`` of the fault storm (inside its loss window); with
     ``telemetry`` the flight recorder on; at ``n`` nodes, over a
-    topology family, under a peer sampler when asked."""
+    topology family, under a peer sampler and a protocol family when
+    asked."""
     from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
     from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
     from corrosion_tpu_torch.sim.runner import (
@@ -396,7 +427,7 @@ def profile_storm(dev, rounds=3, faults=False, telemetry=False, n=100_000,
     from corrosion_tpu_torch.sim.topology import Topology
 
     topo = _resolve_topo(topo_family)
-    cfg, meta = _write_storm(n, 512, dev, topo, sampler)
+    cfg, meta = _write_storm(n, 512, dev, topo, sampler, proto_family)
     if faults:
         fplan = compile_plan(storm_fault_plan(100_000, 0), cfg, device=dev)
 
@@ -414,7 +445,8 @@ def profile_storm(dev, rounds=3, faults=False, telemetry=False, n=100_000,
 
     label = ("fault storm" if faults else "storm") + (
         f"-{topo_family}" if topo_family else "") + (
-        f"-{sampler}" if sampler else "") + f"-{n / 1000:g}k"
+        f"-{sampler}" if sampler else "") + (
+        f"-{proto_family}" if proto_family else "") + f"-{n / 1000:g}k"
     return _profile(run, rounds, label + (" telemetry" if telemetry else ""))
 
 
@@ -3918,6 +3950,528 @@ def compare_topology_kernels(dev, seed=7, timed=True):
     return rows
 
 
+# -- phase 3i: the protocol axis ----------------------------------------------
+
+PROTO_1K = 1000
+
+
+def _pull_edges(g, dev, n, f, d):
+    """A fan-out draw of E = N·F edges: -1 and self slots among the
+    targets, the push's ok (neither), a slot per edge in [0, D)."""
+    e = n * f
+    tg = np.where(g.random(e) < 0.03, -1, g.integers(0, n, e))
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    raw = torch.as_tensor(tg, dtype=torch.int32, device=dev)
+    ok = (raw >= 0) & (raw != src)
+    dst = torch.clamp(raw, min=0)
+    slot = torch.as_tensor(g.integers(0, d, e), dtype=torch.int32, device=dev)
+    return src, dst, ok, slot
+
+
+def one_way_plan(n, seed=3):
+    """A one-way cut (the first half to the second) and a loss class out
+    of the middle half, rounds 0-7: pulls refused only by the reverse
+    cut, and reverse-direction fault loss on the rest."""
+    from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+
+    half = n // 2
+    return FaultPlan(n_nodes=n, seed=seed, events=(
+        FaultEvent("loss", 0, 8, src=f"{n // 4}:{3 * n // 4}", dst="*",
+                   p=0.3),
+        FaultEvent("partition", 0, 8, src=f"0:{half}", dst=f"{half}:{n}"),
+    ))
+
+
+def _hash_ops(live, thr_edge):
+    """Hashes of one stream over [E, W] sending (edge, word) pairs
+    ``live``: eight a pair whose edge threshold is in (0, 256)."""
+    on = (thr_edge > 0) & (thr_edge < 256)
+    return int((live & on[:, None]).sum()) * 8
+
+
+def _ops_row(name, source, replaces, equal, err, ms, plain_ms, nbytes, ops,
+             **extra):
+    """A kernel row bound by the larger of its bytes and its u32
+    operations."""
+    rate = _int32_ops_per_s()
+    ops_ms = ops / rate * 1e3
+    return dict(name=name, source=source, replaces=replaces, equal=equal,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(_bound_ms(nbytes), ops_ms),
+                bound_by="operations" if ops_ms > _bound_ms(nbytes)
+                else "bytes", bytes=nbytes, ops=ops, **extra)
+
+
+def compare_pull_scatter(dev, g, n=STORM_N, timed=True):
+    """K10p at the storm's shapes (E = 300000, W = 16, D = 3): the session
+    mask and the reverse thresholds of a one-way plan (K9 with no count,
+    on the swapped edges), then the loss-free form, the flat and fault
+    streams, and the tiered form on wan-3x2 with the fault stream; and
+    one round of latency-storm-100k's plan, where the push jitters."""
+    from corrosion_tpu_torch.proto import dissemination as dis
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim import topology as tp
+
+    f, w, d = 3, 16, 3
+    cfg, _ = _storm_cfg(n, dev)
+    fplan = faults.compile_plan(one_way_plan(n), cfg, device=dev)
+    rf = faults.round_faults(fplan, 3)
+    seed = int(rf.seed)
+    sending = _random_words(g, (n, w), dev, 2)
+    src, dst, ok0, slot = _pull_edges(g, dev, n, f, d)
+    ok = ok0.clone()
+    faults.fault_wire_effects(rf, src, dst, ok)  # the forward cut
+    ok_pull = dis.pull_session_ok(ok, rf, src, dst)
+    thr_rev = dis.reverse_loss(rf, src, dst)
+    q_equal, _ = _equal_all(
+        [ok_pull, thr_rev],
+        [dis.pull_session_ok_plain(ok, rf, src, dst),
+         faults._loss_plain(rf, dst, src)])
+    if not q_equal:
+        raise AssertionError("pull session mask or reverse thresholds != "
+                             "their plain versions")
+    _trap("proto 1", "pulls refused only by the reverse cut (a one-way "
+          "partition: the push flows, the response does not)",
+          bool((ok & ~ok_pull).any()))
+    wan = _topo("wan-3x2")
+    k_drop = trng.prng_key(12, dev)
+    ring0 = _random_words(g, (d, n, w), dev, 6)
+    live = ok_pull[:, None] & (sending[dst.long()] != 0)
+    rows_touched = torch.unique(
+        (slot.long() * n + src.long())[ok_pull]).numel()
+    base_bytes = sending.numel() * 4 + src.numel() * 9 + rows_touched * w * 8
+    region3 = tp.regions(n, 3, dev)
+    cases = (("broadcast_pull", None, 0, None),
+             ("broadcast_pull_lossy", thr_rev, 26, None),
+             ("broadcast_pull_tiered", thr_rev, 0, wan))
+    rows, drops = [], {}
+    for name, thr, topo_thr, tiers in cases:
+        args = (sending, dst, slot, ok_pull, thr, k_drop, seed, f, topo_thr)
+        got, want = ring0.clone(), ring0.clone()
+        dk, dp = _acc(dev), _acc(dev)
+        packed.scatter_pull(got, *args, dk, tiers)
+        packed.scatter_pull_plain(want, *args, dp, tiers)
+        equal, err = _equal_all([got, dk], [want, dp])
+        drops[name] = int(dp)
+        hashes = 0
+        if tiers is not None:
+            raw = tp.edge_loss_thresholds_raw(tiers, region3, dst, src)
+            hashes += _hash_ops(live, raw)
+        elif topo_thr:
+            hashes += _hash_ops(live, torch.full_like(dst, topo_thr))
+        if thr is not None:
+            hashes += _hash_ops(live, thr.to(torch.int32))
+        work = ring0.clone()
+        rows.append(_ops_row(
+            name, "corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
+            "corrosion_tpu/proto/dissemination.py:58", equal, err,
+            _timed(timed, lambda: packed.scatter_pull(work, *args, None,
+                                                      tiers),
+                   lambda: work.copy_(ring0)),
+            _time_eager_ms(lambda: packed.scatter_pull_plain(
+                ring0.clone(), *args, None, tiers), SLOW_PLAIN_REPS)
+            if timed else None,
+            base_bytes + (src.numel() if thr is not None else 0),
+            hashes * OPS_PER_HASH, hashes=hashes, kernel=name))
+    # the first 3000 edges' pull bits on wan-3x2: every lossy REVERSE tier
+    # drops some (the draw's bytes do not depend on its length)
+    bits = dis.pull_drop_bits(0, wan, None, 0, k_drop, src[:3000],
+                              dst[:3000], 512, region3)
+    raw = tp.edge_loss_thresholds_raw(wan, region3, dst[:3000], src[:3000])
+    _trap("proto 2", "reverse tier loss under wan-3x2: each lossy tier of the "
+          "swapped edges drops pulled payloads on the pull's key",
+          drops["broadcast_pull_tiered"] > 0 and all(
+              bool(bits[raw == thr].any())
+              for thr in set(tp.loss_tiers(wan)) - {0}))
+    # one round of the latency storm: the push jitters, the pull lands in
+    # its edge's fixed-delay slot
+    lcfg, _, lplan = _latency_storm(n, dev)
+    lrf = faults.round_faults(lplan, LATENCY_T)
+    ok_l = ok0.clone()
+    _, lthr, fdelay, jit = faults.fault_wire_effects(lrf, src, dst, ok_l)
+    slot_l = tp.edge_slot(tp.Topology(), tp.regions(n, 1, dev), src, dst,
+                          LATENCY_T, 4, fdelay)
+    okp_l = dis.pull_session_ok(ok_l, lrf, src, dst)
+    lrev = dis.reverse_loss(lrf, src, dst)
+    got = torch.zeros((4, n, w), dtype=torch.int32, device=dev)
+    want = got.clone()
+    largs = (sending, dst, slot_l, okp_l, lrev, k_drop, int(lrf.seed), f)
+    packed.scatter_pull(got, *largs)
+    packed.scatter_pull_plain(want, *largs)
+    equal, err = _equal_all([got], [want])
+    rows[1]["equal"] &= equal
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err)
+    written = (want != 0).any(dim=2).reshape(-1).nonzero().reshape(-1)
+    allowed = (slot_l.long() * n + src.long())[okp_l]
+    _trap("proto 3", "the pull jitter-free under a jitter plan: jittered "
+          "edges pull, and every pulled bit lands in its edge's fixed-delay "
+          "slot", bool(((jit > 0) & okp_l).any()) and written.numel() > 0
+          and bool(torch.isin(written, allowed).all()))
+    return rows
+
+
+def compare_dense_pull(dev, g, n=PROTO_1K, timed=True):
+    """K12p at broadcast-1k's shapes (N = 1000, P = 256, F = 3, D = 4):
+    the loss-free form (the path's), the flat and fault streams with a
+    binding byte budget, and the tiered form on wan-3x2 with the fault
+    stream, each with its dropped count."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import rng as trng
+    from corrosion_tpu_torch.sim import topology as tp
+    from corrosion_tpu_torch.sim.state import (
+        SimConfig, budget_prefix_mask, uniform_payloads)
+
+    cfg = SimConfig(n_nodes=n, n_payloads=256, n_writers=8, fanout=3,
+                    n_delay_slots=4)
+    meta = uniform_payloads(cfg, dev, inject_every=2)
+    have, relay, injected, ring, _, _, _ = _dense_round_inputs(
+        g, dev, cfg, meta, 30)
+    f, p, d = 3, cfg.n_payloads, 4
+    src, dst, ok, slot = _pull_edges(g, dev, n, f, d)
+    fthr = torch.as_tensor(np.where(g.random(n * f) < 0.5, 0,
+                                    g.integers(1, 80, n * f)),
+                           dtype=torch.uint8, device=dev)
+    k_drop = trng.prng_key(33, dev)
+    wan = _topo("wan-3x2")
+    budget = 40 * 8192
+    eligible = (have > 0) & (relay > 0) & (injected > 0)[None, :]
+    metered = budget_prefix_mask(eligible, budget, meta.nbytes)
+    _trap("proto dense 1", "the responder's byte budget binds its answer",
+          bool((eligible & ~metered).any()))
+    rows = []
+    for name, fth, thr, tiers, bud in (
+            ("dense_pull", None, 0, None, None),
+            ("dense_pull_lossy", fthr, 26, None, budget),
+            ("dense_pull_tiered", fthr, 0, wan, None)):
+        args = (have, relay, injected, meta.nbytes, bud, dst, slot, ok,
+                k_drop, thr)
+        got, want = ring.clone(), ring.clone()
+        dk, dp = _acc(dev), _acc(dev)
+        bc.pull_send(*args, got, dk, fth, 5, tiers)
+        bc.pull_send_plain(*args, want, dp, fth, 5, tiers)
+        equal, err = _equal_all([got, dk], [want, dp])
+        if name != "dense_pull" and int(dp) == 0:
+            raise AssertionError(f"{name}: the streams dropped nothing")
+        sending = metered if bud is not None else eligible
+        per_edge = sending[dst.long()] & ok[:, None]
+        hashes = 0
+        if tiers is not None:
+            raw = tp.edge_loss_thresholds_raw(tiers, tp.regions(n, 3, dev),
+                                              dst, src)
+            on = (raw > 0) & (raw < 256)
+            hashes += int((per_edge & on[:, None]).sum())
+        elif thr:
+            hashes += int(per_edge.sum())
+        if fth is not None:
+            hashes += int((per_edge & (fth > 0)[:, None]).sum())
+        nbytes = (have.numel() * 2 + p * 5 + src.numel() * 9
+                  + (src.numel() if fth is not None else 0)
+                  + int(per_edge.sum()))
+        work = ring.clone()
+        rows.append(_ops_row(
+            name, "corrosion_tpu_torch/kernels/csrc/dense_phases.cu",
+            "corrosion_tpu/proto/dissemination.py:58", equal, err,
+            _timed(timed, lambda: bc.pull_send(*args, work, None, fth, 5,
+                                               tiers),
+                   lambda: work.copy_(ring)),
+            _timed(timed, lambda: bc.pull_send_plain(*args, work, None, fth,
+                                                     5, tiers),
+                   lambda: work.copy_(ring)),
+            nbytes, hashes * OPS_PER_HASH, hashes=hashes, kernel=name))
+    return rows
+
+
+def _holdings(g, n, a, v, c, dev, full=0.6, some=0.15):
+    """u8 have [N, V·A·C] (version-major): whole versions held with
+    probability ``full``, single chunks with ``some`` — predecessors held
+    but for a chunk, gaps below heads."""
+    whole = g.random((n, v, a, 1)) < full
+    part = g.random((n, v, a, c)) < some
+    return torch.as_tensor((whole | part).reshape(n, v * a * c).astype(
+        np.uint8), device=dev)
+
+
+def _one_chunk_short(have, arrivals, a, v, c):
+    """Some arrival of version v > 1 whose predecessor is held but for
+    one chunk."""
+    n = have.shape[0]
+    h = have.reshape(n, v, a, c).sum(dim=3)
+    arr = arrivals.reshape(n, v, a, c).any(dim=3)
+    return bool((arr[:, 1:] & (h[:, :-1] == c - 1)).any())
+
+
+def compare_fifo_deliver(dev, g, n=STORM_N, timed=True):
+    """K8f at the storm's shapes (N = 100000, W = 16, A = 16, C = 4, D =
+    2) and K12f-o at broadcast-1k's (N = 1000, P = 256, A = 8, C = 1, D =
+    4) and the storm layout at N = 10000 (C = 4): both rings behind the
+    admit gate of the pre-merge have."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim.words import pack_bits, unpack_bits
+
+    rows = []
+    cfg, _ = _storm_cfg(n, dev)
+    cfg = dataclasses.replace(cfg, ordering="fifo")
+    a, v, c = cfg.n_writers, cfg.n_versions, cfg.chunks_per_version
+    d, w, t = cfg.n_delay_slots, cfg.n_payloads // 32, 9
+    have_u8 = _holdings(g, n, a, v, c, dev)
+    relay = [_random_words(g, (n, w), dev, 2) & pack_bits(have_u8)
+             for _ in range(4)]
+    carry0 = packed.PackedCarry(
+        have=pack_bits(have_u8), inflight=_random_words(g, (d, n, w), dev, 3),
+        relay=packed.Planes(*relay),
+        sync_buf=_random_words(g, (d, n, w), dev, 4))
+    slot = t % d
+    arrivals = unpack_bits(carry0.inflight[slot] | carry0.sync_buf[slot],
+                           cfg.n_payloads)
+    _trap("proto 4", "a FIFO arrival whose predecessor is held except for "
+          "one chunk (refused)", _one_chunk_short(have_u8, arrivals, a, v, c))
+
+    def clone(cr):
+        return packed.PackedCarry(cr.have.clone(), cr.inflight.clone(),
+                                  packed.Planes(*(x.clone() for x in
+                                                  cr.relay)),
+                                  cr.sync_buf.clone())
+
+    def restore(dst_, src_=carry0):
+        for x, y in zip((dst_.have, dst_.inflight, *dst_.relay,
+                         dst_.sync_buf),
+                        (src_.have, src_.inflight, *src_.relay,
+                         src_.sync_buf)):
+            x.copy_(y)
+
+    got, want = clone(carry0), clone(carry0)
+    packed.deliver_packed(got, t, cfg)
+    packed.deliver_packed_plain(want, t, cfg)
+    flat = [got.have, got.inflight, *got.relay, got.sync_buf]
+    flat_w = [want.have, want.inflight, *want.relay, want.sync_buf]
+    equal, err = _equal_all(flat, flat_w)
+    kw_, pw_ = clone(carry0), clone(carry0)
+    rows.append(_row(
+        "word_deliver_fifo", "corrosion_tpu_torch/kernels/csrc/word_phases.cu",
+        "corrosion_tpu/proto/ordering.py:65", equal, err,
+        _timed(timed, lambda: packed.deliver_packed(kw_, t, cfg),
+               lambda: restore(kw_)),
+        _timed(timed, lambda: packed.deliver_packed_plain(pw_, t, cfg),
+               lambda: restore(pw_)),
+        n * w * 4 * 2 * 2 + _changed_bytes(flat[:1] + flat[2:6],
+                                           [carry0.have, *carry0.relay]),
+        kernel="word_deliver_fifo"))
+    for label, nn, kw in (
+            ("", PROTO_1K, dict(n_payloads=256, n_writers=8,
+                                n_delay_slots=4)),
+            ("_c4", 10_000, dict(n_payloads=512, n_writers=16,
+                                 chunks_per_version=4, n_delay_slots=2))):
+        from corrosion_tpu_torch.sim.state import SimConfig
+
+        dcfg = SimConfig(n_nodes=nn, fanout=3, ordering="fifo", **kw)
+        a, v, c = dcfg.n_writers, dcfg.n_versions, dcfg.chunks_per_version
+        p, d = dcfg.n_payloads, dcfg.n_delay_slots
+        have = _holdings(g, nn, a, v, c, dev)
+        relay_ = torch.as_tensor(g.integers(0, 10, (nn, p)), dtype=torch.uint8,
+                                 device=dev) * have
+        ring = _u8(g, (d, nn, p), 0.1, dev)
+        sync = _u8(g, (d, nn, p), 0.05, dev)
+        slot = 3 % d
+        if c > 1:
+            _trap("proto dense 2", "a dense FIFO arrival whose predecessor "
+                  "is held except for one chunk", _one_chunk_short(
+                      have, (ring[slot] | sync[slot]) > 0, a, v, c))
+        xs0 = (ring, sync, have, relay_)
+        outs = []
+        for kernel in (True, False):
+            xs = [x.clone() for x in xs0]
+            if kernel:
+                bc.deliver_dense(*xs, slot, 9, dcfg)
+            else:
+                from corrosion_tpu_torch.proto.ordering import (
+                    admit_payload_mask)
+
+                bc.deliver_dense_plain(*xs, slot, 9,
+                                       admit_payload_mask(xs[2], dcfg))
+            outs.append(xs)
+        equal, err = _equal_all(outs[0], outs[1])
+        wk = [x.clone() for x in xs0]
+        wp = [x.clone() for x in xs0]
+
+        def put_back(xs):
+            for x, y in zip(xs, xs0):
+                x.copy_(y)
+
+        def plain(xs=wp):
+            from corrosion_tpu_torch.proto.ordering import admit_payload_mask
+
+            bc.deliver_dense_plain(*xs, slot, 9,
+                                   admit_payload_mask(xs[2], dcfg))
+
+        rows.append(_row(
+            "dense_deliver_fifo" + label,
+            "corrosion_tpu_torch/kernels/csrc/dense_phases.cu",
+            "corrosion_tpu/proto/ordering.py:55", equal, err,
+            _timed(timed, lambda: bc.deliver_dense(*wk, slot, 9, dcfg),
+                   lambda: put_back(wk)),
+            _timed(timed, plain, lambda: put_back(wp)),
+            nn * p * 4 + _changed_bytes(outs[1][2:], xs0[2:]),
+            kernel="dense_deliver_fifo", n=nn))
+    return rows
+
+
+def compare_order_check(dev, g, n=STORM_N, timed=True):
+    """K22's word entry at the storm's shapes (N = 100000, W = 16, A = 16,
+    V = 8, C = 4) and its u8 entry at broadcast-1k's (N = 1000, P = 256,
+    A = 8, C = 1) and the dense storm's (N = 100000, P = 512, C = 4):
+    holdings with gaps, origin rows among them, added to a nonzero
+    accumulator."""
+    from corrosion_tpu_torch.proto.ordering import prev_complete
+    from corrosion_tpu_torch.sim import invariants as inv
+    from corrosion_tpu_torch.sim.state import SimConfig, uniform_payloads
+    from corrosion_tpu_torch.sim.words import pack_bits
+
+    rows = []
+    cfg, meta = _storm_cfg(n, dev)
+    cfg = dataclasses.replace(cfg, ordering="fifo-unchecked")
+    b1k = SimConfig(n_nodes=PROTO_1K, n_payloads=256, n_writers=8, fanout=3,
+                    ordering="fifo-unchecked")
+    for label, c_, m_, packed_ in (
+            ("order_check_words", cfg, meta, True),
+            ("order_check_dense", b1k, uniform_payloads(b1k, dev, 2), False),
+            ("order_check_dense_storm", cfg, meta, False)):
+        nn = c_.n_nodes
+        have_u8 = _holdings(g, nn, c_.n_writers, c_.n_versions,
+                            c_.chunks_per_version, dev, 0.5, 0.2)
+        have = pack_bits(have_u8) if packed_ else have_u8
+        acc0 = torch.full((), 11, dtype=torch.int32, device=dev)
+        got = acc0.clone()
+        inv.count_order_violations_(got, have, m_, c_)
+        grids = inv._grids(have, c_)
+        want = acc0 + inv.order_violation_count(*grids, m_, c_)
+        equal, err = _equal_all([got], [want])
+        if label == "order_check_words":
+            everyone = int((grids[0] & ~prev_complete(grids[1])).sum())
+            _trap("proto 5", "the origin-row exemption: origin rows hold "
+                  "out-of-order versions the count leaves out",
+                  everyone > int(want - acc0) > 0)
+        work = acc0.clone()
+        rows.append(_row(
+            label, "corrosion_tpu_torch/kernels/csrc/order_check.cu",
+            "corrosion_tpu/sim/invariants.py:51", equal, err,
+            _timed(timed, lambda: inv.count_order_violations_(
+                work, have, m_, c_), lambda: work.copy_(acc0)),
+            _timed(timed, lambda: inv.order_violation_count(
+                *inv._grids(have, c_), m_, c_)),
+            _nbytes(have) + c_.n_writers * 4 + 4,
+            kernel="order_check_dense" if not packed_ else label, n=nn))
+    return rows
+
+
+def compare_caps_schedule(dev, g, n=STORM_N, timed=True):
+    """K20's schedule instantiation on the storm's targets [100000, 3]
+    (fan-out decay every R = 8 rounds): without degree classes at t = 7
+    and t = 8, and composed after hetero-degree's caps 3/2/1."""
+    from corrosion_tpu_torch.proto import schedule as sch
+
+    cfg, _ = _storm_cfg(n, dev)
+    cfg = dataclasses.replace(cfg, fanout_schedule="decay")
+    tg = np.where(g.random((n, 3)) < 0.05, -1, g.integers(0, n, (n, 3)))
+    targets = torch.as_tensor(tg, dtype=torch.int32, device=dev)
+    flat, het = _topo(), _topo("hetero-degree")
+    outs, equal, err = {}, True, 0
+    for label, topo, t in (("7", flat, 7), ("8", flat, 8), ("het7", het, 7),
+                           ("het8", het, 8)):
+        got = sch.capped_schedule(targets.clone(), topo, cfg, t)
+        want = sch.capped_schedule_plain(targets, topo, cfg, t)
+        e_, x = _equal_all([got], [want])
+        equal, err = equal and e_, max(err, x)
+        outs[label] = want
+    from corrosion_tpu_torch.sim import topology as tp
+
+    caps_only = tp.apply_degree_caps_plain(targets, het)
+    _trap("proto 6", "a decay step crossing R = 8 (3 live slots at t = 7, 1 "
+          "at t = 8), composed after the degree caps",
+          torch.equal(outs["7"], targets)
+          and bool((outs["8"][:, 1:] == -1).all())
+          and torch.equal(outs["het7"], caps_only)
+          and not torch.equal(caps_only, targets)
+          and torch.equal(outs["het8"], outs["8"]))
+    work = targets.clone()
+    return [_row(
+        "degree_caps_sched",
+        "corrosion_tpu_torch/kernels/csrc/edge_classes.cu",
+        "corrosion_tpu/proto/schedule.py:27", equal, err,
+        _timed(timed, lambda: sch.capped_schedule(work, het, cfg, 8),
+               lambda: work.copy_(targets)),
+        _timed(timed, lambda: sch.capped_schedule_plain(targets, het, cfg,
+                                                        8)),
+        targets.numel() * 4 + _changed_bytes([targets], [outs["het8"]]),
+        kernel="degree_caps_sched")]
+
+
+def compare_trace_wire_pull(dev, g, n=STORM_N, timed=True):
+    """K18's pull entries: the words entry at the storm's shapes (E =
+    300000, W = 16, 8 KiB payloads) and the rows entry at broadcast-1k's
+    (E = 3000), over ok_pull edges with repeated responders."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+    from corrosion_tpu_torch.sim.fused import word_send_stats
+
+    rows = []
+    w, f = 16, 3
+    sending = _random_words(g, (n, w), dev, 2)
+    nbytes = torch.full((w * 32,), 8192, dtype=torch.int32, device=dev)
+    _, dst, ok, _ = _pull_edges(g, dev, n, f, 2)
+    got, want = torch.zeros(2, dtype=torch.int64, device=dev), None
+    tel.wire_words_pull_(got, sending, nbytes, ok, dst)
+    want = torch.stack(tel.pull_fold(*word_send_stats(sending, nbytes), ok,
+                                     dst))
+    equal, err = _equal_all([got], [want])
+    work = torch.zeros(2, dtype=torch.int64, device=dev)
+    rows.append(_row(
+        "trace_wire_pull", _TRACE_SRC + "trace_wire.cu",
+        "corrosion_tpu/sim/fused.py:192", equal, err,
+        _timed(timed, lambda: tel.wire_words_pull_(work, sending, nbytes, ok,
+                                                   dst)),
+        _timed(timed, lambda: tel.pull_fold(*word_send_stats(sending, nbytes),
+                                            ok, dst)),
+        sending.numel() * 4 + dst.numel() * 5 + nbytes.numel() * 4,
+        kernel="trace_wire_pull"))
+    nn = PROTO_1K
+    frames = torch.as_tensor(g.integers(0, 256, nn), dtype=torch.int32,
+                             device=dev)
+    byts = frames * 8192
+    _, dst, ok, _ = _pull_edges(g, dev, nn, f, 4)
+    got = torch.zeros(2, dtype=torch.int64, device=dev)
+    tel.wire_rows_pull_(got, frames, byts, ok, dst)
+    want = torch.stack(tel.pull_fold(frames, byts, ok, dst))
+    equal, err = _equal_all([got], [want])
+    rows.append(_row(
+        "trace_wire_rows_pull", _TRACE_SRC + "trace_wire.cu",
+        "corrosion_tpu/sim/fused.py:225", equal, err,
+        _timed(timed, lambda: tel.wire_rows_pull_(work, frames, byts, ok,
+                                                  dst)),
+        _timed(timed, lambda: tel.pull_fold(frames, byts, ok, dst)),
+        nn * 8 + dst.numel() * 5, kernel="trace_wire_rows_pull"))
+    return rows
+
+
+def compare_protocol_kernels(dev, seed=8, timed=True):
+    """Phase 3i: the protocol axis's kernel entries — K10p, K12p, K8f,
+    K12f-o, K22, K20's schedule instantiation, K18's pull entries —
+    against their plain versions at the storm's and broadcast-1k's
+    shapes, every trap reached."""
+    g = np.random.default_rng(seed)
+    rows = (compare_pull_scatter(dev, g, timed=timed)
+            + compare_dense_pull(dev, g, timed=timed)
+            + compare_fifo_deliver(dev, g, timed=timed)
+            + compare_order_check(dev, g, timed=timed)
+            + compare_caps_schedule(dev, g, timed=timed)
+            + compare_trace_wire_pull(dev, g, timed=timed))
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
 _START = time.monotonic()
 
 
@@ -4103,8 +4657,11 @@ def main() -> int:
     # gives depends on what the process ran before (a few launches fewer
     # after the comparison phases), so it is held in a fresh process;
     # then the recorder's share of the same rounds
-    storm_profiles = [profile_storm(dev), profile_storm(dev, faults=True)]
+    storm_profiles = [profile_storm(dev),
+                      profile_storm(dev, proto_family="baseline"),
+                      profile_storm(dev, faults=True)]
     for prof, want in zip(storm_profiles, (STORM_OFF_LAUNCHES,
+                                           STORM_OFF_LAUNCHES,
                                            FAULT_STORM_OFF_LAUNCHES)):
         got = round(prof["device_launches_per_round"] * prof["rounds"])
         if got != want:
@@ -4140,6 +4697,9 @@ def main() -> int:
     topo_kernel_rows = compare_topology_kernels(dev)
     print("kernel comparisons equal at the topology axis' shapes", flush=True)
     _lap("topology kernel comparisons")
+    proto_kernel_rows = compare_protocol_kernels(dev)
+    print("kernel comparisons equal at the protocol axis' shapes", flush=True)
+    _lap("protocol kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -4679,6 +5239,155 @@ def main() -> int:
     print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
     _lap("paths 17-21, the topology axis")
 
+    # paths 22-27, the protocol axis, each from zeroed counters through
+    # its entry point, held against live JAX's goldens with the run's
+    # RunMetrics order_violations
+    proto_launches = {}
+
+    def proto_check(result, golden, label, meta=None):
+        """`_storm_check` with the run's order_violations (and, for a run
+        without a record, its p99 payload latency from ``meta``)."""
+        from corrosion_tpu_torch.sim.runner import _percentile
+
+        result = dict(result)
+        m = result["metrics"]
+        result["order_violations"] = int(m.order_violations)
+        if meta is not None:
+            cov = m.coverage_at.cpu().numpy()
+            lat = np.where(cov >= 0, cov - meta.round.cpu().numpy(), -1)
+            result["p99_payload_latency_rounds"] = _percentile(lat, 99)
+        _storm_check(result, golden, label)
+
+    no_deliver = [row for row in faultless_rows if row != "word_phases"]
+    storm_protos = (
+        ("storm_baseline_100k", "baseline", faultless_rows,
+         goldens.STORM_BASELINE_100K_SEED0),
+        ("storm_swarm_aggressive_100k", "swarm-aggressive", faultless_rows,
+         goldens.STORM_SWARM_AGGRESSIVE_100K_SEED0),
+        ("storm_push_pull_100k", "push-pull",
+         faultless_rows + ["broadcast_pull"],
+         goldens.STORM_PUSH_PULL_100K_SEED0),
+        ("storm_fanout_decay_100k", "fanout-decay",
+         faultless_rows + ["degree_caps_sched"],
+         goldens.STORM_FANOUT_DECAY_100K_SEED0),
+        ("storm_lab_ordered_100k", "lab-ordered",
+         no_deliver + ["word_deliver_fifo", "order_check_words"],
+         goldens.STORM_LAB_ORDERED_100K_SEED0),
+        ("storm_lab_ordered_broken_100k", "lab-ordered-broken",
+         faultless_rows + ["order_check_words"],
+         goldens.STORM_LAB_ORDERED_BROKEN_100K_SEED0),
+    )
+    proto_rows = {"broadcast_pull", "broadcast_pull_lossy",
+                  "broadcast_pull_tiered", "degree_caps_sched",
+                  "word_deliver_fifo", "order_check_words"}
+    for label, family, path_rows, golden in storm_protos:
+        kernels.reset_launch_counts()
+        run = config_write_storm_100k(seed=0, proto_family=family, device=dev,
+                                      return_state=True)
+        proto_launches[label] = _path_launches(kernels, path_rows, label)
+        if family == "lab-ordered":
+            # K8's inject and spend run; its deliver gives way to K8f
+            if not (kernels.WORD_INJECT.launches
+                    and kernels.WORD_SPEND.launches
+                    and kernels.WORD_DELIVER.launches == 0):
+                raise AssertionError(f"{label}: K8's entries off their path")
+        proto_check(run, golden, label)
+        _per_round(proto_launches[label], path_rows, run["rounds"], label)
+        on = [row for row in proto_rows - set(path_rows)
+              if proto_launches[label][row]]
+        if on:
+            raise AssertionError(f"{label}: {on} launched off its path")
+    if proto_launches["storm_baseline_100k"] != launches:
+        raise AssertionError("storm_baseline_100k: launches differ from the "
+                             "storm's")
+
+    # the fault storm under push-pull: the pull's loss streams in the loss
+    # window (K10p lossy), its loss-free form after, the refusals across
+    # the half split (K9's session entry)
+    cfg, meta = _write_storm(100_000, 512, dev, proto_family="push-pull")
+    fplan = faults.compile_plan(storm_fault_plan(100_000, 0), cfg,
+                                device=dev)
+    out = _timed_fault_run(cfg, meta, fplan, 0, dev)
+    label = "fault_storm_push_pull_100k"
+    proto_launches[label] = _path_launches(
+        kernels, [row for row in faultless_rows if row != "broadcast_scatter"]
+        + ["fault_edges", "broadcast_scatter_lossy", "node_faults",
+           "broadcast_pull", "broadcast_pull_lossy"], label)
+    out["run"]["metrics"] = out["out"][1]
+    proto_check(out["run"], goldens.FAULT_STORM_PUSH_PULL_100K_SEED0, label,
+                meta)
+
+    # the headline tiered storm under push-pull with the recorder: K10p's
+    # tiered form, the pull's frames and bytes (K18's pull entry), the
+    # dropped frames of both legs
+    label = "storm_wan_3x2_push_pull_100k_telemetry"
+    kernels.reset_launch_counts()
+    run = config_write_storm_100k(seed=0, topo_family="wan-3x2",
+                                  proto_family="push-pull", telemetry=True,
+                                  device=dev, return_state=True)
+    proto_launches[label] = _path_launches(
+        kernels, tiered_rows + packed_trace_rows
+        + ["broadcast_pull_tiered", "trace_wire_pull"], label, True)
+    proto_check(run, goldens.STORM_WAN_3X2_PUSH_PULL_100K_SEED0, label)
+    # (N·F + 1)·2⁻²⁴·S: JAX adds the push's and the pull's f32 sums of
+    # N·F terms each, then the two
+    f32_gaps["storm_wan_3x2_push_pull_100k"] = _telemetry_check(
+        run, goldens.STORM_WAN_3X2_PUSH_PULL_100K_SEED0_TELEMETRY, 300_000,
+        512, label)
+
+    # broadcast-1k on the dense round: K12p's three forms, K12f-o, K22's
+    # u8 entry, K18's rows pull entry
+    dense_core = ["sample_uniform", "threefry", "dense_sync", "dense_gaps"]
+    b1k_protos = (
+        ("broadcast_1k_push_pull", dict(proto_family="push-pull"),
+         uniform_rows + ["dense_pull"], goldens.BROADCAST_1K_PUSH_PULL_SEED0),
+        ("broadcast_1k_push_pull_flat_lossy",
+         dict(proto_family="push-pull", topo_family="flat-lossy"),
+         uniform_rows + ["dense_pull_lossy"],
+         goldens.BROADCAST_1K_PUSH_PULL_FLAT_LOSSY_SEED0),
+        ("broadcast_1k_push_pull_wan_3x2",
+         dict(proto_family="push-pull", topo_family="wan-3x2"),
+         dense_core + ["dense_broadcast_tiered", "edge_slots",
+                       "dense_pull_tiered"],
+         goldens.BROADCAST_1K_PUSH_PULL_WAN_3X2_SEED0),
+        ("broadcast_1k_lab_ordered", dict(proto_family="lab-ordered"),
+         dense_core + ["dense_deliver_fifo", "order_check_dense"],
+         goldens.BROADCAST_1K_LAB_ORDERED_SEED0),
+        ("broadcast_1k_lab_ordered_broken",
+         dict(proto_family="lab-ordered-broken"),
+         uniform_rows + ["order_check_dense"],
+         goldens.BROADCAST_1K_LAB_ORDERED_BROKEN_SEED0),
+    )
+    for label, kw, path_rows, golden in b1k_protos:
+        kernels.reset_launch_counts()
+        run = config_broadcast_1k(seed=0, device=dev, return_state=True, **kw)
+        proto_launches[label] = _path_launches(kernels, path_rows, label)
+        if run["round_path"] != "dense":
+            raise AssertionError(f"{label} did not take the dense round")
+        # the dense phases' entries the rows above leave out: under FIFO
+        # K12f-o delivers, under tiers K12's tiered instantiation sends
+        fifo = kw["proto_family"] == "lab-ordered"
+        for kern in (kernels.DENSE_INJECT,
+                     kernels.DENSE_BROADCAST if fifo
+                     else kernels.DENSE_DELIVER):
+            if kern.launches <= 0:
+                raise AssertionError(f"{kern.name} never launched on {label}")
+        if fifo and kernels.DENSE_DELIVER.launches:
+            raise AssertionError(f"{label}: K12's deliver ran under FIFO")
+        proto_check(run, golden, label)
+    label = "broadcast_1k_push_pull_telemetry"
+    kernels.reset_launch_counts()
+    run = config_broadcast_1k(seed=0, proto_family="push-pull",
+                              telemetry=True, device=dev, return_state=True)
+    proto_launches[label] = _path_launches(
+        kernels, uniform_rows + dense_trace
+        + ["dense_pull", "trace_wire_rows_pull"], label, True)
+    proto_check(run, goldens.BROADCAST_1K_PUSH_PULL_SEED0, label)
+    f32_gaps["broadcast_1k_push_pull"] = _telemetry_check(
+        run, goldens.BROADCAST_1K_PUSH_PULL_SEED0_TELEMETRY, 3000, 256, label)
+    print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
+    _lap("paths 22-27, the protocol axis")
+
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
     # the whole loss window, where most nodes send and K10 draws most
@@ -4700,6 +5409,9 @@ def main() -> int:
                dict(n=PEERSWAP_N, sampler="peerswap")):
         print("profile_topology: " + json.dumps(profile_storm(dev, **kw)),
               flush=True)
+    for family in ("push-pull", "lab-ordered"):
+        print("profile_protocol: " + json.dumps(profile_storm(
+            dev, proto_family=family)), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -4773,6 +5485,30 @@ def main() -> int:
         row["other_paths_launches"] = {
             label: c[row["kernel"]] for label, c in topo_launches.items()}
     rows += topo_kernel_rows
+    # each protocol row reads its kernel's launches on the path that runs
+    # it
+    proto_path = {
+        "broadcast_pull": "storm_push_pull_100k",
+        "broadcast_pull_lossy": "fault_storm_push_pull_100k",
+        "broadcast_pull_tiered": "storm_wan_3x2_push_pull_100k_telemetry",
+        "dense_pull": "broadcast_1k_push_pull",
+        "dense_pull_lossy": "broadcast_1k_push_pull_flat_lossy",
+        "dense_pull_tiered": "broadcast_1k_push_pull_wan_3x2",
+        "word_deliver_fifo": "storm_lab_ordered_100k",
+        "dense_deliver_fifo": "broadcast_1k_lab_ordered",
+        "order_check_words": "storm_lab_ordered_broken_100k",
+        "order_check_dense": "broadcast_1k_lab_ordered_broken",
+        "degree_caps_sched": "storm_fanout_decay_100k",
+        "trace_wire_pull": "storm_wan_3x2_push_pull_100k_telemetry",
+        "trace_wire_rows_pull": "broadcast_1k_push_pull_telemetry",
+    }
+    for row in proto_kernel_rows:
+        path = proto_path[row["kernel"]]
+        row["launches"] = proto_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]] for label, c in proto_launches.items()}
+    rows += proto_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

@@ -15,7 +15,9 @@ the final state (`convert.state_digest`, equal to the JAX suite's
 largest under ``-m slow``).  The ``*_TELEMETRY`` entries at the end are
 the same runs' flight-recorder summaries and per-round byte channels;
 ``tests/test_torch_telemetry.py`` holds the 3-node and broadcast-1k ones
-against live JAX.
+against live JAX.  The protocol axis's entries at the end carry the
+run's ``order_violations`` too; ``tests/test_torch_proto_runs.py`` holds
+them against live JAX under ``-m slow``.
 """
 
 # _write_storm(512, 256) with packed_min_cells=0, seed 7
@@ -601,3 +603,358 @@ STORM_WAN_3X2_100K_SEED0_TELEMETRY = {'summary': {'rounds': 38,
                 12774137856.0, 11570167808.0, 9860399104.0, 7151861760.0,
                 3799810048.0, 1264467968.0, 252338176.0, 32907264.0,
                 2433024.0, 368640.0, 49152.0]}
+
+# -- the protocol axis ------------------------------------------------------
+# config_write_storm_100k(seed=0, proto_family=...): the storm under each
+# protocol family (`proto.families`), with the run's RunMetrics
+# order_violations (the standing delivery-order count summed over the
+# rounds; nonzero only under the unchecked negative control).  Baseline
+# is STORM_100K_SEED0 with its payload latency and order count.
+STORM_BASELINE_100K_SEED0 = {
+    "rounds": 28,
+    "p99_node_convergence_round": 24.0,
+    "p99_payload_latency_rounds": 13.0,
+    "digest": "9318cde1da5511ba",
+    "order_violations": 0
+}
+
+STORM_SWARM_AGGRESSIVE_100K_SEED0 = {
+    "rounds": 25,
+    "p99_node_convergence_round": 24.0,
+    "p99_payload_latency_rounds": 10.0,
+    "digest": "3485976e691a30c1",
+    "order_violations": 0
+}
+
+STORM_PUSH_PULL_100K_SEED0 = {
+    "rounds": 22,
+    "p99_node_convergence_round": 21.0,
+    "p99_payload_latency_rounds": 7.0,
+    "digest": "294cd4e8cf59c03e",
+    "order_violations": 0
+}
+
+STORM_FANOUT_DECAY_100K_SEED0 = {
+    "rounds": 42,
+    "p99_node_convergence_round": 36.0,
+    "p99_payload_latency_rounds": 29.0,
+    "digest": "57eef25b9a43c471",
+    "order_violations": 0
+}
+
+STORM_LAB_ORDERED_100K_SEED0 = {
+    "rounds": 240,
+    "p99_node_convergence_round": 216.0,
+    "p99_payload_latency_rounds": 222.0,
+    "digest": "ae68f79e4fbd6a79",
+    "order_violations": 0
+}
+
+STORM_LAB_ORDERED_BROKEN_100K_SEED0 = {
+    "rounds": 28,
+    "p99_node_convergence_round": 24.0,
+    "p99_payload_latency_rounds": 13.0,
+    "digest": "9318cde1da5511ba",
+    "order_violations": 2154
+}
+
+# config_broadcast_1k(seed=0, proto_family=...) on the dense round
+BROADCAST_1K_PUSH_PULL_SEED0 = {
+    "rounds": 67,
+    "p99_node_convergence_round": 66.0,
+    "p99_payload_latency_rounds": 5.0,
+    "digest": "27cb76c41c2e06f8",
+    "order_violations": 0
+}
+
+BROADCAST_1K_LAB_ORDERED_SEED0 = {
+    "rounds": 807,
+    "p99_node_convergence_round": 799.0,
+    "p99_payload_latency_rounds": 695.25,
+    "digest": "e5b1b59620a1bf72",
+    "order_violations": 0
+}
+
+BROADCAST_1K_LAB_ORDERED_BROKEN_SEED0 = {
+    "rounds": 73,
+    "p99_node_convergence_round": 69.0,
+    "p99_payload_latency_rounds": 8.0,
+    "digest": "c0523861b0f30759",
+    "order_violations": 38
+}
+
+# config_write_storm_100k(seed=0, topo_family="wan-3x2",
+# proto_family="push-pull"), with telemetry=True for the second entry: the
+# frames and bytes channels carry both directions, the dropped frames both
+# legs' tiered streams
+STORM_WAN_3X2_PUSH_PULL_100K_SEED0 = {
+    "rounds": 31,
+    "p99_node_convergence_round": 29.0,
+    "p99_payload_latency_rounds": 16.0,
+    "digest": "80ffab6c56e21c7d",
+    "order_violations": 0
+}
+
+STORM_WAN_3X2_PUSH_PULL_100K_SEED0_TELEMETRY = {'bcast_bytes': [3244032.0,
+                 6914048.0,
+                 18915328.0,
+                 56999936.0,
+                 165453824.0,
+                 431177728.0,
+                 1200734208.0,
+                 3369574400.0,
+                 9206710272.0,
+                 24671698944.0,
+                 63586156544.0,
+                 147120947200.0,
+                 281276743680.0,
+                 428530761728.0,
+                 579126231040.0,
+                 731598946304.0,
+                 883601899520.0,
+                 1034394664960.0,
+                 1186001453056.0,
+                 1339943813120.0,
+                 1490887376896.0,
+                 1635533717504.0,
+                 1770832527360.0,
+                 1892463149056.0,
+                 1993123168256.0,
+                 2044699607040.0,
+                 2018547073024.0,
+                 1936046424064.0,
+                 1804479102976.0,
+                 1654017228800.0,
+                 1502431150080.0],
+ 'summary': {'coverage_curve_digest': 'dd260f9317ffffbb',
+             'coverage_latency_rounds': {'p50': 21.0,
+                                         'p95': 29.0,
+                                         'p99': 29.0,
+                                         'uncovered_payloads': 0},
+             'fault': {'crash_node_rounds': 0,
+                       'cut_edges': 0,
+                       'dropped_frames': 229123401,
+                       'refused_sessions': 0,
+                       'wipes': 0},
+             'gap_overflow_rounds': 0,
+             'rounds': 31,
+             'swim': {'peak_down': 133, 'peak_suspect': 178},
+             'sync_sessions': 1345734,
+             'wire_frames': {'broadcast': 3229659814, 'sync': 16442778}},
+ 'sync_bytes': [0.0,
+                360448.0,
+                1015808.0,
+                4923392.0,
+                12705792.0,
+                37224448.0,
+                111312896.0,
+                315891712.0,
+                294420480.0,
+                933175296.0,
+                2251309056.0,
+                4338401280.0,
+                5594701824.0,
+                6231670784.0,
+                7226474496.0,
+                7835140096.0,
+                8631967744.0,
+                9144786944.0,
+                9798959104.0,
+                9880264704.0,
+                9830096896.0,
+                9456320512.0,
+                9300123648.0,
+                9289998336.0,
+                9381404672.0,
+                7680376832.0,
+                5186879488.0,
+                1718329344.0,
+                203325440.0,
+                7651328.0,
+                24576.0],
+ 'wire_bytes': {'broadcast': 26457373933568.0,
+                'per_round_mean': 857808811965.9,
+                'sync': 134699237376.0}}
+
+# run_fault_plan on _write_storm(100000, 512, proto_family="push-pull")
+# under compile_plan(storm_fault_plan(100000, 0)) (factored), packed: the
+# pull's loss streams in the loss window, refusals across the half split
+FAULT_STORM_PUSH_PULL_100K_SEED0 = {
+    "rounds": 24,
+    "p99_node_convergence_round": 22.0,
+    "p99_payload_latency_rounds": 13.0,
+    "digest": "7a89d180aff7a703",
+    "order_violations": 0
+}
+
+# config_broadcast_1k(seed=0, proto_family="push-pull", topo_family=...):
+# the dense pull's flat loss stream (flat-lossy) and its tiers (wan-3x2)
+BROADCAST_1K_PUSH_PULL_FLAT_LOSSY_SEED0 = {
+    "rounds": 68,
+    "p99_node_convergence_round": 66.0,
+    "p99_payload_latency_rounds": 5.0,
+    "digest": "e47956bea3a42609",
+    "order_violations": 0
+}
+
+BROADCAST_1K_PUSH_PULL_WAN_3X2_SEED0 = {
+    "rounds": 72,
+    "p99_node_convergence_round": 70.0,
+    "p99_payload_latency_rounds": 9.0,
+    "digest": "ba016c3b855a16b7",
+    "order_violations": 0
+}
+
+# config_broadcast_1k(seed=0, proto_family="push-pull", telemetry=True)
+BROADCAST_1K_PUSH_PULL_SEED0_TELEMETRY = {'bcast_bytes': [385024.0,
+                 2703360.0,
+                 18767872.0,
+                 113893376.0,
+                 367312896.0,
+                 512466944.0,
+                 755810304.0,
+                 902578176.0,
+                 1149984768.0,
+                 1302437888.0,
+                 1544912896.0,
+                 1655422976.0,
+                 1810612224.0,
+                 1705140224.0,
+                 1805271040.0,
+                 1704148992.0,
+                 1808187392.0,
+                 1703575552.0,
+                 1800273920.0,
+                 1720066048.0,
+                 1837875200.0,
+                 1694064640.0,
+                 1790623744.0,
+                 1693958144.0,
+                 1793892352.0,
+                 1704353792.0,
+                 1811144704.0,
+                 1703157760.0,
+                 1788149760.0,
+                 1691107328.0,
+                 1833598976.0,
+                 1741570048.0,
+                 1839915008.0,
+                 1737072640.0,
+                 1823637504.0,
+                 1724940288.0,
+                 1828954112.0,
+                 1720786944.0,
+                 1819082752.0,
+                 1697882112.0,
+                 1787813888.0,
+                 1688412160.0,
+                 1793015808.0,
+                 1698758656.0,
+                 1800814592.0,
+                 1698922496.0,
+                 1801805824.0,
+                 1701527552.0,
+                 1821138944.0,
+                 1725980672.0,
+                 1822384128.0,
+                 1722425344.0,
+                 1822138368.0,
+                 1698324480.0,
+                 1799708672.0,
+                 1708630016.0,
+                 1814970368.0,
+                 1712275456.0,
+                 1810948096.0,
+                 1708072960.0,
+                 1810956288.0,
+                 1705066496.0,
+                 1824555008.0,
+                 1717370880.0,
+                 1813430272.0,
+                 1707655168.0,
+                 1789435904.0],
+ 'summary': {'coverage_curve_digest': '59c03ae72af854c9',
+             'coverage_latency_rounds': {'p50': 35.0,
+                                         'p95': 64.0,
+                                         'p99': 66.0,
+                                         'uncovered_payloads': 0},
+             'fault': {'crash_node_rounds': 0,
+                       'cut_edges': 0,
+                       'dropped_frames': 0,
+                       'refused_sessions': 0,
+                       'wipes': 0},
+             'gap_overflow_rounds': 0,
+             'rounds': 67,
+             'swim': {'peak_down': 0, 'peak_suspect': 0},
+             'sync_sessions': 33732,
+             'wire_frames': {'broadcast': 12837678, 'sync': 46859}},
+ 'sync_bytes': [0.0,
+                221184.0,
+                1196032.0,
+                5398528.0,
+                5005312.0,
+                6823936.0,
+                5349376.0,
+                9084928.0,
+                3432448.0,
+                5980160.0,
+                4071424.0,
+                7135232.0,
+                5488640.0,
+                7258112.0,
+                5611520.0,
+                8568832.0,
+                4243456.0,
+                7544832.0,
+                5324800.0,
+                7143424.0,
+                2990080.0,
+                6094848.0,
+                5955584.0,
+                6651904.0,
+                5480448.0,
+                6701056.0,
+                5292032.0,
+                6414336.0,
+                5750784.0,
+                7061504.0,
+                4857856.0,
+                7692288.0,
+                4530176.0,
+                8077312.0,
+                4177920.0,
+                7962624.0,
+                4784128.0,
+                8052736.0,
+                3489792.0,
+                7446528.0,
+                4710400.0,
+                7225344.0,
+                5505024.0,
+                6840320.0,
+                6021120.0,
+                7249920.0,
+                4579328.0,
+                7430144.0,
+                4947968.0,
+                7110656.0,
+                4759552.0,
+                6807552.0,
+                4628480.0,
+                6168576.0,
+                5750784.0,
+                6602752.0,
+                5595136.0,
+                6594560.0,
+                5095424.0,
+                6651904.0,
+                5177344.0,
+                6725632.0,
+                5169152.0,
+                6955008.0,
+                5849088.0,
+                6602752.0,
+                2768896.0],
+ 'wire_bytes': {'broadcast': 105166258176.0,
+                'per_round_mean': 1575375031.4,
+                'sync': 383868928.0}}

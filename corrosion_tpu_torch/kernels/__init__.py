@@ -71,6 +71,19 @@ replaces:
   (``peerswap.cu``) — `topo.sampler.peerswap_partner`,
   `peerswap_apply`.
 
+- the protocol axis: K10's pull instantiation K10p
+  `BROADCAST_PULL`, `BROADCAST_PULL_LOSSY`, `BROADCAST_PULL_TIERED` (one
+  C entry, counted by its streams) — `sim.packed.scatter_pull`; K12's
+  dense pull K12p `DENSE_PULL`, `DENSE_PULL_LOSSY`, `DENSE_PULL_TIERED`
+  — `sim.broadcast.pull_send`; the FIFO delivers K8f `WORD_DELIVER_FIFO`
+  and K12f-o `DENSE_DELIVER_FIFO` — `sim.packed.deliver_packed`,
+  `sim.broadcast.deliver_dense` under ``ordering="fifo"``; K22
+  `ORDER_CHECK_WORDS`, `ORDER_CHECK_DENSE` (``order_check.cu``) —
+  `sim.invariants.count_order_violations_`; K20's schedule
+  instantiation `DEGREE_CAPS_SCHED` — `proto.schedule.capped_schedule`;
+  K18's pull entries `TRACE_WIRE_WORDS_PULL`, `TRACE_WIRE_ROWS_PULL` —
+  `sim.telemetry.wire_words_pull_`, `wire_rows_pull_`.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -223,6 +236,33 @@ PEERSWAP_SWAP = Kernel("peerswap_swap", "peerswap.cu", "corro_peerswap_swap",
 PEERSWAP_LAND = Kernel("peerswap_land", "peerswap.cu", "corro_peerswap_land",
                        4)
 
+BROADCAST_PULL = Kernel("broadcast_pull", "broadcast_scatter.cu",
+                        "corro_broadcast_pull", 7)
+BROADCAST_PULL_LOSSY = Kernel("broadcast_pull_lossy", "broadcast_scatter.cu",
+                              "corro_broadcast_pull", 7)
+BROADCAST_PULL_TIERED = Kernel("broadcast_pull_tiered",
+                               "broadcast_scatter.cu", "corro_broadcast_pull",
+                               7)
+DENSE_PULL = Kernel("dense_pull", "dense_phases.cu", "corro_dense_pull", 8)
+DENSE_PULL_LOSSY = Kernel("dense_pull_lossy", "dense_phases.cu",
+                          "corro_dense_pull", 8)
+DENSE_PULL_TIERED = Kernel("dense_pull_tiered", "dense_phases.cu",
+                           "corro_dense_pull", 8)
+WORD_DELIVER_FIFO = Kernel("word_deliver_fifo", "word_phases.cu",
+                           "corro_word_deliver_fifo", 7)
+DENSE_DELIVER_FIFO = Kernel("dense_deliver_fifo", "dense_phases.cu",
+                            "corro_dense_deliver_fifo", 6)
+ORDER_CHECK_WORDS = Kernel("order_check_words", "order_check.cu",
+                           "corro_order_check_words", 4)
+ORDER_CHECK_DENSE = Kernel("order_check_dense", "order_check.cu",
+                           "corro_order_check_dense", 4)
+DEGREE_CAPS_SCHED = Kernel("degree_caps_sched", "edge_classes.cu",
+                           "corro_degree_caps_sched", 3)
+TRACE_WIRE_WORDS_PULL = Kernel("trace_wire_words_pull", "trace_wire.cu",
+                               "corro_trace_wire_words_pull", 2)
+TRACE_WIRE_ROWS_PULL = Kernel("trace_wire_rows_pull", "trace_wire.cu",
+                              "corro_trace_wire_rows_pull", 1)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -263,11 +303,25 @@ PORTED = {
     "dense_broadcast_tiered": (DENSE_BROADCAST_TIERED,),
     "sample_view": (SAMPLE_VIEW,),
     "peerswap": (PEERSWAP_PARTNER, PEERSWAP_SWAP, PEERSWAP_LAND),
+    "broadcast_pull": (BROADCAST_PULL,),
+    "broadcast_pull_lossy": (BROADCAST_PULL_LOSSY,),
+    "broadcast_pull_tiered": (BROADCAST_PULL_TIERED,),
+    "dense_pull": (DENSE_PULL,),
+    "dense_pull_lossy": (DENSE_PULL_LOSSY,),
+    "dense_pull_tiered": (DENSE_PULL_TIERED,),
+    "word_deliver_fifo": (WORD_DELIVER_FIFO,),
+    "dense_deliver_fifo": (DENSE_DELIVER_FIFO,),
+    "order_check_words": (ORDER_CHECK_WORDS,),
+    "order_check_dense": (ORDER_CHECK_DENSE,),
+    "degree_caps_sched": (DEGREE_CAPS_SCHED,),
+    "trace_wire_pull": (TRACE_WIRE_WORDS_PULL,),
+    "trace_wire_rows_pull": (TRACE_WIRE_ROWS_PULL,),
 }
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
-              "trace_wire_rows", "trace_row")
+              "trace_wire_rows", "trace_row", "trace_wire_pull",
+              "trace_wire_rows_pull")
 KERNELS = tuple(k for entries in PORTED.values() for k in entries)
 
 
@@ -277,6 +331,11 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "BROADCAST_PULL", "BROADCAST_PULL_LOSSY", "BROADCAST_PULL_TIERED",
+    "DEGREE_CAPS_SCHED", "DENSE_DELIVER_FIFO", "DENSE_PULL",
+    "DENSE_PULL_LOSSY", "DENSE_PULL_TIERED", "ORDER_CHECK_DENSE",
+    "ORDER_CHECK_WORDS", "TRACE_WIRE_ROWS_PULL", "TRACE_WIRE_WORDS_PULL",
+    "WORD_DELIVER_FIFO",
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
     "BROADCAST_SCATTER_LOSSY", "BROADCAST_SCATTER_TIERED", "BUDGET_WORDS",
     "CONVERGE_FINISH", "CONVERGE_ROWS", "DEGREE_CAPS", "DENSE_BROADCAST",

@@ -93,6 +93,35 @@
 // operations, as K10's topology stream — one hash per sending (edge,
 // word of 4 payloads) on an edge of a lossy tier.
 
+// K10p, the pull instantiation (corro_broadcast_pull; counted as
+// broadcast_pull, broadcast_pull_lossy and broadcast_pull_tiered), is the
+// response leg of push-pull dissemination: corrosion_tpu/proto/
+// dissemination.py:43 pull_session_ok and :58 pull_wire_drop with the
+// response scatter of corrosion_tpu/sim/packed.py:514-538.  Edge e =
+// (src = e / fanout, dst[e]) carries the responder's sending words
+// sending[dst[e], k] back to the puller: the kernel ORs what survives into
+// ring[slot[e], src, k] where ok_pull[e] (the push's ok minus the sessions
+// a cut refuses in either direction, K9's session entry).  The slot is the
+// push's per-edge slot (t + the topology's and the plan's fixed delay,
+// never jitter).  The streams are K10's with the pull's keys and the
+// endpoints swapped:
+//   topology  k_pull = fold_in(k_drop, 1) in place of k_drop (folded once
+//             a block): byte e*P + q of aligned_u8_bits(k_pull, [E, P])
+//             below the flat threshold, or below the tier threshold of
+//             (dst[e], src) in the tiered form (topology.py:267
+//             edge_payload_drop with src and dst swapped; the draw index
+//             is still e);
+//   fault     byte e*P + q of aligned_u8_bits(fold_in(fold_in(k_pull,
+//             seed), 101), [E, P]) below thr[e], the REVERSE edge's fault
+//             threshold (K9's wire query on the swapped edge arrays).
+// No jitter: a response is request-paced.  With no stream it is the
+// loss-free form, K2's body reading dst's row and writing src's.  Under
+// a recording run it adds the frames the streams ate to `dropped`, as K10
+// does for the push.  Bound: as K2 (bytes) outside loss, as K10
+// (operations, one hash per sending (edge, word of 4 payloads) under a
+// threshold) inside it; dst's rows are a random gather, served from L2
+// when the sending words fit (6.4 MB at the storm).
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -166,32 +195,42 @@ __device__ __forceinline__ void jitter_or(uint32_t* __restrict__ ring,
 // return how many of the word's sent bits the streams dropped.  The
 // jitter path is compiled only into the jitter instantiation, so K2's
 // and K10's loss-only launches keep their registers (and occupancy).
-template <bool kJitter, bool kTiered>
+// kPull is K10p: the responder dst[e]'s words go to the puller's row
+// e / fanout, the tier is the reverse edge's and the topology stream's key
+// is the block's pull key `pk` (fold_in(k_drop, 1)).
+template <bool kJitter, bool kTiered, bool kPull = false>
 __device__ __forceinline__ uint32_t scatter_word(
     uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
     const bool* __restrict__ ok, const uint8_t* __restrict__ thr,
     const int64_t* __restrict__ topo_key, const uint32_t* folded,
     const Jitter& jt, const int32_t* __restrict__ tiers, size_t i, int n,
-    int d_slots, int w, int fanout, int topo_thr) {
+    int d_slots, int w, int fanout, int topo_thr,
+    const uint32_t* pk = nullptr) {
   int e = (int)(i / w);
   int k = (int)(i % w);
   if (!ok[e]) return 0u;
-  uint32_t sent = sending[(size_t)(e / fanout) * w + k];
+  int from = kPull ? dst[e] : e / fanout;
+  uint32_t sent = sending[(size_t)from * w + k];
   if (sent == 0u) return 0u;
   // the edge's tier threshold replaces the scalar one
-  if (kTiered) topo_thr = corro::topo_loss_raw(tiers, e / fanout, dst[e]);
+  if (kTiered)
+    topo_thr = kPull ? corro::topo_loss_raw(tiers, dst[e], e / fanout)
+                     : corro::topo_loss_raw(tiers, e / fanout, dst[e]);
   if (topo_thr >= 256) return __popc(sent);  // a severed channel
   uint32_t v = sent;
   uint32_t base = (uint32_t)e * (8u * (uint32_t)w) + 8u * (uint32_t)k;
   if (topo_thr > 0) {
-    v &= keep_mask((uint32_t)topo_key[0], (uint32_t)topo_key[1], base,
-                   (uint32_t)topo_thr);
+    if (kPull)
+      v &= keep_mask(pk[0], pk[1], base, (uint32_t)topo_thr);
+    else
+      v &= keep_mask((uint32_t)topo_key[0], (uint32_t)topo_key[1], base,
+                     (uint32_t)topo_thr);
   }
   uint32_t t = thr != nullptr ? thr[e] : 0u;
   if (t != 0u && v != 0u) v &= keep_mask(folded[0], folded[1], base, t);
   if (v != 0u) {
-    int row = dst[e];
+    int row = kPull ? e / fanout : dst[e];
     int s = slot[e];
     // jnp scatters drop out-of-range updates; so does this one
     if (row >= 0 && row < n && s >= 0 && s < d_slots) {
@@ -245,6 +284,52 @@ __global__ void broadcast_scatter_kernel(
     lost = scatter_word<kJitter, kTiered>(ring, sending, dst, slot, ok, thr,
                                           topo_key, folded, jt, tiers, i, n,
                                           d_slots, w, fanout, topo_thr);
+  if (dropped == nullptr) return;
+  if (threadIdx.x == 0) lost_block = 0ull;
+  __syncthreads();
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) lost += __shfl_xor_sync(0xFFFFFFFFu, lost, d);
+  if ((threadIdx.x & 31) == 0 && lost)
+    atomicAdd(&lost_block, (unsigned long long)lost);
+  __syncthreads();
+  if (threadIdx.x == 0 && lost_block) atomicAdd(dropped, lost_block);
+}
+
+// K10p: the pull leg.  `k_drop` is the broadcast key's second split;
+// the block folds the pull key and, under fault loss, its fault key once.
+template <bool kTiered>
+__global__ void broadcast_pull_kernel(
+    uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
+    const bool* __restrict__ ok_pull, const uint8_t* __restrict__ thr,
+    const int64_t* __restrict__ k_drop,
+    unsigned long long* __restrict__ dropped,
+    const int32_t* __restrict__ tiers, int n, int d_slots, int w, int fanout,
+    int n_edges, uint32_t seed, uint32_t tag, int topo_thr) {
+  __shared__ uint32_t pk[2];
+  __shared__ uint32_t folded[2];
+  __shared__ unsigned long long lost_block;
+  if (k_drop != nullptr) {
+    if (threadIdx.x == 0) {
+      corro::Pair p = corro::fold_in(
+          corro::Pair{(uint32_t)k_drop[0], (uint32_t)k_drop[1]}, 1u);
+      pk[0] = p.a;
+      pk[1] = p.b;
+      if (thr != nullptr) {
+        corro::Pair g = corro::fold_in(corro::fold_in(p, seed), tag);
+        folded[0] = g.a;
+        folded[1] = g.b;
+      }
+    }
+    __syncthreads();
+  }
+  Jitter jt{nullptr, {0u, 0u, 0u, 0u}, 0u, 0u};
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t lost = 0u;
+  if (i < (size_t)n_edges * w)
+    lost = scatter_word<false, kTiered, true>(
+        ring, sending, dst, slot, ok_pull, thr, nullptr, folded, jt, tiers,
+        i, n, d_slots, w, fanout, topo_thr, pk);
   if (dropped == nullptr) return;
   if (threadIdx.x == 0) lost_block = 0ull;
   __syncthreads();
@@ -347,4 +432,37 @@ extern "C" int corro_broadcast_scatter_tiered(
   return launch_lossy(ring, sending, dst, slot, ok, thr, key, topo_key,
                       dropped, jit, tiers, n, d_slots, w, fanout, seed, tag,
                       topo_thr, jit_tag, span, mult, stream);
+}
+
+// K10p, the pull leg: `ok` is ok_pull, `thr` the reverse edges' fault
+// thresholds (null without fault loss), `k_drop` the broadcast key's
+// k_drop (null when no stream draws: thr null, topo_thr 0 or 256 and no
+// tiers), `tiers` the topology's table under tiered loss (topo_thr 0),
+// `dropped` null when nothing counts the lost frames.
+extern "C" int corro_broadcast_pull(
+    void* ring, const void* sending, const void* dst, const void* slot,
+    const void* ok, const void* thr, const void* k_drop, void* dropped,
+    const void* tiers, int n, int d_slots, int w, int fanout, int seed,
+    int tag, int topo_thr, void* stream) {
+  bool tiered = tiers != nullptr;
+  bool draws = thr != nullptr || tiered || (topo_thr > 0 && topo_thr < 256);
+  if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 || d_slots <= 0 ||
+      (draws && k_drop == nullptr) || (tiered && topo_thr != 0))
+    return (int)cudaErrorInvalidValue;
+  int n_edges = n * fanout;
+  if ((unsigned long long)n_edges * 8ull * (unsigned long long)w >=
+      (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  size_t total = (size_t)n_edges * w;
+  int threads = 256;
+  unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  auto kernel = tiered ? broadcast_pull_kernel<true>
+                       : broadcast_pull_kernel<false>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
+      (const int32_t*)slot, (const bool*)ok, (const uint8_t*)thr,
+      draws ? (const int64_t*)k_drop : nullptr, (unsigned long long*)dropped,
+      (const int32_t*)tiers, n, d_slots, w, fanout, n_edges, (uint32_t)seed,
+      (uint32_t)tag, topo_thr);
+  return (int)cudaGetLastError();
 }

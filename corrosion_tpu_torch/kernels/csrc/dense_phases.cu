@@ -94,6 +94,37 @@
 // does.  Bound: operations in a lossy round — one hash per ok (edge,
 // sending payload) on an edge of a lossy tier.
 
+// K12p, the dense pull (corro_dense_pull; counted as dense_pull,
+// dense_pull_lossy and dense_pull_tiered), is the response leg of
+// push-pull dissemination on the u8 ring: corrosion_tpu/sim/broadcast.py:
+// 187-216 with corrosion_tpu/proto/dissemination.py:43 pull_session_ok and
+// :58 pull_wire_drop.  One warp per edge e = (src = e / F, dst[e]) with
+// ok_pull[e]: it recomputes the responder's sending row — eligible = have
+// & relay > 0 & injected, the oldest-first budget prefix, exactly the
+// broadcast entry's scan — and stores 1 into ring[slot[e], src, q] for
+// every sending payload q that survives the pull's streams: byte e*P + q
+// of aligned_u8_bits(k_pull, [E, P]) (k_pull = fold_in(k_drop, 1)) below
+// the flat threshold or the tier threshold of (dst[e], src), and byte
+// e*P + q of aligned_u8_bits(fold_in(fold_in(k_pull, seed), 101), [E, P])
+// below the reverse edge's fault threshold fthr[e].  The wrapper launches
+// it BEFORE the broadcast entry, whose relay spend it must not see
+// (responses spend no budget: only the push does).  Slot: the push's
+// fixed-delay slot, never jitter.  Under a recording run it adds the
+// frames the streams ate to `dropped`.  Bound: bytes — each edge re-reads
+// its responder's have, relay and nbytes rows (F times the broadcast's
+// row reads) and stores the surviving cells; inside loss, one hash per
+// sending cell under a threshold.
+//
+// K12f-o, the FIFO deliver (corro_dense_deliver_fifo, counted as
+// dense_deliver_fifo): corrosion_tpu/sim/broadcast.py:346-360 with
+// corrosion_tpu/proto/ordering.py:55 admit_payload_mask.  One block per
+// row copies the row's have into shared memory BEFORE any write, then
+// each cell q is admitted iff its group lies in the first wave (q < A*C)
+// or every chunk of the group one wave earlier (same origin, version -
+// 1) is held; both rings' slot t arrive only where admitted, the merge
+// and the relay re-arm follow the deliver entry, and both slots are
+// cleared whole.  Bound: bytes, the deliver entry's plus one row read.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -285,6 +316,106 @@ __global__ void dense_deliver_kernel(uint8_t* __restrict__ ring,
   sync_ring[at] = 0;
 }
 
+// K12p: one warp per pull edge (see the header).
+template <bool kTiered>
+__global__ void dense_pull_kernel(
+    const uint8_t* __restrict__ have, const uint8_t* __restrict__ relay,
+    const uint8_t* __restrict__ injected, const int32_t* __restrict__ nbytes,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
+    const bool* __restrict__ ok_pull, const int64_t* __restrict__ k_drop,
+    uint8_t* __restrict__ ring, unsigned long long* __restrict__ dropped,
+    const uint8_t* __restrict__ fthr, const int32_t* __restrict__ tiers,
+    int n, int p, int f, int d_slots, int budget, int thr, uint32_t seed,
+    uint32_t loss_tag) {
+  __shared__ uint32_t keys[4];
+  if (k_drop != nullptr) {
+    if (threadIdx.x == 0) {
+      corro::Pair pk = corro::fold_in(
+          corro::Pair{(uint32_t)k_drop[0], (uint32_t)k_drop[1]}, 1u);
+      keys[0] = pk.a;
+      keys[1] = pk.b;
+      corro::Pair fk = corro::fold_in(corro::fold_in(pk, seed), loss_tag);
+      keys[2] = fk.a;
+      keys[3] = fk.b;
+    }
+    __syncthreads();
+  }
+  size_t e = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  int lane = threadIdx.x & (kWarp - 1);
+  if (e >= (size_t)n * f || !ok_pull[e]) return;  // whole warps leave
+  int row = (int)(e / f);
+  int x = dst[e];
+  int s = slot[e];
+  if (x < 0 || x >= n) return;
+  bool in_ring = row >= 0 && row < n && s >= 0 && s < d_slots;
+  int tthr = kTiered ? corro::topo_loss_raw(tiers, x, row) : thr;
+  uint32_t ft = fthr != nullptr ? fthr[e] : 0u;
+  long long running = 0, lost_frames = 0;
+  for (int base = 0; base < p; base += kWarp) {
+    int q = base + lane;
+    size_t cell = (size_t)x * p + q;
+    bool elig = q < p && have[cell] && relay[cell] && injected[q];
+    bool sending = elig;
+    if (budget >= 0) {
+      long long size = elig ? (long long)nbytes[q] : 0;
+      long long cum = running + warp_inclusive_scan(size, lane);
+      sending = elig && cum <= (long long)budget;
+      running = __shfl_sync(0xFFFFFFFFu, cum, kWarp - 1);
+    }
+    if (!sending) continue;
+    uint32_t b = (uint32_t)(e * p + q);
+    bool lost = tthr >= 256;
+    if (tthr > 0 && tthr < 256)
+      lost = draw_byte(keys[0], keys[1], b) < (uint32_t)tthr;
+    if (!lost && ft != 0u) lost = draw_byte(keys[2], keys[3], b) < ft;
+    if (lost) {
+      lost_frames += 1;
+      continue;
+    }
+    if (in_ring) ring[((size_t)s * n + row) * p + q] = 1;
+  }
+  if (dropped != nullptr) {
+    lost_frames = warp_sum(lost_frames);
+    if (lane == 0 && lost_frames)
+      atomicAdd(dropped, (unsigned long long)lost_frames);
+  }
+}
+
+// K12f-o: one block per row, the row's pre-merge have in shared memory.
+__global__ void dense_deliver_fifo_kernel(uint8_t* __restrict__ ring,
+                                          uint8_t* __restrict__ sync_ring,
+                                          uint8_t* __restrict__ have,
+                                          uint8_t* __restrict__ relay, int n,
+                                          int p, int slot, int relay_init,
+                                          int c, int wave) {
+  extern __shared__ uint8_t row_have[];
+  int row = blockIdx.x;
+  size_t base = (size_t)row * p;
+  for (int q = threadIdx.x; q < p; q += blockDim.x) row_have[q] = have[base + q];
+  __syncthreads();
+  size_t cells = (size_t)n * p;
+  for (int q = threadIdx.x; q < p; q += blockDim.x) {
+    size_t i = base + q;
+    size_t at = (size_t)slot * cells + i;
+    uint8_t arriving = ring[at];
+    uint8_t pulled = sync_ring[at];
+    if ((arriving | pulled) == 0) continue;
+    ring[at] = 0;
+    sync_ring[at] = 0;
+    int first = q - q % c;  // the group's first chunk
+    bool admit = first < wave;
+    if (!admit) {
+      admit = true;
+      for (int j = 0; j < c; ++j) admit &= row_have[first - wave + j] != 0;
+    }
+    if (!admit) continue;
+    uint8_t h = row_have[q];
+    if (arriving > 0 && h == 0) relay[i] = (uint8_t)relay_init;
+    uint8_t m = h > arriving ? h : arriving;
+    have[i] = m > pulled ? m : pulled;
+  }
+}
+
 unsigned blocks_for(size_t threads_needed, int threads) {
   return (unsigned)((threads_needed + threads - 1) / threads);
 }
@@ -404,5 +535,52 @@ extern "C" int corro_dense_deliver(void* ring, void* sync_ring, void* have,
                          (cudaStream_t)stream>>>(
       (uint8_t*)ring, (uint8_t*)sync_ring, (uint8_t*)have, (uint8_t*)relay,
       cells, slot, relay_init);
+  return (int)cudaGetLastError();
+}
+
+// K12p, the dense pull: `ok` is ok_pull; `fthr` the reverse edges' fault
+// thresholds (null without fault loss); `k_drop` the broadcast key's
+// second split (required when a stream draws); `tiers` the topology's
+// table under tiered loss (then thr must be 0).  Launch it before the
+// broadcast entry: it reads the relay budget before the spend.
+extern "C" int corro_dense_pull(
+    const void* have, const void* relay, const void* injected,
+    const void* nbytes, const void* dst, const void* slot, const void* ok,
+    const void* k_drop, void* ring, void* dropped, const void* fthr,
+    const void* tiers, int n, int p, int f, int d_slots, int budget, int thr,
+    int seed, int loss_tag, void* stream) {
+  bool tiered = tiers != nullptr;
+  bool draws = fthr != nullptr || tiered || (thr > 0 && thr < 256);
+  if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
+      (draws && k_drop == nullptr) || (tiered && thr != 0))
+    return (int)cudaErrorInvalidValue;
+  if ((unsigned long long)n * f * p >= (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  auto kernel = tiered ? dense_pull_kernel<true> : dense_pull_kernel<false>;
+  kernel<<<blocks_for((size_t)n * f * kWarp, threads), threads, 0,
+           (cudaStream_t)stream>>>(
+      (const uint8_t*)have, (const uint8_t*)relay, (const uint8_t*)injected,
+      (const int32_t*)nbytes, (const int32_t*)dst, (const int32_t*)slot,
+      (const bool*)ok, draws ? (const int64_t*)k_drop : nullptr,
+      (uint8_t*)ring, (unsigned long long*)dropped, (const uint8_t*)fthr,
+      (const int32_t*)tiers, n, p, f, d_slots, budget, thr, (uint32_t)seed,
+      (uint32_t)loss_tag);
+  return (int)cudaGetLastError();
+}
+
+// K12f-o: the deliver entry behind the FIFO admit gate; `c` is
+// chunks_per_version and `wave` = n_writers * c.
+extern "C" int corro_dense_deliver_fifo(void* ring, void* sync_ring,
+                                        void* have, void* relay, int n, int p,
+                                        int slot, int relay_init, int c,
+                                        int wave, void* stream) {
+  if (n <= 0 || p <= 0 || slot < 0 || c <= 0 || wave < c || wave % c ||
+      p % wave || p > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  dense_deliver_fifo_kernel<<<(unsigned)n, 128, (size_t)p,
+                              (cudaStream_t)stream>>>(
+      (uint8_t*)ring, (uint8_t*)sync_ring, (uint8_t*)have, (uint8_t*)relay,
+      n, p, slot, relay_init, c, wave);
   return (int)cudaGetLastError();
 }

@@ -35,6 +35,15 @@
 //                       JAX's certainty pin (it applies only when some tier
 //                       reaches 256, and then exactly to those edges).
 //
+// K20's schedule instantiation (corro_degree_caps_sched, counted as
+// degree_caps_sched) is corrosion_tpu/proto/schedule.py:27
+// scheduled_fanout_targets composed after the caps, as broadcast_packed
+// (corrosion_tpu/sim/packed.py:429-434) and broadcast_step apply them:
+// slot s of node i becomes -1 where s >= min(cap(i), active), `active`
+// this round's live slot count (schedule.py:18 active_fanout, computed on
+// the host: the round counter is a host int), the cap F without degree
+// classes (a null table).
+//
 // Bound on the H100: bytes (launch latency at these sizes).  An edge
 // reads two ids (8 bytes) and writes a slot (4) or reads and writes ok
 // (2); the caps read and write 4 bytes a cell; the reach hashes at most
@@ -74,6 +83,17 @@ __global__ void degree_caps_kernel(const int32_t* __restrict__ tb,
   int node = (int)(i / f);
   int s = (int)(i % f);
   if (s >= corro::topo_degree(tb, node)) targets[i] = -1;
+}
+
+__global__ void degree_caps_sched_kernel(const int32_t* __restrict__ tb,
+                                         int32_t* __restrict__ targets, int n,
+                                         int f, int active) {
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)n * f) return;
+  int node = (int)(i / f);
+  int s = (int)(i % f);
+  int cap = tb != nullptr ? corro::topo_degree(tb, node) : f;
+  if (s >= (cap < active ? cap : active)) targets[i] = -1;
 }
 
 __global__ void edge_reach_kernel(const int32_t* __restrict__ tb,
@@ -139,5 +159,16 @@ extern "C" int corro_edge_reach(const void* table, const void* src,
   edge_reach_kernel<<<blocks_for(e), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)table, (const int32_t*)src, (const int32_t*)dst,
       (const int64_t*)key, (bool*)ok, e, (uint32_t)tag);
+  return (int)cudaGetLastError();
+}
+
+// The schedule instantiation: `table` null without degree classes.
+extern "C" int corro_degree_caps_sched(const void* table, void* targets,
+                                       int n, int f, int active,
+                                       void* stream) {
+  if (n <= 0 || f <= 0 || active < 1) return (int)cudaErrorInvalidValue;
+  degree_caps_sched_kernel<<<blocks_for((size_t)n * f), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const int32_t*)table, (int32_t*)targets, n, f, active);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,16 @@
 // f32, so the plain version, this kernel and both rounds agree bit for
 // bit.
 //
+// Under push-pull (corrosion_tpu/sim/packed.py:584-607,
+// broadcast.py:285-305) two pull entries add the response direction: over
+// the ok_pull edges e, the RESPONDER dst[e]'s frames and bytes —
+//   words_pull  one warp per edge: popcount and sizes of sending[dst[e]];
+//   rows_pull   one thread per edge: row_frames[dst[e]], row_bytes[dst[e]].
+// JAX adds the pull's f32 sum to the push's; the port adds the exact
+// integers to the same int64 accumulators, rounded once by K19.  Bound:
+// bytes — a random row of sending words per ok edge (from L2 at the
+// storm's 6.4 MB) or two ints.
+//
 // Bound on the H100: bytes — the sending words (6.4 MB at the storm,
 // 26 MB at gapstress) and the ok bytes, read once.  Design: each warp
 // reads its node's row as one coalesced run; nbytes is 32 KB at most,
@@ -113,6 +123,52 @@ __global__ void trace_wire_rows_kernel(const int32_t* __restrict__ row_frames,
   block_add(frames, bytes, acc);
 }
 
+__global__ void trace_wire_words_pull_kernel(
+    const uint32_t* __restrict__ sending, const int32_t* __restrict__ nbytes,
+    const bool* __restrict__ ok_pull, const int32_t* __restrict__ dst,
+    unsigned long long* __restrict__ acc, int n_edges, int w) {
+  int lane = threadIdx.x & (kWarp - 1);
+  int warps = gridDim.x * (blockDim.x / kWarp);
+  long long frames = 0, bytes = 0;  // lane 0's running totals
+  for (int e = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp; e < n_edges;
+       e += warps) {
+    if (!ok_pull[e]) continue;  // the whole warp agrees
+    const uint32_t* row = sending + (size_t)dst[e] * w;
+    long long f = 0, b = 0;
+    for (int k = lane; k < w; k += kWarp) {
+      uint32_t v = row[k];
+      f += __popc(v);
+      while (v) {
+        int bit = __ffs(v) - 1;
+        b += nbytes[(size_t)k * 32 + bit];
+        v &= v - 1u;
+      }
+    }
+    f = warp_sum(f);
+    b = warp_sum(b);
+    if (lane == 0) {
+      frames += f;
+      bytes += b;
+    }
+  }
+  block_add(frames, bytes, acc);
+}
+
+__global__ void trace_wire_rows_pull_kernel(
+    const int32_t* __restrict__ row_frames,
+    const int32_t* __restrict__ row_bytes, const bool* __restrict__ ok_pull,
+    const int32_t* __restrict__ dst, unsigned long long* __restrict__ acc,
+    int n_edges) {
+  long long frames = 0, bytes = 0;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_edges;
+       e += gridDim.x * blockDim.x) {
+    if (!ok_pull[e]) continue;
+    frames += row_frames[dst[e]];
+    bytes += row_bytes[dst[e]];
+  }
+  block_add(frames, bytes, acc);
+}
+
 unsigned grid_for(long long threads) {
   long long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 528) blocks = 528;  // four blocks an SM, then grid-stride
@@ -140,5 +196,31 @@ extern "C" int corro_trace_wire_rows(const void* row_frames,
   trace_wire_rows_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)row_frames, (const int32_t*)row_bytes, (const bool*)ok,
       (unsigned long long*)acc, n, fanout);
+  return (int)cudaGetLastError();
+}
+
+// The pull entries: `ok` is ok_pull [E], `dst` the edges' responders.
+extern "C" int corro_trace_wire_words_pull(const void* sending,
+                                           const void* nbytes, const void* ok,
+                                           const void* dst, void* acc,
+                                           int n_edges, int w, void* stream) {
+  if (n_edges <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  trace_wire_words_pull_kernel<<<grid_for((long long)n_edges * kWarp),
+                                 kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)sending, (const int32_t*)nbytes, (const bool*)ok,
+      (const int32_t*)dst, (unsigned long long*)acc, n_edges, w);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_trace_wire_rows_pull(const void* row_frames,
+                                          const void* row_bytes,
+                                          const void* ok, const void* dst,
+                                          void* acc, int n_edges,
+                                          void* stream) {
+  if (n_edges <= 0) return (int)cudaErrorInvalidValue;
+  trace_wire_rows_pull_kernel<<<grid_for(n_edges), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+      (const int32_t*)row_frames, (const int32_t*)row_bytes, (const bool*)ok,
+      (const int32_t*)dst, (unsigned long long*)acc, n_edges);
   return (int)cudaGetLastError();
 }

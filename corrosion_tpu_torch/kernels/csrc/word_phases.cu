@@ -40,6 +40,22 @@
 // threads are coalesced along the words; a word whose update is zero is
 // not written back, which skips most plane traffic once budgets drain.
 
+// K8f, the FIFO deliver (corro_word_deliver_fifo, counted as
+// word_deliver_fifo), is deliver behind the per-origin FIFO admit gate of
+// corrosion_tpu/sim/packed.py:644-653 (corrosion_tpu/proto/ordering.py:65
+// admit_words): one warp per node row.  The warp first copies the row's
+// have words into shared memory — the gate reads `have` BEFORE the merge,
+// and a word's admit bits come from other words of the row — then each
+// lane, per word k: the complete-version words comp(j) = the C-bit group
+// AND-fold of have word j smeared back over the group (group_grid(have,
+// "all")), shifted up by one wave (A * C bits: version v - 1 of the same
+// origin sits exactly one wave below v in the version-major layout), the
+// first wave's bits set (version 1 has no predecessor); both rings' slot
+// words are ANDed with that admit word, then merged and the relay re-armed
+// as deliver does, and both slots cleared whole (a rejected arrival is
+// dropped).  Bound: bytes, deliver's plus nothing (the row is read once
+// into shared memory).
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -133,6 +149,68 @@ __global__ void deliver_kernel(uint32_t* __restrict__ inflight,
   }
 }
 
+// The complete-version word j of a row: each aligned c-bit group of
+// have word j all set, smeared over the group.
+__device__ __forceinline__ uint32_t comp_word(const uint32_t* row, int j,
+                                              int c, uint32_t low_mask) {
+  uint32_t v = row[j];
+  for (int step = 1; step < c; step <<= 1) v &= v >> step;
+  v &= low_mask;
+  for (int step = 1; step < c; step <<= 1) v |= v << step;
+  return v;
+}
+
+// Bits [b0, b0 + 32) of the row's complete-version bitstring, where a
+// negative position (before version 1) reads as set.
+__device__ __forceinline__ uint32_t comp_bits(const uint32_t* row, int b0,
+                                              int c, uint32_t low_mask) {
+  if (b0 <= -32) return 0xFFFFFFFFu;
+  if (b0 < 0) {
+    int sh = -b0;
+    return (comp_word(row, 0, c, low_mask) << sh) | ((1u << sh) - 1u);
+  }
+  int j = b0 >> 5, sh = b0 & 31;
+  uint32_t lo = comp_word(row, j, c, low_mask) >> sh;
+  if (sh) lo |= comp_word(row, j + 1, c, low_mask) << (32 - sh);
+  return lo;
+}
+
+__global__ void deliver_fifo_kernel(uint32_t* __restrict__ inflight,
+                                    uint32_t* __restrict__ sync_buf,
+                                    uint32_t* __restrict__ have,
+                                    PlanePtrs planes, int n, int w, int slot,
+                                    int value, int c, int wave,
+                                    uint32_t low_mask) {
+  extern __shared__ uint32_t rows[];
+  int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  int node = blockIdx.x * (blockDim.x / 32) + warp;
+  if (node >= n) return;  // whole warps leave together
+  uint32_t* row = rows + (size_t)warp * w;
+  size_t base = (size_t)node * w;
+  for (int k = lane; k < w; k += 32) row[k] = have[base + k];
+  __syncwarp();
+  for (int k = lane; k < w; k += 32) {
+    size_t i = base + k;
+    size_t s = (size_t)slot * n * w + i;
+    uint32_t arriving = inflight[s];
+    uint32_t pending = sync_buf[s];
+    if ((arriving | pending) == 0u) continue;
+    if (arriving) inflight[s] = 0u;
+    if (pending) sync_buf[s] = 0u;
+    uint32_t admit = comp_bits(row, 32 * k - wave, c, low_mask);
+    arriving &= admit;
+    pending &= admit;
+    uint32_t h = row[k];
+    uint32_t newly = arriving & ~h;
+    have[i] = h | arriving | pending;
+    if (newly == 0u) continue;
+    for (int j = 0; j < 4; ++j) {
+      uint32_t r = planes.r[j][i] & ~newly;
+      planes.r[j][i] = ((value >> j) & 1) ? (r | newly) : r;
+    }
+  }
+}
+
 PlanePtrs plane_ptrs(void* r0, void* r1, void* r2, void* r3) {
   return PlanePtrs{{(uint32_t*)r0, (uint32_t*)r1, (uint32_t*)r2,
                     (uint32_t*)r3}};
@@ -185,5 +263,27 @@ extern "C" int corro_word_deliver(void* inflight, void* sync_buf, void* have,
                    (cudaStream_t)stream>>>(
       (uint32_t*)inflight, (uint32_t*)sync_buf, (uint32_t*)have,
       plane_ptrs(r0, r1, r2, r3), n, w, slot, value);
+  return (int)cudaGetLastError();
+}
+
+// K8f: deliver behind the FIFO admit gate; `c` is chunks_per_version (a
+// power of two up to 32) and `wave` = n_writers * c bits.
+extern "C" int corro_word_deliver_fifo(void* inflight, void* sync_buf,
+                                       void* have, void* r0, void* r1,
+                                       void* r2, void* r3, int n, int w,
+                                       int d_slots, int slot, int value,
+                                       int c, int wave, void* stream) {
+  if (n <= 0 || w <= 0 || slot < 0 || slot >= d_slots || value < 0 ||
+      value > 15 || c <= 0 || c > 32 || (c & (c - 1)) || wave < c ||
+      wave % c || (32 * w) % wave || w > 1024)
+    return (int)cudaErrorInvalidValue;
+  uint32_t low = 0u;
+  for (int b = 0; b < 32; b += c) low |= 1u << b;
+  const int threads = 256, rows = threads / 32;
+  deliver_fifo_kernel<<<blocks_for((size_t)n * 32, threads), threads,
+                        (size_t)rows * w * sizeof(uint32_t),
+                        (cudaStream_t)stream>>>(
+      (uint32_t*)inflight, (uint32_t*)sync_buf, (uint32_t*)have,
+      plane_ptrs(r0, r1, r2, r3), n, w, slot, value, c, wave, low);
   return (int)cudaGetLastError();
 }

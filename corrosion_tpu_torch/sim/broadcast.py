@@ -1,9 +1,9 @@
 """The dense broadcast phases — the port of
-``corrosion_tpu/sim/broadcast.py`` (``broadcast_step`` in its push,
-flat-schedule form with its wire telemetry, ``deliver_step`` with ordering
-"none", ``inject_step``), with its fault branch, on JAX's u8 state: ``have``, ``relay_left``
-``[N, P]``, ``injected [P]`` and the delay rings ``inflight``,
-``sync_inflight`` ``[D, N, P]``.
+``corrosion_tpu/sim/broadcast.py`` (``broadcast_step`` with its wire
+telemetry, its push-pull leg and the fan-out schedule, ``deliver_step``
+with the FIFO gate, ``inject_step``), with its fault branch, on JAX's
+u8 state: ``have``, ``relay_left`` ``[N, P]``, ``injected [P]`` and
+the delay rings ``inflight``, ``sync_inflight`` ``[D, N, P]``.
 
 Each phase is one launch of K12 (``kernels/csrc/dense_phases.cu``) on the
 card and the plain torch version beside its wrapper on the CPU:
@@ -14,7 +14,10 @@ card and the plain torch version beside its wrapper on the CPU:
   in its tiered instantiation), the ring write and the relay spend;
   under a fault plan its fault entry also draws the plan's loss and
   jitter per (edge, payload);
-- `deliver_dense` — pop slot t of both rings.
+- `pull_send` — push-pull's response leg (K12p, before the push's
+  spend);
+- `deliver_dense` — pop slot t of both rings (K12f-o behind the FIFO
+  admit gate).
 
 The target draw, ring0 tiering (`ring0_targets`, shared with the packed
 round) and the edge list stay torch (and K1, K5).
@@ -41,6 +44,8 @@ from .state import (
     SimState,
     budget_prefix_mask,
 )
+from ..proto.ordering import order_enforced
+from ..proto.schedule import capped_schedule
 from .faults import JITTER_TAG, WIRE_LOSS_TAG, fault_key, fault_wire_effects
 from .fused import dense_send_stats
 from .swim import sample_member_targets
@@ -50,11 +55,11 @@ from .telemetry import (
     acc_slot,
     wire_loss_active,
     wire_rows_,
+    wire_rows_pull_,
 )
 from .topology import (
     Topology,
     aligned_u8_bits,
-    apply_degree_caps,
     edge_alive,
     edge_slot,
     loss_threshold,
@@ -291,6 +296,91 @@ def broadcast_send(have, relay, injected, nbytes, budget: Optional[int],
     kernels.DENSE_BROADCAST_FAULT.launch(ptrs, ints)
 
 
+# -- K12p: the push-pull response leg -----------------------------------------
+
+
+def pull_send_plain(have, relay, injected, nbytes, budget, dst, slot,
+                    ok_pull, k_drop, thr: int, ring, dropped=None,
+                    fthr=None, seed: int = 0,
+                    tiers: Optional[Topology] = None) -> None:
+    """Plain version of K12p, in place on ``ring`` (and ``dropped``)."""
+    from ..proto.dissemination import pull_drop_bits
+
+    n, p = have.shape
+    e = dst.shape[0]
+    f = e // n
+    d = ring.shape[0]
+    eligible = (have > 0) & (relay > 0) & (injected > 0)[None, :]
+    sending = budget_prefix_mask(eligible, budget, nbytes)
+    src = torch.arange(n, dtype=torch.int32,
+                       device=have.device).repeat_interleave(f)
+    region = None if tiers is None else regions(n, tiers.n_regions,
+                                                have.device)
+    drop = pull_drop_bits(thr, tiers, fthr, seed, k_drop, src, dst, p,
+                          region)
+    answer = ok_pull[:, None] & sending[dst.long()]
+    resp = (answer & ~drop).to(torch.uint8)
+    rows = (slot.long() * n + src.long())[:, None].expand(-1, p)
+    ring.view(d * n, p).scatter_reduce_(0, rows, resp, "amax")
+    if dropped is not None:
+        dropped += (answer & drop).sum()
+
+
+def pull_send(have, relay, injected, nbytes, budget: Optional[int], dst,
+              slot, ok_pull, k_drop, thr: int, ring, dropped=None,
+              fthr=None, seed: int = 0,
+              tiers: Optional[Topology] = None) -> None:
+    """The push-pull responses on the dense ring, in place: every ok_pull
+    edge e carries its responder dst[e]'s sending payloads — eligible
+    (held, relay budget left, injected) and inside the oldest-first
+    ``budget`` prefix, read BEFORE the push spends the budget — to the
+    puller e // F's row ``ring[slot[e], src]``, less the pull's loss:
+    byte e*P + q of ``aligned_u8_bits(fold_in(k_drop, 1), [E, P])``
+    below ``thr`` (or below the reverse edge's tier under ``tiers``, thr
+    then 0), or of the fault stream ``fold_in(fold_in(k_pull, seed),
+    101)`` below ``fthr[e]`` (the reverse edges' fault thresholds).  The
+    frames the streams ate go to the int64 ``dropped`` when given (JAX
+    ``broadcast.py:187-216``, ``proto/dissemination.py``).  K12p on the
+    card, counted as ``dense_pull`` without a stream,
+    ``dense_pull_lossy`` with the flat or fault stream and
+    ``dense_pull_tiered`` under tiers; the caller launches it before
+    `broadcast_send`."""
+    if have.device.type == "cpu":
+        pull_send_plain(have, relay, injected, nbytes, budget, dst, slot,
+                        ok_pull, k_drop, thr, ring, dropped, fthr, seed,
+                        tiers)
+        return
+    n, p = have.shape
+    e = dst.shape[0]
+    f = e // n
+    d = ring.shape[0]
+    _check_rows(have, relay, n, p)
+    check("injected", injected, torch.uint8, (p,))
+    check("nbytes", nbytes, torch.int32, (p,))
+    check("dst", dst, torch.int32, (e,))
+    check("slot", slot, torch.int32, (e,))
+    check("ok_pull", ok_pull, torch.bool, (e,))
+    check("ring", ring, torch.uint8, (d, n, p))
+    if fthr is not None:
+        check("fthr", fthr, torch.uint8, (e,))
+    if dropped is not None:
+        check("dropped", dropped, torch.int64, ())
+    draws = fthr is not None or tiers is not None or 0 < thr < 256
+    if draws:
+        check("k_drop", k_drop, torch.int64, (2,))
+    if tiers is not None and thr != 0:
+        raise ValueError("tiered loss replaces the flat threshold")
+    kernel = (kernels.DENSE_PULL_TIERED if tiers is not None
+              else kernels.DENSE_PULL_LOSSY if draws or thr >= 256
+              else kernels.DENSE_PULL)
+    kernel.launch(
+        [have, relay, injected, nbytes, dst, slot, ok_pull,
+         k_drop if draws else None, ring, dropped, fthr,
+         None if tiers is None else topo_table(tiers, n, have.device)],
+        [n, p, f, d, -1 if budget is None else budget, min(thr, 256), seed,
+         WIRE_LOSS_TAG])
+
+
 def broadcast_step(
     state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
     region: torch.Tensor, key: torch.Tensor, faults=None,
@@ -316,7 +406,7 @@ def broadcast_step(
     k_targets, k_drop, k_ring0 = ks[0], ks[1], ks[2]
     targets = sample_member_targets(state, cfg, k_targets, f)  # [N, F]
     targets = ring0_targets(state, cfg, topo, region, k_ring0, targets)
-    targets = apply_degree_caps(targets, topo)
+    targets = capped_schedule(targets, topo, cfg, int(state.t))
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
     src = me.repeat_interleave(f)
     dst = targets.reshape(-1)
@@ -343,15 +433,30 @@ def broadcast_step(
         row_bytes = torch.empty_like(row_frames)
         if wire_loss_active(topo, faults):
             dropped = acc_slot(trace, "bcast_dropped")
+    seed = 0 if faults is None else int(faults.seed)
+    ok_pull = None
+    if cfg.dissemination == "push-pull":
+        # the responses read the relay budget before the push spends it
+        from ..proto.dissemination import pull_session_ok, reverse_loss
+
+        ok_pull = pull_session_ok(ok, faults, src, dst)
+        pull_send(
+            state.have, state.relay_left, state.injected, meta.nbytes,
+            cfg.rate_limit_bytes_round, dst, slot, ok_pull, k_drop, thr,
+            state.inflight, dropped,
+            reverse_loss(faults, src, dst) if fthr is not None else None,
+            seed, tiers)
     broadcast_send(
         state.have, state.relay_left, state.injected, meta.nbytes,
         cfg.rate_limit_bytes_round, targets.contiguous(), dst, slot, ok,
         state.alive, k_drop, thr, state.inflight, row_frames, row_bytes,
-        dropped, key, fthr, jit, 0 if faults is None else int(faults.seed),
-        tiers,
+        dropped, key, fthr, jit, seed, tiers,
     )
     if trace is not None:
         wire_rows_(trace.acc[WIRE], row_frames, row_bytes, ok, f)
+        if ok_pull is not None:
+            wire_rows_pull_(trace.acc[WIRE], row_frames, row_bytes, ok_pull,
+                            dst)
     return state
 
 
@@ -359,29 +464,50 @@ def broadcast_step(
 
 
 def deliver_dense_plain(ring, sync_ring, have, relay, slot: int,
-                        relay_init: int) -> None:
-    """Plain version of K12's deliver, in place."""
+                        relay_init: int, admit=None) -> None:
+    """Plain version of K12's deliver and, with the admit mask ``admit``
+    (bool[N, P]), of K12f-o; in place."""
     arriving = ring[slot]
+    pulled = sync_ring[slot]
+    if admit is not None:
+        arriving = torch.where(admit, arriving, 0)
+        pulled = torch.where(admit, pulled, 0)
     newly = (arriving > 0) & (have == 0)
-    have.copy_(torch.maximum(torch.maximum(have, arriving), sync_ring[slot]))
+    have.copy_(torch.maximum(torch.maximum(have, arriving), pulled))
     relay.copy_(torch.where(newly, relay_init, relay).to(torch.uint8))
     ring[slot] = 0
     sync_ring[slot] = 0
 
 
 def deliver_dense(ring, sync_ring, have, relay, slot: int,
-                  relay_init: int) -> None:
+                  relay_init: int, fifo=None) -> None:
     """Pop slot ``slot`` of both rings into ``have``: broadcast arrivals
     that are new arm the relay budget to ``relay_init``, sync arrivals
-    do not; both slots are cleared.  In place; K12 on the card."""
+    do not; both slots are cleared.  With ``fifo`` (the config, under
+    ``ordering="fifo"``) both slots arrive only where
+    `..proto.ordering.admit_payload_mask` of the pre-merge ``have``
+    admits them; the rest is dropped.  In place; K12 on the card, K12f-o
+    under FIFO."""
     if have.device.type == "cpu":
-        deliver_dense_plain(ring, sync_ring, have, relay, slot, relay_init)
+        admit = None
+        if fifo is not None:
+            from ..proto.ordering import admit_payload_mask
+
+            admit = admit_payload_mask(have, fifo)
+        deliver_dense_plain(ring, sync_ring, have, relay, slot, relay_init,
+                            admit)
         return
     n, p = have.shape
     d = ring.shape[0]
     _check_rows(have, relay, n, p)
     check("inflight", ring, torch.uint8, (d, n, p))
     check("sync_inflight", sync_ring, torch.uint8, (d, n, p))
+    if fifo is not None:
+        c = fifo.chunks_per_version
+        kernels.DENSE_DELIVER_FIFO.launch(
+            [ring, sync_ring, have, relay],
+            [n, p, slot, relay_init, c, fifo.n_writers * c])
+        return
     kernels.DENSE_DELIVER.launch(
         [ring, sync_ring, have, relay], [n, p, slot, relay_init]
     )
@@ -393,6 +519,7 @@ def deliver_step(state: SimState, cfg: SimConfig) -> SimState:
     deliver_dense(
         state.inflight, state.sync_inflight, state.have, state.relay_left,
         int(state.t) % d_slots, max(cfg.max_transmissions - 1, 1),
+        cfg if order_enforced(cfg) else None,
     )
     return state
 

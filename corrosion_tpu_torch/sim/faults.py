@@ -1202,7 +1202,10 @@ def run_fault_plan_checked(
     version (fresh), or after ``max_rounds``.  Returns (state, metrics,
     digests): ``digests`` is each round's blake2b-8 over ``have``,
     ``alive`` and ``heads`` in JAX's dtypes and byte order — the same
-    seed gives the same list (the replay-determinism contract)."""
+    seed gives the same list (the replay-determinism contract).  The
+    catalog gets the payloads' ``meta``, so under ``ordering="fifo"`` it
+    also asserts the delivery-order property every checked round (JAX's
+    driver leaves ``meta`` out, and with it that check)."""
     import hashlib
 
     from ..invariants import CATALOG
@@ -1235,7 +1238,7 @@ def run_fault_plan_checked(
             h.update(getattr(state, name).cpu().numpy().tobytes())
         digests.append(h.hexdigest())
         if r % check_every == 0:
-            check_state(state, cfg)
+            check_state(state, cfg, meta=meta)
         if r >= plan.horizon and bool(all_have(state, meta, cfg)):
             break
     return state, metrics, digests

@@ -1,7 +1,9 @@
 """The sim's invariant catalog — the port of ``corrosion_tpu/sim/
-invariants.py`` `check_state`: always-properties over a state snapshot,
+invariants.py``: `check_state`, always-properties over a state snapshot
 evaluated between rounds by the checked fault driver
-(`.faults.run_fault_plan_checked`) and by tests.
+(`.faults.run_fault_plan_checked`) and by tests, and the delivery-order
+count `order_violation_count`, which also runs on the card every round
+of an ordering-variant run.
 
 - **no-phantom-data** — ``have ⊆ injected``: no node holds a chunk that
   never entered the system.
@@ -13,12 +15,19 @@ evaluated between rounds by the checked fault driver
   version above the head.
 - **relay-budget** — ``relay_left ≤ max_transmissions``.
 - **dead-nodes-inert** — nodes down since round 0 hold nothing.
+- **delivery-order agreement** (ordering variants) — every node's
+  touched versions per origin form a gapless prefix: no node holds
+  version v without having completely delivered v - 1 from the same
+  origin.  Counted on the card inside the round loops
+  (`count_order_violations_`, K22, added to
+  ``RunMetrics.order_violations`` with no host read): an enforced
+  ``ordering="fifo"`` run ends at 0, the ``fifo-unchecked`` control
+  trips it; and asserted on snapshots by `check_state` under "fifo"
+  when given the payloads' ``meta``.
 
 The snapshot is host numpy (`convert.state_to_numpy`, JAX's layout and
 dtypes); the version grids come from the port's own helpers on CPU
-tensors.  JAX's delivery-order property (`order_violation_count`)
-applies only under a FIFO ordering, which the port's `SimConfig` does
-not take yet (ROADMAP A10).
+tensors.
 """
 
 from __future__ import annotations
@@ -28,18 +37,83 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import kernels
 from ..convert import state_to_numpy
+from ..kernels.build import check
 from .gaps import gaps_to_mask
-from .state import SimConfig, SimState, touched_versions, version_heads
+from .state import (
+    PayloadMeta,
+    SimConfig,
+    SimState,
+    complete_versions,
+    touched_versions,
+    version_heads,
+)
+
+
+def order_violation_count(touched: torch.Tensor, comp: torch.Tensor,
+                          meta: PayloadMeta, cfg: SimConfig) -> torch.Tensor:
+    """i32 scalar: (node, origin, version) triples violating FIFO
+    delivery — version v touched while v - 1 from the same origin is not
+    completely held — over the [N, A, V] grids ``touched`` and ``comp``;
+    the origin's own row (``meta.actor[a * C]``) is exempt (JAX
+    ``order_violation_count``).  The plain version of K22."""
+    from ..proto.ordering import prev_complete
+
+    viol = touched & ~prev_complete(comp)
+    n = touched.shape[0]
+    dev = touched.device
+    a_idx = torch.arange(cfg.n_writers, device=dev)
+    origin = meta.actor[a_idx * cfg.chunks_per_version]
+    not_origin = torch.arange(n, dtype=torch.int32,
+                              device=dev)[:, None] != origin[None, :]
+    return (viol & not_origin[:, :, None]).sum(dtype=torch.int32)
+
+
+def _grids(have: torch.Tensor, cfg: SimConfig):
+    """(touched, comp) [N, A, V] of the dense u8 ``have`` or of packed
+    words (int32 [N, W], W * 32 == P)."""
+    if have.dtype == torch.uint8:
+        return touched_versions(have, cfg), complete_versions(have, cfg)
+    from .words import group_grid
+
+    return group_grid(have, cfg, "any"), group_grid(have, cfg, "all")
+
+
+def count_order_violations_(acc: torch.Tensor, have: torch.Tensor,
+                            meta: PayloadMeta, cfg: SimConfig) -> None:
+    """Add this round's `order_violation_count` of ``have`` — the dense
+    u8 [N, P] or the packed words [N, W] — to the i32 scalar ``acc``
+    (``RunMetrics.order_violations``) in place: a standing count, summed
+    every round.  K22 on the card (its word entry or its u8 entry), one
+    launch, no host read."""
+    if have.device.type == "cpu":
+        acc += order_violation_count(*_grids(have, cfg), meta, cfg)
+        return
+    n = have.shape[0]
+    a, c = cfg.n_writers, cfg.chunks_per_version
+    check("order_violations", acc, torch.int32, ())
+    check("meta.actor", meta.actor, torch.int32, (cfg.n_payloads,))
+    if have.dtype == torch.uint8:
+        check("have", have, torch.uint8, (n, cfg.n_payloads))
+        kernels.ORDER_CHECK_DENSE.launch([have, meta.actor, acc],
+                                         [n, cfg.n_payloads, a, c])
+        return
+    w = have.shape[1]
+    check("have", have, torch.int32, (n, w))
+    kernels.ORDER_CHECK_WORDS.launch([have, meta.actor, acc], [n, w, a, c])
 
 
 def check_state(
     state: SimState,
     cfg: SimConfig,
     dead_since_start: Optional[np.ndarray] = None,
+    meta: Optional[PayloadMeta] = None,
 ) -> None:
     """Assert the always-properties on a snapshot of ``state``; raises
-    AssertionError naming the violated property, in JAX's words."""
+    AssertionError naming the violated property, in JAX's words.
+    ``meta`` arms the delivery-order check under ``ordering="fifo"``
+    (the snapshot twin of the on-card count)."""
     snap = state_to_numpy(state)
     have = snap["have"]
     injected = snap["injected"]
@@ -82,4 +156,14 @@ def check_state(
         dead = np.asarray(dead_since_start, bool)
         assert (have[dead] == 0).all(), (
             "dead-nodes-inert: a node down since round 0 holds data"
+        )
+
+    if meta is not None and cfg.ordering == "fifo":
+        have_t = torch.from_numpy(have)
+        meta_cpu = PayloadMeta(*(x.cpu() for x in meta))
+        viol = int(order_violation_count(
+            touched_t, complete_versions(have_t, cfg), meta_cpu, cfg))
+        assert viol == 0, (
+            f"delivery-order: {viol} (node, origin, version) triples "
+            "hold a version whose predecessor was never delivered"
         )

@@ -63,7 +63,10 @@ from .faults import (
     refuse_peerswap,
     round_faults,
 )
+from ..proto.ordering import admit_words, order_checked, order_enforced
+from ..proto.schedule import cadence_due, capped_schedule
 from .gaps import gaps_to_mask, refresh_gaps
+from .invariants import count_order_violations_
 from .round import RunMetrics, new_metrics, overflow_fraction
 from .state import (
     ALIVE,
@@ -86,10 +89,10 @@ from .telemetry import (
     trace_row,
     wire_loss_active,
     wire_words_,
+    wire_words_pull_,
 )
 from .topology import (
     Topology,
-    apply_degree_caps,
     edge_alive,
     edge_loss_thresholds_raw,
     edge_slot,
@@ -559,6 +562,89 @@ def scatter_sending_lossy(
     kernel.launch(ptrs, ints)
 
 
+def scatter_pull_plain(
+    ring, sending, dst, slot, ok_pull, thr_rev, k_drop, seed: int,
+    fanout: int, topo_thr: int = 0, dropped=None,
+    tiers: Optional[Topology] = None,
+) -> None:
+    """Plain version of K10p, in place: for every ok_pull edge e, OR the
+    responder's words sending[dst[e]] into ring[slot[e], e // fanout],
+    less what the pull's streams drop — the topology stream on ``k_pull
+    = fold_in(k_drop, 1)`` (flat ``topo_thr``, or the reverse edge's tier
+    under ``tiers``) and the fault stream on ``fold_in(fold_in(k_pull,
+    seed), 101)`` below ``thr_rev[e]``; the dropped frames are added to
+    ``dropped`` when given."""
+    from ..proto.dissemination import pull_key
+
+    n = sending.shape[0]
+    dev = sending.device
+    src = torch.arange(n, dtype=torch.int32,
+                       device=dev).repeat_interleave(fanout)
+    words = torch.where(ok_pull[:, None], sending[dst.long()], 0)
+    sent = words.clone() if dropped is not None else None
+    k_pull = pull_key(k_drop) if k_drop is not None else None
+    if tiers is not None:
+        region = regions(n, tiers.n_regions, dev)
+        raw = edge_loss_thresholds_raw(tiers, region, dst, src)
+        words[raw >= 256] = 0
+        _keep_stream_(words, torch.where(raw >= 256, 0, raw), k_pull)
+    elif topo_thr >= 256:
+        words.zero_()
+    elif topo_thr > 0:
+        _keep_stream_(words, torch.full_like(dst, topo_thr), k_pull)
+    if thr_rev is not None:
+        _keep_stream_(words, thr_rev, fault_key(k_pull, seed, WIRE_LOSS_TAG))
+    if dropped is not None:
+        dropped += popcount(sent & ~words).sum()
+    _or_rows_plain(ring, words, src, slot)
+
+
+def scatter_pull(
+    ring, sending, dst, slot, ok_pull, thr_rev, k_drop, seed: int,
+    fanout: int, topo_thr: int = 0, dropped=None,
+    tiers: Optional[Topology] = None,
+) -> None:
+    """The push-pull response scatter, in place: every ok_pull edge e
+    carries its responder's sending words (``sending`` [N, W], the
+    governor's, before the spend) back to the puller e // fanout, into
+    the push's slot slot[e], less the pull's loss (`scatter_pull_plain`;
+    JAX ``packed.py:514-538`` with ``proto/dissemination.py``'s
+    ``pull_wire_drop``).  ``k_drop`` is the broadcast key's second split
+    (the kernel folds the pull key from it); ``thr_rev`` the reverse
+    edges' fault thresholds (None: no fault loss); ``tiers`` a tiered
+    topology (``topo_thr`` then 0).  K10p on the card, counted as
+    ``broadcast_pull`` without a stream, ``broadcast_pull_lossy`` with the
+    flat or fault stream, ``broadcast_pull_tiered`` under tiers."""
+    if ring.device.type == "cpu":
+        scatter_pull_plain(ring, sending, dst, slot, ok_pull, thr_rev,
+                           k_drop, seed, fanout, topo_thr, dropped, tiers)
+        return
+    d, n, w = ring.shape
+    e = n * fanout
+    check("ring", ring, torch.int32, (d, n, w))
+    check("sending", sending, torch.int32, (n, w))
+    check("dst", dst, torch.int32, (e,))
+    check("slot", slot, torch.int32, (e,))
+    check("ok_pull", ok_pull, torch.bool, (e,))
+    if thr_rev is not None:
+        check("thr_rev", thr_rev, torch.uint8, (e,))
+    draws = thr_rev is not None or tiers is not None or 0 < topo_thr < 256
+    if draws:
+        check("k_drop", k_drop, torch.int64, (2,))
+    if dropped is not None:
+        check("dropped", dropped, torch.int64, ())
+    if tiers is not None and topo_thr != 0:
+        raise ValueError("tiered loss replaces the flat threshold")
+    table = None if tiers is None else topo_table(tiers, n, ring.device)
+    kernel = (kernels.BROADCAST_PULL_TIERED if tiers is not None
+              else kernels.BROADCAST_PULL_LOSSY if draws or topo_thr >= 256
+              else kernels.BROADCAST_PULL)
+    kernel.launch(
+        [ring, sending, dst, slot, ok_pull, thr_rev,
+         k_drop if draws else None, dropped, table],
+        [n, d, w, fanout, seed, WIRE_LOSS_TAG, topo_thr])
+
+
 def broadcast_packed(
     carry: PackedCarry, injected_p: torch.Tensor, state: SimState,
     cfg: SimConfig, topo: Topology, region: torch.Tensor, key: torch.Tensor,
@@ -588,7 +674,9 @@ def broadcast_packed(
     k_targets, k_drop, k_ring0 = rng.split(key, 3)
     targets = sample_member_targets(state, cfg, k_targets, f)  # [N, F]
     targets = ring0_targets(state, cfg, topo, region, k_ring0, targets)
-    targets = apply_degree_caps(targets, topo)
+    # the degree caps, then the fan-out schedule: the spend below reads
+    # the scheduled targets
+    targets = capped_schedule(targets, topo, cfg, int(state.t))
     sending = spend_relay(carry, injected_p, targets, state.alive,
                           cfg.rate_limit_bytes_round, meta.nbytes)
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
@@ -625,17 +713,47 @@ def broadcast_packed(
             else acc_slot(trace, "bcast_dropped"), jit,
             **({} if tiers is None else {"tiers": tiers}),
         )
+    if cfg.dissemination == "push-pull":
+        _pull_packed(carry, sending, state, cfg, topo, faults, trace, src,
+                     dst, ok, slot, thr, k_drop, topo_thr, tiers, meta)
     return carry
+
+
+def _pull_packed(carry, sending, state, cfg, topo, faults, trace, src, dst,
+                 ok, slot, thr, k_drop, topo_thr, tiers, meta) -> None:
+    """The push-pull response leg of `broadcast_packed`: the session
+    refusal across a cut in either direction (K9), the reverse fault
+    thresholds when this round's loss applies (K9 on the swapped edges),
+    the response scatter (K10p) and, with a ``trace``, the pull's frames
+    and bytes over its edges (K18's pull entry)."""
+    from ..proto.dissemination import pull_session_ok, reverse_loss
+
+    f = cfg.fanout
+    ok_pull = pull_session_ok(ok, faults, src, dst)
+    thr_rev = reverse_loss(faults, src, dst) if thr is not None else None
+    scatter_pull(
+        carry.inflight, sending, dst, slot, ok_pull, thr_rev, k_drop,
+        0 if faults is None else int(faults.seed), f, topo_thr,
+        None if trace is None or not wire_loss_active(topo, faults)
+        else acc_slot(trace, "bcast_dropped"), tiers)
+    if trace is not None:
+        wire_words_pull_(trace.acc[WIRE], sending, meta.nbytes, ok_pull, dst)
 
 
 def deliver_packed_plain(
     carry: PackedCarry, t: int, cfg: SimConfig
 ) -> PackedCarry:
-    """Plain version of K8's deliver, in place."""
+    """Plain version of K8's deliver and of K8f (its FIFO gate), in
+    place."""
     slot = t % carry.inflight.shape[0]
     arriving = carry.inflight[slot]
+    pending = carry.sync_buf[slot]
+    if order_enforced(cfg):
+        admit = admit_words(carry.have, cfg)
+        arriving = arriving & admit
+        pending = pending & admit
     newly = arriving & ~carry.have
-    carry.have.bitwise_or_(arriving | carry.sync_buf[slot])
+    carry.have.bitwise_or_(arriving | pending)
     planes_set_(carry.relay, newly, max(cfg.max_transmissions - 1, 1))
     carry.inflight[slot] = 0
     carry.sync_buf[slot] = 0
@@ -644,8 +762,11 @@ def deliver_packed_plain(
 
 def deliver_packed(carry: PackedCarry, t: int, cfg: SimConfig) -> PackedCarry:
     """Broadcast arrivals re-arm the relay budget; the sync ring's slot t
-    merges into have without re-arming; both slots are cleared.  In
-    place; K8 on the card."""
+    merges into have without re-arming; both slots are cleared.  Under
+    ``ordering="fifo"`` both slots arrive only where the row's admit
+    words (`..proto.ordering.admit_words`, from ``have`` before the
+    merge) let them; the rest is dropped.  In place; K8 on the card, K8f
+    under FIFO."""
     if carry.have.device.type == "cpu":
         return deliver_packed_plain(carry, t, cfg)
     n, w = carry.have.shape
@@ -653,6 +774,14 @@ def deliver_packed(carry: PackedCarry, t: int, cfg: SimConfig) -> PackedCarry:
     _check_words(carry, n, w)
     check("inflight", carry.inflight, torch.int32, (d_slots, n, w))
     check("sync_buf", carry.sync_buf, torch.int32, (d_slots, n, w))
+    if order_enforced(cfg):
+        c = cfg.chunks_per_version
+        kernels.WORD_DELIVER_FIFO.launch(
+            [carry.inflight, carry.sync_buf, carry.have, *carry.relay],
+            [n, w, d_slots, t % d_slots, max(cfg.max_transmissions - 1, 1),
+             c, cfg.n_writers * c],
+        )
+        return carry
     kernels.WORD_DELIVER.launch(
         [carry.inflight, carry.sync_buf, carry.have, *carry.relay],
         [n, w, d_slots, t % d_slots, max(cfg.max_transmissions - 1, 1)],
@@ -770,7 +899,8 @@ def sync_packed(
     n, s = cfg.n_nodes, cfg.sync_peers
     ks = rng.split(key, 3)
     k_peers, k_rearm = ks[0], ks[2]
-    due = state.sync_countdown <= 0
+    # the cadence before every use of due: the sessions' ok and the re-arm
+    due = cadence_due(state.sync_countdown <= 0, cfg)
     peers = sample_member_targets(state, cfg, k_peers, s)
     me = torch.arange(n, dtype=torch.int32, device=peers.device)
     src = me.repeat_interleave(s)
@@ -976,6 +1106,9 @@ def packed_round_step(
     coverage_at, converged_at, done = converge_record(
         carry.have, injected_p, state.alive, metrics, meta, t, cfg, horizon
     )
+    if order_checked(cfg):
+        count_order_violations_(metrics.order_violations, carry.have, meta,
+                                cfg)
     out_metrics = RunMetrics(
         coverage_at=coverage_at,
         converged_at=converged_at,

@@ -31,6 +31,7 @@ import torch
 from .. import kernels
 from ..device import resolve_device
 from ..kernels.build import check
+from ..proto.ordering import order_checked
 from . import rng
 from .state import (
     ALIVE,
@@ -62,7 +63,10 @@ class RunMetrics(NamedTuple):
     coverage_at: torch.Tensor  # i32[P]
     converged_at: torch.Tensor  # i32[N]
     overflow_frac: torch.Tensor  # f32 scalar
-    order_violations: torch.Tensor  # i32 scalar
+    # i32 scalar: the delivery-order count of an ordering variant (K22,
+    # `.invariants.count_order_violations_`), summed every round; 0 under
+    # ordering="none"
+    order_violations: torch.Tensor
 
 
 def new_metrics(cfg: SimConfig, device) -> RunMetrics:
@@ -269,6 +273,11 @@ def round_step_(state: SimState, metrics: RunMetrics, meta: PayloadMeta,
     overflow_frac = torch.maximum(
         metrics.overflow_frac, overflow_fraction(n_overflow, heads.numel())
     )
+    if order_checked(cfg):
+        from .invariants import count_order_violations_
+
+        count_order_violations_(metrics.order_violations, state.have, meta,
+                                cfg)
     if trace is not None:
         coverage_delivered_dense_(trace.counts[COVERAGE:GRANTS], state.have,
                                   have0, state.alive)
@@ -297,6 +306,10 @@ def round_step(
     round_faults`) threads the plan through every phase; its node
     faults are the caller's (`.faults.apply_node_faults`), as in JAX."""
     validate(cfg, topo)
+    if order_checked(cfg):
+        # the order count adds into the metrics in place: give it its own
+        metrics = metrics._replace(
+            order_violations=metrics.order_violations.clone())
     state, metrics, _ = round_step_(own_state(state), metrics, meta, cfg,
                                     topo, region, trace, faults)
     if trace is not None:

@@ -1,8 +1,9 @@
 """Scenario runner for the port: `run_scenario` and the runner's configs
 (``corrosion_tpu/sim/runner.py``): the 3-node ground truth, broadcast-1k
 and partition-heal-10k on the dense round, the 100k-node write storm
-(broadcast-1k and the storm also over a named topology family and under
-the PeerSwap sampler, `_resolve_topo`),
+(broadcast-1k and the storm also over a named topology family, under
+the PeerSwap sampler, `_resolve_topo`, and under a named protocol
+family, `_resolve_proto`),
 the packed fault storm and its flight-recorder rung
 (`config_fault_storm_telemetry`) with their setup `fault_storm` (which
 also puts the storm on the dense round, or on full-view SWIM), and the
@@ -45,6 +46,7 @@ from .state import (
     uniform_payloads,
 )
 from .telemetry import trace_host, trace_summary, write_flight_jsonl
+from ..proto.families import family_proto
 from ..topo.families import family_topology
 from .topology import Topology, regions
 
@@ -180,11 +182,12 @@ def _resolve_topo(topo_family: Optional[str]) -> Topology:
     return Topology(**family_topology(topo_family))
 
 
-def _refuse_proto(proto_family) -> None:
-    if proto_family:
-        raise NotImplementedError(
-            "the protocol axis is not ported yet (ROADMAP A10, B15)"
-        )
+def _resolve_proto(proto_family: Optional[str]) -> Dict[str, object]:
+    """Named protocol family → SimConfig protocol kwargs (None: the
+    baseline point, an empty overlay)."""
+    if not proto_family:
+        return {}
+    return family_proto(proto_family)
 
 
 def config_broadcast_1k(
@@ -193,20 +196,20 @@ def config_broadcast_1k(
     trace_path: Optional[str] = None,
     topo_family: Optional[str] = None,
     sampler: Optional[str] = None,
-    proto_family=None,
+    proto_family: Optional[str] = None,
     device="cuda",
     return_state: bool = False,
 ) -> Dict[str, float]:
     """Config #3: 1000 nodes, 8 writers × 32 versions, ground-truth
     membership, on the dense round; ``topo_family`` names a topology
-    family (`..topo.families`, default flat) and ``sampler`` the peer
-    sampler ("peerswap" or the uniform default).  The protocol axis
-    (``proto_family``) is ROADMAP A10's other half and raises."""
-    _refuse_proto(proto_family)
+    family (`..topo.families`, default flat), ``sampler`` the peer
+    sampler ("peerswap" or the uniform default) and ``proto_family`` a
+    protocol family (`..proto.families`), overlaid on the config."""
     topo = _resolve_topo(topo_family)
     cfg = SimConfig(n_nodes=1000, n_payloads=256, n_writers=8, fanout=3,
                     n_delay_slots=max(4, topo.max_delay + 1),
-                    peer_sampler=sampler or "uniform")
+                    peer_sampler=sampler or "uniform",
+                    **_resolve_proto(proto_family))
     meta = uniform_payloads(cfg, resolve_device(device), inject_every=2)
     return run_scenario(optimize_budgets(cfg, meta), meta, topo=topo,
                         seed=seed, telemetry=telemetry, trace_path=trace_path,
@@ -317,12 +320,14 @@ def membership_churn(
 
 
 def _write_storm(n_nodes: int, n_payloads: int, device="cuda",
-                 topo: Topology = Topology(), sampler: Optional[str] = None):
+                 topo: Topology = Topology(), sampler: Optional[str] = None,
+                 proto_family: Optional[str] = None):
     """The multi-writer chunked write storm's config and payloads: 16
     writers × 4 chunks, partial-view SWIM up to 2^18 nodes — except under
     the PeerSwap ``sampler``, whose view is the sampler, so the storm
-    runs ground-truth membership — and a ring deep enough for the
-    topology's deepest delay class."""
+    runs ground-truth membership — a ring deep enough for the topology's
+    deepest delay class, and the protocol family ``proto_family``
+    overlaid."""
     peerswap = (sampler or "uniform") == "peerswap"
     cfg = SimConfig.wan_tuned(
         n_nodes,
@@ -336,6 +341,7 @@ def _write_storm(n_nodes: int, n_payloads: int, device="cuda",
         member_slots=64,
         peer_sampler=sampler or "uniform",
         n_delay_slots=max(2, topo.max_delay + 1),
+        **_resolve_proto(proto_family),
     )
     meta = uniform_payloads(cfg, resolve_device(device), inject_every=2)
     return optimize_budgets(cfg, meta), meta
@@ -349,18 +355,18 @@ def config_write_storm_100k(
     trace_path: Optional[str] = None,
     topo_family: Optional[str] = None,
     sampler: Optional[str] = None,
-    proto_family=None,
+    proto_family: Optional[str] = None,
     device="cuda",
     return_state: bool = False,
 ) -> Dict[str, float]:
     """Config #5: 100k nodes, multi-writer chunked write storm, p99
     time-to-convergence; ``topo_family`` runs it over a named topology
-    family and ``sampler="peerswap"`` under the PeerSwap sampler (with
-    ground-truth membership).  The protocol axis (``proto_family``)
-    raises (ROADMAP A10)."""
-    _refuse_proto(proto_family)
+    family, ``sampler="peerswap"`` under the PeerSwap sampler (with
+    ground-truth membership) and ``proto_family`` under a named protocol
+    variant."""
     topo = _resolve_topo(topo_family)
-    cfg, meta = _write_storm(n_nodes, n_payloads, device, topo, sampler)
+    cfg, meta = _write_storm(n_nodes, n_payloads, device, topo, sampler,
+                             proto_family)
     return run_scenario(
         cfg, meta, topo=topo, seed=seed, max_rounds=3000,
         telemetry=telemetry, trace_path=trace_path, device=device,

@@ -32,25 +32,17 @@ def max_transmissions_for(n_live: int, base: int) -> int:
     return max(base, round(base * math.log2(max(2, n_live + 2)) / 5.0))
 
 
-# the protocol axis (ROADMAP A10, its protocol half, with B15's rest) and
-# the one value the port runs
-_AXIS_DEFAULTS = {
-    "dissemination": "push",
-    "fanout_schedule": "flat",
-    "sync_cadence": "periodic",
-    "ordering": "none",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Static configuration: the fields of the JAX ``SimConfig`` that the
     packed and the dense round read, with the same names and defaults.
     ``peer_sampler`` takes JAX's two values ("uniform", "peerswap" with
     a view of ``view_slots`` peers, `..topo.sampler`).  The protocol
-    variants (ROADMAP A10's protocol axis) keep their fields so a
-    configuration reads the same in both packages, and refuse any value
-    but their default.
+    knobs (`..proto.families`) take JAX's values, defaults and
+    refusals: ``dissemination`` "push" or "push-pull", ``fanout_schedule``
+    "flat" or "decay" (every ``fanout_decay_rounds``), ``sync_cadence``
+    "periodic" or "eager", ``ordering`` "none", "fifo" or
+    "fifo-unchecked" (which need two versions per writer or more).
     ``trace_every`` is the flight recorder's round stride (`.telemetry`):
     row t is recorded only when t % trace_every == 0."""
 
@@ -86,6 +78,7 @@ class SimConfig:
     view_slots: int = 16
     dissemination: str = "push"
     fanout_schedule: str = "flat"
+    fanout_decay_rounds: int = 8
     sync_cadence: str = "periodic"
     ordering: str = "none"
 
@@ -117,12 +110,38 @@ class SimConfig:
                     "peer_sampler='peerswap' is incompatible with "
                     "swim_partial_view (the member tables ARE a sampler)"
                 )
-        for name, default in _AXIS_DEFAULTS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the protocol axis "
-                    "is not ported yet (ROADMAP A10, B15)"
-                )
+        if self.dissemination not in ("push", "push-pull"):
+            raise ValueError(
+                f"unknown dissemination {self.dissemination!r} "
+                "(use 'push' or 'push-pull')"
+            )
+        if self.fanout_schedule not in ("flat", "decay"):
+            raise ValueError(
+                f"unknown fanout_schedule {self.fanout_schedule!r} "
+                "(use 'flat' or 'decay')"
+            )
+        if self.fanout_decay_rounds < 1:
+            raise ValueError(
+                f"fanout_decay_rounds must be >= 1, got "
+                f"{self.fanout_decay_rounds}"
+            )
+        if self.sync_cadence not in ("periodic", "eager"):
+            raise ValueError(
+                f"unknown sync_cadence {self.sync_cadence!r} "
+                "(use 'periodic' or 'eager')"
+            )
+        if self.ordering not in ("none", "fifo", "fifo-unchecked"):
+            raise ValueError(
+                f"unknown ordering {self.ordering!r} "
+                "(use 'none', 'fifo', or 'fifo-unchecked')"
+            )
+        if self.ordering != "none" and self.n_versions < 2:
+            raise ValueError(
+                "ordering variants need >= 2 versions per writer "
+                f"(n_payloads={self.n_payloads}, n_writers="
+                f"{self.n_writers}, chunks_per_version="
+                f"{self.chunks_per_version} gives {self.n_versions})"
+            )
 
     @classmethod
     def wan_tuned(cls, n_nodes: int, **kw) -> "SimConfig":

@@ -26,6 +26,7 @@ import torch
 
 from .. import kernels
 from ..kernels.build import check
+from ..proto.schedule import cadence_due
 from . import rng
 from .gaps import gaps_to_mask
 from .state import (
@@ -175,7 +176,8 @@ def sync_step(
     s = cfg.sync_peers
     ks = rng.split(key, 3)
     k_peers, k_rearm = ks[0], ks[2]
-    due = state.sync_countdown <= 0
+    # the cadence before every use of due: the sessions' ok and the re-arm
+    due = cadence_due(state.sync_countdown <= 0, cfg)
     peers = sample_member_targets(state, cfg, k_peers, s)  # [N, S]
     me = torch.arange(n, dtype=torch.int32, device=peers.device)
     src = me.repeat_interleave(s)

@@ -350,6 +350,61 @@ def wire_rows_(acc: torch.Tensor, row_frames: torch.Tensor,
                                    [n, fanout])
 
 
+def pull_fold(frames: torch.Tensor, byte_tot: torch.Tensor,
+              ok_pull: torch.Tensor, dst: torch.Tensor):
+    """(frames, bytes) int64 of the responders' per-node totals [N] over
+    the ok_pull edges: edge e carries node dst[e]'s (JAX's pull fold,
+    ``packed.py:584-607``, ``broadcast.py:285-305``)."""
+    rows = dst.long()
+    return (torch.where(ok_pull, frames.to(torch.int64)[rows], 0).sum(),
+            torch.where(ok_pull, byte_tot.to(torch.int64)[rows], 0).sum())
+
+
+def wire_words_pull_(acc: torch.Tensor, sending: torch.Tensor,
+                     nbytes: torch.Tensor, ok_pull: torch.Tensor,
+                     dst: torch.Tensor) -> None:
+    """Add the push-pull responses' frames and bytes — each ok_pull edge
+    e carries the responder dst[e]'s sending words — to ``acc`` int64[2]
+    in place (a trace's ``acc[WIRE]``, beside the push's).  K18's pull
+    entry on the card."""
+    if sending.device.type == "cpu":
+        f, b = pull_fold(*word_send_stats(sending, nbytes), ok_pull, dst)
+        acc[0] += f
+        acc[1] += b
+        return
+    n, w = sending.shape
+    e = dst.shape[0]
+    check("acc", acc, torch.int64, (2,))
+    check("sending", sending, torch.int32, (n, w))
+    check("nbytes", nbytes, torch.int32, (w * 32,))
+    check("ok_pull", ok_pull, torch.bool, (e,))
+    check("dst", dst, torch.int32, (e,))
+    kernels.TRACE_WIRE_WORDS_PULL.launch([sending, nbytes, ok_pull, dst, acc],
+                                         [e, w])
+
+
+def wire_rows_pull_(acc: torch.Tensor, row_frames: torch.Tensor,
+                    row_bytes: torch.Tensor, ok_pull: torch.Tensor,
+                    dst: torch.Tensor) -> None:
+    """The dense twin of `wire_words_pull_` from the dense broadcast's
+    per-node frames and bytes i32[N] (K12's telemetry outputs).  K18's
+    rows pull entry on the card."""
+    if row_frames.device.type == "cpu":
+        f, b = pull_fold(row_frames, row_bytes, ok_pull, dst)
+        acc[0] += f
+        acc[1] += b
+        return
+    n = row_frames.shape[0]
+    e = dst.shape[0]
+    check("acc", acc, torch.int64, (2,))
+    check("row_frames", row_frames, torch.int32, (n,))
+    check("row_bytes", row_bytes, torch.int32, (n,))
+    check("ok_pull", ok_pull, torch.bool, (e,))
+    check("dst", dst, torch.int32, (e,))
+    kernels.TRACE_WIRE_ROWS_PULL.launch(
+        [row_frames, row_bytes, ok_pull, dst, acc], [e])
+
+
 # -- K19: the row ------------------------------------------------------------
 
 

@@ -43,6 +43,7 @@ from tests.torch_parity import (
     assert_states_equal,
     fields,
     jax_digest,
+    port_config,
     to_port,
 )
 
@@ -151,12 +152,13 @@ def test_edge_payload_drop_flat_matches_jax(loss):
 
 
 def test_tiered_loss_and_scenario_axes_refuse():
-    """The protocol axis still refuses (its four knobs and the runner's
-    ``proto_family``, naming the ROADMAP item); tiered loss and the
-    PeerSwap sampler, which refused here before the topology axis was
-    ported, now equal JAX: the tiered wire draw and the PeerSwap initial
-    state (tests/test_torch_topology_tiers.py and test_torch_peerswap.py
-    hold the rest of the axis)."""
+    """Tiered loss, the PeerSwap sampler and the protocol axis, which all
+    refused here before their axes were ported, now equal JAX: the tiered
+    wire draw, the PeerSwap initial state, each of the four protocol
+    knobs' configurations field for field, and the runner's
+    ``proto_family`` overlay on both entry points' configs
+    (tests/test_torch_topology_tiers.py, test_torch_peerswap.py and
+    test_torch_proto*.py hold the rest of the axes)."""
     topo_kw = dict(n_regions=2, loss=0.1, inter_loss=0.3)
     src = np.repeat(np.arange(40), 3).astype(np.int32)
     dst = np.random.default_rng(0).integers(0, 40, 120).astype(np.int32)
@@ -177,11 +179,15 @@ def test_tiered_loss_and_scenario_axes_refuse():
     for name, value in (("dissemination", "push-pull"),
                         ("fanout_schedule", "decay"),
                         ("sync_cadence", "eager"), ("ordering", "fifo")):
-        with pytest.raises(NotImplementedError, match="A10"):
-            pstate.SimConfig(n_nodes=4, n_payloads=4, **{name: value})
-    for entry in (runner.config_broadcast_1k, runner.config_write_storm_100k):
-        with pytest.raises(NotImplementedError, match="A10"):
-            entry(proto_family="push-pull", device="cpu")
+        kw = dict(n_nodes=4, n_payloads=4, **{name: value})
+        assert pstate.SimConfig(**kw) == port_config(jstate.SimConfig(**kw))
+    from corrosion_tpu.sim import runner as jrunner
+
+    for family in ("push-pull", "lab-ordered"):
+        assert runner._resolve_proto(family) == jrunner._resolve_proto(family)
+        jcfg, _ = jrunner._write_storm(64, 128, proto_family=family)
+        pcfg, _ = runner._write_storm(64, 128, "cpu", proto_family=family)
+        assert pcfg == port_config(jcfg)
 
 
 def test_fault_plan_under_peerswap_refuses():

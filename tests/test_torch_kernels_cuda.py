@@ -1225,3 +1225,69 @@ def test_topology_run_on_card_equals_cpu(card, family, sampler, telemetry,
     for a, b in zip(got, want):
         for name, x, y in zip(type(b)._fields, a, b):
             assert torch.equal(x.cpu(), y), name
+
+
+# -- the protocol axis: K10p, K12p, K8f, K12f-o, K22, K20's schedule, K18 pull
+
+
+@pytest.mark.parametrize("n", (1201, 3001))
+def test_protocol_kernels(card, n):
+    """chip_smoke.py's phase 3i comparisons at small node counts, every
+    trap reached."""
+    cs = _smoke()
+    g = np.random.default_rng(n)
+    before = {k.name: k.launches for k in kernels.KERNELS}
+    rows = (cs.compare_pull_scatter(card, g, n, timed=False)
+            + cs.compare_dense_pull(card, g, timed=False)
+            + cs.compare_fifo_deliver(card, g, n, timed=False)
+            + cs.compare_order_check(card, g, n, timed=False)
+            + cs.compare_caps_schedule(card, g, n, timed=False)
+            + cs.compare_trace_wire_pull(card, g, n, timed=False))
+    assert all(row["equal"] for row in rows), rows
+    for row in ("broadcast_pull", "broadcast_pull_lossy",
+                "broadcast_pull_tiered", "dense_pull", "dense_pull_lossy",
+                "dense_pull_tiered", "word_deliver_fifo", "dense_deliver_fifo",
+                "order_check_words", "order_check_dense", "degree_caps_sched",
+                "trace_wire_pull", "trace_wire_rows_pull"):
+        for kern in kernels.PORTED[row]:
+            assert kern.launches > before[kern.name], kern.name
+
+
+def _protocol_run(dev, family, topo_family, packed, telemetry, plan=False):
+    from corrosion_tpu_torch.sim import faults as pfaults
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.runner import _resolve_topo, _write_storm
+
+    topo = _resolve_topo(topo_family)
+    cfg, meta = _write_storm(240, 128, dev, topo, None, family)
+    change = dict(packed_min_cells=0) if packed else dict(allow_packed=False)
+    cfg = dataclasses.replace(cfg, **change)
+    if plan:
+        fplan = pfaults.compile_plan(_smoke().one_way_plan(240), cfg, topo,
+                                     device=dev)
+        return pfaults.run_fault_plan(new_sim(cfg, 5, dev), meta, cfg, topo,
+                                      fplan, 600, telemetry)
+    return run_to_convergence(new_sim(cfg, 5, dev), meta, cfg, topo, 600,
+                              telemetry)
+
+
+@pytest.mark.parametrize("packed", (True, False), ids=("packed", "dense"))
+@pytest.mark.parametrize("family, topo_family, telemetry, plan", (
+    ("push-pull", "wan-3x2", True, False), ("push-pull", "flat-lossy", True,
+                                             True),
+    ("lab-ordered", None, False, True), ("lab-ordered-broken", "flat-lossy",
+                                         False, False),
+    ("fanout-decay", "hetero-degree", False, False),
+    ("swarm-aggressive", None, True, False)))
+def test_protocol_run_on_card_equals_cpu(card, family, topo_family,
+                                         telemetry, plan, packed):
+    """A small storm under each protocol family on the card (push-pull
+    and FIFO also under a one-way plan), every state tensor, metric (the
+    order count included) and trace channel equal to the same run's plain
+    versions on the CPU."""
+    got = _protocol_run(card, family, topo_family, packed, telemetry, plan)
+    want = _protocol_run(torch.device("cpu"), family, topo_family, packed,
+                         telemetry, plan)
+    for a, b in zip(got, want):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y), name

@@ -2,7 +2,7 @@
 sampler branches of SimConfig, init_state, swim.sample_member_targets and
 both rounds' phase keys) against the live JAX reference, exact.
 
-The configuration's validation and the protocol axis's refusals; the
+The configuration's validation; the
 initial state under both samplers (the uniform default keeps its three-
 way key split, PeerSwap splits four ways and draws the view from the
 last key); `init_peer_view`; `psample_view_targets` on views with empty
