@@ -6,11 +6,11 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the twenty-two CUDA kernels K1–K22 (with the latency entries
+2. build the twenty-three CUDA kernels K1–K23 (with the latency entries
    of K3, K9 and K10, the dense fault entries of K11–K14, K9's matrix
    entry K9m, K1's view entry, the tiered instantiations of K10 and
    K12, and the protocol axis's instantiations of K8, K10, K12, K18 and
-   K20) from the twenty-one sources in
+   K20) from the twenty-two sources in
    ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``
    (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -110,6 +110,17 @@ result line):
    responder budget, a FIFO arrival whose predecessor is held but for
    one chunk (packed and dense), the origin-row exemption, a decay step
    crossing R composed after the degree caps;
+   then membership churn (phase 3j): K23's full entry at N = 64, 1000
+   and 4096 (and 1001) and its partial entry at N = 4096 and 100000 (M
+   = 64), each from detect_round -1 and from one already set, and K11's
+   PeerSwap view row — its word entry at flash-crowd-peerswap-25.6k's
+   shapes (N = 25600, V = 16, the join round) and its dense entry at
+   broadcast-1k-wan-3x2-peerswap's (N = 1000, P = 256, D = 4) — printing
+   that each of the eight traps was reached: an (up, dead) cell at
+   SUSPECT, DOWN on (up, up) and (dead, ·) cells, N not a multiple of
+   32, pid = -1 with pkey = -1, a dead watcher whose row names dead
+   members unmarked, pkey at INC_CLAMP * 4 + 2, detect_round already
+   set, a wiped node with a full view row;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -125,7 +136,8 @@ result line):
 7. each from launch counters at 0: ``config_partition_heal_10k(seed=0)``
    (K1, K4, K5, K12–K14), ``config_broadcast_1k(seed=0)`` and
    ``config_ground_truth_3node(seed=0)`` (K1's uniform entry, K5,
-   K12–K14), ``membership_churn(4096, seed=0)`` (those and K15), each
+   K12–K14), ``membership_churn(4096, seed=0)`` (those, K15 and K23's
+   full entry, through ``run_membership_detect``), each
    held against its goldens (heal round, rounds, p99, digest; the
    churn's detect round, digest and false DOWNs);
 8. each from launch counters at 0: ``config_write_storm_gapstress(
@@ -195,6 +207,20 @@ result line):
    the run's ``order_violations``, with K10p's, K12p's, K8f's, K12f-o's,
    K22's, K20's schedule's and K18's pull entries launched where the path
    runs them and not where it does not;
+   then membership churn, each from launch counters at 0 through its
+   entry point: ``config_swim_churn_64(seed=0)`` (K23's full entry),
+   ``config_swim_churn_partial(seed=0)`` and the same run with
+   ``telemetry=True`` through ``run_membership_detect`` (K23's partial
+   entry; its telemetry golden, the whole trace by its digest),
+   ``config_swim_churn_partial(seed=0, n=100000)`` (600 rounds, no
+   detection, as in JAX), each with its K23 entry launched once a round
+   (and K23 on no other path), and the flash crowd
+   (``flash_crowd_events``: the tail quarter down over rounds 0-7, back
+   wiped at round 8) through ``run_fault_plan`` on the 100k storm and on
+   storm-peerswap-25.6k (K11 with the view row), each held against its
+   golden (detect round, detected fraction, false DOWNs, digest; rounds,
+   p99s, digest and the view's digest); the topology phase above also
+   runs the 100k fault storm over wan-3x2 against its golden;
 15. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
@@ -204,7 +230,8 @@ result line):
    6-8 of latency-storm-100k and of the same config without its latency
    pair, rounds 5-7 of dense-fault-storm-100k and of fault-storm-1000,
    the first 3 rounds of storm-wan-3x2-100k, storm-peerswap-25.6k and
-   the push-pull and lab-ordered storms (host wall, device time by
+   the push-pull and lab-ordered storms, and the first 3 rounds of
+   swim-churn-partial-100k (host wall, device time by
    kernel from ``torch.profiler``, the device's idle share; the storm
    under the baseline family is held to 1526 launches too);
 16. print the card line, the kernels JSON line, then the one-line result
@@ -348,6 +375,7 @@ KERNEL_SYMBOLS = (
     "deliver_fifo_kernel", "dense_deliver_fifo_kernel", "order_words_kernel",
     "order_dense_kernel", "degree_caps_sched_kernel",
     "trace_wire_words_pull_kernel", "trace_wire_rows_pull_kernel",
+    "detect_full_kernel", "detect_partial_kernel",
 )
 
 
@@ -624,6 +652,45 @@ def profile_dense_fault(dev, start=DENSE_FAULT_T, rounds=3):
 
     return _profile(run, rounds, f"dense fault storm-100k rounds {start}-"
                     f"{start + rounds - 1}", setup)
+
+
+def profile_churn_partial(dev, n=100_000, rounds=3):
+    """The first ``rounds`` rounds of swim-churn-partial at ``n`` nodes
+    through `run_membership_detect`'s body: the dense round, K23's
+    partial entry, the one host read of detect_round a round; the churn
+    setup is outside the clock and the profiler."""
+    from corrosion_tpu_torch.sim.round import (
+        new_metrics, own_state, round_step_)
+    from corrosion_tpu_torch.sim.runner import churn_setup
+    from corrosion_tpu_torch.sim.state import ALIVE, SimConfig
+    from corrosion_tpu_torch.sim.telemetry import detect_partial_, new_detect
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    cfg = SimConfig.wan_tuned(n, n_payloads=1, swim_partial_view=True,
+                              probe_period_rounds=1)
+    topo = Topology()
+    region = regions(n, 1, dev)
+
+    def setup():
+        meta, state = churn_setup(cfg, 0, dev)
+        out = (meta, own_state(state), new_metrics(cfg, dev),
+               state.alive == ALIVE, new_detect(dev))
+        torch.cuda.synchronize()
+        return out
+
+    def run(loop):
+        meta, state, metrics, up, detect = loop
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            state, metrics, _ = round_step_(state, metrics, meta, cfg, topo,
+                                            region)
+            detect_partial_(detect, state.pid, state.pkey, up, int(state.t))
+            int(detect[0])  # the loop's one host read a round
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, f"swim-churn-partial-{n / 1000:g}k", setup)
 
 
 def _bound_ms(nbytes: int) -> float:
@@ -4472,6 +4539,306 @@ def compare_protocol_kernels(dev, seed=8, timed=True):
     return rows
 
 
+# -- phase 3j: membership churn: K23's two entries and K11's view row --------
+
+CHURN_N = 4096
+#: the flash crowd's join round (`flash_crowd_events`' default): the tail
+#: quarter restarts wiped here
+JOIN_T = 8
+
+
+def _churn_up(n, dev):
+    """up[] of the churn setup (`runner.churn_setup`): every third node
+    dead."""
+    return torch.arange(n, device=dev) % 3 != 0
+
+
+def _detect_cases(dev, up, t, want_held, run, plain, label):
+    """K23 against its plain version on one input: from detect_round -1
+    (the answer must be t iff ``want_held``) and from a detect_round
+    already set (it must stay).  Returns (equal, err)."""
+    from corrosion_tpu_torch.sim.telemetry import new_detect
+
+    equal, err = True, 0
+    for start in (-1, 3):
+        outs = []
+        for fn in (run, plain):
+            det = new_detect(dev)
+            det[0] = start
+            fn(det)
+            outs.append(det)
+        e, x = _equal_all([outs[0]], [outs[1]])
+        equal, err = equal and e, max(err, x)
+        want = (t if want_held else -1) if start < 0 else start
+        if int(outs[0][0]) != want or outs[0][1:].any():
+            raise AssertionError(f"{label}: detect {outs[0].tolist()}, "
+                                 f"want [{want}, 0, 0]")
+    return equal, err
+
+
+def compare_detect_full(dev, g, sizes=(64, 1000, 4096), timed=True):
+    """K23's full entry at the churn paths' shapes (N = 64, 1000, 4096;
+    and N = 1001, whose rows do not start on words): beliefs where every
+    (up, dead) cell is DOWN among random ALIVE/SUSPECT/DOWN cells
+    elsewhere, then the same with one (up, dead) cell at SUSPECT, each
+    from detect_round -1 and from one already set."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    rows = []
+    t = 17
+    for n in (*sizes, 1001):
+        up_np = np.arange(n) % 3 != 0
+        view_np = g.integers(0, 3, (n, n)).astype(np.int8)
+        view_np[np.ix_(up_np, ~up_np)] = 2
+        up = torch.as_tensor(up_np, device=dev)
+        view = torch.as_tensor(view_np, device=dev)
+        if n % 32:
+            _trap("churn 3", f"N = {n}, not a multiple of 32", True)
+        noise = int((view_np[np.ix_(up_np, up_np)] == 2).sum()) and int(
+            (view_np[~up_np] == 2).sum())
+        _trap("churn 2", f"DOWN on (up, up) and (dead, ·) cells at N = {n}",
+              noise > 0)
+        equal, err = _detect_cases(
+            dev, up, t, True, lambda d: tel.detect_full_(d, view, up, t),
+            lambda d: tel.detect_full_plain(d, view, up, t),
+            f"detect_full {n}")
+        bad = view.clone()
+        i, j = int(np.flatnonzero(up_np)[-1]), int(np.flatnonzero(~up_np)[-1])
+        bad[i, j] = 1
+        e, x = _detect_cases(
+            dev, up, t, False, lambda d: tel.detect_full_(d, bad, up, t),
+            lambda d: tel.detect_full_plain(d, bad, up, t),
+            f"detect_full {n} suspect")
+        equal, err = equal and e, max(err, x)
+        _trap("churn 1", f"an (up, dead) cell at SUSPECT at N = {n}", True)
+        _trap("churn 7", f"detect_round already >= 0 stays at N = {n}", True)
+        if n not in sizes:
+            if not equal:
+                raise AssertionError(f"detect_full {n}: kernel != plain")
+            continue
+        det, det2 = tel.new_detect(dev), tel.new_detect(dev)
+        n_up = int(up_np.sum())
+        rows.append(_row(
+            f"detect_full_{n}",
+            "corrosion_tpu_torch/kernels/csrc/membership_detect.cu",
+            "corrosion_tpu/sim/telemetry.py:320", equal, err,
+            _timed(timed, lambda: tel.detect_full_(det, view, up, t)),
+            _timed(timed, lambda: tel.detect_full_plain(det2, view, up, t)),
+            # the up watchers' rows of view, and up
+            n_up * n + n, kernel="detect_full", n=n))
+    return rows
+
+
+def _partial_tables(g, n, m, dev):
+    """Member tables of the churn setup's shape ([N, M], every third node
+    dead) where every entry of an up watcher that names a dead member is
+    DOWN — some at the incarnation clamp, INC_CLAMP * 4 + 2 — while dead
+    watchers' rows name dead members unmarked and empty entries carry
+    pid = pkey = -1."""
+    from corrosion_tpu_torch.sim.pswim import INC_CLAMP
+
+    up_np = np.arange(n) % 3 != 0
+    pid, pkey, _ = _random_tables(g, n, m, 20)
+    watched = up_np[:, None] & (pid >= 0) & ~up_np[np.maximum(pid, 0)]
+    inc = np.where(g.random((n, m)) < 0.1, INC_CLAMP, pkey >> 2)
+    pkey = np.where(watched, inc * 4 + 2, pkey)
+    _trap("churn 4", "pid = -1 with pkey = -1",
+          bool(((pid < 0) & (pkey == -1)).any()))
+    dead_rows = ~up_np[:, None] & (pid >= 0) & ~up_np[np.maximum(pid, 0)]
+    _trap("churn 5", "a dead watcher whose row names dead members unmarked",
+          bool((dead_rows & ((pkey & 3) != 2)).any()))
+    _trap("churn 6", "pkey at INC_CLAMP * 4 + 2",
+          bool((watched & (pkey == INC_CLAMP * 4 + 2)).any()))
+
+    def i32(x):
+        return torch.as_tensor(x.astype(np.int32), device=dev)
+
+    return (i32(pid), i32(pkey), torch.as_tensor(up_np, device=dev),
+            watched)
+
+
+def compare_detect_partial(dev, g, sizes=(CHURN_N, STORM_N), m=64,
+                           timed=True):
+    """K23's partial entry at swim-churn-partial's shapes (N = 4096 and
+    100000, M = 64): tables where every watched entry is DOWN, then the
+    same with one watched entry ALIVE, each from detect_round -1 and
+    from one already set."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    rows = []
+    t = 29
+    for n in sizes:
+        pid, pkey, up, watched = _partial_tables(g, n, m, dev)
+        equal, err = _detect_cases(
+            dev, up, t, True,
+            lambda d: tel.detect_partial_(d, pid, pkey, up, t),
+            lambda d: tel.detect_partial_plain(d, pid, pkey, up, t),
+            f"detect_partial {n}")
+        bad = pkey.clone()
+        i, s = (int(x[-1]) for x in np.nonzero(watched))
+        bad[i, s] = bad[i, s] - 2
+        e, x = _detect_cases(
+            dev, up, t, False,
+            lambda d: tel.detect_partial_(d, pid, bad, up, t),
+            lambda d: tel.detect_partial_plain(d, pid, bad, up, t),
+            f"detect_partial {n} alive")
+        equal, err = equal and e, max(err, x)
+        det, det2 = tel.new_detect(dev), tel.new_detect(dev)
+        n_up = int(up.sum())
+        rows.append(_row(
+            f"detect_partial_{n}",
+            "corrosion_tpu_torch/kernels/csrc/membership_detect.cu",
+            "corrosion_tpu/sim/telemetry.py:320", equal, err,
+            _timed(timed, lambda: tel.detect_partial_(det, pid, pkey, up, t)),
+            _timed(timed, lambda: tel.detect_partial_plain(det2, pid, pkey,
+                                                           up, t)),
+            # the up watchers' pid and pkey rows, and up
+            n_up * m * 8 + n, kernel="detect_partial", n=n, m=m))
+    return rows
+
+
+def _flash_plan(n, cfg, dev):
+    from corrosion_tpu_torch.faults import FaultPlan
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.topo import flash_crowd_events
+
+    return faults.compile_plan(
+        FaultPlan(n_nodes=n, seed=0, events=flash_crowd_events(n)), cfg,
+        device=dev)
+
+
+def _view_wiped(before, after, rf, label):
+    """The wiped rows of a PeerSwap view were full and are empty now."""
+    wiped = rf.wipe
+    full = bool((before[wiped] >= 0).all(dim=1).any())
+    _trap("churn 8", f"a wiped node with a full view row ({label})",
+          full and bool((after[wiped] == -1).all()))
+
+
+def compare_node_faults_view(dev, g, n=PEERSWAP_N, timed=True):
+    """K11's word entry at flash-crowd-peerswap-25.6k's shapes (N = 25600,
+    W = 16, D = 2, V = 16; the flash crowd's round 8, where the tail
+    quarter restarts wiped, and round 0, overrides only), and its dense
+    entry at broadcast-1k-wan-3x2-peerswap's (N = 1000, P = 256, D = 4,
+    V = 16) under a flash crowd of its own: every field, the PeerSwap
+    view row included."""
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim.runner import _write_storm
+    from corrosion_tpu_torch.sim.state import SimConfig, init_state
+
+    rows = []
+    cfg, _ = _write_storm(n, 512, dev, sampler="peerswap")
+    fplan = _flash_plan(n, cfg, dev)
+    w = cfg.n_payloads // 32
+    state = init_state(cfg, torch.tensor([0, 7], dtype=torch.int64,
+                                         device=dev))
+    slim = packed.shrink_state(state)
+    carry = packed.PackedCarry(
+        have=_random_words(g, (n, w), dev),
+        inflight=_random_words(g, (2, n, w), dev, 3),
+        relay=packed.Planes(*(_random_words(g, (n, w), dev, 2)
+                              for _ in range(4))),
+        sync_buf=_random_words(g, (2, n, w), dev, 3))
+    names = ("alive", "heads", "gap_lo", "gap_hi", "pview")
+
+    def flat():
+        return [getattr(slim, x) for x in names] + [
+            carry.have, *carry.relay, carry.inflight, carry.sync_buf]
+
+    def unflat(xs):
+        sl = slim._replace(**dict(zip(names, xs[:5])))
+        return sl, packed.PackedCarry(have=xs[5], relay=packed.Planes(
+            *xs[6:10]), inflight=xs[10], sync_buf=xs[11])
+
+    def plain(sl, c, rf):
+        return (faults.apply_node_faults_plain(sl, rf),
+                packed.apply_carry_faults(c, rf))
+
+    base = flat()
+    equal, err = True, 0
+    for r in (JOIN_T, 0):
+        rf = faults.round_faults(fplan, r)
+        outs = []
+        for fn in (packed.apply_round_faults, plain):
+            xs = [x.clone() for x in base]
+            fn(*unflat(xs), rf)
+            outs.append(xs)
+        e, x = _equal_all(outs[0], outs[1])
+        equal, err = equal and e, max(err, x)
+        if r == JOIN_T:
+            _view_wiped(base[4], outs[0][4], rf, "word entry")
+    rf = faults.round_faults(fplan, JOIN_T)
+    work = [x.clone() for x in base]
+
+    def restore():
+        for dst, src in zip(work, base):
+            dst.copy_(src)
+
+    wiped = int(rf.wipe.sum())
+    a, k, v = cfg.n_writers, cfg.gap_slots, cfg.view_slots
+    row = (w * (5 + 2 * 2) + a + 2 * a * k + v) * 4
+    rows.append(_row(
+        "node_faults_view", "corrosion_tpu_torch/kernels/csrc/node_faults.cu",
+        "corrosion_tpu/sim/faults.py:703", equal, err,
+        _timed(timed, lambda: packed.apply_round_faults(*unflat(work), rf),
+               restore),
+        _timed(timed, lambda: plain(*unflat(work), rf), restore),
+        # the override, the wipe mask and alive in and out; wiped rows out
+        n * 4 + wiped * row, kernel="node_faults", n=n))
+
+    b1k = SimConfig(n_nodes=PROTO_1K, n_payloads=256, n_writers=8, fanout=3,
+                    n_delay_slots=4, peer_sampler="peerswap")
+    fplan = _flash_plan(PROTO_1K, b1k, dev)
+    dense = _dense_state(g, dev, b1k, JOIN_T)
+    equal, err = True, 0
+    for r in (JOIN_T, 0):
+        rf = faults.round_faults(fplan, r)
+        got = faults.apply_node_faults(_clone_state(dense), rf)
+        want = faults.apply_node_faults_plain(_clone_state(dense), rf)
+        e, x = _equal_all([x for x in got if x.numel()],
+                          [x for x in want if x.numel()])
+        equal, err = equal and e, max(err, x)
+        if r == JOIN_T:
+            _view_wiped(dense.pview, got.pview, rf, "dense entry")
+    rf = faults.round_faults(fplan, JOIN_T)
+    work_d = _clone_state(dense)
+
+    def restore_d():
+        for name in ("alive", "have", "relay_left", "inflight",
+                     "sync_inflight", "heads", "gap_lo", "gap_hi", "pview"):
+            getattr(work_d, name).copy_(getattr(dense, name))
+
+    p, d = b1k.n_payloads, b1k.n_delay_slots
+    row = p * (2 + 2 * d) + (b1k.n_writers * (1 + 2 * b1k.gap_slots)
+                             + b1k.view_slots) * 4
+    rows.append(_row(
+        "node_faults_dense_view",
+        "corrosion_tpu_torch/kernels/csrc/node_faults.cu",
+        "corrosion_tpu/sim/faults.py:703", equal, err,
+        _timed(timed, lambda: faults.apply_node_faults(work_d, rf),
+               restore_d),
+        _timed(timed, lambda: faults.apply_node_faults_plain(work_d, rf),
+               restore_d),
+        PROTO_1K * 4 + int(rf.wipe.sum()) * row, kernel="node_faults_dense",
+        n=PROTO_1K))
+    return rows
+
+
+def compare_churn_kernels(dev, seed=9, timed=True):
+    """Phase 3j: K23's full and partial entries and K11's PeerSwap view
+    row against their plain versions at the churn paths' shapes, every
+    trap reached."""
+    g = np.random.default_rng(seed)
+    rows = (compare_detect_full(dev, g, timed=timed)
+            + compare_detect_partial(dev, g, timed=timed)
+            + compare_node_faults_view(dev, g, timed=timed))
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
 _START = time.monotonic()
 
 
@@ -4509,11 +4876,16 @@ def _fault_record(final, metrics, wall):
             "converged": conv["unconverged_nodes"] == 0, **conv}
 
 
+#: K23's rows, which launch only on a path that runs a detect loop
+DETECT_ROWS = ("detect_full", "detect_partial")
+
+
 def _path_launches(kernels, rows, label, telemetry=False):
     """Read every entry point's launch count after a path ran from 0,
-    require each entry of ``rows``' kernels to have launched — and,
-    without ``telemetry``, no entry of the flight recorder's kernels —
-    and return the counts of every kernel row."""
+    require each entry of ``rows``' kernels to have launched — and no
+    entry of K23 unless ``rows`` names it, nor, without ``telemetry``,
+    of the flight recorder's kernels — and return the counts of every
+    kernel row."""
     entries = {kern.name: kern.launches for kern in kernels.KERNELS}
     off = [row for row in kernels.PORTED if row not in rows]
     print(f"{label} launches={json.dumps(entries)} off_path={off}",
@@ -4523,6 +4895,11 @@ def _path_launches(kernels, rows, label, telemetry=False):
             if kern.launches <= 0:
                 raise AssertionError(f"kernel entry {kern.name} never "
                                      f"launched on the {label} path")
+    stray = [row for row in DETECT_ROWS if row not in rows
+             and any(k.launches for k in kernels.PORTED[row])]
+    if stray:
+        raise AssertionError(f"{stray} launched on the {label} path, which "
+                             "runs no detect loop")
     if not telemetry:
         on = [kern.name for row in kernels.TRACE_ROWS
               for kern in kernels.PORTED[row] if kern.launches]
@@ -4533,23 +4910,30 @@ def _path_launches(kernels, rows, label, telemetry=False):
             for row, entries_ in kernels.PORTED.items()}
 
 
-def _timed_fault_run(cfg, meta, fplan, seed, dev, telemetry=False):
-    """A fault run from zeroed launch counters through `run_fault_plan`:
-    its output and its record in `_storm_check`'s terms."""
+def _timed_fault_run(cfg, meta, fplan, seed, dev, telemetry=False,
+                     topo=None):
+    """A fault run from zeroed launch counters through `run_fault_plan`
+    (over ``topo``, the flat topology by default): its output and its
+    record in `_storm_check`'s terms, with the p99 payload latency."""
     from corrosion_tpu_torch import kernels
     from corrosion_tpu_torch.sim import faults
     from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.runner import _percentile
     from corrosion_tpu_torch.sim.topology import Topology
 
     state = new_sim(cfg, seed, dev)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.monotonic()
-    out = faults.run_fault_plan(state, meta, cfg, Topology(), fplan,
+    out = faults.run_fault_plan(state, meta, cfg, topo or Topology(), fplan,
                                 max_rounds=3000, telemetry=telemetry)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    return {"out": out, "run": _fault_record(out[0], out[1], wall)}
+    run = _fault_record(out[0], out[1], wall)
+    cov = out[1].coverage_at.cpu().numpy()
+    lat = np.where(cov >= 0, cov - meta.round.cpu().numpy(), -1)
+    run["p99_payload_latency_rounds"] = _percentile(lat, 99)
+    return {"out": out, "run": run}
 
 
 def _same_as_packed(dense, packed_run, label):
@@ -4638,11 +5022,17 @@ def main() -> int:
         config_partition_heal_10k,
         config_write_storm_100k,
         config_write_storm_gapstress,
+        config_swim_churn_64,
+        config_swim_churn_partial,
+        churn_setup,
+        _resolve_topo,
         membership_churn,
         run_scenario,
         storm_fault_plan,
     )
-    from corrosion_tpu_torch.sim.telemetry import trace_host, trace_summary
+    from corrosion_tpu_torch.sim.state import SimConfig
+    from corrosion_tpu_torch.sim.telemetry import (
+        run_membership_detect, trace_digest, trace_host, trace_summary)
     from corrosion_tpu_torch.sim.topology import Topology
 
     dev = torch.device("cuda")
@@ -4700,6 +5090,9 @@ def main() -> int:
     proto_kernel_rows = compare_protocol_kernels(dev)
     print("kernel comparisons equal at the protocol axis' shapes", flush=True)
     _lap("protocol kernel comparisons")
+    churn_kernel_rows = compare_churn_kernels(dev)
+    print("kernel comparisons equal at the churn paths' shapes", flush=True)
+    _lap("churn kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -4777,11 +5170,13 @@ def main() -> int:
         _storm_check(result, golden, label)
 
     # path 5, churn-full-4096: full-view SWIM on [4096, 4096] beliefs,
-    # K1's uniform entry filtering by them, and K15
+    # K1's uniform entry filtering by them, K15, and K23's full entry
+    # after every round (run_membership_detect)
     kernels.reset_launch_counts()
     churn = membership_churn(4096, seed=0, device=dev, return_state=True)
-    churn_launches = _path_launches(kernels, [*uniform_rows, "swim_full"],
-                                    "churn_full_4096")
+    churn_launches_5 = _path_launches(
+        kernels, [*uniform_rows, "swim_full", "detect_full"],
+        "churn_full_4096")
     _storm_check(churn, goldens.CHURN_FULL_4096_SEED0, "churn_full_4096")
 
     # path 6, gapstress-25.6k: the packed round under both byte budgets
@@ -5198,6 +5593,20 @@ def main() -> int:
         if on:
             raise AssertionError(f"{label}: {on} launched off its path")
 
+    # the 100k fault storm over wan-3x2: K10's tiered instantiation with
+    # the fault stream, K9's edges and reach beside K20's, K11
+    topo = _resolve_topo("wan-3x2")
+    cfg, meta = _write_storm(STORM_N, 512, dev, topo)
+    fplan = faults.compile_plan(storm_fault_plan(STORM_N, 0), cfg, topo,
+                                device=dev)
+    out = _timed_fault_run(cfg, meta, fplan, 0, dev, topo=topo)
+    label = "fault_storm_wan_3x2_100k"
+    topo_launches[label] = _path_launches(
+        kernels, tiered_rows + ["fault_edges", "node_faults"], label)
+    _storm_check(out["run"], goldens.FAULT_STORM_WAN_3X2_100K_SEED0, label)
+    _per_round(topo_launches[label], tiered_rows, out["run"]["rounds"],
+               label)
+
     # the headline tiered storm with the flight recorder: the dropped
     # frames come from the tiered stream (K10's tiered instantiation's
     # count)
@@ -5388,6 +5797,102 @@ def main() -> int:
     print("f32_worst_relative_gap: " + json.dumps(f32_gaps), flush=True)
     _lap("paths 22-27, the protocol axis")
 
+    # paths 28-32, membership churn, each from zeroed counters through its
+    # entry point: the detect loops (K23 once a round, its full entry on
+    # full view, its partial entry on partial view) and the flash-crowd
+    # cold joins through run_fault_plan (K11, with the PeerSwap view row
+    # under the sampler)
+    churn_launches = {}
+    full_churn_rows = [*uniform_rows, "swim_full", "detect_full"]
+    partial_churn_rows = ["sample_targets", "merge_entries", "threefry",
+                          *dense_rows, "detect_partial"]
+
+    def churn_path(label, run, path_rows, golden, telemetry=False):
+        """A detect run's launches (its K23 entry once a round; the other
+        entry never, `_path_launches`) and record against its golden."""
+        churn_launches[label] = _path_launches(kernels, path_rows, label,
+                                               telemetry)
+        rounds = int(run["state"].t)
+        entry = next(row for row in DETECT_ROWS if row in path_rows)
+        if churn_launches[label][entry] != rounds:
+            raise AssertionError(f"{label}: {entry} launched "
+                                 f"{churn_launches[label][entry]} times in "
+                                 f"{rounds} rounds")
+        detect_check(run, golden, label)
+        _per_round(churn_launches[label], path_rows, rounds, label)
+
+    def detect_check(run, golden, label):
+        """Every golden key, the digest from the final state; a run that
+        must not detect (``converged`` False in the golden) is held to
+        that instead of `_storm_check`'s convergence."""
+        got = {key: state_digest(run["state"]) if key == "digest"
+               else run[key] for key in golden}
+        print(f"{label}: {json.dumps(got)} wall_clock_s="
+              f"{run['wall_clock_s']:.3f}", flush=True)
+        for key, want in golden.items():
+            if got[key] != want:
+                raise AssertionError(f"{label}: {key} {got[key]!r} != "
+                                     f"golden {want!r}")
+
+    kernels.reset_launch_counts()
+    run = config_swim_churn_64(seed=0, device=dev, return_state=True)
+    churn_path("swim_churn_64", run, full_churn_rows,
+               goldens.SWIM_CHURN_64_SEED0)
+    kernels.reset_launch_counts()
+    run = config_swim_churn_partial(seed=0, device=dev, return_state=True)
+    churn_path("swim_churn_partial_4096", run, partial_churn_rows,
+               goldens.SWIM_CHURN_PARTIAL_4096_SEED0)
+    # the same run with the recorder, through run_membership_detect: its
+    # telemetry golden, the whole trace held by its digest
+    cfg = SimConfig.wan_tuned(CHURN_N, n_payloads=1, swim_partial_view=True,
+                              probe_period_rounds=1)
+    meta, state = churn_setup(cfg, 0, dev)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    final, _, detect, trace = run_membership_detect(
+        state, meta, cfg, Topology(), 600, telemetry=True, device=dev)
+    torch.cuda.synchronize()
+    label = "swim_churn_partial_4096_telemetry"
+    rounds = int(final.t)
+    churn_path(label, {"state": final, "detect_round": int(detect),
+                       "wall_clock_s": time.monotonic() - t0},
+               partial_churn_rows + dense_trace,
+               {key: goldens.SWIM_CHURN_PARTIAL_4096_SEED0[key]
+                for key in ("detect_round", "digest")},
+               telemetry=True)
+    golden = goldens.SWIM_CHURN_PARTIAL_4096_SEED0_TELEMETRY
+    got = {"summary": trace_summary(trace, rounds, cfg),
+           "trace_digest": trace_digest(trace, rounds)}
+    if got != golden:
+        raise AssertionError(f"{label}: {got} != golden {golden}")
+    print(f"{label}: telemetry {json.dumps(got)}", flush=True)
+    kernels.reset_launch_counts()
+    run = config_swim_churn_partial(seed=0, n=STORM_N, device=dev,
+                                    return_state=True)
+    churn_path("swim_churn_partial_100k", run, partial_churn_rows,
+               goldens.SWIM_CHURN_PARTIAL_100K_SEED0)
+
+    # the flash crowd on the 100k write storm: the tail quarter down over
+    # rounds 0-7, back wiped at round 8 (K11's word entry); no link
+    # faults, so every round scatters through K2
+    cfg, meta = _write_storm(STORM_N, 512, dev)
+    out = _timed_fault_run(cfg, meta, _flash_plan(STORM_N, cfg, dev), 0, dev)
+    label = "flash_crowd_storm_100k"
+    churn_launches[label] = _path_launches(
+        kernels, faultless_rows + ["node_faults"], label)
+    _storm_check(out["run"], goldens.FLASH_CROWD_STORM_100K_SEED0, label)
+    # storm-peerswap-25.6k under a flash crowd: the joiners' views are
+    # emptied (K11's view row) and refilled through the swaps (K21)
+    cfg, meta = _write_storm(PEERSWAP_N, 512, dev, sampler="peerswap")
+    out = _timed_fault_run(cfg, meta, _flash_plan(PEERSWAP_N, cfg, dev), 0,
+                           dev)
+    label = "flash_crowd_peerswap_25600"
+    churn_launches[label] = _path_launches(
+        kernels, ["sample_view", "peerswap", "broadcast_scatter", *storm_core,
+                  "node_faults"], label)
+    _storm_check(out["run"], goldens.FLASH_CROWD_PEERSWAP_25600_SEED0, label)
+    _lap("paths 28-32, membership churn")
+
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
     # the whole loss window, where most nodes send and K10 draws most
@@ -5412,13 +5917,15 @@ def main() -> int:
     for family in ("push-pull", "lab-ordered"):
         print("profile_protocol: " + json.dumps(profile_storm(
             dev, proto_family=family)), flush=True)
+    print("profile_churn: " + json.dumps(profile_churn_partial(dev)),
+          flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
                            else fault_launches)[row["name"]]
         row["fault_path_launches"] = fault_launches[row["name"]]
     for row in dense_kernel_rows:
-        path = churn_launches if row["name"] in (
+        path = churn_launches_5 if row["name"] in (
             "sample_uniform", "swim_full") else heal_launches
         row["launches"] = path[row["name"]]
     rows += dense_kernel_rows
@@ -5509,6 +6016,26 @@ def main() -> int:
         row["other_paths_launches"] = {
             label: c[row["kernel"]] for label, c in proto_launches.items()}
     rows += proto_kernel_rows
+    # each churn row reads its kernel's launches on the path whose shapes
+    # it was compared at; the dense view row's kernel runs on no churn
+    # path (its launches are the dense fault storm's)
+    churn_path = {"detect_full_64": "swim_churn_64",
+                  "detect_full_1000": "swim_churn_64",
+                  "detect_full_4096": "churn_full_4096",
+                  "detect_partial_4096": "swim_churn_partial_4096",
+                  "detect_partial_100000": "swim_churn_partial_100k",
+                  "node_faults_view": "flash_crowd_peerswap_25600"}
+    churn_launches["churn_full_4096"] = churn_launches_5
+    for row in churn_kernel_rows:
+        path = churn_path.get(row["name"], "dense_fault_storm_100k")
+        counts = (dense_fault_launches[False]
+                  if path == "dense_fault_storm_100k"
+                  else churn_launches[path])
+        row["launches"] = counts[row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]] for label, c in churn_launches.items()}
+    rows += churn_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

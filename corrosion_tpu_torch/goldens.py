@@ -958,3 +958,106 @@ BROADCAST_1K_PUSH_PULL_SEED0_TELEMETRY = {'bcast_bytes': [385024.0,
  'wire_bytes': {'broadcast': 105166258176.0,
                 'per_round_mean': 1575375031.4,
                 'sync': 383868928.0}}
+
+# -- membership churn and churn schedules ------------------------------------
+#
+# Pinned from live JAX on the CPU (jax 0.9.0; the detect runs inside the
+# batching shim of tests/torch_parity.py, since corrosion_tpu/sim/
+# telemetry.py only imports under it).  The detect runs are JAX
+# telemetry.run_membership_detect on the churn setup: new_sim(cfg, seed)
+# with every third node DOWN at t = 0 (run_detect_ensemble's
+# kill_every=3), uniform_payloads(cfg, inject_every=1), the flat
+# topology; detected_fraction and false_positive_downs are
+# campaign/engine.py _membership_lane_stats of the final state.
+
+# config_swim_churn_64(seed=0): SimConfig.wan_tuned(64, n_payloads=1,
+# swim_full_view=True), max_rounds 400
+SWIM_CHURN_64_SEED0 = {
+    "detect_round": 18,
+    "detect_sim_s": 9.0,
+    "detected_fraction": 1.0,
+    "false_positive_downs": 0,
+    "converged": True,
+    "digest": "320febe04f83217e",
+}
+
+# config_swim_churn_partial(seed=0): SimConfig.wan_tuned(4096,
+# n_payloads=1, swim_partial_view=True, probe_period_rounds=1), M = 64,
+# max_rounds 600
+SWIM_CHURN_PARTIAL_4096_SEED0 = {
+    "detect_round": 489,
+    "detect_sim_s": 244.5,
+    "detected_fraction": 1.0,
+    "member_slots": 64,
+    "converged": True,
+    "digest": "30464f44f42a1a0a",
+}
+
+# the same run with telemetry=True: JAX's trace_summary, and
+# telemetry.trace_digest over every channel's 489 rows (exact on both
+# sides: the one payload is never sent — its writer, node 0, is dead — so
+# every byte channel is 0)
+SWIM_CHURN_PARTIAL_4096_SEED0_TELEMETRY = {
+    "summary": {
+        "rounds": 489,
+        "coverage_curve_digest": "3b8f46883559f707",
+        "coverage_latency_rounds": {"p50": None, "p95": None, "p99": None,
+                                    "uncovered_payloads": 1},
+        "wire_bytes": {"broadcast": 0.0, "sync": 0.0,
+                       "per_round_mean": 0.0},
+        "wire_frames": {"broadcast": 0, "sync": 0},
+        "fault": {"dropped_frames": 0, "cut_edges": 0,
+                  "refused_sessions": 0, "crash_node_rounds": 0,
+                  "wipes": 0},
+        "sync_sessions": 222103,
+        "swim": {"peak_suspect": 10891, "peak_down": 58053},
+        "gap_overflow_rounds": 0,
+    },
+    "trace_digest": "96edc1918a8a4fbe",
+}
+
+# config_swim_churn_partial(seed=0, n=100000): the partial-view tier at
+# the storm's width, 600 rounds; JAX has not detected by then
+SWIM_CHURN_PARTIAL_100K_SEED0 = {
+    "detect_round": -1,
+    "detect_sim_s": -1,
+    "detected_fraction": 0.9999936655984989,
+    "member_slots": 64,
+    "converged": False,
+    "digest": "4b11df2095ef0fda",
+}
+
+# _write_storm(100000, 512) (the write storm's config, the packed round),
+# run_fault_plan(new_sim(cfg, 0), meta, cfg, Topology(), compile_plan(
+# FaultPlan(n_nodes=100000, seed=0, events=flash_crowd_events(100000)),
+# cfg, Topology()), max_rounds=3000): nodes 75000-99999 down over rounds
+# 0-7, back wiped at round 8 (the factored plan)
+FLASH_CROWD_STORM_100K_SEED0 = {
+    "rounds": 28,
+    "p99_node_convergence_round": 24.0,
+    "p99_payload_latency_rounds": 15.0,
+    "digest": "0ae5b76327eddb47",
+}
+
+# storm-peerswap-25.6k's config (_write_storm(25600, 512,
+# sampler="peerswap")) under FaultPlan(n_nodes=25600, seed=0,
+# events=flash_crowd_events(25600)) through run_fault_plan, as above;
+# the joiners come back with empty PeerSwap views
+FLASH_CROWD_PEERSWAP_25600_SEED0 = {
+    "rounds": 33,
+    "p99_node_convergence_round": 25.0,
+    "p99_payload_latency_rounds": 19.0,
+    "digest": "7c544c6af95b7662",
+    "pview_digest": "3b2041f979b1ad9e",
+}
+
+# the 100k fault storm over wan-3x2: _write_storm(100000, 512,
+# topo=family wan-3x2) (n_delay_slots 3), run_fault_plan(new_sim(cfg, 0),
+# meta, cfg, topo, compile_plan(storm_fault_plan(100000, 0), cfg, topo),
+# max_rounds=3000)
+FAULT_STORM_WAN_3X2_100K_SEED0 = {
+    "rounds": 39,
+    "p99_node_convergence_round": 35.0,
+    "p99_payload_latency_rounds": 27.0,
+    "digest": "52f8246745aa8558",
+}

@@ -84,6 +84,11 @@ replaces:
   K18's pull entries `TRACE_WIRE_WORDS_PULL`, `TRACE_WIRE_ROWS_PULL` —
   `sim.telemetry.wire_words_pull_`, `wire_rows_pull_`.
 
+- the membership detect predicates: K23 `DETECT_FULL`, `DETECT_PARTIAL`
+  (``membership_detect.cu``, one row each) —
+  `sim.telemetry.detect_full_`, `detect_partial_`, after every round of
+  `sim.telemetry.run_membership_detect`.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -133,7 +138,7 @@ FAULT_EDGES = Kernel(
     "fault_edges", "fault_edges.cu", "corro_fault_edges", 11
 )
 FAULT_REACH = Kernel("fault_reach", "fault_edges.cu", "corro_fault_reach", 8)
-NODE_FAULTS = Kernel("node_faults", "node_faults.cu", "corro_node_faults", 7)
+NODE_FAULTS = Kernel("node_faults", "node_faults.cu", "corro_node_faults", 8)
 
 SAMPLE_UNIFORM = Kernel(
     "sample_uniform", "sample_targets.cu", "corro_sample_uniform", 3
@@ -199,7 +204,7 @@ DENSE_BROADCAST_FAULT = Kernel(
 DENSE_SYNC_DELAY = Kernel("dense_sync_delay", "dense_sync.cu",
                           "corro_dense_sync", 9)
 NODE_FAULTS_DENSE = Kernel(
-    "node_faults_dense", "node_faults.cu", "corro_node_faults_dense", 7
+    "node_faults_dense", "node_faults.cu", "corro_node_faults_dense", 8
 )
 DENSE_GAPS_ROWS_EXIT = Kernel(
     "dense_gaps_rows_exit", "dense_gaps.cu", "corro_dense_gaps_rows", 9
@@ -263,6 +268,11 @@ TRACE_WIRE_WORDS_PULL = Kernel("trace_wire_words_pull", "trace_wire.cu",
 TRACE_WIRE_ROWS_PULL = Kernel("trace_wire_rows_pull", "trace_wire.cu",
                               "corro_trace_wire_rows_pull", 1)
 
+DETECT_FULL = Kernel("detect_full", "membership_detect.cu",
+                     "corro_detect_full", 2)
+DETECT_PARTIAL = Kernel("detect_partial", "membership_detect.cu",
+                        "corro_detect_partial", 3)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -316,6 +326,8 @@ PORTED = {
     "degree_caps_sched": (DEGREE_CAPS_SCHED,),
     "trace_wire_pull": (TRACE_WIRE_WORDS_PULL,),
     "trace_wire_rows_pull": (TRACE_WIRE_ROWS_PULL,),
+    "detect_full": (DETECT_FULL,),
+    "detect_partial": (DETECT_PARTIAL,),
 }
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
@@ -332,7 +344,8 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "BROADCAST_PULL", "BROADCAST_PULL_LOSSY", "BROADCAST_PULL_TIERED",
-    "DEGREE_CAPS_SCHED", "DENSE_DELIVER_FIFO", "DENSE_PULL",
+    "DEGREE_CAPS_SCHED", "DENSE_DELIVER_FIFO", "DETECT_FULL",
+    "DETECT_PARTIAL", "DENSE_PULL",
     "DENSE_PULL_LOSSY", "DENSE_PULL_TIERED", "ORDER_CHECK_DENSE",
     "ORDER_CHECK_WORDS", "TRACE_WIRE_ROWS_PULL", "TRACE_WIRE_WORDS_PULL",
     "WORD_DELIVER_FIFO",

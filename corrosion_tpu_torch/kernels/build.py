@@ -39,6 +39,7 @@ SOURCES = (
     "node_faults.cu", "dense_phases.cu", "dense_sync.cu", "dense_gaps.cu",
     "swim_full.cu", "budget_words.cu", "trace_counts.cu", "trace_wire.cu",
     "trace_row.cu", "edge_classes.cu", "peerswap.cu", "order_check.cu",
+    "membership_detect.cu",
 )
 _LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 

@@ -16,8 +16,10 @@
 //     in every slot of both word rings; the dense entry its u8 have and
 //     relay rows and its row in every slot of both u8 rings [D, N, P] —
 //     its heads and gap intervals, empties its member table (pid, pkey,
-//     psince = -1) and puts its full-view row back to the optimistic
-//     init (view = 0, vinc = 0, suspect_since = -1; faults.py:729-734).
+//     psince = -1), puts its full-view row back to the optimistic init
+//     (view = 0, vinc = 0, suspect_since = -1; faults.py:729-734) and
+//     empties its PeerSwap view row (pview = -1; faults.py:742-745), so
+//     the rejoiner refills it through incoming swaps.
 //     Rows without a wipe are not touched; jax selects every tensor
 //     every round, with the same result.  The sync countdown and
 //     backoff, the incarnation and the sticky convergence stamps survive
@@ -26,7 +28,8 @@
 // Bound on the H100: launch latency.  The override reads and writes 4
 // bytes a node (400 KB at N = 100000, ~0.1 us of memory time); a wiped
 // node's rows are ~2.4 KB at the packed storm's shapes, ~5 KB at the
-// dense storm's (P = 512, D = 2) and ~36 KB with a 4096-node full view.
+// dense storm's (P = 512, D = 2), ~36 KB with a 4096-node full view and
+// 64 B more for a PeerSwap view of 16 slots.
 // Design: a block of 256 threads takes 256 nodes, applies their
 // overrides and lists its wiped nodes in shared memory; then the whole
 // block zeroes each listed node's rows, the threads on consecutive
@@ -46,7 +49,7 @@ __device__ __forceinline__ void fill_row(T* __restrict__ row, size_t len,
 }
 
 // The tables every entry wipes: heads, gaps, the member table, the full
-// view's row.
+// view's row, the PeerSwap view's row (v slots; 0 without the sampler).
 struct Tables {
   int32_t* heads;
   int32_t* gap_lo;
@@ -57,7 +60,8 @@ struct Tables {
   int8_t* view;
   int32_t* vinc;
   int32_t* since;
-  int a, ak, m, fv;
+  int32_t* pview;
+  int a, ak, m, fv, v;
 };
 
 __device__ __forceinline__ void wipe_tables(const Tables& tb, int node) {
@@ -72,6 +76,7 @@ __device__ __forceinline__ void wipe_tables(const Tables& tb, int node) {
     fill_row(tb.vinc + (size_t)node * tb.fv, (size_t)tb.fv, 0);
     fill_row(tb.since + (size_t)node * tb.fv, (size_t)tb.fv, -1);
   }
+  if (tb.v > 0) fill_row(tb.pview + (size_t)node * tb.v, (size_t)tb.v, -1);
 }
 
 // The overrides of the block's nodes; returns how many of them are
@@ -129,8 +134,9 @@ __global__ void node_faults_kernel(const int8_t* __restrict__ ovr,
   }
 }
 
-bool tables_ok(int a, int ak, int m, int fv) {
-  return a >= 0 && ak >= 0 && m >= 0 && fv >= 0;
+bool tables_ok(int a, int ak, int m, int fv, int v, const void* pview) {
+  return a >= 0 && ak >= 0 && m >= 0 && fv >= 0 && v >= 0 &&
+         (v == 0 || pview != nullptr);
 }
 
 unsigned blocks_for(int n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -139,14 +145,15 @@ unsigned blocks_for(int n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 // The word entry: have and the four relay planes [N, W], both word
 // rings [D, N, W].  `fv` is 0 without a full view (view, vinc and
-// suspect_since may then be null).
+// suspect_since may then be null), `v` 0 without a PeerSwap view (pview
+// may then be null).
 extern "C" int corro_node_faults(
     const void* ovr, const void* wipe, void* alive, void* have, void* r0,
     void* r1, void* r2, void* r3, void* inflight, void* sync_buf,
     void* heads, void* gap_lo, void* gap_hi, void* pid, void* pkey,
-    void* psince, void* view, void* vinc, void* since, int n, int w,
-    int d_slots, int a, int ak, int m, int fv, void* stream) {
-  if (n <= 0 || w < 0 || d_slots < 0 || !tables_ok(a, ak, m, fv) ||
+    void* psince, void* view, void* vinc, void* since, void* pview, int n,
+    int w, int d_slots, int a, int ak, int m, int fv, int v, void* stream) {
+  if (n <= 0 || w < 0 || d_slots < 0 || !tables_ok(a, ak, m, fv, v, pview) ||
       (fv > 0 && fv != n))
     return (int)cudaErrorInvalidValue;
   Payload<uint32_t, 5, 2> pl{
@@ -157,8 +164,8 @@ extern "C" int corro_node_faults(
   Tables tb{(int32_t*)heads, (int32_t*)gap_lo, (int32_t*)gap_hi,
             (int32_t*)pid,   (int32_t*)pkey,   (int32_t*)psince,
             (int8_t*)view,   (int32_t*)vinc,   (int32_t*)since,
-            a,               ak,               m,
-            fv};
+            (int32_t*)pview, a,                ak,
+            m,               fv,               v};
   node_faults_kernel<uint32_t, 5, 2>
       <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
           (const int8_t*)ovr, (const uint8_t*)wipe, (uint8_t*)alive, pl, tb,
@@ -172,9 +179,9 @@ extern "C" int corro_node_faults_dense(
     const void* ovr, const void* wipe, void* alive, void* have, void* relay,
     void* inflight, void* sync_inflight, void* heads, void* gap_lo,
     void* gap_hi, void* pid, void* pkey, void* psince, void* view,
-    void* vinc, void* since, int n, int p, int d_slots, int a, int ak, int m,
-    int fv, void* stream) {
-  if (n <= 0 || p < 0 || d_slots < 0 || !tables_ok(a, ak, m, fv) ||
+    void* vinc, void* since, void* pview, int n, int p, int d_slots, int a,
+    int ak, int m, int fv, int v, void* stream) {
+  if (n <= 0 || p < 0 || d_slots < 0 || !tables_ok(a, ak, m, fv, v, pview) ||
       (fv > 0 && fv != n))
     return (int)cudaErrorInvalidValue;
   Payload<uint8_t, 2, 2> pl{{(uint8_t*)have, (uint8_t*)relay},
@@ -185,8 +192,8 @@ extern "C" int corro_node_faults_dense(
   Tables tb{(int32_t*)heads, (int32_t*)gap_lo, (int32_t*)gap_hi,
             (int32_t*)pid,   (int32_t*)pkey,   (int32_t*)psince,
             (int8_t*)view,   (int32_t*)vinc,   (int32_t*)since,
-            a,               ak,               m,
-            fv};
+            (int32_t*)pview, a,                ak,
+            m,               fv,               v};
   node_faults_kernel<uint8_t, 2, 2>
       <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
           (const int8_t*)ovr, (const uint8_t*)wipe, (uint8_t*)alive, pl, tb,

@@ -1041,30 +1041,19 @@ def apply_node_faults_plain(state: SimState,
     return state
 
 
-def refuse_peerswap(peerswap: bool) -> None:
-    """Fault plans under the PeerSwap sampler are not ported: JAX's
-    crash-with-wipe also empties the wiped node's view
-    (``faults.py:742-745``), which K11 does not do on the card."""
-    if peerswap:
-        raise NotImplementedError(
-            "fault plans under peer_sampler='peerswap' are not ported yet "
-            "(ROADMAP A10: the crash-with-wipe of the PeerSwap view)"
-        )
-
-
 def apply_node_faults(state: SimState, rf: AnyRoundFaults) -> SimState:
     """Crash, restart and wipe, before the round's phases, IN PLACE: the
     alive override, then on wiped nodes zeroed payload rows (have, relay
     budgets, their row in every slot of both delivery rings),
     bookkeeping (heads, gaps), the full view's row back to its
-    optimistic init (view and vinc 0, suspect_since -1) and an empty
-    member table (pid, pkey, psince -1), so the node rejoins cold
-    and recovers through anti-entropy.  K11's dense entry on the card
+    optimistic init (view and vinc 0, suspect_since -1), an empty
+    member table (pid, pkey, psince -1) and an empty PeerSwap view
+    (pview -1), so the node rejoins cold and recovers through
+    anti-entropy.  K11's dense entry on the card
     (the dense state's u8 rows); the packed loop's slim state and carry
     take K11's word entry (`packed.apply_round_faults`)."""
     if state.alive.device.type == "cpu":
         return apply_node_faults_plain(state, rf)
-    refuse_peerswap(state.pview.shape[1] > 0)
     n, p = state.have.shape
     d = state.inflight.shape[0]
     a = state.heads.shape[1]
@@ -1088,12 +1077,14 @@ def apply_node_faults(state: SimState, rf: AnyRoundFaults) -> SimState:
         check(name, getattr(state, name), torch.int32, (fv, fv))
     if fv not in (0, n):
         raise ValueError("the full view must be [N, N] or empty")
+    v = state.pview.shape[1]
+    check("pview", state.pview, torch.int32, (n, v))
     kernels.NODE_FAULTS_DENSE.launch(
         [rf.alive, rf.wipe, state.alive, state.have, state.relay_left,
          state.inflight, state.sync_inflight, state.heads, state.gap_lo,
          state.gap_hi, state.pid, state.pkey, state.psince, state.view,
-         state.vinc, state.suspect_since],
-        [n, p, d, a, ak, m, fv],
+         state.vinc, state.suspect_since, state.pview],
+        [n, p, d, a, ak, m, fv, v],
     )
     return state
 
@@ -1154,7 +1145,6 @@ def run_fault_plan(
     from .topology import regions
 
     validate(cfg, topo)
-    refuse_peerswap(cfg.peer_sampler == "peerswap")
     if packed_supported(cfg, topo):
         return run_packed_faults(state, meta, cfg, topo, fplan, max_rounds,
                                  telemetry)
@@ -1216,7 +1206,6 @@ def run_fault_plan_checked(
 
     catalog = catalog or CATALOG
     validate(cfg, topo)
-    refuse_peerswap(cfg.peer_sampler == "peerswap")
     dev = state.have.device
     fplan = compile_plan(plan, cfg, topo, device=dev)
     region = regions(cfg.n_nodes, topo.n_regions, dev)

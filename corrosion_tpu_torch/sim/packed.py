@@ -60,7 +60,6 @@ from .faults import (
     fault_session_effects,
     fault_wire_effects,
     host_activity,
-    refuse_peerswap,
     round_faults,
 )
 from ..proto.ordering import admit_words, order_checked, order_enforced
@@ -1186,15 +1185,14 @@ def apply_round_faults(
     slim: SimState, carry: PackedCarry, rf: AnyRoundFaults
 ) -> Tuple[SimState, PackedCarry]:
     """A round's node faults before its phases, IN PLACE on the slim
-    state (alive override; a wipe's heads, gaps, member table and
-    full-view row) and on the carry (a wipe's payload words).  The plain
-    version is `faults.apply_node_faults_plain` then
-    `apply_carry_faults`; K11's word entry does both in one launch on
-    the card."""
+    state (alive override; a wipe's heads, gaps, member table,
+    full-view row and PeerSwap view row) and on the carry (a wipe's
+    payload words).  The plain version is
+    `faults.apply_node_faults_plain` then `apply_carry_faults`; K11's
+    word entry does both in one launch on the card."""
     if carry.have.device.type == "cpu":
         return (apply_node_faults_plain(slim, rf),
                 apply_carry_faults(carry, rf))
-    refuse_peerswap(slim.pview.shape[1] > 0)
     n, w = carry.have.shape
     d_slots = carry.inflight.shape[0]
     a = slim.heads.shape[1]
@@ -1215,12 +1213,14 @@ def apply_round_faults(
     check("view", slim.view, torch.int8, (fv, fv))
     for name in ("vinc", "suspect_since"):
         check(name, getattr(slim, name), torch.int32, (fv, fv))
+    v = slim.pview.shape[1]
+    check("pview", slim.pview, torch.int32, (n, v))
     kernels.NODE_FAULTS.launch(
         [rf.alive, rf.wipe, slim.alive, carry.have, *carry.relay,
          carry.inflight, carry.sync_buf, slim.heads, slim.gap_lo,
          slim.gap_hi, slim.pid, slim.pkey, slim.psince, slim.view,
-         slim.vinc, slim.suspect_since],
-        [n, w, d_slots, a, ak, m, fv],
+         slim.vinc, slim.suspect_since, slim.pview],
+        [n, w, d_slots, a, ak, m, fv, v],
     )
     return slim, carry
 
@@ -1264,7 +1264,7 @@ def run_packed_faults(
     slim = slim._replace(**{
         name: getattr(slim, name).clone()
         for name in ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
-                     "psince", "view", "vinc", "suspect_since")
+                     "psince", "view", "vinc", "suspect_since", "pview")
     })
     horizon = fplan.horizon
     activity = host_activity(fplan)

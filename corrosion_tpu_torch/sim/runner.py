@@ -8,7 +8,8 @@ the packed fault storm and its flight-recorder rung
 (`config_fault_storm_telemetry`) with their setup `fault_storm` (which
 also puts the storm on the dense round, or on full-view SWIM), and the
 gapstress storm (config #5b, on the packed round from 1280 nodes) with
-its K-clamp distortion pair,
+its K-clamp distortion pair, and membership churn (configs #2 and #2b
+through `.telemetry.run_membership_detect`, and `membership_churn`),
 returning the same result keys.  The configs JAX lets record a trace
 take ``telemetry`` and ``trace_path`` (`.telemetry`): the record gains
 the ``telemetry`` summary block and the path the flight-recorder JSONL.
@@ -45,7 +46,12 @@ from .state import (
     packed_supported,
     uniform_payloads,
 )
-from .telemetry import trace_host, trace_summary, write_flight_jsonl
+from .telemetry import (
+    run_membership_detect,
+    trace_host,
+    trace_summary,
+    write_flight_jsonl,
+)
 from ..proto.families import family_proto
 from ..topo.families import family_topology
 from .topology import Topology, regions
@@ -271,51 +277,133 @@ def config_partition_heal_10k(
     return result
 
 
+def churn_setup(cfg: SimConfig, seed: int, dev: torch.device):
+    """A membership-churn run's payloads and initial state: one payload a
+    round (``inject_every=1``), ``new_sim(cfg, seed)`` with every third
+    node DOWN at t = 0 (the kill of JAX ``run_detect_ensemble``,
+    ``kill_every=3``)."""
+    meta = uniform_payloads(cfg, dev, inject_every=1)
+    kill = torch.arange(cfg.n_nodes, device=dev) % 3 == 0
+    state = new_sim(cfg, seed, dev)
+    state = state._replace(
+        alive=torch.where(kill, DOWN, ALIVE).to(torch.uint8))
+    return meta, state
+
+
+def _churn_run(cfg: SimConfig, seed: int, max_rounds: int, device):
+    """`run_membership_detect` on the churn setup over the flat topology:
+    (final state, metrics, detect_round as an int, wall seconds between
+    ``torch.cuda.synchronize()``s on the card)."""
+    dev = resolve_device(device)
+    meta, state = churn_setup(cfg, seed, dev)
+    _sync(dev)
+    t0 = time.monotonic()
+    final, metrics, detect = run_membership_detect(
+        state, meta, cfg, Topology(), max_rounds, device=dev)
+    _sync(dev)
+    return final, metrics, int(detect), time.monotonic() - t0
+
+
+def membership_lane_stats(final, cfg: SimConfig) -> Dict[str, float]:
+    """Detection quality of one run's final state, host-side (JAX
+    ``campaign/engine.py`` ``_membership_lane_stats`` for one lane):
+    ``detected_fraction``, the share of watched entries marked DOWN (1.0
+    when nothing is watched), and on full view ``false_positive_downs``,
+    the (up, up) pairs believed DOWN."""
+    alive = final.alive.cpu().numpy()
+    up = alive == ALIVE
+    out: Dict[str, float] = {}
+    if cfg.swim_full_view:
+        view = final.view.cpu().numpy()
+        watched = view[np.ix_(up, ~up)]
+        out["detected_fraction"] = (
+            float((watched == DOWN).mean()) if watched.size else 1.0)
+        out["false_positive_downs"] = int(
+            (view[np.ix_(up, up)] == DOWN).sum())
+    else:
+        pid = final.pid.cpu().numpy()
+        pkey = final.pkey.cpu().numpy()
+        watched = (pid >= 0) & ~up[np.maximum(pid, 0)] & up[:, None]
+        marked = pkey % 4 == DOWN
+        out["detected_fraction"] = (
+            float((watched & marked).sum() / watched.sum())
+            if watched.any() else 1.0)
+    return out
+
+
+def _churn_record(cfg: SimConfig, final, metrics, detect_round: int,
+                  wall: float, return_state: bool) -> Dict[str, object]:
+    """JAX's legacy config #2/#2b record (``runner.py`` ``_churn_record``)
+    without the campaign engine's ``spec_hash`` and ``result_digest``,
+    which wait for the port's engine (ROADMAP A12)."""
+    stats = membership_lane_stats(final, cfg)
+    rec = {
+        "n_nodes": cfg.n_nodes,
+        "detect_round": detect_round,
+        "detect_sim_s": (detect_round * ROUND_SECONDS
+                         if detect_round >= 0 else -1),
+        "detected_fraction": stats["detected_fraction"],
+        "wall_clock_s": wall,
+        "converged": detect_round >= 0,
+    }
+    if "false_positive_downs" in stats:
+        rec["false_positive_downs"] = stats["false_positive_downs"]
+    if return_state:
+        rec["state"] = final
+        rec["metrics"] = metrics
+    return rec
+
+
+def config_swim_churn_64(
+    seed: int = 0, max_rounds: int = 400, n: int = 64, device="cuda",
+    return_state: bool = False,
+) -> Dict[str, object]:
+    """Config #2: membership only — kill a third of an ``n``-node
+    full-view cluster at t = 0 and count the rounds until every survivor
+    marks every dead node DOWN (`run_membership_detect`, K23's full
+    entry).  The record has JAX's legacy keys and ``false_positive_downs``;
+    JAX's ``spec_hash`` and ``result_digest`` belong to its campaign
+    engine, not ported yet (ROADMAP A12), and are left out."""
+    cfg = SimConfig.wan_tuned(n, n_payloads=1, swim_full_view=True)
+    return _churn_record(cfg, *_churn_run(cfg, seed, max_rounds, device),
+                         return_state)
+
+
+def config_swim_churn_partial(
+    seed: int = 0, max_rounds: int = 600, n: int = 4096, device="cuda",
+    return_state: bool = False,
+) -> Dict[str, object]:
+    """Config #2b, config #2 at the partial-view scale tier: ``n`` nodes
+    on O(N·M) member tables, probing every round, until every live table
+    entry of an up watcher that names a dead member is marked DOWN
+    (K23's partial entry).  JAX's legacy keys and ``member_slots``;
+    ``spec_hash`` and ``result_digest`` are left out, as for config #2."""
+    cfg = SimConfig.wan_tuned(n, n_payloads=1, swim_partial_view=True,
+                              probe_period_rounds=1)
+    rec = _churn_record(cfg, *_churn_run(cfg, seed, max_rounds, device),
+                        return_state)
+    rec["member_slots"] = cfg.member_slots
+    return rec
+
+
 def membership_churn(
     n_nodes: int, seed: int = 0, device="cuda", return_state: bool = False
 ) -> Dict[str, object]:
-    """Full-view membership churn: a ``wan_tuned`` cluster with one
-    payload kills every third node at t = 0 (the ``swim-churn-64``
-    campaign shape at any size) and runs dense rounds until every
-    survivor believes every dead node DOWN — the detection predicate of
-    JAX ``telemetry.run_membership_detect``, computed on the device and
-    read once per round.  ``detect_round`` is the round counter after
-    that round (-1 if `CHURN_MAX_ROUNDS` pass first); ``false_downs``
-    counts (up, up) pairs believed DOWN then."""
-    dev = resolve_device(device)
-    cfg = SimConfig.wan_tuned(n_nodes, n_payloads=1, swim_full_view=True)
-    meta = uniform_payloads(cfg, dev, inject_every=1)
-    topo = Topology()
-    region = regions(n_nodes, topo.n_regions, dev)
-    state = new_sim(cfg, seed, dev)
-    validate(cfg, topo)
-    kill = torch.arange(n_nodes, device=dev) % 3 == 0
-    state = own_state(state._replace(
-        alive=torch.where(kill, DOWN, ALIVE).to(torch.uint8)))
-    up = ~kill
-    watched = up[:, None] & kill[None, :]
-    metrics = new_metrics(cfg, dev)
-    _sync(dev)
-    t0 = time.monotonic()
-    detect_round = -1
-    while int(state.t) < CHURN_MAX_ROUNDS:
-        state, metrics, _ = round_step_(state, metrics, meta, cfg, topo,
-                                        region)
-        if bool(((state.view == DOWN) | ~watched).all()):
-            detect_round = int(state.t)
-            break
-    _sync(dev)
-    wall = time.monotonic() - t0
-    pairs = up[:, None] & up[None, :]
+    """Config #2 (`config_swim_churn_64`) at any size, capped at
+    `CHURN_MAX_ROUNDS`, under its earlier keys: ``detect_round`` (-1 if
+    the cap passes first) and ``false_downs``, the (up, up) pairs
+    believed DOWN then."""
+    rec = config_swim_churn_64(seed, CHURN_MAX_ROUNDS, n_nodes, device,
+                               return_state)
     result = {
         "n_nodes": n_nodes,
-        "detect_round": detect_round,
-        "false_downs": int(((state.view == DOWN) & pairs).sum()),
-        "wall_clock_s": wall,
+        "detect_round": rec["detect_round"],
+        "false_downs": rec["false_positive_downs"],
+        "wall_clock_s": rec["wall_clock_s"],
     }
     if return_state:
-        result["state"] = state
-        result["metrics"] = metrics
+        result["state"] = rec["state"]
+        result["metrics"] = rec["metrics"]
     return result
 
 

@@ -1,6 +1,7 @@
-"""Flight recorder: per-round telemetry of both rounds — the port of
-``corrosion_tpu/sim/telemetry.py`` without ``run_membership_detect`` and
-``trace_to_registry`` (ROADMAP A7).
+"""Flight recorder: per-round telemetry of both rounds, and the
+membership-churn driver `run_membership_detect` with its detect
+predicates (K23) — the port of ``corrosion_tpu/sim/telemetry.py``
+without ``trace_to_registry`` (ROADMAP A7).
 
 `RoundTrace` holds JAX's sixteen channels, preallocated ``[R, ·]``
 device buffers written row by row inside the run loop: ``coverage`` and
@@ -492,6 +493,115 @@ def record_row(trace: RoundTrace, row: int, *, alive, state, cfg: SimConfig,
     return trace
 
 
+# -- the membership-churn driver (runner configs #2/#2b) ---------------------
+
+
+def new_detect(device) -> torch.Tensor:
+    """The detect loop's device word: i32[3], ``detect_round`` (-1 until
+    the predicate holds) then K23's two scratch words, which it keeps at
+    0 between launches."""
+    return torch.tensor([-1, 0, 0], dtype=torch.int32, device=device)
+
+
+def detect_full_plain(detect: torch.Tensor, view: torch.Tensor,
+                      up: torch.Tensor, t: int) -> torch.Tensor:
+    """Plain version of K23's full entry, in place on ``detect[0]``."""
+    watched = up[:, None] & ~up[None, :]
+    held = ((view == DOWN) | ~watched).all()
+    detect[0] = torch.where((detect[0] < 0) & held, t, detect[0])
+    return detect
+
+
+def detect_partial_plain(detect: torch.Tensor, pid: torch.Tensor,
+                         pkey: torch.Tensor, up: torch.Tensor,
+                         t: int) -> torch.Tensor:
+    """Plain version of K23's partial entry, in place on ``detect[0]``;
+    ``pkey & 3`` is JAX's ``pkey % 4`` for every i32."""
+    watched = up[:, None] & (pid >= 0) & ~up[pid.clamp(min=0).long()]
+    held = (((pkey & 3) == DOWN) | ~watched).all()
+    detect[0] = torch.where((detect[0] < 0) & held, t, detect[0])
+    return detect
+
+
+def _check_detect(detect: torch.Tensor, up: torch.Tensor, n: int) -> None:
+    check("detect", detect, torch.int32, (3,))
+    check("up", up, torch.bool, (n,))
+
+
+def detect_full_(detect: torch.Tensor, view: torch.Tensor, up: torch.Tensor,
+                 t: int) -> torch.Tensor:
+    """Full-view detection after round ``t``, in place: ``detect[0]``
+    becomes ``t`` when it is < 0 and every (up, dead) pair of ``view`` is
+    believed DOWN.  K23's full entry on the card."""
+    if view.device.type == "cpu":
+        return detect_full_plain(detect, view, up, t)
+    n = up.shape[0]
+    _check_detect(detect, up, n)
+    check("view", view, torch.int8, (n, n))
+    kernels.DETECT_FULL.launch([view, up, detect], [n, t])
+    return detect
+
+
+def detect_partial_(detect: torch.Tensor, pid: torch.Tensor,
+                    pkey: torch.Tensor, up: torch.Tensor,
+                    t: int) -> torch.Tensor:
+    """Partial-view detection after round ``t``, in place: ``detect[0]``
+    becomes ``t`` when it is < 0 and every member-table entry of an up
+    watcher that names a dead member is marked DOWN.  K23's partial entry
+    on the card."""
+    if pid.device.type == "cpu":
+        return detect_partial_plain(detect, pid, pkey, up, t)
+    n, m = pid.shape
+    _check_detect(detect, up, n)
+    check("pid", pid, torch.int32, (n, m))
+    check("pkey", pkey, torch.int32, (n, m))
+    kernels.DETECT_PARTIAL.launch([pid, pkey, up, detect], [n, m, t])
+    return detect
+
+
+def run_membership_detect(state, meta, cfg: SimConfig, topo,
+                          max_rounds: int = 400, telemetry: bool = False,
+                          device="cuda"):
+    """Membership-churn run (JAX ``run_membership_detect``): dense rounds
+    until every survivor marks every dead node DOWN — full view: every
+    (up, dead) pair; partial view: every member-table entry of an up
+    watcher that names a dead member — or ``max_rounds``.  ``up`` is the
+    state's at entry (the kill is pre-applied).  After each round K23
+    sets the device word's ``detect_round`` to the round counter when the
+    predicate first holds; the loop reads that one i32 a round.  Returns
+    (state, metrics, detect_round[, trace]): ``detect_round`` a 0-d i32
+    tensor, -1 if ``max_rounds`` passed first, and with ``telemetry`` the
+    run's `RoundTrace`.  ``state`` must lie on ``device``."""
+    from .round import new_metrics, own_state, round_step_, validate
+    from .topology import regions
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    if state.have.device.type != dev.type:
+        raise ValueError(f"the state lies on {state.have.device}, not {dev}")
+    if not (cfg.swim_full_view or cfg.swim_partial_view):
+        raise ValueError(
+            "membership detection needs a SWIM tier "
+            "(swim_full_view or swim_partial_view)"
+        )
+    validate(cfg, topo)
+    region = regions(cfg.n_nodes, topo.n_regions, dev)
+    metrics = new_metrics(cfg, dev)
+    up = state.alive == ALIVE
+    state = own_state(state)
+    detect = new_detect(dev)
+    trace = new_trace(cfg, max_rounds, dev) if telemetry else None
+    while int(state.t) < max_rounds and int(detect[0]) < 0:
+        state, metrics, _ = round_step_(state, metrics, meta, cfg, topo,
+                                        region, trace)
+        if cfg.swim_full_view:
+            detect_full_(detect, state.view, up, int(state.t))
+        else:
+            detect_partial_(detect, state.pid, state.pkey, up, int(state.t))
+    out = (state, metrics, detect[0].clone())
+    return out + (trace,) if telemetry else out
+
+
 # -- host-side exports -------------------------------------------------------
 
 
@@ -518,6 +628,19 @@ def coverage_curve_digest(trace, rounds: int, every: int = 1) -> str:
     )
     cov = np.ascontiguousarray(cov, np.int32)
     return hashlib.blake2b(cov.tobytes(), digest_size=8).hexdigest()
+
+
+def trace_digest(trace, rounds: int, every: int = 1) -> str:
+    """blake2b-8 over every channel's name and executed rows, in
+    `CHANNELS` order (i32, and f32 for the byte channels): a whole trace
+    held exactly, where every f32 byte total is exact on both sides (all
+    payloads of one size, so JAX's f32 sums of multiples of it are)."""
+    host = trace_host(trace, rounds, every)
+    h = hashlib.blake2b(digest_size=8)
+    for name in CHANNELS:
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(host[name]).tobytes())
+    return h.hexdigest()
 
 
 def coverage_latency_rounds(

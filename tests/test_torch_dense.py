@@ -191,24 +191,43 @@ def test_tiered_loss_and_scenario_axes_refuse():
 
 
 def test_fault_plan_under_peerswap_refuses():
-    """A fault plan under the PeerSwap sampler raises, naming ROADMAP A10:
-    JAX's crash-with-wipe also empties the wiped node's view, which K11
-    does not do on the card, so the port refuses the combination on both
-    devices rather than run it to a different state (run_fault_plan and
-    the checked driver)."""
+    """A fault plan under the PeerSwap sampler is no longer refused: K11
+    now empties a wiped node's view row on the card, as JAX's
+    crash-with-wipe does (``faults.py:742-745``), so `run_fault_plan` and
+    the checked driver run it on both devices — to JAX's final state and
+    metrics, the view included, with the wiped node's row empty at its
+    restart."""
+    from corrosion_tpu import faults as jhost
+    from corrosion_tpu.sim import faults as jfaults
     from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
     from corrosion_tpu_torch.sim import faults as pfaults
 
-    cfg = pstate.SimConfig(n_nodes=12, n_payloads=8, peer_sampler="peerswap")
-    meta = pstate.uniform_payloads(cfg, "cpu")
+    kw = dict(n_nodes=12, n_payloads=8, peer_sampler="peerswap")
+    cfg, jcfg = pstate.SimConfig(**kw), jstate.SimConfig(**kw)
+    meta, jmeta = pstate.uniform_payloads(cfg, "cpu"), jstate.uniform_payloads(
+        jcfg)
     plan = FaultPlan(n_nodes=12, seed=0, events=(
         FaultEvent("crash", 2, 6, node=1, wipe=True),))
-    fplan = pfaults.compile_plan(plan, cfg, device="cpu")
+    jplan = jhost.FaultPlan(n_nodes=12, seed=0, events=(
+        jhost.FaultEvent("crash", 2, 6, node=1, wipe=True),))
     state = pround.new_sim(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        pfaults.run_fault_plan(state, meta, cfg, ptopo.Topology(), fplan)
-    with pytest.raises(NotImplementedError, match="A10"):
-        pfaults.run_fault_plan_checked(plan, state, meta, cfg)
+    before = state.pview[1].clone()
+    restart = pfaults.apply_node_faults(state, pfaults.round_faults(
+        pfaults.compile_plan(plan, cfg, device="cpu"), 6))
+    assert (before >= 0).any() and (restart.pview[1] == -1).all()
+    jstate0 = jround.new_sim(jcfg, 0)
+    got = pfaults.run_fault_plan(
+        pround.new_sim(cfg, 0, "cpu"), meta, cfg, ptopo.Topology(),
+        pfaults.compile_plan(plan, cfg, device="cpu"))
+    want = jfaults.run_fault_plan(jstate0, jmeta, jcfg, jtopo.Topology(),
+                                  jfaults.compile_plan(jplan, jcfg))
+    assert_states_equal(want[0], got[0], "run_fault_plan")
+    assert_metrics_equal(want[1], got[1], "run_fault_plan metrics")
+    got = pfaults.run_fault_plan_checked(plan, pround.new_sim(cfg, 0, "cpu"),
+                                         meta, cfg)
+    want = jfaults.run_fault_plan_checked(jplan, jstate0, jmeta, jcfg)
+    assert_states_equal(want[0], got[0], "checked driver")
+    assert got[2] == want[2]
 
 
 @pytest.mark.parametrize("v, k", ((32, 8), (32, 2), (64, 8), (64, 3),

@@ -1291,3 +1291,81 @@ def test_protocol_run_on_card_equals_cpu(card, family, topo_family,
     for a, b in zip(got, want):
         for name, x, y in zip(type(b)._fields, a, b):
             assert torch.equal(x.cpu(), y), name
+
+
+# -- membership churn: K23's two entries, K11's PeerSwap view row -------------
+
+
+def test_churn_kernels(card):
+    """chip_smoke.py's phase 3j comparisons at small shapes (full view at
+    N = 33, 100 and 257, and 1001 whose rows do not start on words;
+    partial view at N = 301 and 2999, M = 64; K11's view row at 3000
+    nodes on the word entry), every trap reached."""
+    cs = _smoke()
+    g = np.random.default_rng(12)
+    before = {k.name: k.launches for k in kernels.KERNELS}
+    rows = (cs.compare_detect_full(card, g, (33, 100, 257), timed=False)
+            + cs.compare_detect_partial(card, g, (301, 2999), timed=False)
+            + cs.compare_node_faults_view(card, g, 3000, timed=False))
+    assert all(row["equal"] for row in rows), rows
+    for row in ("detect_full", "detect_partial", "node_faults",
+                "node_faults_dense"):
+        for kern in kernels.PORTED[row]:
+            assert kern.launches > before[kern.name], kern.name
+
+
+@pytest.mark.parametrize("n, partial", ((64, False), (96, False),
+                                        (300, True), (1000, True)))
+def test_detect_run_on_card_equals_cpu(card, n, partial):
+    """A membership-churn detect run on the card — K23 after every round
+    — and with the recorder: the final state, metrics, detect_round and
+    every trace channel equal to the same run's plain versions on the
+    CPU."""
+    from corrosion_tpu_torch.sim.runner import churn_setup
+    from corrosion_tpu_torch.sim.telemetry import run_membership_detect
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    tier = (dict(swim_partial_view=True, probe_period_rounds=1) if partial
+            else dict(swim_full_view=True))
+    cfg = SimConfig.wan_tuned(n, n_payloads=1, **tier)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta, state = churn_setup(cfg, 3, dev)
+        outs.append(run_membership_detect(state, meta, cfg, Topology(), 300,
+                                          telemetry=True, device=dev))
+    got, want = outs
+    assert int(got[2]) == int(want[2])
+    for a, b in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y), name
+
+
+@pytest.mark.parametrize("packed", (True, False), ids=("packed", "dense"))
+@pytest.mark.parametrize("family", (None, "wan-3x2"))
+def test_peerswap_fault_run_on_card_equals_cpu(card, family, packed):
+    """A PeerSwap storm under a flash crowd (the tail quarter back wiped,
+    K11's view row) and a loss burst on the card: every state tensor (the
+    view included) and metric equal to the same run's plain versions on
+    the CPU."""
+    from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.runner import _resolve_topo, _write_storm
+    from corrosion_tpu_torch.topo import flash_crowd_events
+
+    n = 240
+    plan = FaultPlan(n_nodes=n, seed=2, events=(
+        *flash_crowd_events(n, join_round=6),
+        FaultEvent("loss", 2, 10, p=0.2)))
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        topo = _resolve_topo(family)
+        cfg, meta = _write_storm(n, 128, dev, topo, "peerswap")
+        change = (dict(packed_min_cells=0) if packed
+                  else dict(allow_packed=False))
+        cfg = dataclasses.replace(cfg, **change)
+        fplan = faults.compile_plan(plan, cfg, topo, factored=True,
+                                    device=dev)
+        outs.append(faults.run_fault_plan(new_sim(cfg, 5, dev), meta, cfg,
+                                          topo, fplan, 600))
+    for a, b in zip(*outs):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y), name

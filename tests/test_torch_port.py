@@ -21,6 +21,8 @@ from corrosion_tpu_torch.sim.runner import (
     config_ground_truth_3node,
     config_packed_fault_storm,
     config_partition_heal_10k,
+    config_swim_churn_64,
+    config_swim_churn_partial,
     config_write_storm_100k,
     config_write_storm_gapstress,
     membership_churn,
@@ -66,6 +68,8 @@ def test_entry_points_refuse_cuda_without_card():
                       (config_broadcast_1k, {}),
                       (config_partition_heal_10k, {}),
                       (membership_churn, dict(n_nodes=64)),
+                      (config_swim_churn_64, {}),
+                      (config_swim_churn_partial, dict(n=64)),
                       (config_write_storm_gapstress, dict(n_nodes=64)),
                       (config_gapstress_distortion, dict(n_nodes=64))):
         with pytest.raises(RuntimeError, match="device='cpu'"):

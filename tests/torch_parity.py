@@ -251,3 +251,44 @@ def run_topology_pair(family, sampler, packed):
     assert_states_equal(jout[0], pout[0], label)
     assert_metrics_equal(jout[1], pout[1], label)
     return jout, pout
+
+
+def fault_plan_pair(family, sampler, packed, events, trace=False, deepen=0):
+    """JAX's run of `topology_storm` under ``events`` (its factored
+    compile) against the port's on its factored plan and on its matrix
+    one: state (the view included), metrics and, with ``trace``, every
+    RoundTrace channel equal (exact: every payload is 8 KiB, so JAX's f32
+    byte sums are exact too).  ``deepen`` adds ring slots past the
+    topology's deepest delay."""
+    from corrosion_tpu.sim import faults as jf
+    from corrosion_tpu.sim import round as jround
+    from corrosion_tpu_torch.sim import faults as pf_
+    from corrosion_tpu_torch.sim import round as pround
+    from corrosion_tpu_torch.sim.telemetry import CHANNELS
+
+    jcfg, jmeta, jt, pcfg, pmeta, pt = topology_storm(family, sampler,
+                                                      packed)
+    if deepen:
+        jcfg = dataclasses.replace(jcfg, n_delay_slots=jt.max_delay + deepen)
+        pcfg = dataclasses.replace(pcfg, n_delay_slots=pt.max_delay + deepen)
+    jplan, pplan = plan_pair(N_RUN, 9, events)
+    with jax_telemetry():
+        jout = jf.run_fault_plan(
+            jround.new_sim(jcfg, SEED), jmeta, jcfg, jt,
+            jf.compile_plan(jplan, jcfg, jt, factored=True), 400,
+            telemetry=trace)
+    label = f"{family}/{sampler}/{'packed' if packed else 'dense'}"
+    for factored in (True, False):
+        pf = pf_.compile_plan(pplan, pcfg, pt, factored=factored,
+                              device="cpu")
+        pout = pf_.run_fault_plan(pround.new_sim(pcfg, SEED, "cpu"), pmeta,
+                                  pcfg, pt, pf, 400, trace)
+        at = f"{label}/{'factored' if factored else 'matrix'}"
+        assert_states_equal(jout[0], pout[0], at)
+        assert_metrics_equal(jout[1], pout[1], at)
+        if trace:
+            for name in CHANNELS:
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(jout[2], name)),
+                    getattr(pout[2], name).numpy(), err_msg=f"{at}: {name}")
+    return jout, pout
