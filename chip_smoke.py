@@ -10,9 +10,9 @@ result line):
    of K3, K9 and K10, the dense fault entries of K11–K14, K9's matrix
    entry K9m, K1's view entry, the tiered instantiations of K10 and
    K12, and the protocol axis's instantiations of K8, K10, K12, K18 and
-   K20) from the twenty-two sources in
-   ``corrosion_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``
-   (one process per source, in parallel);
+   K20, and the lane entries of K1–K11 for the seed ensembles) from the
+   twenty-two sources in ``corrosion_tpu_torch/kernels/csrc`` with
+   ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
    k = 8, A = 16, V = 8, C = 4, K = 8; the fault storm's plan: Kb = 2,
    Kl = 1, threshold 38, E up to 300000), call each kernel's wrappers
@@ -221,7 +221,22 @@ result line):
    golden (detect round, detected fraction, false DOWNs, digest; rounds,
    p99s, digest and the view's digest); the topology phase above also
    runs the 100k fault storm over wan-3x2 against its golden;
-15. profile the first 3 rounds of both storms (their telemetry-off
+15. the seed ensembles (B16p), each from launch counters at 0:
+   storm-100k-seeds8 and fault-storm-100k-seeds8 (``campaign.spec.
+   storm_seeds_spec``, seeds 0-7) through ``campaign.engine.
+   run_campaign``, every lane's rounds, p99 and final-state digest and
+   the artifact's ``spec_hash`` and ``result_digest`` against the goldens
+   pinned from JAX's ``run_campaign``, every lane entry of the path
+   launched and no solo entry of a kernel that has one; each lane also
+   equal to the port's solo run of its seed on the card, whose 8 walls
+   are printed beside the ensemble's with ``max_memory_allocated``;
+   fault-storm-100k-lanes16 (seeds 0-15), every lane equal to its solo
+   run; one lane of the storm, equal to the solo storm with each lane
+   entry launched as often as its solo entry (phase 3k before the paths
+   compares every lane entry at the 8-lane storm's shapes, each lane
+   held to the solo entry on its inputs, K10 also at 16 lanes, past
+   2^31 flattened);
+16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
    the process ran before), the
@@ -233,8 +248,10 @@ result line):
    the push-pull and lab-ordered storms, and the first 3 rounds of
    swim-churn-partial-100k (host wall, device time by
    kernel from ``torch.profiler``, the device's idle share; the storm
-   under the baseline family is held to 1526 launches too);
-16. print the card line, the kernels JSON line, then the one-line result
+   under the baseline family is held to 1526 launches too), and the
+   first 3 rounds of the 8-lane storm and fault storm and of one lane,
+   beside a solo storm round profiled in the same call;
+17. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
 Nothing runs on the CPU: without a card the script exits at once.
@@ -4839,6 +4856,816 @@ def compare_churn_kernels(dev, seed=9, timed=True):
     return rows
 
 
+# -- phase 3k: the lane entries of the seed ensembles (B16) ------------------
+
+#: lanes of the ensemble paths, and of the 2^31 trap
+ENSEMBLE_LANES = 8
+WIDE_LANES = 16
+#: the lane rows a faultless ensemble launches; a fault ensemble adds
+#: K10's, K9's reach and K11's lane entries
+LANE_STORM_ROWS = ("threefry_lanes", "sample_targets_lanes",
+                   "merge_entries_lanes", "broadcast_scatter_lanes",
+                   "sync_pull_lanes", "gaps_refresh_lanes",
+                   "converge_fold_lanes", "word_phases_lanes")
+LANE_FAULT_ROWS = LANE_STORM_ROWS + ("broadcast_scatter_lossy_lanes",
+                                     "fault_reach_lanes",
+                                     "node_faults_lanes")
+#: each lane row's solo row: an ensemble path launches none of these
+SOLO_OF_LANE = {"sample_targets_lanes": "sample_targets",
+                "merge_entries_lanes": "merge_entries",
+                "broadcast_scatter_lanes": "broadcast_scatter",
+                "broadcast_scatter_lossy_lanes": "broadcast_scatter_lossy",
+                "sync_pull_lanes": "sync_pull",
+                "gaps_refresh_lanes": "gaps_refresh",
+                "converge_fold_lanes": "converge_fold",
+                "word_phases_lanes": "word_phases",
+                "node_faults_lanes": "node_faults"}
+_VMAP = " (vmapped at corrosion_tpu/campaign/ensemble.py:114)"
+
+
+def _lane_keys(dev, lanes, base=0):
+    from corrosion_tpu_torch.sim import rng as trng
+
+    return torch.stack([trng.prng_key(base + k, dev) for k in range(lanes)])
+
+
+def _lane_row(name, source, replaces, equal, err, ms, plain_ms, nbytes,
+              lanes, **extra):
+    return _row(name, source, replaces + _VMAP, equal, err, ms, plain_ms,
+                nbytes, kernel=name, lanes=lanes, **extra)
+
+
+def _solo_trap(label, got_lane, want_solo):
+    """A lane's output must be the solo entry's on that lane's inputs."""
+    if not all(torch.equal(a, b) for a, b in zip(got_lane, want_solo)):
+        raise AssertionError(f"lane trap: {label} differs from the solo "
+                             "entry on the lane's inputs")
+    print(f"lane trap {label} reached: equal to the solo entry", flush=True)
+
+
+def compare_lane_draws(dev, g, lanes, n, m, timed=True):
+    """K5's lane entry over a storm round's draws for K lanes: equal to
+    the plain lane versions, each lane equal to K5's solo draw under its
+    key (counters lane-local), two lanes apart."""
+    from corrosion_tpu_torch.sim import rng
+
+    keys = _lane_keys(dev, lanes, 1000)
+    backoff = torch.as_tensor(g.integers(0, 33, (lanes, n)),
+                              dtype=torch.int32, device=dev)
+    per = (n + m - 1) // m
+
+    def draws(split, randint):
+        ks = split(keys, 4)
+        kb, ksy, ksw = (split(ks[:, i].contiguous(), c)
+                        for i, c in ((1, 3), (2, 3), (3, 11)))
+        col = lambda x, i: x[:, i].contiguous()  # noqa: E731
+        return [ks, kb, ksy, ksw] + [
+            randint(col(kb, 0), (12, n), 0, m),
+            randint(col(ksy, 0), (12, n), 0, m),
+            randint(col(ksy, 2), (n,), 1, backoff + 1),
+            randint(col(ksw, 0), (4, n), 0, m),
+            randint(col(ksw, 2), (12, n), 0, m),
+            randint(col(ksw, 4), (12, n), 0, m),
+            randint(col(ksw, 5), (n, 8), 0, m),
+            randint(col(ksw, 7), (n,), 0, n),
+            randint(col(ksw, 9), (n,), 0, m),
+            randint(col(ksw, 10), (n,), 0, per),
+        ]
+
+    got = draws(rng.split_lanes, rng.randint_lanes)
+    want = draws(rng.split_lanes_plain, rng.randint_lanes_plain)
+    equal, err = _equal_all(got, want)
+    last = lanes - 1
+    _solo_trap("threefry lanes", [got[4][last], got[6][last],
+                                  rng.bits_lanes(keys, (n,))[last]],
+               [rng.randint(got[1][last, 0].contiguous(), (12, n), 0, m),
+                rng.randint(got[2][last, 2].contiguous(), (n,), 1,
+                            backoff[last] + 1),
+                rng.bits(keys[last], (n,))])
+    if lanes > 1 and torch.equal(got[4][0], got[4][1]):
+        raise AssertionError("K5 lanes 0 and 1 drew the same targets")
+    n_draws = sum(x.numel() for x in got[4:])
+    hashes = sum(x.shape[0] * x.shape[1] for x in got[:4])
+    ops = n_draws * OPS_PER_RANDINT + hashes * OPS_PER_HASH
+    rate = _int32_ops_per_s()
+    return dict(
+        name="threefry_lanes", kernel="threefry_lanes", lanes=lanes,
+        source="corrosion_tpu_torch/kernels/csrc/threefry.cu",
+        replaces="corrosion_tpu/sim/pswim.py:92" + _VMAP,
+        equal=equal, max_abs_err=err,
+        ms=_timed(timed, lambda: draws(rng.split_lanes, rng.randint_lanes)),
+        plain_ms=_timed(timed, lambda: draws(rng.split_lanes_plain,
+                                             rng.randint_lanes_plain)),
+        bound_ms=ops / rate * 1e3, bound_by="operations", ops=ops,
+        int32_ops_per_s=rate,
+    )
+
+
+def compare_lane_tables(dev, g, lanes, n, m, f, timed=True):
+    """K1's and K4's lane entries on K lanes of storm-shaped member
+    tables (keys with bit 31 packed), each lane equal to the solo entry
+    on its own tables."""
+    from corrosion_tpu_torch.sim import pswim
+
+    t, gc, k = 40, 12, 8
+    tabs = [_random_tables(g, n, m, t) for _ in range(lanes)]
+
+    def cuda(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                               device=dev)
+
+    pid, pkey, psince = (cuda(np.stack([tb[i] for tb in tabs]))
+                         for i in range(3))
+    table = pswim._pack_tables(pid, pkey).contiguous()
+    if not bool((table < 0).any()):
+        raise AssertionError("K1 lane tables hold no word with bit 31 set")
+    slots = cuda(g.integers(0, m, (lanes, 12, n)))
+    got = pswim.sample_candidates_lanes(table, slots, 3)
+    ref = pswim.sample_candidates_lanes_plain(table, slots, 3)
+    last = lanes - 1
+    _solo_trap("sample_targets lanes", [got[last]],
+               [pswim.sample_candidates(table[last], slots[last], 3)])
+    rows = [_lane_row(
+        "sample_targets_lanes",
+        "corrosion_tpu_torch/kernels/csrc/sample_targets.cu",
+        "corrosion_tpu/sim/pswim.py:82", bool(torch.equal(got, ref)),
+        _max_abs_err(got, ref),
+        _timed(timed, lambda: pswim.sample_candidates_lanes(table, slots,
+                                                            3)),
+        _timed(timed, lambda: pswim.sample_candidates_lanes_plain(
+            table, slots, 3)),
+        lanes * (12 * n * 4 * 2 + n * 3 * 4), lanes)]
+
+    e = n * f * (k + 1) + n
+    e_dst = g.integers(0, n, (lanes, e))
+    e_id = np.where(g.random((lanes, e)) < 0.5,
+                    np.stack([tabs[i][0][e_dst[i], g.integers(0, m, e)]
+                              for i in range(lanes)]),
+                    g.integers(0, n, (lanes, e)))
+    e_id = np.where(e_id >= 0, e_id, g.integers(0, n, (lanes, e)))
+    e_key = g.integers(0, 2047, (lanes, e)) * 4 + g.integers(0, 3,
+                                                             (lanes, e))
+    args = (pid, pkey, psince, cuda(e_dst), cuda(e_id), cuda(e_key),
+            torch.as_tensor(g.random((lanes, e)) < 0.8, device=dev), t, gc)
+    got = pswim.merge_entries_lanes(*args)
+    ref = pswim.merge_entries_lanes_plain(*args)
+    _solo_trap("merge_entries lanes", [x[last] for x in got],
+               pswim.merge_entries(*(a[last] if torch.is_tensor(a) else a
+                                     for a in args)))
+    rows.append(_lane_row(
+        "merge_entries_lanes",
+        "corrosion_tpu_torch/kernels/csrc/merge_entries.cu",
+        "corrosion_tpu/sim/pswim.py:103",
+        all(torch.equal(a, b) for a, b in zip(got, ref)),
+        max(_max_abs_err(a, b) for a, b in zip(got, ref)),
+        _timed(timed, lambda: pswim.merge_entries_lanes(*args)),
+        _timed(timed, lambda: pswim.merge_entries_lanes_plain(*args)),
+        lanes * (e * 13 + 3 * n * m * 4 * 2), lanes))
+    return rows
+
+
+def _lane_edges(g, dev, lanes, n, f):
+    dst = torch.as_tensor(g.integers(0, n, (lanes, n * f)),
+                          dtype=torch.int32, device=dev)
+    ok = torch.as_tensor(g.random((lanes, n * f)) < 0.95, device=dev)
+    return dst, ok
+
+
+def compare_lane_scatter(dev, g, lanes, n, w, f, timed=True):
+    """K2's and K10's lane entries: every lane's ring, edges and (K10)
+    fault thresholds, key and plan seed; each lane equal to the solo
+    entry under its key and seed — the counters lane-local — and, at
+    WIDE_LANES, the last lane of a batch whose flattened edge × payload
+    index passes 2^31."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+
+    t = 4
+    rows = []
+    for lossy in (False, True):
+        sending = _random_words(g, (lanes, n, w), dev, 4)
+        dst, ok = _lane_edges(g, dev, lanes, n, f)
+        slot = torch.full((lanes, n * f), t % 2, dtype=torch.int32,
+                          device=dev)
+        ring0 = _random_words(g, (lanes, 2, n, w), dev, 6)
+        keys = _lane_keys(dev, lanes, 2000)
+        seeds = lane_plan_seeds(range(lanes), dev)
+        thr = (torch.as_tensor(np.where(g.random((lanes, n * f)) < 0.9, 38,
+                                        0), dtype=torch.uint8, device=dev)
+               if lossy else None)
+        extra = (thr, keys, seeds)
+        got, ref = ring0.clone(), ring0.clone()
+        ln.scatter_lanes(got, sending, dst, slot, ok, f, *extra)
+        ln.scatter_lanes_plain(ref, sending, dst, slot, ok, f, *extra)
+        last = lanes - 1
+        solo = ring0[last].clone()
+        if lossy:
+            packed.scatter_sending_lossy(
+                solo, sending[last], dst[last], slot[last], ok[last],
+                thr[last], keys[last], int(seeds[last]), f)
+        else:
+            packed.scatter_sending(solo, sending[last], dst[last],
+                                   slot[last], ok[last], f)
+        name = ("broadcast_scatter_lossy_lanes" if lossy
+                else "broadcast_scatter_lanes")
+        _solo_trap(name, [got[last]], [solo])
+        work_k, work_p = ring0.clone(), ring0.clone()
+        touched = int(torch.unique(
+            (torch.arange(lanes, device=dev)[:, None] * n
+             + dst.long())[ok]).numel())
+        nbytes = (sending.numel() * 4 + lanes * n * f * 9
+                  + touched * w * 4 * 2)
+        row = _lane_row(
+            name, "corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
+            "corrosion_tpu/sim/faults.py:260" if lossy
+            else "corrosion_tpu/sim/packed.py:369",
+            bool(torch.equal(got, ref)), _max_abs_err(got, ref),
+            _timed(timed, lambda: ln.scatter_lanes(
+                work_k, sending, dst, slot, ok, f, *extra)),
+            # the lossy plain version finds its draws on the host: eager
+            (_time_eager_ms(lambda: ln.scatter_lanes_plain(
+                work_p, sending, dst, slot, ok, f, *extra),
+                reps=SLOW_PLAIN_REPS) if lossy else _time_ms(
+                lambda: ln.scatter_lanes_plain(
+                    work_p, sending, dst, slot, ok, f, *extra)))
+            if timed else None,
+            nbytes, lanes)
+        if lossy:
+            # one hash per (sending edge word, thr > 0): 8 words of 4 bytes
+            live = int(((torch.repeat_interleave(sending, f, dim=1) != 0)
+                        & ok[..., None] & (thr > 0)[..., None]).sum())
+            ops = live * 8 * OPS_PER_HASH
+            rate = _int32_ops_per_s()
+            row.update(bound_ms=max(row["bound_ms"], ops / rate * 1e3),
+                       bound_by="operations", ops=ops, int32_ops_per_s=rate)
+        rows.append(row)
+    # the 2^31 trap: WIDE_LANES lanes of E = 3N edges and P = 32W payloads
+    wide = WIDE_LANES
+    if n == STORM_N and wide * n * f * w * 32 < 1 << 31:
+        raise AssertionError("the wide K10 call stays below 2^31")
+    sending = _random_words(g, (wide, n, w), dev, 4)
+    dst, ok = _lane_edges(g, dev, wide, n, f)
+    slot = torch.zeros((wide, n * f), dtype=torch.int32, device=dev)
+    ring = torch.zeros((wide, 2, n, w), dtype=torch.int32, device=dev)
+    keys = _lane_keys(dev, wide, 3000)
+    seeds = lane_plan_seeds(range(wide), dev)
+    thr = torch.full((wide, n * f), 38, dtype=torch.uint8, device=dev)
+    ln.scatter_lanes(ring, sending, dst, slot, ok, f, thr, keys, seeds)
+    solo = torch.zeros_like(ring[-1])
+    packed.scatter_sending_lossy(solo, sending[-1], dst[-1], slot[-1],
+                                 ok[-1], thr[-1], keys[-1], int(seeds[-1]),
+                                 f)
+    flat = wide * n * f * w * 32
+    _solo_trap(f"{wide} lanes x {n * f} edges x {w * 32} payloads = {flat} "
+               f"({'past' if flat >= 1 << 31 else 'below'} 2^31)",
+               [ring[-1]], [solo])
+    return rows
+
+
+def compare_lane_sync(dev, g, lanes, n, w, s, timed=True):
+    """K3's lane entry: words with bit 31, lane-local peers into slot 1
+    of every lane's ring; the last lane equal to the solo entry."""
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+
+    masks = _random_words(g, (lanes, n, 4, w), dev)
+    miss = _random_words(g, (lanes, n, w), dev, 2)
+    peers = torch.as_tensor(g.integers(0, n, (lanes, n, s)),
+                            dtype=torch.int32, device=dev)
+    ok = torch.as_tensor(g.random((lanes, n, s)) < 0.7, device=dev)
+    ring0 = torch.zeros((lanes, 2, n, w), dtype=torch.int32, device=dev)
+    got_r, ref_r = ring0.clone(), ring0.clone()
+    got = ln.sync_pull_lanes(masks, miss, peers, ok, got_r, 1)
+    ref = ln.sync_pull_lanes_plain(masks, miss, peers, ok, ref_r, 1)
+    if not bool((ref_r < 0).any()):
+        raise AssertionError("K3 lane inputs pulled no word with bit 31")
+    solo = torch.zeros((n, w), dtype=torch.int32, device=dev)
+    fr = packed.sync_pull(masks[-1], miss[-1], peers[-1], ok[-1], solo)
+    _solo_trap("sync_pull lanes", [got_r[-1, 1], got[-1]], [solo, fr])
+    rk, rp = ring0.clone(), ring0.clone()
+    return [_lane_row(
+        "sync_pull_lanes", "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
+        "corrosion_tpu/sim/packed.py:1138",
+        bool(torch.equal(got, ref) and torch.equal(got_r, ref_r)),
+        max(_max_abs_err(got_r, ref_r), _max_abs_err(got, ref)),
+        _timed(timed, lambda: ln.sync_pull_lanes(masks, miss, peers, ok, rk,
+                                                 1)),
+        _timed(timed, lambda: ln.sync_pull_lanes_plain(masks, miss, peers,
+                                                       ok, rp, 1)),
+        lanes * (n * 4 * w * 4 + n * w * 4 + n * s * 5 + n * w * 4 * 2 + n),
+        lanes)]
+
+
+def compare_lane_record(dev, g, lanes, n, w, timed=True):
+    """K6's and K7's lane entries: per-lane overflow counts that differ
+    between lanes, and K7's done flags — both values in one call, in
+    both modes (rows with holes after their sticky stamps in some
+    lanes)."""
+    from corrosion_tpu_torch.sim import gaps
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim.round import RunMetrics
+
+    cfg, meta = _storm_cfg(n, dev)
+    p = cfg.n_payloads
+    rows = []
+    # lanes of bit densities 1/2, 1/4, 1/8: their overflow counts differ
+    have = torch.stack([_random_words(g, (n, w), dev, 1 + i % 3)
+                        for i in range(lanes)])
+    tight = dataclasses.replace(cfg, gap_slots=2)
+    got = gaps.refresh_gaps_lanes(have, tight)
+    ref = gaps.refresh_gaps_lanes_plain(have, tight)
+    eq, err = _equal_all(got, ref)
+    e2, r2 = _equal_all(gaps.refresh_gaps_lanes(have, cfg),
+                        gaps.refresh_gaps_lanes_plain(have, cfg))
+    if len(set(got[3].tolist())) < 2:
+        raise AssertionError("K6 lane overflow counts do not differ")
+    _solo_trap("gaps_refresh lanes", [x[-1] for x in got],
+               gaps.refresh_gaps(have[-1], tight))
+    a, k = cfg.n_writers, cfg.gap_slots
+    rows.append(_lane_row(
+        "gaps_refresh_lanes",
+        "corrosion_tpu_torch/kernels/csrc/gaps_refresh.cu",
+        "corrosion_tpu/sim/gaps.py:137", eq and e2, max(err, r2),
+        _timed(timed, lambda: gaps.refresh_gaps_lanes(have, cfg)),
+        _timed(timed, lambda: gaps.refresh_gaps_lanes_plain(have, cfg)),
+        lanes * (n * w * 4 + n * a * 4 + 2 * n * a * k * 4 + 4), lanes))
+
+    full = np.full((lanes, n, w), 0xFFFFFFFF, dtype=np.uint32)
+    holes = g.random(lanes) < 0.5
+    holes[0], holes[-1] = True, False
+    for i in np.flatnonzero(holes):
+        full[i, g.random(n) < 0.1, : w // 2] = 0
+    words = torch.as_tensor(full.view(np.int32), device=dev)
+    dead = torch.as_tensor((g.random((lanes, n)) < 0.05) * 2,
+                           dtype=torch.uint8, device=dev)
+    inj = torch.full((lanes, w), -1, dtype=torch.int32, device=dev)
+    metrics = RunMetrics(
+        coverage_at=torch.full((lanes, p), -1, dtype=torch.int32,
+                               device=dev),
+        converged_at=torch.as_tensor(
+            np.where(g.random((lanes, n)) < 0.2, 3, -1), dtype=torch.int32,
+            device=dev),
+        overflow_frac=torch.zeros(lanes, device=dev),
+        order_violations=torch.zeros(lanes, dtype=torch.int32, device=dev))
+    cases = []
+    for t, horizon in ((20, None), (20, 21), (19, 21)):
+        args = (words, inj, dead, metrics, meta, t, cfg, horizon)
+        cases.append((args, ln.converge_record_lanes(*args),
+                      ln.converge_record_lanes_plain(*args)))
+    eq, err = True, 0
+    for _, got, want in cases:
+        e, x = _equal_all(got, want)
+        eq, err = eq and e, max(err, x)
+    done = cases[0][1][2].tolist()
+    if len(set(done)) < 2 or len(set(cases[1][1][2].tolist())) < 2 or any(
+            cases[2][1][2].tolist()):
+        raise AssertionError("K7 lane flags miss a value in a mode")
+    print(f"lane trap converge_fold lanes reached: done {done}", flush=True)
+    args = cases[0][0]
+    rows.append(_lane_row(
+        "converge_fold_lanes",
+        "corrosion_tpu_torch/kernels/csrc/converge_fold.cu",
+        "corrosion_tpu/sim/packed.py:871", eq, err,
+        _timed(timed, lambda: ln.converge_record_lanes(*args)),
+        _timed(timed, lambda: ln.converge_record_lanes_plain(*args)),
+        lanes * (n * w * 4 + w * 4 + n + n * 4 * 2 + p * 4 * 2 + 1)
+        + p * 4, lanes))
+    return rows
+
+
+def compare_lane_words(dev, g, lanes, n, w, f, timed=True):
+    """K8's three lane entries on K lanes of a mid-storm carry, in round
+    order, with dead rows and self targets."""
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+
+    cfg, meta = _storm_cfg(n, dev)
+    t = 4
+
+    def words(shape, ands=1):
+        return _random_words(g, shape, dev, ands)
+
+    flat0 = [words((lanes, n, w)), words((lanes, 2, n, w), 5),
+             *(words((lanes, n, w), 2) for _ in range(4)),
+             words((lanes, 2, n, w), 6), words((lanes, w), 2)]
+    me = np.arange(n)[None, :, None]
+    tg = np.where(g.random((lanes, n, f)) < 0.05, -1,
+                  g.integers(0, n, (lanes, n, f)))
+    targets = torch.as_tensor(
+        np.where(g.random((lanes, n, f)) < 0.02, me, tg), dtype=torch.int32,
+        device=dev)
+    alive = torch.as_tensor((g.random((lanes, n)) < 0.05) * 2,
+                            dtype=torch.uint8, device=dev)
+
+    def carry_of(xs):
+        return packed.PackedCarry(have=xs[0], inflight=xs[1],
+                                  relay=packed.Planes(*xs[2:6]),
+                                  sync_buf=xs[6]), xs[7]
+
+    def phases(inject, spend, deliver, xs):
+        c, inj = carry_of(xs)
+        inject(c, inj, t, meta, cfg, alive)
+        sending = spend(c, inj, targets, alive)
+        deliver(c, t, cfg)
+        return sending
+
+    kern = (ln.inject_lanes, ln.spend_lanes, ln.deliver_lanes)
+    plain = (ln.inject_lanes_plain, ln.spend_lanes_plain,
+             ln.deliver_lanes_plain)
+    outs = []
+    for ph in (kern, plain):
+        xs = [x.clone() for x in flat0]
+        outs.append([phases(*ph, xs), *xs])
+    equal, err = _equal_all(outs[0], outs[1])
+    xs = [x[-1].clone() for x in flat0]
+    c, inj = carry_of(xs)
+    packed.inject_packed(c, inj, t, meta, cfg, alive[-1])
+    sending = packed.spend_relay(c, inj, targets[-1], alive[-1])
+    packed.deliver_packed(c, t, cfg)
+    _solo_trap("word_phases lanes", [x[-1] for x in outs[0]],
+               [sending, *xs])
+    work = [x.clone() for x in flat0]
+
+    def restore():
+        for dst, src in zip(work, flat0):
+            dst.copy_(src)
+
+    p = cfg.n_payloads
+    nbytes = lanes * (p * 9 + w * 4 * 2 + n * w * 4 * 6 + n * f * 4 + n
+                      + 4 * 2 * n * w * 4 + 2 * n * w * 4)
+    return [_lane_row(
+        "word_phases_lanes", "corrosion_tpu_torch/kernels/csrc/word_phases.cu",
+        "corrosion_tpu/sim/packed.py:631", equal, err,
+        _time_inplace_ms(lambda: phases(*kern, work), restore)
+        if timed else None,
+        _time_inplace_ms(lambda: phases(*plain, work), restore)
+        if timed else None,
+        nbytes, lanes)]
+
+
+def compare_lane_faults(dev, g, lanes, n, w, f, timed=True):
+    """K9's reach lane entry on the fault storm's round 5 (cuts and loss
+    on) with per-lane keys and plan seeds, each lane equal to the solo
+    entry under its key and seed; K11's lane entry on the wipe round 20
+    over K lanes of tables and carry."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+
+    cfg, meta, fplan, rf = _storm_fault_round(dev, n, 5)
+    e = n * f
+    src = torch.as_tensor(g.integers(0, n, (lanes, e)), dtype=torch.int32,
+                          device=dev)
+    dst = torch.as_tensor(g.integers(0, n, (lanes, e)), dtype=torch.int32,
+                          device=dev)
+    dst = torch.where(torch.as_tensor(g.random((lanes, e)) < 0.05,
+                                      device=dev), src, dst).contiguous()
+    ok0 = torch.as_tensor(g.random((lanes, e)) < 0.9, device=dev)
+    keys = _lane_keys(dev, lanes, 4000)
+    seeds = lane_plan_seeds(range(lanes), dev)
+    got = faults.fault_reach_lanes_(ok0.clone(), rf, keys, src, dst, seeds)
+    ref = faults.fault_reach_lanes_plain(ok0.clone(), rf, keys, src, dst,
+                                         seeds)
+    solo = faults.fault_reach_(ok0[-1].clone(),
+                               rf._replace(seed=int(seeds[-1])), keys[-1],
+                               src[-1], dst[-1])
+    _solo_trap("fault_reach lanes", [got[-1]], [solo])
+    wk, wp = ok0.clone(), ok0.clone()
+
+    def rk():
+        wk.copy_(ok0)
+        faults.fault_reach_lanes_(wk, rf, keys, src, dst, seeds)
+
+    def rp():
+        wp.copy_(ok0)
+        faults.fault_reach_lanes_plain(wp, rf, keys, src, dst, seeds)
+
+    rows = [_lane_row(
+        "fault_reach_lanes", "corrosion_tpu_torch/kernels/csrc/fault_edges.cu",
+        "corrosion_tpu/sim/swim.py:161", bool(torch.equal(got, ref)),
+        _max_abs_err(got, ref), _timed(timed, rk), _timed(timed, rp),
+        lanes * e * (4 + 4 + 1 + 1), lanes)]
+
+    rf20 = faults.round_faults(fplan, 20)
+    if not bool(rf20.wipe.any()):
+        raise AssertionError("K11 lane inputs wipe no row")
+    m, a, k = 64, cfg.n_writers, cfg.gap_slots
+    tabs = [_random_tables(g, n, m, 20) for _ in range(lanes)]
+    slim0 = SimpleNamespace(
+        alive=torch.zeros((lanes, n), dtype=torch.uint8, device=dev),
+        heads=torch.as_tensor(g.integers(0, 9, (lanes, n, a)),
+                              dtype=torch.int32, device=dev),
+        gap_lo=torch.as_tensor(g.integers(0, 9, (lanes, n, a, k)),
+                               dtype=torch.int32, device=dev),
+        gap_hi=torch.as_tensor(g.integers(0, 9, (lanes, n, a, k)),
+                               dtype=torch.int32, device=dev),
+        pid=torch.as_tensor(np.stack([tb[0] for tb in tabs]),
+                            dtype=torch.int32, device=dev),
+        pkey=torch.as_tensor(np.stack([tb[1] for tb in tabs]),
+                             dtype=torch.int32, device=dev),
+        psince=torch.as_tensor(np.stack([tb[2] for tb in tabs]),
+                               dtype=torch.int32, device=dev),
+        pview=torch.zeros((lanes, n, 0), dtype=torch.int32, device=dev))
+    names = ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey", "psince",
+             "pview")
+    carry0 = [_random_words(g, (lanes, n, w), dev) for _ in range(5)] + [
+        _random_words(g, (lanes, 2, n, w), dev) for _ in range(2)]
+
+    def state_of(xs, ys):
+        slim = SimpleNamespace(**dict(zip(names, xs)))
+        carry = packed.PackedCarry(have=ys[0], inflight=ys[5],
+                                   relay=packed.Planes(*ys[1:5]),
+                                   sync_buf=ys[6])
+        return slim, carry
+
+    outs = []
+    for fn in (ln.apply_round_faults_lanes, ln.apply_round_faults_lanes_plain):
+        xs = [getattr(slim0, nm).clone() for nm in names]
+        ys = [y.clone() for y in carry0]
+        fn(*state_of(xs, ys), rf20)
+        outs.append(xs[:-1] + ys)  # pview is empty: no PeerSwap
+    equal, err = _equal_all(outs[0], outs[1])
+    victim = int(rf20.wipe.nonzero()[0])
+    if not all(bool((outs[0][i][:, victim] == -1).all()) for i in (4, 5, 6)):
+        raise AssertionError("K11 lanes left a wiped table row")
+    print("lane trap node_faults lanes reached: the wipe in every lane",
+          flush=True)
+    xs = [getattr(slim0, nm).clone() for nm in names]
+    ys = [y.clone() for y in carry0]
+    flat0 = xs + ys
+    work = [x.clone() for x in flat0]
+
+    def restore():
+        for d, s_ in zip(work, flat0):
+            d.copy_(s_)
+
+    wiped = int(rf20.wipe.sum())
+    nbytes = lanes * (n * 2 + wiped * (5 * w * 4 + 2 * 2 * w * 4
+                                       + (a + 2 * a * k + 3 * m) * 4))
+    rows.append(_lane_row(
+        "node_faults_lanes", "corrosion_tpu_torch/kernels/csrc/node_faults.cu",
+        "corrosion_tpu/sim/faults.py:703", equal, err,
+        _time_inplace_ms(lambda: ln.apply_round_faults_lanes(
+            *state_of(work[:8], work[8:]), rf20), restore)
+        if timed else None,
+        _time_inplace_ms(lambda: ln.apply_round_faults_lanes_plain(
+            *state_of(work[:8], work[8:]), rf20), restore)
+        if timed else None,
+        nbytes, lanes))
+    return rows
+
+
+def compare_lane_kernels(dev, seed=10, lanes=ENSEMBLE_LANES, n=STORM_N,
+                         timed=True):
+    """Phase 3k: every lane entry against its plain version at the
+    8-lane storm's shapes (K = 8 lanes of N = 100000, M = 64, W = 16,
+    F = S = 3; the fault storm's plan), each lane held to the solo entry
+    on its inputs; K10 also at 16 lanes, past 2^31 flattened."""
+    g = np.random.default_rng(seed)
+    m, w, f, s = 64, 16, 3, 3
+    rows = [compare_lane_draws(dev, g, lanes, n, m, timed)]
+    rows += compare_lane_tables(dev, g, lanes, n, m, f, timed)
+    rows += compare_lane_scatter(dev, g, lanes, n, w, f, timed)
+    rows += compare_lane_sync(dev, g, lanes, n, w, s, timed)
+    rows += compare_lane_record(dev, g, lanes, n, w, timed)
+    rows += compare_lane_words(dev, g, lanes, n, w, f, timed)
+    rows += compare_lane_faults(dev, g, lanes, n, w, f, timed)
+    for row in rows:
+        row.setdefault("bound_by", "bytes")
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+def _keep_finals(ensemble):
+    """Wrap `campaign.ensemble.run_seed_ensemble` so the engine's cell
+    keeps its lanes' final states: returns (the wrapper's store, a
+    restore function)."""
+    kept = {}
+    orig = ensemble.run_seed_ensemble
+
+    def keeping(*args, **kw):
+        out = orig(*args, **kw)
+        kept["finals"] = out[0]
+        return out
+
+    ensemble.run_seed_ensemble = keeping
+
+    def restore():
+        ensemble.run_seed_ensemble = orig
+
+    return kept, restore
+
+
+def _ensemble_lanes_check(finals, artifact, golden, label):
+    """Every lane's rounds, p99 and final-state digest, and the
+    artifact's spec_hash and result_digest, against the goldens."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.convert import state_digest
+
+    cell = artifact["cells"][0]
+    got = {"spec_hash": artifact["spec_hash"],
+           "result_digest": artifact["result_digest"],
+           "lanes": [{"seed": s,
+                      "rounds": cell["per_seed"]["rounds"][i],
+                      "p99_node_convergence_round":
+                          cell["per_seed"]["p99_node_convergence_round"][i],
+                      "digest": state_digest(lane_state(finals, i))}
+                     for i, s in enumerate(cell["seeds"])]}
+    print(f"{label}: {json.dumps(got)} wall_clock_s="
+          f"{cell['wall_clock_s']} wall_verdict={cell['wall_verdict']}",
+          flush=True)
+    if got != golden:
+        raise AssertionError(f"{label}: differs from its golden")
+    if not cell["all_converged"]:
+        raise AssertionError(f"{label}: a lane did not converge")
+
+
+def _solo_walls(cfg, meta, seeds, dev, plan=None):
+    """The solo runs of ``seeds`` on the card (`run_to_convergence`, or
+    `run_fault_plan` under ``plan`` re-seeded per seed): their final
+    states and host walls, each between synchronizations."""
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    out = []
+    for s in seeds:
+        fplan = (None if plan is None else compile_plan(
+            dataclasses.replace(plan, seed=int(s)), cfg, device=dev))
+        state = new_sim(cfg, int(s), dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if fplan is None:
+            final, _ = run_to_convergence(state, meta, cfg, Topology(), 3000)
+        else:
+            final, _ = run_fault_plan(state, meta, cfg, Topology(), fplan,
+                                      3000)
+        torch.cuda.synchronize()
+        out.append((final, time.monotonic() - t0))
+    return out
+
+
+def ensemble_paths(dev, goldens):
+    """Paths 33-35: storm-100k-seeds8 and fault-storm-100k-seeds8 through
+    `campaign.engine.run_campaign` from zeroed counters, each lane and
+    the artifact against its golden, every lane row launched and no solo
+    entry of a kernel that has one; the ensemble's wall against its 8
+    solo walls; then fault-storm-100k-lanes16, each lane equal to the
+    port's solo run of its seed on this card.  Returns the lane rows'
+    launches per path and the printed numbers."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign import ensemble
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.spec import storm_seeds_spec
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+
+    launches, numbers = {}, {}
+    for faults, golden, label in (
+            (False, goldens.STORM_100K_SEEDS8, "storm_100k_seeds8"),
+            (True, goldens.FAULT_STORM_100K_SEEDS8,
+             "fault_storm_100k_seeds8")):
+        spec = storm_seeds_spec(range(ENSEMBLE_LANES), faults=faults)
+        kept, restore = _keep_finals(ensemble)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        try:
+            art = run_campaign(spec, device=dev)
+        finally:
+            restore()
+        peak = torch.cuda.max_memory_allocated()
+        rows = LANE_FAULT_ROWS if faults else LANE_STORM_ROWS
+        counts = _path_launches(kernels, rows, label)
+        solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+        if solo_on:
+            raise AssertionError(f"{label}: solo entries {solo_on} launched "
+                                 "on a lane path")
+        launches[label] = counts
+        _ensemble_lanes_check(kept["finals"], art, golden, label)
+        del kept
+        cfg, topo = spec.sim_config({}), spec.topo({})
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        plan = spec.fault_plan({}, seed=0)
+        solos = _solo_walls(cfg, meta, spec.seeds, dev, plan)
+        for (final, _), lane in zip(solos, golden["lanes"]):
+            if state_digest(final) != lane["digest"]:
+                raise AssertionError(f"{label}: solo run of seed "
+                                     f"{lane['seed']} differs from its lane")
+        wall = art["cells"][0]["wall_clock_s"]
+        solo_sum = sum(w for _, w in solos)
+        numbers[label] = {"ensemble_wall_s": wall,
+                          "solo_walls_s": [w for _, w in solos],
+                          "solo_walls_sum_s": solo_sum,
+                          "max_memory_allocated_bytes": peak}
+        print(f"{label}: ensemble wall {wall} s against the {len(solos)} "
+              f"solo walls' sum {solo_sum:.4f} s; max_memory_allocated "
+              f"{peak} bytes", flush=True)
+        _lap(label)
+
+    # the 2^31 path: 16 lanes of the fault storm, each against its solo run
+    spec = storm_seeds_spec(range(WIDE_LANES), faults=True)
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    meta = uniform_payloads(cfg, dev, inject_every=2)
+    plan = spec.fault_plan({}, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    finals, _ = ensemble.run_seed_ensemble(plan, cfg, topo, meta, spec.seeds,
+                                           max_rounds=3000, device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches["fault_storm_100k_lanes16"] = _path_launches(
+        kernels, LANE_FAULT_ROWS, "fault_storm_100k_lanes16")
+    digests = [state_digest(ensemble.lane_state(finals, i))
+               for i in range(WIDE_LANES)]
+    rounds = finals.t.tolist()
+    del finals
+    solos = _solo_walls(cfg, meta, spec.seeds, dev, plan)
+    solo = [state_digest(f) for f, _ in solos]
+    print(f"fault_storm_100k_lanes16: rounds {rounds} digests {digests} "
+          f"wall {wall:.4f} s (solo sum {sum(w for _, w in solos):.4f} s) "
+          f"max_memory_allocated {peak} bytes", flush=True)
+    if digests != solo:
+        raise AssertionError("fault_storm_100k_lanes16: a lane differs from "
+                             "its solo run")
+    numbers["fault_storm_100k_lanes16"] = {
+        "ensemble_wall_s": wall, "max_memory_allocated_bytes": peak,
+        "solo_walls_sum_s": sum(w for _, w in solos)}
+    _lap("fault_storm_100k_lanes16")
+    return launches, numbers
+
+
+def lane_one_check(dev):
+    """K = 1 is the solo path: one lane of the storm from zeroed counters
+    gives the solo run's digest and launches each lane entry as often as
+    the solo run launches its solo entry."""
+    from corrosion_tpu_torch import goldens, kernels
+    from corrosion_tpu_torch.campaign.ensemble import lane_state, seed_states
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim.lanes import run_lanes
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.runner import _write_storm
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    cfg, meta = _write_storm(STORM_N, 512, dev)
+    state = new_sim(cfg, 0, dev)
+    kernels.reset_launch_counts()
+    run_to_convergence(state, meta, cfg, Topology(), 3000)
+    solo = {row: sum(k.launches for k in kernels.PORTED[row])
+            for row in kernels.PORTED}
+    states = seed_states(cfg, [0], dev)
+    kernels.reset_launch_counts()
+    finals, _ = run_lanes(states, meta, cfg, Topology(), 3000)
+    lane = {row: sum(k.launches for k in kernels.PORTED[row])
+            for row in kernels.PORTED}
+    digest = state_digest(lane_state(finals, 0))
+    pairs = {r: (lane[r], solo[SOLO_OF_LANE.get(r, "threefry")])
+             for r in LANE_STORM_ROWS}
+    print("lane_one: " + json.dumps({"digest": digest, "launches": pairs}),
+          flush=True)
+    if digest != goldens.STORM_100K_SEED0["digest"]:
+        raise AssertionError("one lane differs from the solo storm")
+    if any(a != b for a, b in pairs.values()):
+        raise AssertionError("one lane launches differ from the solo path's")
+
+
+def profile_ensemble(dev, lanes=ENSEMBLE_LANES, rounds=3, faults=False):
+    """The first ``rounds`` rounds of the K-lane storm (or fault storm)
+    through `sim.lanes.run_lanes`: device ms, launches and idle share a
+    round, as `profile_storm` gives them for the solo round."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_plan_seeds, seed_states)
+    from corrosion_tpu_torch.sim.faults import compile_plan
+    from corrosion_tpu_torch.sim.lanes import run_lanes
+    from corrosion_tpu_torch.sim.runner import _write_storm, storm_fault_plan
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    cfg, meta = _write_storm(STORM_N, 512, dev)
+    fplan = (compile_plan(storm_fault_plan(STORM_N, 0), cfg, device=dev)
+             if faults else None)
+    seeds = lane_plan_seeds(range(lanes), dev) if faults else None
+
+    def setup():
+        return seed_states(cfg, range(lanes), dev)
+
+    def run(states):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        run_lanes(states, meta, cfg, Topology(), rounds, fplan, seeds)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    label = f"{'fault storm' if faults else 'storm'}-100k x{lanes} lanes"
+    return _profile(run, rounds, label, setup=setup)
+
+
 _START = time.monotonic()
 
 
@@ -5093,6 +5920,10 @@ def main() -> int:
     churn_kernel_rows = compare_churn_kernels(dev)
     print("kernel comparisons equal at the churn paths' shapes", flush=True)
     _lap("churn kernel comparisons")
+    lane_kernel_rows = compare_lane_kernels(dev)
+    print("kernel comparisons equal at the 8-lane storm's shapes",
+          flush=True)
+    _lap("lane kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -5893,6 +6724,13 @@ def main() -> int:
     _storm_check(out["run"], goldens.FLASH_CROWD_PEERSWAP_25600_SEED0, label)
     _lap("paths 28-32, membership churn")
 
+    # paths 33-35: the seed ensembles through the campaign engine, and
+    # one lane against the solo storm
+    lane_launches, lane_numbers = ensemble_paths(dev, goldens)
+    lane_one_check(dev)
+    print("ensemble numbers: " + json.dumps(lane_numbers), flush=True)
+    _lap("paths 33-35, the seed ensembles")
+
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
     # the whole loss window, where most nodes send and K10 draws most
@@ -5919,6 +6757,13 @@ def main() -> int:
             dev, proto_family=family)), flush=True)
     print("profile_churn: " + json.dumps(profile_churn_partial(dev)),
           flush=True)
+    # the 8-lane storm and fault storm rounds beside the solo rounds
+    # measured in this call, and one lane
+    for lanes_, faults_ in ((ENSEMBLE_LANES, False), (ENSEMBLE_LANES, True),
+                            (1, False)):
+        print("profile_ensemble: " + json.dumps(profile_ensemble(
+            dev, lanes_, faults=faults_)), flush=True)
+    print("profile_solo: " + json.dumps(profile_storm(dev)), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -6036,6 +6881,15 @@ def main() -> int:
         row["other_paths_launches"] = {
             label: c[row["kernel"]] for label, c in churn_launches.items()}
     rows += churn_kernel_rows
+    # each lane row reads its launches on the 8-lane fault storm's path,
+    # which runs every lane entry
+    for row in lane_kernel_rows:
+        row["launches"] = lane_launches["fault_storm_100k_seeds8"][
+            row["kernel"]]
+        row["path"] = "fault_storm_100k_seeds8"
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]] for label, c in lane_launches.items()}
+    rows += lane_kernel_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

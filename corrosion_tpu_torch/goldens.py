@@ -1061,3 +1061,80 @@ FAULT_STORM_WAN_3X2_100K_SEED0 = {
     "p99_payload_latency_rounds": 27.0,
     "digest": "52f8246745aa8558",
 }
+
+# The seed ensembles (B16): the engine's sim cell over seeds 0-7 of the
+# 100k storm, `campaign.spec.storm_seeds_spec()` (storm-100k-seeds8) —
+# pinned from JAX's run_campaign(CampaignSpec(name="storm-100k-seeds8",
+# scenario=storm_scenario(100000), seeds=range(8), max_rounds=3000),
+# out_path=None) on the CPU: the artifact's spec_hash and result_digest,
+# and each lane's rounds, p99 node-convergence round and final-state
+# digest (the lanes of JAX's run_seed_ensemble, kept from inside the
+# call).  JAX's solo runs of seeds 1-7 (run_to_convergence(new_sim(cfg,
+# s), ...)) give the same digests; lane 0 is STORM_100K_SEED0.
+STORM_100K_SEEDS8 = {
+    "spec_hash": "70c01a5924989c83",
+    "result_digest": "4b2f83f25aaf5b4cea9b2f071ccd96bf",
+    "lanes": [
+        {"seed": 0, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "digest": "9318cde1da5511ba"},
+        {"seed": 1, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "digest": "7a4e9a64ea49fa86"},
+        {"seed": 2, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "digest": "0751071be1be8719"},
+        {"seed": 3, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "digest": "1893e4c4d0cb9c00"},
+        {"seed": 4, "rounds": 27,
+         "p99_node_convergence_round": 24.0,
+         "digest": "c5d7cf5c8c3b1005"},
+        {"seed": 5, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "digest": "4fbdbaad19de62bc"},
+        {"seed": 6, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "digest": "9e1d7ea908dfb28a"},
+        {"seed": 7, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "digest": "52d8c3781bee838c"},
+    ],
+}
+
+# fault-storm-100k-seeds8: the same cell under storm_fault_plan's events
+# (`storm_seeds_spec(faults=True)`; the plan compiled factored, each lane
+# re-seeded by derive_seed(s, "sim") & 0x7FFFFFFF), pinned the same way.
+# JAX's solo runs of seeds 1-7 (run_fault_plan under compile_plan of the
+# plan at seed s) give the same digests; lane 0 is
+# FAULT_STORM_100K_SEED0.
+FAULT_STORM_100K_SEEDS8 = {
+    "spec_hash": "48993bac83614018",
+    "result_digest": "5b010cfeb8a58001c594c62f5891fea5",
+    "lanes": [
+        {"seed": 0, "rounds": 29,
+         "p99_node_convergence_round": 25.0,
+         "digest": "1cd8919e20ad0df8"},
+        {"seed": 1, "rounds": 29,
+         "p99_node_convergence_round": 25.0,
+         "digest": "d43c6558ccd8f2cf"},
+        {"seed": 2, "rounds": 29,
+         "p99_node_convergence_round": 26.0,
+         "digest": "79043e29e10440ae"},
+        {"seed": 3, "rounds": 30,
+         "p99_node_convergence_round": 26.0,
+         "digest": "c6faaeee24d42429"},
+        {"seed": 4, "rounds": 28,
+         "p99_node_convergence_round": 25.0,
+         "digest": "ca918aac46268ef7"},
+        {"seed": 5, "rounds": 29,
+         "p99_node_convergence_round": 25.0,
+         "digest": "64d5a0dc5e156874"},
+        {"seed": 6, "rounds": 30,
+         "p99_node_convergence_round": 25.0,
+         "digest": "c6989b311b5be8de"},
+        {"seed": 7, "rounds": 32,
+         "p99_node_convergence_round": 26.0,
+         "digest": "85b0610603ec24f1"},
+    ],
+}

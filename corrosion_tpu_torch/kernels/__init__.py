@@ -89,6 +89,25 @@ replaces:
   `sim.telemetry.detect_full_`, `detect_partial_`, after every round of
   `sim.telemetry.run_membership_detect`.
 
+- the lane entries of the seed ensembles (B16; ``sim.lanes``), one row
+  each, counted apart from the solo entries they extend: K5
+  `THREEFRY_LANES`, `RANDINT_LANES` — `sim.rng.split_lanes`,
+  `fold_in_lanes`, `bits_lanes`, `randint_lanes`; K1
+  `SAMPLE_TARGETS_LANES` — `sim.pswim.sample_candidates_lanes`; K4
+  `MERGE_ENTRIES_LANES` (K4's launcher on the lanes folded into its
+  rows) — `sim.pswim.merge_entries_lanes`; K2 `BROADCAST_SCATTER_LANES`
+  and K10 `BROADCAST_SCATTER_LOSSY_LANES` — `sim.lanes.scatter_lanes`;
+  K3 `SYNC_PULL_LANES` — `sim.lanes.sync_pull_lanes`; K6
+  `GAPS_REFRESH_LANES` — `sim.gaps.refresh_gaps_lanes`; K7
+  `CONVERGE_ROWS_LANES`, `CONVERGE_FINISH_LANES` —
+  `sim.lanes.converge_record_lanes`; K8 `WORD_INJECT_LANES`,
+  `WORD_SPEND_LANES`, `WORD_DELIVER_LANES` — `sim.lanes.inject_lanes`,
+  `spend_lanes`, `deliver_lanes`; K9 `FAULT_REACH_LANES` —
+  `sim.faults.fault_reach_lanes_`; K11 `NODE_FAULTS_LANES` —
+  `sim.lanes.apply_round_faults_lanes`.  K9's edge queries draw
+  nothing and take the lanes folded into their edge axis through
+  `FAULT_EDGES`.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -273,6 +292,39 @@ DETECT_FULL = Kernel("detect_full", "membership_detect.cu",
 DETECT_PARTIAL = Kernel("detect_partial", "membership_detect.cu",
                         "corro_detect_partial", 3)
 
+THREEFRY_LANES = Kernel("threefry_lanes", "threefry.cu",
+                        "corro_threefry_lanes", 4)
+RANDINT_LANES = Kernel("randint_lanes", "threefry.cu", "corro_randint_lanes",
+                       6)
+SAMPLE_TARGETS_LANES = Kernel("sample_targets_lanes", "sample_targets.cu",
+                              "corro_sample_targets_lanes", 5)
+MERGE_ENTRIES_LANES = Kernel("merge_entries_lanes", "merge_entries.cu",
+                             "corro_merge_entries", 5)
+BROADCAST_SCATTER_LANES = Kernel("broadcast_scatter_lanes",
+                                 "broadcast_scatter.cu",
+                                 "corro_broadcast_scatter_lanes", 5)
+BROADCAST_SCATTER_LOSSY_LANES = Kernel(
+    "broadcast_scatter_lossy_lanes", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_lossy_lanes", 6)
+SYNC_PULL_LANES = Kernel("sync_pull_lanes", "sync_pull.cu",
+                         "corro_sync_pull_lanes", 6)
+GAPS_REFRESH_LANES = Kernel("gaps_refresh_lanes", "gaps_refresh.cu",
+                            "corro_gaps_refresh_lanes", 7)
+CONVERGE_ROWS_LANES = Kernel("converge_rows_lanes", "converge_fold.cu",
+                             "corro_converge_rows_lanes", 8)
+CONVERGE_FINISH_LANES = Kernel("converge_finish_lanes", "converge_fold.cu",
+                               "corro_converge_finish_lanes", 7)
+WORD_INJECT_LANES = Kernel("word_inject_lanes", "word_phases.cu",
+                           "corro_word_inject_lanes", 6)
+WORD_SPEND_LANES = Kernel("word_spend_lanes", "word_phases.cu",
+                          "corro_word_spend_lanes", 5)
+WORD_DELIVER_LANES = Kernel("word_deliver_lanes", "word_phases.cu",
+                            "corro_word_deliver_lanes", 6)
+FAULT_REACH_LANES = Kernel("fault_reach_lanes", "fault_edges.cu",
+                           "corro_fault_reach_lanes", 8)
+NODE_FAULTS_LANES = Kernel("node_faults_lanes", "node_faults.cu",
+                           "corro_node_faults_lanes", 9)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -328,7 +380,24 @@ PORTED = {
     "trace_wire_rows_pull": (TRACE_WIRE_ROWS_PULL,),
     "detect_full": (DETECT_FULL,),
     "detect_partial": (DETECT_PARTIAL,),
+    "threefry_lanes": (THREEFRY_LANES, RANDINT_LANES),
+    "sample_targets_lanes": (SAMPLE_TARGETS_LANES,),
+    "merge_entries_lanes": (MERGE_ENTRIES_LANES,),
+    "broadcast_scatter_lanes": (BROADCAST_SCATTER_LANES,),
+    "broadcast_scatter_lossy_lanes": (BROADCAST_SCATTER_LOSSY_LANES,),
+    "sync_pull_lanes": (SYNC_PULL_LANES,),
+    "gaps_refresh_lanes": (GAPS_REFRESH_LANES,),
+    "converge_fold_lanes": (CONVERGE_ROWS_LANES, CONVERGE_FINISH_LANES),
+    "word_phases_lanes": (WORD_INJECT_LANES, WORD_SPEND_LANES,
+                          WORD_DELIVER_LANES),
+    "fault_reach_lanes": (FAULT_REACH_LANES,),
+    "node_faults_lanes": (NODE_FAULTS_LANES,),
 }
+#: the rows of the lane entries, which only a seed ensemble launches
+LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
+             "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
+             "sync_pull_lanes", "gaps_refresh_lanes", "converge_fold_lanes",
+             "word_phases_lanes", "fault_reach_lanes", "node_faults_lanes")
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
@@ -345,7 +414,13 @@ def reset_launch_counts() -> None:
 __all__ = [
     "BROADCAST_PULL", "BROADCAST_PULL_LOSSY", "BROADCAST_PULL_TIERED",
     "DEGREE_CAPS_SCHED", "DENSE_DELIVER_FIFO", "DETECT_FULL",
-    "DETECT_PARTIAL", "DENSE_PULL",
+    "DETECT_PARTIAL", "DENSE_PULL", "BROADCAST_SCATTER_LANES",
+    "BROADCAST_SCATTER_LOSSY_LANES", "CONVERGE_FINISH_LANES",
+    "CONVERGE_ROWS_LANES", "FAULT_REACH_LANES", "GAPS_REFRESH_LANES",
+    "LANE_ROWS", "MERGE_ENTRIES_LANES", "NODE_FAULTS_LANES",
+    "RANDINT_LANES", "SAMPLE_TARGETS_LANES", "SYNC_PULL_LANES",
+    "THREEFRY_LANES", "WORD_DELIVER_LANES", "WORD_INJECT_LANES",
+    "WORD_SPEND_LANES",
     "DENSE_PULL_LOSSY", "DENSE_PULL_TIERED", "ORDER_CHECK_DENSE",
     "ORDER_CHECK_WORDS", "TRACE_WIRE_ROWS_PULL", "TRACE_WIRE_WORDS_PULL",
     "WORD_DELIVER_FIFO",

@@ -121,6 +121,21 @@
 // (operations, one hash per sending (edge, word of 4 payloads) under a
 // threshold) inside it; dst's rows are a random gather, served from L2
 // when the sending words fit (6.4 MB at the storm).
+//
+// The lane entries (corro_broadcast_scatter_lanes for K2,
+// corro_broadcast_scatter_lossy_lanes for K10's fault stream) run the
+// scatter over the seed ensemble's lanes (B16,
+// corrosion_tpu/campaign/ensemble.py:114 run_ensemble) as a grid
+// dimension: blockIdx.y is the lane, whose
+// ring [D, N, W], sending words, edges (lane-local dst) and thresholds
+// are its slices of the [K, ...] tensors.  K10's lane entry reads the
+// lane's phase key and its plan seed (`seeds`, the per-lane
+// derive_seed(s, "sim") & 0x7FFFFFFF of ensemble.py:58 lane_plan_seeds)
+// and keeps the draw counters lane-local: edge e of lane k hashes e*8W
+// + 8k + j as its solo run does.  The flattened K * E * P index would
+// pass 2^31 at 16 lanes of the storm (16 * 300000 * 512); no index here
+// is flattened across lanes (lane offsets are 64-bit).  Bound: K times
+// the solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -255,12 +270,29 @@ __global__ void broadcast_scatter_kernel(
     const int64_t* __restrict__ key, const int64_t* __restrict__ topo_key,
     unsigned long long* __restrict__ dropped,
     const int32_t* __restrict__ jit, const int32_t* __restrict__ tiers,
+    const int32_t* __restrict__ seeds,
     int n, int d_slots, int w, int fanout,
     int n_edges, uint32_t seed, uint32_t tag, int topo_thr, uint32_t jit_tag,
     uint32_t span, uint32_t mult) {
   __shared__ uint32_t folded[2];
   __shared__ uint32_t jsub[4];
   __shared__ unsigned long long lost_block;
+  // the lane's slices, keys and plan seed (lane 0 and `seed` on the solo
+  // entries); edge e and its draw counters stay lane-local
+  {
+    const size_t lane = blockIdx.y;
+    const size_t words = (size_t)n * w;
+    ring += lane * d_slots * words;
+    sending += lane * words;
+    dst += lane * n_edges;
+    slot += lane * n_edges;
+    ok += lane * n_edges;
+    if (thr) thr += lane * n_edges;
+    if (jit) jit += lane * n_edges;
+    if (key) key += 2 * lane;
+    if (topo_key) topo_key += 2 * lane;
+    if (seeds) seed = (uint32_t)seeds[lane];
+  }
   if (thr != nullptr || kJitter) {
     if (threadIdx.x == 0) {
       corro::Pair f = corro::fold_in(
@@ -356,8 +388,30 @@ extern "C" int corro_broadcast_scatter(void* ring, const void* sending,
       <<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
-      nullptr, nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u, 0u, 0,
-      0u, 1u, 0u);
+      nullptr, nullptr, nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u,
+      0u, 0, 0u, 1u, 0u);
+  return (int)cudaGetLastError();
+}
+
+// K2's lane entry: ring [lanes, D, N, W], sending [lanes, N, W], dst,
+// slot and ok [lanes, E].
+extern "C" int corro_broadcast_scatter_lanes(void* ring, const void* sending,
+                                             const void* dst, const void* slot,
+                                             const void* ok, int n,
+                                             int d_slots, int w, int fanout,
+                                             int lanes, void* stream) {
+  if (n <= 0 || w <= 0 || fanout <= 0 || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  int n_edges = n * fanout;
+  size_t total = (size_t)n_edges * w;
+  int threads = 256;
+  unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  broadcast_scatter_kernel<false, false>
+      <<<dim3(blocks, lanes), threads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
+      (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u,
+      0u, 0, 0u, 1u, 0u);
   return (int)cudaGetLastError();
 }
 
@@ -368,9 +422,11 @@ int launch_lossy(const void* ring, const void* sending, const void* dst,
                  const void* key, const void* topo_key, void* dropped,
                  const void* jit, const void* tiers, int n, int d_slots,
                  int w, int fanout, int seed, int tag, int topo_thr,
-                 int jit_tag, int span, int mult, void* stream) {
+                 int jit_tag, int span, int mult, void* stream,
+                 const void* seeds = nullptr, int lanes = 1) {
   bool tiered = tiers != nullptr;
-  if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 || d_slots <= 0 ||
+  if (lanes <= 0 || lanes > 65535 || (lanes > 1 && dropped != nullptr) ||
+      n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 || d_slots <= 0 ||
       ((thr != nullptr || jit != nullptr) != (key != nullptr)) ||
       (jit != nullptr && span == 0) ||
       (tiered && (topo_thr != 0 || topo_key == nullptr)) ||
@@ -391,12 +447,13 @@ int launch_lossy(const void* ring, const void* sending, const void* dst,
                               : broadcast_scatter_kernel<true, false>)
                     : (tiered ? broadcast_scatter_kernel<false, true>
                               : broadcast_scatter_kernel<false, false>);
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  kernel<<<dim3(blocks, lanes), threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, (const uint8_t*)thr,
       (const int64_t*)key, (const int64_t*)topo_key,
       (unsigned long long*)dropped, (const int32_t*)jit,
-      (const int32_t*)tiers, n, d_slots, w, fanout, n_edges, (uint32_t)seed,
+      (const int32_t*)tiers, (const int32_t*)seeds, n, d_slots, w, fanout,
+      n_edges, (uint32_t)seed,
       (uint32_t)tag, topo_thr, (uint32_t)jit_tag, (uint32_t)span,
       (uint32_t)mult);
   return (int)cudaGetLastError();
@@ -432,6 +489,24 @@ extern "C" int corro_broadcast_scatter_tiered(
   return launch_lossy(ring, sending, dst, slot, ok, thr, key, topo_key,
                       dropped, jit, tiers, n, d_slots, w, fanout, seed, tag,
                       topo_thr, jit_tag, span, mult, stream);
+}
+
+// K10's lane entry (the fault stream only): ring [lanes, D, N, W],
+// sending [lanes, N, W], dst, slot, ok and thr [lanes, E], `key` the
+// lanes' broadcast phase keys [lanes, 2] and `seeds` their plan seeds
+// [lanes] (i32).  Each lane folds its own key with its own seed and
+// hashes its own counters e*8W + 8k + j, e lane-local: lane k's drops
+// are the solo run's under seed k.
+extern "C" int corro_broadcast_scatter_lossy_lanes(
+    void* ring, const void* sending, const void* dst, const void* slot,
+    const void* ok, const void* thr, const void* key, const void* seeds,
+    int n, int d_slots, int w, int fanout, int tag, int lanes,
+    void* stream) {
+  if (thr == nullptr || key == nullptr || seeds == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_lossy(ring, sending, dst, slot, ok, thr, key, nullptr,
+                      nullptr, nullptr, nullptr, n, d_slots, w, fanout, 0,
+                      tag, 0, 0, 0, 0, stream, seeds, lanes);
 }
 
 // K10p, the pull leg: `ok` is ok_pull, `thr` the reverse edges' fault

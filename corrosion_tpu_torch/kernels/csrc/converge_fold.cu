@@ -37,6 +37,18 @@
 // storm.  Design: a thread walks its node's W words (L1 serves the row
 // after the first word), so node_done needs no cross-thread step; the
 // column fold costs one warp reduction per word and no global atomics.
+//
+// The lane entries (corro_converge_rows_lanes, corro_converge_finish_lanes)
+// are the fold per lane of the seed ensemble (B16,
+// corrosion_tpu/campaign/ensemble.py:114 run_ensemble; the vmapped
+// while_loop's per-lane cond over
+// packed.py:871 _converged_done or the fault loop's exit): blockIdx.y is
+// the lane.  Rows reads the lane's have, injected_p, alive and stamps and
+// writes its own partial rows; finish runs one block per lane over that
+// lane's partial rows and writes its coverage stamps and done[lane] —
+// the [K] flags the ensemble's loop reads once a round, in either mode.
+// A lane's fold never sees another lane's rows.  Bound: K times the solo
+// bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,6 +89,16 @@ __global__ void converge_rows_kernel(
     int32_t* __restrict__ converged_out, uint32_t* __restrict__ partial,
     int n, int w, int c, int p, int t, int fresh) {
   extern __shared__ uint32_t col[];  // [w + 1]
+  // the lane's slices (lane 0 on the solo entry)
+  {
+    const size_t lane = blockIdx.y;
+    have += lane * n * w;
+    injected += lane * w;
+    alive += lane * n;
+    converged_in += lane * n;
+    converged_out += lane * n;
+    partial += lane * gridDim.x * (size_t)(w + 1);
+  }
   for (int k = threadIdx.x; k <= w; k += blockDim.x) col[k] = kOnes;
   bool injected_by_t = true;
   for (int q = threadIdx.x; q < p; q += blockDim.x) {
@@ -117,6 +139,14 @@ __global__ void converge_finish_kernel(
     int32_t* __restrict__ coverage_out, uint8_t* __restrict__ done,
     int n_blocks, int w, int c, int p, int t, int horizon) {
   extern __shared__ uint32_t col[];  // [w + 1]
+  {
+    const size_t lane = blockIdx.y;
+    partial += lane * n_blocks * (size_t)(w + 1);
+    injected += lane * w;
+    coverage_in += lane * p;
+    coverage_out += lane * p;
+    done += lane;
+  }
   for (int k = threadIdx.x; k <= w; k += blockDim.x) col[k] = kOnes;
   __syncthreads();
   size_t total = (size_t)n_blocks * (w + 1);
@@ -147,6 +177,42 @@ bool geometry_ok(int w, int c, int p) {
   return w > 0 && c > 0 && c <= 32 && !(c & (c - 1)) && p == w * 32;
 }
 
+int launch_rows(const void* have, const void* injected, const void* alive,
+                const void* round_of, const void* converged_in,
+                void* converged_out, void* partial, int n, int w, int c, int p,
+                int t, int rows_per_block, int fresh, int lanes,
+                void* stream) {
+  if (n <= 0 || !geometry_ok(w, c, p) || rows_per_block <= 0 ||
+      rows_per_block > 1024 || rows_per_block % 32 || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  unsigned blocks = (unsigned)((n + rows_per_block - 1) / rows_per_block);
+  size_t smem = (size_t)(w + 1) * sizeof(uint32_t);
+  converge_rows_kernel<<<dim3(blocks, lanes), rows_per_block, smem,
+                         (cudaStream_t)stream>>>(
+      (const uint32_t*)have, (const uint32_t*)injected, (const uint8_t*)alive,
+      (const int32_t*)round_of, (const int32_t*)converged_in,
+      (int32_t*)converged_out, (uint32_t*)partial, n, w, c, p, t, fresh);
+  return (int)cudaGetLastError();
+}
+
+int launch_finish(const void* partial, const void* injected,
+                  const void* round_of, const void* coverage_in,
+                  void* coverage_out, void* done, int n_blocks, int w, int c,
+                  int p, int t, int horizon, int lanes, void* stream) {
+  if (n_blocks <= 0 || !geometry_ok(w, c, p) || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = (size_t)(w + 1) * sizeof(uint32_t);
+  converge_finish_kernel<<<dim3(1, lanes), 256, smem,
+                           (cudaStream_t)stream>>>(
+      (const uint32_t*)partial, (const uint32_t*)injected,
+      (const int32_t*)round_of, (const int32_t*)coverage_in,
+      (int32_t*)coverage_out, (uint8_t*)done, n_blocks, w, c, p, t,
+      horizon);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int corro_converge_rows(const void* have, const void* injected,
@@ -156,17 +222,9 @@ extern "C" int corro_converge_rows(const void* have, const void* injected,
                                    int w, int c, int p, int t,
                                    int rows_per_block, int fresh,
                                    void* stream) {
-  if (n <= 0 || !geometry_ok(w, c, p) || rows_per_block <= 0 ||
-      rows_per_block > 1024 || rows_per_block % 32)
-    return (int)cudaErrorInvalidValue;
-  unsigned blocks = (unsigned)((n + rows_per_block - 1) / rows_per_block);
-  size_t smem = (size_t)(w + 1) * sizeof(uint32_t);
-  converge_rows_kernel<<<blocks, rows_per_block, smem,
-                         (cudaStream_t)stream>>>(
-      (const uint32_t*)have, (const uint32_t*)injected, (const uint8_t*)alive,
-      (const int32_t*)round_of, (const int32_t*)converged_in,
-      (int32_t*)converged_out, (uint32_t*)partial, n, w, c, p, t, fresh);
-  return (int)cudaGetLastError();
+  return launch_rows(have, injected, alive, round_of, converged_in,
+                     converged_out, partial, n, w, c, p, t, rows_per_block,
+                     fresh, 1, stream);
 }
 
 extern "C" int corro_converge_finish(const void* partial, const void* injected,
@@ -175,13 +233,27 @@ extern "C" int corro_converge_finish(const void* partial, const void* injected,
                                      void* coverage_out, void* done,
                                      int n_blocks, int w, int c, int p, int t,
                                      int horizon, void* stream) {
-  if (n_blocks <= 0 || !geometry_ok(w, c, p))
-    return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)(w + 1) * sizeof(uint32_t);
-  converge_finish_kernel<<<1, 256, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)partial, (const uint32_t*)injected,
-      (const int32_t*)round_of, (const int32_t*)coverage_in,
-      (int32_t*)coverage_out, (uint8_t*)done, n_blocks, w, c, p, t,
-      horizon);
-  return (int)cudaGetLastError();
+  return launch_finish(partial, injected, round_of, coverage_in, coverage_out,
+                       done, n_blocks, w, c, p, t, horizon, 1, stream);
+}
+
+// The lane entries: have [lanes, N, W], injected_p [lanes, W], alive and
+// the stamps [lanes, N], partial [lanes, blocks, W + 1], coverage
+// [lanes, P], done [lanes]; round_of is shared.
+extern "C" int corro_converge_rows_lanes(
+    const void* have, const void* injected, const void* alive,
+    const void* round_of, const void* converged_in, void* converged_out,
+    void* partial, int n, int w, int c, int p, int t, int rows_per_block,
+    int fresh, int lanes, void* stream) {
+  return launch_rows(have, injected, alive, round_of, converged_in,
+                     converged_out, partial, n, w, c, p, t, rows_per_block,
+                     fresh, lanes, stream);
+}
+
+extern "C" int corro_converge_finish_lanes(
+    const void* partial, const void* injected, const void* round_of,
+    const void* coverage_in, void* coverage_out, void* done, int n_blocks,
+    int w, int c, int p, int t, int horizon, int lanes, void* stream) {
+  return launch_finish(partial, injected, round_of, coverage_in, coverage_out,
+                       done, n_blocks, w, c, p, t, horizon, lanes, stream);
 }

@@ -37,6 +37,14 @@
 //                      counter (0, i) whatever the draw's padded length.
 //                      Each block derives the folded key once; an edge
 //                      with no threshold draws nothing (no u8 is below 0).
+// corro_fault_reach_lanes is the reach entry over the seed ensemble's
+// lanes (B16, corrosion_tpu/campaign/ensemble.py:114): blockIdx.y is the
+// lane, whose edges, ok mask and loss key are its slices of [K, ...]
+// tensors and whose plan seed is `seeds[lane]` (ensemble.py:58
+// lane_plan_seeds: only the seed is batched, the factors are the
+// shared plan's); the draw index e stays lane-local, so lane k's probe
+// loss is the solo run's under seed k.  The edge queries need no lane
+// entry: they draw nothing, so the lanes fold into their edge axis.
 // The wrappers launch corro_fault_edges through two counters: the
 // latency entry (`FAULT_EDGES_DELAY`) whenever a call asks for a latency
 // output, the plain entry (`FAULT_EDGES`) otherwise.
@@ -193,9 +201,20 @@ __global__ void fault_reach_kernel(Factors b, Factors l,
                                    const int32_t* __restrict__ src,
                                    const int32_t* __restrict__ dst,
                                    const int64_t* __restrict__ key,
-                                   uint8_t* __restrict__ ok, int n, int e,
-                                   uint32_t seed, uint32_t tag) {
+                                   uint8_t* __restrict__ ok,
+                                   const int32_t* __restrict__ seeds, int n,
+                                   int e, uint32_t seed, uint32_t tag) {
   __shared__ uint32_t folded[2];
+  // the lane's edges, key and plan seed (lane 0 and `seed` on the solo
+  // entry); the draw index i stays lane-local
+  {
+    const size_t lane = blockIdx.y;
+    src += lane * e;
+    dst += lane * e;
+    ok += lane * e;
+    key += 2 * lane;
+    if (seeds) seed = (uint32_t)seeds[lane];
+  }
   if (threadIdx.x == 0) {
     corro::Pair f = corro::threefry2x32((uint32_t)key[0], (uint32_t)key[1],
                                         0u, seed);
@@ -359,7 +378,33 @@ extern "C" int corro_fault_reach(const void* b_on, const void* b_src,
   unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
   fault_reach_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       b, l, (const uint8_t*)l_thr, (const int32_t*)src, (const int32_t*)dst,
-      (const int64_t*)key, (uint8_t*)ok, n, e, (uint32_t)seed,
+      (const int64_t*)key, (uint8_t*)ok, nullptr, n, e, (uint32_t)seed,
+      (uint32_t)tag);
+  return (int)cudaGetLastError();
+}
+
+// The reach entry's lane form: src, dst and ok [lanes, e] (lane-local
+// ids), `key` the lanes' loss keys [lanes, 2], `seeds` their plan seeds
+// [lanes] (i32); the factors are the shared plan's.
+extern "C" int corro_fault_reach_lanes(
+    const void* b_on, const void* b_src, const void* b_dst, const void* l_on,
+    const void* l_src, const void* l_dst, const void* l_thr, const void* src,
+    const void* dst, const void* key, void* ok, const void* seeds, int kb,
+    int b_stride, int kl, int l_stride, int n, int e, int tag, int lanes,
+    void* stream) {
+  if (!shapes_ok(kb, kl, n, e) || seeds == nullptr || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (e == 0) return (int)cudaSuccess;
+  Factors b{(const uint8_t*)b_on, (const uint8_t*)b_src,
+            (const uint8_t*)b_dst, kb, b_stride};
+  Factors l{(const uint8_t*)l_on, (const uint8_t*)l_src,
+            (const uint8_t*)l_dst, kl, l_stride};
+  unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
+  fault_reach_kernel<<<dim3(blocks, lanes), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      b, l, (const uint8_t*)l_thr, (const int32_t*)src, (const int32_t*)dst,
+      (const int64_t*)key, (uint8_t*)ok, (const int32_t*)seeds, n, e, 0u,
       (uint32_t)tag);
   return (int)cudaGetLastError();
 }

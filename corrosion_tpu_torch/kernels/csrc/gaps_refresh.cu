@@ -41,6 +41,14 @@
 // writes its K slots as consecutive ints; one atomic per warp for the
 // overflow count (ballot + popc).
 
+//
+// Lane entry, corro_gaps_refresh_lanes: the refresh over the seed
+// ensemble's lanes (B16, corrosion_tpu/campaign/ensemble.py:114) as a
+// grid dimension: blockIdx.y is the lane, whose have words, heads, gap
+// slots and overflow count are its slices of the [K, ...] tensors (the
+// count per lane feeds its own overflow_frac).  Bound: K times the
+// solo bound.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -53,6 +61,15 @@ __global__ void gaps_refresh_kernel(const uint32_t* __restrict__ have,
                                     int32_t* __restrict__ overflow_count,
                                     int n, int w, int a_writers, int v_versions,
                                     int c_chunks, int k_slots) {
+  // the lane's slices (lane 0 on the solo entry); one count a lane
+  {
+    const size_t lane = blockIdx.y;
+    have += lane * n * w;
+    heads += lane * n * a_writers;
+    lo += lane * n * a_writers * k_slots;
+    hi += lane * n * a_writers * k_slots;
+    overflow_count += lane;
+  }
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   bool valid = i < (size_t)n * a_writers;
   bool overflow = false;
@@ -130,6 +147,15 @@ __global__ void gaps_refresh_wide_kernel(const uint32_t* __restrict__ have,
                                          int n, int w, int a_writers,
                                          int v_versions, int c_chunks,
                                          int k_slots) {
+  // the lane's slices (lane 0 on the solo entry); one count a lane
+  {
+    const size_t lane = blockIdx.y;
+    have += lane * n * w;
+    heads += lane * n * a_writers;
+    lo += lane * n * a_writers * k_slots;
+    hi += lane * n * a_writers * k_slots;
+    overflow_count += lane;
+  }
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   bool valid = i < (size_t)n * a_writers;
   bool overflow = false;
@@ -188,14 +214,12 @@ __global__ void gaps_refresh_wide_kernel(const uint32_t* __restrict__ have,
   }
 }
 
-}  // namespace
-
-extern "C" int corro_gaps_refresh(const void* have, void* heads, void* lo,
-                                  void* hi, void* overflow_count, int n, int w,
-                                  int a_writers, int v_versions, int c_chunks,
-                                  int k_slots, void* stream) {
-  if (n <= 0 || w <= 0 || a_writers <= 0 || v_versions <= 0 ||
-      c_chunks <= 0 || c_chunks > 32 ||
+int launch_gaps(const void* have, void* heads, void* lo, void* hi,
+                void* overflow_count, int n, int w, int a_writers,
+                int v_versions, int c_chunks, int k_slots, int lanes,
+                void* stream) {
+  if (lanes <= 0 || lanes > 65535 || n <= 0 || w <= 0 || a_writers <= 0 ||
+      v_versions <= 0 || c_chunks <= 0 || c_chunks > 32 ||
       (c_chunks & (c_chunks - 1)) || k_slots <= 0 ||
       (size_t)v_versions * a_writers * c_chunks > (size_t)w * 32)
     return (int)cudaErrorInvalidValue;
@@ -205,9 +229,30 @@ extern "C" int corro_gaps_refresh(const void* have, void* heads, void* lo,
   // V <= 32: one version word per (node, actor); past it, the walk
   auto kernel = v_versions <= 32 ? gaps_refresh_kernel
                                  : gaps_refresh_wide_kernel;
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  kernel<<<dim3(blocks, lanes), threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)have, (int32_t*)heads, (int32_t*)lo, (int32_t*)hi,
       (int32_t*)overflow_count, n, w, a_writers, v_versions, c_chunks,
       k_slots);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int corro_gaps_refresh(const void* have, void* heads, void* lo,
+                                  void* hi, void* overflow_count, int n, int w,
+                                  int a_writers, int v_versions, int c_chunks,
+                                  int k_slots, void* stream) {
+  return launch_gaps(have, heads, lo, hi, overflow_count, n, w, a_writers,
+                     v_versions, c_chunks, k_slots, 1, stream);
+}
+
+// The lane entry: every tensor [lanes, ...], overflow_count [lanes].
+extern "C" int corro_gaps_refresh_lanes(const void* have, void* heads,
+                                        void* lo, void* hi,
+                                        void* overflow_count, int n, int w,
+                                        int a_writers, int v_versions,
+                                        int c_chunks, int k_slots, int lanes,
+                                        void* stream) {
+  return launch_gaps(have, heads, lo, hi, overflow_count, n, w, a_writers,
+                     v_versions, c_chunks, k_slots, lanes, stream);
 }

@@ -34,6 +34,13 @@
 // overrides and lists its wiped nodes in shared memory; then the whole
 // block zeroes each listed node's rows, the threads on consecutive
 // addresses, so a wide full-view row is not left to one thread.
+//
+// corro_node_faults_lanes is the word entry over the seed ensemble's
+// lanes (B16, corrosion_tpu/campaign/ensemble.py:114, whose lanes share
+// the plan's schedule unbatched — ensemble.py:147-158): blockIdx.y is
+// the lane, whose alive row, carry and tables are its slices of the
+// [K, ...] tensors; the round's overrides and wipes are read by every
+// lane.  Bound: launch latency, as the solo entry's.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -127,6 +134,30 @@ __global__ void node_faults_kernel(const int8_t* __restrict__ ovr,
                                    int n) {
   __shared__ int wiped[kThreads];
   __shared__ int count;
+  // the lane's rows (lane 0 on the solo entries); ovr and wipe are the
+  // round's shared slice
+  {
+    const size_t lane = blockIdx.y;
+    const size_t nn = (size_t)n;
+    alive += lane * nn;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) pl.rows[r] += lane * nn * pl.row;
+#pragma unroll
+    for (int r = 0; r < kRings; ++r)
+      pl.rings[r] += lane * pl.d_slots * nn * pl.row;
+    tb.heads += lane * nn * tb.a;
+    tb.gap_lo += lane * nn * tb.ak;
+    tb.gap_hi += lane * nn * tb.ak;
+    tb.pid += lane * nn * tb.m;
+    tb.pkey += lane * nn * tb.m;
+    tb.psince += lane * nn * tb.m;
+    if (tb.fv > 0) {
+      tb.view += lane * nn * tb.fv;
+      tb.vinc += lane * nn * tb.fv;
+      tb.since += lane * nn * tb.fv;
+    }
+    if (tb.v > 0) tb.pview += lane * nn * tb.v;
+  }
   int k = override_and_list(ovr, wipe, alive, n, wiped, &count);
   for (int i = 0; i < k; ++i) {
     wipe_payload(pl, wiped[i]);
@@ -147,14 +178,16 @@ unsigned blocks_for(int n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 // rings [D, N, W].  `fv` is 0 without a full view (view, vinc and
 // suspect_since may then be null), `v` 0 without a PeerSwap view (pview
 // may then be null).
-extern "C" int corro_node_faults(
-    const void* ovr, const void* wipe, void* alive, void* have, void* r0,
-    void* r1, void* r2, void* r3, void* inflight, void* sync_buf,
-    void* heads, void* gap_lo, void* gap_hi, void* pid, void* pkey,
-    void* psince, void* view, void* vinc, void* since, void* pview, int n,
-    int w, int d_slots, int a, int ak, int m, int fv, int v, void* stream) {
+namespace {
+
+int launch_words(const void* ovr, const void* wipe, void* alive, void* have,
+                 void* r0, void* r1, void* r2, void* r3, void* inflight,
+                 void* sync_buf, void* heads, void* gap_lo, void* gap_hi,
+                 void* pid, void* pkey, void* psince, void* view, void* vinc,
+                 void* since, void* pview, int n, int w, int d_slots, int a,
+                 int ak, int m, int fv, int v, int lanes, void* stream) {
   if (n <= 0 || w < 0 || d_slots < 0 || !tables_ok(a, ak, m, fv, v, pview) ||
-      (fv > 0 && fv != n))
+      (fv > 0 && fv != n) || lanes <= 0 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   Payload<uint32_t, 5, 2> pl{
       {(uint32_t*)have, (uint32_t*)r0, (uint32_t*)r1, (uint32_t*)r2,
@@ -167,10 +200,40 @@ extern "C" int corro_node_faults(
             (int32_t*)pview, a,                ak,
             m,               fv,               v};
   node_faults_kernel<uint32_t, 5, 2>
-      <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      <<<dim3(blocks_for(n), lanes), kThreads, 0, (cudaStream_t)stream>>>(
           (const int8_t*)ovr, (const uint8_t*)wipe, (uint8_t*)alive, pl, tb,
           n);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int corro_node_faults(
+    const void* ovr, const void* wipe, void* alive, void* have, void* r0,
+    void* r1, void* r2, void* r3, void* inflight, void* sync_buf,
+    void* heads, void* gap_lo, void* gap_hi, void* pid, void* pkey,
+    void* psince, void* view, void* vinc, void* since, void* pview, int n,
+    int w, int d_slots, int a, int ak, int m, int fv, int v, void* stream) {
+  return launch_words(ovr, wipe, alive, have, r0, r1, r2, r3, inflight,
+                      sync_buf, heads, gap_lo, gap_hi, pid, pkey, psince,
+                      view, vinc, since, pview, n, w, d_slots, a, ak, m, fv,
+                      v, 1, stream);
+}
+
+// The word entry's lane form: every per-node tensor [lanes, ...] (the
+// rings [lanes, D, N, W]); `ovr` and `wipe` [N] are the shared round
+// slice, applied to every lane.
+extern "C" int corro_node_faults_lanes(
+    const void* ovr, const void* wipe, void* alive, void* have, void* r0,
+    void* r1, void* r2, void* r3, void* inflight, void* sync_buf,
+    void* heads, void* gap_lo, void* gap_hi, void* pid, void* pkey,
+    void* psince, void* view, void* vinc, void* since, void* pview, int n,
+    int w, int d_slots, int a, int ak, int m, int fv, int v, int lanes,
+    void* stream) {
+  return launch_words(ovr, wipe, alive, have, r0, r1, r2, r3, inflight,
+                      sync_buf, heads, gap_lo, gap_hi, pid, pkey, psince,
+                      view, vinc, since, pview, n, w, d_slots, a, ak, m, fv,
+                      v, lanes, stream);
 }
 
 // The dense entry: u8 have and relay rows [N, P], both u8 rings

@@ -44,6 +44,14 @@
 // compaction are K1's (`keep_compact`, shared by all three entries).
 // Bound: bytes — the slot draws, one gathered 4-byte view entry each
 // from the node's own 64-byte view row, the output.
+//
+// Lane entry, corro_sample_targets_lanes: the member sampler over the
+// seed ensemble's lanes (B16, corrosion_tpu/campaign/ensemble.py:114),
+// a grid dimension: blockIdx.y is the lane, whose tables [N, M], draws
+// [over, N] and output [N, count] are its slices of the [K, ...]
+// tensors.  Candidates and `node` stay lane-local ids, so the self test
+// and the output are the solo entry's per lane.  Bound: K times the
+// solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,6 +89,11 @@ __global__ void sample_targets_kernel(const uint32_t* __restrict__ table,
                                       int m, int over, int count) {
   int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= n) return;
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  table += lane * n * m;
+  slots += lane * over * n;
+  out += lane * n * count;
   const uint32_t* row = table + (size_t)node * m;
   int cand[MAX_OVER];
   bool valid[MAX_OVER];
@@ -169,6 +182,22 @@ extern "C" int corro_sample_targets(const void* table, const void* slots,
   int threads = 256;
   int blocks = (n + threads - 1) / threads;
   sample_targets_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)table, (const int32_t*)slots, (int32_t*)out, n, m,
+      over, count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_sample_targets_lanes(const void* table,
+                                          const void* slots, void* out,
+                                          int n, int m, int over, int count,
+                                          int lanes, void* stream) {
+  if (over > MAX_OVER || count > over || n <= 0 || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  int blocks = (n + threads - 1) / threads;
+  sample_targets_kernel<<<dim3(blocks, lanes), threads, 0,
+                          (cudaStream_t)stream>>>(
       (const uint32_t*)table, (const int32_t*)slots, (int32_t*)out, n, m,
       over, count);
   return (int)cudaGetLastError();

@@ -68,6 +68,13 @@
 // folds into the ring and never keeps.  K17 counts them.  A null
 // `granted` (telemetry off) writes nothing more.
 
+// Lane entry, corro_sync_pull_lanes: the unmetered pull over the seed
+// ensemble's lanes (B16, corrosion_tpu/campaign/ensemble.py:114) as a
+// grid dimension: blockIdx.y is the lane, whose masks, misses, sessions
+// (lane-local peer ids), sync ring [D, N, W] and fruitful row are its
+// slices of the [K, ...] tensors; the grants land in ring slot `base`
+// of each lane.  Bound: K times the solo bound.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -148,6 +155,20 @@ __global__ void sync_pull_kernel(const uint32_t* __restrict__ masks,
                                  int s_peers) {
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * w) return;
+  // the lane's slices (lane 0 on the solo entry): masks, miss, the
+  // sessions, its sync ring [D, N, W] and its fruitful row
+  {
+    const size_t lane = blockIdx.y;
+    const size_t edges = (size_t)n * s_peers;
+    masks += lane * n * 4 * w;
+    miss += lane * n * w;
+    peers += lane * edges;
+    ok += lane * edges;
+    fruitful += lane * n;
+    cls.ring += lane * cls.d_slots * n * w;
+    if (granted) granted += lane * edges * w;
+    if (cls.sdelay) cls.sdelay += lane * edges;
+  }
   int node = (int)(i / w);
   int k = (int)(i % w);
   const uint32_t* own = masks + (size_t)node * 4 * w;
@@ -235,6 +256,28 @@ extern "C" int corro_sync_pull(const void* masks, const void* miss,
       (const uint32_t*)masks, (const uint32_t*)miss, (const int32_t*)peers,
       (const bool*)ok, cls, (uint8_t*)fruitful, (uint32_t*)granted, n, w,
       s_peers);
+  return (int)cudaGetLastError();
+}
+
+// The lane entry: masks [lanes, N, 4, W], miss [lanes, N, W], peers and
+// ok [lanes, N, S], ring [lanes, d_slots, N, W], fruitful [lanes, N];
+// every grant lands in slot `base` (no session delays, no grant copy).
+extern "C" int corro_sync_pull_lanes(const void* masks, const void* miss,
+                                     const void* peers, const void* ok,
+                                     void* ring, void* fruitful, int n, int w,
+                                     int s_peers, int d_slots, int base,
+                                     int lanes, void* stream) {
+  if (n <= 0 || w <= 0 || s_peers <= 0 || d_slots <= 0 || base < 0 ||
+      base >= d_slots || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  size_t total = (size_t)n * w;
+  int threads = 256;
+  unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  Classes cls{(uint32_t*)ring, nullptr, d_slots, base};
+  sync_pull_kernel<<<dim3(blocks, lanes), threads, 0,
+                     (cudaStream_t)stream>>>(
+      (const uint32_t*)masks, (const uint32_t*)miss, (const int32_t*)peers,
+      (const bool*)ok, cls, (uint8_t*)fruitful, nullptr, n, w, s_peers);
   return (int)cudaGetLastError();
 }
 

@@ -25,6 +25,15 @@
 // The key is read through its pointer (int64 [2] holding u32 halves), so
 // it never leaves the card.
 //
+// The lane entries (corro_threefry_lanes, corro_randint_lanes) are
+// jax.vmap of the same draws over a [K, 2] key batch (B16, the seed
+// ensembles of corrosion_tpu/campaign/ensemble.py:114): blockIdx.y is
+// the lane, which reads its own key row, its own maxval row and writes
+// its own output row.  The counters stay lane-local (0 .. size - 1 in
+// every lane), so lane k's draw is the solo draw under key k — a kernel
+// hashing the flattened [K * size] index would give other draws that
+// still look random.  The solo entries launch one lane.
+//
 // Bound on the H100: operations.  A draw is two 20-round hashes (about
 // 72 u32 adds, xors and funnel shifts each) plus three u32 modulos, and
 // writes 4 bytes: ~150 integer instructions per 4 bytes written, far
@@ -44,6 +53,8 @@ constexpr int kThreads = 256;
 __global__ void threefry_kernel(const int64_t* __restrict__ key,
                                 int64_t* __restrict__ out, uint32_t size,
                                 uint32_t base, int mode) {
+  key += 2 * (size_t)blockIdx.y;
+  out += (size_t)blockIdx.y * size * (mode == 0 ? 1 : 2);
   uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= size) return;
   corro::Pair h = corro::threefry2x32((uint32_t)key[0], (uint32_t)key[1], 0u,
@@ -83,6 +94,12 @@ __global__ void randint_kernel(const int64_t* __restrict__ key,
                                int32_t minval, uint32_t span_s,
                                uint32_t mult_s, int per_element) {
   __shared__ uint32_t sub[4];
+  // the lane's key, maxval row and output row
+  const size_t lane = blockIdx.y;
+  key += 2 * lane;
+  out += lane * size;
+  if (per_element == 1) maxval = (const int32_t*)maxval + lane * size;
+  if (per_element == 2) maxval = (const int64_t*)maxval + lane * size;
   if (threadIdx.x < 2) {
     corro::Pair k = corro::threefry2x32((uint32_t)key[0], (uint32_t)key[1],
                                         0u, threadIdx.x);
@@ -112,24 +129,58 @@ unsigned blocks_for(uint32_t size) {
 
 }  // namespace
 
-extern "C" int corro_threefry(const void* key, void* out, int size, int base,
-                              int mode, void* stream) {
-  if (size <= 0 || (mode != 0 && mode != 1)) return (int)cudaErrorInvalidValue;
-  threefry_kernel<<<blocks_for((uint32_t)size), kThreads, 0,
-                    (cudaStream_t)stream>>>(
+namespace {
+
+int launch_threefry(const void* key, void* out, int size, int base, int mode,
+                    int lanes, void* stream) {
+  if (size <= 0 || (mode != 0 && mode != 1) || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  threefry_kernel<<<dim3(blocks_for((uint32_t)size), (unsigned)lanes),
+                    kThreads, 0, (cudaStream_t)stream>>>(
       (const int64_t*)key, (int64_t*)out, (uint32_t)size, (uint32_t)base, mode);
   return (int)cudaGetLastError();
+}
+
+int launch_randint(const void* key, const void* maxval, void* out, int size,
+                   int minval, int span, int mult, int per_element, int lanes,
+                   void* stream) {
+  if (size <= 0 || per_element < 0 || per_element > 2 ||
+      (per_element == 0 && span == 0) || (per_element != 0 && !maxval) ||
+      lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  randint_kernel<<<dim3(blocks_for((uint32_t)size), (unsigned)lanes),
+                   kThreads, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)key, maxval, (int32_t*)out, (uint32_t)size,
+      (int32_t)minval, (uint32_t)span, (uint32_t)mult, per_element);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int corro_threefry(const void* key, void* out, int size, int base,
+                              int mode, void* stream) {
+  return launch_threefry(key, out, size, base, mode, 1, stream);
 }
 
 extern "C" int corro_randint(const void* key, const void* maxval, void* out,
                              int size, int minval, int span, int mult,
                              int per_element, void* stream) {
-  if (size <= 0 || per_element < 0 || per_element > 2 ||
-      (per_element == 0 && span == 0) || (per_element != 0 && !maxval))
-    return (int)cudaErrorInvalidValue;
-  randint_kernel<<<blocks_for((uint32_t)size), kThreads, 0,
-                   (cudaStream_t)stream>>>(
-      (const int64_t*)key, maxval, (int32_t*)out, (uint32_t)size,
-      (int32_t)minval, (uint32_t)span, (uint32_t)mult, per_element);
-  return (int)cudaGetLastError();
+  return launch_randint(key, maxval, out, size, minval, span, mult,
+                        per_element, 1, stream);
+}
+
+// The lane entries: `key` [lanes, 2], `out` [lanes, size(, 2)], a
+// per-element `maxval` [lanes, size].
+extern "C" int corro_threefry_lanes(const void* key, void* out, int size,
+                                    int base, int mode, int lanes,
+                                    void* stream) {
+  return launch_threefry(key, out, size, base, mode, lanes, stream);
+}
+
+extern "C" int corro_randint_lanes(const void* key, const void* maxval,
+                                   void* out, int size, int minval, int span,
+                                   int mult, int per_element, int lanes,
+                                   void* stream) {
+  return launch_randint(key, maxval, out, size, minval, span, mult,
+                        per_element, lanes, stream);
 }

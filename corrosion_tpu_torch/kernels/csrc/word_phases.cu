@@ -55,6 +55,14 @@
 // as deliver does, and both slots cleared whole (a rejected arrival is
 // dropped).  Bound: bytes, deliver's plus nothing (the row is read once
 // into shared memory).
+//
+// The lane entries (corro_word_inject_lanes, _spend_lanes,
+// _deliver_lanes) run inject, spend and deliver over the seed ensemble's
+// lanes (B16, corrosion_tpu/campaign/ensemble.py:114) as a grid
+// dimension: blockIdx.y is the lane, whose have words, planes, targets,
+// alive row, injected_p and ring slices are its slots of the [K, ...]
+// tensors; the payload metadata and the round t are shared.  Bound: K
+// times the solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,6 +73,12 @@ struct PlanePtrs {
   uint32_t* r[4];
 };
 
+// The planes of lane blockIdx.y, `cells` words a lane.
+__device__ __forceinline__ PlanePtrs lane_planes(PlanePtrs p, size_t cells) {
+  const size_t off = (size_t)blockIdx.y * cells;
+  return PlanePtrs{{p.r[0] + off, p.r[1] + off, p.r[2] + off, p.r[3] + off}};
+}
+
 __global__ void inject_kernel(const int32_t* __restrict__ round_of,
                               const int32_t* __restrict__ actor,
                               const uint8_t* __restrict__ alive,
@@ -73,6 +87,12 @@ __global__ void inject_kernel(const int32_t* __restrict__ round_of,
                               int p, int t, int value) {
   int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= p || round_of[q] != t) return;
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  alive += lane * n;
+  have += lane * n * w;
+  injected += lane * w;
+  planes = lane_planes(planes, (size_t)n * w);
   int row = actor[q];
   if (row < 0 || row >= n || alive[row] != 0) return;
   int k = q >> 5;
@@ -99,6 +119,13 @@ __global__ void spend_kernel(const uint32_t* __restrict__ have,
                              int fanout, int mode) {
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * w) return;
+  const size_t lane = blockIdx.y;
+  have += lane * n * w;
+  sending += lane * n * w;
+  injected += lane * w;
+  targets += lane * n * fanout;
+  alive += lane * n;
+  planes = lane_planes(planes, (size_t)n * w);
   int node = (int)(i / w);
   int k = (int)(i % w);
   uint32_t r0 = planes.r[0][i], r1 = planes.r[1][i];
@@ -130,9 +157,15 @@ __global__ void spend_kernel(const uint32_t* __restrict__ have,
 __global__ void deliver_kernel(uint32_t* __restrict__ inflight,
                                uint32_t* __restrict__ sync_buf,
                                uint32_t* __restrict__ have, PlanePtrs planes,
-                               int n, int w, int slot, int value) {
+                               int n, int w, int d_slots, int slot,
+                               int value) {
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * w) return;
+  const size_t lane = blockIdx.y;
+  inflight += lane * d_slots * n * w;
+  sync_buf += lane * d_slots * n * w;
+  have += lane * n * w;
+  planes = lane_planes(planes, (size_t)n * w);
   size_t s = (size_t)slot * n * w + i;
   uint32_t arriving = inflight[s];
   uint32_t pending = sync_buf[s];
@@ -262,7 +295,7 @@ extern "C" int corro_word_deliver(void* inflight, void* sync_buf, void* have,
   deliver_kernel<<<blocks_for((size_t)n * w, 256), 256, 0,
                    (cudaStream_t)stream>>>(
       (uint32_t*)inflight, (uint32_t*)sync_buf, (uint32_t*)have,
-      plane_ptrs(r0, r1, r2, r3), n, w, slot, value);
+      plane_ptrs(r0, r1, r2, r3), n, w, d_slots, slot, value);
   return (int)cudaGetLastError();
 }
 
@@ -285,5 +318,55 @@ extern "C" int corro_word_deliver_fifo(void* inflight, void* sync_buf,
                         (cudaStream_t)stream>>>(
       (uint32_t*)inflight, (uint32_t*)sync_buf, (uint32_t*)have,
       plane_ptrs(r0, r1, r2, r3), n, w, slot, value, c, wave, low);
+  return (int)cudaGetLastError();
+}
+
+// The lane entries: the solo entries' arguments with every per-node
+// tensor [lanes, ...] and injected_p [lanes, W], then `lanes`.
+extern "C" int corro_word_inject_lanes(const void* round_of, const void* actor,
+                                       const void* alive, void* have, void* r0,
+                                       void* r1, void* r2, void* r3,
+                                       void* injected, int n, int w, int p,
+                                       int t, int value, int lanes,
+                                       void* stream) {
+  if (n <= 0 || w <= 0 || p != w * 32 || value < 0 || value > 15 ||
+      lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  inject_kernel<<<dim3(blocks_for(p, 256), lanes), 256, 0,
+                  (cudaStream_t)stream>>>(
+      (const int32_t*)round_of, (const int32_t*)actor, (const uint8_t*)alive,
+      (uint32_t*)have, plane_ptrs(r0, r1, r2, r3), (uint32_t*)injected, n, w,
+      p, t, value);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_word_spend_lanes(const void* have, void* r0, void* r1,
+                                      void* r2, void* r3, const void* injected,
+                                      const void* targets, const void* alive,
+                                      void* sending, int n, int w, int fanout,
+                                      int mode, int lanes, void* stream) {
+  if (n <= 0 || w <= 0 || fanout <= 0 || mode < 0 || mode > 2 ||
+      lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  spend_kernel<<<dim3(blocks_for((size_t)n * w, 256), lanes), 256, 0,
+                 (cudaStream_t)stream>>>(
+      (const uint32_t*)have, plane_ptrs(r0, r1, r2, r3),
+      (const uint32_t*)injected, (const int32_t*)targets,
+      (const uint8_t*)alive, (uint32_t*)sending, n, w, fanout, mode);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_word_deliver_lanes(void* inflight, void* sync_buf,
+                                        void* have, void* r0, void* r1,
+                                        void* r2, void* r3, int n, int w,
+                                        int d_slots, int slot, int value,
+                                        int lanes, void* stream) {
+  if (n <= 0 || w <= 0 || slot < 0 || slot >= d_slots || value < 0 ||
+      value > 15 || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  deliver_kernel<<<dim3(blocks_for((size_t)n * w, 256), lanes), 256, 0,
+                   (cudaStream_t)stream>>>(
+      (uint32_t*)inflight, (uint32_t*)sync_buf, (uint32_t*)have,
+      plane_ptrs(r0, r1, r2, r3), n, w, d_slots, slot, value);
   return (int)cudaGetLastError();
 }

@@ -1009,6 +1009,55 @@ def fault_reach_(ok, faults: AnyRoundFaults, key, src, dst):
     return ok
 
 
+def fault_reach_lanes_plain(ok, faults, keys, src, dst,
+                            seeds) -> torch.Tensor:
+    """Plain version of K9's reach lane entry, in place on ok [K, E]:
+    the plan's cuts and thresholds at the lanes' edges (lane-local ids;
+    the plan is shared), and lane k's loss draw ``aligned_u8_bits(
+    fold_in(fold_in(keys[k], seeds[k]), 103), [E])``."""
+    lanes, e = src.shape
+    src, dst = src.reshape(-1), dst.reshape(-1)
+    if _has(faults, "block"):
+        ok &= ~_block_plain(faults, src, dst).reshape(lanes, e)
+    if _has(faults, "loss"):
+        thr = _loss_plain(faults, src, dst).reshape(lanes, e)
+        fk = rng.fold_in_lanes_plain(rng.fold_in_lanes_plain(keys, seeds),
+                                     PROBE_LOSS_TAG)
+        words = rng.bits_lanes_plain(fk, (-(-e // 4),))
+        shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=ok.device)
+        bits = ((words[..., None] >> shifts) & 0xFF).to(torch.uint8)
+        ok &= ~(bits.reshape(lanes, -1)[:, :e] < thr)
+    return ok
+
+
+def fault_reach_lanes_(ok, faults: FactoredRoundFaults, keys, src, dst,
+                       seeds):
+    """`fault_reach_` over the seed ensemble's lanes, in place on bool
+    [K, E] ``ok``: src and dst [K, E] lane-local ids, ``keys`` [K, 2] the
+    lanes' loss keys and ``seeds`` i32[K] their plan seeds (only the seed
+    is batched; the round slice is shared).  K9's reach lane entry on the
+    card; a factored slice only (matrix plans on lanes are B16d)."""
+    if isinstance(faults, RoundFaults):
+        raise NotImplementedError(
+            "matrix fault plans on lanes are not ported yet (ROADMAP B16d)")
+    if src.device.type == "cpu":
+        return fault_reach_lanes_plain(ok, faults, keys, src, dst, seeds)
+    if not (_has(faults, "block") or _has(faults, "loss")):
+        return ok
+    lanes, e = src.shape
+    check("ok", ok, torch.bool, (lanes, e))
+    check("keys", keys, torch.int64, (lanes, 2))
+    check("seeds", seeds, torch.int32, (lanes,))
+    check("dst", dst, torch.int32, (lanes, e))
+    ptrs, ints = _k9_args(faults, src.reshape(-1), dst.reshape(-1), True,
+                          True)
+    # _k9_args checked the flattened edges; the lane entry takes [K, e]
+    kernels.FAULT_REACH_LANES.launch(
+        ptrs + [keys, ok, seeds], ints[:4] + [ints[4], e, PROBE_LOSS_TAG,
+                                               lanes])
+    return ok
+
+
 # -- node faults --------------------------------------------------------------
 
 

@@ -160,3 +160,41 @@ def gaps_to_mask(
         shi = hi[..., slot, None]
         covered |= (slo > 0) & (slo <= v_idx) & (v_idx <= shi)
     return covered
+
+
+def refresh_gaps_lanes_plain(have_w: torch.Tensor, cfg: SimConfig):
+    """Plain version of K6's lane entry: the solo composition on the
+    lanes folded into the rows, the overflow counted per lane."""
+    lanes, n, w = have_w.shape
+    a, k = cfg.n_writers, cfg.gap_slots
+    touched = group_grid(have_w.reshape(lanes * n, w), cfg, "any")
+    heads = version_heads(touched)
+    gaps = extract_gaps(touched, heads, cfg)
+    return (heads.reshape(lanes, n, a), gaps.lo.reshape(lanes, n, a, k),
+            gaps.hi.reshape(lanes, n, a, k),
+            gaps.overflow.reshape(lanes, n * a).sum(dim=1,
+                                                    dtype=torch.int32))
+
+
+def refresh_gaps_lanes(
+    have_w: torch.Tensor, cfg: SimConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`refresh_gaps` over the seed ensemble's lanes: have words
+    [K, N, W] give heads [K, N, A], gap_lo/gap_hi [K, N, A, K_slots] and
+    i32[K] overflow counts (one per lane, for its own overflow_frac).
+    K6's lane entry on the card."""
+    if have_w.device.type == "cpu":
+        return refresh_gaps_lanes_plain(have_w, cfg)
+    lanes, n, w = have_w.shape
+    a, v = cfg.n_writers, cfg.n_versions
+    c, k = cfg.chunks_per_version, cfg.gap_slots
+    check("have", have_w, torch.int32, (lanes, n, w))
+    dev = have_w.device
+    heads = torch.empty((lanes, n, a), dtype=torch.int32, device=dev)
+    lo = torch.empty((lanes, n, a, k), dtype=torch.int32, device=dev)
+    hi = torch.empty((lanes, n, a, k), dtype=torch.int32, device=dev)
+    n_overflow = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    kernels.GAPS_REFRESH_LANES.launch(
+        [have_w, heads, lo, hi, n_overflow], [n, w, a, v, c, k, lanes]
+    )
+    return heads, lo, hi, n_overflow

@@ -311,3 +311,306 @@ def pswim_step(
         pid=pid, pkey=pkey, psince=psince,
         incarnation=incarnation.to(torch.int32),
     )
+
+
+# -- the lane path (seed ensembles, B16) -------------------------------------
+
+
+def sample_candidates_lanes_plain(table: torch.Tensor, slots: torch.Tensor,
+                                  count: int) -> torch.Tensor:
+    """Plain version of K1's lane entry: the solo plain version per lane,
+    the lanes folded into its column axis (every step is per column)."""
+    lanes, n, _ = table.shape
+    over = slots.shape[1]
+    words = torch.gather(table, 2, slots.transpose(1, 2).long())
+    cand, ckey = _unpack_word(words.transpose(1, 2))  # [K, over, N]
+    me = torch.arange(n, dtype=torch.int32, device=table.device)
+    valid = (cand >= 0) & (cand != me) & (ckey % 4 != DOWN) & (ckey >= 0)
+    cand = cand.transpose(0, 1).reshape(over, lanes * n)
+    valid = valid.transpose(0, 1).reshape(over, lanes * n)
+    valid &= ~_dup_before(cand, valid)
+    return _compact_targets(cand, valid, count).reshape(lanes, n, count)
+
+
+def sample_candidates_lanes(table: torch.Tensor, slots: torch.Tensor,
+                            count: int) -> torch.Tensor:
+    """`sample_candidates` over the lanes: i32[K, N, count] lane-local
+    targets from packed tables [K, N, M] and bucket draws [K, over, N];
+    K1's lane entry on the card."""
+    if table.device.type == "cpu":
+        return sample_candidates_lanes_plain(table, slots, count)
+    lanes, n, m = table.shape
+    over = slots.shape[1]
+    check("table", table, torch.int32, (lanes, n, m))
+    check("slots", slots, torch.int32, (lanes, over, n))
+    out = torch.empty((lanes, n, count), dtype=torch.int32,
+                      device=table.device)
+    kernels.SAMPLE_TARGETS_LANES.launch([table, slots, out],
+                                        [n, m, over, count, lanes])
+    return out
+
+
+def psample_member_targets_lanes(state: SimState, cfg: SimConfig,
+                                 keys: torch.Tensor,
+                                 count: int) -> torch.Tensor:
+    """`psample_member_targets` over the lanes: the [K, 4c, N] bucket
+    draws (K5's lane entry) and K1's lane entry."""
+    _, n, m = state.pid.shape
+    slots = rng.randint_lanes(keys, (4 * count, n), 0, m)
+    return sample_candidates_lanes(_pack_tables(state.pid, state.pkey),
+                                   slots, count)
+
+
+def _fold_merge(pid, pkey, psince, e_dst, e_id, e_key, e_ok):
+    """The lanes folded into the merge's rows: tables [K * N, M], lane
+    k's receivers at rows k * N + dst."""
+    lanes, n, m = pid.shape
+    dst = (e_dst + (torch.arange(lanes, dtype=torch.int32,
+                                 device=pid.device) * n)[:, None]).reshape(-1)
+    flat = [x.reshape(lanes * n, m) for x in (pid, pkey, psince)]
+    return flat, (dst, e_id.reshape(-1), e_key.reshape(-1), e_ok.reshape(-1))
+
+
+def merge_entries_lanes_plain(pid, pkey, psince, e_dst, e_id, e_key, e_ok,
+                              t: int, gc: int):
+    """Plain version of K4's lane entry: the solo plain merge on the
+    folded rows."""
+    lanes, n, m = pid.shape
+    flat, args = _fold_merge(pid, pkey, psince, e_dst, e_id, e_key, e_ok)
+    out = merge_entries_plain(*flat, *args, t, gc)
+    return tuple(x.reshape(lanes, n, m) for x in out)
+
+
+def merge_entries_lanes(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t: int,
+                        gc: int):
+    """`merge_entries` over the lanes: tables [K, N, M], entries [K, E]
+    with lane-local receivers and ids.  The merge is per receiver row, so
+    the lanes fold into its rows: lane k's receivers move to rows k·N +
+    dst, their ids stay lane-local (a bucket and a match read only ids of
+    one lane).  K4's launcher on the card, counted as its lane entry."""
+    if pid.device.type == "cpu":
+        return merge_entries_lanes_plain(pid, pkey, psince, e_dst, e_id,
+                                         e_key, e_ok, t, gc)
+    lanes, n, m = pid.shape
+    flat, args = _fold_merge(pid, pkey, psince, e_dst, e_id, e_key, e_ok)
+    e = args[0].shape[0]
+    for name, x in zip(("e_id", "e_key"), args[1:3]):
+        check(name, x, torch.int32, (e,))
+    check("e_ok", args[3], torch.bool, (e,))
+    pkey_out = flat[1].clone()
+    pid_out = torch.empty_like(flat[0])
+    psince_out = torch.empty_like(flat[2])
+    winner = torch.full_like(flat[0], -1)
+    kernels.MERGE_ENTRIES_LANES.launch(
+        [flat[0], flat[1], flat[2], pid_out, pkey_out, psince_out, winner,
+         *args],
+        [e, lanes * n, m, t, gc],
+    )
+    return tuple(x.reshape(lanes, n, m)
+                 for x in (pid_out, pkey_out, psince_out))
+
+
+def _lane_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[k, idx[k, e]] for x [K, N] and lane-local idx [K, E]."""
+    return torch.gather(x, 1, idx.long())
+
+
+def _cells(x: torch.Tensor, rows: torch.Tensor,
+           cols: torch.Tensor) -> torch.Tensor:
+    """x[k, rows[k, e], cols[k, e]] for tables x [K, N, M]."""
+    lanes, n, m = x.shape
+    return torch.gather(x.reshape(lanes, n * m), 1,
+                        (rows.long() * m + cols.long()))
+
+
+def reachable_lanes(state: SimState, topo: Topology, keys: torch.Tensor,
+                    src: torch.Tensor, dst: torch.Tensor, faults=None,
+                    seeds=None) -> torch.Tensor:
+    """`swim._reachable` over the lanes, for bool [K, E] edges: same
+    group, both ends up, and (under ``faults``) not cut nor lost to lane
+    k's probe-loss draw under its key and plan seed (K9's reach lane
+    entry).  The lane path runs the flat lossless topology only."""
+    if topo.loss > 0 or loss_tiered(topo):
+        raise NotImplementedError(
+            "topology loss on lanes is not ported yet (ROADMAP B16d)")
+    lanes = state.alive.shape[0]
+    src = src.expand(lanes, -1).contiguous()
+    dst = dst.expand(lanes, -1).contiguous()
+    ok = ((_lane_rows(state.group, src) == _lane_rows(state.group, dst))
+          & (_lane_rows(state.alive, src) == ALIVE)
+          & (_lane_rows(state.alive, dst) == ALIVE))
+    if faults is not None:
+        from .faults import fault_reach_lanes_
+
+        ok = fault_reach_lanes_(ok, faults, keys, src, dst, seeds)
+    return ok
+
+
+def pswim_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
+                     keys: torch.Tensor, faults=None,
+                     seeds=None) -> SimState:
+    """`pswim_step` over the seed ensemble's lanes: ``state`` holds every
+    per-node tensor with a leading lane axis [K, ...] (``t`` shared),
+    ``keys`` [K, 2] the lanes' SWIM keys and ``seeds`` i32[K] their plan
+    seeds.  The same phases, draws and merges as the solo step, lane k's
+    under key k: every draw is K5's lane entry, the sampler K1's, the
+    merge K4's and the fault reach K9's; the glue is batched torch."""
+    lanes, n, m = state.pid.shape
+    kk = cfg.gossip_entries
+    ks = rng.split_lanes(keys, 11)
+    k_probe, k_ploss, k_relay, k_rloss = (ks[:, i].contiguous()
+                                          for i in range(4))
+    k_gossip, k_pick, k_gloss, k_ann = (ks[:, i].contiguous()
+                                        for i in range(4, 8))
+    k_aloss, k_rot, k_rid = (ks[:, i].contiguous() for i in range(8, 11))
+    dev = state.pid.device
+    t = int(state.t)
+    me = torch.arange(n, dtype=torch.int32, device=dev)
+    up = state.alive == ALIVE
+    pid, pkey, psince = state.pid, state.pkey, state.psince
+
+    # -- 1. probe
+    target = psample_member_targets_lanes(state, cfg, k_probe, 1)[:, :, 0]
+    do_probe = up & (t % cfg.probe_period_rounds == 0) & (target >= 0)
+    target = torch.clamp(target, min=0)
+    direct = reachable_lanes(state, topo, k_ploss, me[None], target, faults,
+                             seeds)
+    ip = cfg.indirect_probes
+    relays = psample_member_targets_lanes(state, cfg, k_relay, ip)
+    relay_ok = relays >= 0
+    relays = torch.clamp(relays, min=0).reshape(lanes, n * ip)
+    if faults is not None:
+        hop = rng.split_lanes(k_rloss, 2)
+        hop_keys = (hop[:, 0].contiguous(), hop[:, 1].contiguous())
+    else:
+        hop_keys = (k_rloss, k_rloss)
+    leg1 = reachable_lanes(state, topo, hop_keys[0],
+                           me.repeat_interleave(ip)[None], relays, faults,
+                           seeds).reshape(lanes, n, ip)
+    leg2 = reachable_lanes(state, topo, hop_keys[1], relays,
+                           target.repeat_interleave(ip, dim=1), faults,
+                           seeds).reshape(lanes, n, ip)
+    acked = direct | (leg1 & leg2 & relay_ok).any(dim=2)
+    probe_failed = do_probe & ~acked
+
+    t_bucket = (target % m).long()[..., None]
+    cur = torch.gather(pkey, 2, t_bucket)[..., 0]
+    cur_id = torch.gather(pid, 2, t_bucket)[..., 0]
+    newly_suspect = probe_failed & (cur_id == target) & (cur % 4 == ALIVE)
+    pkey = pkey.clone()
+    psince = psince.clone()
+    since_t = torch.gather(psince, 2, t_bucket)[..., 0]
+    pkey.scatter_(2, t_bucket, torch.where(
+        newly_suspect, cur - ALIVE + SUSPECT, cur)[..., None])
+    psince.scatter_(2, t_bucket, torch.where(
+        newly_suspect, t, since_t).to(torch.int32)[..., None])
+
+    # -- 2. suspicion timeout
+    expired = (
+        (pkey >= 0)
+        & (pkey % 4 == SUSPECT)
+        & (psince >= 0)
+        & (t - psince >= cfg.suspect_timeout_rounds)
+    )
+    pkey = torch.where(expired, pkey - SUSPECT + DOWN, pkey)
+    psince = torch.where(expired, t, psince).to(torch.int32)
+
+    # -- 3. gossip + announce entries
+    f = cfg.fanout
+    g_targets = psample_member_targets_lanes(state, cfg, k_gossip, f)
+    gsrc = me.repeat_interleave(f)[None].expand(lanes, -1)
+    gdst = g_targets.reshape(lanes, n * f)
+    g_valid = gdst >= 0
+    gdst = torch.clamp(gdst, min=0)
+    g_ok = reachable_lanes(state, topo, k_gloss, gsrc, gdst, faults,
+                           seeds) & g_valid
+    ptbl = _pack_tables(pid, pkey)
+    snd_id, snd_key = _unpack_word(_cells(ptbl, gdst, gsrc % m))
+    g_ok &= ~((snd_id == gsrc) & (snd_key % 4 == DOWN))
+
+    picks = rng.randint_lanes(k_pick, (n, kk), 0, m)
+    sel_id, sel_key = _unpack_word(torch.gather(ptbl, 2, picks.long()))
+    self_claim = torch.clamp(state.incarnation, max=INC_CLAMP) * 4 + ALIVE
+    ent_id = torch.cat([sel_id, me[None, :, None].expand(lanes, n, 1)],
+                       dim=2)
+    ent_key = torch.cat([sel_key, self_claim[..., None]], dim=2)
+    e_dst = gdst.reshape(lanes, n, f, 1).expand(
+        lanes, n, f, kk + 1).reshape(lanes, -1)
+    e_id = ent_id[:, :, None, :].expand(lanes, n, f, kk + 1).reshape(
+        lanes, -1)
+    e_key = ent_key[:, :, None, :].expand(lanes, n, f, kk + 1).reshape(
+        lanes, -1)
+    e_ok = (
+        g_ok.reshape(lanes, n, f, 1).expand(lanes, n, f, kk + 1).reshape(
+            lanes, -1)
+        & (e_id >= 0)
+        & (e_key >= 0)
+    )
+    self_hit = e_ok & (e_id == e_dst) & (e_key % 4 != ALIVE)
+    heard = torch.full((lanes, n), -1, dtype=torch.int32,
+                       device=dev).scatter_reduce(
+        1, e_dst.long(), torch.where(self_hit, e_key, -1), "amax")
+    heard_suspect = heard >= 0
+    heard_inc = torch.where(heard_suspect, heard // 4, -1)
+    e_ok &= e_id != e_dst
+
+    stagger = (t + me) % cfg.announce_interval_rounds == 0
+    ann_target = rng.randint_lanes(k_ann, (n,), 0, n)
+    ann_ok = (
+        stagger & up & (ann_target != me)
+        & reachable_lanes(state, topo, k_aloss, me[None], ann_target,
+                          faults, seeds)
+    )
+    all_dst = torch.cat([e_dst, ann_target], dim=1)
+    all_id = torch.cat([e_id, me[None].expand(lanes, n)], dim=1)
+    all_ok = torch.cat([e_ok, ann_ok], dim=1)
+
+    tgt_id, tgt_key = _unpack_word(_cells(ptbl, ann_target,
+                                          (me % m)[None].expand(lanes, n)))
+    ann_fb = ann_ok & (tgt_id == me) & (tgt_key % 4 != ALIVE)
+    fb_inc = torch.where(ann_fb, tgt_key // 4, -1)
+    refuted_claim = (
+        torch.clamp(torch.maximum(self_claim // 4, fb_inc) + 1, max=INC_CLAMP)
+        * 4 + ALIVE
+    )
+    all_key = torch.cat(
+        [e_key, torch.where(ann_fb, refuted_claim, self_claim)], dim=1)
+
+    pid, pkey, psince = merge_entries_lanes(
+        pid, pkey, psince, all_dst.contiguous(), all_id.contiguous(),
+        all_key.to(torch.int32).contiguous(), all_ok.contiguous(), t,
+        cfg.down_gc_rounds,
+    )
+
+    # -- 3c. bucket refill
+    rb = rng.randint_lanes(k_rot, (n,), 0, m)
+    rbl = rb.long()[..., None]
+    cur_rb_id = torch.gather(pid, 2, rbl)[..., 0]
+    cur_rb_key = torch.gather(pkey, 2, rbl)[..., 0]
+    cur_rb_since = torch.gather(psince, 2, rbl)[..., 0]
+    rb_aged_down = (cur_rb_key % 4 == DOWN) & (
+        (cur_rb_since < 0) | (t - cur_rb_since >= cfg.down_gc_rounds)
+    )
+    per = (n + m - 1) // m
+    rid = rb + m * rng.randint_lanes(k_rid, (n,), 0, per)
+    refill = (
+        stagger & up & ((cur_rb_id < 0) | rb_aged_down)
+        & (rid < n) & (rid != me)
+    )
+    pid.scatter_(2, rbl, torch.where(refill, rid, cur_rb_id)[..., None])
+    pkey.scatter_(2, rbl, torch.where(refill, ALIVE, cur_rb_key).to(
+        torch.int32)[..., None])
+    psince.scatter_(2, rbl, torch.where(refill, -1, cur_rb_since).to(
+        torch.int32)[..., None])
+
+    # -- 4. refute
+    refuting = (ann_fb | heard_suspect) & up
+    bumped = torch.clamp(
+        torch.maximum(torch.maximum(state.incarnation, fb_inc), heard_inc) + 1,
+        max=INC_CLAMP,
+    )
+    incarnation = torch.where(refuting, bumped, state.incarnation)
+    return state._replace(
+        pid=pid, pkey=pkey, psince=psince,
+        incarnation=incarnation.to(torch.int32),
+    )

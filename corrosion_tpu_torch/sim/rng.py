@@ -23,6 +23,12 @@ kernel computes in ``uint32_t`` and gets the wrap for free.
 Counters are ``iota_2x32_shape``: the high word is 0 and the low word
 the flat index, so shapes stay below 2^31 elements (the kernels' int
 sizes; jax's own limit is 2^32).
+
+The lane entries (`split_lanes`, `fold_in_lanes`, `bits_lanes`,
+`randint_lanes`) are ``jax.vmap`` of the same draws over a batch of
+keys ``[K, 2]``, for the seed ensembles: lane k's draw is the solo draw
+under key k, its counters 0 … n − 1 like every other lane's.  On the
+card each is one launch of K5's lane entry for all K lanes.
 """
 
 from __future__ import annotations
@@ -261,3 +267,123 @@ def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]):
     return uniform(key, shape) < torch.tensor(
         p, dtype=torch.float32, device=key.device
     )
+
+
+# -- lane entries (jax.vmap over a [K, 2] key batch) -------------------------
+
+
+def _hash_counts_lanes(keys: torch.Tensor, size: int, base=0):
+    """Lane k hashes counters base[k] + i (``base`` an int or a [K]
+    tensor) under key k."""
+    if isinstance(base, torch.Tensor):
+        base = base.to(torch.int64).reshape(-1, 1)
+    lo = (torch.arange(size, dtype=torch.int64, device=keys.device)[None, :]
+          + base) & MASK32
+    lo = lo.expand(keys.shape[0], size)
+    return threefry2x32(keys[:, 0:1], keys[:, 1:2], torch.zeros_like(lo), lo)
+
+
+def _threefry_lanes(keys: torch.Tensor, size: int, base: int, pairs: bool):
+    """K5's lane hash entry: int64 ``[K, size, 2]`` pairs or ``[K, size]``
+    xors, lane k under key k with counters ``base + i``."""
+    lanes = keys.shape[0]
+    check("keys", keys, torch.int64, (lanes, 2))
+    shape = (lanes, size, 2) if pairs else (lanes, size)
+    out = torch.empty(shape, dtype=torch.int64, device=keys.device)
+    if size and lanes:
+        kernels.THREEFRY_LANES.launch(
+            [keys, out], [size, i32(base), int(pairs), lanes])
+    return out
+
+
+def split_lanes_plain(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    b1, b2 = _hash_counts_lanes(keys, _size((num,)))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def split_lanes(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``vmap(jax.random.split)`` over keys ``[K, 2]``: ``[K, num, 2]``."""
+    if keys.device.type == "cpu":
+        return split_lanes_plain(keys, num)
+    return _threefry_lanes(keys, _size((num,)), 0, True)
+
+
+def fold_in_lanes_plain(keys: torch.Tensor, data) -> torch.Tensor:
+    """``data`` an int, or a [K] tensor folding lane k's own value (the
+    lanes' plan seeds)."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(torch.int64)
+    b1, b2 = _hash_counts_lanes(keys, 1, data & MASK32)
+    return torch.cat([b1, b2], dim=1)
+
+
+def fold_in_lanes(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """``vmap(jax.random.fold_in)`` of one ``data`` over keys ``[K, 2]``."""
+    if keys.device.type == "cpu":
+        return fold_in_lanes_plain(keys, data)
+    return _threefry_lanes(keys, 1, data & MASK32, True).reshape(-1, 2)
+
+
+def bits_lanes_plain(keys: torch.Tensor, shape: Sequence[int]):
+    b1, b2 = _hash_counts_lanes(keys, _size(shape))
+    return (b1 ^ b2).reshape(keys.shape[0], *shape)
+
+
+def bits_lanes(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``vmap(jax.random.bits)`` over keys ``[K, 2]``: int64
+    ``[K, *shape]`` in [0, 2^32)."""
+    if keys.device.type == "cpu":
+        return bits_lanes_plain(keys, shape)
+    return _threefry_lanes(keys, _size(shape), 0, False).reshape(
+        keys.shape[0], *shape)
+
+
+def randint_lanes_plain(keys: torch.Tensor, shape: Sequence[int],
+                        minval: int, maxval) -> torch.Tensor:
+    _check_minval(minval)
+    lanes = keys.shape[0]
+    shape = tuple(shape)
+    if isinstance(maxval, torch.Tensor):
+        hi = maxval.to(torch.int64).expand(lanes, *shape)
+    else:
+        hi = torch.full((), int(maxval), dtype=torch.int64,
+                        device=keys.device)
+    span, multiplier = _span_multiplier(hi, minval)
+    k = split_lanes_plain(keys, 2)
+    higher = bits_lanes_plain(k[:, 0], shape)
+    lower = bits_lanes_plain(k[:, 1], shape)
+    offset = (_mul32(higher % span, multiplier) + lower % span) & MASK32
+    offset = offset % span
+    return (minval + offset).to(torch.int32)
+
+
+def randint_lanes(keys: torch.Tensor, shape: Sequence[int], minval: int,
+                  maxval) -> torch.Tensor:
+    """``vmap(jax.random.randint)`` over keys ``[K, 2]``: int32
+    ``[K, *shape]``; ``maxval`` an int or an integer tensor broadcastable
+    to ``[K, *shape]``.  One launch of K5's lane entry on the card."""
+    if keys.device.type == "cpu":
+        return randint_lanes_plain(keys, shape, minval, maxval)
+    _check_minval(minval)
+    lanes = keys.shape[0]
+    shape = tuple(shape)
+    size = _size(shape)
+    check("keys", keys, torch.int64, (lanes, 2))
+    out = torch.empty((lanes, *shape), dtype=torch.int32, device=keys.device)
+    if not size or not lanes:
+        return out
+    if isinstance(maxval, torch.Tensor):
+        if maxval.dtype not in (torch.int32, torch.int64):
+            raise TypeError(
+                f"maxval must be int32 or int64, got {maxval.dtype}"
+            )
+        hi = maxval.expand(lanes, *shape).contiguous()
+        per_element = 1 if hi.dtype == torch.int32 else 2
+        span = mult = 0
+    else:
+        hi, per_element = None, 0
+        span, mult = scalar_span(minval, int(maxval))
+    kernels.RANDINT_LANES.launch(
+        [keys, hi, out],
+        [size, minval, i32(span), i32(mult), per_element, lanes])
+    return out

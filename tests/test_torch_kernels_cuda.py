@@ -1369,3 +1369,58 @@ def test_peerswap_fault_run_on_card_equals_cpu(card, family, packed):
     for a, b in zip(*outs):
         for name, x, y in zip(type(b)._fields, a, b):
             assert torch.equal(x.cpu(), y), name
+
+
+# -- the seed ensembles' lane entries (B16p) ---------------------------------
+
+
+@pytest.mark.parametrize("lanes, n", ((2, 1201), (3, 3001)))
+def test_lane_kernels(card, lanes, n):
+    """chip_smoke's phase 3k at small and ragged shapes: every lane entry
+    equal to its plain version, and each lane to the solo entry on its
+    inputs (K10 also at 16 lanes); two lanes at least, so that the lanes'
+    draws, overflow counts and done flags can differ."""
+    rows = _smoke().compare_lane_kernels(card, lanes=lanes, n=n,
+                                         timed=False)
+    assert all(r["equal"] for r in rows), [r["name"] for r in rows
+                                           if not r["equal"]]
+
+
+@pytest.mark.parametrize("faults_on", (False, True), ids=("storm", "fault"))
+def test_ensemble_on_card_equals_cpu(card, faults_on):
+    """Three lanes of the storm (or the fault storm) through the engine's
+    ensemble on the card: every lane state tensor and metric equal to the
+    same ensemble's plain versions on the CPU, and each lane to the card's
+    solo run of its seed."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_state, run_seed_ensemble)
+    from corrosion_tpu_torch.campaign.spec import (
+        CampaignSpec, storm_fault_events, storm_scenario)
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+
+    n, seeds = 1280, (0, 3, 5)
+    spec = CampaignSpec(
+        name="lanes", scenario=dict(storm_scenario(n), n_payloads=64,
+                                    packed_min_cells=0),
+        events=storm_fault_events(n) if faults_on else (), seeds=seeds)
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    plan = spec.fault_plan({}, seed=0)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        outs.append(run_seed_ensemble(plan, cfg, topo, meta, seeds,
+                                      max_rounds=3000, device=dev))
+    for a, b in zip(*outs):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y.cpu()), name
+    meta = uniform_payloads(cfg, card, inject_every=2)
+    for k, s in enumerate(seeds):
+        state = new_sim(cfg, s, card)
+        if plan is None:
+            solo, _ = run_to_convergence(state, meta, cfg, topo, 3000)
+        else:
+            fp = faults.compile_plan(dataclasses.replace(plan, seed=s), cfg,
+                                     topo, device=card)
+            solo, _ = faults.run_fault_plan(state, meta, cfg, topo, fp, 3000)
+        for name, x, y in zip(solo._fields, solo, lane_state(outs[0][0], k)):
+            assert torch.equal(x.cpu(), y.cpu()), (k, name)

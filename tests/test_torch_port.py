@@ -93,6 +93,23 @@ def test_cuda_source_names_the_jax_function_it_replaces(source):
     assert line.startswith(f"def {m.group(4)}("), (source, line)
 
 
+LANE_SOURCES = ("threefry.cu", "sample_targets.cu", "broadcast_scatter.cu",
+                "sync_pull.cu", "gaps_refresh.cu", "converge_fold.cu",
+                "word_phases.cu", "fault_edges.cu", "node_faults.cu")
+
+
+@pytest.mark.parametrize("source", LANE_SOURCES)
+def test_lane_note_names_the_ensemble(source):
+    """A source with a lane entry names the JAX ensemble it batches for,
+    at the line of its def."""
+    text = (CSRC / source).read_text()
+    m = re.search(r"corrosion_tpu/campaign/\s*ensemble\.py:(\d+)", text)
+    assert m, f"{source} does not name campaign/ensemble.py"
+    line = (ROOT / "corrosion_tpu" / "campaign" / "ensemble.py").read_text(
+    ).splitlines()[int(m.group(1)) - 1]
+    assert line.startswith("def run_ensemble("), (source, line)
+
+
 def test_library_name_follows_included_headers(tmp_path):
     """An edit to a header a source includes, directly or through another
     header, renames the source's library, so a stale build never loads;

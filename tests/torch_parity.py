@@ -292,3 +292,77 @@ def fault_plan_pair(family, sampler, packed, events, trace=False, deepen=0):
                     np.asarray(getattr(jout[2], name)),
                     getattr(pout[2], name).numpy(), err_msg=f"{at}: {name}")
     return jout, pout
+
+
+# -- the campaign engine and the seed ensembles -------------------------------
+
+#: JAX's tests/campaign/test_ensemble.py LANE_FIELDS: the per-lane state
+#: fields its ensemble test holds to the solo runs
+LANE_FIELDS = (
+    "t", "have", "alive", "heads", "relay_left", "incarnation",
+    "sync_backoff", "gap_lo", "gap_hi",
+)
+
+
+def storm_campaign_pair(n_nodes: int, n_payloads: int, seeds, faults: bool,
+                        grid=None, name="storm-lanes"):
+    """(JAX CampaignSpec, port CampaignSpec) of the storm cell at test
+    scale from one dict: `campaign.spec.storm_scenario` with
+    ``n_payloads`` and the packed envelope forced open, the fault storm's
+    events when ``faults``."""
+    from corrosion_tpu.campaign.spec import CampaignSpec as JaxSpec
+    from corrosion_tpu.faults import FaultEvent as JaxEvent
+    from corrosion_tpu_torch.campaign.spec import (
+        CampaignSpec, storm_fault_events, storm_scenario)
+
+    scenario = dict(storm_scenario(n_nodes), n_payloads=n_payloads,
+                    packed_min_cells=0)
+    events = storm_fault_events(n_nodes) if faults else ()
+    kw = dict(name=name, scenario=scenario, grid=dict(grid or {}),
+              seeds=tuple(seeds), max_rounds=3000)
+    jax_events = tuple(JaxEvent(**dataclasses.asdict(ev)) for ev in events)
+    return (JaxSpec(events=jax_events, **kw),
+            CampaignSpec(events=events, **kw))
+
+
+def run_both_ensembles(jspec, pspec):
+    """Each package's `run_seed_ensemble` on its spec's one cell: (JAX
+    finals, JAX metrics, port finals, port metrics, port cfg, port meta,
+    port plan)."""
+    from corrosion_tpu.campaign.ensemble import run_seed_ensemble as jrun
+    from corrosion_tpu.sim.state import uniform_payloads as jpayloads
+    from corrosion_tpu_torch.campaign.ensemble import run_seed_ensemble
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+
+    jcfg, jtopo = jspec.sim_config({}), jspec.topo({})
+    jf, jm = jrun(jspec.fault_plan({}, seed=jspec.seeds[0]), jcfg, jtopo,
+                  jpayloads(jcfg, inject_every=2), jspec.seeds,
+                  max_rounds=jspec.max_rounds)
+    cfg, topo = pspec.sim_config({}), pspec.topo({})
+    meta = uniform_payloads(cfg, "cpu", inject_every=2)
+    plan = pspec.fault_plan({}, seed=pspec.seeds[0])
+    pf, pm = run_seed_ensemble(plan, cfg, topo, meta, pspec.seeds,
+                               max_rounds=pspec.max_rounds, device="cpu")
+    return jf, jm, pf, pm, cfg, meta, plan
+
+
+def port_solo_runs(cfg, meta, plan, seeds):
+    """The port's solo runs of ``seeds`` on the CPU: `run_packed`, or
+    `run_fault_plan` under ``plan`` re-seeded per seed (its factored
+    compile)."""
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    out = []
+    for s in seeds:
+        state = new_sim(cfg, int(s), "cpu")
+        if plan is None:
+            out.append(run_to_convergence(state, meta, cfg, Topology(),
+                                          3000))
+        else:
+            fp = compile_plan(dataclasses.replace(plan, seed=int(s)), cfg,
+                              device="cpu")
+            out.append(run_fault_plan(state, meta, cfg, Topology(), fp,
+                                      3000))
+    return out
