@@ -10,8 +10,9 @@ result line):
    of K3, K9 and K10, the dense fault entries of K11–K14, K9's matrix
    entry K9m, K1's view entry, the tiered instantiations of K10 and
    K12, and the protocol axis's instantiations of K8, K10, K12, K18 and
-   K20, and the lane entries of K1–K11 for the seed ensembles) from the
-   twenty-two sources in ``corrosion_tpu_torch/kernels/csrc`` with
+   K20, and the lane entries of K1–K11 for the seed ensembles on the
+   packed round and of K12–K15, K1's uniform entry and K23 for those on
+   the dense round and the detect loop) from the twenty-two sources in ``corrosion_tpu_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
    k = 8, A = 16, V = 8, C = 4, K = 8; the fault storm's plan: Kb = 2,
@@ -136,8 +137,10 @@ result line):
 7. each from launch counters at 0: ``config_partition_heal_10k(seed=0)``
    (K1, K4, K5, K12–K14), ``config_broadcast_1k(seed=0)`` and
    ``config_ground_truth_3node(seed=0)`` (K1's uniform entry, K5,
-   K12–K14), ``membership_churn(4096, seed=0)`` (those, K15 and K23's
-   full entry, through ``run_membership_detect``), each
+   K12–K14), the 4096-node full-view churn through the solo
+   ``run_membership_detect`` (those, K15 and K23's full entry; the same
+   run ``membership_churn(4096, seed=0)`` makes through the engine's
+   lanes in the churn paths), each
    held against its goldens (heal round, rounds, p99, digest; the
    churn's detect round, digest and false DOWNs);
 8. each from launch counters at 0: ``config_write_storm_gapstress(
@@ -208,10 +211,16 @@ result line):
    K22's, K20's schedule's and K18's pull entries launched where the path
    runs them and not where it does not;
    then membership churn, each from launch counters at 0 through its
-   entry point: ``config_swim_churn_64(seed=0)`` (K23's full entry),
-   ``config_swim_churn_partial(seed=0)`` and the same run with
-   ``telemetry=True`` through ``run_membership_detect`` (K23's partial
-   entry; its telemetry golden, the whole trace by its digest),
+   entry point: ``config_swim_churn_64(seed=0)`` and
+   ``membership_churn(4096, seed=0)`` (through the campaign engine, as
+   JAX routes them: one lane of the detect loop, K23's full lane entry;
+   the config's record also against JAX's ``spec_hash`` and
+   ``result_digest``), the same 64-node run through the solo
+   ``run_membership_detect`` (K23's full entry),
+   ``config_swim_churn_partial(seed=0)`` (one lane, K23's partial lane
+   entry, JAX's engine keys) and the same run with ``telemetry=True``
+   through the solo ``run_membership_detect`` (K23's partial entry; its
+   telemetry golden, the whole trace by its digest),
    ``config_swim_churn_partial(seed=0, n=100000)`` (600 rounds, no
    detection, as in JAX), each with its K23 entry launched once a round
    (and K23 on no other path), and the flash crowd
@@ -235,7 +244,23 @@ result line):
    entry launched as often as its solo entry (phase 3k before the paths
    compares every lane entry at the 8-lane storm's shapes, each lane
    held to the solo entry on its inputs, K10 also at 16 lanes, past
-   2^31 flattened);
+   2^31 flattened); then the dense ensembles (B16d), each from launch
+   counters at 0 through ``run_campaign``: broadcast-1k-seeds8
+   (``campaign.spec.broadcast_seeds_spec``: config #3 as a cell, the
+   default byte budgets), swim-churn-64-seeds8, swim-churn-full-4096-
+   seeds8, swim-churn-partial-4096-seeds8 and swim-churn-partial-100k-
+   seeds8 (seeds 0-7), each with its lane entries launched and no solo
+   entry, its ``spec_hash`` and ``result_digest`` and every lane's
+   rounds, detect round or p99, detected fraction, false DOWNs and
+   digest against the goldens pinned from live JAX (at 100k lane 0
+   against JAX's solo golden, every lane against the port's solo run of
+   its seed on the card); the 100k, full-4096 and broadcast ensembles'
+   walls beside their 8 solo walls, with ``max_memory_allocated``
+   (phase 3l before the paths compares every dense lane entry at K = 8
+   on those paths' shapes — broadcast-1k's with the default and a
+   binding budget and a loss threshold, the churn paths' P = 1 at
+   100k, K15 at 8 × 4096², K23 with lanes that hold, miss, are already
+   set or have only dead watchers — each lane held to the solo entry);
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
@@ -250,7 +275,9 @@ result line):
    kernel from ``torch.profiler``, the device's idle share; the storm
    under the baseline family is held to 1526 launches too), and the
    first 3 rounds of the 8-lane storm and fault storm and of one lane,
-   beside a solo storm round profiled in the same call;
+   beside a solo storm round profiled in the same call, and the first 3
+   rounds of the 8-lane swim-churn-partial-100k, churn-full-4096 and
+   broadcast-1k rounds beside their solo rounds;
 17. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
@@ -5666,6 +5693,748 @@ def profile_ensemble(dev, lanes=ENSEMBLE_LANES, rounds=3, faults=False):
     return _profile(run, rounds, label, setup=setup)
 
 
+# -- the dense round's lanes (phase 3l, paths 36-40) ------------------------
+
+#: the dense lane rows each kind of dense ensemble launches
+DENSE_LANE_CORE = ("threefry_lanes", "dense_phases_lanes", "dense_sync_lanes",
+                   "dense_gaps_lanes")
+DENSE_LANE_ROWS = {
+    "ground": DENSE_LANE_CORE + ("sample_uniform_lanes",),
+    "full": DENSE_LANE_CORE + ("sample_uniform_lanes", "swim_full_lanes",
+                               "detect_full_lanes"),
+    "partial": DENSE_LANE_CORE + ("sample_targets_lanes",
+                                  "merge_entries_lanes",
+                                  "detect_partial_lanes"),
+}
+SOLO_OF_LANE.update({"dense_phases_lanes": "dense_phases",
+                     "dense_sync_lanes": "dense_sync",
+                     "dense_gaps_lanes": "dense_gaps",
+                     "swim_full_lanes": "swim_full",
+                     "sample_uniform_lanes": "sample_uniform",
+                     "detect_full_lanes": "detect_full",
+                     "detect_partial_lanes": "detect_partial"})
+_VMAP_DENSE = " (vmapped at corrosion_tpu/campaign/ensemble.py:114, :187)"
+_CSRC = "corrosion_tpu_torch/kernels/csrc/"
+
+
+def _dense_lane_row(name, kernel, source, replaces, equal, err, ms, plain_ms,
+                    nbytes, lanes, **extra):
+    return _row(name, _CSRC + source, replaces + _VMAP_DENSE, equal, err, ms,
+                plain_ms, nbytes, kernel=kernel, lanes=lanes, **extra)
+
+
+def _stack(xs):
+    return torch.stack(list(xs)).contiguous()
+
+
+def _broadcast_cfg(dev, n=1000, p=256):
+    """broadcast-1k-seeds8's config (the default byte budgets) and
+    payloads, or the churn paths' (``p`` 1: one writer, one payload)."""
+    from corrosion_tpu_torch.campaign.spec import broadcast_seeds_spec
+    from corrosion_tpu_torch.sim.state import SimConfig, uniform_payloads
+
+    if p == 1:
+        cfg = SimConfig.wan_tuned(n, n_payloads=1, swim_partial_view=True,
+                                  probe_period_rounds=1)
+        return cfg, uniform_payloads(cfg, dev, inject_every=1)
+    cfg = dataclasses.replace(broadcast_seeds_spec().sim_config({}),
+                              n_nodes=n)
+    return cfg, uniform_payloads(cfg, dev, inject_every=2)
+
+
+def _lane_round_inputs(g, dev, cfg, meta, t, lanes):
+    """K lanes of `_dense_round_inputs` and of targets with self and -1
+    slots, stacked: (xs, targets, dst, slot, ok, keys)."""
+    from corrosion_tpu_torch.sim.topology import edge_alive
+
+    n, f, d = cfg.n_nodes, cfg.fanout, cfg.n_delay_slots
+    xs, tgts, dsts, oks = [], [], [], []
+    for _ in range(lanes):
+        have, relay, injected, ring, sync_ring, alive, group = \
+            _dense_round_inputs(g, dev, cfg, meta, t)
+        xs.append([have, relay, injected, ring, sync_ring, alive])
+        me = np.arange(n)[:, None]
+        tg = np.where(g.random((n, f)) < 0.05, -1, g.integers(0, n, (n, f)))
+        targets = torch.as_tensor(np.where(g.random((n, f)) < 0.02, me, tg),
+                                  dtype=torch.int32, device=dev)
+        src = torch.arange(n, dtype=torch.int32,
+                           device=dev).repeat_interleave(f)
+        dst = torch.clamp(targets.reshape(-1), min=0)
+        ok = (targets.reshape(-1) >= 0) & edge_alive(group, alive, src, dst)
+        tgts.append(targets)
+        dsts.append(dst)
+        oks.append(ok & (dst != src))
+    xs = [_stack(col) for col in zip(*xs)]
+    slot = torch.full((lanes, n * f), t % d, dtype=torch.int32, device=dev)
+    return (xs, _stack(tgts), _stack(dsts), slot, _stack(oks),
+            _lane_keys(dev, lanes, 4000))
+
+
+def _lane_round(dl, xs, meta, cfg, targets, dst, slot, ok, keys, budget,
+                thr, t, kernel=True):
+    """One round's K12 lane entries on ``xs`` in place: the wrappers, or
+    the plain lane versions."""
+    have, relay, injected, ring, sync_ring, alive = xs
+    inj = dl.inject_dense_lanes if kernel else dl.inject_dense_lanes_plain
+    send = (dl.broadcast_send_lanes if kernel
+            else dl.broadcast_send_lanes_plain)
+    dlv = dl.deliver_dense_lanes if kernel else dl.deliver_dense_lanes_plain
+    inj(have, relay, injected, meta, alive, t, cfg.max_transmissions)
+    send(have, relay, injected, meta.nbytes, budget, targets, dst, slot, ok,
+         alive, keys, thr, ring)
+    dlv(ring, sync_ring, have, relay, t % ring.shape[1],
+        max(cfg.max_transmissions - 1, 1))
+
+
+def compare_lane_dense_phases(dev, g, lanes, n=1000, p=256, timed=True):
+    """K12's lane entries (inject, broadcast, deliver) over a round at
+    broadcast-1k-seeds8's shapes (N = 1000, P = 256, F = 3, D = 4, the
+    default budgets) or the churn paths' (P = 1): the path's case, and
+    (at P = 256) a trap with a binding byte budget and a loss threshold
+    of 51 under each lane's own key; the last lane held to the solo
+    entries on its inputs."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+
+    cfg, meta = _broadcast_cfg(dev, n, p)
+    t = 20 if p > 1 else 0
+    xs, targets, dst, slot, ok, keys = _lane_round_inputs(g, dev, cfg, meta,
+                                                          t, lanes)
+    cases = [("path", cfg.rate_limit_bytes_round, 0)]
+    budget_trap = 20 * 8192 + 4096
+    if p > 1:
+        cases.append(("trap", budget_trap, 51))
+    equal, err, runs = True, 0, {}
+    for label, budget, thr in cases:
+        outs = []
+        for kernel in (True, False):
+            ys = [x.clone() for x in xs]
+            _lane_round(dl, ys, meta, cfg, targets, dst, slot, ok, keys,
+                        budget, thr, t, kernel)
+            outs.append(ys)
+        e, x = _equal_all(outs[0], outs[1])
+        equal, err = equal and e, max(err, x)
+        runs[label] = outs[0]
+        last = lanes - 1
+        solo = [x[last].clone() for x in xs]
+        _dense_round_phases(bc, solo, meta, cfg, targets[last], dst[last],
+                            slot[last], ok[last], keys[last], budget, thr, t)
+        _solo_trap(f"dense_phases lanes {label} N={n} P={p}",
+                   [x[last] for x in outs[0]], solo)
+    if p > 1:
+        have, relay, injected = xs[:3]
+        eligible = (have > 0) & (relay > 0) & (injected > 0)[:, None, :]
+        if int(eligible.sum(dim=2).max()) * 8192 <= budget_trap:
+            raise AssertionError("K12 lane inputs: the budget never binds")
+        if int(eligible.sum(dim=2).max()) * 8192 > cfg.rate_limit_bytes_round:
+            raise AssertionError("K12 lane inputs: the default budget binds")
+    work = [x.clone() for x in xs]
+
+    def restore():
+        for dst_, src_ in zip(work, xs):
+            dst_.copy_(src_)
+
+    def round_(kernel):
+        return lambda: _lane_round(dl, work, meta, cfg, targets, dst, slot,
+                                   ok, keys, cfg.rate_limit_bytes_round, 0,
+                                   t, kernel)
+
+    nbytes = (_nbytes(*xs[:3], xs[5], targets, dst, slot, ok, meta.nbytes,
+                      meta.round, meta.actor)
+              + 2 * lanes * n * p  # the two ring slots deliver reads
+              + _changed_bytes(xs[:5], runs["path"][:5]))
+    tag = "" if p > 1 else f"_{n // 1000}k"
+    return _dense_lane_row(
+        "dense_phases_lanes" + tag, "dense_phases_lanes", "dense_phases.cu",
+        "corrosion_tpu/sim/broadcast.py:32", equal, err,
+        _timed(timed, round_(True), restore),
+        _timed(timed, round_(False), restore), nbytes, lanes, n=n, p=p)
+
+
+def _lane_advertised(g, dev, cfg, lanes):
+    """K lanes of held rows and their advertised heads and gap slots."""
+    have = _u8(g, (lanes, cfg.n_nodes, cfg.n_payloads), 0.5, dev)
+    adv = [_advertised(g, dev, cfg, have[k], 40) for k in range(lanes)]
+    heads, lo, hi = (_stack(a[i] for a in adv) for i in range(3))
+    return have, heads, lo, hi, sum(a[3] for a in adv)
+
+
+def compare_lane_dense_sync(dev, g, lanes, n=1000, p=256, timed=True):
+    """K13's lane entry at broadcast-1k-seeds8's shapes (N = 1000, P =
+    256, A = 8, V = 32, K = 8, S = 3, D = 4) under the default sync
+    budget and under a binding one, or at the churn paths' (P = 1);
+    gaps past K, self and dead peers; the last lane held to the solo
+    entry."""
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import sync
+
+    cfg, meta = _broadcast_cfg(dev, n, p)
+    s, d = cfg.sync_peers, cfg.n_delay_slots
+    have, heads, lo, hi, n_over = _lane_advertised(g, dev, cfg, lanes)
+    if p > 1 and n_over == 0:
+        raise AssertionError("K13 lane inputs: no row past K gap runs")
+    me = np.arange(n)[None, :, None]
+    peers = np.where(g.random((lanes, n, s)) < 0.03, me,
+                     g.integers(0, n, (lanes, n, s)))
+    peers = torch.as_tensor(peers, dtype=torch.int32, device=dev)
+    ok = torch.as_tensor(g.random((lanes, n, s)) < 0.7, device=dev) & (
+        peers != torch.arange(n, device=dev)[None, :, None])
+    ring0 = _u8(g, (lanes, d, n, p), 0.01, dev)
+    slot = 3 % d
+    budget_trap = 6 * 8192 + 100
+    budgets = [cfg.sync_budget_bytes] + ([budget_trap] if p > 1 else [])
+    equal, err, outs = True, 0, {}
+    for budget in budgets:
+        got_r, want_r = ring0.clone(), ring0.clone()
+        args = (have, heads, lo, hi, peers, ok, meta.nbytes, budget)
+        got = dl.sync_pull_dense_lanes(*args, got_r, cfg, slot)
+        want = dl.sync_pull_dense_lanes_plain(*args, want_r, cfg, slot)
+        e, x = _equal_all([got, got_r], [want, want_r])
+        equal, err = equal and e, max(err, x)
+        outs[budget] = want_r
+        last = lanes - 1
+        solo_r = ring0[last, slot].clone()
+        solo = sync.sync_pull_dense(have[last], heads[last], lo[last],
+                                    hi[last], peers[last], ok[last],
+                                    meta.nbytes, budget, solo_r, cfg)
+        _solo_trap(f"dense_sync lanes budget={budget} N={n} P={p}",
+                   [got[last], got_r[last, slot]], [solo, solo_r])
+    if p > 1 and torch.equal(outs[cfg.sync_budget_bytes], outs[budget_trap]):
+        raise AssertionError("K13 lane inputs: the sync budget never binds")
+    work = ring0.clone()
+
+    def restore():
+        work.copy_(ring0)
+
+    args = (have, heads, lo, hi, peers, ok, meta.nbytes,
+            cfg.sync_budget_bytes)
+    nbytes = (_nbytes(have, heads, lo, hi, peers, ok, meta.nbytes)
+              + _changed_bytes([ring0], [outs[cfg.sync_budget_bytes]])
+              + lanes * n)
+    tag = "" if p > 1 else f"_{n // 1000}k"
+    return _dense_lane_row(
+        "dense_sync_lanes" + tag, "dense_sync_lanes", "dense_sync.cu",
+        "corrosion_tpu/sim/sync.py:122", equal, err,
+        _timed(timed, lambda: dl.sync_pull_dense_lanes(*args, work, cfg,
+                                                       slot), restore),
+        _timed(timed, lambda: dl.sync_pull_dense_lanes_plain(
+            *args, work, cfg, slot), restore),
+        nbytes, lanes, n=n, p=p)
+
+
+def compare_lane_dense_gaps(dev, g, lanes, n=1000, p=256, timed=True):
+    """K14's lane entries at broadcast-1k-seeds8's shapes (A = 8, V = 32,
+    K = 8) or the churn paths' (P = 1): lanes in three states at one
+    round — holes past K (not done), every cell held (done), one up cell
+    short (not done) — so the done flags differ by lane; the last lane
+    held to the solo entries."""
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim.round import RunMetrics, dense_record
+
+    cfg, meta = _broadcast_cfg(dev, n, p)
+    cases = _dense_record_cases(g, dev, cfg, meta)
+    t = cases[1][5]
+    picks = [cases[k % 3] for k in range(lanes)]
+    have = _stack(c[0] for c in picks)
+    injected = _stack(c[1] for c in picks)
+    alive = _stack(c[2] for c in picks)
+    metrics = RunMetrics(*(_stack(getattr(c[3], f) for c in picks)
+                           for f in RunMetrics._fields))
+    args = (have, injected, alive, metrics, meta, t, cfg)
+    got, want = dl.dense_record_lanes(*args), dl.dense_record_lanes_plain(*args)
+    equal, err = _equal_all(got, want)
+    dones = want[6].tolist()
+    if len(set(dones)) < 2:
+        raise AssertionError(f"K14 lane inputs: done flags {dones} all equal")
+    if p > 1 and int(want[3][0]) == 0:
+        raise AssertionError("K14 lane inputs overflow no row")
+    last = lanes - 1
+    _solo_trap(f"dense_gaps lanes N={n} P={p} dones={dones}",
+               [x[last] for x in got],
+               dense_record(have[last], injected[last], alive[last],
+                            RunMetrics(*(x[last] for x in metrics)), meta, t,
+                            cfg))
+    a, k = cfg.n_writers, cfg.gap_slots
+    nbytes = lanes * (n * p + p + n + p * 4 + n * 4 * 2 + p * 4 * 2
+                      + n * a * 4 * (1 + 2 * k) + 4 + 1)
+    tag = "" if p > 1 else f"_{n // 1000}k"
+    return _dense_lane_row(
+        "dense_gaps_lanes" + tag, "dense_gaps_lanes", "dense_gaps.cu",
+        "corrosion_tpu/sim/gaps.py:64", equal, err,
+        _timed(timed, lambda: dl.dense_record_lanes(*args)),
+        _timed(timed, lambda: dl.dense_record_lanes_plain(*args)),
+        nbytes, lanes, n=n, p=p, dones=dones)
+
+
+def _lane_swim_inputs(g, dev, lanes, n, f, t):
+    """K lanes of `compare_swim_full`'s inputs, stacked: (base, args)."""
+    def i32(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+    view = torch.as_tensor(g.choice(3, (lanes, n, n), p=[0.8, 0.1, 0.1]),
+                           dtype=torch.int8, device=dev)
+    vinc = i32(g.integers(0, 6, (lanes, n, n)))
+    since = i32(np.where(g.random((lanes, n, n)) < 0.5,
+                         g.integers(0, t + 1, (lanes, n, n)), -1))
+    inc = i32(g.integers(0, 6, (lanes, n)))
+    gdst = i32(g.integers(0, n, (lanes, n * f)))
+    g_ok = torch.as_tensor(g.random((lanes, n * f)) < 0.9, device=dev)
+    ann_target = i32(g.integers(0, n, (lanes, n)))
+    ann_claim = torch.where(torch.as_tensor(g.random((lanes, n)) < 0.3,
+                                            device=dev), inc * 4, -1).to(
+        torch.int32)
+    up = torch.as_tensor(g.random((lanes, n)) < 0.95, device=dev)
+    heard_down = torch.as_tensor(g.random((lanes, n)) < 0.05, device=dev)
+    fb_inc = i32(np.where(g.random((lanes, n)) < 0.05,
+                          g.integers(0, 8, (lanes, n)), -1))
+    return ([view, vinc, since, inc],
+            (gdst, g_ok, ann_target, ann_claim, up, heard_down, fb_inc))
+
+
+def _lane_swim_passes(dl, xs, args, f, t, timeout, kernel=True):
+    """K15's three lane passes on ``xs`` in place, with the receiver
+    filter between them; returns (keys, merged, incarnations)."""
+    view, vinc, since, inc = xs
+    gdst, g_ok, ann_target, ann_claim, up, heard_down, fb_inc = args
+    if kernel:
+        timeout_, merge, apply_ = (dl.swim_timeout_lanes_,
+                                   dl.swim_merge_lanes, dl.swim_apply_lanes_)
+    else:
+        timeout_, merge, apply_ = (dl.swim_timeout_lanes_plain,
+                                   dl.swim_merge_lanes_plain,
+                                   dl.swim_apply_lanes_plain)
+    key = timeout_(view, vinc, since, t, timeout)
+    lanes, n = up.shape
+    gsrc = torch.arange(n, device=view.device).repeat_interleave(f)
+    ok = g_ok & (dl._cells(view, gdst, gsrc[None].expand(lanes, -1)) != 2)
+    merged = merge(key, gdst, ok, f, ann_target, ann_claim)
+    return key, merged, apply_(view, vinc, since, key, merged, inc, up,
+                               heard_down, fb_inc, t)
+
+
+def compare_lane_swim_full(dev, g, lanes, n=4096, f=3, timed=True):
+    """K15's lane entries at swim-churn-full-4096-seeds8's shapes (K = 8
+    lanes of N = 4096, F = 3: 134 M belief cells): SUSPECT cells past the
+    timeout, DOWN receivers, announce claims, refutes; the last lane
+    held to the solo entries."""
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import swim as sw
+
+    t, timeout = 40, 13
+    base, args = _lane_swim_inputs(g, dev, lanes, n, f, t)
+    outs = []
+    for kernel in (True, False):
+        xs = [x.clone() for x in base]
+        res = _lane_swim_passes(dl, xs, args, f, t, timeout, kernel)
+        outs.append(list(res) + xs)
+    equal, err = _equal_all(outs[0], outs[1])
+    last = lanes - 1
+    solo = [x[last].clone() for x in base]
+    gdst, g_ok, ann_target, ann_claim, up, heard_down, fb_inc = (
+        a[last] for a in args)
+    res = _swim_passes(sw, solo, gdst, g_ok, f, ann_target, ann_claim, up,
+                       heard_down, fb_inc, t, timeout)
+    _solo_trap(f"swim_full lanes N={n}", [x[last] for x in outs[0]],
+               list(res) + solo)
+    key, merged, new_inc = outs[1][:3]
+    if not (bool((new_inc != base[3]).any())
+            and bool((merged > key).any())):
+        raise AssertionError("K15 lane inputs refute or merge nothing")
+    work = [x.clone() for x in base]
+
+    def restore():
+        for dst_, src_ in zip(work, base):
+            dst_.copy_(src_)
+
+    cells = lanes * n * n
+    nbytes = (cells * 9 + lanes * (n * f * 5 + n * 4 * 4 + n * 2)
+              + _changed_bytes(base, outs[1][3:]))
+    return _dense_lane_row(
+        "swim_full_lanes", "swim_full_lanes", "swim_full.cu",
+        "corrosion_tpu/sim/swim.py:185", equal, err,
+        _timed(timed, lambda: _lane_swim_passes(dl, work, args, f, t,
+                                                timeout), restore),
+        _timed(timed, lambda: _lane_swim_passes(dl, work, args, f, t,
+                                                timeout, False), restore),
+        nbytes, lanes, n=n)
+
+
+def compare_lane_sample_uniform(dev, g, lanes, n=4096, count=3,
+                                timed=True):
+    """K1's uniform lane entry: K lanes of a churn-full-4096 draw with
+    beliefs (DOWN cells, self candidates, repeats, rows left short), and
+    of a broadcast-1k draw without (ground truth); the last lane held to
+    the solo entry."""
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import swim
+
+    rows = []
+    over = 4 * count
+    for size, beliefs in ((n, True), (1000, False)):
+        me = np.arange(size)[None, None, :]
+        cand = g.integers(0, size, (lanes, over, size))
+        cand = np.where(g.random((lanes, over, size)) < 0.05, me, cand)
+        cand[:, 1] = np.where(g.random((lanes, size)) < 0.3, cand[:, 0],
+                              cand[:, 1])
+        cand_t = torch.as_tensor(cand, dtype=torch.int32, device=dev)
+        view = (torch.as_tensor(
+            np.where(g.random((lanes, size, size)) < 0.5, 2,
+                     g.integers(0, 2, (lanes, size, size))),
+            dtype=torch.int8, device=dev) if beliefs else None)
+        got = dl.sample_uniform_lanes(cand_t, view, count)
+        want = dl.sample_uniform_lanes_plain(cand_t, view, count)
+        equal, err = _equal_all([got], [want])
+        if beliefs and not bool((want == -1).any()):
+            raise AssertionError("K1 uniform lane inputs leave no row short")
+        last = lanes - 1
+        _solo_trap(f"sample_uniform lanes N={size} beliefs={beliefs}",
+                   [got[last]], [swim.sample_uniform(
+                       cand_t[last], None if view is None else view[last],
+                       count)])
+        rows.append(_dense_lane_row(
+            "sample_uniform_lanes" + ("" if beliefs else "_ground"),
+            "sample_uniform_lanes", "sample_targets.cu",
+            "corrosion_tpu/sim/swim.py:59", equal, err,
+            _timed(timed, lambda: dl.sample_uniform_lanes(cand_t, view,
+                                                          count)),
+            _timed(timed, lambda: dl.sample_uniform_lanes_plain(
+                cand_t, view, count)),
+            cand_t.numel() * (5 if beliefs else 4) + lanes * size * count * 4,
+            lanes, n=size))
+    return rows
+
+
+def compare_lane_detect(dev, g, lanes, timed=True, full_n=CHURN_N,
+                        partial_n=STORM_N):
+    """K23's lane entries: full view at swim-churn-full-4096's shape and
+    partial view at swim-churn-partial-100k's (M = 64), K lanes whose
+    inputs differ — lanes that hold (every watched cell DOWN), lanes with
+    one watched cell short, a lane whose detect_round was already set,
+    and a lane of all-dead watchers — each lane's word equal to the solo
+    entry's on its inputs, scratch words back at 0."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    rows = []
+    t = 23
+    for kind, n in (("full", full_n), ("partial", partial_n)):
+        tables, ups = [], []
+        for k in range(lanes):
+            if kind == "full":
+                up_np = np.arange(n) % 3 != 0
+                view_np = g.integers(0, 3, (n, n)).astype(np.int8)
+                view_np[np.ix_(up_np, ~up_np)] = 2
+                if k % 2:
+                    i = int(np.flatnonzero(up_np)[k])
+                    view_np[i, int(np.flatnonzero(~up_np)[k])] = 1
+                x = (torch.as_tensor(view_np, device=dev),)
+                up = torch.as_tensor(up_np, device=dev)
+            else:
+                pid, pkey, up, watched = _partial_tables(g, n, 64, dev)
+                if k % 2:
+                    i, s = (int(v[k]) for v in np.nonzero(watched))
+                    pkey[i, s] -= 2
+                x = (pid, pkey)
+            if k == (2 if lanes > 3 else 0):
+                up = torch.zeros_like(up)  # every watcher dead
+            tables.append(x)
+            ups.append(up)
+        xs = [_stack(col) for col in zip(*tables)]
+        up = _stack(ups)
+        start = tel.new_detect_lanes(lanes, dev)
+        start[lanes - 1, 0] = 5  # already detected: stays
+        entry = tel.detect_full_lanes_ if kind == "full" \
+            else tel.detect_partial_lanes_
+        plain = tel.detect_full_lanes_plain if kind == "full" \
+            else tel.detect_partial_lanes_plain
+        got, want = start.clone(), start.clone()
+        entry(got, *xs, up, t)
+        plain(want, *xs, up, t)
+        equal, err = _equal_all([got], [want])
+        rounds = got[:, 0].tolist()
+        if not (t in rounds and -1 in rounds and 5 in rounds) or bool(
+                got[:, 1:].any()):
+            raise AssertionError(f"detect_{kind} lanes: words "
+                                 f"{got.tolist()}")
+        solo = tel.new_detect(dev)
+        solo_entry = tel.detect_full_ if kind == "full" \
+            else tel.detect_partial_
+        solo_entry(solo, *(x[0] for x in xs), up[0], t)
+        _solo_trap(f"detect_{kind} lanes N={n} rounds={rounds}", [got[0]],
+                   [solo])
+        det, det2 = start.clone(), start.clone()
+        n_up = int(up.sum())
+        per_cell = n if kind == "full" else 64 * 8
+        rows.append(_dense_lane_row(
+            f"detect_{kind}_lanes", f"detect_{kind}_lanes",
+            "membership_detect.cu", "corrosion_tpu/sim/telemetry.py:318",
+            equal, err,
+            _timed(timed, lambda: entry(det, *xs, up, t)),
+            _timed(timed, lambda: plain(det2, *xs, up, t)),
+            n_up * per_cell + lanes * n, lanes, n=n))
+    return rows
+
+
+def compare_dense_lane_kernels(dev, seed=11, lanes=ENSEMBLE_LANES,
+                               timed=True, big=True):
+    """Phase 3l: every lane entry of the dense round and the detect loop
+    against its plain version at K = 8 on its paths' shapes, each lane
+    held to the solo entry on its inputs, binding budgets included;
+    ``big`` False shrinks the 100k and 4096 shapes to 3000 and 300 nodes
+    (a CPU rehearsal)."""
+    g = np.random.default_rng(seed)
+    wide, full = (STORM_N, CHURN_N) if big else (3000, 300)
+    rows = [compare_lane_dense_phases(dev, g, lanes, timed=timed),
+            compare_lane_dense_sync(dev, g, lanes, timed=timed),
+            compare_lane_dense_gaps(dev, g, lanes, timed=timed),
+            compare_lane_dense_phases(dev, g, lanes, wide, 1, timed),
+            compare_lane_dense_sync(dev, g, lanes, wide, 1, timed),
+            compare_lane_dense_gaps(dev, g, lanes, wide, 1, timed),
+            compare_lane_swim_full(dev, g, lanes, n=full, timed=timed)]
+    rows += compare_lane_sample_uniform(dev, g, lanes, n=full, timed=timed)
+    rows += compare_lane_detect(dev, g, lanes, timed, full, wide)
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+#: paths 36-40: (label, spec builder, membership kind, golden name, solo
+#: walls and profile?)
+DENSE_ENSEMBLE_PATHS = (
+    ("broadcast_1k_seeds8", "broadcast", "ground", "BROADCAST_1K_SEEDS8"),
+    ("swim_churn_64_seeds8", "churn64", "full", "SWIM_CHURN_64_SEEDS8"),
+    ("swim_churn_full_4096_seeds8", "churn4096", "full",
+     "SWIM_CHURN_FULL_4096_SEEDS8"),
+    ("swim_churn_partial_4096_seeds8", "partial4096", "partial",
+     "SWIM_CHURN_PARTIAL_4096_SEEDS8"),
+    ("swim_churn_partial_100k_seeds8", "partial100k", "partial",
+     "SWIM_CHURN_PARTIAL_100K_SEEDS8"),
+)
+
+
+def dense_path_spec(which, seeds=range(ENSEMBLE_LANES)):
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    return {
+        "broadcast": lambda: sp.broadcast_seeds_spec(seeds),
+        "churn64": lambda: sp.swim_churn_64_spec(seeds=seeds),
+        "churn4096": lambda: sp.swim_churn_64_spec(seeds=seeds, n=CHURN_N),
+        "partial4096": lambda: sp.swim_churn_partial_spec(seeds=seeds),
+        "partial100k": lambda: sp.swim_churn_partial_spec(seeds=seeds,
+                                                          n=STORM_N),
+    }[which]()
+
+
+def _dense_solo_runs(spec, dev):
+    """The port's solo runs of a dense path's seeds on the card: the
+    detect loop (`run_membership_detect` on `churn_setup`) or the dense
+    convergence loop (`run_to_convergence`); their finals, detect rounds
+    (-1, or None for a convergence run) and host walls."""
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.runner import churn_setup
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+    from corrosion_tpu_torch.sim.telemetry import run_membership_detect
+
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    out = []
+    for s in spec.seeds:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if spec.detect_membership({}):
+            meta, state = churn_setup(cfg, int(s), dev)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            final, _, det = run_membership_detect(
+                state, meta, cfg, topo, spec.max_rounds, device=dev)
+            det = int(det)
+        else:
+            meta = uniform_payloads(cfg, dev, inject_every=2)
+            final, _ = run_to_convergence(new_sim(cfg, int(s), dev), meta,
+                                          cfg, topo, spec.max_rounds)
+            det = None
+        torch.cuda.synchronize()
+        out.append((final, det, time.monotonic() - t0))
+    return out
+
+
+def dense_ensemble_paths(dev, goldens):
+    """Paths 36-40: the five dense ensembles through `campaign.engine.
+    run_campaign` (seeds 0-7), each from zeroed counters: every lane
+    entry of the path launched, no solo entry of a kernel that has one;
+    the artifact's spec_hash and result_digest and each lane's rounds,
+    detect round or p99, digest, detected fraction and false DOWNs
+    against the golden pinned from live JAX; swim-churn-partial-100k's
+    lanes (JAX's CPU run does not fit) each against the port's solo run
+    of its seed on this card, lane 0 also against JAX's solo golden.
+    The 100k, full-4096 and broadcast ensembles' walls beside their 8
+    solo walls, with max_memory_allocated.  Returns the launches per path
+    and the printed numbers."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.convert import state_digest
+
+    launches, numbers = {}, {}
+    for label, which, kind, golden_name in DENSE_ENSEMBLE_PATHS:
+        spec = dense_path_spec(which)
+        kept = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        art = run_campaign(spec, device=dev, lanes_out=kept)
+        peak = torch.cuda.max_memory_allocated()
+        counts = _path_launches(kernels, DENSE_LANE_ROWS[kind], label)
+        solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+        if solo_on:
+            raise AssertionError(f"{label}: solo entries {solo_on} launched "
+                                 "on a lane path")
+        launches[label] = counts
+        cell = art["cells"][0]
+        ps = cell["per_seed"]
+        finals = kept[0]["finals"]
+        detect = spec.detect_membership({})
+        lanes = []
+        for i, s in enumerate(cell["seeds"]):
+            lane = {"seed": s, "rounds": ps["rounds"][i],
+                    "digest": state_digest(lane_state(finals, i))}
+            if detect:
+                lane["detect_round"] = ps["detect_round"][i]
+                lane["detected_fraction"] = ps["detected_fraction"][i]
+                if "false_positive_downs" in ps:
+                    lane["false_positive_downs"] = \
+                        ps["false_positive_downs"][i]
+            else:
+                lane["p99_node_convergence_round"] = \
+                    ps["p99_node_convergence_round"][i]
+            lanes.append(lane)
+        got = {"spec_hash": art["spec_hash"],
+               "result_digest": art["result_digest"], "lanes": lanes}
+        print(f"{label}: {json.dumps(got)} wall_clock_s="
+              f"{cell['wall_clock_s']} wall_verdict={cell['wall_verdict']} "
+              f"round_path={cell['round_path']}", flush=True)
+        if cell["round_path"] != "dense":
+            raise AssertionError(f"{label}: round_path {cell['round_path']}")
+        golden = getattr(goldens, golden_name)
+        want = {key: golden[key] for key in got if key in golden}
+        if {key: got[key] for key in want} != want or (
+                "lane0" in golden and lanes[0] != golden["lane0"]):
+            raise AssertionError(f"{label}: differs from its golden")
+        del kept
+        entry = {"ensemble_wall_s": cell["wall_clock_s"],
+                 "max_memory_allocated_bytes": peak}
+        if which in ("partial100k", "churn4096", "broadcast"):
+            solos = _dense_solo_runs(spec, dev)
+            solo = [state_digest(f) for f, _, _ in solos]
+            if solo != [lane["digest"] for lane in lanes]:
+                raise AssertionError(f"{label}: a lane differs from its solo "
+                                     "run")
+            if detect and [d for _, d, _ in solos] != [
+                    -1 if lane["detect_round"] is None
+                    else lane["detect_round"] for lane in lanes]:
+                raise AssertionError(f"{label}: detect rounds differ from "
+                                     "the solo runs'")
+            entry["solo_walls_s"] = [w for _, _, w in solos]
+            entry["solo_walls_sum_s"] = sum(entry["solo_walls_s"])
+            print(f"{label}: every lane equal to its solo run; ensemble wall "
+                  f"{cell['wall_clock_s']} s against the solo walls' sum "
+                  f"{entry['solo_walls_sum_s']:.4f} s; max_memory_allocated "
+                  f"{peak} bytes", flush=True)
+        numbers[label] = entry
+        _lap(label)
+    return launches, numbers
+
+
+def _dense_path_setup(which, lanes, dev):
+    """A dense path's config, payloads and round-0 state: K stacked lanes
+    (seeds 0..K-1, the kill applied on detect paths) or, with ``lanes``
+    None, the solo state of seed 0."""
+    from corrosion_tpu_torch.campaign.ensemble import seed_states
+    from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.runner import churn_setup
+    from corrosion_tpu_torch.sim.state import ALIVE, DOWN, uniform_payloads
+
+    spec = dense_path_spec(which)
+    cfg = spec.sim_config({})
+    detect = spec.detect_membership({})
+    if lanes is None:
+        if detect:
+            return (cfg,) + churn_setup(cfg, 0, dev)
+        return (cfg, uniform_payloads(cfg, dev, inject_every=2),
+                new_sim(cfg, 0, dev))
+    meta = uniform_payloads(cfg, dev, inject_every=1 if detect else 2)
+    states = seed_states(cfg, range(lanes), dev)
+    if detect:
+        kill = torch.arange(cfg.n_nodes, device=dev) % 3 == 0
+        alive = torch.where(kill, DOWN, ALIVE).to(torch.uint8)
+        states = states._replace(
+            alive=alive.expand(states.alive.shape).contiguous())
+    return cfg, meta, states
+
+
+def profile_dense_path(dev, which, lanes=ENSEMBLE_LANES, rounds=3):
+    """The first ``rounds`` rounds of a dense path: with ``lanes`` the
+    lane round (`dense_lanes.dense_round_step_lanes`, K23's lane entry on
+    detect paths, the one host read of the [K] flags a round), with
+    ``lanes`` None the solo round (`round.round_step_`, K23's solo entry,
+    the solo read); device ms, launches and idle share a round."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+    from corrosion_tpu_torch.sim.dense_lanes import (
+        dense_round_step_lanes, lane_batch)
+    from corrosion_tpu_torch.sim.round import (
+        new_metrics, own_state, round_step_)
+    from corrosion_tpu_torch.sim.state import ALIVE
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    topo = Topology()
+    spec = dense_path_spec(which)
+    cfg = spec.sim_config({})
+    detect = spec.detect_membership({})
+    region = regions(cfg.n_nodes, 1, dev)
+
+    def setup():
+        _, meta, state = _dense_path_setup(which, lanes, dev)
+        if lanes is None:
+            out = (meta, own_state(state), new_metrics(cfg, dev),
+                   state.alive == ALIVE, tel.new_detect(dev))
+        else:
+            batch = lane_batch(state, cfg)
+            out = (meta, batch.slim, batch.metrics, state.alive == ALIVE,
+                   tel.new_detect_lanes(lanes, dev))
+        torch.cuda.synchronize()
+        return out
+
+    def run(loop):
+        meta, state, metrics, up, det = loop
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            if lanes is None:
+                state, metrics, done = round_step_(state, metrics, meta, cfg,
+                                                   topo, region)
+            else:
+                state, metrics, done = dense_round_step_lanes(
+                    state, metrics, meta, cfg, topo, region)
+            t = int(state.t)
+            if detect:
+                if lanes is None:
+                    fn = (tel.detect_full_ if cfg.swim_full_view
+                          else tel.detect_partial_)
+                else:
+                    fn = (tel.detect_full_lanes_ if cfg.swim_full_view
+                          else tel.detect_partial_lanes_)
+                args = ((state.view,) if cfg.swim_full_view
+                        else (state.pid, state.pkey))
+                fn(det, *args, up, t)
+                done = det[..., 0] >= 0
+            done.tolist()  # the loop's one host read a round
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    label = f"{which} x{lanes} lanes" if lanes else f"{which} solo"
+    return _profile(run, rounds, label, setup)
+
+
 _START = time.monotonic()
 
 
@@ -5704,7 +6473,8 @@ def _fault_record(final, metrics, wall):
 
 
 #: K23's rows, which launch only on a path that runs a detect loop
-DETECT_ROWS = ("detect_full", "detect_partial")
+DETECT_ROWS = ("detect_full", "detect_partial", "detect_full_lanes",
+               "detect_partial_lanes")
 
 
 def _path_launches(kernels, rows, label, telemetry=False):
@@ -5854,6 +6624,7 @@ def main() -> int:
         churn_setup,
         _resolve_topo,
         membership_churn,
+        membership_lane_stats,
         run_scenario,
         storm_fault_plan,
     )
@@ -5924,6 +6695,10 @@ def main() -> int:
     print("kernel comparisons equal at the 8-lane storm's shapes",
           flush=True)
     _lap("lane kernel comparisons")
+    dense_lane_rows = compare_dense_lane_kernels(dev)
+    print("kernel comparisons equal at the 8-lane dense paths' shapes",
+          flush=True)
+    _lap("dense lane kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -6002,13 +6777,24 @@ def main() -> int:
 
     # path 5, churn-full-4096: full-view SWIM on [4096, 4096] beliefs,
     # K1's uniform entry filtering by them, K15, and K23's full entry
-    # after every round (run_membership_detect)
+    # after every round: the solo detect loop (run_membership_detect) on
+    # membership_churn's setup (membership_churn itself now runs through
+    # the campaign engine's lanes, path 28b)
+    cfg5 = SimConfig.wan_tuned(CHURN_N, n_payloads=1, swim_full_view=True)
+    meta5, state5 = churn_setup(cfg5, 0, dev)
     kernels.reset_launch_counts()
-    churn = membership_churn(4096, seed=0, device=dev, return_state=True)
+    t0 = time.monotonic()
+    final5, _, det5 = run_membership_detect(state5, meta5, cfg5, Topology(),
+                                            400, device=dev)
+    torch.cuda.synchronize()
     churn_launches_5 = _path_launches(
         kernels, [*uniform_rows, "swim_full", "detect_full"],
         "churn_full_4096")
-    _storm_check(churn, goldens.CHURN_FULL_4096_SEED0, "churn_full_4096")
+    _storm_check({"state": final5, "detect_round": int(det5),
+                  "false_downs": membership_lane_stats(final5, cfg5)[
+                      "false_positive_downs"],
+                  "wall_clock_s": time.monotonic() - t0},
+                 goldens.CHURN_FULL_4096_SEED0, "churn_full_4096")
 
     # path 6, gapstress-25.6k: the packed round under both byte budgets
     # (K16, K3's metered entry, K8's metered spend), the flat 30 % loss
@@ -6640,9 +7426,12 @@ def main() -> int:
 
     def churn_path(label, run, path_rows, golden, telemetry=False):
         """A detect run's launches (its K23 entry once a round; the other
-        entry never, `_path_launches`) and record against its golden."""
+        entry never, `_path_launches`) and record against its golden; a
+        config's record also against JAX's engine keys."""
         churn_launches[label] = _path_launches(kernels, path_rows, label,
                                                telemetry)
+        golden = dict(golden,
+                      **goldens.CHURN_CONFIG_ENGINE_KEYS.get(label, {}))
         rounds = int(run["state"].t)
         entry = next(row for row in DETECT_ROWS if row in path_rows)
         if churn_launches[label][entry] != rounds:
@@ -6665,13 +7454,35 @@ def main() -> int:
                 raise AssertionError(f"{label}: {key} {got[key]!r} != "
                                      f"golden {want!r}")
 
+    # configs #2/#2b run through the campaign engine as JAX's do: one
+    # lane of the detect loop (K23's lane entries), with the engine's
+    # spec_hash and result_digest; the solo detect loop of the same run
+    # keeps K23's solo entries on a path
+    lane_full_rows = list(DENSE_LANE_ROWS["full"])
+    lane_partial_rows = list(DENSE_LANE_ROWS["partial"])
     kernels.reset_launch_counts()
     run = config_swim_churn_64(seed=0, device=dev, return_state=True)
-    churn_path("swim_churn_64", run, full_churn_rows,
+    churn_path("swim_churn_64", run, lane_full_rows,
                goldens.SWIM_CHURN_64_SEED0)
     kernels.reset_launch_counts()
+    run = membership_churn(CHURN_N, seed=0, device=dev, return_state=True)
+    churn_path("membership_churn_4096", run, lane_full_rows,
+               goldens.CHURN_FULL_4096_SEED0)
+    cfg64 = SimConfig.wan_tuned(64, n_payloads=1, swim_full_view=True)
+    meta64, state64 = churn_setup(cfg64, 0, dev)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    final64, _, det64 = run_membership_detect(state64, meta64, cfg64,
+                                              Topology(), 400, device=dev)
+    torch.cuda.synchronize()
+    churn_path("swim_churn_64_solo",
+               {"state": final64, "detect_round": int(det64),
+                "wall_clock_s": time.monotonic() - t0}, full_churn_rows,
+               {key: goldens.SWIM_CHURN_64_SEED0[key]
+                for key in ("detect_round", "digest")})
+    kernels.reset_launch_counts()
     run = config_swim_churn_partial(seed=0, device=dev, return_state=True)
-    churn_path("swim_churn_partial_4096", run, partial_churn_rows,
+    churn_path("swim_churn_partial_4096", run, lane_partial_rows,
                goldens.SWIM_CHURN_PARTIAL_4096_SEED0)
     # the same run with the recorder, through run_membership_detect: its
     # telemetry golden, the whole trace held by its digest
@@ -6700,8 +7511,21 @@ def main() -> int:
     kernels.reset_launch_counts()
     run = config_swim_churn_partial(seed=0, n=STORM_N, device=dev,
                                     return_state=True)
-    churn_path("swim_churn_partial_100k", run, partial_churn_rows,
+    churn_path("swim_churn_partial_100k", run, lane_partial_rows,
                goldens.SWIM_CHURN_PARTIAL_100K_SEED0)
+    cfg = SimConfig.wan_tuned(STORM_N, n_payloads=1, swim_partial_view=True,
+                              probe_period_rounds=1)
+    meta, state = churn_setup(cfg, 0, dev)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    final, _, detect = run_membership_detect(state, meta, cfg, Topology(),
+                                             600, device=dev)
+    torch.cuda.synchronize()
+    churn_path("swim_churn_partial_100k_solo",
+               {"state": final, "detect_round": int(detect),
+                "wall_clock_s": time.monotonic() - t0}, partial_churn_rows,
+               {key: goldens.SWIM_CHURN_PARTIAL_100K_SEED0[key]
+                for key in ("detect_round", "digest")})
 
     # the flash crowd on the 100k write storm: the tail quarter down over
     # rounds 0-7, back wiped at round 8 (K11's word entry); no link
@@ -6730,6 +7554,12 @@ def main() -> int:
     lane_one_check(dev)
     print("ensemble numbers: " + json.dumps(lane_numbers), flush=True)
     _lap("paths 33-35, the seed ensembles")
+    # paths 36-40: the dense round's and the detect loop's ensembles
+    dense_lane_launches, dense_lane_numbers = dense_ensemble_paths(dev,
+                                                                   goldens)
+    print("dense ensemble numbers: " + json.dumps(dense_lane_numbers),
+          flush=True)
+    _lap("paths 36-40, the dense ensembles")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -6764,6 +7594,11 @@ def main() -> int:
         print("profile_ensemble: " + json.dumps(profile_ensemble(
             dev, lanes_, faults=faults_)), flush=True)
     print("profile_solo: " + json.dumps(profile_storm(dev)), flush=True)
+    # the 8-lane dense rounds beside their solo rounds, in one process
+    for which in ("partial100k", "churn4096", "broadcast"):
+        for lanes_ in (ENSEMBLE_LANES, None):
+            print("profile_dense_ensemble: " + json.dumps(
+                profile_dense_path(dev, which, lanes_)), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -6864,11 +7699,11 @@ def main() -> int:
     # each churn row reads its kernel's launches on the path whose shapes
     # it was compared at; the dense view row's kernel runs on no churn
     # path (its launches are the dense fault storm's)
-    churn_path = {"detect_full_64": "swim_churn_64",
-                  "detect_full_1000": "swim_churn_64",
+    churn_path = {"detect_full_64": "swim_churn_64_solo",
+                  "detect_full_1000": "swim_churn_64_solo",
                   "detect_full_4096": "churn_full_4096",
-                  "detect_partial_4096": "swim_churn_partial_4096",
-                  "detect_partial_100000": "swim_churn_partial_100k",
+                  "detect_partial_4096": "swim_churn_partial_4096_telemetry",
+                  "detect_partial_100000": "swim_churn_partial_100k_solo",
                   "node_faults_view": "flash_crowd_peerswap_25600"}
     churn_launches["churn_full_4096"] = churn_launches_5
     for row in churn_kernel_rows:
@@ -6890,6 +7725,25 @@ def main() -> int:
         row["other_paths_launches"] = {
             label: c[row["kernel"]] for label, c in lane_launches.items()}
     rows += lane_kernel_rows
+    # each dense lane row reads its launches on the path whose shapes it
+    # was compared at
+    dense_lane_path = {"dense_phases_lanes": "broadcast_1k_seeds8",
+                       "dense_sync_lanes": "broadcast_1k_seeds8",
+                       "dense_gaps_lanes": "broadcast_1k_seeds8",
+                       "sample_uniform_lanes_ground": "broadcast_1k_seeds8",
+                       "detect_partial_lanes":
+                           "swim_churn_partial_100k_seeds8"}
+    for row in dense_lane_rows:
+        path = dense_lane_path.get(
+            row["name"], "swim_churn_partial_100k_seeds8"
+            if row["name"].endswith("_100k")
+            else "swim_churn_full_4096_seeds8")
+        row["launches"] = dense_lane_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]]
+            for label, c in dense_lane_launches.items()}
+    rows += dense_lane_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

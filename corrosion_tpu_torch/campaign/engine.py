@@ -14,8 +14,13 @@ round's minimum carry writes), as JAX's is.  Artifacts are written after
 every cell (atomic replace) and resume from a file of the same spec
 hash.
 
-This slice runs the packed sim cells.  The rest raises, naming its
-ROADMAP item: the dense round, detect cells and the recorder on lanes
+The engine runs sim cells on both rounds — faultless or under a
+factored plan on the packed round, faultless on the dense round — and
+detect cells (``detect_membership``: configs #2/#2b, the detect loop on
+lanes, banding ``detect_round`` with JAX's per-lane detection quality).
+A detect cell is refused with JAX's ValueErrors for what it cannot
+measure.  The rest raises NotImplementedError, naming its ROADMAP item:
+fault plans on the dense round and the recorder on lanes
 (``measure_wire``, ``telemetry``) are B16d, a mesh is A13, host-serving
 cells and host parity are host tier (not queued).  The cell's
 ``traceparent`` and its span tree belong to the host tracing tier and
@@ -48,25 +53,52 @@ def _percentile_lower(arr: np.ndarray, q: float):
     return float(np.percentile(valid, q, method="lower"))
 
 
-def _refuse(spec: CampaignSpec, cell: Dict[str, object],
+def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg,
             telemetry: bool) -> None:
-    """The cells this slice does not run, each naming its ROADMAP item;
-    the refusals of what a cell resolves to — the dense round, budgets,
-    a topology, sampler or protocol other than the defaults, matrix and
-    latency plans — follow in `..sim.lanes.check_lanes`."""
+    """The cells the engine does not run.  First JAX's own ValueErrors
+    (``engine.py:190-231``), word for word: what a detect cell, or a
+    wire measurement, cannot measure.  Then the port's
+    NotImplementedErrors, each naming its ROADMAP item; the refusals of
+    what a cell resolves to — budgets on the packed round, a topology,
+    sampler or protocol other than the defaults, fault plans on the
+    dense round, matrix and latency plans — follow in
+    `..sim.lanes.check_packed_lanes` and `check_dense_lanes`."""
+    from .spec import _PROTO_KEYS
+
     if spec.serving(cell):
         raise NotImplementedError(
             "host-serving cells drive the host agent tier, which the port "
             "does not carry (ROADMAP A, not queued)")
+    detect = spec.detect_membership(cell)
+    measure_wire = spec.measure_wire(cell)
+    if measure_wire and detect:
+        raise ValueError(
+            "measure_wire is not supported on detect_membership cells "
+            "(the detection loop bands detect_round, not wire cost)"
+        )
+    if measure_wire and cfg.trace_every > 1:
+        raise ValueError(
+            "measure_wire needs trace_every == 1 (wire totals are "
+            "exact per-round sums, not stride samples)"
+        )
+    if detect and spec._meta(cell, "churn"):
+        raise ValueError(
+            "churn schedules are not supported on detect_membership "
+            "cells (the detection ensemble runs without a FaultPlan)"
+        )
+    if detect:
+        for key in ("proto_family",) + _PROTO_KEYS:
+            if spec._meta(cell, key):
+                raise ValueError(
+                    f"{key!r} is not supported on detect_membership "
+                    "cells (the detection loop measures membership, "
+                    "not payload dissemination)"
+                )
     if spec.host_parity:
         raise NotImplementedError(
             "host_parity replays a plan on the host agent tier, which the "
             "port does not carry (ROADMAP A, not queued)")
-    if spec.detect_membership(cell):
-        raise NotImplementedError(
-            "detect_membership cells (run_detect_ensemble, K23's lanes) "
-            "are not ported yet (ROADMAP B16d)")
-    if telemetry or spec.measure_wire(cell):
+    if telemetry or measure_wire:
         raise NotImplementedError(
             "telemetry and measure_wire cells (the recorder's lanes, "
             "K17-K19) are not ported yet (ROADMAP B16d)")
@@ -75,27 +107,49 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object],
             "the churn key on lanes is not ported yet (ROADMAP B16d)")
 
 
+def _membership_lane_stats(finals, cfg) -> Dict[str, List]:
+    """Host-side per-lane detection quality of a detect cell (JAX
+    ``engine.py:65``): each lane's `..sim.runner.membership_lane_stats`,
+    ``detected_fraction`` and on full view ``false_positive_downs``."""
+    from ..campaign.ensemble import lane_state
+    from ..sim.runner import membership_lane_stats
+
+    stats = [membership_lane_stats(lane_state(finals, k), cfg)
+             for k in range(finals.alive.shape[0])]
+    return {key: [s[key] for s in stats] for key in stats[0]}
+
+
 def _run_cell(
     spec: CampaignSpec,
     cell: Dict[str, object],
     telemetry: bool = False,
     mesh_devices: Optional[int] = None,
     device="cuda",
+    lanes_out: Optional[Dict[str, object]] = None,
 ) -> Dict[str, object]:
     """One parameter point: the whole seed set as one lane-batched
     ensemble, reduced to per-seed records and cross-seed bands (JAX
-    ``engine.py:106 _run_cell``, sim cells)."""
+    ``engine.py:106 _run_cell``, sim and detect cells).  A detect cell
+    runs `.ensemble.run_detect_ensemble` and bands ``detect_round`` per
+    seed, None for a lane that never detected.  With ``lanes_out`` the
+    cell's stacked finals and metrics (and a detect cell's detect
+    rounds) are stored in it."""
     from ..device import resolve_device
     from ..sim.perf import analytic_min_round_s
     from ..sim.state import ALIVE, packed_supported, uniform_payloads
-    from .ensemble import ensemble_mesh, run_seed_ensemble
+    from .ensemble import (
+        ensemble_mesh,
+        run_detect_ensemble,
+        run_seed_ensemble,
+    )
 
     dev = resolve_device(device)
-    _refuse(spec, cell, telemetry)
-    cfg = spec.sim_config(cell)
+    cfg = spec.sim_config(cell) if not spec.serving(cell) else None
+    _refuse(spec, cell, cfg, telemetry)
     topo = spec.topo(cell)
     meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every(cell))
-    plan = spec.fault_plan(cell, seed=spec.seeds[0])
+    detect = spec.detect_membership(cell)
+    plan = None if detect else spec.fault_plan(cell, seed=spec.seeds[0])
     round_path = "packed" if packed_supported(cfg, topo) else "dense"
     mesh = ensemble_mesh(cfg, mesh_devices)
     n_devices = 1
@@ -104,32 +158,51 @@ def _run_cell(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.monotonic()
-    finals, metrics = run_seed_ensemble(
-        plan, cfg, topo, meta, spec.seeds, max_rounds=spec.max_rounds,
-        mesh=mesh, device=dev,
-    )
+    if detect:
+        finals, metrics, detect_rounds = run_detect_ensemble(
+            cfg, topo, meta, spec.seeds, kill_every=spec.kill_every(cell),
+            max_rounds=spec.max_rounds, mesh=mesh, device=dev)
+    else:
+        finals, metrics = run_seed_ensemble(
+            plan, cfg, topo, meta, spec.seeds, max_rounds=spec.max_rounds,
+            mesh=mesh, device=dev,
+        )
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     finals.have[0, 0, 0].item()  # a real host read
     wall = time.monotonic() - t0
+    if lanes_out is not None:
+        lanes_out.update(finals=finals, metrics=metrics)
+        if detect:
+            lanes_out["detect_rounds"] = detect_rounds
 
     rounds = finals.t.cpu().numpy()  # [K]
     alive = finals.alive.cpu().numpy()  # [K, N]
-    node_conv = metrics.converged_at.cpu().numpy()  # [K, N]
-    unconverged = ((node_conv < 0) & (alive == ALIVE)).sum(axis=1)
-    heads = finals.heads.cpu().numpy()  # [K, N, A]
-    heads_ok = (
-        (heads == cfg.n_versions) | (alive[:, :, None] != ALIVE)
-    ).all(axis=(1, 2))
-    converged = (unconverged == 0) & heads_ok
-    per_seed = {
-        "rounds": [int(r) for r in rounds],
-        "converged": [bool(c) for c in converged],
-        "unconverged_nodes": [int(u) for u in unconverged],
-        "p99_node_convergence_round": [
-            _percentile_lower(node_conv[i], 99) for i in range(k)
-        ],
-    }
+    if detect:
+        dr = detect_rounds.cpu().numpy()  # [K]
+        converged = dr >= 0
+        per_seed = {
+            "rounds": [int(r) for r in rounds],
+            "converged": [bool(c) for c in converged],
+            "detect_round": [int(d) if d >= 0 else None for d in dr],
+        }
+        per_seed.update(_membership_lane_stats(finals, cfg))
+    else:
+        node_conv = metrics.converged_at.cpu().numpy()  # [K, N]
+        unconverged = ((node_conv < 0) & (alive == ALIVE)).sum(axis=1)
+        heads = finals.heads.cpu().numpy()  # [K, N, A]
+        heads_ok = (
+            (heads == cfg.n_versions) | (alive[:, :, None] != ALIVE)
+        ).all(axis=(1, 2))
+        converged = (unconverged == 0) & heads_ok
+        per_seed = {
+            "rounds": [int(r) for r in rounds],
+            "converged": [bool(c) for c in converged],
+            "unconverged_nodes": [int(u) for u in unconverged],
+            "p99_node_convergence_round": [
+                _percentile_lower(node_conv[i], 99) for i in range(k)
+            ],
+        }
     cell_bands = {
         m: bands(per_seed[m]) for m in BAND_METRICS if m in per_seed
     }
@@ -202,13 +275,17 @@ def run_campaign(
     trace_dir: Optional[str] = None,
     mesh_devices: Optional[int] = None,
     device="cuda",
+    lanes_out: Optional[Dict[int, Dict]] = None,
 ) -> Dict:
     """Run every cell of the campaign (JAX ``engine.py:766``): with
     ``out_path`` the artifact is written after every cell and a re-run
     of the same spec hash resumes from it; ``wall_budget_s`` stops
     starting cells once spent (the rest land in ``skipped_cells``);
     ``telemetry`` None defers to the spec, and ``trace_dir`` asks for it
-    (both are B16d: a cell that would record is refused)."""
+    (both are B16d: a cell that would record is refused).  With
+    ``lanes_out`` (a dict, the port's own) each cell that runs stores
+    its lanes' stacked finals and metrics (and a detect cell's detect
+    rounds) under its cell index, for digests and checks."""
     if telemetry is None:
         telemetry = spec.telemetry
     if trace_dir:
@@ -231,8 +308,10 @@ def run_campaign(
         if wall_budget_s is not None and time.monotonic() - t0 > wall_budget_s:
             skipped.append(i)
             continue
+        kept = None if lanes_out is None else lanes_out.setdefault(i, {})
         res = _run_cell(spec, cell, telemetry=telemetry,
-                        mesh_devices=mesh_devices, device=device)
+                        mesh_devices=mesh_devices, device=device,
+                        lanes_out=kept)
         res["cell_index"] = i
         results.append(res)
         if out_path:

@@ -1,10 +1,13 @@
 """Seed ensembles: K replicas of one configuration as one lane-batched
-program — the port of ``corrosion_tpu/campaign/ensemble.py`` for the
-packed round (B16, packed half).
+program — the port of ``corrosion_tpu/campaign/ensemble.py``: the packed
+round's lanes (B16, packed half), the dense round's and the
+membership-detect loop's (dense half).
 
 JAX ``vmap``s the whole while_loop; the port gives every tensor an
 explicit leading lane axis and runs each kernel once for all live lanes
-(`..sim.lanes`).  Lane k is exactly the solo run of seed k:
+(`..sim.lanes`, `..sim.dense_lanes`, and the detect loop
+`..sim.telemetry.run_membership_detect_lanes`).  Lane k is exactly the
+solo run of seed k:
 
 - its initial state is ``new_sim(cfg, seeds[k])`` (`seed_states`
   stacks them);
@@ -12,12 +15,12 @@ explicit leading lane axis and runs each kernel once for all live lanes
   batched (`lane_plan_seeds`: ``derive_seed(s, "sim") & 0x7FFFFFFF``,
   the derivation `compile_plan` applies to a solo plan), so lane k's
   fault draws are those of the plan re-seeded with seeds[k];
-- a finished lane leaves the batch with its state after that round,
-  which is what JAX's select-frozen lane holds.
+- a finished (converged, or detected) lane leaves the batch with its
+  state after that round, which is what JAX's select-frozen lane holds.
 
-The dense round's lanes, `run_detect_ensemble` (K23's lanes), matrix
-plans, the latency entries and the recorder on lanes are ROADMAP B16d;
-a mesh is A13.  Each raises here, naming its item.
+Fault plans on the dense round, matrix plans, the latency entries and
+the recorder on lanes are ROADMAP B16d; a mesh is A13.  Each raises,
+naming its item.
 """
 
 from __future__ import annotations
@@ -29,9 +32,17 @@ import torch
 from ..device import resolve_device
 from ..faults import FaultPlan, derive_seed
 from ..sim.faults import compile_plan
+from ..sim.dense_lanes import run_dense_lanes
 from ..sim.lanes import run_lanes
 from ..sim.round import new_sim
-from ..sim.state import PayloadMeta, SimConfig, SimState
+from ..sim.state import (
+    ALIVE,
+    DOWN,
+    PayloadMeta,
+    SimConfig,
+    SimState,
+    packed_supported,
+)
 from ..sim.topology import Topology
 
 
@@ -86,17 +97,22 @@ def run_ensemble(
     mesh=None,
 ):
     """Run every lane of stacked states to convergence (or
-    ``max_rounds``) as one lane-batched program: faultless, the packed
-    round's convergence loop per lane; under ``fplan`` (a factored plan,
+    ``max_rounds``) as one lane-batched program on the round the
+    configuration takes: on the packed envelope the packed round's
+    convergence loop per lane, or under ``fplan`` (a factored plan,
     shared) its fault loop, each lane re-seeded by ``plan_seeds`` (i32[K];
-    None: every lane keeps the plan's seed).  Returns the stacked final
-    (SimState, RunMetrics), ``t`` i32[K]."""
+    None: every lane keeps the plan's seed); otherwise the dense round's
+    convergence loop (`..sim.dense_lanes.run_dense_lanes`, faultless).
+    Returns the stacked final (SimState, RunMetrics), ``t`` i32[K]."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh × lane batching is not ported yet (ROADMAP A13)")
     if telemetry:
         _no_telemetry()
-    return run_lanes(states, meta, cfg, topo, max_rounds, fplan, plan_seeds)
+    if packed_supported(cfg, topo):
+        return run_lanes(states, meta, cfg, topo, max_rounds, fplan,
+                         plan_seeds)
+    return run_dense_lanes(states, meta, cfg, topo, max_rounds, fplan)
 
 
 def _no_telemetry():
@@ -133,8 +149,36 @@ def run_seed_ensemble(
     )
 
 
-def run_detect_ensemble(*args, **kwargs):
-    """Membership-churn seed ensembles (K23's lanes) are ROADMAP B16d."""
-    raise NotImplementedError(
-        "run_detect_ensemble (the detect loop on lanes, K23's lanes) is "
-        "not ported yet (ROADMAP B16d)")
+def run_detect_ensemble(
+    cfg: SimConfig,
+    topo: Topology,
+    meta: PayloadMeta,
+    seeds: Sequence[int],
+    kill_every: int = 0,
+    max_rounds: int = 400,
+    telemetry: bool = False,
+    mesh=None,
+    device="cuda",
+):
+    """Membership-churn seed ensemble (JAX ``ensemble.py:187``, runner
+    configs #2/#2b through the engine): kill every ``kill_every``-th
+    node at t = 0 on every lane, then the detect loop on lanes
+    (`..sim.telemetry.run_membership_detect_lanes`), which drops each
+    lane once it detects.  Returns (finals, metrics, detect_rounds
+    i32[K]); the recorder on lanes is ROADMAP B16d."""
+    from ..sim.telemetry import run_membership_detect_lanes
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh × lane batching is not ported yet (ROADMAP A13)")
+    if telemetry:
+        _no_telemetry()
+    dev = resolve_device(device)
+    states = seed_states(cfg, seeds, dev)
+    if kill_every:
+        kill = torch.arange(cfg.n_nodes, device=dev) % kill_every == 0
+        alive = torch.where(kill, DOWN, ALIVE).to(torch.uint8)
+        states = states._replace(
+            alive=alive.expand(states.alive.shape).contiguous())
+    return run_membership_detect_lanes(states, meta, cfg, topo, max_rounds,
+                                       device=dev)

@@ -383,6 +383,25 @@ def storm_seeds_spec(
     )
 
 
+def broadcast_seeds_spec(seeds: Sequence[int] = tuple(range(8))
+                         ) -> CampaignSpec:
+    """``config_broadcast_1k`` (config #3: 1000 nodes, 8 writers x 32
+    versions, fanout 3, 4 ring slots, a wave every 2 rounds, ground-truth
+    membership, the dense round) over a seed set as one campaign cell:
+    ``broadcast-1k-seeds8`` at the default.  The byte budgets stay at the
+    SimConfig defaults (the engine never calls ``optimize_budgets``; 256
+    payloads of 8 KiB cannot reach either).  Not a builtin of the JAX
+    package: the JAX package's `CampaignSpec` of the same dict has the
+    same hash."""
+    return CampaignSpec(
+        name=f"broadcast-1k-seeds{len(tuple(seeds))}",
+        scenario={"n_nodes": 1000, "n_payloads": 256, "n_writers": 8,
+                  "fanout": 3, "n_delay_slots": 4, "inject_every": 2},
+        seeds=tuple(seeds),
+        max_rounds=2000,
+    )
+
+
 # -- builtin specs (JAX ``spec.py:481-791``, as data) -------------------------
 
 

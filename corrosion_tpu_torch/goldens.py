@@ -1138,3 +1138,160 @@ FAULT_STORM_100K_SEEDS8 = {
          "digest": "85b0610603ec24f1"},
     ],
 }
+
+
+# -- the dense round's seed ensembles (B16, dense half) ----------------------
+#
+# Each through JAX's `campaign.engine.run_campaign` on the CPU (the
+# detect cells inside tests.torch_parity.jax_telemetry()): the artifact's
+# spec_hash and result_digest, and per lane (seeds 0-7) the rounds, the
+# detect round (None: never detected) or the p99 node-convergence round,
+# the detected fraction, the false DOWNs (full view) and the blake2b
+# digest of the lane's final state.  JAX's vmapped lanes equal JAX's
+# solo runs of each seed at all four shapes (64 and 4096 nodes
+# included), so the goldens are both.
+
+# campaign.spec.broadcast_seeds_spec(): config_broadcast_1k as a cell
+BROADCAST_1K_SEEDS8 = {
+    "spec_hash": "d75dccc16a4f9bd0",
+    "result_digest": "fdcbf1321e0b597f373a131baa024b04",
+    "lanes": [
+        {"seed": 0, "rounds": 73, "p99_node_convergence_round": 69.0,
+         "digest": "c0523861b0f30759"},
+        {"seed": 1, "rounds": 71, "p99_node_convergence_round": 69.0,
+         "digest": "84d2ea853e29fb71"},
+        {"seed": 2, "rounds": 70, "p99_node_convergence_round": 69.0,
+         "digest": "4433db24225ae57e"},
+        {"seed": 3, "rounds": 70, "p99_node_convergence_round": 69.0,
+         "digest": "acf63a1d0a51a38f"},
+        {"seed": 4, "rounds": 70, "p99_node_convergence_round": 69.0,
+         "digest": "b27e8decd82ecbfd"},
+        {"seed": 5, "rounds": 70, "p99_node_convergence_round": 69.0,
+         "digest": "9d36e56b40b7b343"},
+        {"seed": 6, "rounds": 70, "p99_node_convergence_round": 68.0,
+         "digest": "0f7ea210475fabe1"},
+        {"seed": 7, "rounds": 71, "p99_node_convergence_round": 69.0,
+         "digest": "3e8eb1ca9362e93d"},
+    ],
+}
+
+# swim_churn_64_spec(seeds=range(8))
+SWIM_CHURN_64_SEEDS8 = {
+    "spec_hash": "985184187fdc4c18",
+    "result_digest": "aac5ed4f3578bc804b286689b2004018",
+    "lanes": [
+        {"seed": 0, "rounds": 18, "detect_round": 18,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "320febe04f83217e"},
+        {"seed": 1, "rounds": 19, "detect_round": 19,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "f8ae1acedf401573"},
+        {"seed": 2, "rounds": 20, "detect_round": 20,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "0d817472e1211aa0"},
+        {"seed": 3, "rounds": 20, "detect_round": 20,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "cf99034573f72d8c"},
+        {"seed": 4, "rounds": 19, "detect_round": 19,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "3a0a0f73e31610c2"},
+        {"seed": 5, "rounds": 18, "detect_round": 18,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "d3c3fe528b8be475"},
+        {"seed": 6, "rounds": 17, "detect_round": 17,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "a1fdbc65dabe1c04"},
+        {"seed": 7, "rounds": 16, "detect_round": 16,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "63a5dab1001aed71"},
+    ],
+}
+
+# swim_churn_64_spec(seeds=range(8), n=4096): membership_churn(4096)'s
+# shape
+SWIM_CHURN_FULL_4096_SEEDS8 = {
+    "spec_hash": "f40da8383a3d7b2c",
+    "result_digest": "24785e7ee03ddd766ba3dbfeecee864f",
+    "lanes": [
+        {"seed": 0, "rounds": 46, "detect_round": 46,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "ba94e70d5efbab4c"},
+        {"seed": 1, "rounds": 46, "detect_round": 46,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "aef8f978e61bd38b"},
+        {"seed": 2, "rounds": 40, "detect_round": 40,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "ec8508bd82b383ed"},
+        {"seed": 3, "rounds": 44, "detect_round": 44,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "22d619b38ef9a913"},
+        {"seed": 4, "rounds": 44, "detect_round": 44,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "0f0a1b11b8fc8d29"},
+        {"seed": 5, "rounds": 42, "detect_round": 42,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "a88d823e0c5ec456"},
+        {"seed": 6, "rounds": 44, "detect_round": 44,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "d71dbe1112feda3c"},
+        {"seed": 7, "rounds": 38, "detect_round": 38,
+         "detected_fraction": 1.0, "false_positive_downs": 0,
+         "digest": "22c0b7e339fb83ba"},
+    ],
+}
+
+# swim_churn_partial_spec(seeds=range(8))
+SWIM_CHURN_PARTIAL_4096_SEEDS8 = {
+    "spec_hash": "c03e2e97bb1cbbe1",
+    "result_digest": "56a0ef1ae7f9fcfa19ffd226af9e43b6",
+    "lanes": [
+        {"seed": 0, "rounds": 489, "detect_round": 489,
+         "detected_fraction": 1.0, "digest": "30464f44f42a1a0a"},
+        {"seed": 1, "rounds": 568, "detect_round": 568,
+         "detected_fraction": 1.0, "digest": "e9df362d68cc6dff"},
+        {"seed": 2, "rounds": 523, "detect_round": 523,
+         "detected_fraction": 1.0, "digest": "af5391bcd593fea3"},
+        {"seed": 3, "rounds": 488, "detect_round": 488,
+         "detected_fraction": 1.0, "digest": "97e66789f8e32f2f"},
+        {"seed": 4, "rounds": 526, "detect_round": 526,
+         "detected_fraction": 1.0, "digest": "4ca2318b45864920"},
+        {"seed": 5, "rounds": 569, "detect_round": 569,
+         "detected_fraction": 1.0, "digest": "026df605ad028c8b"},
+        {"seed": 6, "rounds": 421, "detect_round": 421,
+         "detected_fraction": 1.0, "digest": "f738067e4dc85478"},
+        {"seed": 7, "rounds": 600, "detect_round": None,
+         "detected_fraction": 0.9999828526355499,
+         "digest": "2e35a4bf6c365f5e"},
+    ],
+}
+
+# swim_churn_partial_spec(seeds=range(8), n=100000): the spec hash from
+# JAX; JAX's 8-lane CPU run does not fit a session, so lane 0 is
+# SWIM_CHURN_PARTIAL_100K_SEED0 (JAX's solo run) and lanes 1-7 are held
+# to the port's solo runs on the card
+SWIM_CHURN_PARTIAL_100K_SEEDS8 = {
+    "spec_hash": "00fa857b724422ca",
+    "lane0": {
+        "seed": 0,
+        "rounds": 600,
+        "detect_round": None,
+        "detected_fraction": 0.9999936655984989,
+        "digest": "4b11df2095ef0fda",
+    },
+}
+
+# configs #2/#2b through JAX's engine (config_swim_churn_64(seed=0),
+# config_swim_churn_partial(seed=0)): the one-seed cells' artifact keys;
+# at 100k (config_swim_churn_partial(seed=0, n=100000)) the spec hash
+# alone
+CHURN_CONFIG_ENGINE_KEYS = {
+    "swim_churn_64": {
+        "spec_hash": "9d9d65cd293398f1",
+        "result_digest": "b22370c7956e4ff53b3d2fee8f80954d",
+    },
+    "swim_churn_partial_4096": {
+        "spec_hash": "ce7b33791aa01fce",
+        "result_digest": "09b03138035aa25796e601737184f90b",
+    },
+    "swim_churn_partial_100k": {"spec_hash": "83c262822b4dd231"},
+}

@@ -108,6 +108,20 @@ replaces:
   nothing and take the lanes folded into their edge axis through
   `FAULT_EDGES`.
 
+- the dense round's lane entries (B16, dense half; ``sim.dense_lanes``),
+  one row a kernel, counted apart from the solo entries: K12
+  `DENSE_INJECT_LANES`, `DENSE_BROADCAST_LANES`, `DENSE_DELIVER_LANES` —
+  `sim.dense_lanes.inject_dense_lanes`, `broadcast_send_lanes`,
+  `deliver_dense_lanes`; K13 `DENSE_SYNC_LANES` —
+  `sim.dense_lanes.sync_pull_dense_lanes`; K14 `DENSE_GAPS_ROWS_LANES`,
+  `DENSE_GAPS_FINISH_LANES` — `sim.dense_lanes.dense_record_lanes`; K15
+  `SWIM_TIMEOUT_LANES`, `SWIM_MERGE_LANES`, `SWIM_APPLY_LANES` —
+  `sim.dense_lanes.swim_timeout_lanes_`, `swim_merge_lanes`,
+  `swim_apply_lanes_`; K1's uniform lane entry `SAMPLE_UNIFORM_LANES` —
+  `sim.dense_lanes.sample_uniform_lanes`; K23 `DETECT_FULL_LANES`,
+  `DETECT_PARTIAL_LANES` (a row each) — `sim.telemetry.
+  detect_full_lanes_`, `detect_partial_lanes_`.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -325,6 +339,31 @@ FAULT_REACH_LANES = Kernel("fault_reach_lanes", "fault_edges.cu",
 NODE_FAULTS_LANES = Kernel("node_faults_lanes", "node_faults.cu",
                            "corro_node_faults_lanes", 9)
 
+DENSE_INJECT_LANES = Kernel("dense_inject_lanes", "dense_phases.cu",
+                            "corro_dense_inject_lanes", 5)
+DENSE_BROADCAST_LANES = Kernel("dense_broadcast_lanes", "dense_phases.cu",
+                               "corro_dense_broadcast_lanes", 7)
+DENSE_DELIVER_LANES = Kernel("dense_deliver_lanes", "dense_phases.cu",
+                             "corro_dense_deliver_lanes", 6)
+DENSE_SYNC_LANES = Kernel("dense_sync_lanes", "dense_sync.cu",
+                          "corro_dense_sync_lanes", 10)
+DENSE_GAPS_ROWS_LANES = Kernel("dense_gaps_rows_lanes", "dense_gaps.cu",
+                               "corro_dense_gaps_rows_lanes", 10)
+DENSE_GAPS_FINISH_LANES = Kernel("dense_gaps_finish_lanes", "dense_gaps.cu",
+                                 "corro_dense_gaps_finish_lanes", 8)
+SWIM_TIMEOUT_LANES = Kernel("swim_timeout_lanes", "swim_full.cu",
+                            "corro_swim_timeout_lanes", 4)
+SWIM_MERGE_LANES = Kernel("swim_merge_lanes", "swim_full.cu",
+                          "corro_swim_merge_lanes", 3)
+SWIM_APPLY_LANES = Kernel("swim_apply_lanes", "swim_full.cu",
+                          "corro_swim_apply_lanes", 3)
+SAMPLE_UNIFORM_LANES = Kernel("sample_uniform_lanes", "sample_targets.cu",
+                              "corro_sample_uniform_lanes", 4)
+DETECT_FULL_LANES = Kernel("detect_full_lanes", "membership_detect.cu",
+                           "corro_detect_full_lanes", 3)
+DETECT_PARTIAL_LANES = Kernel("detect_partial_lanes", "membership_detect.cu",
+                              "corro_detect_partial_lanes", 4)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -392,12 +431,24 @@ PORTED = {
                           WORD_DELIVER_LANES),
     "fault_reach_lanes": (FAULT_REACH_LANES,),
     "node_faults_lanes": (NODE_FAULTS_LANES,),
+    "dense_phases_lanes": (DENSE_INJECT_LANES, DENSE_BROADCAST_LANES,
+                           DENSE_DELIVER_LANES),
+    "dense_sync_lanes": (DENSE_SYNC_LANES,),
+    "dense_gaps_lanes": (DENSE_GAPS_ROWS_LANES, DENSE_GAPS_FINISH_LANES),
+    "swim_full_lanes": (SWIM_TIMEOUT_LANES, SWIM_MERGE_LANES,
+                        SWIM_APPLY_LANES),
+    "sample_uniform_lanes": (SAMPLE_UNIFORM_LANES,),
+    "detect_full_lanes": (DETECT_FULL_LANES,),
+    "detect_partial_lanes": (DETECT_PARTIAL_LANES,),
 }
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
              "sync_pull_lanes", "gaps_refresh_lanes", "converge_fold_lanes",
-             "word_phases_lanes", "fault_reach_lanes", "node_faults_lanes")
+             "word_phases_lanes", "fault_reach_lanes", "node_faults_lanes",
+             "dense_phases_lanes", "dense_sync_lanes", "dense_gaps_lanes",
+             "swim_full_lanes", "sample_uniform_lanes", "detect_full_lanes",
+             "detect_partial_lanes")
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
@@ -420,7 +471,11 @@ __all__ = [
     "LANE_ROWS", "MERGE_ENTRIES_LANES", "NODE_FAULTS_LANES",
     "RANDINT_LANES", "SAMPLE_TARGETS_LANES", "SYNC_PULL_LANES",
     "THREEFRY_LANES", "WORD_DELIVER_LANES", "WORD_INJECT_LANES",
-    "WORD_SPEND_LANES",
+    "WORD_SPEND_LANES", "DENSE_INJECT_LANES", "DENSE_BROADCAST_LANES",
+    "DENSE_DELIVER_LANES", "DENSE_SYNC_LANES", "DENSE_GAPS_ROWS_LANES",
+    "DENSE_GAPS_FINISH_LANES", "SWIM_TIMEOUT_LANES", "SWIM_MERGE_LANES",
+    "SWIM_APPLY_LANES", "SAMPLE_UNIFORM_LANES", "DETECT_FULL_LANES",
+    "DETECT_PARTIAL_LANES",
     "DENSE_PULL_LOSSY", "DENSE_PULL_TIERED", "ORDER_CHECK_DENSE",
     "ORDER_CHECK_WORDS", "TRACE_WIRE_ROWS_PULL", "TRACE_WIRE_WORDS_PULL",
     "WORD_DELIVER_FIFO",

@@ -53,6 +53,15 @@
 // the unfilled slots are zeroed at the end, and only slot K-1's overflow
 // end waits for the walk to finish — so no register array caps K.
 
+// The lane entries (corro_dense_gaps_rows_lanes, _finish_lanes) run
+// both passes over a seed ensemble's lanes (B16, dense half:
+// corrosion_tpu/campaign/ensemble.py:114 and :187 vmap the dense round,
+// whose while_loop keeps a done flag a lane) as a grid dimension:
+// blockIdx.y is the lane, whose have, injected, alive, stamps, heads,
+// gap slots, overflow count, partial rows and done flag are its slots of
+// the [K, ...] tensors, offset in 64 bits; the finish is one block a
+// lane.  The payload rounds are shared.  Bound: K times the solo bound.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -83,6 +92,21 @@ __global__ void dense_gaps_rows_kernel(
   extern __shared__ uint32_t col[];  // [A * VW + 1]
   int vw = (v_versions + 31) / 32;
   int width = a_writers * vw;
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    const size_t adverts = (size_t)n * a_writers;
+    have += lane * (size_t)n * p;
+    injected += lane * p;
+    alive += lane * n;
+    converged_in += lane * n;
+    converged_out += lane * n;
+    heads += lane * adverts;
+    gap_lo += lane * adverts * k_slots;
+    gap_hi += lane * adverts * k_slots;
+    overflow_count += lane;
+    partial += lane * gridDim.x * (size_t)(width + 1);
+  }
   for (int i = threadIdx.x; i <= width; i += blockDim.x) col[i] = kOnes;
   bool injected_by_t = true;
   for (int q = threadIdx.x; q < p; q += blockDim.x) {
@@ -175,6 +199,15 @@ __global__ void dense_gaps_finish_kernel(
   extern __shared__ uint32_t col[];  // [A * VW + 1]
   int vw = (v_versions + 31) / 32;
   int width = a_writers * vw;
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    partial += lane * (size_t)n_blocks * (width + 1);
+    injected += lane * p;
+    coverage_in += lane * p;
+    coverage_out += lane * p;
+    done += lane;
+  }
   for (int i = threadIdx.x; i <= width; i += blockDim.x) col[i] = kOnes;
   __syncthreads();
   size_t total = (size_t)n_blocks * (width + 1);
@@ -249,6 +282,52 @@ extern "C" int corro_dense_gaps_finish(const void* partial,
   size_t smem =
       ((size_t)a_writers * ((v_versions + 31) / 32) + 1) * sizeof(uint32_t);
   dense_gaps_finish_kernel<<<1, 256, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)partial, (const uint8_t*)injected,
+      (const int32_t*)round_of, (const int32_t*)coverage_in,
+      (int32_t*)coverage_out, (bool*)done, n_blocks, p, a_writers,
+      v_versions, c_chunks, t, horizon);
+  return (int)cudaGetLastError();
+}
+
+// The lane entries: the solo entries' arguments with every per-node
+// tensor [lanes, ...], `injected` and the coverage stamps [lanes, P], the
+// overflow counts and done flags [lanes], the partial rows [lanes,
+// blocks, A * VW + 1], then `lanes`.
+extern "C" int corro_dense_gaps_rows_lanes(
+    const void* have, const void* injected, const void* alive,
+    const void* round_of, const void* converged_in, void* heads, void* gap_lo,
+    void* gap_hi, void* overflow_count, void* converged_out, void* partial,
+    int n, int p, int a_writers, int v_versions, int c_chunks, int k_slots,
+    int t, int rows_per_block, int exit_mode, int lanes, void* stream) {
+  if (n <= 0 || rows_per_block <= 0 || lanes <= 0 || lanes > 65535 ||
+      !geometry_ok(p, a_writers, v_versions, c_chunks, k_slots))
+    return (int)cudaErrorInvalidValue;
+  unsigned blocks = (unsigned)((n + rows_per_block - 1) / rows_per_block);
+  size_t smem =
+      ((size_t)a_writers * ((v_versions + 31) / 32) + 1) * sizeof(uint32_t);
+  dense_gaps_rows_kernel<<<dim3(blocks, lanes), kWarps * kWarp, smem,
+                           (cudaStream_t)stream>>>(
+      (const uint8_t*)have, (const uint8_t*)injected, (const uint8_t*)alive,
+      (const int32_t*)round_of, (const int32_t*)converged_in,
+      (int32_t*)heads, (int32_t*)gap_lo, (int32_t*)gap_hi,
+      (int32_t*)overflow_count, (int32_t*)converged_out, (uint32_t*)partial,
+      n, p, a_writers, v_versions, c_chunks, k_slots, t, rows_per_block,
+      exit_mode);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_dense_gaps_finish_lanes(
+    const void* partial, const void* injected, const void* round_of,
+    const void* coverage_in, void* coverage_out, void* done, int n_blocks,
+    int p, int a_writers, int v_versions, int c_chunks, int t, int horizon,
+    int lanes, void* stream) {
+  if (n_blocks <= 0 || lanes <= 0 || lanes > 65535 ||
+      !geometry_ok(p, a_writers, v_versions, c_chunks, 1))
+    return (int)cudaErrorInvalidValue;
+  size_t smem =
+      ((size_t)a_writers * ((v_versions + 31) / 32) + 1) * sizeof(uint32_t);
+  dense_gaps_finish_kernel<<<dim3(1, lanes), 256, smem,
+                             (cudaStream_t)stream>>>(
       (const uint32_t*)partial, (const uint8_t*)injected,
       (const int32_t*)round_of, (const int32_t*)coverage_in,
       (int32_t*)coverage_out, (bool*)done, n_blocks, p, a_writers,

@@ -125,6 +125,19 @@
 // and the relay re-arm follow the deliver entry, and both slots are
 // cleared whole.  Bound: bytes, the deliver entry's plus one row read.
 
+// The lane entries (corro_dense_inject_lanes, _broadcast_lanes,
+// _deliver_lanes) run inject, broadcast and deliver over a seed
+// ensemble's lanes (B16, dense half: corrosion_tpu/campaign/ensemble.py:114
+// and :187 vmap the dense round) as a grid dimension: blockIdx.y is the
+// lane, whose have, relay, injected, alive, targets, edge lists (dst,
+// slot, ok), flat-loss key and ring slices are its slots of the [K, ...]
+// tensors, offset in 64 bits; node ids, edge ids and the draw counter
+// e*P + q stay lane-local, so lane k is the solo entry on lane k's
+// inputs.  The budget scan runs per row, so it is lane-local too.  The
+// payload metadata (round, actor, nbytes) and the round t are shared.
+// The broadcast lane entry takes no fault, tiered or recorder outputs.
+// Bound: K times the solo bound.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -142,6 +155,12 @@ __global__ void dense_inject_kernel(const int32_t* __restrict__ round_of,
                                     uint8_t* __restrict__ relay,
                                     uint8_t* __restrict__ injected, int n,
                                     int p, int t, int max_tx) {
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  alive += lane * n;
+  have += lane * (size_t)n * p;
+  relay += lane * (size_t)n * p;
+  injected += lane * p;
   int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= p || round_of[q] != t) return;
   int a = actor[q];
@@ -201,6 +220,22 @@ __global__ void dense_broadcast_kernel(
     const int32_t* __restrict__ jit, const int32_t* __restrict__ tiers,
     int n, int p, int f, int d_slots, int budget, int thr, uint32_t seed,
     uint32_t loss_tag, uint32_t jit_tag, uint32_t span, uint32_t mult) {
+  {
+    // the lane's slices (lane 0 on the solo entry; the lane entry
+    // passes no fault, tiered or recorder pointers)
+    const size_t lane = blockIdx.y;
+    const size_t cells = (size_t)n * p, edges = (size_t)n * f;
+    have += lane * cells;
+    relay += lane * cells;
+    injected += lane * p;
+    targets += lane * edges;
+    dst += lane * edges;
+    slot += lane * edges;
+    ok += lane * edges;
+    alive += lane * n;
+    key += lane * 2;
+    ring += lane * (size_t)d_slots * cells;
+  }
   FaultDraws fd{fthr, jit, {0u, 0u}, {0u, 0u, 0u, 0u}, span, mult};
   if (kFault) {
     // fold_in(fold_in(phase_key, seed), tag) once a block
@@ -301,7 +336,14 @@ __global__ void dense_deliver_kernel(uint8_t* __restrict__ ring,
                                      uint8_t* __restrict__ sync_ring,
                                      uint8_t* __restrict__ have,
                                      uint8_t* __restrict__ relay,
-                                     size_t cells, int slot, int relay_init) {
+                                     size_t cells, int slot, int relay_init,
+                                     int d_slots) {
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  ring += lane * (size_t)d_slots * cells;
+  sync_ring += lane * (size_t)d_slots * cells;
+  have += lane * cells;
+  relay += lane * cells;
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= cells) return;
   size_t at = (size_t)slot * cells + i;
@@ -443,11 +485,12 @@ int launch_broadcast(bool fault, const void* have, void* relay,
                      void* dropped, const void* phase_key, const void* fthr,
                      const void* jit, const void* tiers, int n, int p, int f,
                      int d_slots, int budget, int thr, int seed, int loss_tag,
-                     int jit_tag, int span, int mult, void* stream) {
+                     int jit_tag, int span, int mult, void* stream,
+                     int lanes = 1) {
   bool tiered = tiers != nullptr;
   if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
       (row_frames == nullptr) != (row_bytes == nullptr) ||
-      (tiered && thr != 0))
+      (tiered && thr != 0) || lanes <= 0 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   if (fault && (phase_key == nullptr || (fthr == nullptr && jit == nullptr) ||
                 (jit != nullptr && span == 0)))
@@ -460,7 +503,7 @@ int launch_broadcast(bool fault, const void* have, void* relay,
                                : dense_broadcast_kernel<true, false>)
                       : (tiered ? dense_broadcast_kernel<false, true>
                                 : dense_broadcast_kernel<false, false>);
-  kernel<<<blocks_for((size_t)n * kWarp, threads), threads, 0,
+  kernel<<<dim3(blocks_for((size_t)n * kWarp, threads), lanes), threads, 0,
            (cudaStream_t)stream>>>(
       (const uint8_t*)have, (uint8_t*)relay, (const uint8_t*)injected,
       (const int32_t*)nbytes, (const int32_t*)targets, (const int32_t*)dst,
@@ -534,7 +577,53 @@ extern "C" int corro_dense_deliver(void* ring, void* sync_ring, void* have,
   dense_deliver_kernel<<<blocks_for(cells, 256), 256, 0,
                          (cudaStream_t)stream>>>(
       (uint8_t*)ring, (uint8_t*)sync_ring, (uint8_t*)have, (uint8_t*)relay,
-      cells, slot, relay_init);
+      cells, slot, relay_init, 1);
+  return (int)cudaGetLastError();
+}
+
+// The lane entries: the solo entries' arguments with every per-node and
+// per-edge tensor [lanes, ...], `injected` [lanes, P], `key` [lanes, 2]
+// and the rings [lanes, D, N, P], then `lanes`.
+extern "C" int corro_dense_inject_lanes(const void* round_of,
+                                        const void* actor, const void* alive,
+                                        void* have, void* relay,
+                                        void* injected, int n, int p, int t,
+                                        int max_tx, int lanes,
+                                        void* stream) {
+  if (n <= 0 || p <= 0 || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  dense_inject_kernel<<<dim3(blocks_for(p, 256), lanes), 256, 0,
+                        (cudaStream_t)stream>>>(
+      (const int32_t*)round_of, (const int32_t*)actor, (const uint8_t*)alive,
+      (uint8_t*)have, (uint8_t*)relay, (uint8_t*)injected, n, p, t, max_tx);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_dense_broadcast_lanes(
+    const void* have, void* relay, const void* injected, const void* nbytes,
+    const void* targets, const void* dst, const void* slot, const void* ok,
+    const void* alive, const void* key, void* ring, int n, int p, int f,
+    int d_slots, int budget, int thr, int lanes, void* stream) {
+  return launch_broadcast(false, have, relay, injected, nbytes, targets, dst,
+                          slot, ok, alive, key, ring, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, nullptr, nullptr, n, p,
+                          f, d_slots, budget, thr, 0, 0, 0, 1, 0, stream,
+                          lanes);
+}
+
+extern "C" int corro_dense_deliver_lanes(void* ring, void* sync_ring,
+                                         void* have, void* relay, int n,
+                                         int p, int d_slots, int slot,
+                                         int relay_init, int lanes,
+                                         void* stream) {
+  if (n <= 0 || p <= 0 || d_slots <= 0 || slot < 0 || slot >= d_slots ||
+      lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  size_t cells = (size_t)n * p;
+  dense_deliver_kernel<<<dim3(blocks_for(cells, 256), lanes), 256, 0,
+                         (cudaStream_t)stream>>>(
+      (uint8_t*)ring, (uint8_t*)sync_ring, (uint8_t*)have, (uint8_t*)relay,
+      cells, slot, relay_init, d_slots);
   return (int)cudaGetLastError();
 }
 

@@ -53,6 +53,15 @@
 // chunk bytes, which L1 serves after the first lane; the K gap slots
 // are scanned from the (cached) gap rows.
 
+// The lane entry (corro_dense_sync_lanes) runs the pull over a seed
+// ensemble's lanes (B16, dense half: corrosion_tpu/campaign/ensemble.py:114
+// and :187 vmap the dense round) as a grid dimension: blockIdx.y is the
+// lane, whose have, heads, gap rows, peers, ok, sync ring [D, N, P] and
+// fruitful slices are its slots of the [K, ...] tensors, offset in 64
+// bits; the peers are lane-local node ids and each edge's budget scan is
+// the lane's own.  No session delays or grant counts on lanes.  Bound: K
+// times the solo bound.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -178,6 +187,21 @@ __global__ void dense_sync_kernel(
     int a_writers, int c_chunks, int k_slots, int budget, int d_slots,
     int slot) {
   extern __shared__ int block_counts[];  // [P] when counts is given
+  {
+    // the lane's slices (lane 0 on the solo entry; the lane entry takes
+    // neither counts nor session delays)
+    const size_t lane = blockIdx.y;
+    const size_t cells = (size_t)n * p;
+    const size_t adverts = (size_t)n * a_writers;
+    have += lane * cells;
+    heads += lane * adverts;
+    gap_lo += lane * adverts * k_slots;
+    gap_hi += lane * adverts * k_slots;
+    peers += lane * (size_t)n * s_peers;
+    ok += lane * (size_t)n * s_peers;
+    ring += lane * (size_t)d_slots * cells;
+    fruitful += lane * n;
+  }
   int row = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp);
   int lane = threadIdx.x & (kWarp - 1);
   if (counts != nullptr) {
@@ -227,5 +251,34 @@ extern "C" int corro_dense_sync(const void* have, const void* heads,
       (const int32_t*)nbytes, (uint8_t*)ring, (bool*)fruitful,
       (int32_t*)counts, (const int32_t*)sdelay, n, p, s_peers, a_writers,
       c_chunks, k_slots, budget, d_slots, slot);
+  return (int)cudaGetLastError();
+}
+
+// The lane entry: the solo entry's arguments with every per-node tensor
+// [lanes, ...], the whole sync ring [lanes, D, N, P] and its slot t + 1,
+// then `lanes`; no counts, no session delays.
+extern "C" int corro_dense_sync_lanes(const void* have, const void* heads,
+                                      const void* gap_lo, const void* gap_hi,
+                                      const void* peers, const void* ok,
+                                      const void* nbytes, void* ring,
+                                      void* fruitful, int n, int p,
+                                      int s_peers, int a_writers,
+                                      int c_chunks, int k_slots, int budget,
+                                      int d_slots, int slot, int lanes,
+                                      void* stream) {
+  if (n <= 0 || p <= 0 || s_peers <= 0 || s_peers > MAX_S || a_writers <= 0 ||
+      c_chunks <= 0 || k_slots <= 0 || p % (a_writers * c_chunks) ||
+      d_slots <= 0 || d_slots > 32 || slot < 0 || slot >= d_slots ||
+      lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  unsigned blocks = (unsigned)(((size_t)n * kWarp + threads - 1) / threads);
+  dense_sync_kernel<<<dim3(blocks, lanes), threads, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint8_t*)have, (const int32_t*)heads, (const int32_t*)gap_lo,
+      (const int32_t*)gap_hi, (const int32_t*)peers, (const bool*)ok,
+      (const int32_t*)nbytes, (uint8_t*)ring, (bool*)fruitful, nullptr,
+      nullptr, n, p, s_peers, a_writers, c_chunks, k_slots, budget, d_slots,
+      slot);
   return (int)cudaGetLastError();
 }

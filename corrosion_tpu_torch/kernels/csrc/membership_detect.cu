@@ -36,6 +36,16 @@
 // word), a dead watcher's cells are skipped without a load, up[] of the
 // column (or of pid) comes from L2 (N bytes), and a block votes once.
 
+// The lane entries (corro_detect_full_lanes, _partial_lanes) vote over a
+// seed ensemble's lanes (B16, dense half:
+// corrosion_tpu/campaign/ensemble.py:187 run_detect_ensemble vmaps the
+// detect loop) as a grid dimension: blockIdx.y is the lane, whose view [N, N] (or pid and pkey
+// [N, M]), up row and detect word i32[3] are its slots of the [K, ...]
+// tensors, offset in 64 bits.  Each lane's blocks take tickets in their
+// own word and its last block resets its own scratch words, so a lane's
+// detect_round is the solo entry's on its inputs.  Bound: K times the
+// solo bound.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -68,6 +78,13 @@ __global__ void detect_full_kernel(const int8_t* __restrict__ view,
                                    const bool* __restrict__ up,
                                    int32_t* __restrict__ detect, int n,
                                    int t) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    view += lane * (size_t)n * n;
+    up += lane * n;
+    detect += lane * 3;
+  }
   bool missed = false;
   size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   size_t stride = (size_t)gridDim.x * blockDim.x;
@@ -104,6 +121,14 @@ __global__ void detect_partial_kernel(const int32_t* __restrict__ pid,
                                       const bool* __restrict__ up,
                                       int32_t* __restrict__ detect, int n,
                                       int m, int t) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    pid += lane * (size_t)n * m;
+    pkey += lane * (size_t)n * m;
+    up += lane * n;
+    detect += lane * 3;
+  }
   bool missed = false;
   size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   size_t stride = (size_t)gridDim.x * blockDim.x;
@@ -143,6 +168,33 @@ extern "C" int corro_detect_partial(const void* pid, const void* pkey,
   if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   detect_partial_kernel<<<blocks_for((long long)n * m), kThreads, 0,
                           (cudaStream_t)stream>>>(
+      (const int32_t*)pid, (const int32_t*)pkey, (const bool*)up,
+      (int32_t*)detect, n, m, t);
+  return (int)cudaGetLastError();
+}
+
+// The lane entries: detect i32[lanes, 3], up [lanes, N], the view
+// [lanes, N, N] or the tables [lanes, N, M], then `lanes`.
+extern "C" int corro_detect_full_lanes(const void* view, const void* up,
+                                       void* detect, int n, int t,
+                                       int lanes, void* stream) {
+  if (n <= 0 || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  long long work = (long long)n * n / ((n & 3) == 0 ? 4 : 1);
+  detect_full_kernel<<<dim3(blocks_for(work), lanes), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const int8_t*)view, (const bool*)up, (int32_t*)detect, n, t);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_detect_partial_lanes(const void* pid, const void* pkey,
+                                          const void* up, void* detect, int n,
+                                          int m, int t, int lanes,
+                                          void* stream) {
+  if (n <= 0 || m <= 0 || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  detect_partial_kernel<<<dim3(blocks_for((long long)n * m), lanes),
+                          kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pid, (const int32_t*)pkey, (const bool*)up,
       (int32_t*)detect, n, m, t);
   return (int)cudaGetLastError();

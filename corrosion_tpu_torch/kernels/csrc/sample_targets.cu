@@ -52,6 +52,13 @@
 // tensors.  Candidates and `node` stay lane-local ids, so the self test
 // and the output are the solo entry's per lane.  Bound: K times the
 // solo bound.
+//
+// Uniform lane entry, corro_sample_uniform_lanes: the uniform sampler
+// over the lanes of a dense-round ensemble (B16, dense half:
+// corrosion_tpu/campaign/ensemble.py:114 and :187), the same grid
+// dimension: lane blockIdx.y's candidate draws [over, N], beliefs
+// [N, N] (when given) and output [N, count], offset in 64 bits.  Bound:
+// K times the solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -121,6 +128,11 @@ __global__ void sample_uniform_kernel(const int32_t* __restrict__ cands,
                                       int over, int count) {
   int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= n) return;
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  cands += lane * over * n;
+  if (view != nullptr) view += lane * n * n;
+  out += lane * n * count;
   int cand[MAX_OVER];
   bool valid[MAX_OVER];
 #pragma unroll
@@ -225,5 +237,21 @@ extern "C" int corro_sample_view(const void* pview, const void* slots,
   sample_view_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pview, (const int32_t*)slots, (const int8_t*)view,
       (int32_t*)out, n, v, over, count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_sample_uniform_lanes(const void* cands, const void* view,
+                                          void* out, int n, int over,
+                                          int count, int lanes,
+                                          void* stream) {
+  if (over > MAX_OVER || count > over || n <= 0 || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  int blocks = (n + threads - 1) / threads;
+  sample_uniform_kernel<<<dim3(blocks, lanes), threads, 0,
+                          (cudaStream_t)stream>>>(
+      (const int32_t*)cands, (const int8_t*)view, (int32_t*)out, n, over,
+      count);
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,15 @@
 // coalesced; the skip test keeps the atomics to the pushes that change a
 // belief, which fall to a few per row once the views agree.
 
+// The lane entries (corro_swim_timeout_lanes, _merge_lanes,
+// _apply_lanes) run the three passes over a seed ensemble's lanes (B16,
+// dense half: corrosion_tpu/campaign/ensemble.py:114 and :187 vmap the
+// full-view tick) as a grid dimension: blockIdx.y is the lane, whose
+// [N, N] matrices (view, vinc, since, keys, merged) and per-node and
+// per-edge rows are its slots of the [K, ...] tensors, offset in 64 bits
+// (8 lanes of 4096 nodes are 134 M cells); receivers and columns stay
+// lane-local.  Bound: K times the solo bound.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -57,6 +66,12 @@ __global__ void swim_timeout_kernel(int8_t* __restrict__ view,
                                     const int32_t* __restrict__ since,
                                     int32_t* __restrict__ key, size_t cells,
                                     int t, int timeout) {
+  // the lane's matrices (lane 0 on the solo entry)
+  const size_t lane_off = (size_t)blockIdx.y * cells;
+  view += lane_off;
+  vinc += lane_off;
+  since += lane_off;
+  key += lane_off;
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= cells) return;
   int v = view[i];
@@ -77,6 +92,16 @@ __global__ void swim_merge_kernel(const int32_t* __restrict__ key,
                                   const int32_t* __restrict__ ann_claim,
                                   int32_t* __restrict__ merged, int n,
                                   int fanout) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    key += lane * (size_t)n * n;
+    merged += lane * (size_t)n * n;
+    gdst += lane * (size_t)n * fanout;
+    g_ok += lane * (size_t)n * fanout;
+    ann_target += lane * n;
+    ann_claim += lane * n;
+  }
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   size_t gossip = (size_t)n * fanout * n;
   if (i < gossip) {
@@ -109,6 +134,20 @@ __global__ void swim_apply_kernel(int8_t* __restrict__ view,
                                   const int32_t* __restrict__ fb_inc,
                                   int32_t* __restrict__ incarnation, int n,
                                   int t) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    const size_t cells = (size_t)n * n;
+    view += lane * cells;
+    vinc += lane * cells;
+    since += lane * cells;
+    key += lane * cells;
+    merged += lane * cells;
+    up += lane * n;
+    heard_down += lane * n;
+    fb_inc += lane * n;
+    incarnation += lane * n;
+  }
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * n) return;
   int32_t m = merged[i];
@@ -172,6 +211,54 @@ extern "C" int corro_swim_apply(void* view, void* vinc, void* since,
                                 int t, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   swim_apply_kernel<<<blocks_for((size_t)n * n, 256), 256, 0,
+                      (cudaStream_t)stream>>>(
+      (int8_t*)view, (int32_t*)vinc, (int32_t*)since, (const int32_t*)key,
+      (const int32_t*)merged, (const bool*)up, (const bool*)heard_down,
+      (const int32_t*)fb_inc, (int32_t*)incarnation, n, t);
+  return (int)cudaGetLastError();
+}
+
+// The lane entries: the solo entries' arguments with every matrix
+// [lanes, N, N] and every row [lanes, ...], then `lanes`.
+extern "C" int corro_swim_timeout_lanes(void* view, const void* vinc,
+                                        const void* since, void* key, int n,
+                                        int t, int timeout, int lanes,
+                                        void* stream) {
+  if (n <= 0 || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  size_t cells = (size_t)n * n;
+  swim_timeout_kernel<<<dim3(blocks_for(cells, 256), lanes), 256, 0,
+                        (cudaStream_t)stream>>>(
+      (int8_t*)view, (const int32_t*)vinc, (const int32_t*)since,
+      (int32_t*)key, cells, t, timeout);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_swim_merge_lanes(const void* key, const void* gdst,
+                                      const void* g_ok,
+                                      const void* ann_target,
+                                      const void* ann_claim, void* merged,
+                                      int n, int fanout, int lanes,
+                                      void* stream) {
+  if (n <= 0 || fanout <= 0 || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  size_t total = (size_t)n * fanout * n + n;
+  swim_merge_kernel<<<dim3(blocks_for(total, 256), lanes), 256, 0,
+                      (cudaStream_t)stream>>>(
+      (const int32_t*)key, (const int32_t*)gdst, (const bool*)g_ok,
+      (const int32_t*)ann_target, (const int32_t*)ann_claim,
+      (int32_t*)merged, n, fanout);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_swim_apply_lanes(void* view, void* vinc, void* since,
+                                      const void* key, const void* merged,
+                                      const void* up, const void* heard_down,
+                                      const void* fb_inc, void* incarnation,
+                                      int n, int t, int lanes, void* stream) {
+  if (n <= 0 || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  swim_apply_kernel<<<dim3(blocks_for((size_t)n * n, 256), lanes), 256, 0,
                       (cudaStream_t)stream>>>(
       (int8_t*)view, (int32_t*)vinc, (int32_t*)since, (const int32_t*)key,
       (const int32_t*)merged, (const bool*)up, (const bool*)heard_down,

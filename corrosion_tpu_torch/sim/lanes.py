@@ -29,13 +29,15 @@ draw of a live lane depends on its own key alone.
 
 The lane path covers what the two 100k storm cells run: the flat
 lossless topology, partial-view SWIM, the baseline protocol, unmetered
-budgets and factored fault plans without latency.  `check_lanes`
-refuses everything else, naming the ROADMAP item that ports it.
+budgets and factored fault plans without latency.  `check_packed_lanes`
+refuses everything else, naming the ROADMAP item that ports it; the
+dense round's lanes (`.dense_lanes`) have `check_dense_lanes`, and share
+this module's batch and loop (`_Batch`, `_run_batch`).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,27 +81,13 @@ from .words import (
 )
 
 
-def check_lanes(cfg: SimConfig, topo: Topology, fplan=None,
-                telemetry: bool = False) -> None:
-    """Refuse, loudly and naming the ROADMAP item that ports it, every
-    configuration the lane path does not run: the dense round, the
-    recorder, budgets, topology keys, samplers and protocols other than
-    the defaults, full view or ground-truth membership, matrix plans and
-    plans with delay or jitter."""
-    if not packed_supported(cfg, topo):
-        raise NotImplementedError(
-            "seed ensembles on the dense round are not ported yet "
-            "(ROADMAP B16d)")
+def _check_shared(cfg: SimConfig, topo: Topology, telemetry: bool) -> None:
+    """The refusals both rounds' lanes share: the recorder, topology
+    keys, PeerSwap and the protocol variants."""
     if telemetry:
         raise NotImplementedError(
             "the flight recorder on lanes is not ported yet (K17-K19 "
             "lanes, ROADMAP B16d)")
-    if cfg.rate_limit_bytes_round is not None or (
-            cfg.sync_budget_bytes is not None):
-        raise NotImplementedError(
-            "metered budgets on lanes are not ported yet (K16 and K3's "
-            "metered entry, ROADMAP B16d): set rate_limit_bytes_round "
-            "and sync_budget_bytes to None")
     if topo != Topology():
         raise NotImplementedError(
             "topology families and keys on lanes are not ported yet "
@@ -113,10 +101,31 @@ def check_lanes(cfg: SimConfig, topo: Topology, fplan=None,
         raise NotImplementedError(
             "protocol variants on lanes are not ported yet (ROADMAP "
             "B16d)")
+
+
+def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
+                       telemetry: bool = False) -> None:
+    """Refuse, loudly and naming the ROADMAP item that ports it, every
+    configuration the packed round's lanes do not run: the recorder,
+    metered budgets, topology keys, samplers and protocols other than
+    the defaults, full view or ground-truth membership, matrix plans and
+    plans with delay or jitter."""
+    if not packed_supported(cfg, topo):
+        raise ValueError("a dense configuration on the packed round's "
+                         "lanes: run it through `.dense_lanes`")
+    _check_shared(cfg, topo, telemetry)
+    if cfg.rate_limit_bytes_round is not None or (
+            cfg.sync_budget_bytes is not None):
+        raise NotImplementedError(
+            "metered budgets on the packed round's lanes are not ported "
+            "yet (K16 and K3's metered entry, ROADMAP B16d): "
+            "set rate_limit_bytes_round and sync_budget_bytes to None")
     if not (cfg.swim_partial_view and cfg.couple_membership):
         raise NotImplementedError(
-            "the lanes run partial-view SWIM only; full view and "
-            "ground-truth membership on lanes are ROADMAP B16d")
+            "the packed round's lanes run partial-view SWIM only; full "
+            "view and ground-truth membership run on the dense round's "
+            "lanes (force the dense round with allow_packed=False), not "
+            "on the packed round's (ROADMAP B16d)")
     if fplan is not None:
         if not isinstance(fplan, FactoredFaultPlan):
             raise NotImplementedError(
@@ -126,6 +135,24 @@ def check_lanes(cfg: SimConfig, topo: Topology, fplan=None,
             raise NotImplementedError(
                 "delay and jitter on lanes are not ported yet (K9's "
                 "latency entry, K10j, K3's delay entry: ROADMAP B16d)")
+
+
+def check_dense_lanes(cfg: SimConfig, topo: Topology, fplan=None,
+                      telemetry: bool = False) -> None:
+    """Refuse, naming the ROADMAP item that ports it, every configuration
+    the dense round's lanes do not run: fault plans, the recorder,
+    topology keys, PeerSwap and the protocol variants.  Both byte
+    budgets run (inside K12's and K13's lane entries), and so do full
+    view, partial view and ground-truth membership."""
+    if packed_supported(cfg, topo):
+        raise ValueError("a packed configuration on the dense round's "
+                         "lanes: run it through `run_lanes`")
+    if fplan is not None:
+        raise NotImplementedError(
+            "fault plans on the dense round's lanes are not ported yet "
+            "(K9m, K11d, K12f, K13d and K14x lanes: the next item of "
+            "ROADMAP B16d)")
+    _check_shared(cfg, topo, telemetry)
 
 
 # -- the word phases (K8) ----------------------------------------------------
@@ -646,15 +673,19 @@ def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
 
 
 class _Batch(NamedTuple):
-    """The live lanes: slim state, carry, injected words, metrics, plan
-    seeds, and their indices in the ensemble."""
+    """The live lanes: state, carry and injected words (the packed
+    round's; None on the dense round, whose state holds them), metrics,
+    plan seeds, their indices in the ensemble, and a loop's own per-lane
+    tensors (``extra``, each [K, ...], kept and dropped with the
+    lanes)."""
 
     slim: SimState
-    carry: PackedCarry
-    inj: torch.Tensor
+    carry: Optional[PackedCarry]
+    inj: Optional[torch.Tensor]
     metrics: RunMetrics
     seeds: Optional[torch.Tensor]
     lanes: List[int]
+    extra: Tuple[torch.Tensor, ...] = ()
 
 
 def _select(x, idx):
@@ -666,11 +697,12 @@ def _select(x, idx):
 def _keep(batch: _Batch, keep: List[int]) -> _Batch:
     """The batch restricted to its rows ``keep`` (index_select: new
     tensors, so the dropped lanes' slices stay as they were)."""
-    idx = torch.tensor(keep, dtype=torch.long, device=batch.inj.device)
+    idx = torch.tensor(keep, dtype=torch.long,
+                       device=batch.slim.alive.device)
     slim = batch.slim._replace(**{
         name: _select(getattr(batch.slim, name), idx)
         for name in SimState._fields if name != "t"})
-    carry = PackedCarry(
+    carry = None if batch.carry is None else PackedCarry(
         have=_select(batch.carry.have, idx),
         inflight=_select(batch.carry.inflight, idx),
         relay=Planes(*(_select(p, idx) for p in batch.carry.relay)),
@@ -679,46 +711,73 @@ def _keep(batch: _Batch, keep: List[int]) -> _Batch:
     return _Batch(slim, carry, _select(batch.inj, idx),
                   RunMetrics(*(_select(x, idx) for x in batch.metrics)),
                   _select(batch.seeds, idx),
-                  [batch.lanes[i] for i in keep])
+                  [batch.lanes[i] for i in keep],
+                  tuple(_select(x, idx) for x in batch.extra))
 
 
 def _lane_slice(batch: _Batch, i: int):
-    """Row i of the batch, cloned: the lane's frozen result."""
+    """Row i of the batch, cloned: the lane's frozen result (state,
+    carry, injected words, metrics, its rows of ``extra``)."""
     slim = batch.slim._replace(**{
         name: getattr(batch.slim, name)[i].clone()
         for name in SimState._fields if name != "t"})
     slim = slim._replace(t=batch.slim.t.clone())
-    carry = PackedCarry(
+    carry = None if batch.carry is None else PackedCarry(
         have=batch.carry.have[i].clone(),
         inflight=batch.carry.inflight[i].clone(),
         relay=Planes(*(p[i].clone() for p in batch.carry.relay)),
         sync_buf=batch.carry.sync_buf[i].clone(),
     )
     metrics = RunMetrics(*(x[i].clone() for x in batch.metrics))
-    return slim, carry, batch.inj[i].clone(), metrics
+    inj = None if batch.inj is None else batch.inj[i].clone()
+    return slim, carry, inj, metrics, tuple(x[i].clone()
+                                            for x in batch.extra)
 
 
 def _stack_results(finished, cfg: SimConfig):
     """The lanes' frozen results in lane order as one stacked
-    (SimState, RunMetrics): every field [K, ...], ``t`` i32[K]."""
-    slims, carries, injs, metrics = zip(*finished)
+    (SimState, RunMetrics): every field [K, ...], ``t`` i32[K]; the
+    packed round's words unpacked into the state."""
+    slims, carries, injs, metrics, _ = zip(*finished)
 
     def stack(xs):
         return torch.stack(list(xs))
 
-    slim = SimState(*(stack(getattr(s, name) for s in slims)
+    full = SimState(*(stack(getattr(s, name) for s in slims)
                       for name in SimState._fields))
-    carry = PackedCarry(
-        have=stack(c.have for c in carries),
-        inflight=stack(c.inflight for c in carries),
-        relay=Planes(*(stack(c.relay[k] for c in carries)
-                       for k in range(4))),
-        sync_buf=stack(c.sync_buf for c in carries),
-    )
-    full = unpack_into_state(carry, slim, cfg)
-    full = full._replace(
-        injected=unpack_bits(stack(injs), cfg.n_payloads).to(torch.uint8))
+    if carries[0] is not None:
+        carry = PackedCarry(
+            have=stack(c.have for c in carries),
+            inflight=stack(c.inflight for c in carries),
+            relay=Planes(*(stack(c.relay[k] for c in carries)
+                           for k in range(4))),
+            sync_buf=stack(c.sync_buf for c in carries),
+        )
+        full = unpack_into_state(carry, full, cfg)
+        full = full._replace(
+            injected=unpack_bits(stack(injs), cfg.n_payloads).to(torch.uint8))
     return full, RunMetrics(*(stack(x) for x in zip(*metrics)))
+
+
+def _run_batch(batch: _Batch, max_rounds: int, done, step):
+    """The lanes' loop: once a round the ``[K]`` done flags come to the
+    host (the one read of a round); a lane that is done, or every lane
+    at ``max_rounds``, leaves the batch with its state after that round;
+    ``step(batch)`` runs one round of the live lanes and returns (batch,
+    done).  Returns the finished lanes in ensemble order."""
+    finished = [None] * len(batch.lanes)
+    while True:
+        flags = done.tolist()  # the one host read of a round
+        if int(batch.slim.t) >= max_rounds:
+            flags = [True] * len(flags)
+        ended = [i for i, f in enumerate(flags) if f]
+        for i in ended:
+            finished[batch.lanes[i]] = _lane_slice(batch, i)
+        if len(ended) == len(flags):
+            return finished
+        if ended:
+            batch = _keep(batch, [i for i, f in enumerate(flags) if not f])
+        batch, done = step(batch)
 
 
 def _shrink_lanes(states: SimState) -> SimState:
@@ -763,7 +822,7 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
     Returns the lanes' final (SimState, RunMetrics), stacked in lane
     order with ``t`` i32[K] on the host; lane k equals the solo run of
     its initial state and seed."""
-    check_lanes(cfg, topo, fplan)
+    check_packed_lanes(cfg, topo, fplan)
     dev = states.have.device
     k_lanes = states.have.shape[0]
     region = regions(cfg.n_nodes, topo.n_regions, dev)
@@ -784,20 +843,9 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
         activity = host_activity(fplan)
     batch = _Batch(slim, carry, inj, _new_lane_metrics(cfg, k_lanes, dev),
                    seeds, list(range(k_lanes)))
-    finished = [None] * k_lanes
-    done = _initial_done(batch, meta, cfg, fplan)
-    while True:
-        flags = done.tolist()  # the one host read of a round
+
+    def step(batch: _Batch):
         t = int(batch.slim.t)
-        if t >= max_rounds:
-            flags = [True] * len(flags)
-        ended = [i for i, f in enumerate(flags) if f]
-        for i in ended:
-            finished[batch.lanes[i]] = _lane_slice(batch, i)
-        if len(ended) == len(flags):
-            break
-        if ended:
-            batch = _keep(batch, [i for i, f in enumerate(flags) if not f])
         rf = None
         if fplan is not None:
             rf = round_faults(fplan, t)
@@ -807,7 +855,10 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
             topo, region, rf, None if fplan is None else horizon,
             batch.seeds,
             True if fplan is None else activity[min(t, horizon)].loss)
-        batch = batch._replace(slim=slim, metrics=metrics)
+        return batch._replace(slim=slim, metrics=metrics), done
+
+    finished = _run_batch(batch, max_rounds,
+                          _initial_done(batch, meta, cfg, fplan), step)
     return _stack_results(finished, cfg)
 
 

@@ -9,7 +9,8 @@ the packed fault storm and its flight-recorder rung
 also puts the storm on the dense round, or on full-view SWIM), and the
 gapstress storm (config #5b, on the packed round from 1280 nodes) with
 its K-clamp distortion pair, and membership churn (configs #2 and #2b
-through `.telemetry.run_membership_detect`, and `membership_churn`),
+through the campaign engine's detect cells, as JAX routes them, and
+`membership_churn`),
 returning the same result keys.  The configs JAX lets record a trace
 take ``telemetry`` and ``trace_path`` (`.telemetry`): the record gains
 the ``telemetry`` summary block and the path the flight-recorder JSONL.
@@ -47,7 +48,6 @@ from .state import (
     uniform_payloads,
 )
 from .telemetry import (
-    run_membership_detect,
     trace_host,
     trace_summary,
     write_flight_jsonl,
@@ -290,20 +290,6 @@ def churn_setup(cfg: SimConfig, seed: int, dev: torch.device):
     return meta, state
 
 
-def _churn_run(cfg: SimConfig, seed: int, max_rounds: int, device):
-    """`run_membership_detect` on the churn setup over the flat topology:
-    (final state, metrics, detect_round as an int, wall seconds between
-    ``torch.cuda.synchronize()``s on the card)."""
-    dev = resolve_device(device)
-    meta, state = churn_setup(cfg, seed, dev)
-    _sync(dev)
-    t0 = time.monotonic()
-    final, metrics, detect = run_membership_detect(
-        state, meta, cfg, Topology(), max_rounds, device=dev)
-    _sync(dev)
-    return final, metrics, int(detect), time.monotonic() - t0
-
-
 def membership_lane_stats(final, cfg: SimConfig) -> Dict[str, float]:
     """Detection quality of one run's final state, host-side (JAX
     ``campaign/engine.py`` ``_membership_lane_stats`` for one lane):
@@ -331,26 +317,38 @@ def membership_lane_stats(final, cfg: SimConfig) -> Dict[str, float]:
     return out
 
 
-def _churn_record(cfg: SimConfig, final, metrics, detect_round: int,
-                  wall: float, return_state: bool) -> Dict[str, object]:
-    """JAX's legacy config #2/#2b record (``runner.py`` ``_churn_record``)
-    without the campaign engine's ``spec_hash`` and ``result_digest``,
-    which wait for the port's engine (ROADMAP A12)."""
-    stats = membership_lane_stats(final, cfg)
+def _churn_record(spec, n: int, device, return_state: bool
+                  ) -> Dict[str, object]:
+    """Run a one-seed detect spec through the campaign engine and give
+    JAX's legacy config #2/#2b record (``runner.py:233 _churn_record``):
+    ``detect_round`` -1 where the engine's lane never detected, the
+    cell's wall, the artifact's ``spec_hash`` and ``result_digest``; with
+    ``return_state`` the lane's final state and metrics too."""
+    from ..campaign.engine import run_campaign
+    from ..campaign.ensemble import lane_state
+
+    lanes: Dict[int, Dict] = {}
+    artifact = run_campaign(spec, device=device, lanes_out=lanes)
+    cell = artifact["cells"][0]
+    ps = cell["per_seed"]
+    dr = ps["detect_round"][0]
+    dr = -1 if dr is None else int(dr)
     rec = {
-        "n_nodes": cfg.n_nodes,
-        "detect_round": detect_round,
-        "detect_sim_s": (detect_round * ROUND_SECONDS
-                         if detect_round >= 0 else -1),
-        "detected_fraction": stats["detected_fraction"],
-        "wall_clock_s": wall,
-        "converged": detect_round >= 0,
+        "n_nodes": n,
+        "detect_round": dr,
+        "detect_sim_s": dr * ROUND_SECONDS if dr >= 0 else -1,
+        "detected_fraction": float(ps["detected_fraction"][0]),
+        "wall_clock_s": cell["wall_clock_s"],
+        "converged": bool(ps["converged"][0]),
+        "spec_hash": artifact["spec_hash"],
+        "result_digest": artifact["result_digest"],
     }
-    if "false_positive_downs" in stats:
-        rec["false_positive_downs"] = stats["false_positive_downs"]
+    if "false_positive_downs" in ps:
+        rec["false_positive_downs"] = int(ps["false_positive_downs"][0])
     if return_state:
-        rec["state"] = final
-        rec["metrics"] = metrics
+        kept = lanes[0]
+        rec["state"] = lane_state(kept["finals"], 0)
+        rec["metrics"] = RunMetrics(*(x[0] for x in kept["metrics"]))
     return rec
 
 
@@ -360,13 +358,14 @@ def config_swim_churn_64(
 ) -> Dict[str, object]:
     """Config #2: membership only — kill a third of an ``n``-node
     full-view cluster at t = 0 and count the rounds until every survivor
-    marks every dead node DOWN (`run_membership_detect`, K23's full
-    entry).  The record has JAX's legacy keys and ``false_positive_downs``;
-    JAX's ``spec_hash`` and ``result_digest`` belong to its campaign
-    engine, not ported yet (ROADMAP A12), and are left out."""
-    cfg = SimConfig.wan_tuned(n, n_payloads=1, swim_full_view=True)
-    return _churn_record(cfg, *_churn_run(cfg, seed, max_rounds, device),
-                         return_state)
+    marks every dead node DOWN.  As in JAX, through the campaign engine:
+    a one-seed cell of the `swim-churn-64` spec (the detect loop on one
+    lane, K23's full lane entry), JAX's legacy keys with
+    ``false_positive_downs``, ``spec_hash`` and ``result_digest``."""
+    from ..campaign.spec import swim_churn_64_spec
+
+    spec = swim_churn_64_spec(seeds=(seed,), n=n, max_rounds=max_rounds)
+    return _churn_record(spec, n, device, return_state)
 
 
 def config_swim_churn_partial(
@@ -375,14 +374,14 @@ def config_swim_churn_partial(
 ) -> Dict[str, object]:
     """Config #2b, config #2 at the partial-view scale tier: ``n`` nodes
     on O(N·M) member tables, probing every round, until every live table
-    entry of an up watcher that names a dead member is marked DOWN
-    (K23's partial entry).  JAX's legacy keys and ``member_slots``;
-    ``spec_hash`` and ``result_digest`` are left out, as for config #2."""
-    cfg = SimConfig.wan_tuned(n, n_payloads=1, swim_partial_view=True,
-                              probe_period_rounds=1)
-    rec = _churn_record(cfg, *_churn_run(cfg, seed, max_rounds, device),
-                        return_state)
-    rec["member_slots"] = cfg.member_slots
+    entry of an up watcher that names a dead member is marked DOWN.
+    Engine-routed like config #2 (the `swim-churn-partial` spec, K23's
+    partial lane entry); JAX's legacy keys and ``member_slots``."""
+    from ..campaign.spec import swim_churn_partial_spec
+
+    spec = swim_churn_partial_spec(seeds=(seed,), n=n, max_rounds=max_rounds)
+    rec = _churn_record(spec, n, device, return_state)
+    rec["member_slots"] = spec.sim_config({}).member_slots
     return rec
 
 

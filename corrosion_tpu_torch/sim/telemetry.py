@@ -559,6 +559,26 @@ def detect_partial_(detect: torch.Tensor, pid: torch.Tensor,
     return detect
 
 
+def _detect_setup(state, cfg: SimConfig, topo, device):
+    """Both detect loops' preamble: (the device, the region map), after
+    JAX's refusal of a run without a SWIM tier and the port's of a state
+    on another device than ``device``."""
+    from ..device import resolve_device
+    from .round import validate
+    from .topology import regions
+
+    dev = resolve_device(device)
+    if state.have.device.type != dev.type:
+        raise ValueError(f"the state lies on {state.have.device}, not {dev}")
+    if not (cfg.swim_full_view or cfg.swim_partial_view):
+        raise ValueError(
+            "membership detection needs a SWIM tier "
+            "(swim_full_view or swim_partial_view)"
+        )
+    validate(cfg, topo)
+    return dev, regions(cfg.n_nodes, topo.n_regions, dev)
+
+
 def run_membership_detect(state, meta, cfg: SimConfig, topo,
                           max_rounds: int = 400, telemetry: bool = False,
                           device="cuda"):
@@ -572,20 +592,9 @@ def run_membership_detect(state, meta, cfg: SimConfig, topo,
     (state, metrics, detect_round[, trace]): ``detect_round`` a 0-d i32
     tensor, -1 if ``max_rounds`` passed first, and with ``telemetry`` the
     run's `RoundTrace`.  ``state`` must lie on ``device``."""
-    from .round import new_metrics, own_state, round_step_, validate
-    from .topology import regions
-    from ..device import resolve_device
+    from .round import new_metrics, own_state, round_step_
 
-    dev = resolve_device(device)
-    if state.have.device.type != dev.type:
-        raise ValueError(f"the state lies on {state.have.device}, not {dev}")
-    if not (cfg.swim_full_view or cfg.swim_partial_view):
-        raise ValueError(
-            "membership detection needs a SWIM tier "
-            "(swim_full_view or swim_partial_view)"
-        )
-    validate(cfg, topo)
-    region = regions(cfg.n_nodes, topo.n_regions, dev)
+    dev, region = _detect_setup(state, cfg, topo, device)
     metrics = new_metrics(cfg, dev)
     up = state.alive == ALIVE
     state = own_state(state)
@@ -600,6 +609,112 @@ def run_membership_detect(state, meta, cfg: SimConfig, topo,
             detect_partial_(detect, state.pid, state.pkey, up, int(state.t))
     out = (state, metrics, detect[0].clone())
     return out + (trace,) if telemetry else out
+
+
+# -- the detect loop on lanes (seed ensembles, B16) ---------------------------
+
+
+def new_detect_lanes(lanes: int, device) -> torch.Tensor:
+    """The lane detect loop's device words: i32[K, 3], each lane's
+    `new_detect` word."""
+    return torch.tensor([[-1, 0, 0]] * lanes, dtype=torch.int32,
+                        device=device)
+
+
+def detect_full_lanes_plain(detect: torch.Tensor, view: torch.Tensor,
+                            up: torch.Tensor, t: int) -> torch.Tensor:
+    """Plain version of K23's full lane entry: the solo plain version on
+    each lane's word, in place."""
+    for k in range(detect.shape[0]):
+        detect_full_plain(detect[k], view[k], up[k], t)
+    return detect
+
+
+def detect_partial_lanes_plain(detect: torch.Tensor, pid: torch.Tensor,
+                               pkey: torch.Tensor, up: torch.Tensor,
+                               t: int) -> torch.Tensor:
+    """Plain version of K23's partial lane entry, in place."""
+    for k in range(detect.shape[0]):
+        detect_partial_plain(detect[k], pid[k], pkey[k], up[k], t)
+    return detect
+
+
+def _check_detect_lanes(detect: torch.Tensor, up: torch.Tensor, lanes: int,
+                        n: int) -> None:
+    check("detect", detect, torch.int32, (lanes, 3))
+    check("up", up, torch.bool, (lanes, n))
+
+
+def detect_full_lanes_(detect: torch.Tensor, view: torch.Tensor,
+                       up: torch.Tensor, t: int) -> torch.Tensor:
+    """`detect_full_` per lane, in place on ``detect`` [K, 3]: lane k's
+    ``detect_round`` becomes ``t`` when it is < 0 and every (up, dead)
+    pair of its ``view`` [K, N, N] is believed DOWN.  K23's full lane
+    entry on the card: each lane's blocks vote into its own word."""
+    if view.device.type == "cpu":
+        return detect_full_lanes_plain(detect, view, up, t)
+    lanes, n = up.shape
+    _check_detect_lanes(detect, up, lanes, n)
+    check("view", view, torch.int8, (lanes, n, n))
+    kernels.DETECT_FULL_LANES.launch([view, up, detect], [n, t, lanes])
+    return detect
+
+
+def detect_partial_lanes_(detect: torch.Tensor, pid: torch.Tensor,
+                          pkey: torch.Tensor, up: torch.Tensor,
+                          t: int) -> torch.Tensor:
+    """`detect_partial_` per lane, in place on ``detect`` [K, 3], over
+    each lane's member tables [K, N, M].  K23's partial lane entry on
+    the card."""
+    if pid.device.type == "cpu":
+        return detect_partial_lanes_plain(detect, pid, pkey, up, t)
+    lanes, n, m = pid.shape
+    _check_detect_lanes(detect, up, lanes, n)
+    check("pid", pid, torch.int32, (lanes, n, m))
+    check("pkey", pkey, torch.int32, (lanes, n, m))
+    kernels.DETECT_PARTIAL_LANES.launch([pid, pkey, up, detect],
+                                        [n, m, t, lanes])
+    return detect
+
+
+def run_membership_detect_lanes(states, meta, cfg: SimConfig, topo,
+                                max_rounds: int = 400,
+                                telemetry: bool = False, device="cuda"):
+    """`run_membership_detect` over a seed ensemble's stacked states (the
+    kill pre-applied, every field [K, ...]): the dense round's lanes
+    (`.dense_lanes.dense_round_step_lanes`), then K23's lane entry on
+    each lane's own ``up`` (its alive at entry); the loop reads the
+    ``[K]`` detect rounds once a round, and a lane whose ``detect_round``
+    became >= 0 leaves the batch with its state after that round, as
+    JAX's select-frozen lane does; the rest run to ``max_rounds``.
+    Returns (finals, metrics, detect_rounds i32[K]), -1 for a lane that
+    never detected; the recorder on lanes is not ported."""
+    from .dense_lanes import dense_round_step_lanes, lane_batch
+    from .lanes import _run_batch, _stack_results, check_dense_lanes
+
+    dev, region = _detect_setup(states, cfg, topo, device)
+    check_dense_lanes(cfg, topo, telemetry=telemetry)
+    lanes = states.alive.shape[0]
+    batch = lane_batch(states, cfg)
+    detect = new_detect_lanes(lanes, dev)
+    batch = batch._replace(extra=(detect, batch.slim.alive == ALIVE))
+
+    def step(batch):
+        state, metrics, _ = dense_round_step_lanes(
+            batch.slim, batch.metrics, meta, cfg, topo, region)
+        detect, up = batch.extra
+        t = int(state.t)
+        if cfg.swim_full_view:
+            detect_full_lanes_(detect, state.view, up, t)
+        else:
+            detect_partial_lanes_(detect, state.pid, state.pkey, up, t)
+        return (batch._replace(slim=state, metrics=metrics),
+                detect[:, 0] >= 0)
+
+    finished = _run_batch(batch, max_rounds, detect[:, 0] >= 0, step)
+    finals, metrics = _stack_results(finished, cfg)
+    detect_rounds = torch.stack([extra[0][0] for *_, extra in finished])
+    return finals, metrics, detect_rounds
 
 
 # -- host-side exports -------------------------------------------------------

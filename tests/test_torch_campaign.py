@@ -200,7 +200,9 @@ def _refused_spec(case):
                 packed_min_cells=0)
     kw = {}
     if case == "dense":
+        # a fault plan on the dense round (its lanes are the next slice)
         base = dict(base, packed_min_cells=10 * 1024 * 1024)
+        kw["events"] = (FaultEvent("loss", 0, 4, p=0.2),)
     elif case == "metered":
         base = dict(base, rate_limit_bytes_round=5 * 1024 * 1024)
     elif case == "matrix":
@@ -232,7 +234,9 @@ def _refused_spec(case):
     elif case == "full_view":
         base = dict(base, swim_partial_view=False, swim_full_view=True)
     if case == "detect":
-        return spec_mod.swim_churn_64_spec()
+        # a detect cell with the recorder (the recorder's lanes)
+        return dataclasses.replace(spec_mod.swim_churn_64_spec(),
+                                   telemetry=True)
     if case == "serving":
         return spec_mod.serving_3node_spec()
     return spec_mod.CampaignSpec(name=case, scenario=base, seeds=(0, 1),
@@ -273,8 +277,10 @@ def test_baseline_family_and_default_keys_run():
 
 
 def test_ensemble_refusals():
+    spec = spec_mod.swim_churn_64_spec()
     with pytest.raises(NotImplementedError, match="B16d"):
-        run_detect_ensemble()
+        run_detect_ensemble(spec.sim_config({}), spec.topo({}), None, (0,),
+                            telemetry=True, device="cpu")
     spec = _refused_spec("latency")
     with pytest.raises(NotImplementedError, match="B16d"):
         run_seed_ensemble(None, spec.sim_config({}), spec.topo({}), None,

@@ -1424,3 +1424,109 @@ def test_ensemble_on_card_equals_cpu(card, faults_on):
             solo, _ = faults.run_fault_plan(state, meta, cfg, topo, fp, 3000)
         for name, x, y in zip(solo._fields, solo, lane_state(outs[0][0], k)):
             assert torch.equal(x.cpu(), y.cpu()), (k, name)
+
+
+# -- the dense round's lane entries (B16, dense half) -------------------------
+
+
+DENSE_LANE_CASES = {
+    "dense_phases": lambda s, dev, g: s.compare_lane_dense_phases(
+        dev, g, 3, n=301, timed=False),
+    "dense_phases_p1": lambda s, dev, g: s.compare_lane_dense_phases(
+        dev, g, 2, n=3001, p=1, timed=False),
+    "dense_sync": lambda s, dev, g: s.compare_lane_dense_sync(
+        dev, g, 3, n=301, timed=False),
+    "dense_sync_p1": lambda s, dev, g: s.compare_lane_dense_sync(
+        dev, g, 2, n=3001, p=1, timed=False),
+    "dense_gaps": lambda s, dev, g: s.compare_lane_dense_gaps(
+        dev, g, 3, n=301, timed=False),
+    "dense_gaps_p1": lambda s, dev, g: s.compare_lane_dense_gaps(
+        dev, g, 4, n=3001, p=1, timed=False),
+    "swim_full": lambda s, dev, g: s.compare_lane_swim_full(
+        dev, g, 3, n=257, timed=False),
+    "sample_uniform": lambda s, dev, g: s.compare_lane_sample_uniform(
+        dev, g, 3, n=257, timed=False),
+    "detect": lambda s, dev, g: s.compare_lane_detect(
+        dev, g, 5, timed=False, full_n=301, partial_n=3001),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_LANE_CASES))
+def test_dense_lane_kernels(card, case):
+    """chip_smoke's phase 3l at small and ragged shapes: each dense lane
+    entry (K12's three, K13, K14's two, K15's three, K1's uniform entry,
+    K23's two) equal to its plain version, each lane to the solo entry on
+    its inputs, binding budgets and lane-varying done flags included."""
+    out = DENSE_LANE_CASES[case](_smoke(), card,
+                                 np.random.default_rng(len(case)))
+    rows = out if isinstance(out, list) else [out]
+    assert all(r["equal"] for r in rows), [r["name"] for r in rows
+                                           if not r["equal"]]
+
+
+@pytest.mark.parametrize("tier", ("ground", "full", "partial", "metered"))
+def test_dense_ensemble_on_card_equals_cpu(card, tier):
+    """Three lanes on the dense round through the engine's ensemble on
+    the card: every lane tensor and metric equal to the same ensemble's
+    plain versions on the CPU, and each lane to the card's solo run."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_state, run_seed_ensemble)
+    from corrosion_tpu_torch.campaign.spec import CampaignSpec
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+
+    extra = {"ground": {}, "full": {"swim_full_view": True},
+             "partial": {"swim_partial_view": True, "member_slots": 16},
+             "metered": {"rate_limit_bytes_round": 3 * 8192 + 100,
+                         "sync_budget_bytes": 2 * 8192}}[tier]
+    seeds = (0, 2, 4)
+    spec = CampaignSpec(name="dense", scenario=dict(
+        n_nodes=96, n_payloads=64, n_writers=4, fanout=3, n_delay_slots=4,
+        inject_every=2, **extra), seeds=seeds)
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        outs.append(run_seed_ensemble(None, cfg, topo, meta, seeds,
+                                      max_rounds=3000, device=dev))
+    for a, b in zip(*outs):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y.cpu()), name
+    meta = uniform_payloads(cfg, card, inject_every=2)
+    for k, s in enumerate(seeds):
+        solo, _ = run_to_convergence(new_sim(cfg, s, card), meta, cfg, topo,
+                                     3000)
+        for name, x, y in zip(solo._fields, solo, lane_state(outs[0][0], k)):
+            assert torch.equal(x.cpu(), y.cpu()), (k, name)
+
+
+@pytest.mark.parametrize("n, partial", ((64, False), (512, True)))
+def test_detect_ensemble_on_card_equals_cpu(card, n, partial):
+    """Three lanes of the detect loop (K23's lane entries) on the card:
+    finals, metrics and detect rounds equal to the CPU's plain lanes,
+    each lane to the card's solo `run_membership_detect`."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_state, run_detect_ensemble)
+    from corrosion_tpu_torch.campaign.spec import (
+        swim_churn_64_spec, swim_churn_partial_spec)
+    from corrosion_tpu_torch.sim.runner import churn_setup
+    from corrosion_tpu_torch.sim.telemetry import run_membership_detect
+
+    seeds = (0, 1, 2)
+    spec = (swim_churn_partial_spec(seeds=seeds, n=n, max_rounds=300)
+            if partial else swim_churn_64_spec(seeds=seeds, n=n))
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    outs = [run_detect_ensemble(
+        cfg, topo, uniform_payloads(cfg, dev, inject_every=1), seeds,
+        kill_every=3, max_rounds=spec.max_rounds, device=dev)
+        for dev in (card, torch.device("cpu"))]
+    for x, y in zip(outs[0][:2], outs[1][:2]):
+        for name, a, b in zip(type(y)._fields, x, y):
+            assert torch.equal(a.cpu(), b.cpu()), name
+    assert torch.equal(outs[0][2].cpu(), outs[1][2])
+    for k, s in enumerate(seeds):
+        meta, state = churn_setup(cfg, s, card)
+        solo, _, det = run_membership_detect(state, meta, cfg, topo,
+                                             spec.max_rounds, device=card)
+        assert int(det) == int(outs[0][2][k])
+        for name, a, b in zip(solo._fields, solo, lane_state(outs[0][0], k)):
+            assert torch.equal(a.cpu(), b.cpu()), (k, name)

@@ -233,24 +233,23 @@ def test_detect_state_must_lie_on_device():
 # -- the configs' records ----------------------------------------------------------
 
 
-_ENGINE_KEYS = ("spec_hash", "result_digest", "wall_clock_s")
-
-
 def _record_pair(jax_config, port_config, **kw):
+    """Both packages' records of one config, less the wall: the engine's
+    spec_hash and result_digest stay in both."""
     with jax_telemetry():
         want = jax_config(**kw)
     got = port_config(device="cpu", return_state=True, **kw)
     state = got.pop("state")
     got.pop("metrics")
     assert got.pop("wall_clock_s") >= 0
-    for key in _ENGINE_KEYS:
-        want.pop(key)
+    want.pop("wall_clock_s")
     return want, got, state
 
 
 def test_config_swim_churn_64_record_matches_jax():
-    """Config #2's record, key for key, less the wall and the campaign
-    engine's keys; it is the card's golden."""
+    """Config #2's record through the campaign engine, key for key less
+    the wall, JAX's spec_hash and result_digest included; it is the
+    card's golden."""
     from corrosion_tpu.sim.runner import config_swim_churn_64
 
     want, got, state = _record_pair(config_swim_churn_64,
@@ -266,7 +265,8 @@ def test_config_swim_churn_64_record_matches_jax():
 def test_config_swim_churn_partial_record_matches_jax(seed, n, max_rounds):
     """Config #2b's record at the failing JAX test's own case (512 nodes,
     seed 1, 800 rounds) and at one that stops undetected, key for key
-    less the wall and the engine's keys (``member_slots`` included)."""
+    less the wall (``member_slots``, ``spec_hash`` and ``result_digest``
+    included)."""
     from corrosion_tpu.sim.runner import config_swim_churn_partial
 
     want, got, _ = _record_pair(config_swim_churn_partial,
@@ -276,8 +276,9 @@ def test_config_swim_churn_partial_record_matches_jax(seed, n, max_rounds):
 
 
 def test_membership_churn_keeps_its_record():
-    """`membership_churn`, now through `run_membership_detect`, keeps its
-    keys: the 64-node shape detects at 18 with no false DOWNs."""
+    """`membership_churn`, now through the campaign engine's detect
+    cell, keeps its keys: the 64-node shape detects at 18 with no false
+    DOWNs."""
     rec = runner.membership_churn(64, 0, device="cpu")
     assert set(rec) == {"n_nodes", "detect_round", "false_downs",
                         "wall_clock_s"}

@@ -95,19 +95,26 @@ def test_cuda_source_names_the_jax_function_it_replaces(source):
 
 LANE_SOURCES = ("threefry.cu", "sample_targets.cu", "broadcast_scatter.cu",
                 "sync_pull.cu", "gaps_refresh.cu", "converge_fold.cu",
-                "word_phases.cu", "fault_edges.cu", "node_faults.cu")
+                "word_phases.cu", "fault_edges.cu", "node_faults.cu",
+                "dense_phases.cu", "dense_sync.cu", "dense_gaps.cu",
+                "swim_full.cu", "membership_detect.cu")
 
 
 @pytest.mark.parametrize("source", LANE_SOURCES)
 def test_lane_note_names_the_ensemble(source):
     """A source with a lane entry names the JAX ensemble it batches for,
-    at the line of its def."""
+    each mention at the line of its def (``run_ensemble``, or for the
+    detect loop's lanes ``run_detect_ensemble``)."""
     text = (CSRC / source).read_text()
-    m = re.search(r"corrosion_tpu/campaign/\s*ensemble\.py:(\d+)", text)
-    assert m, f"{source} does not name campaign/ensemble.py"
-    line = (ROOT / "corrosion_tpu" / "campaign" / "ensemble.py").read_text(
-    ).splitlines()[int(m.group(1)) - 1]
-    assert line.startswith("def run_ensemble("), (source, line)
+    found = re.findall(r"corrosion_tpu/campaign/\s*ensemble\.py:(\d+)",
+                       text)
+    assert found, f"{source} does not name campaign/ensemble.py"
+    lines = (ROOT / "corrosion_tpu" / "campaign" / "ensemble.py").read_text(
+    ).splitlines()
+    for number in found:
+        line = lines[int(number) - 1]
+        assert line.startswith(("def run_ensemble(",
+                                "def run_detect_ensemble(")), (source, line)
 
 
 def test_library_name_follows_included_headers(tmp_path):

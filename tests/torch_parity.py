@@ -335,15 +335,42 @@ def run_both_ensembles(jspec, pspec):
     from corrosion_tpu_torch.sim.state import uniform_payloads
 
     jcfg, jtopo = jspec.sim_config({}), jspec.topo({})
+    every = jspec.inject_every({})
     jf, jm = jrun(jspec.fault_plan({}, seed=jspec.seeds[0]), jcfg, jtopo,
-                  jpayloads(jcfg, inject_every=2), jspec.seeds,
+                  jpayloads(jcfg, inject_every=every), jspec.seeds,
                   max_rounds=jspec.max_rounds)
     cfg, topo = pspec.sim_config({}), pspec.topo({})
-    meta = uniform_payloads(cfg, "cpu", inject_every=2)
+    meta = uniform_payloads(cfg, "cpu", inject_every=every)
     plan = pspec.fault_plan({}, seed=pspec.seeds[0])
     pf, pm = run_seed_ensemble(plan, cfg, topo, meta, pspec.seeds,
                                max_rounds=pspec.max_rounds, device="cpu")
     return jf, jm, pf, pm, cfg, meta, plan
+
+
+def spec_pair(name, scenario, seeds, max_rounds=3000):
+    """(JAX CampaignSpec, port CampaignSpec) of one scenario dict."""
+    from corrosion_tpu.campaign.spec import CampaignSpec as JaxSpec
+    from corrosion_tpu_torch.campaign.spec import CampaignSpec
+
+    kw = dict(name=name, scenario=dict(scenario), seeds=tuple(seeds),
+              max_rounds=max_rounds)
+    return JaxSpec(**kw), CampaignSpec(**kw)
+
+
+def assert_lanes_equal_jax(jf, jm, pf, pm, label):
+    """Every state field and both stamps of every lane, exactly, in
+    JAX's dtypes."""
+    from corrosion_tpu_torch.convert import state_to_numpy
+
+    pn = state_to_numpy(pf)
+    for name in type(jf)._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(jf, name)),
+                                      pn[name], err_msg=f"{label}: {name}")
+        assert np.asarray(getattr(jf, name)).dtype == pn[name].dtype, name
+    for name in ("converged_at", "coverage_at", "overflow_frac"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(jm, name)), getattr(pm, name).numpy(),
+            err_msg=f"{label}: metrics {name}")
 
 
 def port_solo_runs(cfg, meta, plan, seeds):
