@@ -12,7 +12,9 @@ result line):
    K12, and the protocol axis's instantiations of K8, K10, K12, K18 and
    K20, and the lane entries of K1–K11 for the seed ensembles on the
    packed round and of K12–K15, K1's uniform entry and K23 for those on
-   the dense round and the detect loop) from the twenty-two sources in ``corrosion_tpu_torch/kernels/csrc`` with
+   the dense round and the detect loop, and of K9m's reach, K11d, K12f,
+   K13d and K14x for the dense round's fault loop) from the twenty-two
+   sources in ``corrosion_tpu_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
    k = 8, A = 16, V = 8, C = 4, K = 8; the fault storm's plan: Kb = 2,
@@ -261,6 +263,28 @@ result line):
    binding budget and a loss threshold, the churn paths' P = 1 at
    100k, K15 at 8 × 4096², K23 with lanes that hold, miss, are already
    set or have only dead watchers — each lane held to the solo entry);
+   then the dense round's fault ensembles (B16d, faults), each from
+   launch counters at 0 through ``run_campaign``: fault-parity-3node
+   (seeds 0-7) and fault-campaign-3node (seed 0), the builtin 3-node
+   campaigns on their matrix plans, fault-storm-1000-seeds8 (the fault
+   storm below the packed envelope, its matrix plan), dense-fault-storm-
+   100k-seeds8 and dense-latency-storm-100k-seeds8 (``campaign.spec.
+   dense_storm_seeds_spec``, factored plans), each with round_path
+   "dense" and the plan's horizon, its lane entries launched and no solo
+   entry, its ``spec_hash``, ``result_digest`` and every lane's rounds,
+   p99 and digest against its golden, every lane also against the
+   port's solo run of its seed on the card (the solo walls beside the
+   ensemble's, with ``max_memory_allocated``); at 100k lane 0 against
+   JAX's solo golden, and the dense fault storm's lanes against the
+   packed fault storm ensemble's golden (phase 3lf before the paths compares
+   K9m's reach lane entry at fault-storm-1000's shapes and K11d's, K12f's,
+   K13d's and K14x's lane entries at the 100k dense storms' at K = 8,
+   each lane held to the solo entry, printing that each trap was
+   reached: lanes whose reach draws differ by plan seed, a wipe of lanes
+   holding payloads beside an empty one, a jitter slot and a session
+   delay that wrap the ring, a session refused in one direction only,
+   done flags that flip at the horizon in some lanes only, a wipe after
+   convergence);
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
@@ -277,7 +301,8 @@ result line):
    first 3 rounds of the 8-lane storm and fault storm and of one lane,
    beside a solo storm round profiled in the same call, and the first 3
    rounds of the 8-lane swim-churn-partial-100k, churn-full-4096 and
-   broadcast-1k rounds beside their solo rounds;
+   broadcast-1k rounds beside their solo rounds, and rounds 5-7 of the
+   8-lane dense-fault-storm-100k beside its solo rounds;
 17. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
@@ -6435,6 +6460,722 @@ def profile_dense_path(dev, which, lanes=ENSEMBLE_LANES, rounds=3):
     return _profile(run, rounds, label, setup)
 
 
+# -- the dense fault loop's lanes (phase 3lf, paths 41-45) -------------------
+
+SOLO_OF_LANE.update({"fault_reach_matrix_lanes": "fault_reach_matrix",
+                     "node_faults_dense_lanes": "node_faults_dense",
+                     "dense_broadcast_fault_lanes": "dense_broadcast_fault",
+                     "dense_sync_delay_lanes": "dense_sync_delay",
+                     "dense_gaps_exit_lanes": "dense_gaps_exit"})
+
+
+def _tu8(gen, shape, p_one, dev):
+    """u8 0/1 cells on the card, each 1 with probability ``p_one``, from
+    a seeded torch generator (the lanes' inputs are too wide to draw on
+    the host)."""
+    return (torch.rand(shape, generator=gen, device=dev) < p_one).to(
+        torch.uint8)
+
+
+def _lane_dense_states(gen, dev, cfg, lanes, t):
+    """K mid-storm dense states at ``cfg``'s shapes, stacked (``t`` one
+    host scalar): half the cells held with relay budgets on them, most
+    payloads injected, sparse rings, 3 % dead nodes, random member tables
+    or full-view beliefs, heads and gap rows."""
+    from corrosion_tpu_torch.sim.state import init_state
+
+    n, p, d = cfg.n_nodes, cfg.n_payloads, cfg.n_delay_slots
+    a, k, m, v = cfg.n_writers, cfg.gap_slots, cfg.member_slots, \
+        cfg.n_versions
+    base = init_state(cfg, torch.tensor([0, 9], dtype=torch.int64,
+                                        device=dev))
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    have = _tu8(gen, (lanes, n, p), 0.5, dev)
+    rep = dict(
+        have=have,
+        relay_left=ints(0, 4, (lanes, n, p), torch.uint8) * have,
+        injected=_tu8(gen, (lanes, p), 0.9, dev),
+        inflight=_tu8(gen, (lanes, d, n, p), 0.05, dev),
+        sync_inflight=_tu8(gen, (lanes, d, n, p), 0.02, dev),
+        alive=(_tu8(gen, (lanes, n), 0.03, dev) * 2),
+        heads=ints(0, v + 1, (lanes, n, a)),
+        gap_lo=ints(0, v + 1, (lanes, n, a, k)),
+        gap_hi=ints(0, v + 1, (lanes, n, a, k)),
+    )
+    if cfg.swim_partial_view:
+        rep.update(pid=ints(-1, n, (lanes, n, m)),
+                   pkey=ints(-1, 40, (lanes, n, m)),
+                   psince=ints(-1, t + 1, (lanes, n, m)))
+    if cfg.swim_full_view:
+        rep.update(view=ints(0, 3, (lanes, n, n), torch.int8),
+                   vinc=ints(0, 5, (lanes, n, n)),
+                   suspect_since=ints(-1, t + 1, (lanes, n, n)))
+    rest = {f: x.expand(lanes, *x.shape).contiguous()
+            for f, x in zip(base._fields, base)
+            if f not in rep and f != "t"}
+    return base._replace(t=torch.tensor(t, dtype=torch.int32), **rest,
+                         **rep)
+
+
+def _lane_edges_of(gen, dev, state, f):
+    """Each lane's targets [K, N, F] (self and -1 among them) and its
+    edges: src [1, E], dst and ok [K, E] as the dense lanes build them."""
+    from corrosion_tpu_torch.sim.dense_lanes import _edges
+
+    lanes, n = state.alive.shape
+    tg = torch.randint(0, n, (lanes, n, f), generator=gen, device=dev,
+                       dtype=torch.int32)
+    me = torch.arange(n, dtype=torch.int32, device=dev)[None, :, None]
+    roll = torch.rand((lanes, n, f), generator=gen, device=dev)
+    tg = torch.where(roll < 0.03, -1, torch.where(roll < 0.05, me, tg))
+    tg = tg.to(torch.int32).contiguous()
+    src, dst, ok = _edges(state, tg)
+    return tg, src, dst.contiguous(), ok
+
+
+def compare_lane_reach_matrix(dev, g, lanes, n=MATRIX_N, f=3, timed=True):
+    """K9m's reach lane entry at fault-storm-1000's shapes (K lanes of
+    E = N·F edges on its matrix plan's round 5: the half split's cuts and
+    the 0.15 loss) with per-lane keys and plan seeds: equal to the plain
+    version, lanes 0 and K - 1 each equal to the solo entry under its key
+    and seed, and on one edge list shared by every lane the lanes' draws
+    disagreeing (each lane folds its own seed)."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+    from corrosion_tpu_torch.sim import faults
+
+    _, _, fplan, _ = _matrix_storm(n, dev)
+    rf = faults.round_faults(fplan, MATRIX_T)
+    e = n * f
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(
+        f)[None].expand(lanes, -1).contiguous()
+    dst = torch.as_tensor(np.where(g.random((lanes, e)) < 0.05,
+                                   src.cpu().numpy(),
+                                   g.integers(0, n, (lanes, e))),
+                          dtype=torch.int32, device=dev)
+    ok0 = torch.as_tensor(g.random((lanes, e)) < 0.9, device=dev)
+    keys = _lane_keys(dev, lanes, 5000)
+    seeds = lane_plan_seeds(range(lanes), dev)
+    got = faults.fault_reach_lanes_(ok0.clone(), rf, keys, src, dst, seeds)
+    ref = faults.fault_reach_lanes_plain(ok0.clone(), rf, keys, src, dst,
+                                         seeds)
+    for k in (0, lanes - 1):
+        solo = faults.fault_reach_(ok0[k].clone(),
+                                   rf._replace(seed=int(seeds[k])), keys[k],
+                                   src[k], dst[k])
+        _solo_trap(f"fault_reach_matrix lanes lane {k}", [got[k]], [solo])
+    same = dst[:1].expand(lanes, -1).contiguous()
+    ok1 = ok0[:1].expand(lanes, -1).contiguous()
+    shared = faults.fault_reach_lanes_(ok1.clone(), rf,
+                                       keys[:1].expand(lanes, -1).contiguous(),
+                                       src, same, seeds)
+    cut = faults._block_plain(rf, src[0], same[0])
+    _trap("lane fault 1", "K9m's reach on lanes: a cut edge cleared in "
+          "every lane, and lanes of one key and one edge list that differ "
+          "by their plan seeds' loss draws",
+          bool((ok1[0] & cut).any()) and not bool(shared[:, cut].any())
+          and bool((shared != shared[0]).any()))
+    wk, wp = ok0.clone(), ok0.clone()
+
+    def rk():
+        wk.copy_(ok0)
+        faults.fault_reach_lanes_(wk, rf, keys, src, dst, seeds)
+
+    def rp():
+        wp.copy_(ok0)
+        faults.fault_reach_lanes_plain(wp, rf, keys, src, dst, seeds)
+
+    # ids, ok in and out, the block and loss cells
+    return _lane_row(
+        "fault_reach_matrix_lanes", _CSRC + "fault_edges.cu",
+        "corrosion_tpu/sim/swim.py:161",
+        bool(torch.equal(got, ref)), _max_abs_err(got, ref),
+        _timed(timed, rk), _timed(timed, rp), lanes * e * (4 + 4 + 2 + 2),
+        lanes, n=n, e=e)
+
+
+def compare_lane_node_faults_dense(dev, gen, lanes, n=STORM_N,
+                                   full_n=MATRIX_N, timed=True):
+    """K11d's lane entry on K lanes of the dense fault storm's state
+    (N = 100000, P = 512, D = 2, M = 64) at round 20 (node 1's restart:
+    an override and a wiped row) and of the full-view storm's at N =
+    1000 (its [K, N, N] beliefs): equal to the plain version, the last
+    lane to the solo entry; lane 0's wiped rows hold nothing before the
+    wipe while the other lanes' hold payloads."""
+    from corrosion_tpu_torch.sim import faults
+
+    cases = []
+    for label, (cfg, _, fplan) in (
+            ("partial", _dense_fault_storm(n, dev)),
+            ("full", _dense_fault_storm(full_n, dev, swim_partial_view=False,
+                                        swim_full_view=True))):
+        rf = faults.round_faults(fplan, 20)
+        node = int(torch.nonzero(rf.wipe).flatten()[0])
+        states = _lane_dense_states(gen, dev, cfg, lanes, 20)
+        for name, fill in (("have", 0), ("relay_left", 0), ("heads", 0),
+                           ("gap_lo", 0), ("gap_hi", 0), ("pid", -1),
+                           ("pkey", -1), ("psince", -1)):
+            getattr(states, name)[0, node] = fill
+        for name in ("inflight", "sync_inflight"):
+            getattr(states, name)[0, :, node] = 0
+        got = faults.apply_node_faults_lanes(_clone_state(states), rf)
+        want = faults.apply_node_faults_lanes_plain(_clone_state(states), rf)
+        e, x = _equal_all([y for y in got if y.numel()],
+                          [y for y in want if y.numel()])
+        last = lanes - 1
+        solo = faults.apply_node_faults(
+            faults._lane_states(_clone_state(states))[last], rf)
+        _solo_trap(f"node_faults_dense lanes {label}",
+                   [y[last] for f_, y in zip(got._fields, got) if f_ != "t"],
+                   [y for f_, y in zip(solo._fields, solo) if f_ != "t"])
+        held = [bool(states.have[k, node].any()) for k in range(lanes)]
+        kept = [all(torch.equal(getattr(got, nm)[k, node + 1],
+                                getattr(states, nm)[k, node + 1])
+                    for nm in ("have", "relay_left", "heads"))
+                for k in range(lanes)]
+        _trap(f"lane fault 2 {label}",
+              "a wipe of lanes that hold payloads in the wiped row beside a "
+              "lane whose row is already empty: every lane's row emptied, "
+              "the next row untouched",
+              not held[0] and all(held[1:])
+              and not bool(got.have[:, node].any()) and all(kept))
+        cases.append((e, x, states, rf, cfg))
+    equal = all(c[0] for c in cases)
+    err = max(c[1] for c in cases)
+    _, _, states, rf, cfg = cases[0]
+    work = _clone_state(states)
+    wiped = torch.nonzero(rf.wipe).flatten()
+
+    def restore():
+        work.alive.copy_(states.alive)
+        for name in ("have", "relay_left", "heads", "gap_lo", "gap_hi",
+                     "pid", "pkey", "psince"):
+            getattr(work, name)[:, wiped] = getattr(states, name)[:, wiped]
+        for name in ("inflight", "sync_inflight"):
+            getattr(work, name)[:, :, wiped] = getattr(states, name)[
+                :, :, wiped]
+
+    p, d, a = cfg.n_payloads, cfg.n_delay_slots, cfg.n_writers
+    row = p * (2 + 2 * d) + (a + 2 * a * cfg.gap_slots
+                             + 3 * cfg.member_slots) * 4
+    return _lane_row(
+        "node_faults_dense_lanes", _CSRC + "node_faults.cu",
+        "corrosion_tpu/sim/faults.py:703", equal, err,
+        _timed(timed, lambda: faults.apply_node_faults_lanes(work, rf),
+               restore),
+        _timed(timed, lambda: faults.apply_node_faults_lanes_plain(work, rf),
+               restore),
+        lanes * (n * 2 + int(rf.wipe.sum()) * row) + n * 2, lanes,
+        n=n)
+
+
+def _lane_wire_case(gen, dev, cfg, meta, fplan, t, lanes, zero_rings=False):
+    """One round's broadcast inputs on K lanes of a mid-storm state: the
+    lanes' targets and edges, K9's cuts, fault thresholds, delays and
+    jitter bounds on the lanes folded into the edge axis, the slots, the
+    lanes' phase keys and k_drop, their plan seeds."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim import rng as trng
+
+    state = _lane_dense_states(gen, dev, cfg, lanes, t)
+    if zero_rings:
+        state.inflight.zero_()
+    targets, src, dst, ok = _lane_edges_of(gen, dev, state, cfg.fanout)
+    rf = faults.round_faults(fplan, t)
+    _, fthr, fdelay, jit = faults.fault_wire_effects(
+        rf, src.expand(lanes, -1).reshape(-1), dst.reshape(-1), ok.view(-1))
+    fthr, fdelay, jit = (None if x is None else x.view(lanes, -1)
+                         for x in (fthr, fdelay, jit))
+    delay = torch.zeros_like(dst) if fdelay is None else fdelay
+    slot = ((t + delay) % cfg.n_delay_slots).to(torch.int32)
+    keys = _lane_keys(dev, lanes, 6000 + t)
+    return SimpleNamespace(
+        state=state, targets=targets, dst=dst, ok=ok, fthr=fthr, jit=jit,
+        slot=slot, keys=keys,
+        k_drop=trng.split_lanes(keys, 3)[:, 1].contiguous(),
+        seeds=lane_plan_seeds(range(lanes), dev),
+        host_seeds=lane_plan_seeds(range(lanes), "cpu"), meta=meta, cfg=cfg)
+
+
+def _lane_wire_send(c, kernel, ring, relay):
+    """K12's fault lane entry (or its plain version) on case ``c``, in
+    place on ``ring`` and ``relay``; the plain version takes the seeds
+    from the host (a plain version timed in a graph must not read the
+    card)."""
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+
+    s = c.state
+    send = dl.broadcast_send_lanes if kernel else \
+        dl.broadcast_send_lanes_plain
+    send(s.have, relay, s.injected, c.meta.nbytes,
+         c.cfg.rate_limit_bytes_round, c.targets, c.dst, c.slot, c.ok,
+         s.alive, c.k_drop, 0, ring, c.keys, c.fthr, c.jit,
+         c.seeds if kernel else c.host_seeds)
+
+
+def compare_lane_broadcast_fault(dev, gen, lanes, n=STORM_N, timed=True):
+    """K12's fault lane entry on K lanes at the dense storms' shapes (N =
+    100000, P = 512, F = 3): the dense fault storm's round 5 (the fault
+    loss, the half split's cuts; D = 2) and the dense latency storm's
+    round 6 on empty rings (delay and jitter of one round out of the
+    first sixth; D = 4): equal to the plain version, the last lane to the
+    solo fault entry under its phase key and plan seed, and a jittered
+    payload that wraps the ring (slot D - 1 plus one lands in slot 0)."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+
+    cfg, meta, fplan = _dense_fault_storm(n, dev)
+    lcfg, lmeta, lplan = _dense_latency_storm(n, dev)
+    cases = {"path": _lane_wire_case(gen, dev, cfg, meta, fplan,
+                                     DENSE_FAULT_T, lanes),
+             "latency": _lane_wire_case(gen, dev, lcfg, lmeta, lplan,
+                                        LATENCY_T, lanes, zero_rings=True)}
+    equal, err, after = True, 0, {}
+    last = lanes - 1
+    for label, c in cases.items():
+        outs = []
+        for kernel in (True, False):
+            ring, relay = c.state.inflight.clone(), c.state.relay_left.clone()
+            _lane_wire_send(c, kernel, ring, relay)
+            outs.append([ring, relay])
+        e, x = _equal_all(outs[0], outs[1])
+        equal, err = equal and e, max(err, x)
+        after[label] = outs[0]
+        s = c.state
+        ring, relay = s.inflight[last].clone(), s.relay_left[last].clone()
+        bc.broadcast_send(
+            s.have[last], relay, s.injected[last], meta.nbytes,
+            c.cfg.rate_limit_bytes_round, c.targets[last], c.dst[last],
+            c.slot[last], c.ok[last], s.alive[last], c.k_drop[last], 0, ring,
+            phase_key=c.keys[last],
+            fthr=None if c.fthr is None else c.fthr[last],
+            jit=None if c.jit is None else c.jit[last],
+            seed=int(c.seeds[last]))
+        _solo_trap(f"dense_broadcast_fault lanes {label}",
+                   [x[last] for x in outs[0]], [ring, relay])
+        del outs
+    c = cases["latency"]
+    d = c.cfg.n_delay_slots
+    base_slots = set(torch.unique(c.slot[c.ok]).tolist())
+    _trap("lane fault 3", "a jittered payload wraps the ring: every edge's "
+          "slot is D - 2 or D - 1, yet slot 0 receives",
+          base_slots <= {d - 2, d - 1} and d - 1 in base_slots
+          and bool(after["latency"][0][:, 0].any()))
+    del cases["latency"], after
+    c = cases["path"]
+    base = [c.state.inflight, c.state.relay_left]
+    work = [x.clone() for x in base]
+
+    def restore():
+        for dst_, src_ in zip(work, base):
+            dst_.copy_(src_)
+
+    hashes = 0
+    for k in range(lanes):
+        s = c.state
+        sending = ((s.have[k] > 0) & (s.relay_left[k] > 0)
+                   & (s.injected[k] > 0)[None, :]).repeat_interleave(
+                       c.cfg.fanout, dim=0) & (c.ok[k] & (c.fthr[k] > 0))[
+                           :, None]
+        hashes += int(sending.reshape(sending.shape[0], -1, 4).any(
+            dim=2).sum())
+        del sending
+    ring, relay = base[0].clone(), base[1].clone()
+    _lane_wire_send(c, True, ring, relay)
+    changed = _changed_bytes(base, [ring, relay])
+    del ring, relay
+    nbytes = (_nbytes(c.state.have, c.state.relay_left, c.state.injected,
+                      meta.nbytes, c.targets, c.dst, c.slot, c.ok,
+                      c.state.alive, c.fthr) + changed)
+    ops = hashes * OPS_PER_HASH
+    rate = _int32_ops_per_s()
+    ops_ms = ops / rate * 1e3
+    row = _lane_row(
+        "dense_broadcast_fault_lanes", _CSRC + "dense_phases.cu",
+        "corrosion_tpu/sim/broadcast.py:124", equal, err,
+        _timed(timed, lambda: _lane_wire_send(c, True, work[0], work[1]),
+               restore),
+        _timed(timed, lambda: _lane_wire_send(c, False, work[0], work[1]),
+               restore),
+        nbytes, lanes, ops=ops, hashes=hashes, n=n)
+    row["bound_ms"] = max(row["bound_ms"], ops_ms)
+    row["bound_by"] = "operations" if ops_ms > _bound_ms(nbytes) else "bytes"
+    return row
+
+
+def compare_lane_sync_delay(dev, g, gen, lanes, n=STORM_N, timed=True):
+    """K13's delay lane entry on K lanes at the dense latency storm's
+    shapes (N = 100000, P = 512, S = 3, D = 4) at round 6 (pull slot
+    t + 1 = 3: a session delay of one wraps to slot 0, empty before) with
+    the sessions K9 refuses on the lanes folded under the latency storm's
+    plan and, for the refusal trap, under a one-way cut (a session dies
+    on the reverse edge too); equal to the plain version, the last lane
+    to the solo delay entry."""
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import faults, sync
+
+    cfg, meta, fplan = _dense_latency_storm(n, dev)
+    s, d = cfg.sync_peers, cfg.n_delay_slots
+    t = LATENCY_T
+    state = _lane_dense_states(gen, dev, cfg, lanes, t)
+    adv = [_advertised(g, dev, cfg, state.have[k], 40) for k in range(lanes)]
+    heads, lo, hi = (_stack(a[i] for a in adv) for i in range(3))
+    _, src, dst, ok = _lane_edges_of(gen, dev, state, s)
+    src_flat = src.expand(lanes, -1).reshape(-1)
+    ok_pre = ok.clone()  # before the storm's half split refuses sessions
+    rf = faults.round_faults(fplan, t)
+    _, sdelay = faults.fault_session_effects(rf, src_flat, dst.reshape(-1),
+                                             ok.view(-1))
+    sdelay = sdelay.view(lanes, -1)
+    # the refusal trap: a one-way cut of the first half from the second
+    oplan = faults.compile_plan(one_way_plan(n), cfg, device=dev)
+    orf = faults.round_faults(oplan, 2)
+    ok_k = ok_pre.clone()
+    ref_k = faults.fault_session_refused(orf, src_flat, dst.reshape(-1),
+                                         ok_k.view(-1))
+    fwd = faults._block_plain(orf, src_flat, dst.reshape(-1))
+    ref_p = fwd | faults._block_plain(orf, dst.reshape(-1), src_flat)
+    ok_p = ok_pre & ~ref_p.view(lanes, -1)
+    _trap("lane fault 4", "a session refused in one direction only: a "
+          "puller in the second half whose server sits in the first (the "
+          "cut runs the other way) is refused, on the lanes folded",
+          torch.equal(ref_k, ref_p) and torch.equal(ok_k, ok_p)
+          and bool((ok_pre.view(-1) & ref_k & ~fwd).any()))
+    ring0 = state.sync_inflight
+    ring0[:, 0] = 0
+    slot = (t + 1) % d
+    peers, ok = dst.view(lanes, -1, s), ok.view(lanes, -1, s)
+    args = (state.have, heads, lo, hi, peers, ok, meta.nbytes, None)
+    got_r, want_r = ring0.clone(), ring0.clone()
+    got = dl.sync_pull_dense_lanes(*args, got_r, cfg, slot, sdelay)
+    want = dl.sync_pull_dense_lanes_plain(*args, want_r, cfg, slot, sdelay)
+    equal, err = _equal_all([got, got_r], [want, want_r])
+    last = lanes - 1
+    solo_r = ring0[last].clone()
+    solo = sync.sync_pull_dense(
+        state.have[last], heads[last], lo[last], hi[last], peers[last],
+        ok[last], meta.nbytes, None, solo_r, cfg, None, sdelay[last], slot)
+    _solo_trap("dense_sync_delay lanes", [got[last], got_r[last]],
+               [solo, solo_r])
+    _trap("lane fault 5", "a session delay wraps the ring: pull slot D - 1 "
+          "plus one lands in slot 0, empty before",
+          slot == d - 1 and int(sdelay.max()) == 1
+          and bool(got_r[:, 0].any()))
+    work = ring0.clone()
+
+    def restore():
+        work.copy_(ring0)
+
+    nbytes = (_nbytes(state.have, heads, lo, hi, peers, ok, meta.nbytes,
+                      sdelay)
+              + _changed_bytes([ring0], [got_r]) + lanes * state.have.shape[1])
+    return _lane_row(
+        "dense_sync_delay_lanes", _CSRC + "dense_sync.cu",
+        "corrosion_tpu/sim/sync.py:165", equal, err,
+        _timed(timed, lambda: dl.sync_pull_dense_lanes(
+            *args, work, cfg, slot, sdelay), restore),
+        _timed(timed, lambda: dl.sync_pull_dense_lanes_plain(
+            *args, work, cfg, slot, sdelay), restore),
+        nbytes, lanes, n=n)
+
+
+def compare_lane_gaps_exit(dev, gen, lanes, n=STORM_N, timed=True):
+    """K14's lane entries in their exit mode at the dense storm's shapes
+    (N = 100000, P = 512, A = 16, V = 8, C = 4, K = 8) after every
+    payload was injected, over lanes of three kinds — settled (every up
+    node holds everything), wiped after convergence (one up row empty
+    under set stamps), holes — at the plan's horizon (t + 1 = horizon:
+    the flags flip in the settled lanes only) and before it (none):
+    equal to the plain version, the last lane to the solo exit mode."""
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim.round import RunMetrics, dense_record
+
+    cfg, meta, _ = _dense_fault_storm(n, dev)
+    p = cfg.n_payloads
+    t = int(meta.round.max()) + 2
+    alive = (_tu8(gen, (lanes, n), 0.03, dev) * 2)
+    have = torch.ones((lanes, n, p), dtype=torch.uint8, device=dev)
+    kinds = [k % 3 for k in range(lanes)]
+    for k, kind in enumerate(kinds):
+        up = torch.nonzero(alive[k] == 0).flatten()
+        if kind == 1:
+            have[k, int(up[1])] = 0  # wiped after it converged
+        elif kind == 2:
+            have[k] = _tu8(gen, (n, p), 0.5, dev)
+    metrics = RunMetrics(
+        coverage_at=torch.full((lanes, p), 2, dtype=torch.int32, device=dev),
+        converged_at=torch.full((lanes, n), 4, dtype=torch.int32,
+                                device=dev),
+        overflow_frac=torch.zeros((lanes,), device=dev),
+        order_violations=torch.zeros((lanes,), dtype=torch.int32,
+                                     device=dev))
+    inj = torch.ones((lanes, p), dtype=torch.uint8, device=dev)
+    args = (have, inj, alive, metrics, meta, t, cfg)
+    equal, err, dones = True, 0, {}
+    for horizon in (t + 1, t + 2):
+        got = dl.dense_record_lanes(*args, horizon)
+        want = dl.dense_record_lanes_plain(*args, horizon)
+        e, x = _equal_all(got, want)
+        equal, err = equal and e, max(err, x)
+        dones[horizon] = want[6].tolist()
+        last = lanes - 1
+        _solo_trap(f"dense_gaps_exit lanes horizon t+{horizon - t}",
+                   [y[last] for y in got],
+                   dense_record(have[last], inj[last], alive[last],
+                                RunMetrics(*(y[last] for y in metrics)),
+                                meta, t, cfg, horizon))
+    sticky = dl.dense_record_lanes_plain(*args)[6].tolist()
+    _trap("lane fault 6", "done flags flip at the horizon in the settled "
+          "lanes only, none before it",
+          dones[t + 1] == [kind == 0 for kind in kinds]
+          and not any(dones[t + 2]))
+    _trap("lane fault 7", "a wipe after convergence un-converges its lane: "
+          "the sticky stamps would exit it, the exit mode does not",
+          all(sticky[k] and not dones[t + 1][k]
+              for k, kind in enumerate(kinds) if kind == 1))
+    a, kg = cfg.n_writers, cfg.gap_slots
+    nbytes = lanes * (n * p + p + n + p * 4 + n * 4 * 2 + p * 4 * 2
+                      + n * a * 4 * (1 + 2 * kg) + 4 + 1)
+    return _lane_row(
+        "dense_gaps_exit_lanes", _CSRC + "dense_gaps.cu",
+        "corrosion_tpu/sim/faults.py:748", equal, err,
+        _timed(timed, lambda: dl.dense_record_lanes(*args, t + 1)),
+        _timed(timed, lambda: dl.dense_record_lanes_plain(*args, t + 1)),
+        nbytes, lanes, n=n, dones=dones[t + 1])
+
+
+def compare_dense_fault_lane_kernels(dev, seed=12, lanes=ENSEMBLE_LANES,
+                                     timed=True, big=True):
+    """Phase 3lf: every lane entry of the dense fault loop against its
+    plain version at K = 8 on its paths' shapes (K9m's reach at
+    fault-storm-1000's, the rest at the 100k dense storms'), each lane
+    held to the solo entry on its inputs, every trap reached; ``big``
+    False shrinks 100 000 and 1000 nodes to 1200 and 333 (a CPU
+    rehearsal)."""
+    g = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    wide, mid = (STORM_N, MATRIX_N) if big else (1200, 333)
+    rows = [compare_lane_reach_matrix(dev, g, lanes, mid, timed=timed),
+            compare_lane_node_faults_dense(dev, gen, lanes, wide, mid,
+                                           timed),
+            compare_lane_broadcast_fault(dev, gen, lanes, wide, timed),
+            compare_lane_sync_delay(dev, g, gen, lanes, wide, timed),
+            compare_lane_gaps_exit(dev, gen, lanes, wide, timed)]
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+#: the rows every dense fault ensemble launches; each path adds its own
+DENSE_FAULT_LANE_CORE = ("threefry_lanes", "dense_phases_lanes",
+                         "dense_gaps_exit_lanes", "node_faults_dense_lanes",
+                         "dense_broadcast_fault_lanes")
+#: paths 41-45: (label, spec builder, the rows the path adds, golden name)
+DENSE_FAULT_ENSEMBLE_PATHS = (
+    ("fault_parity_3node", "parity",
+     ("sample_uniform_lanes", "dense_sync_delay_lanes",
+      "fault_edges_matrix"), "FAULT_PARITY_3NODE_SEEDS8"),
+    ("fault_campaign_3node", "campaign",
+     ("sample_uniform_lanes", "dense_sync_delay_lanes",
+      "fault_edges_matrix"), "FAULT_CAMPAIGN_3NODE_ENGINE"),
+    ("fault_storm_1000_seeds8", "storm1000",
+     ("sample_targets_lanes", "merge_entries_lanes", "dense_sync_lanes",
+      "fault_edges_matrix", "fault_reach_matrix_lanes"),
+     "FAULT_STORM_1000_SEEDS8"),
+    ("dense_fault_storm_100k_seeds8", "dense100k",
+     ("sample_targets_lanes", "merge_entries_lanes", "dense_sync_lanes",
+      "fault_reach_lanes"), "DENSE_FAULT_STORM_100K_SEEDS8"),
+    ("dense_latency_storm_100k_seeds8", "latency100k",
+     ("sample_targets_lanes", "merge_entries_lanes",
+      "dense_sync_delay_lanes", "fault_edges_delay", "fault_reach_lanes"),
+     "DENSE_LATENCY_STORM_100K_SEEDS8"),
+)
+
+
+def dense_fault_path_spec(which, seeds=range(ENSEMBLE_LANES)):
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    return {
+        "parity": lambda: sp.fault_parity_3node_spec(seeds),
+        "campaign": lambda: sp.fault_campaign_3node_spec(0),
+        "storm1000": lambda: sp.storm_seeds_spec(seeds, n_nodes=1000,
+                                                 faults=True),
+        "dense100k": lambda: sp.dense_storm_seeds_spec(seeds),
+        "latency100k": lambda: sp.dense_storm_seeds_spec(seeds,
+                                                         latency=True),
+    }[which]()
+
+
+def _fault_solo_runs(spec, dev):
+    """The port's solo runs of a fault path's seeds on the card: the
+    spec's plan re-seeded per seed through `run_fault_plan`; each run's
+    rounds, p99 node-convergence round (the engine's lower percentile),
+    state digest and host wall."""
+    from corrosion_tpu_torch.campaign.engine import _percentile_lower
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
+    from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every({}))
+    out = []
+    for s in spec.seeds:
+        fplan = compile_plan(spec.fault_plan({}, seed=int(s)), cfg, topo,
+                             device=dev)
+        state = new_sim(cfg, int(s), dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        final, metrics = run_fault_plan(state, meta, cfg, topo, fplan,
+                                        spec.max_rounds)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        out.append(({"rounds": int(final.t),
+                     "p99_node_convergence_round": _percentile_lower(
+                         metrics.converged_at.cpu().numpy(), 99),
+                     "digest": state_digest(final)}, wall))
+    return out
+
+
+def dense_fault_ensemble_paths(dev, goldens):
+    """Paths 41-45: the dense round's fault ensembles through `campaign.
+    engine.run_campaign` (seeds 0-7; fault-campaign-3node its one seed),
+    each from zeroed counters: every lane entry of the path launched, no
+    solo entry of a kernel that has one; round_path "dense" and the
+    plan's horizon; the artifact's spec_hash and result_digest and each
+    lane's rounds, p99 and state digest against the golden pinned from
+    live JAX.  Every path's lanes each against the port's solo run of
+    its seed on this card (the walls beside, with max_memory_allocated);
+    at 100k lane 0 also against JAX's solo golden, and the dense fault
+    storm's lanes against the packed fault storm ensemble's golden (JAX's
+    dense == packed contract).  Returns the launches per path and the
+    printed numbers."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.convert import state_digest
+
+    launches, numbers = {}, {}
+    for label, which, extra, golden_name in DENSE_FAULT_ENSEMBLE_PATHS:
+        spec = dense_fault_path_spec(which)
+        kept = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        art = run_campaign(spec, device=dev, lanes_out=kept)
+        peak = torch.cuda.max_memory_allocated()
+        counts = _path_launches(kernels, DENSE_FAULT_LANE_CORE + extra, label)
+        solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+        if solo_on:
+            raise AssertionError(f"{label}: solo entries {solo_on} launched "
+                                 "on a lane path")
+        launches[label] = counts
+        cell = art["cells"][0]
+        ps = cell["per_seed"]
+        finals = kept[0]["finals"]
+        lanes = [{"seed": s, "rounds": ps["rounds"][i],
+                  "p99_node_convergence_round":
+                      ps["p99_node_convergence_round"][i],
+                  "digest": state_digest(lane_state(finals, i))}
+                 for i, s in enumerate(cell["seeds"])]
+        del kept, finals
+        got = {"spec_hash": art["spec_hash"],
+               "result_digest": art["result_digest"], "lanes": lanes}
+        print(f"{label}: {json.dumps(got)} wall_clock_s="
+              f"{cell['wall_clock_s']} wall_verdict={cell['wall_verdict']} "
+              f"round_path={cell['round_path']} plan_horizon="
+              f"{cell['plan_horizon']} all_converged="
+              f"{cell['all_converged']}", flush=True)
+        if cell["round_path"] != "dense" or cell["plan_horizon"] <= 0:
+            raise AssertionError(f"{label}: round_path {cell['round_path']}, "
+                                 f"plan_horizon {cell['plan_horizon']}")
+        if getattr(goldens, golden_name) != got:
+            raise AssertionError(f"{label}: differs from its golden")
+        solos = _fault_solo_runs(spec, dev)
+        if [rec for rec, _ in solos] != [
+                {k: v for k, v in lane.items() if k != "seed"}
+                for lane in lanes]:
+            raise AssertionError(f"{label}: a lane differs from its solo run")
+        walls = [wall for _, wall in solos]
+        entry = {"ensemble_wall_s": cell["wall_clock_s"],
+                 "max_memory_allocated_bytes": peak, "solo_walls_s": walls,
+                 "solo_walls_sum_s": sum(walls)}
+        print(f"{label}: every lane equal to its solo run; ensemble wall "
+              f"{cell['wall_clock_s']} s against the solo walls' sum "
+              f"{sum(walls):.4f} s ({walls}); max_memory_allocated {peak} "
+              "bytes", flush=True)
+        if which in ("dense100k", "latency100k"):
+            jax_solo = (goldens.DENSE_FAULT_STORM_100K_SEED0
+                        if which == "dense100k"
+                        else goldens.DENSE_LATENCY_STORM_100K_SEED0)
+            if {k: lanes[0][k] for k in jax_solo} != jax_solo:
+                raise AssertionError(f"{label}: lane 0 differs from JAX's "
+                                     "solo golden")
+            if which == "dense100k" and (
+                    goldens.FAULT_STORM_100K_SEEDS8["lanes"] != lanes):
+                raise AssertionError(f"{label}: lanes differ from the packed "
+                                     "fault storm ensemble's golden")
+        numbers[label] = entry
+        _lap(label)
+    return launches, numbers
+
+
+def profile_dense_fault_lanes(dev, lanes=ENSEMBLE_LANES, start=DENSE_FAULT_T,
+                              rounds=3):
+    """``rounds`` rounds of the 8-lane dense-fault-storm-100k from round
+    ``start`` through the lane fault loop's body, as `run_dense_lanes`
+    runs them (K11d's lane entry, the lane round with its slice, the one
+    host read of the [K] flags); the first ``start`` rounds are setup.
+    `profile_dense_fault` gives the solo round."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_plan_seeds, seed_states)
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim.dense_lanes import (
+        dense_round_step_lanes, lane_batch)
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    cfg, meta, fplan = _dense_fault_storm(STORM_N, dev)
+    topo = Topology()
+    region = regions(cfg.n_nodes, 1, dev)
+    activity = faults.host_activity(fplan)
+    horizon = fplan.horizon
+    seeds = lane_plan_seeds(range(lanes), dev)
+
+    def step(batch):
+        t = int(batch.slim.t)
+        rf = faults.round_faults(fplan, t)
+        faults.apply_node_faults_lanes(batch.slim, rf)
+        state, metrics, done = dense_round_step_lanes(
+            batch.slim, batch.metrics, meta, cfg, topo, region, rf, horizon,
+            batch.seeds, activity[min(t, horizon)])
+        done.tolist()  # the loop's one host read a round
+        return batch._replace(slim=state, metrics=metrics)
+
+    def setup():
+        batch = lane_batch(seed_states(cfg, range(lanes), dev), cfg, seeds)
+        for _ in range(start):
+            batch = step(batch)
+        torch.cuda.synchronize()
+        return batch
+
+    def run(batch):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            batch = step(batch)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, f"dense fault storm-100k x{lanes} lanes "
+                    f"rounds {start}-{start + rounds - 1}", setup)
+
+
 _START = time.monotonic()
 
 
@@ -6699,6 +7440,10 @@ def main() -> int:
     print("kernel comparisons equal at the 8-lane dense paths' shapes",
           flush=True)
     _lap("dense lane kernel comparisons")
+    dense_fault_lane_rows = compare_dense_fault_lane_kernels(dev)
+    print("kernel comparisons equal at the 8-lane dense fault paths' shapes",
+          flush=True)
+    _lap("dense fault lane kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -7560,6 +8305,12 @@ def main() -> int:
     print("dense ensemble numbers: " + json.dumps(dense_lane_numbers),
           flush=True)
     _lap("paths 36-40, the dense ensembles")
+    # paths 41-45: the dense round's fault ensembles
+    dense_fault_lane_launches, dense_fault_lane_numbers = \
+        dense_fault_ensemble_paths(dev, goldens)
+    print("dense fault ensemble numbers: " + json.dumps(
+        dense_fault_lane_numbers), flush=True)
+    _lap("paths 41-45, the dense fault ensembles")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -7599,6 +8350,11 @@ def main() -> int:
         for lanes_ in (ENSEMBLE_LANES, None):
             print("profile_dense_ensemble: " + json.dumps(
                 profile_dense_path(dev, which, lanes_)), flush=True)
+    # the 8-lane dense fault round beside its solo round, in one process
+    print("profile_dense_fault_ensemble: " + json.dumps(
+        profile_dense_fault_lanes(dev)), flush=True)
+    print("profile_dense_fault_ensemble: " + json.dumps(
+        profile_dense_fault(dev)), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -7744,6 +8500,20 @@ def main() -> int:
             label: c[row["kernel"]]
             for label, c in dense_lane_launches.items()}
     rows += dense_lane_rows
+    # each dense fault lane row reads its launches on the path whose
+    # shapes it was compared at
+    fault_lane_path = {
+        "fault_reach_matrix_lanes": "fault_storm_1000_seeds8",
+        "dense_sync_delay_lanes": "dense_latency_storm_100k_seeds8"}
+    for row in dense_fault_lane_rows:
+        path = fault_lane_path.get(row["kernel"],
+                                   "dense_fault_storm_100k_seeds8")
+        row["launches"] = dense_fault_lane_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]]
+            for label, c in dense_fault_lane_launches.items()}
+    rows += dense_fault_lane_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

@@ -15,14 +15,19 @@ every cell (atomic replace) and resume from a file of the same spec
 hash.
 
 The engine runs sim cells on both rounds — faultless or under a
-factored plan on the packed round, faultless on the dense round — and
-detect cells (``detect_membership``: configs #2/#2b, the detect loop on
-lanes, banding ``detect_round`` with JAX's per-lane detection quality).
-A detect cell is refused with JAX's ValueErrors for what it cannot
-measure.  The rest raises NotImplementedError, naming its ROADMAP item:
-fault plans on the dense round and the recorder on lanes
-(``measure_wire``, ``telemetry``) are B16d, a mesh is A13, host-serving
-cells and host parity are host tier (not queued).  The cell's
+factored plan on the packed round, faultless or under a plan of either
+form (delay and jitter included) on the dense round, which is where
+every fault cell outside the packed envelope goes (the 3-node fault
+campaigns, fault storms below the envelope, ``allow_packed: False``),
+reporting ``round_path: "dense"`` and the plan's horizon as JAX does —
+and detect cells (``detect_membership``: configs #2/#2b, the detect loop
+on lanes, banding ``detect_round`` with JAX's per-lane detection
+quality).  A detect cell is refused with JAX's ValueErrors for what it
+cannot measure.  The rest raises NotImplementedError, naming its
+ROADMAP item: the recorder and the churn key on lanes (``measure_wire``,
+``telemetry``, ``churn``) and matrix or latency plans on the packed
+round's lanes are B16d, a mesh is A13, host-serving cells and host
+parity are host tier (not queued).  The cell's
 ``traceparent`` and its span tree belong to the host tracing tier and
 are left out (the digest excludes them).
 """
@@ -60,8 +65,8 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg,
     wire measurement, cannot measure.  Then the port's
     NotImplementedErrors, each naming its ROADMAP item; the refusals of
     what a cell resolves to — budgets on the packed round, a topology,
-    sampler or protocol other than the defaults, fault plans on the
-    dense round, matrix and latency plans — follow in
+    sampler or protocol other than the defaults, matrix and latency
+    plans on the packed round — follow in
     `..sim.lanes.check_packed_lanes` and `check_dense_lanes`."""
     from .spec import _PROTO_KEYS
 

@@ -18,9 +18,11 @@ solo run of seed k:
 - a finished (converged, or detected) lane leaves the batch with its
   state after that round, which is what JAX's select-frozen lane holds.
 
-Fault plans on the dense round, matrix plans, the latency entries and
-the recorder on lanes are ROADMAP B16d; a mesh is A13.  Each raises,
-naming its item.
+Fault plans run on both rounds' lanes: of either form, with delay and
+jitter, on the dense round's; factored and without latency on the
+packed round's (matrix and latency plans there, and the recorder on
+lanes, are ROADMAP B16d; a mesh is A13).  Each refusal raises, naming
+its item.
 """
 
 from __future__ import annotations
@@ -99,11 +101,11 @@ def run_ensemble(
     """Run every lane of stacked states to convergence (or
     ``max_rounds``) as one lane-batched program on the round the
     configuration takes: on the packed envelope the packed round's
-    convergence loop per lane, or under ``fplan`` (a factored plan,
-    shared) its fault loop, each lane re-seeded by ``plan_seeds`` (i32[K];
-    None: every lane keeps the plan's seed); otherwise the dense round's
-    convergence loop (`..sim.dense_lanes.run_dense_lanes`, faultless).
-    Returns the stacked final (SimState, RunMetrics), ``t`` i32[K]."""
+    convergence loop per lane, otherwise the dense round's
+    (`..sim.dense_lanes.run_dense_lanes`); under ``fplan`` (shared) the
+    round's fault loop, each lane re-seeded by ``plan_seeds`` (i32[K];
+    None: every lane keeps the plan's seed).  Returns the stacked final
+    (SimState, RunMetrics), ``t`` i32[K]."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh × lane batching is not ported yet (ROADMAP A13)")
@@ -112,7 +114,8 @@ def run_ensemble(
     if packed_supported(cfg, topo):
         return run_lanes(states, meta, cfg, topo, max_rounds, fplan,
                          plan_seeds)
-    return run_dense_lanes(states, meta, cfg, topo, max_rounds, fplan)
+    return run_dense_lanes(states, meta, cfg, topo, max_rounds, fplan,
+                           plan_seeds)
 
 
 def _no_telemetry():

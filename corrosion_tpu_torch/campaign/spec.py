@@ -383,6 +383,43 @@ def storm_seeds_spec(
     )
 
 
+def storm_latency_events(n_nodes: int = 100_000) -> Tuple[FaultEvent, ...]:
+    """The latency storm's pair (JAX's "storm-mix" latency events of
+    tests/sim/test_packed_equivalence.py over the first sixth of the
+    nodes): one round of delay and up to one of jitter on every link out
+    of ``0:n//6``, rounds 2–15."""
+    sel = f"0:{n_nodes // 6}"
+    return (
+        FaultEvent("delay", 2, 16, src=sel, dst="*", delay_rounds=1),
+        FaultEvent("jitter", 2, 16, src=sel, dst="*", delay_rounds=1),
+    )
+
+
+def dense_storm_seeds_spec(
+    seeds: Sequence[int] = tuple(range(8)), latency: bool = False,
+) -> CampaignSpec:
+    """The fault storm on the dense round (``allow_packed: False``) over
+    a seed set as one campaign cell: ``dense-fault-storm-100k-seeds8``,
+    or with ``latency`` the latency storm (four delay slots and
+    `storm_latency_events` after the fault storm's events),
+    ``dense-latency-storm-100k-seeds8``.  Not a builtin of the JAX
+    package: the JAX package's `CampaignSpec` of the same dict has the
+    same hash."""
+    scenario = dict(storm_scenario(), allow_packed=False)
+    events = storm_fault_events()
+    if latency:
+        scenario["n_delay_slots"] = 4
+        events += storm_latency_events()
+    kind = "latency" if latency else "fault"
+    return CampaignSpec(
+        name=f"dense-{kind}-storm-100k-seeds{len(tuple(seeds))}",
+        scenario=scenario,
+        events=events,
+        seeds=tuple(seeds),
+        max_rounds=3000,
+    )
+
+
 def broadcast_seeds_spec(seeds: Sequence[int] = tuple(range(8))
                          ) -> CampaignSpec:
     """``config_broadcast_1k`` (config #3: 1000 nodes, 8 writers x 32

@@ -1295,3 +1295,167 @@ CHURN_CONFIG_ENGINE_KEYS = {
     },
     "swim_churn_partial_100k": {"spec_hash": "83c262822b4dd231"},
 }
+
+# -- the dense round's fault ensembles (paths 41-45) --------------------------
+# live JAX's run_campaign (jax 0.9.0 on the CPU) of each spec, with
+# campaign.ensemble.run_seed_ensemble wrapped to keep the finals: the
+# artifact's spec_hash and result_digest, and each lane's rounds, p99
+# node-convergence round and state digest.  The committed
+# doc/experiments/CAMPAIGN_BASELINE_fault-parity-3node.json (result_digest
+# 9f700c4a...) predates this JAX and is not the port's target.
+
+# builtin_spec("fault-parity-3node"): the matrix plan (loss, a one-way
+# partition, delay, jitter, duplicate, a crash with wipe), seeds 0-7
+FAULT_PARITY_3NODE_SEEDS8 = {
+    "spec_hash": "3f8f271fb5dbe3ec",
+    "result_digest": "884a69ea6075917ccc919f86e69c10fb",
+    "lanes": [
+        {"seed": 0, "rounds": 45,
+         "p99_node_convergence_round": 13.0,
+         "digest": "c56ae759070a1587"},
+        {"seed": 1, "rounds": 50,
+         "p99_node_convergence_round": 12.0,
+         "digest": "a51218c568125e56"},
+        {"seed": 2, "rounds": 37,
+         "p99_node_convergence_round": 12.0,
+         "digest": "fa83f3ead0caa2ed"},
+        {"seed": 3, "rounds": 42,
+         "p99_node_convergence_round": 12.0,
+         "digest": "46c26cfc45c9d819"},
+        {"seed": 4, "rounds": 45,
+         "p99_node_convergence_round": 12.0,
+         "digest": "d2e0bec20a4ac803"},
+        {"seed": 5, "rounds": 41,
+         "p99_node_convergence_round": 12.0,
+         "digest": "93b24672db100599"},
+        {"seed": 6, "rounds": 46,
+         "p99_node_convergence_round": 12.0,
+         "digest": "8e4a99d9c4258565"},
+        {"seed": 7, "rounds": 38,
+         "p99_node_convergence_round": 12.0,
+         "digest": "b4384a6b89a05a88"},
+    ],
+}
+
+# builtin_spec("fault-campaign-3node") through the engine: demo_plan(seed=0),
+# one seed (its solo run is FAULT_CAMPAIGN_3NODE_SEED0 above)
+FAULT_CAMPAIGN_3NODE_ENGINE = {
+    "spec_hash": "b541e15a6f3bbb66",
+    "result_digest": "da302472016956218f82e72af2b14dfd",
+    "lanes": [
+        {"seed": 0, "rounds": 41,
+         "p99_node_convergence_round": 16.0,
+         "digest": "1e2f75d5f2b1a911"},
+    ],
+}
+
+# storm_seeds_spec(n_nodes=1000, faults=True): the fault storm at 1000
+# nodes below the packed envelope, on the dense round under its matrix
+# plan ([22, 1000, 1000]: the half split's cuts and the loss); lane 0 is
+# FAULT_STORM_1000_SEED0
+FAULT_STORM_1000_SEEDS8 = {
+    "spec_hash": "f0c67132be9f6911",
+    "result_digest": "0aa93744f7c2e63d19e1237f37c8d485",
+    "lanes": [
+        {"seed": 0, "rounds": 24,
+         "p99_node_convergence_round": 22.0,
+         "digest": "660add80364fb2f9"},
+        {"seed": 1, "rounds": 39,
+         "p99_node_convergence_round": 22.0,
+         "digest": "000565f2676f4d0e"},
+        {"seed": 2, "rounds": 27,
+         "p99_node_convergence_round": 22.0,
+         "digest": "2e0e3c78d884c20b"},
+        {"seed": 3, "rounds": 25,
+         "p99_node_convergence_round": 22.0,
+         "digest": "04879760131a05f3"},
+        {"seed": 4, "rounds": 27,
+         "p99_node_convergence_round": 22.0,
+         "digest": "737a5e84dc0c7eba"},
+        {"seed": 5, "rounds": 24,
+         "p99_node_convergence_round": 22.0,
+         "digest": "44d447ce94f3f753"},
+        {"seed": 6, "rounds": 27,
+         "p99_node_convergence_round": 22.0,
+         "digest": "5d815e1e42ee5473"},
+        {"seed": 7, "rounds": 25,
+         "p99_node_convergence_round": 22.0,
+         "digest": "2bc9255ec3b44be0"},
+    ],
+}
+
+# dense_storm_seeds_spec(): storm_scenario(100_000) with allow_packed False
+# under storm_fault_events, seeds 0-7 (its plan factored), from live JAX's
+# run_campaign one seed at a time (a one-seed campaign a seed; N is not a
+# power of two, where JAX's vmapped lanes leave its solo runs): each lane's
+# rounds, p99 and state digest; the spec hash is JAX's CampaignSpec of the
+# 8-seed dict, the result digest JAX's artifact_digest over the cell the
+# eight lanes make
+# (tests/test_torch_dense_fault_lanes.py, the lanes under -m slow).  Lane 0
+# is DENSE_FAULT_STORM_100K_SEED0, and every lane the packed fault storm
+# ensemble's FAULT_STORM_100K_SEEDS8 lane (JAX's dense == packed contract)
+DENSE_FAULT_STORM_100K_SEEDS8 = {
+    "spec_hash": "07d13e7ec476da75",
+    "result_digest": "19a6c6bf210d3f8c3e29f2ddb9a80022",
+    "lanes": [
+        {"seed": 0, "rounds": 29,
+         "p99_node_convergence_round": 25.0,
+         "digest": "1cd8919e20ad0df8"},
+        {"seed": 1, "rounds": 29,
+         "p99_node_convergence_round": 25.0,
+         "digest": "d43c6558ccd8f2cf"},
+        {"seed": 2, "rounds": 29,
+         "p99_node_convergence_round": 26.0,
+         "digest": "79043e29e10440ae"},
+        {"seed": 3, "rounds": 30,
+         "p99_node_convergence_round": 26.0,
+         "digest": "c6faaeee24d42429"},
+        {"seed": 4, "rounds": 28,
+         "p99_node_convergence_round": 25.0,
+         "digest": "ca918aac46268ef7"},
+        {"seed": 5, "rounds": 29,
+         "p99_node_convergence_round": 25.0,
+         "digest": "64d5a0dc5e156874"},
+        {"seed": 6, "rounds": 30,
+         "p99_node_convergence_round": 25.0,
+         "digest": "c6989b311b5be8de"},
+        {"seed": 7, "rounds": 32,
+         "p99_node_convergence_round": 26.0,
+         "digest": "85b0610603ec24f1"},
+    ],
+}
+
+# dense_storm_seeds_spec(latency=True): the same with n_delay_slots 4 and
+# the latency pair (delay and jitter of one round, rounds 2-15, on every
+# link out of 0:16666), pinned the same way; lane 0 is
+# DENSE_LATENCY_STORM_100K_SEED0
+DENSE_LATENCY_STORM_100K_SEEDS8 = {
+    "spec_hash": "b34efed9aece188f",
+    "result_digest": "ca5f9a6b7abbb477acb1019346693e67",
+    "lanes": [
+        {"seed": 0, "rounds": 29,
+         "p99_node_convergence_round": 26.0,
+         "digest": "652c9355f037a8c9"},
+        {"seed": 1, "rounds": 29,
+         "p99_node_convergence_round": 26.0,
+         "digest": "2e945e1a0d84273c"},
+        {"seed": 2, "rounds": 29,
+         "p99_node_convergence_round": 26.0,
+         "digest": "235bc23c55ebb1c4"},
+        {"seed": 3, "rounds": 30,
+         "p99_node_convergence_round": 26.0,
+         "digest": "0b96fdf31cdffb21"},
+        {"seed": 4, "rounds": 30,
+         "p99_node_convergence_round": 26.0,
+         "digest": "a46f524f89ce8943"},
+        {"seed": 5, "rounds": 29,
+         "p99_node_convergence_round": 25.0,
+         "digest": "3b02c19f74bbaafd"},
+        {"seed": 6, "rounds": 30,
+         "p99_node_convergence_round": 26.0,
+         "digest": "51cc33187132d316"},
+        {"seed": 7, "rounds": 32,
+         "p99_node_convergence_round": 26.0,
+         "digest": "07ee4703d6477de0"},
+    ],
+}

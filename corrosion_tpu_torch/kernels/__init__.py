@@ -122,6 +122,19 @@ replaces:
   `DETECT_PARTIAL_LANES` (a row each) — `sim.telemetry.
   detect_full_lanes_`, `detect_partial_lanes_`.
 
+- the dense fault loop's lane entries (B16d, faults; one row a kernel,
+  counted apart): K9m's reach `FAULT_REACH_MATRIX_LANES` —
+  `sim.faults.fault_reach_lanes_` on a matrix slice; K11d
+  `NODE_FAULTS_DENSE_LANES` — `sim.faults.apply_node_faults_lanes`;
+  K12f `DENSE_BROADCAST_FAULT_LANES` — `sim.dense_lanes.
+  broadcast_send_lanes` with the plan's loss or jitter; K13d
+  `DENSE_SYNC_DELAY_LANES` (K13's lane launcher) — `sim.dense_lanes.
+  sync_pull_dense_lanes` with session delays; K14x
+  `DENSE_GAPS_ROWS_EXIT_LANES`, `DENSE_GAPS_FINISH_EXIT_LANES` (K14's
+  lane launchers) — `sim.dense_lanes.dense_record_lanes` with the plan's
+  horizon.  K9's and K9m's edge queries and K9's latency entry draw
+  nothing and take the lanes folded into their edge axis.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -364,6 +377,23 @@ DETECT_FULL_LANES = Kernel("detect_full_lanes", "membership_detect.cu",
 DETECT_PARTIAL_LANES = Kernel("detect_partial_lanes", "membership_detect.cu",
                               "corro_detect_partial_lanes", 4)
 
+FAULT_REACH_MATRIX_LANES = Kernel("fault_reach_matrix_lanes",
+                                  "fault_edges.cu",
+                                  "corro_fault_reach_matrix_lanes", 4)
+NODE_FAULTS_DENSE_LANES = Kernel("node_faults_dense_lanes", "node_faults.cu",
+                                 "corro_node_faults_dense_lanes", 9)
+DENSE_BROADCAST_FAULT_LANES = Kernel("dense_broadcast_fault_lanes",
+                                     "dense_phases.cu",
+                                     "corro_dense_broadcast_fault_lanes", 11)
+DENSE_SYNC_DELAY_LANES = Kernel("dense_sync_delay_lanes", "dense_sync.cu",
+                                "corro_dense_sync_lanes", 10)
+DENSE_GAPS_ROWS_EXIT_LANES = Kernel("dense_gaps_rows_exit_lanes",
+                                    "dense_gaps.cu",
+                                    "corro_dense_gaps_rows_lanes", 10)
+DENSE_GAPS_FINISH_EXIT_LANES = Kernel("dense_gaps_finish_exit_lanes",
+                                      "dense_gaps.cu",
+                                      "corro_dense_gaps_finish_lanes", 8)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -440,6 +470,12 @@ PORTED = {
     "sample_uniform_lanes": (SAMPLE_UNIFORM_LANES,),
     "detect_full_lanes": (DETECT_FULL_LANES,),
     "detect_partial_lanes": (DETECT_PARTIAL_LANES,),
+    "fault_reach_matrix_lanes": (FAULT_REACH_MATRIX_LANES,),
+    "node_faults_dense_lanes": (NODE_FAULTS_DENSE_LANES,),
+    "dense_broadcast_fault_lanes": (DENSE_BROADCAST_FAULT_LANES,),
+    "dense_sync_delay_lanes": (DENSE_SYNC_DELAY_LANES,),
+    "dense_gaps_exit_lanes": (DENSE_GAPS_ROWS_EXIT_LANES,
+                              DENSE_GAPS_FINISH_EXIT_LANES),
 }
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
@@ -448,7 +484,9 @@ LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "word_phases_lanes", "fault_reach_lanes", "node_faults_lanes",
              "dense_phases_lanes", "dense_sync_lanes", "dense_gaps_lanes",
              "swim_full_lanes", "sample_uniform_lanes", "detect_full_lanes",
-             "detect_partial_lanes")
+             "detect_partial_lanes", "fault_reach_matrix_lanes",
+             "node_faults_dense_lanes", "dense_broadcast_fault_lanes",
+             "dense_sync_delay_lanes", "dense_gaps_exit_lanes")
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
@@ -475,7 +513,10 @@ __all__ = [
     "DENSE_DELIVER_LANES", "DENSE_SYNC_LANES", "DENSE_GAPS_ROWS_LANES",
     "DENSE_GAPS_FINISH_LANES", "SWIM_TIMEOUT_LANES", "SWIM_MERGE_LANES",
     "SWIM_APPLY_LANES", "SAMPLE_UNIFORM_LANES", "DETECT_FULL_LANES",
-    "DETECT_PARTIAL_LANES",
+    "DETECT_PARTIAL_LANES", "FAULT_REACH_MATRIX_LANES",
+    "NODE_FAULTS_DENSE_LANES", "DENSE_BROADCAST_FAULT_LANES",
+    "DENSE_SYNC_DELAY_LANES", "DENSE_GAPS_ROWS_EXIT_LANES",
+    "DENSE_GAPS_FINISH_EXIT_LANES",
     "DENSE_PULL_LOSSY", "DENSE_PULL_TIERED", "ORDER_CHECK_DENSE",
     "ORDER_CHECK_WORDS", "TRACE_WIRE_ROWS_PULL", "TRACE_WIRE_WORDS_PULL",
     "WORD_DELIVER_FIFO",

@@ -60,7 +60,12 @@
 // blockIdx.y is the lane, whose have, injected, alive, stamps, heads,
 // gap slots, overflow count, partial rows and done flag are its slots of
 // the [K, ...] tensors, offset in 64 bits; the finish is one block a
-// lane.  The payload rounds are shared.  Bound: K times the solo bound.
+// lane.  The payload rounds are shared.  In the exit mode (the dense
+// fault loop on lanes, corrosion_tpu/sim/faults.py:797-842 under the
+// same vmap; counted as dense_gaps_exit_lanes) each lane's flag is its
+// own fresh completeness over its up nodes and t + 1 >= horizon, so a
+// lane's wipe after its convergence un-settles that lane alone.  Bound:
+// K times the solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>

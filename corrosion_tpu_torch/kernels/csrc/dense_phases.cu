@@ -135,8 +135,15 @@
 // e*P + q stay lane-local, so lane k is the solo entry on lane k's
 // inputs.  The budget scan runs per row, so it is lane-local too.  The
 // payload metadata (round, actor, nbytes) and the round t are shared.
-// The broadcast lane entry takes no fault, tiered or recorder outputs.
-// Bound: K times the solo bound.
+// The broadcast lane entry takes no fault, tiered or recorder outputs;
+// the fault entry's lane form (corro_dense_broadcast_fault_lanes, the
+// dense fault loop of corrosion_tpu/sim/faults.py:797-842 under the same
+// vmap) takes each lane's fault thresholds and jitter bounds [K, E], its
+// phase key and its plan seed (`seeds[lane]`, ensemble.py:58
+// lane_plan_seeds), so lane k folds fold_in(fold_in(phase_key[k],
+// seeds[k]), 101 | 102) once a block and draws at its lane-local
+// e*P + q; the topology stream's flat loss ORs in under its own k_drop,
+// as in the solo fault entry.  Bound: K times the solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -218,11 +225,13 @@ __global__ void dense_broadcast_kernel(
     int32_t* __restrict__ row_bytes, unsigned long long* __restrict__ dropped,
     const int64_t* __restrict__ phase_key, const uint8_t* __restrict__ fthr,
     const int32_t* __restrict__ jit, const int32_t* __restrict__ tiers,
-    int n, int p, int f, int d_slots, int budget, int thr, uint32_t seed,
-    uint32_t loss_tag, uint32_t jit_tag, uint32_t span, uint32_t mult) {
+    const int32_t* __restrict__ seeds, int n, int p, int f, int d_slots,
+    int budget, int thr, uint32_t seed, uint32_t loss_tag, uint32_t jit_tag,
+    uint32_t span, uint32_t mult) {
   {
-    // the lane's slices (lane 0 on the solo entry; the lane entry
-    // passes no fault, tiered or recorder pointers)
+    // the lane's slices (lane 0 on the solo entries; the lane entries
+    // pass no tiered or recorder pointers, and the fault lane entry its
+    // lanes' phase keys, fault thresholds, jitter bounds and plan seeds)
     const size_t lane = blockIdx.y;
     const size_t cells = (size_t)n * p, edges = (size_t)n * f;
     have += lane * cells;
@@ -235,6 +244,12 @@ __global__ void dense_broadcast_kernel(
     alive += lane * n;
     key += lane * 2;
     ring += lane * (size_t)d_slots * cells;
+    if (kFault) {
+      phase_key += lane * 2;
+      if (fthr != nullptr) fthr += lane * edges;
+      if (jit != nullptr) jit += lane * edges;
+      if (seeds != nullptr) seed = (uint32_t)seeds[lane];
+    }
   }
   FaultDraws fd{fthr, jit, {0u, 0u}, {0u, 0u, 0u, 0u}, span, mult};
   if (kFault) {
@@ -486,7 +501,7 @@ int launch_broadcast(bool fault, const void* have, void* relay,
                      const void* jit, const void* tiers, int n, int p, int f,
                      int d_slots, int budget, int thr, int seed, int loss_tag,
                      int jit_tag, int span, int mult, void* stream,
-                     int lanes = 1) {
+                     int lanes = 1, const void* seeds = nullptr) {
   bool tiered = tiers != nullptr;
   if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
       (row_frames == nullptr) != (row_bytes == nullptr) ||
@@ -511,9 +526,9 @@ int launch_broadcast(bool fault, const void* have, void* relay,
       (const int64_t*)key, (uint8_t*)ring, (int32_t*)row_frames,
       (int32_t*)row_bytes, (unsigned long long*)dropped,
       (const int64_t*)phase_key, (const uint8_t*)fthr, (const int32_t*)jit,
-      (const int32_t*)tiers, n, p, f, d_slots, budget, thr, (uint32_t)seed,
-      (uint32_t)loss_tag,
-      (uint32_t)jit_tag, (uint32_t)span, (uint32_t)mult);
+      (const int32_t*)tiers, (const int32_t*)seeds, n, p, f, d_slots, budget,
+      thr, (uint32_t)seed, (uint32_t)loss_tag, (uint32_t)jit_tag,
+      (uint32_t)span, (uint32_t)mult);
   return (int)cudaGetLastError();
 }
 
@@ -609,6 +624,25 @@ extern "C" int corro_dense_broadcast_lanes(
                           nullptr, nullptr, nullptr, nullptr, nullptr, n, p,
                           f, d_slots, budget, thr, 0, 0, 0, 1, 0, stream,
                           lanes);
+}
+
+// The fault entry's lane form: the broadcast lane entry's arguments, the
+// lanes' phase keys [lanes, 2], fault thresholds and jitter bounds
+// [lanes, E] (either null, not both) and plan seeds [lanes] (i32), then
+// the fault entry's ints and `lanes`.
+extern "C" int corro_dense_broadcast_fault_lanes(
+    const void* have, void* relay, const void* injected, const void* nbytes,
+    const void* targets, const void* dst, const void* slot, const void* ok,
+    const void* alive, const void* key, void* ring, const void* phase_key,
+    const void* fthr, const void* jit, const void* seeds, int n, int p,
+    int f, int d_slots, int budget, int thr, int loss_tag, int jit_tag,
+    int span, int mult, int lanes, void* stream) {
+  if (seeds == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_broadcast(true, have, relay, injected, nbytes, targets, dst,
+                          slot, ok, alive, key, ring, nullptr, nullptr,
+                          nullptr, phase_key, fthr, jit, nullptr, n, p, f,
+                          d_slots, budget, thr, 0, loss_tag, jit_tag, span,
+                          mult, stream, lanes, seeds);
 }
 
 extern "C" int corro_dense_deliver_lanes(void* ring, void* sync_ring,

@@ -59,8 +59,13 @@
 // lane, whose have, heads, gap rows, peers, ok, sync ring [D, N, P] and
 // fruitful slices are its slots of the [K, ...] tensors, offset in 64
 // bits; the peers are lane-local node ids and each edge's budget scan is
-// the lane's own.  No session delays or grant counts on lanes.  Bound: K
-// times the solo bound.
+// the lane's own.  Under a fault plan with delay factors (the dense
+// fault loop, corrosion_tpu/sim/faults.py:797-842, under the same vmap)
+// it takes the lanes' session delays [K, N * S] (K9's, the lanes folded
+// into its edge axis) and each edge writes its own slot
+// (t + 1 + sdelay) % D, as the delay entry does; counted apart as
+// dense_sync_delay_lanes.  No grant counts on lanes.  Bound: K times the
+// solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -189,7 +194,7 @@ __global__ void dense_sync_kernel(
   extern __shared__ int block_counts[];  // [P] when counts is given
   {
     // the lane's slices (lane 0 on the solo entry; the lane entry takes
-    // neither counts nor session delays)
+    // no counts, and its session delays, when given, are [K, N * S])
     const size_t lane = blockIdx.y;
     const size_t cells = (size_t)n * p;
     const size_t adverts = (size_t)n * a_writers;
@@ -199,6 +204,7 @@ __global__ void dense_sync_kernel(
     gap_hi += lane * adverts * k_slots;
     peers += lane * (size_t)n * s_peers;
     ok += lane * (size_t)n * s_peers;
+    if (sdelay != nullptr) sdelay += lane * (size_t)n * s_peers;
     ring += lane * (size_t)d_slots * cells;
     fruitful += lane * n;
   }
@@ -256,12 +262,13 @@ extern "C" int corro_dense_sync(const void* have, const void* heads,
 
 // The lane entry: the solo entry's arguments with every per-node tensor
 // [lanes, ...], the whole sync ring [lanes, D, N, P] and its slot t + 1,
-// then `lanes`; no counts, no session delays.
+// then `lanes`; no counts; the session delays [lanes, N * S] or null.
 extern "C" int corro_dense_sync_lanes(const void* have, const void* heads,
                                       const void* gap_lo, const void* gap_hi,
                                       const void* peers, const void* ok,
                                       const void* nbytes, void* ring,
-                                      void* fruitful, int n, int p,
+                                      void* fruitful, const void* sdelay,
+                                      int n, int p,
                                       int s_peers, int a_writers,
                                       int c_chunks, int k_slots, int budget,
                                       int d_slots, int slot, int lanes,
@@ -278,7 +285,7 @@ extern "C" int corro_dense_sync_lanes(const void* have, const void* heads,
       (const uint8_t*)have, (const int32_t*)heads, (const int32_t*)gap_lo,
       (const int32_t*)gap_hi, (const int32_t*)peers, (const bool*)ok,
       (const int32_t*)nbytes, (uint8_t*)ring, (bool*)fruitful, nullptr,
-      nullptr, n, p, s_peers, a_writers, c_chunks, k_slots, budget, d_slots,
-      slot);
+      (const int32_t*)sdelay, n, p, s_peers, a_writers, c_chunks, k_slots,
+      budget, d_slots, slot);
   return (int)cudaGetLastError();
 }

@@ -67,7 +67,12 @@
 // from the plan is a null slab and reads as 0: no load.  The slabs
 // carry the merged values already (the compiler folded overlapping
 // events), so there is no factor loop; the diagonal is clear by
-// construction.
+// construction.  Its reach entry has a lane form too
+// (corro_fault_reach_matrix_lanes, campaign/ensemble.py:114 over a matrix
+// plan): blockIdx.y is the lane, as in corro_fault_reach_lanes, the
+// slabs are the shared round's, and each lane folds its own key with
+// its own plan seed; the matrix edge queries draw nothing and take the
+// lanes folded into their edge axis, as the factored ones do.
 //
 // Bound on the H100: launch latency.  An edge reads two int32 ids and
 // K mask bytes at each of them, and writes at most 14 bytes; at the
@@ -291,9 +296,20 @@ __global__ void fault_edges_matrix_kernel(
 __global__ void fault_reach_matrix_kernel(
     const uint8_t* __restrict__ blk, const uint8_t* __restrict__ loss,
     const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
-    const int64_t* __restrict__ key, uint8_t* __restrict__ ok, int n, int e,
-    uint32_t seed, uint32_t tag) {
+    const int64_t* __restrict__ key, uint8_t* __restrict__ ok,
+    const int32_t* __restrict__ seeds, int n, int e, uint32_t seed,
+    uint32_t tag) {
   __shared__ uint32_t folded[2];
+  // the lane's edges, key and plan seed (lane 0 and `seed` on the solo
+  // entry); the slabs are the shared round's, the draw index lane-local
+  {
+    const size_t lane = blockIdx.y;
+    src += lane * e;
+    dst += lane * e;
+    ok += lane * e;
+    key += 2 * lane;
+    if (seeds) seed = (uint32_t)seeds[lane];
+  }
   if (threadIdx.x == 0) {
     corro::Pair f = corro::threefry2x32((uint32_t)key[0], (uint32_t)key[1],
                                         0u, seed);
@@ -440,7 +456,26 @@ extern "C" int corro_fault_reach_matrix(const void* blk, const void* loss,
   unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
   fault_reach_matrix_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)blk, (const uint8_t*)loss, (const int32_t*)src,
-      (const int32_t*)dst, (const int64_t*)key, (uint8_t*)ok, n, e,
+      (const int32_t*)dst, (const int64_t*)key, (uint8_t*)ok, nullptr, n, e,
       (uint32_t)seed, (uint32_t)tag);
+  return (int)cudaGetLastError();
+}
+
+// K9m's reach entry over the seed ensemble's lanes: src, dst and ok
+// [lanes, e] (lane-local ids), `key` [lanes, 2], `seeds` [lanes] (i32),
+// the slabs the shared round's.
+extern "C" int corro_fault_reach_matrix_lanes(
+    const void* blk, const void* loss, const void* src, const void* dst,
+    const void* key, void* ok, const void* seeds, int n, int e, int tag,
+    int lanes, void* stream) {
+  if (n <= 0 || e < 0 || seeds == nullptr || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (e == 0) return (int)cudaSuccess;
+  unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
+  fault_reach_matrix_kernel<<<dim3(blocks, lanes), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (const uint8_t*)blk, (const uint8_t*)loss, (const int32_t*)src,
+      (const int32_t*)dst, (const int64_t*)key, (uint8_t*)ok,
+      (const int32_t*)seeds, n, e, 0u, (uint32_t)tag);
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,11 @@
 // the plan's schedule unbatched — ensemble.py:147-158): blockIdx.y is
 // the lane, whose alive row, carry and tables are its slices of the
 // [K, ...] tensors; the round's overrides and wipes are read by every
-// lane.  Bound: launch latency, as the solo entry's.
+// lane.  corro_node_faults_dense_lanes is the dense entry's lane form
+// (the dense fault loop of faults.py:797-842 under the same vmap): the
+// lanes' u8 have and relay rows, both u8 rings, heads, gaps, member
+// tables, full views and PeerSwap views, the round's slice shared.
+// Bound: launch latency, as the solo entries'.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -236,16 +240,16 @@ extern "C" int corro_node_faults_lanes(
                       v, lanes, stream);
 }
 
-// The dense entry: u8 have and relay rows [N, P], both u8 rings
-// [D, N, P].
-extern "C" int corro_node_faults_dense(
-    const void* ovr, const void* wipe, void* alive, void* have, void* relay,
-    void* inflight, void* sync_inflight, void* heads, void* gap_lo,
-    void* gap_hi, void* pid, void* pkey, void* psince, void* view,
-    void* vinc, void* since, void* pview, int n, int p, int d_slots, int a,
-    int ak, int m, int fv, int v, void* stream) {
+namespace {
+
+int launch_dense(const void* ovr, const void* wipe, void* alive, void* have,
+                 void* relay, void* inflight, void* sync_inflight,
+                 void* heads, void* gap_lo, void* gap_hi, void* pid,
+                 void* pkey, void* psince, void* view, void* vinc,
+                 void* since, void* pview, int n, int p, int d_slots, int a,
+                 int ak, int m, int fv, int v, int lanes, void* stream) {
   if (n <= 0 || p < 0 || d_slots < 0 || !tables_ok(a, ak, m, fv, v, pview) ||
-      (fv > 0 && fv != n))
+      (fv > 0 && fv != n) || lanes <= 0 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   Payload<uint8_t, 2, 2> pl{{(uint8_t*)have, (uint8_t*)relay},
                             {(uint8_t*)inflight, (uint8_t*)sync_inflight},
@@ -258,8 +262,40 @@ extern "C" int corro_node_faults_dense(
             (int32_t*)pview, a,                ak,
             m,               fv,               v};
   node_faults_kernel<uint8_t, 2, 2>
-      <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      <<<dim3(blocks_for(n), lanes), kThreads, 0, (cudaStream_t)stream>>>(
           (const int8_t*)ovr, (const uint8_t*)wipe, (uint8_t*)alive, pl, tb,
           n);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The dense entry: u8 have and relay rows [N, P], both u8 rings
+// [D, N, P].
+extern "C" int corro_node_faults_dense(
+    const void* ovr, const void* wipe, void* alive, void* have, void* relay,
+    void* inflight, void* sync_inflight, void* heads, void* gap_lo,
+    void* gap_hi, void* pid, void* pkey, void* psince, void* view,
+    void* vinc, void* since, void* pview, int n, int p, int d_slots, int a,
+    int ak, int m, int fv, int v, void* stream) {
+  return launch_dense(ovr, wipe, alive, have, relay, inflight, sync_inflight,
+                      heads, gap_lo, gap_hi, pid, pkey, psince, view, vinc,
+                      since, pview, n, p, d_slots, a, ak, m, fv, v, 1,
+                      stream);
+}
+
+// The dense entry's lane form: every per-node tensor [lanes, ...] (the
+// u8 rings [lanes, D, N, P], the full view [lanes, N, N] when fv > 0);
+// `ovr` and `wipe` [N] are the shared round slice, applied to every
+// lane.
+extern "C" int corro_node_faults_dense_lanes(
+    const void* ovr, const void* wipe, void* alive, void* have, void* relay,
+    void* inflight, void* sync_inflight, void* heads, void* gap_lo,
+    void* gap_hi, void* pid, void* pkey, void* psince, void* view,
+    void* vinc, void* since, void* pview, int n, int p, int d_slots, int a,
+    int ak, int m, int fv, int v, int lanes, void* stream) {
+  return launch_dense(ovr, wipe, alive, have, relay, inflight, sync_inflight,
+                      heads, gap_lo, gap_hi, pid, pkey, psince, view, vinc,
+                      since, pview, n, p, d_slots, a, ak, m, fv, v, lanes,
+                      stream);
 }

@@ -20,11 +20,25 @@ K4's lane entries); every draw is K5's lane entry.  The byte budgets run
 inside K12 and K13, per lane and per row, so the default budgets need no
 `optimize_budgets`.
 
+**Fault plans** (B16d, faults): the dense branch of JAX's
+``faults.py:797-842 run_fault_plan`` under the same vmap.  The plan's
+schedule, of either form, is shared by every lane and only its seed is
+batched (``seeds`` i32[K]): each round's slice is taken once, its node
+faults hit every lane (K11d's lane entry, `.faults.
+apply_node_faults_lanes`), the per-edge queries take the lanes folded
+into their edge axis (K9 or K9m, K9's latency entry: they draw nothing),
+the per-(edge, payload) loss and jitter are K12's fault lane entry under
+each lane's phase key and seed, the session delays K13's delay lane
+entry, the probe loss K9's or K9m's reach lane entry, and the exit
+K14's lane entries in their exit mode (a fresh done flag a lane, never
+before the horizon).
+
 Each wrapper runs its plain torch version on a CPU tensor: the solo
 plain version on each lane's slices, so lane k of a plain lane call IS
 the solo call on lane k's inputs.  A finished lane leaves the batch as
-on the packed round's lanes (`.lanes._run_batch`).  `check_dense_lanes`
-refuses what this round's lanes do not run yet.
+on the packed round's lanes (`.lanes._run_batch`), its plan seed with
+it.  `check_dense_lanes` refuses what this round's lanes do not run
+yet.
 """
 
 from __future__ import annotations
@@ -34,8 +48,21 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from ..device import i32
 from ..kernels.build import check
 from . import rng
+from .faults import (
+    JITTER_TAG,
+    NODE_FAULT_TABLES,
+    WIRE_LOSS_TAG,
+    _lane_states,
+    all_have,
+    apply_node_faults_lanes,
+    fault_session_effects,
+    fault_wire_effects,
+    host_activity,
+    round_faults,
+)
 from .lanes import (
     _Batch,
     _edge_alive_lanes,
@@ -61,6 +88,7 @@ from .state import ALIVE, DOWN, SUSPECT, PayloadMeta, SimConfig, SimState
 from .topology import Topology, edge_slot_plain, regions
 
 _LANES_MAX = 65535  # the grid's y dimension
+_I32_MAX = (1 << 31) - 1  # the jitter draw's span, as `broadcast`'s
 
 
 def _check_lanes_count(lanes: int) -> None:
@@ -110,30 +138,43 @@ def inject_dense_lanes(have, relay, injected, meta: PayloadMeta, alive,
 
 def broadcast_send_lanes_plain(have, relay, injected, nbytes, budget,
                                targets, dst, slot, ok, alive, keys,
-                               thr: int, ring) -> None:
-    """Plain version of K12's broadcast lane entry: the solo plain
-    version on each lane under its key, in place."""
+                               thr: int, ring, phase_keys=None, fthr=None,
+                               jit=None, seeds=None) -> None:
+    """Plain version of K12's broadcast lane entry and of its fault lane
+    entry: the solo plain version on each lane under its keys and plan
+    seed, in place."""
     from .broadcast import broadcast_send_plain
 
+    def lane(x, k):
+        return None if x is None else x[k]
+
     for k in range(have.shape[0]):
-        broadcast_send_plain(have[k], relay[k], injected[k], nbytes, budget,
-                             targets[k], dst[k], slot[k], ok[k], alive[k],
-                             keys[k], thr, ring[k])
+        broadcast_send_plain(
+            have[k], relay[k], injected[k], nbytes, budget, targets[k],
+            dst[k], slot[k], ok[k], alive[k], keys[k], thr, ring[k],
+            phase_key=lane(phase_keys, k), fthr=lane(fthr, k),
+            jit=lane(jit, k), seed=0 if seeds is None else int(seeds[k]))
 
 
 def broadcast_send_lanes(have, relay, injected, nbytes,
                          budget: Optional[int], targets, dst, slot, ok,
-                         alive, keys, thr: int, ring) -> None:
+                         alive, keys, thr: int, ring, phase_keys=None,
+                         fthr=None, jit=None, seeds=None) -> None:
     """`broadcast.broadcast_send` over the lanes, in place on ``relay``
     and the rings [K, D, N, P]: each lane's eligible payloads, its
     oldest-first budget prefix per row (lane-local), its edges' ring
     writes less the flat loss under its key ``keys[k]`` (byte e*P + q of
-    its own draw, e lane-local) and its relay spend.  K12's broadcast
-    lane entry on the card (no fault, tiered or recorder outputs)."""
+    its own draw, e lane-local) and its relay spend.  Under a fault plan
+    (``fthr`` u8[K, E] and/or ``jit`` i32[K, E], K9's per-edge outputs
+    on the lanes folded) lane k also draws the plan's loss and jitter
+    from ``fold_in(fold_in(phase_keys[k], seeds[k]), 101 | 102)``, its
+    broadcast phase key and plan seed.  K12's broadcast lane entry on the
+    card, its fault lane entry under a plan's loss or jitter (no tiered
+    or recorder outputs)."""
     if have.device.type == "cpu":
         broadcast_send_lanes_plain(have, relay, injected, nbytes, budget,
                                    targets, dst, slot, ok, alive, keys, thr,
-                                   ring)
+                                   ring, phase_keys, fthr, jit, seeds)
         return
     lanes, n, p = have.shape
     f = targets.shape[2]
@@ -151,11 +192,22 @@ def broadcast_send_lanes(have, relay, injected, nbytes,
     check("alive", alive, torch.uint8, (lanes, n))
     check("keys", keys, torch.int64, (lanes, 2))
     check("ring", ring, torch.uint8, (lanes, d, n, p))
-    kernels.DENSE_BROADCAST_LANES.launch(
-        [have, relay, injected, nbytes, targets, dst, slot, ok, alive, keys,
-         ring],
-        [n, p, f, d, -1 if budget is None else budget, min(thr, 256),
-         lanes])
+    ptrs = [have, relay, injected, nbytes, targets, dst, slot, ok, alive,
+            keys, ring]
+    ints = [n, p, f, d, -1 if budget is None else budget, min(thr, 256)]
+    if fthr is None and jit is None:
+        kernels.DENSE_BROADCAST_LANES.launch(ptrs, ints + [lanes])
+        return
+    check("phase_keys", phase_keys, torch.int64, (lanes, 2))
+    check("seeds", seeds, torch.int32, (lanes,))
+    if fthr is not None:
+        check("fthr", fthr, torch.uint8, (lanes, e))
+    if jit is not None:
+        check("jit", jit, torch.int32, (lanes, e))
+    span, mult = rng.scalar_span(0, _I32_MAX)
+    kernels.DENSE_BROADCAST_FAULT_LANES.launch(
+        ptrs + [phase_keys, fthr, jit, seeds],
+        ints + [WIRE_LOSS_TAG, JITTER_TAG, i32(span), i32(mult), lanes])
 
 
 def deliver_dense_lanes_plain(ring, sync_ring, have, relay, slot: int,
@@ -194,29 +246,34 @@ def deliver_dense_lanes(ring, sync_ring, have, relay, slot: int,
 
 def sync_pull_dense_lanes_plain(have, heads, gap_lo, gap_hi, peers, ok,
                                 nbytes, budget, ring, cfg: SimConfig,
-                                slot: int) -> torch.Tensor:
-    """Plain version of K13's lane entry: the solo plain version on each
-    lane's rows and its ring's slot, in place."""
+                                slot: int, sdelay=None) -> torch.Tensor:
+    """Plain version of K13's lane entry (and with ``sdelay`` of its
+    delay lane entry): the solo plain version on each lane's rows and its
+    ring's slot (or its whole ring), in place."""
     from .sync import sync_pull_dense_plain
 
     return torch.stack([
-        sync_pull_dense_plain(have[k], heads[k], gap_lo[k], gap_hi[k],
-                              peers[k], ok[k], nbytes, budget,
-                              ring[k, slot], cfg)
+        sync_pull_dense_plain(
+            have[k], heads[k], gap_lo[k], gap_hi[k], peers[k], ok[k], nbytes,
+            budget, ring[k, slot] if sdelay is None else ring[k], cfg,
+            sdelay=None if sdelay is None else sdelay[k], slot=slot)
         for k in range(have.shape[0])])
 
 
 def sync_pull_dense_lanes(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
                           budget: Optional[int], ring, cfg: SimConfig,
-                          slot: int) -> torch.Tensor:
+                          slot: int, sdelay=None) -> torch.Tensor:
     """`sync.sync_pull_dense` over the lanes: each lane's pullers pull
     from its own rows (``peers`` [K, N, S] lane-local) under the sync
     budget per edge into slot ``slot`` of its sync ring [K, D, N, P], in
-    place; returns bool [K, N] fruitful.  K13's lane entry on the card."""
+    place; returns bool [K, N] fruitful.  With ``sdelay`` (i32[K, N*S],
+    the lanes' session delays) edge e of lane k lands in slot (slot +
+    sdelay[k, e]) % D.  K13's lane entry on the card, its delay lane
+    entry with session delays."""
     if have.device.type == "cpu":
         return sync_pull_dense_lanes_plain(have, heads, gap_lo, gap_hi,
                                            peers, ok, nbytes, budget, ring,
-                                           cfg, slot)
+                                           cfg, slot, sdelay)
     lanes, n, p = have.shape
     s = peers.shape[2]
     a, k = cfg.n_writers, cfg.gap_slots
@@ -232,9 +289,14 @@ def sync_pull_dense_lanes(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
     check("sync ring", ring, torch.uint8, (lanes, d, n, p))
     if not 0 <= slot < d:
         raise ValueError(f"slot {slot} outside the ring of {d}")
+    if sdelay is not None:
+        check("sdelay", sdelay, torch.int32, (lanes, n * s))
     fruitful = torch.empty((lanes, n), dtype=torch.bool, device=have.device)
-    kernels.DENSE_SYNC_LANES.launch(
-        [have, heads, gap_lo, gap_hi, peers, ok, nbytes, ring, fruitful],
+    kernel = (kernels.DENSE_SYNC_LANES if sdelay is None
+              else kernels.DENSE_SYNC_DELAY_LANES)
+    kernel.launch(
+        [have, heads, gap_lo, gap_hi, peers, ok, nbytes, ring, fruitful,
+         sdelay],
         [n, p, s, a, cfg.chunks_per_version, k,
          -1 if budget is None else budget, d, slot, lanes])
     return fruitful
@@ -244,27 +306,31 @@ def sync_pull_dense_lanes(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
 
 
 def dense_record_lanes_plain(have, injected, alive, metrics: RunMetrics,
-                             meta: PayloadMeta, t: int, cfg: SimConfig):
-    """Plain version of K14's lane entries: the solo plain record per
-    lane, stacked."""
+                             meta: PayloadMeta, t: int, cfg: SimConfig,
+                             horizon: Optional[int] = None):
+    """Plain version of K14's lane entries and of their exit mode: the
+    solo plain record per lane, stacked."""
     outs = [dense_record_plain(
         have[k], injected[k], alive[k],
-        RunMetrics(*(x[k] for x in metrics)), meta, t, cfg)
+        RunMetrics(*(x[k] for x in metrics)), meta, t, cfg, horizon)
         for k in range(have.shape[0])]
     return tuple(torch.stack(list(x)) for x in zip(*outs))
 
 
 def dense_record_lanes(have, injected, alive, metrics: RunMetrics,
-                       meta: PayloadMeta, t: int, cfg: SimConfig):
-    """`round.dense_record` per lane, faultless: (heads i32[K, N, A],
-    gap_lo, gap_hi i32[K, N, A, Kg], the overflow counts i32[K],
-    coverage_at i32[K, P], converged_at i32[K, N], done bool[K]) — each
-    lane's bookkeeping, stamps and exit flag from its own rows only.
-    K14's lane entries on the card: a rows pass with a lane grid
-    dimension and a one-block finish a lane."""
+                       meta: PayloadMeta, t: int, cfg: SimConfig,
+                       horizon: Optional[int] = None):
+    """`round.dense_record` per lane: (heads i32[K, N, A], gap_lo, gap_hi
+    i32[K, N, A, Kg], the overflow counts i32[K], coverage_at i32[K, P],
+    converged_at i32[K, N], done bool[K]) — each lane's bookkeeping,
+    stamps and exit flag from its own rows only; with a fault plan's
+    ``horizon`` each lane's flag is the fault loop's (t + 1 ≥ horizon and
+    fresh completeness over its up nodes).  K14's lane entries on the
+    card: a rows pass with a lane grid dimension and a one-block finish a
+    lane, in their exit mode under a plan."""
     if have.device.type == "cpu":
         return dense_record_lanes_plain(have, injected, alive, metrics, meta,
-                                        t, cfg)
+                                        t, cfg, horizon)
     lanes, n, p = have.shape
     a, v = cfg.n_writers, cfg.n_versions
     c, kg = cfg.chunks_per_version, cfg.gap_slots
@@ -287,14 +353,19 @@ def dense_record_lanes(have, injected, alive, metrics: RunMetrics,
     converged_at = torch.empty_like(metrics.converged_at)
     coverage_at = torch.empty_like(metrics.coverage_at)
     done = torch.empty((lanes,), dtype=torch.bool, device=dev)
-    kernels.DENSE_GAPS_ROWS_LANES.launch(
+    exit_mode = horizon is not None
+    rows_k, finish_k = ((kernels.DENSE_GAPS_ROWS_EXIT_LANES,
+                         kernels.DENSE_GAPS_FINISH_EXIT_LANES) if exit_mode
+                        else (kernels.DENSE_GAPS_ROWS_LANES,
+                              kernels.DENSE_GAPS_FINISH_LANES))
+    rows_k.launch(
         [have, injected, alive, meta.round, metrics.converged_at, heads, lo,
          hi, n_overflow, converged_at, partial],
-        [n, p, a, v, c, kg, t, DENSE_ROWS_PER_BLOCK, 0, lanes])
-    kernels.DENSE_GAPS_FINISH_LANES.launch(
+        [n, p, a, v, c, kg, t, DENSE_ROWS_PER_BLOCK, int(exit_mode), lanes])
+    finish_k.launch(
         [partial, injected, meta.round, metrics.coverage_at, coverage_at,
          done],
-        [blocks, p, a, v, c, t, -1, lanes])
+        [blocks, p, a, v, c, t, horizon if exit_mode else -1, lanes])
     return heads, lo, hi, n_overflow, coverage_at, converged_at, done
 
 
@@ -452,18 +523,27 @@ def swim_apply_lanes_(view, vinc, since, belief_key, merged, incarnation,
 
 
 def swim_full_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
-                         keys: torch.Tensor) -> SimState:
+                         keys: torch.Tensor, faults=None,
+                         seeds=None) -> SimState:
     """`swim.swim_step`'s full-view tick over the lanes, phase for phase
     and draw for draw the solo tick with lane k's key: the probe, the
     timeout (K15), the gossip edges and announces, the merge and the
     apply with its refute (K15), in place on ``view``, ``vinc`` and
     ``suspect_since`` [K, N, N]; every sample through K1's uniform lane
-    entry, every draw K5's.  Flat lossless topology: reach draws
-    nothing."""
+    entry, every draw K5's.  Flat lossless topology: reach draws nothing
+    but, under ``faults``, the plan's probe loss under each lane's loss
+    keys and plan seed (K9's or K9m's reach lane entry)."""
     lanes, n = state.alive.shape
     ks = rng.split_lanes(keys, 8)
     k_probe, k_relay = ks[:, 0].contiguous(), ks[:, 2].contiguous()
     k_gossip, k_ann = ks[:, 4].contiguous(), ks[:, 6].contiguous()
+    # the reach draws only under a plan (the probe loss)
+    k_ploss = k_gloss = k_aloss = k_hop1 = k_hop2 = None
+    if faults is not None:
+        k_ploss, k_gloss, k_aloss = (ks[:, i].contiguous()
+                                     for i in (1, 5, 7))
+        hop = rng.split_lanes(ks[:, 3].contiguous(), 2)
+        k_hop1, k_hop2 = hop[:, 0].contiguous(), hop[:, 1].contiguous()
     t = int(state.t)
     dev = state.alive.device
     me = torch.arange(n, dtype=torch.int32, device=dev)
@@ -476,16 +556,18 @@ def swim_full_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
     target = sample_member_targets_lanes(state, cfg, k_probe, 1)[:, :, 0]
     do_probe = up & (t % cfg.probe_period_rounds == 0) & (target >= 0)
     target = torch.clamp(target, min=0)
-    direct = reachable_lanes(state, topo, None, me[None], target)
+    direct = reachable_lanes(state, topo, k_ploss, me[None], target, faults,
+                             seeds)
     ip = cfg.indirect_probes
     relays = sample_member_targets_lanes(state, cfg, k_relay, ip)
     relay_ok = relays >= 0
     relays = torch.clamp(relays, min=0).reshape(lanes, n * ip)
-    leg1 = reachable_lanes(state, topo, None, me.repeat_interleave(ip)[None],
-                           relays).reshape(lanes, n, ip)
-    leg2 = reachable_lanes(state, topo, None, relays,
-                           target.repeat_interleave(ip, dim=1)).reshape(
-        lanes, n, ip)
+    leg1 = reachable_lanes(state, topo, k_hop1,
+                           me.repeat_interleave(ip)[None], relays, faults,
+                           seeds).reshape(lanes, n, ip)
+    leg2 = reachable_lanes(state, topo, k_hop2, relays,
+                           target.repeat_interleave(ip, dim=1), faults,
+                           seeds).reshape(lanes, n, ip)
     acked = direct | (leg1 & leg2 & relay_ok).any(dim=2)
     probe_failed = do_probe & ~acked & (target != me)
     cell = (me.long() * n)[None] + target.long()  # [K, N]
@@ -507,14 +589,16 @@ def swim_full_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
     gdst = g_targets.reshape(lanes, n * f)
     g_valid = gdst >= 0
     gdst = torch.clamp(gdst, min=0)
-    g_ok = reachable_lanes(state, topo, None, gsrc, gdst) & g_valid
+    g_ok = reachable_lanes(state, topo, k_gloss, gsrc, gdst, faults,
+                           seeds) & g_valid
     g_ok &= _cells(view, gdst, gsrc) != DOWN
 
     # -- 3b. announce, with the receiver's belief fed back
     stagger = (t + me) % cfg.announce_interval_rounds == 0
     ann_target = rng.randint_lanes(k_ann, (n,), 0, n)
     ann_ok = (stagger & up & (ann_target != me)
-              & reachable_lanes(state, topo, None, me[None], ann_target))
+              & reachable_lanes(state, topo, k_aloss, me[None], ann_target,
+                                faults, seeds))
     self_claim = state.incarnation * 4 + ALIVE
     mine = me[None].expand(lanes, n)
     ann_fb = ann_ok & (_cells(view, ann_target, mine) == DOWN)
@@ -531,15 +615,17 @@ def swim_full_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
 
 
 def swim_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
-                    keys: torch.Tensor) -> SimState:
+                    keys: torch.Tensor, faults=None,
+                    seeds=None) -> SimState:
     """One SWIM tick of every lane: partial view
     (`.pswim.pswim_step_lanes`), full view (`swim_full_step_lanes`), or
-    nothing under ground-truth membership."""
+    nothing under ground-truth membership; ``faults`` (the round's shared
+    slice) and ``seeds`` (the lanes' plan seeds) reach every probe."""
     if cfg.swim_partial_view:
-        return pswim_step_lanes(state, cfg, topo, keys)
+        return pswim_step_lanes(state, cfg, topo, keys, faults, seeds)
     if not cfg.swim_full_view:
         return state
-    return swim_full_step_lanes(state, cfg, topo, keys)
+    return swim_full_step_lanes(state, cfg, topo, keys, faults, seeds)
 
 
 # -- the round ------------------------------------------------------------------
@@ -561,27 +647,52 @@ def _edges(state: SimState, targets: torch.Tensor):
 
 
 def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
-                         topo: Topology, region, keys) -> None:
+                         topo: Topology, region, keys, faults=None,
+                         seeds=None, active=None) -> None:
     """`broadcast.broadcast_step` over the lanes, in place on
     ``relay_left`` and ``inflight``: each lane's targets, its edges and
-    their slots, and K12's broadcast lane entry under its ``k_drop``."""
+    their slots, and K12's broadcast lane entry under its ``k_drop``.
+    Under ``faults`` (the round's shared slice) cuts clear the lanes'
+    edges and the plan's fixed delay adds to their slots (K9 or K9m, the
+    lanes folded into the edge axis), and the plan's loss and jitter are
+    drawn per (edge, payload) under each lane's phase key ``keys[k]`` and
+    plan seed ``seeds[k]`` (K12's fault lane entry); ``active`` (the
+    host's copy of the round's loss and jitter activity) leaves out the
+    classes that do not apply this round."""
+    lanes = keys.shape[0]
     ks = rng.split_lanes(keys, 3)
     k_targets, k_drop = ks[:, 0].contiguous(), ks[:, 1].contiguous()
     targets = sample_member_targets_lanes(state, cfg, k_targets, cfg.fanout)
     src, dst, ok = _edges(state, targets)
+    fthr = jit = fdelay = None
+    if faults is not None:
+        # ok is contiguous [K, E]: its flat view is cleared in place
+        _, fthr, fdelay, jit = fault_wire_effects(
+            faults, src.expand(lanes, -1).reshape(-1), dst.reshape(-1),
+            ok.view(-1))
+        fthr, fdelay, jit = (None if x is None else x.view(lanes, -1)
+                             for x in (fthr, fdelay, jit))
+        if active is not None:
+            fthr = fthr if active.loss else None
+            jit = jit if active.jitter else None
     slot = edge_slot_plain(topo, region, src, dst, int(state.t),
-                           state.inflight.shape[1])
+                           state.inflight.shape[1], fdelay)
     broadcast_send_lanes(
         state.have, state.relay_left, state.injected, meta.nbytes,
         cfg.rate_limit_bytes_round, targets.contiguous(), dst.contiguous(),
-        slot.contiguous(), ok, state.alive, k_drop, 0, state.inflight)
+        slot.contiguous(), ok, state.alive, k_drop, 0, state.inflight,
+        keys, fthr, jit, seeds)
 
 
 def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
-                    keys) -> SimState:
+                    keys, faults=None) -> SimState:
     """`sync.sync_step` over the lanes: each lane's peers, K13's lane
     entry into slot t + 1 of its sync ring (in place), then the backoff
-    and the re-arm draw (K5's lane entry)."""
+    and the re-arm draw (K5's lane entry).  Under ``faults`` a session
+    dies on a cut in either direction, and under a plan with delay
+    factors each edge's grants land in slot t + 1 + its session delay
+    (K9 or K9m on the lanes folded, one launch; K13's delay lane
+    entry)."""
     lanes, n = state.alive.shape
     s = cfg.sync_peers
     ks = rng.split_lanes(keys, 3)
@@ -590,11 +701,18 @@ def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     peers = sample_member_targets_lanes(state, cfg, k_peers, s)
     src, dst, ok = _edges(state, peers)
     ok &= due[:, src[0].long()]
+    sdelay = None
+    if faults is not None:
+        _, sdelay = fault_session_effects(
+            faults, src.expand(lanes, -1).reshape(-1), dst.reshape(-1),
+            ok.view(-1))
+        if sdelay is not None:
+            sdelay = sdelay.view(lanes, n * s)
     slot = (int(state.t) + 1) % state.sync_inflight.shape[1]
     fruitful = sync_pull_dense_lanes(
         state.have, state.heads, state.gap_lo, state.gap_hi,
         dst.reshape(lanes, n, s), ok.reshape(lanes, n, s), meta.nbytes,
-        cfg.sync_budget_bytes, state.sync_inflight, cfg, slot)
+        cfg.sync_budget_bytes, state.sync_inflight, cfg, slot, sdelay)
     backoff = torch.where(
         due & fruitful,
         cfg.sync_interval_rounds,
@@ -612,27 +730,36 @@ def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
 
 def dense_round_step_lanes(state: SimState, metrics: RunMetrics,
                            meta: PayloadMeta, cfg: SimConfig,
-                           topo: Topology, region):
+                           topo: Topology, region, faults=None,
+                           horizon: Optional[int] = None, seeds=None,
+                           active=None):
     """One dense round of every lane, phase for phase the solo
     `.round.round_step_` with lane k's keys: inject → broadcast → sync →
-    deliver → SWIM → bookkeeping refresh and convergence record.  The
-    payload tensors and beliefs update in place (the loop owns them);
-    returns (state, metrics, done) with done bool[K] on the device."""
+    deliver → SWIM → bookkeeping refresh and convergence record.  Under
+    ``faults`` (the round's slice of either plan form, shared; its node
+    faults applied by the caller) every phase takes the plan as the solo
+    round does, each lane's draws under its plan seed ``seeds[k]``, the
+    record's flag is the fault loop's (``horizon``), and ``active`` (the
+    host's copy of the round's loss and jitter activity) picks the
+    broadcast's entry.  The payload tensors and beliefs update in place
+    (the loop owns them); returns (state, metrics, done) with done
+    bool[K] on the device."""
     ks = rng.split_lanes(state.key, 4)
     state = state._replace(key=ks[:, 0].contiguous())
     k_bcast, k_sync, k_swim = (ks[:, i].contiguous() for i in (1, 2, 3))
     t = int(state.t)
     inject_dense_lanes(state.have, state.relay_left, state.injected, meta,
                        state.alive, t, cfg.max_transmissions)
-    broadcast_step_lanes(state, meta, cfg, topo, region, k_bcast)
-    state = sync_step_lanes(state, meta, cfg, k_sync)
+    broadcast_step_lanes(state, meta, cfg, topo, region, k_bcast, faults,
+                         seeds, active)
+    state = sync_step_lanes(state, meta, cfg, k_sync, faults)
     deliver_dense_lanes(state.inflight, state.sync_inflight, state.have,
                         state.relay_left, t % state.inflight.shape[1],
                         max(cfg.max_transmissions - 1, 1))
-    state = swim_step_lanes(state, cfg, topo, k_swim)
+    state = swim_step_lanes(state, cfg, topo, k_swim, faults, seeds)
     heads, lo, hi, n_overflow, coverage_at, converged_at, done = (
         dense_record_lanes(state.have, state.injected, state.alive, metrics,
-                           meta, t, cfg))
+                           meta, t, cfg, horizon))
     overflow_frac = torch.maximum(
         metrics.overflow_frac,
         overflow_fraction(n_overflow, heads[0].numel()))
@@ -654,35 +781,66 @@ def own_lanes(states: SimState) -> SimState:
         **{f: getattr(states, f).clone() for f in _OWNED})
 
 
-def lane_batch(states: SimState, cfg: SimConfig) -> _Batch:
+def lane_batch(states: SimState, cfg: SimConfig, seeds=None) -> _Batch:
     """The dense lane loop's batch of every lane of stacked initial
-    states (owned), with fresh metrics."""
+    states (owned), with fresh metrics; with plan ``seeds`` (i32[K], a
+    fault loop's) the tables the node faults write are owned too."""
     lanes = states.alive.shape[0]
-    return _Batch(own_lanes(states), None, None,
-                  _new_lane_metrics(cfg, lanes, states.alive.device), None,
+    slim = own_lanes(states)
+    if seeds is not None:
+        slim = slim._replace(**{f: getattr(slim, f).clone()
+                                for f in NODE_FAULT_TABLES})
+    return _Batch(slim, None, None,
+                  _new_lane_metrics(cfg, lanes, states.alive.device), seeds,
                   list(range(lanes)))
 
 
 def run_dense_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
-                    topo: Topology, max_rounds: int, fplan=None):
+                    topo: Topology, max_rounds: int, fplan=None,
+                    plan_seeds=None):
     """Run every lane of stacked initial states (every field [K, ...],
-    ``t`` 0 in all) on the dense round to its own convergence or
-    ``max_rounds``: the solo `.round.run_dense` loop per lane.  Returns
-    the lanes' final (SimState, RunMetrics), stacked in lane order with
-    ``t`` i32[K]; lane k equals the solo run of its initial state.  A
-    fault plan (``fplan``) is refused: the dense fault lanes are the
-    next item of ROADMAP B16d."""
+    ``t`` 0 in all) on the dense round to its own exit or ``max_rounds``:
+    faultless, the solo `.round.run_dense` loop per lane; under ``fplan``
+    (either plan form, its schedule shared, its seed replaced per lane by
+    ``plan_seeds`` i32[K]) the dense branch of the solo
+    `.faults.run_fault_plan` — the round's node faults first (K11d's
+    lane entry), the round with its fault slice, no exit before the
+    horizon, then each lane's fresh all-have predicate (K14x's lane
+    entries).  Returns the lanes' final (SimState, RunMetrics), stacked
+    in lane order with ``t`` i32[K]; lane k equals the solo run of its
+    initial state and seed."""
     check_dense_lanes(cfg, topo, fplan)
     dev = states.have.device
     region = regions(cfg.n_nodes, topo.n_regions, dev)
-    batch = lane_batch(states, cfg)
+    lanes = states.alive.shape[0]
+    horizon = None
+    if fplan is not None:
+        if plan_seeds is None:
+            plan_seeds = torch.full((lanes,), int(fplan.seed),
+                                    dtype=torch.int32, device=dev)
+        horizon = fplan.horizon
+        activity = host_activity(fplan)  # read once a run
+    batch = lane_batch(states, cfg, None if fplan is None else plan_seeds)
 
     def step(batch: _Batch):
+        t = int(batch.slim.t)
+        rf = active = None
+        if fplan is not None:
+            rf = round_faults(fplan, t)
+            apply_node_faults_lanes(batch.slim, rf)
+            active = activity[min(t, horizon)]
         state, metrics, done = dense_round_step_lanes(
-            batch.slim, batch.metrics, meta, cfg, topo, region)
+            batch.slim, batch.metrics, meta, cfg, topo, region, rf, horizon,
+            batch.seeds, active)
         return batch._replace(slim=state, metrics=metrics), done
 
     up = batch.slim.alive == ALIVE
-    done = (meta.round <= 0).all() & (
-        (batch.metrics.converged_at >= 0) | ~up).all(dim=1)
+    if fplan is None:
+        done = (meta.round <= 0).all() & (
+            (batch.metrics.converged_at >= 0) | ~up).all(dim=1)
+    elif horizon > 0:  # t = 0: the solo loop's flag is false before it
+        done = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    else:
+        done = torch.stack([all_have(lane, meta, cfg)
+                            for lane in _lane_states(batch.slim)])
     return _stack_results(_run_batch(batch, max_rounds, done, step), cfg)

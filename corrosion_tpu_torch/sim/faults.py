@@ -51,7 +51,9 @@ ring scatter without a device read.
 
 **The node faults** (`apply_node_faults`) are K11's dense entry on the
 dense state and its word entry (`packed.apply_round_faults`) on the
-packed carry.
+packed carry; a seed ensemble's lanes take their lane forms
+(`apply_node_faults_lanes`, `fault_reach_lanes_`; the edge queries take
+the lanes folded into their edge axis).
 
 **The checked driver** `run_fault_plan_checked` runs the dense round a
 round at a time with the sim invariant catalog
@@ -1011,10 +1013,10 @@ def fault_reach_(ok, faults: AnyRoundFaults, key, src, dst):
 
 def fault_reach_lanes_plain(ok, faults, keys, src, dst,
                             seeds) -> torch.Tensor:
-    """Plain version of K9's reach lane entry, in place on ok [K, E]:
-    the plan's cuts and thresholds at the lanes' edges (lane-local ids;
-    the plan is shared), and lane k's loss draw ``aligned_u8_bits(
-    fold_in(fold_in(keys[k], seeds[k]), 103), [E])``."""
+    """Plain version of K9's reach lane entry and K9m's, in place on ok
+    [K, E]: the plan's cuts and thresholds at the lanes' edges
+    (lane-local ids; the plan is shared), and lane k's loss draw
+    ``aligned_u8_bits(fold_in(fold_in(keys[k], seeds[k]), 103), [E])``."""
     lanes, e = src.shape
     src, dst = src.reshape(-1), dst.reshape(-1)
     if _has(faults, "block"):
@@ -1030,16 +1032,12 @@ def fault_reach_lanes_plain(ok, faults, keys, src, dst,
     return ok
 
 
-def fault_reach_lanes_(ok, faults: FactoredRoundFaults, keys, src, dst,
-                       seeds):
+def fault_reach_lanes_(ok, faults: AnyRoundFaults, keys, src, dst, seeds):
     """`fault_reach_` over the seed ensemble's lanes, in place on bool
     [K, E] ``ok``: src and dst [K, E] lane-local ids, ``keys`` [K, 2] the
     lanes' loss keys and ``seeds`` i32[K] their plan seeds (only the seed
-    is batched; the round slice is shared).  K9's reach lane entry on the
-    card; a factored slice only (matrix plans on lanes are B16d)."""
-    if isinstance(faults, RoundFaults):
-        raise NotImplementedError(
-            "matrix fault plans on lanes are not ported yet (ROADMAP B16d)")
+    is batched; the round slice, of either form, is shared).  K9's reach
+    lane entry on the card, K9m's for a matrix slice."""
     if src.device.type == "cpu":
         return fault_reach_lanes_plain(ok, faults, keys, src, dst, seeds)
     if not (_has(faults, "block") or _has(faults, "loss")):
@@ -1049,6 +1047,13 @@ def fault_reach_lanes_(ok, faults: FactoredRoundFaults, keys, src, dst,
     check("keys", keys, torch.int64, (lanes, 2))
     check("seeds", seeds, torch.int32, (lanes,))
     check("dst", dst, torch.int32, (lanes, e))
+    if isinstance(faults, RoundFaults):
+        slabs, n, _ = _slab_args(faults, src.reshape(-1), dst.reshape(-1),
+                                 ("block", "loss"))
+        kernels.FAULT_REACH_MATRIX_LANES.launch(
+            slabs[:2] + [src, dst, keys, ok, seeds],
+            [n, e, PROBE_LOSS_TAG, lanes])
+        return ok
     ptrs, ints = _k9_args(faults, src.reshape(-1), dst.reshape(-1), True,
                           True)
     # _k9_args checked the flattened edges; the lane entry takes [K, e]
@@ -1090,6 +1095,12 @@ def apply_node_faults_plain(state: SimState,
     return state
 
 
+#: the tables `apply_node_faults` writes in place beyond the dense round's
+#: own: a fault loop gives each a tensor of its own first
+NODE_FAULT_TABLES = ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
+                     "psince", "pview")
+
+
 def apply_node_faults(state: SimState, rf: AnyRoundFaults) -> SimState:
     """Crash, restart and wipe, before the round's phases, IN PLACE: the
     alive override, then on wiped nodes zeroed payload rows (have, relay
@@ -1103,39 +1114,83 @@ def apply_node_faults(state: SimState, rf: AnyRoundFaults) -> SimState:
     take K11's word entry (`packed.apply_round_faults`)."""
     if state.alive.device.type == "cpu":
         return apply_node_faults_plain(state, rf)
-    n, p = state.have.shape
-    d = state.inflight.shape[0]
-    a = state.heads.shape[1]
-    ak = state.gap_lo.shape[1] * state.gap_lo.shape[2]
-    m = state.pid.shape[1]
-    fv = state.view.shape[0]
+    _launch_node_faults_dense(state, rf)
+    return state
+
+
+def _launch_node_faults_dense(state: SimState, rf: AnyRoundFaults,
+                              lanes: Optional[int] = None) -> None:
+    """K11's dense entry on a solo state, or with ``lanes`` its lane entry
+    on stacked states (every per-node tensor [K, ...]), after the
+    wrapper-side checks."""
+    lead = () if lanes is None else (lanes,)
+    n, p = state.have.shape[-2:]
+    d = state.inflight.shape[-3]
+    a = state.heads.shape[-1]
+    ak = state.gap_lo.shape[-2] * state.gap_lo.shape[-1]
+    m = state.pid.shape[-1]
+    fv = state.view.shape[-1]
+    v = state.pview.shape[-1]
     check("rf.alive", rf.alive, torch.int8, (n,))
     check("rf.wipe", rf.wipe, torch.bool, (n,))
-    check("alive", state.alive, torch.uint8, (n,))
+    check("alive", state.alive, torch.uint8, lead + (n,))
     for name in ("have", "relay_left"):
-        check(name, getattr(state, name), torch.uint8, (n, p))
+        check(name, getattr(state, name), torch.uint8, lead + (n, p))
     for name in ("inflight", "sync_inflight"):
-        check(name, getattr(state, name), torch.uint8, (d, n, p))
-    check("heads", state.heads, torch.int32, (n, a))
+        check(name, getattr(state, name), torch.uint8, lead + (d, n, p))
+    check("heads", state.heads, torch.int32, lead + (n, a))
     for name in ("gap_lo", "gap_hi"):
         check(name, getattr(state, name), torch.int32, state.gap_lo.shape)
     for name in ("pid", "pkey", "psince"):
-        check(name, getattr(state, name), torch.int32, (n, m))
-    check("view", state.view, torch.int8, (fv, fv))
+        check(name, getattr(state, name), torch.int32, lead + (n, m))
+    check("view", state.view, torch.int8, lead + (fv, fv))
     for name in ("vinc", "suspect_since"):
-        check(name, getattr(state, name), torch.int32, (fv, fv))
+        check(name, getattr(state, name), torch.int32, lead + (fv, fv))
     if fv not in (0, n):
         raise ValueError("the full view must be [N, N] or empty")
-    v = state.pview.shape[1]
-    check("pview", state.pview, torch.int32, (n, v))
-    kernels.NODE_FAULTS_DENSE.launch(
+    check("pview", state.pview, torch.int32, lead + (n, v))
+    kernel = (kernels.NODE_FAULTS_DENSE if lanes is None
+              else kernels.NODE_FAULTS_DENSE_LANES)
+    kernel.launch(
         [rf.alive, rf.wipe, state.alive, state.have, state.relay_left,
          state.inflight, state.sync_inflight, state.heads, state.gap_lo,
          state.gap_hi, state.pid, state.pkey, state.psince, state.view,
          state.vinc, state.suspect_since, state.pview],
-        [n, p, d, a, ak, m, fv, v],
+        [n, p, d, a, ak, m, fv, v] + list(lead),
     )
-    return state
+
+
+def _lane_states(states: SimState):
+    """Each lane of stacked states as a solo state of views (``t``, one
+    host scalar, shared): what the solo plain versions take."""
+    lanes = states.alive.shape[0]
+    return [SimState(*(states.t if name == "t" else getattr(states, name)[k]
+                       for name in SimState._fields))
+            for k in range(lanes)]
+
+
+def apply_node_faults_lanes_plain(states: SimState,
+                                  rf: AnyRoundFaults) -> SimState:
+    """Plain version of K11d's lane entry: the solo plain version on each
+    lane's slices, in place."""
+    for lane in _lane_states(states):
+        apply_node_faults_plain(lane, rf)
+    return states
+
+
+def apply_node_faults_lanes(states: SimState,
+                            rf: AnyRoundFaults) -> SimState:
+    """`apply_node_faults` over the seed ensemble's lanes on the dense
+    round, IN PLACE: the round's shared alive overrides and wipes
+    (``rf.alive``, ``rf.wipe`` [N]; JAX shares the schedule unbatched,
+    ``ensemble.py:147-158``) hit every lane's rows — have and relay
+    [K, N, P], both rings [K, D, N, P], heads, gaps, the member tables,
+    the full view [K, N, N] and the PeerSwap view.  K11d's lane entry on
+    the card."""
+    if states.alive.device.type == "cpu":
+        return apply_node_faults_lanes_plain(states, rf)
+    _launch_node_faults_dense(states, rf, states.alive.shape[0])
+    return states
 
 
 def all_have(state: SimState, meta: PayloadMeta, cfg: SimConfig):
@@ -1160,11 +1215,8 @@ def _own_fault_state(state: SimState) -> SimState:
     from .round import own_state
 
     state = own_state(state)
-    return state._replace(**{
-        name: getattr(state, name).clone()
-        for name in ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
-                     "psince", "pview")
-    })
+    return state._replace(**{name: getattr(state, name).clone()
+                             for name in NODE_FAULT_TABLES})
 
 
 def run_fault_plan(

@@ -31,8 +31,9 @@ The lane path covers what the two 100k storm cells run: the flat
 lossless topology, partial-view SWIM, the baseline protocol, unmetered
 budgets and factored fault plans without latency.  `check_packed_lanes`
 refuses everything else, naming the ROADMAP item that ports it; the
-dense round's lanes (`.dense_lanes`) have `check_dense_lanes`, and share
-this module's batch and loop (`_Batch`, `_run_batch`).
+dense round's lanes (`.dense_lanes`, fault plans of either form
+included) have `check_dense_lanes`, and share this module's batch and
+loop (`_Batch`, `_run_batch`).
 """
 
 from __future__ import annotations
@@ -140,18 +141,14 @@ def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
 def check_dense_lanes(cfg: SimConfig, topo: Topology, fplan=None,
                       telemetry: bool = False) -> None:
     """Refuse, naming the ROADMAP item that ports it, every configuration
-    the dense round's lanes do not run: fault plans, the recorder,
-    topology keys, PeerSwap and the protocol variants.  Both byte
-    budgets run (inside K12's and K13's lane entries), and so do full
-    view, partial view and ground-truth membership."""
+    the dense round's lanes do not run: the recorder, topology keys,
+    PeerSwap and the protocol variants.  Both byte budgets run (inside
+    K12's and K13's lane entries), and so do full view, partial view,
+    ground-truth membership and fault plans of either form, with delay
+    and jitter (``fplan`` is accepted)."""
     if packed_supported(cfg, topo):
         raise ValueError("a packed configuration on the dense round's "
                          "lanes: run it through `run_lanes`")
-    if fplan is not None:
-        raise NotImplementedError(
-            "fault plans on the dense round's lanes are not ported yet "
-            "(K9m, K11d, K12f, K13d and K14x lanes: the next item of "
-            "ROADMAP B16d)")
     _check_shared(cfg, topo, telemetry)
 
 

@@ -200,8 +200,10 @@ def _refused_spec(case):
                 packed_min_cells=0)
     kw = {}
     if case == "dense":
-        # a fault plan on the dense round (its lanes are the next slice)
-        base = dict(base, packed_min_cells=10 * 1024 * 1024)
+        # a fault plan on the dense round's lanes (which run plans) under
+        # the PeerSwap sampler, which they still refuse
+        base = dict(base, packed_min_cells=10 * 1024 * 1024,
+                    peer_sampler="peerswap", swim_partial_view=False)
         kw["events"] = (FaultEvent("loss", 0, 4, p=0.2),)
     elif case == "metered":
         base = dict(base, rate_limit_bytes_round=5 * 1024 * 1024)

@@ -9,6 +9,7 @@ field by field, with lanes that finish at different rounds, their
 ``run_campaign`` artifacts, one lane against the solo run, the
 ``broadcast-1k-seeds8`` spec, and the dense check's refusals."""
 
+import dataclasses
 from unittest import mock
 
 import pytest
@@ -158,14 +159,24 @@ def _dense_cfg(**kw):
                                   "peerswap", "protocol"))
 def test_dense_check_refuses_by_name(case):
     """The dense lane check refuses what this round's lanes do not run,
-    each naming ROADMAP B16d: fault plans (the next slice), the recorder,
-    topology keys, PeerSwap and the protocol variants; the ensemble
-    raises the same."""
+    each naming ROADMAP B16d: the recorder, topology keys, PeerSwap and
+    the protocol variants.  Fault plans it now runs: the ``fault_plan``
+    case holds the check's acceptance of a plan, and the ensemble's run
+    under it (two seeds of the 3-node parity campaign's matrix plan)
+    equal to JAX's, lane by lane."""
     cfg, topo, plan, kw = _dense_cfg(), Topology(), None, {}
     if case == "fault_plan":
-        plan = FaultPlan(n_nodes=96, seed=0, events=())
-        match = "fault plans on the dense round"
-    elif case == "telemetry":
+        from corrosion_tpu.campaign.spec import builtin_spec as jbuiltin
+
+        check_dense_lanes(cfg, topo, FaultPlan(n_nodes=96, seed=0,
+                                               events=()))
+        jspec = dataclasses.replace(jbuiltin("fault-parity-3node"),
+                                    seeds=(0, 1))
+        pspec = spec_mod.fault_parity_3node_spec((0, 1))
+        jf, jm, pf, pm, *_ = run_both_ensembles(jspec, pspec)
+        assert_lanes_equal_jax(jf, jm, pf, pm, "fault_plan")
+        return
+    if case == "telemetry":
         kw["telemetry"] = True
         match = "flight recorder on lanes"
     elif case == "topology":
@@ -179,11 +190,6 @@ def test_dense_check_refuses_by_name(case):
         match = "protocol variants"
     with pytest.raises(NotImplementedError, match=match + ".*B16d"):
         check_dense_lanes(cfg, topo, plan, **kw)
-    if case == "fault_plan":
-        plan = FaultPlan(n_nodes=96, seed=0,
-                         events=spec_mod.storm_fault_events(96))
-        with pytest.raises(NotImplementedError, match="B16d"):
-            run_seed_ensemble(plan, cfg, topo, None, (0,), device="cpu")
 
 
 def test_dense_check_accepts_default_budgets_and_every_tier():

@@ -1530,3 +1530,83 @@ def test_detect_ensemble_on_card_equals_cpu(card, n, partial):
         assert int(det) == int(outs[0][2][k])
         for name, a, b in zip(solo._fields, solo, lane_state(outs[0][0], k)):
             assert torch.equal(a.cpu(), b.cpu()), (k, name)
+
+
+# -- the dense fault loop's lane entries (B16d, faults) -----------------------
+
+
+DENSE_FAULT_LANE_CASES = {
+    "reach_matrix": lambda s, dev, g, gen: s.compare_lane_reach_matrix(
+        dev, g, 3, n=333, timed=False),
+    "node_faults_dense": lambda s, dev, g, gen:
+        s.compare_lane_node_faults_dense(dev, gen, 3, n=3001, full_n=257,
+                                         timed=False),
+    "broadcast_fault": lambda s, dev, g, gen: s.compare_lane_broadcast_fault(
+        dev, gen, 3, n=3001, timed=False),
+    "sync_delay": lambda s, dev, g, gen: s.compare_lane_sync_delay(
+        dev, g, gen, 3, n=3001, timed=False),
+    "gaps_exit": lambda s, dev, g, gen: s.compare_lane_gaps_exit(
+        dev, gen, 4, n=3001, timed=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_FAULT_LANE_CASES))
+def test_dense_fault_lane_kernels(card, case):
+    """chip_smoke's phase 3lf at small and ragged shapes: K9m's reach,
+    K11d, K12f, K13d and K14x lane entries equal to their plain versions,
+    each lane to the solo entry on its inputs, every trap reached."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(len(case))
+    row = DENSE_FAULT_LANE_CASES[case](
+        _smoke(), card, np.random.default_rng(len(case)), gen)
+    assert row["equal"], row["name"]
+
+
+@pytest.mark.parametrize("case", ("parity", "latency_partial",
+                                  "storm_full_view"))
+def test_dense_fault_ensemble_on_card_equals_cpu(card, case):
+    """Lanes of the dense fault loop through the engine's ensemble on the
+    card: the 3-node parity campaign's matrix plan (four seeds), a
+    96-node storm with the latency pair on partial view and the fault
+    storm on full view (three seeds, factored): every lane tensor and
+    metric equal to the same ensemble's plain versions on the CPU, and
+    each lane to the card's solo `run_fault_plan` of its seed."""
+    from corrosion_tpu_torch.campaign import spec as sp
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_state, run_seed_ensemble)
+    from corrosion_tpu_torch.sim.round import new_sim
+
+    if case == "parity":
+        spec = sp.fault_parity_3node_spec((0, 1, 2, 3))
+    else:
+        latency = case == "latency_partial"
+        spec = sp.dense_storm_seeds_spec((0, 2, 4), latency=latency)
+        events = sp.storm_fault_events(96) + (
+            sp.storm_latency_events(96) if latency else ())
+        if case == "storm_full_view":
+            scenario = dict(spec.scenario, swim_partial_view=False,
+                            swim_full_view=True, n_payloads=64)
+        else:
+            scenario = dict(spec.scenario, n_payloads=64, member_slots=16)
+        spec = dataclasses.replace(spec, scenario=dict(scenario, n_nodes=96),
+                                   events=events)
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    every = spec.inject_every({})
+    plan = spec.fault_plan({}, seed=spec.seeds[0])
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta = uniform_payloads(cfg, dev, inject_every=every)
+        outs.append(run_seed_ensemble(plan, cfg, topo, meta, spec.seeds,
+                                      max_rounds=spec.max_rounds,
+                                      device=dev))
+    for a, b in zip(*outs):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y.cpu()), name
+    meta = uniform_payloads(cfg, card, inject_every=every)
+    for k, s in enumerate(spec.seeds):
+        fp = faults.compile_plan(spec.fault_plan({}, seed=s), cfg, topo,
+                                 device=card)
+        solo, _ = faults.run_fault_plan(new_sim(cfg, s, card), meta, cfg,
+                                        topo, fp, spec.max_rounds)
+        for name, x, y in zip(solo._fields, solo, lane_state(outs[0][0], k)):
+            assert torch.equal(x.cpu(), y.cpu()), (k, name)

@@ -393,3 +393,16 @@ def port_solo_runs(cfg, meta, plan, seeds):
             out.append(run_fault_plan(state, meta, cfg, Topology(), fp,
                                       3000))
     return out
+
+
+def dense_storm_spec_at(seeds, n_nodes: int, latency: bool = True):
+    """``dense_storm_seeds_spec`` cut to ``n_nodes``: the storm's
+    scenario and events rebuilt at that width."""
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    events = sp.storm_fault_events(n_nodes)
+    if latency:
+        events += sp.storm_latency_events(n_nodes)
+    spec = sp.dense_storm_seeds_spec(seeds, latency=latency)
+    return dataclasses.replace(
+        spec, scenario=dict(spec.scenario, n_nodes=n_nodes), events=events)
