@@ -13,7 +13,10 @@ result line):
    K20, and the lane entries of K1–K11 for the seed ensembles on the
    packed round and of K12–K15, K1's uniform entry and K23 for those on
    the dense round and the detect loop, and of K9m's reach, K11d, K12f,
-   K13d and K14x for the dense round's fault loop) from the twenty-two
+   K13d and K14x for the dense round's fault loop, and of K17's dense
+   entry, K18's rows entry and K19 with the recording forms of K12,
+   K12f, K13, K13d and K9/K9m's counts for the recorder on the dense
+   round's lanes) from the twenty-two
    sources in ``corrosion_tpu_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -241,9 +244,10 @@ result line):
    launched and no solo entry of a kernel that has one; each lane also
    equal to the port's solo run of its seed on the card, whose 8 walls
    are printed beside the ensemble's with ``max_memory_allocated``;
-   fault-storm-100k-lanes16 (seeds 0-15), every lane equal to its solo
-   run; one lane of the storm, equal to the solo storm with each lane
-   entry launched as often as its solo entry (phase 3k before the paths
+   fault-storm-100k-lanes16 (seeds 0-15), lanes 0-7 equal to the
+   8-lane golden and lanes 8-15 to their solo runs; one lane of the
+   storm, equal to the solo storm with each lane entry launched as often
+   as its solo entry (phase 3k before the paths
    compares every lane entry at the 8-lane storm's shapes, each lane
    held to the solo entry on its inputs, K10 also at 16 lanes, past
    2^31 flattened); then the dense ensembles (B16d), each from launch
@@ -285,6 +289,34 @@ result line):
    delay that wrap the ring, a session refused in one direction only,
    done flags that flip at the horizon in some lanes only, a wipe after
    convergence);
+   then the flight recorder on the dense round's lanes (B16r), each
+   from launch counters at 0 through ``run_campaign``: broadcast-1k-
+   seeds8 with ``telemetry`` (path 46: its digest and the eight lane
+   summaries pinned from live JAX), broadcast-1k-seeds8-wire (path 47,
+   ``measure_wire``: its spec_hash, digest and ``wire_bytes``),
+   fault-parity-3node with ``telemetry`` and ``trace_dir`` (path 48:
+   its digest, eight summaries and the per-lane JSONL under
+   ``flight_recorder_out``, read back), dense-fault-storm-100k-
+   seeds8 with ``telemetry`` (path 49: its digest, lane 0's summary
+   against the solo golden and lanes 1-7's against live JAX's one-seed
+   pins, every key but ``wire_bytes`` exactly, ``wire_bytes`` within the
+   f32 bound) and dense-latency-storm-100k-seeds8 with ``telemetry``
+   (its digest; the latency entry's lane-strided counts),
+   swim-churn-partial-4096-seeds8 with ``telemetry`` (path 50: its
+   digest, lane 0's summary and ``trace_digest``), each with its
+   recording lane entries launched and no solo entry, every lane's
+   whole trace equal to its solo recording run on the card (phase 3lr
+   before the paths compares K17's dense lane entry, K18's rows lane
+   entry and K19's lane entry at the 8-lane dense fault storm's shapes
+   — K19 also on full-view beliefs at 4096 and at trace_every 2's
+   scratch row — the recording forms of K12 at broadcast-1k's and K12f,
+   K13, K13d at the dense storms', and K9's, its latency entry's and
+   K9m's lane-strided counts at the storms', fault-storm-1000's and the
+   3-node plan's shapes, each lane held to the solo entry, printing
+   that each trap was reached: lanes counting different totals into
+   their own slots, bytes past 2^31, a decimated scratch row, a shared
+   fault slice, blocks spanning two lanes, one block holding every lane
+   of the 3-node plan, a lane without edges);
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
@@ -302,7 +334,8 @@ result line):
    beside a solo storm round profiled in the same call, and the first 3
    rounds of the 8-lane swim-churn-partial-100k, churn-full-4096 and
    broadcast-1k rounds beside their solo rounds, and rounds 5-7 of the
-   8-lane dense-fault-storm-100k beside its solo rounds;
+   8-lane dense-fault-storm-100k without and with the recorder (with
+   ``max_memory_allocated``) beside its solo rounds;
 17. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
@@ -5566,7 +5599,9 @@ def ensemble_paths(dev, goldens):
     `campaign.engine.run_campaign` from zeroed counters, each lane and
     the artifact against its golden, every lane row launched and no solo
     entry of a kernel that has one; the ensemble's wall against its 8
-    solo walls; then fault-storm-100k-lanes16, each lane equal to the
+    solo walls; then fault-storm-100k-lanes16, lanes 0-7 equal to
+    fault-storm-100k-seeds8's golden lanes (whose solo runs the path
+    above held) and lanes 8-15 each equal, tensor for tensor, to the
     port's solo run of its seed on this card.  Returns the lane rows'
     launches per path and the printed numbers."""
     from corrosion_tpu_torch import kernels
@@ -5636,20 +5671,26 @@ def ensemble_paths(dev, goldens):
     launches["fault_storm_100k_lanes16"] = _path_launches(
         kernels, LANE_FAULT_ROWS, "fault_storm_100k_lanes16")
     digests = [state_digest(ensemble.lane_state(finals, i))
-               for i in range(WIDE_LANES)]
+               for i in range(ENSEMBLE_LANES)]
     rounds = finals.t.tolist()
+    solos = _solo_walls(cfg, meta, spec.seeds[ENSEMBLE_LANES:], dev, plan)
+    print(f"fault_storm_100k_lanes16: rounds {rounds} digests of lanes "
+          f"0-{ENSEMBLE_LANES - 1} {digests} wall {wall:.4f} s (solo sum "
+          f"of seeds {ENSEMBLE_LANES}-{WIDE_LANES - 1} "
+          f"{sum(w for _, w in solos):.4f} s) max_memory_allocated {peak} "
+          "bytes", flush=True)
+    if digests != [lane["digest"]
+                   for lane in goldens.FAULT_STORM_100K_SEEDS8["lanes"]]:
+        raise AssertionError("fault_storm_100k_lanes16: lanes 0-7 differ "
+                             "from the 8-lane golden")
+    for k, (final, _) in enumerate(solos, ENSEMBLE_LANES):
+        if not _same_state(final, ensemble.lane_state(finals, k)):
+            raise AssertionError(f"fault_storm_100k_lanes16: lane {k} "
+                                 "differs from its solo run")
     del finals
-    solos = _solo_walls(cfg, meta, spec.seeds, dev, plan)
-    solo = [state_digest(f) for f, _ in solos]
-    print(f"fault_storm_100k_lanes16: rounds {rounds} digests {digests} "
-          f"wall {wall:.4f} s (solo sum {sum(w for _, w in solos):.4f} s) "
-          f"max_memory_allocated {peak} bytes", flush=True)
-    if digests != solo:
-        raise AssertionError("fault_storm_100k_lanes16: a lane differs from "
-                             "its solo run")
     numbers["fault_storm_100k_lanes16"] = {
         "ensemble_wall_s": wall, "max_memory_allocated_bytes": peak,
-        "solo_walls_sum_s": sum(w for _, w in solos)}
+        "solo_walls_sum_s_seeds_8_15": sum(w for _, w in solos)}
     _lap("fault_storm_100k_lanes16")
     return launches, numbers
 
@@ -6350,8 +6391,8 @@ def dense_ensemble_paths(dev, goldens):
                  "max_memory_allocated_bytes": peak}
         if which in ("partial100k", "churn4096", "broadcast"):
             solos = _dense_solo_runs(spec, dev)
-            solo = [state_digest(f) for f, _, _ in solos]
-            if solo != [lane["digest"] for lane in lanes]:
+            if not all(_same_state(f, lane_state(finals, i))
+                       for i, (f, _, _) in enumerate(solos)):
                 raise AssertionError(f"{label}: a lane differs from its solo "
                                      "run")
             if detect and [d for _, d, _ in solos] != [
@@ -6361,10 +6402,12 @@ def dense_ensemble_paths(dev, goldens):
                                      "the solo runs'")
             entry["solo_walls_s"] = [w for _, _, w in solos]
             entry["solo_walls_sum_s"] = sum(entry["solo_walls_s"])
+            del solos
             print(f"{label}: every lane equal to its solo run; ensemble wall "
                   f"{cell['wall_clock_s']} s against the solo walls' sum "
                   f"{entry['solo_walls_sum_s']:.4f} s; max_memory_allocated "
                   f"{peak} bytes", flush=True)
+        del finals
         numbers[label] = entry
         _lap(label)
     return launches, numbers
@@ -7012,13 +7055,18 @@ def dense_fault_path_spec(which, seeds=range(ENSEMBLE_LANES)):
     }[which]()
 
 
+def _same_state(a, b) -> bool:
+    """Two solo states equal in every field (``t`` included), on the
+    device: the check a state digest makes, without the host copy."""
+    return all(torch.equal(x, y.to(x.device)) for x, y in zip(a, b))
+
+
 def _fault_solo_runs(spec, dev):
     """The port's solo runs of a fault path's seeds on the card: the
     spec's plan re-seeded per seed through `run_fault_plan`; each run's
-    rounds, p99 node-convergence round (the engine's lower percentile),
-    state digest and host wall."""
+    rounds and p99 node-convergence round (the engine's lower
+    percentile), its final state and host wall."""
     from corrosion_tpu_torch.campaign.engine import _percentile_lower
-    from corrosion_tpu_torch.convert import state_digest
     from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
     from corrosion_tpu_torch.sim.round import new_sim
     from corrosion_tpu_torch.sim.state import uniform_payloads
@@ -7038,8 +7086,8 @@ def _fault_solo_runs(spec, dev):
         wall = time.monotonic() - t0
         out.append(({"rounds": int(final.t),
                      "p99_node_convergence_round": _percentile_lower(
-                         metrics.converged_at.cpu().numpy(), 99),
-                     "digest": state_digest(final)}, wall))
+                         metrics.converged_at.cpu().numpy(), 99)},
+                    final, wall))
     return out
 
 
@@ -7084,7 +7132,7 @@ def dense_fault_ensemble_paths(dev, goldens):
                       ps["p99_node_convergence_round"][i],
                   "digest": state_digest(lane_state(finals, i))}
                  for i, s in enumerate(cell["seeds"])]
-        del kept, finals
+        del kept
         got = {"spec_hash": art["spec_hash"],
                "result_digest": art["result_digest"], "lanes": lanes}
         print(f"{label}: {json.dumps(got)} wall_clock_s="
@@ -7098,11 +7146,14 @@ def dense_fault_ensemble_paths(dev, goldens):
         if getattr(goldens, golden_name) != got:
             raise AssertionError(f"{label}: differs from its golden")
         solos = _fault_solo_runs(spec, dev)
-        if [rec for rec, _ in solos] != [
-                {k: v for k, v in lane.items() if k != "seed"}
-                for lane in lanes]:
+        if [rec for rec, _, _ in solos] != [
+                {k: v for k, v in lane.items() if k not in ("seed", "digest")}
+                for lane in lanes] or not all(
+                    _same_state(final, lane_state(finals, i))
+                    for i, (_, final, _) in enumerate(solos)):
             raise AssertionError(f"{label}: a lane differs from its solo run")
-        walls = [wall for _, wall in solos]
+        del finals
+        walls = [wall for _, _, wall in solos]
         entry = {"ensemble_wall_s": cell["wall_clock_s"],
                  "max_memory_allocated_bytes": peak, "solo_walls_s": walls,
                  "solo_walls_sum_s": sum(walls)}
@@ -7127,17 +7178,20 @@ def dense_fault_ensemble_paths(dev, goldens):
 
 
 def profile_dense_fault_lanes(dev, lanes=ENSEMBLE_LANES, start=DENSE_FAULT_T,
-                              rounds=3):
+                              rounds=3, telemetry=False):
     """``rounds`` rounds of the 8-lane dense-fault-storm-100k from round
     ``start`` through the lane fault loop's body, as `run_dense_lanes`
     runs them (K11d's lane entry, the lane round with its slice, the one
     host read of the [K] flags); the first ``start`` rounds are setup.
-    `profile_dense_fault` gives the solo round."""
+    With ``telemetry`` every round records each lane's row in a lane
+    trace, as a recording ensemble does.  `profile_dense_fault` gives
+    the solo round."""
     from corrosion_tpu_torch.campaign.ensemble import (
         lane_plan_seeds, seed_states)
     from corrosion_tpu_torch.sim import faults
     from corrosion_tpu_torch.sim.dense_lanes import (
-        dense_round_step_lanes, lane_batch)
+        dense_round_step_lanes, lane_batch, trace_of)
+    from corrosion_tpu_torch.sim.telemetry import new_trace_lanes
     from corrosion_tpu_torch.sim.topology import Topology, regions
 
     cfg, meta, fplan = _dense_fault_storm(STORM_N, dev)
@@ -7153,12 +7207,16 @@ def profile_dense_fault_lanes(dev, lanes=ENSEMBLE_LANES, start=DENSE_FAULT_T,
         faults.apply_node_faults_lanes(batch.slim, rf)
         state, metrics, done = dense_round_step_lanes(
             batch.slim, batch.metrics, meta, cfg, topo, region, rf, horizon,
-            batch.seeds, activity[min(t, horizon)])
+            batch.seeds, activity[min(t, horizon)],
+            trace_of(batch.extra) if telemetry else None)
         done.tolist()  # the loop's one host read a round
         return batch._replace(slim=state, metrics=metrics)
 
     def setup():
-        batch = lane_batch(seed_states(cfg, range(lanes), dev), cfg, seeds)
+        trace = (new_trace_lanes(cfg, start + 2 * rounds, lanes, dev)
+                 if telemetry else None)
+        batch = lane_batch(seed_states(cfg, range(lanes), dev), cfg, seeds,
+                           trace)
         for _ in range(start):
             batch = step(batch)
         torch.cuda.synchronize()
@@ -7173,7 +7231,859 @@ def profile_dense_fault_lanes(dev, lanes=ENSEMBLE_LANES, start=DENSE_FAULT_T,
         return time.monotonic() - t0
 
     return _profile(run, rounds, f"dense fault storm-100k x{lanes} lanes "
-                    f"rounds {start}-{start + rounds - 1}", setup)
+                    f"rounds {start}-{start + rounds - 1}"
+                    + (" with the recorder" if telemetry else ""), setup)
+
+
+# -- the flight recorder on the dense round's lanes (phase 3lr, paths 46-50) --
+
+SOLO_OF_LANE.update({"trace_counts_dense_lanes": "trace_counts_dense",
+                     "trace_wire_rows_lanes": "trace_wire_rows",
+                     "trace_row_lanes": "trace_row"})
+_TEL = "corrosion_tpu/sim/telemetry.py"
+
+
+def compare_lane_coverage_dense(dev, gen, lanes, n=STORM_N, p=512,
+                                timed=True):
+    """K17's dense lane entry at the 8-lane dense fault storm's shapes (N
+    = 100000, P = 512): ``have0`` a mid-storm holding that grows with the
+    lane, ``have`` it plus the round's arrivals, 3 % dead rows, into
+    [K, 3, P] count rows that already hold counts (the entry adds);
+    equal to the plain version, the last lane to the solo dense entry."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    have0 = torch.stack([_tu8(gen, (n, p), 0.2 + 0.05 * k, dev)
+                         for k in range(lanes)])
+    have = have0 | _tu8(gen, (lanes, n, p), 0.1, dev)
+    alive = _tu8(gen, (lanes, n), 0.03, dev) * 2
+    base = torch.randint(0, 1000, (lanes, 3, p), generator=gen, device=dev,
+                         dtype=torch.int32)
+    got, want = base.clone(), base.clone()
+    tel.coverage_delivered_dense_lanes_(got[:, 0:2], have, have0, alive)
+    tel.coverage_delivered_dense_lanes_plain(want[:, 0:2], have, have0,
+                                             alive)
+    equal, err = _equal_all([got], [want])
+    last = lanes - 1
+    solo = base[last].clone()
+    tel.coverage_delivered_dense_(solo[0:2], have[last], have0[last],
+                                  alive[last])
+    _solo_trap("trace_counts_dense lanes", [got[last]], [solo])
+    cov = (got - base)[:, 0].sum(dim=1).tolist()
+    _trap("lane trace 1", "each lane's coverage lands in its own rows, "
+          "lanes differing, the grant rows untouched",
+          len(set(cov)) == lanes and torch.equal(got[:, 2], base[:, 2]))
+    work = base.clone()
+
+    def restore():
+        work.copy_(base)
+
+    return _lane_row(
+        "trace_counts_dense_lanes", _CSRC + "trace_counts.cu",
+        "corrosion_tpu/sim/round.py:218", equal, err,
+        _timed(timed, lambda: tel.coverage_delivered_dense_lanes_(
+            work[:, 0:2], have, have0, alive), restore),
+        _timed(timed, lambda: tel.coverage_delivered_dense_lanes_plain(
+            work[:, 0:2], have, have0, alive), restore),
+        _nbytes(have, have0, alive) + lanes * 2 * p * 4, lanes, n=n)
+
+
+def compare_lane_wire_rows(dev, gen, lanes, n=STORM_N, f=3, timed=True):
+    """K18's rows lane entry at the 8-lane dense storm's shapes (N =
+    100000, F = 3): each lane's per-node frames and bytes (up to 512
+    payloads of 8 KiB a row) over its ok edges (more of them in later
+    lanes) into its slots of [K, 12] accumulators that already hold
+    totals; equal to the plain version, the last lane to the solo rows
+    entry, every lane's byte total past 2^31 (int64 exact)."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    frames = torch.randint(0, 513, (lanes, n), generator=gen, device=dev,
+                           dtype=torch.int32)
+    nbytes_ = frames * 8192
+    share = torch.tensor([0.5 + 0.05 * k for k in range(lanes)], device=dev)
+    ok = torch.rand((lanes, n * f), generator=gen, device=dev) < share[:, None]
+    base = torch.randint(0, 1 << 40, (lanes, len(tel.ACC)), generator=gen,
+                         device=dev, dtype=torch.int64)
+    got, want = base.clone(), base.clone()
+    tel.wire_rows_lanes_(got[:, tel.WIRE], frames, nbytes_, ok, f)
+    tel.wire_rows_lanes_plain(want[:, tel.WIRE], frames, nbytes_, ok, f)
+    equal, err = _equal_all([got], [want])
+    last = lanes - 1
+    solo = base[last].clone()
+    tel.wire_rows_(solo[tel.WIRE], frames[last], nbytes_[last], ok[last], f)
+    _solo_trap("trace_wire_rows lanes", [got[last]], [solo])
+    added = (got - base)[:, 1].tolist()
+    _trap("lane trace 2", "each lane's byte total, past 2^31, in its own "
+          "slot, lanes differing, the other slots untouched",
+          min(added) > 1 << 31 and len(set(added)) == lanes
+          and torch.equal(got[:, 2:], base[:, 2:]))
+    work = base.clone()
+
+    def restore():
+        work.copy_(base)
+
+    return _lane_row(
+        "trace_wire_rows_lanes", _CSRC + "trace_wire.cu",
+        "corrosion_tpu/sim/broadcast.py:254", equal, err,
+        _timed(timed, lambda: tel.wire_rows_lanes_(
+            work[:, tel.WIRE], frames, nbytes_, ok, f), restore),
+        _timed(timed, lambda: tel.wire_rows_lanes_plain(
+            work[:, tel.WIRE], frames, nbytes_, ok, f), restore),
+        _nbytes(frames, nbytes_, ok) + lanes * 2 * 8, lanes, n=n)
+
+
+def _lane_trace_row_case(gen, dev, lanes, n, p, swim, every, rounds=40,
+                         m=64):
+    """A lane trace mid-run and the rest of a row's inputs: per-lane
+    accumulators (bytes past 2^31, each lane its own) and count rows,
+    member tables (partial view) or beliefs (full view), a shared fault
+    slice with crashes and wipes, per-lane sessions and overflow."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+    from corrosion_tpu_torch.sim.state import SimConfig
+
+    kw = ({"swim_partial_view": True, "member_slots": m} if swim == "partial"
+          else {"swim_full_view": True})
+    cfg = SimConfig(n_nodes=n, n_payloads=p, trace_every=every, **kw)
+    trace = tel.new_trace_lanes(cfg, rounds, lanes, dev)
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    for name in tel.CHANNELS:
+        x = getattr(trace, name)
+        x.copy_(ints(0, 99, tuple(x.shape)).to(x.dtype))
+    trace.acc[:, :5] = ints(0, 1 << 20, (lanes, 5), torch.int64)
+    trace.acc[:, 1] += 1 << 36
+    trace.counts.copy_(ints(0, 3 * n, (lanes, 3, p)))
+    state = SimpleNamespace(pid=None, pkey=None, view=None)
+    if swim == "partial":
+        state.pid = ints(-1, n, (lanes, n, m))
+        state.pkey = ints(-1, 40, (lanes, n, m))
+    else:
+        state.view = ints(-1, 3, (lanes, n, n), torch.int8)
+    rf = SimpleNamespace(alive=ints(-1, 3, (n,), torch.int8),
+                         wipe=_tu8(gen, (n,), 0.01, dev).bool())
+    args = dict(alive=_tu8(gen, (lanes, n), 0.03, dev) * 2, state=state,
+                cfg=cfg, rf=rf, sync_ok=_tu8(gen, (lanes, 3 * n), 0.3,
+                                             dev).bool(),
+                n_overflow=ints(0, n, (lanes,)), nbytes=torch.full(
+                    (p,), 8192, dtype=torch.int32, device=dev))
+    return trace, args
+
+
+def compare_lane_trace_row(dev, gen, lanes, n=STORM_N, p=512, full_n=CHURN_N,
+                           timed=True):
+    """K19's lane entry at the 8-lane dense fault storm's shapes (N =
+    100000, P = 512, partial view M = 64) and on full-view beliefs (N =
+    4096), each at a sample row and at trace_every 2's scratch row, under
+    a shared fault slice: every channel of every lane equal to the plain
+    version, the last lane to the solo entry, each lane's accumulators
+    zeroed by its own last block."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    equal, err = True, 0
+    timed_case = None
+    for swim, nn in (("partial", n), ("full", full_n)):
+        for every, t in ((1, 7), (2, 7)):
+            trace, args = _lane_trace_row_case(gen, dev, lanes, nn, p, swim,
+                                               every)
+            row = tel.trace_row(trace, t, every)
+            got, want = _clone_trace(trace), _clone_trace(trace)
+            tel.record_row_lanes(got, row, **args)
+            tel.record_row_lanes_plain(want, row, **args)
+            e, x = _equal_all(list(got), list(want))
+            equal, err = equal and e, max(err, x)
+            last = lanes - 1
+            solo = _clone_trace(tel.lane_trace(trace, last))
+            st = args["state"]
+            tel.record_row(solo, row, alive=args["alive"][last],
+                           state=SimpleNamespace(
+                               pid=None if st.pid is None else st.pid[last],
+                               pkey=None if st.pkey is None
+                               else st.pkey[last],
+                               view=None if st.view is None
+                               else st.view[last]),
+                           cfg=args["cfg"], rf=args["rf"],
+                           sync_ok=args["sync_ok"][last],
+                           n_overflow=args["n_overflow"][last],
+                           nbytes=args["nbytes"])
+            _solo_trap(f"trace_row lanes {swim} every {every}",
+                       list(tel.lane_trace(got, last)), list(solo))
+            rows_of = set(zip(*(getattr(got, name)[:, row].tolist()
+                                for name in ("up_nodes", "swim_suspect",
+                                             "sync_sessions"))))
+            _trap(f"lane trace 3{swim[0]}{every}", f"{swim} view, "
+                  f"trace_every {every} (row {row} of "
+                  f"{trace.up_nodes.shape[1]}): every lane's row written "
+                  "from its own inputs and its accumulators zeroed, the "
+                  "shared slice's crashes in every lane",
+                  len(rows_of) == lanes and not bool(got.acc.any())
+                  and not bool(got.counts.any())
+                  and bool((got.crashes[:, row] > 0).all())
+                  and (every == 1 or row == trace.up_nodes.shape[1] - 1))
+            if timed_case is None:
+                timed_case = (trace, args, row)
+            del got, want, solo
+    trace, args, row = timed_case
+    work = _clone_trace(trace)
+
+    def restore():
+        work.acc.copy_(trace.acc)
+        work.counts.copy_(trace.counts)
+
+    st = args["state"]
+    nbytes = (_nbytes(args["alive"], st.pid, st.pkey, args["rf"].alive,
+                      args["rf"].wipe, args["sync_ok"], args["n_overflow"],
+                      args["nbytes"], trace.acc, trace.counts)
+              + _nbytes(trace.acc, trace.counts)
+              + lanes * (2 * p * 4 + 14 * 4))
+    return _lane_row(
+        "trace_row_lanes", _CSRC + "trace_row.cu", _TEL + ":202", equal, err,
+        _timed(timed, lambda: tel.record_row_lanes(work, row, **args),
+               restore),
+        _timed(timed, lambda: tel.record_row_lanes_plain(work, row, **args),
+               restore),
+        nbytes, lanes, n=n)
+
+
+def _lane_hashes(c, lanes, edge_draws):
+    """u32 hashes the loss draws of case ``c`` need at least: the words
+    (four bytes) holding an (edge, payload) cell that sends on an edge
+    ``edge_draws`` marks [K, E]."""
+    hashes = 0
+    s = c.state
+    for k in range(lanes):
+        sending = ((s.have[k] > 0) & (s.relay_left[k] > 0)
+                   & (s.injected[k] > 0)[None, :]).repeat_interleave(
+                       c.cfg.fanout, dim=0) & edge_draws[k][:, None]
+        hashes += int(sending.reshape(sending.shape[0], -1, 4).any(
+            dim=2).sum())
+        del sending
+    return hashes
+
+
+def compare_lane_broadcast_trace(dev, g, gen, lanes, n=STORM_N, n1k=PROTO_1K,
+                                 timed=True):
+    """K12's and K12f's lane entries with the recorder's outputs: the
+    faultless entry at broadcast-1k-seeds8's shapes (N = 1000, P = 256,
+    F = 3, D = 4, the default budget; path 46's case and a trap under a
+    flat loss threshold of 51), the fault entry at the 8-lane dense fault
+    storm's round 5 (N = 100000, P = 512, D = 2) under the storm's fault
+    loss; ring, relay, each lane's frames and bytes a row and its
+    dropped slot equal to the plain version, the last lane to the solo
+    entry, every lane's drops in its own slot of [K, 12] accumulators."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    cfg1, meta1 = _broadcast_cfg(dev, n1k, 256)
+    xs, targets, dst, slot, ok, keys = _lane_round_inputs(g, dev, cfg1,
+                                                          meta1, 20, lanes)
+    flat = dict(have=xs[0], relay=xs[1], injected=xs[2], ring=xs[3],
+                alive=xs[5], nbytes=meta1.nbytes,
+                budget=cfg1.rate_limit_bytes_round, targets=targets,
+                dst=dst, slot=slot, ok=ok, k_drop=keys, c=None, n=n1k)
+    cfg, meta, fplan = _dense_fault_storm(n, dev)
+    c = _lane_wire_case(gen, dev, cfg, meta, fplan, DENSE_FAULT_T, lanes)
+    s = c.state
+    fault = dict(have=s.have, relay=s.relay_left, injected=s.injected,
+                 ring=s.inflight, alive=s.alive, nbytes=meta.nbytes,
+                 budget=cfg.rate_limit_bytes_round, targets=c.targets,
+                 dst=c.dst, slot=c.slot, ok=c.ok, k_drop=c.k_drop, c=c, n=n)
+    slot_d = tel.ACC.index("bcast_dropped")
+    acc0 = torch.randint(0, 1 << 20, (lanes, len(tel.ACC)), generator=gen,
+                         device=dev, dtype=torch.int64)
+    last = lanes - 1
+    rows = []
+    for name, x, cases in (("dense_broadcast_lanes_trace", flat,
+                            ((51, True), (0, False))),
+                           ("dense_broadcast_fault_lanes_trace", fault,
+                            ((0, True),))):
+        fc = x["c"]
+
+        def outs(x=x):
+            zero = torch.zeros_like(x["alive"], dtype=torch.int32)
+            return [x["ring"].clone(), x["relay"].clone(), zero,
+                    zero.clone(), acc0.clone()]
+
+        def send(kernel, o, thr, drops, x=x, fc=fc, outputs=True):
+            fn = (dl.broadcast_send_lanes if kernel
+                  else dl.broadcast_send_lanes_plain)
+            fn(x["have"], o[1], x["injected"], x["nbytes"], x["budget"],
+               x["targets"], x["dst"], x["slot"], x["ok"], x["alive"],
+               x["k_drop"], thr, o[0], None if fc is None else fc.keys,
+               None if fc is None else fc.fthr, None,
+               None if fc is None else (fc.seeds if kernel
+                                        else fc.host_seeds),
+               *((o[2], o[3], o[4][:, slot_d] if drops else None)
+                 if outputs else (None, None, None)))
+
+        equal, err = True, 0
+        for thr, drops in cases:
+            got, want = outs(), outs()
+            send(True, got, thr, drops)
+            send(False, want, thr, drops)
+            e, m = _equal_all(got, want)
+            equal, err = equal and e, max(err, m)
+            solo = [y[last].clone() for y in outs()]
+            bc.broadcast_send(
+                x["have"][last], solo[1], x["injected"][last], x["nbytes"],
+                x["budget"], x["targets"][last], x["dst"][last],
+                x["slot"][last], x["ok"][last], x["alive"][last],
+                x["k_drop"][last], thr, solo[0], solo[2], solo[3],
+                solo[4][slot_d] if drops else None,
+                phase_key=None if fc is None else fc.keys[last],
+                fthr=None if fc is None else fc.fthr[last],
+                seed=0 if fc is None else int(fc.seeds[last]))
+            _solo_trap(f"{name} thr={thr}", [y[last] for y in got], solo)
+            rest = [i for i in range(len(tel.ACC)) if i != slot_d]
+            lost = (got[4] - acc0)[:, slot_d].tolist()
+            if drops:
+                _trap(f"lane trace 4 {name}", "each lane's lost frames in "
+                      "its own dropped slot, lanes differing, the other "
+                      "slots untouched, frames counted on rows that send",
+                      min(lost) > 0 and len(set(lost)) == lanes
+                      and torch.equal(got[4][:, rest], acc0[:, rest])
+                      and bool((got[2] > 0).any(dim=1).all()))
+        base = outs()
+        work = [y.clone() for y in base]
+
+        def restore(work=work, base=base):
+            for dst_, src_ in zip(work, base):
+                dst_.copy_(src_)
+
+        thr, drops = cases[-1]
+        draws = (fc.ok & (fc.fthr > 0)) if fc is not None else None
+        hashes = 0 if draws is None else _lane_hashes(fc, lanes, draws)
+        ops = hashes * OPS_PER_HASH
+        nbytes = (_nbytes(x["have"], x["relay"], x["injected"], x["nbytes"],
+                          x["targets"], x["dst"], x["slot"], x["ok"],
+                          x["alive"])
+                  + (_nbytes(fc.fthr) if fc is not None else 0)
+                  + _changed_bytes(base[:2], got[:2]) + _nbytes(*got[2:4])
+                  + (lanes * 8 if drops else 0))
+        row = _lane_row(
+            name, _CSRC + "dense_phases.cu",
+            "corrosion_tpu/sim/broadcast.py:254", equal, err,
+            _timed(timed, lambda send=send, work=work, thr=thr,
+                   drops=drops: send(True, work, thr, drops), restore),
+            _timed(timed, lambda send=send, work=work, thr=thr,
+                   drops=drops: send(False, work, thr, drops), restore),
+            nbytes, lanes, ops=ops, hashes=hashes, n=x["n"],
+            ms_without_recorder=_timed(
+                timed, lambda send=send, work=work, thr=thr: send(
+                    True, work, thr, False, outputs=False), restore))
+        ops_ms = ops / _int32_ops_per_s() * 1e3
+        row["bound_ms"] = max(row["bound_ms"], ops_ms)
+        row["bound_by"] = ("operations" if ops_ms > _bound_ms(nbytes)
+                           else "bytes")
+        rows.append(row)
+        del got, want, base, work
+    return rows
+
+
+def compare_lane_sync_trace(dev, g, gen, lanes, n=STORM_N, timed=True):
+    """K13's and K13d's lane entries with the grant counts: the dense
+    fault storm's sync (N = 100000, P = 512, S = 3, D = 2) at round 5
+    and the dense latency storm's with its session delays (D = 4) at
+    round 6, each lane's grants added to its own row of [K, 3, P] counts
+    that already hold counts (rows 3·P apart); fruitful, the ring and
+    the counts equal to the plain version, the last lane to the solo
+    entry."""
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import faults, sync
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    rows = []
+    for name, (cfg, meta, fplan), t in (
+            ("dense_sync_lanes_trace", _dense_fault_storm(n, dev),
+             DENSE_FAULT_T),
+            ("dense_sync_delay_lanes_trace", _dense_latency_storm(n, dev),
+             LATENCY_T)):
+        s, d = cfg.sync_peers, cfg.n_delay_slots
+        state = _lane_dense_states(gen, dev, cfg, lanes, t)
+        adv = [_advertised(g, dev, cfg, state.have[k], 40)
+               for k in range(lanes)]
+        heads, lo, hi = (_stack(a[i] for a in adv) for i in range(3))
+        _, src, dst, ok = _lane_edges_of(gen, dev, state, s)
+        rf = faults.round_faults(fplan, t)
+        _, sdelay = faults.fault_session_effects(
+            rf, src.expand(lanes, -1).reshape(-1), dst.reshape(-1),
+            ok.view(-1))
+        delayed = name.startswith("dense_sync_delay")
+        sdelay = sdelay.view(lanes, -1) if delayed else None
+        slot = (t + 1) % d
+        peers, ok = dst.view(lanes, -1, s), ok.view(lanes, -1, s)
+        counts0 = torch.randint(0, 1000, (lanes, 3, cfg.n_payloads),
+                                generator=gen, device=dev, dtype=torch.int32)
+        args = (state.have, heads, lo, hi, peers, ok, meta.nbytes, None)
+        ring0 = state.sync_inflight
+
+        def pull(fn, ring, counts, sdelay=sdelay, args=args, slot=slot,
+                 cfg=cfg):
+            return fn(*args, ring, cfg, slot, sdelay,
+                      None if counts is None else counts[:, tel.GRANTS])
+
+        got = [ring0.clone(), counts0.clone()]
+        want = [ring0.clone(), counts0.clone()]
+        fk = pull(dl.sync_pull_dense_lanes, *got)
+        fp = pull(dl.sync_pull_dense_lanes_plain, *want)
+        equal, err = _equal_all([fk] + got, [fp] + want)
+        last = lanes - 1
+        solo_r, solo_c = ring0[last].clone(), counts0[last].clone()
+        fs = sync.sync_pull_dense(
+            state.have[last], heads[last], lo[last], hi[last], peers[last],
+            ok[last], meta.nbytes, None,
+            solo_r if delayed else solo_r[slot], cfg, solo_c[tel.GRANTS],
+            None if sdelay is None else sdelay[last], slot)
+        _solo_trap(name, [fk[last], got[0][last], got[1][last]],
+                   [fs, solo_r, solo_c])
+        grants = (got[1] - counts0)[:, tel.GRANTS].sum(dim=1).tolist()
+        _trap(f"lane trace 5{'d' if delayed else ''}", f"{name}: each "
+              "lane's grants in its own row, lanes differing, the coverage "
+              "rows untouched",
+              min(grants) > 0 and len(set(grants)) == lanes
+              and torch.equal(got[1][:, :tel.GRANTS],
+                              counts0[:, :tel.GRANTS]))
+        work = [ring0.clone(), counts0.clone()]
+
+        def restore(work=work, ring0=ring0, counts0=counts0):
+            work[0].copy_(ring0)
+            work[1].copy_(counts0)
+
+        nbytes = (_nbytes(state.have, heads, lo, hi, peers, ok, meta.nbytes)
+                  + (_nbytes(sdelay) if delayed else 0)
+                  + _changed_bytes([ring0, counts0], got)
+                  + lanes * state.have.shape[1])
+        rows.append(_lane_row(
+            name, _CSRC + "dense_sync.cu", "corrosion_tpu/sim/sync.py:286",
+            equal, err,
+            _timed(timed, lambda pull=pull, work=work: pull(
+                dl.sync_pull_dense_lanes, *work), restore),
+            _timed(timed, lambda pull=pull, work=work: pull(
+                dl.sync_pull_dense_lanes_plain, *work), restore),
+            nbytes, lanes, n=n,
+            ms_without_recorder=_timed(
+                timed, lambda pull=pull, work=work: pull(
+                    dl.sync_pull_dense_lanes, work[0], None), restore)))
+        del state, got, want, work
+    return rows
+
+
+def _lane_counts_plain(rf, src, dst, ok, count, sym):
+    """Plain version of K9's and K9m's lane-strided counts: the cut (with
+    ``sym`` either direction's) clears ``ok`` in place and adds each
+    lane's cleared edges to its slot of ``count`` [K]."""
+    from corrosion_tpu_torch.sim import faults
+
+    hit = faults._block_plain(rf, src, dst)
+    if sym:
+        hit = hit | faults._block_plain(rf, dst, src)
+    faults._count_into(count, ok & hit)
+    ok &= ~hit
+
+
+def compare_lane_fault_counts(dev, gen, lanes, n=STORM_N, mid=MATRIX_N,
+                              timed=True):
+    """K9's, K9's latency entry's and K9m's edge queries with the lanes
+    folded into their edge axis and a lane-strided count: the dense
+    fault storm's wire cuts at round 5 (factored; 300 000 edges a lane,
+    blocks spanning two lanes), the dense latency storm's refused
+    sessions at round 6 (the latency entry, with session delays), and
+    fault-storm-1000's wire cuts at round 5 (matrix) and the 3-node
+    parity plan's at round 6 (nine edges a lane: one block holds every
+    lane); ok and every lane's count equal to the plain version, the
+    last lane to the solo query, lanes with different cut counts whose
+    sum is the folded scalar's."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign import spec as sp
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    counted = (kernels.FAULT_EDGES_LANES_COUNT,
+               kernels.FAULT_EDGES_DELAY_LANES_COUNT,
+               kernels.FAULT_EDGES_MATRIX_LANES_COUNT)
+    pcfg_spec = sp.builtin_spec("fault-parity-3node")
+    pcfg = pcfg_spec.sim_config({})
+    pplan = faults.compile_plan(pcfg_spec.fault_plan({}, seed=0), pcfg,
+                                pcfg_spec.topo({}), device=dev)
+    mcfg, _, mplan, _ = _matrix_storm(mid, dev)
+    cases = (
+        ("fault_edges_lanes_count", _dense_fault_storm(n, dev), DENSE_FAULT_T,
+         "bcast_cut", False),
+        ("fault_edges_delay_lanes_count", _dense_latency_storm(n, dev),
+         LATENCY_T, "sync_refused", True),
+        ("fault_edges_matrix_lanes_count", (mcfg, None, mplan), 5,
+         "bcast_cut", False),
+        ("fault_edges_matrix_lanes_count", (pcfg, None, pplan), 6,
+         "bcast_cut", False))
+    rows, seen = [], set()
+    for name, (cfg, _, fplan), t, slot_name, sym in cases:
+        state = _lane_dense_states(gen, dev, cfg, lanes, t)
+        f = cfg.sync_peers if sym else cfg.fanout
+        _, src, dst, ok0 = _lane_edges_of(gen, dev, state, f)
+        rf = faults.round_faults(fplan, t)
+        ok0[0] = False  # a lane with nothing to cut
+        src = src.expand(lanes, -1).reshape(-1).contiguous()
+        dst = dst.reshape(-1)
+        ok0 = ok0.reshape(-1)
+        slot = tel.ACC.index(slot_name)
+        acc0 = torch.randint(0, 1 << 20, (lanes, len(tel.ACC)),
+                             generator=gen, device=dev, dtype=torch.int64)
+
+        def query(kernel, ok, acc, rf=rf, src=src, dst=dst, sym=sym,
+                  slot=slot):
+            count = None if acc is None else acc[:, slot]
+            if not kernel:
+                _lane_counts_plain(rf, src, dst, ok, count, sym)
+            elif sym:
+                faults.fault_session_effects(rf, src, dst, ok, count)
+            else:
+                faults.fault_wire_effects(rf, src, dst, ok, count)
+
+        got, want = [ok0.clone(), acc0.clone()], [ok0.clone(), acc0.clone()]
+        before = [k.launches for k in counted]
+        query(True, *got)
+        launched = [k.name for k, b in zip(counted, before)
+                    if k.launches > b]
+        if dev.type == "cuda" and launched != [name]:
+            raise AssertionError(f"{name}: launched {launched}")
+        query(False, *want)
+        equal, err = _equal_all(got, want)
+        e = ok0.numel() // lanes
+        last = lanes - 1
+        ok_s = ok0[last * e:].clone()
+        cnt = acc0[last, slot].clone()
+        if sym:
+            faults.fault_session_effects(rf, src[last * e:], dst[last * e:],
+                                         ok_s, cnt)
+        else:
+            faults.fault_wire_effects(rf, src[last * e:], dst[last * e:],
+                                      ok_s, cnt)
+        _solo_trap(f"{name} e={e}", [got[0][last * e:], got[1][last, slot]],
+                   [ok_s, cnt])
+        folded = acc0[0, slot].clone()
+        ok_f = ok0.clone()
+        if sym:
+            faults.fault_session_effects(rf, src, dst, ok_f, folded)
+        else:
+            faults.fault_wire_effects(rf, src, dst, ok_f, folded)
+        per_lane = (got[1] - acc0)[:, slot]
+        print(f"{name} e={e}: per-lane counts {per_lane.tolist()}",
+              flush=True)
+        _trap(f"lane trace 6 {name} e={e}", "each lane's cleared edges in "
+              "its own slot, a lane without ok edges at 0 beside lanes that "
+              "cut, their sum the folded scalar's"
+              + (", one block across every lane" if e < 256
+                 else ", blocks spanning two lanes"),
+              len(set(per_lane.tolist())) > 1
+              and int(per_lane.sum()) == int(folded - acc0[0, slot])
+              and (e < 256 or e % 256 != 0))
+        if name in seen:
+            continue
+        seen.add(name)
+        work = [ok0.clone(), acc0.clone()]
+
+        def restore(work=work, ok0=ok0, acc0=acc0):
+            work[0].copy_(ok0)
+            work[1].copy_(acc0)
+
+        nbytes = (_nbytes(src, dst, ok0) + _changed_bytes([ok0], [got[0]])
+                  + lanes * 8)
+        rows.append(_lane_row(
+            name, _CSRC + "fault_edges.cu",
+            "corrosion_tpu/sim/faults.py:" + ("303" if sym else "195"),
+            equal, err,
+            _timed(timed, lambda query=query, work=work: query(True, *work),
+                   restore),
+            _timed(timed, lambda query=query, work=work: query(False, *work),
+                   restore),
+            nbytes, lanes, n=cfg.n_nodes, e=e,
+            ms_without_recorder=_timed(
+                timed, lambda query=query, work=work: query(
+                    True, work[0], None), restore)))
+        del state
+    return rows
+
+
+def compare_dense_lane_trace_kernels(dev, seed=13, lanes=ENSEMBLE_LANES,
+                                     timed=True, big=True):
+    """Phase 3lr: every lane entry the flight recorder adds to the dense
+    round's lanes against its plain version at K = 8 on its paths'
+    shapes (the 8-lane dense fault storm's, the full view's at 4096,
+    K9m's at fault-storm-1000's and the 3-node plan's), each lane held
+    to the solo entry on its inputs, every trap reached; ``big`` False
+    shrinks 100 000, 4096 and 1000 nodes to 1200, 96 and 333 (a CPU
+    rehearsal)."""
+    g = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    wide, full, mid = (STORM_N, CHURN_N, MATRIX_N) if big else (1200, 96, 333)
+    rows = [compare_lane_coverage_dense(dev, gen, lanes, wide, timed=timed),
+            compare_lane_wire_rows(dev, gen, lanes, wide, timed=timed),
+            compare_lane_trace_row(dev, gen, lanes, wide, full_n=full,
+                                   timed=timed),
+            *compare_lane_broadcast_trace(dev, g, gen, lanes, wide,
+                                          timed=timed),
+            *compare_lane_sync_trace(dev, g, gen, lanes, wide, timed),
+            *compare_lane_fault_counts(dev, gen, lanes, wide, mid, timed)]
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+#: the rows every recording dense ensemble launches (besides K12's inject
+#: and deliver lane entries, `TRACE_LANE_ENTRIES`)
+TRACE_LANE_CORE = ("threefry_lanes", "trace_counts_dense_lanes",
+                   "trace_wire_rows_lanes", "trace_row_lanes")
+TRACE_LANE_ENTRIES = ("dense_inject_lanes", "dense_deliver_lanes")
+#: paths 46-50: (label, spec builder, the rows the path adds, golden name)
+TRACE_ENSEMBLE_PATHS = (
+    ("broadcast_1k_seeds8_telemetry", "broadcast",
+     ("dense_gaps_lanes", "sample_uniform_lanes",
+      "dense_broadcast_lanes_trace", "dense_sync_lanes_trace"),
+     "BROADCAST_1K_SEEDS8"),
+    ("broadcast_1k_seeds8_wire", "wire",
+     ("dense_gaps_lanes", "sample_uniform_lanes",
+      "dense_broadcast_lanes_trace", "dense_sync_lanes_trace"),
+     "BROADCAST_1K_SEEDS8_WIRE"),
+    ("fault_parity_3node_telemetry", "parity",
+     ("dense_gaps_exit_lanes", "node_faults_dense_lanes",
+      "sample_uniform_lanes", "dense_broadcast_fault_lanes_trace",
+      "dense_sync_delay_lanes_trace", "fault_edges_matrix_lanes_count"),
+     "FAULT_PARITY_3NODE_SEEDS8"),
+    ("dense_fault_storm_100k_seeds8_telemetry", "dense100k",
+     ("dense_gaps_exit_lanes", "node_faults_dense_lanes",
+      "sample_targets_lanes", "merge_entries_lanes", "fault_reach_lanes",
+      "dense_broadcast_fault_lanes_trace", "dense_sync_lanes_trace",
+      "fault_edges_lanes_count"),
+     "DENSE_FAULT_STORM_100K_SEEDS8"),
+    ("dense_latency_storm_100k_seeds8_telemetry", "latency100k",
+     ("dense_gaps_exit_lanes", "node_faults_dense_lanes",
+      "sample_targets_lanes", "merge_entries_lanes", "fault_reach_lanes",
+      "dense_broadcast_fault_lanes_trace", "dense_sync_delay_lanes_trace",
+      "fault_edges_delay_lanes_count"),
+     "DENSE_LATENCY_STORM_100K_SEEDS8"),
+    ("swim_churn_partial_4096_seeds8_telemetry", "partial4096",
+     ("dense_gaps_lanes", "sample_targets_lanes", "merge_entries_lanes",
+      "detect_partial_lanes", "dense_broadcast_lanes_trace",
+      "dense_sync_lanes_trace"),
+     "SWIM_CHURN_PARTIAL_4096_SEEDS8"),
+)
+
+
+def trace_path_spec(which, seeds=range(ENSEMBLE_LANES)):
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    return {
+        "broadcast": lambda: sp.broadcast_seeds_spec(seeds),
+        "wire": lambda: sp.broadcast_wire_seeds_spec(seeds),
+        "parity": lambda: sp.fault_parity_3node_spec(seeds),
+        "dense100k": lambda: sp.dense_storm_seeds_spec(seeds),
+        "latency100k": lambda: sp.dense_storm_seeds_spec(seeds,
+                                                         latency=True),
+        "partial4096": lambda: sp.swim_churn_partial_spec(seeds=seeds),
+    }[which]()
+
+
+def _solo_traces(spec, dev):
+    """The port's solo telemetry runs of a path's seeds on the card (the
+    detect loop, the fault loop under the spec's plan re-seeded per
+    seed, or the convergence loop): each run's rounds, trace and wall."""
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.runner import churn_setup
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+    from corrosion_tpu_torch.sim.telemetry import run_membership_detect
+
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    out = []
+    for s in spec.seeds:
+        s = int(s)
+        if spec.detect_membership({}):
+            meta, state = churn_setup(cfg, s, dev)
+        else:
+            meta = uniform_payloads(cfg, dev,
+                                    inject_every=spec.inject_every({}))
+            state = new_sim(cfg, s, dev)
+        plan = (None if spec.detect_membership({})
+                else spec.fault_plan({}, seed=s))
+        fplan = None if plan is None else compile_plan(plan, cfg, topo,
+                                                       device=dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if spec.detect_membership({}):
+            final, _, _, trace = run_membership_detect(
+                state, meta, cfg, topo, spec.max_rounds, telemetry=True,
+                device=dev)
+        elif fplan is not None:
+            final, _, trace = run_fault_plan(state, meta, cfg, topo, fplan,
+                                             spec.max_rounds, telemetry=True)
+        else:
+            final, _, trace = run_to_convergence(
+                state, meta, cfg, topo, spec.max_rounds, telemetry=True)
+        torch.cuda.synchronize()
+        out.append((int(final.t), trace, time.monotonic() - t0))
+    return out
+
+
+def _lanes_equal_solo_traces(traces, solos, label):
+    """Every field of each lane's trace (its sixteen channels over all
+    ``max_rounds`` rows, zero past its exit, and its emptied
+    accumulators) equal to its solo telemetry run's."""
+    from corrosion_tpu_torch.sim.telemetry import lane_trace
+
+    for k, (_, solo, _) in enumerate(solos):
+        lane = lane_trace(traces, k)
+        bad = [name for name, a, b in zip(lane._fields, lane, solo)
+               if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{label}: lane {k}'s trace differs from "
+                                 f"its solo telemetry run in {bad}")
+
+
+def _wire_within(got, want, rounds, label, m_bcast, m_sync):
+    """``wire_bytes`` of a summary (the port's exact totals rounded once a
+    round) within the f32 bound of JAX's (its sums of m f32 terms a
+    round): (m + 1)·2⁻²⁴ of each round, over the rounds, plus both
+    sums' rounding; the rest of the summary exactly."""
+    g, w = dict(got), dict(want)
+    gw, ww = g.pop("wire_bytes"), w.pop("wire_bytes")
+    if g != w:
+        raise AssertionError(f"{label}: telemetry summary {g} != golden {w}")
+    for key, m in (("broadcast", m_bcast), ("sync", m_sync)):
+        total = abs(ww[key]) * (1 + F32_ULP)
+        limit = (m + 1 + 2 * rounds) * F32_ULP * total + 0.1
+        if abs(gw[key] - ww[key]) > limit:
+            raise AssertionError(f"{label}: wire_bytes.{key} {gw[key]} vs "
+                                 f"golden {ww[key]} (limit {limit})")
+    return max(abs(gw[k] - ww[k]) / max(ww[k], 1.0)
+               for k in ("broadcast", "sync"))
+
+
+def trace_ensemble_paths(dev, goldens, trace_dir):
+    """Paths 46-50: the flight recorder on the dense round's lanes through
+    `campaign.engine.run_campaign` (seeds 0-7), each from zeroed
+    counters: every recording lane entry of the path launched, no solo
+    entry of a kernel that has a lane entry; the artifact's spec_hash and
+    result_digest against the golden pinned from live JAX (a recording
+    run's digest is the plain run's; the wire cell's carries its
+    wire_bytes), each lane's summary against the pinned ones (at 100k
+    every key but wire_bytes exactly, wire_bytes within the f32 bound),
+    and every lane's whole trace against its solo telemetry run on this
+    card (the wire cell's lanes against the broadcast path's solos).
+    fault-parity-3node writes its per-lane JSONL under ``trace_dir``,
+    which is read back.  Returns the launches per path and the printed
+    numbers."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import _lane_trace_path
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.sim.telemetry import (
+        lane_trace, trace_digest, trace_rows)
+
+    launches, numbers, solos_of = {}, {}, {}
+    for label, which, extra, golden_name in TRACE_ENSEMBLE_PATHS:
+        spec = trace_path_spec(which)
+        kept = {}
+        tdir = trace_dir if which == "parity" else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        art = run_campaign(spec, telemetry=which != "wire", trace_dir=tdir,
+                           device=dev, lanes_out=kept)
+        peak = torch.cuda.max_memory_allocated()
+        counts = _path_launches(kernels, TRACE_LANE_CORE + extra, label,
+                                telemetry=True, entries=TRACE_LANE_ENTRIES)
+        solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+        if solo_on:
+            raise AssertionError(f"{label}: solo entries {solo_on} launched "
+                                 "on a lane path")
+        launches[label] = counts
+        cell = art["cells"][0]
+        traces = kept[0]["traces"]
+        rounds = cell["per_seed"]["rounds"]
+        golden = getattr(goldens, golden_name)
+        got = {"spec_hash": art["spec_hash"],
+               "result_digest": art["result_digest"]}
+        summaries = (cell["telemetry"]["per_seed"] if "telemetry" in cell
+                     else None)
+        print(f"{label}: {json.dumps(got)} wall_clock_s="
+              f"{cell['wall_clock_s']} round_path={cell['round_path']} "
+              f"rounds={rounds} summaries={json.dumps(summaries)}",
+              flush=True)
+        if cell["round_path"] != "dense" or any(
+                got[k] != golden[k] for k in got):
+            raise AssertionError(f"{label}: differs from its golden")
+        entry = {"ensemble_wall_s": cell["wall_clock_s"],
+                 "max_memory_allocated_bytes": peak}
+        if which == "broadcast":
+            tel = goldens.BROADCAST_1K_SEEDS8_TELEMETRY
+            lane0 = dict(goldens.BROADCAST_1K_SEED0_TELEMETRY["summary"],
+                         wire_bytes=goldens.BROADCAST_1K_SEED0_TELEMETRY[
+                             "wire_bytes"])
+            if summaries != tel["summaries"] or summaries[0] != lane0:
+                raise AssertionError(f"{label}: lane summaries differ")
+        elif which == "wire":
+            if cell["per_seed"]["wire_bytes"] != golden["wire_bytes"] or (
+                    "telemetry" in cell):
+                raise AssertionError(f"{label}: wire_bytes differ")
+        elif which == "parity":
+            if summaries != goldens.FAULT_PARITY_3NODE_SEEDS8_TELEMETRY[
+                    "summaries"]:
+                raise AssertionError(f"{label}: lane summaries differ")
+            for k, seed in enumerate(spec.seeds):
+                path = _lane_trace_path(trace_dir, spec, 0, seed)
+                with open(path) as f:
+                    lines = [json.loads(line) for line in f]
+                head = lines[0]
+                want_rows = trace_rows(lane_trace(traces, k), rounds[k],
+                                       spec.sim_config({}))
+                if (head["summary"] != summaries[k] or head["seed"] != seed
+                        or head["spec_hash"] != art["spec_hash"]
+                        or lines[1:] != want_rows):
+                    raise AssertionError(f"{label}: {path} differs")
+            print(f"{label}: {len(spec.seeds)} flight-recorder files under "
+                  f"{trace_dir} equal to the lanes' rows", flush=True)
+        elif which == "dense100k":
+            solo0 = goldens.DENSE_FAULT_STORM_100K_SEED0_TELEMETRY
+            wants = [dict(solo0["summary"],
+                          wire_bytes=solo0["wire_bytes"])] + list(
+                goldens.DENSE_FAULT_STORM_100K_SEEDS8_TELEMETRY[
+                    "summaries"])
+            entry["wire_bytes_worst_relative_gap"] = max(
+                _wire_within(g, w, r, f"{label} lane {k}", 300_000, 512)
+                for k, (g, w, r) in enumerate(zip(summaries, wants, rounds)))
+        elif which == "partial4096":
+            want = goldens.SWIM_CHURN_PARTIAL_4096_SEED0_TELEMETRY
+            lane0 = {"summary": summaries[0],
+                     "trace_digest": trace_digest(lane_trace(traces, 0),
+                                                  rounds[0])}
+            if lane0 != want:
+                raise AssertionError(f"{label}: lane 0 {lane0} != {want}")
+        solos = solos_of.get("broadcast") if which == "wire" else None
+        if solos is None:
+            solos = _solo_traces(spec, dev)
+        if [r for r, _, _ in solos] != rounds:
+            raise AssertionError(f"{label}: rounds differ from the solos'")
+        _lanes_equal_solo_traces(traces, solos, label)
+        if which == "broadcast":
+            solos_of[which] = solos
+        walls = [w for _, _, w in solos]
+        entry.update(solo_walls_s=walls, solo_walls_sum_s=sum(walls))
+        print(f"{label}: every lane's trace equal to its solo telemetry run; "
+              f"ensemble wall {cell['wall_clock_s']} s against the solo "
+              f"walls' sum {sum(walls):.4f} s; max_memory_allocated {peak} "
+              "bytes", flush=True)
+        if which != "wire":
+            _trap(f"lane trace 7 {which}", "lanes that finish in different "
+                  "rounds leave with their traces (rows past each exit "
+                  "zero, equal to the solo run's)", len(set(rounds)) > 1)
+        del kept, traces
+        numbers[label] = entry
+        _lap(label)
+    return launches, numbers
 
 
 _START = time.monotonic()
@@ -7218,12 +8128,17 @@ DETECT_ROWS = ("detect_full", "detect_partial", "detect_full_lanes",
                "detect_partial_lanes")
 
 
-def _path_launches(kernels, rows, label, telemetry=False):
+def _path_launches(kernels, rows, label, telemetry=False, entries=()):
     """Read every entry point's launch count after a path ran from 0,
-    require each entry of ``rows``' kernels to have launched — and no
-    entry of K23 unless ``rows`` names it, nor, without ``telemetry``,
-    of the flight recorder's kernels — and return the counts of every
-    kernel row."""
+    require each entry of ``rows``' kernels, and each kernel named in
+    ``entries``, to have launched — and no entry of K23 unless ``rows``
+    names it, nor, without ``telemetry``, of the flight recorder's
+    kernels — and return the counts of every kernel row."""
+    named = {kern.name: kern for kern in kernels.KERNELS}
+    for name in entries:
+        if named[name].launches <= 0:
+            raise AssertionError(f"kernel entry {name} never launched on "
+                                 f"the {label} path")
     entries = {kern.name: kern.launches for kern in kernels.KERNELS}
     off = [row for row in kernels.PORTED if row not in rows]
     print(f"{label} launches={json.dumps(entries)} off_path={off}",
@@ -7444,6 +8359,10 @@ def main() -> int:
     print("kernel comparisons equal at the 8-lane dense fault paths' shapes",
           flush=True)
     _lap("dense fault lane kernel comparisons")
+    trace_lane_rows = compare_dense_lane_trace_kernels(dev)
+    print("kernel comparisons equal for the recorder on the dense lanes",
+          flush=True)
+    _lap("recorder lane kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -8311,6 +9230,14 @@ def main() -> int:
     print("dense fault ensemble numbers: " + json.dumps(
         dense_fault_lane_numbers), flush=True)
     _lap("paths 41-45, the dense fault ensembles")
+    # paths 46-50: the flight recorder on the dense round's lanes; the
+    # per-lane flight-recorder JSONL goes under flight_recorder_out/
+    # (gitignored)
+    trace_lane_launches, trace_lane_numbers = trace_ensemble_paths(
+        dev, goldens, "flight_recorder_out")
+    print("recording ensemble numbers: " + json.dumps(trace_lane_numbers),
+          flush=True)
+    _lap("paths 46-50, the recorder on the dense lanes")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -8350,9 +9277,15 @@ def main() -> int:
         for lanes_ in (ENSEMBLE_LANES, None):
             print("profile_dense_ensemble: " + json.dumps(
                 profile_dense_path(dev, which, lanes_)), flush=True)
-    # the 8-lane dense fault round beside its solo round, in one process
-    print("profile_dense_fault_ensemble: " + json.dumps(
-        profile_dense_fault_lanes(dev)), flush=True)
+    # the 8-lane dense fault round without and with the recorder beside
+    # its solo round, in one process
+    for tel_ in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_dense_fault_lanes(dev, telemetry=tel_)
+        prof["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        print("profile_dense_fault_ensemble: " + json.dumps(prof),
+              flush=True)
     print("profile_dense_fault_ensemble: " + json.dumps(
         profile_dense_fault(dev)), flush=True)
 
@@ -8514,6 +9447,24 @@ def main() -> int:
             label: c[row["kernel"]]
             for label, c in dense_fault_lane_launches.items()}
     rows += dense_fault_lane_rows
+    # each recorder lane row reads its launches on the path whose shapes
+    # it was compared at
+    trace_lane_path = {
+        "dense_broadcast_lanes_trace": "broadcast_1k_seeds8_telemetry",
+        "dense_sync_delay_lanes_trace":
+            "dense_latency_storm_100k_seeds8_telemetry",
+        "fault_edges_delay_lanes_count":
+            "dense_latency_storm_100k_seeds8_telemetry",
+        "fault_edges_matrix_lanes_count": "fault_parity_3node_telemetry"}
+    for row in trace_lane_rows:
+        path = trace_lane_path.get(row["kernel"],
+                                   "dense_fault_storm_100k_seeds8_telemetry")
+        row["launches"] = trace_lane_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]]
+            for label, c in trace_lane_launches.items()}
+    rows += trace_lane_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

@@ -23,13 +23,24 @@ reporting ``round_path: "dense"`` and the plan's horizon as JAX does —
 and detect cells (``detect_membership``: configs #2/#2b, the detect loop
 on lanes, banding ``detect_round`` with JAX's per-lane detection
 quality).  A detect cell is refused with JAX's ValueErrors for what it
-cannot measure.  The rest raises NotImplementedError, naming its
-ROADMAP item: the recorder and the churn key on lanes (``measure_wire``,
-``telemetry``, ``churn``) and matrix or latency plans on the packed
-round's lanes are B16d, a mesh is A13, host-serving cells and host
-parity are host tier (not queued).  The cell's
-``traceparent`` and its span tree belong to the host tracing tier and
-are left out (the digest excludes them).
+cannot measure.
+
+The flight recorder runs on every cell that resolves to the dense round
+or the detect loop (B16r): ``telemetry`` (the argument, the spec's key,
+or ``trace_dir``) gives each cell JAX's ``telemetry`` block, one
+`..sim.telemetry.trace_summary` a lane, and with ``trace_dir`` one
+flight-recorder JSONL a lane under JAX's file name
+(`_lane_trace_path`) and header; a ``measure_wire`` cell arms the
+recorder itself and bands each lane's ``wire_bytes``, the broadcast
+and sync byte channels' host sums, exactly as JAX computes them — part
+of the result digest.  On the packed round's lanes the recorder raises
+naming ROADMAP B16m (`..sim.lanes.check_packed_lanes`).  The rest
+raises NotImplementedError, naming its ROADMAP item: the churn key on
+lanes and matrix or latency plans on the packed round's lanes are
+B16d, a mesh is A13, host-serving cells and host parity are host tier
+(not queued).  The cell's ``traceparent`` and its span tree belong to
+the host tracing tier and are left out (the digest excludes them; a
+flight-recorder header carries ``traceparent: None``).
 """
 
 from __future__ import annotations
@@ -58,8 +69,7 @@ def _percentile_lower(arr: np.ndarray, q: float):
     return float(np.percentile(valid, q, method="lower"))
 
 
-def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg,
-            telemetry: bool) -> None:
+def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
     """The cells the engine does not run.  First JAX's own ValueErrors
     (``engine.py:190-231``), word for word: what a detect cell, or a
     wire measurement, cannot measure.  Then the port's
@@ -103,10 +113,6 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg,
         raise NotImplementedError(
             "host_parity replays a plan on the host agent tier, which the "
             "port does not carry (ROADMAP A, not queued)")
-    if telemetry or measure_wire:
-        raise NotImplementedError(
-            "telemetry and measure_wire cells (the recorder's lanes, "
-            "K17-K19) are not ported yet (ROADMAP B16d)")
     if spec._meta(cell, "churn"):
         raise NotImplementedError(
             "the churn key on lanes is not ported yet (ROADMAP B16d)")
@@ -127,7 +133,9 @@ def _membership_lane_stats(finals, cfg) -> Dict[str, List]:
 def _run_cell(
     spec: CampaignSpec,
     cell: Dict[str, object],
+    cell_index: int = 0,
     telemetry: bool = False,
+    trace_dir: Optional[str] = None,
     mesh_devices: Optional[int] = None,
     device="cuda",
     lanes_out: Optional[Dict[str, object]] = None,
@@ -136,9 +144,13 @@ def _run_cell(
     ensemble, reduced to per-seed records and cross-seed bands (JAX
     ``engine.py:106 _run_cell``, sim and detect cells).  A detect cell
     runs `.ensemble.run_detect_ensemble` and bands ``detect_round`` per
-    seed, None for a lane that never detected.  With ``lanes_out`` the
-    cell's stacked finals and metrics (and a detect cell's detect
-    rounds) are stored in it."""
+    seed, None for a lane that never detected.  ``telemetry`` or a
+    ``measure_wire`` cell runs the recorder on the lanes: the latter
+    bands each lane's ``wire_bytes``, the former adds the ``telemetry``
+    block (`_cell_telemetry`, with ``trace_dir`` the per-lane JSONL).
+    With ``lanes_out`` the cell's stacked finals and metrics (a detect
+    cell's detect rounds, a recording cell's stacked traces) are stored
+    in it."""
     from ..device import resolve_device
     from ..sim.perf import analytic_min_round_s
     from ..sim.state import ALIVE, packed_supported, uniform_payloads
@@ -150,28 +162,38 @@ def _run_cell(
 
     dev = resolve_device(device)
     cfg = spec.sim_config(cell) if not spec.serving(cell) else None
-    _refuse(spec, cell, cfg, telemetry)
+    _refuse(spec, cell, cfg)
     topo = spec.topo(cell)
     meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every(cell))
     detect = spec.detect_membership(cell)
+    # measure_wire arms the recorder itself: its wire totals are banded
+    # and digested whether or not telemetry was asked for (JAX's rule)
+    measure_wire = spec.measure_wire(cell)
+    run_telemetry = bool(telemetry or measure_wire)
     plan = None if detect else spec.fault_plan(cell, seed=spec.seeds[0])
     round_path = "packed" if packed_supported(cfg, topo) else "dense"
     mesh = ensemble_mesh(cfg, mesh_devices)
     n_devices = 1
 
     k = len(spec.seeds)
+    traces = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.monotonic()
     if detect:
-        finals, metrics, detect_rounds = run_detect_ensemble(
+        out = run_detect_ensemble(
             cfg, topo, meta, spec.seeds, kill_every=spec.kill_every(cell),
-            max_rounds=spec.max_rounds, mesh=mesh, device=dev)
+            max_rounds=spec.max_rounds, telemetry=run_telemetry, mesh=mesh,
+            device=dev)
+        finals, metrics, detect_rounds = out[:3]
     else:
-        finals, metrics = run_seed_ensemble(
+        out = run_seed_ensemble(
             plan, cfg, topo, meta, spec.seeds, max_rounds=spec.max_rounds,
-            mesh=mesh, device=dev,
+            telemetry=run_telemetry, mesh=mesh, device=dev,
         )
+        finals, metrics = out[:2]
+    if run_telemetry:
+        traces = out[-1]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     finals.have[0, 0, 0].item()  # a real host read
@@ -180,6 +202,8 @@ def _run_cell(
         lanes_out.update(finals=finals, metrics=metrics)
         if detect:
             lanes_out["detect_rounds"] = detect_rounds
+        if traces is not None:
+            lanes_out["traces"] = traces
 
     rounds = finals.t.cpu().numpy()  # [K]
     alive = finals.alive.cpu().numpy()  # [K, N]
@@ -208,13 +232,28 @@ def _run_cell(
                 _percentile_lower(node_conv[i], 99) for i in range(k)
             ],
         }
+        if measure_wire:
+            # each lane's broadcast + sync bytes from its host rows, as
+            # JAX sums them (numpy f32 sums, rounded to 0.1); the host
+            # dicts then stand in for the traces, one copy a lane
+            from ..sim.telemetry import lane_trace, trace_host
+
+            every = max(int(cfg.trace_every), 1)
+            wire, hosts = [], []
+            for i in range(k):
+                h = trace_host(lane_trace(traces, i), int(rounds[i]), every)
+                hosts.append(h)
+                wire.append(round(float(h["bcast_bytes"].sum())
+                                  + float(h["sync_bytes"].sum()), 1))
+            per_seed["wire_bytes"] = wire
+            traces = hosts
     cell_bands = {
         m: bands(per_seed[m]) for m in BAND_METRICS if m in per_seed
     }
     executed = int(rounds.max()) if k else 0
     floor = executed * k * analytic_min_round_s(cfg, n_devices)
     verdict = WALL_OK if wall >= floor else WALL_VIOLATED
-    return {
+    result = {
         "params": dict(cell),
         "n_nodes": cfg.n_nodes,
         "n_payloads": cfg.n_payloads,
@@ -230,6 +269,52 @@ def _run_cell(
         "wall_defensible_s": round(max(wall, floor), 4),
         "wall_verdict": verdict,
     }
+    if traces is not None and telemetry:
+        # the block follows the telemetry argument (a run config, out of
+        # the digest); a measure_wire-only run recorded for wire_bytes
+        result["telemetry"] = _cell_telemetry(spec, cell_index, traces,
+                                              rounds, cfg, trace_dir)
+    return result
+
+
+def _cell_telemetry(spec: CampaignSpec, cell_index: int, traces, rounds,
+                    cfg, trace_dir: Optional[str]) -> Dict[str, object]:
+    """The cell's flight-recorder export (JAX ``engine.py:649``): one
+    `..sim.telemetry.trace_summary` a lane for the artifact and, with
+    ``trace_dir``, one JSONL a lane (`_lane_trace_path`) with JAX's
+    header; ``traces`` is the stacked lane trace or, on a measure_wire
+    cell, the lanes' host dicts already made."""
+    from ..sim.telemetry import (
+        lane_trace, trace_host, trace_summary, write_flight_jsonl)
+
+    summaries = []
+    for i, seed in enumerate(spec.seeds):
+        lane = traces[i] if isinstance(traces, list) else lane_trace(
+            traces, i)
+        r = int(rounds[i])
+        host = trace_host(lane, r)
+        summaries.append(trace_summary(host, r, cfg))
+        if trace_dir:
+            os.makedirs(trace_dir, exist_ok=True)
+            write_flight_jsonl(
+                _lane_trace_path(trace_dir, spec, cell_index, seed), host, r,
+                cfg, header={
+                    "campaign": spec.name,
+                    "spec_hash": spec.spec_hash(),
+                    "cell_index": cell_index,
+                    "seed": int(seed),
+                    "traceparent": None,
+                })
+    return {"per_seed": summaries}
+
+
+def _lane_trace_path(trace_dir: str, spec: CampaignSpec, cell_index: int,
+                     seed) -> str:
+    """One flight-recorder JSONL a (cell, lane), JAX's name: the one
+    naming scheme of the writer (`_cell_telemetry`) and the resume check
+    (`_cached_cell_satisfies`)."""
+    return os.path.join(
+        trace_dir, f"{spec.name}_cell{cell_index}_seed{int(seed)}.jsonl")
 
 
 def _load_artifact(path: str, spec_hash: str) -> Optional[Dict]:
@@ -253,11 +338,23 @@ def _write_artifact(path: str, artifact: Dict) -> None:
     os.replace(tmp, path)  # atomic: a killed run never corrupts
 
 
-def _cached_cell_satisfies(telemetry: bool) -> bool:
-    """A cached cell is reused unless this run asks for the recorder (JAX's
-    rule: a cached cell lacks a telemetry block, and telemetry cells are
-    B16d here, so such a run re-runs the cell and refuses it)."""
-    return not telemetry
+def _cached_cell_satisfies(cached: Dict, spec: CampaignSpec,
+                           cell_index: int, telemetry: bool,
+                           trace_dir: Optional[str]) -> bool:
+    """Resume reuses a cached cell only when it carries what this run
+    asks for (JAX's rule): the telemetry block, and under ``trace_dir``
+    every lane's flight-recorder JSONL on disk; otherwise the cell runs
+    again (a recording run's digest is the plain run's)."""
+    if not telemetry:
+        return True
+    if "telemetry" not in cached:
+        return False
+    if trace_dir:
+        for seed in spec.seeds:
+            if not os.path.exists(
+                    _lane_trace_path(trace_dir, spec, cell_index, seed)):
+                return False
+    return True
 
 
 def _artifact(spec, spec_hash, results, skipped, t0) -> Dict:
@@ -287,10 +384,11 @@ def run_campaign(
     of the same spec hash resumes from it; ``wall_budget_s`` stops
     starting cells once spent (the rest land in ``skipped_cells``);
     ``telemetry`` None defers to the spec, and ``trace_dir`` asks for it
-    (both are B16d: a cell that would record is refused).  With
+    and writes one flight-recorder JSONL a (cell, lane) there.  With
     ``lanes_out`` (a dict, the port's own) each cell that runs stores
-    its lanes' stacked finals and metrics (and a detect cell's detect
-    rounds) under its cell index, for digests and checks."""
+    its lanes' stacked finals and metrics (a detect cell's detect
+    rounds, a recording cell's traces) under its cell index, for digests
+    and checks."""
     if telemetry is None:
         telemetry = spec.telemetry
     if trace_dir:
@@ -307,16 +405,17 @@ def run_campaign(
     results: List[Dict] = []
     skipped: List[int] = []
     for i, cell in enumerate(cells):
-        if i in done and _cached_cell_satisfies(telemetry):
+        if i in done and _cached_cell_satisfies(done[i], spec, i, telemetry,
+                                                trace_dir):
             results.append(done[i])
             continue
         if wall_budget_s is not None and time.monotonic() - t0 > wall_budget_s:
             skipped.append(i)
             continue
         kept = None if lanes_out is None else lanes_out.setdefault(i, {})
-        res = _run_cell(spec, cell, telemetry=telemetry,
-                        mesh_devices=mesh_devices, device=device,
-                        lanes_out=kept)
+        res = _run_cell(spec, cell, cell_index=i, telemetry=telemetry,
+                        trace_dir=trace_dir, mesh_devices=mesh_devices,
+                        device=device, lanes_out=kept)
         res["cell_index"] = i
         results.append(res)
         if out_path:

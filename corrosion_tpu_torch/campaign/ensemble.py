@@ -20,9 +20,12 @@ solo run of seed k:
 
 Fault plans run on both rounds' lanes: of either form, with delay and
 jitter, on the dense round's; factored and without latency on the
-packed round's (matrix and latency plans there, and the recorder on
-lanes, are ROADMAP B16d; a mesh is A13).  Each refusal raises, naming
-its item.
+packed round's (matrix and latency plans there are ROADMAP B16x and
+B16l; a mesh is A13).  The flight recorder (``telemetry``) runs on the
+dense round's lanes and the detect loop's (B16r): each lane records its
+own trace, equal to its solo run's, and the stacked traces come back
+last, as JAX's vmapped recorder returns them; on the packed round's
+lanes it is ROADMAP B16m.  Each refusal raises, naming its item.
 """
 
 from __future__ import annotations
@@ -105,23 +108,17 @@ def run_ensemble(
     (`..sim.dense_lanes.run_dense_lanes`); under ``fplan`` (shared) the
     round's fault loop, each lane re-seeded by ``plan_seeds`` (i32[K];
     None: every lane keeps the plan's seed).  Returns the stacked final
-    (SimState, RunMetrics), ``t`` i32[K]."""
+    (SimState, RunMetrics), ``t`` i32[K], and with ``telemetry`` the
+    lanes' stacked `..sim.telemetry.RoundTrace` third (the dense round;
+    the packed round's lanes refuse it, ROADMAP B16m)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh × lane batching is not ported yet (ROADMAP A13)")
-    if telemetry:
-        _no_telemetry()
     if packed_supported(cfg, topo):
         return run_lanes(states, meta, cfg, topo, max_rounds, fplan,
-                         plan_seeds)
+                         plan_seeds, telemetry)
     return run_dense_lanes(states, meta, cfg, topo, max_rounds, fplan,
-                           plan_seeds)
-
-
-def _no_telemetry():
-    raise NotImplementedError(
-        "the flight recorder on lanes is not ported yet (K17-K19 lanes, "
-        "ROADMAP B16d)")
+                           plan_seeds, telemetry)
 
 
 def run_seed_ensemble(
@@ -136,19 +133,18 @@ def run_seed_ensemble(
     device="cuda",
 ):
     """Seeds → stacked states (and, under a plan, the compiled plan and
-    the per-lane plan seeds) → one lane-batched run."""
-    if telemetry:
-        _no_telemetry()
+    the per-lane plan seeds) → one lane-batched run; with ``telemetry``
+    the stacked traces come back last."""
     dev = resolve_device(device)
     states = seed_states(cfg, seeds, dev)
     if plan is None:
         return run_ensemble(states, meta, cfg, topo, max_rounds=max_rounds,
-                            mesh=mesh)
+                            telemetry=telemetry, mesh=mesh)
     fplan = compile_plan(plan, cfg, topo, device=dev)
     return run_ensemble(
         states, meta, cfg, topo, fplan=fplan,
         plan_seeds=lane_plan_seeds(seeds, dev), max_rounds=max_rounds,
-        mesh=mesh,
+        telemetry=telemetry, mesh=mesh,
     )
 
 
@@ -168,14 +164,12 @@ def run_detect_ensemble(
     node at t = 0 on every lane, then the detect loop on lanes
     (`..sim.telemetry.run_membership_detect_lanes`), which drops each
     lane once it detects.  Returns (finals, metrics, detect_rounds
-    i32[K]); the recorder on lanes is ROADMAP B16d."""
+    i32[K]), and with ``telemetry`` the lanes' stacked traces fourth."""
     from ..sim.telemetry import run_membership_detect_lanes
 
     if mesh is not None:
         raise NotImplementedError(
             "mesh × lane batching is not ported yet (ROADMAP A13)")
-    if telemetry:
-        _no_telemetry()
     dev = resolve_device(device)
     states = seed_states(cfg, seeds, dev)
     if kill_every:
@@ -184,4 +178,4 @@ def run_detect_ensemble(
         states = states._replace(
             alive=alive.expand(states.alive.shape).contiguous())
     return run_membership_detect_lanes(states, meta, cfg, topo, max_rounds,
-                                       device=dev)
+                                       telemetry=telemetry, device=dev)

@@ -439,6 +439,20 @@ def broadcast_seeds_spec(seeds: Sequence[int] = tuple(range(8))
     )
 
 
+def broadcast_wire_seeds_spec(seeds: Sequence[int] = tuple(range(8))
+                              ) -> CampaignSpec:
+    """`broadcast_seeds_spec` with ``measure_wire`` (B16r): the same cell
+    that also bands each lane's ``wire_bytes``, the broadcast and sync
+    byte channels of its flight recorder — ``broadcast-1k-seeds8-wire``
+    at the default.  Every payload is 8 KiB and every round's bytes stay
+    under 2^37, so both packages' f32 sums are exact and the digest is
+    JAX's bit for bit."""
+    spec = broadcast_seeds_spec(seeds)
+    return dataclasses.replace(
+        spec, name=f"{spec.name}-wire",
+        scenario=dict(spec.scenario, measure_wire=1))
+
+
 # -- builtin specs (JAX ``spec.py:481-791``, as data) -------------------------
 
 

@@ -17,7 +17,11 @@ the same runs' flight-recorder summaries and per-round byte channels;
 ``tests/test_torch_telemetry.py`` holds the 3-node and broadcast-1k ones
 against live JAX.  The protocol axis's entries at the end carry the
 run's ``order_violations`` too; ``tests/test_torch_proto_runs.py`` holds
-them against live JAX under ``-m slow``.
+them against live JAX under ``-m slow``.  The recorder's lane entries at
+the end (B16r) are live JAX's recording campaigns' per-lane summaries
+and the wire cell's ``wire_bytes``;
+``tests/test_torch_dense_lane_telemetry.py`` holds them against live JAX
+(the 3-node ones in tier 1, the rest under ``-m slow``).
 """
 
 # _write_storm(512, 256) with packed_min_cells=0, seed 7
@@ -1459,3 +1463,492 @@ DENSE_LATENCY_STORM_100K_SEEDS8 = {
          "digest": "07ee4703d6477de0"},
     ],
 }
+
+
+# -- the flight recorder on the dense round's lanes (B16r), from live JAX ---
+
+# run_campaign(broadcast_seeds_spec(), telemetry=True): each lane's
+# telemetry summary (every payload 8 KiB: the byte totals exact on both
+# sides); lane 0 is BROADCAST_1K_SEED0_TELEMETRY's, the digest
+# BROADCAST_1K_SEEDS8's
+BROADCAST_1K_SEEDS8_TELEMETRY = {'summaries': [{'rounds': 73,
+                'coverage_curve_digest': 'fec8534fa9d5bc23',
+                'coverage_latency_rounds': {'p50': 38.0,
+                                            'p95': 67.0,
+                                            'p99': 69.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 54141493248.0,
+                               'sync': 614440960.0,
+                               'per_round_mean': 750081290.5},
+                'wire_frames': {'broadcast': 6609069,
+                                'sync': 75005},
+                'fault': {'dropped_frames': 0,
+                          'cut_edges': 0,
+                          'refused_sessions': 0,
+                          'crash_node_rounds': 0,
+                          'wipes': 0},
+                'sync_sessions': 37644,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 71,
+                'coverage_curve_digest': 'f0c6b4b9b36dfebe',
+                'coverage_latency_rounds': {'p50': 38.0,
+                                            'p95': 67.0,
+                                            'p99': 69.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 53221761024.0,
+                               'sync': 613834752.0,
+                               'per_round_mean': 758247827.8},
+                'wire_frames': {'broadcast': 6496797,
+                                'sync': 74931},
+                'fault': {'dropped_frames': 0,
+                          'cut_edges': 0,
+                          'refused_sessions': 0,
+                          'crash_node_rounds': 0,
+                          'wipes': 0},
+                'sync_sessions': 36936,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 70,
+                'coverage_curve_digest': 'dc268b75943bffb9',
+                'coverage_latency_rounds': {'p50': 38.0,
+                                            'p95': 67.0,
+                                            'p99': 69.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 52571111424.0,
+                               'sync': 620699648.0,
+                               'per_round_mean': 759883015.3},
+                'wire_frames': {'broadcast': 6417372,
+                                'sync': 75769},
+                'fault': {'dropped_frames': 0,
+                          'cut_edges': 0,
+                          'refused_sessions': 0,
+                          'crash_node_rounds': 0,
+                          'wipes': 0},
+                'sync_sessions': 36384,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 70,
+                'coverage_curve_digest': '5269870630b66ba2',
+                'coverage_latency_rounds': {'p50': 38.0,
+                                            'p95': 67.0,
+                                            'p99': 69.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 52543463424.0,
+                               'sync': 623075328.0,
+                               'per_round_mean': 759521982.2},
+                'wire_frames': {'broadcast': 6413997,
+                                'sync': 76059},
+                'fault': {'dropped_frames': 0,
+                          'cut_edges': 0,
+                          'refused_sessions': 0,
+                          'crash_node_rounds': 0,
+                          'wipes': 0},
+                'sync_sessions': 36354,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 70,
+                'coverage_curve_digest': '3f613d57c293420d',
+                'coverage_latency_rounds': {'p50': 38.0,
+                                            'p95': 67.0,
+                                            'p99': 69.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 52614537216.0,
+                               'sync': 610500608.0,
+                               'per_round_mean': 760357683.2},
+                'wire_frames': {'broadcast': 6422673,
+                                'sync': 74524},
+                'fault': {'dropped_frames': 0,
+                          'cut_edges': 0,
+                          'refused_sessions': 0,
+                          'crash_node_rounds': 0,
+                          'wipes': 0},
+                'sync_sessions': 36363,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 70,
+                'coverage_curve_digest': '3491d97d6abc236d',
+                'coverage_latency_rounds': {'p50': 39.0,
+                                            'p95': 67.0,
+                                            'p99': 69.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 52585611264.0,
+                               'sync': 609755136.0,
+                               'per_round_mean': 759933805.7},
+                'wire_frames': {'broadcast': 6419142,
+                                'sync': 74433},
+                'fault': {'dropped_frames': 0,
+                          'cut_edges': 0,
+                          'refused_sessions': 0,
+                          'crash_node_rounds': 0,
+                          'wipes': 0},
+                'sync_sessions': 36435,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 70,
+                'coverage_curve_digest': '9423286a5255a5f2',
+                'coverage_latency_rounds': {'p50': 38.0,
+                                            'p95': 67.0,
+                                            'p99': 69.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 52568948736.0,
+                               'sync': 616202240.0,
+                               'per_round_mean': 759787871.1},
+                'wire_frames': {'broadcast': 6417108,
+                                'sync': 75220},
+                'fault': {'dropped_frames': 0,
+                          'cut_edges': 0,
+                          'refused_sessions': 0,
+                          'crash_node_rounds': 0,
+                          'wipes': 0},
+                'sync_sessions': 36294,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 71,
+                'coverage_curve_digest': '565270076a930460',
+                'coverage_latency_rounds': {'p50': 37.0,
+                                            'p95': 67.0,
+                                            'p99': 69.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 53216256000.0,
+                               'sync': 622239744.0,
+                               'per_round_mean': 758288672.5},
+                'wire_frames': {'broadcast': 6496125,
+                                'sync': 75957},
+                'fault': {'dropped_frames': 0,
+                          'cut_edges': 0,
+                          'refused_sessions': 0,
+                          'crash_node_rounds': 0,
+                          'wipes': 0},
+                'sync_sessions': 37110,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0}]}
+
+# run_campaign(broadcast_wire_seeds_spec()): the measure_wire cell; each
+# lane's wire_bytes is part of the digest
+BROADCAST_1K_SEEDS8_WIRE = {'spec_hash': '2690ea2bea8603a0',
+ 'result_digest': '3cbdfa5126788ca0a5013113bd1c1fce',
+ 'wire_bytes': [54755934208.0,
+                53835595776.0,
+                53191811072.0,
+                53166538752.0,
+                53225037824.0,
+                53195366400.0,
+                53185150976.0,
+                53838495744.0]}
+
+# run_campaign(builtin_spec("fault-parity-3node"), telemetry=True): each
+# lane's telemetry summary; the digest is FAULT_PARITY_3NODE_SEEDS8's
+FAULT_PARITY_3NODE_SEEDS8_TELEMETRY = {'summaries': [{'rounds': 45,
+                'coverage_curve_digest': 'e16753fa47d44bad',
+                'coverage_latency_rounds': {'p50': 6.0,
+                                            'p95': 13.0,
+                                            'p99': 13.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 4505600.0,
+                               'sync': 212992.0,
+                               'per_round_mean': 104857.6},
+                'wire_frames': {'broadcast': 550,
+                                'sync': 26},
+                'fault': {'dropped_frames': 222,
+                          'cut_edges': 12,
+                          'refused_sessions': 2,
+                          'crash_node_rounds': 10,
+                          'wipes': 1},
+                'sync_sessions': 28,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 50,
+                'coverage_curve_digest': '51f970bc8910f58b',
+                'coverage_latency_rounds': {'p50': 7.0,
+                                            'p95': 12.0,
+                                            'p99': 12.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 4612096.0,
+                               'sync': 253952.0,
+                               'per_round_mean': 97321.0},
+                'wire_frames': {'broadcast': 563,
+                                'sync': 31},
+                'fault': {'dropped_frames': 225,
+                          'cut_edges': 12,
+                          'refused_sessions': 4,
+                          'crash_node_rounds': 10,
+                          'wipes': 1},
+                'sync_sessions': 28,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 37,
+                'coverage_curve_digest': '2e9bfb46ef0c8db8',
+                'coverage_latency_rounds': {'p50': 7.0,
+                                            'p95': 13.0,
+                                            'p99': 13.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 4472832.0,
+                               'sync': 270336.0,
+                               'per_round_mean': 128193.7},
+                'wire_frames': {'broadcast': 546,
+                                'sync': 33},
+                'fault': {'dropped_frames': 214,
+                          'cut_edges': 12,
+                          'refused_sessions': 3,
+                          'crash_node_rounds': 10,
+                          'wipes': 1},
+                'sync_sessions': 25,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 42,
+                'coverage_curve_digest': 'c855d9c5eb964f96',
+                'coverage_latency_rounds': {'p50': 8.0,
+                                            'p95': 11.0,
+                                            'p99': 11.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 4579328.0,
+                               'sync': 303104.0,
+                               'per_round_mean': 116248.4},
+                'wire_frames': {'broadcast': 559,
+                                'sync': 37},
+                'fault': {'dropped_frames': 228,
+                          'cut_edges': 12,
+                          'refused_sessions': 4,
+                          'crash_node_rounds': 10,
+                          'wipes': 1},
+                'sync_sessions': 28,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 45,
+                'coverage_curve_digest': 'fffa460fb1bfa969',
+                'coverage_latency_rounds': {'p50': 7.0,
+                                            'p95': 13.0,
+                                            'p99': 13.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 4734976.0,
+                               'sync': 319488.0,
+                               'per_round_mean': 112321.4},
+                'wire_frames': {'broadcast': 578,
+                                'sync': 39},
+                'fault': {'dropped_frames': 256,
+                          'cut_edges': 12,
+                          'refused_sessions': 2,
+                          'crash_node_rounds': 10,
+                          'wipes': 1},
+                'sync_sessions': 35,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 41,
+                'coverage_curve_digest': '9b9120fdcbfc5db7',
+                'coverage_latency_rounds': {'p50': 8.0,
+                                            'p95': 11.0,
+                                            'p99': 11.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 4358144.0,
+                               'sync': 245760.0,
+                               'per_round_mean': 112290.3},
+                'wire_frames': {'broadcast': 532,
+                                'sync': 30},
+                'fault': {'dropped_frames': 227,
+                          'cut_edges': 10,
+                          'refused_sessions': 6,
+                          'crash_node_rounds': 10,
+                          'wipes': 1},
+                'sync_sessions': 30,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 46,
+                'coverage_curve_digest': '1d66e948a175a690',
+                'coverage_latency_rounds': {'p50': 8.0,
+                                            'p95': 12.0,
+                                            'p99': 12.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 4472832.0,
+                               'sync': 262144.0,
+                               'per_round_mean': 102934.3},
+                'wire_frames': {'broadcast': 546,
+                                'sync': 32},
+                'fault': {'dropped_frames': 234,
+                          'cut_edges': 11,
+                          'refused_sessions': 4,
+                          'crash_node_rounds': 10,
+                          'wipes': 1},
+                'sync_sessions': 36,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0},
+               {'rounds': 38,
+                'coverage_curve_digest': 'cff48ab98e8cf6db',
+                'coverage_latency_rounds': {'p50': 6.0,
+                                            'p95': 13.0,
+                                            'p99': 13.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 4800512.0,
+                               'sync': 245760.0,
+                               'per_round_mean': 132796.6},
+                'wire_frames': {'broadcast': 586,
+                                'sync': 30},
+                'fault': {'dropped_frames': 249,
+                          'cut_edges': 12,
+                          'refused_sessions': 5,
+                          'crash_node_rounds': 10,
+                          'wipes': 1},
+                'sync_sessions': 28,
+                'swim': {'peak_suspect': 0,
+                         'peak_down': 0},
+                'gap_overflow_rounds': 0}]}
+
+# dense_storm_seeds_spec(seeds=(k,)) with telemetry=True, one seed at a
+# time, k = 1..7: lanes 1-7's summaries (lane 0 is
+# DENSE_FAULT_STORM_100K_SEED0_TELEMETRY); JAX's f32 wire_bytes, which
+# the port's exact totals meet within the f32 bound only
+DENSE_FAULT_STORM_100K_SEEDS8_TELEMETRY = {'summaries': [{'rounds': 29,
+                'coverage_curve_digest': '09f7358c501dbe6c',
+                'coverage_latency_rounds': {'p50': 22.0,
+                                            'p95': 27.0,
+                                            'p99': 28.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 11750311198720.0,
+                               'sync': 102755827712.0,
+                               'per_round_mean': 408726449187.3},
+                'wire_frames': {'broadcast': 1434364097,
+                                'sync': 12543436},
+                'fault': {'dropped_frames': 1025532,
+                          'cut_edges': 1800274,
+                          'refused_sessions': 218427,
+                          'crash_node_rounds': 12,
+                          'wipes': 1},
+                'sync_sessions': 992419,
+                'swim': {'peak_suspect': 297092,
+                         'peak_down': 203768},
+                'gap_overflow_rounds': 0},
+               {'rounds': 29,
+                'coverage_curve_digest': '24d953a7bbd6e150',
+                'coverage_latency_rounds': {'p50': 23.0,
+                                            'p95': 27.0,
+                                            'p99': 28.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 11721210068992.0,
+                               'sync': 102509264896.0,
+                               'per_round_mean': 407714459789.2},
+                'wire_frames': {'broadcast': 1430811883,
+                                'sync': 12513338},
+                'fault': {'dropped_frames': 994011,
+                          'cut_edges': 1801082,
+                          'refused_sessions': 217441,
+                          'crash_node_rounds': 12,
+                          'wipes': 1},
+                'sync_sessions': 994935,
+                'swim': {'peak_suspect': 296711,
+                         'peak_down': 203444},
+                'gap_overflow_rounds': 0},
+               {'rounds': 30,
+                'coverage_curve_digest': 'a3ae42a97d80000e',
+                'coverage_latency_rounds': {'p50': 23.0,
+                                            'p95': 28.0,
+                                            'p99': 28.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 12701529014272.0,
+                               'sync': 102732685312.0,
+                               'per_round_mean': 426808723319.5},
+                'wire_frames': {'broadcast': 1550479548,
+                                'sync': 12540611},
+                'fault': {'dropped_frames': 1046223,
+                          'cut_edges': 1797141,
+                          'refused_sessions': 217623,
+                          'crash_node_rounds': 12,
+                          'wipes': 1},
+                'sync_sessions': 1035603,
+                'swim': {'peak_suspect': 297096,
+                         'peak_down': 250812},
+                'gap_overflow_rounds': 0},
+               {'rounds': 28,
+                'coverage_curve_digest': 'd2055efb5c3b905e',
+                'coverage_latency_rounds': {'p50': 23.0,
+                                            'p95': 27.0,
+                                            'p99': 27.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 10676779089920.0,
+                               'sync': 102526746624.0,
+                               'per_round_mean': 384975208448.0},
+                'wire_frames': {'broadcast': 1303317789,
+                                'sync': 12515472},
+                'fault': {'dropped_frames': 1030816,
+                          'cut_edges': 1799602,
+                          'refused_sessions': 217965,
+                          'crash_node_rounds': 12,
+                          'wipes': 1},
+                'sync_sessions': 947811,
+                'swim': {'peak_suspect': 296553,
+                         'peak_down': 203394},
+                'gap_overflow_rounds': 0},
+               {'rounds': 29,
+                'coverage_curve_digest': '74c4d776ed878c64',
+                'coverage_latency_rounds': {'p50': 23.0,
+                                            'p95': 27.0,
+                                            'p99': 27.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 11748517085184.0,
+                               'sync': 102454484992.0,
+                               'per_round_mean': 408654192075.0},
+                'wire_frames': {'broadcast': 1434145200,
+                                'sync': 12506651},
+                'fault': {'dropped_frames': 1019466,
+                          'cut_edges': 1797261,
+                          'refused_sessions': 217381,
+                          'crash_node_rounds': 12,
+                          'wipes': 1},
+                'sync_sessions': 989564,
+                'swim': {'peak_suspect': 296589,
+                         'peak_down': 203357},
+                'gap_overflow_rounds': 0},
+               {'rounds': 30,
+                'coverage_curve_digest': '34ed216eb1111620',
+                'coverage_latency_rounds': {'p50': 23.0,
+                                            'p95': 27.0,
+                                            'p99': 28.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 12700661841920.0,
+                               'sync': 102223273984.0,
+                               'per_round_mean': 426762837196.8},
+                'wire_frames': {'broadcast': 1550373580,
+                                'sync': 12478427},
+                'fault': {'dropped_frames': 980990,
+                          'cut_edges': 1801291,
+                          'refused_sessions': 218537,
+                          'crash_node_rounds': 12,
+                          'wipes': 1},
+                'sync_sessions': 1029034,
+                'swim': {'peak_suspect': 297158,
+                         'peak_down': 251248},
+                'gap_overflow_rounds': 0},
+               {'rounds': 32,
+                'coverage_curve_digest': '2e8c7e5ed42d80bd',
+                'coverage_latency_rounds': {'p50': 23.0,
+                                            'p95': 27.0,
+                                            'p99': 28.0,
+                                            'uncovered_payloads': 0},
+                'wire_bytes': {'broadcast': 14394081673216.0,
+                               'sync': 102393208832.0,
+                               'per_round_mean': 453014840064.0},
+                'wire_frames': {'broadcast': 1757090146,
+                                'sync': 12499171},
+                'fault': {'dropped_frames': 1007705,
+                          'cut_edges': 1800190,
+                          'refused_sessions': 218464,
+                          'crash_node_rounds': 12,
+                          'wipes': 1},
+                'sync_sessions': 1108840,
+                'swim': {'peak_suspect': 296788,
+                         'peak_down': 297097},
+                'gap_overflow_rounds': 0}]}

@@ -135,6 +135,24 @@ replaces:
   horizon.  K9's and K9m's edge queries and K9's latency entry draw
   nothing and take the lanes folded into their edge axis.
 
+- the flight recorder on the dense round's lanes (B16r, dense half;
+  `TRACE_LANE_ROWS`, one row a kernel, counted apart): K17's dense lane
+  entry `TRACE_COVERAGE_DENSE_LANES` — `sim.telemetry.
+  coverage_delivered_dense_lanes_`; K18's rows lane entry
+  `TRACE_WIRE_ROWS_LANES` — `sim.telemetry.wire_rows_lanes_`; K19's lane
+  entry `TRACE_ROW_LANES` (a ticket a lane) — `sim.telemetry.
+  record_row_lanes`; the recording forms of launchers that take the
+  recorder's outputs on lanes: K12's `DENSE_BROADCAST_LANES_TRACE`, K12f's
+  `DENSE_BROADCAST_FAULT_LANES_TRACE` (frames and bytes a row, dropped
+  frames a lane) — `sim.dense_lanes.broadcast_send_lanes`; K13's
+  `DENSE_SYNC_LANES_TRACE`, K13d's `DENSE_SYNC_DELAY_LANES_TRACE` (grant
+  counts a lane) — `sim.dense_lanes.sync_pull_dense_lanes`; K9's
+  `FAULT_EDGES_LANES_COUNT`, its latency entry's
+  `FAULT_EDGES_DELAY_LANES_COUNT` and K9m's
+  `FAULT_EDGES_MATRIX_LANES_COUNT` (cut and refused counts a lane, the
+  lanes folded) — `sim.faults.fault_wire_effects`,
+  `fault_session_effects`, `fault_session_refused` with a ``[K]`` count.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -181,7 +199,7 @@ WORD_DELIVER = Kernel(
 )
 
 FAULT_EDGES = Kernel(
-    "fault_edges", "fault_edges.cu", "corro_fault_edges", 11
+    "fault_edges", "fault_edges.cu", "corro_fault_edges", 13
 )
 FAULT_REACH = Kernel("fault_reach", "fault_edges.cu", "corro_fault_reach", 8)
 NODE_FAULTS = Kernel("node_faults", "node_faults.cu", "corro_node_faults", 8)
@@ -234,7 +252,7 @@ TRACE_WIRE_ROWS = Kernel(
 TRACE_ROW = Kernel("trace_row", "trace_row.cu", "corro_trace_row", 6)
 
 FAULT_EDGES_DELAY = Kernel(
-    "fault_edges_delay", "fault_edges.cu", "corro_fault_edges", 11
+    "fault_edges_delay", "fault_edges.cu", "corro_fault_edges", 13
 )
 BROADCAST_SCATTER_JITTER = Kernel(
     "broadcast_scatter_jitter", "broadcast_scatter.cu",
@@ -260,7 +278,7 @@ DENSE_GAPS_FINISH_EXIT = Kernel(
 )
 
 FAULT_EDGES_MATRIX = Kernel(
-    "fault_edges_matrix", "fault_edges.cu", "corro_fault_edges_matrix", 3
+    "fault_edges_matrix", "fault_edges.cu", "corro_fault_edges_matrix", 5
 )
 FAULT_REACH_MATRIX = Kernel(
     "fault_reach_matrix", "fault_edges.cu", "corro_fault_reach_matrix", 4
@@ -355,11 +373,11 @@ NODE_FAULTS_LANES = Kernel("node_faults_lanes", "node_faults.cu",
 DENSE_INJECT_LANES = Kernel("dense_inject_lanes", "dense_phases.cu",
                             "corro_dense_inject_lanes", 5)
 DENSE_BROADCAST_LANES = Kernel("dense_broadcast_lanes", "dense_phases.cu",
-                               "corro_dense_broadcast_lanes", 7)
+                               "corro_dense_broadcast_lanes", 8)
 DENSE_DELIVER_LANES = Kernel("dense_deliver_lanes", "dense_phases.cu",
                              "corro_dense_deliver_lanes", 6)
 DENSE_SYNC_LANES = Kernel("dense_sync_lanes", "dense_sync.cu",
-                          "corro_dense_sync_lanes", 10)
+                          "corro_dense_sync_lanes", 11)
 DENSE_GAPS_ROWS_LANES = Kernel("dense_gaps_rows_lanes", "dense_gaps.cu",
                                "corro_dense_gaps_rows_lanes", 10)
 DENSE_GAPS_FINISH_LANES = Kernel("dense_gaps_finish_lanes", "dense_gaps.cu",
@@ -384,15 +402,42 @@ NODE_FAULTS_DENSE_LANES = Kernel("node_faults_dense_lanes", "node_faults.cu",
                                  "corro_node_faults_dense_lanes", 9)
 DENSE_BROADCAST_FAULT_LANES = Kernel("dense_broadcast_fault_lanes",
                                      "dense_phases.cu",
-                                     "corro_dense_broadcast_fault_lanes", 11)
+                                     "corro_dense_broadcast_fault_lanes", 12)
 DENSE_SYNC_DELAY_LANES = Kernel("dense_sync_delay_lanes", "dense_sync.cu",
-                                "corro_dense_sync_lanes", 10)
+                                "corro_dense_sync_lanes", 11)
 DENSE_GAPS_ROWS_EXIT_LANES = Kernel("dense_gaps_rows_exit_lanes",
                                     "dense_gaps.cu",
                                     "corro_dense_gaps_rows_lanes", 10)
 DENSE_GAPS_FINISH_EXIT_LANES = Kernel("dense_gaps_finish_exit_lanes",
                                       "dense_gaps.cu",
                                       "corro_dense_gaps_finish_lanes", 8)
+
+TRACE_COVERAGE_DENSE_LANES = Kernel("trace_coverage_dense_lanes",
+                                    "trace_counts.cu",
+                                    "corro_trace_coverage_dense_lanes", 4)
+TRACE_WIRE_ROWS_LANES = Kernel("trace_wire_rows_lanes", "trace_wire.cu",
+                               "corro_trace_wire_rows_lanes", 4)
+TRACE_ROW_LANES = Kernel("trace_row_lanes", "trace_row.cu",
+                         "corro_trace_row_lanes", 8)
+DENSE_BROADCAST_LANES_TRACE = Kernel("dense_broadcast_lanes_trace",
+                                     "dense_phases.cu",
+                                     "corro_dense_broadcast_lanes", 8)
+DENSE_BROADCAST_FAULT_LANES_TRACE = Kernel(
+    "dense_broadcast_fault_lanes_trace", "dense_phases.cu",
+    "corro_dense_broadcast_fault_lanes", 12)
+DENSE_SYNC_LANES_TRACE = Kernel("dense_sync_lanes_trace", "dense_sync.cu",
+                                "corro_dense_sync_lanes", 11)
+DENSE_SYNC_DELAY_LANES_TRACE = Kernel("dense_sync_delay_lanes_trace",
+                                      "dense_sync.cu",
+                                      "corro_dense_sync_lanes", 11)
+FAULT_EDGES_LANES_COUNT = Kernel("fault_edges_lanes_count", "fault_edges.cu",
+                                 "corro_fault_edges", 13)
+FAULT_EDGES_DELAY_LANES_COUNT = Kernel("fault_edges_delay_lanes_count",
+                                       "fault_edges.cu", "corro_fault_edges",
+                                       13)
+FAULT_EDGES_MATRIX_LANES_COUNT = Kernel("fault_edges_matrix_lanes_count",
+                                        "fault_edges.cu",
+                                        "corro_fault_edges_matrix", 5)
 
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
@@ -476,7 +521,28 @@ PORTED = {
     "dense_sync_delay_lanes": (DENSE_SYNC_DELAY_LANES,),
     "dense_gaps_exit_lanes": (DENSE_GAPS_ROWS_EXIT_LANES,
                               DENSE_GAPS_FINISH_EXIT_LANES),
+    "trace_counts_dense_lanes": (TRACE_COVERAGE_DENSE_LANES,),
+    "trace_wire_rows_lanes": (TRACE_WIRE_ROWS_LANES,),
+    "trace_row_lanes": (TRACE_ROW_LANES,),
+    "dense_broadcast_lanes_trace": (DENSE_BROADCAST_LANES_TRACE,),
+    "dense_broadcast_fault_lanes_trace": (DENSE_BROADCAST_FAULT_LANES_TRACE,),
+    "dense_sync_lanes_trace": (DENSE_SYNC_LANES_TRACE,),
+    "dense_sync_delay_lanes_trace": (DENSE_SYNC_DELAY_LANES_TRACE,),
+    "fault_edges_lanes_count": (FAULT_EDGES_LANES_COUNT,),
+    "fault_edges_delay_lanes_count": (FAULT_EDGES_DELAY_LANES_COUNT,),
+    "fault_edges_matrix_lanes_count": (FAULT_EDGES_MATRIX_LANES_COUNT,),
 }
+#: the flight recorder on the dense round's lanes (B16r): the three lane
+#: entries of K17-K19 and the recording forms of the lane launchers of
+#: K12, K12f, K13, K13d (their recorder outputs) and of K9's, K9's
+#: latency entry's and K9m's edge queries (their lane-strided counts)
+TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
+                   "trace_row_lanes", "dense_broadcast_lanes_trace",
+                   "dense_broadcast_fault_lanes_trace",
+                   "dense_sync_lanes_trace", "dense_sync_delay_lanes_trace",
+                   "fault_edges_lanes_count",
+                   "fault_edges_delay_lanes_count",
+                   "fault_edges_matrix_lanes_count")
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
@@ -486,12 +552,13 @@ LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "swim_full_lanes", "sample_uniform_lanes", "detect_full_lanes",
              "detect_partial_lanes", "fault_reach_matrix_lanes",
              "node_faults_dense_lanes", "dense_broadcast_fault_lanes",
-             "dense_sync_delay_lanes", "dense_gaps_exit_lanes")
+             "dense_sync_delay_lanes", "dense_gaps_exit_lanes",
+             *TRACE_LANE_ROWS)
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
               "trace_wire_rows", "trace_row", "trace_wire_pull",
-              "trace_wire_rows_pull")
+              "trace_wire_rows_pull", *TRACE_LANE_ROWS)
 KERNELS = tuple(k for entries in PORTED.values() for k in entries)
 
 
@@ -516,7 +583,12 @@ __all__ = [
     "DETECT_PARTIAL_LANES", "FAULT_REACH_MATRIX_LANES",
     "NODE_FAULTS_DENSE_LANES", "DENSE_BROADCAST_FAULT_LANES",
     "DENSE_SYNC_DELAY_LANES", "DENSE_GAPS_ROWS_EXIT_LANES",
-    "DENSE_GAPS_FINISH_EXIT_LANES",
+    "DENSE_GAPS_FINISH_EXIT_LANES", "TRACE_COVERAGE_DENSE_LANES",
+    "TRACE_WIRE_ROWS_LANES", "TRACE_ROW_LANES", "DENSE_BROADCAST_LANES_TRACE",
+    "DENSE_BROADCAST_FAULT_LANES_TRACE", "DENSE_SYNC_LANES_TRACE",
+    "DENSE_SYNC_DELAY_LANES_TRACE", "FAULT_EDGES_LANES_COUNT",
+    "FAULT_EDGES_DELAY_LANES_COUNT", "FAULT_EDGES_MATRIX_LANES_COUNT",
+    "TRACE_LANE_ROWS",
     "DENSE_PULL_LOSSY", "DENSE_PULL_TIERED", "ORDER_CHECK_DENSE",
     "ORDER_CHECK_WORDS", "TRACE_WIRE_ROWS_PULL", "TRACE_WIRE_WORDS_PULL",
     "WORD_DELIVER_FIFO",

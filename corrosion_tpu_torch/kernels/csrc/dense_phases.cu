@@ -135,8 +135,8 @@
 // e*P + q stay lane-local, so lane k is the solo entry on lane k's
 // inputs.  The budget scan runs per row, so it is lane-local too.  The
 // payload metadata (round, actor, nbytes) and the round t are shared.
-// The broadcast lane entry takes no fault, tiered or recorder outputs;
-// the fault entry's lane form (corro_dense_broadcast_fault_lanes, the
+// The broadcast lane entry takes no fault or tiered outputs; the fault
+// entry's lane form (corro_dense_broadcast_fault_lanes, the
 // dense fault loop of corrosion_tpu/sim/faults.py:797-842 under the same
 // vmap) takes each lane's fault thresholds and jitter bounds [K, E], its
 // phase key and its plan seed (`seeds[lane]`, ensemble.py:58
@@ -144,6 +144,13 @@
 // seeds[k]), 101 | 102) once a block and draws at its lane-local
 // e*P + q; the topology stream's flat loss ORs in under its own k_drop,
 // as in the solo fault entry.  Bound: K times the solo bound.
+// With the flight recorder on (corrosion_tpu/campaign/ensemble.py:114
+// vmaps telemetry.py:202 record_round), both lane entries take the
+// recorder outputs the solo entry writes: lane k's per-row frames and
+// bytes are its rows of [K, N] (row_frames + k * N), and the frames its
+// loss ate on ok edges add into dropped[k * acc_stride], lane k's slot
+// of the [K, ...] trace accumulators — one warp sum and one add a row,
+// as solo.  Null pointers skip it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -227,11 +234,12 @@ __global__ void dense_broadcast_kernel(
     const int32_t* __restrict__ jit, const int32_t* __restrict__ tiers,
     const int32_t* __restrict__ seeds, int n, int p, int f, int d_slots,
     int budget, int thr, uint32_t seed, uint32_t loss_tag, uint32_t jit_tag,
-    uint32_t span, uint32_t mult) {
+    uint32_t span, uint32_t mult, int acc_stride) {
   {
     // the lane's slices (lane 0 on the solo entries; the lane entries
-    // pass no tiered or recorder pointers, and the fault lane entry its
-    // lanes' phase keys, fault thresholds, jitter bounds and plan seeds)
+    // pass no tiered pointers, the fault lane entry its lanes' phase
+    // keys, fault thresholds, jitter bounds and plan seeds, and a
+    // recording run its lanes' frame rows and dropped slots)
     const size_t lane = blockIdx.y;
     const size_t cells = (size_t)n * p, edges = (size_t)n * f;
     have += lane * cells;
@@ -244,6 +252,11 @@ __global__ void dense_broadcast_kernel(
     alive += lane * n;
     key += lane * 2;
     ring += lane * (size_t)d_slots * cells;
+    if (row_frames != nullptr) {
+      row_frames += lane * n;
+      row_bytes += lane * n;
+    }
+    if (dropped != nullptr) dropped += lane * (size_t)acc_stride;
     if (kFault) {
       phase_key += lane * 2;
       if (fthr != nullptr) fthr += lane * edges;
@@ -501,11 +514,13 @@ int launch_broadcast(bool fault, const void* have, void* relay,
                      const void* jit, const void* tiers, int n, int p, int f,
                      int d_slots, int budget, int thr, int seed, int loss_tag,
                      int jit_tag, int span, int mult, void* stream,
-                     int lanes = 1, const void* seeds = nullptr) {
+                     int lanes = 1, const void* seeds = nullptr,
+                     int acc_stride = 0) {
   bool tiered = tiers != nullptr;
   if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
       (row_frames == nullptr) != (row_bytes == nullptr) ||
-      (tiered && thr != 0) || lanes <= 0 || lanes > 65535)
+      (tiered && thr != 0) || lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && dropped != nullptr && acc_stride <= 0))
     return (int)cudaErrorInvalidValue;
   if (fault && (phase_key == nullptr || (fthr == nullptr && jit == nullptr) ||
                 (jit != nullptr && span == 0)))
@@ -528,7 +543,7 @@ int launch_broadcast(bool fault, const void* have, void* relay,
       (const int64_t*)phase_key, (const uint8_t*)fthr, (const int32_t*)jit,
       (const int32_t*)tiers, (const int32_t*)seeds, n, p, f, d_slots, budget,
       thr, (uint32_t)seed, (uint32_t)loss_tag, (uint32_t)jit_tag,
-      (uint32_t)span, (uint32_t)mult);
+      (uint32_t)span, (uint32_t)mult, acc_stride);
   return (int)cudaGetLastError();
 }
 
@@ -598,7 +613,11 @@ extern "C" int corro_dense_deliver(void* ring, void* sync_ring, void* have,
 
 // The lane entries: the solo entries' arguments with every per-node and
 // per-edge tensor [lanes, ...], `injected` [lanes, P], `key` [lanes, 2]
-// and the rings [lanes, D, N, P], then `lanes`.
+// and the rings [lanes, D, N, P], then `lanes`.  The broadcast entries'
+// recorder outputs (all null, or row_frames and row_bytes [lanes, N]
+// with `dropped` null or lane 0's slot) come after the ring, and
+// `acc_stride`, the int64 slots between two lanes' `dropped`, before
+// `lanes`.
 extern "C" int corro_dense_inject_lanes(const void* round_of,
                                         const void* actor, const void* alive,
                                         void* have, void* relay,
@@ -617,32 +636,34 @@ extern "C" int corro_dense_inject_lanes(const void* round_of,
 extern "C" int corro_dense_broadcast_lanes(
     const void* have, void* relay, const void* injected, const void* nbytes,
     const void* targets, const void* dst, const void* slot, const void* ok,
-    const void* alive, const void* key, void* ring, int n, int p, int f,
-    int d_slots, int budget, int thr, int lanes, void* stream) {
+    const void* alive, const void* key, void* ring, void* row_frames,
+    void* row_bytes, void* dropped, int n, int p, int f, int d_slots,
+    int budget, int thr, int acc_stride, int lanes, void* stream) {
   return launch_broadcast(false, have, relay, injected, nbytes, targets, dst,
-                          slot, ok, alive, key, ring, nullptr, nullptr,
-                          nullptr, nullptr, nullptr, nullptr, nullptr, n, p,
+                          slot, ok, alive, key, ring, row_frames, row_bytes,
+                          dropped, nullptr, nullptr, nullptr, nullptr, n, p,
                           f, d_slots, budget, thr, 0, 0, 0, 1, 0, stream,
-                          lanes);
+                          lanes, nullptr, acc_stride);
 }
 
-// The fault entry's lane form: the broadcast lane entry's arguments, the
+// The fault entry's lane form: the broadcast lane entry's pointers, the
 // lanes' phase keys [lanes, 2], fault thresholds and jitter bounds
 // [lanes, E] (either null, not both) and plan seeds [lanes] (i32), then
-// the fault entry's ints and `lanes`.
+// the fault entry's ints, `acc_stride` and `lanes`.
 extern "C" int corro_dense_broadcast_fault_lanes(
     const void* have, void* relay, const void* injected, const void* nbytes,
     const void* targets, const void* dst, const void* slot, const void* ok,
-    const void* alive, const void* key, void* ring, const void* phase_key,
-    const void* fthr, const void* jit, const void* seeds, int n, int p,
-    int f, int d_slots, int budget, int thr, int loss_tag, int jit_tag,
-    int span, int mult, int lanes, void* stream) {
+    const void* alive, const void* key, void* ring, void* row_frames,
+    void* row_bytes, void* dropped, const void* phase_key, const void* fthr,
+    const void* jit, const void* seeds, int n, int p, int f, int d_slots,
+    int budget, int thr, int loss_tag, int jit_tag, int span, int mult,
+    int acc_stride, int lanes, void* stream) {
   if (seeds == nullptr) return (int)cudaErrorInvalidValue;
   return launch_broadcast(true, have, relay, injected, nbytes, targets, dst,
-                          slot, ok, alive, key, ring, nullptr, nullptr,
-                          nullptr, phase_key, fthr, jit, nullptr, n, p, f,
+                          slot, ok, alive, key, ring, row_frames, row_bytes,
+                          dropped, phase_key, fthr, jit, nullptr, n, p, f,
                           d_slots, budget, thr, 0, loss_tag, jit_tag, span,
-                          mult, stream, lanes, seeds);
+                          mult, stream, lanes, seeds, acc_stride);
 }
 
 extern "C" int corro_dense_deliver_lanes(void* ring, void* sync_ring,

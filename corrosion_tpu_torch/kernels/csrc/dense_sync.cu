@@ -64,8 +64,11 @@
 // it takes the lanes' session delays [K, N * S] (K9's, the lanes folded
 // into its edge axis) and each edge writes its own slot
 // (t + 1 + sdelay) % D, as the delay entry does; counted apart as
-// dense_sync_delay_lanes.  No grant counts on lanes.  Bound: K times the
-// solo bound.
+// dense_sync_delay_lanes.  With the flight recorder on (ensemble.py:114
+// vmaps sync.py:286's jnp.sum(granted, axis=0)) each lane's grant counts
+// add into its own row, counts + k * counts_stride (the [K, 3, P] trace
+// counts' GRANTS rows, 3 * P apart), from the block's shared sums as
+// solo.  Bound: K times the solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -190,11 +193,12 @@ __global__ void dense_sync_kernel(
     bool* __restrict__ fruitful, int32_t* __restrict__ counts,
     const int32_t* __restrict__ sdelay, int n, int p, int s_peers,
     int a_writers, int c_chunks, int k_slots, int budget, int d_slots,
-    int slot) {
+    int slot, int counts_stride) {
   extern __shared__ int block_counts[];  // [P] when counts is given
   {
-    // the lane's slices (lane 0 on the solo entry; the lane entry takes
-    // no counts, and its session delays, when given, are [K, N * S])
+    // the lane's slices (lane 0 on the solo entry; on the lane entry the
+    // session delays, when given, are [K, N * S] and the grant count
+    // rows counts_stride apart)
     const size_t lane = blockIdx.y;
     const size_t cells = (size_t)n * p;
     const size_t adverts = (size_t)n * a_writers;
@@ -207,6 +211,7 @@ __global__ void dense_sync_kernel(
     if (sdelay != nullptr) sdelay += lane * (size_t)n * s_peers;
     ring += lane * (size_t)d_slots * cells;
     fruitful += lane * n;
+    if (counts != nullptr) counts += lane * (size_t)counts_stride;
   }
   int row = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp);
   int lane = threadIdx.x & (kWarp - 1);
@@ -256,36 +261,47 @@ extern "C" int corro_dense_sync(const void* have, const void* heads,
       (const int32_t*)gap_hi, (const int32_t*)peers, (const bool*)ok,
       (const int32_t*)nbytes, (uint8_t*)ring, (bool*)fruitful,
       (int32_t*)counts, (const int32_t*)sdelay, n, p, s_peers, a_writers,
-      c_chunks, k_slots, budget, d_slots, slot);
+      c_chunks, k_slots, budget, d_slots, slot, 0);
   return (int)cudaGetLastError();
 }
 
 // The lane entry: the solo entry's arguments with every per-node tensor
 // [lanes, ...], the whole sync ring [lanes, D, N, P] and its slot t + 1,
-// then `lanes`; no counts; the session delays [lanes, N * S] or null.
+// then `counts_stride` and `lanes`; the grant counts (lane 0's row, the
+// others counts_stride ints apart) and the session delays [lanes, N * S]
+// each null or given.
 extern "C" int corro_dense_sync_lanes(const void* have, const void* heads,
                                       const void* gap_lo, const void* gap_hi,
                                       const void* peers, const void* ok,
                                       const void* nbytes, void* ring,
-                                      void* fruitful, const void* sdelay,
-                                      int n, int p,
+                                      void* fruitful, void* counts,
+                                      const void* sdelay, int n, int p,
                                       int s_peers, int a_writers,
                                       int c_chunks, int k_slots, int budget,
-                                      int d_slots, int slot, int lanes,
+                                      int d_slots, int slot,
+                                      int counts_stride, int lanes,
                                       void* stream) {
   if (n <= 0 || p <= 0 || s_peers <= 0 || s_peers > MAX_S || a_writers <= 0 ||
       c_chunks <= 0 || k_slots <= 0 || p % (a_writers * c_chunks) ||
       d_slots <= 0 || d_slots > 32 || slot < 0 || slot >= d_slots ||
-      lanes <= 0 || lanes > 65535)
+      lanes <= 0 || lanes > 65535 ||
+      (counts != nullptr && lanes > 1 && counts_stride < p))
     return (int)cudaErrorInvalidValue;
   int threads = 256;
   unsigned blocks = (unsigned)(((size_t)n * kWarp + threads - 1) / threads);
-  dense_sync_kernel<<<dim3(blocks, lanes), threads, 0,
+  size_t smem = counts != nullptr ? (size_t)p * sizeof(int) : 0;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dense_sync_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dense_sync_kernel<<<dim3(blocks, lanes), threads, smem,
                       (cudaStream_t)stream>>>(
       (const uint8_t*)have, (const int32_t*)heads, (const int32_t*)gap_lo,
       (const int32_t*)gap_hi, (const int32_t*)peers, (const bool*)ok,
-      (const int32_t*)nbytes, (uint8_t*)ring, (bool*)fruitful, nullptr,
-      (const int32_t*)sdelay, n, p, s_peers, a_writers, c_chunks, k_slots,
-      budget, d_slots, slot);
+      (const int32_t*)nbytes, (uint8_t*)ring, (bool*)fruitful,
+      (int32_t*)counts, (const int32_t*)sdelay, n, p, s_peers, a_writers,
+      c_chunks, k_slots, budget, d_slots, slot, counts_stride);
   return (int)cudaGetLastError();
 }

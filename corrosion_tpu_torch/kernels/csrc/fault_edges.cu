@@ -53,8 +53,17 @@
 // int64 accumulator the ok edges its cut clears (`count`, which needs
 // `ok`): the broadcast's cut edges (corrosion_tpu/sim/packed.py:471-477,
 // sum(ok_pre & ~ok)) and the sync's refused sessions (packed.py:1194-1196,
-// sum(ok & refused)).  Each warp ballots its hits and the block adds
-// once.  A null `count` (telemetry off) counts nothing.
+// sum(ok & refused)).  A null `count` (telemetry off) counts nothing.
+// On a seed ensemble's lanes (the lanes folded into the edge axis, each
+// lane_edges long) the count is per lane: edge i adds into
+// count[(i / lane_edges) * count_stride], lane k's slot of the [K, ...]
+// accumulators (corrosion_tpu/campaign/ensemble.py:114 vmaps the
+// recorder, so every lane's cut_edges and refused_sessions are its own);
+// the solo call is one lane.  A block sums its edges in shared memory,
+// one counter for each of the first two lanes it spans (all of them
+// when lane_edges >= the block), and adds once to each; the edges of
+// lanes further in (lanes shorter than a block, the 3-node cells) add
+// their own.  Bound: unchanged, one add a block and lane.
 //
 // K9m, the matrix entry (corro_fault_edges_matrix, corro_fault_reach_matrix):
 // the same outputs for a matrix plan's round slice (faults.py:88
@@ -156,6 +165,28 @@ __device__ __forceinline__ bool in_range(int s, int d, int n) {
   return s >= 0 && s < n && d >= 0 && d < n;
 }
 
+// The cleared ok edges of the block into their lanes' accumulators
+// (see the header); every thread of the block calls it.
+__device__ __forceinline__ void add_cleared(
+    bool cleared, int i, unsigned long long* __restrict__ count,
+    int lane_edges, int count_stride) {
+  __shared__ unsigned int per_lane[2];
+  if (threadIdx.x < 2) per_lane[threadIdx.x] = 0u;
+  __syncthreads();
+  const int lane0 = (int)(((size_t)blockIdx.x * blockDim.x) / lane_edges);
+  if (cleared) {
+    int rel = i / lane_edges - lane0;
+    if (rel < 2)
+      atomicAdd(&per_lane[rel], 1u);
+    else
+      atomicAdd(&count[(size_t)(lane0 + rel) * count_stride], 1ull);
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 && per_lane[threadIdx.x])
+    atomicAdd(&count[(size_t)(lane0 + threadIdx.x) * count_stride],
+              (unsigned long long)per_lane[threadIdx.x]);
+}
+
 __global__ void fault_edges_kernel(Factors b, Factors l, Latency lat,
                                    const uint8_t* __restrict__ thr,
                                    const int32_t* __restrict__ src,
@@ -164,7 +195,8 @@ __global__ void fault_edges_kernel(Factors b, Factors l, Latency lat,
                                    uint8_t* __restrict__ thr_out,
                                    uint8_t* __restrict__ ok,
                                    unsigned long long* __restrict__ count,
-                                   int n, int e, int sym) {
+                                   int n, int e, int sym, int lane_edges,
+                                   int count_stride) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool cleared = false;
   if (i < e) {
@@ -192,13 +224,7 @@ __global__ void fault_edges_kernel(Factors b, Factors l, Latency lat,
     }
   }
   if (count == nullptr) return;
-  __shared__ unsigned int hits;
-  if (threadIdx.x == 0) hits = 0u;
-  __syncthreads();
-  unsigned int warp_hits = __popc(__ballot_sync(0xFFFFFFFFu, cleared));
-  if ((threadIdx.x & 31) == 0 && warp_hits) atomicAdd(&hits, warp_hits);
-  __syncthreads();
-  if (threadIdx.x == 0 && hits) atomicAdd(count, (unsigned long long)hits);
+  add_cleared(cleared, i, count, lane_edges, count_stride);
 }
 
 __global__ void fault_reach_kernel(Factors b, Factors l,
@@ -258,7 +284,8 @@ __global__ void fault_edges_matrix_kernel(
     uint8_t* __restrict__ cut_out, uint8_t* __restrict__ thr_out,
     uint8_t* __restrict__ ok, unsigned long long* __restrict__ count,
     int32_t* __restrict__ delay_out, int32_t* __restrict__ jit_out,
-    int32_t* __restrict__ sdelay_out, int n, int e, int sym) {
+    int32_t* __restrict__ sdelay_out, int n, int e, int sym, int lane_edges,
+    int count_stride) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool cleared = false;
   if (i < e) {
@@ -284,13 +311,7 @@ __global__ void fault_edges_matrix_kernel(
     }
   }
   if (count == nullptr) return;
-  __shared__ unsigned int hits;
-  if (threadIdx.x == 0) hits = 0u;
-  __syncthreads();
-  unsigned int warp_hits = __popc(__ballot_sync(0xFFFFFFFFu, cleared));
-  if ((threadIdx.x & 31) == 0 && warp_hits) atomicAdd(&hits, warp_hits);
-  __syncthreads();
-  if (threadIdx.x == 0 && hits) atomicAdd(count, (unsigned long long)hits);
+  add_cleared(cleared, i, count, lane_edges, count_stride);
 }
 
 __global__ void fault_reach_matrix_kernel(
@@ -340,6 +361,14 @@ bool shapes_ok(int kb, int kl, int n, int e) {
   return kb >= 0 && kl >= 0 && n > 0 && e >= 0;
 }
 
+// The count's lanes: lane_edges <= 0 is one lane of all e edges (the
+// solo call); otherwise it must divide e, and the lanes' slots lie
+// count_stride apart.
+bool lanes_ok(int e, int* lane_edges, int count_stride) {
+  if (*lane_edges <= 0) *lane_edges = e > 0 ? e : 1;
+  return e % *lane_edges == 0 && count_stride >= 0;
+}
+
 }  // namespace
 
 // The latency outputs need their class: `delay_out` and `sdelay_out`
@@ -353,9 +382,10 @@ extern "C" int corro_fault_edges(
     void* cut_out, void* thr_out, void* ok, void* count, void* delay_out,
     void* jit_out, void* sdelay_out, int kb, int b_stride, int kl,
     int l_stride, int kd, int d_stride, int kj, int j_stride, int n, int e,
-    int sym, void* stream) {
+    int sym, int lane_edges, int count_stride, void* stream) {
   if (!shapes_ok(kb, kl, n, e) || kd < 0 || kj < 0 ||
-      (count != nullptr && ok == nullptr))
+      (count != nullptr && ok == nullptr) ||
+      !lanes_ok(e, &lane_edges, count_stride))
     return (int)cudaErrorInvalidValue;
   if (e == 0) return (int)cudaSuccess;
   Factors b{(const uint8_t*)b_on, (const uint8_t*)b_src,
@@ -373,7 +403,8 @@ extern "C" int corro_fault_edges(
   fault_edges_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       b, l, lat, (const uint8_t*)l_thr, (const int32_t*)src,
       (const int32_t*)dst, (uint8_t*)cut_out, (uint8_t*)thr_out,
-      (uint8_t*)ok, (unsigned long long*)count, n, e, sym);
+      (uint8_t*)ok, (unsigned long long*)count, n, e, sym, lane_edges,
+      count_stride);
   return (int)cudaGetLastError();
 }
 
@@ -432,8 +463,9 @@ extern "C" int corro_fault_edges_matrix(
     const void* blk, const void* loss, const void* delay, const void* jitter,
     const void* src, const void* dst, void* cut_out, void* thr_out, void* ok,
     void* count, void* delay_out, void* jit_out, void* sdelay_out, int n,
-    int e, int sym, void* stream) {
-  if (n <= 0 || e < 0 || (count != nullptr && ok == nullptr))
+    int e, int sym, int lane_edges, int count_stride, void* stream) {
+  if (n <= 0 || e < 0 || (count != nullptr && ok == nullptr) ||
+      !lanes_ok(e, &lane_edges, count_stride))
     return (int)cudaErrorInvalidValue;
   if (e == 0) return (int)cudaSuccess;
   unsigned blocks = (unsigned)((e + kThreads - 1) / kThreads);
@@ -442,7 +474,7 @@ extern "C" int corro_fault_edges_matrix(
       (const uint8_t*)jitter, (const int32_t*)src, (const int32_t*)dst,
       (uint8_t*)cut_out, (uint8_t*)thr_out, (uint8_t*)ok,
       (unsigned long long*)count, (int32_t*)delay_out, (int32_t*)jit_out,
-      (int32_t*)sdelay_out, n, e, sym);
+      (int32_t*)sdelay_out, n, e, sym, lane_edges, count_stride);
   return (int)cudaGetLastError();
 }
 

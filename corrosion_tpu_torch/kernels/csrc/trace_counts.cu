@@ -30,6 +30,16 @@
 // counters in shared memory and issues one global add per payload.
 // The dense entry gives each thread one column and a chunk of rows, so
 // a warp reads 32 consecutive bytes of a row, and adds once per chunk.
+//
+// The dense entry's lane form (corro_trace_coverage_dense_lanes) counts
+// a seed ensemble's lanes in one launch (corrosion_tpu/campaign/
+// ensemble.py:114 vmaps round.py:218-246): blockIdx.z is the lane, whose
+// have, have0 [N, P] and alive [N] are its slices of [K, ...] tensors
+// (64-bit offsets) and whose two count rows are cov + k * out_stride and
+// del + k * out_stride (the [K, 3, P] trace counts, 3 * P apart); lane k
+// is the solo entry on lane k's inputs.  Bound: bytes, K times the solo
+// entry's — 8 x 100000 x 512 x 2 bytes = 819 MB at the 8-lane dense
+// fault storm, about 0.245 ms.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -111,7 +121,16 @@ __global__ void trace_counts_dense_kernel(const uint8_t* __restrict__ have,
                                           const uint8_t* __restrict__ alive,
                                           int32_t* __restrict__ cov,
                                           int32_t* __restrict__ del, int n,
-                                          int p) {
+                                          int p, int out_stride) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.z;
+    have += lane * (size_t)n * p;
+    have0 += lane * (size_t)n * p;
+    alive += lane * n;
+    cov += lane * (size_t)out_stride;
+    del += lane * (size_t)out_stride;
+  }
   int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= p) return;
   int r0 = blockIdx.y * kDenseRows;
@@ -170,6 +189,24 @@ extern "C" int corro_trace_coverage_dense(const void* have, const void* have0,
             (unsigned)((n + kDenseRows - 1) / kDenseRows));
   trace_counts_dense_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)have, (const uint8_t*)have0, (const uint8_t*)alive,
-      (int32_t*)cov, (int32_t*)del, n, p);
+      (int32_t*)cov, (int32_t*)del, n, p, 0);
+  return (int)cudaGetLastError();
+}
+
+// The dense entry's lane form: have, have0 [lanes, N, P], alive
+// [lanes, N]; lane 0's coverage and delivered rows, each lane's
+// `out_stride` ints after the one before.
+extern "C" int corro_trace_coverage_dense_lanes(
+    const void* have, const void* have0, const void* alive, void* cov,
+    void* del, int n, int p, int out_stride, int lanes, void* stream) {
+  if (n < 0 || p <= 0 || lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && out_stride < p))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  dim3 grid((unsigned)((p + kThreads - 1) / kThreads),
+            (unsigned)((n + kDenseRows - 1) / kDenseRows), (unsigned)lanes);
+  trace_counts_dense_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)have, (const uint8_t*)have0, (const uint8_t*)alive,
+      (int32_t*)cov, (int32_t*)del, n, p, out_stride);
   return (int)cudaGetLastError();
 }

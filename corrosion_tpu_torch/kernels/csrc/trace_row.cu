@@ -26,6 +26,20 @@
 //      the row, and zeroes acc and counts for the next round.
 // Nothing is read back to the host: the row index comes in as an int.
 //
+// The lane form (corro_trace_row_lanes) writes row `row` of every lane
+// of a seed ensemble in one launch (corrosion_tpu/campaign/ensemble.py:
+// 114 vmaps record_round): blockIdx.y is the lane, whose alive, beliefs
+// (pid and pkey [N, M], or view [N, N]), sync edges, overflow count,
+// accumulators acc [kSlots] (its own ticket among them), count rows
+// [3, P] and channels ([R, P] and [R]) are its slices of [K, ...]
+// tensors, offset in 64 bits; the fault slice's crashes and wipes
+// (rf_alive, rf_wipe) and the payload sizes are shared, as the plan's
+// schedule is.  Each lane's blocks take their own ticket, so the last
+// block of lane k writes lane k's row and zeroes lane k's accumulators
+// only; lane k is the solo entry on lane k's inputs.  Bound: bytes, K
+// times the solo entry's — 8 x 51 MB of member tables at the 8-lane
+// dense fault storm, about 0.122 ms.
+//
 // Bound on the H100: bytes — at the storm the member table (pid and
 // pkey, 100000 x 64 x 2 x 4 = 51 MB) dominates, about 15 us.  Design:
 // coalesced grid-stride loads, registers for the six totals, a warp
@@ -87,7 +101,39 @@ __device__ __forceinline__ long long warp_sum(long long v) {
 }
 
 __global__ void trace_row_kernel(Inputs in, Channels out, int n, int cells,
-                                 int swim, int es, int p, int row) {
+                                 int swim, int es, int p, int row,
+                                 int rows) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    in.alive += lane * n;
+    if (in.pid != nullptr) {
+      in.pid += lane * (size_t)cells;
+      in.pkey += lane * (size_t)cells;
+    }
+    if (in.view != nullptr) in.view += lane * (size_t)cells;
+    in.sync_ok += lane * (size_t)es;
+    in.n_overflow += lane;
+    in.acc += lane * kSlots;
+    in.counts += lane * 3 * (size_t)p;
+    const size_t wide = lane * (size_t)rows * p, narrow = lane * rows;
+    out.coverage += wide;
+    out.delivered += wide;
+    out.up_nodes += narrow;
+    out.bcast_bytes += narrow;
+    out.bcast_frames += narrow;
+    out.bcast_dropped += narrow;
+    out.bcast_cut += narrow;
+    out.sync_bytes += narrow;
+    out.sync_frames += narrow;
+    out.sync_sessions += narrow;
+    out.sync_refused += narrow;
+    out.swim_suspect += narrow;
+    out.swim_down += narrow;
+    out.crashes += narrow;
+    out.wipes += narrow;
+    out.gap_overflow += narrow;
+  }
   __shared__ unsigned long long part[kTotals];
   __shared__ bool last;
   if (threadIdx.x < kTotals) part[threadIdx.x] = 0ull;
@@ -177,19 +223,24 @@ __global__ void trace_row_kernel(Inputs in, Channels out, int n, int cells,
 
 }  // namespace
 
-extern "C" int corro_trace_row(
-    const void* alive, const void* pid, const void* pkey, const void* view,
-    const void* rf_alive, const void* rf_wipe, const void* sync_ok,
-    const void* n_overflow, const void* nbytes, void* acc, void* counts,
-    void* coverage, void* delivered, void* up_nodes, void* bcast_bytes,
-    void* bcast_frames, void* bcast_dropped, void* bcast_cut,
-    void* sync_bytes, void* sync_frames, void* sync_sessions,
-    void* sync_refused, void* swim_suspect, void* swim_down, void* crashes,
-    void* wipes, void* gap_overflow, int n, int cells, int swim, int es,
-    int p, int row, void* stream) {
+namespace {
+
+int launch_row(const void* alive, const void* pid, const void* pkey,
+               const void* view, const void* rf_alive, const void* rf_wipe,
+               const void* sync_ok, const void* n_overflow,
+               const void* nbytes, void* acc, void* counts, void* coverage,
+               void* delivered, void* up_nodes, void* bcast_bytes,
+               void* bcast_frames, void* bcast_dropped, void* bcast_cut,
+               void* sync_bytes, void* sync_frames, void* sync_sessions,
+               void* sync_refused, void* swim_suspect, void* swim_down,
+               void* crashes, void* wipes, void* gap_overflow, int n,
+               int cells, int swim, int es, int p, int row, int rows,
+               int lanes, void* stream) {
   if (n <= 0 || p <= 0 || es < 0 || cells < 0 || row < 0 || swim < 0 ||
       swim > 2 || (swim == 1 && (pid == nullptr || pkey == nullptr)) ||
-      (swim == 2 && view == nullptr) || (rf_alive == nullptr) != (rf_wipe == nullptr))
+      (swim == 2 && view == nullptr) ||
+      (rf_alive == nullptr) != (rf_wipe == nullptr) || lanes <= 0 ||
+      lanes > 65535 || (lanes > 1 && row >= rows))
     return (int)cudaErrorInvalidValue;
   Inputs in{(const uint8_t*)alive, (const int32_t*)pid, (const int32_t*)pkey,
             (const int8_t*)view, (const int8_t*)rf_alive, (const bool*)rf_wipe,
@@ -206,11 +257,57 @@ extern "C" int corro_trace_row(
   long long work = n;
   if (swim && cells > work) work = cells;
   if (es > work) work = es;
-  // about eight elements a thread, at most four blocks an SM
+  // about eight elements a thread, at most four blocks an SM (a lane)
   long long blocks = (work + 8LL * kThreads - 1) / (8LL * kThreads);
   if (blocks > 528) blocks = 528;
   if (blocks < 1) blocks = 1;
-  trace_row_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      in, out, n, swim ? cells : 0, swim, es, p, row);
+  trace_row_kernel<<<dim3((unsigned)blocks, (unsigned)lanes), kThreads, 0,
+                     (cudaStream_t)stream>>>(
+      in, out, n, swim ? cells : 0, swim, es, p, row, rows);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int corro_trace_row(
+    const void* alive, const void* pid, const void* pkey, const void* view,
+    const void* rf_alive, const void* rf_wipe, const void* sync_ok,
+    const void* n_overflow, const void* nbytes, void* acc, void* counts,
+    void* coverage, void* delivered, void* up_nodes, void* bcast_bytes,
+    void* bcast_frames, void* bcast_dropped, void* bcast_cut,
+    void* sync_bytes, void* sync_frames, void* sync_sessions,
+    void* sync_refused, void* swim_suspect, void* swim_down, void* crashes,
+    void* wipes, void* gap_overflow, int n, int cells, int swim, int es,
+    int p, int row, void* stream) {
+  return launch_row(alive, pid, pkey, view, rf_alive, rf_wipe, sync_ok,
+                    n_overflow, nbytes, acc, counts, coverage, delivered,
+                    up_nodes, bcast_bytes, bcast_frames, bcast_dropped,
+                    bcast_cut, sync_bytes, sync_frames, sync_sessions,
+                    sync_refused, swim_suspect, swim_down, crashes, wipes,
+                    gap_overflow, n, cells, swim, es, p, row, 0, 1, stream);
+}
+
+// The lane form: the solo entry's pointers with every per-lane tensor
+// [lanes, ...] (alive [lanes, N], pid/pkey [lanes, N, M] or view
+// [lanes, N, N], sync_ok [lanes, Es], n_overflow [lanes], acc
+// [lanes, kSlots], counts [lanes, 3, P], the channels [lanes, R, P] and
+// [lanes, R]) and the shared rf_alive, rf_wipe [N] and nbytes [P]; `n`,
+// `cells` and `es` are one lane's, `rows` is R.
+extern "C" int corro_trace_row_lanes(
+    const void* alive, const void* pid, const void* pkey, const void* view,
+    const void* rf_alive, const void* rf_wipe, const void* sync_ok,
+    const void* n_overflow, const void* nbytes, void* acc, void* counts,
+    void* coverage, void* delivered, void* up_nodes, void* bcast_bytes,
+    void* bcast_frames, void* bcast_dropped, void* bcast_cut,
+    void* sync_bytes, void* sync_frames, void* sync_sessions,
+    void* sync_refused, void* swim_suspect, void* swim_down, void* crashes,
+    void* wipes, void* gap_overflow, int n, int cells, int swim, int es,
+    int p, int row, int rows, int lanes, void* stream) {
+  return launch_row(alive, pid, pkey, view, rf_alive, rf_wipe, sync_ok,
+                    n_overflow, nbytes, acc, counts, coverage, delivered,
+                    up_nodes, bcast_bytes, bcast_frames, bcast_dropped,
+                    bcast_cut, sync_bytes, sync_frames, sync_sessions,
+                    sync_refused, swim_suspect, swim_down, crashes, wipes,
+                    gap_overflow, n, cells, swim, es, p, row, rows, lanes,
+                    stream);
 }

@@ -33,6 +33,15 @@
 // bytes — a random row of sending words per ok edge (from L2 at the
 // storm's 6.4 MB) or two ints.
 //
+// The rows entry's lane form (corro_trace_wire_rows_lanes) folds a seed
+// ensemble's lanes in one launch (corrosion_tpu/campaign/ensemble.py:114
+// vmaps broadcast.py:254-281): blockIdx.y is the lane, whose row frames
+// and bytes [N] and ok edges [N * F] are its slices of [K, ...] tensors
+// and whose accumulators are acc + k * acc_stride (its slots of the
+// [K, ...] trace accumulators); lane k is the solo entry on lane k's
+// inputs.  Bound: bytes, K times the solo entry's — 8 x (100000 x 8 +
+// 300000) bytes = 8.8 MB at the 8-lane dense fault storm, ~0.003 ms.
+//
 // Bound on the H100: bytes — the sending words (6.4 MB at the storm,
 // 26 MB at gapstress) and the ok bytes, read once.  Design: each warp
 // reads its node's row as one coalesced run; nbytes is 32 KB at most,
@@ -110,7 +119,15 @@ __global__ void trace_wire_rows_kernel(const int32_t* __restrict__ row_frames,
                                        const int32_t* __restrict__ row_bytes,
                                        const bool* __restrict__ ok,
                                        unsigned long long* __restrict__ acc,
-                                       int n, int fanout) {
+                                       int n, int fanout, int acc_stride) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    row_frames += lane * n;
+    row_bytes += lane * n;
+    ok += lane * (size_t)n * fanout;
+    acc += lane * (size_t)acc_stride;
+  }
   long long frames = 0, bytes = 0;
   for (int node = blockIdx.x * blockDim.x + threadIdx.x; node < n;
        node += gridDim.x * blockDim.x) {
@@ -195,7 +212,25 @@ extern "C" int corro_trace_wire_rows(const void* row_frames,
   if (n <= 0 || fanout <= 0) return (int)cudaErrorInvalidValue;
   trace_wire_rows_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)row_frames, (const int32_t*)row_bytes, (const bool*)ok,
-      (unsigned long long*)acc, n, fanout);
+      (unsigned long long*)acc, n, fanout, 0);
+  return (int)cudaGetLastError();
+}
+
+// The rows entry's lane form: row_frames, row_bytes [lanes, N], ok
+// [lanes, N * F]; lane 0's accumulators, each lane's `acc_stride` int64
+// slots after the one before.
+extern "C" int corro_trace_wire_rows_lanes(const void* row_frames,
+                                           const void* row_bytes,
+                                           const void* ok, void* acc, int n,
+                                           int fanout, int acc_stride,
+                                           int lanes, void* stream) {
+  if (n <= 0 || fanout <= 0 || lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && acc_stride < 2))
+    return (int)cudaErrorInvalidValue;
+  trace_wire_rows_kernel<<<dim3(grid_for(n), lanes), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      (const int32_t*)row_frames, (const int32_t*)row_bytes, (const bool*)ok,
+      (unsigned long long*)acc, n, fanout, acc_stride);
   return (int)cudaGetLastError();
 }
 

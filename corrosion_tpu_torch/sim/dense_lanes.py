@@ -33,6 +33,20 @@ entry, the probe loss K9's or K9m's reach lane entry, and the exit
 K14's lane entries in their exit mode (a fresh done flag a lane, never
 before the horizon).
 
+**The flight recorder** (B16r, dense half): with ``telemetry`` the
+loop carries a lane trace (`.telemetry.new_trace_lanes`: JAX's sixteen
+channels ``[K, R, ...]``, each lane's int64 accumulators and count
+rows) in the batch's ``extra``, so a finished lane leaves with its
+trace, as JAX's select-frozen lane does.  Each round records every
+lane's row as the solo round records its own: the broadcast's cut
+edges and refused sessions go to each lane's slots (K9/K9m with a
+lane-strided count), its lost frames and per-row frames and bytes come
+from the recording forms of K12's and K12f's lane entries and are
+folded by K18's rows lane entry, its grant counts from K13's and K13d's
+recording forms, coverage and delivered from K17's dense lane entry,
+and K19's lane entry writes the rows (a ticket a lane) with the shared
+fault slice's crashes and wipes.
+
 Each wrapper runs its plain torch version on a CPU tensor: the solo
 plain version on each lane's slices, so lane k of a plain lane call IS
 the solo call on lane k's inputs.  A finished lane leaves the batch as
@@ -85,6 +99,20 @@ from .round import (
     overflow_fraction,
 )
 from .state import ALIVE, DOWN, SUSPECT, PayloadMeta, SimConfig, SimState
+from .telemetry import (
+    COVERAGE,
+    GRANTS,
+    WIRE,
+    RoundTrace,
+    _check_lane_rows,
+    acc_slot,
+    coverage_delivered_dense_lanes_,
+    new_trace_lanes,
+    record_row_lanes,
+    trace_row,
+    wire_loss_active,
+    wire_rows_lanes_,
+)
 from .topology import Topology, edge_slot_plain, regions
 
 _LANES_MAX = 65535  # the grid's y dimension
@@ -139,10 +167,11 @@ def inject_dense_lanes(have, relay, injected, meta: PayloadMeta, alive,
 def broadcast_send_lanes_plain(have, relay, injected, nbytes, budget,
                                targets, dst, slot, ok, alive, keys,
                                thr: int, ring, phase_keys=None, fthr=None,
-                               jit=None, seeds=None) -> None:
+                               jit=None, seeds=None, row_frames=None,
+                               row_bytes=None, dropped=None) -> None:
     """Plain version of K12's broadcast lane entry and of its fault lane
-    entry: the solo plain version on each lane under its keys and plan
-    seed, in place."""
+    entry (and of their recording forms): the solo plain version on each
+    lane under its keys and plan seed, in place."""
     from .broadcast import broadcast_send_plain
 
     def lane(x, k):
@@ -152,14 +181,17 @@ def broadcast_send_lanes_plain(have, relay, injected, nbytes, budget,
         broadcast_send_plain(
             have[k], relay[k], injected[k], nbytes, budget, targets[k],
             dst[k], slot[k], ok[k], alive[k], keys[k], thr, ring[k],
-            phase_key=lane(phase_keys, k), fthr=lane(fthr, k),
-            jit=lane(jit, k), seed=0 if seeds is None else int(seeds[k]))
+            row_frames=lane(row_frames, k), row_bytes=lane(row_bytes, k),
+            dropped=lane(dropped, k), phase_key=lane(phase_keys, k),
+            fthr=lane(fthr, k), jit=lane(jit, k),
+            seed=0 if seeds is None else int(seeds[k]))
 
 
 def broadcast_send_lanes(have, relay, injected, nbytes,
                          budget: Optional[int], targets, dst, slot, ok,
                          alive, keys, thr: int, ring, phase_keys=None,
-                         fthr=None, jit=None, seeds=None) -> None:
+                         fthr=None, jit=None, seeds=None, row_frames=None,
+                         row_bytes=None, dropped=None) -> None:
     """`broadcast.broadcast_send` over the lanes, in place on ``relay``
     and the rings [K, D, N, P]: each lane's eligible payloads, its
     oldest-first budget prefix per row (lane-local), its edges' ring
@@ -168,13 +200,19 @@ def broadcast_send_lanes(have, relay, injected, nbytes,
     (``fthr`` u8[K, E] and/or ``jit`` i32[K, E], K9's per-edge outputs
     on the lanes folded) lane k also draws the plan's loss and jitter
     from ``fold_in(fold_in(phase_keys[k], seeds[k]), 101 | 102)``, its
-    broadcast phase key and plan seed.  K12's broadcast lane entry on the
+    broadcast phase key and plan seed.  The flight recorder's outputs,
+    when given: each lane's per-node sent frames and bytes i32[K, N]
+    (``row_frames``, ``row_bytes``) and the frames each lane's loss ate
+    on its ok edges, added to its int64 slot of ``dropped`` (a lane
+    trace's ``[K]`` accumulator view).  K12's broadcast lane entry on the
     card, its fault lane entry under a plan's loss or jitter (no tiered
-    or recorder outputs)."""
+    outputs); their recording forms, counted apart, with the recorder's
+    outputs."""
     if have.device.type == "cpu":
         broadcast_send_lanes_plain(have, relay, injected, nbytes, budget,
                                    targets, dst, slot, ok, alive, keys, thr,
-                                   ring, phase_keys, fthr, jit, seeds)
+                                   ring, phase_keys, fthr, jit, seeds,
+                                   row_frames, row_bytes, dropped)
         return
     lanes, n, p = have.shape
     f = targets.shape[2]
@@ -192,11 +230,25 @@ def broadcast_send_lanes(have, relay, injected, nbytes,
     check("alive", alive, torch.uint8, (lanes, n))
     check("keys", keys, torch.int64, (lanes, 2))
     check("ring", ring, torch.uint8, (lanes, d, n, p))
+    recording = row_frames is not None
+    stride = 0
+    if recording:
+        check("row_frames", row_frames, torch.int32, (lanes, n))
+        check("row_bytes", row_bytes, torch.int32, (lanes, n))
+    if dropped is not None:
+        if not recording:
+            raise ValueError("dropped needs the row outputs")
+        if (not dropped.is_cuda or dropped.dtype != torch.int64
+                or tuple(dropped.shape) != (lanes,)):
+            raise ValueError("dropped must be a CUDA int64 [K] view")
+        stride = dropped.stride(0)
     ptrs = [have, relay, injected, nbytes, targets, dst, slot, ok, alive,
-            keys, ring]
+            keys, ring, row_frames, row_bytes, dropped]
     ints = [n, p, f, d, -1 if budget is None else budget, min(thr, 256)]
     if fthr is None and jit is None:
-        kernels.DENSE_BROADCAST_LANES.launch(ptrs, ints + [lanes])
+        kernel = (kernels.DENSE_BROADCAST_LANES_TRACE if recording
+                  else kernels.DENSE_BROADCAST_LANES)
+        kernel.launch(ptrs, ints + [stride, lanes])
         return
     check("phase_keys", phase_keys, torch.int64, (lanes, 2))
     check("seeds", seeds, torch.int32, (lanes,))
@@ -205,9 +257,12 @@ def broadcast_send_lanes(have, relay, injected, nbytes,
     if jit is not None:
         check("jit", jit, torch.int32, (lanes, e))
     span, mult = rng.scalar_span(0, _I32_MAX)
-    kernels.DENSE_BROADCAST_FAULT_LANES.launch(
+    kernel = (kernels.DENSE_BROADCAST_FAULT_LANES_TRACE if recording
+              else kernels.DENSE_BROADCAST_FAULT_LANES)
+    kernel.launch(
         ptrs + [phase_keys, fthr, jit, seeds],
-        ints + [WIRE_LOSS_TAG, JITTER_TAG, i32(span), i32(mult), lanes])
+        ints + [WIRE_LOSS_TAG, JITTER_TAG, i32(span), i32(mult), stride,
+                lanes])
 
 
 def deliver_dense_lanes_plain(ring, sync_ring, have, relay, slot: int,
@@ -246,34 +301,41 @@ def deliver_dense_lanes(ring, sync_ring, have, relay, slot: int,
 
 def sync_pull_dense_lanes_plain(have, heads, gap_lo, gap_hi, peers, ok,
                                 nbytes, budget, ring, cfg: SimConfig,
-                                slot: int, sdelay=None) -> torch.Tensor:
+                                slot: int, sdelay=None,
+                                counts=None) -> torch.Tensor:
     """Plain version of K13's lane entry (and with ``sdelay`` of its
-    delay lane entry): the solo plain version on each lane's rows and its
-    ring's slot (or its whole ring), in place."""
+    delay lane entry, with ``counts`` of their recording forms): the solo
+    plain version on each lane's rows and its ring's slot (or its whole
+    ring), in place."""
     from .sync import sync_pull_dense_plain
 
     return torch.stack([
         sync_pull_dense_plain(
             have[k], heads[k], gap_lo[k], gap_hi[k], peers[k], ok[k], nbytes,
             budget, ring[k, slot] if sdelay is None else ring[k], cfg,
+            counts=None if counts is None else counts[k],
             sdelay=None if sdelay is None else sdelay[k], slot=slot)
         for k in range(have.shape[0])])
 
 
 def sync_pull_dense_lanes(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
                           budget: Optional[int], ring, cfg: SimConfig,
-                          slot: int, sdelay=None) -> torch.Tensor:
+                          slot: int, sdelay=None,
+                          counts=None) -> torch.Tensor:
     """`sync.sync_pull_dense` over the lanes: each lane's pullers pull
     from its own rows (``peers`` [K, N, S] lane-local) under the sync
     budget per edge into slot ``slot`` of its sync ring [K, D, N, P], in
     place; returns bool [K, N] fruitful.  With ``sdelay`` (i32[K, N*S],
     the lanes' session delays) edge e of lane k lands in slot (slot +
-    sdelay[k, e]) % D.  K13's lane entry on the card, its delay lane
-    entry with session delays."""
+    sdelay[k, e]) % D.  With ``counts`` (i32 [K, P], a lane trace's
+    grant rows ``counts[:, GRANTS]``) each payload's granting edges of
+    lane k are added to row k.  K13's lane entry on the card, its delay
+    lane entry with session delays; their recording forms, counted
+    apart, with ``counts``."""
     if have.device.type == "cpu":
         return sync_pull_dense_lanes_plain(have, heads, gap_lo, gap_hi,
                                            peers, ok, nbytes, budget, ring,
-                                           cfg, slot, sdelay)
+                                           cfg, slot, sdelay, counts)
     lanes, n, p = have.shape
     s = peers.shape[2]
     a, k = cfg.n_writers, cfg.gap_slots
@@ -291,14 +353,21 @@ def sync_pull_dense_lanes(have, heads, gap_lo, gap_hi, peers, ok, nbytes,
         raise ValueError(f"slot {slot} outside the ring of {d}")
     if sdelay is not None:
         check("sdelay", sdelay, torch.int32, (lanes, n * s))
+    stride = 0
+    if counts is not None:
+        _check_lane_rows("counts", counts, torch.int32, (lanes, p))
+        stride = counts.stride(0)
     fruitful = torch.empty((lanes, n), dtype=torch.bool, device=have.device)
-    kernel = (kernels.DENSE_SYNC_LANES if sdelay is None
-              else kernels.DENSE_SYNC_DELAY_LANES)
+    kernel = {(False, False): kernels.DENSE_SYNC_LANES,
+              (True, False): kernels.DENSE_SYNC_DELAY_LANES,
+              (False, True): kernels.DENSE_SYNC_LANES_TRACE,
+              (True, True): kernels.DENSE_SYNC_DELAY_LANES_TRACE}[
+        (sdelay is not None, counts is not None)]
     kernel.launch(
         [have, heads, gap_lo, gap_hi, peers, ok, nbytes, ring, fruitful,
-         sdelay],
+         counts, sdelay],
         [n, p, s, a, cfg.chunks_per_version, k,
-         -1 if budget is None else budget, d, slot, lanes])
+         -1 if budget is None else budget, d, slot, stride, lanes])
     return fruitful
 
 
@@ -648,7 +717,8 @@ def _edges(state: SimState, targets: torch.Tensor):
 
 def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
                          topo: Topology, region, keys, faults=None,
-                         seeds=None, active=None) -> None:
+                         seeds=None, active=None,
+                         trace: Optional[RoundTrace] = None) -> None:
     """`broadcast.broadcast_step` over the lanes, in place on
     ``relay_left`` and ``inflight``: each lane's targets, its edges and
     their slots, and K12's broadcast lane entry under its ``k_drop``.
@@ -658,7 +728,10 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     drawn per (edge, payload) under each lane's phase key ``keys[k]`` and
     plan seed ``seeds[k]`` (K12's fault lane entry); ``active`` (the
     host's copy of the round's loss and jitter activity) leaves out the
-    classes that do not apply this round."""
+    classes that do not apply this round.  With a lane ``trace``
+    (`.telemetry.new_trace_lanes`) each lane's cut edges (K9), lost
+    frames and per-node frames and bytes (K12's recording form), folded
+    over its ok edges (K18's rows lane entry), go to its accumulators."""
     lanes = keys.shape[0]
     ks = rng.split_lanes(keys, 3)
     k_targets, k_drop = ks[:, 0].contiguous(), ks[:, 1].contiguous()
@@ -669,7 +742,8 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
         # ok is contiguous [K, E]: its flat view is cleared in place
         _, fthr, fdelay, jit = fault_wire_effects(
             faults, src.expand(lanes, -1).reshape(-1), dst.reshape(-1),
-            ok.view(-1))
+            ok.view(-1),
+            cut=None if trace is None else acc_slot(trace, "bcast_cut"))
         fthr, fdelay, jit = (None if x is None else x.view(lanes, -1)
                              for x in (fthr, fdelay, jit))
         if active is not None:
@@ -677,22 +751,36 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
             jit = jit if active.jitter else None
     slot = edge_slot_plain(topo, region, src, dst, int(state.t),
                            state.inflight.shape[1], fdelay)
+    row_frames = row_bytes = dropped = None
+    if trace is not None:
+        n = state.alive.shape[1]
+        row_frames = torch.empty((lanes, n), dtype=torch.int32,
+                                 device=ok.device)
+        row_bytes = torch.empty_like(row_frames)
+        if wire_loss_active(topo, faults):
+            dropped = acc_slot(trace, "bcast_dropped")
     broadcast_send_lanes(
         state.have, state.relay_left, state.injected, meta.nbytes,
         cfg.rate_limit_bytes_round, targets.contiguous(), dst.contiguous(),
         slot.contiguous(), ok, state.alive, k_drop, 0, state.inflight,
-        keys, fthr, jit, seeds)
+        keys, fthr, jit, seeds, row_frames, row_bytes, dropped)
+    if trace is not None:
+        wire_rows_lanes_(trace.acc[:, WIRE], row_frames, row_bytes, ok,
+                         cfg.fanout)
 
 
 def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
-                    keys, faults=None) -> SimState:
+                    keys, faults=None, trace: Optional[RoundTrace] = None):
     """`sync.sync_step` over the lanes: each lane's peers, K13's lane
     entry into slot t + 1 of its sync ring (in place), then the backoff
     and the re-arm draw (K5's lane entry).  Under ``faults`` a session
     dies on a cut in either direction, and under a plan with delay
     factors each edge's grants land in slot t + 1 + its session delay
     (K9 or K9m on the lanes folded, one launch; K13's delay lane
-    entry)."""
+    entry).  Returns the state; with a lane ``trace`` each lane's refused
+    sessions (K9, lane-strided) and grant counts (K13's recording form)
+    go to its accumulators and the sessions' ok mask bool[K, N * S] comes
+    back second."""
     lanes, n = state.alive.shape
     s = cfg.sync_peers
     ks = rng.split_lanes(keys, 3)
@@ -703,16 +791,19 @@ def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     ok &= due[:, src[0].long()]
     sdelay = None
     if faults is not None:
+        # the refused count is taken before the mask clears them
         _, sdelay = fault_session_effects(
             faults, src.expand(lanes, -1).reshape(-1), dst.reshape(-1),
-            ok.view(-1))
+            ok.view(-1),
+            None if trace is None else acc_slot(trace, "sync_refused"))
         if sdelay is not None:
             sdelay = sdelay.view(lanes, n * s)
     slot = (int(state.t) + 1) % state.sync_inflight.shape[1]
     fruitful = sync_pull_dense_lanes(
         state.have, state.heads, state.gap_lo, state.gap_hi,
         dst.reshape(lanes, n, s), ok.reshape(lanes, n, s), meta.nbytes,
-        cfg.sync_budget_bytes, state.sync_inflight, cfg, slot, sdelay)
+        cfg.sync_budget_bytes, state.sync_inflight, cfg, slot, sdelay,
+        None if trace is None else trace.counts[:, GRANTS])
     backoff = torch.where(
         due & fruitful,
         cfg.sync_interval_rounds,
@@ -724,15 +815,18 @@ def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     ).to(torch.int32)
     rearm = rng.randint_lanes(k_rearm, (n,), 1, backoff + 1)
     countdown = torch.where(due, rearm, state.sync_countdown - 1)
-    return state._replace(sync_countdown=countdown.to(torch.int32),
-                          sync_backoff=backoff)
+    state = state._replace(sync_countdown=countdown.to(torch.int32),
+                           sync_backoff=backoff)
+    if trace is not None:
+        return state, ok
+    return state
 
 
 def dense_round_step_lanes(state: SimState, metrics: RunMetrics,
                            meta: PayloadMeta, cfg: SimConfig,
                            topo: Topology, region, faults=None,
                            horizon: Optional[int] = None, seeds=None,
-                           active=None):
+                           active=None, trace: Optional[RoundTrace] = None):
     """One dense round of every lane, phase for phase the solo
     `.round.round_step_` with lane k's keys: inject → broadcast → sync →
     deliver → SWIM → bookkeeping refresh and convergence record.  Under
@@ -743,16 +837,27 @@ def dense_round_step_lanes(state: SimState, metrics: RunMetrics,
     host's copy of the round's loss and jitter activity) picks the
     broadcast's entry.  The payload tensors and beliefs update in place
     (the loop owns them); returns (state, metrics, done) with done
-    bool[K] on the device."""
+    bool[K] on the device.  With a lane ``trace`` (`.telemetry.
+    new_trace_lanes`) every lane's row is recorded in it, in place, as
+    the solo round records its own: the phases feed each lane's
+    accumulators, then K17's dense lane entry counts coverage and
+    delivered and K19's lane entry writes the rows (with the shared
+    fault slice's crashes and wipes)."""
     ks = rng.split_lanes(state.key, 4)
     state = state._replace(key=ks[:, 0].contiguous())
     k_bcast, k_sync, k_swim = (ks[:, i].contiguous() for i in (1, 2, 3))
     t = int(state.t)
+    have0 = None if trace is None else state.have.clone()
     inject_dense_lanes(state.have, state.relay_left, state.injected, meta,
                        state.alive, t, cfg.max_transmissions)
     broadcast_step_lanes(state, meta, cfg, topo, region, k_bcast, faults,
-                         seeds, active)
-    state = sync_step_lanes(state, meta, cfg, k_sync, faults)
+                         seeds, active, trace)
+    sync_ok = None
+    if trace is None:
+        state = sync_step_lanes(state, meta, cfg, k_sync, faults)
+    else:
+        state, sync_ok = sync_step_lanes(state, meta, cfg, k_sync, faults,
+                                         trace)
     deliver_dense_lanes(state.inflight, state.sync_inflight, state.have,
                         state.relay_left, t % state.inflight.shape[1],
                         max(cfg.max_transmissions - 1, 1))
@@ -763,6 +868,13 @@ def dense_round_step_lanes(state: SimState, metrics: RunMetrics,
     overflow_frac = torch.maximum(
         metrics.overflow_frac,
         overflow_fraction(n_overflow, heads[0].numel()))
+    if trace is not None:
+        coverage_delivered_dense_lanes_(trace.counts[:, COVERAGE:GRANTS],
+                                        state.have, have0, state.alive)
+        record_row_lanes(trace, trace_row(trace, t, cfg.trace_every),
+                         alive=state.alive, state=state, cfg=cfg, rf=faults,
+                         sync_ok=sync_ok, n_overflow=n_overflow,
+                         nbytes=meta.nbytes)
     state = state._replace(heads=heads, gap_lo=lo, gap_hi=hi, t=state.t + 1)
     return state, RunMetrics(coverage_at=coverage_at,
                              converged_at=converged_at,
@@ -781,10 +893,13 @@ def own_lanes(states: SimState) -> SimState:
         **{f: getattr(states, f).clone() for f in _OWNED})
 
 
-def lane_batch(states: SimState, cfg: SimConfig, seeds=None) -> _Batch:
+def lane_batch(states: SimState, cfg: SimConfig, seeds=None,
+               trace: Optional[RoundTrace] = None) -> _Batch:
     """The dense lane loop's batch of every lane of stacked initial
     states (owned), with fresh metrics; with plan ``seeds`` (i32[K], a
-    fault loop's) the tables the node faults write are owned too."""
+    fault loop's) the tables the node faults write are owned too; a lane
+    ``trace`` rides in ``extra`` (its fields, `trace_of`), so a lane that
+    finishes leaves the batch with its trace."""
     lanes = states.alive.shape[0]
     slim = own_lanes(states)
     if seeds is not None:
@@ -792,12 +907,26 @@ def lane_batch(states: SimState, cfg: SimConfig, seeds=None) -> _Batch:
                                 for f in NODE_FAULT_TABLES})
     return _Batch(slim, None, None,
                   _new_lane_metrics(cfg, lanes, states.alive.device), seeds,
-                  list(range(lanes)))
+                  list(range(lanes)), () if trace is None else tuple(trace))
+
+
+def trace_of(extra, start: int = 0) -> RoundTrace:
+    """The lane trace carried in a batch's ``extra`` from ``start``."""
+    return RoundTrace(*extra[start:start + len(RoundTrace._fields)])
+
+
+def stack_traces(finished, start: int = 0) -> RoundTrace:
+    """The finished lanes' traces (each its frozen rows of ``extra``
+    from ``start``), stacked in lane order: a lane trace [K, ...]."""
+    extras = [extra for *_, extra in finished]
+    return RoundTrace(*(
+        torch.stack([x[start + j] for x in extras])
+        for j in range(len(RoundTrace._fields))))
 
 
 def run_dense_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
                     topo: Topology, max_rounds: int, fplan=None,
-                    plan_seeds=None):
+                    plan_seeds=None, telemetry: bool = False):
     """Run every lane of stacked initial states (every field [K, ...],
     ``t`` 0 in all) on the dense round to its own exit or ``max_rounds``:
     faultless, the solo `.round.run_dense` loop per lane; under ``fplan``
@@ -808,7 +937,11 @@ def run_dense_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
     horizon, then each lane's fresh all-have predicate (K14x's lane
     entries).  Returns the lanes' final (SimState, RunMetrics), stacked
     in lane order with ``t`` i32[K]; lane k equals the solo run of its
-    initial state and seed."""
+    initial state and seed.  With ``telemetry`` the flight recorder runs
+    on every lane (a lane trace of ``max_rounds`` rows, `.telemetry.
+    new_trace_lanes`), and the lanes' traces come back third, stacked in
+    lane order: lane k's is its solo run's trace (rows past its exit
+    stay zero)."""
     check_dense_lanes(cfg, topo, fplan)
     dev = states.have.device
     region = regions(cfg.n_nodes, topo.n_regions, dev)
@@ -820,7 +953,10 @@ def run_dense_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
                                     dtype=torch.int32, device=dev)
         horizon = fplan.horizon
         activity = host_activity(fplan)  # read once a run
-    batch = lane_batch(states, cfg, None if fplan is None else plan_seeds)
+    trace = (new_trace_lanes(cfg, max_rounds, lanes, dev) if telemetry
+             else None)
+    batch = lane_batch(states, cfg, None if fplan is None else plan_seeds,
+                       trace)
 
     def step(batch: _Batch):
         t = int(batch.slim.t)
@@ -831,7 +967,8 @@ def run_dense_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
             active = activity[min(t, horizon)]
         state, metrics, done = dense_round_step_lanes(
             batch.slim, batch.metrics, meta, cfg, topo, region, rf, horizon,
-            batch.seeds, active)
+            batch.seeds, active,
+            trace_of(batch.extra) if telemetry else None)
         return batch._replace(slim=state, metrics=metrics), done
 
     up = batch.slim.alive == ALIVE
@@ -843,4 +980,8 @@ def run_dense_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
     else:
         done = torch.stack([all_have(lane, meta, cfg)
                             for lane in _lane_states(batch.slim)])
-    return _stack_results(_run_batch(batch, max_rounds, done, step), cfg)
+    finished = _run_batch(batch, max_rounds, done, step)
+    finals, metrics = _stack_results(finished, cfg)
+    if telemetry:
+        return finals, metrics, stack_traces(finished)
+    return finals, metrics

@@ -783,6 +783,33 @@ def _slab_args(faults, src, dst, use):
     return ptrs, n, e
 
 
+def _count_into(count, cleared) -> None:
+    """Add the ok edges a cut clears (bool[E]) to the flight recorder's
+    int64 accumulator ``count``, in place: a 0-d slot, or on a seed
+    ensemble's lanes (the lanes folded into the edge axis) a ``[K]``
+    view of the lanes' slots, lane k counting its own E / K edges."""
+    if count.dim() == 0:
+        count += cleared.sum()
+    else:
+        count += cleared.view(count.shape[0], -1).sum(dim=1)
+
+
+def _count_args(count, e: int):
+    """K9's count stride ints (lane_edges, count_stride): one lane of all
+    ``e`` edges for a 0-d accumulator, else ``count``'s K lanes (a
+    strided [K] view of the lanes' int64 slots) of e / K edges each."""
+    if count is None or count.dim() == 0:
+        if count is not None:
+            check("count", count, torch.int64, ())
+        return [0, 0]
+    lanes = count.shape[0]
+    if (not count.is_cuda or count.dtype != torch.int64 or count.dim() != 1
+            or lanes <= 0 or e % lanes):
+        raise ValueError(f"count must be a CUDA int64 [K] view with K "
+                         f"dividing the {e} edges, got {tuple(count.shape)}")
+    return [e // lanes, count.stride(0)]
+
+
 def _fault_edges(faults, src, dst, blocks, losses, cut=False, thr=False,
                  ok=None, sym=False, count=None, delay=False, jit=False,
                  sdelay=False):
@@ -790,10 +817,11 @@ def _fault_edges(faults, src, dst, blocks, losses, cut=False, thr=False,
     slice): the cut (with ``sym`` OR the reversed edge's) and/or the
     threshold as new tensors, and/or ``ok`` cleared in place on a cut,
     adding the ok edges it clears to the int64 accumulator ``count`` when
-    given; with ``delay``, ``jit`` or ``sdelay`` also the fault delay,
-    jitter bound or session delay as new i32[E] tensors (K9's latency
-    entry).  Returns (cut, thr, delay, jit, sdelay), None for each output
-    not asked for."""
+    given (a ``[K]`` view on lanes: each lane's edges into its own slot,
+    through the recording launchers counted apart); with ``delay``,
+    ``jit`` or ``sdelay`` also the fault delay, jitter bound or session
+    delay as new i32[E] tensors (K9's latency entry).  Returns (cut,
+    thr, delay, jit, sdelay), None for each output not asked for."""
     e = src.shape[0]
 
     def out(want, dtype):
@@ -804,16 +832,18 @@ def _fault_edges(faults, src, dst, blocks, losses, cut=False, thr=False,
             out(sdelay, torch.int32))
     if ok is not None:
         check("ok", ok, torch.bool, (e,))
-    if count is not None:
-        check("count", count, torch.int64, ())
+    lane_ints = _count_args(count, e)
+    lanes = lane_ints[0] > 0
     if isinstance(faults, RoundFaults):
         use = {c for c, on in (("block", blocks), ("loss", losses),
                                ("delay", delay or sdelay), ("jitter", jit))
                if on}
         slabs, n, _ = _slab_args(faults, src, dst, use)
-        kernels.FAULT_EDGES_MATRIX.launch(
+        kernel = (kernels.FAULT_EDGES_MATRIX_LANES_COUNT if lanes
+                  else kernels.FAULT_EDGES_MATRIX)
+        kernel.launch(
             slabs + [src, dst, outs[0], outs[1], ok, count, *outs[2:]],
-            [n, e, int(sym)])
+            [n, e, int(sym)] + lane_ints)
         return outs
     ptrs, ints = _k9_args(faults, src, dst, blocks, losses)
     n = ints[-2]
@@ -826,11 +856,16 @@ def _fault_edges(faults, src, dst, blocks, losses, cut=False, thr=False,
           (faults.delay_src.shape[0],))
     check("jitter_rounds", faults.jitter_rounds, torch.int32,
           (faults.jitter_src.shape[0],))
-    kernel = kernels.FAULT_EDGES_DELAY if latency else kernels.FAULT_EDGES
+    if lanes:
+        kernel = (kernels.FAULT_EDGES_DELAY_LANES_COUNT if latency
+                  else kernels.FAULT_EDGES_LANES_COUNT)
+    else:
+        kernel = (kernels.FAULT_EDGES_DELAY if latency
+                  else kernels.FAULT_EDGES)
     kernel.launch(
         ptrs[:7] + dp + [faults.delay_rounds] + jp + [faults.jitter_rounds]
         + ptrs[7:] + [outs[0], outs[1], ok, count, *outs[2:]],
-        ints[:4] + di + ji + [n, e, int(sym)],
+        ints[:4] + di + ji + [n, e, int(sym)] + lane_ints,
     )
     return outs
 
@@ -883,8 +918,9 @@ def fault_session_refused(faults: AnyRoundFaults, src, dst, ok=None,
     """bool[E] (or None): the sync session is refused — a cut in EITHER
     direction kills the bidirectional stream.  With ``ok`` the refused
     sessions are also cleared from it in place, and with ``count`` (an
-    int64 accumulator, the flight recorder's) the ok sessions refused
-    are added to it.  K9 (K9m) on the card."""
+    int64 accumulator, the flight recorder's; a ``[K]`` view of the
+    lanes' slots when the edges are K lanes folded) the ok sessions
+    refused are added to it.  K9 (K9m) on the card."""
     if not _has(faults, "block"):
         return None
     if src.device.type == "cpu":
@@ -892,7 +928,7 @@ def fault_session_refused(faults: AnyRoundFaults, src, dst, ok=None,
                                                                 src)
         if ok is not None:
             if count is not None:
-                count += (ok & refused).sum()
+                _count_into(count, ok & refused)
             ok &= ~refused
         return refused
     return _fault_edges(faults, src, dst, True, False, cut=True, sym=True,
@@ -932,14 +968,16 @@ def fault_session_effects(faults: AnyRoundFaults, src, dst, ok=None,
 def fault_wire_effects(faults: AnyRoundFaults, src, dst, ok, cut=None):
     """The broadcast's fault seam, its per-edge half: cuts clear ``ok``
     IN PLACE (adding the ok edges they sever to the int64 accumulator
-    ``cut`` when given, the flight recorder's); returns (ok, thr, delay,
-    jit) — the u8[E] extra-loss thresholds, the i32[E] fault delay that
-    adds to the topology's, and the i32[E] jitter bound, each None when
-    the plan has no fault of its class.  The per-(edge, payload) draws
-    JAX makes here — the loss bits it ORs into ``drop`` (fold_in key 101
-    on the broadcast phase key) and the jitter it adds to each payload's
-    delay (fold_in key 102, ``randint(0, 2^31 - 1) % (jit + 1)`` where
-    jit > 0) — are made by the ring scatter that consumes these
+    ``cut`` when given, the flight recorder's: a ``[K]`` view of the
+    lanes' slots when the edges are K lanes folded); returns (ok, thr,
+    delay, jit) — the u8[E] extra-loss thresholds, the i32[E] fault
+    delay that adds to the topology's, and the i32[E] jitter bound, each
+    None when the plan has no fault of its class.  The per-(edge,
+    payload) draws JAX makes here — the loss bits it ORs into ``drop``
+    (fold_in key 101 on the broadcast phase key) and the jitter it adds
+    to each payload's delay (fold_in key 102, ``randint(0, 2^31 - 1) %
+    (jit + 1)`` where jit > 0) — are made by the ring scatter that
+    consumes these
     (`packed.scatter_sending_lossy`, K10's streams).  One K9 launch on
     the card (the latency entry when the plan has delay or jitter), or
     one K9m launch for a matrix slice."""
@@ -953,7 +991,7 @@ def fault_wire_effects(faults: AnyRoundFaults, src, dst, ok, cut=None):
         if has_block:
             hit = _block_plain(faults, src, dst)
             if cut is not None:
-                cut += (ok & hit).sum()
+                _count_into(cut, ok & hit)
             ok &= ~hit
         return (ok,
                 _loss_plain(faults, src, dst) if has_loss else None,

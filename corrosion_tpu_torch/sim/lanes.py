@@ -82,13 +82,9 @@ from .words import (
 )
 
 
-def _check_shared(cfg: SimConfig, topo: Topology, telemetry: bool) -> None:
-    """The refusals both rounds' lanes share: the recorder, topology
-    keys, PeerSwap and the protocol variants."""
-    if telemetry:
-        raise NotImplementedError(
-            "the flight recorder on lanes is not ported yet (K17-K19 "
-            "lanes, ROADMAP B16d)")
+def _check_shared(cfg: SimConfig, topo: Topology) -> None:
+    """The refusals both rounds' lanes share: topology keys, PeerSwap and
+    the protocol variants."""
     if topo != Topology():
         raise NotImplementedError(
             "topology families and keys on lanes are not ported yet "
@@ -114,7 +110,12 @@ def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
     if not packed_supported(cfg, topo):
         raise ValueError("a dense configuration on the packed round's "
                          "lanes: run it through `.dense_lanes`")
-    _check_shared(cfg, topo, telemetry)
+    if telemetry:
+        raise NotImplementedError(
+            "the flight recorder on the packed round's lanes is not ported "
+            "yet (the word forms of K17-K19 on lanes, ROADMAP B16m); the "
+            "dense round's lanes record (allow_packed=False)")
+    _check_shared(cfg, topo)
     if cfg.rate_limit_bytes_round is not None or (
             cfg.sync_budget_bytes is not None):
         raise NotImplementedError(
@@ -141,15 +142,15 @@ def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
 def check_dense_lanes(cfg: SimConfig, topo: Topology, fplan=None,
                       telemetry: bool = False) -> None:
     """Refuse, naming the ROADMAP item that ports it, every configuration
-    the dense round's lanes do not run: the recorder, topology keys,
-    PeerSwap and the protocol variants.  Both byte budgets run (inside
-    K12's and K13's lane entries), and so do full view, partial view,
-    ground-truth membership and fault plans of either form, with delay
-    and jitter (``fplan`` is accepted)."""
+    the dense round's lanes do not run: topology keys, PeerSwap and the
+    protocol variants.  Both byte budgets run (inside K12's and K13's
+    lane entries), and so do full view, partial view, ground-truth
+    membership, fault plans of either form, with delay and jitter
+    (``fplan`` is accepted), and the flight recorder (``telemetry``)."""
     if packed_supported(cfg, topo):
         raise ValueError("a packed configuration on the dense round's "
                          "lanes: run it through `run_lanes`")
-    _check_shared(cfg, topo, telemetry)
+    _check_shared(cfg, topo)
 
 
 # -- the word phases (K8) ----------------------------------------------------
@@ -809,7 +810,7 @@ def _new_lane_metrics(cfg: SimConfig, lanes: int, device) -> RunMetrics:
 def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
               topo: Topology, max_rounds: int,
               fplan: Optional[FactoredFaultPlan] = None,
-              seeds: Optional[torch.Tensor] = None):
+              seeds: Optional[torch.Tensor] = None, telemetry: bool = False):
     """Run every lane of stacked initial states (every field [K, ...],
     ``t`` 0 in all) to its own exit or ``max_rounds``: faultless, the
     solo `packed.run_packed`'s loop per lane; under ``fplan`` (a factored
@@ -818,8 +819,9 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
     no exit before the horizon, then the fresh all-have predicate.
     Returns the lanes' final (SimState, RunMetrics), stacked in lane
     order with ``t`` i32[K] on the host; lane k equals the solo run of
-    its initial state and seed."""
-    check_packed_lanes(cfg, topo, fplan)
+    its initial state and seed.  ``telemetry`` raises: the recorder on
+    these lanes is ROADMAP B16m."""
+    check_packed_lanes(cfg, topo, fplan, telemetry)
     dev = states.have.device
     k_lanes = states.have.shape[0]
     region = regions(cfg.n_nodes, topo.n_regions, dev)

@@ -32,6 +32,14 @@ none of this and takes exactly the path it took before.
 f32 (`.fused`); JAX sums f32 terms, so the two agree within m·2⁻²⁴ of
 the total for m terms, and every integer channel is exact.
 
+**On a seed ensemble's lanes** (B16r, dense half) a lane trace
+(`new_trace_lanes`) is K solo traces side by side — channels
+``[K, R, ...]``, ``acc`` [K, len(ACC)], ``counts`` [K, 3, P] — and its
+lane entries (`coverage_delivered_dense_lanes_`, `wire_rows_lanes_`,
+`record_row_lanes`) are the solo kernels with a lane grid dimension,
+each lane adding into and resetting only its own buffers; `lane_trace`
+gives lane k as the solo trace its exporters read.
+
 The host exporters (`trace_host`, `coverage_curve_digest`,
 `coverage_latency_rounds`, `trace_summary`, `trace_rows`,
 `write_flight_jsonl`) are the port's own copies of JAX's, numpy only.
@@ -42,6 +50,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -128,10 +137,11 @@ def trace_rows_for(max_rounds: int, every: int = 1) -> int:
 def trace_row(trace: RoundTrace, t: int, every: int) -> int:
     """Buffer row of round ``t`` (a host int) under a ``trace_every``
     stride: t // every on a sample round, else the scratch row (the last
-    row `new_trace` allocates when every > 1), which no exporter reads."""
+    row `new_trace` allocates when every > 1), which no exporter reads.
+    A lane trace's lanes share it: they run in lockstep."""
     if every <= 1:
         return t
-    return t // every if t % every == 0 else trace.up_nodes.shape[0] - 1
+    return t // every if t % every == 0 else trace.up_nodes.shape[-1] - 1
 
 
 def new_trace(cfg: SimConfig, max_rounds: int, device) -> RoundTrace:
@@ -156,9 +166,28 @@ def new_trace(cfg: SimConfig, max_rounds: int, device) -> RoundTrace:
     )
 
 
+def new_trace_lanes(cfg: SimConfig, max_rounds: int, lanes: int,
+                    device) -> RoundTrace:
+    """`new_trace` with a leading lane axis: channels ``[K, R, ...]``,
+    ``acc`` int64[K, len(ACC)] (each lane's own ticket among them),
+    ``counts`` i32[K, 3, P] — K solo traces side by side, so lane k's
+    slices (`lane_trace`) are the solo trace of its run.  The row index
+    and the scratch row are shared (`trace_row`)."""
+    solo = new_trace(cfg, max_rounds, device)
+    return RoundTrace(*(x.unsqueeze(0).repeat(lanes, *([1] * x.dim()))
+                        for x in solo))
+
+
+def lane_trace(trace: RoundTrace, k: int) -> RoundTrace:
+    """Lane k of a lane trace as a solo `RoundTrace` (views), the form
+    every exporter and `record_row` take."""
+    return RoundTrace(*(x[k] for x in trace))
+
+
 def acc_slot(trace: RoundTrace, name: str) -> torch.Tensor:
-    """The 0-d view of accumulator ``name`` that a phase adds into."""
-    return trace.acc[_SLOT[name]]
+    """The view of accumulator ``name`` that a phase adds into: 0-d on a
+    solo trace, ``[K]`` (each lane's slot) on a lane trace."""
+    return trace.acc[..., _SLOT[name]]
 
 
 def wire_loss_active(topo, faults) -> bool:
@@ -302,6 +331,47 @@ def coverage_delivered_dense_(out: torch.Tensor, have: torch.Tensor,
                                         [n, p])
 
 
+def coverage_delivered_dense_lanes_plain(out: torch.Tensor, have, have0,
+                                         alive) -> None:
+    """Plain version of K17's dense lane entry: the solo plain version on
+    each lane, added to its rows ``out[k]`` in place."""
+    for k in range(have.shape[0]):
+        cov, dlv = coverage_delivered_dense_plain(have[k], have0[k], alive[k])
+        out[k, 0] += cov
+        out[k, 1] += dlv
+
+
+def coverage_delivered_dense_lanes_(out: torch.Tensor, have: torch.Tensor,
+                                    have0: torch.Tensor,
+                                    alive: torch.Tensor) -> None:
+    """`coverage_delivered_dense_` per lane: u8 ``have``, ``have0``
+    [K, N, P] and ``alive`` [K, N] into each lane's two count rows of
+    ``out`` (a lane trace's ``counts[:, COVERAGE:GRANTS]``, [K, 2, P],
+    rows 3·P apart), in place.  K17's dense lane entry on the card."""
+    if have.device.type == "cpu":
+        coverage_delivered_dense_lanes_plain(out, have, have0, alive)
+        return
+    lanes, n, p = have.shape
+    check("have", have, torch.uint8, (lanes, n, p))
+    check("have0", have0, torch.uint8, (lanes, n, p))
+    check("alive", alive, torch.uint8, (lanes, n))
+    _check_lane_rows("out", out, torch.int32, (lanes, 2, p))
+    kernels.TRACE_COVERAGE_DENSE_LANES.launch(
+        [have, have0, alive, out[0, 0], out[0, 1]],
+        [n, p, out.stride(0), lanes])
+
+
+def _check_lane_rows(name: str, t: torch.Tensor, dtype, shape) -> None:
+    """A ``[K, ...]`` view of a lane trace's buffers: contiguous within
+    a lane, lanes any stride apart (what the lane entries take)."""
+    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be a CUDA {dtype} view of shape "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
+    if not t[0].is_contiguous():
+        raise ValueError(f"{name} must be contiguous within a lane")
+
+
 # -- K18: the broadcast wire's frames and bytes ------------------------------
 
 
@@ -349,6 +419,35 @@ def wire_rows_(acc: torch.Tensor, row_frames: torch.Tensor,
     check("ok", ok, torch.bool, (n * fanout,))
     kernels.TRACE_WIRE_ROWS.launch([row_frames, row_bytes, ok, acc],
                                    [n, fanout])
+
+
+def wire_rows_lanes_plain(acc: torch.Tensor, row_frames, row_bytes, ok,
+                          fanout: int) -> None:
+    """Plain version of K18's rows lane entry: `fold_over_edges` on each
+    lane, added to its accumulators ``acc[k]`` in place."""
+    for k in range(row_frames.shape[0]):
+        f, b = fold_over_edges(row_frames[k], row_bytes[k], ok[k], fanout)
+        acc[k, 0] += f
+        acc[k, 1] += b
+
+
+def wire_rows_lanes_(acc: torch.Tensor, row_frames: torch.Tensor,
+                     row_bytes: torch.Tensor, ok: torch.Tensor,
+                     fanout: int) -> None:
+    """`wire_rows_` per lane: each lane's per-node frames and bytes
+    i32[K, N] folded over its ok edges bool[K, N * fanout] into its
+    accumulators ``acc`` (a lane trace's ``acc[:, WIRE]``, [K, 2]), in
+    place.  K18's rows lane entry on the card."""
+    if row_frames.device.type == "cpu":
+        wire_rows_lanes_plain(acc, row_frames, row_bytes, ok, fanout)
+        return
+    lanes, n = row_frames.shape
+    _check_lane_rows("acc", acc, torch.int64, (lanes, 2))
+    check("row_frames", row_frames, torch.int32, (lanes, n))
+    check("row_bytes", row_bytes, torch.int32, (lanes, n))
+    check("ok", ok, torch.bool, (lanes, n * fanout))
+    kernels.TRACE_WIRE_ROWS_LANES.launch(
+        [row_frames, row_bytes, ok, acc[0]], [n, fanout, acc.stride(0), lanes])
 
 
 def pull_fold(frames: torch.Tensor, byte_tot: torch.Tensor,
@@ -489,6 +588,86 @@ def record_row(trace: RoundTrace, row: int, *, alive, state, cfg: SimConfig,
          nbytes, trace.acc, trace.counts,
          *(getattr(trace, name) for name in CHANNELS)],
         [n, cells, swim, sync_ok.numel(), p, row],
+    )
+    return trace
+
+
+def _lane_beliefs(state, k: int, alive):
+    """Lane k's SWIM beliefs (``view``, ``pid``, ``pkey``; None stays
+    None) and its ``alive`` as the state-like view `swim_belief_counts`
+    reads."""
+    return SimpleNamespace(alive=alive, **{
+        f: None if getattr(state, f, None) is None else getattr(state, f)[k]
+        for f in ("view", "pid", "pkey")})
+
+
+def record_row_lanes_plain(trace: RoundTrace, row: int, *, alive, state,
+                           cfg: SimConfig, rf, sync_ok, n_overflow,
+                           nbytes) -> RoundTrace:
+    """Plain version of K19's lane entry: the solo plain version on each
+    lane's trace, alive, beliefs, sync edges and overflow count (the
+    fault slice shared)."""
+    for k in range(alive.shape[0]):
+        record_row_plain(lane_trace(trace, k), row, alive=alive[k],
+                         state=_lane_beliefs(state, k, alive[k]), cfg=cfg,
+                         rf=rf, sync_ok=sync_ok[k], n_overflow=n_overflow[k],
+                         nbytes=nbytes)
+    return trace
+
+
+def record_row_lanes(trace: RoundTrace, row: int, *, alive, state,
+                     cfg: SimConfig, rf, sync_ok, n_overflow,
+                     nbytes) -> RoundTrace:
+    """`record_row` for every lane of a lane trace (`new_trace_lanes`):
+    lane k's row ``row`` from its accumulators, ``alive[k]``, its
+    beliefs (full view ``view`` [K, N, N], partial view ``pid``/``pkey``
+    [K, N, M], or ground truth), the shared fault slice ``rf``'s crashes
+    and wipes, ``sync_ok[k]`` (bool [K, N·S]) and ``n_overflow[k]``
+    (i32[K]), with the grant fold over the shared ``nbytes``; then each
+    lane's accumulators are zeroed.  K19's lane entry on the card: one
+    ticket a lane, so each lane's last block writes and resets only its
+    own."""
+    if alive.device.type == "cpu":
+        return record_row_lanes_plain(trace, row, alive=alive, state=state,
+                                      cfg=cfg, rf=rf, sync_ok=sync_ok,
+                                      n_overflow=n_overflow, nbytes=nbytes)
+    lanes, n = alive.shape
+    p = cfg.n_payloads
+    check("alive", alive, torch.uint8, (lanes, n))
+    pid = pkey = view = None
+    swim, cells = 0, 0
+    if cfg.swim_full_view:
+        swim, cells, view = 2, n * n, state.view
+        check("view", view, torch.int8, (lanes, n, n))
+    elif cfg.swim_partial_view:
+        swim, pid, pkey = 1, state.pid, state.pkey
+        cells = pid[0].numel()
+        check("pid", pid, torch.int32, tuple(pid.shape))
+        check("pkey", pkey, torch.int32, tuple(pid.shape))
+    rf_alive = rf_wipe = None
+    if rf is not None:
+        rf_alive, rf_wipe = rf.alive, rf.wipe
+        check("rf.alive", rf_alive, torch.int8, (n,))
+        check("rf.wipe", rf_wipe, torch.bool, (n,))
+    es = sync_ok.shape[1]
+    check("sync_ok", sync_ok, torch.bool, (lanes, es))
+    check("n_overflow", n_overflow, torch.int32, (lanes,))
+    check("nbytes", nbytes, torch.int32, (p,))
+    check("acc", trace.acc, torch.int64, (lanes, len(ACC)))
+    check("counts", trace.counts, torch.int32, (lanes, 3, p))
+    rows = trace.up_nodes.shape[1]
+    if not 0 <= row < rows:
+        raise ValueError(f"trace row {row} is outside the trace")
+    for name in CHANNELS:
+        t = getattr(trace, name)
+        check(name, t, torch.float32 if name in _F32 else torch.int32,
+              (lanes, rows, p) if name in ("coverage", "delivered")
+              else (lanes, rows))
+    kernels.TRACE_ROW_LANES.launch(
+        [alive, pid, pkey, view, rf_alive, rf_wipe, sync_ok, n_overflow,
+         nbytes, trace.acc, trace.counts,
+         *(getattr(trace, name) for name in CHANNELS)],
+        [n, cells, swim, es, p, row, rows, lanes],
     )
     return trace
 
@@ -688,8 +867,11 @@ def run_membership_detect_lanes(states, meta, cfg: SimConfig, topo,
     became >= 0 leaves the batch with its state after that round, as
     JAX's select-frozen lane does; the rest run to ``max_rounds``.
     Returns (finals, metrics, detect_rounds i32[K]), -1 for a lane that
-    never detected; the recorder on lanes is not ported."""
-    from .dense_lanes import dense_round_step_lanes, lane_batch
+    never detected, and with ``telemetry`` the lanes' traces fourth
+    (`new_trace_lanes` rows, stacked in lane order; lane k's is its solo
+    run's), as JAX ``ensemble.py:187`` returns them."""
+    from .dense_lanes import (
+        dense_round_step_lanes, lane_batch, stack_traces, trace_of)
     from .lanes import _run_batch, _stack_results, check_dense_lanes
 
     dev, region = _detect_setup(states, cfg, topo, device)
@@ -697,12 +879,16 @@ def run_membership_detect_lanes(states, meta, cfg: SimConfig, topo,
     lanes = states.alive.shape[0]
     batch = lane_batch(states, cfg)
     detect = new_detect_lanes(lanes, dev)
-    batch = batch._replace(extra=(detect, batch.slim.alive == ALIVE))
+    # the trace rides behind (detect, up) in the batch's per-lane tensors
+    trace = (tuple(new_trace_lanes(cfg, max_rounds, lanes, dev))
+             if telemetry else ())
+    batch = batch._replace(extra=(detect, batch.slim.alive == ALIVE) + trace)
 
     def step(batch):
         state, metrics, _ = dense_round_step_lanes(
-            batch.slim, batch.metrics, meta, cfg, topo, region)
-        detect, up = batch.extra
+            batch.slim, batch.metrics, meta, cfg, topo, region,
+            trace=trace_of(batch.extra, 2) if telemetry else None)
+        detect, up = batch.extra[:2]
         t = int(state.t)
         if cfg.swim_full_view:
             detect_full_lanes_(detect, state.view, up, t)
@@ -714,6 +900,8 @@ def run_membership_detect_lanes(states, meta, cfg: SimConfig, topo,
     finished = _run_batch(batch, max_rounds, detect[:, 0] >= 0, step)
     finals, metrics = _stack_results(finished, cfg)
     detect_rounds = torch.stack([extra[0][0] for *_, extra in finished])
+    if telemetry:
+        return finals, metrics, detect_rounds, stack_traces(finished, 2)
     return finals, metrics, detect_rounds
 
 

@@ -236,9 +236,11 @@ def _refused_spec(case):
     elif case == "full_view":
         base = dict(base, swim_partial_view=False, swim_full_view=True)
     if case == "detect":
-        # a detect cell with the recorder (the recorder's lanes)
-        return dataclasses.replace(spec_mod.swim_churn_64_spec(),
-                                   telemetry=True)
+        # a detect cell over a topology family (topology on the dense
+        # round's lanes; the recorder on them runs since B16r)
+        spec = spec_mod.swim_churn_64_spec()
+        return dataclasses.replace(spec, scenario=dict(
+            spec.scenario, topo_family="wan-3x2"), telemetry=True)
     if case == "serving":
         return spec_mod.serving_3node_spec()
     return spec_mod.CampaignSpec(name=case, scenario=base, seeds=(0, 1),
@@ -261,7 +263,8 @@ def test_engine_refuses_what_the_slice_does_not_run(case):
         kw["telemetry"] = True
     if case == "mesh":
         kw["mesh_devices"] = 2
-    with pytest.raises(NotImplementedError, match=r"ROADMAP (B16d|A13|A,)"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP (B16d|B16m|A13|A,)"):
         engine.run_campaign(spec, **kw)
 
 
@@ -279,12 +282,17 @@ def test_baseline_family_and_default_keys_run():
 
 
 def test_ensemble_refusals():
+    """The detect ensemble refuses a topology on its lanes (B16d); the
+    packed round's lanes refuse the recorder (B16m), which the dense
+    round's and the detect loop's lanes run."""
+    from corrosion_tpu_torch.sim.topology import Topology
+
     spec = spec_mod.swim_churn_64_spec()
     with pytest.raises(NotImplementedError, match="B16d"):
-        run_detect_ensemble(spec.sim_config({}), spec.topo({}), None, (0,),
-                            telemetry=True, device="cpu")
+        run_detect_ensemble(spec.sim_config({}), Topology(n_regions=2),
+                            None, (0,), telemetry=True, device="cpu")
     spec = _refused_spec("latency")
-    with pytest.raises(NotImplementedError, match="B16d"):
+    with pytest.raises(NotImplementedError, match="recorder.*B16m"):
         run_seed_ensemble(None, spec.sim_config({}), spec.topo({}), None,
                           (0,), telemetry=True, device="cpu")
 

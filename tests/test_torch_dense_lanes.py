@@ -159,11 +159,13 @@ def _dense_cfg(**kw):
                                   "peerswap", "protocol"))
 def test_dense_check_refuses_by_name(case):
     """The dense lane check refuses what this round's lanes do not run,
-    each naming ROADMAP B16d: the recorder, topology keys, PeerSwap and
-    the protocol variants.  Fault plans it now runs: the ``fault_plan``
-    case holds the check's acceptance of a plan, and the ensemble's run
-    under it (two seeds of the 3-node parity campaign's matrix plan)
-    equal to JAX's, lane by lane."""
+    each naming ROADMAP B16d: topology keys, PeerSwap and the protocol
+    variants.  Fault plans and the recorder it now runs: the
+    ``fault_plan`` case holds the check's acceptance of a plan, and the
+    ensemble's run under it (two seeds of the 3-node parity campaign's
+    matrix plan) equal to JAX's, lane by lane; the ``telemetry`` case its
+    acceptance of the recorder, which the packed lanes' check refuses
+    naming B16m."""
     cfg, topo, plan, kw = _dense_cfg(), Topology(), None, {}
     if case == "fault_plan":
         from corrosion_tpu.campaign.spec import builtin_spec as jbuiltin
@@ -177,9 +179,17 @@ def test_dense_check_refuses_by_name(case):
         assert_lanes_equal_jax(jf, jm, pf, pm, "fault_plan")
         return
     if case == "telemetry":
-        kw["telemetry"] = True
-        match = "flight recorder on lanes"
-    elif case == "topology":
+        from corrosion_tpu_torch.sim.lanes import check_packed_lanes
+
+        check_dense_lanes(cfg, topo, plan, telemetry=True)
+        with pytest.raises(NotImplementedError,
+                           match="flight recorder on the packed.*B16m"):
+            check_packed_lanes(_dense_cfg(packed_min_cells=0,
+                                          rate_limit_bytes_round=None,
+                                          sync_budget_bytes=None), topo,
+                               telemetry=True)
+        return
+    if case == "topology":
         topo = Topology(n_regions=2)
         match = "topology families"
     elif case == "peerswap":

@@ -164,16 +164,22 @@ def test_measure_wire_stride_value_error_is_jax():
 
 
 def test_detect_cell_with_the_recorder_is_refused_by_name():
-    """The recorder on lanes is not ported: a detect cell asked for
-    telemetry raises NotImplementedError naming ROADMAP B16d, and so does
-    `run_detect_ensemble` with ``telemetry``."""
+    """The recorder on the detect loop's lanes runs since B16r: a detect
+    cell asked for telemetry gains the telemetry block (one summary a
+    lane) and keeps its result digest; what the lanes still refuse — a
+    topology on them — raises NotImplementedError naming ROADMAP B16d,
+    with or without the recorder."""
     spec = _detect_spec()
-    with pytest.raises(NotImplementedError, match="recorder's lanes.*B16d"):
-        engine.run_campaign(spec, telemetry=True, device="cpu")
+    plain = engine.run_campaign(spec, device="cpu")
+    art = engine.run_campaign(spec, telemetry=True, device="cpu")
+    assert art["result_digest"] == plain["result_digest"]
+    summaries = art["cells"][0]["telemetry"]["per_seed"]
+    assert [s["rounds"] for s in summaries] == \
+        art["cells"][0]["per_seed"]["rounds"]
     cfg = spec.sim_config({})
-    with pytest.raises(NotImplementedError, match="B16d"):
-        run_detect_ensemble(cfg, Topology(), None, (0,), telemetry=True,
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="topology.*B16d"):
+        run_detect_ensemble(cfg, Topology(n_regions=2), None, (0,),
+                            telemetry=True, device="cpu")
 
 
 def test_detect_needs_a_swim_tier_on_lanes():

@@ -1610,3 +1610,82 @@ def test_dense_fault_ensemble_on_card_equals_cpu(card, case):
                                         topo, fp, spec.max_rounds)
         for name, x, y in zip(solo._fields, solo, lane_state(outs[0][0], k)):
             assert torch.equal(x.cpu(), y.cpu()), (k, name)
+
+
+# -- the flight recorder on the dense round's lanes (B16r) --------------------
+
+
+TRACE_LANE_CASES = {
+    "coverage_dense": lambda s, dev, g, gen: [s.compare_lane_coverage_dense(
+        dev, gen, 3, n=3001, p=96, timed=False)],
+    "wire_rows": lambda s, dev, g, gen: [s.compare_lane_wire_rows(
+        dev, gen, 3, n=3001, timed=False)],
+    "trace_row": lambda s, dev, g, gen: [s.compare_lane_trace_row(
+        dev, gen, 3, n=3001, p=96, full_n=257, timed=False)],
+    "broadcast_trace": lambda s, dev, g, gen: s.compare_lane_broadcast_trace(
+        dev, g, gen, 3, n=3001, n1k=301, timed=False),
+    "sync_trace": lambda s, dev, g, gen: s.compare_lane_sync_trace(
+        dev, g, gen, 3, n=3001, timed=False),
+    "fault_counts": lambda s, dev, g, gen: s.compare_lane_fault_counts(
+        dev, gen, 3, n=3001, mid=333, timed=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRACE_LANE_CASES))
+def test_trace_lane_kernels(card, case):
+    """chip_smoke's phase 3lr at small and ragged shapes: K17's dense
+    lane entry, K18's rows lane entry, K19's lane entry, the recording
+    forms of K12, K12f, K13 and K13d and the lane-strided counts of K9,
+    its latency entry and K9m equal to their plain versions, each lane
+    to the solo entry on its inputs, every trap reached."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(len(case))
+    rows = TRACE_LANE_CASES[case](_smoke(), card,
+                                  np.random.default_rng(len(case)), gen)
+    assert all(row["equal"] for row in rows), [r["name"] for r in rows]
+
+
+@pytest.mark.parametrize("case", ("parity", "churn_partial", "every2"))
+def test_trace_ensemble_on_card_equals_cpu(card, case):
+    """Recording lanes through the engine's ensembles on the card: the
+    3-node parity campaign (four seeds, matrix plan), a 256-node
+    partial-view detect ensemble (three seeds) and the parity campaign at
+    trace_every 2 (two seeds): every lane tensor, metric and trace field
+    equal to the same ensemble's plain versions on the CPU."""
+    from corrosion_tpu_torch.campaign import spec as sp
+    from corrosion_tpu_torch.campaign.ensemble import (
+        run_detect_ensemble, run_seed_ensemble)
+
+    if case == "churn_partial":
+        spec = sp.swim_churn_partial_spec(seeds=(0, 1, 2), n=256,
+                                          max_rounds=150)
+    else:
+        spec = sp.fault_parity_3node_spec(
+            (0, 1, 2, 3) if case == "parity" else (0, 1))
+        if case == "every2":
+            spec = dataclasses.replace(spec, scenario=dict(
+                spec.scenario, trace_every=2))
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    detect = spec.detect_membership({})
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta = uniform_payloads(cfg, dev,
+                                inject_every=1 if detect
+                                else spec.inject_every({}))
+        if detect:
+            out = run_detect_ensemble(cfg, topo, meta, spec.seeds,
+                                      kill_every=spec.kill_every({}),
+                                      max_rounds=spec.max_rounds,
+                                      telemetry=True, device=dev)
+        else:
+            out = run_seed_ensemble(spec.fault_plan({}, seed=spec.seeds[0]),
+                                    cfg, topo, meta, spec.seeds,
+                                    max_rounds=spec.max_rounds,
+                                    telemetry=True, device=dev)
+        outs.append(out)
+    for a, b in zip(*outs):
+        if isinstance(b, torch.Tensor):
+            assert torch.equal(a.cpu(), b.cpu())
+            continue
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y.cpu()), name
