@@ -16,7 +16,9 @@ result line):
    K13d and K14x for the dense round's fault loop, and of K17's dense
    entry, K18's rows entry and K19 with the recording forms of K12,
    K12f, K13, K13d and K9/K9m's counts for the recorder on the dense
-   round's lanes) from the twenty-two
+   round's lanes, and of K20's slots, caps and reach entries, K12t (with
+   its recording form), K1's view entry and K21 for the topology families
+   and PeerSwap on the dense round's lanes) from the twenty-two
    sources in ``corrosion_tpu_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -259,8 +261,9 @@ result line):
    entry, its ``spec_hash`` and ``result_digest`` and every lane's
    rounds, detect round or p99, detected fraction, false DOWNs and
    digest against the goldens pinned from live JAX (at 100k lane 0
-   against JAX's solo golden, every lane against the port's solo run of
-   its seed on the card); the 100k, full-4096 and broadcast ensembles'
+   against JAX's solo golden, every lane against the golden pinned from
+   the card's run whose lanes equalled the port's solo runs); the
+   full-4096 and broadcast ensembles' lanes against their solo runs and
    walls beside their 8 solo walls, with ``max_memory_allocated``
    (phase 3l before the paths compares every dense lane entry at K = 8
    on those paths' shapes — broadcast-1k's with the default and a
@@ -303,9 +306,11 @@ result line):
    f32 bound) and dense-latency-storm-100k-seeds8 with ``telemetry``
    (its digest; the latency entry's lane-strided counts),
    swim-churn-partial-4096-seeds8 with ``telemetry`` (path 50: its
-   digest, lane 0's summary and ``trace_digest``), each with its
-   recording lane entries launched and no solo entry, every lane's
-   whole trace equal to its solo recording run on the card (phase 3lr
+   digest, lane 0's summary and ``trace_digest``, every lane's trace
+   digest against the ones pinned from a run whose lanes equalled their
+   solo runs), each with its recording lane entries launched and no
+   solo entry, every other lane's whole trace equal to its solo
+   recording run on the card (phase 3lr
    before the paths compares K17's dense lane entry, K18's rows lane
    entry and K19's lane entry at the 8-lane dense fault storm's shapes
    — K19 also on full-view beliefs at 4096 and at trace_every 2's
@@ -317,6 +322,31 @@ result line):
    their own slots, bytes past 2^31, a decimated scratch row, a shared
    fault slice, blocks spanning two lanes, one block holding every lane
    of the 3-node plan, a lane without edges);
+   then topology families and PeerSwap on the dense round's lanes (B16t,
+   B16s), each from launch counters at 0 through ``run_campaign``:
+   peer-sampler-frontier (path 51: both samplers × wan-3x2 and
+   hetero-degree, 96 nodes, seeds 0-3, ``measure_wire``; also through
+   ``config_peer_sampler_frontier``), broadcast-1k-wan-3x2-peerswap-
+   seeds8-wire (path 52, lane 0 against JAX's solo golden with the view's
+   digest), broadcast-1k-flat-lossy-uniform-seeds8-wire and broadcast-
+   1k-wan-fly-6r-uniform-seeds8 (path 53) and dense-storm-wan-3x2-100k-
+   seeds8 (path 54: the 100k storm on the dense round over wan-3x2,
+   100 000 × 512 × 8 lanes), each with its lane entries launched and no
+   solo entry, its ``spec_hash``, ``result_digest`` and every cell's
+   per-seed rounds (and ``wire_bytes``; at 100k each lane's p99,
+   convergence and digest) against the goldens pinned from live JAX,
+   every lane's final state equal to the port's solo run of its cell
+   and seed on the card, the solo walls beside the ensemble's with
+   ``max_memory_allocated`` (phase 3lt before the paths compares K20's
+   slots, caps and reach lane entries, K12t's lane entry and its
+   recording form, K1's view lane entry and K21's lane entries at K = 8
+   on those paths' shapes, each lane held to the solo entry, printing
+   that each trap was reached: lanes whose draws differ by key alone, a
+   tier at certainty beside a tier at 0, matrix delay classes and a
+   fault delay that wrap the ring, caps below F in some rows only,
+   offers that collide inside one lane with the same slot indices in
+   another lane, a dead partner, blocks spanning two lanes, a lane
+   without edges);
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
@@ -335,7 +365,8 @@ result line):
    rounds of the 8-lane swim-churn-partial-100k, churn-full-4096 and
    broadcast-1k rounds beside their solo rounds, and rounds 5-7 of the
    8-lane dense-fault-storm-100k without and with the recorder (with
-   ``max_memory_allocated``) beside its solo rounds;
+   ``max_memory_allocated``) beside its solo rounds, and rounds 5-7 of
+   the 8-lane dense-storm-wan-3x2-100k beside its solo rounds;
 17. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
@@ -369,8 +400,10 @@ INT32_LANES_PER_SM = 64
 OPS_PER_HASH = 72
 OPS_PER_RANDINT = 2 * (OPS_PER_HASH + 1) + 5
 WARMUP, REPS = 3, 20
-# calls timed of a plain version that takes a tenth of a second or more
+# calls timed of a plain version that takes a tenth of a second or more,
+# and of any call that takes SLOW_CALL_MS or more (no kernel comes near)
 SLOW_PLAIN_REPS = 3
+SLOW_CALL_MS = 30.0
 # device launches (kernels, copies, fills) of `profile_storm`'s first 3
 # rounds with the flight recorder off, setup included, as the port made
 # them before the recorder existed: the faultless storm's and the fault
@@ -409,10 +442,20 @@ def _int32_ops_per_s() -> float:
 def _time_ms(fn, reps=REPS) -> float:
     """Device milliseconds per call: after WARMUP eager calls, ``reps``
     calls are captured in one CUDA graph, whose replay is timed with CUDA
-    events — the host's launch overhead stays out of the number."""
-    for _ in range(WARMUP):
+    events — the host's launch overhead stays out of the number.  A call
+    whose last eager run took SLOW_CALL_MS or more (a plain version at a
+    path's full shapes) is captured SLOW_PLAIN_REPS times at most."""
+    for _ in range(WARMUP - 1):
         fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    if start.elapsed_time(end) >= SLOW_CALL_MS:
+        reps = min(reps, SLOW_PLAIN_REPS)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -6331,10 +6374,11 @@ def dense_ensemble_paths(dev, goldens):
     the artifact's spec_hash and result_digest and each lane's rounds,
     detect round or p99, digest, detected fraction and false DOWNs
     against the golden pinned from live JAX; swim-churn-partial-100k's
-    lanes (JAX's CPU run does not fit) each against the port's solo run
-    of its seed on this card, lane 0 also against JAX's solo golden.
-    The 100k, full-4096 and broadcast ensembles' walls beside their 8
-    solo walls, with max_memory_allocated.  Returns the launches per path
+    lanes (JAX's CPU run does not fit) against the golden pinned from
+    the card's run where each lane equalled the port's solo run of its
+    seed, lane 0 also against JAX's solo golden.  The full-4096 and
+    broadcast ensembles' lanes against their solo runs on this card, and
+    their walls beside their 8 solo walls, with max_memory_allocated.  Returns the launches per path
     and the printed numbers."""
     from corrosion_tpu_torch import kernels
     from corrosion_tpu_torch.campaign.engine import run_campaign
@@ -6389,7 +6433,7 @@ def dense_ensemble_paths(dev, goldens):
         del kept
         entry = {"ensemble_wall_s": cell["wall_clock_s"],
                  "max_memory_allocated_bytes": peak}
-        if which in ("partial100k", "churn4096", "broadcast"):
+        if which in ("churn4096", "broadcast"):
             solos = _dense_solo_runs(spec, dev)
             if not all(_same_state(f, lane_state(finals, i))
                        for i, (f, _, _) in enumerate(solos)):
@@ -7973,7 +8017,9 @@ def trace_ensemble_paths(dev, goldens, trace_dir):
     wire_bytes), each lane's summary against the pinned ones (at 100k
     every key but wire_bytes exactly, wire_bytes within the f32 bound),
     and every lane's whole trace against its solo telemetry run on this
-    card (the wire cell's lanes against the broadcast path's solos).
+    card (the wire cell's lanes against the broadcast path's solos; the
+    partial-4096 lanes against their trace digests, pinned from a run
+    whose lanes equalled their solo runs).
     fault-parity-3node writes its per-lane JSONL under ``trace_dir``,
     which is read back.  Returns the launches per path and the printed
     numbers."""
@@ -8062,20 +8108,33 @@ def trace_ensemble_paths(dev, goldens, trace_dir):
                                                   rounds[0])}
             if lane0 != want:
                 raise AssertionError(f"{label}: lane 0 {lane0} != {want}")
-        solos = solos_of.get("broadcast") if which == "wire" else None
-        if solos is None:
-            solos = _solo_traces(spec, dev)
-        if [r for r, _, _ in solos] != rounds:
-            raise AssertionError(f"{label}: rounds differ from the solos'")
-        _lanes_equal_solo_traces(traces, solos, label)
-        if which == "broadcast":
-            solos_of[which] = solos
-        walls = [w for _, _, w in solos]
-        entry.update(solo_walls_s=walls, solo_walls_sum_s=sum(walls))
-        print(f"{label}: every lane's trace equal to its solo telemetry run; "
-              f"ensemble wall {cell['wall_clock_s']} s against the solo "
-              f"walls' sum {sum(walls):.4f} s; max_memory_allocated {peak} "
-              "bytes", flush=True)
+        if which == "partial4096":
+            # each lane's trace against the digests pinned from a run
+            # whose lanes equalled their solo recording runs
+            want = goldens.SWIM_CHURN_PARTIAL_4096_SEEDS8_TRACES
+            digests = [trace_digest(lane_trace(traces, k), r)
+                       for k, r in enumerate(rounds)]
+            if rounds != want["rounds"] or digests != want["trace_digests"]:
+                raise AssertionError(f"{label}: lane traces {digests} differ "
+                                     "from the pinned ones")
+            print(f"{label}: every lane's trace digest pinned; max_memory_"
+                  f"allocated {peak} bytes", flush=True)
+        else:
+            solos = solos_of.get("broadcast") if which == "wire" else None
+            if solos is None:
+                solos = _solo_traces(spec, dev)
+            if [r for r, _, _ in solos] != rounds:
+                raise AssertionError(f"{label}: rounds differ from the "
+                                     "solos'")
+            _lanes_equal_solo_traces(traces, solos, label)
+            if which == "broadcast":
+                solos_of[which] = solos
+            walls = [w for _, _, w in solos]
+            entry.update(solo_walls_s=walls, solo_walls_sum_s=sum(walls))
+            print(f"{label}: every lane's trace equal to its solo telemetry "
+                  f"run; ensemble wall {cell['wall_clock_s']} s against the "
+                  f"solo walls' sum {sum(walls):.4f} s; max_memory_allocated "
+                  f"{peak} bytes", flush=True)
         if which != "wire":
             _trap(f"lane trace 7 {which}", "lanes that finish in different "
                   "rounds leave with their traces (rows past each exit "
@@ -8084,6 +8143,731 @@ def trace_ensemble_paths(dev, goldens, trace_dir):
         numbers[label] = entry
         _lap(label)
     return launches, numbers
+
+
+# -- topology families and PeerSwap on the dense round's lanes (phase 3lt,
+# paths 51-54) -----------------------------------------------------------------
+
+SOLO_OF_LANE.update({"edge_slots_lanes": "edge_slots",
+                     "degree_caps_lanes": "degree_caps",
+                     "edge_reach_lanes": "edge_reach",
+                     "dense_broadcast_tiered_lanes": "dense_broadcast_tiered",
+                     "dense_broadcast_tiered_lanes_trace":
+                         "dense_broadcast_tiered",
+                     "sample_view_lanes": "sample_view",
+                     "peerswap_lanes": "peerswap"})
+#: the ring slots of the 100k dense WAN storm (path 54)
+WAN_D = 3
+
+
+def _lane_split_trap(label, got):
+    """Lanes of one input that differ only by their keys must draw
+    differently: some lane's output differs from lane 0's."""
+    _trap(f"lane topo {label}", "lanes of one input whose draws differ "
+          "(each lane draws under its own key)",
+          any(not torch.equal(got[k], got[0]) for k in range(1, len(got))))
+
+
+def _flat_block_trap(label, per_lane):
+    _trap(f"lane topo {label}", f"blocks spanning two lanes: {per_lane} "
+          "elements a lane is not a multiple of the 256-thread block, so "
+          "lane k's slice starts inside a block of the flat [K, ...] layout "
+          "(each lane's grid row offsets it in 64 bits)", per_lane % 256 != 0)
+
+
+def compare_lane_edge_slots(dev, g, lanes, n=STORM_N, n1k=PROTO_1K,
+                            timed=True):
+    """K20's edge lane entry: wan-3x2's AZ delays at the 100k WAN storm's
+    shapes (K lanes of E = 300000, D = 3) with and without a fault plan's
+    fixed delay, and wan-fly-6r's measured matrix at path 53's (N = 1000,
+    D = 6) with fixed delays that wrap the ring; the last lane held to
+    the solo entry."""
+    from corrosion_tpu_torch.sim import topology as tp
+
+    rows = []
+    for family, nn, d in (("wan-3x2", n, WAN_D), ("wan-fly-6r", n1k, 6)):
+        topo = _topo(family)
+        region = tp.regions(nn, topo.n_regions, dev)
+        e = 3 * nn
+        src = torch.arange(nn, dtype=torch.int32,
+                           device=dev).repeat_interleave(3)
+        dst = torch.as_tensor(g.integers(0, nn, (lanes, e)),
+                              dtype=torch.int32, device=dev)
+        fdelay = torch.as_tensor(g.integers(0, 3, (lanes, e)),
+                                 dtype=torch.int32, device=dev)
+        t = 7
+        got = [tp.edge_slot_lanes(topo, region, src, dst, t, d, fd)
+               for fd in (None, fdelay)]
+        want = [tp.edge_slot_lanes_plain(topo, region, src, dst, t, d, fd)
+                for fd in (None, fdelay)]
+        equal, err = _equal_all(got, want)
+        last = lanes - 1
+        _solo_trap(f"edge_slots lanes {family} lane {last}",
+                   [x[last] for x in got],
+                   [tp.edge_slot(topo, region, src, dst[last], t, d, fd)
+                    for fd in (None, fdelay[last])])
+        if family == "wan-fly-6r":
+            delay = tp.edge_delay(topo, region, src[None], dst)
+            _trap("lane topo 1", "matrix delay classes 0-5 and a fault "
+                  "delay that wrap the ring of D = 6",
+                  set(delay.unique().tolist()) == set(range(6))
+                  and bool(((t + delay + fdelay) >= 2 * d).any()))
+        else:
+            _flat_block_trap("2", e)
+        rows.append(_dense_lane_row(
+            f"edge_slots_lanes_{family}", "edge_slots_lanes",
+            "edge_classes.cu", "corrosion_tpu/sim/topology.py:157", equal,
+            err,
+            _timed(timed, lambda: tp.edge_slot_lanes(topo, region, src, dst,
+                                                     t, d, fdelay)),
+            _timed(timed, lambda: tp.edge_slot_lanes_plain(
+                topo, region, src, dst, t, d, fdelay)),
+            e * 4 + lanes * e * 12, lanes, n=nn, e=e, d=d))
+    return rows
+
+
+def compare_lane_degree_caps(dev, g, lanes, n=96, timed=True):
+    """K20's caps lane entry on K lanes of hetero-degree's targets at the
+    frontier's shapes (N = 96, F = 3; caps 3, 2, 1 round-robin), -1 slots
+    among them; the last lane held to the solo entry."""
+    from corrosion_tpu_torch.sim import topology as tp
+
+    topo = _topo("hetero-degree")
+    tg = np.where(g.random((lanes, n, 3)) < 0.05, -1,
+                  g.integers(0, n, (lanes, n, 3)))
+    targets = torch.as_tensor(tg, dtype=torch.int32, device=dev)
+    got = tp.apply_degree_caps_lanes(targets.clone(), topo)
+    want = tp.apply_degree_caps_lanes_plain(targets, topo)
+    equal, err = _equal_all([got], [want])
+    last = lanes - 1
+    _solo_trap(f"degree_caps lanes lane {last}", [got[last]],
+               [tp.apply_degree_caps(targets[last].clone(), topo)])
+    caps = tp.node_degrees(n, topo, dev)
+    masked = (want == -1) & (targets != -1)
+    _trap("lane topo 3", "caps below F in some rows only (caps 1 and 2 mask "
+          "slots in every lane, rows of cap 3 keep theirs)",
+          all(bool(masked[k][caps < 3].any()) for k in range(lanes))
+          and not bool(masked[:, caps == 3].any()))
+    _flat_block_trap("4", n * 3)
+    work = targets.clone()
+    return _dense_lane_row(
+        "degree_caps_lanes", "degree_caps_lanes", "edge_classes.cu",
+        "corrosion_tpu/sim/topology.py:142", equal, err,
+        _timed(timed, lambda: tp.apply_degree_caps_lanes(work, topo),
+               lambda: work.copy_(targets)),
+        _timed(timed, lambda: tp.apply_degree_caps_lanes_plain(targets,
+                                                               topo)),
+        targets.numel() * 4 + _changed_bytes([targets], [want]), lanes,
+        n=n)
+
+
+def compare_lane_edge_reach(dev, g, lanes, n=STORM_N, timed=True):
+    """K20's reach lane entry: wan-3x2's tiers on K lanes of the 100k WAN
+    storm's probe (E = N = 100000) and gossip legs (E = 300000), each
+    lane under its own key, and the pin topology (a tier at certainty
+    beside a tier at 0); the last lane held to the solo entry, and lanes
+    of one edge list under their own keys drawing differently."""
+    from corrosion_tpu_torch.sim import topology as tp
+
+    rows = []
+    keys = _lane_keys(dev, lanes, 7000)
+    for label, topo, e in (("", _topo("wan-3x2"), n),
+                           ("_e300k", _topo("wan-3x2"), 3 * n),
+                           ("_pin", _pin_topo(), n)):
+        bound = _boundary_ids(n, topo)
+        pairs = [_edge_list(g, n, e, dev, bound) for _ in range(lanes)]
+        src = _stack(p[0] for p in pairs)
+        dst = _stack(p[1] for p in pairs)
+        ok0 = torch.as_tensor(g.random((lanes, e)) < 0.9, device=dev)
+        got = tp.tiered_reach_lanes_(ok0.clone(), topo, n, keys, src, dst)
+        want = tp.tiered_reach_lanes_plain(ok0.clone(), topo, n, keys, src,
+                                           dst)
+        equal, err = _equal_all([got], [want])
+        last = lanes - 1
+        _solo_trap(f"edge_reach lanes{label} lane {last}", [got[last]],
+                   [tp.tiered_reach_(ok0[last].clone(), topo, n, keys[last],
+                                     src[last], dst[last])])
+        region = tp.regions(n, topo.n_regions, dev)
+        raw = tp.edge_loss_thresholds_raw(topo, region, src, dst)
+        if label == "":
+            one = [x[:1].expand(lanes, -1).contiguous()
+                   for x in (ok0, src, dst)]
+            _lane_split_trap("5", tp.tiered_reach_lanes_(
+                one[0].clone(), topo, n, keys, one[1], one[2]))
+            _flat_block_trap("6", e)
+        if label == "_pin":
+            _trap("lane topo 7", "a tier at certainty cuts every edge of it "
+                  "in every lane, a tier at 0 cuts none",
+                  bool((raw >= 256).any()) and not bool(got[raw >= 256].any())
+                  and torch.equal(got[raw == 0], ok0[raw == 0]))
+        hashes = int((ok0 & (raw > 0) & (raw < 256)).sum())
+        ops = hashes * OPS_PER_HASH
+        nbytes = lanes * e * (8 + 2) + lanes * 16
+        rate = _int32_ops_per_s()
+        work = ok0.clone()
+        row = _dense_lane_row(
+            "edge_reach_lanes" + label, "edge_reach_lanes", "edge_classes.cu",
+            "corrosion_tpu/sim/swim.py:125", equal, err,
+            _timed(timed, lambda: tp.tiered_reach_lanes_(work, topo, n, keys,
+                                                         src, dst),
+                   lambda: work.copy_(ok0)),
+            _timed(timed, lambda: tp.tiered_reach_lanes_plain(
+                ok0.clone(), topo, n, keys, src, dst)),
+            nbytes, lanes, ops=ops, hashes=hashes, e=e)
+        ops_ms = ops / rate * 1e3
+        row["bound_ms"] = max(row["bound_ms"], ops_ms)
+        row["bound_by"] = "operations" if ops_ms > _bound_ms(nbytes) \
+            else "bytes"
+        rows.append(row)
+    return rows
+
+
+def compare_lane_broadcast_tiered(dev, g, gen, lanes, n=STORM_N,
+                                  n1k=PROTO_1K, timed=True):
+    """K12t's lane entry and its recording form at the 100k WAN storm's
+    shapes (K lanes of N = 100000, P = 512, F = 3, D = 3; the dense fault
+    storm's state at round 2, inside its loss window and before its
+    split): wan-3x2's tiers alone (path 54's case), with a fault plan's
+    loss stream under each lane's phase key and seed, on the pin
+    topology, and with one lane without edges; the recording form with
+    each lane's frames, bytes and dropped slot; lanes of one input at
+    path 52's shapes (N = 1000, P = 256, D = 4) drawing under their own
+    keys.  The last lane held to the solo tiered entry."""
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    cfg, meta, fplan = _dense_fault_storm(n, dev, n_delay_slots=WAN_D)
+    c = _lane_wire_case(gen, dev, cfg, meta, fplan, 2, lanes)
+    s = c.state
+    wan, pin = _topo("wan-3x2"), _pin_topo()
+    slot_d = tel.ACC.index("bcast_dropped")
+    acc0 = torch.randint(0, 1 << 20, (lanes, len(tel.ACC)), generator=gen,
+                         device=dev, dtype=torch.int64)
+    no_edges = c.ok.clone()
+    no_edges[1] = False
+    last = lanes - 1
+
+    def outs():
+        zero = torch.zeros_like(s.alive, dtype=torch.int32)
+        return [s.inflight.clone(), s.relay_left.clone(), zero, zero.clone(),
+                acc0.clone()]
+
+    def send(kernel, o, tiers, fault=False, ok=None, record=False):
+        fn = (dl.broadcast_send_lanes if kernel
+              else dl.broadcast_send_lanes_plain)
+        fn(s.have, o[1], s.injected, meta.nbytes, cfg.rate_limit_bytes_round,
+           c.targets, c.dst, c.slot, c.ok if ok is None else ok, s.alive,
+           c.k_drop, 0, o[0], c.keys if fault else None,
+           c.fthr if fault else None, None,
+           (c.seeds if kernel else c.host_seeds) if fault else None,
+           *((o[2], o[3], o[4][:, slot_d]) if record else (None,) * 3),
+           tiers=tiers)
+
+    def solo(o, tiers, fault=False, ok=None, record=False):
+        x = [y[last].clone() for y in o]
+        okl = (c.ok if ok is None else ok)[last]
+        bc.broadcast_send(
+            s.have[last], x[1], s.injected[last], meta.nbytes,
+            cfg.rate_limit_bytes_round, c.targets[last], c.dst[last],
+            c.slot[last], okl, s.alive[last], c.k_drop[last], 0, x[0],
+            *((x[2], x[3], x[4][slot_d]) if record else (None,) * 3),
+            phase_key=c.keys[last] if fault else None,
+            fthr=c.fthr[last] if fault else None,
+            seed=int(c.seeds[last]) if fault else 0, tiers=tiers)
+        return x
+
+    rows, drops = [], {}
+    for name, cases in (
+            ("dense_broadcast_tiered_lanes",
+             (("tiered", wan, False, None), ("fault", wan, True, None),
+              ("pin", pin, False, None), ("no_edges", wan, False, no_edges))),
+            ("dense_broadcast_tiered_lanes_trace",
+             (("record", wan, False, None),))):
+        record = name.endswith("_trace")
+        equal, err = True, 0
+        for label, tiers, fault, ok in cases:
+            got, want = outs(), outs()
+            send(True, got, tiers, fault, ok, record)
+            send(False, want, tiers, fault, ok, record)
+            e_, m = _equal_all(got, want)
+            equal, err = equal and e_, max(err, m)
+            ref = solo(outs(), tiers, fault, ok, record)
+            _solo_trap(f"{name} {label} lane {last}",
+                       [y[last] for y in got], ref)
+            drops[label] = got[0].sum(dim=(1, 2, 3)) - s.inflight.sum(
+                dim=(1, 2, 3))
+            if label == "no_edges":
+                _trap("lane topo 8", "a lane without edges writes nothing "
+                      "to its ring but still spends its relay budget",
+                      int(drops[label][1]) == 0
+                      and bool((got[1][1] != s.relay_left[1]).any()))
+            if label == "pin":
+                _trap("lane topo 9", "the certainty pin and a tier at 0 on "
+                      "the wire of every lane (the pin's lanes write less "
+                      "than the tiers')",
+                      bool((drops["pin"] < drops["tiered"]).all()))
+            if record:
+                lost = (got[4] - acc0)[:, slot_d].tolist()
+                rest = [i for i in range(len(tel.ACC)) if i != slot_d]
+                _trap("lane topo 10", "each lane's tiered drops in its own "
+                      "dropped slot, lanes differing, the other slots "
+                      "untouched", min(lost) > 0 and len(set(lost)) == lanes
+                      and torch.equal(got[4][:, rest], acc0[:, rest]))
+            del got, want, ref
+        base = outs()
+        work = [y.clone() for y in base]
+
+        def restore(work=work, base=base):
+            for d_, s_ in zip(work, base):
+                d_.copy_(s_)
+
+        raw = torch.stack([
+            _topo_raw(wan, n, dev, c.dst[k]) for k in range(lanes)])
+        draws = c.ok & (raw > 0) & (raw < 256)
+        hashes = _lane_hashes(c, lanes, draws)
+        ops = hashes * OPS_PER_HASH
+        ref = outs()
+        send(False, ref, wan, record=record)
+        nbytes = (_nbytes(s.have, s.relay_left, s.injected, meta.nbytes,
+                          c.targets, c.dst, c.slot, c.ok, s.alive)
+                  + _changed_bytes(base[:2], ref[:2])
+                  + (_nbytes(*ref[2:4]) + lanes * 8 if record else 0))
+        del ref
+        row = _dense_lane_row(
+            name, name, "dense_phases.cu", "corrosion_tpu/sim/topology.py:240",
+            equal, err,
+            _timed(timed, lambda work=work, record=record: send(
+                True, work, wan, record=record), restore),
+            _timed(timed, lambda work=work, record=record: send(
+                False, work, wan, record=record), restore),
+            nbytes, lanes, ops=ops, hashes=hashes, n=n)
+        ops_ms = ops / _int32_ops_per_s() * 1e3
+        row["bound_ms"] = max(row["bound_ms"], ops_ms)
+        row["bound_by"] = "operations" if ops_ms > _bound_ms(nbytes) \
+            else "bytes"
+        rows.append(row)
+        del base, work
+    del c, s
+    # lanes of one input (path 52's shapes), each under its own k_drop
+    cfg1, meta1 = _broadcast_cfg(dev, n1k, 256)
+    xs, targets, dst, slot, ok, keys = _lane_round_inputs(g, dev, cfg1,
+                                                          meta1, 20, lanes)
+    one = [x[:1].expand(lanes, *x.shape[1:]).contiguous()
+           for x in (*xs, targets, dst, slot, ok)]
+    ring = one[3].clone()
+    dl.broadcast_send_lanes(one[0], one[1].clone(), one[2], meta1.nbytes,
+                            cfg1.rate_limit_bytes_round, one[6], one[7],
+                            one[8], one[9], one[5], keys, 0, ring,
+                            tiers=wan)
+    _lane_split_trap("11", list(ring))
+    return rows
+
+
+def _topo_raw(topo, n, dev, dst):
+    """The raw tier threshold of each edge e → dst[e], the sender e / 3."""
+    from corrosion_tpu_torch.sim import topology as tp
+
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(3)
+    return tp.edge_loss_thresholds_raw(topo, tp.regions(n, topo.n_regions,
+                                                        dev), src, dst)
+
+
+def compare_lane_sample_view(dev, g, lanes, n=PROTO_1K, v=16, timed=True):
+    """K1's view lane entry at path 52's shapes (K lanes of N = 1000, V =
+    16; count 3, the fan-out and the sync peers) on views with empty,
+    self and repeated slots, and with full-view beliefs (the DOWN
+    filter); the last lane held to the solo entry, and lanes of one view
+    under their own slot draws sampling differently."""
+    from corrosion_tpu_torch.topo import sampler
+
+    rows = []
+    for label, beliefs in (("", False), ("_beliefs", True)):
+        pview = _stack(_random_views(g, n, v, dev) for _ in range(lanes))
+        slots = torch.as_tensor(g.integers(0, v, (lanes, 12, n)),
+                                dtype=torch.int32, device=dev)
+        view = (torch.as_tensor(g.integers(0, 3, (lanes, n, n)),
+                                dtype=torch.int8, device=dev)
+                if beliefs else None)
+        got = sampler.sample_view_lanes(pview, slots, view, 3)
+        want = sampler.sample_view_lanes_plain(pview, slots, view, 3)
+        equal, err = _equal_all([got], [want])
+        last = lanes - 1
+        _solo_trap(f"sample_view lanes{label} lane {last}", [got[last]],
+                   [sampler.sample_view(pview[last], slots[last],
+                                        None if view is None else view[last],
+                                        3)])
+        if not beliefs:
+            one = pview[:1].expand(lanes, -1, -1).contiguous()
+            _lane_split_trap("12", sampler.sample_view_lanes(one, slots, None,
+                                                             3))
+        rows.append(_dense_lane_row(
+            "sample_view_lanes" + label, "sample_view_lanes",
+            "sample_targets.cu", "corrosion_tpu/topo/sampler.py:57", equal,
+            err,
+            _timed(timed, lambda: sampler.sample_view_lanes(pview, slots,
+                                                            view, 3)),
+            _timed(timed, lambda: sampler.sample_view_lanes_plain(
+                pview, slots, view, 3)),
+            slots.numel() * (8 + (1 if beliefs else 0)) + lanes * n * 12,
+            lanes, n=n, count=3))
+    return rows
+
+
+def compare_lane_peerswap(dev, g, lanes, n=PROTO_1K, v=16, timed=True):
+    """K21's three lane entries at path 52's shapes (K lanes of N = 1000,
+    V = 16, announce interval 7): offers that collide on one partner
+    inside a lane, the same partner slots c in two lanes of different
+    views (each lane's offers land in its own view), a dead partner (its
+    message unreachable), down nodes, wiped views; the last lane held to
+    the solo entry."""
+    from corrosion_tpu_torch.topo import sampler
+
+    t, interval = 37, 7
+    pview = _stack(_random_views(g, n, v, dev) for _ in range(lanes))
+    hub = torch.as_tensor(g.random((lanes, n)) < 0.02, device=dev)
+    pview[:, :, 0] = torch.where(hub, 5, pview[:, :, 0])
+    c = torch.as_tensor(np.where(g.random((lanes, n)) < 0.1,
+                                 (t % v - 1) % v,
+                                 g.integers(0, v, (lanes, n))),
+                        dtype=torch.int32, device=dev)
+    c[1] = c[0]
+    alive = torch.as_tensor((g.random((lanes, n)) < 0.03) * 2,
+                            dtype=torch.uint8, device=dev)
+    partner = torch.clamp(torch.gather(pview, 2, c.long()[..., None])[..., 0],
+                          min=0)
+    reach = (torch.gather(alive, 1, partner.long()) == 0) & torch.as_tensor(
+        g.random((lanes, n)) < 0.9, device=dev)
+    rb = torch.as_tensor(g.integers(0, v, (lanes, n)), dtype=torch.int32,
+                         device=dev)
+    rid = torch.as_tensor(g.integers(0, n, (lanes, n)), dtype=torch.int32,
+                          device=dev)
+
+    def run(kernel):
+        part = (sampler.peerswap_partner_lanes if kernel
+                else sampler.peerswap_partner_lanes_plain)
+        app = (sampler.peerswap_apply_lanes if kernel
+               else sampler.peerswap_apply_lanes_plain)
+        pc, winner = part(pview, c)
+        out = app(pview, c, reach, alive, rb, rid, winner, t, interval)
+        return [pc, winner, out]
+
+    got, want = run(True), run(False)
+    equal, err = _equal_all(got, want)
+    last = lanes - 1
+    pc1, w1 = sampler.peerswap_partner(pview[last], c[last])
+    out1 = sampler.peerswap_apply(pview[last], c[last], reach[last],
+                                  alive[last], rb[last], rid[last], w1, t,
+                                  interval)
+    _solo_trap(f"peerswap lanes lane {last}", [x[last] for x in got],
+               [pc1, w1, out1])
+    pc, winner, out = want
+    rows_ = torch.arange(n, device=dev)
+    ok = ((torch.gather(pview, 2, c.long()[..., None])[..., 0] >= 0)
+          & (pc != rows_) & (alive == 0) & reach)
+    offers = [torch.bincount(pc[k][ok[k]].long(), minlength=n)
+              for k in range(lanes)]
+    dead = torch.gather(alive, 1, pc.long()) != 0
+    _trap("lane topo 13", "offers that collide on one partner inside a lane, "
+          "and the same partner slots in lanes 0 and 1 landing in each "
+          "lane's own view",
+          all(int(o.max()) >= 2 for o in offers) and torch.equal(c[0], c[1])
+          and not torch.equal(out[0], out[1]))
+    real = torch.gather(pview, 2, c.long()[..., None])[..., 0] >= 0
+    _trap("lane topo 14", "a dead partner: an up node's swap message to it "
+          "unreachable, so it takes and offers nothing",
+          bool((dead & real & (alive == 0) & ~reach).any()))
+    _flat_block_trap("15", n)
+    nbytes = pview.numel() * 8 + lanes * n * 4 * 7
+    return [_dense_lane_row(
+        "peerswap_lanes", "peerswap_lanes", "peerswap.cu",
+        "corrosion_tpu/topo/sampler.py:81", equal, err,
+        _timed(timed, lambda: run(True)), _timed(timed, lambda: run(False)),
+        nbytes, lanes, n=n, v=v)]
+
+
+def compare_topology_lane_kernels(dev, seed=14, lanes=ENSEMBLE_LANES,
+                                  timed=True, big=True):
+    """Phase 3lt: every lane entry of the topology axis and PeerSwap on
+    the dense round's lanes against its plain version at K = 8 on its
+    paths' shapes (the 100k WAN storm's, broadcast-1k's, the frontier's),
+    each lane held to the solo entry on its inputs, every trap reached;
+    ``big`` False shrinks 100 000 and 1000 nodes to 1200 and 333 (a CPU
+    rehearsal)."""
+    g = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    wide, mid = (STORM_N, PROTO_1K) if big else (1200, 333)
+    rows = [*compare_lane_edge_slots(dev, g, lanes, wide, mid, timed),
+            compare_lane_degree_caps(dev, g, lanes, timed=timed),
+            *compare_lane_edge_reach(dev, g, lanes, wide, timed),
+            *compare_lane_broadcast_tiered(dev, g, gen, lanes, wide, mid,
+                                           timed),
+            *compare_lane_sample_view(dev, g, lanes, mid, timed=timed),
+            *compare_lane_peerswap(dev, g, lanes, mid, timed=timed)]
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+#: paths 51-54: (label, spec builder, the rows the path adds, golden name,
+#: whether it records); every path also launches K12's inject and deliver
+#: lane entries (`TRACE_LANE_ENTRIES`)
+TOPO_LANE_CORE = ("threefry_lanes", "dense_gaps_lanes")
+_RECORDING = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
+              "trace_row_lanes", "dense_sync_lanes_trace")
+TOPO_ENSEMBLE_PATHS = (
+    ("peer_sampler_frontier", "frontier",
+     _RECORDING + ("sample_uniform_lanes", "dense_broadcast_lanes_trace",
+                   "dense_broadcast_tiered_lanes_trace", "edge_slots_lanes",
+                   "degree_caps_lanes", "sample_view_lanes", "peerswap_lanes",
+                   "edge_reach_lanes"),
+     "PEER_SAMPLER_FRONTIER", True),
+    ("broadcast_1k_wan_3x2_peerswap_seeds8_wire", "wan_peerswap_1k",
+     _RECORDING + ("dense_broadcast_tiered_lanes_trace", "edge_slots_lanes",
+                   "sample_view_lanes", "peerswap_lanes", "edge_reach_lanes"),
+     "BROADCAST_1K_WAN_3X2_PEERSWAP_SEEDS8_WIRE", True),
+    ("broadcast_1k_flat_lossy_uniform_seeds8_wire", "flat_lossy_1k",
+     _RECORDING + ("sample_uniform_lanes", "dense_broadcast_lanes_trace"),
+     "BROADCAST_1K_FLAT_LOSSY_UNIFORM_SEEDS8_WIRE", True),
+    ("broadcast_1k_wan_fly_6r_uniform_seeds8", "fly_1k",
+     ("dense_sync_lanes", "sample_uniform_lanes",
+      "dense_broadcast_tiered_lanes", "edge_slots_lanes"),
+     "BROADCAST_1K_WAN_FLY_6R_UNIFORM_SEEDS8", False),
+    ("dense_storm_wan_3x2_100k_seeds8", "wan100k",
+     ("dense_sync_lanes", "sample_targets_lanes", "merge_entries_lanes",
+      "dense_broadcast_tiered_lanes", "edge_slots_lanes",
+      "edge_reach_lanes"),
+     "DENSE_STORM_WAN_3X2_100K_SEEDS8", False),
+)
+
+
+def wan_path_spec(which, seeds=range(ENSEMBLE_LANES)):
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    return {
+        "frontier": lambda: sp.peer_sampler_frontier_spec(
+            seeds=tuple(seeds)[:4]),
+        "wan_peerswap_1k": lambda: sp.broadcast_topology_seeds_spec(
+            "wan-3x2", "peerswap", seeds, measure_wire=True),
+        "flat_lossy_1k": lambda: sp.broadcast_topology_seeds_spec(
+            "flat-lossy", "uniform", seeds, measure_wire=True),
+        "fly_1k": lambda: sp.broadcast_topology_seeds_spec(
+            "wan-fly-6r", "uniform", seeds, n_delay_slots=6),
+        "wan100k": lambda: sp.dense_storm_wan_seeds_spec(seeds),
+    }[which]()
+
+
+def _topology_solo_runs(spec, dev):
+    """The port's solo runs of every cell and seed of a path on the card
+    (`run_to_convergence` of the cell's config, topology and payloads):
+    for each cell, each seed's final state, metrics and host wall."""
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+
+    out = []
+    for cell in spec.cells():
+        cfg, topo = spec.sim_config(cell), spec.topo(cell)
+        meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every(cell))
+        runs = []
+        for s in spec.seeds:
+            state = new_sim(cfg, int(s), dev)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            final, metrics = run_to_convergence(state, meta, cfg, topo,
+                                                spec.max_rounds)
+            torch.cuda.synchronize()
+            runs.append((final, metrics, time.monotonic() - t0))
+        out.append((cfg, meta, runs))
+    return out
+
+
+def _solo_record(final, metrics, meta):
+    """A solo run's record in the goldens' terms (the runner's p99s, the
+    state's and the view's digests)."""
+    from corrosion_tpu_torch.convert import pview_digest, state_digest
+    from corrosion_tpu_torch.sim.runner import _node_convergence, _percentile
+
+    cov = metrics.coverage_at.cpu().numpy()
+    lat = np.where(cov >= 0, cov - meta.round.cpu().numpy(), -1)
+    conv = _node_convergence(metrics, final)
+    return {"rounds": int(final.t),
+            "p99_node_convergence_round":
+                conv["p99_node_convergence_round"],
+            "p99_payload_latency_rounds": _percentile(lat, 99),
+            "digest": state_digest(final), "pview_digest": pview_digest(final)}
+
+
+def topology_ensemble_paths(dev, goldens):
+    """Paths 51-54: topology families and PeerSwap on the dense round's
+    lanes through `campaign.engine.run_campaign`, each from zeroed
+    counters: every lane entry of the path launched (the recording forms
+    on measure_wire cells), no solo entry of a kernel that has a lane
+    entry; the artifact's spec_hash, result_digest and every cell's
+    per-seed record (rounds, wire_bytes; at 100k the p99, convergence
+    and each lane's state digest) against the golden pinned from live
+    JAX; every lane's final state equal to the port's solo run of its
+    cell and seed on this card (the walls beside, with
+    max_memory_allocated).  Path 51 also through
+    `runner.config_peer_sampler_frontier`; path 52's lane 0 against JAX's
+    solo golden (the view's digest too); path 54's lane 0 solo run
+    against 38 rounds and p99 34.0, and its one-seed campaign against
+    JAX's result_digest.  Returns the launches per path and
+    the printed numbers."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim.round import RunMetrics
+    from corrosion_tpu_torch.sim.runner import config_peer_sampler_frontier
+
+    launches, numbers = {}, {}
+    for label, which, extra, golden_name, recording in TOPO_ENSEMBLE_PATHS:
+        spec = wan_path_spec(which)
+        kept = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        art = run_campaign(spec, device=dev, lanes_out=kept)
+        peak = torch.cuda.max_memory_allocated()
+        counts = _path_launches(kernels, TOPO_LANE_CORE + extra, label,
+                                telemetry=recording,
+                                entries=TRACE_LANE_ENTRIES)
+        solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+        if solo_on:
+            raise AssertionError(f"{label}: solo entries {solo_on} launched "
+                                 "on a lane path")
+        launches[label] = counts
+        golden = getattr(goldens, golden_name)
+        cells = art["cells"]
+        got = {"spec_hash": art["spec_hash"],
+               "result_digest": art["result_digest"],
+               "rounds": [c["per_seed"]["rounds"] for c in cells]}
+        if recording:
+            got["wire_bytes"] = [c["per_seed"]["wire_bytes"] for c in cells]
+        if which == "wan100k":
+            ps = cells[0]["per_seed"]
+            got["lanes"] = [
+                {"seed": s, "rounds": ps["rounds"][i],
+                 "p99_node_convergence_round":
+                     ps["p99_node_convergence_round"][i],
+                 "converged": ps["converged"][i],
+                 "unconverged_nodes": ps["unconverged_nodes"][i],
+                 "digest": state_digest(lane_state(kept[0]["finals"], i))}
+                for i, s in enumerate(cells[0]["seeds"])]
+        print(f"{label}: {json.dumps(got)} wall_clock_s="
+              f"{[c['wall_clock_s'] for c in cells]} round_path="
+              f"{[c['round_path'] for c in cells]}", flush=True)
+        if any(c["round_path"] != "dense" for c in cells) or any(
+                got[k] != golden[k] for k in got):
+            raise AssertionError(f"{label}: differs from its golden")
+        solos = _topology_solo_runs(spec, dev)
+        for i, (cfg, meta, runs) in enumerate(solos):
+            finals = kept[i]["finals"]
+            if [int(f.t) for f, _, _ in runs] != cells[i]["per_seed"][
+                    "rounds"] or not all(
+                        _same_state(f, lane_state(finals, k))
+                        for k, (f, _, _) in enumerate(runs)):
+                raise AssertionError(f"{label}: a lane of cell {i} differs "
+                                     "from its solo run")
+        if which == "wan_peerswap_1k":
+            cfg, meta, runs = solos[0]
+            metrics = RunMetrics(*(x[0] for x in kept[0]["metrics"]))
+            rec = _solo_record(lane_state(kept[0]["finals"], 0), metrics,
+                               meta)
+            if rec != goldens.BROADCAST_1K_WAN_3X2_PEERSWAP_SEED0:
+                raise AssertionError(f"{label}: lane 0 {rec} differs from "
+                                     "JAX's solo golden")
+        if which == "wan100k":
+            cfg, meta, runs = solos[0]
+            rec = _solo_record(runs[0][0], runs[0][1], meta)
+            want = goldens.STORM_WAN_3X2_100K_SEED0
+            if {k: rec[k] for k in want} != want:
+                raise AssertionError(f"{label}: the solo dense run of seed 0 "
+                                     f"{rec} differs from {want}")
+            one = run_campaign(wan_path_spec(which, seeds=(0,)), device=dev)
+            print(f"{label}: the one-seed campaign of seed 0 gives "
+                  f"result_digest {one['result_digest']}", flush=True)
+            if one["result_digest"] != golden["seed0_result_digest"]:
+                raise AssertionError(f"{label}: the one-seed campaign "
+                                     "differs from JAX's")
+        del kept
+        walls = [w for _, _, runs in solos for _, _, w in runs]
+        entry = {"ensemble_wall_s": [c["wall_clock_s"] for c in cells],
+                 "max_memory_allocated_bytes": peak, "solo_walls_s": walls,
+                 "solo_walls_sum_s": sum(walls)}
+        if which == "frontier":
+            rec = config_peer_sampler_frontier(seed=0, device=dev)
+            if rec["result_digest"] != golden["result_digest"]:
+                raise AssertionError(f"{label}: config_peer_sampler_frontier "
+                                     f"gives {rec['result_digest']}")
+            print(f"{label}: config_peer_sampler_frontier {json.dumps(rec)}",
+                  flush=True)
+        print(f"{label}: every lane equal to its solo run; ensemble walls "
+              f"{entry['ensemble_wall_s']} s against the solo walls' sum "
+              f"{sum(walls):.4f} s ({walls}); max_memory_allocated {peak} "
+              "bytes", flush=True)
+        numbers[label] = entry
+        del solos
+        _lap(label)
+    return launches, numbers
+
+
+def profile_wan_lanes(dev, lanes=ENSEMBLE_LANES, start=5, rounds=3):
+    """``rounds`` rounds of dense-storm-wan-3x2-100k from round ``start``:
+    with ``lanes`` the lane round (`dense_lanes.dense_round_step_lanes`,
+    the one host read of the [K] flags a round), with ``lanes`` None the
+    solo dense round (`round.round_step_`) of seed 0; the first ``start``
+    rounds are setup."""
+    from corrosion_tpu_torch.campaign.ensemble import seed_states
+    from corrosion_tpu_torch.sim.dense_lanes import (
+        dense_round_step_lanes, lane_batch)
+    from corrosion_tpu_torch.sim.round import (
+        new_metrics, new_sim, own_state, round_step_)
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+    from corrosion_tpu_torch.sim.topology import regions
+
+    spec = wan_path_spec("wan100k")
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every({}))
+    region = regions(cfg.n_nodes, topo.n_regions, dev)
+
+    def step(loop):
+        state, metrics = loop
+        if lanes is None:
+            state, metrics, done = round_step_(state, metrics, meta, cfg,
+                                               topo, region)
+        else:
+            state, metrics, done = dense_round_step_lanes(
+                state, metrics, meta, cfg, topo, region)
+        done.tolist()  # the loop's one host read a round
+        return state, metrics
+
+    def setup():
+        if lanes is None:
+            loop = (own_state(new_sim(cfg, 0, dev)), new_metrics(cfg, dev))
+        else:
+            batch = lane_batch(seed_states(cfg, range(lanes), dev), cfg)
+            loop = (batch.slim, batch.metrics)
+        for _ in range(start):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return loop
+
+    def run(loop):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    label = (f"dense storm-wan-3x2-100k x{lanes} lanes" if lanes
+             else "dense storm-wan-3x2-100k solo")
+    return _profile(run, rounds, f"{label} rounds {start}-"
+                    f"{start + rounds - 1}", setup)
 
 
 _START = time.monotonic()
@@ -8363,6 +9147,10 @@ def main() -> int:
     print("kernel comparisons equal for the recorder on the dense lanes",
           flush=True)
     _lap("recorder lane kernel comparisons")
+    topo_lane_rows = compare_topology_lane_kernels(dev)
+    print("kernel comparisons equal for the topology axis and PeerSwap on "
+          "the dense lanes", flush=True)
+    _lap("topology lane kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -9238,6 +10026,12 @@ def main() -> int:
     print("recording ensemble numbers: " + json.dumps(trace_lane_numbers),
           flush=True)
     _lap("paths 46-50, the recorder on the dense lanes")
+    # paths 51-54: topology families and PeerSwap on the dense lanes
+    topo_lane_launches, topo_lane_numbers = topology_ensemble_paths(dev,
+                                                                    goldens)
+    print("topology ensemble numbers: " + json.dumps(topo_lane_numbers),
+          flush=True)
+    _lap("paths 51-54, topology families and PeerSwap on the dense lanes")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -9288,6 +10082,14 @@ def main() -> int:
               flush=True)
     print("profile_dense_fault_ensemble: " + json.dumps(
         profile_dense_fault(dev)), flush=True)
+    # the 8-lane dense WAN storm round beside its solo round, in one
+    # process
+    for lanes_ in (ENSEMBLE_LANES, None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_wan_lanes(dev, lanes_)
+        prof["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        print("profile_wan_ensemble: " + json.dumps(prof), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -9465,6 +10267,26 @@ def main() -> int:
             label: c[row["kernel"]]
             for label, c in trace_lane_launches.items()}
     rows += trace_lane_rows
+    # each topology lane row reads its launches on the path whose shapes
+    # it was compared at
+    wan100k, peerswap1k = ("dense_storm_wan_3x2_100k_seeds8",
+                           "broadcast_1k_wan_3x2_peerswap_seeds8_wire")
+    topo_lane_path = {
+        "edge_slots_lanes_wan-fly-6r":
+            "broadcast_1k_wan_fly_6r_uniform_seeds8",
+        "degree_caps_lanes": "peer_sampler_frontier",
+        "dense_broadcast_tiered_lanes_trace": peerswap1k,
+        "sample_view_lanes": peerswap1k,
+        "sample_view_lanes_beliefs": peerswap1k,
+        "peerswap_lanes": peerswap1k}
+    for row in topo_lane_rows:
+        path = topo_lane_path.get(row["name"], wan100k)
+        row["launches"] = topo_lane_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]]
+            for label, c in topo_lane_launches.items()}
+    rows += topo_lane_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

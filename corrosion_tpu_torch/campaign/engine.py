@@ -16,8 +16,9 @@ hash.
 
 The engine runs sim cells on both rounds — faultless or under a
 factored plan on the packed round, faultless or under a plan of either
-form (delay and jitter included) on the dense round, which is where
-every fault cell outside the packed envelope goes (the 3-node fault
+form (delay and jitter included) on the dense round, over every
+topology family and under either peer sampler (PeerSwap without a
+plan), which is where every fault cell outside the packed envelope goes (the 3-node fault
 campaigns, fault storms below the envelope, ``allow_packed: False``),
 reporting ``round_path: "dense"`` and the plan's horizon as JAX does —
 and detect cells (``detect_membership``: configs #2/#2b, the detect loop
@@ -36,9 +37,12 @@ and sync byte channels' host sums, exactly as JAX computes them — part
 of the result digest.  On the packed round's lanes the recorder raises
 naming ROADMAP B16m (`..sim.lanes.check_packed_lanes`).  The rest
 raises NotImplementedError, naming its ROADMAP item: the churn key on
-lanes and matrix or latency plans on the packed round's lanes are
-B16d, a mesh is A13, host-serving cells and host parity are host tier
-(not queued).  The cell's ``traceparent`` and its span tree belong to
+lanes is B16c, the protocol variants on lanes B16v, PeerSwap under a
+fault plan on lanes B16s-f, topology keys, metered budgets and the
+recorder on the packed round's lanes B16m (PeerSwap there B16s's packed
+half), latency plans there B16l and matrix plans there B16x (both run
+on the dense round's lanes), a mesh is A13, host-serving cells and host
+parity are host tier (not queued).  The cell's ``traceparent`` and its span tree belong to
 the host tracing tier and are left out (the digest excludes them; a
 flight-recorder header carries ``traceparent: None``).
 """
@@ -74,9 +78,9 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
     (``engine.py:190-231``), word for word: what a detect cell, or a
     wire measurement, cannot measure.  Then the port's
     NotImplementedErrors, each naming its ROADMAP item; the refusals of
-    what a cell resolves to — budgets on the packed round, a topology,
-    sampler or protocol other than the defaults, matrix and latency
-    plans on the packed round — follow in
+    what a cell resolves to — the protocol variants, PeerSwap under a
+    fault plan, and on the packed round budgets, topology keys,
+    PeerSwap, matrix and latency plans — follow in
     `..sim.lanes.check_packed_lanes` and `check_dense_lanes`."""
     from .spec import _PROTO_KEYS
 
@@ -115,7 +119,7 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
             "port does not carry (ROADMAP A, not queued)")
     if spec._meta(cell, "churn"):
         raise NotImplementedError(
-            "the churn key on lanes is not ported yet (ROADMAP B16d)")
+            "the churn key on lanes is not ported yet (ROADMAP B16c)")
 
 
 def _membership_lane_stats(finals, cfg) -> Dict[str, List]:

@@ -453,6 +453,49 @@ def broadcast_wire_seeds_spec(seeds: Sequence[int] = tuple(range(8))
         scenario=dict(spec.scenario, measure_wire=1))
 
 
+def broadcast_topology_seeds_spec(
+    topo_family: str, peer_sampler: str = "uniform",
+    seeds: Sequence[int] = tuple(range(8)), measure_wire: bool = False,
+    n_delay_slots: Optional[int] = None,
+) -> CampaignSpec:
+    """`broadcast_seeds_spec` over a topology family under a peer sampler
+    (B16t, B16s): config #3 with ``topo_family`` and ``peer_sampler``
+    (and ``measure_wire``, and a deeper ring for a family whose delays
+    pass the default four slots) — ``broadcast-1k-wan-3x2-peerswap-
+    seeds8-wire``, ``broadcast-1k-flat-lossy-uniform-seeds8-wire`` and
+    ``broadcast-1k-wan-fly-6r-uniform-seeds8`` among them.  Not a builtin
+    of the JAX package: the JAX package's `CampaignSpec` of the same dict
+    has the same hash."""
+    spec = broadcast_seeds_spec(seeds)
+    scenario = dict(spec.scenario, topo_family=topo_family,
+                    peer_sampler=peer_sampler)
+    if measure_wire:
+        scenario["measure_wire"] = 1
+    if n_delay_slots is not None:
+        scenario["n_delay_slots"] = n_delay_slots
+    name = (f"broadcast-1k-{topo_family}-{peer_sampler}-seeds"
+            f"{len(tuple(seeds))}" + ("-wire" if measure_wire else ""))
+    return dataclasses.replace(spec, name=name, scenario=scenario)
+
+
+def dense_storm_wan_seeds_spec(
+    seeds: Sequence[int] = tuple(range(8)),
+) -> CampaignSpec:
+    """The 100k write storm on the dense round over wan-3x2 (three
+    regions of two AZs, delays 0/1/2 in three ring slots, loss 0 / 2 % /
+    10 % by tier) as one campaign cell: ``dense-storm-wan-3x2-100k-
+    seeds8`` at the default — every topology lane entry at the storm's
+    width (B16t).  Not a builtin of the JAX package: the JAX package's
+    `CampaignSpec` of the same dict has the same hash."""
+    return CampaignSpec(
+        name=f"dense-storm-wan-3x2-100k-seeds{len(tuple(seeds))}",
+        scenario=dict(storm_scenario(), allow_packed=False,
+                      topo_family="wan-3x2", n_delay_slots=3),
+        seeds=tuple(seeds),
+        max_rounds=3000,
+    )
+
+
 # -- builtin specs (JAX ``spec.py:481-791``, as data) -------------------------
 
 

@@ -1271,10 +1271,13 @@ SWIM_CHURN_PARTIAL_4096_SEEDS8 = {
 
 # swim_churn_partial_spec(seeds=range(8), n=100000): the spec hash from
 # JAX; JAX's 8-lane CPU run does not fit a session, so lane 0 is
-# SWIM_CHURN_PARTIAL_100K_SEED0 (JAX's solo run) and lanes 1-7 are held
-# to the port's solo runs on the card
+# SWIM_CHURN_PARTIAL_100K_SEED0 (JAX's solo run) and lanes 1-7 and the
+# result digest are the port's on the card, where each lane equals the
+# port's solo run of its seed (NVIDIA H100, chip_smoke.py path 40, three
+# runs alike)
 SWIM_CHURN_PARTIAL_100K_SEEDS8 = {
     "spec_hash": "00fa857b724422ca",
+    "result_digest": "26a4e19337dc4226e53d4e01552c0ee9",
     "lane0": {
         "seed": 0,
         "rounds": 600,
@@ -1282,6 +1285,32 @@ SWIM_CHURN_PARTIAL_100K_SEEDS8 = {
         "detected_fraction": 0.9999936655984989,
         "digest": "4b11df2095ef0fda",
     },
+    "lanes": [
+        {"seed": 0, "rounds": 600, "digest": "4b11df2095ef0fda",
+         "detect_round": None,
+         "detected_fraction": 0.9999936655984989},
+        {"seed": 1, "rounds": 600, "digest": "5d74f28e1d6a091d",
+         "detect_round": None,
+         "detected_fraction": 0.9999964878416101},
+        {"seed": 2, "rounds": 600, "digest": "eb6e191ac59f7acd",
+         "detect_round": None,
+         "detected_fraction": 0.9999950756832313},
+        {"seed": 3, "rounds": 600, "digest": "ef272c548ba17f63",
+         "detect_round": None,
+         "detected_fraction": 0.9999929671714597},
+        {"seed": 4, "rounds": 600, "digest": "bcb6b36eae73eac7",
+         "detect_round": None,
+         "detected_fraction": 0.9999964843497313},
+        {"seed": 5, "rounds": 600, "digest": "01a313156fc24494",
+         "detect_round": None,
+         "detected_fraction": 0.9999985936241953},
+        {"seed": 6, "rounds": 600, "digest": "a828bdd2a21b77ec",
+         "detect_round": None,
+         "detected_fraction": 0.9999992966854897},
+        {"seed": 7, "rounds": 600, "digest": "b3e88388a693f46c",
+         "detect_round": None,
+         "detected_fraction": 0.9999964832221563},
+    ],
 }
 
 # configs #2/#2b through JAX's engine (config_swim_churn_64(seed=0),
@@ -1812,6 +1841,18 @@ FAULT_PARITY_3NODE_SEEDS8_TELEMETRY = {'summaries': [{'rounds': 45,
 # time, k = 1..7: lanes 1-7's summaries (lane 0 is
 # DENSE_FAULT_STORM_100K_SEED0_TELEMETRY); JAX's f32 wire_bytes, which
 # the port's exact totals meet within the f32 bound only
+# run_campaign(swim_churn_partial_spec(seeds=range(8)), telemetry=True):
+# each lane's trace_digest, from the port's run (the CPU's; on the card
+# every lane's trace equals its solo recording run, PR 16); lane 0's is
+# JAX's SWIM_CHURN_PARTIAL_4096_SEED0_TELEMETRY["trace_digest"]
+SWIM_CHURN_PARTIAL_4096_SEEDS8_TRACES = {
+    "rounds": [489, 568, 523, 488, 526, 569, 421, 600],
+    "trace_digests": ["96edc1918a8a4fbe", "e48b8a8feaa9aae2",
+                      "88cf3e3f373b119e", "81c60ae9e673c4d8",
+                      "1e6813f82a660d9c", "343bd13788cf85b3",
+                      "c3055ea9a16a9522", "c0523fbea1021a3b"],
+}
+
 DENSE_FAULT_STORM_100K_SEEDS8_TELEMETRY = {'summaries': [{'rounds': 29,
                 'coverage_curve_digest': '09f7358c501dbe6c',
                 'coverage_latency_rounds': {'p50': 22.0,
@@ -1952,3 +1993,107 @@ DENSE_FAULT_STORM_100K_SEEDS8_TELEMETRY = {'summaries': [{'rounds': 29,
                 'swim': {'peak_suspect': 296788,
                          'peak_down': 297097},
                 'gap_overflow_rounds': 0}]}
+
+
+# -- topology families and PeerSwap on the dense round's lanes (B16t, B16s),
+# from live JAX (jax 0.9.0 on the CPU, run_campaign of each spec) ---------
+
+# run_campaign(builtin_spec("peer-sampler-frontier")): both samplers ×
+# wan-3x2 and hetero-degree at 96 nodes, seeds 0-3, measure_wire; each
+# cell's (grid order: uniform × wan-3x2, uniform × hetero-degree, peerswap
+# × wan-3x2, peerswap × hetero-degree) per-seed rounds and wire_bytes.
+# The committed doc/experiments/CAMPAIGN_BASELINE_peer-sampler-frontier.json
+# holds result_digest aa1bf9db…, from before jax 0.9.0
+PEER_SAMPLER_FRONTIER = {
+    "spec_hash": "ef38d63b3804deb8",
+    "result_digest": "2203eb4cf49b2606dc3f83c12883222b",
+    "rounds": [[25, 25, 24, 24], [22, 22, 22, 22], [25, 25, 26, 26],
+               [25, 23, 23, 23]],
+    "wire_bytes": [
+        [1070014464.0, 1066942464.0, 1033928704.0, 1013792768.0],
+        [761765888.0, 757768192.0, 753631232.0, 751861760.0],
+        [1056276480.0, 1056153600.0, 1109884928.0, 1093066752.0],
+        [812605440.0, 761864192.0, 756465664.0, 779575296.0],
+    ],
+}
+
+# run_campaign(broadcast_topology_seeds_spec("wan-3x2", "peerswap",
+# measure_wire=True)): config #3 over wan-3x2 under PeerSwap, seeds 0-7;
+# lane 0 is BROADCAST_1K_WAN_3X2_PEERSWAP_SEED0's run
+BROADCAST_1K_WAN_3X2_PEERSWAP_SEEDS8_WIRE = {
+    "spec_hash": "3e08f5c1ffe88bd6",
+    "result_digest": "985e3594f6ae2bf7339226028c9b900e",
+    "rounds": [[78, 77, 79, 77, 79, 77, 78, 79]],
+    "wire_bytes": [[48817160192.0, 48069607424.0, 48671858688.0,
+                    48387645440.0, 48598081536.0, 48298991616.0,
+                    48515219456.0, 49025507328.0]],
+}
+
+# run_campaign(broadcast_topology_seeds_spec("flat-lossy", "uniform",
+# measure_wire=True)): the flat topology at 10 % loss (K12's lane entry at
+# threshold 26)
+BROADCAST_1K_FLAT_LOSSY_UNIFORM_SEEDS8_WIRE = {
+    "spec_hash": "bc4cfdfbc9df25bf",
+    "result_digest": "b77f1511ed364c8f84f37e5ea8b790cb",
+    "rounds": [[73, 71, 72, 71, 71, 71, 71, 71]],
+    "wire_bytes": [[54305644544.0, 53329428480.0, 53862129664.0,
+                    53325275136.0, 53320228864.0, 53264580608.0,
+                    53276958720.0, 53288402944.0]],
+}
+
+# run_campaign(broadcast_topology_seeds_spec("wan-fly-6r", "uniform",
+# n_delay_slots=6)): six regions, the measured delay matrix 0-5
+BROADCAST_1K_WAN_FLY_6R_UNIFORM_SEEDS8 = {
+    "spec_hash": "f76f68230aa07b3b",
+    "result_digest": "9e7f18c1a1ad5ef13be5ac2cf2e72f78",
+    "rounds": [[76, 76, 75, 75, 76, 76, 76, 75]],
+}
+
+# run_campaign(dense_storm_wan_seeds_spec()): the 100k write storm on the
+# dense round over wan-3x2 (three ring slots), seeds 0-7.  Each lane is
+# live JAX's one-seed run_campaign of its seed (rounds, p99, convergence,
+# state digest; -m slow one case a seed, about two and a half minutes
+# each); the 8-lane result_digest is JAX's artifact_digest over the cell
+# the eight lanes make, the construction that reproduces every one-seed
+# artifact's digest (seed 0's is seed0_result_digest, finding 4's).  Lane
+# 0 is STORM_WAN_3X2_100K_SEED0's run (the dense == packed contract)
+DENSE_STORM_WAN_3X2_100K_SEEDS8 = {
+    "spec_hash": "b0ff33c929352cf0",
+    "result_digest": "ae7ab9b8cc670694e0208c09703a584a",
+    "seed0_result_digest": "5aefd68bb1463203ae8c19cdf5347d2e",
+    "rounds": [[38, 38, 38, 38, 38, 39, 38, 38]],
+    "lanes": [
+        {"seed": 0, "rounds": 38,
+         "p99_node_convergence_round": 34.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "72bb7596220d68d6"},
+        {"seed": 1, "rounds": 38,
+         "p99_node_convergence_round": 34.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "8e4fe56fce3a8705"},
+        {"seed": 2, "rounds": 38,
+         "p99_node_convergence_round": 34.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "7b7f8e0da5dda84e"},
+        {"seed": 3, "rounds": 38,
+         "p99_node_convergence_round": 34.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "05fdf35f0de50422"},
+        {"seed": 4, "rounds": 38,
+         "p99_node_convergence_round": 34.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "60adc58c2723f034"},
+        {"seed": 5, "rounds": 39,
+         "p99_node_convergence_round": 34.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "3e5727fcd92350f9"},
+        {"seed": 6, "rounds": 38,
+         "p99_node_convergence_round": 34.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "e77faeb5fe61028e"},
+        {"seed": 7, "rounds": 38,
+         "p99_node_convergence_round": 34.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "c73ac5ae62816f4d"},
+    ],
+}

@@ -153,6 +153,17 @@ replaces:
   lanes folded) — `sim.faults.fault_wire_effects`,
   `fault_session_effects`, `fault_session_refused` with a ``[K]`` count.
 
+- the topology axis and PeerSwap on the dense round's lanes (B16t,
+  B16s; one row a kernel, counted apart from the solo entries): K20's
+  `EDGE_SLOTS_LANES`, `DEGREE_CAPS_LANES`, `EDGE_REACH_LANES` —
+  `sim.topology.edge_slot_lanes`, `apply_degree_caps_lanes`,
+  `tiered_reach_lanes_`; K12t's `DENSE_BROADCAST_TIERED_LANES` and its
+  recording form `DENSE_BROADCAST_TIERED_LANES_TRACE` —
+  `sim.dense_lanes.broadcast_send_lanes` under tiered loss; K1's view
+  lane entry `SAMPLE_VIEW_LANES` — `topo.sampler.sample_view_lanes`; K21
+  `PEERSWAP_PARTNER_LANES`, `PEERSWAP_SWAP_LANES`, `PEERSWAP_LAND_LANES`
+  — `topo.sampler.peerswap_partner_lanes`, `peerswap_apply_lanes`.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -439,6 +450,28 @@ FAULT_EDGES_MATRIX_LANES_COUNT = Kernel("fault_edges_matrix_lanes_count",
                                         "fault_edges.cu",
                                         "corro_fault_edges_matrix", 5)
 
+EDGE_SLOTS_LANES = Kernel("edge_slots_lanes", "edge_classes.cu",
+                          "corro_edge_slots_lanes", 4)
+DEGREE_CAPS_LANES = Kernel("degree_caps_lanes", "edge_classes.cu",
+                           "corro_degree_caps_lanes", 3)
+EDGE_REACH_LANES = Kernel("edge_reach_lanes", "edge_classes.cu",
+                          "corro_edge_reach_lanes", 3)
+DENSE_BROADCAST_TIERED_LANES = Kernel("dense_broadcast_tiered_lanes",
+                                      "dense_phases.cu",
+                                      "corro_dense_broadcast_tiered_lanes",
+                                      12)
+DENSE_BROADCAST_TIERED_LANES_TRACE = Kernel(
+    "dense_broadcast_tiered_lanes_trace", "dense_phases.cu",
+    "corro_dense_broadcast_tiered_lanes", 12)
+SAMPLE_VIEW_LANES = Kernel("sample_view_lanes", "sample_targets.cu",
+                           "corro_sample_view_lanes", 5)
+PEERSWAP_PARTNER_LANES = Kernel("peerswap_partner_lanes", "peerswap.cu",
+                                "corro_peerswap_partner_lanes", 3)
+PEERSWAP_SWAP_LANES = Kernel("peerswap_swap_lanes", "peerswap.cu",
+                             "corro_peerswap_swap_lanes", 4)
+PEERSWAP_LAND_LANES = Kernel("peerswap_land_lanes", "peerswap.cu",
+                             "corro_peerswap_land_lanes", 5)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -531,10 +564,19 @@ PORTED = {
     "fault_edges_lanes_count": (FAULT_EDGES_LANES_COUNT,),
     "fault_edges_delay_lanes_count": (FAULT_EDGES_DELAY_LANES_COUNT,),
     "fault_edges_matrix_lanes_count": (FAULT_EDGES_MATRIX_LANES_COUNT,),
+    "edge_slots_lanes": (EDGE_SLOTS_LANES,),
+    "degree_caps_lanes": (DEGREE_CAPS_LANES,),
+    "edge_reach_lanes": (EDGE_REACH_LANES,),
+    "dense_broadcast_tiered_lanes": (DENSE_BROADCAST_TIERED_LANES,),
+    "dense_broadcast_tiered_lanes_trace": (
+        DENSE_BROADCAST_TIERED_LANES_TRACE,),
+    "sample_view_lanes": (SAMPLE_VIEW_LANES,),
+    "peerswap_lanes": (PEERSWAP_PARTNER_LANES, PEERSWAP_SWAP_LANES,
+                       PEERSWAP_LAND_LANES),
 }
 #: the flight recorder on the dense round's lanes (B16r): the three lane
 #: entries of K17-K19 and the recording forms of the lane launchers of
-#: K12, K12f, K13, K13d (their recorder outputs) and of K9's, K9's
+#: K12, K12f, K12t, K13, K13d (their recorder outputs) and of K9's, K9's
 #: latency entry's and K9m's edge queries (their lane-strided counts)
 TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
                    "trace_row_lanes", "dense_broadcast_lanes_trace",
@@ -542,7 +584,8 @@ TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
                    "dense_sync_lanes_trace", "dense_sync_delay_lanes_trace",
                    "fault_edges_lanes_count",
                    "fault_edges_delay_lanes_count",
-                   "fault_edges_matrix_lanes_count")
+                   "fault_edges_matrix_lanes_count",
+                   "dense_broadcast_tiered_lanes_trace")
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
@@ -553,7 +596,9 @@ LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "detect_partial_lanes", "fault_reach_matrix_lanes",
              "node_faults_dense_lanes", "dense_broadcast_fault_lanes",
              "dense_sync_delay_lanes", "dense_gaps_exit_lanes",
-             *TRACE_LANE_ROWS)
+             "edge_slots_lanes", "degree_caps_lanes", "edge_reach_lanes",
+             "dense_broadcast_tiered_lanes", "sample_view_lanes",
+             "peerswap_lanes", *TRACE_LANE_ROWS)
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
@@ -588,7 +633,10 @@ __all__ = [
     "DENSE_BROADCAST_FAULT_LANES_TRACE", "DENSE_SYNC_LANES_TRACE",
     "DENSE_SYNC_DELAY_LANES_TRACE", "FAULT_EDGES_LANES_COUNT",
     "FAULT_EDGES_DELAY_LANES_COUNT", "FAULT_EDGES_MATRIX_LANES_COUNT",
-    "TRACE_LANE_ROWS",
+    "TRACE_LANE_ROWS", "EDGE_SLOTS_LANES", "DEGREE_CAPS_LANES",
+    "EDGE_REACH_LANES", "DENSE_BROADCAST_TIERED_LANES",
+    "DENSE_BROADCAST_TIERED_LANES_TRACE", "SAMPLE_VIEW_LANES",
+    "PEERSWAP_PARTNER_LANES", "PEERSWAP_SWAP_LANES", "PEERSWAP_LAND_LANES",
     "DENSE_PULL_LOSSY", "DENSE_PULL_TIERED", "ORDER_CHECK_DENSE",
     "ORDER_CHECK_WORDS", "TRACE_WIRE_ROWS_PULL", "TRACE_WIRE_WORDS_PULL",
     "WORD_DELIVER_FIFO",

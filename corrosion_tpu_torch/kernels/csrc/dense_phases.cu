@@ -151,6 +151,15 @@
 // loss ate on ok edges add into dropped[k * acc_stride], lane k's slot
 // of the [K, ...] trace accumulators — one warp sum and one add a row,
 // as solo.  Null pointers skip it.
+// The tiered instantiation's lane form (corro_dense_broadcast_tiered_lanes,
+// counted as dense_broadcast_tiered_lanes and, recording, its _trace
+// form: B16t, corrosion_tpu/campaign/ensemble.py:114 vmaps
+// topology.py:240 tiered_edge_drop through broadcast.py:120) takes each
+// lane's k_drop [K, 2] and compares byte e*P + q of its own draw
+// (e lane-local) with the tier threshold of (row, dst[e]) from the shared
+// topology table; with the plan's loss or jitter it folds each lane's
+// phase key and plan seed as the fault lane entry does.  Bound: K times
+// the solo tiered bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -236,10 +245,10 @@ __global__ void dense_broadcast_kernel(
     int budget, int thr, uint32_t seed, uint32_t loss_tag, uint32_t jit_tag,
     uint32_t span, uint32_t mult, int acc_stride) {
   {
-    // the lane's slices (lane 0 on the solo entries; the lane entries
-    // pass no tiered pointers, the fault lane entry its lanes' phase
-    // keys, fault thresholds, jitter bounds and plan seeds, and a
-    // recording run its lanes' frame rows and dropped slots)
+    // the lane's slices (lane 0 on the solo entries; the topology's
+    // table is shared, the fault and tiered lane entries pass their
+    // lanes' phase keys, fault thresholds, jitter bounds and plan seeds,
+    // and a recording run its lanes' frame rows and dropped slots)
     const size_t lane = blockIdx.y;
     const size_t cells = (size_t)n * p, edges = (size_t)n * f;
     have += lane * cells;
@@ -662,6 +671,28 @@ extern "C" int corro_dense_broadcast_fault_lanes(
   return launch_broadcast(true, have, relay, injected, nbytes, targets, dst,
                           slot, ok, alive, key, ring, row_frames, row_bytes,
                           dropped, phase_key, fthr, jit, nullptr, n, p, f,
+                          d_slots, budget, thr, 0, loss_tag, jit_tag, span,
+                          mult, stream, lanes, seeds, acc_stride);
+}
+
+// The tiered instantiation's lane form: the fault lane entry's pointers
+// (`phase_key`, `fthr`, `jit` and `seeds` all null in a round without
+// fault draws) and `tiers`, the topology's table (shared), then its
+// ints; `thr` must be 0.
+extern "C" int corro_dense_broadcast_tiered_lanes(
+    const void* have, void* relay, const void* injected, const void* nbytes,
+    const void* targets, const void* dst, const void* slot, const void* ok,
+    const void* alive, const void* key, void* ring, void* row_frames,
+    void* row_bytes, void* dropped, const void* phase_key, const void* fthr,
+    const void* jit, const void* seeds, const void* tiers, int n, int p,
+    int f, int d_slots, int budget, int thr, int loss_tag, int jit_tag,
+    int span, int mult, int acc_stride, int lanes, void* stream) {
+  bool fault = fthr != nullptr || jit != nullptr;
+  if (tiers == nullptr || (fault && seeds == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch_broadcast(fault, have, relay, injected, nbytes, targets, dst,
+                          slot, ok, alive, key, ring, row_frames, row_bytes,
+                          dropped, phase_key, fthr, jit, tiers, n, p, f,
                           d_slots, budget, thr, 0, loss_tag, jit_tag, span,
                           mult, stream, lanes, seeds, acc_stride);
 }

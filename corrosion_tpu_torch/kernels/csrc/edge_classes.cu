@@ -44,6 +44,20 @@
 // the host: the round counter is a host int), the cap F without degree
 // classes (a null table).
 //
+// The lane entries (corro_edge_slots_lanes, corro_degree_caps_lanes,
+// corro_edge_reach_lanes) run the slots, the caps and the tiered reach
+// over a seed ensemble's lanes on the dense round (B16t: corrosion_tpu/
+// campaign/ensemble.py:114 vmaps topology.py:157, :142 and swim.py:125)
+// as a grid dimension: blockIdx.y is the lane, whose per-edge and
+// per-node tensors are its slices of the [K, ...] ones, offset in 64
+// bits; node ids and the reach's draw counter e stay lane-local, so lane
+// k is the solo entry on lane k's inputs.  The slots' src [E] is shared
+// (the sender of edge e is e / F in every lane), dst, fdelay and slot
+// are [K, E]; the reach takes src and dst [K, E] (its relay legs start
+// or end at each lane's own relays) and each lane's key [K, 2], folded
+// once a block; the caps take the targets [K, N, F].  The topology's
+// table is shared.  Bound: K times the solo bound.
+//
 // Bound on the H100: bytes (launch latency at these sizes).  An edge
 // reads two ids (8 bytes) and writes a slot (4) or reads and writes ok
 // (2); the caps read and write 4 bytes a cell; the reach hashes at most
@@ -68,6 +82,11 @@ __global__ void edge_slots_kernel(const int32_t* __restrict__ tb,
                                   const int32_t* __restrict__ fdelay,
                                   int32_t* __restrict__ slot, int e, int t,
                                   int d_slots) {
+  // the lane's slices (lane 0 on the solo entry; src is shared)
+  const size_t lane = blockIdx.y;
+  dst += lane * e;
+  slot += lane * e;
+  if (fdelay != nullptr) fdelay += lane * e;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= e) return;
   int d = corro::topo_delay(tb, src[i], dst[i]);
@@ -78,6 +97,8 @@ __global__ void edge_slots_kernel(const int32_t* __restrict__ tb,
 __global__ void degree_caps_kernel(const int32_t* __restrict__ tb,
                                    int32_t* __restrict__ targets, int n,
                                    int f) {
+  // the lane's targets (lane 0 on the solo entry)
+  targets += (size_t)blockIdx.y * n * f;
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * f) return;
   int node = (int)(i / f);
@@ -102,6 +123,12 @@ __global__ void edge_reach_kernel(const int32_t* __restrict__ tb,
                                   const int64_t* __restrict__ key,
                                   bool* __restrict__ ok, int e,
                                   uint32_t tag) {
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  src += lane * e;
+  dst += lane * e;
+  ok += lane * e;
+  key += lane * 2;
   __shared__ uint32_t folded[2];
   if (threadIdx.x == 0) {
     corro::Pair f = corro::fold_in(
@@ -127,6 +154,8 @@ __global__ void edge_reach_kernel(const int32_t* __restrict__ tb,
 unsigned blocks_for(size_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
+
+bool bad_lanes(int lanes) { return lanes <= 0 || lanes > 65535; }
 
 }  // namespace
 
@@ -170,5 +199,44 @@ extern "C" int corro_degree_caps_sched(const void* table, void* targets,
   degree_caps_sched_kernel<<<blocks_for((size_t)n * f), kThreads, 0,
                              (cudaStream_t)stream>>>(
       (const int32_t*)table, (int32_t*)targets, n, f, active);
+  return (int)cudaGetLastError();
+}
+
+// The lane entries: the solo entries' arguments with the per-lane
+// tensors [lanes, ...] (see the header), then `lanes`.
+extern "C" int corro_edge_slots_lanes(const void* table, const void* src,
+                                      const void* dst, const void* fdelay,
+                                      void* slot, int e, int t, int d_slots,
+                                      int lanes, void* stream) {
+  if (e < 0 || t < 0 || d_slots <= 0 || bad_lanes(lanes))
+    return (int)cudaErrorInvalidValue;
+  if (e == 0) return (int)cudaSuccess;
+  edge_slots_kernel<<<dim3(blocks_for(e), lanes), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const int32_t*)table, (const int32_t*)src, (const int32_t*)dst,
+      (const int32_t*)fdelay, (int32_t*)slot, e, t, d_slots);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_degree_caps_lanes(const void* table, void* targets,
+                                       int n, int f, int lanes,
+                                       void* stream) {
+  if (n <= 0 || f <= 0 || bad_lanes(lanes)) return (int)cudaErrorInvalidValue;
+  degree_caps_kernel<<<dim3(blocks_for((size_t)n * f), lanes), kThreads, 0,
+                       (cudaStream_t)stream>>>((const int32_t*)table,
+                                               (int32_t*)targets, n, f);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_edge_reach_lanes(const void* table, const void* src,
+                                      const void* dst, const void* keys,
+                                      void* ok, int e, int tag, int lanes,
+                                      void* stream) {
+  if (e < 0 || bad_lanes(lanes)) return (int)cudaErrorInvalidValue;
+  if (e == 0) return (int)cudaSuccess;
+  edge_reach_kernel<<<dim3(blocks_for(e), lanes), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const int32_t*)table, (const int32_t*)src, (const int32_t*)dst,
+      (const int64_t*)keys, (bool*)ok, e, (uint32_t)tag);
   return (int)cudaGetLastError();
 }

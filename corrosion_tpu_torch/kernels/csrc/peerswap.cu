@@ -37,6 +37,16 @@
 // the per-node vectors are 4-5 ints a node.  At the 25.6k storm (V = 16)
 // that is ~3.7 MB, ~1.1 µs at 3.35 TB/s — launch latency dominates.
 // Design: one thread per node over its own 64-byte row, no shared memory.
+//
+// The lane entries (corro_peerswap_{partner,swap,land}_lanes) run the
+// tick over a seed ensemble's lanes on the dense round (B16s:
+// corrosion_tpu/campaign/ensemble.py:114 vmaps sampler.py:81) as a grid
+// dimension: blockIdx.y is the lane, whose views [N, V], per-node
+// vectors and offer buffer are its slices of the [K, ...] tensors,
+// offset in 64 bits.  Peer ids stay lane-local, so a partner and its
+// offer buffer are the lane's own: the scatter-max resolves inside each
+// lane and a winner never crosses lanes.  Lane k is the solo entry on
+// lane k's inputs.  Bound: K times the solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,6 +64,12 @@ __global__ void peerswap_partner_kernel(const int32_t* __restrict__ pview,
                                         const int32_t* __restrict__ c,
                                         int32_t* __restrict__ pc,
                                         int32_t* __restrict__ winner, int n, int v) {
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  pview += lane * n * v;
+  c += lane * n;
+  pc += lane * n;
+  winner += lane * n;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int partner = pview[(size_t)i * v + clamp_slot(c[i], v)];
@@ -68,6 +84,14 @@ __global__ void peerswap_swap_kernel(const int32_t* __restrict__ pview,
                                      int32_t* __restrict__ out,
                                      int32_t* __restrict__ winner, int n, int v,
                                      int t) {
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  pview += lane * n * v;
+  c += lane * n;
+  reach += lane * n;
+  alive += lane * n;
+  out += lane * n * v;
+  winner += lane * n;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int32_t* row = pview + (size_t)i * v;
@@ -91,6 +115,13 @@ __global__ void peerswap_land_kernel(int32_t* __restrict__ out,
                                      const int32_t* __restrict__ rid,
                                      const uint8_t* __restrict__ alive, int n, int v,
                                      int t, int interval) {
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  out += lane * n * v;
+  winner += lane * n;
+  rb += lane * n;
+  rid += lane * n;
+  alive += lane * n;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int32_t* row = out + (size_t)i * v;
@@ -102,6 +133,8 @@ __global__ void peerswap_land_kernel(int32_t* __restrict__ out,
 }
 
 unsigned blocks_for(int n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+bool bad_lanes(int lanes) { return lanes <= 0 || lanes > 65535; }
 
 }  // namespace
 
@@ -135,6 +168,46 @@ extern "C" int corro_peerswap_land(void* out, const void* winner,
   if (n <= 0 || v <= 0 || t < 0 || interval <= 0)
     return (int)cudaErrorInvalidValue;
   peerswap_land_kernel<<<blocks_for(n), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)winner, (const int32_t*)rb,
+      (const int32_t*)rid, (const uint8_t*)alive, n, v, t, interval);
+  return (int)cudaGetLastError();
+}
+
+// The lane entries: the solo entries' arguments with every view [lanes,
+// N, V] and every per-node vector [lanes, N], then `lanes`.
+extern "C" int corro_peerswap_partner_lanes(const void* pview, const void* c,
+                                            void* pc, void* winner, int n,
+                                            int v, int lanes, void* stream) {
+  if (n <= 0 || v <= 0 || bad_lanes(lanes)) return (int)cudaErrorInvalidValue;
+  peerswap_partner_kernel<<<dim3(blocks_for(n), lanes), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)pview, (const int32_t*)c, (int32_t*)pc,
+      (int32_t*)winner, n, v);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_peerswap_swap_lanes(const void* pview, const void* c,
+                                         const void* reach, const void* alive,
+                                         void* out, void* winner, int n, int v,
+                                         int t, int lanes, void* stream) {
+  if (n <= 0 || v <= 0 || t < 0 || bad_lanes(lanes))
+    return (int)cudaErrorInvalidValue;
+  peerswap_swap_kernel<<<dim3(blocks_for(n), lanes), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const int32_t*)pview, (const int32_t*)c, (const bool*)reach,
+      (const uint8_t*)alive, (int32_t*)out, (int32_t*)winner, n, v, t);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_peerswap_land_lanes(void* out, const void* winner,
+                                         const void* rb, const void* rid,
+                                         const void* alive, int n, int v,
+                                         int t, int interval, int lanes,
+                                         void* stream) {
+  if (n <= 0 || v <= 0 || t < 0 || interval <= 0 || bad_lanes(lanes))
+    return (int)cudaErrorInvalidValue;
+  peerswap_land_kernel<<<dim3(blocks_for(n), lanes), kThreads, 0,
                          (cudaStream_t)stream>>>(
       (int32_t*)out, (const int32_t*)winner, (const int32_t*)rb,
       (const int32_t*)rid, (const uint8_t*)alive, n, v, t, interval);

@@ -59,6 +59,13 @@
 // dimension: lane blockIdx.y's candidate draws [over, N], beliefs
 // [N, N] (when given) and output [N, count], offset in 64 bits.  Bound:
 // K times the solo bound.
+//
+// View lane entry, corro_sample_view_lanes: the PeerSwap view sampler
+// over the lanes of a dense-round ensemble (B16s: corrosion_tpu/campaign/
+// ensemble.py:114 vmaps sampler.py:57), the same grid dimension: lane
+// blockIdx.y's views [N, V], slot draws [over, N], beliefs [N, N] (when
+// given) and output [N, count], offset in 64 bits; the candidates are
+// lane-local ids.  Bound: K times the solo bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -161,6 +168,12 @@ __global__ void sample_view_kernel(const int32_t* __restrict__ pview,
                                    int over, int count) {
   int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= n) return;
+  // the lane's slices (lane 0 on the solo entry)
+  const size_t lane = blockIdx.y;
+  pview += lane * n * v;
+  slots += lane * over * n;
+  if (view != nullptr) view += lane * n * n;
+  out += lane * n * count;
   const int32_t* row = pview + (size_t)node * v;
   int cand[MAX_OVER];
   bool valid[MAX_OVER];
@@ -253,5 +266,21 @@ extern "C" int corro_sample_uniform_lanes(const void* cands, const void* view,
                           (cudaStream_t)stream>>>(
       (const int32_t*)cands, (const int8_t*)view, (int32_t*)out, n, over,
       count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int corro_sample_view_lanes(const void* pview, const void* slots,
+                                       const void* view, void* out, int n,
+                                       int v, int over, int count, int lanes,
+                                       void* stream) {
+  if (over > MAX_OVER || count > over || n <= 0 || v <= 0 || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  int blocks = (n + threads - 1) / threads;
+  sample_view_kernel<<<dim3(blocks, lanes), threads, 0,
+                       (cudaStream_t)stream>>>(
+      (const int32_t*)pview, (const int32_t*)slots, (const int8_t*)view,
+      (int32_t*)out, n, v, over, count);
   return (int)cudaGetLastError();
 }

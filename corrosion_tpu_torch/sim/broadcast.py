@@ -106,6 +106,40 @@ def ring0_targets(
     return targets
 
 
+def ring0_targets_lanes(
+    state: SimState, cfg: SimConfig, topo: Topology, region: torch.Tensor,
+    keys: torch.Tensor, targets: torch.Tensor,
+) -> torch.Tensor:
+    """`ring0_targets` over the lanes (B16t): targets i32[K, N, F], each
+    lane's slot-0 candidate drawn under its own ``keys[k]`` (its
+    ``k_ring0``; K5's lane entry, with randint's u32 wrap) and checked
+    against that lane's beliefs; the regions are shared."""
+    if not (cfg.ring0_first and topo.n_regions > 1):
+        return targets
+    lanes, n, _ = targets.shape
+    dev = targets.device
+    me = torch.arange(n, dtype=torch.int32, device=dev)
+    per = max(1, n // topo.n_regions)
+    start = region * per
+    size = torch.where(region == topo.n_regions - 1, n - start, per)
+    local = start + rng.randint_lanes(keys, (n,), 0, _I32_MAX) % torch.clamp(
+        size, min=1)
+    ok_local = local != me
+    if cfg.couple_membership and cfg.swim_full_view:
+        cell = me.long() * n + local.long()
+        ok_local &= torch.gather(state.view.reshape(lanes, n * n), 1,
+                                 cell) != DOWN
+    elif cfg.couple_membership and cfg.swim_partial_view:
+        m = state.pid.shape[2]
+        bucket = (local % m).long()[..., None]
+        known = torch.gather(state.pid, 2, bucket)[..., 0] == local
+        ok_local &= known & (torch.gather(state.pkey, 2, bucket)[..., 0] % 4
+                             != DOWN)
+    targets = targets.clone()
+    targets[:, :, 0] = torch.where(ok_local, local, targets[:, :, 0])
+    return targets
+
+
 # -- K12: inject -------------------------------------------------------------
 
 

@@ -47,6 +47,16 @@ recording forms, coverage and delivered from K17's dense lane entry,
 and K19's lane entry writes the rows (a ticket a lane) with the shared
 fault slice's crashes and wipes.
 
+**Topology families and PeerSwap** (B16t, B16s): the broadcast takes
+ring0 tiering under each lane's ``k_ring0`` (`.broadcast.
+ring0_targets_lanes`), the degree caps (K20's caps lane entry), AZ and
+matrix delay slots (K20's edge lane entry), the flat loss threshold or
+the tiered loss (K12t's lane entry); every reach draws the topology's
+loss (K20's reach lane entry, or the flat bernoulli); under PeerSwap
+each lane's key splits five ways, the swap tick runs first (K21's lane
+entries) and every target draw samples the view (K1's view lane
+entry).
+
 Each wrapper runs its plain torch version on a CPU tensor: the solo
 plain version on each lane's slices, so lane k of a plain lane call IS
 the solo call on lane k's inputs.  A finished lane leaves the batch as
@@ -113,7 +123,16 @@ from .telemetry import (
     wire_loss_active,
     wire_rows_lanes_,
 )
-from .topology import Topology, edge_slot_plain, regions
+from .topology import (
+    Topology,
+    apply_degree_caps_lanes,
+    edge_slot_lanes,
+    loss_threshold,
+    loss_tiered,
+    regions,
+    topo_table,
+    wire_tiers,
+)
 
 _LANES_MAX = 65535  # the grid's y dimension
 _I32_MAX = (1 << 31) - 1  # the jitter draw's span, as `broadcast`'s
@@ -168,10 +187,11 @@ def broadcast_send_lanes_plain(have, relay, injected, nbytes, budget,
                                targets, dst, slot, ok, alive, keys,
                                thr: int, ring, phase_keys=None, fthr=None,
                                jit=None, seeds=None, row_frames=None,
-                               row_bytes=None, dropped=None) -> None:
-    """Plain version of K12's broadcast lane entry and of its fault lane
-    entry (and of their recording forms): the solo plain version on each
-    lane under its keys and plan seed, in place."""
+                               row_bytes=None, dropped=None,
+                               tiers: Optional[Topology] = None) -> None:
+    """Plain version of K12's broadcast lane entry, of its fault and
+    tiered lane entries (and of their recording forms): the solo plain
+    version on each lane under its keys and plan seed, in place."""
     from .broadcast import broadcast_send_plain
 
     def lane(x, k):
@@ -184,14 +204,15 @@ def broadcast_send_lanes_plain(have, relay, injected, nbytes, budget,
             row_frames=lane(row_frames, k), row_bytes=lane(row_bytes, k),
             dropped=lane(dropped, k), phase_key=lane(phase_keys, k),
             fthr=lane(fthr, k), jit=lane(jit, k),
-            seed=0 if seeds is None else int(seeds[k]))
+            seed=0 if seeds is None else int(seeds[k]), tiers=tiers)
 
 
 def broadcast_send_lanes(have, relay, injected, nbytes,
                          budget: Optional[int], targets, dst, slot, ok,
                          alive, keys, thr: int, ring, phase_keys=None,
                          fthr=None, jit=None, seeds=None, row_frames=None,
-                         row_bytes=None, dropped=None) -> None:
+                         row_bytes=None, dropped=None,
+                         tiers: Optional[Topology] = None) -> None:
     """`broadcast.broadcast_send` over the lanes, in place on ``relay``
     and the rings [K, D, N, P]: each lane's eligible payloads, its
     oldest-first budget prefix per row (lane-local), its edges' ring
@@ -204,15 +225,20 @@ def broadcast_send_lanes(have, relay, injected, nbytes,
     when given: each lane's per-node sent frames and bytes i32[K, N]
     (``row_frames``, ``row_bytes``) and the frames each lane's loss ate
     on its ok edges, added to its int64 slot of ``dropped`` (a lane
-    trace's ``[K]`` accumulator view).  K12's broadcast lane entry on the
-    card, its fault lane entry under a plan's loss or jitter (no tiered
-    outputs); their recording forms, counted apart, with the recorder's
-    outputs."""
+    trace's ``[K]`` accumulator view).  Under tiered topology loss
+    (``tiers``, the topology, `topology.wire_tiers`; ``thr`` then 0) lane
+    k compares byte e*P + q of its own ``keys[k]`` draw against the tier
+    threshold of its edge e, and a tier at certainty loses every payload
+    of its edges (JAX ``tiered_edge_drop`` under the vmap).  K12's
+    broadcast lane entry on the card, its fault lane entry under a plan's
+    loss or jitter, its tiered lane entry under tiers (with or without
+    the plan's draws); their recording forms, counted apart, with the
+    recorder's outputs."""
     if have.device.type == "cpu":
         broadcast_send_lanes_plain(have, relay, injected, nbytes, budget,
                                    targets, dst, slot, ok, alive, keys, thr,
                                    ring, phase_keys, fthr, jit, seeds,
-                                   row_frames, row_bytes, dropped)
+                                   row_frames, row_bytes, dropped, tiers)
         return
     lanes, n, p = have.shape
     f = targets.shape[2]
@@ -245,24 +271,33 @@ def broadcast_send_lanes(have, relay, injected, nbytes,
     ptrs = [have, relay, injected, nbytes, targets, dst, slot, ok, alive,
             keys, ring, row_frames, row_bytes, dropped]
     ints = [n, p, f, d, -1 if budget is None else budget, min(thr, 256)]
-    if fthr is None and jit is None:
+    fault = fthr is not None or jit is not None
+    if not fault and tiers is None:
         kernel = (kernels.DENSE_BROADCAST_LANES_TRACE if recording
                   else kernels.DENSE_BROADCAST_LANES)
         kernel.launch(ptrs, ints + [stride, lanes])
         return
-    check("phase_keys", phase_keys, torch.int64, (lanes, 2))
-    check("seeds", seeds, torch.int32, (lanes,))
+    if fault:
+        check("phase_keys", phase_keys, torch.int64, (lanes, 2))
+        check("seeds", seeds, torch.int32, (lanes,))
     if fthr is not None:
         check("fthr", fthr, torch.uint8, (lanes, e))
     if jit is not None:
         check("jit", jit, torch.int32, (lanes, e))
     span, mult = rng.scalar_span(0, _I32_MAX)
+    ints += [WIRE_LOSS_TAG, JITTER_TAG, i32(span), i32(mult), stride, lanes]
+    ptrs += [phase_keys if fault else None, fthr, jit,
+             seeds if fault else None]
+    if tiers is not None:
+        if thr != 0:
+            raise ValueError("tiered loss replaces the flat threshold")
+        kernel = (kernels.DENSE_BROADCAST_TIERED_LANES_TRACE if recording
+                  else kernels.DENSE_BROADCAST_TIERED_LANES)
+        kernel.launch(ptrs + [topo_table(tiers, n, have.device)], ints)
+        return
     kernel = (kernels.DENSE_BROADCAST_FAULT_LANES_TRACE if recording
               else kernels.DENSE_BROADCAST_FAULT_LANES)
-    kernel.launch(
-        ptrs + [phase_keys, fthr, jit, seeds],
-        ints + [WIRE_LOSS_TAG, JITTER_TAG, i32(span), i32(mult), stride,
-                lanes])
+    kernel.launch(ptrs, ints)
 
 
 def deliver_dense_lanes_plain(ring, sync_ring, have, relay, slot: int,
@@ -475,11 +510,17 @@ def sample_member_targets_lanes(state: SimState, cfg: SimConfig, keys,
                                 count: int) -> torch.Tensor:
     """`swim.sample_member_targets` over the lanes: the partial-view
     tables (`.pswim.psample_member_targets_lanes`) when coupled, else
-    ``4 * count`` uniform candidates a node (K5's lane draw) through
+    under ``peer_sampler="peerswap"`` each lane's view
+    (`..topo.sampler.psample_view_targets_lanes`, K1's view lane entry),
+    else ``4 * count`` uniform candidates a node (K5's lane draw) through
     K1's uniform lane entry, filtered by the lane's full-view beliefs
     when coupled."""
     if cfg.swim_partial_view and cfg.couple_membership:
         return psample_member_targets_lanes(state, cfg, keys, count)
+    if cfg.peer_sampler == "peerswap":
+        from ..topo.sampler import psample_view_targets_lanes
+
+        return psample_view_targets_lanes(state, cfg, keys, count)
     n = state.alive.shape[1]
     cand = rng.randint_lanes(keys, (4 * count, n), 0, n)
     coupled = cfg.swim_full_view and cfg.couple_membership
@@ -599,16 +640,18 @@ def swim_full_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
     timeout (K15), the gossip edges and announces, the merge and the
     apply with its refute (K15), in place on ``view``, ``vinc`` and
     ``suspect_since`` [K, N, N]; every sample through K1's uniform lane
-    entry, every draw K5's.  Flat lossless topology: reach draws nothing
-    but, under ``faults``, the plan's probe loss under each lane's loss
-    keys and plan seed (K9's or K9m's reach lane entry)."""
+    entry, every draw K5's.  Every reach (`.pswim.reachable_lanes`)
+    draws the topology's loss under each lane's loss keys (K20's reach
+    lane entry under tiers, the flat bernoulli otherwise) and, under
+    ``faults``, the plan's probe loss under each lane's loss keys and
+    plan seed (K9's or K9m's reach lane entry)."""
     lanes, n = state.alive.shape
     ks = rng.split_lanes(keys, 8)
     k_probe, k_relay = ks[:, 0].contiguous(), ks[:, 2].contiguous()
     k_gossip, k_ann = ks[:, 4].contiguous(), ks[:, 6].contiguous()
-    # the reach draws only under a plan (the probe loss)
+    # the reach draws only under a plan or the topology's loss
     k_ploss = k_gloss = k_aloss = k_hop1 = k_hop2 = None
-    if faults is not None:
+    if faults is not None or topo.loss > 0 or loss_tiered(topo):
         k_ploss, k_gloss, k_aloss = (ks[:, i].contiguous()
                                      for i in (1, 5, 7))
         hop = rng.split_lanes(ks[:, 3].contiguous(), 2)
@@ -720,8 +763,12 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
                          seeds=None, active=None,
                          trace: Optional[RoundTrace] = None) -> None:
     """`broadcast.broadcast_step` over the lanes, in place on
-    ``relay_left`` and ``inflight``: each lane's targets, its edges and
-    their slots, and K12's broadcast lane entry under its ``k_drop``.
+    ``relay_left`` and ``inflight``: each lane's targets, ring0 tiering
+    under its ``k_ring0`` (`.broadcast.ring0_targets_lanes`), the
+    topology's degree caps (K20's caps lane entry), its edges and their
+    slots (K20's edge lane entry on AZ or matrix delay classes), and
+    K12's broadcast lane entry under its ``k_drop`` with the topology's
+    flat loss threshold, or its tiered lane entry under tiered loss.
     Under ``faults`` (the round's shared slice) cuts clear the lanes'
     edges and the plan's fixed delay adds to their slots (K9 or K9m, the
     lanes folded into the edge axis), and the plan's loss and jitter are
@@ -732,10 +779,14 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     (`.telemetry.new_trace_lanes`) each lane's cut edges (K9), lost
     frames and per-node frames and bytes (K12's recording form), folded
     over its ok edges (K18's rows lane entry), go to its accumulators."""
+    from .broadcast import ring0_targets_lanes
+
     lanes = keys.shape[0]
     ks = rng.split_lanes(keys, 3)
-    k_targets, k_drop = ks[:, 0].contiguous(), ks[:, 1].contiguous()
+    k_targets, k_drop, k_ring0 = (ks[:, i].contiguous() for i in range(3))
     targets = sample_member_targets_lanes(state, cfg, k_targets, cfg.fanout)
+    targets = ring0_targets_lanes(state, cfg, topo, region, k_ring0, targets)
+    targets = apply_degree_caps_lanes(targets.contiguous(), topo)
     src, dst, ok = _edges(state, targets)
     fthr = jit = fdelay = None
     if faults is not None:
@@ -749,8 +800,11 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
         if active is not None:
             fthr = fthr if active.loss else None
             jit = jit if active.jitter else None
-    slot = edge_slot_plain(topo, region, src, dst, int(state.t),
-                           state.inflight.shape[1], fdelay)
+    slot = edge_slot_lanes(topo, region, src[0], dst.contiguous(),
+                           int(state.t), state.inflight.shape[1], fdelay)
+    tiers = wire_tiers(topo)
+    thr = (loss_threshold(topo.loss)
+           if topo.loss > 0 and tiers is None else 0)
     row_frames = row_bytes = dropped = None
     if trace is not None:
         n = state.alive.shape[1]
@@ -762,8 +816,8 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     broadcast_send_lanes(
         state.have, state.relay_left, state.injected, meta.nbytes,
         cfg.rate_limit_bytes_round, targets.contiguous(), dst.contiguous(),
-        slot.contiguous(), ok, state.alive, k_drop, 0, state.inflight,
-        keys, fthr, jit, seeds, row_frames, row_bytes, dropped)
+        slot.contiguous(), ok, state.alive, k_drop, thr, state.inflight,
+        keys, fthr, jit, seeds, row_frames, row_bytes, dropped, tiers)
     if trace is not None:
         wire_rows_lanes_(trace.acc[:, WIRE], row_frames, row_bytes, ok,
                          cfg.fanout)
@@ -771,13 +825,13 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
 
 def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
                     keys, faults=None, trace: Optional[RoundTrace] = None):
-    """`sync.sync_step` over the lanes: each lane's peers, K13's lane
-    entry into slot t + 1 of its sync ring (in place), then the backoff
-    and the re-arm draw (K5's lane entry).  Under ``faults`` a session
-    dies on a cut in either direction, and under a plan with delay
-    factors each edge's grants land in slot t + 1 + its session delay
-    (K9 or K9m on the lanes folded, one launch; K13's delay lane
-    entry).  Returns the state; with a lane ``trace`` each lane's refused
+    """`sync.sync_step` over the lanes: each lane's peers (its PeerSwap
+    view under that sampler), K13's lane entry into slot t + 1 of its
+    sync ring (in place), then the backoff and the re-arm draw (K5's
+    lane entry).  Under ``faults`` a session dies on a cut in either
+    direction, and under a plan with delay factors each edge's grants
+    land in slot t + 1 + its session delay (K9 or K9m on the lanes
+    folded, one launch; K13's delay lane entry).  Returns the state; with a lane ``trace`` each lane's refused
     sessions (K9, lane-strided) and grant counts (K13's recording form)
     go to its accumulators and the sessions' ok mask bool[K, N * S] comes
     back second."""
@@ -842,10 +896,19 @@ def dense_round_step_lanes(state: SimState, metrics: RunMetrics,
     the solo round records its own: the phases feed each lane's
     accumulators, then K17's dense lane entry counts coverage and
     delivered and K19's lane entry writes the rows (with the shared
-    fault slice's crashes and wipes)."""
-    ks = rng.split_lanes(state.key, 4)
+    fault slice's crashes and wipes).  Under ``peer_sampler="peerswap"``
+    each lane's key splits five ways and the fifth drives the view swap
+    tick (`..topo.sampler.peerswap_step_lanes`, K21's lane entries)
+    before the phases, as in JAX's ``round_step``."""
+    peerswap = cfg.peer_sampler == "peerswap"
+    ks = rng.split_lanes(state.key, 5 if peerswap else 4)
     state = state._replace(key=ks[:, 0].contiguous())
     k_bcast, k_sync, k_swim = (ks[:, i].contiguous() for i in (1, 2, 3))
+    if peerswap:
+        from ..topo.sampler import peerswap_step_lanes
+
+        state = peerswap_step_lanes(state, cfg, topo, ks[:, 4].contiguous(),
+                                    faults, seeds)
     t = int(state.t)
     have0 = None if trace is None else state.have.clone()
     inject_dense_lanes(state.have, state.relay_left, state.injected, meta,

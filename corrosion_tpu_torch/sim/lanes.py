@@ -31,9 +31,9 @@ The lane path covers what the two 100k storm cells run: the flat
 lossless topology, partial-view SWIM, the baseline protocol, unmetered
 budgets and factored fault plans without latency.  `check_packed_lanes`
 refuses everything else, naming the ROADMAP item that ports it; the
-dense round's lanes (`.dense_lanes`, fault plans of either form
-included) have `check_dense_lanes`, and share this module's batch and
-loop (`_Batch`, `_run_batch`).
+dense round's lanes (`.dense_lanes`: fault plans of either form, the
+topology families, PeerSwap) have `check_dense_lanes`, and share this
+module's batch and loop (`_Batch`, `_run_batch`).
 """
 
 from __future__ import annotations
@@ -82,31 +82,22 @@ from .words import (
 )
 
 
-def _check_shared(cfg: SimConfig, topo: Topology) -> None:
-    """The refusals both rounds' lanes share: topology keys, PeerSwap and
-    the protocol variants."""
-    if topo != Topology():
-        raise NotImplementedError(
-            "topology families and keys on lanes are not ported yet "
-            "(ROADMAP B16d)")
-    if cfg.peer_sampler != "uniform":
-        raise NotImplementedError(
-            "the PeerSwap sampler on lanes is not ported yet (ROADMAP "
-            "B16d)")
+def _check_protocol(cfg: SimConfig) -> None:
+    """Both rounds' lanes refuse the protocol variants."""
     if (cfg.dissemination, cfg.fanout_schedule, cfg.sync_cadence,
             cfg.ordering) != ("push", "flat", "periodic", "none"):
         raise NotImplementedError(
             "protocol variants on lanes are not ported yet (ROADMAP "
-            "B16d)")
+            "B16v)")
 
 
 def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
                        telemetry: bool = False) -> None:
     """Refuse, loudly and naming the ROADMAP item that ports it, every
     configuration the packed round's lanes do not run: the recorder,
-    metered budgets, topology keys, samplers and protocols other than
-    the defaults, full view or ground-truth membership, matrix plans and
-    plans with delay or jitter."""
+    topology keys, PeerSwap, the protocol variants and metered budgets,
+    matrix plans and plans with delay or jitter; full view and
+    ground-truth membership run on the dense round's lanes instead."""
     if not packed_supported(cfg, topo):
         raise ValueError("a dense configuration on the packed round's "
                          "lanes: run it through `.dense_lanes`")
@@ -115,42 +106,57 @@ def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
             "the flight recorder on the packed round's lanes is not ported "
             "yet (the word forms of K17-K19 on lanes, ROADMAP B16m); the "
             "dense round's lanes record (allow_packed=False)")
-    _check_shared(cfg, topo)
+    if topo != Topology():
+        raise NotImplementedError(
+            "topology families and keys on the packed round's lanes are "
+            "not ported yet (K10t on lanes, ROADMAP B16m); the dense "
+            "round's lanes run them (allow_packed=False)")
+    if cfg.peer_sampler != "uniform":
+        raise NotImplementedError(
+            "the PeerSwap sampler on the packed round's lanes is not ported "
+            "yet (ROADMAP B16s, its packed half); the dense round's lanes "
+            "run it (allow_packed=False)")
+    _check_protocol(cfg)
     if cfg.rate_limit_bytes_round is not None or (
             cfg.sync_budget_bytes is not None):
         raise NotImplementedError(
             "metered budgets on the packed round's lanes are not ported "
-            "yet (K16 and K3's metered entry, ROADMAP B16d): "
+            "yet (K16 and K3's metered entry, ROADMAP B16m): "
             "set rate_limit_bytes_round and sync_budget_bytes to None")
     if not (cfg.swim_partial_view and cfg.couple_membership):
         raise NotImplementedError(
             "the packed round's lanes run partial-view SWIM only; full "
             "view and ground-truth membership run on the dense round's "
-            "lanes (force the dense round with allow_packed=False), not "
-            "on the packed round's (ROADMAP B16d)")
+            "lanes (force the dense round with allow_packed=False)")
     if fplan is not None:
         if not isinstance(fplan, FactoredFaultPlan):
             raise NotImplementedError(
-                "matrix fault plans on lanes are not ported yet (ROADMAP "
-                "B16d); compile the plan factored")
+                "matrix fault plans on the packed round's lanes are not "
+                "ported yet (ROADMAP B16x); compile the plan factored")
         if fplan.delay_src.shape[0] or fplan.jitter_src.shape[0]:
             raise NotImplementedError(
-                "delay and jitter on lanes are not ported yet (K9's "
-                "latency entry, K10j, K3's delay entry: ROADMAP B16d)")
+                "delay and jitter on the packed round's lanes are not "
+                "ported yet (K10j and K3's delay entry, ROADMAP B16l); the "
+                "dense round's lanes run them (allow_packed=False)")
 
 
 def check_dense_lanes(cfg: SimConfig, topo: Topology, fplan=None,
                       telemetry: bool = False) -> None:
     """Refuse, naming the ROADMAP item that ports it, every configuration
-    the dense round's lanes do not run: topology keys, PeerSwap and the
-    protocol variants.  Both byte budgets run (inside K12's and K13's
-    lane entries), and so do full view, partial view, ground-truth
-    membership, fault plans of either form, with delay and jitter
-    (``fplan`` is accepted), and the flight recorder (``telemetry``)."""
+    the dense round's lanes do not run: the protocol variants, and the
+    PeerSwap sampler under a fault plan.  Both byte budgets run (inside
+    K12's and K13's lane entries), and so do full view, partial view,
+    ground-truth membership, every topology family and key, PeerSwap,
+    fault plans of either form, with delay and jitter (``fplan`` is
+    accepted), and the flight recorder (``telemetry``)."""
     if packed_supported(cfg, topo):
         raise ValueError("a packed configuration on the dense round's "
                          "lanes: run it through `run_lanes`")
-    _check_shared(cfg, topo)
+    _check_protocol(cfg)
+    if fplan is not None and cfg.peer_sampler == "peerswap":
+        raise NotImplementedError(
+            "the PeerSwap sampler under a fault plan on lanes is not ported "
+            "yet (K11d's view row on lanes, ROADMAP B16s-f)")
 
 
 # -- the word phases (K8) ----------------------------------------------------

@@ -18,7 +18,7 @@ from ..kernels.build import check
 from . import rng
 from .state import ALIVE, DOWN, SUSPECT, SimConfig, SimState
 from .swim import _compact_targets, _dup_before, _reachable
-from .topology import Topology, loss_tiered
+from .topology import Topology, loss_tiered, tiered_reach_lanes_
 
 ID_BITS = 18
 ID_CAP = 1 << ID_BITS
@@ -427,18 +427,24 @@ def reachable_lanes(state: SimState, topo: Topology, keys: torch.Tensor,
                     src: torch.Tensor, dst: torch.Tensor, faults=None,
                     seeds=None) -> torch.Tensor:
     """`swim._reachable` over the lanes, for bool [K, E] edges: same
-    group, both ends up, and (under ``faults``) not cut nor lost to lane
-    k's probe-loss draw under its key and plan seed (K9's reach lane
-    entry).  The lane path runs the flat lossless topology only."""
-    if topo.loss > 0 or loss_tiered(topo):
-        raise NotImplementedError(
-            "topology loss on lanes is not ported yet (ROADMAP B16d)")
+    group, both ends up, not lost to the topology — under tiered loss to
+    lane k's aligned u8 draw of ``fold_in(keys[k], 104)`` against each
+    edge's tier (K20's reach lane entry), on a flat lossy topology to
+    ``bernoulli(keys[k], loss, [E])`` (JAX's legacy flat branch, K5's
+    lane entry) — and (under ``faults``) not cut nor lost to lane k's
+    probe-loss draw under its key and plan seed (K9's reach lane
+    entry)."""
     lanes = state.alive.shape[0]
     src = src.expand(lanes, -1).contiguous()
     dst = dst.expand(lanes, -1).contiguous()
     ok = ((_lane_rows(state.group, src) == _lane_rows(state.group, dst))
           & (_lane_rows(state.alive, src) == ALIVE)
           & (_lane_rows(state.alive, dst) == ALIVE))
+    if loss_tiered(topo):
+        ok = tiered_reach_lanes_(ok, topo, state.alive.shape[1], keys, src,
+                                 dst)
+    elif topo.loss > 0:
+        ok &= ~rng.bernoulli_lanes(keys, topo.loss, (src.shape[1],))
     if faults is not None:
         from .faults import fault_reach_lanes_
 
@@ -479,7 +485,9 @@ def pswim_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
     relays = psample_member_targets_lanes(state, cfg, k_relay, ip)
     relay_ok = relays >= 0
     relays = torch.clamp(relays, min=0).reshape(lanes, n * ip)
-    if faults is not None:
+    # split is pure: skipping it when no loss draws uses the keys moves
+    # no draw (the solo step's rule)
+    if faults is not None or topo.loss > 0 or loss_tiered(topo):
         hop = rng.split_lanes(k_rloss, 2)
         hop_keys = (hop[:, 0].contiguous(), hop[:, 1].contiguous())
     else:

@@ -387,3 +387,18 @@ def randint_lanes(keys: torch.Tensor, shape: Sequence[int], minval: int,
         [keys, hi, out],
         [size, minval, i32(span), i32(mult), per_element, lanes])
     return out
+
+
+def uniform_lanes(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``vmap(jax.random.uniform)`` over keys ``[K, 2]`` on [0, 1): f32
+    ``[K, *shape]`` from `bits_lanes` (K5's lane entry), as `uniform`."""
+    float_bits = (bits_lanes(keys, shape) >> 9) | 0x3F800000
+    return float_bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli_lanes(keys: torch.Tensor, p: float,
+                    shape: Sequence[int]) -> torch.Tensor:
+    """``vmap(jax.random.bernoulli)`` of a Python float ``p`` over keys
+    ``[K, 2]``: bool ``[K, *shape]``, lane k `bernoulli` under key k."""
+    return uniform_lanes(keys, shape) < torch.tensor(
+        p, dtype=torch.float32, device=keys.device)

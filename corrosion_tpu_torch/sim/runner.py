@@ -8,9 +8,10 @@ the packed fault storm and its flight-recorder rung
 (`config_fault_storm_telemetry`) with their setup `fault_storm` (which
 also puts the storm on the dense round, or on full-view SWIM), and the
 gapstress storm (config #5b, on the packed round from 1280 nodes) with
-its K-clamp distortion pair, and membership churn (configs #2 and #2b
+its K-clamp distortion pair, membership churn (configs #2 and #2b
 through the campaign engine's detect cells, as JAX routes them, and
-`membership_churn`),
+`membership_churn`), and the uniform-vs-PeerSwap frontier rung
+(`config_peer_sampler_frontier`, the engine's dense lanes),
 returning the same result keys.  The configs JAX lets record a trace
 take ``telemetry`` and ``trace_path`` (`.telemetry`): the record gains
 the ``telemetry`` summary block and the path the flight-recorder JSONL.
@@ -728,4 +729,54 @@ def config_gapstress_distortion(
             stressed["p99_payload_latency_rounds"]
             - control["p99_payload_latency_rounds"]
         ),
+    }
+
+
+def config_peer_sampler_frontier(
+    seed: int = 0, n_nodes: int = 96, n_seeds: int = 4,
+    max_rounds: int = 400, device="cuda", lanes_out=None,
+) -> Dict[str, object]:
+    """The uniform-vs-PeerSwap frontier rung (JAX ``runner.py:1141``): the
+    `peer-sampler-frontier` campaign — both samplers × two topology
+    families, ``n_seeds`` lanes from ``seed``, wire bytes banded per lane
+    — through the campaign engine's dense lanes, reduced to JAX's record:
+    per family each sampler's rounds p50/p99, ``wire_bytes_p50`` and
+    ``converged``, their ratios (peerswap / uniform, below 1.0 PeerSwap
+    wins that axis), ``spec_hash``, ``result_digest`` and the wall.
+    ``lanes_out`` (a dict) keeps each cell's stacked finals."""
+    from ..campaign.engine import run_campaign
+    from ..campaign.spec import peer_sampler_frontier_spec
+
+    spec = peer_sampler_frontier_spec(
+        seeds=tuple(seed + i for i in range(n_seeds)), n=n_nodes,
+        max_rounds=max_rounds)
+    t0 = time.monotonic()
+    artifact = run_campaign(spec, out_path=None, device=device,
+                            lanes_out=lanes_out)
+    families: Dict[str, Dict[str, object]] = {}
+    for cell in artifact["cells"]:
+        fam = cell["params"]["topo_family"]
+        samp = cell["params"]["peer_sampler"]
+        families.setdefault(fam, {})[samp] = {
+            "rounds_p50": cell["bands"]["rounds"]["p50"],
+            "rounds_p99": cell["bands"]["rounds"]["p99"],
+            "wire_bytes_p50": cell["bands"]["wire_bytes"]["p50"],
+            "converged": cell["all_converged"],
+        }
+    for d in families.values():
+        uni, ps = d.get("uniform"), d.get("peerswap")
+        if uni and ps and uni["rounds_p50"]:
+            d["rounds_ratio"] = round(ps["rounds_p50"] / uni["rounds_p50"],
+                                      3)
+        if uni and ps and uni["wire_bytes_p50"]:
+            d["wire_ratio"] = round(
+                ps["wire_bytes_p50"] / uni["wire_bytes_p50"], 3)
+    return {
+        "n_nodes": n_nodes,
+        "seeds": n_seeds,
+        "converged": all(c["all_converged"] for c in artifact["cells"]),
+        "families": families,
+        "spec_hash": artifact["spec_hash"],
+        "result_digest": artifact["result_digest"],
+        "wall_clock_s": round(time.monotonic() - t0, 3),
     }

@@ -24,6 +24,11 @@ topology's int32 table (`topo_table`):
 The wire's tiered loss is drawn inside the ring scatters (K10's and
 K12's tiered instantiations), from the same table.  Each wrapper takes
 the plain torch version beside it for a CPU tensor.
+
+On a seed ensemble's lanes (B16t, the dense round's) each entry has a
+lane entry, the solo body with a lane grid dimension:
+`apply_degree_caps_lanes`, `edge_slot_lanes` and `tiered_reach_lanes_`,
+each with its plain version, the solo plain version on every lane.
 """
 
 from __future__ import annotations
@@ -223,6 +228,29 @@ def apply_degree_caps(targets: torch.Tensor, topo: Topology) -> torch.Tensor:
     return targets
 
 
+def apply_degree_caps_lanes_plain(targets: torch.Tensor,
+                                  topo: Topology) -> torch.Tensor:
+    """Plain version of K20's caps lane entry: the solo plain version on
+    each lane."""
+    return torch.stack([apply_degree_caps_plain(x, topo) for x in targets])
+
+
+def apply_degree_caps_lanes(targets: torch.Tensor,
+                            topo: Topology) -> torch.Tensor:
+    """`apply_degree_caps` over the lanes' targets i32[K, N, F]: row r of
+    every lane capped by node r's degree class; identity without degree
+    classes.  K20's caps lane entry on the card, in place."""
+    if not topo.degree_classes:
+        return targets
+    if targets.device.type == "cpu":
+        return apply_degree_caps_lanes_plain(targets, topo)
+    lanes, n, f = targets.shape
+    check("targets", targets, torch.int32, (lanes, n, f))
+    kernels.DEGREE_CAPS_LANES.launch(
+        [topo_table(topo, n, targets.device), targets], [n, f, lanes])
+    return targets
+
+
 # -- K20: edge delay classes -------------------------------------------------
 
 
@@ -278,6 +306,44 @@ def edge_slot(topo: Topology, region: torch.Tensor, src: torch.Tensor,
     kernels.EDGE_SLOTS.launch(
         [topo_table(topo, n, src.device), src, dst, fdelay, slot],
         [e, t, d_slots])
+    return slot
+
+
+def edge_slot_lanes_plain(topo, region, src, dst, t: int, d_slots: int,
+                          fdelay=None) -> torch.Tensor:
+    """Plain version of K20's edge lane entry: the solo plain version on
+    each lane."""
+    return torch.stack([
+        edge_slot_plain(topo, region, src, dst[k], t, d_slots,
+                        None if fdelay is None else fdelay[k])
+        for k in range(dst.shape[0])])
+
+
+def edge_slot_lanes(topo: Topology, region: torch.Tensor, src: torch.Tensor,
+                    dst: torch.Tensor, t: int, d_slots: int,
+                    fdelay: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`edge_slot` over the lanes: i32[K, E] slots of the shared senders
+    ``src`` i32[E] and each lane's receivers ``dst`` i32[K, E] (and fixed
+    fault delays ``fdelay`` i32[K, E], or None).  On the card a geo-tiered
+    or measured-matrix topology runs K20's edge lane entry; the flat
+    two-class delay keeps its torch expression, as the solo slot does,
+    over every lane at once."""
+    if region.device.type == "cpu":
+        return edge_slot_lanes_plain(topo, region, src, dst, t, d_slots,
+                                     fdelay)
+    if not topo.delay_classes:
+        return edge_slot_plain(topo, region, src[None], dst, t, d_slots,
+                               fdelay)
+    lanes, e = dst.shape
+    n = region.shape[0]
+    check("src", src, torch.int32, (e,))
+    check("dst", dst, torch.int32, (lanes, e))
+    if fdelay is not None:
+        check("fdelay", fdelay, torch.int32, (lanes, e))
+    slot = torch.empty((lanes, e), dtype=torch.int32, device=src.device)
+    kernels.EDGE_SLOTS_LANES.launch(
+        [topo_table(topo, n, src.device), src, dst, fdelay, slot],
+        [e, t, d_slots, lanes])
     return slot
 
 
@@ -393,6 +459,35 @@ def tiered_reach_(ok: torch.Tensor, topo: Topology, n_nodes: int,
     kernels.EDGE_REACH.launch(
         [topo_table(topo, n_nodes, ok.device), src, dst, key, ok],
         [e, REACH_TAG])
+    return ok
+
+
+def tiered_reach_lanes_plain(ok, topo: Topology, n_nodes: int, keys, src,
+                             dst) -> torch.Tensor:
+    """Plain version of K20's reach lane entry: the solo plain version on
+    each lane, in place."""
+    for k in range(ok.shape[0]):
+        tiered_reach_plain(ok[k], topo, n_nodes, keys[k], src[k], dst[k])
+    return ok
+
+
+def tiered_reach_lanes_(ok: torch.Tensor, topo: Topology, n_nodes: int,
+                        keys: torch.Tensor, src: torch.Tensor,
+                        dst: torch.Tensor) -> torch.Tensor:
+    """`tiered_reach_` over the lanes, in place on bool[K, E] ``ok``: lane
+    k's edges ``src[k]`` → ``dst[k]`` (i32[K, E], lane-local ids) against
+    the aligned u8 draw of ``fold_in(keys[k], 104)``.  K20's reach lane
+    entry on the card."""
+    if ok.device.type == "cpu":
+        return tiered_reach_lanes_plain(ok, topo, n_nodes, keys, src, dst)
+    lanes, e = ok.shape
+    check("ok", ok, torch.bool, (lanes, e))
+    check("src", src, torch.int32, (lanes, e))
+    check("dst", dst, torch.int32, (lanes, e))
+    check("keys", keys, torch.int64, (lanes, 2))
+    kernels.EDGE_REACH_LANES.launch(
+        [topo_table(topo, n_nodes, ok.device), src, dst, keys, ok],
+        [e, REACH_TAG, lanes])
     return ok
 
 

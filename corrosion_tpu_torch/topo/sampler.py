@@ -23,6 +23,15 @@ Two hand-written kernels run it on the card:
 
 Each wrapper takes the plain torch version beside it for a CPU tensor.
 The draws (slots, partner slots, refill slots and ids) are K5's randint.
+
+On a seed ensemble's lanes (B16s, the dense round's) every view gets a
+leading lane axis (``pview`` i32[K, N, V]) and each kernel has a lane
+entry, the solo body with a lane grid dimension: `sample_view_lanes`
+(K1's view lane entry), `peerswap_partner_lanes` and
+`peerswap_apply_lanes` (K21's three passes), under
+`psample_view_targets_lanes` and `peerswap_step_lanes`; every draw is
+K5's lane entry, and a lane's offers land in its own view only.  Each
+plain lane version is the solo plain version on every lane.
 """
 
 from __future__ import annotations
@@ -205,4 +214,136 @@ def peerswap_step(state: SimState, cfg: SimConfig, topo, key: torch.Tensor,
     rid = rng.randint(k_rid, (n,), 0, n)
     out = peerswap_apply(pview, c, reach, state.alive, rb, rid, winner,
                          int(state.t), cfg.announce_interval_rounds)
+    return state._replace(pview=out)
+
+
+# -- the lane entries (B16s) -------------------------------------------------
+
+
+def sample_view_lanes_plain(pview, slots, view, count: int) -> torch.Tensor:
+    """Plain version of K1's view lane entry: the solo plain version per
+    lane."""
+    return torch.stack([
+        sample_view_plain(pview[k], slots[k], None if view is None
+                          else view[k], count)
+        for k in range(pview.shape[0])])
+
+
+def sample_view_lanes(pview: torch.Tensor, slots: torch.Tensor,
+                      view: Optional[torch.Tensor],
+                      count: int) -> torch.Tensor:
+    """`sample_view` over the lanes: i32[K, N, count] lane-local targets
+    from each lane's views ``pview`` [K, N, V] at its slot draws
+    ``slots`` [K, over, N], filtered by its beliefs ``view`` [K, N, N]
+    (or None).  K1's view lane entry on the card."""
+    if pview.device.type == "cpu":
+        return sample_view_lanes_plain(pview, slots, view, count)
+    lanes, n, v = pview.shape
+    over = slots.shape[1]
+    check("pview", pview, torch.int32, (lanes, n, v))
+    check("slots", slots, torch.int32, (lanes, over, n))
+    if view is not None:
+        check("view", view, torch.int8, (lanes, n, n))
+    out = torch.empty((lanes, n, count), dtype=torch.int32,
+                      device=pview.device)
+    kernels.SAMPLE_VIEW_LANES.launch([pview, slots, view, out],
+                                     [n, v, over, count, lanes])
+    return out
+
+
+def psample_view_targets_lanes(state: SimState, cfg: SimConfig, keys,
+                               count: int) -> torch.Tensor:
+    """`psample_view_targets` over the lanes: ``4 * count`` slot draws a
+    node under each lane's key ``keys[k]`` (K5's lane entry), then K1's
+    view lane entry."""
+    lanes, n, v = state.pview.shape
+    slots = rng.randint_lanes(keys, (4 * count, n), 0, v)
+    coupled = cfg.couple_membership and cfg.swim_full_view
+    return sample_view_lanes(state.pview, slots,
+                             state.view if coupled else None, count)
+
+
+def peerswap_partner_lanes_plain(pview, c):
+    """Plain version of K21's partner lane entry."""
+    outs = [peerswap_partner_plain(pview[k], c[k])
+            for k in range(pview.shape[0])]
+    return (torch.stack([pc for pc, _ in outs]),
+            torch.stack([w for _, w in outs]))
+
+
+def peerswap_partner_lanes(pview: torch.Tensor, c: torch.Tensor):
+    """`peerswap_partner` over the lanes: each lane's partners i32[K, N]
+    and its offer buffer i32[K, N] set to -1.  K21's partner lane entry
+    on the card."""
+    if pview.device.type == "cpu":
+        return peerswap_partner_lanes_plain(pview, c)
+    lanes, n, v = pview.shape
+    check("pview", pview, torch.int32, (lanes, n, v))
+    check("c", c, torch.int32, (lanes, n))
+    pc = torch.empty((lanes, n), dtype=torch.int32, device=pview.device)
+    winner = torch.empty_like(pc)
+    kernels.PEERSWAP_PARTNER_LANES.launch([pview, c, pc, winner],
+                                          [n, v, lanes])
+    return pc, winner
+
+
+def peerswap_apply_lanes_plain(pview, c, reach, alive, rb, rid, winner,
+                               t: int, interval: int) -> torch.Tensor:
+    """Plain version of K21's swap and land lane entries (fills
+    ``winner`` in place)."""
+    return torch.stack([
+        peerswap_apply_plain(pview[k], c[k], reach[k], alive[k], rb[k],
+                             rid[k], winner[k], t, interval)
+        for k in range(pview.shape[0])])
+
+
+def peerswap_apply_lanes(pview, c, reach, alive, rb, rid, winner, t: int,
+                         interval: int) -> torch.Tensor:
+    """`peerswap_apply` over the lanes: each lane's tick from its OLD
+    view [K, N, V] into a new one, its offers scatter-maxed into its own
+    offer buffer (``winner`` [K, N], lane-local partners).  K21's swap
+    and land lane entries on the card."""
+    if pview.device.type == "cpu":
+        return peerswap_apply_lanes_plain(pview, c, reach, alive, rb, rid,
+                                          winner, t, interval)
+    lanes, n, v = pview.shape
+    check("pview", pview, torch.int32, (lanes, n, v))
+    for name, x in (("c", c), ("rb", rb), ("rid", rid), ("winner", winner)):
+        check(name, x, torch.int32, (lanes, n))
+    check("reach", reach, torch.bool, (lanes, n))
+    check("alive", alive, torch.uint8, (lanes, n))
+    out = torch.empty_like(pview)
+    kernels.PEERSWAP_SWAP_LANES.launch([pview, c, reach, alive, out, winner],
+                                       [n, v, t, lanes])
+    kernels.PEERSWAP_LAND_LANES.launch([out, winner, rb, rid, alive],
+                                       [n, v, t, interval, lanes])
+    return out
+
+
+def peerswap_step_lanes(state: SimState, cfg: SimConfig, topo,
+                        keys: torch.Tensor, faults=None,
+                        seeds=None) -> SimState:
+    """`peerswap_step` over the lanes, draw for draw the solo tick with
+    lane k's key: each key splits four ways (partner slot, the swap
+    message's loss, refill slot, refill id; K5's lane entries), the
+    partner pass, the swap message's reach (`..sim.pswim.reachable_lanes`:
+    the topology's loss through K20's reach lane entry or the flat
+    bernoulli, a fault plan's cuts and loss under each lane's plan seed),
+    then the swap and land passes.  Returns the state with the lanes' new
+    views."""
+    from ..sim.pswim import reachable_lanes
+
+    pview = state.pview
+    lanes, n, v = pview.shape
+    ks = rng.split_lanes(keys, 4)
+    k_slot, k_loss, k_rb, k_rid = (ks[:, i].contiguous() for i in range(4))
+    me = torch.arange(n, dtype=torch.int32, device=pview.device)
+    c = rng.randint_lanes(k_slot, (n,), 0, v)
+    pc, winner = peerswap_partner_lanes(pview, c)
+    reach = reachable_lanes(state, topo, k_loss, me[None], pc, faults,
+                            seeds)
+    rb = rng.randint_lanes(k_rb, (n,), 0, v)
+    rid = rng.randint_lanes(k_rid, (n,), 0, n)
+    out = peerswap_apply_lanes(pview, c, reach, state.alive, rb, rid, winner,
+                               int(state.t), cfg.announce_interval_rounds)
     return state._replace(pview=out)

@@ -235,36 +235,39 @@ def _refused_spec(case):
         kw["events"] = (FaultEvent("loss", 0, 4, p=0.2),)
     elif case == "full_view":
         base = dict(base, swim_partial_view=False, swim_full_view=True)
-    if case == "detect":
-        # a detect cell over a topology family (topology on the dense
-        # round's lanes; the recorder on them runs since B16r)
-        spec = spec_mod.swim_churn_64_spec()
-        return dataclasses.replace(spec, scenario=dict(
-            spec.scenario, topo_family="wan-3x2"), telemetry=True)
     if case == "serving":
         return spec_mod.serving_3node_spec()
     return spec_mod.CampaignSpec(name=case, scenario=base, seeds=(0, 1),
                                  max_rounds=3, **kw)
 
 
-REFUSED = ("dense", "metered", "matrix", "latency", "jitter", "telemetry",
-           "measure_wire", "peerswap", "topo_family", "topology_key",
-           "proto_family", "proto_key", "churn", "host_parity", "detect",
-           "serving", "full_view", "mesh")
+#: each refused case and the item its message names (full view on the
+#: packed round's lanes is no port item: it runs on the dense round's)
+REFUSED = {
+    "dense": "ROADMAP B16s-f", "metered": "ROADMAP B16m",
+    "matrix": "ROADMAP B16x", "latency": "ROADMAP B16l",
+    "jitter": "ROADMAP B16l", "telemetry": "ROADMAP B16m",
+    "measure_wire": "ROADMAP B16m", "peerswap": "ROADMAP B16s",
+    "topo_family": "ROADMAP B16m", "topology_key": "ROADMAP B16m",
+    "proto_family": "ROADMAP B16v", "proto_key": "ROADMAP B16v",
+    "churn": "ROADMAP B16c", "host_parity": "ROADMAP A,",
+    "serving": "ROADMAP A,", "full_view": "dense round's lanes",
+    "mesh": "ROADMAP A13",
+}
 
 
-@pytest.mark.parametrize("case", REFUSED)
+@pytest.mark.parametrize("case", sorted(REFUSED))
 def test_engine_refuses_what_the_slice_does_not_run(case):
-    """Each raises NotImplementedError naming its ROADMAP item; none runs
-    some other way."""
+    """Each raises NotImplementedError naming its ROADMAP item (full
+    view on the packed round's lanes: the dense round's lanes, which run
+    it); none runs some other way."""
     spec = _refused_spec(case)
     kw = {"device": "cpu"}
     if case == "telemetry":
         kw["telemetry"] = True
     if case == "mesh":
         kw["mesh_devices"] = 2
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP (B16d|B16m|A13|A,)"):
+    with pytest.raises(NotImplementedError, match=REFUSED[case]):
         engine.run_campaign(spec, **kw)
 
 
@@ -282,15 +285,17 @@ def test_baseline_family_and_default_keys_run():
 
 
 def test_ensemble_refusals():
-    """The detect ensemble refuses a topology on its lanes (B16d); the
-    packed round's lanes refuse the recorder (B16m), which the dense
-    round's and the detect loop's lanes run."""
+    """The detect ensemble refuses a protocol variant on its lanes
+    (B16v; a topology it runs since B16t); the packed round's lanes
+    refuse the recorder (B16m), which the dense round's and the detect
+    loop's lanes run."""
     from corrosion_tpu_torch.sim.topology import Topology
 
     spec = spec_mod.swim_churn_64_spec()
-    with pytest.raises(NotImplementedError, match="B16d"):
-        run_detect_ensemble(spec.sim_config({}), Topology(n_regions=2),
-                            None, (0,), telemetry=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="B16v"):
+        run_detect_ensemble(dataclasses.replace(
+            spec.sim_config({}), dissemination="push-pull"),
+            Topology(n_regions=2), None, (0,), telemetry=True, device="cpu")
     spec = _refused_spec("latency")
     with pytest.raises(NotImplementedError, match="recorder.*B16m"):
         run_seed_ensemble(None, spec.sim_config({}), spec.topo({}), None,

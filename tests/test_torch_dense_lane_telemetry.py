@@ -301,3 +301,16 @@ def test_dense_fault_storm_100k_lane_telemetry_matches_live_jax(seed):
             seed - 1]]
     assert art["cells"][0]["per_seed"]["rounds"] == [
         goldens.DENSE_FAULT_STORM_100K_SEEDS8["lanes"][seed]["rounds"]]
+
+
+def test_partial_4096_lane_trace_digests_are_the_goldens():
+    """Path 50's pinned lane trace digests belong to its cell: the rounds
+    are ``SWIM_CHURN_PARTIAL_4096_SEEDS8``'s lanes' and lane 0's digest is
+    JAX's solo telemetry golden's."""
+    pinned = goldens.SWIM_CHURN_PARTIAL_4096_SEEDS8_TRACES
+    assert pinned["rounds"] == [
+        lane["rounds"] for lane in goldens.SWIM_CHURN_PARTIAL_4096_SEEDS8[
+            "lanes"]]
+    assert pinned["trace_digests"][0] == \
+        goldens.SWIM_CHURN_PARTIAL_4096_SEED0_TELEMETRY["trace_digest"]
+    assert len(set(pinned["trace_digests"])) == 8

@@ -159,14 +159,21 @@ def _dense_cfg(**kw):
                                   "peerswap", "protocol"))
 def test_dense_check_refuses_by_name(case):
     """The dense lane check refuses what this round's lanes do not run,
-    each naming ROADMAP B16d: topology keys, PeerSwap and the protocol
-    variants.  Fault plans and the recorder it now runs: the
-    ``fault_plan`` case holds the check's acceptance of a plan, and the
-    ensemble's run under it (two seeds of the 3-node parity campaign's
-    matrix plan) equal to JAX's, lane by lane; the ``telemetry`` case its
-    acceptance of the recorder, which the packed lanes' check refuses
-    naming B16m."""
+    each naming its ROADMAP item: the protocol variants (B16v) and
+    PeerSwap under a fault plan (B16s-f).  Fault plans, the recorder,
+    topology keys and PeerSwap it now runs: the ``fault_plan`` case holds
+    the check's acceptance of a plan, and the ensemble's run under it
+    (two seeds of the 3-node parity campaign's matrix plan) equal to
+    JAX's, lane by lane; the ``telemetry`` case its acceptance of the
+    recorder, which the packed lanes' check refuses naming B16m; the
+    ``topology`` case its acceptance of a topology key, which the packed
+    lanes' check refuses naming B16m; the ``peerswap`` case its
+    acceptance of PeerSwap, refused under a plan naming B16s-f."""
+    from corrosion_tpu_torch.sim.lanes import check_packed_lanes
+
     cfg, topo, plan, kw = _dense_cfg(), Topology(), None, {}
+    packed = _dense_cfg(packed_min_cells=0, rate_limit_bytes_round=None,
+                        sync_budget_bytes=None)
     if case == "fault_plan":
         from corrosion_tpu.campaign.spec import builtin_spec as jbuiltin
 
@@ -179,26 +186,26 @@ def test_dense_check_refuses_by_name(case):
         assert_lanes_equal_jax(jf, jm, pf, pm, "fault_plan")
         return
     if case == "telemetry":
-        from corrosion_tpu_torch.sim.lanes import check_packed_lanes
-
         check_dense_lanes(cfg, topo, plan, telemetry=True)
         with pytest.raises(NotImplementedError,
                            match="flight recorder on the packed.*B16m"):
-            check_packed_lanes(_dense_cfg(packed_min_cells=0,
-                                          rate_limit_bytes_round=None,
-                                          sync_budget_bytes=None), topo,
-                               telemetry=True)
+            check_packed_lanes(packed, topo, telemetry=True)
         return
     if case == "topology":
-        topo = Topology(n_regions=2)
-        match = "topology families"
-    elif case == "peerswap":
+        check_dense_lanes(cfg, Topology(n_regions=2))
+        with pytest.raises(NotImplementedError,
+                           match="topology families.*B16m"):
+            check_packed_lanes(packed, Topology(n_regions=2))
+        return
+    if case == "peerswap":
         cfg = _dense_cfg(peer_sampler="peerswap")
-        match = "PeerSwap"
+        check_dense_lanes(cfg, topo)
+        plan = FaultPlan(n_nodes=96, seed=0, events=())
+        match = "PeerSwap sampler under a fault plan.*B16s-f"
     else:
         cfg = _dense_cfg(dissemination="push-pull")
-        match = "protocol variants"
-    with pytest.raises(NotImplementedError, match=match + ".*B16d"):
+        match = "protocol variants.*B16v"
+    with pytest.raises(NotImplementedError, match=match):
         check_dense_lanes(cfg, topo, plan, **kw)
 
 

@@ -167,8 +167,8 @@ def test_detect_cell_with_the_recorder_is_refused_by_name():
     """The recorder on the detect loop's lanes runs since B16r: a detect
     cell asked for telemetry gains the telemetry block (one summary a
     lane) and keeps its result digest; what the lanes still refuse — a
-    topology on them — raises NotImplementedError naming ROADMAP B16d,
-    with or without the recorder."""
+    protocol variant on them — raises NotImplementedError naming ROADMAP
+    B16v, with or without the recorder."""
     spec = _detect_spec()
     plain = engine.run_campaign(spec, device="cpu")
     art = engine.run_campaign(spec, telemetry=True, device="cpu")
@@ -176,8 +176,8 @@ def test_detect_cell_with_the_recorder_is_refused_by_name():
     summaries = art["cells"][0]["telemetry"]["per_seed"]
     assert [s["rounds"] for s in summaries] == \
         art["cells"][0]["per_seed"]["rounds"]
-    cfg = spec.sim_config({})
-    with pytest.raises(NotImplementedError, match="topology.*B16d"):
+    cfg = dataclasses.replace(spec.sim_config({}), dissemination="push-pull")
+    with pytest.raises(NotImplementedError, match="protocol.*B16v"):
         run_detect_ensemble(cfg, Topology(n_regions=2), None, (0,),
                             telemetry=True, device="cpu")
 
@@ -193,3 +193,22 @@ def test_detect_needs_a_swim_tier_on_lanes():
     with pytest.raises(ValueError, match="needs a SWIM tier"):
         run_membership_detect_lanes(seed_states(cfg, (0,), "cpu"), None, cfg,
                                     Topology(), 5, device="cpu")
+
+
+def test_detect_cell_over_a_topology_equals_jax():
+    """A detect cell over a topology family runs on the detect loop's
+    lanes since B16t (the campaign refused it before): swim-churn-64 over
+    wan-3x2, two seeds, with the recorder, gives live JAX's spec_hash,
+    result_digest, per-seed records and telemetry block."""
+    seeds = (0, 1)
+    jspec = jspec_mod.swim_churn_64_spec(seeds=seeds)
+    jspec = dataclasses.replace(jspec, scenario=dict(
+        jspec.scenario, topo_family="wan-3x2"))
+    pspec = spec_mod.CampaignSpec.from_dict(jspec.to_dict())
+    with jax_telemetry():
+        want = jengine.run_campaign(jspec, out_path=None, telemetry=True)
+    got = engine.run_campaign(pspec, telemetry=True, device="cpu")
+    assert got["spec_hash"] == want["spec_hash"]
+    assert got["result_digest"] == want["result_digest"]
+    for key in ("per_seed", "telemetry"):
+        assert got["cells"][0][key] == want["cells"][0][key], key

@@ -1689,3 +1689,77 @@ def test_trace_ensemble_on_card_equals_cpu(card, case):
             continue
         for name, x, y in zip(type(b)._fields, a, b):
             assert torch.equal(x.cpu(), y.cpu()), name
+
+
+# -- topology families and PeerSwap on the dense round's lanes (B16t, B16s) ---
+
+
+TOPO_LANE_CASES = {
+    "edge_slots": lambda s, dev, g, gen: s.compare_lane_edge_slots(
+        dev, g, 3, n=3001, n1k=301, timed=False),
+    "degree_caps": lambda s, dev, g, gen: [s.compare_lane_degree_caps(
+        dev, g, 3, n=97, timed=False)],
+    "edge_reach": lambda s, dev, g, gen: s.compare_lane_edge_reach(
+        dev, g, 3, n=3001, timed=False),
+    "broadcast_tiered": lambda s, dev, g, gen: s.compare_lane_broadcast_tiered(
+        dev, g, gen, 3, n=3001, n1k=301, timed=False),
+    "sample_view": lambda s, dev, g, gen: s.compare_lane_sample_view(
+        dev, g, 3, n=301, timed=False),
+    "peerswap": lambda s, dev, g, gen: s.compare_lane_peerswap(
+        dev, g, 3, n=301, timed=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPO_LANE_CASES))
+def test_topology_lane_kernels(card, case):
+    """chip_smoke's phase 3lt at small and ragged shapes: K20's slots,
+    caps and reach lane entries, K12t's lane entry and its recording
+    form, K1's view lane entry and K21's lane entries equal to their
+    plain versions, each lane to the solo entry on its inputs, every trap
+    reached."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(len(case))
+    rows = TOPO_LANE_CASES[case](_smoke(), card,
+                                 np.random.default_rng(len(case)), gen)
+    assert all(row["equal"] for row in rows), [r["name"] for r in rows]
+
+
+@pytest.mark.parametrize("case", ("wan-3x2/peerswap", "wan-2region/full",
+                                  "flat-lossy/partial", "wan-fly-6r/ground",
+                                  "hetero-degree/peerswap-full"))
+def test_topology_ensemble_on_card_equals_cpu(card, case):
+    """Topology families and PeerSwap on the dense lanes through the
+    ensemble, three seeds at 96 nodes, on the card and on the CPU: every
+    lane tensor and metric equal, and each lane the card's solo run of
+    its seed."""
+    from corrosion_tpu_torch.campaign import spec as sp
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_state, run_seed_ensemble)
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+
+    family, tier = case.split("/")
+    scenario = {"n_nodes": 96, "n_payloads": 64, "n_writers": 4, "fanout": 3,
+                "n_delay_slots": 6, "inject_every": 2, "topo_family": family}
+    scenario.update({
+        "peerswap": {"peer_sampler": "peerswap"},
+        "peerswap-full": {"peer_sampler": "peerswap", "swim_full_view": True},
+        "full": {"swim_full_view": True},
+        "partial": {"swim_partial_view": True, "member_slots": 16},
+        "ground": {}}[tier])
+    spec = sp.CampaignSpec(name=case, scenario=scenario, seeds=(0, 1, 2))
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        outs.append(run_seed_ensemble(None, cfg, topo, meta, spec.seeds,
+                                      max_rounds=spec.max_rounds,
+                                      device=dev))
+    for a, b in zip(*outs):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y.cpu()), name
+    meta = uniform_payloads(cfg, card, inject_every=2)
+    for k, s in enumerate(spec.seeds):
+        solo, _ = run_to_convergence(new_sim(cfg, s, card), meta, cfg, topo,
+                                     spec.max_rounds)
+        for name, x, y in zip(solo._fields, solo, lane_state(outs[0][0], k)):
+            assert torch.equal(x.cpu(), y.cpu()), (k, name)

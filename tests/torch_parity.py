@@ -406,3 +406,35 @@ def dense_storm_spec_at(seeds, n_nodes: int, latency: bool = True):
     spec = sp.dense_storm_seeds_spec(seeds, latency=latency)
     return dataclasses.replace(
         spec, scenario=dict(spec.scenario, n_nodes=n_nodes), events=events)
+
+
+def stack_lane_states(jax_lanes, pcfg):
+    """K JAX states → (JAX's stacked pytree [K, ...], the port's stacked
+    state, every field [K, ...] but ``t``, one host scalar)."""
+    import jax
+    import jax.numpy as jnp
+
+    jstates = jax.tree.map(lambda *xs: jnp.stack(xs), *jax_lanes)
+    ports = [to_port(x, pcfg) for x in jax_lanes]
+    pstates = ports[0]._replace(**{
+        name: torch.stack([getattr(x, name) for x in ports])
+        for name in ports[0]._fields if name != "t"})
+    return jstates, pstates
+
+
+def lane_of(states, k):
+    """Lane k of stacked port states whose ``t`` is one host scalar."""
+    return states._replace(**{name: getattr(states, name)[k]
+                              for name in states._fields if name != "t"})
+
+
+def lane_keys(lanes: int, base: int):
+    """``PRNGKey(base + k)`` for k < ``lanes``: (JAX's [K, 2], the port's
+    int64 [K, 2])."""
+    import jax
+    import jax.numpy as jnp
+
+    ks = np.stack([np.asarray(jax.random.PRNGKey(base + k))
+                   for k in range(lanes)])
+    return jnp.asarray(ks), torch.as_tensor(ks.astype(np.int64))
+
