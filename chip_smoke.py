@@ -18,7 +18,9 @@ result line):
    K12f, K13, K13d and K9/K9m's counts for the recorder on the dense
    round's lanes, and of K20's slots, caps and reach entries, K12t (with
    its recording form), K1's view entry and K21 for the topology families
-   and PeerSwap on the dense round's lanes) from the twenty-two
+   and PeerSwap on the dense round's lanes, and of K12p (with its
+   recording forms), K12f-o, K22's u8 entry, K20's schedule and K18's
+   rows-pull entry for the protocol variants there) from the twenty-two
    sources in ``corrosion_tpu_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
 3. at the 100k storm's shapes (N = 100000, M = 64, W = 16, F = 3, S = 3,
@@ -347,6 +349,38 @@ result line):
    offers that collide inside one lane with the same slot indices in
    another lane, a dead partner, blocks spanning two lanes, a lane
    without edges);
+   then the protocol variants and PeerSwap under a fault plan on the
+   dense round's lanes (B16v, B16s-f), each from launch counters at 0
+   through ``run_campaign``: protocol-frontier (path 55: four protocol
+   families × wan-3x2 and flat-lossy, 96 nodes, seeds 0-3,
+   ``measure_wire``; also through ``config_protocol_frontier``, whose
+   sampler cell is the solo PeerSwap storm's golden), broadcast-1k-
+   fanout-decay-seeds8-wire and broadcast-1k-lab-ordered-broken-seeds8-
+   wire (path 56, the latter's lane 0 against JAX's solo golden and its
+   38 violations), broadcast-1k-wan-3x2-peerswap-fault-seeds8 (path 57:
+   PeerSwap under the fault storm's plan, each lane's view against its
+   solo fault run), dense-storm-push-pull-100k-seeds8 (path 58: the
+   100k storm on the dense round under push-pull, 100 000 × 512 × 8
+   lanes) and protocol-frontier-push-pull (path 59: the frontier's
+   push-pull cells without the recorder, K12p's lossy and tiered lane
+   forms without a dropped slot), each with its lane entries launched
+   and no solo entry, its ``spec_hash``, ``result_digest`` and every
+   cell's per-seed rounds (and ``wire_bytes`` and ``order_violations``;
+   at 100k each lane's
+   p99, convergence and digest) against the goldens pinned from live
+   JAX, every lane's final state and order count equal to the port's
+   solo run of its cell and seed on the card, the solo walls beside the
+   ensemble's with ``max_memory_allocated`` (phase 3lv before the paths
+   compares K12p's lane entry and its recording forms, K12f-o's, K22's
+   u8, K20's schedule and K18's rows-pull lane entries at K = 8 on those
+   paths' shapes, each lane held to the solo entry, printing that each
+   trap was reached: lanes whose pull keys, reverse draws and plan seeds
+   differ, a pull cut in the reverse direction only, a tier at
+   certainty on the pull leg, a relay budget the pull reads before the
+   push spends it, a FIFO gate that rejects in one lane what it admits
+   in another, violation counts that differ by lane with one of them 0,
+   a schedule round where the slot count drops with caps below it,
+   blocks spanning two lanes, a lane without edges);
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
@@ -366,7 +400,8 @@ result line):
    broadcast-1k rounds beside their solo rounds, and rounds 5-7 of the
    8-lane dense-fault-storm-100k without and with the recorder (with
    ``max_memory_allocated``) beside its solo rounds, and rounds 5-7 of
-   the 8-lane dense-storm-wan-3x2-100k beside its solo rounds;
+   the 8-lane dense-storm-wan-3x2-100k and dense-storm-push-pull-100k
+   beside their solo rounds (`profile_dense_lanes`);
 17. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
@@ -8660,10 +8695,12 @@ def wan_path_spec(which, seeds=range(ENSEMBLE_LANES)):
     }[which]()
 
 
-def _topology_solo_runs(spec, dev):
-    """The port's solo runs of every cell and seed of a path on the card
-    (`run_to_convergence` of the cell's config, topology and payloads):
-    for each cell, each seed's final state, metrics and host wall."""
+def _cell_solo_runs(spec, dev):
+    """The port's solo runs of every cell and seed of a path on the card:
+    `run_to_convergence`, or under the spec's events `run_fault_plan` of
+    the plan re-seeded per seed; for each cell its config, payloads and
+    each seed's (final state, metrics, host wall)."""
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
     from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
     from corrosion_tpu_torch.sim.state import uniform_payloads
 
@@ -8674,14 +8711,31 @@ def _topology_solo_runs(spec, dev):
         runs = []
         for s in spec.seeds:
             state = new_sim(cfg, int(s), dev)
+            plan = spec.fault_plan(cell, seed=int(s))
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            final, metrics = run_to_convergence(state, meta, cfg, topo,
-                                                spec.max_rounds)
+            if plan is None:
+                final, metrics = run_to_convergence(state, meta, cfg, topo,
+                                                    spec.max_rounds)
+            else:
+                final, metrics = run_fault_plan(
+                    state, meta, cfg, topo,
+                    compile_plan(plan, cfg, topo, device=dev),
+                    spec.max_rounds)
             torch.cuda.synchronize()
             runs.append((final, metrics, time.monotonic() - t0))
         out.append((cfg, meta, runs))
     return out
+
+
+def _lane_record(ps, i, seed, final):
+    from corrosion_tpu_torch.convert import state_digest
+
+    return {"seed": seed, "rounds": ps["rounds"][i],
+            "p99_node_convergence_round": ps["p99_node_convergence_round"][i],
+            "converged": ps["converged"][i],
+            "unconverged_nodes": ps["unconverged_nodes"][i],
+            "digest": state_digest(final)}
 
 
 def _solo_record(final, metrics, meta):
@@ -8719,7 +8773,6 @@ def topology_ensemble_paths(dev, goldens):
     from corrosion_tpu_torch import kernels
     from corrosion_tpu_torch.campaign.engine import run_campaign
     from corrosion_tpu_torch.campaign.ensemble import lane_state
-    from corrosion_tpu_torch.convert import state_digest
     from corrosion_tpu_torch.sim.round import RunMetrics
     from corrosion_tpu_torch.sim.runner import config_peer_sampler_frontier
 
@@ -8748,14 +8801,9 @@ def topology_ensemble_paths(dev, goldens):
         if recording:
             got["wire_bytes"] = [c["per_seed"]["wire_bytes"] for c in cells]
         if which == "wan100k":
-            ps = cells[0]["per_seed"]
             got["lanes"] = [
-                {"seed": s, "rounds": ps["rounds"][i],
-                 "p99_node_convergence_round":
-                     ps["p99_node_convergence_round"][i],
-                 "converged": ps["converged"][i],
-                 "unconverged_nodes": ps["unconverged_nodes"][i],
-                 "digest": state_digest(lane_state(kept[0]["finals"], i))}
+                _lane_record(cells[0]["per_seed"], i, s,
+                             lane_state(kept[0]["finals"], i))
                 for i, s in enumerate(cells[0]["seeds"])]
         print(f"{label}: {json.dumps(got)} wall_clock_s="
               f"{[c['wall_clock_s'] for c in cells]} round_path="
@@ -8763,7 +8811,7 @@ def topology_ensemble_paths(dev, goldens):
         if any(c["round_path"] != "dense" for c in cells) or any(
                 got[k] != golden[k] for k in got):
             raise AssertionError(f"{label}: differs from its golden")
-        solos = _topology_solo_runs(spec, dev)
+        solos = _cell_solo_runs(spec, dev)
         for i, (cfg, meta, runs) in enumerate(solos):
             finals = kept[i]["finals"]
             if [int(f.t) for f, _, _ in runs] != cells[i]["per_seed"][
@@ -8815,12 +8863,14 @@ def topology_ensemble_paths(dev, goldens):
     return launches, numbers
 
 
-def profile_wan_lanes(dev, lanes=ENSEMBLE_LANES, start=5, rounds=3):
-    """``rounds`` rounds of dense-storm-wan-3x2-100k from round ``start``:
-    with ``lanes`` the lane round (`dense_lanes.dense_round_step_lanes`,
-    the one host read of the [K] flags a round), with ``lanes`` None the
-    solo dense round (`round.round_step_`) of seed 0; the first ``start``
-    rounds are setup."""
+def profile_dense_lanes(dev, spec, name, lanes=ENSEMBLE_LANES, start=5,
+                        rounds=3):
+    """``rounds`` rounds of a faultless dense cell (``spec``, called
+    ``name``) from round ``start``: with ``lanes`` the lane round
+    (`dense_lanes.dense_round_step_lanes`, the one host read of the [K]
+    flags a round), with ``lanes`` None the solo dense round
+    (`round.round_step_`) of seed 0; the first ``start`` rounds are
+    setup."""
     from corrosion_tpu_torch.campaign.ensemble import seed_states
     from corrosion_tpu_torch.sim.dense_lanes import (
         dense_round_step_lanes, lane_batch)
@@ -8829,7 +8879,6 @@ def profile_wan_lanes(dev, lanes=ENSEMBLE_LANES, start=5, rounds=3):
     from corrosion_tpu_torch.sim.state import uniform_payloads
     from corrosion_tpu_torch.sim.topology import regions
 
-    spec = wan_path_spec("wan100k")
     cfg, topo = spec.sim_config({}), spec.topo({})
     meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every({}))
     region = regions(cfg.n_nodes, topo.n_regions, dev)
@@ -8864,10 +8913,710 @@ def profile_wan_lanes(dev, lanes=ENSEMBLE_LANES, start=5, rounds=3):
         torch.cuda.synchronize()
         return time.monotonic() - t0
 
-    label = (f"dense storm-wan-3x2-100k x{lanes} lanes" if lanes
-             else "dense storm-wan-3x2-100k solo")
+    label = f"{name} x{lanes} lanes" if lanes else f"{name} solo"
     return _profile(run, rounds, f"{label} rounds {start}-"
                     f"{start + rounds - 1}", setup)
+
+
+# -- the protocol variants and PeerSwap under a plan on the dense round's
+# lanes (phase 3lv, paths 55-59) ---------------------------------------------
+
+SOLO_OF_LANE.update({"degree_caps_sched_lanes": "degree_caps_sched",
+                     "dense_pull_lanes": "dense_pull",
+                     "dense_pull_lossy_lanes": "dense_pull_lossy",
+                     "dense_pull_tiered_lanes": "dense_pull_tiered",
+                     "dense_pull_lossy_lanes_trace": "dense_pull_lossy",
+                     "dense_pull_tiered_lanes_trace": "dense_pull_tiered",
+                     "trace_wire_rows_pull_lanes": "trace_wire_rows_pull",
+                     "dense_deliver_fifo_lanes": "dense_deliver_fifo",
+                     "order_check_dense_lanes": "order_check_dense"})
+#: the protocol frontier's width (path 55)
+FRONTIER_N = 96
+
+
+def _pull_lane_case(gen, dev, lanes, n, p, f, d, t=20):
+    """K mid-run dense lanes at (N, P, F, D): have, relay, injected,
+    ring, each lane's edges (-1 and self targets cleared, 3 % dead
+    nodes), slots in [0, D), k_drop and plan seeds a lane."""
+    from types import SimpleNamespace
+
+    def u8(shape, p_one):
+        return (torch.rand(shape, generator=gen, device=dev)
+                < p_one).to(torch.uint8)
+
+    have = u8((lanes, n, p), 0.5)
+    relay = torch.randint(0, 4, (lanes, n, p), generator=gen, device=dev,
+                          dtype=torch.uint8) * have
+    injected = (torch.arange(p, device=dev) // 8 <= t).to(
+        torch.uint8).expand(lanes, p).contiguous()
+    ring = u8((lanes, d, n, p), 0.02)
+    raw = torch.randint(-1, n, (lanes, n * f), generator=gen, device=dev,
+                        dtype=torch.int32)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    alive = u8((lanes, n), 0.03) * 2
+    dst = torch.clamp(raw, min=0)
+    ok = ((raw >= 0) & (dst != src[None])
+          & (torch.gather(alive, 1, dst.long()) == 0)
+          & (alive[:, src.long()] == 0))
+    slot = torch.randint(0, d, (lanes, n * f), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return SimpleNamespace(
+        have=have, relay=relay, injected=injected, ring=ring, src=src,
+        dst=dst.contiguous(), ok=ok.contiguous(), slot=slot, alive=alive,
+        k_drop=_lane_keys(dev, lanes, 5100),
+        seeds=torch.arange(11, 11 + lanes, dtype=torch.int32, device=dev),
+        nbytes=torch.full((p,), 8192, dtype=torch.int32, device=dev))
+
+
+def _frontier_pull_rows(dev, gen, lanes, timed):
+    """K12p's lane entry's tiered and lossy forms at the frontier's
+    shapes (K lanes of N = 96, P = 64, F = 3, D = 4), each push-pull
+    cell's own: its byte budget and payload sizes, wan-3x2's tiers or
+    flat-lossy's threshold, no plan; with each lane's dropped slot (the
+    ``_trace`` forms, as path 55 records) and without (as path 59 runs
+    them).  The last lane held to the solo entry."""
+    from corrosion_tpu_torch.campaign.spec import (
+        protocol_frontier_push_pull_spec)
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+    from corrosion_tpu_torch.sim.topology import loss_threshold, wire_tiers
+
+    spec = protocol_frontier_push_pull_spec()
+    rows, last = [], lanes - 1
+    for cell in spec.cells():
+        cfg, topo = spec.sim_config(cell), spec.topo(cell)
+        nbytes = uniform_payloads(cfg, dev, inject_every=spec.inject_every(
+            cell)).nbytes
+        budget = cfg.rate_limit_bytes_round
+        tiers = wire_tiers(topo)
+        thr = (loss_threshold(topo.loss)
+               if topo.loss > 0 and tiers is None else 0)
+        c = _pull_lane_case(gen, dev, lanes, cfg.n_nodes, cfg.n_payloads,
+                            cfg.fanout, cfg.n_delay_slots)
+        acc0 = torch.randint(0, 1 << 20, (lanes, 3), generator=gen,
+                             device=dev, dtype=torch.int64)
+
+        def pull(kernel, ring, acc, c=c, thr=thr, tiers=tiers,
+                 nbytes=nbytes, budget=budget):
+            fn = bc.pull_send_lanes if kernel else bc.pull_send_lanes_plain
+            fn(c.have, c.relay, c.injected, nbytes, budget, c.dst, c.slot,
+               c.ok, c.k_drop, thr, ring, None if acc is None else acc[:, 0],
+               None, None, tiers)
+
+        sending = ((c.have > 0) & (c.relay > 0)
+                   & (c.injected > 0)[:, None, :])
+        answered = sum(int((sending[k][c.dst[k].long()]
+                            & c.ok[k][:, None]).sum()) for k in range(lanes))
+        hashes = answered // 4
+        ops = hashes * OPS_PER_HASH
+        nb = _nbytes(c.dst, c.slot, c.ok, c.injected, nbytes) + answered * 3
+        kind = "lossy" if tiers is None else "tiered"
+        for trace in (True, False):
+            name = f"dense_pull_{kind}_lanes" + ("_trace" if trace else "")
+            base = [c.ring, acc0 if trace else None]
+            got = [None if x is None else x.clone() for x in base]
+            want = [None if x is None else x.clone() for x in base]
+            pull(True, *got)
+            pull(False, *want)
+            kept = [x for x in got if x is not None]
+            equal, err = _equal_all(kept, [x for x in want if x is not None])
+            x = [c.ring[last].clone(), acc0[last].clone()]
+            bc.pull_send(c.have[last], c.relay[last], c.injected[last],
+                         nbytes, budget, c.dst[last], c.slot[last],
+                         c.ok[last], c.k_drop[last], thr, x[0],
+                         x[1][0] if trace else None, None, 0, tiers)
+            _solo_trap(f"{name} frontier lane {last}",
+                       [y[last] for y in kept], x[:len(kept)])
+            work = [None if y is None else y.clone() for y in base]
+
+            def restore(work=work, base=base):
+                for w_, b_ in zip(work, base):
+                    if w_ is not None:
+                        w_.copy_(b_)
+
+            row = _dense_lane_row(
+                name, name, "dense_phases.cu",
+                "corrosion_tpu/proto/dissemination.py:58", equal, err,
+                _timed(timed, lambda work=work, pull=pull: pull(True, *work),
+                       restore),
+                _timed(timed, lambda work=work, pull=pull: pull(False, *work),
+                       restore),
+                nb, lanes, ops=ops, hashes=hashes, n=cfg.n_nodes)
+            ops_ms = ops / _int32_ops_per_s() * 1e3
+            row["bound_ms"] = max(row["bound_ms"], ops_ms)
+            row["bound_by"] = ("operations" if ops_ms > _bound_ms(nb)
+                               else "bytes")
+            rows.append(row)
+            del got, want, kept, x
+    return rows
+
+
+def compare_lane_dense_pull(dev, g, gen, lanes, n=STORM_N, n1k=PROTO_1K,
+                            timed=True):
+    """K12p's lane entry at path 58's shapes (K lanes of N = 100000, P =
+    512, F = 3, D = 2, no stream) and at the frontier's (`_frontier_pull_
+    rows`: paths 55 and 59), the rows of the kernels line; and, a check
+    at broadcast-1k's shapes (N = 1000, P = 256, D = 4) under a plan: the
+    flat and fault streams under each lane's k_drop and plan seed with a
+    binding byte budget and each lane's dropped slot, wan-3x2's tiers and
+    the certainty pin on the pull leg, a lane without edges; the pull's
+    session under a one-way cut (refused by the reverse cut alone) and
+    its reads of the relay budget before the push spends it.  The last
+    lane held to the solo entry on its inputs."""
+    from corrosion_tpu_torch.proto.dissemination import (
+        pull_session_ok_lanes, reverse_loss_lanes)
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim.state import SimConfig
+
+    last = lanes - 1
+    rows = []
+    # path 58: the storm's width, no stream
+    c = _pull_lane_case(gen, dev, lanes, n, 512, 3, 2)
+    got, want = c.ring.clone(), c.ring.clone()
+    args = (c.have, c.relay, c.injected, c.nbytes, None, c.dst, c.slot, c.ok,
+            c.k_drop, 0)
+    bc.pull_send_lanes(*args, got)
+    bc.pull_send_lanes_plain(*args, want)
+    equal, err = _equal_all([got], [want])
+    solo = c.ring[last].clone()
+    bc.pull_send(c.have[last], c.relay[last], c.injected[last], c.nbytes,
+                 None, c.dst[last], c.slot[last], c.ok[last], c.k_drop[last],
+                 0, solo)
+    _solo_trap(f"dense_pull_lanes lane {last}", [got[last]], [solo])
+    sending = (c.have > 0) & (c.relay > 0) & (c.injected > 0)[:, None, :]
+    answered = sum(int((sending[k][c.dst[k].long()] & c.ok[k][:, None]).sum())
+                   for k in range(lanes))
+    nbytes = (_nbytes(c.dst, c.slot, c.ok, c.injected, c.nbytes)
+              + answered * 3 + _changed_bytes([c.ring], [want]))
+    del got, want, solo, sending
+    work = c.ring.clone()
+    rows.append(_dense_lane_row(
+        "dense_pull_lanes", "dense_pull_lanes", "dense_phases.cu",
+        "corrosion_tpu/proto/dissemination.py:58", equal, err,
+        _timed(timed, lambda: bc.pull_send_lanes(*args, work),
+               lambda: work.copy_(c.ring)),
+        _timed(timed, lambda: bc.pull_send_lanes_plain(*args, work),
+               lambda: work.copy_(c.ring)),
+        nbytes, lanes, n=n, answered_cells=answered))
+    del c, work, args
+    rows += _frontier_pull_rows(dev, gen, lanes, timed)
+    # broadcast-1k's shapes under a plan: the streams, the tiers, the pin
+    cfg = SimConfig(n_nodes=n1k, n_payloads=256, n_writers=8, fanout=3,
+                    n_delay_slots=4)
+    c = _pull_lane_case(gen, dev, lanes, n1k, 256, 3, 4)
+    plan = faults.compile_plan(one_way_plan(n1k), cfg, device=dev)
+    rf = faults.round_faults(plan, 2)
+    ok_fwd = c.ok.clone()
+    faults.fault_wire_effects(rf, c.src.expand(lanes, -1).reshape(-1),
+                              c.dst.reshape(-1), ok_fwd.view(-1))
+    ok_pull = pull_session_ok_lanes(ok_fwd, rf, c.src[None], c.dst)
+    _trap("lane proto 1", "a pull whose session is cut in the reverse "
+          "direction only (a one-way cut: the push's edge flows, its "
+          "response does not)", bool((ok_fwd & ~ok_pull).any()))
+    fthr = reverse_loss_lanes(rf, c.src[None], c.dst).contiguous()
+    budget = 40 * 8192
+    wan, pin = _topo("wan-3x2"), _pin_topo()
+    no_edges = ok_pull.clone()
+    no_edges[1] = False
+    host_seeds = c.seeds.cpu()
+    slot_d = 0
+    acc0 = torch.randint(0, 1 << 20, (lanes, 3), generator=gen, device=dev,
+                         dtype=torch.int64)
+
+    def pull(kernel, ring, acc, thr, tiers, fault, ok, bud=budget,
+             relay=None):
+        fn = bc.pull_send_lanes if kernel else bc.pull_send_lanes_plain
+        fn(c.have, c.relay if relay is None else relay, c.injected, c.nbytes,
+           bud, c.dst, c.slot, ok, c.k_drop, thr, ring,
+           None if acc is None else acc[:, slot_d],
+           fthr if fault else None,
+           (c.seeds if kernel else host_seeds) if fault else None, tiers)
+
+    for name, cases in (
+            ("dense_pull_lossy_lanes_trace",
+             (("lossy", 26, None, True, ok_pull),
+              ("no_edges", 26, None, True, no_edges))),
+            ("dense_pull_tiered_lanes_trace",
+             (("tiered", 0, wan, True, ok_pull),
+              ("pin", 0, pin, False, c.ok)))):
+        for label, thr, tiers, fault, ok in cases:
+            got = [c.ring.clone(), acc0.clone()]
+            want = [c.ring.clone(), acc0.clone()]
+            pull(True, *got, thr, tiers, fault, ok)
+            pull(False, *want, thr, tiers, fault, ok)
+            if not _equal_all(got, want)[0]:
+                raise AssertionError(f"{name} {label} at {n1k} nodes: "
+                                     "kernel != plain version")
+            x = [c.ring[last].clone(), acc0[last].clone()]
+            bc.pull_send(c.have[last], c.relay[last], c.injected[last],
+                         c.nbytes, budget, c.dst[last], c.slot[last],
+                         ok[last], c.k_drop[last], thr, x[0], x[1][slot_d],
+                         fthr[last] if fault else None,
+                         int(host_seeds[last]) if fault else 0, tiers)
+            _solo_trap(f"{name} {label} lane {last}",
+                       [got[0][last], got[1][last]], x)
+            lost = (got[1] - acc0)[:, slot_d].tolist()
+            if label == "lossy":
+                _trap("lane proto 2", "lanes whose pull keys, reverse draws "
+                      "and plan seeds differ: every lane's streams drop "
+                      "frames, each its own count in its own dropped slot, "
+                      "the other slots untouched",
+                      min(lost) > 0 and len(set(lost)) == lanes
+                      and torch.equal(got[1][:, 1:], acc0[:, 1:]))
+            if label == "no_edges":
+                _trap("lane proto 3", "a lane without edges writes and "
+                      "drops nothing", lost[1] == 0 and torch.equal(
+                          got[0][1], c.ring[1]))
+            if label == "pin":
+                raw = torch.stack([_topo_raw(pin, n1k, dev, c.dst[k])
+                                   for k in range(lanes)])
+                _trap("lane proto 4", "a tier at certainty on the pull leg "
+                      "(the pin topology's cross-region responses all lost, "
+                      "with no draw; no plan, so the split's edges pull)",
+                      bool((ok & (raw >= 256)).any())
+                      and min(lost) > 0)
+            del got, want, x
+    # the budget the pull reads is the one before the push spends it
+    spent = c.relay.clone()
+    targets = torch.where(c.ok, c.dst, -1).view(lanes, n1k, 3).contiguous()
+    dl.broadcast_send_lanes(c.have, spent, c.injected, c.nbytes, None,
+                            targets, c.dst, c.slot, c.ok, c.alive, c.k_drop,
+                            0, c.ring.clone())
+    before, after = c.ring.clone(), c.ring.clone()
+    pull(True, before, None, 0, None, False, ok_pull, bud=None)
+    pull(True, after, None, 0, None, False, ok_pull, bud=None, relay=spent)
+    _trap("lane proto 5", "a relay budget the pull reads before the push "
+          "spends it (the pull launched after the spend would answer less "
+          "in every lane)", all(int(before[k].sum()) > int(after[k].sum())
+                                for k in range(lanes)))
+    return rows
+
+
+def compare_lane_fifo_deliver(dev, g, lanes, n=FRONTIER_N, n1k=PROTO_1K,
+                              timed=True):
+    """K12f-o's lane entry at the frontier's shapes (K lanes of N = 96, P
+    = 64, A = 4, C = 1, D = 4; path 55's lab-ordered cells; the row)
+    and, a check, at broadcast-1k's (N = 1000, P = 256, A = 8): both
+    rings behind each lane's admit gate of its own pre-merge have; one
+    set of arrivals in every lane, so the gate rejects in one lane what
+    it admits in another.  The last lane held to the solo entry."""
+    from corrosion_tpu_torch.proto.ordering import admit_payload_mask
+    from corrosion_tpu_torch.sim import broadcast as bc
+    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim.state import SimConfig
+
+    rows, last = [], lanes - 1
+    for nn, p, a, label in ((n, 64, 4, "frontier"), (n1k, 256, 8, "1k")):
+        cfg = SimConfig(n_nodes=nn, n_payloads=p, n_writers=a, fanout=3,
+                        n_delay_slots=4, ordering="fifo")
+        v, d = cfg.n_versions, 4
+        have = _stack(_holdings(g, nn, a, v, 1, dev, 0.5, 0.1)
+                      for _ in range(lanes))
+        relay = have * 2
+        ring = _u8(g, (d, nn, p), 0.3, dev)[None].expand(
+            lanes, d, nn, p).contiguous()
+        sync_ring = _u8(g, (d, nn, p), 0.2, dev)[None].expand(
+            lanes, d, nn, p).contiguous()
+        slot = 3
+
+        def run(fn, xs):
+            fn(xs[0], xs[1], xs[2], xs[3], slot, 3, cfg)
+
+        got = [x.clone() for x in (ring, sync_ring, have, relay)]
+        want = [x.clone() for x in (ring, sync_ring, have, relay)]
+        run(dl.deliver_dense_lanes, got)
+        run(dl.deliver_dense_lanes_plain, want)
+        equal, err = _equal_all(got, want)
+        x = [y[last].clone() for y in (ring, sync_ring, have, relay)]
+        bc.deliver_dense(*x, slot, 3, cfg)
+        _solo_trap(f"dense_deliver_fifo_lanes {label} lane {last}",
+                   [y[last] for y in got], x)
+        admit = torch.stack([admit_payload_mask(have[k], cfg)
+                             for k in range(lanes)])
+        arriving = (ring[:, slot] | sync_ring[:, slot]) > 0
+        _trap(f"lane proto 6 {label}", "a FIFO gate that rejects in one "
+              "lane what it admits in another (the same arrivals in every "
+              "lane)", bool((arriving & admit).any(dim=0).logical_and(
+                  (arriving & ~admit).any(dim=0)).any()))
+        if label == "1k":
+            # a check: no path runs the gate at this width
+            if not equal:
+                raise AssertionError(f"dense_deliver_fifo_lanes at {nn} "
+                                     "nodes: kernel != plain version")
+            continue
+        work = [y.clone() for y in (ring, sync_ring, have, relay)]
+        base = [ring, sync_ring, have, relay]
+
+        def restore(work=work, base=base):
+            for d_, s_ in zip(work, base):
+                d_.copy_(s_)
+
+        rows.append(_dense_lane_row(
+            "dense_deliver_fifo_lanes", "dense_deliver_fifo_lanes",
+            "dense_phases.cu",
+            "corrosion_tpu/proto/ordering.py:55", equal, err,
+            _timed(timed, lambda work=work: run(dl.deliver_dense_lanes,
+                                                work), restore),
+            _timed(timed, lambda work=work: run(
+                dl.deliver_dense_lanes_plain, work), restore),
+            # two slots and have read, have, relay and both slots written
+            _nbytes(ring[:, slot], sync_ring[:, slot], have)
+            + _changed_bytes(got, [ring, sync_ring, have, relay]),
+            lanes, n=nn))
+    return rows
+
+
+def compare_lane_order_check(dev, g, lanes, n=FRONTIER_N, n1k=PROTO_1K,
+                             timed=True):
+    """K22's u8 lane entry at broadcast-1k's shapes (K lanes of N = 1000,
+    P = 256, A = 8, C = 1; path 56's lab-ordered-broken cell) and the
+    frontier's (N = 96, P = 64, A = 4): each lane's holdings with gaps,
+    added to its own nonzero count; one lane holds its versions in order,
+    so the counts differ by lane and one of them is 0.  The last lane
+    held to the solo entry."""
+    from corrosion_tpu_torch.sim import invariants as inv
+    from corrosion_tpu_torch.sim.state import SimConfig, uniform_payloads
+
+    rows, last = [], lanes - 1
+    for nn, p, a, label in ((n1k, 256, 8, "1k"), (n, 64, 4, "frontier")):
+        cfg = SimConfig(n_nodes=nn, n_payloads=p, n_writers=a, fanout=3,
+                        ordering="fifo-unchecked")
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        v = cfg.n_versions
+        have = _stack(_holdings(g, nn, a, v, 1, dev, 0.5, 0.2)
+                      for _ in range(lanes))
+        # lane 0 holds a gapless prefix of versions: no violation
+        heads = torch.as_tensor(g.integers(0, v + 1, (nn, 1, a)), device=dev)
+        vv = torch.arange(v, device=dev)[None, :, None]
+        have[0] = (vv < heads).to(torch.uint8).reshape(nn, v * a)
+        acc0 = torch.arange(7, 7 + lanes, dtype=torch.int32, device=dev)
+        got = acc0.clone()
+        inv.count_order_violations_lanes_(got, have, meta, cfg)
+        want = acc0.clone()
+        inv.count_order_violations_lanes_plain(want, have, meta, cfg)
+        equal, err = _equal_all([got], [want])
+        x = acc0[last].clone()
+        inv.count_order_violations_(x, have[last], meta, cfg)
+        _solo_trap(f"order_check_dense_lanes {label} lane {last}",
+                   [got[last]], [x])
+        counts = (want - acc0).tolist()
+        _trap(f"lane proto 7 {label}", "violation counts that differ by "
+              "lane, one of them 0", counts[0] == 0 and min(counts[1:]) > 0
+              and len(set(counts)) > 2)
+        work = acc0.clone()
+        rows.append(_dense_lane_row(
+            "order_check_dense_lanes" + ("" if label == "1k"
+                                         else "_frontier"),
+            "order_check_dense_lanes", "order_check.cu",
+            "corrosion_tpu/sim/invariants.py:51", equal, err,
+            _timed(timed, lambda work=work, have=have, meta=meta, cfg=cfg:
+                   inv.count_order_violations_lanes_(work, have, meta, cfg),
+                   lambda work=work: work.copy_(acc0)),
+            _timed(timed, lambda work=work, have=have, meta=meta, cfg=cfg:
+                   inv.count_order_violations_lanes_plain(work, have, meta,
+                                                          cfg),
+                   lambda work=work: work.copy_(acc0)),
+            _nbytes(have) + a * 4 + lanes * 8, lanes, n=nn))
+    return rows
+
+
+def compare_lane_caps_schedule(dev, g, lanes, n=PROTO_1K, timed=True):
+    """K20's schedule lane entry on K lanes of targets at path 56's
+    fan-out decay cell's shapes (N = 1000, F = 3, R = 8): without degree
+    classes at t = 7 and t = 8, where the live count drops from 3 to 1,
+    and after hetero-degree's caps 3/2/1 (caps below the live count in
+    some rows).  The last lane held to the solo entry."""
+    from corrosion_tpu_torch.proto import schedule as sch
+    from corrosion_tpu_torch.sim import topology as tp
+    from corrosion_tpu_torch.sim.state import SimConfig
+
+    cfg = SimConfig(n_nodes=n, n_payloads=256, n_writers=8, fanout=3,
+                    fanout_schedule="decay")
+    tg = np.where(g.random((lanes, n, 3)) < 0.05, -1,
+                  g.integers(0, n, (lanes, n, 3)))
+    targets = torch.as_tensor(tg, dtype=torch.int32, device=dev)
+    flat, het = _topo(), _topo("hetero-degree")
+    outs, equal, err = {}, True, 0
+    last = lanes - 1
+    for label, topo, t in (("7", flat, 7), ("8", flat, 8), ("het7", het, 7),
+                           ("het8", het, 8)):
+        got = sch.capped_schedule_lanes(targets.clone(), topo, cfg, t)
+        want = sch.capped_schedule_lanes_plain(targets, topo, cfg, t)
+        e_, x = _equal_all([got], [want])
+        equal, err = equal and e_, max(err, x)
+        _solo_trap(f"degree_caps_sched_lanes {label} lane {last}",
+                   [got[last]], [sch.capped_schedule(targets[last].clone(),
+                                                     topo, cfg, t)])
+        outs[label] = want
+    caps = tp.node_degrees(n, het, dev)
+    _trap("lane proto 8", "a schedule round where the slot count drops (3 "
+          "live slots at t = 7, 1 at t = 8) with caps below it in some rows "
+          "of every lane",
+          torch.equal(outs["7"], targets)
+          and bool((outs["8"][:, :, 1:] == -1).all())
+          and all(bool(((outs["het7"][k] == -1) & (targets[k] != -1))[
+              caps < 3].any()) for k in range(lanes))
+          and torch.equal(outs["het8"], outs["8"]))
+    _flat_block_trap("proto 9", n * 3)
+    work = targets.clone()
+    return [_dense_lane_row(
+        "degree_caps_sched_lanes", "degree_caps_sched_lanes",
+        "edge_classes.cu", "corrosion_tpu/proto/schedule.py:27", equal, err,
+        _timed(timed, lambda: sch.capped_schedule_lanes(work, het, cfg, 7),
+               lambda: work.copy_(targets)),
+        _timed(timed, lambda: sch.capped_schedule_lanes_plain(targets, het,
+                                                              cfg, 7)),
+        targets.numel() * 4 + _changed_bytes([targets], [outs["het7"]]),
+        lanes, n=n)]
+
+
+def compare_lane_wire_rows_pull(dev, g, lanes, n=FRONTIER_N, timed=True):
+    """K18's rows-pull lane entry at the frontier's shapes (K lanes of E
+    = 288 pulls over N = 96 rows): each lane's answered pulls into its
+    own accumulator slots of a lane trace's [K, 12] acc, one lane without
+    edges; the last lane held to the solo entry."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    f, last = 3, lanes - 1
+    frames = torch.as_tensor(g.integers(0, 64, (lanes, n)), dtype=torch.int32,
+                             device=dev)
+    byts = frames * 8192
+    dst = torch.as_tensor(g.integers(0, n, (lanes, n * f)), dtype=torch.int32,
+                          device=dev)
+    ok = torch.as_tensor(g.random((lanes, n * f)) < 0.8, device=dev)
+    ok[1] = False
+    acc0 = torch.as_tensor(g.integers(0, 1 << 20, (lanes, len(tel.ACC))),
+                           dtype=torch.int64, device=dev)
+    w = tel.ACC.index("bcast_frames")
+    got, want = acc0.clone(), acc0.clone()
+    tel.wire_rows_pull_lanes_(got[:, w:w + 2], frames, byts, ok, dst)
+    tel.wire_rows_pull_lanes_plain(want[:, w:w + 2], frames, byts, ok, dst)
+    equal, err = _equal_all([got], [want])
+    x = acc0[last, w:w + 2].clone()
+    tel.wire_rows_pull_(x, frames[last], byts[last], ok[last], dst[last])
+    _solo_trap(f"trace_wire_rows_pull_lanes lane {last}",
+               [got[last, w:w + 2]], [x])
+    added = (want - acc0)[:, w].tolist()
+    rest = [i for i in range(len(tel.ACC)) if i not in (w, w + 1)]
+    _trap("lane proto 10", "each lane's answered pulls in its own frames "
+          "and bytes slots, lanes differing, a lane without edges adding "
+          "nothing, the other slots untouched",
+          added[1] == 0 and min(added[:1] + added[2:]) > 0
+          and torch.equal(want[:, rest], acc0[:, rest]))
+    work = acc0.clone()
+    return [_dense_lane_row(
+        "trace_wire_rows_pull_lanes", "trace_wire_rows_pull_lanes",
+        "trace_wire.cu", "corrosion_tpu/sim/broadcast.py:285", equal, err,
+        _timed(timed, lambda: tel.wire_rows_pull_lanes_(
+            work[:, w:w + 2], frames, byts, ok, dst),
+            lambda: work.copy_(acc0)),
+        _timed(timed, lambda: tel.wire_rows_pull_lanes_plain(
+            work[:, w:w + 2], frames, byts, ok, dst),
+            lambda: work.copy_(acc0)),
+        _nbytes(frames, byts, ok, dst) + lanes * 16, lanes, n=n)]
+
+
+def compare_protocol_lane_kernels(dev, seed=15, lanes=ENSEMBLE_LANES,
+                                  timed=True, big=True):
+    """Phase 3lv: every lane entry of the protocol variants on the dense
+    round's lanes against its plain version at K = 8 on its paths'
+    shapes (the 100k push-pull storm's, broadcast-1k's, the frontier's),
+    each lane held to the solo entry on its inputs, every trap reached;
+    ``big`` False shrinks 100 000 and 1000 nodes to 1200 and 333 (a CPU
+    rehearsal)."""
+    g = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    wide, mid = (STORM_N, PROTO_1K) if big else (1200, 333)
+    rows = [*compare_lane_dense_pull(dev, g, gen, lanes, wide, mid, timed),
+            *compare_lane_fifo_deliver(dev, g, lanes, n1k=mid, timed=timed),
+            *compare_lane_order_check(dev, g, lanes, n1k=mid, timed=timed),
+            *compare_lane_caps_schedule(dev, g, lanes, mid, timed),
+            *compare_lane_wire_rows_pull(dev, g, lanes, timed=timed)]
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+#: paths 55-59: (label, spec builder, the rows the path adds to
+#: `PROTO_LANE_CORE`, golden name, whether it records); every path also
+#: launches K12's inject and deliver lane entries (`TRACE_LANE_ENTRIES`),
+#: the faultless ones K14's lane entry (`dense_gaps_lanes`) and the fault
+#: path K14x's (`dense_gaps_exit_lanes`)
+PROTO_LANE_CORE = ("threefry_lanes",)
+PROTO_ENSEMBLE_PATHS = (
+    ("protocol_frontier", "frontier",
+     _RECORDING + ("dense_gaps_lanes", "sample_uniform_lanes",
+                   "dense_broadcast_lanes_trace",
+                   "dense_broadcast_tiered_lanes_trace", "edge_slots_lanes",
+                   "dense_pull_lossy_lanes_trace",
+                   "dense_pull_tiered_lanes_trace",
+                   "trace_wire_rows_pull_lanes", "dense_deliver_fifo_lanes",
+                   "order_check_dense_lanes"),
+     "PROTOCOL_FRONTIER", True),
+    ("broadcast_1k_fanout_decay_seeds8_wire", "decay_1k",
+     _RECORDING + ("dense_gaps_lanes", "sample_uniform_lanes",
+                   "dense_broadcast_lanes_trace", "degree_caps_sched_lanes"),
+     "BROADCAST_1K_FANOUT_DECAY_SEEDS8_WIRE", True),
+    ("broadcast_1k_lab_ordered_broken_seeds8_wire", "broken_1k",
+     _RECORDING + ("dense_gaps_lanes", "sample_uniform_lanes",
+                   "dense_broadcast_lanes_trace", "order_check_dense_lanes"),
+     "BROADCAST_1K_LAB_ORDERED_BROKEN_SEEDS8_WIRE", True),
+    ("broadcast_1k_wan_3x2_peerswap_fault_seeds8", "psfault_1k",
+     ("dense_sync_lanes", "dense_broadcast_tiered_lanes", "edge_slots_lanes",
+      "sample_view_lanes", "peerswap_lanes", "edge_reach_lanes",
+      "fault_reach_matrix_lanes", "node_faults_dense_lanes",
+      "dense_gaps_exit_lanes"),
+     "BROADCAST_1K_WAN_3X2_PEERSWAP_FAULT_SEEDS8", False),
+    ("dense_storm_push_pull_100k_seeds8", "pp100k",
+     ("dense_gaps_lanes", "dense_sync_lanes", "sample_targets_lanes",
+      "merge_entries_lanes", "dense_phases_lanes", "dense_pull_lanes"),
+     "DENSE_STORM_PUSH_PULL_100K_SEEDS8", False),
+    ("protocol_frontier_push_pull", "frontier_pp",
+     ("dense_gaps_lanes", "sample_uniform_lanes", "dense_sync_lanes",
+      "dense_phases_lanes", "dense_broadcast_tiered_lanes", "edge_slots_lanes",
+      "dense_pull_lossy_lanes", "dense_pull_tiered_lanes"),
+     "PROTOCOL_FRONTIER_PUSH_PULL", False),
+)
+
+
+def proto_path_spec(which, seeds=range(ENSEMBLE_LANES)):
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    return {
+        "frontier": lambda: sp.protocol_frontier_spec(seeds=tuple(seeds)[:4]),
+        "decay_1k": lambda: sp.broadcast_proto_seeds_spec("fanout-decay",
+                                                          seeds),
+        "broken_1k": lambda: sp.broadcast_proto_seeds_spec(
+            "lab-ordered-broken", seeds),
+        "psfault_1k": lambda: sp.broadcast_peerswap_fault_seeds_spec(seeds),
+        "pp100k": lambda: sp.dense_storm_push_pull_seeds_spec(seeds),
+        "frontier_pp": lambda: sp.protocol_frontier_push_pull_spec(
+            seeds=tuple(seeds)[:4]),
+    }[which]()
+
+
+def protocol_ensemble_paths(dev, goldens):
+    """Paths 55-59: the protocol variants and PeerSwap under a fault plan
+    on the dense round's lanes through `campaign.engine.run_campaign`,
+    each from zeroed counters: every new lane entry of the path launched
+    (the recording forms on measure_wire cells), no solo entry of a
+    kernel that has a lane entry; the artifact's spec_hash, result_digest
+    and every cell's per-seed rounds (and wire_bytes, order_violations;
+    at 100k each lane's p99, convergence and state digest) against the
+    golden pinned from live JAX; every lane's final state (the PeerSwap
+    view included) equal to the port's solo run of its cell and seed on
+    this card (the walls beside, with max_memory_allocated).  Path 55
+    also through `runner.config_protocol_frontier` (its sampler cell
+    against the solo PeerSwap storm's golden); path 56's broken-ordering
+    lane 0 against JAX's solo golden (its 38 violations); path 58's lane
+    0 solo run against 22 rounds and p99 21.0, and its one-seed campaign
+    against JAX's result_digest.  Returns the launches per path and the
+    printed numbers."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.sim.round import RunMetrics
+    from corrosion_tpu_torch.sim.runner import config_protocol_frontier
+
+    launches, numbers = {}, {}
+    for label, which, extra, golden_name, recording in PROTO_ENSEMBLE_PATHS:
+        spec = proto_path_spec(which)
+        kept = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        art = run_campaign(spec, device=dev, lanes_out=kept)
+        peak = torch.cuda.max_memory_allocated()
+        counts = _path_launches(kernels, PROTO_LANE_CORE + extra, label,
+                                telemetry=recording,
+                                entries=TRACE_LANE_ENTRIES)
+        solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+        if solo_on:
+            raise AssertionError(f"{label}: solo entries {solo_on} launched "
+                                 "on a lane path")
+        launches[label] = counts
+        golden = getattr(goldens, golden_name)
+        cells = art["cells"]
+        got = {"spec_hash": art["spec_hash"],
+               "result_digest": art["result_digest"],
+               "rounds": [c["per_seed"]["rounds"] for c in cells]}
+        for key in ("wire_bytes", "order_violations"):
+            if key in golden:
+                got[key] = [c["per_seed"].get(key) for c in cells]
+        if which == "pp100k":
+            got["lanes"] = [
+                _lane_record(cells[0]["per_seed"], i, s,
+                             lane_state(kept[0]["finals"], i))
+                for i, s in enumerate(cells[0]["seeds"])]
+        print(f"{label}: {json.dumps(got)} wall_clock_s="
+              f"{[c['wall_clock_s'] for c in cells]} round_path="
+              f"{[c['round_path'] for c in cells]}", flush=True)
+        if any(c["round_path"] != "dense" for c in cells) or any(
+                got[k] != golden[k] for k in got):
+            raise AssertionError(f"{label}: differs from its golden")
+        solos = _cell_solo_runs(spec, dev)
+        for i, (cfg, meta, runs) in enumerate(solos):
+            finals = kept[i]["finals"]
+            order = kept[i]["metrics"].order_violations
+            if [int(f.t) for f, _, _ in runs] != cells[i]["per_seed"][
+                    "rounds"] or not all(
+                        _same_state(f, lane_state(finals, k))
+                        and int(m.order_violations) == int(order[k])
+                        for k, (f, m, _) in enumerate(runs)):
+                raise AssertionError(f"{label}: a lane of cell {i} differs "
+                                     "from its solo run")
+        if which == "broken_1k":
+            cfg, meta, runs = solos[0]
+            metrics = RunMetrics(*(x[0] for x in kept[0]["metrics"]))
+            rec = _solo_record(lane_state(kept[0]["finals"], 0), metrics,
+                               meta)
+            rec["order_violations"] = int(metrics.order_violations)
+            want = goldens.BROADCAST_1K_LAB_ORDERED_BROKEN_SEED0
+            if {k: rec[k] for k in want} != want:
+                raise AssertionError(f"{label}: lane 0 {rec} differs from "
+                                     "JAX's solo golden")
+        if which == "pp100k":
+            cfg, meta, runs = solos[0]
+            rec = _solo_record(runs[0][0], runs[0][1], meta)
+            if (rec["rounds"], rec["p99_node_convergence_round"]) != (22,
+                                                                      21.0):
+                raise AssertionError(f"{label}: the solo dense run of seed 0 "
+                                     f"{rec} is not 22 rounds, p99 21.0")
+            one = run_campaign(proto_path_spec(which, seeds=(0,)), device=dev)
+            print(f"{label}: the one-seed campaign of seed 0 gives "
+                  f"result_digest {one['result_digest']}", flush=True)
+            if one["result_digest"] != golden["seed0_result_digest"]:
+                raise AssertionError(f"{label}: the one-seed campaign "
+                                     "differs from JAX's")
+        del kept
+        walls = [w for _, _, runs in solos for _, _, w in runs]
+        entry = {"ensemble_wall_s": [c["wall_clock_s"] for c in cells],
+                 "max_memory_allocated_bytes": peak, "solo_walls_s": walls,
+                 "solo_walls_sum_s": sum(walls)}
+        if which == "frontier":
+            rec = config_protocol_frontier(seed=0, device=dev)
+            storm = rec["sampler_storm"]
+            want = goldens.STORM_PEERSWAP_25600_SEED0
+            if rec["result_digest"] != golden["result_digest"] or (
+                    storm["rounds"], storm["p99_node_convergence_round"]) != (
+                    want["rounds"], want["p99_node_convergence_round"]):
+                raise AssertionError(f"{label}: config_protocol_frontier "
+                                     f"gives {json.dumps(rec)}")
+            print(f"{label}: config_protocol_frontier {json.dumps(rec)}",
+                  flush=True)
+        print(f"{label}: every lane equal to its solo run; ensemble walls "
+              f"{entry['ensemble_wall_s']} s against the solo walls' sum "
+              f"{sum(walls):.4f} s ({walls}); max_memory_allocated {peak} "
+              "bytes", flush=True)
+        numbers[label] = entry
+        del solos
+        _lap(label)
+    return launches, numbers
 
 
 _START = time.monotonic()
@@ -9151,6 +9900,10 @@ def main() -> int:
     print("kernel comparisons equal for the topology axis and PeerSwap on "
           "the dense lanes", flush=True)
     _lap("topology lane kernel comparisons")
+    proto_lane_rows = compare_protocol_lane_kernels(dev)
+    print("kernel comparisons equal for the protocol variants on the dense "
+          "lanes", flush=True)
+    _lap("protocol lane kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -10032,6 +10785,13 @@ def main() -> int:
     print("topology ensemble numbers: " + json.dumps(topo_lane_numbers),
           flush=True)
     _lap("paths 51-54, topology families and PeerSwap on the dense lanes")
+    # paths 55-59: the protocol variants and PeerSwap under a fault plan on
+    # the dense lanes
+    proto_lane_launches, proto_lane_numbers = protocol_ensemble_paths(
+        dev, goldens)
+    print("protocol ensemble numbers: " + json.dumps(proto_lane_numbers),
+          flush=True)
+    _lap("paths 55-59, the protocol variants on the dense lanes")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -10087,9 +10847,19 @@ def main() -> int:
     for lanes_ in (ENSEMBLE_LANES, None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        prof = profile_wan_lanes(dev, lanes_)
+        prof = profile_dense_lanes(dev, wan_path_spec("wan100k"),
+                                   "dense storm-wan-3x2-100k", lanes_)
         prof["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
         print("profile_wan_ensemble: " + json.dumps(prof), flush=True)
+    # the 8-lane dense push-pull storm round beside its solo round, in one
+    # process
+    for lanes_ in (ENSEMBLE_LANES, None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_dense_lanes(dev, proto_path_spec("pp100k"),
+                                   "dense storm-push-pull-100k", lanes_)
+        prof["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        print("profile_push_pull_ensemble: " + json.dumps(prof), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -10287,6 +11057,24 @@ def main() -> int:
             label: c[row["kernel"]]
             for label, c in topo_lane_launches.items()}
     rows += topo_lane_rows
+    # each protocol lane row reads its launches on the path that runs its
+    # kernel at the row's shapes
+    proto_lane_path = {
+        "dense_pull_lanes": "dense_storm_push_pull_100k_seeds8",
+        "dense_pull_lossy_lanes": "protocol_frontier_push_pull",
+        "dense_pull_tiered_lanes": "protocol_frontier_push_pull",
+        "degree_caps_sched_lanes": "broadcast_1k_fanout_decay_seeds8_wire",
+        "order_check_dense_lanes":
+            "broadcast_1k_lab_ordered_broken_seeds8_wire"}
+    for row in proto_lane_rows:
+        path = ("protocol_frontier" if row["name"].endswith("_frontier")
+                else proto_lane_path.get(row["kernel"], "protocol_frontier"))
+        row["launches"] = proto_lane_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]]
+            for label, c in proto_lane_launches.items()}
+    rows += proto_lane_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

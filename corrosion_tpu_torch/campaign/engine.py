@@ -17,9 +17,10 @@ hash.
 The engine runs sim cells on both rounds — faultless or under a
 factored plan on the packed round, faultless or under a plan of either
 form (delay and jitter included) on the dense round, over every
-topology family and under either peer sampler (PeerSwap without a
-plan), which is where every fault cell outside the packed envelope goes (the 3-node fault
-campaigns, fault storms below the envelope, ``allow_packed: False``),
+topology family, under either peer sampler and under every protocol
+family, which is where every fault cell outside the packed envelope goes
+(the 3-node fault campaigns, fault storms below the envelope,
+``allow_packed: False``),
 reporting ``round_path: "dense"`` and the plan's horizon as JAX does —
 and detect cells (``detect_membership``: configs #2/#2b, the detect loop
 on lanes, banding ``detect_round`` with JAX's per-lane detection
@@ -34,14 +35,16 @@ flight-recorder JSONL a lane under JAX's file name
 (`_lane_trace_path`) and header; a ``measure_wire`` cell arms the
 recorder itself and bands each lane's ``wire_bytes``, the broadcast
 and sync byte channels' host sums, exactly as JAX computes them — part
-of the result digest.  On the packed round's lanes the recorder raises
-naming ROADMAP B16m (`..sim.lanes.check_packed_lanes`).  The rest
-raises NotImplementedError, naming its ROADMAP item: the churn key on
-lanes is B16c, the protocol variants on lanes B16v, PeerSwap under a
-fault plan on lanes B16s-f, topology keys, metered budgets and the
+of the result digest.  Every cell whose ``ordering`` is not "none"
+bands each lane's ``order_violations`` (its standing delivery-order
+count, K22), part of the digest, as JAX's does.  On the packed round's
+lanes the recorder raises naming ROADMAP B16m
+(`..sim.lanes.check_packed_lanes`).  The rest raises
+NotImplementedError, naming its ROADMAP item: the churn key on lanes is
+B16c, topology keys, metered budgets, the protocol variants and the
 recorder on the packed round's lanes B16m (PeerSwap there B16s's packed
-half), latency plans there B16l and matrix plans there B16x (both run
-on the dense round's lanes), a mesh is A13, host-serving cells and host
+half), latency plans there B16l and matrix plans there B16x (all run on
+the dense round's lanes), a mesh is A13, host-serving cells and host
 parity are host tier (not queued).  The cell's ``traceparent`` and its span tree belong to
 the host tracing tier and are left out (the digest excludes them; a
 flight-recorder header carries ``traceparent: None``).
@@ -78,10 +81,9 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
     (``engine.py:190-231``), word for word: what a detect cell, or a
     wire measurement, cannot measure.  Then the port's
     NotImplementedErrors, each naming its ROADMAP item; the refusals of
-    what a cell resolves to — the protocol variants, PeerSwap under a
-    fault plan, and on the packed round budgets, topology keys,
-    PeerSwap, matrix and latency plans — follow in
-    `..sim.lanes.check_packed_lanes` and `check_dense_lanes`."""
+    what a cell resolves to — on the packed round budgets, topology keys,
+    PeerSwap, the protocol variants, matrix and latency plans — follow in
+    `..sim.lanes.check_packed_lanes`."""
     from .spec import _PROTO_KEYS
 
     if spec.serving(cell):
@@ -251,6 +253,11 @@ def _run_cell(
                                   + float(h["sync_bytes"].sum()), 1))
             per_seed["wire_bytes"] = wire
             traces = hosts
+        if cfg.ordering != "none":
+            # each lane's standing delivery-order count, banded and
+            # digested on ordering cells only (JAX's rule)
+            per_seed["order_violations"] = [
+                int(v) for v in metrics.order_violations.cpu().numpy()]
     cell_bands = {
         m: bands(per_seed[m]) for m in BAND_METRICS if m in per_seed
     }

@@ -18,11 +18,12 @@ solo run of seed k:
 - a finished (converged, or detected) lane leaves the batch with its
   state after that round, which is what JAX's select-frozen lane holds.
 
-The dense round's lanes run every topology family and key and either
-peer sampler (B16t, B16s); the packed round's the flat topology and the
-uniform sampler (B16m, B16s's packed half).  Fault plans run on both
-rounds' lanes: of either form, with delay and jitter, on the dense
-round's (not under PeerSwap there: B16s-f); factored and without latency on the
+The dense round's lanes run every topology family and key, either peer
+sampler (B16t, B16s) and every protocol family (B16v); the packed
+round's the flat topology, the uniform sampler and the baseline
+protocol (B16m, B16s's packed half).  Fault plans run on both rounds'
+lanes: of either form, with delay and jitter, on the dense round's
+(under PeerSwap too: B16s-f); factored and without latency on the
 packed round's (matrix and latency plans there are ROADMAP B16x and
 B16l; a mesh is A13).  The flight recorder (``telemetry``) runs on the
 dense round's lanes and the detect loop's (B16r): each lane records its

@@ -496,6 +496,72 @@ def dense_storm_wan_seeds_spec(
     )
 
 
+def broadcast_proto_seeds_spec(
+    proto_family: str, seeds: Sequence[int] = tuple(range(8)),
+) -> CampaignSpec:
+    """`broadcast_wire_seeds_spec` under a protocol family (B16v): config
+    #3 with ``proto_family`` and ``measure_wire`` —
+    ``broadcast-1k-fanout-decay-seeds8-wire`` and
+    ``broadcast-1k-lab-ordered-broken-seeds8-wire`` among them.  Not a
+    builtin of the JAX package: the JAX package's `CampaignSpec` of the
+    same dict has the same hash."""
+    spec = broadcast_wire_seeds_spec(seeds)
+    return dataclasses.replace(
+        spec,
+        name=f"broadcast-1k-{proto_family}-seeds{len(tuple(seeds))}-wire",
+        scenario=dict(spec.scenario, proto_family=proto_family))
+
+
+def broadcast_peerswap_fault_seeds_spec(
+    seeds: Sequence[int] = tuple(range(8)),
+) -> CampaignSpec:
+    """Config #3 over wan-3x2 under PeerSwap with the fault storm's
+    events at its width (`storm_fault_events`: loss 0.15, the half split,
+    node 1's crash and wipe) as one campaign cell (B16s-f):
+    ``broadcast-1k-wan-3x2-peerswap-fault-seeds8`` at the default.  Not a
+    builtin of the JAX package: the JAX package's `CampaignSpec` of the
+    same dict has the same hash."""
+    spec = broadcast_topology_seeds_spec("wan-3x2", "peerswap", seeds)
+    return dataclasses.replace(
+        spec, name=f"broadcast-1k-wan-3x2-peerswap-fault-seeds"
+                   f"{len(tuple(seeds))}",
+        events=storm_fault_events(spec.scenario["n_nodes"]))
+
+
+def dense_storm_push_pull_seeds_spec(
+    seeds: Sequence[int] = tuple(range(8)),
+) -> CampaignSpec:
+    """The 100k write storm on the dense round under push-pull as one
+    campaign cell: ``dense-storm-push-pull-100k-seeds8`` at the default —
+    K12p's lane entry at the storm's width (B16v).  Not a builtin of the
+    JAX package: the JAX package's `CampaignSpec` of the same dict has the
+    same hash."""
+    return CampaignSpec(
+        name=f"dense-storm-push-pull-100k-seeds{len(tuple(seeds))}",
+        scenario=dict(storm_scenario(), allow_packed=False,
+                      proto_family="push-pull"),
+        seeds=tuple(seeds),
+        max_rounds=3000,
+    )
+
+
+def protocol_frontier_push_pull_spec(
+    seeds: Sequence[int] = (0, 1, 2, 3),
+) -> CampaignSpec:
+    """The committed `protocol-frontier` campaign's push-pull cells
+    (wan-3x2 and flat-lossy) without the recorder, as a user's push-pull
+    seed ensemble runs them: ``protocol-frontier-push-pull`` — K12p's
+    lane entry under the tiers and under the flat stream with no dropped
+    slot (B16v).  Not a builtin of the JAX package: the JAX package's
+    `CampaignSpec` of the same dict has the same hash."""
+    spec = protocol_frontier_spec(seeds)
+    scenario = {k: v for k, v in spec.scenario.items()
+                if k != "measure_wire"}
+    return dataclasses.replace(
+        spec, name="protocol-frontier-push-pull", scenario=scenario,
+        grid=dict(spec.grid, proto_family=["push-pull"]))
+
+
 # -- builtin specs (JAX ``spec.py:481-791``, as data) -------------------------
 
 

@@ -2097,3 +2097,193 @@ DENSE_STORM_WAN_3X2_100K_SEEDS8 = {
          "digest": "c73ac5ae62816f4d"},
     ],
 }
+
+# -- the protocol variants on the dense round's lanes (B16v, B16s-f) ---------
+# run_campaign(builtin_spec("protocol-frontier")): four protocol families
+# (baseline, swarm-aggressive, push-pull, lab-ordered) × wan-3x2 and
+# flat-lossy at 96 nodes, seeds 0-3, measure_wire; each cell's (grid
+# order: the proto family slowest) whole per-seed record from live JAX
+# (jax 0.9.0), its rounds, wire_bytes and, on the ordering cells,
+# order_violations.  The committed
+# doc/experiments/CAMPAIGN_BASELINE_protocol-frontier.json holds
+# result_digest 2bf52220…, from before jax 0.9.0
+PROTOCOL_FRONTIER = {
+    "spec_hash": "e58396c76a2699dc",
+    "result_digest": "4eaddd896ec3ed7116872cdccb033549",
+    "rounds": [[25, 25, 24, 24], [22, 22, 21, 21], [23, 23, 23, 22],
+               [21, 21, 21, 20], [22, 22, 23, 22], [19, 19, 19, 19],
+               [212, 239, 227, 206], [193, 217, 208, 231]],
+    "wire_bytes": [[1070014464.0, 1066942464.0, 1033928704.0, 1013792768.0],
+                   [1160871936.0, 1166893056.0, 1101217792.0, 1103732736.0],
+                   [641835008.0, 653336576.0, 642695168.0, 615432192.0],
+                   [1051762688.0, 1051811840.0, 1037590528.0, 986898432.0],
+                   [2089951232.0, 2074107904.0, 2208997376.0, 2068889600.0],
+                   [2091679744.0, 2096357376.0, 2094489600.0, 2093383680.0],
+                   [412844032.0, 397803520.0, 413933568.0, 404873216.0],
+                   [480043008.0, 499367936.0, 520060928.0, 498065408.0]],
+    "order_violations": [None, None, None, None, None, None,
+                         [0, 0, 0, 0], [0, 0, 0, 0]],
+    "per_seed": [{"rounds": [25, 25, 24, 24],
+                  "converged": [True, True, True, True],
+                  "unconverged_nodes": [0, 0, 0, 0],
+                  "p99_node_convergence_round": [24.0, 24.0, 23.0, 23.0],
+                  "wire_bytes": [1070014464.0,
+                                 1066942464.0,
+                                 1033928704.0,
+                                 1013792768.0]},
+                 {"rounds": [22, 22, 21, 21],
+                  "converged": [True, True, True, True],
+                  "unconverged_nodes": [0, 0, 0, 0],
+                  "p99_node_convergence_round": [20.0, 20.0, 20.0, 20.0],
+                  "wire_bytes": [1160871936.0,
+                                 1166893056.0,
+                                 1101217792.0,
+                                 1103732736.0]},
+                 {"rounds": [23, 23, 23, 22],
+                  "converged": [True, True, True, True],
+                  "unconverged_nodes": [0, 0, 0, 0],
+                  "p99_node_convergence_round": [21.0, 22.0, 22.0, 21.0],
+                  "wire_bytes": [641835008.0, 653336576.0, 642695168.0,
+                                 615432192.0]},
+                 {"rounds": [21, 21, 21, 20],
+                  "converged": [True, True, True, True],
+                  "unconverged_nodes": [0, 0, 0, 0],
+                  "p99_node_convergence_round": [19.0, 19.0, 20.0, 19.0],
+                  "wire_bytes": [1051762688.0,
+                                 1051811840.0,
+                                 1037590528.0,
+                                 986898432.0]},
+                 {"rounds": [22, 22, 23, 22],
+                  "converged": [True, True, True, True],
+                  "unconverged_nodes": [0, 0, 0, 0],
+                  "p99_node_convergence_round": [21.0, 21.0, 21.0, 21.0],
+                  "wire_bytes": [2089951232.0,
+                                 2074107904.0,
+                                 2208997376.0,
+                                 2068889600.0]},
+                 {"rounds": [19, 19, 19, 19],
+                  "converged": [True, True, True, True],
+                  "unconverged_nodes": [0, 0, 0, 0],
+                  "p99_node_convergence_round": [18.0, 18.0, 18.0, 18.0],
+                  "wire_bytes": [2091679744.0,
+                                 2096357376.0,
+                                 2094489600.0,
+                                 2093383680.0]},
+                 {"rounds": [212, 239, 227, 206],
+                  "converged": [True, True, True, True],
+                  "unconverged_nodes": [0, 0, 0, 0],
+                  "p99_node_convergence_round": [199.0, 236.0, 217.0, 199.0],
+                  "wire_bytes": [412844032.0, 397803520.0, 413933568.0,
+                                 404873216.0],
+                  "order_violations": [0, 0, 0, 0]},
+                 {"rounds": [193, 217, 208, 231],
+                  "converged": [True, True, True, True],
+                  "unconverged_nodes": [0, 0, 0, 0],
+                  "p99_node_convergence_round": [191.0, 208.0, 206.0, 225.0],
+                  "wire_bytes": [480043008.0, 499367936.0, 520060928.0,
+                                 498065408.0],
+                  "order_violations": [0, 0, 0, 0]}],
+}
+
+# run_campaign(protocol_frontier_push_pull_spec()): the frontier's two
+# push-pull cells (wan-3x2, flat-lossy) without the recorder, seeds 0-3,
+# from live JAX (jax 0.9.0); each cell's per-seed record is
+# PROTOCOL_FRONTIER's push-pull cell's less its wire_bytes
+PROTOCOL_FRONTIER_PUSH_PULL = {
+    "spec_hash": "c5e46fe8bceaad33",
+    "result_digest": "00871327d61cb7b8ce5413285c192bc7",
+    "rounds": [[22, 22, 23, 22], [19, 19, 19, 19]],
+}
+
+# run_campaign(broadcast_proto_seeds_spec("fanout-decay")): config #3
+# under the fan-out decay (K20's schedule lane entry), seeds 0-7
+BROADCAST_1K_FANOUT_DECAY_SEEDS8_WIRE = {
+    "spec_hash": "785483a7dbe10fe6",
+    "result_digest": "1fa40ee7020faafbdcf567f98d5a3490",
+    "rounds": [[80, 81, 80, 80, 82, 80, 79, 80]],
+    "wire_bytes": [[16689881088.0,
+                    16747208704.0,
+                    16665763840.0,
+                    16651239424.0,
+                    16733741056.0,
+                    16763338752.0,
+                    16633282560.0,
+                    16674455552.0]],
+}
+
+# run_campaign(broadcast_proto_seeds_spec("lab-ordered-broken")): the
+# unchecked ordering control, seeds 0-7, nonzero order_violations (K22's u8
+# lane entry); lane 0 is BROADCAST_1K_LAB_ORDERED_BROKEN_SEED0's run
+BROADCAST_1K_LAB_ORDERED_BROKEN_SEEDS8_WIRE = {
+    "spec_hash": "aff1e5db382ae7d4",
+    "result_digest": "93a871e0fc9b7f7b4ef66022f4707cdd",
+    "rounds": [[73, 71, 70, 70, 70, 70, 70, 71]],
+    "wire_bytes": [[54755934208.0,
+                    53835595776.0,
+                    53191811072.0,
+                    53166538752.0,
+                    53225037824.0,
+                    53195366400.0,
+                    53185150976.0,
+                    53838495744.0]],
+    "order_violations": [[38, 42, 39, 35, 39, 45, 26, 40]],
+}
+
+# run_campaign(broadcast_peerswap_fault_seeds_spec()): config #3 over
+# wan-3x2 under PeerSwap with the fault storm's events at 1000 nodes (the
+# plan's matrix form), seeds 0-7 (B16s-f)
+BROADCAST_1K_WAN_3X2_PEERSWAP_FAULT_SEEDS8 = {
+    "spec_hash": "9c14ee54992631a8",
+    "result_digest": "69a042710e6324dc63aa709ad0502d20",
+    "rounds": [[77, 78, 77, 77, 77, 80, 78, 77]],
+}
+
+# run_campaign(dense_storm_push_pull_seeds_spec()): the 100k write storm on
+# the dense round under push-pull (K12p's lane entry at 100 000 × 512 × 3
+# edges a node), seeds 0-7.  Each lane is live JAX's one-seed run_campaign
+# of its seed (rounds, p99, convergence, state digest; -m slow one case a
+# seed, about eighty seconds each); the 8-lane result_digest is JAX's
+# artifact_digest over the cell the eight lanes make, the construction
+# that reproduces every one-seed artifact's digest (seed 0's is
+# seed0_result_digest).  Lane 0 is STORM_PUSH_PULL_100K_SEED0's run (the
+# dense == packed contract)
+DENSE_STORM_PUSH_PULL_100K_SEEDS8 = {
+    "spec_hash": "71553ae16934ae87",
+    "result_digest": "7c331e5e54943ef3ebc6cb4d3008109d",
+    "seed0_result_digest": "fba8991a1426b64a2c1757a36f5aacb2",
+    "rounds": [[22, 22, 22, 22, 22, 22, 22, 22]],
+    "lanes": [
+        {"seed": 0, "rounds": 22,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "294cd4e8cf59c03e"},
+        {"seed": 1, "rounds": 22,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "622cfdb032915b6d"},
+        {"seed": 2, "rounds": 22,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "5b7c27a6fe5417a2"},
+        {"seed": 3, "rounds": 22,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "74fc134d9ca79796"},
+        {"seed": 4, "rounds": 22,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "068d4eddc3bd9734"},
+        {"seed": 5, "rounds": 22,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "fda330bdb33a7800"},
+        {"seed": 6, "rounds": 22,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "608d4f0348c8d68e"},
+        {"seed": 7, "rounds": 22,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "9bf09d0d0c9d7fb3"},
+    ],
+}

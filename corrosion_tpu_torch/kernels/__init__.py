@@ -164,6 +164,19 @@ replaces:
   `PEERSWAP_PARTNER_LANES`, `PEERSWAP_SWAP_LANES`, `PEERSWAP_LAND_LANES`
   — `topo.sampler.peerswap_partner_lanes`, `peerswap_apply_lanes`.
 
+- the protocol variants on the dense round's lanes (B16v; one row a
+  kernel, counted apart from the solo entries): K20's schedule lane
+  entry `DEGREE_CAPS_SCHED_LANES` — `proto.schedule.capped_schedule_lanes`;
+  K12p's lane entry `DENSE_PULL_LANES`, `DENSE_PULL_LOSSY_LANES`,
+  `DENSE_PULL_TIERED_LANES` (by its streams) and the recording forms
+  `DENSE_PULL_LOSSY_LANES_TRACE`, `DENSE_PULL_TIERED_LANES_TRACE` (dropped
+  frames a lane) — `sim.broadcast.pull_send_lanes`; K18's rows-pull lane
+  entry `TRACE_WIRE_ROWS_PULL_LANES` — `sim.telemetry.
+  wire_rows_pull_lanes_`; K12f-o's lane entry `DENSE_DELIVER_FIFO_LANES`
+  — `sim.dense_lanes.deliver_dense_lanes` under ``ordering="fifo"``;
+  K22's u8 lane entry `ORDER_CHECK_DENSE_LANES` (a count a lane) —
+  `sim.invariants.count_order_violations_lanes_`.
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -472,6 +485,29 @@ PEERSWAP_SWAP_LANES = Kernel("peerswap_swap_lanes", "peerswap.cu",
 PEERSWAP_LAND_LANES = Kernel("peerswap_land_lanes", "peerswap.cu",
                              "corro_peerswap_land_lanes", 5)
 
+DEGREE_CAPS_SCHED_LANES = Kernel("degree_caps_sched_lanes", "edge_classes.cu",
+                                 "corro_degree_caps_sched_lanes", 4)
+DENSE_PULL_LANES = Kernel("dense_pull_lanes", "dense_phases.cu",
+                          "corro_dense_pull_lanes", 9)
+DENSE_PULL_LOSSY_LANES = Kernel("dense_pull_lossy_lanes", "dense_phases.cu",
+                                "corro_dense_pull_lanes", 9)
+DENSE_PULL_TIERED_LANES = Kernel("dense_pull_tiered_lanes", "dense_phases.cu",
+                                 "corro_dense_pull_lanes", 9)
+DENSE_PULL_LOSSY_LANES_TRACE = Kernel("dense_pull_lossy_lanes_trace",
+                                      "dense_phases.cu",
+                                      "corro_dense_pull_lanes", 9)
+DENSE_PULL_TIERED_LANES_TRACE = Kernel("dense_pull_tiered_lanes_trace",
+                                       "dense_phases.cu",
+                                       "corro_dense_pull_lanes", 9)
+TRACE_WIRE_ROWS_PULL_LANES = Kernel("trace_wire_rows_pull_lanes",
+                                    "trace_wire.cu",
+                                    "corro_trace_wire_rows_pull_lanes", 4)
+DENSE_DELIVER_FIFO_LANES = Kernel("dense_deliver_fifo_lanes",
+                                  "dense_phases.cu",
+                                  "corro_dense_deliver_fifo_lanes", 8)
+ORDER_CHECK_DENSE_LANES = Kernel("order_check_dense_lanes", "order_check.cu",
+                                 "corro_order_check_dense_lanes", 5)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -573,11 +609,21 @@ PORTED = {
     "sample_view_lanes": (SAMPLE_VIEW_LANES,),
     "peerswap_lanes": (PEERSWAP_PARTNER_LANES, PEERSWAP_SWAP_LANES,
                        PEERSWAP_LAND_LANES),
+    "degree_caps_sched_lanes": (DEGREE_CAPS_SCHED_LANES,),
+    "dense_pull_lanes": (DENSE_PULL_LANES,),
+    "dense_pull_lossy_lanes": (DENSE_PULL_LOSSY_LANES,),
+    "dense_pull_tiered_lanes": (DENSE_PULL_TIERED_LANES,),
+    "dense_pull_lossy_lanes_trace": (DENSE_PULL_LOSSY_LANES_TRACE,),
+    "dense_pull_tiered_lanes_trace": (DENSE_PULL_TIERED_LANES_TRACE,),
+    "trace_wire_rows_pull_lanes": (TRACE_WIRE_ROWS_PULL_LANES,),
+    "dense_deliver_fifo_lanes": (DENSE_DELIVER_FIFO_LANES,),
+    "order_check_dense_lanes": (ORDER_CHECK_DENSE_LANES,),
 }
-#: the flight recorder on the dense round's lanes (B16r): the three lane
-#: entries of K17-K19 and the recording forms of the lane launchers of
-#: K12, K12f, K12t, K13, K13d (their recorder outputs) and of K9's, K9's
-#: latency entry's and K9m's edge queries (their lane-strided counts)
+#: the flight recorder on the dense round's lanes (B16r): the lane entries
+#: of K17-K19 (K18's rows and rows-pull entries) and the recording forms of
+#: the lane launchers of K12, K12f, K12t, K12p, K13, K13d (their recorder
+#: outputs) and of K9's, K9's latency entry's and K9m's edge queries (their
+#: lane-strided counts)
 TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
                    "trace_row_lanes", "dense_broadcast_lanes_trace",
                    "dense_broadcast_fault_lanes_trace",
@@ -585,7 +631,10 @@ TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
                    "fault_edges_lanes_count",
                    "fault_edges_delay_lanes_count",
                    "fault_edges_matrix_lanes_count",
-                   "dense_broadcast_tiered_lanes_trace")
+                   "dense_broadcast_tiered_lanes_trace",
+                   "dense_pull_lossy_lanes_trace",
+                   "dense_pull_tiered_lanes_trace",
+                   "trace_wire_rows_pull_lanes")
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
@@ -598,7 +647,10 @@ LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "dense_sync_delay_lanes", "dense_gaps_exit_lanes",
              "edge_slots_lanes", "degree_caps_lanes", "edge_reach_lanes",
              "dense_broadcast_tiered_lanes", "sample_view_lanes",
-             "peerswap_lanes", *TRACE_LANE_ROWS)
+             "peerswap_lanes", "degree_caps_sched_lanes", "dense_pull_lanes",
+             "dense_pull_lossy_lanes", "dense_pull_tiered_lanes",
+             "dense_deliver_fifo_lanes", "order_check_dense_lanes",
+             *TRACE_LANE_ROWS)
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
@@ -639,7 +691,11 @@ __all__ = [
     "PEERSWAP_PARTNER_LANES", "PEERSWAP_SWAP_LANES", "PEERSWAP_LAND_LANES",
     "DENSE_PULL_LOSSY", "DENSE_PULL_TIERED", "ORDER_CHECK_DENSE",
     "ORDER_CHECK_WORDS", "TRACE_WIRE_ROWS_PULL", "TRACE_WIRE_WORDS_PULL",
-    "WORD_DELIVER_FIFO",
+    "WORD_DELIVER_FIFO", "DEGREE_CAPS_SCHED_LANES", "DENSE_PULL_LANES",
+    "DENSE_PULL_LOSSY_LANES", "DENSE_PULL_TIERED_LANES",
+    "DENSE_PULL_LOSSY_LANES_TRACE", "DENSE_PULL_TIERED_LANES_TRACE",
+    "TRACE_WIRE_ROWS_PULL_LANES", "DENSE_DELIVER_FIFO_LANES",
+    "ORDER_CHECK_DENSE_LANES",
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
     "BROADCAST_SCATTER_LOSSY", "BROADCAST_SCATTER_TIERED", "BUDGET_WORDS",
     "CONVERGE_FINISH", "CONVERGE_ROWS", "DEGREE_CAPS", "DENSE_BROADCAST",

@@ -124,6 +124,21 @@
 // 1) is held; both rings' slot t arrive only where admitted, the merge
 // and the relay re-arm follow the deliver entry, and both slots are
 // cleared whole.  Bound: bytes, the deliver entry's plus one row read.
+//
+// Their lane entries (B16v: corrosion_tpu/campaign/ensemble.py:114 vmaps
+// broadcast.py:187-216 and :346-360) follow the lane convention below.
+// K12p's (corro_dense_pull_lanes, counted as dense_pull_lanes,
+// dense_pull_lossy_lanes and dense_pull_tiered_lanes by its streams, and
+// with a lane trace's `dropped` as the _trace forms of the last two)
+// takes each lane's have, relay, injected, edges, k_drop and ring slices;
+// lane k folds its own pull key fold_in(k_drop[k], 1) and, with the
+// reverse edges' fault thresholds [K, E], its fault key fold_in(fold_in(
+// k_pull, seeds[k]), 101) once a block, draws at its lane-local e*P + q,
+// and adds the frames its streams ate to dropped[k * acc_stride].  The
+// wrapper launches it before the push's lane entry, as solo.  K12f-o's
+// (corro_dense_deliver_fifo_lanes, counted as dense_deliver_fifo_lanes)
+// runs one block per (row, lane): each lane's row gates on its own
+// pre-merge have.  Bound: K times the solo bounds.
 
 // The lane entries (corro_dense_inject_lanes, _broadcast_lanes,
 // _deliver_lanes) run inject, broadcast and deliver over a seed
@@ -404,8 +419,25 @@ __global__ void dense_pull_kernel(
     const bool* __restrict__ ok_pull, const int64_t* __restrict__ k_drop,
     uint8_t* __restrict__ ring, unsigned long long* __restrict__ dropped,
     const uint8_t* __restrict__ fthr, const int32_t* __restrict__ tiers,
-    int n, int p, int f, int d_slots, int budget, int thr, uint32_t seed,
-    uint32_t loss_tag) {
+    const int32_t* __restrict__ seeds, int n, int p, int f, int d_slots,
+    int budget, int thr, uint32_t seed, uint32_t loss_tag, int acc_stride) {
+  {
+    // the lane's slices (lane 0 on the solo entry; the topology's table
+    // is shared, the lane entry passes its lanes' plan seeds)
+    const size_t lane = blockIdx.y;
+    const size_t cells = (size_t)n * p, edges = (size_t)n * f;
+    have += lane * cells;
+    relay += lane * cells;
+    injected += lane * p;
+    dst += lane * edges;
+    slot += lane * edges;
+    ok_pull += lane * edges;
+    if (k_drop != nullptr) k_drop += lane * 2;
+    ring += lane * (size_t)d_slots * cells;
+    if (dropped != nullptr) dropped += lane * (size_t)acc_stride;
+    if (fthr != nullptr) fthr += lane * edges;
+    if (seeds != nullptr) seed = (uint32_t)seeds[lane];
+  }
   __shared__ uint32_t keys[4];
   if (k_drop != nullptr) {
     if (threadIdx.x == 0) {
@@ -466,7 +498,16 @@ __global__ void dense_deliver_fifo_kernel(uint8_t* __restrict__ ring,
                                           uint8_t* __restrict__ have,
                                           uint8_t* __restrict__ relay, int n,
                                           int p, int slot, int relay_init,
-                                          int c, int wave) {
+                                          int c, int wave, int d_slots) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    const size_t cells = (size_t)n * p;
+    ring += lane * (size_t)d_slots * cells;
+    sync_ring += lane * (size_t)d_slots * cells;
+    have += lane * cells;
+    relay += lane * cells;
+  }
   extern __shared__ uint8_t row_have[];
   int row = blockIdx.x;
   size_t base = (size_t)row * p;
@@ -718,30 +759,46 @@ extern "C" int corro_dense_deliver_lanes(void* ring, void* sync_ring,
 // second split (required when a stream draws); `tiers` the topology's
 // table under tiered loss (then thr must be 0).  Launch it before the
 // broadcast entry: it reads the relay budget before the spend.
+namespace {
+
+int launch_pull(const void* have, const void* relay, const void* injected,
+                const void* nbytes, const void* dst, const void* slot,
+                const void* ok, const void* k_drop, void* ring, void* dropped,
+                const void* fthr, const void* tiers, const void* seeds, int n,
+                int p, int f, int d_slots, int budget, int thr, int seed,
+                int loss_tag, int acc_stride, int lanes, void* stream) {
+  bool tiered = tiers != nullptr;
+  bool draws = fthr != nullptr || tiered || (thr > 0 && thr < 256);
+  if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
+      (draws && k_drop == nullptr) || (tiered && thr != 0) || lanes <= 0 ||
+      lanes > 65535 || (lanes > 1 && dropped != nullptr && acc_stride <= 0))
+    return (int)cudaErrorInvalidValue;
+  if ((unsigned long long)n * f * p >= (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  int threads = 256;
+  auto kernel = tiered ? dense_pull_kernel<true> : dense_pull_kernel<false>;
+  kernel<<<dim3(blocks_for((size_t)n * f * kWarp, threads), lanes), threads,
+           0, (cudaStream_t)stream>>>(
+      (const uint8_t*)have, (const uint8_t*)relay, (const uint8_t*)injected,
+      (const int32_t*)nbytes, (const int32_t*)dst, (const int32_t*)slot,
+      (const bool*)ok, draws ? (const int64_t*)k_drop : nullptr,
+      (uint8_t*)ring, (unsigned long long*)dropped, (const uint8_t*)fthr,
+      (const int32_t*)tiers, (const int32_t*)seeds, n, p, f, d_slots, budget,
+      thr, (uint32_t)seed, (uint32_t)loss_tag, acc_stride);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int corro_dense_pull(
     const void* have, const void* relay, const void* injected,
     const void* nbytes, const void* dst, const void* slot, const void* ok,
     const void* k_drop, void* ring, void* dropped, const void* fthr,
     const void* tiers, int n, int p, int f, int d_slots, int budget, int thr,
     int seed, int loss_tag, void* stream) {
-  bool tiered = tiers != nullptr;
-  bool draws = fthr != nullptr || tiered || (thr > 0 && thr < 256);
-  if (n <= 0 || p <= 0 || f <= 0 || d_slots <= 0 || thr < 0 || thr > 256 ||
-      (draws && k_drop == nullptr) || (tiered && thr != 0))
-    return (int)cudaErrorInvalidValue;
-  if ((unsigned long long)n * f * p >= (1ull << 32))
-    return (int)cudaErrorInvalidValue;
-  int threads = 256;
-  auto kernel = tiered ? dense_pull_kernel<true> : dense_pull_kernel<false>;
-  kernel<<<blocks_for((size_t)n * f * kWarp, threads), threads, 0,
-           (cudaStream_t)stream>>>(
-      (const uint8_t*)have, (const uint8_t*)relay, (const uint8_t*)injected,
-      (const int32_t*)nbytes, (const int32_t*)dst, (const int32_t*)slot,
-      (const bool*)ok, draws ? (const int64_t*)k_drop : nullptr,
-      (uint8_t*)ring, (unsigned long long*)dropped, (const uint8_t*)fthr,
-      (const int32_t*)tiers, n, p, f, d_slots, budget, thr, (uint32_t)seed,
-      (uint32_t)loss_tag);
-  return (int)cudaGetLastError();
+  return launch_pull(have, relay, injected, nbytes, dst, slot, ok, k_drop,
+                     ring, dropped, fthr, tiers, nullptr, n, p, f, d_slots,
+                     budget, thr, seed, loss_tag, 0, 1, stream);
 }
 
 // K12f-o: the deliver entry behind the FIFO admit gate; `c` is
@@ -756,6 +813,44 @@ extern "C" int corro_dense_deliver_fifo(void* ring, void* sync_ring,
   dense_deliver_fifo_kernel<<<(unsigned)n, 128, (size_t)p,
                               (cudaStream_t)stream>>>(
       (uint8_t*)ring, (uint8_t*)sync_ring, (uint8_t*)have, (uint8_t*)relay,
-      n, p, slot, relay_init, c, wave);
+      n, p, slot, relay_init, c, wave, 1);
+  return (int)cudaGetLastError();
+}
+
+// K12p's lane entry: the solo entry's pointers with every per-node and
+// per-edge tensor [lanes, ...], `k_drop` [lanes, 2] and the rings
+// [lanes, D, N, P], then the lanes' plan seeds [lanes] (i32; null without
+// fault loss), then the solo entry's ints less `seed`, `acc_stride` (the
+// int64 slots between two lanes' `dropped`, lane 0's slot passed) and
+// `lanes`.
+extern "C" int corro_dense_pull_lanes(
+    const void* have, const void* relay, const void* injected,
+    const void* nbytes, const void* dst, const void* slot, const void* ok,
+    const void* k_drop, void* ring, void* dropped, const void* fthr,
+    const void* tiers, const void* seeds, int n, int p, int f, int d_slots,
+    int budget, int thr, int loss_tag, int acc_stride, int lanes,
+    void* stream) {
+  if (fthr != nullptr && seeds == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_pull(have, relay, injected, nbytes, dst, slot, ok, k_drop,
+                     ring, dropped, fthr, tiers, seeds, n, p, f, d_slots,
+                     budget, thr, 0, loss_tag, acc_stride, lanes, stream);
+}
+
+// K12f-o's lane entry: the rings [lanes, D, N, P], have and relay
+// [lanes, N, P]; the solo entry's ints with D before the slot, then
+// `lanes`.
+extern "C" int corro_dense_deliver_fifo_lanes(void* ring, void* sync_ring,
+                                              void* have, void* relay, int n,
+                                              int p, int d_slots, int slot,
+                                              int relay_init, int c, int wave,
+                                              int lanes, void* stream) {
+  if (n <= 0 || p <= 0 || d_slots <= 0 || slot < 0 || slot >= d_slots ||
+      c <= 0 || wave < c || wave % c || p % wave || p > 48 * 1024 ||
+      lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  dense_deliver_fifo_kernel<<<dim3((unsigned)n, lanes), 128, (size_t)p,
+                              (cudaStream_t)stream>>>(
+      (uint8_t*)ring, (uint8_t*)sync_ring, (uint8_t*)have, (uint8_t*)relay,
+      n, p, slot, relay_init, c, wave, d_slots);
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,13 @@
 // the host: the round counter is a host int), the cap F without degree
 // classes (a null table).
 //
+// Its lane form (corro_degree_caps_sched_lanes, counted as
+// degree_caps_sched_lanes: B16v, corrosion_tpu/campaign/ensemble.py:114
+// vmaps broadcast.py:98-106) takes the targets [K, N, F] with the lane as
+// blockIdx.y, offset in 64 bits; the table and the live slot count are
+// shared (every lane is at the same round).  Bound: K times the solo
+// bound.
+//
 // The lane entries (corro_edge_slots_lanes, corro_degree_caps_lanes,
 // corro_edge_reach_lanes) run the slots, the caps and the tiered reach
 // over a seed ensemble's lanes on the dense round (B16t: corrosion_tpu/
@@ -109,6 +116,8 @@ __global__ void degree_caps_kernel(const int32_t* __restrict__ tb,
 __global__ void degree_caps_sched_kernel(const int32_t* __restrict__ tb,
                                          int32_t* __restrict__ targets, int n,
                                          int f, int active) {
+  // the lane's targets (lane 0 on the solo entry)
+  targets += (size_t)blockIdx.y * n * f;
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n * f) return;
   int node = (int)(i / f);
@@ -238,5 +247,19 @@ extern "C" int corro_edge_reach_lanes(const void* table, const void* src,
                       (cudaStream_t)stream>>>(
       (const int32_t*)table, (const int32_t*)src, (const int32_t*)dst,
       (const int64_t*)keys, (bool*)ok, e, (uint32_t)tag);
+  return (int)cudaGetLastError();
+}
+
+// The schedule instantiation's lane form: the targets [lanes, N, F], the
+// shared table (null without degree classes) and the round's live slot
+// count, shared by every lane (the round counter is).
+extern "C" int corro_degree_caps_sched_lanes(const void* table, void* targets,
+                                             int n, int f, int active,
+                                             int lanes, void* stream) {
+  if (n <= 0 || f <= 0 || active < 1 || bad_lanes(lanes))
+    return (int)cudaErrorInvalidValue;
+  degree_caps_sched_kernel<<<dim3(blocks_for((size_t)n * f), lanes),
+                             kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)table, (int32_t*)targets, n, f, active);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,13 @@
 //          bytes of group g - A (true for v = 0).
 // Per-thread counts meet in a warp sum and one atomicAdd a warp.
 //
+// The u8 entry's lane form (corro_order_check_dense_lanes: B16v,
+// corrosion_tpu/campaign/ensemble.py:114 vmaps round.py:200-210) counts a
+// seed ensemble's lanes in one launch: blockIdx.y is the lane, whose rows
+// are its slice of have [K, N, P] (64-bit offsets) and whose count is its
+// own slot acc[k] of the [K] order_violations — the atomic a solo launch
+// aims at one slot aims at the lane's.  Bound: K times the solo bound.
+//
 // Bound on the H100: bytes — have read once (6.4 MB words at the storm,
 // 51 MB u8 on the dense storm) and meta.actor's A entries.  Design: the
 // neighbouring words a thread's shift needs come from L1 (each row is
@@ -94,6 +101,9 @@ __global__ void order_dense_kernel(const uint8_t* __restrict__ have,
                                    const int32_t* __restrict__ actor,
                                    int* __restrict__ acc, int n, int p, int a,
                                    int c) {
+  // the lane's rows and its own count (lane 0 on the solo entry)
+  have += (size_t)blockIdx.y * n * p;
+  acc += blockIdx.y;
   int groups = p / c;
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   int count = 0;
@@ -142,6 +152,21 @@ extern "C" int corro_order_check_dense(const void* have, const void* actor,
     return (int)cudaErrorInvalidValue;
   order_dense_kernel<<<blocks_for((size_t)n * (p / c), 256), 256, 0,
                        (cudaStream_t)stream>>>(
+      (const uint8_t*)have, (const int32_t*)actor, (int*)acc, n, p, a, c);
+  return (int)cudaGetLastError();
+}
+
+// The u8 entry's lane form: `have` [lanes, N, P], `acc` the lanes' i32
+// order_violations [lanes] (one count a lane), then `lanes`.
+extern "C" int corro_order_check_dense_lanes(const void* have,
+                                             const void* actor, void* acc,
+                                             int n, int p, int a, int c,
+                                             int lanes, void* stream) {
+  if (n <= 0 || p <= 0 || a <= 0 || c <= 0 || p % (a * c) || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  order_dense_kernel<<<dim3(blocks_for((size_t)n * (p / c), 256), lanes), 256,
+                       0, (cudaStream_t)stream>>>(
       (const uint8_t*)have, (const int32_t*)actor, (int*)acc, n, p, a, c);
   return (int)cudaGetLastError();
 }

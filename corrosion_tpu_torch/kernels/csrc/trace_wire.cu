@@ -42,6 +42,12 @@
 // inputs.  Bound: bytes, K times the solo entry's — 8 x (100000 x 8 +
 // 300000) bytes = 8.8 MB at the 8-lane dense fault storm, ~0.003 ms.
 //
+// The rows pull entry's lane form (corro_trace_wire_rows_pull_lanes:
+// B16v, ensemble.py:114 vmaps broadcast.py:285-305) takes each lane's
+// row frames and bytes [N], ok_pull edges and responders [E] as its slices
+// of [K, ...] tensors, adding into acc + k * acc_stride; a responder id
+// dst[e] is lane-local.  Bound: bytes, K times the solo entry's.
+//
 // Bound on the H100: bytes — the sending words (6.4 MB at the storm,
 // 26 MB at gapstress) and the ok bytes, read once.  Design: each warp
 // reads its node's row as one coalesced run; nbytes is 32 KB at most,
@@ -175,7 +181,16 @@ __global__ void trace_wire_rows_pull_kernel(
     const int32_t* __restrict__ row_frames,
     const int32_t* __restrict__ row_bytes, const bool* __restrict__ ok_pull,
     const int32_t* __restrict__ dst, unsigned long long* __restrict__ acc,
-    int n_edges) {
+    int n_edges, int n, int acc_stride) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    row_frames += lane * n;
+    row_bytes += lane * n;
+    ok_pull += lane * (size_t)n_edges;
+    dst += lane * (size_t)n_edges;
+    acc += lane * (size_t)acc_stride;
+  }
   long long frames = 0, bytes = 0;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_edges;
        e += gridDim.x * blockDim.x) {
@@ -256,6 +271,26 @@ extern "C" int corro_trace_wire_rows_pull(const void* row_frames,
   trace_wire_rows_pull_kernel<<<grid_for(n_edges), kThreads, 0,
                                 (cudaStream_t)stream>>>(
       (const int32_t*)row_frames, (const int32_t*)row_bytes, (const bool*)ok,
-      (const int32_t*)dst, (unsigned long long*)acc, n_edges);
+      (const int32_t*)dst, (unsigned long long*)acc, n_edges, 0, 0);
+  return (int)cudaGetLastError();
+}
+
+// The rows pull entry's lane form: row_frames, row_bytes [lanes, N],
+// ok_pull and dst [lanes, E]; lane 0's accumulators, each lane's
+// `acc_stride` int64 slots after the one before.
+extern "C" int corro_trace_wire_rows_pull_lanes(const void* row_frames,
+                                                const void* row_bytes,
+                                                const void* ok,
+                                                const void* dst, void* acc,
+                                                int n, int n_edges,
+                                                int acc_stride, int lanes,
+                                                void* stream) {
+  if (n <= 0 || n_edges <= 0 || lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && acc_stride < 2))
+    return (int)cudaErrorInvalidValue;
+  trace_wire_rows_pull_kernel<<<dim3(grid_for(n_edges), lanes), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+      (const int32_t*)row_frames, (const int32_t*)row_bytes, (const bool*)ok,
+      (const int32_t*)dst, (unsigned long long*)acc, n_edges, n, acc_stride);
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,8 @@ to the contacting node ``src`` over the same sampled edge.
 The plain versions here are the reference the kernels are held to.  On
 the card the response scatter is K10p (`..sim.packed.scatter_pull`,
 ``broadcast_scatter.cu``) on the packed round and K12p
-(`..sim.broadcast.pull_send`, ``dense_phases.cu``) on the dense one,
+(`..sim.broadcast.pull_send`, ``dense_phases.cu``; on a seed ensemble's
+lanes `..sim.broadcast.pull_send_lanes`, its lane entry) on the dense one,
 both drawing these bits themselves; the session refusal is K9's (K9m's)
 existing session entry and the reverse thresholds K9's wire query on
 the swapped edge arrays.
@@ -92,6 +93,30 @@ def reverse_loss(faults, src: torch.Tensor, dst: torch.Tensor):
     if faults is None:
         return None
     return fault_edge_loss(faults, dst, src)
+
+
+def pull_session_ok_lanes(ok: torch.Tensor, faults, src: torch.Tensor,
+                          dst: torch.Tensor) -> torch.Tensor:
+    """`pull_session_ok` over a seed ensemble's lanes (B16v): ok and dst
+    [K, E] (lane-local ids), src [1, E]; the plan's round slice is shared,
+    so the lanes fold into the edge axis of one K9 (K9m) session query,
+    which draws nothing."""
+    lanes = ok.shape[0]
+    return pull_session_ok(ok.reshape(-1), faults,
+                           src.expand(lanes, -1).reshape(-1),
+                           dst.reshape(-1)).view(lanes, -1)
+
+
+def reverse_loss_lanes(faults, src: torch.Tensor, dst: torch.Tensor):
+    """`reverse_loss` over the lanes: u8[K, E] from dst [K, E] and src
+    [1, E], the lanes folded into one K9 wire query; None without a
+    plan."""
+    if faults is None:
+        return None
+    lanes = dst.shape[0]
+    thr = reverse_loss(faults, src.expand(lanes, -1).reshape(-1),
+                       dst.reshape(-1))
+    return None if thr is None else thr.view(lanes, -1)
 
 
 def pull_drop_bits(topo_thr: int, tiers: Optional[Topology],

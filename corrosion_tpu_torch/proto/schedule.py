@@ -6,7 +6,8 @@ schedule is a function of the round counter, which the port keeps on the
 host, so this round's live slot count is a host int.
 
 On the card the schedule is an instantiation of K20's caps entry
-(``kernels/csrc/edge_classes.cu``, counted as ``degree_caps_sched``):
+(``kernels/csrc/edge_classes.cu``, counted as ``degree_caps_sched``, and
+on a seed ensemble's lanes as ``degree_caps_sched_lanes``):
 one launch keeps the slots below min(the node's degree cap, this round's
 live count), the caps first and the schedule after them, as JAX applies
 ``apply_degree_caps`` and then ``scheduled_fanout_targets``.  The eager
@@ -77,9 +78,40 @@ def capped_schedule(targets: torch.Tensor, topo, cfg, t: int) -> torch.Tensor:
     return targets
 
 
+def capped_schedule_lanes_plain(targets: torch.Tensor, topo, cfg,
+                                t: int) -> torch.Tensor:
+    """Plain version of K20's schedule lane entry: the solo plain version
+    on each lane."""
+    return torch.stack([capped_schedule_plain(x, topo, cfg, t)
+                        for x in targets])
+
+
+def capped_schedule_lanes(targets: torch.Tensor, topo, cfg,
+                          t: int) -> torch.Tensor:
+    """`capped_schedule` over the lanes' targets i32[K, N, F] (B16v): the
+    caps of row r's degree class and this round's live slot count, both
+    shared by every lane (they share ``t``); under the flat schedule
+    `..sim.topology.apply_degree_caps_lanes` alone.  K20's schedule lane
+    entry on the card, in place."""
+    from ..sim.topology import apply_degree_caps_lanes, topo_table
+
+    if cfg.fanout_schedule == "flat":
+        return apply_degree_caps_lanes(targets, topo)
+    if targets.device.type == "cpu":
+        return capped_schedule_lanes_plain(targets, topo, cfg, t)
+    lanes, n, f = targets.shape
+    check("targets", targets, torch.int32, (lanes, n, f))
+    table = (topo_table(topo, n, targets.device) if topo.degree_classes
+             else None)
+    kernels.DEGREE_CAPS_SCHED_LANES.launch(
+        [table, targets], [n, f, active_fanout(cfg, t), lanes])
+    return targets
+
+
 def cadence_due(due: torch.Tensor, cfg) -> torch.Tensor:
-    """The sync's due mask under the cadence: "periodic" passes it
-    through, "eager" makes every node due every round; the countdown
+    """The sync's due mask (bool[N], or [K, N] on the lanes) under the
+    cadence: "periodic" passes it through, "eager" makes every node due
+    every round; the countdown
     and backoff keep running, and keep drawing, either way (JAX
     ``cadence_due``)."""
     if cfg.sync_cadence == "periodic":

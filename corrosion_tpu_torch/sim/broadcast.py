@@ -415,6 +415,92 @@ def pull_send(have, relay, injected, nbytes, budget: Optional[int], dst,
          WIRE_LOSS_TAG])
 
 
+def pull_send_lanes_plain(have, relay, injected, nbytes, budget, dst, slot,
+                          ok_pull, k_drop, thr: int, ring, dropped=None,
+                          fthr=None, seeds=None,
+                          tiers: Optional[Topology] = None) -> None:
+    """Plain version of K12p's lane entry (and of its recording forms):
+    the solo plain version on each lane under its k_drop and plan seed,
+    in place."""
+
+    def lane(x, k):
+        return None if x is None else x[k]
+
+    for k in range(have.shape[0]):
+        pull_send_plain(
+            have[k], relay[k], injected[k], nbytes, budget, dst[k], slot[k],
+            ok_pull[k], k_drop[k], thr, ring[k], lane(dropped, k),
+            lane(fthr, k), 0 if seeds is None else int(seeds[k]), tiers)
+
+
+def pull_send_lanes(have, relay, injected, nbytes, budget: Optional[int],
+                    dst, slot, ok_pull, k_drop, thr: int, ring, dropped=None,
+                    fthr=None, seeds=None,
+                    tiers: Optional[Topology] = None) -> None:
+    """`pull_send` over a seed ensemble's lanes (B16v), in place on the
+    rings [K, D, N, P]: lane k's ok_pull edges [K, E] carry its
+    responders' sending payloads (its own have, relay and budget prefix,
+    read before the push spends) to its pullers, less its pull's streams
+    — the flat or tiered draw under its own pull key ``fold_in(k_drop[k],
+    1)``, and with the reverse edges' fault thresholds ``fthr`` u8[K, E]
+    the fault draw under ``fold_in(fold_in(k_pull, seeds[k]), 101)``, its
+    plan seed — at its lane-local e*P + q.  The frames its streams ate
+    add to its int64 slot of ``dropped`` (a lane trace's ``[K]``
+    accumulator view) when given.  K12p's lane entry on the card, counted
+    as ``dense_pull_lanes`` without a stream, ``dense_pull_lossy_lanes``
+    with the flat or fault stream and ``dense_pull_tiered_lanes`` under
+    tiers, and as the ``_trace`` forms of the last two with ``dropped``;
+    the caller launches it before `..sim.dense_lanes.
+    broadcast_send_lanes`."""
+    if have.device.type == "cpu":
+        pull_send_lanes_plain(have, relay, injected, nbytes, budget, dst,
+                              slot, ok_pull, k_drop, thr, ring, dropped,
+                              fthr, seeds, tiers)
+        return
+    lanes, n, p = have.shape
+    e = dst.shape[1]
+    f = e // n
+    d = ring.shape[1]
+    check("have", have, torch.uint8, (lanes, n, p))
+    check("relay_left", relay, torch.uint8, (lanes, n, p))
+    check("injected", injected, torch.uint8, (lanes, p))
+    check("nbytes", nbytes, torch.int32, (p,))
+    check("dst", dst, torch.int32, (lanes, n * f))
+    check("slot", slot, torch.int32, (lanes, e))
+    check("ok_pull", ok_pull, torch.bool, (lanes, e))
+    check("ring", ring, torch.uint8, (lanes, d, n, p))
+    if fthr is not None:
+        check("fthr", fthr, torch.uint8, (lanes, e))
+        check("seeds", seeds, torch.int32, (lanes,))
+    stride = 0
+    if dropped is not None:
+        if (not dropped.is_cuda or dropped.dtype != torch.int64
+                or tuple(dropped.shape) != (lanes,)):
+            raise ValueError("dropped must be a CUDA int64 [K] view")
+        stride = dropped.stride(0)
+    draws = fthr is not None or tiers is not None or 0 < thr < 256
+    if draws:
+        check("k_drop", k_drop, torch.int64, (lanes, 2))
+    if tiers is not None and thr != 0:
+        raise ValueError("tiered loss replaces the flat threshold")
+    trace = dropped is not None
+    if tiers is not None:
+        kernel = (kernels.DENSE_PULL_TIERED_LANES_TRACE if trace
+                  else kernels.DENSE_PULL_TIERED_LANES)
+    elif draws or thr >= 256:
+        kernel = (kernels.DENSE_PULL_LOSSY_LANES_TRACE if trace
+                  else kernels.DENSE_PULL_LOSSY_LANES)
+    else:
+        kernel = kernels.DENSE_PULL_LANES
+    kernel.launch(
+        [have, relay, injected, nbytes, dst, slot, ok_pull,
+         k_drop if draws else None, ring, dropped, fthr,
+         None if tiers is None else topo_table(tiers, n, have.device),
+         seeds if fthr is not None else None],
+        [n, p, f, d, -1 if budget is None else budget, min(thr, 256),
+         WIRE_LOSS_TAG, stride, lanes])
+
+
 def broadcast_step(
     state: SimState, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
     region: torch.Tensor, key: torch.Tensor, faults=None,

@@ -57,12 +57,25 @@ each lane's key splits five ways, the swap tick runs first (K21's lane
 entries) and every target draw samples the view (K1's view lane
 entry).
 
+**The protocol variants** (B16v): the fan-out schedule after the caps
+(K20's schedule lane entry, `..proto.schedule.capped_schedule_lanes`),
+the push-pull response leg before the push's spend (K12p's lane entry,
+`.broadcast.pull_send_lanes`, each lane under its own pull key; its
+session check and reverse loss are K9's or K9m's queries on the lanes
+folded) with its frames and bytes on a recording run (K18's rows-pull
+lane entry), the eager cadence on the sync's due mask (glue over K13's
+and K5's lane entries), the FIFO gate at delivery (K12f-o's lane entry,
+each lane's mask from its own pre-merge ``have``) and the delivery-order
+count after the record (K22's u8 lane entry, a count a lane in
+``RunMetrics.order_violations``).  PeerSwap runs under a plan of either
+form too (B16s-f): K11d's lane entry empties a wiped node's view row in
+every lane, and the swap message's reach takes each lane's plan seed.
+
 Each wrapper runs its plain torch version on a CPU tensor: the solo
 plain version on each lane's slices, so lane k of a plain lane call IS
 the solo call on lane k's inputs.  A finished lane leaves the batch as
-on the packed round's lanes (`.lanes._run_batch`), its plan seed with
-it.  `check_dense_lanes` refuses what this round's lanes do not run
-yet.
+on the packed round's lanes (`.lanes._run_batch`), its plan seed and
+its order count with it.
 """
 
 from __future__ import annotations
@@ -87,6 +100,8 @@ from .faults import (
     host_activity,
     round_faults,
 )
+from ..proto.ordering import order_checked, order_enforced
+from .invariants import count_order_violations_lanes_
 from .lanes import (
     _Batch,
     _edge_alive_lanes,
@@ -122,10 +137,10 @@ from .telemetry import (
     trace_row,
     wire_loss_active,
     wire_rows_lanes_,
+    wire_rows_pull_lanes_,
 )
 from .topology import (
     Topology,
-    apply_degree_caps_lanes,
     edge_slot_lanes,
     loss_threshold,
     loss_tiered,
@@ -301,23 +316,31 @@ def broadcast_send_lanes(have, relay, injected, nbytes,
 
 
 def deliver_dense_lanes_plain(ring, sync_ring, have, relay, slot: int,
-                              relay_init: int) -> None:
-    """Plain version of K12's deliver lane entry, in place."""
+                              relay_init: int, fifo=None) -> None:
+    """Plain version of K12's deliver lane entry and, with ``fifo``, of
+    K12f-o's: the solo plain version on each lane (its admit mask from its
+    own pre-merge ``have``), in place."""
+    from ..proto.ordering import admit_payload_mask
     from .broadcast import deliver_dense_plain
 
     for k in range(have.shape[0]):
+        admit = None if fifo is None else admit_payload_mask(have[k], fifo)
         deliver_dense_plain(ring[k], sync_ring[k], have[k], relay[k], slot,
-                            relay_init)
+                            relay_init, admit)
 
 
 def deliver_dense_lanes(ring, sync_ring, have, relay, slot: int,
-                        relay_init: int) -> None:
+                        relay_init: int, fifo=None) -> None:
     """`broadcast.deliver_dense` over the lanes: slot ``slot`` of every
-    lane's two rings [K, D, N, P] into its ``have``, in place.  K12's
-    deliver lane entry on the card."""
+    lane's two rings [K, D, N, P] into its ``have``, in place.  With
+    ``fifo`` (the config, under ``ordering="fifo"``) both of a lane's
+    slots arrive only where `..proto.ordering.admit_payload_mask` of that
+    lane's pre-merge ``have`` admits them; the rest is dropped and the
+    slots are cleared.  K12's deliver lane entry on the card, K12f-o's
+    lane entry under FIFO."""
     if have.device.type == "cpu":
         deliver_dense_lanes_plain(ring, sync_ring, have, relay, slot,
-                                  relay_init)
+                                  relay_init, fifo)
         return
     lanes, n, p = have.shape
     d = ring.shape[1]
@@ -327,6 +350,12 @@ def deliver_dense_lanes(ring, sync_ring, have, relay, slot: int,
     check("sync_inflight", sync_ring, torch.uint8, (lanes, d, n, p))
     if not 0 <= slot < d:
         raise ValueError(f"slot {slot} outside the ring of {d}")
+    if fifo is not None:
+        c = fifo.chunks_per_version
+        kernels.DENSE_DELIVER_FIFO_LANES.launch(
+            [ring, sync_ring, have, relay],
+            [n, p, d, slot, relay_init, c, fifo.n_writers * c, lanes])
+        return
     kernels.DENSE_DELIVER_LANES.launch(
         [ring, sync_ring, have, relay], [n, p, d, slot, relay_init, lanes])
 
@@ -779,6 +808,7 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     (`.telemetry.new_trace_lanes`) each lane's cut edges (K9), lost
     frames and per-node frames and bytes (K12's recording form), folded
     over its ok edges (K18's rows lane entry), go to its accumulators."""
+    from ..proto.schedule import capped_schedule_lanes
     from .broadcast import ring0_targets_lanes
 
     lanes = keys.shape[0]
@@ -786,7 +816,8 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     k_targets, k_drop, k_ring0 = (ks[:, i].contiguous() for i in range(3))
     targets = sample_member_targets_lanes(state, cfg, k_targets, cfg.fanout)
     targets = ring0_targets_lanes(state, cfg, topo, region, k_ring0, targets)
-    targets = apply_degree_caps_lanes(targets.contiguous(), topo)
+    targets = capped_schedule_lanes(targets.contiguous(), topo, cfg,
+                                    int(state.t))
     src, dst, ok = _edges(state, targets)
     fthr = jit = fdelay = None
     if faults is not None:
@@ -813,14 +844,32 @@ def broadcast_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
         row_bytes = torch.empty_like(row_frames)
         if wire_loss_active(topo, faults):
             dropped = acc_slot(trace, "bcast_dropped")
+    dst, slot = dst.contiguous(), slot.contiguous()
+    ok_pull = None
+    if cfg.dissemination == "push-pull":
+        # the responses read the relay budget before the push spends it
+        from ..proto.dissemination import (
+            pull_session_ok_lanes, reverse_loss_lanes)
+        from .broadcast import pull_send_lanes
+
+        ok_pull = pull_session_ok_lanes(ok, faults, src, dst)
+        pull_send_lanes(
+            state.have, state.relay_left, state.injected, meta.nbytes,
+            cfg.rate_limit_bytes_round, dst, slot, ok_pull, k_drop, thr,
+            state.inflight, dropped,
+            reverse_loss_lanes(faults, src, dst) if fthr is not None
+            else None, seeds, tiers)
     broadcast_send_lanes(
         state.have, state.relay_left, state.injected, meta.nbytes,
-        cfg.rate_limit_bytes_round, targets.contiguous(), dst.contiguous(),
-        slot.contiguous(), ok, state.alive, k_drop, thr, state.inflight,
-        keys, fthr, jit, seeds, row_frames, row_bytes, dropped, tiers)
+        cfg.rate_limit_bytes_round, targets.contiguous(), dst, slot, ok,
+        state.alive, k_drop, thr, state.inflight, keys, fthr, jit, seeds,
+        row_frames, row_bytes, dropped, tiers)
     if trace is not None:
         wire_rows_lanes_(trace.acc[:, WIRE], row_frames, row_bytes, ok,
                          cfg.fanout)
+        if ok_pull is not None:
+            wire_rows_pull_lanes_(trace.acc[:, WIRE], row_frames, row_bytes,
+                                  ok_pull, dst)
 
 
 def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
@@ -835,11 +884,14 @@ def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     sessions (K9, lane-strided) and grant counts (K13's recording form)
     go to its accumulators and the sessions' ok mask bool[K, N * S] comes
     back second."""
+    from ..proto.schedule import cadence_due
+
     lanes, n = state.alive.shape
     s = cfg.sync_peers
     ks = rng.split_lanes(keys, 3)
     k_peers, k_rearm = ks[:, 0].contiguous(), ks[:, 2].contiguous()
-    due = state.sync_countdown <= 0
+    # the cadence before every use of due: the sessions' ok and the re-arm
+    due = cadence_due(state.sync_countdown <= 0, cfg)
     peers = sample_member_targets_lanes(state, cfg, k_peers, s)
     src, dst, ok = _edges(state, peers)
     ok &= due[:, src[0].long()]
@@ -923,7 +975,8 @@ def dense_round_step_lanes(state: SimState, metrics: RunMetrics,
                                          trace)
     deliver_dense_lanes(state.inflight, state.sync_inflight, state.have,
                         state.relay_left, t % state.inflight.shape[1],
-                        max(cfg.max_transmissions - 1, 1))
+                        max(cfg.max_transmissions - 1, 1),
+                        cfg if order_enforced(cfg) else None)
     state = swim_step_lanes(state, cfg, topo, k_swim, faults, seeds)
     heads, lo, hi, n_overflow, coverage_at, converged_at, done = (
         dense_record_lanes(state.have, state.injected, state.alive, metrics,
@@ -931,6 +984,10 @@ def dense_round_step_lanes(state: SimState, metrics: RunMetrics,
     overflow_frac = torch.maximum(
         metrics.overflow_frac,
         overflow_fraction(n_overflow, heads[0].numel()))
+    if order_checked(cfg):
+        # in place on the batch's own [K] counts
+        count_order_violations_lanes_(metrics.order_violations, state.have,
+                                      meta, cfg)
     if trace is not None:
         coverage_delivered_dense_lanes_(trace.counts[:, COVERAGE:GRANTS],
                                         state.have, have0, state.alive)

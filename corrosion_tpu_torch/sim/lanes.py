@@ -32,8 +32,9 @@ lossless topology, partial-view SWIM, the baseline protocol, unmetered
 budgets and factored fault plans without latency.  `check_packed_lanes`
 refuses everything else, naming the ROADMAP item that ports it; the
 dense round's lanes (`.dense_lanes`: fault plans of either form, the
-topology families, PeerSwap) have `check_dense_lanes`, and share this
-module's batch and loop (`_Batch`, `_run_batch`).
+topology families, PeerSwap, the protocol variants) have
+`check_dense_lanes`, and share this module's batch and loop (`_Batch`,
+`_run_batch`).
 """
 
 from __future__ import annotations
@@ -82,20 +83,12 @@ from .words import (
 )
 
 
-def _check_protocol(cfg: SimConfig) -> None:
-    """Both rounds' lanes refuse the protocol variants."""
-    if (cfg.dissemination, cfg.fanout_schedule, cfg.sync_cadence,
-            cfg.ordering) != ("push", "flat", "periodic", "none"):
-        raise NotImplementedError(
-            "protocol variants on lanes are not ported yet (ROADMAP "
-            "B16v)")
-
-
 def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
                        telemetry: bool = False) -> None:
     """Refuse, loudly and naming the ROADMAP item that ports it, every
     configuration the packed round's lanes do not run: the recorder,
-    topology keys, PeerSwap, the protocol variants and metered budgets,
+    topology keys, PeerSwap, the protocol variants (B16m) and metered
+    budgets,
     matrix plans and plans with delay or jitter; full view and
     ground-truth membership run on the dense round's lanes instead."""
     if not packed_supported(cfg, topo):
@@ -116,7 +109,12 @@ def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
             "the PeerSwap sampler on the packed round's lanes is not ported "
             "yet (ROADMAP B16s, its packed half); the dense round's lanes "
             "run it (allow_packed=False)")
-    _check_protocol(cfg)
+    if (cfg.dissemination, cfg.fanout_schedule, cfg.sync_cadence,
+            cfg.ordering) != ("push", "flat", "periodic", "none"):
+        raise NotImplementedError(
+            "protocol variants on the packed round's lanes are not ported "
+            "yet (K10p, K8f and K22's words entry on lanes, ROADMAP B16m); "
+            "the dense round's lanes run them (allow_packed=False)")
     if cfg.rate_limit_bytes_round is not None or (
             cfg.sync_budget_bytes is not None):
         raise NotImplementedError(
@@ -142,21 +140,16 @@ def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
 
 def check_dense_lanes(cfg: SimConfig, topo: Topology, fplan=None,
                       telemetry: bool = False) -> None:
-    """Refuse, naming the ROADMAP item that ports it, every configuration
-    the dense round's lanes do not run: the protocol variants, and the
-    PeerSwap sampler under a fault plan.  Both byte budgets run (inside
-    K12's and K13's lane entries), and so do full view, partial view,
-    ground-truth membership, every topology family and key, PeerSwap,
-    fault plans of either form, with delay and jitter (``fplan`` is
-    accepted), and the flight recorder (``telemetry``)."""
+    """The dense round's lanes run every configuration of the dense
+    round: both byte budgets (inside K12's and K13's lane entries), full
+    view, partial view, ground-truth membership, every topology family
+    and key, either peer sampler, every protocol family and knob, fault
+    plans of either form, with delay and jitter, PeerSwap under them
+    (``fplan`` is accepted), and the flight recorder (``telemetry``).  A
+    packed configuration belongs to `run_lanes` and raises."""
     if packed_supported(cfg, topo):
         raise ValueError("a packed configuration on the dense round's "
                          "lanes: run it through `run_lanes`")
-    _check_protocol(cfg)
-    if fplan is not None and cfg.peer_sampler == "peerswap":
-        raise NotImplementedError(
-            "the PeerSwap sampler under a fault plan on lanes is not ported "
-            "yet (K11d's view row on lanes, ROADMAP B16s-f)")
 
 
 # -- the word phases (K8) ----------------------------------------------------

@@ -10,8 +10,10 @@ also puts the storm on the dense round, or on full-view SWIM), and the
 gapstress storm (config #5b, on the packed round from 1280 nodes) with
 its K-clamp distortion pair, membership churn (configs #2 and #2b
 through the campaign engine's detect cells, as JAX routes them, and
-`membership_churn`), and the uniform-vs-PeerSwap frontier rung
-(`config_peer_sampler_frontier`, the engine's dense lanes),
+`membership_churn`), the uniform-vs-PeerSwap frontier rung
+(`config_peer_sampler_frontier`, the engine's dense lanes) and the
+protocol frontier rung (`config_protocol_frontier`, the same lanes under
+the protocol families),
 returning the same result keys.  The configs JAX lets record a trace
 take ``telemetry`` and ``trace_path`` (`.telemetry`): the record gains
 the ``telemetry`` summary block and the path the flight-recorder JSONL.
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -780,3 +782,96 @@ def config_peer_sampler_frontier(
         "result_digest": artifact["result_digest"],
         "wall_clock_s": round(time.monotonic() - t0, 3),
     }
+
+
+def config_protocol_frontier(
+    seed: int = 0, n_nodes: int = 96, n_seeds: int = 4,
+    max_rounds: int = 500, sampler_storm_nodes: int = 25_600,
+    sampler_storm_payloads: int = 512,
+    proto_families: Optional[Sequence[str]] = None,
+    topo_families: Optional[Sequence[str]] = None, device="cuda",
+) -> Dict[str, object]:
+    """The protocol-variant frontier rung (JAX ``runner.py:1195``): the
+    `protocol-frontier` campaign — four protocol families × two topology
+    families, ``n_seeds`` lanes from ``seed``, wire bytes banded per lane
+    — through the campaign engine's dense lanes (B16v), reduced to JAX's
+    record: per topology family each variant's rounds p50/p99,
+    ``wire_bytes_p50`` and ``converged``, on ordering cells
+    ``order_violations_max``, and ``rounds_ratio``/``wire_ratio`` against
+    ``baseline``; ``spec_hash``, ``result_digest`` and the wall.  With
+    ``sampler_storm_nodes`` the record also carries the storm-scale
+    sampler cell, the solo PeerSwap write storm (`config_write_storm_100k`
+    under ``sampler="peerswap"``).  ``proto_families``/``topo_families``
+    shrink the grid."""
+    from ..campaign.engine import run_campaign
+    from ..campaign.spec import protocol_frontier_spec
+
+    spec = protocol_frontier_spec(
+        seeds=tuple(seed + i for i in range(n_seeds)), n=n_nodes,
+        max_rounds=max_rounds)
+    if proto_families is not None or topo_families is not None:
+        grid = dict(spec.grid)
+        if proto_families is not None:
+            grid["proto_family"] = list(proto_families)
+        if topo_families is not None:
+            grid["topo_family"] = list(topo_families)
+        spec = dataclasses.replace(spec, grid=grid)
+    t0 = time.monotonic()
+    artifact = run_campaign(spec, out_path=None, device=device)
+    families: Dict[str, Dict[str, object]] = {}
+    for cell in artifact["cells"]:
+        entry = {
+            "rounds_p50": cell["bands"]["rounds"]["p50"],
+            "rounds_p99": cell["bands"]["rounds"]["p99"],
+            "wire_bytes_p50": cell["bands"]["wire_bytes"]["p50"],
+            "converged": cell["all_converged"],
+        }
+        if "order_violations" in cell["bands"]:
+            entry["order_violations_max"] = cell["bands"][
+                "order_violations"]["max"]
+        families.setdefault(cell["params"]["topo_family"], {})[
+            cell["params"]["proto_family"]] = entry
+    for d in families.values():
+        base = d.get("baseline")
+        if not base:
+            continue
+        for proto, entry in d.items():
+            if proto == "baseline":
+                continue
+            if base["rounds_p50"]:
+                entry["rounds_ratio"] = round(
+                    entry["rounds_p50"] / base["rounds_p50"], 3)
+            if base["wire_bytes_p50"]:
+                entry["wire_ratio"] = round(
+                    entry["wire_bytes_p50"] / base["wire_bytes_p50"], 3)
+    converged = all(c["all_converged"] for c in artifact["cells"])
+    sampler_storm = None
+    if sampler_storm_nodes:
+        storm = config_write_storm_100k(
+            seed=seed, n_nodes=sampler_storm_nodes,
+            n_payloads=sampler_storm_payloads, sampler="peerswap",
+            device=device)
+        sampler_storm = {
+            "sampler": "peerswap",
+            "n_nodes": sampler_storm_nodes,
+            "n_payloads": sampler_storm_payloads,
+            "round_path": storm["round_path"],
+            "rounds": storm["rounds"],
+            "wall_clock_s": storm["wall_clock_s"],
+            "converged": storm["converged"],
+            "p99_node_convergence_round": storm[
+                "p99_node_convergence_round"],
+        }
+        converged = converged and bool(storm["converged"])
+    out = {
+        "n_nodes": n_nodes,
+        "seeds": n_seeds,
+        "converged": converged,
+        "families": families,
+        "spec_hash": artifact["spec_hash"],
+        "result_digest": artifact["result_digest"],
+        "wall_clock_s": round(time.monotonic() - t0, 3),
+    }
+    if sampler_storm is not None:
+        out["sampler_storm"] = sampler_storm
+    return out

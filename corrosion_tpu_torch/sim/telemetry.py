@@ -505,6 +505,39 @@ def wire_rows_pull_(acc: torch.Tensor, row_frames: torch.Tensor,
         [row_frames, row_bytes, ok_pull, dst, acc], [e])
 
 
+def wire_rows_pull_lanes_plain(acc: torch.Tensor, row_frames, row_bytes,
+                               ok_pull, dst) -> None:
+    """Plain version of K18's rows-pull lane entry: `pull_fold` on each
+    lane, added to its accumulators ``acc[k]`` in place."""
+    for k in range(row_frames.shape[0]):
+        f, b = pull_fold(row_frames[k], row_bytes[k], ok_pull[k], dst[k])
+        acc[k, 0] += f
+        acc[k, 1] += b
+
+
+def wire_rows_pull_lanes_(acc: torch.Tensor, row_frames: torch.Tensor,
+                          row_bytes: torch.Tensor, ok_pull: torch.Tensor,
+                          dst: torch.Tensor) -> None:
+    """`wire_rows_pull_` per lane (B16v): each lane's answered pulls —
+    its ok_pull edges bool[K, E], each carrying its responder dst[k, e]'s
+    frames and bytes from the lane's rows i32[K, N] — added to its
+    accumulators ``acc`` (a lane trace's ``acc[:, WIRE]``, [K, 2]), in
+    place.  K18's rows-pull lane entry on the card."""
+    if row_frames.device.type == "cpu":
+        wire_rows_pull_lanes_plain(acc, row_frames, row_bytes, ok_pull, dst)
+        return
+    lanes, n = row_frames.shape
+    e = dst.shape[1]
+    _check_lane_rows("acc", acc, torch.int64, (lanes, 2))
+    check("row_frames", row_frames, torch.int32, (lanes, n))
+    check("row_bytes", row_bytes, torch.int32, (lanes, n))
+    check("ok_pull", ok_pull, torch.bool, (lanes, e))
+    check("dst", dst, torch.int32, (lanes, e))
+    kernels.TRACE_WIRE_ROWS_PULL_LANES.launch(
+        [row_frames, row_bytes, ok_pull, dst, acc[0]],
+        [n, e, acc.stride(0), lanes])
+
+
 # -- K19: the row ------------------------------------------------------------
 
 

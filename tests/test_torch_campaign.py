@@ -200,8 +200,8 @@ def _refused_spec(case):
                 packed_min_cells=0)
     kw = {}
     if case == "dense":
-        # a fault plan on the dense round's lanes (which run plans) under
-        # the PeerSwap sampler, which they still refuse
+        # a fault plan on the dense round's lanes under the PeerSwap
+        # sampler, which they run since B16s-f
         base = dict(base, packed_min_cells=10 * 1024 * 1024,
                     peer_sampler="peerswap", swim_partial_view=False)
         kw["events"] = (FaultEvent("loss", 0, 4, p=0.2),)
@@ -244,24 +244,38 @@ def _refused_spec(case):
 #: each refused case and the item its message names (full view on the
 #: packed round's lanes is no port item: it runs on the dense round's)
 REFUSED = {
-    "dense": "ROADMAP B16s-f", "metered": "ROADMAP B16m",
+    "metered": "ROADMAP B16m",
     "matrix": "ROADMAP B16x", "latency": "ROADMAP B16l",
     "jitter": "ROADMAP B16l", "telemetry": "ROADMAP B16m",
     "measure_wire": "ROADMAP B16m", "peerswap": "ROADMAP B16s",
     "topo_family": "ROADMAP B16m", "topology_key": "ROADMAP B16m",
-    "proto_family": "ROADMAP B16v", "proto_key": "ROADMAP B16v",
+    "proto_family": "ROADMAP B16m", "proto_key": "ROADMAP B16m",
     "churn": "ROADMAP B16c", "host_parity": "ROADMAP A,",
     "serving": "ROADMAP A,", "full_view": "dense round's lanes",
     "mesh": "ROADMAP A13",
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
+#: a case refused before that runs now: PeerSwap under a fault plan on the
+#: dense round's lanes (B16s-f)
+RUNS = ("dense",)
+
+
+@pytest.mark.parametrize("case", sorted((*REFUSED, *RUNS)))
 def test_engine_refuses_what_the_slice_does_not_run(case):
-    """Each raises NotImplementedError naming its ROADMAP item (full
-    view on the packed round's lanes: the dense round's lanes, which run
-    it); none runs some other way."""
+    """Each refused case raises NotImplementedError naming its ROADMAP
+    item (full view on the packed round's lanes: the dense round's
+    lanes, which run it; the protocol variants on the packed round's
+    lanes: B16m); none runs some other way.  A case that runs now gives
+    live JAX's artifact."""
     spec = _refused_spec(case)
+    if case in RUNS:
+        want = jengine.run_campaign(jspec_mod.CampaignSpec.from_dict(
+            spec.to_dict()), out_path=None)
+        got = engine.run_campaign(spec, device="cpu")
+        assert got["result_digest"] == want["result_digest"]
+        assert got["cells"][0]["round_path"] == "dense"
+        return
     kw = {"device": "cpu"}
     if case == "telemetry":
         kw["telemetry"] = True
@@ -285,17 +299,22 @@ def test_baseline_family_and_default_keys_run():
 
 
 def test_ensemble_refusals():
-    """The detect ensemble refuses a protocol variant on its lanes
-    (B16v; a topology it runs since B16t); the packed round's lanes
-    refuse the recorder (B16m), which the dense round's and the detect
-    loop's lanes run."""
+    """The detect ensemble runs a protocol variant on its lanes (B16v;
+    a topology since B16t): the eager cadence over two regions, one
+    lane, to its detect round; the packed round's lanes refuse the
+    recorder (B16m), which the dense round's and the detect loop's lanes
+    run."""
     from corrosion_tpu_torch.sim.topology import Topology
 
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+
     spec = spec_mod.swim_churn_64_spec()
-    with pytest.raises(NotImplementedError, match="B16v"):
-        run_detect_ensemble(dataclasses.replace(
-            spec.sim_config({}), dissemination="push-pull"),
-            Topology(n_regions=2), None, (0,), telemetry=True, device="cpu")
+    cfg = dataclasses.replace(spec.sim_config({}), sync_cadence="eager")
+    finals, _, detect, _ = run_detect_ensemble(
+        cfg, Topology(n_regions=2), uniform_payloads(cfg, "cpu",
+                                                     inject_every=1),
+        (0,), kill_every=3, max_rounds=400, telemetry=True, device="cpu")
+    assert int(detect[0]) >= 0 and int(finals.t[0]) == int(detect[0])
     spec = _refused_spec("latency")
     with pytest.raises(NotImplementedError, match="recorder.*B16m"):
         run_seed_ensemble(None, spec.sim_config({}), spec.topo({}), None,

@@ -158,17 +158,17 @@ def _dense_cfg(**kw):
 @pytest.mark.parametrize("case", ("fault_plan", "telemetry", "topology",
                                   "peerswap", "protocol"))
 def test_dense_check_refuses_by_name(case):
-    """The dense lane check refuses what this round's lanes do not run,
-    each naming its ROADMAP item: the protocol variants (B16v) and
-    PeerSwap under a fault plan (B16s-f).  Fault plans, the recorder,
-    topology keys and PeerSwap it now runs: the ``fault_plan`` case holds
-    the check's acceptance of a plan, and the ensemble's run under it
-    (two seeds of the 3-node parity campaign's matrix plan) equal to
+    """The dense lane check runs what the packed lanes' check refuses,
+    each of which names its ROADMAP item there.  The ``fault_plan`` case
+    holds the check's acceptance of a plan, and the ensemble's run under
+    it (two seeds of the 3-node parity campaign's matrix plan) equal to
     JAX's, lane by lane; the ``telemetry`` case its acceptance of the
     recorder, which the packed lanes' check refuses naming B16m; the
     ``topology`` case its acceptance of a topology key, which the packed
     lanes' check refuses naming B16m; the ``peerswap`` case its
-    acceptance of PeerSwap, refused under a plan naming B16s-f."""
+    acceptance of PeerSwap with and without a plan (B16s-f); the
+    ``protocol`` case its acceptance of push-pull (B16v), which the
+    packed lanes' check refuses naming B16m."""
     from corrosion_tpu_torch.sim.lanes import check_packed_lanes
 
     cfg, topo, plan, kw = _dense_cfg(), Topology(), None, {}
@@ -200,13 +200,15 @@ def test_dense_check_refuses_by_name(case):
     if case == "peerswap":
         cfg = _dense_cfg(peer_sampler="peerswap")
         check_dense_lanes(cfg, topo)
-        plan = FaultPlan(n_nodes=96, seed=0, events=())
-        match = "PeerSwap sampler under a fault plan.*B16s-f"
-    else:
-        cfg = _dense_cfg(dissemination="push-pull")
-        match = "protocol variants.*B16v"
-    with pytest.raises(NotImplementedError, match=match):
-        check_dense_lanes(cfg, topo, plan, **kw)
+        check_dense_lanes(cfg, topo, FaultPlan(n_nodes=96, seed=0,
+                                               events=()), **kw)
+        return
+    check_dense_lanes(_dense_cfg(dissemination="push-pull"), topo, plan)
+    with pytest.raises(NotImplementedError,
+                       match="protocol variants on the packed.*B16m"):
+        check_packed_lanes(dataclasses.replace(packed,
+                                               dissemination="push-pull"),
+                           topo)
 
 
 def test_dense_check_accepts_default_budgets_and_every_tier():

@@ -119,6 +119,34 @@ def test_detect_lanes_equal_the_solo_runs():
             assert torch.equal(a, b), (k, fname)
 
 
+@pytest.mark.parametrize("knob,value", (("sync_cadence", "eager"),
+                                        ("dissemination", "push-pull")))
+def test_protocol_variant_detect_ensemble_equals_jax(knob, value):
+    """A protocol variant on the detect loop's lanes (B16v: the eager
+    cadence, the push-pull response leg) over two regions, two seeds:
+    every final state field, both stamps and the detect rounds equal
+    JAX's vmapped ``run_detect_ensemble`` of the same config, lane by
+    lane, in JAX's dtypes."""
+    from corrosion_tpu.campaign import ensemble as jens
+    from corrosion_tpu.sim.state import uniform_payloads as juniform
+    from corrosion_tpu.sim.topology import Topology as JTopology
+
+    jspec, pspec = _pair("swim-churn-64", seeds=(0, 1))
+    jcfg = dataclasses.replace(jspec.sim_config({}), **{knob: value})
+    pcfg = dataclasses.replace(pspec.sim_config({}), **{knob: value})
+    with jax_telemetry():
+        jf, jm, jd = jens.run_detect_ensemble(
+            jcfg, JTopology(n_regions=2), juniform(jcfg, inject_every=1),
+            pspec.seeds, kill_every=3, max_rounds=400)
+    pf, pm, pd = run_detect_ensemble(
+        pcfg, Topology(n_regions=2), uniform_payloads(pcfg, "cpu",
+                                                      inject_every=1),
+        pspec.seeds, kill_every=3, max_rounds=400, device="cpu")
+    np.testing.assert_array_equal(np.asarray(jd), pd.numpy())
+    assert (pd >= 0).all()
+    assert_lanes_equal_jax(jf, jm, pf, pm, f"{knob}={value}")
+
+
 def test_detect_ensemble_runs_to_max_rounds_undetected():
     """A cap below every detect round: every lane runs to it and keeps
     detect_round -1."""
@@ -166,9 +194,10 @@ def test_measure_wire_stride_value_error_is_jax():
 def test_detect_cell_with_the_recorder_is_refused_by_name():
     """The recorder on the detect loop's lanes runs since B16r: a detect
     cell asked for telemetry gains the telemetry block (one summary a
-    lane) and keeps its result digest; what the lanes still refuse — a
-    protocol variant on them — raises NotImplementedError naming ROADMAP
-    B16v, with or without the recorder."""
+    lane) and keeps its result digest; a protocol variant on the detect
+    loop's lanes runs since B16v (the engine refuses only the cell's
+    protocol keys, with JAX's ValueError): push-pull with the recorder
+    over two regions gives the port's solo detect run."""
     spec = _detect_spec()
     plain = engine.run_campaign(spec, device="cpu")
     art = engine.run_campaign(spec, telemetry=True, device="cpu")
@@ -177,9 +206,16 @@ def test_detect_cell_with_the_recorder_is_refused_by_name():
     assert [s["rounds"] for s in summaries] == \
         art["cells"][0]["per_seed"]["rounds"]
     cfg = dataclasses.replace(spec.sim_config({}), dissemination="push-pull")
-    with pytest.raises(NotImplementedError, match="protocol.*B16v"):
-        run_detect_ensemble(cfg, Topology(n_regions=2), None, (0,),
-                            telemetry=True, device="cpu")
+    topo = Topology(n_regions=2)
+    finals, _, detect, _ = run_detect_ensemble(
+        cfg, topo, uniform_payloads(cfg, "cpu", inject_every=1), (0,),
+        kill_every=3, max_rounds=400, telemetry=True, device="cpu")
+    meta, state = churn_setup(cfg, 0, torch.device("cpu"))
+    solo, _, det = run_membership_detect(state, meta, cfg, topo, 400,
+                                         device="cpu")
+    assert int(det) == int(detect[0]) >= 0
+    for fname, a, b in zip(solo._fields, solo, lane_state(finals, 0)):
+        assert torch.equal(a, b), fname
 
 
 def test_detect_needs_a_swim_tier_on_lanes():

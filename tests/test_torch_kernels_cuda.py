@@ -1763,3 +1763,97 @@ def test_topology_ensemble_on_card_equals_cpu(card, case):
                                      spec.max_rounds)
         for name, x, y in zip(solo._fields, solo, lane_state(outs[0][0], k)):
             assert torch.equal(x.cpu(), y.cpu()), (k, name)
+
+
+# -- the protocol variants on the dense round's lanes (B16v, B16s-f) ----------
+
+
+PROTO_LANE_CASES = {
+    "dense_pull": lambda s, dev, g, gen: s.compare_lane_dense_pull(
+        dev, g, gen, 3, n=3001, n1k=301, timed=False),
+    "fifo_deliver": lambda s, dev, g, gen: s.compare_lane_fifo_deliver(
+        dev, g, 3, n=97, n1k=301, timed=False),
+    "order_check": lambda s, dev, g, gen: s.compare_lane_order_check(
+        dev, g, 3, n=97, n1k=301, timed=False),
+    "caps_schedule": lambda s, dev, g, gen: s.compare_lane_caps_schedule(
+        dev, g, 3, n=301, timed=False),
+    "wire_rows_pull": lambda s, dev, g, gen: s.compare_lane_wire_rows_pull(
+        dev, g, 3, n=97, timed=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PROTO_LANE_CASES))
+def test_protocol_lane_kernels(card, case):
+    """chip_smoke's phase 3lv at small and ragged shapes: K12p's lane
+    entry and its recording forms, K12f-o's, K22's u8, K20's schedule and
+    K18's rows-pull lane entries equal to their plain versions, each lane
+    to the solo entry on its inputs, every trap reached."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(len(case))
+    rows = PROTO_LANE_CASES[case](_smoke(), card,
+                                  np.random.default_rng(len(case)), gen)
+    assert all(row["equal"] for row in rows), [r["name"] for r in rows]
+
+
+@pytest.mark.parametrize("case", ("push-pull/flat-lossy", "push-pull/wan-3x2",
+                                  "push-pull/flat-lossy/no-recorder",
+                                  "push-pull/wan-3x2/no-recorder",
+                                  "swarm-aggressive/wan-3x2",
+                                  "fanout-decay/hetero-degree",
+                                  "lab-ordered/",
+                                  "lab-ordered-broken/flat-lossy",
+                                  "peerswap-fault/wan-3x2"))
+def test_protocol_ensemble_on_card_equals_cpu(card, case):
+    """The protocol variants (and PeerSwap under the fault storm's plan)
+    on the dense lanes through the campaign engine, three seeds at 96
+    nodes, on the card and on the CPU: the same artifact (wire bytes and
+    order counts banded; push-pull also without the recorder, K12p's
+    forms without a dropped slot), every lane tensor and metric equal,
+    and each lane the card's solo run of its seed."""
+    from corrosion_tpu_torch.campaign import spec as sp
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+
+    family, topo_family, *no_recorder = case.split("/")
+    if family == "peerswap-fault":
+        spec = sp.broadcast_peerswap_fault_seeds_spec((0, 1, 2))
+        spec = dataclasses.replace(
+            spec, name=case, scenario=dict(spec.scenario, n_nodes=96),
+            events=sp.storm_fault_events(96))
+    else:
+        scenario = {"n_nodes": 96, "n_payloads": 64, "n_writers": 4,
+                    "fanout": 3, "n_delay_slots": 4, "inject_every": 2,
+                    "proto_family": family}
+        if not no_recorder:
+            scenario["measure_wire"] = 1
+        if topo_family:
+            scenario["topo_family"] = topo_family
+        spec = sp.CampaignSpec(name=case, scenario=scenario, seeds=(0, 1, 2))
+    arts, kept = [], []
+    for dev in (card, torch.device("cpu")):
+        kept.append({})
+        arts.append(run_campaign(spec, device=dev, lanes_out=kept[-1]))
+    assert arts[0]["result_digest"] == arts[1]["result_digest"]
+    assert arts[0]["cells"][0]["per_seed"] == arts[1]["cells"][0]["per_seed"]
+    for key in ("finals", "metrics"):
+        for name, x, y in zip(type(kept[1][0][key])._fields, kept[0][0][key],
+                              kept[1][0][key]):
+            assert torch.equal(x.cpu(), y.cpu()), (key, name)
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    meta = uniform_payloads(cfg, card, inject_every=spec.inject_every({}))
+    for k, s in enumerate(spec.seeds):
+        plan = spec.fault_plan({}, seed=s)
+        if plan is None:
+            solo, metrics = run_to_convergence(new_sim(cfg, s, card), meta,
+                                               cfg, topo, spec.max_rounds)
+        else:
+            solo, metrics = run_fault_plan(
+                new_sim(cfg, s, card), meta, cfg, topo,
+                compile_plan(plan, cfg, topo, device=card), spec.max_rounds)
+        for name, x, y in zip(solo._fields, solo,
+                              lane_state(kept[0][0]["finals"], k)):
+            assert torch.equal(x.cpu(), y.cpu()), (k, name)
+        assert int(metrics.order_violations) == int(
+            kept[0][0]["metrics"].order_violations[k])

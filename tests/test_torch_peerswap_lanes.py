@@ -5,9 +5,12 @@ psample_view_targets`` and ``peerswap_step``, its vmapped ensembles and
 its runner rung) and the port's solo runs, on the CPU: each lane
 function field for field in JAX's dtypes, 2-seed PeerSwap ensembles at
 96 nodes under ground truth and full view over a flat and a tiered
-topology, the frontier rung's record, and the refusals that stay (a
-fault plan under PeerSwap on lanes, PeerSwap on the packed lanes).
-``-m slow`` holds the port's rung to JAX's."""
+topology, the frontier rung's record, the refusal that stays (PeerSwap
+on the packed lanes), and PeerSwap under a fault plan on lanes
+(B16s-f) against JAX's vmapped fault ensembles in the plan's matrix and
+factored forms.  ``-m slow`` holds the port's rung to JAX's."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,7 @@ from tests.torch_parity import (
     jax_telemetry,
     lane_keys,
     lane_of,
+    peerswap_fault_spec_at,
     run_both_ensembles,
     spec_pair,
     stack_lane_states,
@@ -166,19 +170,55 @@ def test_frontier_rung_equals_jaxs():
 
 
 def test_peerswap_under_a_fault_plan_on_lanes_names_b16s_f():
-    """PeerSwap under a fault plan on lanes (K11d's view row on lanes) is
-    refused naming B16s-f, by the dense check and through the ensemble;
-    without a plan the check passes."""
+    """PeerSwap under a fault plan on lanes (B16s-f) runs: the dense check
+    takes it, and a 2-seed ensemble under a crash with a wipe (K11d's
+    lane entry empties node 3's view row in every lane at its restart)
+    gives, lane by lane, the port's solo fault run of its seed, the view
+    included."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
+
     _, jt, pcfg, pt = _cfgs("wan-3x2")
     plan = FaultPlan(n_nodes=96, seed=0,
                      events=(FaultEvent("crash", 2, 6, node=3, wipe=True),))
     check_dense_lanes(pcfg, pt)
-    with pytest.raises(NotImplementedError,
-                       match=r"PeerSwap sampler under a fault plan.*B16s-f"):
-        check_dense_lanes(pcfg, pt, plan)
-    with pytest.raises(NotImplementedError, match="B16s-f"):
-        run_seed_ensemble(plan, pcfg, pt, uniform_payloads(pcfg, "cpu"),
-                          (0, 1), max_rounds=5, device="cpu")
+    check_dense_lanes(pcfg, pt, plan)
+    meta = uniform_payloads(pcfg, "cpu")
+    finals, _ = run_seed_ensemble(plan, pcfg, pt, meta, (0, 1),
+                                  max_rounds=8, device="cpu")
+    seeds = lane_plan_seeds((0, 1), "cpu")
+    for k in range(2):
+        fplan = compile_plan(dataclasses.replace(plan, seed=int(seeds[k])),
+                             pcfg, pt, device="cpu")
+        solo, _ = run_fault_plan(new_sim(pcfg, k, "cpu"), meta, pcfg, pt,
+                                 fplan, 8)
+        for name, a, b in zip(solo._fields, solo, lane_state(finals, k)):
+            assert torch.equal(a, b), (k, name)
+
+
+@pytest.mark.parametrize("n_nodes", (96, 1280))
+def test_peerswap_fault_ensemble_equals_jax(n_nodes):
+    """PeerSwap under the fault storm's plan over wan-3x2 (path 57's
+    cell, `broadcast_peerswap_fault_seeds_spec`) at 96 nodes, where both
+    packages compile the plan's matrix form (K9m's reach lane entry for
+    the swap message), and at 1280, its factored form: 2 seeds, every
+    lane field — the views too — and the stamps equal JAX's vmapped
+    fault ensemble, and lane 1 the port's solo fault run of its seed."""
+    from corrosion_tpu.campaign.spec import CampaignSpec as JaxSpec
+    from corrosion_tpu_torch.sim.faults import (
+        FactoredFaultPlan, compile_plan, run_fault_plan)
+
+    pspec = peerswap_fault_spec_at((0, 1), n_nodes)
+    jspec = JaxSpec.from_dict(pspec.to_dict())
+    jf, jm, pf, pm, cfg, meta, _ = run_both_ensembles(jspec, pspec)
+    assert_lanes_equal_jax(jf, jm, pf, pm, f"peerswap fault {n_nodes}")
+    fplan = compile_plan(pspec.fault_plan({}, seed=1), cfg, pspec.topo({}),
+                         device="cpu")
+    assert isinstance(fplan, FactoredFaultPlan) == (n_nodes >= 1024)
+    solo, _ = run_fault_plan(new_sim(cfg, 1, "cpu"), meta, cfg,
+                             pspec.topo({}), fplan, pspec.max_rounds)
+    for name, a, b in zip(solo._fields, solo, lane_state(pf, 1)):
+        assert torch.equal(a, b), name
 
 
 def test_peerswap_on_the_packed_lanes_names_b16s():

@@ -491,17 +491,19 @@ def test_packed_lanes_refuse_topology_naming_b16m():
 
 
 def test_protocol_variants_on_lanes_name_b16v():
-    """Both rounds' lanes refuse the protocol variants, naming B16v."""
+    """The protocol variants (B16v) run on the dense round's lanes over a
+    topology family; the packed round's lanes refuse them, naming B16m
+    (their lane entries of K10p, K8f and K22's words entry)."""
     from corrosion_tpu_torch.campaign.spec import storm_scenario
 
     dense = spec_pair("d", dict(BASE, dissemination="push-pull"),
                       (0,))[1].sim_config({})
-    with pytest.raises(NotImplementedError, match="protocol.*B16v"):
-        check_dense_lanes(dense, _resolve_topo("wan-3x2"))
+    check_dense_lanes(dense, _resolve_topo("wan-3x2"))
     packed = spec_pair("p", dict(storm_scenario(1280), n_payloads=64,
                                  packed_min_cells=0,
                                  fanout_schedule="decay"),
                        (0,))[1].sim_config({})
-    with pytest.raises(NotImplementedError, match="protocol.*B16v"):
+    with pytest.raises(NotImplementedError,
+                       match="protocol variants on the packed.*B16m"):
         check_packed_lanes(packed, ptp.Topology())
 

@@ -408,6 +408,18 @@ def dense_storm_spec_at(seeds, n_nodes: int, latency: bool = True):
         spec, scenario=dict(spec.scenario, n_nodes=n_nodes), events=events)
 
 
+def peerswap_fault_spec_at(seeds, n_nodes: int):
+    """``broadcast_peerswap_fault_seeds_spec`` cut to ``n_nodes``: the
+    cell's scenario and the fault storm's events rebuilt at that width,
+    the name kept."""
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    spec = sp.broadcast_peerswap_fault_seeds_spec(seeds)
+    return dataclasses.replace(
+        spec, scenario=dict(spec.scenario, n_nodes=n_nodes),
+        events=sp.storm_fault_events(n_nodes))
+
+
 def stack_lane_states(jax_lanes, pcfg):
     """K JAX states → (JAX's stacked pytree [K, ...], the port's stacked
     state, every field [K, ...] but ``t``, one host scalar)."""
