@@ -380,7 +380,17 @@ result line):
    push spends it, a FIFO gate that rejects in one lane what it admits
    in another, violation counts that differ by lane with one of them 0,
    a schedule round where the slot count drops with caps below it,
-   blocks spanning two lanes, a lane without edges);
+   blocks spanning two lanes, a lane without edges); then latency-
+   storm-100k-seeds8 on the packed round (path 60: its ``spec_hash``,
+   the pinned 8-lane digest, every lane against its one-seed JAX pin and
+   its solo run on the card, the walls beside the dense latency
+   ensemble's, ``max_memory_allocated`` beyond what earlier paths hold
+   and the replayed peak by call site), fault-storm-100k-seeds8 with the
+   recorder (path 61: its digest unmoved, the lanes' summaries pinned)
+   and the latency storm with ``measure_wire`` and per-lane JSONL (path
+   62), every lane's trace its solo recording run's (phase 3lp before
+   them compares K10j's and K3d's lane entries, the recording forms and
+   K17's and K18's word lane entries at K = 8 on those paths' shapes);
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
@@ -5677,16 +5687,15 @@ def ensemble_paths(dev, goldens):
     `campaign.engine.run_campaign` from zeroed counters, each lane and
     the artifact against its golden, every lane row launched and no solo
     entry of a kernel that has one; the ensemble's wall against its 8
-    solo walls; then fault-storm-100k-lanes16, lanes 0-7 equal to
-    fault-storm-100k-seeds8's golden lanes (whose solo runs the path
-    above held) and lanes 8-15 each equal, tensor for tensor, to the
-    port's solo run of its seed on this card.  Returns the lane rows'
-    launches per path and the printed numbers."""
+    solo walls (each solo run equal to its lane on the card); then
+    fault-storm-100k-lanes16, lanes 0-7 equal, tensor for tensor, to
+    fault-storm-100k-seeds8's lanes on the card (held to its golden
+    above) and lanes 8-15 each to the port's solo run of its seed.
+    Returns the lane rows' launches per path and the printed numbers."""
     from corrosion_tpu_torch import kernels
     from corrosion_tpu_torch.campaign import ensemble
     from corrosion_tpu_torch.campaign.engine import run_campaign
     from corrosion_tpu_torch.campaign.spec import storm_seeds_spec
-    from corrosion_tpu_torch.convert import state_digest
     from corrosion_tpu_torch.sim.state import uniform_payloads
 
     launches, numbers = {}, {}
@@ -5712,15 +5721,20 @@ def ensemble_paths(dev, goldens):
                                  "on a lane path")
         launches[label] = counts
         _ensemble_lanes_check(kept["finals"], art, golden, label)
-        del kept
         cfg, topo = spec.sim_config({}), spec.topo({})
         meta = uniform_payloads(cfg, dev, inject_every=2)
         plan = spec.fault_plan({}, seed=0)
         solos = _solo_walls(cfg, meta, spec.seeds, dev, plan)
-        for (final, _), lane in zip(solos, golden["lanes"]):
-            if state_digest(final) != lane["digest"]:
+        # each solo run against its lane on the card (the lanes' digests
+        # are the golden's, above)
+        for k, ((final, _), lane) in enumerate(zip(solos, golden["lanes"])):
+            if not _same_state(final, ensemble.lane_state(kept["finals"],
+                                                          k)):
                 raise AssertionError(f"{label}: solo run of seed "
                                      f"{lane['seed']} differs from its lane")
+        if faults:
+            fault8 = kept["finals"]  # the 16-lane path's lanes 0-7
+        del kept
         wall = art["cells"][0]["wall_clock_s"]
         solo_sum = sum(w for _, w in solos)
         numbers[label] = {"ensemble_wall_s": wall,
@@ -5738,6 +5752,7 @@ def ensemble_paths(dev, goldens):
     meta = uniform_payloads(cfg, dev, inject_every=2)
     plan = spec.fault_plan({}, seed=0)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # the 8-lane run's finals
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.monotonic()
@@ -5745,22 +5760,26 @@ def ensemble_paths(dev, goldens):
                                            max_rounds=3000, device=dev)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     launches["fault_storm_100k_lanes16"] = _path_launches(
         kernels, LANE_FAULT_ROWS, "fault_storm_100k_lanes16")
-    digests = [state_digest(ensemble.lane_state(finals, i))
-               for i in range(ENSEMBLE_LANES)]
+    # lanes 0-7 against the 8-lane run's lanes on the card, whose digests
+    # are the golden's (path 34)
+    same8 = all(_same_state(ensemble.lane_state(finals, i),
+                            ensemble.lane_state(fault8, i))
+                for i in range(ENSEMBLE_LANES))
+    del fault8
     rounds = finals.t.tolist()
     solos = _solo_walls(cfg, meta, spec.seeds[ENSEMBLE_LANES:], dev, plan)
-    print(f"fault_storm_100k_lanes16: rounds {rounds} digests of lanes "
-          f"0-{ENSEMBLE_LANES - 1} {digests} wall {wall:.4f} s (solo sum "
-          f"of seeds {ENSEMBLE_LANES}-{WIDE_LANES - 1} "
-          f"{sum(w for _, w in solos):.4f} s) max_memory_allocated {peak} "
-          "bytes", flush=True)
-    if digests != [lane["digest"]
-                   for lane in goldens.FAULT_STORM_100K_SEEDS8["lanes"]]:
+    print(f"fault_storm_100k_lanes16: rounds {rounds}, lanes "
+          f"0-{ENSEMBLE_LANES - 1} equal to the 8-lane run's: {same8}; wall "
+          f"{wall:.4f} s (solo sum of seeds {ENSEMBLE_LANES}-"
+          f"{WIDE_LANES - 1} {sum(w for _, w in solos):.4f} s) "
+          f"max_memory_allocated {peak} bytes beyond the {held} held",
+          flush=True)
+    if not same8:
         raise AssertionError("fault_storm_100k_lanes16: lanes 0-7 differ "
-                             "from the 8-lane golden")
+                             "from the 8-lane run's")
     for k, (final, _) in enumerate(solos, ENSEMBLE_LANES):
         if not _same_state(final, ensemble.lane_state(finals, k)):
             raise AssertionError(f"fault_storm_100k_lanes16: lane {k} "
@@ -9619,6 +9638,744 @@ def protocol_ensemble_paths(dev, goldens):
     return launches, numbers
 
 
+# -- latency plans and the flight recorder on the packed round's lanes
+# (phase 3lp, paths 60-62) -------------------------------------------------
+
+SOLO_OF_LANE.update({
+    "broadcast_scatter_jitter_lanes": "broadcast_scatter_jitter",
+    "broadcast_scatter_jitter_lanes_trace": "broadcast_scatter_jitter",
+    "broadcast_scatter_lossy_lanes_trace": "broadcast_scatter_lossy",
+    "sync_pull_delay_lanes": "sync_pull_delay",
+    "sync_pull_lanes_trace": "sync_pull",
+    "sync_pull_delay_lanes_trace": "sync_pull_delay",
+    "trace_counts_lanes": "trace_counts",
+    "trace_wire_lanes": "trace_wire"})
+
+
+def _one_way_latency_plan(n):
+    """The latency pair with a one-way cut from the first half to the
+    second (a session refused in one direction only) and the fault
+    storm's loss, rounds 0-15: the session queries' plan of phase 3lp."""
+    from corrosion_tpu_torch.faults import FaultEvent, FaultPlan
+
+    half = n // 2
+    plan = latency_storm_plan(n)
+    return FaultPlan(n_nodes=n, seed=plan.seed, events=(
+        FaultEvent("loss", 0, 12, p=0.15),
+        FaultEvent("partition", 0, 16, src=f"0:{half}", dst=f"{half}:{n}"),
+        *plan.events[-2:]))
+
+
+def _packed_lane_round(dev, g, lanes, n, t=LATENCY_T):
+    """K lanes of latency-storm-n's round ``t`` (loss, half split, delay
+    and jitter all on): per-lane edges and sending words, the round's
+    wire effects through K9's latency entry on the lanes folded (each
+    lane's cut edges counted into its own [K] slot), per-lane keys and
+    plan seeds.  Lane 1 repeats lane 0's edges, words and ring (only its
+    key and seed differ); the last lane attempts no edge."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+    from corrosion_tpu_torch.sim import faults
+
+    cfg, meta, fplan = _latency_storm(n, dev)
+    f, w, d = cfg.fanout, cfg.n_payloads // 32, cfg.n_delay_slots
+    e = n * f
+    rf = faults.round_faults(fplan, t)
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = torch.as_tensor(g.integers(0, n, (lanes, e)), dtype=torch.int32,
+                          device=dev)
+    ok = torch.as_tensor(g.random((lanes, e)) < 0.9, device=dev)
+    # the block holding the jitter's edge boundary (the sender n // 6)
+    # carries jittered and unjittered edges, none of them cut
+    per_block = 256 // w
+    b0 = (n // 6) * f // per_block * per_block
+    block = slice(b0, b0 + per_block)
+    dst[:, block] = dst[:, block] % (n // 2)
+    ok[:, block] = True
+    sending = _random_words(g, (lanes, n, w), dev, 1)
+    ring0 = _random_words(g, (lanes, d, n, w), dev, 6)
+    for x in (dst, ok, sending, ring0):
+        x[1] = x[0]
+    ok[-1] = False
+    ok0 = ok.clone()
+    acc = torch.zeros((lanes, 12), dtype=torch.int64, device=dev)
+    _, thr, fdelay, jit = faults.fault_wire_effects(
+        rf, src.repeat(lanes), dst.reshape(-1), ok.view(-1), cut=acc[:, 3])
+    thr, fdelay, jit = (x.view(lanes, e) for x in (thr, fdelay, jit))
+    slot = ((t + fdelay) % d).to(torch.int32)
+    return dict(cfg=cfg, meta=meta, rf=rf, f=f, w=w, d=d, e=e, src=src,
+                dst=dst, ok=ok, ok0=ok0, cut=acc[:, 3], thr=thr, jit=jit,
+                slot=slot, sending=sending, ring0=ring0,
+                keys=_lane_keys(dev, lanes, 6000),
+                seeds=lane_plan_seeds(range(lanes), dev))
+
+
+def compare_packed_lane_scatter_jitter(dev, g, lanes, n=STORM_N, timed=True):
+    """K10j's lane entry and the recording forms of K10's and K10j's lane
+    entries at latency-storm-100k's round 6 on K lanes, each against its
+    plain version (the solo plain version looped over the lanes), lane 0
+    and the last lane held to the solo entry on their inputs; the traps
+    of lanes whose draws differ, blocks of jittered and unjittered edges,
+    loss and jitter on one edge, counts that differ by lane, and a lane
+    without edges."""
+    from corrosion_tpu_torch.device import popcount
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim import lanes as ln
+
+    c = _packed_lane_round(dev, g, lanes, n)
+    f, w, e, d = c["f"], c["w"], c["e"], c["d"]
+    args = (c["sending"], c["dst"], c["slot"], c["ok"], f, c["thr"],
+            c["keys"], c["seeds"])
+    cases = (("broadcast_scatter_jitter_lanes", c["jit"], False),
+             ("broadcast_scatter_jitter_lanes_trace", c["jit"], True),
+             ("broadcast_scatter_lossy_lanes_trace", None, True))
+    rows, rings = [], {}
+    for name, jit, rec in cases:
+        got, want = c["ring0"].clone(), c["ring0"].clone()
+        dk = torch.zeros((lanes, 12), dtype=torch.int64, device=dev)
+        dp = torch.zeros_like(dk)
+        ln.scatter_lanes(got, *args, jit, dk[:, 2] if rec else None)
+        ln.scatter_lanes_plain(want, *args, jit, dp[:, 2] if rec else None)
+        equal, err = _equal_all([got, dk], [want, dp])
+        for k in (0, lanes - 1):
+            solo, sd = c["ring0"][k].clone(), _acc(dev)
+            packed.scatter_sending_lossy(
+                solo, c["sending"][k], c["dst"][k], c["slot"][k], c["ok"][k],
+                c["thr"][k], c["keys"][k], int(c["seeds"][k]), f,
+                dropped=sd if rec else None, jit=None if jit is None
+                else jit[k])
+            _solo_trap(f"{name} lane {k}", [got[k], dk[k, 2]],
+                       [solo, sd if rec else dk[k, 2]])
+        rings[name] = (want, dp[:, 2].clone())
+        # the bound: eight hashes a sending (edge, word) under a loss
+        # threshold, one a sent bit of a jittered edge that survives it
+        loss_h = jit_h = 0
+        for k in range(lanes):
+            words = packed._edge_words(c["sending"][k], c["ok"][k], f)
+            loss_h += int(((words != 0) & (c["thr"][k] > 0)[:, None]).sum())
+            packed._keep_stream_(words, c["thr"][k], faults.fault_key(
+                c["keys"][k], int(c["seeds"][k]), faults.WIRE_LOSS_TAG))
+            if jit is not None:
+                jit_h += int(popcount(words[jit[k] > 0]).sum())
+        ops = (8 * loss_h + jit_h) * OPS_PER_HASH
+        rows_touched = int(torch.unique(
+            (torch.arange(lanes, device=dev)[:, None] * (d * n)
+             + c["slot"].long() * n + c["dst"].long())[c["ok"]]).numel())
+        nbytes = (c["sending"].numel() * 4 + lanes * e * (4 + 4 + 1 + 1 + 4)
+                  + 2 * rows_touched * w * 4 * 2 + (lanes * 8 if rec else 0))
+        work_k, work_p = c["ring0"].clone(), c["ring0"].clone()
+        acc_k, acc_p = (torch.zeros((lanes, 12), dtype=torch.int64,
+                                    device=dev) for _ in range(2))
+
+        def restore_k():
+            work_k.copy_(c["ring0"])
+            acc_k.zero_()
+
+        def restore_p():
+            work_p.copy_(c["ring0"])
+            acc_p.zero_()
+
+        row = _ops_row(
+            name, "corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
+            ("corrosion_tpu/sim/faults.py:285" if jit is not None
+             else "corrosion_tpu/sim/packed.py:573") + _VMAP, equal, err,
+            _timed(timed, lambda jit=jit, rec=rec: ln.scatter_lanes(
+                work_k, *args, jit, acc_k[:, 2] if rec else None),
+                restore_k),
+            # the plain versions find their draws on the host: eager
+            _time_eager_ms(lambda jit=jit, rec=rec: (
+                restore_p(), ln.scatter_lanes_plain(
+                    work_p, *args, jit, acc_p[:, 2] if rec else None)),
+                SLOW_PLAIN_REPS) if timed else None,
+            nbytes, ops, kernel=name, lanes=lanes, hashes=8 * loss_h + jit_h)
+        rows.append(row)
+
+    want, dropped = rings["broadcast_scatter_jitter_lanes_trace"]
+    unjittered, _ = rings["broadcast_scatter_lossy_lanes_trace"]
+    _trap("lane packed 1", "lanes whose keys and plan seeds differ draw "
+          "their own loss and jitter (lanes 0 and 1 share every input but "
+          "the key and seed)",
+          not torch.equal(want[0], want[1])
+          and int(dropped[0]) != int(dropped[1]))
+    jittered = (c["jit"][0] > 0) & c["ok"][0]
+    per_block = 256 // w
+    blocks = e // per_block * per_block
+    jb = jittered[:blocks].view(-1, per_block)
+    plain_edges = ((c["jit"][0] == 0) & c["ok"][0])[:blocks].view(
+        -1, per_block)
+    _trap("lane packed 2", "a block with jittered and unjittered edges "
+          "together, and a jitter bound of 0 on some edges",
+          bool((jb.any(1) & plain_edges.any(1)).any())
+          and bool((c["jit"] == 0).any()))
+    both = (c["thr"][0] > 0) & jittered & (
+        packed._edge_words(c["sending"][0], c["ok"][0], f) != 0).any(1)
+    _trap("lane packed 3", "loss and jitter bite the same edges in one "
+          "round (the loss drops frames, the jitter moves survivors)",
+          bool(both.any()) and int(dropped[0]) > 0
+          and not torch.equal(want[0], unjittered[0]))
+    cut = [int(x) for x in c["cut"]]
+    want_cut = [int((c["ok0"][k] & faults._block_plain(
+        c["rf"], c["src"], c["dst"][k])).sum()) for k in range(lanes)]
+    drops = [int(x) for x in dropped]
+    _trap("lane packed 4", "dropped and cut counts differ by lane, the "
+          "lane without edges 0 (K9's lane-strided count over blocks that "
+          f"span two lanes: E = {e} is not a multiple of 256)",
+          cut == want_cut and len(set(cut)) > 1 and cut[-1] == 0
+          and len(set(drops)) > 1 and drops[-1] == 0 and e % 256 != 0)
+    _trap("lane packed 5", "the lane without edges keeps its ring",
+          torch.equal(want[-1], c["ring0"][-1]))
+    return rows
+
+
+def compare_packed_lane_sync_delay(dev, g, lanes, n=STORM_N, timed=True):
+    """K3's delay lane entry and the recording forms of K3's lane entries
+    (with and without session delays) at latency-storm-100k's shapes on K
+    lanes: two consecutive rounds on rings whose slots already hold words,
+    session delays from K9's latency entry on the lanes folded (a one-way
+    cut: each lane's refused sessions into its own slot) with some
+    classes past D - 2; lane 0 and the last lane against the solo entry.
+    Returns the rows and the granted words (K17's grant lane entry's
+    input)."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim import lanes as ln
+
+    cfg, _, _ = _latency_storm(n, dev)
+    w, s, d = cfg.n_payloads // 32, cfg.sync_peers, cfg.n_delay_slots
+    fplan = faults.compile_plan(_one_way_latency_plan(n), cfg, device=dev)
+    rf = faults.round_faults(fplan, LATENCY_T)
+    masks = _random_words(g, (lanes, n, 4, w), dev)
+    miss = _random_words(g, (lanes, n, w), dev, 2)
+    peers = torch.as_tensor(g.integers(0, n, (lanes, n, s)),
+                            dtype=torch.int32, device=dev)
+    ok = torch.as_tensor(g.random((lanes, n * s)) < 0.7, device=dev)
+    ok[-1] = False
+    ok0 = ok.clone()
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(s)
+    acc = torch.zeros((lanes, 12), dtype=torch.int64, device=dev)
+    refused, sdelay = faults.fault_session_effects(
+        rf, src.repeat(lanes), peers.reshape(-1), ok.view(-1), acc[:, 4])
+    refused, sdelay = refused.view(lanes, -1), sdelay.view(lanes, -1)
+    # a class past D - 2 on every 97th edge: granted, landing nowhere
+    sdelay = sdelay.clone()
+    sdelay[:, ::97] = d - 1
+    ok = ok.view(lanes, n, s)
+    ring0 = _random_words(g, (lanes, d, n, w), dev, 5)
+    args = (masks, miss, peers, ok)
+    cases = (("sync_pull_delay_lanes", sdelay, False),
+             ("sync_pull_delay_lanes_trace", sdelay, True),
+             ("sync_pull_lanes_trace", None, True))
+    rows, out = [], {}
+    e_s = n * s
+    # the ring words this data's grants touch, class by class: the kernel
+    # reads and writes those words of the ring and no others
+    touched = torch.empty((lanes, e_s, w), dtype=torch.int32, device=dev)
+    ln.sync_pull_lanes_plain(*args, ring0.clone(), (LATENCY_T + 1) % d,
+                             sdelay, touched)
+    touched = (touched != 0).view(lanes, n, s, w)
+
+    def ring_words(sd):
+        if sd is None:
+            return int(touched.any(2).sum())
+        cls = sd.view(lanes, n, s, 1)
+        return sum(int((touched & (cls == c)).any(2).sum())
+                   for c in range(d - 1))
+
+    for name, sd, rec in cases:
+        # without session delays the fault storm's two-slot ring (path 61)
+        ring_c = ring0 if sd is not None else ring0[:, :2].contiguous()
+        dc = ring_c.shape[1]
+        got, want = ring_c.clone(), ring_c.clone()
+        gk = (torch.empty((lanes, e_s, w), dtype=torch.int32, device=dev)
+              if rec else None)
+        gp = torch.empty_like(gk) if rec else None
+        outs_k, outs_p = [], []
+        for r in range(2):
+            slot = (LATENCY_T + 1 + r) % dc
+            outs_k.append(ln.sync_pull_lanes(*args, got, slot, sd, gk))
+            outs_p.append(ln.sync_pull_lanes_plain(*args, want, slot, sd, gp))
+        equal, err = _equal_all(outs_k + [got] + ([gk] if rec else []),
+                                outs_p + [want] + ([gp] if rec else []))
+        for k in (0, lanes - 1):
+            solo = ring_c[k].clone()
+            sg = gk[k].clone() if rec else None
+            for r in range(2):
+                slot = (LATENCY_T + 1 + r) % dc
+                fr = packed.sync_pull(
+                    masks[k], miss[k], peers[k], ok[k],
+                    solo[slot] if sd is None else solo, granted=sg,
+                    sdelay=None if sd is None else sd[k], slot=slot)
+            _solo_trap(f"{name} lane {k}",
+                       [got[k], outs_k[1][k]] + ([gk[k]] if rec else []),
+                       [solo, fr] + ([sg] if rec else []))
+        out[name] = (want, outs_p[1], gp)
+        work_k, work_p = ring_c.clone(), ring_c.clone()
+        slot = (LATENCY_T + 1) % dc
+        nbytes = (lanes * (n * 4 * w * 4 + n * w * 4 + e_s * 5
+                           + (e_s * 4 if sd is not None else 0)
+                           + n + (e_s * w * 4 if rec else 0))
+                  + 2 * ring_words(sd) * 4)  # touched words in and out
+        rows.append(_lane_row(
+            name, "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
+            ("corrosion_tpu/sim/packed.py:1256" if sd is not None
+             else "corrosion_tpu/sim/packed.py:1238"), equal, err,
+            _timed(timed, lambda sd=sd, gk=gk, wk=work_k, sl=slot:
+                   ln.sync_pull_lanes(*args, wk, sl, sd, gk),
+                   lambda wk=work_k, rc=ring_c: wk.copy_(rc)),
+            _timed(timed, lambda sd=sd, gp=gp, wp=work_p, sl=slot:
+                   ln.sync_pull_lanes_plain(*args, wp, sl, sd, gp),
+                   lambda wp=work_p, rc=ring_c: wp.copy_(rc)),
+            nbytes, lanes))
+
+    want, fruitful, granted = out["sync_pull_delay_lanes_trace"]
+    base, later = (LATENCY_T + 1) % d, (LATENCY_T + 2) % d
+    grew = want & ~ring0
+    _trap("lane packed 6", "a sync slot already holding an earlier round's "
+          "slower grant: round t's class 1 is round t + 1's class 0, and "
+          "read-OR-write keeps both (words with bit 31)",
+          bool(((ring0[:, later] != 0) & (grew[:, later] != 0)).any())
+          and bool((grew < 0).any()))
+    g_any = (granted != 0).any(2).view(lanes, n, s)
+    cls = sdelay.view(lanes, n, s)
+    past = (cls == d - 1) & g_any
+    # a class past D - 2: granted, yet the same pull without those edges
+    # leaves the ring as it is
+    cut_ring = ring0.clone()
+    ln.sync_pull_lanes_plain(masks, miss, peers, ok & (cls != d - 1),
+                             cut_ring, base, sdelay)
+    one_round = ring0.clone()
+    ln.sync_pull_lanes_plain(*args, one_round, base, sdelay)
+    _trap("lane packed 7", "a grant of a class past D - 2 lands nowhere",
+          bool(past.any()) and torch.equal(one_round, cut_ring))
+    delayed_only = fruitful & ~(g_any & (cls == 0)).any(2)
+    _trap("lane packed 8", "fruitful from grants in delayed classes only "
+          "(class 1, or past D - 2)", bool(delayed_only.any()))
+    blocked = faults._block_plain(rf, src.repeat(lanes), peers.reshape(-1))
+    one_way = (refused.reshape(-1) & ~blocked).view(lanes, -1)
+    ref = [int(x) for x in acc[:, 4]]
+    want_ref = [int((ok0[k] & refused[k]).sum()) for k in range(lanes)]
+    _trap("lane packed 9", "sessions refused in one direction only, each "
+          "lane's refusals in its own slot, the lane without sessions 0",
+          bool(one_way[:-1].any()) and ref == want_ref
+          and len(set(ref)) > 1 and ref[-1] == 0)
+    return rows, granted
+
+
+def compare_packed_lane_trace_words(dev, g, lanes, granted, n=STORM_N, f=3,
+                             timed=True):
+    """K17's grant and coverage lane entries and K18's words lane entry
+    on K lanes of the storm's words, each into its lane's own count rows
+    or accumulators of a lane trace (rows 3·P apart, slots 12 apart) and
+    against its plain version; the last lane held to the solo entry."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    cfg, meta = _storm_cfg(n, dev)
+    w, p = cfg.n_payloads // 32, cfg.n_payloads
+    e_s = granted.shape[1]
+    have0 = _random_words(g, (lanes, n, w), dev, 2)
+    have = have0 | _random_words(g, (lanes, n, w), dev, 3)
+    alive = torch.as_tensor((g.random((lanes, n)) < 0.03) * 2,
+                            dtype=torch.uint8, device=dev)
+    sending = _random_words(g, (lanes, n, w), dev, 2)
+    ok = torch.as_tensor(g.random((lanes, n * f)) < 0.9, device=dev)
+    counts = [torch.zeros((lanes, 3, p), dtype=torch.int32, device=dev)
+              for _ in range(2)]
+    accs = [torch.zeros((lanes, 12), dtype=torch.int64, device=dev)
+            for _ in range(2)]
+    tel.count_words_lanes_(counts[0][:, 2], granted)
+    tel.count_words_lanes_plain(counts[1][:, 2], granted)
+    tel.coverage_delivered_lanes_(counts[0][:, 0:2], have, have0, alive)
+    tel.coverage_delivered_lanes_plain(counts[1][:, 0:2], have, have0, alive)
+    tel.wire_words_lanes_(accs[0][:, 0:2], sending, meta.nbytes, ok, f)
+    tel.wire_words_lanes_plain(accs[1][:, 0:2], sending, meta.nbytes, ok, f)
+    solo_c = torch.zeros((3, p), dtype=torch.int32, device=dev)
+    solo_a = torch.zeros(12, dtype=torch.int64, device=dev)
+    tel.count_words_(solo_c[2], granted[-1])
+    tel.coverage_delivered_(solo_c[0:2], have[-1], have0[-1], alive[-1])
+    tel.wire_words_(solo_a[0:2], sending[-1], meta.nbytes, ok[-1], f)
+    _solo_trap("trace words lanes", [counts[0][-1], accs[0][-1]],
+               [solo_c, solo_a])
+    rows = []
+    specs = (
+        ("trace_counts_lanes", "trace_counts_lanes",
+         "corrosion_tpu/sim/fused.py:109", 2, 3,
+         lambda cn, a: tel.count_words_lanes_(cn[:, 2], granted),
+         lambda cn, a: tel.count_words_lanes_plain(cn[:, 2], granted),
+         lanes * (e_s * w * 4 + p * 4 * 2)),
+        ("trace_coverage_lanes", "trace_counts_lanes",
+         "corrosion_tpu/sim/telemetry.py:290", 0, 2,
+         lambda cn, a: tel.coverage_delivered_lanes_(cn[:, 0:2], have,
+                                                     have0, alive),
+         lambda cn, a: tel.coverage_delivered_lanes_plain(cn[:, 0:2], have,
+                                                          have0, alive),
+         lanes * (2 * n * w * 4 + n + 2 * p * 4 * 2)),
+        ("trace_wire_lanes", "trace_wire_lanes",
+         "corrosion_tpu/sim/fused.py:192", None, None,
+         lambda cn, a: tel.wire_words_lanes_(a[:, 0:2], sending, meta.nbytes,
+                                             ok, f),
+         lambda cn, a: tel.wire_words_lanes_plain(a[:, 0:2], sending,
+                                                  meta.nbytes, ok, f),
+         lanes * (n * w * 4 + n * f + 2 * 8) + p * 4))
+    for name, kernel, replaces, lo, hi, run_k, run_p, nbytes in specs:
+        if lo is None:
+            got, want = accs[0][:, 0:2], accs[1][:, 0:2]
+        else:
+            got, want = counts[0][:, lo:hi], counts[1][:, lo:hi]
+        equal, err = _equal_all([got], [want])
+        wk = [torch.zeros_like(counts[0]), torch.zeros_like(accs[0])]
+        wp = [torch.zeros_like(counts[0]), torch.zeros_like(accs[0])]
+
+        def zero(ws):
+            for x in ws:
+                x.zero_()
+
+        rows.append(dict(_lane_row(
+            name, "corrosion_tpu_torch/kernels/csrc/" + (
+                "trace_wire.cu" if lo is None else "trace_counts.cu"),
+            replaces, equal, err,
+            _timed(timed, lambda run_k=run_k: run_k(*wk),
+                   lambda: zero(wk)),
+            _timed(timed, lambda run_p=run_p: run_p(*wp),
+                   lambda: zero(wp)),
+            nbytes, lanes), kernel=kernel))
+    _trap("lane packed 10", "each lane's counts and wire totals land in its "
+          "own rows and slots (the lanes' totals differ)",
+          len({int(x) for x in counts[0][:, 2].sum(1)}) > 1
+          and len({int(x) for x in accs[0][:, 0]}) > 1)
+    return rows
+
+
+def compare_packed_lane_latency_kernels(dev, seed=16, lanes=ENSEMBLE_LANES,
+                                        timed=True, big=True):
+    """Phase 3lp: every lane entry and recording form the latency plans
+    and the flight recorder add to the packed round's lanes against its
+    plain version at K = 8 on the 100k paths' shapes (W = 16, D = 4, F =
+    S = 3), lane 0 and the last lane held to the solo entry on their
+    inputs, every trap reached; ``big`` False shrinks 100 000 nodes to
+    1200 (a CPU rehearsal)."""
+    g = np.random.default_rng(seed)
+    n = STORM_N if big else 1200
+    rows = compare_packed_lane_scatter_jitter(dev, g, lanes, n, timed)
+    sync_rows, granted = compare_packed_lane_sync_delay(dev, g, lanes, n,
+                                                        timed)
+    rows += sync_rows
+    rows += compare_packed_lane_trace_words(dev, g, lanes, granted, n,
+                                            timed=timed)
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+#: the lane rows each path 60-62 launches, besides `LANE_PACKED_CORE`
+LANE_PACKED_CORE = ("threefry_lanes", "sample_targets_lanes",
+                    "merge_entries_lanes", "broadcast_scatter_lanes",
+                    "gaps_refresh_lanes", "converge_fold_lanes",
+                    "word_phases_lanes", "fault_reach_lanes",
+                    "node_faults_lanes")
+_PACKED_RECORDING = ("trace_counts_lanes", "trace_wire_lanes",
+                     "trace_row_lanes")
+PACKED_LANE_PATHS = (
+    ("latency_storm_100k_seeds8", "latency",
+     ("broadcast_scatter_lossy_lanes", "broadcast_scatter_jitter_lanes",
+      "sync_pull_delay_lanes", "fault_edges_delay")),
+    ("fault_storm_100k_seeds8_telemetry", "fault_telemetry",
+     ("broadcast_scatter_lossy_lanes_trace", "sync_pull_lanes_trace",
+      "fault_edges_lanes_count", *_PACKED_RECORDING)),
+    ("latency_storm_100k_seeds8_wire", "latency_wire",
+     ("broadcast_scatter_lossy_lanes_trace",
+      "broadcast_scatter_jitter_lanes_trace", "sync_pull_delay_lanes_trace",
+      "fault_edges_delay_lanes_count", *_PACKED_RECORDING)),
+)
+
+
+def packed_lane_path_spec(which, seeds=range(ENSEMBLE_LANES)):
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    return {
+        "latency": lambda: sp.latency_storm_seeds_spec(seeds),
+        "fault_telemetry": lambda: sp.storm_seeds_spec(seeds, faults=True),
+        "latency_wire": lambda: sp.latency_storm_seeds_spec(
+            seeds, measure_wire=True),
+    }[which]()
+
+
+def _peak_sites(run, top=8):
+    """Run ``run()`` with the caching allocator's history on and replay
+    the allocations it made to the moment their live bytes peaked
+    (tensors held before the call do not count).  Returns that peak and
+    the ``top`` call sites of the port (up to three frames of
+    `corrosion_tpu_torch`, innermost first) by the bytes they held at
+    the peak."""
+    mem = torch.cuda.memory
+    torch.cuda.synchronize()
+    mem._record_memory_history(max_entries=2_000_000, stacks="python")
+    try:
+        run()
+        torch.cuda.synchronize()
+        events = mem._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        mem._record_memory_history(enabled=None)
+
+    def replay(stop):
+        live, now, peak, at = {}, 0, 0, -1
+        for i, ev in enumerate(events[:stop]):
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                now += ev["size"]
+                if now > peak:
+                    peak, at = now, i
+            elif ev["action"].startswith("free") and ev["addr"] in live:
+                now -= live.pop(ev["addr"])["size"]
+        return live, peak, at
+
+    _, peak, at = replay(len(events))
+    live, _, _ = replay(at + 1)
+    sites = {}
+    for ev in live.values():
+        frames = [f"{f['filename'].split('corrosion_tpu_torch/')[-1]}:"
+                  f"{f['line']} {f['name']}" for f in ev.get("frames", ())
+                  if "corrosion_tpu_torch" in f["filename"]][:3]
+        key = " < ".join(frames) or "outside the port"
+        sites[key] = sites.get(key, 0) + ev["size"]
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1])[:top]
+    return peak, [{"site": k, "bytes": v} for k, v in ranked]
+
+
+def packed_latency_ensemble_paths(dev, goldens, trace_dir,
+                                  dense_latency_wall=None):
+    """Paths 60-62: latency plans and the flight recorder on the packed
+    round's lanes through `campaign.engine.run_campaign` (seeds 0-7), each
+    from zeroed counters, every lane entry of the path launched and no
+    solo entry of a kernel that has one, round_path "packed".  Path 60,
+    latency-storm-100k-seeds8: the spec_hash, the pinned 8-lane digest and
+    each lane's one-seed JAX pin; each lane's final state equal to the
+    port's solo latency run of its seed on this card, lane 0 to JAX's solo
+    golden; its wall beside the 8 solo walls and the dense latency
+    ensemble's (path 45).  Path 61, fault-storm-100k-seeds8 with the
+    recorder: the packed golden's spec_hash and result_digest unmoved,
+    lane 0's summary JAX's solo recording golden's and lanes 1-7 the
+    pinned ones (wire_bytes within the f32 bound), every lane's trace its
+    solo recording run's.  Path 62, the latency storm with measure_wire
+    and a trace_dir: lane 0's summary and wire_bytes JAX's (within the
+    bound), every lane's trace its solo recording run's, every per-lane
+    JSONL the lane's rows.  Returns the launches per path and the printed
+    numbers."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import (
+        _lane_trace_path, run_campaign)
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim.telemetry import lane_trace, trace_rows
+
+    launches, numbers = {}, {}
+    for label, which, extra in PACKED_LANE_PATHS:
+        spec = packed_lane_path_spec(which)
+        recording = which != "latency"
+        kept = {}
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()  # earlier paths' tensors
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        art = run_campaign(spec, telemetry=recording,
+                           trace_dir=trace_dir if which == "latency_wire"
+                           else None, device=dev, lanes_out=kept)
+        peak = torch.cuda.max_memory_allocated() - held
+        counts = _path_launches(kernels, LANE_PACKED_CORE + extra, label,
+                                telemetry=recording)
+        solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+        if solo_on:
+            raise AssertionError(f"{label}: solo entries {solo_on} launched "
+                                 "on a lane path")
+        launches[label] = counts
+        cell = art["cells"][0]
+        ps = cell["per_seed"]
+        rounds = ps["rounds"]
+        finals = kept[0]["finals"]
+        summaries = (cell["telemetry"]["per_seed"] if recording else None)
+        print(f"{label}: spec_hash={art['spec_hash']} result_digest="
+              f"{art['result_digest']} wall_clock_s={cell['wall_clock_s']} "
+              f"round_path={cell['round_path']} rounds={rounds} "
+              f"p99={json.dumps(ps['p99_node_convergence_round'])} "
+              f"wire_bytes={json.dumps(ps.get('wire_bytes'))} "
+              f"summaries={json.dumps(summaries)}", flush=True)
+        if cell["round_path"] != "packed" or not cell["all_converged"]:
+            raise AssertionError(f"{label}: round_path {cell['round_path']}"
+                                 f", all_converged {cell['all_converged']}")
+        entry = {"ensemble_wall_s": cell["wall_clock_s"],
+                 "max_memory_allocated_bytes": peak,
+                 "held_at_entry_bytes": held}
+        print(f"{label}: max_memory_allocated {peak} bytes beyond the "
+              f"{held} held at entry", flush=True)
+        if which == "latency":
+            golden = goldens.LATENCY_STORM_100K_SEEDS8
+            lanes = [{"seed": s, "rounds": rounds[i],
+                      "p99_node_convergence_round":
+                          ps["p99_node_convergence_round"][i],
+                      "converged": ps["converged"][i],
+                      "unconverged_nodes": ps["unconverged_nodes"][i],
+                      "digest": state_digest(lane_state(finals, i))}
+                     for i, s in enumerate(cell["seeds"])]
+            got = {"spec_hash": art["spec_hash"],
+                   "result_digest": art["result_digest"], "lanes": lanes}
+            print(f"{label}: lanes {json.dumps(lanes)}", flush=True)
+            if got != {k: golden[k] for k in got}:
+                raise AssertionError(f"{label}: differs from its golden")
+            solo0 = goldens.LATENCY_STORM_100K_SEED0
+            if {k: lanes[0][k] for k in solo0} != solo0:
+                raise AssertionError(f"{label}: lane 0 differs from JAX's "
+                                     "solo golden")
+            solos = _fault_solo_runs(spec, dev)
+            if not all(_same_state(final, lane_state(finals, i))
+                       for i, (_, final, _) in enumerate(solos)):
+                raise AssertionError(f"{label}: a lane differs from its "
+                                     "solo run")
+            walls = [wall for _, _, wall in solos]
+            entry.update(solo_walls_s=walls, solo_walls_sum_s=sum(walls),
+                         dense_latency_ensemble_wall_s=dense_latency_wall)
+            print(f"{label}: every lane equal to its solo run; ensemble wall "
+                  f"{cell['wall_clock_s']} s against the solo walls' sum "
+                  f"{sum(walls):.4f} s ({walls}) and the dense latency "
+                  f"ensemble's {dense_latency_wall} s", flush=True)
+            # where that peak lies: the same cell once more, its
+            # allocations replayed (after the timed run, which it would
+            # slow)
+            replayed, sites = _peak_sites(
+                lambda: run_campaign(spec, device=dev))
+            entry.update(replayed_peak_bytes=replayed, peak_sites=sites)
+            print(f"{label}: replayed peak {replayed} bytes, by site "
+                  f"{json.dumps(sites)}", flush=True)
+        else:
+            traces = kept[0]["traces"]
+            if which == "fault_telemetry":
+                golden = goldens.FAULT_STORM_100K_SEEDS8
+                if (art["spec_hash"], art["result_digest"]) != (
+                        golden["spec_hash"], golden["result_digest"]):
+                    raise AssertionError(f"{label}: the recorder moved the "
+                                         "artifact")
+                solo0 = goldens.FAULT_STORM_100K_SEED0_TELEMETRY
+                wants = [dict(solo0["summary"],
+                              wire_bytes=solo0["wire_bytes"])] + list(
+                    goldens.DENSE_FAULT_STORM_100K_SEEDS8_TELEMETRY[
+                        "summaries"])
+            else:
+                golden = goldens.LATENCY_STORM_100K_SEEDS1_WIRE
+                solo0 = goldens.LATENCY_STORM_100K_SEED0_TELEMETRY
+                wants = [dict(solo0["summary"],
+                              wire_bytes=solo0["wire_bytes"])]
+                if rounds[:1] != golden["rounds"] or rounds != [
+                        x["rounds"] for x in
+                        goldens.LATENCY_STORM_100K_SEEDS8["lanes"]]:
+                    raise AssertionError(f"{label}: rounds differ from the "
+                                         "latency storm's")
+                total = abs(golden["wire_bytes"][0]) * (1 + F32_ULP)
+                # both channels' f32 bounds (`_wire_within`) and the sum's
+                limit = ((300_000 + 512 + 3 + 4 * rounds[0]) * F32_ULP
+                         * total + 0.2)
+                gap = abs(ps["wire_bytes"][0] - golden["wire_bytes"][0])
+                if gap > limit:
+                    raise AssertionError(f"{label}: lane 0's wire_bytes "
+                                         f"{ps['wire_bytes'][0]} vs JAX's "
+                                         f"{golden['wire_bytes'][0]}")
+                entry["wire_bytes_lane0_relative_gap"] = gap / total
+            entry["wire_bytes_worst_relative_gap"] = max(
+                _wire_within(g_, w_, r_, f"{label} lane {k}", 300_000, 512)
+                for k, (g_, w_, r_) in enumerate(zip(summaries, wants,
+                                                     rounds)))
+            solos = _solo_traces(spec, dev)
+            if [r for r, _, _ in solos] != rounds:
+                raise AssertionError(f"{label}: rounds differ from the "
+                                     "solos'")
+            _lanes_equal_solo_traces(traces, solos, label)
+            walls = [w for _, _, w in solos]
+            entry.update(solo_walls_s=walls, solo_walls_sum_s=sum(walls))
+            print(f"{label}: every lane's trace equal to its solo recording "
+                  f"run; ensemble wall {cell['wall_clock_s']} s against the "
+                  f"solo walls' sum {sum(walls):.4f} s", flush=True)
+            if which == "latency_wire":
+                for k, seed in enumerate(spec.seeds):
+                    path = _lane_trace_path(trace_dir, spec, 0, seed)
+                    with open(path) as f:
+                        lines = [json.loads(line) for line in f]
+                    head = lines[0]
+                    want_rows = trace_rows(lane_trace(traces, k), rounds[k],
+                                           spec.sim_config({}))
+                    if (head["summary"] != summaries[k]
+                            or head["seed"] != seed
+                            or head["spec_hash"] != art["spec_hash"]
+                            or lines[1:] != want_rows):
+                        raise AssertionError(f"{label}: {path} differs")
+                print(f"{label}: {len(spec.seeds)} flight-recorder files "
+                      f"under {trace_dir} equal to the lanes' rows",
+                      flush=True)
+            del traces
+        _trap(f"lane packed path {which}", "lanes that finish in different "
+              "rounds leave the batch (with their traces) as their solo "
+              "runs end", len(set(rounds)) > 1)
+        del kept, finals
+        numbers[label] = entry
+        _lap(label)
+    return launches, numbers
+
+
+def profile_packed_lanes(dev, lanes=ENSEMBLE_LANES, start=5, rounds=3,
+                         latency=True, telemetry=False):
+    """``rounds`` rounds of the K-lane latency storm (or, without
+    ``latency``, the fault storm) from round ``start`` (loss, the half
+    split and, in the latency storm, the delay and jitter all on) through
+    `sim.lanes.packed_lane_step`, the packed lane fault loop's body that
+    `sim.lanes.run_lanes` runs, and the loop's one host read of the [K]
+    flags; the first ``start`` rounds are setup.  With ``telemetry``
+    every round records each lane's row."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_plan_seeds, seed_states)
+    from corrosion_tpu_torch.sim import faults
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim.runner import storm_fault_plan
+    from corrosion_tpu_torch.sim.telemetry import new_trace_lanes
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    if latency:
+        cfg, meta, fplan = _latency_storm(STORM_N, dev)
+    else:
+        cfg, meta = _storm_cfg(STORM_N, dev)
+        fplan = faults.compile_plan(storm_fault_plan(STORM_N, 0), cfg,
+                                    device=dev)
+    topo = Topology()
+    region = regions(cfg.n_nodes, 1, dev)
+    activity = faults.host_activity(fplan)
+    seeds = lane_plan_seeds(range(lanes), dev)
+
+    def step(batch):
+        batch, done = ln.packed_lane_step(batch, meta, cfg, topo, region,
+                                          fplan, activity, telemetry)
+        done.tolist()  # the loop's one host read a round
+        return batch
+
+    def setup():
+        trace = (new_trace_lanes(cfg, start + 2 * rounds, lanes, dev)
+                 if telemetry else None)
+        batch = ln.packed_lane_batch(seed_states(cfg, range(lanes), dev), cfg,
+                                     seeds, trace)
+        for _ in range(start):
+            batch = step(batch)
+        torch.cuda.synchronize()
+        return batch
+
+    def run(batch):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            batch = step(batch)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, f"{'latency' if latency else 'fault'} "
+                    f"storm-100k x{lanes} lanes rounds {start}-"
+                    f"{start + rounds - 1}"
+                    + (" with the recorder" if telemetry else ""), setup)
+
+
 _START = time.monotonic()
 
 
@@ -9904,6 +10661,10 @@ def main() -> int:
     print("kernel comparisons equal for the protocol variants on the dense "
           "lanes", flush=True)
     _lap("protocol lane kernel comparisons")
+    packed_lane_rows = compare_packed_lane_latency_kernels(dev)
+    print("kernel comparisons equal for latency plans and the recorder on "
+          "the packed lanes", flush=True)
+    _lap("packed lane latency and recorder kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -10792,6 +11553,16 @@ def main() -> int:
     print("protocol ensemble numbers: " + json.dumps(proto_lane_numbers),
           flush=True)
     _lap("paths 55-59, the protocol variants on the dense lanes")
+    # paths 60-62: latency plans and the flight recorder on the packed
+    # round's lanes; path 62's per-lane JSONL goes under
+    # flight_recorder_out/ (gitignored)
+    packed_lane_launches, packed_lane_numbers = \
+        packed_latency_ensemble_paths(
+            dev, goldens, "flight_recorder_out", dense_fault_lane_numbers[
+                "dense_latency_storm_100k_seeds8"]["ensemble_wall_s"])
+    print("packed lane ensemble numbers: " + json.dumps(packed_lane_numbers),
+          flush=True)
+    _lap("paths 60-62, latency plans and the recorder on the packed lanes")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -10860,6 +11631,14 @@ def main() -> int:
                                    "dense storm-push-pull-100k", lanes_)
         prof["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
         print("profile_push_pull_ensemble: " + json.dumps(prof), flush=True)
+    # the 8-lane packed latency round (rounds 5-7), and the 8-lane packed
+    # fault round without and with the recorder, in one process
+    for latency_, tel_ in ((True, False), (False, False), (False, True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_packed_lanes(dev, latency=latency_, telemetry=tel_)
+        prof["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        print("profile_packed_ensemble: " + json.dumps(prof), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -11075,6 +11854,25 @@ def main() -> int:
             label: c[row["kernel"]]
             for label, c in proto_lane_launches.items()}
     rows += proto_lane_rows
+    # each packed lane row reads its launches on the path that runs its
+    # kernel at the row's shapes
+    packed_lane_path = {
+        "broadcast_scatter_jitter_lanes": "latency_storm_100k_seeds8",
+        "sync_pull_delay_lanes": "latency_storm_100k_seeds8",
+        "broadcast_scatter_jitter_lanes_trace":
+            "latency_storm_100k_seeds8_wire",
+        "broadcast_scatter_lossy_lanes_trace":
+            "latency_storm_100k_seeds8_wire",
+        "sync_pull_delay_lanes_trace": "latency_storm_100k_seeds8_wire"}
+    for row in packed_lane_rows:
+        path = packed_lane_path.get(row["kernel"],
+                                    "fault_storm_100k_seeds8_telemetry")
+        row["launches"] = packed_lane_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]]
+            for label, c in packed_lane_launches.items()}
+    rows += packed_lane_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

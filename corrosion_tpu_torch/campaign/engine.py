@@ -15,8 +15,9 @@ every cell (atomic replace) and resume from a file of the same spec
 hash.
 
 The engine runs sim cells on both rounds — faultless or under a
-factored plan on the packed round, faultless or under a plan of either
-form (delay and jitter included) on the dense round, over every
+factored plan (delay and jitter included, B16l) on the packed round,
+faultless or under a plan of either form (delay and jitter included)
+on the dense round, over every
 topology family, under either peer sampler and under every protocol
 family, which is where every fault cell outside the packed envelope goes
 (the 3-node fault campaigns, fault storms below the envelope,
@@ -27,9 +28,9 @@ on lanes, banding ``detect_round`` with JAX's per-lane detection
 quality).  A detect cell is refused with JAX's ValueErrors for what it
 cannot measure.
 
-The flight recorder runs on every cell that resolves to the dense round
-or the detect loop (B16r): ``telemetry`` (the argument, the spec's key,
-or ``trace_dir``) gives each cell JAX's ``telemetry`` block, one
+The flight recorder runs on every sim and detect cell, on either
+round's lanes (B16r): ``telemetry`` (the argument, the spec's key, or
+``trace_dir``) gives each cell JAX's ``telemetry`` block, one
 `..sim.telemetry.trace_summary` a lane, and with ``trace_dir`` one
 flight-recorder JSONL a lane under JAX's file name
 (`_lane_trace_path`) and header; a ``measure_wire`` cell arms the
@@ -37,17 +38,16 @@ recorder itself and bands each lane's ``wire_bytes``, the broadcast
 and sync byte channels' host sums, exactly as JAX computes them — part
 of the result digest.  Every cell whose ``ordering`` is not "none"
 bands each lane's ``order_violations`` (its standing delivery-order
-count, K22), part of the digest, as JAX's does.  On the packed round's
-lanes the recorder raises naming ROADMAP B16m
-(`..sim.lanes.check_packed_lanes`).  The rest raises
+count, K22), part of the digest, as JAX's does.  The rest raises
 NotImplementedError, naming its ROADMAP item: the churn key on lanes is
-B16c, topology keys, metered budgets, the protocol variants and the
-recorder on the packed round's lanes B16m (PeerSwap there B16s's packed
-half), latency plans there B16l and matrix plans there B16x (all run on
-the dense round's lanes), a mesh is A13, host-serving cells and host
-parity are host tier (not queued).  The cell's ``traceparent`` and its span tree belong to
-the host tracing tier and are left out (the digest excludes them; a
-flight-recorder header carries ``traceparent: None``).
+B16c, topology keys, metered budgets and the protocol variants on the
+packed round's lanes B16m (PeerSwap there B16s's packed half), matrix
+plans there B16x (all run on the dense round's lanes;
+`..sim.lanes.check_packed_lanes`), a mesh is A13, host-serving cells
+and host parity are host tier (not queued).  The cell's ``traceparent``
+and its span tree belong to the host tracing tier and are left out (the
+digest excludes them; a flight-recorder header carries ``traceparent:
+None``).
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
     wire measurement, cannot measure.  Then the port's
     NotImplementedErrors, each naming its ROADMAP item; the refusals of
     what a cell resolves to — on the packed round budgets, topology keys,
-    PeerSwap, the protocol variants, matrix and latency plans — follow in
+    PeerSwap, the protocol variants and matrix plans — follow in
     `..sim.lanes.check_packed_lanes`."""
     from .spec import _PROTO_KEYS
 

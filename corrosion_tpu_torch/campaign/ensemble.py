@@ -23,13 +23,12 @@ sampler (B16t, B16s) and every protocol family (B16v); the packed
 round's the flat topology, the uniform sampler and the baseline
 protocol (B16m, B16s's packed half).  Fault plans run on both rounds'
 lanes: of either form, with delay and jitter, on the dense round's
-(under PeerSwap too: B16s-f); factored and without latency on the
-packed round's (matrix and latency plans there are ROADMAP B16x and
-B16l; a mesh is A13).  The flight recorder (``telemetry``) runs on the
-dense round's lanes and the detect loop's (B16r): each lane records its
-own trace, equal to its solo run's, and the stacked traces come back
-last, as JAX's vmapped recorder returns them; on the packed round's
-lanes it is ROADMAP B16m.  Each refusal raises, naming its item.
+(under PeerSwap too: B16s-f); factored, with delay and jitter (B16l),
+on the packed round's (matrix plans there are ROADMAP B16x; a mesh is
+A13).  The flight recorder (``telemetry``) runs on both rounds' lanes
+and the detect loop's (B16r): each lane records its own trace, equal to
+its solo run's, and the stacked traces come back last, as JAX's vmapped
+recorder returns them.  Each refusal raises, naming its item.
 """
 
 from __future__ import annotations
@@ -113,8 +112,7 @@ def run_ensemble(
     round's fault loop, each lane re-seeded by ``plan_seeds`` (i32[K];
     None: every lane keeps the plan's seed).  Returns the stacked final
     (SimState, RunMetrics), ``t`` i32[K], and with ``telemetry`` the
-    lanes' stacked `..sim.telemetry.RoundTrace` third (the dense round;
-    the packed round's lanes refuse it, ROADMAP B16m)."""
+    lanes' stacked `..sim.telemetry.RoundTrace` third (either round)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh × lane batching is not ported yet (ROADMAP A13)")

@@ -420,6 +420,30 @@ def dense_storm_seeds_spec(
     )
 
 
+def latency_storm_seeds_spec(
+    seeds: Sequence[int] = tuple(range(8)), measure_wire: bool = False,
+) -> CampaignSpec:
+    """The latency storm on the packed round over a seed set as one
+    campaign cell (B16l): `dense_storm_seeds_spec(latency=True)`'s
+    scenario and events inside the packed envelope —
+    ``latency-storm-100k-seeds8`` at the default, and with
+    ``measure_wire`` (its lanes' ``wire_bytes`` banded, B16r's packed
+    half) ``latency-storm-100k-seeds8-wire``.  Not a builtin of the JAX
+    package: the JAX package's `CampaignSpec` of the same dict has the
+    same hash."""
+    scenario = dict(storm_scenario(), n_delay_slots=4)
+    if measure_wire:
+        scenario["measure_wire"] = 1
+    return CampaignSpec(
+        name=f"latency-storm-100k-seeds{len(tuple(seeds))}"
+        + ("-wire" if measure_wire else ""),
+        scenario=scenario,
+        events=storm_fault_events() + storm_latency_events(),
+        seeds=tuple(seeds),
+        max_rounds=3000,
+    )
+
+
 def broadcast_seeds_spec(seeds: Sequence[int] = tuple(range(8))
                          ) -> CampaignSpec:
     """``config_broadcast_1k`` (config #3: 1000 nodes, 8 writers x 32

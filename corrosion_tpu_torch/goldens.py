@@ -2287,3 +2287,79 @@ DENSE_STORM_PUSH_PULL_100K_SEEDS8 = {
          "digest": "9bf09d0d0c9d7fb3"},
     ],
 }
+
+# -- latency plans and the flight recorder on the packed round's lanes (B16l,
+# B16r's packed half), from live JAX (jax 0.9.0 on the CPU) ----------------
+# run_campaign(latency_storm_seeds_spec()): the 100k latency storm on the
+# packed round (the fault storm's events and the latency pair, four ring
+# slots), seeds 0-7.  Each lane is live JAX's one-seed run_campaign of its
+# seed (rounds, p99, convergence, state digest; -m slow one case a seed,
+# about ninety seconds each); the 8-lane result_digest is JAX's
+# artifact_digest over the cell the eight lanes make, the construction that
+# reproduces every one-seed artifact's digest (seed 0's is
+# seed0_result_digest).  No vmapped JAX run of the eight lanes has
+# witnessed it (ROADMAP C).  Lane 0 is LATENCY_STORM_100K_SEED0's run, and
+# every lane is DENSE_LATENCY_STORM_100K_SEEDS8's (JAX's dense == packed
+# contract)
+LATENCY_STORM_100K_SEEDS8 = {
+    "spec_hash": "9a641637e29ab807",
+    "result_digest": "359ac85bd60b3d58835074a6f404c4cc",
+    "seed0_result_digest": "c5592b591e41d51984aa218e84a3fb10",
+    "lanes": [
+        {"seed": 0, "rounds": 29,
+         "p99_node_convergence_round": 26.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "652c9355f037a8c9"},
+        {"seed": 1, "rounds": 29,
+         "p99_node_convergence_round": 26.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "2e945e1a0d84273c"},
+        {"seed": 2, "rounds": 29,
+         "p99_node_convergence_round": 26.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "235bc23c55ebb1c4"},
+        {"seed": 3, "rounds": 30,
+         "p99_node_convergence_round": 26.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "0b96fdf31cdffb21"},
+        {"seed": 4, "rounds": 30,
+         "p99_node_convergence_round": 26.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "a46f524f89ce8943"},
+        {"seed": 5, "rounds": 29,
+         "p99_node_convergence_round": 25.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "3b02c19f74bbaafd"},
+        {"seed": 6, "rounds": 30,
+         "p99_node_convergence_round": 26.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "51cc33187132d316"},
+        {"seed": 7, "rounds": 32,
+         "p99_node_convergence_round": 26.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "07ee4703d6477de0"},
+    ],
+}
+
+# run_campaign(latency_storm_seeds_spec(seeds=(0,), measure_wire=True)):
+# lane 0's wire_bytes, JAX's f32 sums over 29 rounds (far above 2^37, so
+# not exact: the port's exact totals meet it within the f32 bound only, and
+# its result digest, which carries them, is its own)
+LATENCY_STORM_100K_SEEDS1_WIRE = {
+    "spec_hash": "5f2b9b39d1768a0f",
+    "result_digest": "ede0a94b3594345245246dff5aa8ea37",
+    "rounds": [29],
+    "wire_bytes": [11557585240064.0],
+}
+
+# the latency storm's cell at 1280 nodes and 64 payloads inside the packed
+# envelope (packed_min_cells 0), seeds 0-2, name "latency-storm-lanes"
+# (tests/torch_parity.py latency_storm_spec_at): JAX's vmapped lanes equal
+# its solo runs there, where at 1024 nodes they leave them (the
+# power-of-two quirk, ROADMAP "Reference health")
+LATENCY_STORM_LANES_1280 = {
+    "spec_hash": "801dcb5953375bba",
+    "result_digest": "e3a2e3835881907d3a0779d7a38be0ae",
+    "rounds": [24, 39, 22],
+    "p99_node_convergence_round": [13.0, 14.0, 14.0],
+}

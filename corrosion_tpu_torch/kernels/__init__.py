@@ -177,6 +177,20 @@ replaces:
   K22's u8 lane entry `ORDER_CHECK_DENSE_LANES` (a count a lane) —
   `sim.invariants.count_order_violations_lanes_`.
 
+- latency plans and the flight recorder on the packed round's lanes
+  (B16l, B16r's packed half; one row a kernel, counted apart from the
+  solo entries): K10j's lane entry `BROADCAST_SCATTER_JITTER_LANES` (K10's
+  lane launcher with the jitter stream) — `sim.lanes.scatter_lanes` with
+  the plan's jitter; K3's delay lane entry `SYNC_PULL_DELAY_LANES` (K3's
+  lane launcher with session delays) — `sim.lanes.sync_pull_lanes`; K17's
+  word lane entries `TRACE_COUNTS_LANES`, `TRACE_COVERAGE_LANES` —
+  `sim.telemetry.count_words_lanes_`, `coverage_delivered_lanes_`; K18's
+  words lane entry `TRACE_WIRE_WORDS_LANES` — `sim.telemetry.
+  wire_words_lanes_`; the recording forms `BROADCAST_SCATTER_LOSSY_LANES_
+  TRACE`, `BROADCAST_SCATTER_JITTER_LANES_TRACE` (dropped frames a lane)
+  and `SYNC_PULL_LANES_TRACE`, `SYNC_PULL_DELAY_LANES_TRACE` (granted
+  words a lane).
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -374,7 +388,7 @@ BROADCAST_SCATTER_LANES = Kernel("broadcast_scatter_lanes",
                                  "corro_broadcast_scatter_lanes", 5)
 BROADCAST_SCATTER_LOSSY_LANES = Kernel(
     "broadcast_scatter_lossy_lanes", "broadcast_scatter.cu",
-    "corro_broadcast_scatter_lossy_lanes", 6)
+    "corro_broadcast_scatter_lossy_lanes", 10)
 SYNC_PULL_LANES = Kernel("sync_pull_lanes", "sync_pull.cu",
                          "corro_sync_pull_lanes", 6)
 GAPS_REFRESH_LANES = Kernel("gaps_refresh_lanes", "gaps_refresh.cu",
@@ -508,6 +522,29 @@ DENSE_DELIVER_FIFO_LANES = Kernel("dense_deliver_fifo_lanes",
 ORDER_CHECK_DENSE_LANES = Kernel("order_check_dense_lanes", "order_check.cu",
                                  "corro_order_check_dense_lanes", 5)
 
+BROADCAST_SCATTER_JITTER_LANES = Kernel(
+    "broadcast_scatter_jitter_lanes", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_lossy_lanes", 10)
+SYNC_PULL_DELAY_LANES = Kernel("sync_pull_delay_lanes", "sync_pull.cu",
+                               "corro_sync_pull_lanes", 6)
+TRACE_COUNTS_LANES = Kernel("trace_counts_lanes", "trace_counts.cu",
+                            "corro_trace_counts_lanes", 4)
+TRACE_COVERAGE_LANES = Kernel("trace_coverage_lanes", "trace_counts.cu",
+                              "corro_trace_coverage_lanes", 4)
+TRACE_WIRE_WORDS_LANES = Kernel("trace_wire_words_lanes", "trace_wire.cu",
+                                "corro_trace_wire_words_lanes", 5)
+BROADCAST_SCATTER_LOSSY_LANES_TRACE = Kernel(
+    "broadcast_scatter_lossy_lanes_trace", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_lossy_lanes", 10)
+BROADCAST_SCATTER_JITTER_LANES_TRACE = Kernel(
+    "broadcast_scatter_jitter_lanes_trace", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_lossy_lanes", 10)
+SYNC_PULL_LANES_TRACE = Kernel("sync_pull_lanes_trace", "sync_pull.cu",
+                               "corro_sync_pull_lanes", 6)
+SYNC_PULL_DELAY_LANES_TRACE = Kernel("sync_pull_delay_lanes_trace",
+                                     "sync_pull.cu", "corro_sync_pull_lanes",
+                                     6)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -618,12 +655,24 @@ PORTED = {
     "trace_wire_rows_pull_lanes": (TRACE_WIRE_ROWS_PULL_LANES,),
     "dense_deliver_fifo_lanes": (DENSE_DELIVER_FIFO_LANES,),
     "order_check_dense_lanes": (ORDER_CHECK_DENSE_LANES,),
+    "broadcast_scatter_jitter_lanes": (BROADCAST_SCATTER_JITTER_LANES,),
+    "sync_pull_delay_lanes": (SYNC_PULL_DELAY_LANES,),
+    "trace_counts_lanes": (TRACE_COUNTS_LANES, TRACE_COVERAGE_LANES),
+    "trace_wire_lanes": (TRACE_WIRE_WORDS_LANES,),
+    "broadcast_scatter_lossy_lanes_trace": (
+        BROADCAST_SCATTER_LOSSY_LANES_TRACE,),
+    "broadcast_scatter_jitter_lanes_trace": (
+        BROADCAST_SCATTER_JITTER_LANES_TRACE,),
+    "sync_pull_lanes_trace": (SYNC_PULL_LANES_TRACE,),
+    "sync_pull_delay_lanes_trace": (SYNC_PULL_DELAY_LANES_TRACE,),
 }
-#: the flight recorder on the dense round's lanes (B16r): the lane entries
-#: of K17-K19 (K18's rows and rows-pull entries) and the recording forms of
-#: the lane launchers of K12, K12f, K12t, K12p, K13, K13d (their recorder
-#: outputs) and of K9's, K9's latency entry's and K9m's edge queries (their
-#: lane-strided counts)
+#: the flight recorder on the seed ensembles' lanes (B16r): the lane
+#: entries of K17-K19 (K17's dense, grant and coverage entries, K18's rows,
+#: rows-pull and words entries) and the recording forms of the lane
+#: launchers of K12, K12f, K12t, K12p, K13, K13d on the dense round and of
+#: K10, K10j, K3, K3d on the packed round (their recorder outputs), and of
+#: K9's, K9's latency entry's and K9m's edge queries (their lane-strided
+#: counts)
 TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
                    "trace_row_lanes", "dense_broadcast_lanes_trace",
                    "dense_broadcast_fault_lanes_trace",
@@ -634,7 +683,10 @@ TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
                    "dense_broadcast_tiered_lanes_trace",
                    "dense_pull_lossy_lanes_trace",
                    "dense_pull_tiered_lanes_trace",
-                   "trace_wire_rows_pull_lanes")
+                   "trace_wire_rows_pull_lanes", "trace_counts_lanes",
+                   "trace_wire_lanes", "broadcast_scatter_lossy_lanes_trace",
+                   "broadcast_scatter_jitter_lanes_trace",
+                   "sync_pull_lanes_trace", "sync_pull_delay_lanes_trace")
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
@@ -650,6 +702,7 @@ LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "peerswap_lanes", "degree_caps_sched_lanes", "dense_pull_lanes",
              "dense_pull_lossy_lanes", "dense_pull_tiered_lanes",
              "dense_deliver_fifo_lanes", "order_check_dense_lanes",
+             "broadcast_scatter_jitter_lanes", "sync_pull_delay_lanes",
              *TRACE_LANE_ROWS)
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
@@ -695,7 +748,11 @@ __all__ = [
     "DENSE_PULL_LOSSY_LANES", "DENSE_PULL_TIERED_LANES",
     "DENSE_PULL_LOSSY_LANES_TRACE", "DENSE_PULL_TIERED_LANES_TRACE",
     "TRACE_WIRE_ROWS_PULL_LANES", "DENSE_DELIVER_FIFO_LANES",
-    "ORDER_CHECK_DENSE_LANES",
+    "ORDER_CHECK_DENSE_LANES", "BROADCAST_SCATTER_JITTER_LANES",
+    "SYNC_PULL_DELAY_LANES", "TRACE_COUNTS_LANES", "TRACE_COVERAGE_LANES",
+    "TRACE_WIRE_WORDS_LANES", "BROADCAST_SCATTER_LOSSY_LANES_TRACE",
+    "BROADCAST_SCATTER_JITTER_LANES_TRACE", "SYNC_PULL_LANES_TRACE",
+    "SYNC_PULL_DELAY_LANES_TRACE",
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
     "BROADCAST_SCATTER_LOSSY", "BROADCAST_SCATTER_TIERED", "BUDGET_WORDS",
     "CONVERGE_FINISH", "CONVERGE_ROWS", "DEGREE_CAPS", "DENSE_BROADCAST",

@@ -136,6 +136,20 @@
 // pass 2^31 at 16 lanes of the storm (16 * 300000 * 512); no index here
 // is flattened across lanes (lane offsets are 64-bit).  Bound: K times
 // the solo bound.
+//
+// K10j's lane entry (B16l: the jitter instantiation of the same lane
+// launcher, counted as broadcast_scatter_jitter_lanes) adds the third
+// stream on the lanes: each lane draws randint(fold_in(fold_in(keys[k],
+// seeds[k]), 102), [E, P], 0, 2^31 - 1) at its own element counters
+// e*32W + 32k + b, e lane-local (153.6 M elements a lane at the storm,
+// below 2^32; the [K, E, P] offset is not, and is never formed), and a
+// surviving payload of a jittered edge lands in slot (slot[k, e] + draw %
+// (jit[k, e] + 1)) % D of its lane's ring.  The loss stream may be absent
+// in a jitter round (thr null).  The recording forms (B16r's packed half)
+// add each lane's lost frames to its own int64 slot, `dropped` + k *
+// dropped_stride (the [K, 12] trace accumulators, stride 12), as K12's
+// recording lane forms do.  Bound: K times the solo bound (operations in a
+// jittered round).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -273,7 +287,7 @@ __global__ void broadcast_scatter_kernel(
     const int32_t* __restrict__ seeds,
     int n, int d_slots, int w, int fanout,
     int n_edges, uint32_t seed, uint32_t tag, int topo_thr, uint32_t jit_tag,
-    uint32_t span, uint32_t mult) {
+    uint32_t span, uint32_t mult, int dropped_stride) {
   __shared__ uint32_t folded[2];
   __shared__ uint32_t jsub[4];
   __shared__ unsigned long long lost_block;
@@ -292,6 +306,7 @@ __global__ void broadcast_scatter_kernel(
     if (key) key += 2 * lane;
     if (topo_key) topo_key += 2 * lane;
     if (seeds) seed = (uint32_t)seeds[lane];
+    if (dropped) dropped += lane * dropped_stride;
   }
   if (thr != nullptr || kJitter) {
     if (threadIdx.x == 0) {
@@ -389,7 +404,7 @@ extern "C" int corro_broadcast_scatter(void* ring, const void* sending,
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
       nullptr, nullptr, nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u,
-      0u, 0, 0u, 1u, 0u);
+      0u, 0, 0u, 1u, 0u, 0);
   return (int)cudaGetLastError();
 }
 
@@ -411,7 +426,7 @@ extern "C" int corro_broadcast_scatter_lanes(void* ring, const void* sending,
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
       (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
       nullptr, nullptr, nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u,
-      0u, 0, 0u, 1u, 0u);
+      0u, 0, 0u, 1u, 0u, 0);
   return (int)cudaGetLastError();
 }
 
@@ -423,9 +438,11 @@ int launch_lossy(const void* ring, const void* sending, const void* dst,
                  const void* jit, const void* tiers, int n, int d_slots,
                  int w, int fanout, int seed, int tag, int topo_thr,
                  int jit_tag, int span, int mult, void* stream,
-                 const void* seeds = nullptr, int lanes = 1) {
+                 const void* seeds = nullptr, int lanes = 1,
+                 int dropped_stride = 0) {
   bool tiered = tiers != nullptr;
-  if (lanes <= 0 || lanes > 65535 || (lanes > 1 && dropped != nullptr) ||
+  if (lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && dropped != nullptr && dropped_stride < 1) ||
       n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 || d_slots <= 0 ||
       ((thr != nullptr || jit != nullptr) != (key != nullptr)) ||
       (jit != nullptr && span == 0) ||
@@ -455,7 +472,7 @@ int launch_lossy(const void* ring, const void* sending, const void* dst,
       (const int32_t*)tiers, (const int32_t*)seeds, n, d_slots, w, fanout,
       n_edges, (uint32_t)seed,
       (uint32_t)tag, topo_thr, (uint32_t)jit_tag, (uint32_t)span,
-      (uint32_t)mult);
+      (uint32_t)mult, dropped_stride);
   return (int)cudaGetLastError();
 }
 
@@ -491,22 +508,30 @@ extern "C" int corro_broadcast_scatter_tiered(
                       topo_thr, jit_tag, span, mult, stream);
 }
 
-// K10's lane entry (the fault stream only): ring [lanes, D, N, W],
-// sending [lanes, N, W], dst, slot, ok and thr [lanes, E], `key` the
+// K10's lane entry: ring [lanes, D, N, W], sending [lanes, N, W], dst,
+// slot and ok [lanes, E], `thr` the fault thresholds [lanes, E] (null
+// without fault loss this round), `jit` the jitter bounds [lanes, E] (null
+// without jitter this round: K10j's lane entry when given), `key` the
 // lanes' broadcast phase keys [lanes, 2] and `seeds` their plan seeds
-// [lanes] (i32).  Each lane folds its own key with its own seed and
-// hashes its own counters e*8W + 8k + j, e lane-local: lane k's drops
-// are the solo run's under seed k.
+// [lanes] (i32).  Each lane folds its own key with its own seed (keys 101
+// and 102) and hashes its own counters — e*8W + 8k + j for the loss, the
+// element e*32W + 32k + b for the jitter, e lane-local: lane k's drops and
+// slots are the solo run's under seed k.  The recording forms pass
+// `dropped`, lane 0's int64 slot, each lane's `dropped_stride` slots after
+// the one before (null: nothing counts).
 extern "C" int corro_broadcast_scatter_lossy_lanes(
     void* ring, const void* sending, const void* dst, const void* slot,
     const void* ok, const void* thr, const void* key, const void* seeds,
-    int n, int d_slots, int w, int fanout, int tag, int lanes,
+    void* dropped, const void* jit, int n, int d_slots, int w, int fanout,
+    int tag, int jit_tag, int span, int mult, int dropped_stride, int lanes,
     void* stream) {
-  if (thr == nullptr || key == nullptr || seeds == nullptr)
+  if ((thr == nullptr && jit == nullptr) || key == nullptr ||
+      seeds == nullptr)
     return (int)cudaErrorInvalidValue;
   return launch_lossy(ring, sending, dst, slot, ok, thr, key, nullptr,
-                      nullptr, nullptr, nullptr, n, d_slots, w, fanout, 0,
-                      tag, 0, 0, 0, 0, stream, seeds, lanes);
+                      dropped, jit, nullptr, n, d_slots, w, fanout, 0, tag, 0,
+                      jit_tag, span, mult, stream, seeds, lanes,
+                      dropped_stride);
 }
 
 // K10p, the pull leg: `ok` is ok_pull, `thr` the reverse edges' fault

@@ -74,6 +74,18 @@
 // (lane-local peer ids), sync ring [D, N, W] and fruitful row are its
 // slices of the [K, ...] tensors; the grants land in ring slot `base`
 // of each lane.  Bound: K times the solo bound.
+//
+// K3's delay lane entry (B16l, JAX packed.py:1250-1279 under the vmap;
+// the same launcher with `sdelay`, counted as sync_pull_delay_lanes)
+// takes each lane's session delays sdelay [K, N * S] (K9's latency entry
+// on the lanes folded into its edge axis): lane k's class d < D - 1 is
+// read-OR-written into slot (base + d) % D of its own ring, a class past
+// D - 2 lands nowhere, and fruitful counts every granted word whatever
+// its class.  The recording forms (B16r's packed half; counted as
+// sync_pull_lanes_trace and sync_pull_delay_lanes_trace) copy each lane's
+// granted words to its slice of `granted` [K, N * S, W], which K17's
+// grant lane entry counts into the lane's own trace row.  Edge offsets
+// are 64-bit: K * N * S * W passes 2^31 at 16 lanes of the storm.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -261,23 +273,28 @@ extern "C" int corro_sync_pull(const void* masks, const void* miss,
 
 // The lane entry: masks [lanes, N, 4, W], miss [lanes, N, W], peers and
 // ok [lanes, N, S], ring [lanes, d_slots, N, W], fruitful [lanes, N];
-// every grant lands in slot `base` (no session delays, no grant copy).
+// with `sdelay` [lanes, N * S] (K3's delay lane entry) each lane's grants
+// land by class from slot `base`, else all in slot `base`; with `granted`
+// [lanes, N * S, W] (the recording forms) each lane's granted words are
+// copied there too.
 extern "C" int corro_sync_pull_lanes(const void* masks, const void* miss,
                                      const void* peers, const void* ok,
-                                     void* ring, void* fruitful, int n, int w,
-                                     int s_peers, int d_slots, int base,
-                                     int lanes, void* stream) {
+                                     void* ring, void* fruitful,
+                                     void* granted, const void* sdelay, int n,
+                                     int w, int s_peers, int d_slots,
+                                     int base, int lanes, void* stream) {
   if (n <= 0 || w <= 0 || s_peers <= 0 || d_slots <= 0 || base < 0 ||
       base >= d_slots || lanes <= 0 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   size_t total = (size_t)n * w;
   int threads = 256;
   unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  Classes cls{(uint32_t*)ring, nullptr, d_slots, base};
+  Classes cls{(uint32_t*)ring, (const int32_t*)sdelay, d_slots, base};
   sync_pull_kernel<<<dim3(blocks, lanes), threads, 0,
                      (cudaStream_t)stream>>>(
       (const uint32_t*)masks, (const uint32_t*)miss, (const int32_t*)peers,
-      (const bool*)ok, cls, (uint8_t*)fruitful, nullptr, n, w, s_peers);
+      (const bool*)ok, cls, (uint8_t*)fruitful, (uint32_t*)granted, n, w,
+      s_peers);
   return (int)cudaGetLastError();
 }
 

@@ -40,6 +40,17 @@
 // is the solo entry on lane k's inputs.  Bound: bytes, K times the solo
 // entry's — 8 x 100000 x 512 x 2 bytes = 819 MB at the 8-lane dense
 // fault storm, about 0.245 ms.
+//
+// The word entries' lane forms (corro_trace_counts_lanes,
+// corro_trace_coverage_lanes: B16r's packed half, ensemble.py:114 vmaps
+// packed.py:1302-1322 and telemetry.py:290) count a seed ensemble's lanes
+// of the packed round in one launch: blockIdx.z is the lane, whose words
+// (granted [E, W], or have and have0 [N, W] with alive [N]) are its
+// slices of [K, ...] tensors (64-bit offsets: 8 x 300000 x 16 words pass
+// 2^25 a lane, 2^31 bytes at 16 lanes) and whose count rows are out +
+// k * out_stride; lane k is the solo entry on lane k's inputs.  Bound:
+// bytes, K times the solo entry's — 8 x 19.2 MB of grants (0.046 ms) and
+// 8 x 12.8 MB of have words (0.031 ms) at the 8-lane storm.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,9 +79,21 @@ __device__ __forceinline__ void nib_flush(uint32_t (&nib)[4], int (&cnt)[32]) {
 __global__ void trace_counts_words_kernel(
     const uint32_t* __restrict__ words, const uint32_t* __restrict__ have0,
     const uint8_t* __restrict__ alive, int32_t* __restrict__ out0,
-    int32_t* __restrict__ out1, int rows, int w, int cols, int step) {
+    int32_t* __restrict__ out1, int rows, int w, int cols, int step,
+    int out_stride) {
   __shared__ int sums[2][kMaxCols * 32];
   const bool two = have0 != nullptr;
+  {
+    // the lane's slices (lane 0 on the solo entries)
+    const size_t lane = blockIdx.z;
+    words += lane * (size_t)rows * w;
+    if (two) {
+      have0 += lane * (size_t)rows * w;
+      alive += lane * (size_t)rows;
+      out1 += lane * (size_t)out_stride;
+    }
+    out0 += lane * (size_t)out_stride;
+  }
   for (int i = threadIdx.x; i < 2 * kMaxCols * 32; i += blockDim.x)
     (&sums[0][0])[i] = 0;
   __syncthreads();
@@ -147,8 +170,11 @@ __global__ void trace_counts_dense_kernel(const uint8_t* __restrict__ have,
 }
 
 int launch_words(const void* words, const void* have0, const void* alive,
-                 void* out0, void* out1, int rows, int w, void* stream) {
-  if (rows < 0 || w <= 0) return (int)cudaErrorInvalidValue;
+                 void* out0, void* out1, int rows, int w, void* stream,
+                 int out_stride = 0, int lanes = 1) {
+  if (rows < 0 || w <= 0 || lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && out_stride < w * 32))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   int cols = w < kMaxCols ? w : kMaxCols;
   int tiles = (w + cols - 1) / cols;
@@ -157,10 +183,10 @@ int launch_words(const void* words, const void* have0, const void* alive,
   long long want = ((long long)rows + 16LL * step - 1) / (16LL * step);
   long long cap = 528 / tiles > 0 ? 528 / tiles : 1;
   unsigned bx = (unsigned)(want < cap ? (want > 0 ? want : 1) : cap);
-  dim3 grid(bx, (unsigned)tiles);
+  dim3 grid(bx, (unsigned)tiles, (unsigned)lanes);
   trace_counts_words_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const uint32_t*)have0, (const uint8_t*)alive,
-      (int32_t*)out0, (int32_t*)out1, rows, w, cols, step);
+      (int32_t*)out0, (int32_t*)out1, rows, w, cols, step, out_stride);
   return (int)cudaGetLastError();
 }
 
@@ -209,4 +235,26 @@ extern "C" int corro_trace_coverage_dense_lanes(
       (const uint8_t*)have, (const uint8_t*)have0, (const uint8_t*)alive,
       (int32_t*)cov, (int32_t*)del, n, p, out_stride);
   return (int)cudaGetLastError();
+}
+
+// The word entries' lane forms (B16r's packed half): the grant counts of
+// words [lanes, R, W], and coverage and delivered from have, have0
+// [lanes, N, W] and alive [lanes, N]; lane 0's count rows, each lane's
+// `out_stride` ints after the one before.
+extern "C" int corro_trace_counts_lanes(const void* words, void* out,
+                                        int rows, int w, int out_stride,
+                                        int lanes, void* stream) {
+  return launch_words(words, nullptr, nullptr, out, nullptr, rows, w, stream,
+                      out_stride, lanes);
+}
+
+extern "C" int corro_trace_coverage_lanes(const void* have, const void* have0,
+                                          const void* alive, void* cov,
+                                          void* del, int n, int w,
+                                          int out_stride, int lanes,
+                                          void* stream) {
+  if (have0 == nullptr || alive == nullptr || del == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_words(have, have0, alive, cov, del, n, w, stream, out_stride,
+                      lanes);
 }

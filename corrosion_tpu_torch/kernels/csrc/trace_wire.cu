@@ -48,6 +48,14 @@
 // of [K, ...] tensors, adding into acc + k * acc_stride; a responder id
 // dst[e] is lane-local.  Bound: bytes, K times the solo entry's.
 //
+// The words entry's lane form (corro_trace_wire_words_lanes: B16r's
+// packed half, ensemble.py:114 vmaps packed.py:565-580) folds a seed
+// ensemble's lanes of the packed round in one launch: blockIdx.y is the
+// lane, whose sending words [N, W] and ok edges [N * F] are its slices of
+// [K, ...] tensors (64-bit offsets) and whose accumulators are acc + k *
+// acc_stride; the sizes nbytes [P] are shared.  Bound: bytes, K times the
+// solo entry's — 8 x (6.4 + 0.3) MB at the 8-lane storm, ~0.016 ms.
+//
 // Bound on the H100: bytes — the sending words (6.4 MB at the storm,
 // 26 MB at gapstress) and the ok bytes, read once.  Design: each warp
 // reads its node's row as one coalesced run; nbytes is 32 KB at most,
@@ -90,7 +98,15 @@ __global__ void trace_wire_words_kernel(const uint32_t* __restrict__ sending,
                                         const int32_t* __restrict__ nbytes,
                                         const bool* __restrict__ ok,
                                         unsigned long long* __restrict__ acc,
-                                        int n, int w, int fanout) {
+                                        int n, int w, int fanout,
+                                        int acc_stride) {
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t k = blockIdx.y;
+    sending += k * (size_t)n * w;
+    ok += k * (size_t)n * fanout;
+    acc += k * (size_t)acc_stride;
+  }
   int lane = threadIdx.x & (kWarp - 1);
   int warps = gridDim.x * (blockDim.x / kWarp);
   long long frames = 0, bytes = 0;  // lane 0's running totals
@@ -216,7 +232,25 @@ extern "C" int corro_trace_wire_words(const void* sending, const void* nbytes,
   trace_wire_words_kernel<<<grid_for((long long)n * kWarp), kThreads, 0,
                             (cudaStream_t)stream>>>(
       (const uint32_t*)sending, (const int32_t*)nbytes, (const bool*)ok,
-      (unsigned long long*)acc, n, w, fanout);
+      (unsigned long long*)acc, n, w, fanout, 0);
+  return (int)cudaGetLastError();
+}
+
+// The words entry's lane form: sending [lanes, N, W], ok [lanes, N * F],
+// the shared sizes nbytes [P]; lane 0's accumulators, each lane's
+// `acc_stride` int64 slots after the one before.
+extern "C" int corro_trace_wire_words_lanes(const void* sending,
+                                            const void* nbytes,
+                                            const void* ok, void* acc, int n,
+                                            int w, int fanout, int acc_stride,
+                                            int lanes, void* stream) {
+  if (n <= 0 || w <= 0 || fanout <= 0 || lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && acc_stride < 2))
+    return (int)cudaErrorInvalidValue;
+  trace_wire_words_kernel<<<dim3(grid_for((long long)n * kWarp), lanes),
+                            kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)sending, (const int32_t*)nbytes, (const bool*)ok,
+      (unsigned long long*)acc, n, w, fanout, acc_stride);
   return (int)cudaGetLastError();
 }
 

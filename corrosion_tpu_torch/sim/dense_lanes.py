@@ -109,6 +109,8 @@ from .lanes import (
     _run_batch,
     _stack_results,
     check_dense_lanes,
+    stack_traces,
+    trace_of,
 )
 from .pswim import (
     _cells,
@@ -1028,20 +1030,6 @@ def lane_batch(states: SimState, cfg: SimConfig, seeds=None,
     return _Batch(slim, None, None,
                   _new_lane_metrics(cfg, lanes, states.alive.device), seeds,
                   list(range(lanes)), () if trace is None else tuple(trace))
-
-
-def trace_of(extra, start: int = 0) -> RoundTrace:
-    """The lane trace carried in a batch's ``extra`` from ``start``."""
-    return RoundTrace(*extra[start:start + len(RoundTrace._fields)])
-
-
-def stack_traces(finished, start: int = 0) -> RoundTrace:
-    """The finished lanes' traces (each its frozen rows of ``extra``
-    from ``start``), stacked in lane order: a lane trace [K, ...]."""
-    extras = [extra for *_, extra in finished]
-    return RoundTrace(*(
-        torch.stack([x[start + j] for x in extras])
-        for j in range(len(RoundTrace._fields))))
 
 
 def run_dense_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,

@@ -11,11 +11,12 @@ plan's schedule are shared, and only the plan's seed is batched
 (``seeds`` i32[K], `campaign.ensemble.lane_plan_seeds`).  Node ids stay
 lane-local.  Every phase runs all live lanes at once: the draws are K5's
 lane entry (`.rng`), the sampler and the merge K1's and K4's
-(`.pswim`), the word phases K8's, the ring scatter K2's or K10's, the
-pull K3's, the gap refresh K6's (`.gaps`), the record K7's (one done
-flag a lane), the node faults K11's and the probe reach K9's lane entry
-(`.faults`); K9's edge queries take the lanes folded into their edge
-axis.  Each wrapper runs its plain torch version on a CPU tensor.
+(`.pswim`), the word phases K8's, the ring scatter K2's, K10's or K10j's,
+the pull K3's (its delay entry under session delays), the gap refresh
+K6's (`.gaps`), the record K7's (one done flag a lane), the node faults
+K11's and the probe reach K9's lane entry (`.faults`); K9's edge queries
+(its latency entry too) take the lanes folded into their edge axis.
+Each wrapper runs its plain torch version on a CPU tensor.
 
 **Freezing finished lanes.**  All lanes start at t = 0 and share
 ``max_rounds``, so every live lane is at the same t and the host keeps
@@ -27,14 +28,35 @@ keeps the live lanes by ``index_select``.  That happens at most K − 1
 times a run and is exact: no other lane's tensors change, and every
 draw of a live lane depends on its own key alone.
 
-The lane path covers what the two 100k storm cells run: the flat
-lossless topology, partial-view SWIM, the baseline protocol, unmetered
-budgets and factored fault plans without latency.  `check_packed_lanes`
-refuses everything else, naming the ROADMAP item that ports it; the
-dense round's lanes (`.dense_lanes`: fault plans of either form, the
-topology families, PeerSwap, the protocol variants) have
-`check_dense_lanes`, and share this module's batch and loop (`_Batch`,
-`_run_batch`).
+**Latency plans** (B16l): under a plan with delay factors each edge's
+fixed delay adds to its slot and each session's delay sends its grants
+to a later slot of the sync ring (K9's latency entry on the lanes
+folded; K3's delay lane entry), and in a round with jitter each surviving
+payload of a jittered edge lands in its own slot (K10j's lane entry, each
+lane under its phase key and plan seed).  The host's copy of the plan's
+loss and jitter activity picks each round's scatter, as the solo round's
+does, so a round with neither runs K2's lane entry.
+
+**The flight recorder** (B16r, packed half): with ``telemetry`` the loop
+carries a lane trace (`.telemetry.new_trace_lanes`) in the batch's
+``extra``, so a finished lane leaves with its trace, as JAX's
+select-frozen lane does.  Each round records every lane's row as the solo
+packed round records its own: the cut edges and refused sessions (K9's
+lane-strided counts), the frames and bytes each lane sends over its ok
+edges (K18's words lane entry), the frames its loss ate (the recording
+forms of K10's and K10j's lane entries), its grant counts (the recording
+forms of K3's lane entries, then K17's grant lane entry), coverage and
+delivered (K17's coverage lane entry), and K19's lane entry writes the
+rows.
+
+The lane path covers what the 100k storm cells run: the flat lossless
+topology, partial-view SWIM, the baseline protocol, unmetered budgets and
+factored fault plans with delay and jitter, with or without the
+recorder.  `check_packed_lanes` refuses everything else, naming the
+ROADMAP item that ports it; the dense round's lanes (`.dense_lanes`:
+fault plans of either form, the topology families, PeerSwap, the
+protocol variants) have `check_dense_lanes`, and share this module's
+batch and loop (`_Batch`, `_run_batch`, `trace_of`, `stack_traces`).
 """
 
 from __future__ import annotations
@@ -44,15 +66,16 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from .. import kernels
-from ..device import ONES
+from ..device import ONES, i32
 from ..kernels.build import check
 from . import rng
 from .faults import (
+    JITTER_TAG,
     WIRE_LOSS_TAG,
     FactoredFaultPlan,
     FactoredRoundFaults,
     _zero_rows_,
-    fault_session_refused,
+    fault_session_effects,
     fault_wire_effects,
     host_activity,
     round_faults,
@@ -60,6 +83,7 @@ from .faults import (
 from .gaps import gaps_to_mask, refresh_gaps_lanes
 from .packed import (
     CONVERGE_ROWS_PER_BLOCK,
+    JITTER_MAX,
     PackedCarry,
     Planes,
     planes_dec_,
@@ -70,6 +94,20 @@ from .packed import (
 from .pswim import psample_member_targets_lanes, pswim_step_lanes
 from .round import RunMetrics, overflow_fraction
 from .state import ALIVE, PayloadMeta, SimConfig, SimState, packed_supported
+from .telemetry import (
+    COVERAGE,
+    GRANTS,
+    WIRE,
+    RoundTrace,
+    acc_slot,
+    count_words_lanes_,
+    coverage_delivered_lanes_,
+    new_trace_lanes,
+    record_row_lanes,
+    trace_row,
+    wire_loss_active,
+    wire_words_lanes_,
+)
 from .topology import Topology, edge_slot_plain, regions
 from .words import (
     all_chunks_words,
@@ -83,22 +121,16 @@ from .words import (
 )
 
 
-def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
-                       telemetry: bool = False) -> None:
+def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None) -> None:
     """Refuse, loudly and naming the ROADMAP item that ports it, every
-    configuration the packed round's lanes do not run: the recorder,
-    topology keys, PeerSwap, the protocol variants (B16m) and metered
-    budgets,
-    matrix plans and plans with delay or jitter; full view and
-    ground-truth membership run on the dense round's lanes instead."""
+    configuration the packed round's lanes do not run: topology keys,
+    the protocol variants and metered budgets (B16m), PeerSwap (B16s's
+    packed half) and matrix plans (B16x); full view and ground-truth
+    membership run on the dense round's lanes instead.  Factored plans
+    with delay and jitter (B16l) and the flight recorder (B16r) run."""
     if not packed_supported(cfg, topo):
         raise ValueError("a dense configuration on the packed round's "
                          "lanes: run it through `.dense_lanes`")
-    if telemetry:
-        raise NotImplementedError(
-            "the flight recorder on the packed round's lanes is not ported "
-            "yet (the word forms of K17-K19 on lanes, ROADMAP B16m); the "
-            "dense round's lanes record (allow_packed=False)")
     if topo != Topology():
         raise NotImplementedError(
             "topology families and keys on the packed round's lanes are "
@@ -126,16 +158,10 @@ def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None,
             "the packed round's lanes run partial-view SWIM only; full "
             "view and ground-truth membership run on the dense round's "
             "lanes (force the dense round with allow_packed=False)")
-    if fplan is not None:
-        if not isinstance(fplan, FactoredFaultPlan):
-            raise NotImplementedError(
-                "matrix fault plans on the packed round's lanes are not "
-                "ported yet (ROADMAP B16x); compile the plan factored")
-        if fplan.delay_src.shape[0] or fplan.jitter_src.shape[0]:
-            raise NotImplementedError(
-                "delay and jitter on the packed round's lanes are not "
-                "ported yet (K10j and K3's delay entry, ROADMAP B16l); the "
-                "dense round's lanes run them (allow_packed=False)")
+    if fplan is not None and not isinstance(fplan, FactoredFaultPlan):
+        raise NotImplementedError(
+            "matrix fault plans on the packed round's lanes are not "
+            "ported yet (ROADMAP B16x); compile the plan factored")
 
 
 def check_dense_lanes(cfg: SimConfig, topo: Topology, fplan=None,
@@ -270,69 +296,43 @@ def deliver_lanes(carry: PackedCarry, t: int, cfg: SimConfig) -> None:
 # -- the ring scatter (K2, K10) ---------------------------------------------
 
 
-def _lane_edge_words(sending, ok, fanout: int) -> torch.Tensor:
-    words = sending.repeat_interleave(fanout, dim=1)  # [K, E, W]
-    return torch.where(ok[..., None], words, 0)
-
-
-def _or_rows_lanes(ring, words, dst, slot) -> None:
-    """OR each lane's edge words [K, E, W] into its ring [K, D, N, W] at
-    (slot, dst), in place: the solo plain scatter on the lanes folded
-    into the ring's slot axis."""
-    from .packed import _or_rows_plain
-
-    lanes, d_slots, n, w = ring.shape
-    base = (torch.arange(lanes, dtype=torch.int32,
-                         device=ring.device) * d_slots)[:, None]
-    _or_rows_plain(ring.view(lanes * d_slots, n, w),
-                   words.reshape(-1, w), dst.reshape(-1),
-                   (slot + base).reshape(-1))
-
-
-def _keep_stream_lanes_(words, thr, keys) -> None:
-    """`packed._keep_stream_` over the lanes, in place on [K, E, W]:
-    lane k's payload 32j + b of edge e survives where byte e*P + 32j + b
-    of ``aligned_u8_bits(keys[k], [E, P])`` is at least thr[k, e] — the
-    lane's own key, lane-local counters."""
-    w = words.shape[2]
-    need = (words != 0) & (thr > 0)[..., None]
-    l_idx, e_idx, k_idx = torch.nonzero(need, as_tuple=True)
-    if l_idx.numel() == 0:
-        return
-    dev = words.device
-    j = torch.arange(8, dtype=torch.int64, device=dev)
-    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=dev)
-    ctr = ((e_idx * 8 * w + 8 * k_idx)[:, None] + j).reshape(-1)
-    k1 = keys[l_idx, 0].repeat_interleave(8)
-    k2 = keys[l_idx, 1].repeat_interleave(8)
-    b1, b2 = rng.threefry2x32(k1, k2, torch.zeros_like(ctr), ctr)
-    byte = (((b1 ^ b2)[:, None] >> shifts) & 0xFF).reshape(-1, 32)
-    keep = pack_bits(byte >= thr[l_idx, e_idx, None].to(torch.int64))
-    words[l_idx, e_idx, k_idx] &= keep.reshape(-1)
-
-
 def scatter_lanes_plain(ring, sending, dst, slot, ok, fanout: int,
-                        thr=None, keys=None, seeds=None) -> None:
-    """Plain version of K2's lane entry (and with ``thr`` K10's), in
-    place."""
-    words = _lane_edge_words(sending, ok, fanout)
-    if thr is not None:
-        fk = rng.fold_in_lanes_plain(rng.fold_in_lanes_plain(keys, seeds),
-                                     WIRE_LOSS_TAG)
-        _keep_stream_lanes_(words, thr, fk)
-    _or_rows_lanes(ring, words, dst, slot)
+                        thr=None, keys=None, seeds=None, jit=None,
+                        dropped=None) -> None:
+    """Plain version of K2's lane entry (with ``thr`` K10's, with ``jit``
+    K10j's, with ``dropped`` their recording forms), in place: the solo
+    plain version on each lane under its key and plan seed."""
+    from .packed import scatter_sending_lossy_plain, scatter_sending_plain
+
+    for k in range(ring.shape[0]):
+        if thr is None and jit is None:
+            scatter_sending_plain(ring[k], sending[k], dst[k], slot[k], ok[k],
+                                  fanout)
+            continue
+        scatter_sending_lossy_plain(
+            ring[k], sending[k], dst[k], slot[k], ok[k],
+            None if thr is None else thr[k], keys[k], int(seeds[k]), fanout,
+            dropped=None if dropped is None else dropped[k],
+            jit=None if jit is None else jit[k])
 
 
 def scatter_lanes(ring, sending, dst, slot, ok, fanout: int, thr=None,
-                  keys=None, seeds=None) -> None:
-    """`packed.scatter_sending` (and with ``thr`` the fault stream of
-    `packed.scatter_sending_lossy`) over the lanes, in place on the rings
-    [K, D, N, W]: lane k's ok edges OR its sending words into its ring,
-    less what its wire-loss draw ``fold_in(fold_in(keys[k], seeds[k]),
-    101)`` drops under thr[k, e].  K2's lane entry, or K10's."""
+                  keys=None, seeds=None, jit=None, dropped=None) -> None:
+    """`packed.scatter_sending` (and with ``thr`` or ``jit`` the fault
+    streams of `packed.scatter_sending_lossy`) over the lanes, in place on
+    the rings [K, D, N, W]: lane k's ok edges OR its sending words into its
+    ring, less what its wire-loss draw ``fold_in(fold_in(keys[k],
+    seeds[k]), 101)`` drops under thr[k, e]; with ``jit`` (i32[K, E], K9's
+    jitter bounds) each surviving payload q of an edge with jit[k, e] > 0
+    lands element e*P + q of ``randint(fold_in(fold_in(keys[k], seeds[k]),
+    102), [E, P], 0, 2^31 - 1)`` mod (jit[k, e] + 1) rounds past slot[k,
+    e].  With ``dropped`` (a lane trace's ``[K]`` accumulator view) each
+    lane's lost frames are added to its slot.  K2's lane entry, K10's, or
+    K10j's with ``jit``; their recording forms, counted apart, with
+    ``dropped``."""
     if ring.device.type == "cpu":
         scatter_lanes_plain(ring, sending, dst, slot, ok, fanout, thr, keys,
-                            seeds)
+                            seeds, jit, dropped)
         return
     lanes, d_slots, n, w = ring.shape
     e = n * fanout
@@ -341,53 +341,74 @@ def scatter_lanes(ring, sending, dst, slot, ok, fanout: int, thr=None,
     check("dst", dst, torch.int32, (lanes, e))
     check("slot", slot, torch.int32, (lanes, e))
     check("ok", ok, torch.bool, (lanes, e))
-    if thr is None:
+    if thr is None and jit is None:
+        if dropped is not None:
+            raise ValueError("dropped needs a loss or jitter stream")
         kernels.BROADCAST_SCATTER_LANES.launch(
             [ring, sending, dst, slot, ok], [n, d_slots, w, fanout, lanes])
         return
-    check("thr", thr, torch.uint8, (lanes, e))
+    if thr is not None:
+        check("thr", thr, torch.uint8, (lanes, e))
+    if jit is not None:
+        check("jit", jit, torch.int32, (lanes, e))
     check("keys", keys, torch.int64, (lanes, 2))
     check("seeds", seeds, torch.int32, (lanes,))
-    kernels.BROADCAST_SCATTER_LOSSY_LANES.launch(
-        [ring, sending, dst, slot, ok, thr, keys, seeds],
-        [n, d_slots, w, fanout, WIRE_LOSS_TAG, lanes])
+    stride = 0
+    if dropped is not None:
+        _check_lane_slot("dropped", dropped, lanes)
+        stride = dropped.stride(0)
+    kernel = {(False, False): kernels.BROADCAST_SCATTER_LOSSY_LANES,
+              (True, False): kernels.BROADCAST_SCATTER_JITTER_LANES,
+              (False, True): kernels.BROADCAST_SCATTER_LOSSY_LANES_TRACE,
+              (True, True): kernels.BROADCAST_SCATTER_JITTER_LANES_TRACE}[
+        (jit is not None, dropped is not None)]
+    span, mult = rng.scalar_span(0, JITTER_MAX)
+    kernel.launch(
+        [ring, sending, dst, slot, ok, thr, keys, seeds, dropped, jit],
+        [n, d_slots, w, fanout, WIRE_LOSS_TAG, JITTER_TAG, i32(span),
+         i32(mult), stride, lanes])
+
+
+def _check_lane_slot(name: str, t: torch.Tensor, lanes: int) -> None:
+    """A lane trace's ``[K]`` view of one int64 accumulator slot."""
+    if (not t.is_cuda or t.dtype != torch.int64
+            or tuple(t.shape) != (lanes,)):
+        raise ValueError(f"{name} must be a CUDA int64 [K] view")
 
 
 # -- the sync pull (K3) ------------------------------------------------------
 
 
-def sync_pull_lanes_plain(masks, miss, peers, ok, ring,
-                          slot: int) -> torch.Tensor:
-    """Plain version of K3's lane entry: the need algebra on each lane's
-    gathered peer rows, the grants ORed into its ring's slot in place."""
-    lanes, n, _, w = masks.shape
-    s = peers.shape[2]
-    haves_w, partial_w, below_w, have_w = masks.unbind(dim=2)
-    off = (torch.arange(lanes, device=masks.device) * n)[:, None, None]
-    d = masks.reshape(lanes * n, 4, w)[peers.long() + off]
-    haves_d, partial_d, below_d, have_d = d.unbind(dim=3)
-    wanted = (
-        (miss[:, :, None, :] & haves_d)
-        | (partial_w[:, :, None, :] & (haves_d | partial_d))
-        | (~below_w[:, :, None, :] & below_d)
-    )
-    need = wanted & have_d & ~have_w[:, :, None, :]
-    need = torch.where(ok[..., None], need, 0)
-    pulled = need[:, :, 0]
-    for j in range(1, s):
-        pulled = pulled | need[:, :, j]
-    ring[:, slot] |= pulled
-    return (need != 0).any(dim=3).any(dim=2)
+def sync_pull_lanes_plain(masks, miss, peers, ok, ring, slot: int,
+                          sdelay=None, granted=None) -> torch.Tensor:
+    """Plain version of K3's lane entry (with ``sdelay`` its delay lane
+    entry, with ``granted`` their recording forms): the solo plain version
+    on each lane's rows and its ring's slot (or whole ring), in place."""
+    from .packed import sync_pull_plain
+
+    return torch.stack([
+        sync_pull_plain(
+            masks[k], miss[k], peers[k], ok[k],
+            ring[k, slot] if sdelay is None else ring[k],
+            granted=None if granted is None else granted[k],
+            sdelay=None if sdelay is None else sdelay[k], slot=slot)
+        for k in range(masks.shape[0])])
 
 
-def sync_pull_lanes(masks, miss, peers, ok, ring, slot: int) -> torch.Tensor:
-    """`packed.sync_pull` over the lanes, unmetered and without session
-    delays: each lane's sessions pull from its own rows (``peers``
-    [K, N, S] lane-local) into slot ``slot`` of its sync ring [K, D, N, W]
-    in place; returns bool [K, N] fruitful.  K3's lane entry on the
-    card."""
+def sync_pull_lanes(masks, miss, peers, ok, ring, slot: int, sdelay=None,
+                    granted=None) -> torch.Tensor:
+    """`packed.sync_pull` over the lanes, unmetered: each lane's sessions
+    pull from its own rows (``peers`` [K, N, S] lane-local) into slot
+    ``slot`` of its sync ring [K, D, N, W] in place; returns bool [K, N]
+    fruitful.  With ``sdelay`` (i32[K, N * S], the lanes' session delays)
+    edge e of lane k lands in slot (slot + sdelay[k, e]) % D, a
+    read-OR-write (a class past D - 2 lands nowhere); with ``granted``
+    ([K, N * S, W]) each lane's granted words are copied there too (every
+    class).  K3's lane entry on the card, its delay lane entry with
+    ``sdelay``; their recording forms, counted apart, with ``granted``."""
     if masks.device.type == "cpu":
-        return sync_pull_lanes_plain(masks, miss, peers, ok, ring, slot)
+        return sync_pull_lanes_plain(masks, miss, peers, ok, ring, slot,
+                                     sdelay, granted)
     lanes, n, _, w = masks.shape
     s = peers.shape[2]
     d_slots = ring.shape[1]
@@ -398,11 +419,19 @@ def sync_pull_lanes(masks, miss, peers, ok, ring, slot: int) -> torch.Tensor:
     check("sync ring", ring, torch.int32, (lanes, d_slots, n, w))
     if not 0 <= slot < d_slots:
         raise ValueError(f"slot {slot} outside the ring of {d_slots}")
+    if sdelay is not None:
+        check("sdelay", sdelay, torch.int32, (lanes, n * s))
+    if granted is not None:
+        check("granted", granted, torch.int32, (lanes, n * s, w))
     fruitful = torch.zeros((lanes, n), dtype=torch.uint8,
                            device=masks.device)
-    kernels.SYNC_PULL_LANES.launch(
-        [masks, miss, peers, ok, ring, fruitful],
-        [n, w, s, d_slots, slot, lanes])
+    kernel = {(False, False): kernels.SYNC_PULL_LANES,
+              (True, False): kernels.SYNC_PULL_DELAY_LANES,
+              (False, True): kernels.SYNC_PULL_LANES_TRACE,
+              (True, True): kernels.SYNC_PULL_DELAY_LANES_TRACE}[
+        (sdelay is not None, granted is not None)]
+    kernel.launch([masks, miss, peers, ok, ring, fruitful, granted, sdelay],
+                  [n, w, s, d_slots, slot, lanes])
     return fruitful.to(torch.bool)
 
 
@@ -546,12 +575,19 @@ def _edge_alive_lanes(state: SimState, src, dst) -> torch.Tensor:
 
 def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
                     cfg: SimConfig, topo: Topology, region, keys,
-                    faults=None, seeds=None, loss: bool = True) -> None:
+                    meta: PayloadMeta, faults=None, seeds=None,
+                    active=None, trace: Optional[RoundTrace] = None) -> None:
     """`packed.broadcast_packed` over the lanes, in place: each lane's
-    targets (K1's lane entry), its spend (K8) and its ring scatter (K2,
-    or under this round's fault loss K10 with its own key and seed);
-    cuts clear edges through K9 on the lanes folded into its edge axis.
-    ``loss`` is the host's copy of the round's loss activity."""
+    targets (K1's lane entry), its spend (K8) and its ring scatter (K2;
+    under this round's fault loss K10, under its jitter K10j, each lane
+    with its own key and seed).  Under ``faults`` cuts clear edges and the
+    plan's fixed delay adds to each edge's slot (K9, its latency entry
+    under delay or jitter factors, on the lanes folded into its edge
+    axis).  ``active`` is the host's copy of the round's loss and jitter
+    activity (None: every class the plan has).  With a lane ``trace``
+    each lane's cut edges (K9's lane-strided count), the frames and bytes
+    it sends on its ok edges (K18's words lane entry) and the frames its
+    loss ate (the scatter's recording form) go to its accumulators."""
     lanes = keys.shape[0]
     n, f = cfg.n_nodes, cfg.fanout
     ks = rng.split_lanes(keys, 3)
@@ -565,27 +601,41 @@ def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
     dst = torch.clamp(dst, min=0)
     ok &= _edge_alive_lanes(state, src, dst)
     ok &= dst != src
-    thr = None
+    thr = jit = fdelay = None
     if faults is not None:
-        flat_ok = ok.reshape(-1)
-        flat_ok, thr, _, _ = fault_wire_effects(
+        # ok is contiguous [K, E]: its flat view is cleared in place
+        _, thr, fdelay, jit = fault_wire_effects(
             faults, src.expand(lanes, -1).reshape(-1), dst.reshape(-1),
-            flat_ok)
-        ok = flat_ok.reshape(lanes, -1)
-        thr = thr.reshape(lanes, -1) if thr is not None and loss else None
+            ok.view(-1),
+            cut=None if trace is None else acc_slot(trace, "bcast_cut"))
+        thr, fdelay, jit = (None if x is None else x.view(lanes, -1)
+                            for x in (thr, fdelay, jit))
+        if active is not None:
+            thr = thr if active.loss else None
+            jit = jit if active.jitter else None
+    if trace is not None:
+        wire_words_lanes_(trace.acc[:, WIRE], sending, meta.nbytes, ok, f)
     slot = edge_slot_plain(topo, region, src, dst, int(state.t),
-                           carry.inflight.shape[1])
+                           carry.inflight.shape[1], fdelay)
     scatter_lanes(carry.inflight, sending, dst, slot, ok, f, thr, keys,
-                  seeds)
+                  seeds, jit,
+                  None if trace is None or (thr is None and jit is None)
+                  or not wire_loss_active(topo, faults)
+                  else acc_slot(trace, "bcast_dropped"))
 
 
 def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
-               keys, faults=None):
+               keys, faults=None, trace: Optional[RoundTrace] = None):
     """`packed.sync_packed` over the lanes: each lane's peers (K1), the
     need masks from its heads and gaps, the pull into its sync ring's
     slot t + 1 (K3's lane entry) and its backoff and re-arm draws (K5);
-    a cut in either direction refuses a session (K9, folded).  Returns
-    (countdown, backoff), [K, N] each."""
+    a cut in either direction refuses a session, and under a plan with
+    delay factors each session's grants land its session delay later
+    (K9, its latency entry, folded; K3's delay lane entry).  Returns
+    (countdown, backoff, ok): [K, N] each and the sessions' ok mask
+    bool[K, N * S]; with a lane ``trace`` each lane's refused sessions
+    (K9's lane-strided count) and grant counts (K3's recording form, then
+    K17's grant lane entry) go to its accumulators."""
     lanes = keys.shape[0]
     n, s = cfg.n_nodes, cfg.sync_peers
     ks = rng.split_lanes(keys, 3)
@@ -600,11 +650,15 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
     ok &= _edge_alive_lanes(state, src, dst)
     ok &= due[:, src[0].long()]
     ok &= dst != src
+    sdelay = None
     if faults is not None:
-        refused = fault_session_refused(
-            faults, src.expand(lanes, -1).reshape(-1), dst.reshape(-1))
-        if refused is not None:
-            ok &= ~refused.reshape(lanes, -1)
+        # the refused count is taken before the mask clears them
+        _, sdelay = fault_session_effects(
+            faults, src.expand(lanes, -1).reshape(-1), dst.reshape(-1),
+            ok.view(-1),
+            None if trace is None else acc_slot(trace, "sync_refused"))
+        if sdelay is not None:
+            sdelay = sdelay.view(lanes, n * s)
 
     v = cfg.n_versions
     v_idx = torch.arange(1, v + 1, dtype=torch.int32, device=peers.device)
@@ -615,8 +669,14 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
     partial_w = below_w & ~miss_w & ~comp_w
     masks = torch.stack([haves_w, partial_w, below_w, carry.have], dim=2)
     slot = (int(state.t) + 1) % carry.sync_buf.shape[1]
+    granted = (None if trace is None else torch.empty(
+        (lanes, n * s, carry.have.shape[2]), dtype=torch.int32,
+        device=peers.device))
     fruitful = sync_pull_lanes(masks, miss_w, dst.reshape(lanes, n, s),
-                               ok.reshape(lanes, n, s), carry.sync_buf, slot)
+                               ok.reshape(lanes, n, s), carry.sync_buf, slot,
+                               sdelay, granted)
+    if trace is not None:
+        count_words_lanes_(trace.counts[:, GRANTS], granted)
     backoff = torch.where(
         due & fruitful,
         cfg.sync_interval_rounds,
@@ -628,28 +688,37 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
     ).to(torch.int32)
     rearm = rng.randint_lanes(k_rearm, (n,), 1, backoff + 1)
     countdown = torch.where(due, rearm, state.sync_countdown - 1)
-    return countdown, backoff
+    return countdown, backoff, ok
 
 
 def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
                             metrics: RunMetrics, meta: PayloadMeta,
                             cfg: SimConfig, topo: Topology, region,
                             faults=None, horizon: Optional[int] = None,
-                            seeds=None, loss: bool = True):
+                            seeds=None, active=None,
+                            trace: Optional[RoundTrace] = None):
     """One gossip tick of every lane, phase for phase the solo
     `packed.packed_round_step` with lane k's keys: inject → broadcast →
     sync → deliver → SWIM → gap refresh → convergence record, the
-    round's shared fault slice in the broadcast, sync and SWIM.  Updates
-    ``carry`` and ``inj`` in place; returns (state, metrics, done) with
-    done bool[K] on the device."""
+    round's shared fault slice in the broadcast, sync and SWIM, and
+    ``active`` (the host's copy of its loss and jitter activity) picking
+    the scatter.  Updates ``carry`` and ``inj`` in place; returns (state,
+    metrics, done) with done bool[K] on the device.  With a lane
+    ``trace`` (`.telemetry.new_trace_lanes`) every lane's row is recorded
+    in it, in place, as the solo round records its own: the phases feed
+    each lane's accumulators, then K17's coverage lane entry counts
+    coverage and delivered and K19's lane entry writes the rows (with the
+    shared fault slice's crashes and wipes)."""
     ks = rng.split_lanes(state.key, 4)
     state = state._replace(key=ks[:, 0].contiguous())
     k_bcast, k_sync, k_swim = (ks[:, i].contiguous() for i in (1, 2, 3))
     t = int(state.t)
+    have0 = None if trace is None else carry.have.clone()
     inject_lanes(carry, inj, t, meta, cfg, state.alive)
-    broadcast_lanes(carry, inj, state, cfg, topo, region, k_bcast, faults,
-                    seeds, loss)
-    countdown, backoff = sync_lanes(carry, state, cfg, k_sync, faults)
+    broadcast_lanes(carry, inj, state, cfg, topo, region, k_bcast, meta,
+                    faults, seeds, active, trace)
+    countdown, backoff, sync_ok = sync_lanes(carry, state, cfg, k_sync,
+                                             faults, trace)
     state = state._replace(sync_countdown=countdown, sync_backoff=backoff)
     deliver_lanes(carry, t, cfg)
     state = pswim_step_lanes(state, cfg, topo, k_swim, faults, seeds)
@@ -663,6 +732,13 @@ def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
     metrics = RunMetrics(coverage_at=coverage_at, converged_at=converged_at,
                          overflow_frac=overflow_frac,
                          order_violations=metrics.order_violations)
+    if trace is not None:
+        coverage_delivered_lanes_(trace.counts[:, COVERAGE:GRANTS],
+                                  carry.have, have0, state.alive)
+        record_row_lanes(trace, trace_row(trace, t, cfg.trace_every),
+                         alive=state.alive, state=state, cfg=cfg, rf=faults,
+                         sync_ok=sync_ok, n_overflow=n_overflow,
+                         nbytes=meta.nbytes)
     return state._replace(t=state.t + 1), metrics, done
 
 
@@ -729,6 +805,20 @@ def _lane_slice(batch: _Batch, i: int):
     inj = None if batch.inj is None else batch.inj[i].clone()
     return slim, carry, inj, metrics, tuple(x[i].clone()
                                             for x in batch.extra)
+
+
+def trace_of(extra, start: int = 0) -> RoundTrace:
+    """The lane trace carried in a batch's ``extra`` from ``start``."""
+    return RoundTrace(*extra[start:start + len(RoundTrace._fields)])
+
+
+def stack_traces(finished, start: int = 0) -> RoundTrace:
+    """The finished lanes' traces (each its frozen rows of ``extra``
+    from ``start``), stacked in lane order: a lane trace [K, ...]."""
+    extras = [extra for *_, extra in finished]
+    return RoundTrace(*(
+        torch.stack([x[start + j] for x in extras])
+        for j in range(len(RoundTrace._fields))))
 
 
 def _stack_results(finished, cfg: SimConfig):
@@ -806,6 +896,53 @@ def _new_lane_metrics(cfg: SimConfig, lanes: int, device) -> RunMetrics:
     )
 
 
+def packed_lane_batch(states: SimState, cfg: SimConfig, seeds=None,
+                      trace: Optional[RoundTrace] = None) -> _Batch:
+    """The packed lane loop's batch of every lane of stacked initial
+    states: the packed carry and injected words, the slim state (``t`` a
+    host scalar 0), fresh metrics; with plan ``seeds`` (i32[K], a fault
+    loop's) the tables the node faults write are the loop's own; a lane
+    ``trace`` rides in ``extra`` (`trace_of`)."""
+    dev = states.have.device
+    k_lanes = states.have.shape[0]
+    # `pack_state` and `pack_bits` act on the last axis: lanes ride along
+    carry, inj = pack_state(states, cfg), pack_bits(states.injected)
+    slim = _shrink_lanes(states)._replace(t=torch.zeros((),
+                                                        dtype=torch.int32))
+    if seeds is not None:
+        # the node faults write these in place: the loop owns its own
+        slim = slim._replace(**{
+            name: getattr(slim, name).clone()
+            for name in ("alive", "heads", "gap_lo", "gap_hi", "pid",
+                         "pkey", "psince", "pview")})
+    return _Batch(slim, carry, inj, _new_lane_metrics(cfg, k_lanes, dev),
+                  seeds, list(range(k_lanes)),
+                  () if trace is None else tuple(trace))
+
+
+def packed_lane_step(batch: _Batch, meta: PayloadMeta, cfg: SimConfig,
+                     topo: Topology, region,
+                     fplan: Optional[FactoredFaultPlan] = None,
+                     activity=None, telemetry: bool = False):
+    """One round of the packed lane loop's live lanes: under ``fplan``
+    the round's node faults first (K11's lane entry) and the scatter
+    picked from ``activity`` (`.faults.host_activity` of the plan), then
+    the lane round, recording into the batch's trace with ``telemetry``.
+    Returns (batch, done) with done bool[K] on the device."""
+    t = int(batch.slim.t)
+    rf = active = horizon = None
+    if fplan is not None:
+        rf = round_faults(fplan, t)
+        apply_round_faults_lanes(batch.slim, batch.carry, rf)
+        horizon = fplan.horizon
+        active = activity[min(t, horizon)]
+    slim, metrics, done = packed_round_step_lanes(
+        batch.slim, batch.carry, batch.inj, batch.metrics, meta, cfg, topo,
+        region, rf, horizon, batch.seeds, active,
+        trace_of(batch.extra) if telemetry else None)
+    return batch._replace(slim=slim, metrics=metrics), done
+
+
 def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
               topo: Topology, max_rounds: int,
               fplan: Optional[FactoredFaultPlan] = None,
@@ -813,51 +950,40 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
     """Run every lane of stacked initial states (every field [K, ...],
     ``t`` 0 in all) to its own exit or ``max_rounds``: faultless, the
     solo `packed.run_packed`'s loop per lane; under ``fplan`` (a factored
-    plan, its seed replaced per lane by ``seeds`` i32[K]) the solo
-    `packed.run_packed_faults`' — the round's node faults first (K11),
-    no exit before the horizon, then the fresh all-have predicate.
-    Returns the lanes' final (SimState, RunMetrics), stacked in lane
-    order with ``t`` i32[K] on the host; lane k equals the solo run of
-    its initial state and seed.  ``telemetry`` raises: the recorder on
-    these lanes is ROADMAP B16m."""
-    check_packed_lanes(cfg, topo, fplan, telemetry)
+    plan, delay and jitter factors included, its seed replaced per lane by
+    ``seeds`` i32[K]) the solo `packed.run_packed_faults`' — the round's
+    node faults first (K11), each round's scatter picked from the plan's
+    host activity, no exit before the horizon, then the fresh all-have
+    predicate.  Returns the lanes' final (SimState, RunMetrics), stacked
+    in lane order with ``t`` i32[K] on the host; lane k equals the solo
+    run of its initial state and seed.  With ``telemetry`` the flight
+    recorder runs on every lane (a lane trace of ``max_rounds`` rows,
+    `.telemetry.new_trace_lanes`, carried in the batch's ``extra``) and
+    the lanes' traces come back third, stacked in lane order: lane k's
+    is its solo run's trace (rows past its exit stay zero)."""
+    check_packed_lanes(cfg, topo, fplan)
     dev = states.have.device
     k_lanes = states.have.shape[0]
     region = regions(cfg.n_nodes, topo.n_regions, dev)
-    # `pack_state` and `pack_bits` act on the last axis: lanes ride along
-    carry, inj = pack_state(states, cfg), pack_bits(states.injected)
-    slim = _shrink_lanes(states)._replace(t=torch.zeros((),
-                                                        dtype=torch.int32))
+    activity = None
     if fplan is not None:
-        # the node faults write these in place: the loop owns its own
-        slim = slim._replace(**{
-            name: getattr(slim, name).clone()
-            for name in ("alive", "heads", "gap_lo", "gap_hi", "pid",
-                         "pkey", "psince", "pview")})
         if seeds is None:
             seeds = torch.full((k_lanes,), int(fplan.seed),
                                dtype=torch.int32, device=dev)
-        horizon = fplan.horizon
         activity = host_activity(fplan)
-    batch = _Batch(slim, carry, inj, _new_lane_metrics(cfg, k_lanes, dev),
-                   seeds, list(range(k_lanes)))
+    trace = (new_trace_lanes(cfg, max_rounds, k_lanes, dev) if telemetry
+             else None)
+    batch = packed_lane_batch(states, cfg, None if fplan is None else seeds,
+                              trace)
 
-    def step(batch: _Batch):
-        t = int(batch.slim.t)
-        rf = None
-        if fplan is not None:
-            rf = round_faults(fplan, t)
-            apply_round_faults_lanes(batch.slim, batch.carry, rf)
-        slim, metrics, done = packed_round_step_lanes(
-            batch.slim, batch.carry, batch.inj, batch.metrics, meta, cfg,
-            topo, region, rf, None if fplan is None else horizon,
-            batch.seeds,
-            True if fplan is None else activity[min(t, horizon)].loss)
-        return batch._replace(slim=slim, metrics=metrics), done
-
-    finished = _run_batch(batch, max_rounds,
-                          _initial_done(batch, meta, cfg, fplan), step)
-    return _stack_results(finished, cfg)
+    finished = _run_batch(
+        batch, max_rounds, _initial_done(batch, meta, cfg, fplan),
+        lambda b: packed_lane_step(b, meta, cfg, topo, region, fplan,
+                                   activity, telemetry))
+    finals, metrics = _stack_results(finished, cfg)
+    if telemetry:
+        return finals, metrics, stack_traces(finished)
+    return finals, metrics
 
 
 def _initial_done(batch: _Batch, meta: PayloadMeta, cfg: SimConfig,

@@ -32,13 +32,15 @@ none of this and takes exactly the path it took before.
 f32 (`.fused`); JAX sums f32 terms, so the two agree within m·2⁻²⁴ of
 the total for m terms, and every integer channel is exact.
 
-**On a seed ensemble's lanes** (B16r, dense half) a lane trace
-(`new_trace_lanes`) is K solo traces side by side — channels
-``[K, R, ...]``, ``acc`` [K, len(ACC)], ``counts`` [K, 3, P] — and its
-lane entries (`coverage_delivered_dense_lanes_`, `wire_rows_lanes_`,
-`record_row_lanes`) are the solo kernels with a lane grid dimension,
-each lane adding into and resetting only its own buffers; `lane_trace`
-gives lane k as the solo trace its exporters read.
+**On a seed ensemble's lanes** (B16r) a lane trace (`new_trace_lanes`)
+is K solo traces side by side — channels ``[K, R, ...]``, ``acc``
+[K, len(ACC)], ``counts`` [K, 3, P] — and its lane entries (the dense
+round's `coverage_delivered_dense_lanes_`, `wire_rows_lanes_`, the packed
+round's `count_words_lanes_`, `coverage_delivered_lanes_`,
+`wire_words_lanes_`, and both rounds' `record_row_lanes`) are the solo
+kernels with a lane grid dimension, each lane adding into and resetting
+only its own buffers; `lane_trace` gives lane k as the solo trace its
+exporters read.
 
 The host exporters (`trace_host`, `coverage_curve_digest`,
 `coverage_latency_rounds`, `trace_summary`, `trace_rows`,
@@ -301,6 +303,59 @@ def coverage_delivered_(out: torch.Tensor, have_w: torch.Tensor,
                                   [n, w])
 
 
+def count_words_lanes_plain(out: torch.Tensor, words: torch.Tensor) -> None:
+    """Plain version of K17's grant lane entry: the solo plain version on
+    each lane, added to its row ``out[k]`` in place."""
+    for k in range(words.shape[0]):
+        out[k] += word_bit_counts(words[k], out.shape[1])
+
+
+def count_words_lanes_(out: torch.Tensor, words: torch.Tensor) -> None:
+    """`count_words_` per lane: the per-payload bit counts of each
+    lane's words [K, R, W] (its granted words) added to its row of
+    ``out`` (a lane trace's grant rows ``counts[:, GRANTS]``, [K, P], rows
+    3·P apart), in place.  K17's grant lane entry on the card."""
+    if words.device.type == "cpu":
+        count_words_lanes_plain(out, words)
+        return
+    lanes, rows, w = words.shape
+    check("words", words, torch.int32, (lanes, rows, w))
+    _check_lane_rows("out", out, torch.int32, (lanes, w * 32))
+    kernels.TRACE_COUNTS_LANES.launch([words, out[0]],
+                                      [rows, w, out.stride(0), lanes])
+
+
+def coverage_delivered_lanes_plain(out: torch.Tensor, have_w, have0_w,
+                                   alive) -> None:
+    """Plain version of K17's coverage lane entry: the solo plain
+    version on each lane, added to its rows ``out[k]`` in place."""
+    for k in range(have_w.shape[0]):
+        cov, dlv = word_coverage_delivered(have_w[k], have0_w[k],
+                                           alive[k] == ALIVE, out.shape[2])
+        out[k, 0] += cov
+        out[k, 1] += dlv
+
+
+def coverage_delivered_lanes_(out: torch.Tensor, have_w: torch.Tensor,
+                              have0_w: torch.Tensor,
+                              alive: torch.Tensor) -> None:
+    """`coverage_delivered_` per lane: each lane's have words at round
+    end and start [K, N, W] and ``alive`` [K, N] into its two count rows of
+    ``out`` (a lane trace's ``counts[:, COVERAGE:GRANTS]``, [K, 2, P]), in
+    place.  K17's coverage lane entry on the card."""
+    if have_w.device.type == "cpu":
+        coverage_delivered_lanes_plain(out, have_w, have0_w, alive)
+        return
+    lanes, n, w = have_w.shape
+    check("have_w", have_w, torch.int32, (lanes, n, w))
+    check("have0_w", have0_w, torch.int32, (lanes, n, w))
+    check("alive", alive, torch.uint8, (lanes, n))
+    _check_lane_rows("out", out, torch.int32, (lanes, 2, w * 32))
+    kernels.TRACE_COVERAGE_LANES.launch(
+        [have_w, have0_w, alive, out[0, 0], out[0, 1]],
+        [n, w, out.stride(0), lanes])
+
+
 def coverage_delivered_dense_plain(
     have: torch.Tensor, have0: torch.Tensor, alive: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -399,6 +454,36 @@ def wire_words_(acc: torch.Tensor, sending: torch.Tensor,
     check("nbytes", nbytes, torch.int32, (w * 32,))
     check("ok", ok, torch.bool, (n * fanout,))
     kernels.TRACE_WIRE_WORDS.launch([sending, nbytes, ok, acc], [n, w, fanout])
+
+
+def wire_words_lanes_plain(acc: torch.Tensor, sending, nbytes, ok,
+                           fanout: int) -> None:
+    """Plain version of K18's words lane entry: `wire_words_plain` on
+    each lane, added to its accumulators ``acc[k]`` in place."""
+    for k in range(sending.shape[0]):
+        f, b = wire_words_plain(sending[k], nbytes, ok[k], fanout)
+        acc[k, 0] += f
+        acc[k, 1] += b
+
+
+def wire_words_lanes_(acc: torch.Tensor, sending: torch.Tensor,
+                      nbytes: torch.Tensor, ok: torch.Tensor,
+                      fanout: int) -> None:
+    """`wire_words_` per lane: the frames and bytes each lane's sending
+    words [K, N, W] put on its ok edges bool[K, N * fanout], under the
+    shared sizes ``nbytes``, added to its accumulators ``acc`` (a lane
+    trace's ``acc[:, WIRE]``, [K, 2]), in place.  K18's words lane entry
+    on the card."""
+    if sending.device.type == "cpu":
+        wire_words_lanes_plain(acc, sending, nbytes, ok, fanout)
+        return
+    lanes, n, w = sending.shape
+    _check_lane_rows("acc", acc, torch.int64, (lanes, 2))
+    check("sending", sending, torch.int32, (lanes, n, w))
+    check("nbytes", nbytes, torch.int32, (w * 32,))
+    check("ok", ok, torch.bool, (lanes, n * fanout))
+    kernels.TRACE_WIRE_WORDS_LANES.launch(
+        [sending, nbytes, ok, acc[0]], [n, w, fanout, acc.stride(0), lanes])
 
 
 def wire_rows_(acc: torch.Tensor, row_frames: torch.Tensor,
@@ -903,9 +988,9 @@ def run_membership_detect_lanes(states, meta, cfg: SimConfig, topo,
     never detected, and with ``telemetry`` the lanes' traces fourth
     (`new_trace_lanes` rows, stacked in lane order; lane k's is its solo
     run's), as JAX ``ensemble.py:187`` returns them."""
-    from .dense_lanes import (
-        dense_round_step_lanes, lane_batch, stack_traces, trace_of)
-    from .lanes import _run_batch, _stack_results, check_dense_lanes
+    from .dense_lanes import dense_round_step_lanes, lane_batch
+    from .lanes import (
+        _run_batch, _stack_results, check_dense_lanes, stack_traces, trace_of)
 
     dev, region = _detect_setup(states, cfg, topo, device)
     check_dense_lanes(cfg, topo, telemetry=telemetry)

@@ -20,17 +20,21 @@ from .state import SimConfig
 def pack_bits(x: torch.Tensor) -> torch.Tensor:
     """bool/u8[..., P] → int32-carried u32 words [..., P/32], LSB-first."""
     *lead, p = x.shape
-    b = (x > 0).reshape(*lead, p // 32, 32).to(torch.int32)
-    shifts = torch.arange(32, dtype=torch.int32, device=x.device)
-    # distinct bits: no partial sum leaves the int32 range (bit 31 is the
-    # carrier's -2^31), so the int32 sum is exactly the OR
-    return (b << shifts).sum(dim=-1, dtype=torch.int32)
+    assert p % 32 == 0, p
+    # a byte at a time, so each temporary takes a byte a bit: distinct
+    # bits, so the u8 sum is exactly the OR; a word's bytes little-endian
+    b = (x > 0).reshape(*lead, p // 8, 8).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    return (b << shifts).sum(dim=-1, dtype=torch.uint8).view(torch.int32)
 
 
 def unpack_bits(w: torch.Tensor, p: int) -> torch.Tensor:
     """int32-carried words [..., W] → bool[..., P]."""
-    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
-    bits = (w[..., None] >> shifts) & 1
+    if w.stride(-1) != 1:
+        w = w.contiguous()
+    shifts = torch.arange(8, dtype=torch.uint8, device=w.device)
+    # a byte at a time, little-endian: word bit 8j + i is byte j's bit i
+    bits = (w.view(torch.uint8)[..., None] >> shifts) & 1
     return bits.to(torch.bool).reshape(*w.shape[:-1], p)
 
 

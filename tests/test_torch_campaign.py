@@ -7,6 +7,7 @@ artifacts; ``run_campaign`` on a small packed spec with a two-point grid
 same ``result_digest``), its resume and wall budget; every refusal of the
 ensemble slice; and the new entry points' device default."""
 
+import contextlib
 import dataclasses
 import json
 
@@ -26,7 +27,7 @@ from corrosion_tpu_torch.campaign.ensemble import (
     seed_states,
 )
 from corrosion_tpu_torch.faults import FaultEvent
-from tests.torch_parity import storm_campaign_pair
+from tests.torch_parity import jax_telemetry, storm_campaign_pair
 
 BUILTINS = sorted(jspec_mod.BUILTIN_SPECS)
 
@@ -245,9 +246,7 @@ def _refused_spec(case):
 #: packed round's lanes is no port item: it runs on the dense round's)
 REFUSED = {
     "metered": "ROADMAP B16m",
-    "matrix": "ROADMAP B16x", "latency": "ROADMAP B16l",
-    "jitter": "ROADMAP B16l", "telemetry": "ROADMAP B16m",
-    "measure_wire": "ROADMAP B16m", "peerswap": "ROADMAP B16s",
+    "matrix": "ROADMAP B16x", "peerswap": "ROADMAP B16s",
     "topo_family": "ROADMAP B16m", "topology_key": "ROADMAP B16m",
     "proto_family": "ROADMAP B16m", "proto_key": "ROADMAP B16m",
     "churn": "ROADMAP B16c", "host_parity": "ROADMAP A,",
@@ -256,9 +255,10 @@ REFUSED = {
 }
 
 
-#: a case refused before that runs now: PeerSwap under a fault plan on the
-#: dense round's lanes (B16s-f)
-RUNS = ("dense",)
+#: cases refused before that run now: PeerSwap under a fault plan on the
+#: dense round's lanes (B16s-f); delay, jitter (B16l), the recorder and a
+#: wire measurement (B16r's packed half) on the packed round's lanes
+RUNS = ("dense", "latency", "jitter", "telemetry", "measure_wire")
 
 
 @pytest.mark.parametrize("case", sorted((*REFUSED, *RUNS)))
@@ -267,14 +267,24 @@ def test_engine_refuses_what_the_slice_does_not_run(case):
     item (full view on the packed round's lanes: the dense round's
     lanes, which run it; the protocol variants on the packed round's
     lanes: B16m); none runs some other way.  A case that runs now gives
-    live JAX's artifact."""
+    live JAX's artifact (the recording cases their telemetry block and
+    wire bytes too), on the dense round's lanes or the packed round's."""
     spec = _refused_spec(case)
     if case in RUNS:
-        want = jengine.run_campaign(jspec_mod.CampaignSpec.from_dict(
-            spec.to_dict()), out_path=None)
-        got = engine.run_campaign(spec, device="cpu")
+        recording = case in ("telemetry", "measure_wire")
+        with jax_telemetry() if recording else contextlib.nullcontext():
+            want = jengine.run_campaign(jspec_mod.CampaignSpec.from_dict(
+                spec.to_dict()), out_path=None,
+                telemetry=case == "telemetry")
+        got = engine.run_campaign(spec, device="cpu",
+                                  telemetry=case == "telemetry")
         assert got["result_digest"] == want["result_digest"]
-        assert got["cells"][0]["round_path"] == "dense"
+        cell, jcell = got["cells"][0], want["cells"][0]
+        assert cell["per_seed"] == jcell["per_seed"]
+        if recording:
+            assert cell.get("telemetry") == jcell.get("telemetry")
+        assert cell["round_path"] == ("dense" if case == "dense"
+                                      else "packed")
         return
     kw = {"device": "cpu"}
     if case == "telemetry":
@@ -301,8 +311,8 @@ def test_baseline_family_and_default_keys_run():
 def test_ensemble_refusals():
     """The detect ensemble runs a protocol variant on its lanes (B16v;
     a topology since B16t): the eager cadence over two regions, one
-    lane, to its detect round; the packed round's lanes refuse the
-    recorder (B16m), which the dense round's and the detect loop's lanes
+    lane, to its detect round; the packed round's lanes refuse what
+    B16m names there (a metered budget), which the dense round's lanes
     run."""
     from corrosion_tpu_torch.sim.topology import Topology
 
@@ -315,8 +325,8 @@ def test_ensemble_refusals():
                                                      inject_every=1),
         (0,), kill_every=3, max_rounds=400, telemetry=True, device="cpu")
     assert int(detect[0]) >= 0 and int(finals.t[0]) == int(detect[0])
-    spec = _refused_spec("latency")
-    with pytest.raises(NotImplementedError, match="recorder.*B16m"):
+    spec = _refused_spec("metered")
+    with pytest.raises(NotImplementedError, match="metered.*B16m"):
         run_seed_ensemble(None, spec.sim_config({}), spec.topo({}), None,
                           (0,), telemetry=True, device="cpu")
 

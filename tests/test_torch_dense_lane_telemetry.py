@@ -188,17 +188,27 @@ def test_detect_ensemble_returns_traces_last():
 
 
 def test_packed_lanes_refuse_the_recorder_naming_b16m():
-    """The recorder on the packed round's lanes is ROADMAP B16m: a
-    packed cell with ``telemetry`` or ``measure_wire`` raises naming it,
-    through the ensemble and through the engine; the dense lanes accept
-    the recorder."""
+    """The recorder runs on the packed round's lanes since B16r's packed
+    half (three rounds of a packed cell return the lanes' traces last);
+    what ROADMAP B16m still names there, a metered budget, is refused
+    under the recorder too: a metered packed cell with ``telemetry`` or
+    ``measure_wire`` raises naming B16m, through the ensemble and
+    through the engine; the dense lanes accept the recorder."""
     from corrosion_tpu_torch.campaign import engine
 
     spec = spec_mod.storm_seeds_spec((0,), n_nodes=512)
+    scenario = dict(spec.scenario, n_payloads=64, packed_min_cells=0)
+    plain = dataclasses.replace(spec, scenario=scenario)
+    cfg, topo = plain.sim_config({}), plain.topo({})
+    out = run_seed_ensemble(None, cfg, topo,
+                            uniform_payloads(cfg, "cpu", inject_every=2),
+                            (0, 1), max_rounds=3, telemetry=True,
+                            device="cpu")
+    assert len(out) == 3 and out[2].acc.shape == (2, 12)
     spec = dataclasses.replace(spec, scenario=dict(
-        spec.scenario, n_payloads=64, packed_min_cells=0))
-    cfg, topo = spec.sim_config({}), spec.topo({})
-    with pytest.raises(NotImplementedError, match="recorder.*B16m"):
+        scenario, rate_limit_bytes_round=5 * 1024 * 1024))
+    cfg = spec.sim_config({})
+    with pytest.raises(NotImplementedError, match="metered budgets.*B16m"):
         run_seed_ensemble(None, cfg, topo, None, (0,), telemetry=True,
                           device="cpu")
     with pytest.raises(NotImplementedError, match="B16m"):

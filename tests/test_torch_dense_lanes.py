@@ -163,7 +163,8 @@ def test_dense_check_refuses_by_name(case):
     holds the check's acceptance of a plan, and the ensemble's run under
     it (two seeds of the 3-node parity campaign's matrix plan) equal to
     JAX's, lane by lane; the ``telemetry`` case its acceptance of the
-    recorder, which the packed lanes' check refuses naming B16m; the
+    recorder, which the packed lanes' check accepts too (B16r's packed
+    half) but for what B16m still names there, a metered budget; the
     ``topology`` case its acceptance of a topology key, which the packed
     lanes' check refuses naming B16m; the ``peerswap`` case its
     acceptance of PeerSwap with and without a plan (B16s-f); the
@@ -187,9 +188,13 @@ def test_dense_check_refuses_by_name(case):
         return
     if case == "telemetry":
         check_dense_lanes(cfg, topo, plan, telemetry=True)
+        packed = dataclasses.replace(packed, swim_partial_view=True,
+                                     member_slots=16)
+        check_packed_lanes(packed, topo)
         with pytest.raises(NotImplementedError,
-                           match="flight recorder on the packed.*B16m"):
-            check_packed_lanes(packed, topo, telemetry=True)
+                           match="metered budgets on the packed.*B16m"):
+            check_packed_lanes(dataclasses.replace(
+                packed, sync_budget_bytes=4 * 1024 * 1024), topo)
         return
     if case == "topology":
         check_dense_lanes(cfg, Topology(n_regions=2))

@@ -1857,3 +1857,76 @@ def test_protocol_ensemble_on_card_equals_cpu(card, case):
             assert torch.equal(x.cpu(), y.cpu()), (k, name)
         assert int(metrics.order_violations) == int(
             kept[0][0]["metrics"].order_violations[k])
+
+
+# -- latency plans and the recorder on the packed round's lanes (B16l, B16r) --
+
+
+@pytest.mark.parametrize("lanes, n", ((2, 1201), (3, 3001)))
+def test_packed_lane_latency_kernels(card, lanes, n):
+    """chip_smoke's phase 3lp at small and ragged shapes: K10j's lane
+    entry, K3's delay lane entry, the recording forms of K10's, K10j's and
+    K3's lane entries and K17's and K18's word lane entries equal to
+    their plain versions, lanes 0 and K - 1 to the solo entries on their
+    inputs, every trap reached."""
+    smoke = _smoke()
+    g = np.random.default_rng(lanes + n)
+    rows = smoke.compare_packed_lane_scatter_jitter(card, g, lanes, n,
+                                                    timed=False)
+    sync_rows, granted = smoke.compare_packed_lane_sync_delay(
+        card, g, lanes, n, timed=False)
+    rows += sync_rows + smoke.compare_packed_lane_trace_words(
+        card, g, lanes, granted, n, timed=False)
+    assert all(r["equal"] for r in rows), [r["name"] for r in rows
+                                           if not r["equal"]]
+
+
+@pytest.mark.parametrize("case", ("latency", "latency_telemetry",
+                                  "fault_telemetry"))
+def test_packed_latency_ensemble_on_card_equals_cpu(card, case):
+    """Three lanes of the latency storm (and, recording, of it and of the
+    fault storm) at 1280 × 64 through the engine's ensemble on the card's
+    packed round: every lane tensor, metric and trace field equal to the
+    same ensemble's plain versions on the CPU, and each lane's state (and
+    trace) to the card's solo run of its seed."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_state, run_seed_ensemble)
+    from corrosion_tpu_torch.campaign.spec import (
+        CampaignSpec, storm_fault_events, storm_latency_events,
+        storm_scenario)
+    from corrosion_tpu_torch.sim.round import new_sim
+    from corrosion_tpu_torch.sim.telemetry import lane_trace
+
+    n, seeds = 1280, (0, 3, 5)
+    scenario = dict(storm_scenario(n), n_payloads=64, packed_min_cells=0)
+    events = storm_fault_events(n)
+    if case.startswith("latency"):
+        scenario["n_delay_slots"] = 4
+        events += storm_latency_events(n)
+    spec = CampaignSpec(name="lanes", scenario=scenario, events=events,
+                        seeds=seeds)
+    telemetry = case.endswith("telemetry")
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    plan = spec.fault_plan({}, seed=0)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        outs.append(run_seed_ensemble(plan, cfg, topo, meta, seeds,
+                                      max_rounds=80, telemetry=telemetry,
+                                      device=dev))
+    for a, b in zip(*outs):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y.cpu()), name
+    meta = uniform_payloads(cfg, card, inject_every=2)
+    for k, s in enumerate(seeds):
+        fp = faults.compile_plan(dataclasses.replace(plan, seed=s), cfg,
+                                 topo, device=card)
+        solo = faults.run_fault_plan(new_sim(cfg, s, card), meta, cfg, topo,
+                                     fp, 80, telemetry=telemetry)
+        for name, x, y in zip(solo[0]._fields, solo[0],
+                              lane_state(outs[0][0], k)):
+            assert torch.equal(x.cpu(), y.cpu()), (k, name)
+        if telemetry:
+            for name, x, y in zip(solo[2]._fields, solo[2],
+                                  lane_trace(outs[0][2], k)):
+                assert torch.equal(x.cpu(), y.cpu()), (k, name)

@@ -408,6 +408,23 @@ def dense_storm_spec_at(seeds, n_nodes: int, latency: bool = True):
         spec, scenario=dict(spec.scenario, n_nodes=n_nodes), events=events)
 
 
+def latency_storm_spec_at(seeds, n_nodes: int = 1280, n_payloads: int = 64,
+                          **scenario):
+    """``latency_storm_seeds_spec`` cut to ``n_nodes`` × ``n_payloads``
+    inside the packed envelope (``packed_min_cells`` 0): the storm's
+    scenario and events rebuilt at that width, named
+    ``latency-storm-lanes`` (with ``scenario``'s keys on top)."""
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    spec = sp.latency_storm_seeds_spec(seeds)
+    return dataclasses.replace(
+        spec, name="latency-storm-lanes",
+        scenario=dict(spec.scenario, n_nodes=n_nodes, n_payloads=n_payloads,
+                      packed_min_cells=0, **scenario),
+        events=sp.storm_fault_events(n_nodes)
+        + sp.storm_latency_events(n_nodes))
+
+
 def peerswap_fault_spec_at(seeds, n_nodes: int):
     """``broadcast_peerswap_fault_seeds_spec`` cut to ``n_nodes``: the
     cell's scenario and the fault storm's events rebuilt at that width,
