@@ -391,6 +391,26 @@ result line):
    62), every lane's trace its solo recording run's (phase 3lp before
    them compares K10j's and K3d's lane entries, the recording forms and
    K17's and K18's word lane entries at K = 8 on those paths' shapes);
+   then metered budgets, the topology families and PeerSwap on the
+   packed round's lanes: gapstress-25.6k-seeds8 through
+   ``run_seed_ensemble`` with and without the recorder (path 63: lane 0
+   JAX's seed-1 golden and its telemetry golden), storm-wan-3x2-100k-
+   seeds8 on the packed round through ``run_campaign`` with and without
+   the recorder (path 64: its ``spec_hash``, the packed cell's digest,
+   every lane the dense lanes' JAX pin, lane 0's trace JAX's), the
+   wan-fly-6r and hetero-degree storms (path 65: lane 0 its golden) and
+   the PeerSwap storm at 25 600 nodes (path 66: every lane its one-seed
+   JAX pin), every lane and trace equal to its solo run on the card,
+   each wall beside the solo walls' sum (phase 3lm before them compares
+   K16 on the lanes' rows, K3m's lane entry with its delay classes and
+   recording form, and K10's flat and tiered lane streams with and
+   without the fault loss and the jitter and as recording forms at K = 8
+   on those paths' shapes, lanes 0 and K - 1 held to the solo entries,
+   printing that each trap was reached: a budget that binds in one lane
+   and not in another, a prefix that stops mid-word, a payload larger
+   than the budget, a delay class past D - 2 under metering, a tier at
+   certainty, lanes whose k_drop, phase keys and plan seeds differ, K16's
+   blocks spanning two lanes, a lane without edges);
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at the counts the port made before the recorder; run
    right after the build, since the profiler's count depends on what
@@ -411,7 +431,9 @@ result line):
    8-lane dense-fault-storm-100k without and with the recorder (with
    ``max_memory_allocated``) beside its solo rounds, and rounds 5-7 of
    the 8-lane dense-storm-wan-3x2-100k and dense-storm-push-pull-100k
-   beside their solo rounds (`profile_dense_lanes`);
+   beside their solo rounds (`profile_dense_lanes`), and rounds 5-7 of
+   the 8-lane gapstress-25.6k and packed storm-wan-3x2-100k rounds
+   beside their solo rounds (`profile_axis_lanes`);
 17. print the card line, the kernels JSON line, then the one-line result
    ``{"ok": true, "device": {...}}``.
 
@@ -516,11 +538,11 @@ def _time_ms(fn, reps=REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _time_eager_ms(fn, reps=REPS) -> float:
+def _time_eager_ms(fn, reps=REPS, warmup=WARMUP) -> float:
     """Device milliseconds per call of a function that syncs with the
     host (and so cannot be captured in a graph): CUDA events around
-    ``reps`` eager calls after WARMUP, launch overhead included."""
-    for _ in range(WARMUP):
+    ``reps`` eager calls after ``warmup``, launch overhead included."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -914,6 +936,49 @@ def _random_words(g, shape, dev, ands=1):
     return torch.as_tensor(w.view(np.int32), device=dev)
 
 
+def _grant_words(masks, miss, peers, ok, budget=None, nbytes=None,
+                 sdelay=None, d_slots=1):
+    """The sync ring words a pull's grants touch (the words K3 reads and
+    writes; the rest of the ring it leaves alone): per node and word, one
+    a delay class below D - 1 with a granted bit."""
+    from corrosion_tpu_torch.sim import packed
+
+    n, s = peers.shape
+    w = miss.shape[1]
+    granted = torch.empty((n * s, w), dtype=torch.int32, device=miss.device)
+    packed.sync_pull_plain(masks, miss, peers, ok,
+                           torch.zeros((n, w), dtype=torch.int32,
+                                       device=miss.device), budget, nbytes,
+                           granted)
+    hit = (granted != 0).view(n, s, w)
+    if sdelay is None:
+        return int(hit.any(1).sum())
+    cls = sdelay.view(n, s, 1)
+    return sum(int((hit & (cls == c)).any(1).sum())
+               for c in range(d_slots - 1))
+
+
+def _pull_read_bytes(masks, miss, peers, ok, metered=False):
+    """The bytes of ``masks`` and ``miss`` a sync pull reads on this data
+    (solo [N, 4, W] and [N, W], or lanes [K, N, 4, W] and [K, N, W]): the
+    four planes of each peer a live session gathers, and the puller's
+    planes 1-3 and miss row — every node's in K3, whose threads read them
+    before the sessions; only a node with a live session's in K3m, which
+    reads them under ``live``.  A row that two sessions read counts once;
+    a lane without sessions reads nothing of them in K3m."""
+    n, w = miss.shape[-2], miss.shape[-1]
+    p = peers.reshape(-1, n, peers.shape[-1]).long()
+    live = ok.reshape(p.shape) & (p >= 0) & (p < n)
+    hits = torch.zeros(p.shape[:2], dtype=torch.int32, device=miss.device)
+    hits.scatter_add_(1, torch.where(live, p, 0).flatten(1),
+                      live.flatten(1).to(torch.int32))
+    gathered = hits > 0
+    pullers = live.any(2) if metered else torch.ones_like(gathered)
+    rows = (int(gathered.sum()) + 3 * int((gathered | pullers).sum())
+            + int(pullers.sum()))
+    return rows * w * 4
+
+
 def compare_kernels(dev, seed=0, n=100_000):
     """Phase 3: every kernel against its plain version at storm shapes."""
     from corrosion_tpu_torch.sim import packed, pswim
@@ -986,6 +1051,7 @@ def compare_kernels(dev, seed=0, n=100_000):
     if not bool((ref_buf < 0).any()):
         raise AssertionError("K3 inputs pulled no word with bit 31 set")
     buf_k, buf_p = buf0.clone(), buf0.clone()
+    touched = _grant_words(masks, miss, peers, pok)
     rows.append(dict(
         name="sync_pull",
         source="corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
@@ -995,9 +1061,10 @@ def compare_kernels(dev, seed=0, n=100_000):
         ms=_time_ms(lambda: packed.sync_pull(masks, miss, peers, pok, buf_k)),
         plain_ms=_time_ms(lambda: packed.sync_pull_plain(
             masks, miss, peers, pok, buf_p)),
-        # masks and miss once, peers and ok, the slot in and out, fruitful
-        bound_ms=_bound_ms(masks.numel() * 4 + miss.numel() * 4 + n * s * 5
-                           + n * w * 4 * 2 + n),
+        # the mask and miss rows the sessions read, peers and ok, the slot
+        # words the grants touch in and out, fruitful
+        bound_ms=_bound_ms(_pull_read_bytes(masks, miss, peers, pok)
+                           + n * s * 5 + touched * 4 * 2 + n),
     ))
 
     # K4: table merge over the storm's entry count, with colliding ids
@@ -2071,9 +2138,12 @@ def compare_sync_pull_metered(dev, g, n=GAPSTRESS_N, timed=True):
             masks, miss, peers, ok, work, grant, meta.nbytes), restore),
         _timed(timed, lambda: packed.sync_pull_plain(
             masks, miss, peers, ok, work, grant, meta.nbytes), restore),
-        # masks, miss, peers and ok once, the slot in and out, fruitful,
-        # the sizes
-        _nbytes(masks, miss, peers, ok, meta.nbytes) + n * w * 4 * 2 + n,
+        # the mask and miss rows live sessions read, peers and ok, the
+        # slot words the grants touch in and out, fruitful, the sizes
+        _pull_read_bytes(masks, miss, peers, ok, True)
+        + _nbytes(peers, ok, meta.nbytes)
+        + _grant_words(masks, miss, peers, ok, grant, meta.nbytes) * 4 * 2
+        + n,
         kernel="sync_pull_metered",
     )
 
@@ -2513,7 +2583,8 @@ def compare_trace_outputs(dev, g, timed=True, n=STORM_N,
                 masks, miss, peers, ok, work, budget, meta.nbytes, granted),
                 REPS if budget is None else SLOW_PLAIN_REPS)
             if timed else None,
-            _nbytes(masks, miss, peers, ok, meta.nbytes, granted)
+            _pull_read_bytes(masks, miss, peers, ok, budget is not None)
+            + _nbytes(peers, ok, meta.nbytes, granted)
             + nn * w * 4 * 2 + nn, kernel=kern))
 
     # K9's counts and K10's dropped frames at the fault storm's round 5
@@ -3021,8 +3092,11 @@ def compare_sync_delay(dev, g, n=STORM_N, timed=True):
         work.copy_(ring0)
 
     slot = (LATENCY_T + 1) % d
-    nbytes = (_nbytes(masks, miss, peers, ok, sdelay)
-              + 2 * 2 * n * w * 4 + n)  # two slots in and out, fruitful
+    # the ring words the grants touch, class by class, in and out;
+    # fruitful
+    nbytes = (_pull_read_bytes(masks, miss, peers, ok)
+              + _nbytes(peers, ok, sdelay) + 2 * 4 * _grant_words(
+                  masks, miss, peers, ok, sdelay=sdelay, d_slots=d) + n)
     rows = [_row(
         "sync_pull_delay", "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
         "corrosion_tpu/sim/packed.py:1256", equal, err,
@@ -3034,6 +3108,11 @@ def compare_sync_delay(dev, g, n=STORM_N, timed=True):
     rows[0]["metered_ms"] = _timed(timed, lambda: packed.sync_pull(
         masks, miss, peers, ok, work, budget, meta.nbytes, sdelay=sdelay,
         slot=slot), restore)
+    rows[0]["metered_bound_ms"] = _bound_ms(
+        _pull_read_bytes(masks, miss, peers, ok, True)
+        + _nbytes(peers, ok, sdelay, meta.nbytes) + 2 * 4
+        * _grant_words(masks, miss, peers, ok, budget, meta.nbytes, sdelay,
+                       d) + n)
     return rows
 
 
@@ -5317,6 +5396,8 @@ def compare_lane_sync(dev, g, lanes, n, w, s, timed=True):
     fr = packed.sync_pull(masks[-1], miss[-1], peers[-1], ok[-1], solo)
     _solo_trap("sync_pull lanes", [got_r[-1, 1], got[-1]], [solo, fr])
     rk, rp = ring0.clone(), ring0.clone()
+    touched = sum(_grant_words(masks[k], miss[k], peers[k], ok[k])
+                  for k in range(lanes))
     return [_lane_row(
         "sync_pull_lanes", "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
         "corrosion_tpu/sim/packed.py:1138",
@@ -5326,8 +5407,10 @@ def compare_lane_sync(dev, g, lanes, n, w, s, timed=True):
                                                  1)),
         _timed(timed, lambda: ln.sync_pull_lanes_plain(masks, miss, peers,
                                                        ok, rp, 1)),
-        lanes * (n * 4 * w * 4 + n * w * 4 + n * s * 5 + n * w * 4 * 2 + n),
-        lanes)]
+        # the mask and miss rows the sessions read, peers and ok, the slot
+        # words the grants touch in and out, fruitful
+        _pull_read_bytes(masks, miss, peers, ok) + lanes * (n * s * 5 + n)
+        + touched * 4 * 2, lanes)]
 
 
 def compare_lane_record(dev, g, lanes, n, w, timed=True):
@@ -5546,8 +5629,16 @@ def compare_lane_faults(dev, g, lanes, n, w, f, timed=True):
     carry0 = [_random_words(g, (lanes, n, w), dev) for _ in range(5)] + [
         _random_words(g, (lanes, 2, n, w), dev) for _ in range(2)]
 
+    # no full view: its tables are empty
+    no_view = dict(view=torch.zeros((lanes, 0, 0), dtype=torch.int8,
+                                    device=dev),
+                   vinc=torch.zeros((lanes, 0, 0), dtype=torch.int32,
+                                    device=dev),
+                   suspect_since=torch.zeros((lanes, 0, 0),
+                                             dtype=torch.int32, device=dev))
+
     def state_of(xs, ys):
-        slim = SimpleNamespace(**dict(zip(names, xs)))
+        slim = SimpleNamespace(**dict(zip(names, xs)), **no_view)
         carry = packed.PackedCarry(have=ys[0], inflight=ys[5],
                                    relay=packed.Planes(*ys[1:5]),
                                    sync_buf=ys[6])
@@ -6154,22 +6245,22 @@ def _lane_swim_inputs(g, dev, lanes, n, f, t):
             (gdst, g_ok, ann_target, ann_claim, up, heard_down, fb_inc))
 
 
-def _lane_swim_passes(dl, xs, args, f, t, timeout, kernel=True):
+def _lane_swim_passes(sl, xs, args, f, t, timeout, kernel=True):
     """K15's three lane passes on ``xs`` in place, with the receiver
     filter between them; returns (keys, merged, incarnations)."""
     view, vinc, since, inc = xs
     gdst, g_ok, ann_target, ann_claim, up, heard_down, fb_inc = args
     if kernel:
-        timeout_, merge, apply_ = (dl.swim_timeout_lanes_,
-                                   dl.swim_merge_lanes, dl.swim_apply_lanes_)
+        timeout_, merge, apply_ = (sl.swim_timeout_lanes_,
+                                   sl.swim_merge_lanes, sl.swim_apply_lanes_)
     else:
-        timeout_, merge, apply_ = (dl.swim_timeout_lanes_plain,
-                                   dl.swim_merge_lanes_plain,
-                                   dl.swim_apply_lanes_plain)
+        timeout_, merge, apply_ = (sl.swim_timeout_lanes_plain,
+                                   sl.swim_merge_lanes_plain,
+                                   sl.swim_apply_lanes_plain)
     key = timeout_(view, vinc, since, t, timeout)
     lanes, n = up.shape
     gsrc = torch.arange(n, device=view.device).repeat_interleave(f)
-    ok = g_ok & (dl._cells(view, gdst, gsrc[None].expand(lanes, -1)) != 2)
+    ok = g_ok & (sl._cells(view, gdst, gsrc[None].expand(lanes, -1)) != 2)
     merged = merge(key, gdst, ok, f, ann_target, ann_claim)
     return key, merged, apply_(view, vinc, since, key, merged, inc, up,
                                heard_down, fb_inc, t)
@@ -6180,7 +6271,7 @@ def compare_lane_swim_full(dev, g, lanes, n=4096, f=3, timed=True):
     lanes of N = 4096, F = 3: 134 M belief cells): SUSPECT cells past the
     timeout, DOWN receivers, announce claims, refutes; the last lane
     held to the solo entries."""
-    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import swim_lanes as sl
     from corrosion_tpu_torch.sim import swim as sw
 
     t, timeout = 40, 13
@@ -6188,7 +6279,7 @@ def compare_lane_swim_full(dev, g, lanes, n=4096, f=3, timed=True):
     outs = []
     for kernel in (True, False):
         xs = [x.clone() for x in base]
-        res = _lane_swim_passes(dl, xs, args, f, t, timeout, kernel)
+        res = _lane_swim_passes(sl, xs, args, f, t, timeout, kernel)
         outs.append(list(res) + xs)
     equal, err = _equal_all(outs[0], outs[1])
     last = lanes - 1
@@ -6215,9 +6306,9 @@ def compare_lane_swim_full(dev, g, lanes, n=4096, f=3, timed=True):
     return _dense_lane_row(
         "swim_full_lanes", "swim_full_lanes", "swim_full.cu",
         "corrosion_tpu/sim/swim.py:185", equal, err,
-        _timed(timed, lambda: _lane_swim_passes(dl, work, args, f, t,
+        _timed(timed, lambda: _lane_swim_passes(sl, work, args, f, t,
                                                 timeout), restore),
-        _timed(timed, lambda: _lane_swim_passes(dl, work, args, f, t,
+        _timed(timed, lambda: _lane_swim_passes(sl, work, args, f, t,
                                                 timeout, False), restore),
         nbytes, lanes, n=n)
 
@@ -6228,7 +6319,7 @@ def compare_lane_sample_uniform(dev, g, lanes, n=4096, count=3,
     beliefs (DOWN cells, self candidates, repeats, rows left short), and
     of a broadcast-1k draw without (ground truth); the last lane held to
     the solo entry."""
-    from corrosion_tpu_torch.sim import dense_lanes as dl
+    from corrosion_tpu_torch.sim import swim_lanes as sl
     from corrosion_tpu_torch.sim import swim
 
     rows = []
@@ -6244,8 +6335,8 @@ def compare_lane_sample_uniform(dev, g, lanes, n=4096, count=3,
             np.where(g.random((lanes, size, size)) < 0.5, 2,
                      g.integers(0, 2, (lanes, size, size))),
             dtype=torch.int8, device=dev) if beliefs else None)
-        got = dl.sample_uniform_lanes(cand_t, view, count)
-        want = dl.sample_uniform_lanes_plain(cand_t, view, count)
+        got = sl.sample_uniform_lanes(cand_t, view, count)
+        want = sl.sample_uniform_lanes_plain(cand_t, view, count)
         equal, err = _equal_all([got], [want])
         if beliefs and not bool((want == -1).any()):
             raise AssertionError("K1 uniform lane inputs leave no row short")
@@ -6258,9 +6349,9 @@ def compare_lane_sample_uniform(dev, g, lanes, n=4096, count=3,
             "sample_uniform_lanes" + ("" if beliefs else "_ground"),
             "sample_uniform_lanes", "sample_targets.cu",
             "corrosion_tpu/sim/swim.py:59", equal, err,
-            _timed(timed, lambda: dl.sample_uniform_lanes(cand_t, view,
+            _timed(timed, lambda: sl.sample_uniform_lanes(cand_t, view,
                                                           count)),
-            _timed(timed, lambda: dl.sample_uniform_lanes_plain(
+            _timed(timed, lambda: sl.sample_uniform_lanes_plain(
                 cand_t, view, count)),
             cand_t.numel() * (5 if beliefs else 4) + lanes * size * count * 4,
             lanes, n=size))
@@ -6665,7 +6756,7 @@ def _lane_dense_states(gen, dev, cfg, lanes, t):
 def _lane_edges_of(gen, dev, state, f):
     """Each lane's targets [K, N, F] (self and -1 among them) and its
     edges: src [1, E], dst and ok [K, E] as the dense lanes build them."""
-    from corrosion_tpu_torch.sim.dense_lanes import _edges
+    from corrosion_tpu_torch.sim.lanes import _edges
 
     lanes, n = state.alive.shape
     tg = torch.randint(0, n, (lanes, n, f), generator=gen, device=dev,
@@ -8527,16 +8618,19 @@ def _topo_raw(topo, n, dev, dst):
                                                         dev), src, dst)
 
 
-def compare_lane_sample_view(dev, g, lanes, n=PROTO_1K, v=16, timed=True):
+def compare_lane_sample_view(dev, g, lanes, n=PROTO_1K, v=16, timed=True,
+                             suffix="", cases=(("", False),
+                                               ("_beliefs", True))):
     """K1's view lane entry at path 52's shapes (K lanes of N = 1000, V =
     16; count 3, the fan-out and the sync peers) on views with empty,
     self and repeated slots, and with full-view beliefs (the DOWN
     filter); the last lane held to the solo entry, and lanes of one view
-    under their own slot draws sampling differently."""
+    under their own slot draws sampling differently.  ``cases`` (label,
+    beliefs) picks the forms, ``suffix`` tags the rows' names."""
     from corrosion_tpu_torch.topo import sampler
 
     rows = []
-    for label, beliefs in (("", False), ("_beliefs", True)):
+    for label, beliefs in cases:
         pview = _stack(_random_views(g, n, v, dev) for _ in range(lanes))
         slots = torch.as_tensor(g.integers(0, v, (lanes, 12, n)),
                                 dtype=torch.int32, device=dev)
@@ -8556,7 +8650,7 @@ def compare_lane_sample_view(dev, g, lanes, n=PROTO_1K, v=16, timed=True):
             _lane_split_trap("12", sampler.sample_view_lanes(one, slots, None,
                                                              3))
         rows.append(_dense_lane_row(
-            "sample_view_lanes" + label, "sample_view_lanes",
+            "sample_view_lanes" + suffix + label, "sample_view_lanes",
             "sample_targets.cu", "corrosion_tpu/topo/sampler.py:57", equal,
             err,
             _timed(timed, lambda: sampler.sample_view_lanes(pview, slots,
@@ -8568,13 +8662,16 @@ def compare_lane_sample_view(dev, g, lanes, n=PROTO_1K, v=16, timed=True):
     return rows
 
 
-def compare_lane_peerswap(dev, g, lanes, n=PROTO_1K, v=16, timed=True):
+def compare_lane_peerswap(dev, g, lanes, n=PROTO_1K, v=16, timed=True,
+                          suffix="", block_trap=True):
     """K21's three lane entries at path 52's shapes (K lanes of N = 1000,
     V = 16, announce interval 7): offers that collide on one partner
     inside a lane, the same partner slots c in two lanes of different
     views (each lane's offers land in its own view), a dead partner (its
     message unreachable), down nodes, wiped views; the last lane held to
-    the solo entry."""
+    the solo entry.  ``suffix`` tags the row's name; ``block_trap`` False
+    leaves out the trap of blocks spanning two lanes, for an N whose
+    lanes start on block boundaries."""
     from corrosion_tpu_torch.topo import sampler
 
     t, interval = 37, 7
@@ -8631,10 +8728,11 @@ def compare_lane_peerswap(dev, g, lanes, n=PROTO_1K, v=16, timed=True):
     _trap("lane topo 14", "a dead partner: an up node's swap message to it "
           "unreachable, so it takes and offers nothing",
           bool((dead & real & (alive == 0) & ~reach).any()))
-    _flat_block_trap("15", n)
+    if block_trap:
+        _flat_block_trap("15", n)
     nbytes = pview.numel() * 8 + lanes * n * 4 * 7
     return [_dense_lane_row(
-        "peerswap_lanes", "peerswap_lanes", "peerswap.cu",
+        "peerswap_lanes" + suffix, "peerswap_lanes", "peerswap.cu",
         "corrosion_tpu/topo/sampler.py:81", equal, err,
         _timed(timed, lambda: run(True)), _timed(timed, lambda: run(False)),
         nbytes, lanes, n=n, v=v)]
@@ -9910,9 +10008,9 @@ def compare_packed_lane_sync_delay(dev, g, lanes, n=STORM_N, timed=True):
         out[name] = (want, outs_p[1], gp)
         work_k, work_p = ring_c.clone(), ring_c.clone()
         slot = (LATENCY_T + 1) % dc
-        nbytes = (lanes * (n * 4 * w * 4 + n * w * 4 + e_s * 5
-                           + (e_s * 4 if sd is not None else 0)
-                           + n + (e_s * w * 4 if rec else 0))
+        nbytes = (_pull_read_bytes(masks, miss, peers, ok)
+                  + lanes * (e_s * 5 + (e_s * 4 if sd is not None else 0)
+                             + n + (e_s * w * 4 if rec else 0))
                   + 2 * ring_words(sd) * 4)  # touched words in and out
         rows.append(_lane_row(
             name, "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
@@ -10376,6 +10474,868 @@ def profile_packed_lanes(dev, lanes=ENSEMBLE_LANES, start=5, rounds=3,
                     + (" with the recorder" if telemetry else ""), setup)
 
 
+# -- metered budgets, topology families and every membership mode on the
+# packed round's lanes (phase 3lm, paths 63-66) -----------------------------
+
+SOLO_OF_LANE.update({
+    "budget_words_lanes": "budget_words",
+    "sync_pull_metered_lanes": "sync_pull_metered",
+    "sync_pull_metered_lanes_trace": "sync_pull_metered",
+    "broadcast_scatter_tiered_lanes": "broadcast_scatter_tiered",
+    "broadcast_scatter_tiered_lanes_trace": "broadcast_scatter_tiered"})
+
+
+def _device_words(g, shape, dev, ands=1):
+    """`_random_words` drawn on ``dev`` from a generator seeded by ``g``:
+    phase 3lm's inputs run to gigabytes, and drawing them on the host
+    would take longer than the comparisons."""
+    gen = torch.Generator(device=dev).manual_seed(int(g.integers(1 << 62)))
+
+    def draw():
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    w = draw()
+    for _ in range(ands - 1):
+        w &= draw()
+    return w
+
+
+def _metered_trap(number, what, reached):
+    _trap(f"lane metered {number}", what, reached)
+
+
+def compare_packed_lane_budget(dev, g, lanes, n=GAPSTRESS_N, timed=True):
+    """K16 on the lanes' rows at gapstress-25.6k's governor shapes (K
+    lanes of N rows of W = 256 words, the gapstress sizes, its 5 MiB
+    budget), each lane against its plain version and lanes 0 and K - 1
+    against the solo entry: lane 0's rows bind (half their bits set,
+    about 9.5 MB a row), lane 1's fit (one bit in 64), empty rows; a
+    budget below the largest payload (a row whose first payload is
+    larger keeps nothing); the rows folded at N' = 8m - 3 nodes, so
+    K16's blocks of 8 rows span two lanes."""
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+
+    cfg, meta = _gapstress(n, dev)
+    w = cfg.n_payloads // 32
+    budget = cfg.rate_limit_bytes_round
+    elig = _device_words(g, (lanes, n, w), dev)
+    elig[1] = _device_words(g, (n, w), dev, 6)
+    elig[:, ::97] = 0
+    got = ln.budget_prefix_words_lanes(elig, budget, meta.nbytes)
+    want = ln.budget_prefix_words_lanes_plain(elig, budget, meta.nbytes)
+    equal, err = _equal_all([got], [want])
+    for k in (0, lanes - 1):
+        _solo_trap(f"budget_words_lanes lane {k}", [got[k]],
+                   [packed.budget_prefix_words(elig[k], budget,
+                                               meta.nbytes)])
+    binds = [bool((want[k] != elig[k]).any()) for k in range(lanes)]
+    _metered_trap(1, "the governor binds in one lane (0) and not in another "
+                  "(1)", binds[0] and not binds[1])
+    _metered_trap(2, "a prefix that stops mid-word (a kept word that is "
+                  "neither 0 nor its eligible word)",
+                  bool(((want != 0) & (want != elig)).any()))
+    # payload 5 (8 KiB) first, then payload 6 (1 B): under 6000 bytes the
+    # larger payload stops the prefix, so the row keeps nothing
+    small = elig.clone()
+    small[:, 0, 0] = (1 << 5) | (1 << 6)
+    got_s = ln.budget_prefix_words_lanes(small, 6000, meta.nbytes)
+    want_s = ln.budget_prefix_words_lanes_plain(small, 6000, meta.nbytes)
+    e_s, x_s = _equal_all([got_s], [want_s])
+    _metered_trap(3, "a payload larger than the budget first in its row: "
+                  "the row keeps nothing, not even the 1 B after it",
+                  bool((want_s[:, 0] == 0).all()) and int(meta.nbytes[5])
+                  > 6000 and int(meta.nbytes[6]) <= 6000)
+    n_odd = n // 8 * 8 - 3
+    odd = elig[:, :n_odd].contiguous()
+    got_o = ln.budget_prefix_words_lanes(odd, budget, meta.nbytes)
+    want_o = ln.budget_prefix_words_lanes_plain(odd, budget, meta.nbytes)
+    e_o, x_o = _equal_all([got_o], [want_o])
+    _metered_trap(4, f"K16's blocks of 8 folded rows span two lanes (N' = "
+                  f"{n_odd}, not a multiple of 8), each row metered alone",
+                  n_odd % 8 != 0 and e_o)
+    row = _lane_row(
+        "budget_words_lanes", _CSRC + "budget_words.cu",
+        "corrosion_tpu/sim/packed.py:102", equal and e_s and e_o,
+        max(err, x_s, x_o),
+        _timed(timed, lambda: ln.budget_prefix_words_lanes(
+            elig, budget, meta.nbytes)),
+        _timed(timed, lambda: ln.budget_prefix_words_lanes_plain(
+            elig, budget, meta.nbytes)),
+        # the rows in and out, the sizes
+        _nbytes(elig, meta.nbytes) + elig.numel() * 4, lanes)
+    del got, want, small, got_s, want_s, odd, got_o, want_o
+    return [row]
+
+
+def compare_packed_lane_sync_metered(dev, g, lanes, n=GAPSTRESS_N,
+                                     timed=True):
+    """K3m's lane entry, with session delays and as its recording form,
+    at gapstress-25.6k's shapes (K lanes of N = 25 600, W = 256, S = 3, D
+    = 4) under its 4 MiB grant: lane 0's pullers lag serving peers by
+    megabytes (the grant binds), lane 1's miss one bit in 64 (it does
+    not); self and dead peers, words with bit 31, delay classes up to D -
+    1 (past D - 2: granted, landing nowhere) on a ring whose slots hold
+    words; the last lane without sessions.  Lanes 0 and K - 1 against the
+    solo metered entry.  Returns the rows."""
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+
+    cfg, meta = _gapstress(n, dev)
+    w, s, d = cfg.n_payloads // 32, cfg.sync_peers, cfg.n_delay_slots
+    masks = _device_words(g, (lanes, n, 4, w), dev)
+    serving = ~_device_words(g, (lanes, n, w), dev, 3)
+    lagging = _device_words(g, (lanes, n, w), dev, 3)
+    even = torch.arange(n, device=dev)[None, :, None] % 2 == 0
+    masks[:, :, 3] = torch.where(even, serving, lagging)
+    # lane 1 holds nearly everything: its needs fit the grant
+    masks[1, :, 3] = ~_device_words(g, (n, w), dev, 6)
+    miss = _device_words(g, (lanes, n, w), dev, 2)
+    me = np.arange(n)[None, :, None]
+    peers = np.where(g.random((lanes, n, s)) < 0.03, me,
+                     2 * g.integers(0, n // 2, (lanes, n, s)))
+    peers = torch.as_tensor(peers, dtype=torch.int32, device=dev)
+    ok = torch.as_tensor(g.random((lanes, n, s)) < 0.7, device=dev)
+    ok[-1] = False
+    sdelay = torch.as_tensor(g.integers(0, d, (lanes, n * s)),
+                             dtype=torch.int32, device=dev)
+    ring0 = _device_words(g, (lanes, d, n, w), dev, 5)
+    grant = cfg.sync_budget_bytes
+    slot = 1
+    args = (masks, miss, peers, ok)
+    e_s = n * s
+
+    def pull(kernel, ring, sd, granted, budget=grant):
+        fn = ln.sync_pull_lanes if kernel else ln.sync_pull_lanes_plain
+        return fn(*args, ring, slot, sd, granted, budget, meta.nbytes)
+
+    cases = (("sync_pull_metered_lanes", None, False),
+             ("sync_pull_metered_lanes delays", sdelay, False),
+             ("sync_pull_metered_lanes_trace", None, True),
+             ("sync_pull_metered_lanes_trace delays", sdelay, True))
+    checks, outs = {}, {}
+    for label, sd, rec in cases:
+        got, want = ring0.clone(), ring0.clone()
+        gk = (torch.empty((lanes, e_s, w), dtype=torch.int32, device=dev)
+              if rec else None)
+        gp = torch.empty_like(gk) if rec else None
+        fk = pull(True, got, sd, gk)
+        fp = pull(False, want, sd, gp)
+        checks[label] = _equal_all([fk, got] + ([gk] if rec else []),
+                                   [fp, want] + ([gp] if rec else []))
+        for k in (0, lanes - 1):
+            solo = ring0[k].clone()
+            sg = (torch.empty((e_s, w), dtype=torch.int32, device=dev)
+                  if rec else None)
+            fr = packed.sync_pull(masks[k], miss[k], peers[k], ok[k],
+                                  solo[slot] if sd is None else solo, grant,
+                                  meta.nbytes, sg,
+                                  None if sd is None else sd[k], slot)
+            _solo_trap(f"{label} lane {k}",
+                       [got[k], fk[k]] + ([gk[k]] if rec else []),
+                       [solo, fr] + ([sg] if rec else []))
+        outs[label] = (want, fp, gp)
+        del got, gk
+    # the grant binds in lane 0 and not in lane 1: the unmetered pull
+    # differs from the metered one in lane 0 only
+    free = ring0[:2].clone()
+    ln.sync_pull_lanes_plain(masks[:2], miss[:2], peers[:2], ok[:2], free,
+                             slot)
+    metered = outs["sync_pull_metered_lanes"][0][:2]
+    _metered_trap(5, "the sync grant binds in one lane (0) and not in "
+                  "another (1)", not torch.equal(free[0], metered[0])
+                  and torch.equal(free[1], metered[1]))
+    want, fruitful, granted = outs["sync_pull_metered_lanes_trace delays"]
+    g_any = (granted != 0).any(2).view(lanes, n, s)
+    cls = sdelay.view(lanes, n, s)
+    cut_ring = ring0.clone()
+    ln.sync_pull_lanes_plain(masks, miss, peers, ok & (cls != d - 1),
+                             cut_ring, slot, sdelay, None, grant,
+                             meta.nbytes)
+    _metered_trap(6, "a delay class past D - 2 under metering: granted, "
+                  "landing nowhere", bool(((cls == d - 1) & g_any).any())
+                  and torch.equal(want, cut_ring))
+    _metered_trap(7, "the lane without sessions pulls nothing and keeps its "
+                  "ring", not bool(fruitful[-1].any())
+                  and torch.equal(want[-1], ring0[-1])
+                  and not bool(granted[-1].any()))
+    _metered_trap(8, "grant words with bit 31", bool((granted < 0).any()))
+    # the ring words the grants touch (the kernel reads and writes those
+    # and no others), by class with the delays
+    touched = (granted != 0).view(lanes, n, s, w)
+
+    def ring_words(sd):
+        if sd is None:
+            return int(touched.any(2).sum())
+        return sum(int((touched & (cls[..., None] == c)).any(2).sum())
+                   for c in range(d - 1))
+
+    rows = []
+    for name, rec in (("sync_pull_metered_lanes", False),
+                      ("sync_pull_metered_lanes_trace", True)):
+        work_k, work_p = ring0.clone(), ring0.clone()
+        gk = (torch.empty((lanes, e_s, w), dtype=torch.int32, device=dev)
+              if rec else None)
+        gp = torch.empty_like(gk) if rec else None
+        equal = checks[name][0] and checks[name + " delays"][0]
+        err = max(checks[name][1], checks[name + " delays"][1])
+        # the mask and miss rows live sessions read (none in the last
+        # lane), peers and ok, the sizes, fruitful, the grants, the ring
+        # words they touch in and out
+        nbytes = (_pull_read_bytes(masks, miss, peers, ok, True)
+                  + _nbytes(peers, ok, meta.nbytes)
+                  + lanes * n + (gk.numel() * 4 if rec else 0)
+                  + 2 * ring_words(None) * 4)
+        row = _lane_row(
+            name, _CSRC + "sync_pull.cu", "corrosion_tpu/sim/packed.py:1238",
+            equal, err,
+            _timed(timed, lambda wk=work_k, gk=gk: pull(True, wk, None, gk),
+                   lambda wk=work_k: wk.copy_(ring0)),
+            # the plain version takes most of a second: one eager call
+            _time_eager_ms(lambda wp=work_p, gp=gp: (
+                wp.copy_(ring0), pull(False, wp, None, gp)), 1, warmup=0)
+            if timed else None,
+            nbytes, lanes)
+        row["delays_ms"] = _timed(
+            timed, lambda wk=work_k, gk=gk: pull(True, wk, sdelay, gk),
+            lambda wk=work_k: wk.copy_(ring0))
+        row["delays_bound_ms"] = _bound_ms(
+            nbytes - 2 * ring_words(None) * 4 + sdelay.numel() * 4
+            + 2 * ring_words(sdelay) * 4)
+        rows.append(row)
+        del work_k, work_p, gk, gp
+    return rows
+
+
+def _scatter_topo_case(dev, g, lanes, n, w, d, f, ands):
+    """K lanes of one broadcast round's wire at (N, W, D, F): sending
+    words, edges, slots, fault thresholds and jitter bounds; lane 1
+    repeats lane 0's (only its keys and seed differ), the last lane
+    attempts no edge."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+
+    e = n * f
+    c = SimpleNamespace(n=n, w=w, d=d, f=f, e=e)
+    c.sending = _device_words(g, (lanes, n, w), dev, ands)
+    c.dst = torch.as_tensor(g.integers(0, n, (lanes, e)), dtype=torch.int32,
+                            device=dev)
+    c.slot = torch.as_tensor(g.integers(0, d, (lanes, e)), dtype=torch.int32,
+                             device=dev)
+    c.ok = torch.as_tensor(g.random((lanes, e)) < 0.9, device=dev)
+    c.thr = torch.as_tensor(np.where(g.random((lanes, e)) < 0.3, 0,
+                                     g.integers(1, 80, (lanes, e))),
+                            dtype=torch.uint8, device=dev)
+    c.jit = torch.as_tensor(np.where(g.random((lanes, e)) < 0.9, 0,
+                                     g.integers(1, 3, (lanes, e))),
+                            dtype=torch.int32, device=dev)
+    for x in (c.sending, c.dst, c.slot, c.ok, c.thr, c.jit):
+        x[1] = x[0]
+    c.ok[-1] = False
+    c.ring0 = _device_words(g, (lanes, d, n, w), dev, 6)
+    c.keys = _lane_keys(dev, lanes, 7000)
+    c.topo_keys = _lane_keys(dev, lanes, 7100)
+    c.seeds = lane_plan_seeds(range(lanes), dev)
+    return c
+
+
+def compare_packed_lane_scatter_topo(dev, g, lanes, n=GAPSTRESS_N,
+                                     n_wan=STORM_N, timed=True):
+    """K10's flat topology stream on the lanes at gapstress-25.6k's wire
+    (K lanes of E = 76 800 edges, W = 256, D = 4, loss 0.3) and the tiered
+    lane instantiation at the 100k WAN storm's (E = 300 000, W = 16, D =
+    3, wan-3x2's tiers): each alone (the paths' cases), with the fault
+    loss, with the fault loss and the jitter, as recording forms, and the
+    tiered form over the certainty pin; each against its plain version,
+    lanes 0 and K - 1 against the solo K10 on their inputs.  Returns the
+    rows."""
+    from corrosion_tpu_torch.device import popcount
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim.topology import loss_threshold
+
+    cfg, _ = _gapstress(n, dev)
+    flat = _scatter_topo_case(dev, g, lanes, n, cfg.n_payloads // 32,
+                              cfg.n_delay_slots, cfg.fanout, 4)
+    wan_cfg, _ = _storm_cfg(n_wan, dev)
+    tiered = _scatter_topo_case(dev, g, lanes, n_wan,
+                                wan_cfg.n_payloads // 32, WAN_D,
+                                wan_cfg.fanout, 2)
+    wan, pin = _topo("wan-3x2"), _pin_topo()
+    thr77 = loss_threshold(0.3)
+    # (label, case, topo_thr, tiers, fault, jitter, recording, row name)
+    cases = (
+        ("flat", flat, thr77, None, False, False, False,
+         "broadcast_scatter_lossy_lanes_topo"),
+        ("flat fault", flat, thr77, None, True, False, False, None),
+        ("flat fault jitter", flat, thr77, None, True, True, False, None),
+        ("flat recording", flat, thr77, None, False, False, True,
+         "broadcast_scatter_lossy_lanes_trace_topo"),
+        ("flat fault jitter recording", flat, thr77, None, True, True, True,
+         None),
+        ("tiered", tiered, 0, wan, False, False, False,
+         "broadcast_scatter_tiered_lanes"),
+        ("tiered fault", tiered, 0, wan, True, False, False, None),
+        ("tiered fault jitter", tiered, 0, wan, True, True, False, None),
+        ("tiered recording", tiered, 0, wan, False, False, True,
+         "broadcast_scatter_tiered_lanes_trace"),
+        ("tiered fault jitter recording", tiered, 0, wan, True, True, True,
+         None),
+        ("tiered pin recording", tiered, 0, pin, False, False, True, None),
+    )
+
+    def run(kernel, c, ring, tt, tiers, fault, jitter, dropped):
+        fn = ln.scatter_lanes if kernel else ln.scatter_lanes_plain
+        fn(ring, c.sending, c.dst, c.slot, c.ok, c.f,
+           c.thr if fault else None, c.keys if fault else None,
+           c.seeds if fault else None, c.jit if jitter else None, dropped,
+           tt, c.topo_keys, tiers)
+
+    checks, outs, rows = {}, {}, []
+    for label, c, tt, tiers, fault, jitter, rec, name in cases:
+        got, want = c.ring0.clone(), c.ring0.clone()
+        dk = torch.zeros((lanes, 12), dtype=torch.int64, device=dev)
+        dp = torch.zeros_like(dk)
+        run(True, c, got, tt, tiers, fault, jitter, dk[:, 2] if rec else None)
+        run(False, c, want, tt, tiers, fault, jitter,
+            dp[:, 2] if rec else None)
+        checks[label] = _equal_all([got, dk], [want, dp])
+        for k in (0, lanes - 1):
+            solo, sd = c.ring0[k].clone(), _acc(dev)
+            packed.scatter_sending_lossy(
+                solo, c.sending[k], c.dst[k], c.slot[k], c.ok[k],
+                c.thr[k] if fault else None, c.keys[k], int(c.seeds[k]),
+                c.f, tt, c.topo_keys[k], sd if rec else None,
+                c.jit[k] if jitter else None,
+                **({} if tiers is None else {"tiers": tiers}))
+            _solo_trap(f"{label} lane {k}", [got[k], dk[k, 2]],
+                       [solo, sd if rec else dk[k, 2]])
+        outs[label] = (want, dp[:, 2].clone())
+        del got
+        if name is None:
+            continue
+        # the bound: eight hashes a sending (edge, word) on an ok edge
+        # whose topology threshold draws (flat 77; a tier between 1 and
+        # 255)
+        hashes = 0
+        for k in range(lanes):
+            words = packed._edge_words(c.sending[k], c.ok[k], c.f)
+            if tiers is None:
+                draws = torch.ones(c.e, dtype=torch.bool, device=dev)
+            else:
+                raw = _topo_raw(tiers, c.n, dev, c.dst[k])
+                draws = (raw > 0) & (raw < 256)
+            hashes += 8 * int(((words != 0) & draws[:, None]).sum())
+            del words
+        rows_touched = int(torch.unique(
+            (torch.arange(lanes, device=dev)[:, None] * (c.d * c.n)
+             + c.slot.long() * c.n + c.dst.long())[c.ok]).numel())
+        nbytes = (c.sending.numel() * 4 + lanes * c.e * (4 + 4 + 1)
+                  + 2 * rows_touched * c.w * 4 + (lanes * 8 if rec else 0))
+        work_k, work_p = c.ring0.clone(), c.ring0.clone()
+        acc_k, acc_p = (torch.zeros((lanes, 12), dtype=torch.int64,
+                                    device=dev) for _ in range(2))
+
+        def restore(work, acc, c=c):
+            work.copy_(c.ring0)
+            acc.zero_()
+
+        row = _ops_row(
+            name, _CSRC + "broadcast_scatter.cu",
+            ("corrosion_tpu/sim/topology.py:267" if tiers is None
+             else "corrosion_tpu/sim/topology.py:240") + _VMAP,
+            None, None,
+            _timed(timed, lambda c=c, tt=tt, tiers=tiers, rec=rec: run(
+                True, c, work_k, tt, tiers, False, False,
+                acc_k[:, 2] if rec else None),
+                lambda: restore(work_k, acc_k)),
+            # the plain versions find their draws on the host and take
+            # seconds a call: one eager call
+            _time_eager_ms(lambda c=c, tt=tt, tiers=tiers, rec=rec: (
+                restore(work_p, acc_p), run(
+                    False, c, work_p, tt, tiers, False, False,
+                    acc_p[:, 2] if rec else None)),
+                1, warmup=0) if timed else None,
+            nbytes, hashes * OPS_PER_HASH, lanes=lanes, hashes=hashes,
+            kernel=name.replace("_topo", ""))
+        rows.append(row)
+        del work_k, work_p
+    # each row holds every case of its form
+    for row in rows:
+        prefix = row["name"].split("_lanes")[0]
+        mine = [k for k in checks if k.split()[0] == (
+            "tiered" if "tiered" in prefix else "flat")
+            and ("recording" in k) == row["kernel"].endswith("_trace")]
+        row["equal"] = all(checks[k][0] for k in mine)
+        row["max_abs_err"] = max(checks[k][1] for k in mine)
+        row["cases"] = mine
+    _metered_trap(9, "lanes whose k_drop, phase keys and plan seeds differ "
+                  "drop their own payloads in every drawing case (lanes 0 "
+                  "and 1 share every other input)",
+                  all(not torch.equal(want[0], want[1])
+                      for label, (want, _) in outs.items()
+                      if "pin" not in label))
+    flat_drop = outs["flat recording"][1]
+    tier_drop = outs["tiered recording"][1]
+    _metered_trap(10, "the lane without edges writes nothing and counts no "
+                  "drop; the others' drops differ",
+                  all(torch.equal(outs[k][0][-1], (flat if k.startswith(
+                      "flat") else tiered).ring0[-1]) for k in outs)
+                  and int(flat_drop[-1]) == 0 and int(tier_drop[-1]) == 0
+                  and len({int(x) for x in flat_drop[:-1]}) > 1)
+    pin_drop = outs["tiered pin recording"][1]
+    severed = (_topo_raw(pin, n_wan, dev, tiered.dst[0]) >= 256) & \
+        tiered.ok[0]
+    sent = packed._edge_words(tiered.sending[0], tiered.ok[0], tiered.f)
+    _metered_trap(11, "a tier at certainty (threshold 256) drops every "
+                  "payload of its edges without a draw, on every lane",
+                  bool(severed.any()) and int(pin_drop[0]) == int(
+                      popcount(sent[severed]).sum()))
+    _metered_trap(12, "the jitter and the fault stream compose with the "
+                  "topology stream (each case's ring differs from the "
+                  "topology stream's alone)",
+                  not torch.equal(outs["flat"][0], outs["flat fault"][0])
+                  and not torch.equal(outs["flat fault"][0],
+                                      outs["flat fault jitter"][0])
+                  and not torch.equal(outs["tiered"][0],
+                                      outs["tiered fault jitter"][0]))
+    del flat, tiered, outs
+    return rows
+
+
+def compare_packed_lane_node_faults_view(dev, g, lanes, n=CHURN_N):
+    """K11's lane entry with the full view's tables (the packed lanes'
+    full view, B16s's packed half) at churn-full-4096's width: the fault
+    storm's wipe round 20 over K lanes of random beliefs, tables and
+    carry, against its plain version and, on lanes 0 and K - 1, the solo
+    word entry; every lane's wiped row back to 0, 0, -1, the others
+    untouched.  A check: no path of this script runs full view on the
+    packed lanes, so it has no kernels-line row."""
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+
+    cfg, _, _, rf = _storm_fault_round(dev, n, 20)
+    w, m, a, k = cfg.n_payloads // 32, 64, cfg.n_writers, cfg.gap_slots
+    gen = torch.Generator(device=dev).manual_seed(int(g.integers(1 << 62)))
+
+    def ints(hi, shape, lo=0, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, dtype=dtype, device=dev,
+                             generator=gen)
+
+    slim0 = SimpleNamespace(
+        alive=torch.zeros((lanes, n), dtype=torch.uint8, device=dev),
+        heads=ints(9, (lanes, n, a)), gap_lo=ints(9, (lanes, n, a, k)),
+        gap_hi=ints(9, (lanes, n, a, k)), pid=ints(n, (lanes, n, m), -1),
+        pkey=ints(4096, (lanes, n, m), -1), psince=ints(30, (lanes, n, m), -1),
+        view=ints(3, (lanes, n, n), dtype=torch.int8),
+        vinc=ints(8, (lanes, n, n)), suspect_since=ints(30, (lanes, n, n), -1),
+        pview=ints(n, (lanes, n, 16), -1))
+    names = tuple(vars(slim0))
+    # the packed loop's slim state: zero-width payload tensors
+    u8 = torch.uint8
+    slim0.have = torch.zeros((lanes, n, 0), dtype=u8, device=dev)
+    slim0.relay_left = torch.zeros((lanes, n, 0), dtype=u8, device=dev)
+    slim0.inflight = torch.zeros((lanes, 2, n, 0), dtype=torch.int32,
+                                 device=dev)
+    slim0.sync_inflight = torch.zeros((lanes, 2, n, 0), dtype=u8,
+                                      device=dev)
+    carry0 = [_device_words(g, (lanes, n, w), dev) for _ in range(5)] + [
+        _device_words(g, (lanes, 2, n, w), dev) for _ in range(2)]
+
+    def run(fn, k=None):
+        pick = (lambda x: x.clone()) if k is None else (
+            lambda x: x[k].clone())
+        slim = SimpleNamespace(**{nm: pick(x)
+                                  for nm, x in vars(slim0).items()})
+        ys = [pick(y) for y in carry0]
+        carry = packed.PackedCarry(have=ys[0], inflight=ys[5],
+                                   relay=packed.Planes(*ys[1:5]),
+                                   sync_buf=ys[6])
+        if k is None:
+            fn(slim, carry, rf)
+        else:
+            fn(SimpleNamespace(**vars(slim)), carry, rf)
+        return [getattr(slim, nm) for nm in names] + ys
+
+    got = run(ln.apply_round_faults_lanes)
+    want = run(ln.apply_round_faults_lanes_plain)
+    equal, err = _equal_all(got, want)
+    if not equal:
+        raise AssertionError("K11's lane entry with the full view != its "
+                             "plain version")
+    for k in (0, lanes - 1):
+        solo = run(packed.apply_round_faults, k)
+        _solo_trap(f"node_faults_lanes full view lane {k}",
+                   [x[k] for x in got], solo)
+    victim = int(rf.wipe.nonzero()[0])
+    view, vinc, since = (got[names.index(x)] for x in (
+        "view", "vinc", "suspect_since"))
+    others = torch.arange(n, device=dev) != victim
+    pview = got[names.index("pview")]
+    _metered_trap(13, "K11's lane entry puts every lane's wiped full-view "
+                  "row back to 0, 0, -1, empties its PeerSwap view and "
+                  "leaves the other rows",
+                  bool((view[:, victim] == 0).all())
+                  and bool((vinc[:, victim] == 0).all())
+                  and bool((since[:, victim] == -1).all())
+                  and bool((pview[:, victim] == -1).all())
+                  and torch.equal(view[:, others], slim0.view[:, others])
+                  and bool((slim0.view[:, victim] != 0).any()))
+
+
+def compare_packed_lane_metered_kernels(dev, seed=17, lanes=ENSEMBLE_LANES,
+                                        timed=True, big=True):
+    """Phase 3lm: K16 on the lanes' rows, K3m's lane entry (its delay
+    classes and its recording form), K10's flat topology stream on the
+    lanes and the tiered lane instantiation (each with and without the
+    fault loss and the jitter, and as recording forms) against their plain
+    versions at K = 8 on the paths' shapes (gapstress-25.6k's, the 100k
+    WAN storm's), lanes 0 and K - 1 held to the solo entries, every trap
+    reached; K1's view lane entry (ground truth) and K21's lane entries
+    at storm-peerswap-25.6k's (path 66: V = 16), the last lane held to
+    the solo entry; ``big`` False shrinks the nodes to 163, 300 and 333
+    (a CPU rehearsal)."""
+    g = np.random.default_rng(seed)
+    n = GAPSTRESS_N if big else 163
+    n_wan = STORM_N if big else 300
+    n_swap = PEERSWAP_N if big else 333
+    rows = compare_packed_lane_budget(dev, g, lanes, n, timed)
+    rows += compare_packed_lane_sync_metered(dev, g, lanes, n, timed)
+    rows += compare_packed_lane_scatter_topo(dev, g, lanes, n, n_wan, timed)
+    # at N = 25 600 (100 blocks a lane) no block spans two lanes: phase
+    # 3lt reaches that trap at N = 1000
+    rows += compare_lane_sample_view(dev, g, lanes, n_swap, timed=timed,
+                                     suffix="_25600", cases=(("", False),))
+    rows += compare_lane_peerswap(dev, g, lanes, n_swap, timed=timed,
+                                  suffix="_25600", block_trap=not big)
+    compare_packed_lane_node_faults_view(dev, g, lanes,
+                                         CHURN_N if big else 1031)
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+#: the lane rows every path 63-66 launches
+AXIS_CORE = ("threefry_lanes", "gaps_refresh_lanes", "converge_fold_lanes",
+             "word_phases_lanes")
+_PARTIAL_VIEW = ("sample_targets_lanes", "merge_entries_lanes")
+_TIERED = ("edge_slots_lanes", "edge_reach_lanes")
+#: paths 63-66: (label, which, the lane rows besides `AXIS_CORE`, those of
+#: the recording run, or None where the path has none)
+PACKED_AXIS_PATHS = (
+    ("gapstress_25600_seeds8", "gapstress",
+     (*_PARTIAL_VIEW, "budget_words_lanes", "broadcast_scatter_lossy_lanes",
+      "sync_pull_metered_lanes"),
+     (*_PARTIAL_VIEW, "budget_words_lanes",
+      "broadcast_scatter_lossy_lanes_trace", "sync_pull_metered_lanes_trace",
+      *_PACKED_RECORDING)),
+    ("storm_wan_3x2_100k_seeds8", "wan-3x2",
+     (*_PARTIAL_VIEW, *_TIERED, "broadcast_scatter_tiered_lanes",
+      "sync_pull_lanes"),
+     (*_PARTIAL_VIEW, *_TIERED, "broadcast_scatter_tiered_lanes_trace",
+      "sync_pull_lanes_trace", *_PACKED_RECORDING)),
+    ("storm_wan_fly_6r_100k_seeds8", "wan-fly-6r",
+     (*_PARTIAL_VIEW, *_TIERED, "broadcast_scatter_tiered_lanes",
+      "sync_pull_lanes"), None),
+    ("storm_hetero_degree_100k_seeds8", "hetero-degree",
+     (*_PARTIAL_VIEW, "degree_caps_lanes", "broadcast_scatter_lanes",
+      "sync_pull_lanes"), None),
+    ("storm_peerswap_25600_seeds8", "peerswap",
+     ("sample_view_lanes", "peerswap_lanes", "broadcast_scatter_lanes",
+      "sync_pull_lanes"), None),
+)
+
+
+def axis_path_case(which, dev, seeds=None):
+    """The cell of path ``which``: (cfg, topo, meta, seeds, spec) — a
+    campaign spec for the topology storms (run through the engine), None
+    for the two cells a user runs as a seed ensemble: gapstress-25.6k
+    (config #5b: 8192 payloads in a burst, `gapstress_payload_sizes`, 30 %
+    flat loss, both byte budgets binding; seeds 1-8, lane 0 the
+    config's own seed 1) and the PeerSwap storm at 25 600 × 512 (ground
+    truth membership; seeds 0-7)."""
+    from corrosion_tpu_torch.campaign import spec as sp
+    from corrosion_tpu_torch.sim.runner import _write_storm
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+    from corrosion_tpu_torch.sim.topology import Topology
+
+    if which == "gapstress":
+        cfg, meta = _gapstress(GAPSTRESS_N, dev)
+        return (cfg, Topology(loss=0.3), meta,
+                tuple(seeds or range(1, ENSEMBLE_LANES + 1)), None)
+    if which == "peerswap":
+        cfg, meta = _write_storm(PEERSWAP_N, 512, dev, sampler="peerswap")
+        return (cfg, Topology(), meta, tuple(seeds or range(ENSEMBLE_LANES)),
+                None)
+    spec = sp.storm_topology_seeds_spec(
+        which, tuple(seeds or range(ENSEMBLE_LANES)))
+    cfg = spec.sim_config({})
+    return (cfg, spec.topo({}),
+            uniform_payloads(cfg, dev, inject_every=spec.inject_every({})),
+            spec.seeds, spec)
+
+
+def _axis_solo_run(cfg, topo, meta, seed, dev, telemetry):
+    """The port's solo run of one seed of a path on the card
+    (`run_to_convergence`, the packed round): its final state, trace
+    (None without ``telemetry``) and host wall."""
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+
+    state = new_sim(cfg, int(seed), dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = run_to_convergence(state, meta, cfg, topo, 3000, telemetry)
+    torch.cuda.synchronize()
+    return res[0], res[2] if telemetry else None, time.monotonic() - t0
+
+
+def _axis_run(dev, cfg, topo, meta, seeds, spec, telemetry):
+    """One run of a path's cell from zeroed counters: through the engine
+    (a spec) or `run_seed_ensemble`; returns (finals, metrics, traces,
+    wall, the artifact or None)."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.ensemble import run_seed_ensemble
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    if spec is not None:
+        kept = {}
+        art = run_campaign(spec, telemetry=telemetry, device=dev,
+                           lanes_out=kept)
+        cell = art["cells"][0]
+        return (kept[0]["finals"], kept[0]["metrics"],
+                kept[0].get("traces"), cell["wall_clock_s"], art)
+    t0 = time.monotonic()
+    out = run_seed_ensemble(None, cfg, topo, meta, seeds, max_rounds=3000,
+                            telemetry=telemetry, device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return out[0], out[1], out[2] if telemetry else None, wall, None
+
+
+def packed_axis_ensemble_paths(dev, goldens):
+    """Paths 63-66: metered budgets, the topology families and PeerSwap
+    under ground-truth membership on the packed round's lanes, each from
+    zeroed counters, every lane entry of the path launched and no solo
+    entry of a kernel that has one.  Path 63, gapstress-25.6k-seeds8
+    (seeds 1-8 through `run_seed_ensemble`, with and without the
+    recorder): lane 0 JAX's `GAPSTRESS_25600_SEED1` (overflow share too)
+    and its telemetry golden.  Path 64, storm-wan-3x2-100k-seeds8 on the
+    packed round through `run_campaign`, with and without the recorder:
+    the spec_hash, the packed cell's result_digest, every lane JAX's
+    dense lane pin (the dense == packed contract) and lane 0's trace
+    `STORM_WAN_3X2_100K_SEED0_TELEMETRY`.  Path 65, the wan-fly-6r and
+    hetero-degree storms: lane 0 their solo goldens.  Path 66, the
+    PeerSwap storm at 25 600 nodes: every lane its one-seed JAX pin
+    (digest and pview_digest).  Every lane (and trace) equal to its solo
+    run on this card (the solo runs one at a time, after the ensemble),
+    but on path 64, whose every lane a JAX pin holds: there lanes 0 and
+    K - 1; only a pinned lane's state is hashed on the host.  Each wall
+    beside the solo walls' sum (path 64: K times the mean of its two).
+    Returns the launches per path and the printed numbers."""
+    import gc
+
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.sim.round import RunMetrics
+
+    gc.collect()  # what earlier phases left in reference cycles
+    launches, numbers = {}, {}
+    for label, which, rows, rec_rows in PACKED_AXIS_PATHS:
+        cfg, topo, meta, seeds, spec = axis_path_case(which, dev)
+        # the lanes whose digests a golden pins
+        pinned = (range(len(seeds)) if which in ("wan-3x2", "peerswap")
+                  else (0,))
+        entry = {}
+        for telemetry in ((False, True) if rec_rows is not None
+                          else (False,)):
+            run_label = label + ("_telemetry" if telemetry else "")
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            finals, metrics, traces, wall, art = _axis_run(
+                dev, cfg, topo, meta, seeds, spec, telemetry)
+            peak = torch.cuda.max_memory_allocated() - held
+            counts = _path_launches(
+                kernels, AXIS_CORE + (rec_rows if telemetry else rows),
+                run_label, telemetry=telemetry)
+            solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+            if solo_on:
+                raise AssertionError(f"{run_label}: solo entries {solo_on} "
+                                     "launched on a lane path")
+            launches[run_label] = counts
+            rounds = [int(x) for x in finals.t]
+            lanes = None
+            if not telemetry:
+                lanes = [dict(_solo_record(lane_state(finals, k), RunMetrics(
+                    *(x[k] for x in metrics)), meta), seed=int(seeds[k]),
+                    gap_overflow_frac_max=float(metrics.overflow_frac[k]))
+                    for k in pinned]
+                print(f"{run_label}: rounds={rounds} pinned lanes "
+                      f"{json.dumps(lanes)}", flush=True)
+            # each seed's solo run, one at a time (a gapstress state is
+            # 2 GB), against its lane; the WAN storm's lanes are every one
+            # held to JAX's pins, so two of its lanes run solo
+            solo_lanes = ((0, len(seeds) - 1) if which == "wan-3x2"
+                          else range(len(seeds)))
+            walls = []
+            for k in solo_lanes:
+                seed = seeds[k]
+                final, trace, solo_wall = _axis_solo_run(
+                    cfg, topo, meta, seed, dev, telemetry)
+                walls.append(solo_wall)
+                if not _same_state(final, lane_state(finals, k)):
+                    raise AssertionError(f"{run_label}: lane {k} differs "
+                                         "from its solo run")
+                if telemetry:
+                    _lanes_equal_solo_traces(
+                        type(traces)(*(x[k:k + 1] for x in traces)),
+                        [(rounds[k], trace, solo_wall)], f"{run_label} "
+                        f"lane {k}")
+                del final, trace
+            # with two solo lanes the sum is K times their mean
+            solo_sum = sum(walls) * len(seeds) / len(walls)
+            print(f"{run_label}: lanes {list(solo_lanes)}"
+                  f"{' and their traces' if telemetry else ''} equal to their "
+                  f"solo runs; ensemble wall {wall} s against the solo walls' "
+                  f"sum {solo_sum} s ({walls}); max_memory_allocated {peak} "
+                  f"bytes beyond the {held} held at entry", flush=True)
+            tag = "recording_" if telemetry else ""
+            entry.update({tag + "ensemble_wall_s": wall,
+                          tag + "solo_walls_s": walls,
+                          tag + "solo_lanes": list(solo_lanes),
+                          tag + "solo_walls_sum_s": solo_sum,
+                          tag + "max_memory_allocated_bytes": peak,
+                          tag + "held_at_entry_bytes": held})
+            _axis_goldens(which, label, lanes, rounds, art, goldens,
+                          telemetry, traces, cfg)
+            _trap(f"lane axis path {which}", "lanes that finish in different "
+                  "rounds leave the batch as their solo runs end",
+                  len(set(rounds)) > 1)
+            del finals, metrics, traces
+        numbers[label] = entry
+        _lap(label)
+    return launches, numbers
+
+
+def _axis_goldens(which, label, lanes, rounds, art, goldens, telemetry,
+                  traces, cfg):
+    """Hold a path 63-66 run to its pins (`packed_axis_ensemble_paths`):
+    ``lanes`` the records of its pinned lanes (None on a recording run,
+    whose lanes the caller held to their solo recording runs)."""
+    from corrosion_tpu_torch.sim.telemetry import (
+        lane_trace, trace_host, trace_summary)
+
+    keys = ("rounds", "p99_node_convergence_round", "digest")
+    if which == "gapstress":
+        golden = goldens.GAPSTRESS_25600_SEED1
+        if lanes is not None and {k: lanes[0][k] for k in golden} != golden:
+            raise AssertionError(f"{label}: lane 0 differs from "
+                                 "GAPSTRESS_25600_SEED1")
+        tel_golden = goldens.GAPSTRESS_25600_SEED1_TELEMETRY
+        m = (3 * GAPSTRESS_N, 8192)
+    elif which == "peerswap":
+        want = goldens.STORM_PEERSWAP_25600_SEEDS8["lanes"]
+        if [{k: x[k] for k in w} for x, w in zip(lanes, want)] != want:
+            raise AssertionError(f"{label}: lanes differ from their one-seed "
+                                 "JAX pins")
+        return
+    else:
+        golden = {"wan-3x2": goldens.STORM_WAN_3X2_100K_SEEDS8,
+                  "wan-fly-6r": None, "hetero-degree": None}[which]
+        solo0 = {"wan-3x2": goldens.STORM_WAN_3X2_100K_SEED0,
+                 "wan-fly-6r": goldens.STORM_WAN_FLY_6R_100K_SEED0,
+                 "hetero-degree": goldens.STORM_HETERO_DEGREE_100K_SEED0}[
+            which]
+        if lanes is not None and {k: lanes[0][k] for k in solo0} != solo0:
+            raise AssertionError(f"{label}: lane 0 differs from its solo "
+                                 "golden")
+        cell = art["cells"][0]
+        if cell["round_path"] != "packed" or not cell["all_converged"]:
+            raise AssertionError(f"{label}: round_path {cell['round_path']}, "
+                                 f"all_converged {cell['all_converged']}")
+        print(f"{label}: spec_hash={art['spec_hash']} result_digest="
+              f"{art['result_digest']}", flush=True)
+        if golden is None:
+            return
+        want = [{k: x[k] for k in ("seed", *keys)} for x in golden["lanes"]]
+        # the cell's pins carry the engine's (lower) p99
+        ps = art["cells"][0]["per_seed"]
+        got = None if lanes is None else [
+            dict({k: x[k] for k in ("seed", *keys)},
+                 p99_node_convergence_round=ps["p99_node_convergence_round"][i])
+            for i, x in enumerate(lanes)]
+        if ((got is not None and got != want)
+                or art["spec_hash"] != golden["spec_hash"]
+                or art["result_digest"] != golden["result_digest"]):
+            raise AssertionError(f"{label}: differs from its golden")
+        tel_golden = goldens.STORM_WAN_3X2_100K_SEED0_TELEMETRY
+        m = (300_000, 512)
+    if telemetry:
+        lane0 = lane_trace(traces, 0)
+        result = {"telemetry": trace_summary(trace_host(lane0, rounds[0]),
+                                             rounds[0], cfg),
+                  "rounds": rounds[0], "trace": lane0}
+        _telemetry_check(result, tel_golden, *m, f"{label}_telemetry lane 0")
+
+
+def profile_axis_lanes(dev, which, lanes=ENSEMBLE_LANES, start=5, rounds=3):
+    """``rounds`` rounds of path ``which``'s cell (gapstress or the WAN
+    storm) from round ``start``: with ``lanes`` the packed lane round
+    (`sim.lanes.packed_lane_step`, the one host read of the [K] flags a
+    round), with ``lanes`` None the solo packed round of the path's first
+    seed; the first ``start`` rounds are setup."""
+    from corrosion_tpu_torch.campaign.ensemble import seed_states
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim.packed import (
+        pack_state, packed_round_step, shrink_state)
+    from corrosion_tpu_torch.sim.round import new_metrics, new_sim
+    from corrosion_tpu_torch.sim.topology import regions
+    from corrosion_tpu_torch.sim.words import pack_bits
+
+    cfg, topo, meta, seeds, _ = axis_path_case(which, dev)
+    region = regions(cfg.n_nodes, topo.n_regions, dev)
+
+    def step(loop):
+        if lanes is None:
+            slim, carry, inj, metrics = loop
+            slim, carry, inj, metrics, done = packed_round_step(
+                slim, carry, inj, metrics, meta, cfg, topo, region)
+            loop = (slim, carry, inj, metrics)
+        else:
+            loop, done = ln.packed_lane_step(loop, meta, cfg, topo, region)
+        done.tolist()  # the loop's one host read a round
+        return loop
+
+    def setup():
+        if lanes is None:
+            state = new_sim(cfg, seeds[0], dev)
+            loop = (shrink_state(state), pack_state(state, cfg),
+                    pack_bits(state.injected), new_metrics(cfg, dev))
+        else:
+            loop = ln.packed_lane_batch(
+                seed_states(cfg, seeds[:lanes], dev), cfg)
+        for _ in range(start):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return loop
+
+    def run(loop):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    label = f"{which} x{lanes} lanes" if lanes else f"{which} solo"
+    return _profile(run, rounds, f"packed {label} rounds {start}-"
+                    f"{start + rounds - 1}", setup)
+
+
 _START = time.monotonic()
 
 
@@ -10665,6 +11625,10 @@ def main() -> int:
     print("kernel comparisons equal for latency plans and the recorder on "
           "the packed lanes", flush=True)
     _lap("packed lane latency and recorder kernel comparisons")
+    axis_lane_rows = compare_packed_lane_metered_kernels(dev)
+    print("kernel comparisons equal for metered budgets and the topology "
+          "streams on the packed lanes", flush=True)
+    _lap("packed lane metered and topology kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -11563,6 +12527,13 @@ def main() -> int:
     print("packed lane ensemble numbers: " + json.dumps(packed_lane_numbers),
           flush=True)
     _lap("paths 60-62, latency plans and the recorder on the packed lanes")
+    # paths 63-66: metered budgets, the topology families and PeerSwap on
+    # the packed round's lanes
+    axis_lane_launches, axis_lane_numbers = packed_axis_ensemble_paths(
+        dev, goldens)
+    print("packed axis ensemble numbers: " + json.dumps(axis_lane_numbers),
+          flush=True)
+    _lap("paths 63-66, budgets, topology and PeerSwap on the packed lanes")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -11639,6 +12610,16 @@ def main() -> int:
         prof = profile_packed_lanes(dev, latency=latency_, telemetry=tel_)
         prof["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
         print("profile_packed_ensemble: " + json.dumps(prof), flush=True)
+    # the 8-lane gapstress and packed WAN storm rounds beside their solo
+    # rounds, in one process
+    for which in ("gapstress", "wan-3x2"):
+        for lanes_ in (ENSEMBLE_LANES, None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prof = profile_axis_lanes(dev, which, lanes_)
+            prof["max_memory_allocated_bytes"] = \
+                torch.cuda.max_memory_allocated()
+            print("profile_axis_ensemble: " + json.dumps(prof), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -11873,6 +12854,29 @@ def main() -> int:
             label: c[row["kernel"]]
             for label, c in packed_lane_launches.items()}
     rows += packed_lane_rows
+    # each metered or topology lane row reads its launches on the path
+    # whose shapes it was compared at
+    axis_lane_path = {
+        "budget_words_lanes": "gapstress_25600_seeds8",
+        "sync_pull_metered_lanes": "gapstress_25600_seeds8",
+        "broadcast_scatter_lossy_lanes": "gapstress_25600_seeds8",
+        "sync_pull_metered_lanes_trace": "gapstress_25600_seeds8_telemetry",
+        "broadcast_scatter_lossy_lanes_trace":
+            "gapstress_25600_seeds8_telemetry",
+        "broadcast_scatter_tiered_lanes": "storm_wan_3x2_100k_seeds8",
+        "broadcast_scatter_tiered_lanes_trace":
+            "storm_wan_3x2_100k_seeds8_telemetry",
+        "sample_view_lanes_25600": "storm_peerswap_25600_seeds8",
+        "peerswap_lanes_25600": "storm_peerswap_25600_seeds8"}
+    for row in axis_lane_rows:
+        path = axis_lane_path.get(row["name"],
+                                  axis_lane_path.get(row["kernel"]))
+        row["launches"] = axis_lane_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]]
+            for label, c in axis_lane_launches.items()}
+    rows += axis_lane_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

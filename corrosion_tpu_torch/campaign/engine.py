@@ -16,10 +16,13 @@ hash.
 
 The engine runs sim cells on both rounds — faultless or under a
 factored plan (delay and jitter included, B16l) on the packed round,
-faultless or under a plan of either form (delay and jitter included)
-on the dense round, over every
-topology family, under either peer sampler and under every protocol
-family, which is where every fault cell outside the packed envelope goes
+with both byte budgets, over every topology family and key, under every
+membership mode and either peer sampler (B16m's budgets and topology,
+B16s's packed half), but the baseline protocol only; faultless or under
+a plan of either form (delay and jitter included) on the dense round,
+over every topology family, under either peer sampler and under every
+protocol family, which is where every fault cell outside the packed
+envelope goes
 (the 3-node fault campaigns, fault storms below the envelope,
 ``allow_packed: False``),
 reporting ``round_path: "dense"`` and the plan's horizon as JAX does —
@@ -40,9 +43,8 @@ of the result digest.  Every cell whose ``ordering`` is not "none"
 bands each lane's ``order_violations`` (its standing delivery-order
 count, K22), part of the digest, as JAX's does.  The rest raises
 NotImplementedError, naming its ROADMAP item: the churn key on lanes is
-B16c, topology keys, metered budgets and the protocol variants on the
-packed round's lanes B16m (PeerSwap there B16s's packed half), matrix
-plans there B16x (all run on the dense round's lanes;
+B16c, the protocol variants on the packed round's lanes B16m, matrix
+plans there B16x (both run on the dense round's lanes;
 `..sim.lanes.check_packed_lanes`), a mesh is A13, host-serving cells
 and host parity are host tier (not queued).  The cell's ``traceparent``
 and its span tree belong to the host tracing tier and are left out (the
@@ -81,9 +83,14 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
     (``engine.py:190-231``), word for word: what a detect cell, or a
     wire measurement, cannot measure.  Then the port's
     NotImplementedErrors, each naming its ROADMAP item; the refusals of
-    what a cell resolves to — on the packed round budgets, topology keys,
-    PeerSwap, the protocol variants and matrix plans — follow in
-    `..sim.lanes.check_packed_lanes`."""
+    what a cell resolves to — on the packed round the protocol variants
+    (B16m) and matrix plans (B16x) — follow in
+    `..sim.lanes.check_packed_lanes`, which since B16m's budgets and
+    topology and B16s's packed half lets both byte budgets, every
+    topology family and key, every membership mode and PeerSwap through
+    to the packed round's lanes (JAX's ``jax.vmap`` of
+    ``sim/packed.py:681 packed_round_step`` in ``campaign/ensemble.py:114
+    run_ensemble``)."""
     from .spec import _PROTO_KEYS
 
     if spec.serving(cell):

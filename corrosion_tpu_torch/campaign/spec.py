@@ -569,6 +569,29 @@ def dense_storm_push_pull_seeds_spec(
     )
 
 
+def storm_topology_seeds_spec(
+    topo_family: str, seeds: Sequence[int] = tuple(range(8)),
+) -> CampaignSpec:
+    """The 100k write storm on the packed round over a topology family as
+    one campaign cell (B16m's topology): ``storm-wan-3x2-100k-seeds8``,
+    ``storm-wan-fly-6r-100k-seeds8`` and ``storm-hetero-degree-100k-
+    seeds8`` at the default, each with `sim.runner._write_storm`'s ring,
+    deep enough for the family's deepest delay class.  Not a builtin of
+    the JAX package: the JAX package's `CampaignSpec` of the same dict
+    has the same hash."""
+    from ..sim.topology import Topology
+    from ..topo.families import family_topology
+
+    deepest = Topology(**family_topology(topo_family)).max_delay
+    return CampaignSpec(
+        name=f"storm-{topo_family}-100k-seeds{len(tuple(seeds))}",
+        scenario=dict(storm_scenario(), topo_family=topo_family,
+                      n_delay_slots=max(2, deepest + 1)),
+        seeds=tuple(seeds),
+        max_rounds=3000,
+    )
+
+
 def protocol_frontier_push_pull_spec(
     seeds: Sequence[int] = (0, 1, 2, 3),
 ) -> CampaignSpec:

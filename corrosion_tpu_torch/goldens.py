@@ -21,7 +21,11 @@ them against live JAX under ``-m slow``.  The recorder's lane entries at
 the end (B16r) are live JAX's recording campaigns' per-lane summaries
 and the wire cell's ``wire_bytes``;
 ``tests/test_torch_dense_lane_telemetry.py`` holds them against live JAX
-(the 3-node ones in tier 1, the rest under ``-m slow``).
+(the 3-node ones in tier 1, the rest under ``-m slow``).  The packed
+lanes' axis entries at the end (B16m's budgets and topology, B16s's
+packed half) are ``tests/test_torch_packed_lane_axes.py``'s: the packed
+WAN cell's construction in tier 1, the PeerSwap storm's lanes against
+live JAX under ``-m slow``.
 """
 
 # _write_storm(512, 256) with packed_min_cells=0, seed 7
@@ -2362,4 +2366,65 @@ LATENCY_STORM_LANES_1280 = {
     "result_digest": "e3a2e3835881907d3a0779d7a38be0ae",
     "rounds": [24, 39, 22],
     "p99_node_convergence_round": [13.0, 14.0, 14.0],
+}
+
+
+# -- metered budgets, topology families and every membership mode on the
+# packed round's lanes (B16m's budgets and topology, B16s's packed half) ----
+# run_campaign(storm_topology_seeds_spec("wan-3x2")): the 100k write storm
+# over wan-3x2 on the PACKED round, seeds 0-7.  Its lanes are
+# DENSE_STORM_WAN_3X2_100K_SEEDS8's (JAX's dense == packed contract, held
+# on the cell at 1280 nodes by tests/test_torch_packed_lane_axes.py); the
+# result_digest is JAX's artifact_digest over the packed cell those lanes
+# make, seed0_result_digest over lane 0's.  No vmapped JAX run of the eight
+# lanes has witnessed it (ROADMAP C)
+STORM_WAN_3X2_100K_SEEDS8 = {
+    "spec_hash": "6e382d71c60c94ab",
+    "result_digest": "ce6925c9fca7b8cb2a16b6f215ebd574",
+    "seed0_result_digest": "c63e9be9bcbab7ecaba7a56bdd291453",
+    "lanes": DENSE_STORM_WAN_3X2_100K_SEEDS8["lanes"],
+}
+
+# the PeerSwap storm at 25 600 nodes (config_write_storm_100k(seed=k,
+# n_nodes=25600, sampler="peerswap"): 512 payloads, ground-truth membership,
+# the packed round), seeds 0-7, each lane live JAX's one-seed run of its
+# seed (jround.run_to_convergence of jrunner._write_storm(25600, 512,
+# sampler="peerswap") from new_sim(cfg, k), about two seconds each on the
+# CPU; tests/test_torch_packed_lane_axes.py -m slow, one case a seed).
+# Lane 0 is STORM_PEERSWAP_25600_SEED0
+STORM_PEERSWAP_25600_SEEDS8 = {
+    "lanes": [
+        {"seed": 0, "rounds": 39,
+         "p99_node_convergence_round": 25.0,
+         "p99_payload_latency_rounds": 24.0,
+         "digest": "88f6fafd442852d1", "pview_digest": "84599380bf2cec63"},
+        {"seed": 1, "rounds": 33,
+         "p99_node_convergence_round": 25.0,
+         "p99_payload_latency_rounds": 18.0,
+         "digest": "b4e35a0c0c1e0a8f", "pview_digest": "09cc96fd466c6418"},
+        {"seed": 2, "rounds": 31,
+         "p99_node_convergence_round": 25.0,
+         "p99_payload_latency_rounds": 24.0,
+         "digest": "f154de2216795ece", "pview_digest": "7b9d5151f3540f14"},
+        {"seed": 3, "rounds": 32,
+         "p99_node_convergence_round": 25.0,
+         "p99_payload_latency_rounds": 20.0,
+         "digest": "5c340b6bc7e767ff", "pview_digest": "dcb3cd1caf941f2e"},
+        {"seed": 4, "rounds": 31,
+         "p99_node_convergence_round": 25.0,
+         "p99_payload_latency_rounds": 17.0,
+         "digest": "03b997603ec6fd00", "pview_digest": "596023b143d39fa3"},
+        {"seed": 5, "rounds": 31,
+         "p99_node_convergence_round": 25.0,
+         "p99_payload_latency_rounds": 17.0,
+         "digest": "3386277499a8088d", "pview_digest": "de57db4dadedb548"},
+        {"seed": 6, "rounds": 37,
+         "p99_node_convergence_round": 25.0,
+         "p99_payload_latency_rounds": 28.0,
+         "digest": "1f93432764a1c988", "pview_digest": "0670b19da440e114"},
+        {"seed": 7, "rounds": 31,
+         "p99_node_convergence_round": 25.0,
+         "p99_payload_latency_rounds": 17.0,
+         "digest": "147b16242015b5e8", "pview_digest": "800295c104a95a44"},
+    ],
 }

@@ -116,9 +116,9 @@ replaces:
   `sim.dense_lanes.sync_pull_dense_lanes`; K14 `DENSE_GAPS_ROWS_LANES`,
   `DENSE_GAPS_FINISH_LANES` — `sim.dense_lanes.dense_record_lanes`; K15
   `SWIM_TIMEOUT_LANES`, `SWIM_MERGE_LANES`, `SWIM_APPLY_LANES` —
-  `sim.dense_lanes.swim_timeout_lanes_`, `swim_merge_lanes`,
+  `sim.swim_lanes.swim_timeout_lanes_`, `swim_merge_lanes`,
   `swim_apply_lanes_`; K1's uniform lane entry `SAMPLE_UNIFORM_LANES` —
-  `sim.dense_lanes.sample_uniform_lanes`; K23 `DETECT_FULL_LANES`,
+  `sim.swim_lanes.sample_uniform_lanes`; K23 `DETECT_FULL_LANES`,
   `DETECT_PARTIAL_LANES` (a row each) — `sim.telemetry.
   detect_full_lanes_`, `detect_partial_lanes_`.
 
@@ -190,6 +190,20 @@ replaces:
   TRACE`, `BROADCAST_SCATTER_JITTER_LANES_TRACE` (dropped frames a lane)
   and `SYNC_PULL_LANES_TRACE`, `SYNC_PULL_DELAY_LANES_TRACE` (granted
   words a lane).
+
+- metered budgets and the topology streams on the packed round's lanes
+  (B16m's budgets and topology; one row a kernel, counted apart from the
+  solo entries): K16 on the lanes' rows `BUDGET_WORDS_LANES` (K16's
+  launcher on the sending words folded to K·N rows) —
+  `sim.lanes.budget_prefix_words_lanes`, in `sim.lanes.spend_lanes`
+  under the broadcast governor; K3m's lane entry `SYNC_PULL_METERED_LANES`
+  (session delays too) and its recording form
+  `SYNC_PULL_METERED_LANES_TRACE` — `sim.lanes.sync_pull_lanes` under a
+  sync budget; K10's flat topology stream on the lanes (K10's lane entry,
+  `BROADCAST_SCATTER_LOSSY_LANES` and its forms) and the tiered lane
+  instantiation `BROADCAST_SCATTER_TIERED_LANES` with its recording form
+  `BROADCAST_SCATTER_TIERED_LANES_TRACE` — `sim.lanes.scatter_lanes` with
+  ``topo_thr`` or ``tiers``.
 
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
@@ -388,7 +402,7 @@ BROADCAST_SCATTER_LANES = Kernel("broadcast_scatter_lanes",
                                  "corro_broadcast_scatter_lanes", 5)
 BROADCAST_SCATTER_LOSSY_LANES = Kernel(
     "broadcast_scatter_lossy_lanes", "broadcast_scatter.cu",
-    "corro_broadcast_scatter_lossy_lanes", 10)
+    "corro_broadcast_scatter_lossy_lanes", 11)
 SYNC_PULL_LANES = Kernel("sync_pull_lanes", "sync_pull.cu",
                          "corro_sync_pull_lanes", 6)
 GAPS_REFRESH_LANES = Kernel("gaps_refresh_lanes", "gaps_refresh.cu",
@@ -524,7 +538,7 @@ ORDER_CHECK_DENSE_LANES = Kernel("order_check_dense_lanes", "order_check.cu",
 
 BROADCAST_SCATTER_JITTER_LANES = Kernel(
     "broadcast_scatter_jitter_lanes", "broadcast_scatter.cu",
-    "corro_broadcast_scatter_lossy_lanes", 10)
+    "corro_broadcast_scatter_lossy_lanes", 11)
 SYNC_PULL_DELAY_LANES = Kernel("sync_pull_delay_lanes", "sync_pull.cu",
                                "corro_sync_pull_lanes", 6)
 TRACE_COUNTS_LANES = Kernel("trace_counts_lanes", "trace_counts.cu",
@@ -535,15 +549,29 @@ TRACE_WIRE_WORDS_LANES = Kernel("trace_wire_words_lanes", "trace_wire.cu",
                                 "corro_trace_wire_words_lanes", 5)
 BROADCAST_SCATTER_LOSSY_LANES_TRACE = Kernel(
     "broadcast_scatter_lossy_lanes_trace", "broadcast_scatter.cu",
-    "corro_broadcast_scatter_lossy_lanes", 10)
+    "corro_broadcast_scatter_lossy_lanes", 11)
 BROADCAST_SCATTER_JITTER_LANES_TRACE = Kernel(
     "broadcast_scatter_jitter_lanes_trace", "broadcast_scatter.cu",
-    "corro_broadcast_scatter_lossy_lanes", 10)
+    "corro_broadcast_scatter_lossy_lanes", 11)
 SYNC_PULL_LANES_TRACE = Kernel("sync_pull_lanes_trace", "sync_pull.cu",
                                "corro_sync_pull_lanes", 6)
 SYNC_PULL_DELAY_LANES_TRACE = Kernel("sync_pull_delay_lanes_trace",
                                      "sync_pull.cu", "corro_sync_pull_lanes",
                                      6)
+
+BROADCAST_SCATTER_TIERED_LANES = Kernel(
+    "broadcast_scatter_tiered_lanes", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_lossy_lanes", 11)
+BROADCAST_SCATTER_TIERED_LANES_TRACE = Kernel(
+    "broadcast_scatter_tiered_lanes_trace", "broadcast_scatter.cu",
+    "corro_broadcast_scatter_lossy_lanes", 11)
+SYNC_PULL_METERED_LANES = Kernel("sync_pull_metered_lanes", "sync_pull.cu",
+                                 "corro_sync_pull_metered_lanes", 7)
+SYNC_PULL_METERED_LANES_TRACE = Kernel("sync_pull_metered_lanes_trace",
+                                       "sync_pull.cu",
+                                       "corro_sync_pull_metered_lanes", 7)
+BUDGET_WORDS_LANES = Kernel("budget_words_lanes", "budget_words.cu",
+                            "corro_budget_words", 3)
 
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
@@ -665,6 +693,12 @@ PORTED = {
         BROADCAST_SCATTER_JITTER_LANES_TRACE,),
     "sync_pull_lanes_trace": (SYNC_PULL_LANES_TRACE,),
     "sync_pull_delay_lanes_trace": (SYNC_PULL_DELAY_LANES_TRACE,),
+    "broadcast_scatter_tiered_lanes": (BROADCAST_SCATTER_TIERED_LANES,),
+    "broadcast_scatter_tiered_lanes_trace": (
+        BROADCAST_SCATTER_TIERED_LANES_TRACE,),
+    "sync_pull_metered_lanes": (SYNC_PULL_METERED_LANES,),
+    "sync_pull_metered_lanes_trace": (SYNC_PULL_METERED_LANES_TRACE,),
+    "budget_words_lanes": (BUDGET_WORDS_LANES,),
 }
 #: the flight recorder on the seed ensembles' lanes (B16r): the lane
 #: entries of K17-K19 (K17's dense, grant and coverage entries, K18's rows,
@@ -686,7 +720,9 @@ TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
                    "trace_wire_rows_pull_lanes", "trace_counts_lanes",
                    "trace_wire_lanes", "broadcast_scatter_lossy_lanes_trace",
                    "broadcast_scatter_jitter_lanes_trace",
-                   "sync_pull_lanes_trace", "sync_pull_delay_lanes_trace")
+                   "sync_pull_lanes_trace", "sync_pull_delay_lanes_trace",
+                   "broadcast_scatter_tiered_lanes_trace",
+                   "sync_pull_metered_lanes_trace")
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
@@ -703,7 +739,8 @@ LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "dense_pull_lossy_lanes", "dense_pull_tiered_lanes",
              "dense_deliver_fifo_lanes", "order_check_dense_lanes",
              "broadcast_scatter_jitter_lanes", "sync_pull_delay_lanes",
-             *TRACE_LANE_ROWS)
+             "broadcast_scatter_tiered_lanes", "sync_pull_metered_lanes",
+             "budget_words_lanes", *TRACE_LANE_ROWS)
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
@@ -752,7 +789,9 @@ __all__ = [
     "SYNC_PULL_DELAY_LANES", "TRACE_COUNTS_LANES", "TRACE_COVERAGE_LANES",
     "TRACE_WIRE_WORDS_LANES", "BROADCAST_SCATTER_LOSSY_LANES_TRACE",
     "BROADCAST_SCATTER_JITTER_LANES_TRACE", "SYNC_PULL_LANES_TRACE",
-    "SYNC_PULL_DELAY_LANES_TRACE",
+    "SYNC_PULL_DELAY_LANES_TRACE", "BROADCAST_SCATTER_TIERED_LANES",
+    "BROADCAST_SCATTER_TIERED_LANES_TRACE", "SYNC_PULL_METERED_LANES",
+    "SYNC_PULL_METERED_LANES_TRACE", "BUDGET_WORDS_LANES",
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
     "BROADCAST_SCATTER_LOSSY", "BROADCAST_SCATTER_TIERED", "BUDGET_WORDS",
     "CONVERGE_FINISH", "CONVERGE_ROWS", "DEGREE_CAPS", "DENSE_BROADCAST",

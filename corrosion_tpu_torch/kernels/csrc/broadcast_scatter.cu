@@ -150,6 +150,28 @@
 // dropped_stride (the [K, 12] trace accumulators, stride 12), as K12's
 // recording lane forms do.  Bound: K times the solo bound (operations in a
 // jittered round).
+//
+// The topology streams on the lanes (B16m: corrosion_tpu/sim/topology.py
+// :267 edge_payload_drop, called at packed.py:451, and :240
+// tiered_edge_drop under the vmap of ensemble.py:114).  The flat stream
+// is K10's lane entry with `topo_thr` and each lane's `topo_key`, its
+// k_drop (the second split of the lane's broadcast key, used as it is):
+// lane k hashes its own counters e*8W + 8k + j, e lane-local, under its
+// own k_drop, so a lane drops what its solo run drops.  The lossy lane
+// entry now also runs with the topology stream alone (no fault stream:
+// `key`, `seeds` and `thr` null).  The tiered lane instantiation (the
+// same launcher given `tiers`, counted as broadcast_scatter_tiered_lanes
+// and, with `dropped`, broadcast_scatter_tiered_lanes_trace) compares the
+// same per-lane bytes against each edge's
+// tier threshold from the one shared topology table (the tiers of an edge
+// depend on its two node ids, which are lane-local, so every lane reads
+// the same table); a tier at certainty (raw >= 256) drops without a draw.
+// Both come with and without the fault loss and the jitter stream, and
+// with the recording form.  No block spans two lanes (the lane is
+// blockIdx.y), so a block's threads share one lane's keys and seed.
+// Bound: operations — K times the solo topology stream's hashes (eight
+// u32 draws of ~72 operations per sending (edge, word) under a threshold
+// between 1 and 255).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -513,24 +535,31 @@ extern "C" int corro_broadcast_scatter_tiered(
 // without fault loss this round), `jit` the jitter bounds [lanes, E] (null
 // without jitter this round: K10j's lane entry when given), `key` the
 // lanes' broadcast phase keys [lanes, 2] and `seeds` their plan seeds
-// [lanes] (i32).  Each lane folds its own key with its own seed (keys 101
-// and 102) and hashes its own counters — e*8W + 8k + j for the loss, the
-// element e*32W + 32k + b for the jitter, e lane-local: lane k's drops and
-// slots are the solo run's under seed k.  The recording forms pass
-// `dropped`, lane 0's int64 slot, each lane's `dropped_stride` slots after
-// the one before (null: nothing counts).
+// [lanes] (i32; both null when neither fault stream runs).  Each lane folds
+// its own key with its own seed (keys 101 and 102) and hashes its own
+// counters — e*8W + 8k + j for the loss, the element e*32W + 32k + b for
+// the jitter, e lane-local: lane k's drops and slots are the solo run's
+// under seed k.  The topology stream takes `topo_key`, the lanes' k_drop
+// [lanes, 2] used as they are, and either the shared flat `topo_thr`
+// (`topo_key` null when it is 0 or 256 or more) or, with `tiers` (the
+// topology's table, shared by every lane; topo_thr 0, `topo_key`
+// required), each edge's tier threshold: the tiered lane instantiation.
+// The recording forms pass `dropped`, lane 0's int64 slot, each lane's
+// `dropped_stride` slots after the one before (null: nothing counts).
 extern "C" int corro_broadcast_scatter_lossy_lanes(
     void* ring, const void* sending, const void* dst, const void* slot,
     const void* ok, const void* thr, const void* key, const void* seeds,
-    void* dropped, const void* jit, int n, int d_slots, int w, int fanout,
-    int tag, int jit_tag, int span, int mult, int dropped_stride, int lanes,
+    const void* topo_key, void* dropped, const void* jit, const void* tiers,
+    int n, int d_slots, int w, int fanout, int tag, int topo_thr,
+    int jit_tag, int span, int mult, int dropped_stride, int lanes,
     void* stream) {
-  if ((thr == nullptr && jit == nullptr) || key == nullptr ||
-      seeds == nullptr)
+  bool fault = thr != nullptr || jit != nullptr;
+  if ((!fault && topo_thr == 0 && tiers == nullptr) ||
+      (fault && (key == nullptr || seeds == nullptr)))
     return (int)cudaErrorInvalidValue;
-  return launch_lossy(ring, sending, dst, slot, ok, thr, key, nullptr,
-                      dropped, jit, nullptr, n, d_slots, w, fanout, 0, tag, 0,
-                      jit_tag, span, mult, stream, seeds, lanes,
+  return launch_lossy(ring, sending, dst, slot, ok, thr, key, topo_key,
+                      dropped, jit, tiers, n, d_slots, w, fanout, 0, tag,
+                      topo_thr, jit_tag, span, mult, stream, seeds, lanes,
                       dropped_stride);
 }
 

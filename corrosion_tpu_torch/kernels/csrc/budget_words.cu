@@ -10,6 +10,16 @@
 // (rows N, budget rate_limit_bytes_round); the sync grant runs the same
 // row scan inside K3's metered entry (rows N*S).
 //
+// K16 on the lanes' rows (B16m; counted as budget_words_lanes): the
+// governor of the seed ensemble's packed lanes (packed.py:389 under the
+// vmap of corrosion_tpu/campaign/ensemble.py:114) is this entry on the
+// sending words [K, N, W] folded to rows = K*N.  The budget and the sizes
+// are the config's, shared by every lane, and a row's scan reads only its
+// own words, so the lanes need no offsets: a block of 8 rows that spans
+// two lanes (N not a multiple of 8) meters each row alone all the same.
+// The row index is an int: K*N < 2^31 (the wrapper checks).  Bound: bytes,
+// as the solo entry's over K*N rows.
+//
 // The row scan is budget_words.cuh: one warp per row, a lane per run of
 // ceil(W/32) contiguous words, an int64 running total (exact for any P
 // the JAX package accepts, P < 2^21), a warp scan across the lanes.

@@ -86,6 +86,22 @@
 // granted words to its slice of `granted` [K, N * S, W], which K17's
 // grant lane entry counts into the lane's own trace row.  Edge offsets
 // are 64-bit: K * N * S * W passes 2^31 at 16 lanes of the storm.
+//
+// K3m's lane entry (B16m, corro_sync_pull_metered_lanes, counted as
+// sync_pull_metered_lanes and, with `granted`, sync_pull_metered_lanes_
+// trace) is the metered pull — the per-edge sync grant of corrosion_tpu/
+// sim/packed.py:1238 (budget_prefix_words on each edge's need row) — under
+// the same vmap: blockIdx.y is the lane, blockIdx.x the puller, so one
+// block still meters one puller's S need rows in shared memory and a
+// block never spans two lanes.  The lane's masks, misses, sessions
+// (lane-local peers), sync ring, fruitful row, session delays and granted
+// rows are its slices at 64-bit offsets (the gapstress ensemble's granted
+// words are K * 76 800 * 256 words, 630 MB at K = 8); the payload sizes
+// and the budget are shared, as JAX's vmap shares the config.  With
+// `sdelay` each lane's grants land by class in its own ring, a class past
+// D - 2 nowhere.  Bound on the H100: bytes — K times the solo metered
+// bound: the peers' mask rows the sessions gather, the pullers' own rows,
+// the ring words the grants touch, in and out.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -212,6 +228,20 @@ __global__ void sync_pull_metered_kernel(
     const int32_t* __restrict__ nbytes, uint32_t* __restrict__ granted, int n,
     int w, int s_peers, long long budget) {
   extern __shared__ uint32_t need[];  // [S, W]
+  // the lane's slices (lane 0 on the solo entry); nbytes and the budget
+  // are shared
+  {
+    const size_t lane = blockIdx.y;
+    const size_t edges = (size_t)n * s_peers;
+    masks += lane * n * 4 * w;
+    miss += lane * n * w;
+    peers += lane * edges;
+    ok += lane * edges;
+    fruitful += lane * n;
+    cls.ring += lane * cls.d_slots * n * w;
+    if (granted) granted += lane * edges * w;
+    if (cls.sdelay) cls.sdelay += lane * edges;
+  }
   int node = blockIdx.x;
   int warp = threadIdx.x / 32;
   int lane = threadIdx.x & 31;
@@ -298,15 +328,15 @@ extern "C" int corro_sync_pull_lanes(const void* masks, const void* miss,
   return (int)cudaGetLastError();
 }
 
-extern "C" int corro_sync_pull_metered(const void* masks, const void* miss,
-                                       const void* peers, const void* ok,
-                                       void* ring, void* fruitful,
-                                       const void* nbytes, void* granted,
-                                       const void* sdelay, int n, int w,
-                                       int s_peers, int d_slots, int base,
-                                       int budget, void* stream) {
+namespace {
+
+int launch_metered(const void* masks, const void* miss, const void* peers,
+                   const void* ok, void* ring, void* fruitful,
+                   const void* nbytes, void* granted, const void* sdelay,
+                   int n, int w, int s_peers, int d_slots, int base,
+                   int budget, int lanes, void* stream) {
   if (n <= 0 || w <= 0 || w >= (1 << 16) || s_peers <= 0 || d_slots <= 0 ||
-      base < 0 || base >= d_slots)
+      base < 0 || base >= d_slots || lanes <= 0 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   size_t smem = (size_t)s_peers * w * sizeof(uint32_t);
   if (smem > 48 * 1024) {
@@ -317,10 +347,39 @@ extern "C" int corro_sync_pull_metered(const void* masks, const void* miss,
   }
   int warps = s_peers < kMaxWarps ? s_peers : kMaxWarps;
   Classes cls{(uint32_t*)ring, (const int32_t*)sdelay, d_slots, base};
-  sync_pull_metered_kernel<<<(unsigned)n, warps * 32, smem,
+  sync_pull_metered_kernel<<<dim3((unsigned)n, lanes), warps * 32, smem,
                              (cudaStream_t)stream>>>(
       (const uint32_t*)masks, (const uint32_t*)miss, (const int32_t*)peers,
       (const bool*)ok, cls, (uint8_t*)fruitful, (const int32_t*)nbytes,
       (uint32_t*)granted, n, w, s_peers, (long long)budget);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int corro_sync_pull_metered(const void* masks, const void* miss,
+                                       const void* peers, const void* ok,
+                                       void* ring, void* fruitful,
+                                       const void* nbytes, void* granted,
+                                       const void* sdelay, int n, int w,
+                                       int s_peers, int d_slots, int base,
+                                       int budget, void* stream) {
+  return launch_metered(masks, miss, peers, ok, ring, fruitful, nbytes,
+                        granted, sdelay, n, w, s_peers, d_slots, base, budget,
+                        1, stream);
+}
+
+// K3m's lane entry: K3's lane layout (masks [lanes, N, 4, W], miss
+// [lanes, N, W], peers and ok [lanes, N, S], ring [lanes, d_slots, N, W],
+// fruitful [lanes, N], sdelay [lanes, N * S], granted [lanes, N * S, W])
+// with the metered grant; `nbytes` [32W] and `budget` are shared by every
+// lane.
+extern "C" int corro_sync_pull_metered_lanes(
+    const void* masks, const void* miss, const void* peers, const void* ok,
+    void* ring, void* fruitful, const void* nbytes, void* granted,
+    const void* sdelay, int n, int w, int s_peers, int d_slots, int base,
+    int budget, int lanes, void* stream) {
+  return launch_metered(masks, miss, peers, ok, ring, fruitful, nbytes,
+                        granted, sdelay, n, w, s_peers, d_slots, base, budget,
+                        lanes, stream);
 }

@@ -12,7 +12,8 @@ plan's schedule are shared, and only the plan's seed is batched
 lane-local.  Every phase runs all live lanes at once: the draws are K5's
 lane entry (`.rng`), the sampler and the merge K1's and K4's
 (`.pswim`), the word phases K8's, the ring scatter K2's, K10's or K10j's,
-the pull K3's (its delay entry under session delays), the gap refresh
+the pull K3's (its delay entry under session delays, K3m's under the
+sync budget), the gap refresh
 K6's (`.gaps`), the record K7's (one done flag a lane), the node faults
 K11's and the probe reach K9's lane entry (`.faults`); K9's edge queries
 (its latency entry too) take the lanes folded into their edge axis.
@@ -49,13 +50,40 @@ forms of K3's lane entries, then K17's grant lane entry), coverage and
 delivered (K17's coverage lane entry), and K19's lane entry writes the
 rows.
 
-The lane path covers what the 100k storm cells run: the flat lossless
-topology, partial-view SWIM, the baseline protocol, unmetered budgets and
-factored fault plans with delay and jitter, with or without the
-recorder.  `check_packed_lanes` refuses everything else, naming the
-ROADMAP item that ports it; the dense round's lanes (`.dense_lanes`:
-fault plans of either form, the topology families, PeerSwap, the
-protocol variants) have `check_dense_lanes`, and share this module's
+**Metered budgets** (B16m's budgets): the broadcast governor meters each
+lane's sending words as the solo `packed.spend_relay` does — K8's spend
+lane entry in mode 1, K16 on the lanes' rows (`budget_prefix_words_lanes`:
+the sending words [K, N, W] folded to K·N rows, the budget and the sizes
+shared), K8's spend in mode 2 — and the sync grant meters each session's
+need row inside K3m's lane entry (its delay classes and recording form
+too).  JAX: ``packed.py:102 budget_prefix_words`` at ``:389`` and the
+per-edge grant at ``:1238`` under the vmap.
+
+**Topology families and keys** (B16m's topology): each lane's targets
+take ring0 tiering under its ``k_ring0`` (`.broadcast.ring0_targets_lanes`)
+and the degree caps (K20's caps lane entry), its edges the AZ and matrix
+delay classes (K20's slots lane entry), its wire the topology's loss —
+the flat stream under its ``k_drop`` or the tiered lane instantiation,
+both K10's lane launcher, with or without the plan's loss and jitter —
+and every SWIM reach the topology's loss (K20's reach lane entry, or the
+flat bernoulli).  JAX: ``topology.py:267 edge_payload_drop`` at
+``packed.py:451`` and ``:240 tiered_edge_drop``.
+
+**Every membership mode and PeerSwap** (B16s's packed half): the lanes
+draw their targets and peers as the dense round's lanes do
+(`.swim_lanes.sample_member_targets_lanes`: K1's lane entry under
+partial view, its uniform lane entry under full view or ground truth, its
+view lane entry under PeerSwap) and tick SWIM through
+`.swim_lanes.swim_step_lanes` (pswim, K15's lane entries, or nothing);
+under PeerSwap each lane's key splits five ways and the swap tick (K21's
+lane entries) runs before inject.  A wiped node's full-view row goes
+back to 0, 0, -1 in K11's lane entry (JAX ``faults.py:729-734``).
+
+The lane path runs every configuration of the solo packed round but two,
+which `check_packed_lanes` refuses naming the ROADMAP item that ports
+them: the protocol variants (B16m: K10p, K8f, K22's words entry and K18's
+words-pull entry on lanes) and matrix plans (B16x).  The dense round's
+lanes (`.dense_lanes`) have `check_dense_lanes`, and share this module's
 batch and loop (`_Batch`, `_run_batch`, `trace_of`, `stack_traces`).
 """
 
@@ -68,7 +96,10 @@ import torch
 from .. import kernels
 from ..device import ONES, i32
 from ..kernels.build import check
+from ..proto.schedule import capped_schedule_lanes
+from ..topo.sampler import peerswap_step_lanes
 from . import rng
+from .broadcast import ring0_targets_lanes
 from .faults import (
     JITTER_TAG,
     WIRE_LOSS_TAG,
@@ -86,14 +117,16 @@ from .packed import (
     JITTER_MAX,
     PackedCarry,
     Planes,
+    _check_budget,
+    budget_prefix_words_plain,
     planes_dec_,
     pack_state,
     planes_set_,
     unpack_into_state,
 )
-from .pswim import psample_member_targets_lanes, pswim_step_lanes
 from .round import RunMetrics, overflow_fraction
 from .state import ALIVE, PayloadMeta, SimConfig, SimState, packed_supported
+from .swim_lanes import sample_member_targets_lanes, swim_step_lanes
 from .telemetry import (
     COVERAGE,
     GRANTS,
@@ -108,7 +141,14 @@ from .telemetry import (
     wire_loss_active,
     wire_words_lanes_,
 )
-from .topology import Topology, edge_slot_plain, regions
+from .topology import (
+    Topology,
+    edge_slot_lanes,
+    loss_threshold,
+    regions,
+    topo_table,
+    wire_tiers,
+)
 from .words import (
     all_chunks_words,
     and_rows,
@@ -123,41 +163,31 @@ from .words import (
 
 def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None) -> None:
     """Refuse, loudly and naming the ROADMAP item that ports it, every
-    configuration the packed round's lanes do not run: topology keys,
-    the protocol variants and metered budgets (B16m), PeerSwap (B16s's
-    packed half) and matrix plans (B16x); full view and ground-truth
-    membership run on the dense round's lanes instead.  Factored plans
-    with delay and jitter (B16l) and the flight recorder (B16r) run."""
+    configuration the packed round's lanes do not run: the protocol
+    variants (B16m: K10p, K8f, K22's words entry and K18's words-pull
+    entry on lanes) and matrix plans (B16x).  Both metered budgets (K16
+    on the lanes' rows, K3m's lane entry), every topology family and key
+    (K10's flat and tiered streams on lanes, K20's lane entries), every
+    membership mode and PeerSwap (K1's, K15's and K21's lane entries),
+    factored plans with delay and jitter (B16l) and the flight recorder
+    (B16r) run: JAX's ``jax.vmap`` of ``corrosion_tpu/sim/packed.py:681
+    packed_round_step`` in ``corrosion_tpu/campaign/ensemble.py:114-158
+    run_ensemble`` over every configuration of the solo packed round but
+    those two.  Bound on the H100: K times the solo round's bytes and
+    hashes (the lanes share no work); the design runs each phase's kernel
+    once for all live lanes (a lane grid dimension, or the lanes folded
+    into a kernel's rows), so a lane round issues the launches of one solo
+    round."""
     if not packed_supported(cfg, topo):
         raise ValueError("a dense configuration on the packed round's "
                          "lanes: run it through `.dense_lanes`")
-    if topo != Topology():
-        raise NotImplementedError(
-            "topology families and keys on the packed round's lanes are "
-            "not ported yet (K10t on lanes, ROADMAP B16m); the dense "
-            "round's lanes run them (allow_packed=False)")
-    if cfg.peer_sampler != "uniform":
-        raise NotImplementedError(
-            "the PeerSwap sampler on the packed round's lanes is not ported "
-            "yet (ROADMAP B16s, its packed half); the dense round's lanes "
-            "run it (allow_packed=False)")
     if (cfg.dissemination, cfg.fanout_schedule, cfg.sync_cadence,
             cfg.ordering) != ("push", "flat", "periodic", "none"):
         raise NotImplementedError(
             "protocol variants on the packed round's lanes are not ported "
-            "yet (K10p, K8f and K22's words entry on lanes, ROADMAP B16m); "
-            "the dense round's lanes run them (allow_packed=False)")
-    if cfg.rate_limit_bytes_round is not None or (
-            cfg.sync_budget_bytes is not None):
-        raise NotImplementedError(
-            "metered budgets on the packed round's lanes are not ported "
-            "yet (K16 and K3's metered entry, ROADMAP B16m): "
-            "set rate_limit_bytes_round and sync_budget_bytes to None")
-    if not (cfg.swim_partial_view and cfg.couple_membership):
-        raise NotImplementedError(
-            "the packed round's lanes run partial-view SWIM only; full "
-            "view and ground-truth membership run on the dense round's "
-            "lanes (force the dense round with allow_packed=False)")
+            "yet (K10p, K8f, K22's words entry and K18's words-pull entry "
+            "on lanes, ROADMAP B16m); the dense round's lanes run them "
+            "(allow_packed=False)")
     if fplan is not None and not isinstance(fplan, FactoredFaultPlan):
         raise NotImplementedError(
             "matrix fault plans on the packed round's lanes are not "
@@ -231,12 +261,47 @@ def inject_lanes(carry: PackedCarry, inj: torch.Tensor, t: int,
     )
 
 
+def budget_prefix_words_lanes_plain(elig_w: torch.Tensor, budget_bytes,
+                                    nbytes: torch.Tensor) -> torch.Tensor:
+    """Plain version of K16 on the lanes' rows: the solo plain version on
+    each lane's rows."""
+    if budget_bytes is None:
+        return elig_w
+    return torch.stack([budget_prefix_words_plain(x, budget_bytes, nbytes)
+                        for x in elig_w])
+
+
+def budget_prefix_words_lanes(elig_w: torch.Tensor, budget_bytes,
+                              nbytes: torch.Tensor) -> torch.Tensor:
+    """`packed.budget_prefix_words` over the lanes' rows ``elig_w`` [K, N,
+    W]: each row's payload-index prefix of set bits whose bytes fit the
+    shared ``budget_bytes``; None is unmetered.  The row scan never
+    crosses rows and the budget and sizes are shared, so the lanes fold
+    into K·N rows: K16's launcher on the card, counted as its lane
+    entry."""
+    if budget_bytes is None:
+        return elig_w
+    if elig_w.device.type == "cpu":
+        return budget_prefix_words_lanes_plain(elig_w, budget_bytes, nbytes)
+    lanes, n, w = elig_w.shape
+    check("elig_w", elig_w, torch.int32, (lanes, n, w))
+    _check_budget(budget_bytes, nbytes, w)
+    if lanes * n >= 1 << 31:
+        raise ValueError(f"{lanes} x {n} rows pass K16's int row index")
+    out = torch.empty_like(elig_w)
+    kernels.BUDGET_WORDS_LANES.launch([elig_w, nbytes, out],
+                                      [lanes * n, w, budget_bytes])
+    return out
+
+
 def spend_lanes_plain(carry: PackedCarry, inj: torch.Tensor,
-                      targets: torch.Tensor,
-                      alive: torch.Tensor) -> torch.Tensor:
-    """Plain version of K8's spend lane entry."""
+                      targets: torch.Tensor, alive: torch.Tensor,
+                      budget=None, nbytes=None) -> torch.Tensor:
+    """Plain version of K8's spend lane entry (metered: around K16's
+    plain version)."""
     n = carry.have.shape[1]
     sending = carry.have & carry.relay.nonzero & inj[:, None, :]
+    sending = budget_prefix_words_lanes_plain(sending, budget, nbytes)
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
     attempted = (targets >= 0) & (targets != me[None, :, None])
     any_attempt = attempted.any(dim=2) & (alive == ALIVE)
@@ -245,12 +310,16 @@ def spend_lanes_plain(carry: PackedCarry, inj: torch.Tensor,
 
 
 def spend_lanes(carry: PackedCarry, inj: torch.Tensor,
-                targets: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
-    """`packed.spend_relay` over the lanes, unmetered: the sending words
-    [K, N, W]; the relay planes count down in place where an up row
-    attempted a send.  K8's spend lane entry on the card."""
+                targets: torch.Tensor, alive: torch.Tensor, budget=None,
+                nbytes=None) -> torch.Tensor:
+    """`packed.spend_relay` over the lanes: the sending words [K, N, W],
+    metered by the broadcast governor (``budget`` bytes of ``nbytes``,
+    shared; None is unmetered); the relay planes count down in place where
+    an up row attempted a send.  K8's spend lane entry on the card; metered,
+    its mode 1 (the eligible words), K16 on the lanes' rows, then its mode
+    2 (the spend of the metered words), as the solo spend."""
     if carry.have.device.type == "cpu":
-        return spend_lanes_plain(carry, inj, targets, alive)
+        return spend_lanes_plain(carry, inj, targets, alive, budget, nbytes)
     lanes, n, w = carry.have.shape
     f = targets.shape[2]
     _check_lane_words(carry, lanes, n, w)
@@ -258,9 +327,13 @@ def spend_lanes(carry: PackedCarry, inj: torch.Tensor,
     check("targets", targets, torch.int32, (lanes, n, f))
     check("alive", alive, torch.uint8, (lanes, n))
     sending = torch.empty_like(carry.have)
-    kernels.WORD_SPEND_LANES.launch(
-        [carry.have, *carry.relay, inj, targets, alive, sending],
-        [n, w, f, 0, lanes])
+    args = [carry.have, *carry.relay, inj, targets, alive]
+    if budget is None:
+        kernels.WORD_SPEND_LANES.launch([*args, sending], [n, w, f, 0, lanes])
+        return sending
+    kernels.WORD_SPEND_LANES.launch([*args, sending], [n, w, f, 1, lanes])
+    sending = budget_prefix_words_lanes(sending, budget, nbytes)
+    kernels.WORD_SPEND_LANES.launch([*args, sending], [n, w, f, 2, lanes])
     return sending
 
 
@@ -296,43 +369,63 @@ def deliver_lanes(carry: PackedCarry, t: int, cfg: SimConfig) -> None:
 # -- the ring scatter (K2, K10) ---------------------------------------------
 
 
+def _streams_live(thr, jit, topo_thr: int, tiers) -> bool:
+    """Whether any drop or jitter stream runs on the wire: the fault
+    loss, the jitter, the flat topology loss or tiered loss (K10's lane
+    entry then, K2's otherwise)."""
+    return not (thr is None and jit is None and topo_thr == 0
+                and tiers is None)
+
+
 def scatter_lanes_plain(ring, sending, dst, slot, ok, fanout: int,
                         thr=None, keys=None, seeds=None, jit=None,
-                        dropped=None) -> None:
-    """Plain version of K2's lane entry (with ``thr`` K10's, with ``jit``
-    K10j's, with ``dropped`` their recording forms), in place: the solo
-    plain version on each lane under its key and plan seed."""
+                        dropped=None, topo_thr: int = 0, topo_keys=None,
+                        tiers: Optional[Topology] = None) -> None:
+    """Plain version of K2's lane entry (with a stream K10's, with ``jit``
+    K10j's, with ``tiers`` the tiered lane instantiation, with ``dropped``
+    their recording forms), in place: the solo plain version on each lane
+    under its keys and plan seed."""
     from .packed import scatter_sending_lossy_plain, scatter_sending_plain
 
+    lossy = _streams_live(thr, jit, topo_thr, tiers)
     for k in range(ring.shape[0]):
-        if thr is None and jit is None:
+        if not lossy:
             scatter_sending_plain(ring[k], sending[k], dst[k], slot[k], ok[k],
                                   fanout)
             continue
         scatter_sending_lossy_plain(
             ring[k], sending[k], dst[k], slot[k], ok[k],
-            None if thr is None else thr[k], keys[k], int(seeds[k]), fanout,
+            None if thr is None else thr[k],
+            None if keys is None else keys[k],
+            0 if seeds is None else int(seeds[k]), fanout, topo_thr,
+            None if topo_keys is None else topo_keys[k],
             dropped=None if dropped is None else dropped[k],
-            jit=None if jit is None else jit[k])
+            jit=None if jit is None else jit[k], tiers=tiers)
 
 
 def scatter_lanes(ring, sending, dst, slot, ok, fanout: int, thr=None,
-                  keys=None, seeds=None, jit=None, dropped=None) -> None:
-    """`packed.scatter_sending` (and with ``thr`` or ``jit`` the fault
-    streams of `packed.scatter_sending_lossy`) over the lanes, in place on
-    the rings [K, D, N, W]: lane k's ok edges OR its sending words into its
-    ring, less what its wire-loss draw ``fold_in(fold_in(keys[k],
-    seeds[k]), 101)`` drops under thr[k, e]; with ``jit`` (i32[K, E], K9's
-    jitter bounds) each surviving payload q of an edge with jit[k, e] > 0
-    lands element e*P + q of ``randint(fold_in(fold_in(keys[k], seeds[k]),
-    102), [E, P], 0, 2^31 - 1)`` mod (jit[k, e] + 1) rounds past slot[k,
-    e].  With ``dropped`` (a lane trace's ``[K]`` accumulator view) each
-    lane's lost frames are added to its slot.  K2's lane entry, K10's, or
-    K10j's with ``jit``; their recording forms, counted apart, with
-    ``dropped``."""
+                  keys=None, seeds=None, jit=None, dropped=None,
+                  topo_thr: int = 0, topo_keys=None,
+                  tiers: Optional[Topology] = None) -> None:
+    """`packed.scatter_sending` (and with a stream
+    `packed.scatter_sending_lossy`) over the lanes, in place on the rings
+    [K, D, N, W]: lane k's ok edges OR its sending words into its ring,
+    less what its streams drop — its wire-loss draw ``fold_in(fold_in(
+    keys[k], seeds[k]), 101)`` under thr[k, e], and the topology's loss,
+    byte e*P + q of ``aligned_u8_bits(topo_keys[k], [E, P])`` (the lane's
+    ``k_drop``) below the shared ``topo_thr`` or, with ``tiers``, below
+    the edge's tier threshold (256 or more drops all).  With ``jit``
+    (i32[K, E], K9's jitter bounds) each surviving payload q of an edge
+    with jit[k, e] > 0 lands element e*P + q of ``randint(fold_in(fold_in(
+    keys[k], seeds[k]), 102), [E, P], 0, 2^31 - 1)`` mod (jit[k, e] + 1)
+    rounds past slot[k, e].  With ``dropped`` (a lane trace's ``[K]``
+    accumulator view) each lane's lost frames are added to its slot.  K2's
+    lane entry without a stream; K10's lane entry (K10j's with ``jit``) or
+    the tiered lane instantiation with ``tiers``, their recording forms,
+    counted apart, with ``dropped``."""
     if ring.device.type == "cpu":
         scatter_lanes_plain(ring, sending, dst, slot, ok, fanout, thr, keys,
-                            seeds, jit, dropped)
+                            seeds, jit, dropped, topo_thr, topo_keys, tiers)
         return
     lanes, d_slots, n, w = ring.shape
     e = n * fanout
@@ -341,32 +434,46 @@ def scatter_lanes(ring, sending, dst, slot, ok, fanout: int, thr=None,
     check("dst", dst, torch.int32, (lanes, e))
     check("slot", slot, torch.int32, (lanes, e))
     check("ok", ok, torch.bool, (lanes, e))
-    if thr is None and jit is None:
+    if not _streams_live(thr, jit, topo_thr, tiers):
         if dropped is not None:
             raise ValueError("dropped needs a loss or jitter stream")
         kernels.BROADCAST_SCATTER_LANES.launch(
             [ring, sending, dst, slot, ok], [n, d_slots, w, fanout, lanes])
         return
+    fault = thr is not None or jit is not None
     if thr is not None:
         check("thr", thr, torch.uint8, (lanes, e))
     if jit is not None:
         check("jit", jit, torch.int32, (lanes, e))
-    check("keys", keys, torch.int64, (lanes, 2))
-    check("seeds", seeds, torch.int32, (lanes,))
+    if fault:
+        check("keys", keys, torch.int64, (lanes, 2))
+        check("seeds", seeds, torch.int32, (lanes,))
+    draws = 0 < topo_thr < 256 or tiers is not None
+    if draws:
+        check("topo_keys", topo_keys, torch.int64, (lanes, 2))
+    if tiers is not None and topo_thr != 0:
+        raise ValueError("tiered loss replaces the flat threshold")
     stride = 0
     if dropped is not None:
         _check_lane_slot("dropped", dropped, lanes)
         stride = dropped.stride(0)
-    kernel = {(False, False): kernels.BROADCAST_SCATTER_LOSSY_LANES,
-              (True, False): kernels.BROADCAST_SCATTER_JITTER_LANES,
-              (False, True): kernels.BROADCAST_SCATTER_LOSSY_LANES_TRACE,
-              (True, True): kernels.BROADCAST_SCATTER_JITTER_LANES_TRACE}[
-        (jit is not None, dropped is not None)]
+    if tiers is not None:
+        kernel = (kernels.BROADCAST_SCATTER_TIERED_LANES if dropped is None
+                  else kernels.BROADCAST_SCATTER_TIERED_LANES_TRACE)
+    else:
+        kernel = {(False, False): kernels.BROADCAST_SCATTER_LOSSY_LANES,
+                  (True, False): kernels.BROADCAST_SCATTER_JITTER_LANES,
+                  (False, True): kernels.BROADCAST_SCATTER_LOSSY_LANES_TRACE,
+                  (True, True): kernels.BROADCAST_SCATTER_JITTER_LANES_TRACE}[
+            (jit is not None, dropped is not None)]
     span, mult = rng.scalar_span(0, JITTER_MAX)
+    table = None if tiers is None else topo_table(tiers, n, ring.device)
     kernel.launch(
-        [ring, sending, dst, slot, ok, thr, keys, seeds, dropped, jit],
-        [n, d_slots, w, fanout, WIRE_LOSS_TAG, JITTER_TAG, i32(span),
-         i32(mult), stride, lanes])
+        [ring, sending, dst, slot, ok, thr, keys if fault else None,
+         seeds if fault else None, topo_keys if draws else None, dropped,
+         jit, table],
+        [n, d_slots, w, fanout, WIRE_LOSS_TAG, topo_thr, JITTER_TAG,
+         i32(span), i32(mult), stride, lanes])
 
 
 def _check_lane_slot(name: str, t: torch.Tensor, lanes: int) -> None:
@@ -380,35 +487,39 @@ def _check_lane_slot(name: str, t: torch.Tensor, lanes: int) -> None:
 
 
 def sync_pull_lanes_plain(masks, miss, peers, ok, ring, slot: int,
-                          sdelay=None, granted=None) -> torch.Tensor:
+                          sdelay=None, granted=None, budget=None,
+                          nbytes=None) -> torch.Tensor:
     """Plain version of K3's lane entry (with ``sdelay`` its delay lane
-    entry, with ``granted`` their recording forms): the solo plain version
-    on each lane's rows and its ring's slot (or whole ring), in place."""
+    entry, with ``budget`` K3m's, with ``granted`` their recording forms):
+    the solo plain version on each lane's rows and its ring's slot (or
+    whole ring), in place."""
     from .packed import sync_pull_plain
 
     return torch.stack([
         sync_pull_plain(
             masks[k], miss[k], peers[k], ok[k],
-            ring[k, slot] if sdelay is None else ring[k],
+            ring[k, slot] if sdelay is None else ring[k], budget, nbytes,
             granted=None if granted is None else granted[k],
             sdelay=None if sdelay is None else sdelay[k], slot=slot)
         for k in range(masks.shape[0])])
 
 
 def sync_pull_lanes(masks, miss, peers, ok, ring, slot: int, sdelay=None,
-                    granted=None) -> torch.Tensor:
-    """`packed.sync_pull` over the lanes, unmetered: each lane's sessions
-    pull from its own rows (``peers`` [K, N, S] lane-local) into slot
-    ``slot`` of its sync ring [K, D, N, W] in place; returns bool [K, N]
-    fruitful.  With ``sdelay`` (i32[K, N * S], the lanes' session delays)
-    edge e of lane k lands in slot (slot + sdelay[k, e]) % D, a
+                    granted=None, budget=None, nbytes=None) -> torch.Tensor:
+    """`packed.sync_pull` over the lanes: each lane's sessions pull from
+    its own rows (``peers`` [K, N, S] lane-local) into slot ``slot`` of its
+    sync ring [K, D, N, W] in place, each edge's grant metered by the
+    shared sync ``budget`` of ``nbytes`` (None: unmetered); returns bool[K,
+    N] fruitful.  With ``sdelay`` (i32[K, N * S], the lanes' session
+    delays) edge e of lane k lands in slot (slot + sdelay[k, e]) % D, a
     read-OR-write (a class past D - 2 lands nowhere); with ``granted``
     ([K, N * S, W]) each lane's granted words are copied there too (every
     class).  K3's lane entry on the card, its delay lane entry with
-    ``sdelay``; their recording forms, counted apart, with ``granted``."""
+    ``sdelay``, K3m's lane entry under a budget (delays too); their
+    recording forms, counted apart, with ``granted``."""
     if masks.device.type == "cpu":
         return sync_pull_lanes_plain(masks, miss, peers, ok, ring, slot,
-                                     sdelay, granted)
+                                     sdelay, granted, budget, nbytes)
     lanes, n, _, w = masks.shape
     s = peers.shape[2]
     d_slots = ring.shape[1]
@@ -425,13 +536,20 @@ def sync_pull_lanes(masks, miss, peers, ok, ring, slot: int, sdelay=None,
         check("granted", granted, torch.int32, (lanes, n * s, w))
     fruitful = torch.zeros((lanes, n), dtype=torch.uint8,
                            device=masks.device)
+    args = [masks, miss, peers, ok, ring, fruitful]
+    if budget is not None:
+        _check_budget(budget, nbytes, w)
+        kernel = (kernels.SYNC_PULL_METERED_LANES if granted is None
+                  else kernels.SYNC_PULL_METERED_LANES_TRACE)
+        kernel.launch([*args, nbytes, granted, sdelay],
+                      [n, w, s, d_slots, slot, budget, lanes])
+        return fruitful.to(torch.bool)
     kernel = {(False, False): kernels.SYNC_PULL_LANES,
               (True, False): kernels.SYNC_PULL_DELAY_LANES,
               (False, True): kernels.SYNC_PULL_LANES_TRACE,
               (True, True): kernels.SYNC_PULL_DELAY_LANES_TRACE}[
         (sdelay is not None, granted is not None)]
-    kernel.launch([masks, miss, peers, ok, ring, fruitful, granted, sdelay],
-                  [n, w, s, d_slots, slot, lanes])
+    kernel.launch([*args, granted, sdelay], [n, w, s, d_slots, slot, lanes])
     return fruitful.to(torch.bool)
 
 
@@ -515,11 +633,12 @@ def apply_round_faults_lanes_plain(slim: SimState, carry: PackedCarry,
         slim.alive))
     wipe = rf.wipe
     for x in (carry.have, *carry.relay, slim.heads, slim.gap_lo,
-              slim.gap_hi):
+              slim.gap_hi, slim.view, slim.vinc):
         _zero_rows_(x, wipe, 1)
     for x in (carry.inflight, carry.sync_buf):
         _zero_rows_(x, wipe, 2)
-    for x in (slim.pid, slim.pkey, slim.psince, slim.pview):
+    for x in (slim.pid, slim.pkey, slim.psince, slim.suspect_since,
+              slim.pview):
         _zero_rows_(x, wipe, 1, -1)
 
 
@@ -527,8 +646,9 @@ def apply_round_faults_lanes(slim: SimState, carry: PackedCarry,
                              rf: FactoredRoundFaults) -> None:
     """`packed.apply_round_faults` over the lanes, in place: the round's
     shared alive overrides and wipes hit every lane's rows (JAX shares
-    the schedule unbatched, ``ensemble.py:147-158``).  K11's lane entry
-    on the card."""
+    the schedule unbatched, ``ensemble.py:147-158``), a wiped node's
+    full-view row going back to 0, 0, -1 (JAX ``faults.py:729-734``) and
+    its PeerSwap view emptied.  K11's lane entry on the card."""
     if carry.have.device.type == "cpu":
         apply_round_faults_lanes_plain(slim, carry, rf)
         return
@@ -550,12 +670,17 @@ def apply_round_faults_lanes(slim: SimState, carry: PackedCarry,
     for name in ("pid", "pkey", "psince"):
         check(name, getattr(slim, name), torch.int32, (lanes, n, m))
     check("pview", slim.pview, torch.int32, (lanes, n, v))
+    fv = slim.view.shape[1]
+    check("view", slim.view, torch.int8, (lanes, fv, fv))
+    for name in ("vinc", "suspect_since"):
+        check(name, getattr(slim, name), torch.int32, (lanes, fv, fv))
     kernels.NODE_FAULTS_LANES.launch(
         [rf.alive, rf.wipe, slim.alive, carry.have, *carry.relay,
          carry.inflight, carry.sync_buf, slim.heads, slim.gap_lo,
-         slim.gap_hi, slim.pid, slim.pkey, slim.psince, None, None, None,
-         slim.pview],
-        [n, w, d_slots, a, ak, m, 0, v, lanes],
+         slim.gap_hi, slim.pid, slim.pkey, slim.psince,
+         slim.view if fv else None, slim.vinc if fv else None,
+         slim.suspect_since if fv else None, slim.pview],
+        [n, w, d_slots, a, ak, m, fv, v, lanes],
     )
 
 
@@ -573,27 +698,11 @@ def _edge_alive_lanes(state: SimState, src, dst) -> torch.Tensor:
             & (torch.gather(state.alive, 1, dst) == ALIVE))
 
 
-def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
-                    cfg: SimConfig, topo: Topology, region, keys,
-                    meta: PayloadMeta, faults=None, seeds=None,
-                    active=None, trace: Optional[RoundTrace] = None) -> None:
-    """`packed.broadcast_packed` over the lanes, in place: each lane's
-    targets (K1's lane entry), its spend (K8) and its ring scatter (K2;
-    under this round's fault loss K10, under its jitter K10j, each lane
-    with its own key and seed).  Under ``faults`` cuts clear edges and the
-    plan's fixed delay adds to each edge's slot (K9, its latency entry
-    under delay or jitter factors, on the lanes folded into its edge
-    axis).  ``active`` is the host's copy of the round's loss and jitter
-    activity (None: every class the plan has).  With a lane ``trace``
-    each lane's cut edges (K9's lane-strided count), the frames and bytes
-    it sends on its ok edges (K18's words lane entry) and the frames its
-    loss ate (the scatter's recording form) go to its accumulators."""
-    lanes = keys.shape[0]
-    n, f = cfg.n_nodes, cfg.fanout
-    ks = rng.split_lanes(keys, 3)
-    targets = psample_member_targets_lanes(state, cfg,
-                                           ks[:, 0].contiguous(), f)
-    sending = spend_lanes(carry, inj, targets, state.alive)
+def _edges(state: SimState, targets: torch.Tensor):
+    """The lanes' edge list from targets [K, N, F]: (src [1, E], dst
+    [K, E] clamped, ok [K, E]) — a real target, both ends in one group
+    and up, and not the sender itself."""
+    lanes, n, f = targets.shape
     me = torch.arange(n, dtype=torch.int32, device=targets.device)
     src = me.repeat_interleave(f)[None]
     dst = targets.reshape(lanes, n * f)
@@ -601,6 +710,58 @@ def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
     dst = torch.clamp(dst, min=0)
     ok &= _edge_alive_lanes(state, src, dst)
     ok &= dst != src
+    return src, dst, ok
+
+
+def broadcast_targets_lanes(state: SimState, cfg: SimConfig,
+                            topo: Topology, region, k_targets,
+                            k_ring0) -> torch.Tensor:
+    """Each lane's broadcast targets i32[K, N, F], drawn as the solo
+    round draws them: the member sample under its ``k_targets``
+    (`.swim_lanes.sample_member_targets_lanes`), ring0 tiering under its
+    ``k_ring0`` (`.broadcast.ring0_targets_lanes`), then the topology's
+    degree caps and the fan-out schedule (K20's caps lane entry,
+    `..proto.schedule.capped_schedule_lanes`); shared by both lane
+    rounds."""
+    targets = sample_member_targets_lanes(state, cfg, k_targets, cfg.fanout)
+    targets = ring0_targets_lanes(state, cfg, topo, region, k_ring0, targets)
+    return capped_schedule_lanes(targets.contiguous(), topo, cfg,
+                                 int(state.t))
+
+
+def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
+                    cfg: SimConfig, topo: Topology, region, keys,
+                    meta: PayloadMeta, faults=None, seeds=None,
+                    active=None, trace: Optional[RoundTrace] = None) -> None:
+    """`packed.broadcast_packed` over the lanes, in place: each lane's
+    targets (`broadcast_targets_lanes`: K1's lane entry,
+    its view entry under PeerSwap, its uniform entry under ground truth
+    or full view), ring0 tiering under its ``k_ring0``
+    (`.broadcast.ring0_targets_lanes`), the topology's degree caps (K20's
+    caps lane entry), its spend (K8, metered by K16 on the lanes' rows
+    under the governor), its edges' slots (K20's edge lane entry on AZ or
+    matrix delay classes) and its ring scatter: K2's lane entry, or under
+    the topology's loss, this round's fault loss or its jitter K10's lane
+    entry (the flat stream under the lane's ``k_drop``, the tiered lane
+    instantiation under tiered loss, K10j's stream with jitter), each lane
+    with its own keys and plan seed.  Under ``faults`` cuts clear edges
+    and the plan's fixed delay adds to each edge's slot (K9, its latency
+    entry under delay or jitter factors, on the lanes folded into its edge
+    axis).  ``active`` is the host's copy of the round's loss and jitter
+    activity (None: every class the plan has).  With a lane ``trace``
+    each lane's cut edges (K9's lane-strided count), the frames and bytes
+    it sends on its ok edges (K18's words lane entry) and the frames its
+    loss ate (the scatter's recording form) go to its accumulators."""
+    lanes = keys.shape[0]
+    f = cfg.fanout
+    t = int(state.t)
+    ks = rng.split_lanes(keys, 3)
+    k_targets, k_drop, k_ring0 = (ks[:, i].contiguous() for i in range(3))
+    targets = broadcast_targets_lanes(state, cfg, topo, region, k_targets,
+                                      k_ring0)
+    sending = spend_lanes(carry, inj, targets, state.alive,
+                          cfg.rate_limit_bytes_round, meta.nbytes)
+    src, dst, ok = _edges(state, targets)
     thr = jit = fdelay = None
     if faults is not None:
         # ok is contiguous [K, E]: its flat view is cleared in place
@@ -615,41 +776,43 @@ def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
             jit = jit if active.jitter else None
     if trace is not None:
         wire_words_lanes_(trace.acc[:, WIRE], sending, meta.nbytes, ok, f)
-    slot = edge_slot_plain(topo, region, src, dst, int(state.t),
-                           carry.inflight.shape[1], fdelay)
+    tiers = wire_tiers(topo)
+    topo_thr = (loss_threshold(topo.loss)
+                if topo.loss > 0 and tiers is None else 0)
+    dst = dst.contiguous()
+    slot = edge_slot_lanes(topo, region, src[0], dst, t,
+                           carry.inflight.shape[1], fdelay).contiguous()
+    dropped = None
+    if (trace is not None and _streams_live(thr, jit, topo_thr, tiers)
+            and wire_loss_active(topo, faults)):
+        dropped = acc_slot(trace, "bcast_dropped")
     scatter_lanes(carry.inflight, sending, dst, slot, ok, f, thr, keys,
-                  seeds, jit,
-                  None if trace is None or (thr is None and jit is None)
-                  or not wire_loss_active(topo, faults)
-                  else acc_slot(trace, "bcast_dropped"))
+                  seeds, jit, dropped, topo_thr, k_drop, tiers)
 
 
 def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
-               keys, faults=None, trace: Optional[RoundTrace] = None):
-    """`packed.sync_packed` over the lanes: each lane's peers (K1), the
+               keys, meta: PayloadMeta, faults=None,
+               trace: Optional[RoundTrace] = None):
+    """`packed.sync_packed` over the lanes: each lane's peers
+    (`.swim_lanes.sample_member_targets_lanes`, as the broadcast's), the
     need masks from its heads and gaps, the pull into its sync ring's
-    slot t + 1 (K3's lane entry) and its backoff and re-arm draws (K5);
-    a cut in either direction refuses a session, and under a plan with
-    delay factors each session's grants land its session delay later
-    (K9, its latency entry, folded; K3's delay lane entry).  Returns
+    slot t + 1 (K3's lane entry; K3m's under the sync budget, each edge's
+    grant metered) and its backoff and re-arm draws (K5); a cut in either
+    direction refuses a session, and under a plan with delay factors each
+    session's grants land its session delay later (K9, its latency entry,
+    folded; K3's delay lane entry, or K3m's with the delays).  Returns
     (countdown, backoff, ok): [K, N] each and the sessions' ok mask
     bool[K, N * S]; with a lane ``trace`` each lane's refused sessions
-    (K9's lane-strided count) and grant counts (K3's recording form, then
-    K17's grant lane entry) go to its accumulators."""
+    (K9's lane-strided count) and grant counts (K3's or K3m's recording
+    form, then K17's grant lane entry) go to its accumulators."""
     lanes = keys.shape[0]
     n, s = cfg.n_nodes, cfg.sync_peers
     ks = rng.split_lanes(keys, 3)
     k_peers, k_rearm = ks[:, 0].contiguous(), ks[:, 2].contiguous()
     due = state.sync_countdown <= 0
-    peers = psample_member_targets_lanes(state, cfg, k_peers, s)
-    me = torch.arange(n, dtype=torch.int32, device=peers.device)
-    src = me.repeat_interleave(s)[None]
-    dst = peers.reshape(lanes, n * s)
-    ok = dst >= 0
-    dst = torch.clamp(dst, min=0)
-    ok &= _edge_alive_lanes(state, src, dst)
+    peers = sample_member_targets_lanes(state, cfg, k_peers, s)
+    src, dst, ok = _edges(state, peers)
     ok &= due[:, src[0].long()]
-    ok &= dst != src
     sdelay = None
     if faults is not None:
         # the refused count is taken before the mask clears them
@@ -674,7 +837,8 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
         device=peers.device))
     fruitful = sync_pull_lanes(masks, miss_w, dst.reshape(lanes, n, s),
                                ok.reshape(lanes, n, s), carry.sync_buf, slot,
-                               sdelay, granted)
+                               sdelay, granted, cfg.sync_budget_bytes,
+                               meta.nbytes)
     if trace is not None:
         count_words_lanes_(trace.counts[:, GRANTS], granted)
     backoff = torch.where(
@@ -698,9 +862,12 @@ def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
                             seeds=None, active=None,
                             trace: Optional[RoundTrace] = None):
     """One gossip tick of every lane, phase for phase the solo
-    `packed.packed_round_step` with lane k's keys: inject → broadcast →
-    sync → deliver → SWIM → gap refresh → convergence record, the
-    round's shared fault slice in the broadcast, sync and SWIM, and
+    `packed.packed_round_step` with lane k's keys: (under PeerSwap the
+    view swap, K21's lane entries, on a fifth phase key) inject →
+    broadcast → sync → deliver → SWIM (partial view, full view through
+    K15's lane entries, or nothing under ground truth) → gap refresh →
+    convergence record, the round's shared fault slice in the swap,
+    broadcast, sync and SWIM, and
     ``active`` (the host's copy of its loss and jitter activity) picking
     the scatter.  Updates ``carry`` and ``inj`` in place; returns (state,
     metrics, done) with done bool[K] on the device.  With a lane
@@ -709,19 +876,25 @@ def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
     each lane's accumulators, then K17's coverage lane entry counts
     coverage and delivered and K19's lane entry writes the rows (with the
     shared fault slice's crashes and wipes)."""
-    ks = rng.split_lanes(state.key, 4)
+    peerswap = cfg.peer_sampler == "peerswap"
+    ks = rng.split_lanes(state.key, 5 if peerswap else 4)
     state = state._replace(key=ks[:, 0].contiguous())
     k_bcast, k_sync, k_swim = (ks[:, i].contiguous() for i in (1, 2, 3))
+    if peerswap:
+        # the view swap tick before inject, so this round's draws sample
+        # the swapped views (JAX's phase order)
+        state = peerswap_step_lanes(state, cfg, topo, ks[:, 4].contiguous(),
+                                    faults, seeds)
     t = int(state.t)
     have0 = None if trace is None else carry.have.clone()
     inject_lanes(carry, inj, t, meta, cfg, state.alive)
     broadcast_lanes(carry, inj, state, cfg, topo, region, k_bcast, meta,
                     faults, seeds, active, trace)
-    countdown, backoff, sync_ok = sync_lanes(carry, state, cfg, k_sync,
+    countdown, backoff, sync_ok = sync_lanes(carry, state, cfg, k_sync, meta,
                                              faults, trace)
     state = state._replace(sync_countdown=countdown, sync_backoff=backoff)
     deliver_lanes(carry, t, cfg)
-    state = pswim_step_lanes(state, cfg, topo, k_swim, faults, seeds)
+    state = swim_step_lanes(state, cfg, topo, k_swim, faults, seeds)
     heads, gap_lo, gap_hi, n_overflow = refresh_gaps_lanes(carry.have, cfg)
     state = state._replace(heads=heads, gap_lo=gap_lo, gap_hi=gap_hi)
     overflow_frac = torch.maximum(
@@ -900,21 +1073,24 @@ def packed_lane_batch(states: SimState, cfg: SimConfig, seeds=None,
                       trace: Optional[RoundTrace] = None) -> _Batch:
     """The packed lane loop's batch of every lane of stacked initial
     states: the packed carry and injected words, the slim state (``t`` a
-    host scalar 0), fresh metrics; with plan ``seeds`` (i32[K], a fault
-    loop's) the tables the node faults write are the loop's own; a lane
-    ``trace`` rides in ``extra`` (`trace_of`)."""
+    host scalar 0), fresh metrics; the full view's beliefs are the loop's
+    own, and with plan ``seeds`` (i32[K], a fault loop's) so are the
+    tables the node faults write; a lane ``trace`` rides in ``extra``
+    (`trace_of`)."""
     dev = states.have.device
     k_lanes = states.have.shape[0]
     # `pack_state` and `pack_bits` act on the last axis: lanes ride along
     carry, inj = pack_state(states, cfg), pack_bits(states.injected)
     slim = _shrink_lanes(states)._replace(t=torch.zeros((),
                                                         dtype=torch.int32))
+    # full-view SWIM writes the beliefs in place: the loop owns its own
+    owned = ("view", "vinc", "suspect_since")
     if seeds is not None:
-        # the node faults write these in place: the loop owns its own
-        slim = slim._replace(**{
-            name: getattr(slim, name).clone()
-            for name in ("alive", "heads", "gap_lo", "gap_hi", "pid",
-                         "pkey", "psince", "pview")})
+        # and so do the node faults these
+        owned += ("alive", "heads", "gap_lo", "gap_hi", "pid", "pkey",
+                  "psince", "pview")
+    slim = slim._replace(**{name: getattr(slim, name).clone()
+                            for name in owned})
     return _Batch(slim, carry, inj, _new_lane_metrics(cfg, k_lanes, dev),
                   seeds, list(range(k_lanes)),
                   () if trace is None else tuple(trace))
@@ -948,7 +1124,10 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
               fplan: Optional[FactoredFaultPlan] = None,
               seeds: Optional[torch.Tensor] = None, telemetry: bool = False):
     """Run every lane of stacked initial states (every field [K, ...],
-    ``t`` 0 in all) to its own exit or ``max_rounds``: faultless, the
+    ``t`` 0 in all) to its own exit or ``max_rounds`` — any configuration
+    of the solo packed round but the protocol variants (both byte budgets,
+    every topology family and key, every membership mode, PeerSwap;
+    `check_packed_lanes`): faultless, the
     solo `packed.run_packed`'s loop per lane; under ``fplan`` (a factored
     plan, delay and jitter factors included, its seed replaced per lane by
     ``seeds`` i32[K]) the solo `packed.run_packed_faults`' — the round's
@@ -960,7 +1139,12 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
     recorder runs on every lane (a lane trace of ``max_rounds`` rows,
     `.telemetry.new_trace_lanes`, carried in the batch's ``extra``) and
     the lanes' traces come back third, stacked in lane order: lane k's
-    is its solo run's trace (rows past its exit stay zero)."""
+    is its solo run's trace (rows past its exit stay zero).  JAX:
+    ``jax.vmap`` of ``packed.py:911 run_packed`` and ``:1027
+    run_packed_faults`` in ``campaign/ensemble.py:114 run_ensemble``, whose
+    batched while_loop runs every lane to the slowest; here a finished
+    lane leaves the batch, so a round costs the live lanes' share of K
+    times the solo round's bytes and hashes."""
     check_packed_lanes(cfg, topo, fplan)
     dev = states.have.device
     k_lanes = states.have.shape[0]

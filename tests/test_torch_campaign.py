@@ -222,7 +222,7 @@ def _refused_spec(case):
     elif case == "peerswap":
         base = dict(base, peer_sampler="peerswap", swim_partial_view=False)
     elif case == "topo_family":
-        base["topo_family"] = "wan-3x2"
+        base.update(topo_family="wan-3x2", n_delay_slots=3)
     elif case == "topology_key":
         base["loss"] = 0.1
     elif case == "proto_family":
@@ -242,33 +242,34 @@ def _refused_spec(case):
                                  max_rounds=3, **kw)
 
 
-#: each refused case and the item its message names (full view on the
-#: packed round's lanes is no port item: it runs on the dense round's)
+#: each refused case and the item its message names
 REFUSED = {
-    "metered": "ROADMAP B16m",
-    "matrix": "ROADMAP B16x", "peerswap": "ROADMAP B16s",
-    "topo_family": "ROADMAP B16m", "topology_key": "ROADMAP B16m",
+    "matrix": "ROADMAP B16x",
     "proto_family": "ROADMAP B16m", "proto_key": "ROADMAP B16m",
     "churn": "ROADMAP B16c", "host_parity": "ROADMAP A,",
-    "serving": "ROADMAP A,", "full_view": "dense round's lanes",
-    "mesh": "ROADMAP A13",
+    "serving": "ROADMAP A,", "mesh": "ROADMAP A13",
 }
 
 
 #: cases refused before that run now: PeerSwap under a fault plan on the
 #: dense round's lanes (B16s-f); delay, jitter (B16l), the recorder and a
-#: wire measurement (B16r's packed half) on the packed round's lanes
-RUNS = ("dense", "latency", "jitter", "telemetry", "measure_wire")
+#: wire measurement (B16r's packed half) on the packed round's lanes; a
+#: metered budget, a topology family or key (B16m's budgets and
+#: topology), PeerSwap and full view (B16s's packed half) on the packed
+#: round's lanes
+RUNS = ("dense", "latency", "jitter", "telemetry", "measure_wire",
+        "metered", "topo_family", "topology_key", "peerswap", "full_view")
 
 
 @pytest.mark.parametrize("case", sorted((*REFUSED, *RUNS)))
 def test_engine_refuses_what_the_slice_does_not_run(case):
     """Each refused case raises NotImplementedError naming its ROADMAP
-    item (full view on the packed round's lanes: the dense round's
-    lanes, which run it; the protocol variants on the packed round's
-    lanes: B16m); none runs some other way.  A case that runs now gives
-    live JAX's artifact (the recording cases their telemetry block and
-    wire bytes too), on the dense round's lanes or the packed round's."""
+    item (the protocol variants on the packed round's lanes: B16m); none
+    runs some other way.  A case that runs now gives live JAX's artifact
+    (the recording cases their telemetry block and wire bytes too), on
+    the dense round's lanes or the packed round's: since B16m's budgets
+    and topology and B16s's packed half, a metered budget, a topology
+    family or key, PeerSwap and full view on the packed round's."""
     spec = _refused_spec(case)
     if case in RUNS:
         recording = case in ("telemetry", "measure_wire")
@@ -312,8 +313,8 @@ def test_ensemble_refusals():
     """The detect ensemble runs a protocol variant on its lanes (B16v;
     a topology since B16t): the eager cadence over two regions, one
     lane, to its detect round; the packed round's lanes refuse what
-    B16m names there (a metered budget), which the dense round's lanes
-    run."""
+    B16m still names there (a protocol variant), which the dense round's
+    lanes run, and since B16m's budgets run a metered budget."""
     from corrosion_tpu_torch.sim.topology import Topology
 
     from corrosion_tpu_torch.sim.state import uniform_payloads
@@ -325,10 +326,18 @@ def test_ensemble_refusals():
                                                      inject_every=1),
         (0,), kill_every=3, max_rounds=400, telemetry=True, device="cpu")
     assert int(detect[0]) >= 0 and int(finals.t[0]) == int(detect[0])
-    spec = _refused_spec("metered")
-    with pytest.raises(NotImplementedError, match="metered.*B16m"):
+    spec = _refused_spec("proto_key")
+    with pytest.raises(NotImplementedError,
+                       match="protocol variants.*B16m"):
         run_seed_ensemble(None, spec.sim_config({}), spec.topo({}), None,
                           (0,), telemetry=True, device="cpu")
+    spec = _refused_spec("metered")
+    cfg = spec.sim_config({})
+    finals, _, trace = run_seed_ensemble(
+        None, cfg, spec.topo({}), uniform_payloads(cfg, "cpu",
+                                                   inject_every=2),
+        (0,), max_rounds=3, telemetry=True, device="cpu")
+    assert int(finals.t[0]) == 3 and trace.acc.shape == (1, 12)
 
 
 def test_new_entry_points_default_to_the_card():

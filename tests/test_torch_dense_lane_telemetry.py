@@ -189,11 +189,12 @@ def test_detect_ensemble_returns_traces_last():
 
 def test_packed_lanes_refuse_the_recorder_naming_b16m():
     """The recorder runs on the packed round's lanes since B16r's packed
-    half (three rounds of a packed cell return the lanes' traces last);
-    what ROADMAP B16m still names there, a metered budget, is refused
-    under the recorder too: a metered packed cell with ``telemetry`` or
-    ``measure_wire`` raises naming B16m, through the ensemble and
-    through the engine; the dense lanes accept the recorder."""
+    half (three rounds of a packed cell return the lanes' traces last),
+    and on a metered cell since B16m's budgets; what ROADMAP B16m still
+    names there, a protocol variant, is refused under the recorder too: a
+    push-pull packed cell with ``telemetry`` or ``measure_wire`` raises
+    naming B16m, through the ensemble and through the engine; the dense
+    lanes accept the recorder."""
     from corrosion_tpu_torch.campaign import engine
 
     spec = spec_mod.storm_seeds_spec((0,), n_nodes=512)
@@ -205,10 +206,18 @@ def test_packed_lanes_refuse_the_recorder_naming_b16m():
                             (0, 1), max_rounds=3, telemetry=True,
                             device="cpu")
     assert len(out) == 3 and out[2].acc.shape == (2, 12)
+    metered = dataclasses.replace(cfg, rate_limit_bytes_round=64 * 1024)
+    out = run_seed_ensemble(None, metered, topo,
+                            uniform_payloads(metered, "cpu",
+                                             inject_every=2),
+                            (0, 1), max_rounds=3, telemetry=True,
+                            device="cpu")
+    assert len(out) == 3 and out[2].acc.shape == (2, 12)
     spec = dataclasses.replace(spec, scenario=dict(
-        scenario, rate_limit_bytes_round=5 * 1024 * 1024))
+        scenario, proto_family="push-pull"))
     cfg = spec.sim_config({})
-    with pytest.raises(NotImplementedError, match="metered budgets.*B16m"):
+    with pytest.raises(NotImplementedError,
+                       match="protocol variants.*B16m"):
         run_seed_ensemble(None, cfg, topo, None, (0,), telemetry=True,
                           device="cpu")
     with pytest.raises(NotImplementedError, match="B16m"):

@@ -164,9 +164,11 @@ def test_dense_check_refuses_by_name(case):
     it (two seeds of the 3-node parity campaign's matrix plan) equal to
     JAX's, lane by lane; the ``telemetry`` case its acceptance of the
     recorder, which the packed lanes' check accepts too (B16r's packed
-    half) but for what B16m still names there, a metered budget; the
-    ``topology`` case its acceptance of a topology key, which the packed
-    lanes' check refuses naming B16m; the ``peerswap`` case its
+    half), a metered budget too since B16m's budgets, but for what B16m
+    still names there, a protocol variant; the ``topology`` case its
+    acceptance of a topology key, which the packed lanes' check accepts
+    since B16m's topology, but for a matrix plan, which it refuses
+    naming B16x; the ``peerswap`` case its
     acceptance of PeerSwap with and without a plan (B16s-f); the
     ``protocol`` case its acceptance of push-pull (B16v), which the
     packed lanes' check refuses naming B16m."""
@@ -191,16 +193,24 @@ def test_dense_check_refuses_by_name(case):
         packed = dataclasses.replace(packed, swim_partial_view=True,
                                      member_slots=16)
         check_packed_lanes(packed, topo)
+        check_packed_lanes(dataclasses.replace(
+            packed, sync_budget_bytes=4 * 1024 * 1024), topo)
         with pytest.raises(NotImplementedError,
-                           match="metered budgets on the packed.*B16m"):
+                           match="protocol variants on the packed.*B16m"):
             check_packed_lanes(dataclasses.replace(
-                packed, sync_budget_bytes=4 * 1024 * 1024), topo)
+                packed, sync_cadence="eager"), topo)
         return
     if case == "topology":
+        from corrosion_tpu_torch.sim.faults import compile_plan
+
         check_dense_lanes(cfg, Topology(n_regions=2))
+        check_packed_lanes(packed, Topology(n_regions=2))
+        matrix = compile_plan(FaultPlan(n_nodes=96, seed=0, events=()),
+                              packed, Topology(n_regions=2), factored=False,
+                              device="cpu")
         with pytest.raises(NotImplementedError,
-                           match="topology families.*B16m"):
-            check_packed_lanes(packed, Topology(n_regions=2))
+                           match="matrix fault plans.*B16x"):
+            check_packed_lanes(packed, Topology(n_regions=2), matrix)
         return
     if case == "peerswap":
         cfg = _dense_cfg(peer_sampler="peerswap")
@@ -229,14 +239,17 @@ def test_dense_check_accepts_default_budgets_and_every_tier():
 
 def test_packed_check_names_its_refusals():
     """The packed check's refusals, reworded to point at the dense
-    lanes: full view on the packed round, and a dense configuration
-    handed to it."""
+    lanes: a protocol variant on the packed round (full view, which it
+    pointed there before, runs on the packed round's lanes since B16s's
+    packed half), and a dense configuration handed to it."""
     from corrosion_tpu_torch.sim.lanes import check_packed_lanes
 
+    full = _dense_cfg(packed_min_cells=0, rate_limit_bytes_round=None,
+                      sync_budget_bytes=None, swim_full_view=True)
+    check_packed_lanes(full, Topology())
     with pytest.raises(NotImplementedError, match="dense round's lanes"):
-        check_packed_lanes(_dense_cfg(packed_min_cells=0,
-                                      rate_limit_bytes_round=None,
-                                      sync_budget_bytes=None,
-                                      swim_full_view=True), Topology())
+        check_packed_lanes(dataclasses.replace(full,
+                                               dissemination="push-pull"),
+                           Topology())
     with pytest.raises(ValueError, match="dense configuration"):
         check_packed_lanes(_dense_cfg(), Topology())

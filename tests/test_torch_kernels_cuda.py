@@ -1930,3 +1930,98 @@ def test_packed_latency_ensemble_on_card_equals_cpu(card, case):
             for name, x, y in zip(solo[2]._fields, solo[2],
                                   lane_trace(outs[0][2], k)):
                 assert torch.equal(x.cpu(), y.cpu()), (k, name)
+
+
+@pytest.mark.parametrize("lanes, n, n_wan", ((3, 1283, 1200), (4, 2051, 3001)))
+def test_packed_lane_metered_kernels(card, lanes, n, n_wan):
+    """chip_smoke's phase 3lm at small and ragged shapes: K16 on the
+    lanes' rows, K3m's lane entry (delay classes, recording form), K10's
+    flat topology stream on the lanes and the tiered lane instantiation
+    (with the fault loss, the jitter and as recording forms) and K11's
+    lane entry with the full view's tables equal to their plain versions,
+    lanes 0 and K - 1 to the solo entries on their inputs, every trap
+    reached."""
+    smoke = _smoke()
+    g = np.random.default_rng(lanes + n)
+    rows = smoke.compare_packed_lane_budget(card, g, lanes, n, timed=False)
+    rows += smoke.compare_packed_lane_sync_metered(card, g, lanes, n,
+                                                   timed=False)
+    rows += smoke.compare_packed_lane_scatter_topo(card, g, lanes, n, n_wan,
+                                                   timed=False)
+    smoke.compare_packed_lane_node_faults_view(card, g, lanes, 1031)
+    assert all(r["equal"] for r in rows), [r["name"] for r in rows
+                                           if not r["equal"]]
+
+
+def _axis_spec(case):
+    """The packed lanes' new axes at 1280 × 64 (the envelope forced open):
+    a topology family, PeerSwap under ground truth, full view under the
+    latency storm's plan (node 1 wiped at round 20), a metered storm."""
+    from corrosion_tpu_torch.campaign.spec import (
+        CampaignSpec, storm_fault_events, storm_latency_events,
+        storm_scenario)
+
+    n = 1280
+    scenario = dict(storm_scenario(n), n_payloads=64, packed_min_cells=0)
+    events = ()
+    if case in ("wan-3x2", "hetero-degree"):
+        scenario.update(topo_family=case, n_delay_slots=3)
+    elif case == "peerswap":
+        scenario.update(peer_sampler="peerswap", swim_partial_view=False)
+    elif case == "full_view_plan":
+        scenario.update(swim_partial_view=False, swim_full_view=True,
+                        n_delay_slots=4)
+        events = storm_fault_events(n) + storm_latency_events(n)
+    else:
+        scenario.update(rate_limit_bytes_round=64 * 1024,
+                        sync_budget_bytes=48 * 1024)
+    return CampaignSpec(name=case, scenario=scenario, events=events,
+                        seeds=(0, 3, 5))
+
+
+@pytest.mark.parametrize("case, telemetry", (
+    ("wan-3x2", True), ("hetero-degree", False), ("peerswap", False),
+    ("full_view_plan", True), ("metered", True)))
+def test_packed_axis_ensemble_on_card_equals_cpu(card, case, telemetry):
+    """Three lanes of each new packed-lane axis at 1280 × 64 (wan-3x2
+    with the recorder, hetero-degree, PeerSwap under ground truth, full
+    view under a latency plan that wipes a node, both byte budgets
+    binding) through the engine's ensemble on the card: every lane tensor,
+    metric and trace field equal to the same ensemble's plain versions on
+    the CPU, and each lane's state (and trace) to the card's solo run of
+    its seed."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_state, run_seed_ensemble)
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.telemetry import lane_trace
+
+    spec = _axis_spec(case)
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    plan = spec.fault_plan({}, seed=0)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        outs.append(run_seed_ensemble(plan, cfg, topo, meta, spec.seeds,
+                                      max_rounds=120, telemetry=telemetry,
+                                      device=dev))
+    for a, b in zip(*outs):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y.cpu()), name
+    meta = uniform_payloads(cfg, card, inject_every=2)
+    for k, s in enumerate(spec.seeds):
+        state = new_sim(cfg, s, card)
+        if plan is None:
+            solo = run_to_convergence(state, meta, cfg, topo, 120,
+                                      telemetry)
+        else:
+            fp = faults.compile_plan(dataclasses.replace(plan, seed=s), cfg,
+                                     topo, device=card)
+            solo = faults.run_fault_plan(state, meta, cfg, topo, fp, 120,
+                                         telemetry=telemetry)
+        for name, x, y in zip(solo[0]._fields, solo[0],
+                              lane_state(outs[0][0], k)):
+            assert torch.equal(x.cpu(), y.cpu()), (k, name)
+        if telemetry:
+            for name, x, y in zip(solo[2]._fields, solo[2],
+                                  lane_trace(outs[0][2], k)):
+                assert torch.equal(x.cpu(), y.cpu()), (k, name)

@@ -222,15 +222,24 @@ def test_peerswap_fault_ensemble_equals_jax(n_nodes):
 
 
 def test_peerswap_on_the_packed_lanes_names_b16s():
-    """The packed round's lanes refuse PeerSwap, naming B16s's packed
-    half, and point at the dense lanes."""
+    """The packed round's lanes run PeerSwap since B16s's packed half:
+    the check accepts it, with or without a factored plan; under a matrix
+    plan, which they do not run yet, they refuse naming B16x and point at
+    the plan's factored form."""
     from corrosion_tpu_torch.campaign.spec import storm_scenario
+    from corrosion_tpu_torch.sim.faults import compile_plan
     from corrosion_tpu_torch.sim.topology import Topology
 
     _, spec = spec_pair("p", dict(storm_scenario(1280), n_payloads=64,
                                   packed_min_cells=0, peer_sampler="peerswap",
                                   swim_partial_view=False), (0,))
+    cfg = spec.sim_config({})
+    plan = FaultPlan(n_nodes=1280, seed=0, events=())
+    check_packed_lanes(cfg, Topology())
+    check_packed_lanes(cfg, Topology(),
+                       compile_plan(plan, cfg, device="cpu"))
     with pytest.raises(NotImplementedError,
-                       match=r"PeerSwap.*packed round.*B16s.*dense round"):
-        check_packed_lanes(spec.sim_config({}), Topology())
+                       match=r"matrix fault plans.*B16x.*factored"):
+        check_packed_lanes(cfg, Topology(), compile_plan(
+            plan, cfg, factored=False, device="cpu"))
 

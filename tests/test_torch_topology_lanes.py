@@ -11,6 +11,7 @@ and the 1000-node cells against their pins, and the refusals that stay.
 every pin of paths 51-54 from live JAX, the 100k dense WAN storm one
 seed a case."""
 
+import dataclasses
 from unittest import mock
 
 import jax
@@ -478,16 +479,20 @@ def test_dense_lanes_take_every_family_and_key():
 
 
 def test_packed_lanes_refuse_topology_naming_b16m():
-    """The packed round's lanes still refuse a topology, naming B16m, and
-    point at the dense lanes."""
+    """The packed round's lanes take every topology family since B16m's
+    topology; over one they still refuse what B16m names there, the
+    protocol variants, and point at the dense lanes."""
     from corrosion_tpu_torch.campaign.spec import storm_scenario
 
     _, spec = spec_pair("p", dict(storm_scenario(1280), n_payloads=64,
                                   packed_min_cells=0), (0,))
     cfg = spec.sim_config({})
+    for family in FAMILIES:
+        check_packed_lanes(cfg, _resolve_topo(family))
     with pytest.raises(NotImplementedError,
-                       match=r"topology families.*B16m.*dense round"):
-        check_packed_lanes(cfg, _resolve_topo("wan-3x2"))
+                       match=r"protocol variants.*B16m.*dense round"):
+        check_packed_lanes(dataclasses.replace(cfg, sync_cadence="eager"),
+                           _resolve_topo("wan-3x2"))
 
 
 def test_protocol_variants_on_lanes_name_b16v():
