@@ -11336,6 +11336,837 @@ def profile_axis_lanes(dev, which, lanes=ENSEMBLE_LANES, start=5, rounds=3):
                     f"{start + rounds - 1}", setup)
 
 
+# -- the protocol variants on the packed round's lanes (phase 3lq, paths
+# 67-68) ---------------------------------------------------------------------
+
+SOLO_OF_LANE.update({
+    "broadcast_pull_lanes": "broadcast_pull",
+    "broadcast_pull_lossy_lanes": "broadcast_pull_lossy",
+    "broadcast_pull_tiered_lanes": "broadcast_pull_tiered",
+    "broadcast_pull_lossy_lanes_trace": "broadcast_pull_lossy",
+    "broadcast_pull_tiered_lanes_trace": "broadcast_pull_tiered",
+    "trace_wire_pull_lanes": "trace_wire_pull",
+    "word_deliver_fifo_lanes": "word_deliver_fifo",
+    "order_check_words_lanes": "order_check_words"})
+#: the width of phase 3lq's odd check: 1001 nodes leave every new entry's
+#: per-lane threads off its blocks, so each lane's last block is partial
+ODD_N = 1001
+
+
+def _proto_trap(number, what, reached):
+    _trap(f"lane packed proto {number}", what, reached)
+
+
+def _device_holdings(g, n, a, v, c, dev, full=0.6, some=0.15):
+    """`_holdings` drawn on ``dev`` from a generator seeded by ``g`` (phase
+    3lq holds K lanes of 100 000 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(int(g.integers(1 << 62)))
+    whole = torch.rand((n, v, a, 1), generator=gen, device=dev) < full
+    part = torch.rand((n, v, a, c), generator=gen, device=dev) < some
+    return (whole | part).reshape(n, v * a * c).to(torch.uint8)
+
+
+def _pull_words_case(dev, g, lanes, n, w=16, d=3, f=3):
+    """K lanes of a push-pull round's response leg at (N, W, D, F): each
+    lane's sending words, its edges (-1 and self targets among them, the
+    first lane's first edge reversed into a one-way cut), slots in [0, D),
+    the push's ok after one_way_plan's forward cut (K9 on the lanes
+    folded), the ok_pull and the reverse thresholds (K9's session and wire
+    queries on the swapped edges), the forward thresholds, per-lane k_drop
+    and plan seeds.  Lane 1 repeats lane 0's inputs (only its k_drop and
+    seed differ); the last lane has no edges."""
+    from corrosion_tpu_torch.campaign.ensemble import lane_plan_seeds
+    from corrosion_tpu_torch.proto import dissemination as dis
+    from corrosion_tpu_torch.sim import faults
+
+    cfg, _ = _storm_cfg(n, dev)
+    fplan = faults.compile_plan(one_way_plan(n), cfg, device=dev)
+    rf = faults.round_faults(fplan, 3)
+    e = n * f
+    c = SimpleNamespace(n=n, w=w, d=d, f=f, e=e, rf=rf)
+    c.sending = _device_words(g, (lanes, n, w), dev, 2)
+    tg = np.where(g.random((lanes, e)) < 0.03, -1,
+                  g.integers(0, n, (lanes, e)))
+    c.src = torch.arange(n, dtype=torch.int32,
+                         device=dev).repeat_interleave(f)[None]
+    raw = torch.as_tensor(tg, dtype=torch.int32, device=dev)
+    ok = (raw >= 0) & (raw != c.src)
+    c.dst = torch.clamp(raw, min=0).contiguous()
+    c.slot = torch.as_tensor(g.integers(0, d, (lanes, e)), dtype=torch.int32,
+                             device=dev)
+    for x in (c.sending, c.dst, ok, c.slot):
+        x[1] = x[0]
+    ok[-1] = False
+    ok = ok.contiguous()
+    _, thr, _, _ = faults.fault_wire_effects(
+        rf, c.src.expand(lanes, -1).reshape(-1), c.dst.reshape(-1),
+        ok.view(-1))
+    c.ok, c.thr = ok, thr.view(lanes, e)
+    c.ok_pull = dis.pull_session_ok_lanes(ok, rf, c.src, c.dst).contiguous()
+    c.thr_rev = dis.reverse_loss_lanes(rf, c.src, c.dst)
+    c.ring0 = _device_words(g, (lanes, d, n, w), dev, 6)
+    c.k_drop = _lane_keys(dev, lanes, 7200)
+    c.seeds = lane_plan_seeds(range(lanes), dev)
+    return c
+
+
+def _pull_response_bytes(dst, ok_pull, w) -> int:
+    """The least bytes a pull over K lanes reads: every edge's ok_pull,
+    the responder id of each answered edge, and each lane's responder rows
+    of ``w`` words once.  Refused edges read nothing more, and the lane
+    without edges only its flags."""
+    total = ok_pull.numel()
+    for k in range(ok_pull.shape[0]):
+        answered = dst[k][ok_pull[k]]
+        total += (answered.numel() * 4
+                  + int(torch.unique(answered).numel()) * w * 4)
+    return int(total)
+
+
+def _pull_cases(wan, pin):
+    """K10p's lane cases: (label, fault stream, topo_thr, tiers, recording,
+    row name or None for a check).  The rows run as their paths run them:
+    no stream (storm-push-pull), the fault stream alone (fault-storm-push-
+    pull, with and without the recorder), wan-3x2's tiers alone (storm-wan-
+    3x2-push-pull, with and without it)."""
+    return (
+        ("plain", False, 0, None, False, "broadcast_pull_lanes"),
+        ("lossy", True, 0, None, False, "broadcast_pull_lossy_lanes"),
+        ("lossy recording", True, 0, None, True,
+         "broadcast_pull_lossy_lanes_trace"),
+        ("tiered", False, 0, wan, False, "broadcast_pull_tiered_lanes"),
+        ("tiered recording", False, 0, wan, True,
+         "broadcast_pull_tiered_lanes_trace"),
+        ("flat fault recording", True, 26, None, True, None),
+        ("severed recording", False, 256, None, True, None),
+        ("tiered fault recording", True, 0, wan, True, None),
+        ("pin recording", False, 0, pin, True, None),
+    )
+
+
+def _run_pull(kernel, c, ring, fault, tt, tiers, dropped):
+    from corrosion_tpu_torch.sim import lanes as ln
+
+    fn = ln.scatter_pull_lanes if kernel else ln.scatter_pull_lanes_plain
+    fn(ring, c.sending, c.dst, c.slot, c.ok_pull,
+       c.thr_rev if fault else None, c.k_drop, c.seeds, c.f, tt, dropped,
+       tiers)
+
+
+def compare_packed_lane_pull(dev, g, lanes, n=STORM_N, timed=True,
+                             rows_out=True, w=16):
+    """K10p's lane entry at the 100k push-pull storms' wire (K lanes of E
+    = 300 000 edges, W = 16, D = 3): its three streams and their recording
+    forms, and as checks the flat stream with the fault stream, a severed
+    flat channel (topo_thr 256), the tiers with the fault stream and a tier
+    at certainty; each against its plain version, lanes 0 and K - 1
+    against the solo K10p on their inputs.  Returns the rows (none with
+    ``rows_out`` False: a check at another width; ``w`` below 16 only in
+    a CPU rehearsal)."""
+    from corrosion_tpu_torch.device import popcount
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim import topology as tp
+
+    c = _pull_words_case(dev, g, lanes, n, w)
+    # four regions: the one-way cut refuses every pull across the halves,
+    # so only the cross-region edges inside a half reach the pin
+    wan, pin = _topo("wan-3x2"), dataclasses.replace(_pin_topo(),
+                                                     n_regions=4)
+    outs, rows = {}, []
+    for label, fault, tt, tiers, rec, name in _pull_cases(wan, pin):
+        got, want = c.ring0.clone(), c.ring0.clone()
+        dk = torch.zeros((lanes, 12), dtype=torch.int64, device=dev)
+        dp = torch.zeros_like(dk)
+        _run_pull(True, c, got, fault, tt, tiers, dk[:, 2] if rec else None)
+        _run_pull(False, c, want, fault, tt, tiers,
+                  dp[:, 2] if rec else None)
+        equal, err = _equal_all([got, dk], [want, dp])
+        if not equal:
+            raise AssertionError(f"K10p's lanes, {label} at {n} nodes: "
+                                 "kernel != plain version")
+        for k in (0, lanes - 1):
+            solo, sd = c.ring0[k].clone(), _acc(dev)
+            packed.scatter_pull(
+                solo, c.sending[k], c.dst[k], c.slot[k], c.ok_pull[k],
+                c.thr_rev[k] if fault else None, c.k_drop[k],
+                int(c.seeds[k]), c.f, tt, sd if rec else None, tiers)
+            _solo_trap(f"{label} lane {k} at {n}", [got[k], dk[k, 2]],
+                       [solo, sd if rec else dk[k, 2]])
+        outs[label] = (want, dp[:, 2].clone())
+        del got
+        if name is None or not rows_out:
+            continue
+        # the bound: eight hashes a sending (edge, word) on an ok_pull edge
+        # whose stream draws (the fault stream under thr_rev; a reverse
+        # tier between 1 and 255)
+        hashes = 0
+        region = tp.regions(n, wan.n_regions, dev)
+        for k in range(lanes):
+            live = c.ok_pull[k][:, None] & (c.sending[k][c.dst[k].long()] != 0)
+            if tiers is not None:
+                hashes += _hash_ops(live, tp.edge_loss_thresholds_raw(
+                    tiers, region, c.dst[k], c.src[0]))
+            if fault:
+                hashes += _hash_ops(live, c.thr_rev[k].to(torch.int32))
+            del live
+        # the bytes: what the pull reads (`_pull_response_bytes`), the slot and
+        # under the fault stream the reverse threshold of each answered
+        # edge, and the ring rows it touches read and written
+        rows_touched = int(torch.unique(
+            (torch.arange(lanes, device=dev)[:, None] * (c.d * c.n)
+             + c.slot.long() * c.n + c.src.long())[c.ok_pull]).numel())
+        answered = int(c.ok_pull.sum())
+        nbytes = (_pull_response_bytes(c.dst, c.ok_pull, c.w)
+                  + answered * (4 + (1 if fault else 0))
+                  + 2 * rows_touched * c.w * 4 + (lanes * 8 if rec else 0))
+        work_k, work_p = c.ring0.clone(), c.ring0.clone()
+        acc_k, acc_p = (torch.zeros((lanes, 12), dtype=torch.int64,
+                                    device=dev) for _ in range(2))
+
+        def restore(work, acc, c=c):
+            work.copy_(c.ring0)
+            acc.zero_()
+
+        rows.append(_ops_row(
+            name, _CSRC + "broadcast_scatter.cu",
+            "corrosion_tpu/proto/dissemination.py:58" + _VMAP, equal, err,
+            _timed(timed, lambda fault=fault, tt=tt, tiers=tiers, rec=rec:
+                   _run_pull(True, c, work_k, fault, tt, tiers,
+                             acc_k[:, 2] if rec else None),
+                   lambda: restore(work_k, acc_k)),
+            # the plain versions draw their bits on the host's schedule and
+            # take seconds a call under a stream: one eager call
+            _time_eager_ms(lambda fault=fault, tt=tt, tiers=tiers, rec=rec: (
+                restore(work_p, acc_p), _run_pull(
+                    False, c, work_p, fault, tt, tiers,
+                    acc_p[:, 2] if rec else None)),
+                1, warmup=0) if timed else None,
+            nbytes, hashes * OPS_PER_HASH, lanes=lanes, hashes=hashes,
+            kernel=name))
+        del work_k, work_p
+    ok_fwd = c.ok
+    _proto_trap(1, "lanes whose k_drop and plan seeds differ pull their own "
+                "payloads through every drawing case (lanes 0 and 1 share "
+                "every other input)",
+                all(not torch.equal(want[0], want[1])
+                    for label, (want, _) in outs.items()
+                    if label not in ("plain", "severed recording",
+                                     "pin recording")))
+    sent = packed._edge_words(c.sending[0][c.dst[0].long()], c.ok_pull[0], 1)
+    severed = (tp.edge_loss_thresholds_raw(
+        pin, tp.regions(n, pin.n_regions, dev), c.dst[0], c.src[0]) >= 256)
+    _proto_trap(2, "a reverse tier at certainty (threshold 256) drops every "
+                "pulled payload of its edges without a draw",
+                bool((severed & c.ok_pull[0]).any()) and int(
+                    outs["pin recording"][1][0]) == int(
+                        popcount(sent[severed]).sum()))
+    _proto_trap(3, "a flat topo_thr of 256 or more severs every pull: the "
+                "rings stay as they were and every answered frame counts as "
+                "dropped",
+                torch.equal(outs["severed recording"][0], c.ring0)
+                and int(outs["severed recording"][1][0]) == int(
+                    popcount(sent).sum()) > 0)
+    _proto_trap(4, "a reverse edge whose fault loss is live where the "
+                "forward edge's is not",
+                bool(((c.thr_rev > 0) & (c.thr == 0) & c.ok_pull).any()))
+    _proto_trap(5, "an ok_pull false where the push's ok is true (the "
+                "one-way cut refuses the response only)",
+                bool((ok_fwd & ~c.ok_pull).any()))
+    _proto_trap(6, "the lane without edges writes nothing and counts no "
+                "drop; the other lanes' drops differ",
+                all(torch.equal(want[-1], c.ring0[-1])
+                    for want, _ in outs.values())
+                and int(outs["lossy recording"][1][-1]) == 0
+                and len({int(x) for x in outs["lossy recording"][1][:-1]})
+                > 1)
+    del c, outs
+    return rows
+
+
+def compare_packed_lane_wire_pull(dev, g, lanes, n=STORM_N, timed=True,
+                                  rows_out=True, w=16):
+    """K18's words-pull lane entry at the 100k push-pull storms' shapes (K
+    lanes of E = 300 000 ok_pull edges over N rows of W = 16 words, the
+    storm's 8 KiB sizes): each lane's answered pulls into its own frames
+    and bytes slots of a lane trace's [K, 12] accumulators, lanes 0 and K
+    - 1 held to the solo entry."""
+    from corrosion_tpu_torch.sim import telemetry as tel
+
+    c = _pull_words_case(dev, g, lanes, n, w)
+    # lane 1 answers half of lane 0's pulls: its totals differ
+    c.ok_pull[1, ::2] = False
+    _, meta = _storm_cfg(n, dev)
+    nbytes = meta.nbytes[:w * 32].contiguous()
+    acc0 = torch.as_tensor(g.integers(0, 1 << 40, (lanes, len(tel.ACC))),
+                           dtype=torch.int64, device=dev)
+    w = tel.ACC.index("bcast_frames")
+    got, want = acc0.clone(), acc0.clone()
+    tel.wire_words_pull_lanes_(got[:, w:w + 2], c.sending, nbytes, c.ok_pull,
+                               c.dst)
+    tel.wire_words_pull_lanes_plain(want[:, w:w + 2], c.sending, nbytes,
+                                    c.ok_pull, c.dst)
+    equal, err = _equal_all([got], [want])
+    if not equal:
+        raise AssertionError(f"K18's words-pull lanes at {n} nodes: kernel "
+                             "!= plain version")
+    for k in (0, lanes - 1):
+        x = acc0[k, w:w + 2].clone()
+        tel.wire_words_pull_(x, c.sending[k], nbytes, c.ok_pull[k], c.dst[k])
+        _solo_trap(f"trace_wire_pull_lanes lane {k} at {n}",
+                   [got[k, w:w + 2]], [x])
+    added = (want - acc0)[:, w:w + 2]
+    rest = [i for i in range(len(tel.ACC)) if i not in (w, w + 1)]
+    _proto_trap(7, "each lane's answered pulls in its own frames and bytes "
+                "slots (exact int64 sums), lanes differing, the lane without "
+                "edges adding nothing, the other slots untouched",
+                int(added[-1].abs().sum()) == 0
+                and int(added[:-1, 1].min()) > 0
+                and len({int(x) for x in added[:-1, 0]}) > 1
+                and torch.equal(want[:, rest], acc0[:, rest]))
+    if not rows_out:
+        return []
+    work = acc0.clone()
+    return [_lane_row(
+        "trace_wire_pull_lanes", _TRACE_SRC + "trace_wire.cu",
+        "corrosion_tpu/sim/packed.py:584", equal, err,
+        _timed(timed, lambda: tel.wire_words_pull_lanes_(
+            work[:, w:w + 2], c.sending, nbytes, c.ok_pull, c.dst),
+            lambda: work.copy_(acc0)),
+        _timed(timed, lambda: tel.wire_words_pull_lanes_plain(
+            work[:, w:w + 2], c.sending, nbytes, c.ok_pull, c.dst),
+            lambda: work.copy_(acc0)),
+        _pull_response_bytes(c.dst, c.ok_pull, c.w) + _nbytes(nbytes)
+        + lanes * 16, lanes)]
+
+
+def _fifo_lane_carry(dev, g, lanes, cfg):
+    """K lanes of a lab-ordered storm's carry at ``cfg``'s shapes: each
+    lane's holdings with gaps (`_holdings`), relay planes inside them, and
+    one set of ring and sync-ring words in every lane, so the gate admits
+    in one lane what it drops in another."""
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim.words import pack_bits
+
+    n = cfg.n_nodes
+    a, v, c = cfg.n_writers, cfg.n_versions, cfg.chunks_per_version
+    d, w = cfg.n_delay_slots, cfg.n_payloads // 32
+    have = _stack(pack_bits(_device_holdings(g, n, a, v, c, dev))
+                  for _ in range(lanes))
+    relay = [_device_words(g, (lanes, n, w), dev, 2) & have
+             for _ in range(4)]
+    inflight = _device_words(g, (d, n, w), dev, 3)[None].expand(
+        lanes, d, n, w).contiguous()
+    sync_buf = _device_words(g, (d, n, w), dev, 4)[None].expand(
+        lanes, d, n, w).contiguous()
+    return packed.PackedCarry(have=have, inflight=inflight,
+                              relay=packed.Planes(*relay), sync_buf=sync_buf)
+
+
+def _clone_carry(cr):
+    from corrosion_tpu_torch.sim import packed
+
+    return packed.PackedCarry(cr.have.clone(), cr.inflight.clone(),
+                              packed.Planes(*(x.clone() for x in cr.relay)),
+                              cr.sync_buf.clone())
+
+
+def _carry_tensors(cr):
+    return [cr.have, cr.inflight, *cr.relay, cr.sync_buf]
+
+
+def compare_packed_lane_fifo(dev, g, lanes, n=STORM_N, timed=True,
+                             rows_out=True):
+    """K8f's lane entry at the lab-ordered storm's shapes (K lanes of N =
+    100 000, W = 16, A = 16, C = 4, D = 2): both rings behind each lane's
+    admit gate of its own pre-merge have, one set of arrivals in every
+    lane; lanes 0 and K - 1 held to the solo K8f on their carry."""
+    from corrosion_tpu_torch.proto.ordering import admit_words
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
+
+    cfg, _ = _storm_cfg(n, dev)
+    cfg = dataclasses.replace(cfg, ordering="fifo")
+    t = 9
+    carry0 = _fifo_lane_carry(dev, g, lanes, cfg)
+    got, want = _clone_carry(carry0), _clone_carry(carry0)
+    ln.deliver_lanes(got, t, cfg)
+    ln.deliver_lanes_plain(want, t, cfg)
+    equal, err = _equal_all(_carry_tensors(got), _carry_tensors(want))
+    if not equal:
+        raise AssertionError(f"K8f's lanes at {n} nodes: kernel != plain "
+                             "version")
+    for k in (0, lanes - 1):
+        solo = packed.PackedCarry(*(
+            x[k].clone() if not isinstance(x, tuple)
+            else packed.Planes(*(p[k].clone() for p in x)) for x in carry0))
+        packed.deliver_packed(solo, t, cfg)
+        _solo_trap(f"word_deliver_fifo_lanes lane {k} at {n}",
+                   [x[k] for x in _carry_tensors(got)], _carry_tensors(solo))
+    slot = t % cfg.n_delay_slots
+    arriving = carry0.inflight[:, slot] | carry0.sync_buf[:, slot]
+    dropped = torch.stack([arriving[k] & ~admit_words(carry0.have[k], cfg)
+                           for k in range(lanes)])
+    _proto_trap(8, "a FIFO gate that drops a slot's words in one lane and "
+                "admits them in another (the same arrivals in every lane)",
+                bool(((dropped != 0).any(dim=0)
+                      & ((dropped == 0) & (arriving != 0)).any(dim=0)).any()))
+    del dropped
+    if not rows_out:
+        return []
+    kw_, pw_ = _clone_carry(carry0), _clone_carry(carry0)
+
+    def restore(dst_):
+        for x, y in zip(_carry_tensors(dst_), _carry_tensors(carry0)):
+            x.copy_(y)
+
+    w = cfg.n_payloads // 32
+    return [_lane_row(
+        "word_deliver_fifo_lanes", _CSRC + "word_phases.cu",
+        "corrosion_tpu/proto/ordering.py:65", equal, err,
+        _timed(timed, lambda: ln.deliver_lanes(kw_, t, cfg),
+               lambda: restore(kw_)),
+        _timed(timed, lambda: ln.deliver_lanes_plain(pw_, t, cfg),
+               lambda: restore(pw_)),
+        # both slots and have read; have, the planes and both slots
+        # written where they change
+        lanes * n * w * 4 * 3 + _changed_bytes(
+            _carry_tensors(want), _carry_tensors(carry0)), lanes)]
+
+
+def compare_packed_lane_order_words(dev, g, lanes, n=STORM_N, timed=True,
+                                    rows_out=True):
+    """K22's words lane entry at the lab-ordered-broken storm's shapes (K
+    lanes of N = 100 000, W = 16, A = 16, V = 8, C = 4): each lane's
+    holdings with gaps added to its own nonzero count; lane 0 holds
+    gapless prefixes of versions (a count of 0), so the counts differ by
+    lane; lanes 0 and K - 1 held to the solo entry."""
+    from corrosion_tpu_torch.sim import invariants as inv
+    from corrosion_tpu_torch.sim.words import pack_bits
+
+    cfg, meta = _storm_cfg(n, dev)
+    cfg = dataclasses.replace(cfg, ordering="fifo-unchecked")
+    a, v, c = cfg.n_writers, cfg.n_versions, cfg.chunks_per_version
+    have = _stack(pack_bits(_device_holdings(g, n, a, v, c, dev, 0.5,
+                                                   0.2))
+                  for _ in range(lanes))
+    heads = torch.as_tensor(g.integers(0, v + 1, (n, 1, a, 1)), device=dev)
+    vv = torch.arange(v, device=dev)[None, :, None, None]
+    have[0] = pack_bits((vv < heads).expand(n, v, a, c).reshape(
+        n, v * a * c).to(torch.uint8))
+    acc0 = torch.arange(7, 7 + lanes, dtype=torch.int32, device=dev)
+    got, want = acc0.clone(), acc0.clone()
+    inv.count_order_violations_lanes_(got, have, meta, cfg)
+    inv.count_order_violations_lanes_plain(want, have, meta, cfg)
+    equal, err = _equal_all([got], [want])
+    if not equal:
+        raise AssertionError(f"K22's words lanes at {n} nodes: kernel != "
+                             "plain version")
+    for k in (0, lanes - 1):
+        x = acc0[k].clone()
+        inv.count_order_violations_(x, have[k], meta, cfg)
+        _solo_trap(f"order_check_words_lanes lane {k} at {n}", [got[k]], [x])
+    counts = (want - acc0).tolist()
+    _proto_trap(9, "order counts that differ by lane", len(set(counts)) > 2)
+    _proto_trap(10, "a lane whose count is 0 (gapless prefixes)",
+                counts[0] == 0 and min(counts[1:]) > 0)
+    if not rows_out:
+        return []
+    work = acc0.clone()
+    return [_lane_row(
+        "order_check_words_lanes", _CSRC + "order_check.cu",
+        "corrosion_tpu/sim/invariants.py:51", equal, err,
+        _timed(timed, lambda: inv.count_order_violations_lanes_(
+            work, have, meta, cfg), lambda: work.copy_(acc0)),
+        _timed(timed, lambda: inv.count_order_violations_lanes_plain(
+            work, have, meta, cfg), lambda: work.copy_(acc0)),
+        _nbytes(have) + a * 4 + lanes * 8, lanes)]
+
+
+def compare_packed_lane_protocol_kernels(dev, seed=18, lanes=ENSEMBLE_LANES,
+                                         timed=True, big=True):
+    """Phase 3lq: K10p's lane entry (its three streams and their recording
+    forms), K18's words-pull, K8f's and K22's words lane entries against
+    their plain versions at K = 8 on paths 67-68's shapes (100 000 x 512,
+    F = 3), lanes 0 and K - 1 held to the solo entries, every trap reached;
+    then each again as a check at ODD_N nodes, where every lane's grid
+    row ends in a partial block.  ``big``
+    False shrinks 100 000 and ODD_N nodes to 301 and 203, and the
+    pulls' words to 4 a row (a CPU rehearsal)."""
+    g = np.random.default_rng(seed)
+    # the rehearsal's pulls carry 4 words (128 payloads) a row
+    n, odd, w = (STORM_N, ODD_N, 16) if big else (301, 203, 4)
+    rows = compare_packed_lane_pull(dev, g, lanes, n, timed, w=w)
+    rows += compare_packed_lane_wire_pull(dev, g, lanes, n, timed, w=w)
+    rows += compare_packed_lane_fifo(dev, g, lanes, n, timed)
+    rows += compare_packed_lane_order_words(dev, g, lanes, n, timed)
+    compare_packed_lane_pull(dev, g, lanes, odd, False, False, w)
+    compare_packed_lane_wire_pull(dev, g, lanes, odd, False, False, w)
+    compare_packed_lane_fifo(dev, g, lanes, odd, False, False)
+    compare_packed_lane_order_words(dev, g, lanes, odd, False, False)
+    # each lane entry's threads a lane at ODD_N and its threads a block, as
+    # its launcher sets them: every lane is a grid row of its own
+    # (blockIdx.y), so no block spans two lanes; what the odd check holds is
+    # each lane's partial last block
+    geometry = {"K10p": (odd * 3 * w, 256), "K18wp": (odd * 3 * 32, 256),
+                "K8f": (odd * 32, 256), "K22w": (odd * 16, 256)}
+    _proto_trap(11, f"a partial last block in every lane at {odd} nodes ("
+                + ", ".join(f"{k} {t} threads a lane in blocks of {b}"
+                            for k, (t, b) in geometry.items())
+                + "), held to the plain versions above",
+                all(t % b != 0 for t, b in geometry.values()))
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    return rows
+
+
+#: paths 67-68: (label, which, the lane rows the run launches, those of
+#: its recording run or None, the K8 lane entries it launches by name);
+#: every run also launches `PROTO_PACKED_CORE`
+PROTO_PACKED_CORE = ("threefry_lanes", "sample_targets_lanes",
+                     "merge_entries_lanes", "gaps_refresh_lanes",
+                     "converge_fold_lanes")
+_WORDS = ("word_phases_lanes",)
+PACKED_PROTO_PATHS = (
+    ("storm_push_pull_100k_seeds8", "push-pull",
+     (*_WORDS, "broadcast_scatter_lanes", "sync_pull_lanes",
+      "broadcast_pull_lanes"), None, ()),
+    ("storm_wan_3x2_push_pull_100k_seeds8", "wan-push-pull",
+     (*_WORDS, *_TIERED, "broadcast_scatter_tiered_lanes", "sync_pull_lanes",
+      "broadcast_pull_tiered_lanes"),
+     (*_WORDS, *_TIERED, "broadcast_scatter_tiered_lanes_trace",
+      "sync_pull_lanes_trace", "broadcast_pull_tiered_lanes_trace",
+      "trace_wire_pull_lanes", *_PACKED_RECORDING), ()),
+    ("fault_storm_push_pull_100k_seeds8", "fault-push-pull",
+     (*_WORDS, "broadcast_scatter_lossy_lanes", "fault_reach_lanes",
+      "node_faults_lanes", "sync_pull_lanes", "broadcast_pull_lossy_lanes",
+      "broadcast_pull_lanes"),
+     (*_WORDS, "broadcast_scatter_lossy_lanes_trace", "fault_reach_lanes",
+      "node_faults_lanes", "sync_pull_lanes_trace",
+      "broadcast_pull_lossy_lanes_trace", "broadcast_pull_lanes",
+      "trace_wire_pull_lanes", "fault_edges_lanes_count",
+      *_PACKED_RECORDING), ()),
+    # K8's deliver lane entry gives way to K8f's under FIFO
+    ("storm_lab_ordered_100k_seeds8", "lab-ordered",
+     ("broadcast_scatter_lanes", "sync_pull_lanes", "word_deliver_fifo_lanes",
+      "order_check_words_lanes"), None,
+     ("word_inject_lanes", "word_spend_lanes")),
+    ("storm_lab_ordered_broken_100k_seeds8", "lab-ordered-broken",
+     (*_WORDS, "broadcast_scatter_lanes", "sync_pull_lanes",
+      "order_check_words_lanes"), None, ()),
+    ("storm_swarm_aggressive_100k_seeds8", "swarm-aggressive",
+     (*_WORDS, "broadcast_scatter_lanes", "sync_pull_lanes"), None, ()),
+    ("storm_fanout_decay_100k_seeds8", "fanout-decay",
+     (*_WORDS, "broadcast_scatter_lanes", "sync_pull_lanes",
+      "degree_caps_sched_lanes"), None, ()),
+)
+#: the protocol rows a path launches only where its knob is on
+_PROTO_LANE_ROWS = {"broadcast_pull_lanes", "broadcast_pull_lossy_lanes",
+                    "broadcast_pull_tiered_lanes",
+                    "broadcast_pull_lossy_lanes_trace",
+                    "broadcast_pull_tiered_lanes_trace",
+                    "trace_wire_pull_lanes", "word_deliver_fifo_lanes",
+                    "order_check_words_lanes", "degree_caps_sched_lanes"}
+
+
+def packed_proto_spec(which, seeds=range(ENSEMBLE_LANES)):
+    """The campaign cell of path ``which`` (`campaign.spec.
+    storm_proto_seeds_spec`): the 100k storm on the packed round under a
+    protocol family, over wan-3x2 or under the fault storm's plan for the
+    push-pull variants."""
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    seeds = tuple(seeds)
+    if which == "wan-push-pull":
+        return sp.storm_proto_seeds_spec("push-pull", seeds,
+                                         topo_family="wan-3x2")
+    if which == "fault-push-pull":
+        return sp.storm_proto_seeds_spec("push-pull", seeds, faults=True)
+    return sp.storm_proto_seeds_spec(which, seeds)
+
+
+#: each path's golden of its eight lanes and its lane 0's solo golden
+_PROTO_GOLDENS = {
+    "push-pull": ("STORM_PUSH_PULL_100K_SEEDS8",
+                  "STORM_PUSH_PULL_100K_SEED0"),
+    "wan-push-pull": ("STORM_WAN_3X2_PUSH_PULL_100K_SEEDS8",
+                      "STORM_WAN_3X2_PUSH_PULL_100K_SEED0"),
+    "fault-push-pull": ("FAULT_STORM_PUSH_PULL_100K_SEEDS8",
+                        "FAULT_STORM_PUSH_PULL_100K_SEED0"),
+    "lab-ordered": ("STORM_LAB_ORDERED_100K_SEEDS8",
+                    "STORM_LAB_ORDERED_100K_SEED0"),
+    "lab-ordered-broken": ("STORM_LAB_ORDERED_BROKEN_100K_SEEDS8",
+                           "STORM_LAB_ORDERED_BROKEN_100K_SEED0"),
+    "swarm-aggressive": ("STORM_SWARM_AGGRESSIVE_100K_SEEDS8",
+                         "STORM_SWARM_AGGRESSIVE_100K_SEED0"),
+    "fanout-decay": ("STORM_FANOUT_DECAY_100K_SEEDS8",
+                     "STORM_FANOUT_DECAY_100K_SEED0"),
+}
+
+
+def _proto_solo_run(spec, cfg, topo, meta, seed, dev, telemetry):
+    """The port's solo run of one seed of a path's cell on the card (the
+    packed round; under the spec's plan re-seeded by the seed, as the
+    engine's lane): its final state, metrics, trace (None without
+    ``telemetry``) and host wall."""
+    from corrosion_tpu_torch.sim.faults import compile_plan, run_fault_plan
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+
+    state = new_sim(cfg, int(seed), dev)
+    fplan = None
+    if spec.events:
+        fplan = compile_plan(spec.fault_plan({}, seed=int(seed)), cfg, topo,
+                             device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    if fplan is None:
+        res = run_to_convergence(state, meta, cfg, topo, spec.max_rounds,
+                                 telemetry)
+    else:
+        res = run_fault_plan(state, meta, cfg, topo, fplan, spec.max_rounds,
+                             telemetry)
+    torch.cuda.synchronize()
+    return (res[0], res[1], res[2] if telemetry else None,
+            time.monotonic() - t0)
+
+
+def _proto_goldens(which, label, art, finals, metrics, meta, goldens):
+    """Hold a path 67-68 cell to its pins: the spec_hash, the packed
+    cell's result_digest and every lane's record (rounds, the engine's
+    p99, convergence, state digest, order count) against the eight
+    one-seed live-JAX lanes, and lane 0 against its solo golden."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim.round import RunMetrics
+    from corrosion_tpu_torch.sim.runner import _node_convergence, _percentile
+
+    cell = art["cells"][0]
+    ps = cell["per_seed"]
+    golden_name, solo_name = _PROTO_GOLDENS[which]
+    golden, solo = getattr(goldens, golden_name), getattr(goldens, solo_name)
+    # a lane's state is ~700 MB on the host: hash the lanes side by side
+    # (blake2b and the copies leave the GIL)
+    with ThreadPoolExecutor(max_workers=len(cell["seeds"])) as pool:
+        digests = list(pool.map(lambda i: state_digest(lane_state(finals, i)),
+                                range(len(cell["seeds"]))))
+    lanes = []
+    for i, seed in enumerate(cell["seeds"]):
+        rec = {"seed": seed, "rounds": ps["rounds"][i],
+               "p99_node_convergence_round":
+                   ps["p99_node_convergence_round"][i],
+               "converged": ps["converged"][i],
+               "unconverged_nodes": ps["unconverged_nodes"][i],
+               "digest": digests[i]}
+        if "order_violations" in ps:
+            rec["order_violations"] = ps["order_violations"][i]
+        lanes.append(rec)
+    # lane 0 in the solo golden's terms (the runner's p99s)
+    final0, m0 = lane_state(finals, 0), RunMetrics(*(x[0] for x in metrics))
+    cov = m0.coverage_at.cpu().numpy()
+    lat = np.where(cov >= 0, cov - meta.round.cpu().numpy(), -1)
+    rec0 = {"rounds": int(final0.t),
+            "p99_node_convergence_round": _node_convergence(
+                m0, final0)["p99_node_convergence_round"],
+            "p99_payload_latency_rounds": _percentile(lat, 99),
+            "digest": digests[0],
+            "order_violations": int(m0.order_violations)}
+    got = {"spec_hash": art["spec_hash"],
+           "result_digest": art["result_digest"], "lanes": lanes}
+    print(f"{label}: {json.dumps(got)} lane 0 {json.dumps(rec0)} "
+          f"round_path {cell['round_path']}", flush=True)
+    if cell["round_path"] != "packed" or got != {
+            k: golden[k] for k in got}:
+        raise AssertionError(f"{label}: differs from {golden_name}")
+    if {k: rec0[k] for k in solo} != solo:
+        raise AssertionError(f"{label}: lane 0 differs from {solo_name}")
+    if which == "lab-ordered" and any(ps["order_violations"]):
+        raise AssertionError(f"{label}: a FIFO lane counts violations")
+
+
+def packed_proto_ensemble_paths(dev, goldens):
+    """Paths 67-68: the protocol variants on the packed round's lanes
+    through `campaign.engine.run_campaign`, each from zeroed counters,
+    every lane entry of the path launched and no solo entry of a kernel
+    that has one, no protocol row of a knob the cell leaves off.  Path
+    67: the 100k push-pull storm (seeds 0-7; its lanes the dense
+    push-pull lanes' pins, the dense == packed contract), over wan-3x2
+    and under the fault storm's plan, the last two with and without the
+    recorder (lane 0's trace JAX's solo telemetry golden over wan-3x2).
+    Path 68: the lab-ordered, lab-ordered-broken, swarm-aggressive and
+    fanout-decay storms.  Every cell against its golden (spec_hash, the
+    packed cell's result_digest, every lane one-seed live JAX's, lane 0
+    its solo golden); lanes 0 and K - 1 equal to their solo runs on this
+    card, state, metrics and trace (the solo runs one at a time, after
+    the ensemble), a recording run's finals equal to the run's without
+    the recorder.  Each wall beside the solo walls' sum (K times the mean
+    of the two).  Returns the launches per run and the printed numbers."""
+    import gc
+
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.sim.round import RunMetrics
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+    from corrosion_tpu_torch.sim.telemetry import (
+        lane_trace, trace_host, trace_summary)
+
+    gc.collect()
+    launches, numbers = {}, {}
+    for label, which, rows, rec_rows, entries in PACKED_PROTO_PATHS:
+        spec = packed_proto_spec(which)
+        cfg, topo = spec.sim_config({}), spec.topo({})
+        meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every({}))
+        k_last = len(spec.seeds) - 1
+        entry, plain_finals = {}, None
+        for telemetry in ((False, True) if rec_rows is not None
+                          else (False,)):
+            run_label = label + ("_telemetry" if telemetry else "")
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            kept = {}
+            t_run = time.monotonic()
+            art = run_campaign(spec, telemetry=telemetry, device=dev,
+                               lanes_out=kept)
+            t_run = time.monotonic() - t_run
+            peak = torch.cuda.max_memory_allocated() - held
+            path_rows = PROTO_PACKED_CORE + (rec_rows if telemetry else rows)
+            counts = _path_launches(kernels, path_rows, run_label,
+                                    telemetry=telemetry, entries=entries)
+            solo_on = [r for r in SOLO_OF_LANE.values() if counts[r]]
+            off = [r for r in _PROTO_LANE_ROWS - set(path_rows) if counts[r]]
+            if solo_on or off:
+                raise AssertionError(f"{run_label}: solo entries {solo_on}, "
+                                     f"protocol rows {off} off the path")
+            if which == "lab-ordered" and kernels.WORD_DELIVER_LANES.launches:
+                raise AssertionError(f"{run_label}: K8's deliver lane entry "
+                                     "ran under FIFO")
+            launches[run_label] = counts
+            finals, metrics = kept[0]["finals"], kept[0]["metrics"]
+            traces = kept[0].get("traces")
+            wall = art["cells"][0]["wall_clock_s"]
+            rounds = [int(x) for x in finals.t]
+            t_check = time.monotonic()
+            if telemetry:
+                # the recorder changes no state
+                if not all(torch.equal(a, b) for a, b in zip(finals,
+                                                             plain_finals)):
+                    raise AssertionError(f"{run_label}: the recording run's "
+                                         "finals differ from the plain run's")
+                if which == "wan-push-pull":
+                    lane0 = lane_trace(traces, 0)
+                    _telemetry_check(
+                        {"telemetry": trace_summary(
+                            trace_host(lane0, rounds[0]), rounds[0], cfg),
+                         "rounds": rounds[0], "trace": lane0},
+                        goldens.STORM_WAN_3X2_PUSH_PULL_100K_SEED0_TELEMETRY,
+                        300_000, 512, f"{run_label} lane 0")
+            else:
+                _proto_goldens(which, run_label, art, finals, metrics, meta,
+                               goldens)
+                plain_finals = finals
+            t_check = time.monotonic() - t_check
+            t_solo = time.monotonic()
+            walls = []
+            for k in (0, k_last):
+                final, m, trace, solo_wall = _proto_solo_run(
+                    spec, cfg, topo, meta, spec.seeds[k], dev, telemetry)
+                walls.append(solo_wall)
+                lane_m = RunMetrics(*(x[k] for x in metrics))
+                if not (_same_state(final, lane_state(finals, k)) and all(
+                        torch.equal(a, b) for a, b in zip(m, lane_m))):
+                    raise AssertionError(f"{run_label}: lane {k} differs "
+                                         "from its solo run")
+                if telemetry:
+                    _lanes_equal_solo_traces(
+                        type(traces)(*(x[k:k + 1] for x in traces)),
+                        [(rounds[k], trace, solo_wall)],
+                        f"{run_label} lane {k}")
+                del final, m, trace
+            solo_sum = sum(walls) * len(spec.seeds) / len(walls)
+            t_solo = time.monotonic() - t_solo
+            print(f"{run_label}: rounds={rounds}; lanes 0 and {k_last}"
+                  f"{' and their traces' if telemetry else ''} equal to their "
+                  f"solo runs; ensemble wall {wall} s against the solo walls' "
+                  f"sum {solo_sum} s (K x the mean of {walls}); "
+                  f"max_memory_allocated {peak} bytes beyond the {held} held "
+                  f"at entry; host seconds: the campaign call {t_run:.1f}, "
+                  f"the pin checks {t_check:.1f}, the solo runs "
+                  f"{t_solo:.1f}", flush=True)
+            tag = "recording_" if telemetry else ""
+            entry.update({tag + "ensemble_wall_s": wall,
+                          tag + "solo_walls_s": walls,
+                          tag + "solo_walls_sum_s": solo_sum,
+                          tag + "max_memory_allocated_bytes": peak,
+                          tag + "held_at_entry_bytes": held,
+                          tag + "rounds": rounds})
+            del kept, metrics, traces, art
+        del finals, plain_finals
+        numbers[label] = entry
+        _lap(label)
+    return launches, numbers
+
+
+def profile_proto_lanes(dev, which, lanes=ENSEMBLE_LANES, start=5, rounds=3):
+    """``rounds`` rounds of path ``which``'s cell (the push-pull or the
+    lab-ordered storm) from round ``start``: with ``lanes`` the packed lane
+    round (`sim.lanes.packed_lane_step`), with ``lanes`` None the solo
+    packed round of seed 0; the first ``start`` rounds are setup."""
+    from corrosion_tpu_torch.campaign.ensemble import seed_states
+    from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim.packed import (
+        pack_state, packed_round_step, shrink_state)
+    from corrosion_tpu_torch.sim.round import new_metrics, new_sim
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+    from corrosion_tpu_torch.sim.topology import regions
+    from corrosion_tpu_torch.sim.words import pack_bits
+
+    spec = packed_proto_spec(which)
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every({}))
+    region = regions(cfg.n_nodes, topo.n_regions, dev)
+
+    def step(loop):
+        if lanes is None:
+            slim, carry, inj, metrics = loop
+            slim, carry, inj, metrics, done = packed_round_step(
+                slim, carry, inj, metrics, meta, cfg, topo, region)
+            loop = (slim, carry, inj, metrics)
+        else:
+            loop, done = ln.packed_lane_step(loop, meta, cfg, topo, region)
+        done.tolist()  # the loop's one host read a round
+        return loop
+
+    def setup():
+        if lanes is None:
+            state = new_sim(cfg, spec.seeds[0], dev)
+            loop = (shrink_state(state), pack_state(state, cfg),
+                    pack_bits(state.injected), new_metrics(cfg, dev))
+        else:
+            loop = ln.packed_lane_batch(
+                seed_states(cfg, spec.seeds[:lanes], dev), cfg)
+        for _ in range(start):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return loop
+
+    def run(loop):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    label = f"{which} x{lanes} lanes" if lanes else f"{which} solo"
+    return _profile(run, rounds, f"packed {label} rounds {start}-"
+                    f"{start + rounds - 1}", setup)
+
+
 _START = time.monotonic()
 
 
@@ -11629,6 +12460,10 @@ def main() -> int:
     print("kernel comparisons equal for metered budgets and the topology "
           "streams on the packed lanes", flush=True)
     _lap("packed lane metered and topology kernel comparisons")
+    proto_packed_rows = compare_packed_lane_protocol_kernels(dev)
+    print("kernel comparisons equal for the protocol variants on the packed "
+          "lanes", flush=True)
+    _lap("phase 3lq, packed lane protocol kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -12534,6 +13369,12 @@ def main() -> int:
     print("packed axis ensemble numbers: " + json.dumps(axis_lane_numbers),
           flush=True)
     _lap("paths 63-66, budgets, topology and PeerSwap on the packed lanes")
+    # paths 67-68: the protocol variants on the packed round's lanes
+    proto_packed_launches, proto_packed_numbers = \
+        packed_proto_ensemble_paths(dev, goldens)
+    print("packed protocol ensemble numbers: "
+          + json.dumps(proto_packed_numbers), flush=True)
+    _lap("paths 67-68, the protocol variants on the packed lanes")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -12620,6 +13461,16 @@ def main() -> int:
             prof["max_memory_allocated_bytes"] = \
                 torch.cuda.max_memory_allocated()
             print("profile_axis_ensemble: " + json.dumps(prof), flush=True)
+    # the 8-lane packed push-pull and lab-ordered rounds beside their solo
+    # rounds, in one process
+    for which in ("push-pull", "lab-ordered"):
+        for lanes_ in (ENSEMBLE_LANES, None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prof = profile_proto_lanes(dev, which, lanes_)
+            prof["max_memory_allocated_bytes"] = \
+                torch.cuda.max_memory_allocated()
+            print("profile_proto_ensemble: " + json.dumps(prof), flush=True)
 
     for row in rows:
         row["launches"] = (launches if row["name"] in faultless_rows
@@ -12877,6 +13728,28 @@ def main() -> int:
             label: c[row["kernel"]]
             for label, c in axis_lane_launches.items()}
     rows += axis_lane_rows
+    # each packed protocol lane row reads its launches on the run that
+    # launches its kernel at the row's shapes
+    proto_packed_path = {
+        "broadcast_pull_lanes": "storm_push_pull_100k_seeds8",
+        "broadcast_pull_lossy_lanes": "fault_storm_push_pull_100k_seeds8",
+        "broadcast_pull_lossy_lanes_trace":
+            "fault_storm_push_pull_100k_seeds8_telemetry",
+        "broadcast_pull_tiered_lanes": "storm_wan_3x2_push_pull_100k_seeds8",
+        "broadcast_pull_tiered_lanes_trace":
+            "storm_wan_3x2_push_pull_100k_seeds8_telemetry",
+        "trace_wire_pull_lanes":
+            "storm_wan_3x2_push_pull_100k_seeds8_telemetry",
+        "word_deliver_fifo_lanes": "storm_lab_ordered_100k_seeds8",
+        "order_check_words_lanes": "storm_lab_ordered_broken_100k_seeds8"}
+    for row in proto_packed_rows:
+        path = proto_packed_path[row["kernel"]]
+        row["launches"] = proto_packed_launches[path][row["kernel"]]
+        row["path"] = path
+        row["other_paths_launches"] = {
+            label: c[row["kernel"]]
+            for label, c in proto_packed_launches.items()}
+    rows += proto_packed_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

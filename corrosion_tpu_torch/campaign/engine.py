@@ -18,11 +18,11 @@ The engine runs sim cells on both rounds — faultless or under a
 factored plan (delay and jitter included, B16l) on the packed round,
 with both byte budgets, over every topology family and key, under every
 membership mode and either peer sampler (B16m's budgets and topology,
-B16s's packed half), but the baseline protocol only; faultless or under
-a plan of either form (delay and jitter included) on the dense round,
-over every topology family, under either peer sampler and under every
-protocol family, which is where every fault cell outside the packed
-envelope goes
+B16s's packed half) and under every protocol family (B16m's rest);
+faultless or under a plan of either form (delay and jitter included) on
+the dense round, over every topology family, under either peer sampler
+and under every protocol family, which is where every fault cell outside
+the packed envelope goes
 (the 3-node fault campaigns, fault storms below the envelope,
 ``allow_packed: False``),
 reporting ``round_path: "dense"`` and the plan's horizon as JAX does —
@@ -41,10 +41,12 @@ recorder itself and bands each lane's ``wire_bytes``, the broadcast
 and sync byte channels' host sums, exactly as JAX computes them — part
 of the result digest.  Every cell whose ``ordering`` is not "none"
 bands each lane's ``order_violations`` (its standing delivery-order
-count, K22), part of the digest, as JAX's does.  The rest raises
-NotImplementedError, naming its ROADMAP item: the churn key on lanes is
-B16c, the protocol variants on the packed round's lanes B16m, matrix
-plans there B16x (both run on the dense round's lanes;
+count, K22), part of the digest, as JAX's does.  A ``churn`` cell (B16c)
+appends its churn events to the cell's plan (`.spec.CampaignSpec.
+fault_plan`), which either round's lanes run: a matrix plan below 1024
+nodes on the dense round's, a factored one on the packed round's.  The
+rest raises NotImplementedError, naming its ROADMAP item: matrix plans on
+the packed round's lanes are B16x (they run on the dense round's lanes;
 `..sim.lanes.check_packed_lanes`), a mesh is A13, host-serving cells
 and host parity are host tier (not queued).  The cell's ``traceparent``
 and its span tree belong to the host tracing tier and are left out (the
@@ -82,15 +84,15 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
     """The cells the engine does not run.  First JAX's own ValueErrors
     (``engine.py:190-231``), word for word: what a detect cell, or a
     wire measurement, cannot measure.  Then the port's
-    NotImplementedErrors, each naming its ROADMAP item; the refusals of
-    what a cell resolves to — on the packed round the protocol variants
-    (B16m) and matrix plans (B16x) — follow in
-    `..sim.lanes.check_packed_lanes`, which since B16m's budgets and
-    topology and B16s's packed half lets both byte budgets, every
-    topology family and key, every membership mode and PeerSwap through
-    to the packed round's lanes (JAX's ``jax.vmap`` of
-    ``sim/packed.py:681 packed_round_step`` in ``campaign/ensemble.py:114
-    run_ensemble``)."""
+    NotImplementedErrors, each naming its ROADMAP item; the refusal of
+    what a cell resolves to — on the packed round a matrix plan (B16x) —
+    follows in `..sim.lanes.check_packed_lanes`, which since B16m lets
+    every protocol family and knob, both byte budgets, every topology
+    family and key, every membership mode and PeerSwap through to the
+    packed round's lanes (JAX's ``jax.vmap`` of ``sim/packed.py:681
+    packed_round_step`` in ``campaign/ensemble.py:114 run_ensemble``).
+    A ``churn`` cell runs (B16c) but on a detect cell, which keeps JAX's
+    ValueError."""
     from .spec import _PROTO_KEYS
 
     if spec.serving(cell):
@@ -126,9 +128,6 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
         raise NotImplementedError(
             "host_parity replays a plan on the host agent tier, which the "
             "port does not carry (ROADMAP A, not queued)")
-    if spec._meta(cell, "churn"):
-        raise NotImplementedError(
-            "the churn key on lanes is not ported yet (ROADMAP B16c)")
 
 
 def _membership_lane_stats(finals, cfg) -> Dict[str, List]:

@@ -592,6 +592,34 @@ def storm_topology_seeds_spec(
     )
 
 
+def storm_proto_seeds_spec(
+    proto_family: str, seeds: Sequence[int] = tuple(range(8)),
+    topo_family: Optional[str] = None, faults: bool = False,
+) -> CampaignSpec:
+    """The 100k write storm on the packed round under a protocol family
+    as one campaign cell (B16m's rest): ``storm-push-pull-100k-seeds8``,
+    ``storm-lab-ordered-100k-seeds8`` and the like at the default; over a
+    topology family (`storm_topology_seeds_spec`'s ring) as
+    ``storm-wan-3x2-push-pull-100k-seeds8``; with ``faults`` under the
+    fault storm's events as ``fault-storm-push-pull-100k-seeds8``.  Not a
+    builtin of the JAX package: the JAX package's `CampaignSpec` of the
+    same dict has the same hash."""
+    scenario = dict(storm_scenario(), proto_family=proto_family)
+    topo = ""
+    if topo_family is not None:
+        scenario = dict(storm_topology_seeds_spec(topo_family).scenario,
+                        proto_family=proto_family)
+        topo = f"{topo_family}-"
+    kind = "fault-storm" if faults else "storm"
+    return CampaignSpec(
+        name=f"{kind}-{topo}{proto_family}-100k-seeds{len(tuple(seeds))}",
+        scenario=scenario,
+        events=storm_fault_events() if faults else (),
+        seeds=tuple(seeds),
+        max_rounds=3000,
+    )
+
+
 def protocol_frontier_push_pull_spec(
     seeds: Sequence[int] = (0, 1, 2, 3),
 ) -> CampaignSpec:

@@ -2428,3 +2428,286 @@ STORM_PEERSWAP_25600_SEEDS8 = {
          "digest": "147b16242015b5e8", "pview_digest": "800295c104a95a44"},
     ],
 }
+
+
+# -- the protocol variants on the packed round's lanes (B16m's rest), from
+# live JAX (jax 0.9.0 on the CPU) -------------------------------------------
+# Each lane of these seven cells is live JAX's one-seed run_campaign of its
+# seed (rounds, the engine's p99, convergence, state digest and, on the
+# ordering cells, the standing order count; tests/test_torch_packed_lane_
+# protocol.py -m slow, one case a seed, 10 s to 2 min each).  Each 8-lane
+# result_digest is JAX's artifact_digest over the packed cell its lanes
+# make (the construction that gives every one-seed run's digest, seed 0's
+# being seed0_result_digest); no vmapped JAX run of the eight lanes has
+# witnessed it (ROADMAP C).
+# run_campaign(storm_proto_seeds_spec("push-pull")): the 100k push-pull storm
+# on the PACKED round, seeds 0-7 (path 67).  Every lane is live JAX's
+# one-seed packed campaign of its seed, and equals the dense cell's pin
+# (DENSE_STORM_PUSH_PULL_100K_SEEDS8, JAX's dense == packed contract at
+# 100k, held at 1280 nodes by tests/test_torch_packed_lane_protocol_runs.
+# py); lane 0 is STORM_PUSH_PULL_100K_SEED0
+STORM_PUSH_PULL_100K_SEEDS8 = {
+    "spec_hash": "293914e5712d7871",
+    "result_digest": "9c96648be96a99d3d570694a2e863a72",
+    "seed0_result_digest": "7181ffd952e350a82a0f832c6b0aadeb",
+    "lanes": DENSE_STORM_PUSH_PULL_100K_SEEDS8["lanes"],
+}
+
+# run_campaign(storm_proto_seeds_spec("push-pull", topo_family="wan-3x2")):
+# the 100k push-pull storm over wan-3x2 on the packed round (path 67, with
+# and without the recorder); lane 0 is STORM_WAN_3X2_PUSH_PULL_100K_SEED0
+STORM_WAN_3X2_PUSH_PULL_100K_SEEDS8 = {
+    "spec_hash": "f8cb72e5a90867a9",
+    "result_digest": "a5e38e73a4b412f530566228e9560104",
+    "seed0_result_digest": "322c3ab7391c4156a29310bf29b974bf",
+    "lanes": [
+        {"seed": 0, "rounds": 31,
+         "p99_node_convergence_round": 29.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "80ffab6c56e21c7d"},
+        {"seed": 1, "rounds": 31,
+         "p99_node_convergence_round": 28.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "c5a35cfdcf079c86"},
+        {"seed": 2, "rounds": 31,
+         "p99_node_convergence_round": 28.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "2ef761286e245a66"},
+        {"seed": 3, "rounds": 30,
+         "p99_node_convergence_round": 28.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "ce22c8bb604fc79d"},
+        {"seed": 4, "rounds": 30,
+         "p99_node_convergence_round": 28.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "84d29a9258d2ca70"},
+        {"seed": 5, "rounds": 30,
+         "p99_node_convergence_round": 28.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "6ceed8fa12319511"},
+        {"seed": 6, "rounds": 31,
+         "p99_node_convergence_round": 28.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "2d0b7415e5cd40ed"},
+        {"seed": 7, "rounds": 30,
+         "p99_node_convergence_round": 28.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "27c1ab711c6ae59b"},
+    ],
+}
+
+# run_campaign(storm_proto_seeds_spec("push-pull", faults=True)): the 100k
+# fault storm under push-pull on the packed round, each lane's plan
+# re-seeded (path 67, with and without the recorder); lane 0 is
+# FAULT_STORM_PUSH_PULL_100K_SEED0
+FAULT_STORM_PUSH_PULL_100K_SEEDS8 = {
+    "spec_hash": "5cddba6313e70727",
+    "result_digest": "4ee4acfbe7599e9d2639b2994743f3ec",
+    "seed0_result_digest": "cc89c587456b07f7a819535f4f1f2d62",
+    "lanes": [
+        {"seed": 0, "rounds": 24,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "7a89d180aff7a703"},
+        {"seed": 1, "rounds": 23,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "c6eed9008a438e28"},
+        {"seed": 2, "rounds": 23,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "0b2a80b0dc598b4e"},
+        {"seed": 3, "rounds": 39,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "fa645879f0c407c5"},
+        {"seed": 4, "rounds": 23,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "3b470831a9d4ea60"},
+        {"seed": 5, "rounds": 23,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "7dc2b62d4d50a66a"},
+        {"seed": 6, "rounds": 23,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "4913229051158fd4"},
+        {"seed": 7, "rounds": 24,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "8afb1522fbacc43e"},
+    ],
+}
+
+# run_campaign(storm_proto_seeds_spec("lab-ordered")): FIFO ordering at 100k
+# on the packed round, 240-280 rounds a lane, no lane counting a violation
+# (path 68); lane 0 is STORM_LAB_ORDERED_100K_SEED0
+STORM_LAB_ORDERED_100K_SEEDS8 = {
+    "spec_hash": "9c7608dacf9c4e28",
+    "result_digest": "e0869ee8139577ebdc369649ab7d7eb5",
+    "seed0_result_digest": "84b7abe9446f0e22aab637cefc8595f0",
+    "lanes": [
+        {"seed": 0, "rounds": 240,
+         "p99_node_convergence_round": 216.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 0, "digest": "ae68f79e4fbd6a79"},
+        {"seed": 1, "rounds": 245,
+         "p99_node_convergence_round": 225.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 0, "digest": "f1a9eeae8ad5777d"},
+        {"seed": 2, "rounds": 279,
+         "p99_node_convergence_round": 257.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 0, "digest": "6145827e8cb9dee4"},
+        {"seed": 3, "rounds": 244,
+         "p99_node_convergence_round": 221.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 0, "digest": "30d41cb8992598ae"},
+        {"seed": 4, "rounds": 252,
+         "p99_node_convergence_round": 233.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 0, "digest": "da23095990899d1b"},
+        {"seed": 5, "rounds": 258,
+         "p99_node_convergence_round": 241.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 0, "digest": "4d560b9f03a3c9d1"},
+        {"seed": 6, "rounds": 259,
+         "p99_node_convergence_round": 239.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 0, "digest": "262fae25dc72468f"},
+        {"seed": 7, "rounds": 242,
+         "p99_node_convergence_round": 219.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 0, "digest": "e04256b3a689ea1f"},
+    ],
+}
+
+# run_campaign(storm_proto_seeds_spec("lab-ordered-broken")): the unchecked
+# negative control at 100k on the packed round, each lane's standing
+# order count (path 68); lane 0 is STORM_LAB_ORDERED_BROKEN_100K_SEED0
+STORM_LAB_ORDERED_BROKEN_100K_SEEDS8 = {
+    "spec_hash": "a03b81e759bc76e0",
+    "result_digest": "0e3fc0c48e6cccb68c019afbfab3ea62",
+    "seed0_result_digest": "01aa56dad45068d5043c9ce77f2ff096",
+    "lanes": [
+        {"seed": 0, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 2154, "digest": "9318cde1da5511ba"},
+        {"seed": 1, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 2164, "digest": "7a4e9a64ea49fa86"},
+        {"seed": 2, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 2112, "digest": "0751071be1be8719"},
+        {"seed": 3, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 2074, "digest": "1893e4c4d0cb9c00"},
+        {"seed": 4, "rounds": 27,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 2127, "digest": "c5d7cf5c8c3b1005"},
+        {"seed": 5, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 2213, "digest": "4fbdbaad19de62bc"},
+        {"seed": 6, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 2115, "digest": "9e1d7ea908dfb28a"},
+        {"seed": 7, "rounds": 28,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "order_violations": 2245, "digest": "52d8c3781bee838c"},
+    ],
+}
+
+# run_campaign(storm_proto_seeds_spec("swarm-aggressive")): the eager
+# cadence at 100k on the packed round (path 68); lane 0 is
+# STORM_SWARM_AGGRESSIVE_100K_SEED0
+STORM_SWARM_AGGRESSIVE_100K_SEEDS8 = {
+    "spec_hash": "78a78f2fcef3ec01",
+    "result_digest": "f811fdf60c601f55c8d66d81d844842d",
+    "seed0_result_digest": "683486e4bb8cfd002ea027caf8225418",
+    "lanes": [
+        {"seed": 0, "rounds": 25,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "3485976e691a30c1"},
+        {"seed": 1, "rounds": 25,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "3068f8778048ba2c"},
+        {"seed": 2, "rounds": 25,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "e524ca034ad3a68b"},
+        {"seed": 3, "rounds": 25,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "5df7eeca5bd5fa0e"},
+        {"seed": 4, "rounds": 25,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "fc93d625ffdef5f3"},
+        {"seed": 5, "rounds": 25,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "5b5e908276676646"},
+        {"seed": 6, "rounds": 25,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "639d59816c336757"},
+        {"seed": 7, "rounds": 25,
+         "p99_node_convergence_round": 24.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "27f84f463a23a1fe"},
+    ],
+}
+
+# run_campaign(storm_proto_seeds_spec("fanout-decay")): the fan-out
+# schedule at 100k on the packed round (path 68); lane 0 is
+# STORM_FANOUT_DECAY_100K_SEED0
+STORM_FANOUT_DECAY_100K_SEEDS8 = {
+    "spec_hash": "3c0b17b05292726e",
+    "result_digest": "a7b54534a76fcd18ffb1dbae2f29e82c",
+    "seed0_result_digest": "bcb1012f6e7bd01d421abd305fe4da32",
+    "lanes": [
+        {"seed": 0, "rounds": 42,
+         "p99_node_convergence_round": 36.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "57eef25b9a43c471"},
+        {"seed": 1, "rounds": 42,
+         "p99_node_convergence_round": 36.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "8d4eef59e8bd148c"},
+        {"seed": 2, "rounds": 50,
+         "p99_node_convergence_round": 36.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "1c0128fc8d2a24ab"},
+        {"seed": 3, "rounds": 42,
+         "p99_node_convergence_round": 36.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "1c876ace76548243"},
+        {"seed": 4, "rounds": 43,
+         "p99_node_convergence_round": 36.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "813d6c2ea7470858"},
+        {"seed": 5, "rounds": 42,
+         "p99_node_convergence_round": 36.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "3547a833a5582629"},
+        {"seed": 6, "rounds": 42,
+         "p99_node_convergence_round": 36.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "20286c1a3ca25eed"},
+        {"seed": 7, "rounds": 42,
+         "p99_node_convergence_round": 36.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "3aa4e147875dce53"},
+    ],
+}

@@ -205,6 +205,20 @@ replaces:
   `BROADCAST_SCATTER_TIERED_LANES_TRACE` — `sim.lanes.scatter_lanes` with
   ``topo_thr`` or ``tiers``.
 
+- the protocol variants on the packed round's lanes (B16m's rest; one row
+  a kernel, counted apart from the solo entries): K10p's lane entry
+  `BROADCAST_PULL_LANES`, `BROADCAST_PULL_LOSSY_LANES`,
+  `BROADCAST_PULL_TIERED_LANES` (by its streams) and the recording forms
+  `BROADCAST_PULL_LOSSY_LANES_TRACE`, `BROADCAST_PULL_TIERED_LANES_TRACE`
+  (dropped frames a lane) — `sim.lanes.scatter_pull_lanes`; K18's
+  words-pull lane entry `TRACE_WIRE_WORDS_PULL_LANES` — `sim.telemetry.
+  wire_words_pull_lanes_`; K8f's lane entry `WORD_DELIVER_FIFO_LANES` —
+  `sim.lanes.deliver_lanes` under ``ordering="fifo"``; K22's words lane
+  entry `ORDER_CHECK_WORDS_LANES` (a count a lane) — `sim.invariants.
+  count_order_violations_lanes_` on packed words.  The eager cadence and the
+  fan-out schedule need none (the sync's due mask; K20's schedule lane
+  entry).
+
 K17–K19 run only when a run records a trace; so do the telemetry
 outputs of K3, K9, K10, K12 and K13 (null pointers otherwise).
 
@@ -573,6 +587,28 @@ SYNC_PULL_METERED_LANES_TRACE = Kernel("sync_pull_metered_lanes_trace",
 BUDGET_WORDS_LANES = Kernel("budget_words_lanes", "budget_words.cu",
                             "corro_budget_words", 3)
 
+BROADCAST_PULL_LANES = Kernel("broadcast_pull_lanes", "broadcast_scatter.cu",
+                              "corro_broadcast_pull_lanes", 8)
+BROADCAST_PULL_LOSSY_LANES = Kernel("broadcast_pull_lossy_lanes",
+                                    "broadcast_scatter.cu",
+                                    "corro_broadcast_pull_lanes", 8)
+BROADCAST_PULL_TIERED_LANES = Kernel("broadcast_pull_tiered_lanes",
+                                     "broadcast_scatter.cu",
+                                     "corro_broadcast_pull_lanes", 8)
+BROADCAST_PULL_LOSSY_LANES_TRACE = Kernel("broadcast_pull_lossy_lanes_trace",
+                                          "broadcast_scatter.cu",
+                                          "corro_broadcast_pull_lanes", 8)
+BROADCAST_PULL_TIERED_LANES_TRACE = Kernel(
+    "broadcast_pull_tiered_lanes_trace", "broadcast_scatter.cu",
+    "corro_broadcast_pull_lanes", 8)
+TRACE_WIRE_WORDS_PULL_LANES = Kernel("trace_wire_words_pull_lanes",
+                                     "trace_wire.cu",
+                                     "corro_trace_wire_words_pull_lanes", 5)
+WORD_DELIVER_FIFO_LANES = Kernel("word_deliver_fifo_lanes", "word_phases.cu",
+                                 "corro_word_deliver_fifo_lanes", 8)
+ORDER_CHECK_WORDS_LANES = Kernel("order_check_words_lanes", "order_check.cu",
+                                 "corro_order_check_words_lanes", 5)
+
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
@@ -699,12 +735,22 @@ PORTED = {
     "sync_pull_metered_lanes": (SYNC_PULL_METERED_LANES,),
     "sync_pull_metered_lanes_trace": (SYNC_PULL_METERED_LANES_TRACE,),
     "budget_words_lanes": (BUDGET_WORDS_LANES,),
+    "broadcast_pull_lanes": (BROADCAST_PULL_LANES,),
+    "broadcast_pull_lossy_lanes": (BROADCAST_PULL_LOSSY_LANES,),
+    "broadcast_pull_tiered_lanes": (BROADCAST_PULL_TIERED_LANES,),
+    "broadcast_pull_lossy_lanes_trace": (BROADCAST_PULL_LOSSY_LANES_TRACE,),
+    "broadcast_pull_tiered_lanes_trace": (
+        BROADCAST_PULL_TIERED_LANES_TRACE,),
+    "trace_wire_pull_lanes": (TRACE_WIRE_WORDS_PULL_LANES,),
+    "word_deliver_fifo_lanes": (WORD_DELIVER_FIFO_LANES,),
+    "order_check_words_lanes": (ORDER_CHECK_WORDS_LANES,),
 }
 #: the flight recorder on the seed ensembles' lanes (B16r): the lane
 #: entries of K17-K19 (K17's dense, grant and coverage entries, K18's rows,
 #: rows-pull and words entries) and the recording forms of the lane
 #: launchers of K12, K12f, K12t, K12p, K13, K13d on the dense round and of
-#: K10, K10j, K3, K3d on the packed round (their recorder outputs), and of
+#: K10, K10j, K10p, K3, K3d on the packed round (their recorder outputs,
+#: and K18's words-pull lane entry), and of
 #: K9's, K9's latency entry's and K9m's edge queries (their lane-strided
 #: counts)
 TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
@@ -722,7 +768,10 @@ TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
                    "broadcast_scatter_jitter_lanes_trace",
                    "sync_pull_lanes_trace", "sync_pull_delay_lanes_trace",
                    "broadcast_scatter_tiered_lanes_trace",
-                   "sync_pull_metered_lanes_trace")
+                   "sync_pull_metered_lanes_trace",
+                   "broadcast_pull_lossy_lanes_trace",
+                   "broadcast_pull_tiered_lanes_trace",
+                   "trace_wire_pull_lanes")
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
@@ -740,7 +789,10 @@ LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "dense_deliver_fifo_lanes", "order_check_dense_lanes",
              "broadcast_scatter_jitter_lanes", "sync_pull_delay_lanes",
              "broadcast_scatter_tiered_lanes", "sync_pull_metered_lanes",
-             "budget_words_lanes", *TRACE_LANE_ROWS)
+             "budget_words_lanes", "broadcast_pull_lanes",
+             "broadcast_pull_lossy_lanes", "broadcast_pull_tiered_lanes",
+             "word_deliver_fifo_lanes", "order_check_words_lanes",
+             *TRACE_LANE_ROWS)
 #: the rows of the flight recorder's kernels, which no telemetry-off run
 #: launches
 TRACE_ROWS = ("trace_counts", "trace_counts_dense", "trace_wire",
@@ -792,6 +844,10 @@ __all__ = [
     "SYNC_PULL_DELAY_LANES_TRACE", "BROADCAST_SCATTER_TIERED_LANES",
     "BROADCAST_SCATTER_TIERED_LANES_TRACE", "SYNC_PULL_METERED_LANES",
     "SYNC_PULL_METERED_LANES_TRACE", "BUDGET_WORDS_LANES",
+    "BROADCAST_PULL_LANES", "BROADCAST_PULL_LOSSY_LANES",
+    "BROADCAST_PULL_TIERED_LANES", "BROADCAST_PULL_LOSSY_LANES_TRACE",
+    "BROADCAST_PULL_TIERED_LANES_TRACE", "TRACE_WIRE_WORDS_PULL_LANES",
+    "WORD_DELIVER_FIFO_LANES", "ORDER_CHECK_WORDS_LANES",
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
     "BROADCAST_SCATTER_LOSSY", "BROADCAST_SCATTER_TIERED", "BUDGET_WORDS",
     "CONVERGE_FINISH", "CONVERGE_ROWS", "DEGREE_CAPS", "DENSE_BROADCAST",

@@ -172,8 +172,27 @@
 // Bound: operations — K times the solo topology stream's hashes (eight
 // u32 draws of ~72 operations per sending (edge, word) under a threshold
 // between 1 and 255).
-
-#include <cstdint>
+//
+// K10p's lane entry (corro_broadcast_pull_lanes, B16m's rest: the pull leg
+// of corrosion_tpu/sim/packed.py:514-538 with corrosion_tpu/proto/
+// dissemination.py:43 pull_session_ok and :58 pull_wire_drop under the
+// vmap of corrosion_tpu/campaign/ensemble.py:114) is the solo pull body
+// with a lane grid dimension, as K12p's lane entry is K12p's: blockIdx.y
+// is the lane, whose ring [D, N, W], sending words, edges (lane-local dst,
+// the push's slots), ok_pull and reverse thresholds are its slices of the
+// [K, ...] tensors (64-bit lane offsets).  Each lane folds its own pull key
+// fold_in(k_drop[k], 1) once a block, and its fault key fold_in(fold_in(
+// k_pull, seeds[k]), 101); the draw counters e*8W + 8k + j stay
+// lane-local, so E*8*W < 2^32 is the solo guard, held for each lane.
+// Counted by its streams as broadcast_pull_lanes (none),
+// broadcast_pull_lossy_lanes (the flat or the fault stream, or a severed
+// flat channel) and broadcast_pull_tiered_lanes (the shared tier table);
+// the recording forms add each lane's lost frames to its own slot,
+// `dropped` + k * dropped_stride, counted as _lossy_lanes_trace and
+// _tiered_lanes_trace.  No block spans two lanes, so a block's threads
+// share one lane's keys.  Bound: K times the solo bound — bytes outside
+// loss, operations (one hash per sending (edge, word of 4 payloads) under
+// a threshold) inside it.
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
@@ -366,6 +385,8 @@ __global__ void broadcast_scatter_kernel(
 
 // K10p: the pull leg.  `k_drop` is the broadcast key's second split;
 // the block folds the pull key and, under fault loss, its fault key once.
+// The lane entry runs it with blockIdx.y the lane: the lane's slices,
+// k_drop and plan seed (lane 0 and `seed` on the solo entry).
 template <bool kTiered>
 __global__ void broadcast_pull_kernel(
     uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
@@ -373,11 +394,25 @@ __global__ void broadcast_pull_kernel(
     const bool* __restrict__ ok_pull, const uint8_t* __restrict__ thr,
     const int64_t* __restrict__ k_drop,
     unsigned long long* __restrict__ dropped,
-    const int32_t* __restrict__ tiers, int n, int d_slots, int w, int fanout,
-    int n_edges, uint32_t seed, uint32_t tag, int topo_thr) {
+    const int32_t* __restrict__ tiers, const int32_t* __restrict__ seeds,
+    int n, int d_slots, int w, int fanout, int n_edges, uint32_t seed,
+    uint32_t tag, int topo_thr, int dropped_stride) {
   __shared__ uint32_t pk[2];
   __shared__ uint32_t folded[2];
   __shared__ unsigned long long lost_block;
+  {
+    const size_t lane = blockIdx.y;
+    const size_t words = (size_t)n * w;
+    ring += lane * d_slots * words;
+    sending += lane * words;
+    dst += lane * n_edges;
+    slot += lane * n_edges;
+    ok_pull += lane * n_edges;
+    if (thr) thr += lane * n_edges;
+    if (k_drop) k_drop += 2 * lane;
+    if (seeds) seed = (uint32_t)seeds[lane];
+    if (dropped) dropped += lane * dropped_stride;
+  }
   if (k_drop != nullptr) {
     if (threadIdx.x == 0) {
       corro::Pair p = corro::fold_in(
@@ -563,6 +598,42 @@ extern "C" int corro_broadcast_scatter_lossy_lanes(
                       dropped_stride);
 }
 
+namespace {
+
+int launch_pull(void* ring, const void* sending, const void* dst,
+                const void* slot, const void* ok, const void* thr,
+                const void* k_drop, void* dropped, const void* tiers,
+                const void* seeds, int n, int d_slots, int w, int fanout,
+                int seed, int tag, int topo_thr, int dropped_stride,
+                int lanes, void* stream) {
+  bool tiered = tiers != nullptr;
+  bool draws = thr != nullptr || tiered || (topo_thr > 0 && topo_thr < 256);
+  if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 || d_slots <= 0 ||
+      lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && dropped != nullptr && dropped_stride < 1) ||
+      (draws && k_drop == nullptr) || (tiered && topo_thr != 0))
+    return (int)cudaErrorInvalidValue;
+  int n_edges = n * fanout;
+  // the draws' word index e*8w + 8k + j is a u32 counter, lane-local
+  if ((unsigned long long)n_edges * 8ull * (unsigned long long)w >=
+      (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  size_t total = (size_t)n_edges * w;
+  int threads = 256;
+  unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  auto kernel = tiered ? broadcast_pull_kernel<true>
+                       : broadcast_pull_kernel<false>;
+  kernel<<<dim3(blocks, lanes), threads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
+      (const int32_t*)slot, (const bool*)ok, (const uint8_t*)thr,
+      draws ? (const int64_t*)k_drop : nullptr, (unsigned long long*)dropped,
+      (const int32_t*)tiers, (const int32_t*)seeds, n, d_slots, w, fanout,
+      n_edges, (uint32_t)seed, (uint32_t)tag, topo_thr, dropped_stride);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // K10p, the pull leg: `ok` is ok_pull, `thr` the reverse edges' fault
 // thresholds (null without fault loss), `k_drop` the broadcast key's
 // k_drop (null when no stream draws: thr null, topo_thr 0 or 256 and no
@@ -573,25 +644,25 @@ extern "C" int corro_broadcast_pull(
     const void* ok, const void* thr, const void* k_drop, void* dropped,
     const void* tiers, int n, int d_slots, int w, int fanout, int seed,
     int tag, int topo_thr, void* stream) {
-  bool tiered = tiers != nullptr;
-  bool draws = thr != nullptr || tiered || (topo_thr > 0 && topo_thr < 256);
-  if (n <= 0 || w <= 0 || fanout <= 0 || topo_thr < 0 || d_slots <= 0 ||
-      (draws && k_drop == nullptr) || (tiered && topo_thr != 0))
-    return (int)cudaErrorInvalidValue;
-  int n_edges = n * fanout;
-  if ((unsigned long long)n_edges * 8ull * (unsigned long long)w >=
-      (1ull << 32))
-    return (int)cudaErrorInvalidValue;
-  size_t total = (size_t)n_edges * w;
-  int threads = 256;
-  unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  auto kernel = tiered ? broadcast_pull_kernel<true>
-                       : broadcast_pull_kernel<false>;
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
-      (const int32_t*)slot, (const bool*)ok, (const uint8_t*)thr,
-      draws ? (const int64_t*)k_drop : nullptr, (unsigned long long*)dropped,
-      (const int32_t*)tiers, n, d_slots, w, fanout, n_edges, (uint32_t)seed,
-      (uint32_t)tag, topo_thr);
-  return (int)cudaGetLastError();
+  return launch_pull(ring, sending, dst, slot, ok, thr, k_drop, dropped,
+                     tiers, nullptr, n, d_slots, w, fanout, seed, tag,
+                     topo_thr, 0, 1, stream);
+}
+
+// K10p's lane entry: ring [lanes, D, N, W], sending [lanes, N, W], dst,
+// slot and ok_pull [lanes, E] (lane-local ids), `thr` the reverse edges'
+// fault thresholds [lanes, E] (null without fault loss this round),
+// `k_drop` the lanes' k_drop [lanes, 2] (null when no stream draws),
+// `seeds` their plan seeds i32[lanes] (required with `thr`), `tiers` the
+// shared topology table; `dropped` lane 0's int64 slot, each lane's
+// `dropped_stride` slots after the one before (null: nothing counts).
+extern "C" int corro_broadcast_pull_lanes(
+    void* ring, const void* sending, const void* dst, const void* slot,
+    const void* ok, const void* thr, const void* k_drop, const void* seeds,
+    void* dropped, const void* tiers, int n, int d_slots, int w, int fanout,
+    int tag, int topo_thr, int dropped_stride, int lanes, void* stream) {
+  if (thr != nullptr && seeds == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_pull(ring, sending, dst, slot, ok, thr, k_drop, dropped,
+                     tiers, seeds, n, d_slots, w, fanout, 0, tag, topo_thr,
+                     dropped_stride, lanes, stream);
 }

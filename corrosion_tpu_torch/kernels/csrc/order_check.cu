@@ -32,6 +32,14 @@
 // own slot acc[k] of the [K] order_violations — the atomic a solo launch
 // aims at one slot aims at the lane's.  Bound: K times the solo bound.
 //
+// The words entry's lane form (corro_order_check_words_lanes: B16m's
+// rest, ensemble.py:114 vmaps packed.py:821-832) does the same for the
+// packed round's lanes: blockIdx.y is the lane, whose rows are its slice
+// of have [K, N, W] (64-bit offsets) and whose count is acc[k].  A lane
+// that finishes leaves the batch with its count, which stops there, as
+// JAX's select-frozen lane's does.  Bound: bytes, K times the solo
+// bound (8 x 6.4 MB at the 8-lane storm).
+//
 // Bound on the H100: bytes — have read once (6.4 MB words at the storm,
 // 51 MB u8 on the dense storm) and meta.actor's A entries.  Design: the
 // neighbouring words a thread's shift needs come from L1 (each row is
@@ -74,6 +82,9 @@ __global__ void order_words_kernel(const uint32_t* __restrict__ have,
                                    const int32_t* __restrict__ actor,
                                    int* __restrict__ acc, int n, int w,
                                    int a, int c, uint32_t low_mask) {
+  // the lane's rows and its own count (lane 0 on the solo entry)
+  have += (size_t)blockIdx.y * n * w;
+  acc += blockIdx.y;
   size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   int count = 0;
   if (i < (size_t)n * w) {
@@ -168,5 +179,23 @@ extern "C" int corro_order_check_dense_lanes(const void* have,
   order_dense_kernel<<<dim3(blocks_for((size_t)n * (p / c), 256), lanes), 256,
                        0, (cudaStream_t)stream>>>(
       (const uint8_t*)have, (const int32_t*)actor, (int*)acc, n, p, a, c);
+  return (int)cudaGetLastError();
+}
+
+// The words entry's lane form: `have` [lanes, N, W], `acc` the lanes' i32
+// order_violations [lanes] (one count a lane), then `lanes`.
+extern "C" int corro_order_check_words_lanes(const void* have,
+                                             const void* actor, void* acc,
+                                             int n, int w, int a, int c,
+                                             int lanes, void* stream) {
+  if (n <= 0 || w <= 0 || a <= 0 || c <= 0 || c > 32 || (c & (c - 1)) ||
+      (32 * w) % (a * c) || lanes <= 0 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  uint32_t low = 0u;
+  for (int b = 0; b < 32; b += c) low |= 1u << b;
+  order_words_kernel<<<dim3(blocks_for((size_t)n * w, 256), lanes), 256, 0,
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)have, (const int32_t*)actor, (int*)acc, n, w, a, c,
+      low);
   return (int)cudaGetLastError();
 }

@@ -56,6 +56,17 @@
 // acc_stride; the sizes nbytes [P] are shared.  Bound: bytes, K times the
 // solo entry's — 8 x (6.4 + 0.3) MB at the 8-lane storm, ~0.016 ms.
 //
+// The words pull entry's lane form (corro_trace_wire_words_pull_lanes:
+// B16m's rest, ensemble.py:114 vmaps packed.py:584-607) takes each lane's
+// sending words [N, W], ok_pull edges and responders [E] as its slices of
+// [K, ...] tensors (64-bit offsets; a responder id dst[e] is lane-local),
+// adding into acc + k * acc_stride; the sizes nbytes [P] are shared.  The
+// bytes channel stays an exact int64 integer sum, rounded once to f32 by
+// K19, as the solo entry's.  Bound: bytes, K times the solo entry's — a
+// random row of sending words per ok_pull edge of each lane (from L2: 8 x
+// 6.4 MB at the 8-lane storm is past the 50 MB L2, so a row's 64 B may
+// come from HBM) and the edges' ok and dst.
+//
 // Bound on the H100: bytes — the sending words (6.4 MB at the storm,
 // 26 MB at gapstress) and the ok bytes, read once.  Design: each warp
 // reads its node's row as one coalesced run; nbytes is 32 KB at most,
@@ -165,7 +176,16 @@ __global__ void trace_wire_rows_kernel(const int32_t* __restrict__ row_frames,
 __global__ void trace_wire_words_pull_kernel(
     const uint32_t* __restrict__ sending, const int32_t* __restrict__ nbytes,
     const bool* __restrict__ ok_pull, const int32_t* __restrict__ dst,
-    unsigned long long* __restrict__ acc, int n_edges, int w) {
+    unsigned long long* __restrict__ acc, int n_edges, int w, int n,
+    int acc_stride) {
+  {
+    // the seed-ensemble lane's slices (lane 0 on the solo entry)
+    const size_t k = blockIdx.y;
+    sending += k * (size_t)n * w;
+    ok_pull += k * (size_t)n_edges;
+    dst += k * (size_t)n_edges;
+    acc += k * (size_t)acc_stride;
+  }
   int lane = threadIdx.x & (kWarp - 1);
   int warps = gridDim.x * (blockDim.x / kWarp);
   long long frames = 0, bytes = 0;  // lane 0's running totals
@@ -292,7 +312,30 @@ extern "C" int corro_trace_wire_words_pull(const void* sending,
   trace_wire_words_pull_kernel<<<grid_for((long long)n_edges * kWarp),
                                  kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)sending, (const int32_t*)nbytes, (const bool*)ok,
-      (const int32_t*)dst, (unsigned long long*)acc, n_edges, w);
+      (const int32_t*)dst, (unsigned long long*)acc, n_edges, w, 0, 0);
+  return (int)cudaGetLastError();
+}
+
+// The words pull entry's lane form: sending [lanes, N, W], ok_pull and
+// dst [lanes, E] (lane-local responders), the shared sizes nbytes [P];
+// lane 0's accumulators, each lane's `acc_stride` int64 slots after the
+// one before.
+extern "C" int corro_trace_wire_words_pull_lanes(const void* sending,
+                                                 const void* nbytes,
+                                                 const void* ok,
+                                                 const void* dst, void* acc,
+                                                 int n, int n_edges, int w,
+                                                 int acc_stride, int lanes,
+                                                 void* stream) {
+  if (n <= 0 || n_edges <= 0 || w <= 0 || lanes <= 0 || lanes > 65535 ||
+      (lanes > 1 && acc_stride < 2))
+    return (int)cudaErrorInvalidValue;
+  trace_wire_words_pull_kernel<<<dim3(grid_for((long long)n_edges * kWarp),
+                                      lanes),
+                                 kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)sending, (const int32_t*)nbytes, (const bool*)ok,
+      (const int32_t*)dst, (unsigned long long*)acc, n_edges, w, n,
+      acc_stride);
   return (int)cudaGetLastError();
 }
 

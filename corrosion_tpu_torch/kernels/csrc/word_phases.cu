@@ -56,6 +56,16 @@
 // dropped).  Bound: bytes, deliver's plus nothing (the row is read once
 // into shared memory).
 //
+// K8f's lane entry (corro_word_deliver_fifo_lanes, counted as
+// word_deliver_fifo_lanes: B16m's rest, the vmap of packed.py:644-653 in
+// corrosion_tpu/campaign/ensemble.py:114) is the FIFO deliver with a lane
+// grid dimension: blockIdx.y is the lane, whose rings [D, N, W], have words
+// and planes are its slices (64-bit offsets); c, the wave and the low mask
+// are shared.  A block's warps stage rows of one lane only (the lane is
+// blockIdx.y), in the same rows x W words of shared memory (W <= 1024), so
+// the gate reads each lane's own pre-merge have.  Bound: bytes, K times
+// the solo bound.
+//
 // The lane entries (corro_word_inject_lanes, _spend_lanes,
 // _deliver_lanes) run inject, spend and deliver over the seed ensemble's
 // lanes (B16, corrosion_tpu/campaign/ensemble.py:114) as a grid
@@ -211,10 +221,18 @@ __device__ __forceinline__ uint32_t comp_bits(const uint32_t* row, int b0,
 __global__ void deliver_fifo_kernel(uint32_t* __restrict__ inflight,
                                     uint32_t* __restrict__ sync_buf,
                                     uint32_t* __restrict__ have,
-                                    PlanePtrs planes, int n, int w, int slot,
-                                    int value, int c, int wave,
-                                    uint32_t low_mask) {
+                                    PlanePtrs planes, int n, int w,
+                                    int d_slots, int slot, int value, int c,
+                                    int wave, uint32_t low_mask) {
   extern __shared__ uint32_t rows[];
+  {
+    // the lane's slices (lane 0 on the solo entry)
+    const size_t lane = blockIdx.y;
+    inflight += lane * d_slots * n * w;
+    sync_buf += lane * d_slots * n * w;
+    have += lane * n * w;
+    planes = lane_planes(planes, (size_t)n * w);
+  }
   int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   int node = blockIdx.x * (blockDim.x / 32) + warp;
   if (node >= n) return;  // whole warps leave together
@@ -317,7 +335,7 @@ extern "C" int corro_word_deliver_fifo(void* inflight, void* sync_buf,
                         (size_t)rows * w * sizeof(uint32_t),
                         (cudaStream_t)stream>>>(
       (uint32_t*)inflight, (uint32_t*)sync_buf, (uint32_t*)have,
-      plane_ptrs(r0, r1, r2, r3), n, w, slot, value, c, wave, low);
+      plane_ptrs(r0, r1, r2, r3), n, w, d_slots, slot, value, c, wave, low);
   return (int)cudaGetLastError();
 }
 
@@ -368,5 +386,30 @@ extern "C" int corro_word_deliver_lanes(void* inflight, void* sync_buf,
                    (cudaStream_t)stream>>>(
       (uint32_t*)inflight, (uint32_t*)sync_buf, (uint32_t*)have,
       plane_ptrs(r0, r1, r2, r3), n, w, d_slots, slot, value);
+  return (int)cudaGetLastError();
+}
+
+// K8f's lane entry: the solo FIFO deliver's arguments with inflight and
+// sync_buf [lanes, D, N, W], have and the planes [lanes, N, W], then
+// `lanes`; c, wave and the low mask are shared.
+extern "C" int corro_word_deliver_fifo_lanes(void* inflight, void* sync_buf,
+                                             void* have, void* r0, void* r1,
+                                             void* r2, void* r3, int n, int w,
+                                             int d_slots, int slot, int value,
+                                             int c, int wave, int lanes,
+                                             void* stream) {
+  if (n <= 0 || w <= 0 || slot < 0 || slot >= d_slots || value < 0 ||
+      value > 15 || c <= 0 || c > 32 || (c & (c - 1)) || wave < c ||
+      wave % c || (32 * w) % wave || w > 1024 || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  uint32_t low = 0u;
+  for (int b = 0; b < 32; b += c) low |= 1u << b;
+  const int threads = 256, rows = threads / 32;
+  deliver_fifo_kernel<<<dim3(blocks_for((size_t)n * 32, threads), lanes),
+                        threads, (size_t)rows * w * sizeof(uint32_t),
+                        (cudaStream_t)stream>>>(
+      (uint32_t*)inflight, (uint32_t*)sync_buf, (uint32_t*)have,
+      plane_ptrs(r0, r1, r2, r3), n, w, d_slots, slot, value, c, wave, low);
   return (int)cudaGetLastError();
 }

@@ -108,18 +108,20 @@ def count_order_violations_lanes_plain(acc: torch.Tensor,
                                        have: torch.Tensor,
                                        meta: PayloadMeta,
                                        cfg: SimConfig) -> None:
-    """Plain version of K22's u8 lane entry: the solo count of each
-    lane's rows added to its slot ``acc[k]``, in place."""
+    """Plain version of K22's lane entries: the solo count of each lane's
+    rows (dense u8 or packed words) added to its slot ``acc[k]``, in
+    place."""
     for k in range(have.shape[0]):
         acc[k] += order_violation_count(*_grids(have[k], cfg), meta, cfg)
 
 
 def count_order_violations_lanes_(acc: torch.Tensor, have: torch.Tensor,
                                   meta: PayloadMeta, cfg: SimConfig) -> None:
-    """`count_order_violations_` over a seed ensemble's lanes (B16v): the
-    count of each lane's dense u8 rows ``have`` [K, N, P] added to its own
-    slot of ``acc`` (i32[K], the lanes' ``RunMetrics.order_violations``),
-    in place, no host read.  K22's u8 lane entry on the card (one count a
+    """`count_order_violations_` over a seed ensemble's lanes: the count
+    of each lane's rows ``have`` — the dense u8 [K, N, P] (B16v) or the
+    packed words [K, N, W] (B16m) — added to its own slot of ``acc``
+    (i32[K], the lanes' ``RunMetrics.order_violations``), in place, no
+    host read.  K22's u8 or words lane entry on the card (one count a
     lane)."""
     if have.device.type == "cpu":
         count_order_violations_lanes_plain(acc, have, meta, cfg)
@@ -127,10 +129,14 @@ def count_order_violations_lanes_(acc: torch.Tensor, have: torch.Tensor,
     lanes, n, p = have.shape
     check("order_violations", acc, torch.int32, (lanes,))
     check("meta.actor", meta.actor, torch.int32, (cfg.n_payloads,))
-    check("have", have, torch.uint8, (lanes, n, cfg.n_payloads))
-    kernels.ORDER_CHECK_DENSE_LANES.launch(
-        [have, meta.actor, acc],
-        [n, p, cfg.n_writers, cfg.chunks_per_version, lanes])
+    if have.dtype == torch.uint8:
+        check("have", have, torch.uint8, (lanes, n, cfg.n_payloads))
+        kernel = kernels.ORDER_CHECK_DENSE_LANES
+    else:
+        check("have", have, torch.int32, (lanes, n, cfg.n_payloads // 32))
+        kernel = kernels.ORDER_CHECK_WORDS_LANES
+    kernel.launch([have, meta.actor, acc],
+                  [n, p, cfg.n_writers, cfg.chunks_per_version, lanes])
 
 
 def check_state(

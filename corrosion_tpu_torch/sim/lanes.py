@@ -79,12 +79,23 @@ under PeerSwap each lane's key splits five ways and the swap tick (K21's
 lane entries) runs before inject.  A wiped node's full-view row goes
 back to 0, 0, -1 in K11's lane entry (JAX ``faults.py:729-734``).
 
-The lane path runs every configuration of the solo packed round but two,
-which `check_packed_lanes` refuses naming the ROADMAP item that ports
-them: the protocol variants (B16m: K10p, K8f, K22's words entry and K18's
-words-pull entry on lanes) and matrix plans (B16x).  The dense round's
-lanes (`.dense_lanes`) have `check_dense_lanes`, and share this module's
-batch and loop (`_Batch`, `_run_batch`, `trace_of`, `stack_traces`).
+**The protocol variants** (B16m's rest): under push-pull each lane's
+response leg follows its push (`_pull_lanes`: K9's session and wire
+queries on the lanes folded, K10p's lane entry under the lane's pull key
+and plan seed, K18's words-pull lane entry with the recorder), under FIFO
+ordering K8f's lane entry gates each lane's delivery on its own pre-merge
+``have``, the delivery-order count adds each lane's standing count into
+its own slot (K22's words lane entry), the eager cadence makes every node
+due in the sync, and the fan-out schedule is K20's schedule lane entry
+after the degree caps (`broadcast_targets_lanes`).  JAX: ``packed.py:
+514-538`` and ``:584-607``, ``:644-653``, ``:821-832`` and ``:1168-1170``
+under the vmap.
+
+The lane path runs every configuration of the solo packed round but one,
+which `check_packed_lanes` refuses naming the ROADMAP item that ports it:
+matrix plans (B16x).  The dense round's lanes (`.dense_lanes`) have
+`check_dense_lanes`, and share this module's batch and loop (`_Batch`,
+`_run_batch`, `trace_of`, `stack_traces`).
 """
 
 from __future__ import annotations
@@ -96,7 +107,8 @@ import torch
 from .. import kernels
 from ..device import ONES, i32
 from ..kernels.build import check
-from ..proto.schedule import capped_schedule_lanes
+from ..proto.ordering import admit_words, order_checked, order_enforced
+from ..proto.schedule import cadence_due, capped_schedule_lanes
 from ..topo.sampler import peerswap_step_lanes
 from . import rng
 from .broadcast import ring0_targets_lanes
@@ -112,6 +124,7 @@ from .faults import (
     round_faults,
 )
 from .gaps import gaps_to_mask, refresh_gaps_lanes
+from .invariants import count_order_violations_lanes_
 from .packed import (
     CONVERGE_ROWS_PER_BLOCK,
     JITTER_MAX,
@@ -122,6 +135,7 @@ from .packed import (
     planes_dec_,
     pack_state,
     planes_set_,
+    scatter_pull_plain,
     unpack_into_state,
 )
 from .round import RunMetrics, overflow_fraction
@@ -140,6 +154,7 @@ from .telemetry import (
     trace_row,
     wire_loss_active,
     wire_words_lanes_,
+    wire_words_pull_lanes_,
 )
 from .topology import (
     Topology,
@@ -162,36 +177,30 @@ from .words import (
 
 
 def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None) -> None:
-    """Refuse, loudly and naming the ROADMAP item that ports it, every
-    configuration the packed round's lanes do not run: the protocol
-    variants (B16m: K10p, K8f, K22's words entry and K18's words-pull
-    entry on lanes) and matrix plans (B16x).  Both metered budgets (K16
-    on the lanes' rows, K3m's lane entry), every topology family and key
-    (K10's flat and tiered streams on lanes, K20's lane entries), every
-    membership mode and PeerSwap (K1's, K15's and K21's lane entries),
-    factored plans with delay and jitter (B16l) and the flight recorder
-    (B16r) run: JAX's ``jax.vmap`` of ``corrosion_tpu/sim/packed.py:681
-    packed_round_step`` in ``corrosion_tpu/campaign/ensemble.py:114-158
-    run_ensemble`` over every configuration of the solo packed round but
-    those two.  Bound on the H100: K times the solo round's bytes and
-    hashes (the lanes share no work); the design runs each phase's kernel
-    once for all live lanes (a lane grid dimension, or the lanes folded
-    into a kernel's rows), so a lane round issues the launches of one solo
-    round."""
+    """Refuse, loudly and naming the ROADMAP item that ports it, the one
+    configuration the packed round's lanes do not run: matrix plans
+    (B16x).  Every protocol family and knob (K10p's, K8f's, K22's words
+    and K18's words-pull lane entries, the eager cadence, K20's schedule
+    lane entry), both metered budgets (K16 on the lanes' rows, K3m's lane
+    entry), every topology family and key (K10's flat and tiered streams
+    on lanes, K20's lane entries), every membership mode and PeerSwap
+    (K1's, K15's and K21's lane entries), factored plans with delay and
+    jitter (B16l) and the flight recorder (B16r) run: JAX's ``jax.vmap`` of
+    ``corrosion_tpu/sim/packed.py:681 packed_round_step`` in
+    ``corrosion_tpu/campaign/ensemble.py:114-158 run_ensemble`` over every
+    configuration of the solo packed round but that one.  Bound on the
+    H100: K times the solo round's bytes and hashes (the lanes share no
+    work); the design runs each phase's kernel once for all live lanes (a
+    lane grid dimension, or the lanes folded into a kernel's rows), so a
+    lane round issues the launches of one solo round."""
     if not packed_supported(cfg, topo):
         raise ValueError("a dense configuration on the packed round's "
                          "lanes: run it through `.dense_lanes`")
-    if (cfg.dissemination, cfg.fanout_schedule, cfg.sync_cadence,
-            cfg.ordering) != ("push", "flat", "periodic", "none"):
-        raise NotImplementedError(
-            "protocol variants on the packed round's lanes are not ported "
-            "yet (K10p, K8f, K22's words entry and K18's words-pull entry "
-            "on lanes, ROADMAP B16m); the dense round's lanes run them "
-            "(allow_packed=False)")
     if fplan is not None and not isinstance(fplan, FactoredFaultPlan):
         raise NotImplementedError(
             "matrix fault plans on the packed round's lanes are not "
-            "ported yet (ROADMAP B16x); compile the plan factored")
+            "ported yet (ROADMAP B16x); compile the plan factored, or run "
+            "it on the dense round's lanes (allow_packed=False)")
 
 
 def check_dense_lanes(cfg: SimConfig, topo: Topology, fplan=None,
@@ -338,10 +347,16 @@ def spend_lanes(carry: PackedCarry, inj: torch.Tensor,
 
 
 def deliver_lanes_plain(carry: PackedCarry, t: int, cfg: SimConfig) -> None:
-    """Plain version of K8's deliver lane entry, in place."""
+    """Plain version of K8's deliver lane entry and of K8f's (its FIFO
+    gate: `..proto.ordering.admit_words` of each lane's pre-merge have),
+    in place."""
     slot = t % carry.inflight.shape[1]
     arriving = carry.inflight[:, slot]
     pending = carry.sync_buf[:, slot]
+    if order_enforced(cfg):
+        admit = torch.stack([admit_words(h, cfg) for h in carry.have])
+        arriving = arriving & admit
+        pending = pending & admit
     newly = arriving & ~carry.have
     carry.have.bitwise_or_(arriving | pending)
     planes_set_(carry.relay, newly, max(cfg.max_transmissions - 1, 1))
@@ -351,7 +366,8 @@ def deliver_lanes_plain(carry: PackedCarry, t: int, cfg: SimConfig) -> None:
 
 def deliver_lanes(carry: PackedCarry, t: int, cfg: SimConfig) -> None:
     """`packed.deliver_packed` over the lanes, in place; K8's deliver
-    lane entry on the card."""
+    lane entry on the card, K8f's under ``ordering="fifo"`` (each lane's
+    slots admitted by its own pre-merge have; c and the wave shared)."""
     if carry.have.device.type == "cpu":
         deliver_lanes_plain(carry, t, cfg)
         return
@@ -360,6 +376,13 @@ def deliver_lanes(carry: PackedCarry, t: int, cfg: SimConfig) -> None:
     _check_lane_words(carry, lanes, n, w)
     check("inflight", carry.inflight, torch.int32, (lanes, d_slots, n, w))
     check("sync_buf", carry.sync_buf, torch.int32, (lanes, d_slots, n, w))
+    if order_enforced(cfg):
+        c = cfg.chunks_per_version
+        kernels.WORD_DELIVER_FIFO_LANES.launch(
+            [carry.inflight, carry.sync_buf, carry.have, *carry.relay],
+            [n, w, d_slots, t % d_slots, max(cfg.max_transmissions - 1, 1),
+             c, cfg.n_writers * c, lanes])
+        return
     kernels.WORD_DELIVER_LANES.launch(
         [carry.inflight, carry.sync_buf, carry.have, *carry.relay],
         [n, w, d_slots, t % d_slots, max(cfg.max_transmissions - 1, 1),
@@ -372,7 +395,8 @@ def deliver_lanes(carry: PackedCarry, t: int, cfg: SimConfig) -> None:
 def _streams_live(thr, jit, topo_thr: int, tiers) -> bool:
     """Whether any drop or jitter stream runs on the wire: the fault
     loss, the jitter, the flat topology loss or tiered loss (K10's lane
-    entry then, K2's otherwise)."""
+    entry then, K2's otherwise; for the pull, K10p's lossy or tiered
+    lane form, its plain form otherwise)."""
     return not (thr is None and jit is None and topo_thr == 0
                 and tiers is None)
 
@@ -481,6 +505,83 @@ def _check_lane_slot(name: str, t: torch.Tensor, lanes: int) -> None:
     if (not t.is_cuda or t.dtype != torch.int64
             or tuple(t.shape) != (lanes,)):
         raise ValueError(f"{name} must be a CUDA int64 [K] view")
+
+
+# -- the push-pull response (K10p) -------------------------------------------
+
+
+def scatter_pull_lanes_plain(ring, sending, dst, slot, ok_pull, thr_rev,
+                             k_drop, seeds, fanout: int, topo_thr: int = 0,
+                             dropped=None,
+                             tiers: Optional[Topology] = None) -> None:
+    """Plain version of K10p's lane entry (its recording forms with
+    ``dropped``), in place: `packed.scatter_pull_plain` on each lane under
+    its ``k_drop`` and plan seed."""
+    for k in range(ring.shape[0]):
+        scatter_pull_plain(
+            ring[k], sending[k], dst[k], slot[k], ok_pull[k],
+            None if thr_rev is None else thr_rev[k],
+            None if k_drop is None else k_drop[k],
+            0 if seeds is None else int(seeds[k]), fanout, topo_thr,
+            None if dropped is None else dropped[k], tiers)
+
+
+def scatter_pull_lanes(ring, sending, dst, slot, ok_pull, thr_rev, k_drop,
+                       seeds, fanout: int, topo_thr: int = 0, dropped=None,
+                       tiers: Optional[Topology] = None) -> None:
+    """`packed.scatter_pull` over the lanes, in place on the rings [K, D,
+    N, W]: lane k's ok_pull edges carry its responders' sending words
+    sending[k, dst[k, e]] back to the puller e // fanout, into the push's
+    slot slot[k, e], less what its pull streams drop — the topology stream
+    on its pull key ``fold_in(k_drop[k], 1)`` (the shared flat
+    ``topo_thr``, or the reverse edge's tier under ``tiers``) and the fault
+    stream on ``fold_in(fold_in(k_pull, seeds[k]), 101)`` below thr_rev[k,
+    e] (None: no fault loss this round).  With ``dropped`` (a lane trace's
+    ``[K]`` accumulator view) each lane's lost frames are added to its
+    slot.  K10p's lane entry on the card, counted by its streams as
+    ``broadcast_pull_lanes``, ``broadcast_pull_lossy_lanes`` and
+    ``broadcast_pull_tiered_lanes``, and their recording forms apart."""
+    if ring.device.type == "cpu":
+        scatter_pull_lanes_plain(ring, sending, dst, slot, ok_pull, thr_rev,
+                                 k_drop, seeds, fanout, topo_thr, dropped,
+                                 tiers)
+        return
+    lanes, d_slots, n, w = ring.shape
+    e = n * fanout
+    check("ring", ring, torch.int32, (lanes, d_slots, n, w))
+    check("sending", sending, torch.int32, (lanes, n, w))
+    check("dst", dst, torch.int32, (lanes, e))
+    check("slot", slot, torch.int32, (lanes, e))
+    check("ok_pull", ok_pull, torch.bool, (lanes, e))
+    if thr_rev is not None:
+        check("thr_rev", thr_rev, torch.uint8, (lanes, e))
+        check("seeds", seeds, torch.int32, (lanes,))
+    draws = thr_rev is not None or tiers is not None or 0 < topo_thr < 256
+    if draws:
+        check("k_drop", k_drop, torch.int64, (lanes, 2))
+    if tiers is not None and topo_thr != 0:
+        raise ValueError("tiered loss replaces the flat threshold")
+    lossy = _streams_live(thr_rev, None, topo_thr, tiers)
+    stride = 0
+    if dropped is not None:
+        if not lossy:
+            raise ValueError("dropped needs a loss stream")
+        _check_lane_slot("dropped", dropped, lanes)
+        stride = dropped.stride(0)
+    if tiers is not None:
+        kernel = (kernels.BROADCAST_PULL_TIERED_LANES if dropped is None
+                  else kernels.BROADCAST_PULL_TIERED_LANES_TRACE)
+    elif lossy:
+        kernel = (kernels.BROADCAST_PULL_LOSSY_LANES if dropped is None
+                  else kernels.BROADCAST_PULL_LOSSY_LANES_TRACE)
+    else:
+        kernel = kernels.BROADCAST_PULL_LANES
+    table = None if tiers is None else topo_table(tiers, n, ring.device)
+    kernel.launch(
+        [ring, sending, dst, slot, ok_pull, thr_rev,
+         k_drop if draws else None, seeds if thr_rev is not None else None,
+         dropped, table],
+        [n, d_slots, w, fanout, WIRE_LOSS_TAG, topo_thr, stride, lanes])
 
 
 # -- the sync pull (K3) ------------------------------------------------------
@@ -788,6 +889,35 @@ def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
         dropped = acc_slot(trace, "bcast_dropped")
     scatter_lanes(carry.inflight, sending, dst, slot, ok, f, thr, keys,
                   seeds, jit, dropped, topo_thr, k_drop, tiers)
+    if cfg.dissemination == "push-pull":
+        _pull_lanes(carry, sending, cfg, meta, faults, trace, topo, src,
+                    dst, ok, slot, thr, k_drop, seeds, topo_thr, tiers)
+
+
+def _pull_lanes(carry: PackedCarry, sending, cfg: SimConfig,
+                meta: PayloadMeta, faults, trace, topo: Topology, src, dst,
+                ok, slot, thr, k_drop, seeds, topo_thr: int, tiers) -> None:
+    """The push-pull response leg of `broadcast_lanes`, as the solo
+    `packed._pull_packed`: the session refusal across a cut in either
+    direction (K9's session query, the lanes folded), the reverse fault
+    thresholds when this round's loss applies (K9's wire query on the
+    swapped edges), the response scatter (K10p's lane entry) and, with a
+    lane ``trace``, the pull's frames and bytes (K18's words-pull lane
+    entry) and its lost frames (K10p's recording form)."""
+    from ..proto.dissemination import pull_session_ok_lanes, reverse_loss_lanes
+
+    ok_pull = pull_session_ok_lanes(ok, faults, src, dst).contiguous()
+    thr_rev = (reverse_loss_lanes(faults, src, dst) if thr is not None
+               else None)
+    dropped = None
+    if (trace is not None and _streams_live(thr_rev, None, topo_thr, tiers)
+            and wire_loss_active(topo, faults)):
+        dropped = acc_slot(trace, "bcast_dropped")
+    scatter_pull_lanes(carry.inflight, sending, dst, slot, ok_pull, thr_rev,
+                       k_drop, seeds, cfg.fanout, topo_thr, dropped, tiers)
+    if trace is not None:
+        wire_words_pull_lanes_(trace.acc[:, WIRE], sending, meta.nbytes,
+                               ok_pull, dst)
 
 
 def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
@@ -809,7 +939,9 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
     n, s = cfg.n_nodes, cfg.sync_peers
     ks = rng.split_lanes(keys, 3)
     k_peers, k_rearm = ks[:, 0].contiguous(), ks[:, 2].contiguous()
-    due = state.sync_countdown <= 0
+    # the cadence before every use of due: the sessions' ok, the backoff
+    # and the re-arm (the countdown still draws every round)
+    due = cadence_due(state.sync_countdown <= 0, cfg)
     peers = sample_member_targets_lanes(state, cfg, k_peers, s)
     src, dst, ok = _edges(state, peers)
     ok &= due[:, src[0].long()]
@@ -902,6 +1034,10 @@ def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
         overflow_fraction(n_overflow, heads[0].numel()))
     coverage_at, converged_at, done = converge_record_lanes(
         carry.have, inj, state.alive, metrics, meta, t, cfg, horizon)
+    if order_checked(cfg):
+        # each live lane's standing count, into its own slot in place
+        count_order_violations_lanes_(metrics.order_violations, carry.have,
+                                      meta, cfg)
     metrics = RunMetrics(coverage_at=coverage_at, converged_at=converged_at,
                          overflow_frac=overflow_frac,
                          order_violations=metrics.order_violations)
@@ -1125,9 +1261,9 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
               seeds: Optional[torch.Tensor] = None, telemetry: bool = False):
     """Run every lane of stacked initial states (every field [K, ...],
     ``t`` 0 in all) to its own exit or ``max_rounds`` — any configuration
-    of the solo packed round but the protocol variants (both byte budgets,
-    every topology family and key, every membership mode, PeerSwap;
-    `check_packed_lanes`): faultless, the
+    of the solo packed round but a matrix plan (every protocol family and
+    knob, both byte budgets, every topology family and key, every
+    membership mode, PeerSwap; `check_packed_lanes`): faultless, the
     solo `packed.run_packed`'s loop per lane; under ``fplan`` (a factored
     plan, delay and jitter factors included, its seed replaced per lane by
     ``seeds`` i32[K]) the solo `packed.run_packed_faults`' — the round's

@@ -568,6 +568,42 @@ def wire_words_pull_(acc: torch.Tensor, sending: torch.Tensor,
                                          [e, w])
 
 
+def wire_words_pull_lanes_plain(acc: torch.Tensor, sending, nbytes,
+                                ok_pull, dst) -> None:
+    """Plain version of K18's words-pull lane entry: the solo plain
+    version (`pull_fold` of `word_send_stats`) on each lane, added to its
+    accumulators ``acc[k]`` in place."""
+    for k in range(sending.shape[0]):
+        f, b = pull_fold(*word_send_stats(sending[k], nbytes), ok_pull[k],
+                         dst[k])
+        acc[k, 0] += f
+        acc[k, 1] += b
+
+
+def wire_words_pull_lanes_(acc: torch.Tensor, sending: torch.Tensor,
+                           nbytes: torch.Tensor, ok_pull: torch.Tensor,
+                           dst: torch.Tensor) -> None:
+    """`wire_words_pull_` per lane (B16m's rest): each lane's answered
+    pulls — its ok_pull edges bool[K, E], each carrying its responder
+    dst[k, e]'s sending words from the lane's [K, N, W] — under the shared
+    sizes ``nbytes``, added to its accumulators ``acc`` (a lane trace's
+    ``acc[:, WIRE]``, [K, 2]), in place; the bytes stay an exact integer
+    sum.  K18's words-pull lane entry on the card."""
+    if sending.device.type == "cpu":
+        wire_words_pull_lanes_plain(acc, sending, nbytes, ok_pull, dst)
+        return
+    lanes, n, w = sending.shape
+    e = dst.shape[1]
+    _check_lane_rows("acc", acc, torch.int64, (lanes, 2))
+    check("sending", sending, torch.int32, (lanes, n, w))
+    check("nbytes", nbytes, torch.int32, (w * 32,))
+    check("ok_pull", ok_pull, torch.bool, (lanes, e))
+    check("dst", dst, torch.int32, (lanes, e))
+    kernels.TRACE_WIRE_WORDS_PULL_LANES.launch(
+        [sending, nbytes, ok_pull, dst, acc[0]],
+        [n, e, w, acc.stride(0), lanes])
+
+
 def wire_rows_pull_(acc: torch.Tensor, row_frames: torch.Tensor,
                     row_bytes: torch.Tensor, ok_pull: torch.Tensor,
                     dst: torch.Tensor) -> None:

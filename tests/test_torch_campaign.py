@@ -244,9 +244,7 @@ def _refused_spec(case):
 
 #: each refused case and the item its message names
 REFUSED = {
-    "matrix": "ROADMAP B16x",
-    "proto_family": "ROADMAP B16m", "proto_key": "ROADMAP B16m",
-    "churn": "ROADMAP B16c", "host_parity": "ROADMAP A,",
+    "matrix": "ROADMAP B16x", "host_parity": "ROADMAP A,",
     "serving": "ROADMAP A,", "mesh": "ROADMAP A13",
 }
 
@@ -255,21 +253,24 @@ REFUSED = {
 #: dense round's lanes (B16s-f); delay, jitter (B16l), the recorder and a
 #: wire measurement (B16r's packed half) on the packed round's lanes; a
 #: metered budget, a topology family or key (B16m's budgets and
-#: topology), PeerSwap and full view (B16s's packed half) on the packed
+#: topology), PeerSwap and full view (B16s's packed half), a protocol
+#: family or knob (B16m's rest) and a churn schedule (B16c) on the packed
 #: round's lanes
 RUNS = ("dense", "latency", "jitter", "telemetry", "measure_wire",
-        "metered", "topo_family", "topology_key", "peerswap", "full_view")
+        "metered", "topo_family", "topology_key", "peerswap", "full_view",
+        "proto_family", "proto_key", "churn")
 
 
 @pytest.mark.parametrize("case", sorted((*REFUSED, *RUNS)))
 def test_engine_refuses_what_the_slice_does_not_run(case):
     """Each refused case raises NotImplementedError naming its ROADMAP
-    item (the protocol variants on the packed round's lanes: B16m); none
-    runs some other way.  A case that runs now gives live JAX's artifact
-    (the recording cases their telemetry block and wire bytes too), on
-    the dense round's lanes or the packed round's: since B16m's budgets
-    and topology and B16s's packed half, a metered budget, a topology
-    family or key, PeerSwap and full view on the packed round's."""
+    item (a matrix plan on the packed round's lanes: B16x); none runs some
+    other way.  A case that runs now gives live JAX's artifact (the
+    recording cases their telemetry block and wire bytes too), on the
+    dense round's lanes or the packed round's: since B16m's budgets and
+    topology and B16s's packed half, a metered budget, a topology family
+    or key, PeerSwap and full view on the packed round's; since B16m's
+    rest and B16c, a protocol family or knob and a churn schedule there."""
     spec = _refused_spec(case)
     if case in RUNS:
         recording = case in ("telemetry", "measure_wire")
@@ -312,9 +313,10 @@ def test_baseline_family_and_default_keys_run():
 def test_ensemble_refusals():
     """The detect ensemble runs a protocol variant on its lanes (B16v;
     a topology since B16t): the eager cadence over two regions, one
-    lane, to its detect round; the packed round's lanes refuse what
-    B16m still names there (a protocol variant), which the dense round's
-    lanes run, and since B16m's budgets run a metered budget."""
+    lane, to its detect round; the packed round's lanes, which refused a
+    protocol variant naming B16m, run it with the recorder since B16m's
+    rest (the eager cadence, three rounds), and since B16m's budgets a
+    metered budget."""
     from corrosion_tpu_torch.sim.topology import Topology
 
     from corrosion_tpu_torch.sim.state import uniform_payloads
@@ -327,10 +329,13 @@ def test_ensemble_refusals():
         (0,), kill_every=3, max_rounds=400, telemetry=True, device="cpu")
     assert int(detect[0]) >= 0 and int(finals.t[0]) == int(detect[0])
     spec = _refused_spec("proto_key")
-    with pytest.raises(NotImplementedError,
-                       match="protocol variants.*B16m"):
-        run_seed_ensemble(None, spec.sim_config({}), spec.topo({}), None,
-                          (0,), telemetry=True, device="cpu")
+    cfg = spec.sim_config({})
+    finals, _, trace = run_seed_ensemble(
+        None, cfg, spec.topo({}), uniform_payloads(cfg, "cpu",
+                                                   inject_every=2),
+        (0,), max_rounds=3, telemetry=True, device="cpu")
+    assert cfg.sync_cadence == "eager"
+    assert int(finals.t[0]) == 3 and trace.acc.shape == (1, 12)
     spec = _refused_spec("metered")
     cfg = spec.sim_config({})
     finals, _, trace = run_seed_ensemble(

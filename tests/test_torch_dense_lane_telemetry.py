@@ -190,11 +190,14 @@ def test_detect_ensemble_returns_traces_last():
 def test_packed_lanes_refuse_the_recorder_naming_b16m():
     """The recorder runs on the packed round's lanes since B16r's packed
     half (three rounds of a packed cell return the lanes' traces last),
-    and on a metered cell since B16m's budgets; what ROADMAP B16m still
-    names there, a protocol variant, is refused under the recorder too: a
-    push-pull packed cell with ``telemetry`` or ``measure_wire`` raises
-    naming B16m, through the ensemble and through the engine; the dense
-    lanes accept the recorder."""
+    on a metered cell since B16m's budgets, and on a protocol variant,
+    which it refused naming B16m, since B16m's rest: a push-pull packed
+    cell with ``telemetry`` returns the lane's trace through the ensemble
+    and gives live JAX's artifact and telemetry block through the engine,
+    and with ``measure_wire`` JAX's wire bytes; the dense lanes accept the
+    recorder."""
+    from corrosion_tpu.campaign.engine import run_campaign as jrun
+
     from corrosion_tpu_torch.campaign import engine
 
     spec = spec_mod.storm_seeds_spec((0,), n_nodes=512)
@@ -216,16 +219,23 @@ def test_packed_lanes_refuse_the_recorder_naming_b16m():
     spec = dataclasses.replace(spec, scenario=dict(
         scenario, proto_family="push-pull"))
     cfg = spec.sim_config({})
-    with pytest.raises(NotImplementedError,
-                       match="protocol variants.*B16m"):
-        run_seed_ensemble(None, cfg, topo, None, (0,), telemetry=True,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="B16m"):
-        engine.run_campaign(spec, telemetry=True, device="cpu")
+    out = run_seed_ensemble(None, cfg, topo,
+                            uniform_payloads(cfg, "cpu", inject_every=2),
+                            (0,), max_rounds=3, telemetry=True,
+                            device="cpu")
+    assert int(out[0].t[0]) == 3 and out[2].acc.shape == (1, 12)
     wire = dataclasses.replace(spec, scenario=dict(spec.scenario,
                                                    measure_wire=1))
-    with pytest.raises(NotImplementedError, match="B16m"):
-        engine.run_campaign(wire, device="cpu")
+    for case, telemetry in ((spec, True), (wire, False)):
+        with jax_telemetry():
+            want = jrun(JaxSpec.from_dict(case.to_dict()), out_path=None,
+                        telemetry=telemetry)
+        got = engine.run_campaign(case, telemetry=telemetry, device="cpu")
+        assert got["result_digest"] == want["result_digest"]
+        cell, jcell = got["cells"][0], want["cells"][0]
+        assert cell["round_path"] == "packed"
+        assert cell["per_seed"] == jcell["per_seed"]
+        assert cell.get("telemetry") == jcell.get("telemetry")
     dense = spec_mod.fault_parity_3node_spec((0,))
     check_dense_lanes(dense.sim_config({}), dense.topo({}), telemetry=True)
 

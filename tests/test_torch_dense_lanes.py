@@ -164,14 +164,15 @@ def test_dense_check_refuses_by_name(case):
     it (two seeds of the 3-node parity campaign's matrix plan) equal to
     JAX's, lane by lane; the ``telemetry`` case its acceptance of the
     recorder, which the packed lanes' check accepts too (B16r's packed
-    half), a metered budget too since B16m's budgets, but for what B16m
-    still names there, a protocol variant; the ``topology`` case its
-    acceptance of a topology key, which the packed lanes' check accepts
-    since B16m's topology, but for a matrix plan, which it refuses
-    naming B16x; the ``peerswap`` case its
-    acceptance of PeerSwap with and without a plan (B16s-f); the
-    ``protocol`` case its acceptance of push-pull (B16v), which the
-    packed lanes' check refuses naming B16m."""
+    half), a metered budget too since B16m's budgets and the eager
+    cadence since B16m's rest; the ``topology`` case its acceptance of a
+    topology key, which the packed lanes' check accepts since B16m's
+    topology, but for a matrix plan, which it refuses naming B16x; the
+    ``peerswap`` case its acceptance of PeerSwap with and without a plan
+    (B16s-f); the ``protocol`` case its acceptance of push-pull (B16v),
+    which the packed lanes' check accepts too since B16m's rest, but
+    under a matrix plan, which it refuses naming B16x and the dense
+    round's lanes."""
     from corrosion_tpu_torch.sim.lanes import check_packed_lanes
 
     cfg, topo, plan, kw = _dense_cfg(), Topology(), None, {}
@@ -195,10 +196,8 @@ def test_dense_check_refuses_by_name(case):
         check_packed_lanes(packed, topo)
         check_packed_lanes(dataclasses.replace(
             packed, sync_budget_bytes=4 * 1024 * 1024), topo)
-        with pytest.raises(NotImplementedError,
-                           match="protocol variants on the packed.*B16m"):
-            check_packed_lanes(dataclasses.replace(
-                packed, sync_cadence="eager"), topo)
+        check_packed_lanes(dataclasses.replace(packed, sync_cadence="eager"),
+                           topo)
         return
     if case == "topology":
         from corrosion_tpu_torch.sim.faults import compile_plan
@@ -218,12 +217,16 @@ def test_dense_check_refuses_by_name(case):
         check_dense_lanes(cfg, topo, FaultPlan(n_nodes=96, seed=0,
                                                events=()), **kw)
         return
+    from corrosion_tpu_torch.sim.faults import compile_plan
+
     check_dense_lanes(_dense_cfg(dissemination="push-pull"), topo, plan)
+    push_pull = dataclasses.replace(packed, dissemination="push-pull")
+    check_packed_lanes(push_pull, topo)
+    matrix = compile_plan(FaultPlan(n_nodes=96, seed=0, events=()),
+                          push_pull, topo, factored=False, device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="protocol variants on the packed.*B16m"):
-        check_packed_lanes(dataclasses.replace(packed,
-                                               dissemination="push-pull"),
-                           topo)
+                       match="matrix fault plans.*B16x.*dense round's lanes"):
+        check_packed_lanes(push_pull, topo, matrix)
 
 
 def test_dense_check_accepts_default_budgets_and_every_tier():
@@ -239,17 +242,22 @@ def test_dense_check_accepts_default_budgets_and_every_tier():
 
 def test_packed_check_names_its_refusals():
     """The packed check's refusals, reworded to point at the dense
-    lanes: a protocol variant on the packed round (full view, which it
-    pointed there before, runs on the packed round's lanes since B16s's
-    packed half), and a dense configuration handed to it."""
+    lanes: a matrix plan on the packed round (full view and the protocol
+    variants, which it pointed there before, run on the packed round's
+    lanes since B16s's packed half and B16m's rest), and a dense
+    configuration handed to it."""
+    from corrosion_tpu_torch.sim.faults import compile_plan
     from corrosion_tpu_torch.sim.lanes import check_packed_lanes
 
     full = _dense_cfg(packed_min_cells=0, rate_limit_bytes_round=None,
                       sync_budget_bytes=None, swim_full_view=True)
     check_packed_lanes(full, Topology())
+    push_pull = dataclasses.replace(full, dissemination="push-pull")
+    check_packed_lanes(push_pull, Topology())
+    matrix = compile_plan(FaultPlan(n_nodes=96, seed=0, events=()),
+                          push_pull, Topology(), factored=False,
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="dense round's lanes"):
-        check_packed_lanes(dataclasses.replace(full,
-                                               dissemination="push-pull"),
-                           Topology())
+        check_packed_lanes(push_pull, Topology(), matrix)
     with pytest.raises(ValueError, match="dense configuration"):
         check_packed_lanes(_dense_cfg(), Topology())

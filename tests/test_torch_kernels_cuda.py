@@ -2025,3 +2025,106 @@ def test_packed_axis_ensemble_on_card_equals_cpu(card, case, telemetry):
             for name, x, y in zip(solo[2]._fields, solo[2],
                                   lane_trace(outs[0][2], k)):
                 assert torch.equal(x.cpu(), y.cpu()), (k, name)
+
+
+@pytest.mark.parametrize("lanes, n, w", ((3, 1203, 16), (4, 2051, 4)))
+def test_packed_lane_protocol_kernels(card, lanes, n, w):
+    """chip_smoke's phase 3lq at small and ragged shapes: K10p's lane
+    entry (its three streams, their recording forms and the checks: flat
+    and fault streams together, a severed flat channel, tiers with the
+    fault stream, a tier at certainty), K18's words-pull, K8f's and K22's
+    words lane entries equal to their plain versions, lanes 0 and K - 1 to
+    the solo entries on their inputs, every trap reached."""
+    smoke = _smoke()
+    g = np.random.default_rng(lanes + n)
+    rows = smoke.compare_packed_lane_pull(card, g, lanes, n, False, w=w)
+    rows += smoke.compare_packed_lane_wire_pull(card, g, lanes, n, False,
+                                                w=w)
+    rows += smoke.compare_packed_lane_fifo(card, g, lanes, n, False)
+    rows += smoke.compare_packed_lane_order_words(card, g, lanes, n, False)
+    assert len(rows) == 8
+    assert all(r["equal"] for r in rows), [r["name"] for r in rows
+                                           if not r["equal"]]
+
+
+def _proto_spec(case):
+    """The packed lanes' protocol variants at 1280 nodes (the envelope
+    forced open): each family, push-pull over wan-3x2 or under the latency
+    storm's plan, every knob at once over wan-3x2 under PeerSwap with both
+    budgets and the plan."""
+    from corrosion_tpu_torch.campaign.spec import (
+        CampaignSpec, storm_fault_events, storm_latency_events,
+        storm_scenario)
+
+    n = 1280
+    family, _, extra = case.partition("/")
+    scenario = dict(storm_scenario(n), n_payloads=128, packed_min_cells=0,
+                    proto_family=family)
+    events = ()
+    if extra == "wan-3x2":
+        scenario.update(topo_family="wan-3x2", n_delay_slots=3)
+    elif extra == "plan":
+        scenario.update(n_delay_slots=4)
+        events = storm_fault_events(n) + storm_latency_events(n)
+    elif extra == "every-knob":
+        del scenario["proto_family"]
+        scenario.update(
+            dissemination="push-pull",
+            fanout_schedule="decay", fanout_decay_rounds=4,
+            sync_cadence="eager", ordering="fifo", topo_family="wan-3x2",
+            n_delay_slots=6, peer_sampler="peerswap",
+            swim_partial_view=False, rate_limit_bytes_round=40 * 8192,
+            sync_budget_bytes=20 * 8192)
+        events = storm_fault_events(n) + storm_latency_events(n)
+    return CampaignSpec(name=case, scenario=scenario, events=events,
+                        seeds=(0, 3, 5))
+
+
+@pytest.mark.parametrize("case, telemetry", (
+    ("push-pull", False), ("push-pull/wan-3x2", True),
+    ("push-pull/plan", True), ("lab-ordered", False),
+    ("lab-ordered-broken", False), ("swarm-aggressive", False),
+    ("fanout-decay", False), ("knobs/every-knob", True)))
+def test_packed_proto_ensemble_on_card_equals_cpu(card, case, telemetry):
+    """Three lanes of each protocol variant on the packed round's lanes at
+    1280 × 128 through the engine's ensemble on the card: every lane
+    tensor, metric (the order count too) and trace field equal to the same
+    ensemble's plain versions on the CPU, and each lane's state, metrics
+    (and trace) to the card's solo run of its seed."""
+    from corrosion_tpu_torch.campaign.ensemble import (
+        lane_state, run_seed_ensemble)
+    from corrosion_tpu_torch.sim.round import new_sim, run_to_convergence
+    from corrosion_tpu_torch.sim.telemetry import lane_trace
+
+    spec = _proto_spec(case)
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    plan = spec.fault_plan({}, seed=0)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        meta = uniform_payloads(cfg, dev, inject_every=2)
+        outs.append(run_seed_ensemble(plan, cfg, topo, meta, spec.seeds,
+                                      max_rounds=400, telemetry=telemetry,
+                                      device=dev))
+    for a, b in zip(*outs):
+        for name, x, y in zip(type(b)._fields, a, b):
+            assert torch.equal(x.cpu(), y.cpu()), name
+    meta = uniform_payloads(cfg, card, inject_every=2)
+    for k, s in enumerate(spec.seeds):
+        state = new_sim(cfg, s, card)
+        if plan is None:
+            solo = run_to_convergence(state, meta, cfg, topo, 400,
+                                      telemetry)
+        else:
+            fp = faults.compile_plan(dataclasses.replace(plan, seed=s), cfg,
+                                     topo, device=card)
+            solo = faults.run_fault_plan(state, meta, cfg, topo, fp, 400,
+                                         telemetry=telemetry)
+        for name, x, y in zip(solo[0]._fields, solo[0],
+                              lane_state(outs[0][0], k)):
+            assert torch.equal(x.cpu(), y.cpu()), (k, name)
+        for name, x, y in zip(solo[1]._fields, solo[1], outs[0][1]):
+            assert torch.equal(x.cpu(), y[k].cpu()), (k, name)
+        if telemetry:
+            for name, x, y in zip(solo[2]._fields, solo[2],
+                                  lane_trace(outs[0][2], k)):
+                assert torch.equal(x.cpu(), y.cpu()), (k, name)

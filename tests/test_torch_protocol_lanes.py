@@ -623,16 +623,22 @@ def test_dense_lanes_take_every_family_and_knob():
 @pytest.mark.parametrize("knob", ("dissemination", "fanout_schedule",
                                   "sync_cadence", "ordering"))
 def test_packed_lanes_refuse_the_protocol_variants_naming_b16m(knob):
-    """The packed round's lanes still refuse every protocol knob off the
-    legacy point, naming B16m, and point at the dense lanes."""
+    """Each protocol knob off the legacy point, which the packed round's
+    lanes refused naming B16m until its rest was ported, now runs there:
+    the check accepts it, and a one-seed cell at 1280 nodes through the
+    port's engine on the packed round equals live JAX's artifact (its
+    order count too on the ordering cell)."""
     value = {"dissemination": "push-pull", "fanout_schedule": "decay",
              "sync_cadence": "eager", "ordering": "fifo"}[knob]
-    _, spec = spec_pair("p", dict(spec_mod.storm_scenario(1280),
-                                  n_payloads=128, packed_min_cells=0,
-                                  **{knob: value}), (0,))
-    with pytest.raises(NotImplementedError,
-                       match=r"protocol variants on the packed.*B16m.*dense"):
-        check_packed_lanes(spec.sim_config({}), ptp.Topology())
+    jspec, spec = spec_pair("p", dict(spec_mod.storm_scenario(1280),
+                                      n_payloads=128, packed_min_cells=0,
+                                      **{knob: value}), (0,))
+    check_packed_lanes(spec.sim_config({}), ptp.Topology())
+    want = jrun_campaign(jspec, out_path=None)
+    got = run_campaign(spec, device="cpu")
+    assert got["result_digest"] == want["result_digest"]
+    assert got["cells"][0]["per_seed"] == want["cells"][0]["per_seed"]
+    assert got["cells"][0]["round_path"] == "packed"
 
 
 @pytest.mark.parametrize("key", ("proto_family", "ordering"))

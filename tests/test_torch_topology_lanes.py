@@ -480,25 +480,35 @@ def test_dense_lanes_take_every_family_and_key():
 
 def test_packed_lanes_refuse_topology_naming_b16m():
     """The packed round's lanes take every topology family since B16m's
-    topology; over one they still refuse what B16m names there, the
-    protocol variants, and point at the dense lanes."""
+    topology, and over one the protocol variants, which they refused
+    naming B16m, since B16m's rest (the eager cadence over wan-3x2 is
+    accepted); a matrix plan over a family still names B16x and points
+    at the dense lanes."""
     from corrosion_tpu_torch.campaign.spec import storm_scenario
+    from corrosion_tpu_torch.faults import FaultPlan
+    from corrosion_tpu_torch.sim.faults import compile_plan
 
     _, spec = spec_pair("p", dict(storm_scenario(1280), n_payloads=64,
                                   packed_min_cells=0), (0,))
     cfg = spec.sim_config({})
     for family in FAMILIES:
         check_packed_lanes(cfg, _resolve_topo(family))
+    wan = _resolve_topo("wan-3x2")
+    eager = dataclasses.replace(cfg, sync_cadence="eager", n_delay_slots=3)
+    check_packed_lanes(eager, wan)
+    matrix = compile_plan(FaultPlan(n_nodes=1280, seed=0, events=()),
+                          eager, wan, factored=False, device="cpu")
     with pytest.raises(NotImplementedError,
-                       match=r"protocol variants.*B16m.*dense round"):
-        check_packed_lanes(dataclasses.replace(cfg, sync_cadence="eager"),
-                           _resolve_topo("wan-3x2"))
+                       match=r"matrix fault plans.*B16x.*dense round"):
+        check_packed_lanes(eager, wan, matrix)
 
 
 def test_protocol_variants_on_lanes_name_b16v():
     """The protocol variants (B16v) run on the dense round's lanes over a
-    topology family; the packed round's lanes refuse them, naming B16m
-    (their lane entries of K10p, K8f and K22's words entry)."""
+    topology family; the packed round's lanes, which refused them naming
+    B16m, take them since B16m's rest (their lane entries of K10p, K8f and
+    K22's words entry): the fan-out decay over hetero-degree's caps
+    (K20's schedule lane entry) is accepted."""
     from corrosion_tpu_torch.campaign.spec import storm_scenario
 
     dense = spec_pair("d", dict(BASE, dissemination="push-pull"),
@@ -508,7 +518,6 @@ def test_protocol_variants_on_lanes_name_b16v():
                                  packed_min_cells=0,
                                  fanout_schedule="decay"),
                        (0,))[1].sim_config({})
-    with pytest.raises(NotImplementedError,
-                       match="protocol variants on the packed.*B16m"):
-        check_packed_lanes(packed, ptp.Topology())
+    check_packed_lanes(packed, ptp.Topology())
+    check_packed_lanes(packed, _resolve_topo("hetero-degree"))
 

@@ -467,3 +467,42 @@ def lane_keys(lanes: int, base: int):
                    for k in range(lanes)])
     return jnp.asarray(ks), torch.as_tensor(ks.astype(np.int64))
 
+
+
+def jax_campaign_kept(spec, telemetry=False):
+    """Live JAX's run_campaign of a port spec and its lanes' outputs (JAX's
+    run_seed_ensemble's, kept from inside the call)."""
+    from unittest import mock
+
+    from corrosion_tpu.campaign import ensemble as jens
+    from corrosion_tpu.campaign.engine import run_campaign as jrun
+    from corrosion_tpu.campaign.spec import CampaignSpec as JaxSpec
+
+    kept = {}
+    orig = jens.run_seed_ensemble
+
+    def keeping(*args, **kw):
+        out = orig(*args, **kw)
+        kept["out"] = out
+        return out
+
+    with mock.patch.object(jens, "run_seed_ensemble", keeping), (
+            jax_telemetry() if telemetry else contextlib.nullcontext()):
+        art = jrun(JaxSpec.from_dict(spec.to_dict()), out_path=None,
+                   telemetry=telemetry)
+    return art, kept["out"]
+
+
+def proto_storm_spec_at(family, seeds=(0, 1), n=1280, **extra):
+    """The write storm at ``n`` nodes inside the packed envelope
+    (``packed_min_cells`` 0) under a protocol family, ``extra`` scenario
+    keys on top: 64 payloads, or 128 for the ordering families (two
+    versions a writer)."""
+    from corrosion_tpu_torch.campaign import spec as sp
+    from corrosion_tpu_torch.proto.families import FAMILIES
+
+    p = 128 if FAMILIES[family].get("ordering") else 64
+    scenario = dict(sp.storm_scenario(n), n_payloads=p, packed_min_cells=0,
+                    proto_family=family, **extra)
+    return sp.CampaignSpec(name=f"packed-{family}-lanes", scenario=scenario,
+                           events=(), seeds=tuple(seeds), max_rounds=400)
