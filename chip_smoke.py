@@ -412,7 +412,7 @@ result line):
    certainty, lanes whose k_drop, phase keys and plan seeds differ, K16's
    blocks spanning two lanes, a lane without edges);
 16. profile the first 3 rounds of both storms (their telemetry-off
-   launches held at the counts the port made before the recorder; run
+   launches held at exact counts, STORM_OFF_LAUNCHES; run
    right after the build, since the profiler's count depends on what
    the process ran before), the
    fault storm's 12-round loss window, 10 partitioned rounds of
@@ -423,7 +423,7 @@ result line):
    the push-pull and lab-ordered storms, and the first 3 rounds of
    swim-churn-partial-100k (host wall, device time by
    kernel from ``torch.profiler``, the device's idle share; the storm
-   under the baseline family is held to 1526 launches too), and the
+   under the baseline family is held to 1520 launches too), and the
    first 3 rounds of the 8-lane storm and fault storm and of one lane,
    beside a solo storm round profiled in the same call, and the first 3
    rounds of the 8-lane swim-churn-partial-100k, churn-full-4096 and
@@ -472,12 +472,13 @@ WARMUP, REPS = 3, 20
 SLOW_PLAIN_REPS = 3
 SLOW_CALL_MS = 30.0
 # device launches (kernels, copies, fills) of `profile_storm`'s first 3
-# rounds with the flight recorder off, setup included, as the port made
-# them before the recorder existed: the faultless storm's and the fault
-# storm's, counted in a process that has run nothing else.  Recording
-# must add nothing to a run that does not record.
-STORM_OFF_LAUNCHES = 1526
-FAULT_STORM_OFF_LAUNCHES = 1560
+# rounds with the flight recorder off, setup included: the faultless
+# storm's and the fault storm's, counted in a process that has run
+# nothing else.  Recording must add nothing to a run that does not
+# record.  (The port made 1526 and 1560 before the recorder existed;
+# K4's redesign dropped its clone and fill, two launches a round.)
+STORM_OFF_LAUNCHES = 1520
+FAULT_STORM_OFF_LAUNCHES = 1554
 #: the round of latency-storm-100k the latency comparisons and profile
 #: slice: inside the loss, cut, delay and jitter windows, where a delayed
 #: slot (6 + 1) % 4 = 3 wraps to 0 under jitter
@@ -1068,28 +1069,8 @@ def compare_kernels(dev, seed=0, n=100_000):
     ))
 
     # K4: table merge over the storm's entry count, with colliding ids
-    e = n * f * (k + 1) + n
-    e_dst = rng.integers(0, n, e)
-    same = rng.random(e) < 0.5
-    picked = pid[e_dst, rng.integers(0, m, e)]
-    e_id = np.where(same & (picked >= 0), picked, rng.integers(0, n, e))
-    e_key = rng.integers(0, 2047, e) * 4 + rng.integers(0, 3, e)
-    e_ok = rng.random(e) < 0.8
-    args = (pid_t, pkey_t, psince_t, cuda(e_dst), cuda(e_id), cuda(e_key),
-            cuda(e_ok, torch.bool), t, gc)
-    got = pswim.merge_entries(*args)
-    ref = pswim.merge_entries_plain(*args)
-    rows.append(dict(
-        name="merge_entries",
-        source="corrosion_tpu_torch/kernels/csrc/merge_entries.cu",
-        replaces="corrosion_tpu/sim/pswim.py:103",
-        equal=all(torch.equal(a, b) for a, b in zip(got, ref)),
-        max_abs_err=max(_max_abs_err(a, b) for a, b in zip(got, ref)),
-        ms=_time_ms(lambda: pswim.merge_entries(*args)),
-        plain_ms=_time_ms(lambda: pswim.merge_entries_plain(*args)),
-        # the entry arrays, the three tables in and out
-        bound_ms=_bound_ms(e * 13 + 3 * n * m * 4 * 2),
-    ))
+    rows.append(compare_merge_entries(dev, rng, pid, (pid_t, pkey_t,
+                                                      psince_t), f, k, t, gc))
     rows.append(compare_threefry(dev, rng, n, m))
     rows.append(compare_gaps_refresh(dev, rng, n, w))
     rows.append(compare_converge_fold(dev, rng, n, w))
@@ -1101,6 +1082,79 @@ def compare_kernels(dev, seed=0, n=100_000):
         if not row["equal"]:
             raise AssertionError(f"{row['name']}: kernel != plain version")
     return rows
+
+
+def _merge_traps(tabs, entries, t, gc, out, label):
+    """K4's branches on these inputs, counted from the pre-merge tables
+    and the merge's output (every table [R, M], entries flat): precedence
+    raises, replacements, young-DOWN refusals, aged-DOWN claims on
+    unstamped buckets, claims the recheck refused (an aged-DOWN bucket a
+    matching id revived) and duplicate entries on a cell.  Raises if one
+    is never reached."""
+    pid, pkey, psince = tabs
+    e_dst, e_id, e_key, e_ok = entries
+    m = pid.shape[-1]
+    cell = e_dst.long() * m + torch.where(e_id >= 0, e_id % m, 0).long()
+    cur_id, cur_key, cur_since = (x.reshape(-1)[cell] for x in tabs)
+    match = e_ok & (cur_id == e_id)
+    claim = e_ok & ~match & (e_key % 4 == 0) & (cur_id >= 0) & (
+        cur_key % 4 == 2)
+    young = claim & (cur_since >= 0) & (t - cur_since < gc)
+    aged = claim & ~young
+    new_pid, new_pkey = out[0].reshape(-1), out[1].reshape(-1)
+    live = cell[e_ok]
+    counts = {
+        "precedence": int((match & (e_key > cur_key)).sum()),
+        "replaced": int((new_pid != pid.reshape(-1)).sum()),
+        "young_down": int(young.sum()),
+        "unstamped_down": int((aged & (cur_since < 0)).sum()),
+        "recheck_refused": int((aged & (new_pid[cell] == cur_id)
+                                & (new_pkey[cell] % 4 != 2)).sum()),
+        "duplicates": live.numel() - int(torch.unique(live).numel()),
+    }
+    missing = [name for name, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"{label}: K4 inputs reach no {missing}")
+    print(f"K4 traps {label} reached: " + json.dumps(counts), flush=True)
+
+
+def compare_merge_entries(dev, rng, pid, tables, f, k, t, gc, timed=True):
+    """K4 at the storm's entry count (N * F * (k + 1) + N) on the tables
+    ``tables`` (``pid`` their numpy ids): half the ids already in the
+    receiver's bucket; with the packed table, as the path calls it,
+    equal to the plain version."""
+    from corrosion_tpu_torch.sim import pswim
+
+    n, m = pid.shape
+    e = n * f * (k + 1) + n
+
+    def cuda(a, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    e_dst = rng.integers(0, n, e)
+    same = rng.random(e) < 0.5
+    picked = pid[e_dst, rng.integers(0, m, e)]
+    e_id = np.where(same & (picked >= 0), picked, rng.integers(0, n, e))
+    e_key = rng.integers(0, 2047, e) * 4 + rng.integers(0, 3, e)
+    e_ok = rng.random(e) < 0.8
+    entries = (cuda(e_dst), cuda(e_id), cuda(e_key), cuda(e_ok, torch.bool))
+    args = (*tables, *entries, t, gc)
+    ptbl = pswim._pack_tables(tables[0], tables[1])
+    got = pswim.merge_entries(*args, ptbl)
+    ref = pswim.merge_entries_plain(*args, ptbl)
+    _merge_traps(tables, entries, t, gc, ref, "solo")
+    return dict(
+        name="merge_entries",
+        source="corrosion_tpu_torch/kernels/csrc/merge_entries.cu",
+        replaces="corrosion_tpu/sim/pswim.py:103",
+        equal=all(torch.equal(a, b) for a, b in zip(got, ref)),
+        max_abs_err=max(_max_abs_err(a, b) for a, b in zip(got, ref)),
+        ms=_timed(timed, lambda: pswim.merge_entries(*args, ptbl)),
+        plain_ms=_timed(timed, lambda: pswim.merge_entries_plain(*args,
+                                                                 ptbl)),
+        # the entry arrays, the three tables in and out
+        bound_ms=_bound_ms(e * 13 + 3 * n * m * 4 * 2),
+    )
 
 
 def _equal_all(got, want):
@@ -5259,11 +5313,15 @@ def compare_lane_tables(dev, g, lanes, n, m, f, timed=True):
                                                              (lanes, e))
     args = (pid, pkey, psince, cuda(e_dst), cuda(e_id), cuda(e_key),
             torch.as_tensor(g.random((lanes, e)) < 0.8, device=dev), t, gc)
+    # as the path calls it, with the packed table
+    args = (*args, table)
     got = pswim.merge_entries_lanes(*args)
     ref = pswim.merge_entries_lanes_plain(*args)
     _solo_trap("merge_entries lanes", [x[last] for x in got],
                pswim.merge_entries(*(a[last] if torch.is_tensor(a) else a
                                      for a in args)))
+    _merge_traps(*pswim._fold_merge(*args[:7], table)[:2], t, gc,
+                 [x.reshape(lanes * n, m) for x in ref], "lanes")
     rows.append(_lane_row(
         "merge_entries_lanes",
         "corrosion_tpu_torch/kernels/csrc/merge_entries.cu",
@@ -5945,6 +6003,19 @@ def profile_ensemble(dev, lanes=ENSEMBLE_LANES, rounds=3, faults=False):
 
     label = f"{'fault storm' if faults else 'storm'}-100k x{lanes} lanes"
     return _profile(run, rounds, label, setup=setup)
+
+
+#: K4's and K6's kernels as the profiler names them (redesigned for the
+#: card; the storm profiles print their in-path ms)
+K4_K6_SYMBOLS = ("merge_scatter_kernel", "merge_apply_kernel",
+                 "gaps_refresh_kernel", "gaps_refresh_wide_kernel")
+
+
+def in_path_ms(prof):
+    """K4's and K6's device ms a round in a `_profile` result, by kernel
+    symbol (the symbols the run launched)."""
+    got = prof["port_kernel_ms_per_round"]
+    return {sym: got[sym] for sym in K4_K6_SYMBOLS if sym in got}
 
 
 # -- the dense round's lanes (phase 3l, paths 36-40) ------------------------
@@ -12394,6 +12465,8 @@ def main() -> int:
                                  f"{prof['rounds']} telemetry-off rounds, "
                                  f"not {want}")
     storm_profiles.append(profile_storm(dev, telemetry=True))
+    print("in-path K4/K6 ms per round, " + storm_profiles[0]["run"] + ": "
+          + json.dumps(in_path_ms(storm_profiles[0])), flush=True)
     _lap("the storms' launch profiles")
 
     rows = compare_kernels(dev)
@@ -13406,8 +13479,10 @@ def main() -> int:
     # measured in this call, and one lane
     for lanes_, faults_ in ((ENSEMBLE_LANES, False), (ENSEMBLE_LANES, True),
                             (1, False)):
-        print("profile_ensemble: " + json.dumps(profile_ensemble(
-            dev, lanes_, faults=faults_)), flush=True)
+        prof = profile_ensemble(dev, lanes_, faults=faults_)
+        print("profile_ensemble: " + json.dumps(prof), flush=True)
+        print(f"in-path K4/K6 ms per round, {prof['run']}: "
+              + json.dumps(in_path_ms(prof)), flush=True)
     print("profile_solo: " + json.dumps(profile_storm(dev)), flush=True)
     # the 8-lane dense rounds beside their solo rounds, in one process
     for which in ("partial100k", "churn4096", "broadcast"):

@@ -245,7 +245,7 @@ BROADCAST_SCATTER_LOSSY = Kernel(
 )
 SYNC_PULL = Kernel("sync_pull", "sync_pull.cu", "corro_sync_pull", 5)
 MERGE_ENTRIES = Kernel(
-    "merge_entries", "merge_entries.cu", "corro_merge_entries", 5
+    "merge_entries", "merge_entries.cu", "corro_merge_entries", 6
 )
 THREEFRY = Kernel("threefry", "threefry.cu", "corro_threefry", 3)
 RANDINT = Kernel("randint", "threefry.cu", "corro_randint", 5)
@@ -410,7 +410,7 @@ RANDINT_LANES = Kernel("randint_lanes", "threefry.cu", "corro_randint_lanes",
 SAMPLE_TARGETS_LANES = Kernel("sample_targets_lanes", "sample_targets.cu",
                               "corro_sample_targets_lanes", 5)
 MERGE_ENTRIES_LANES = Kernel("merge_entries_lanes", "merge_entries.cu",
-                             "corro_merge_entries", 5)
+                             "corro_merge_entries", 6)
 BROADCAST_SCATTER_LANES = Kernel("broadcast_scatter_lanes",
                                  "broadcast_scatter.cu",
                                  "corro_broadcast_scatter_lanes", 5)

@@ -86,14 +86,22 @@ def psample_member_targets(
 # -- K4: table merge ---------------------------------------------------------
 
 
-def merge_entries_plain(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t, gc):
-    """Plain version of K4 (JAX ``_merge_entries``)."""
+def merge_entries_plain(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t, gc,
+                        ptbl=None):
+    """Plain version of K4 (JAX ``_merge_entries``).  With ``ptbl``, the
+    packed pre-merge table `_pack_tables(pid, pkey)`, the bucket's id and
+    key are gathered from it, as JAX gathers them and as the wrappers
+    call it; without, straight from ``pid`` and ``pkey`` (the form the
+    CPU tests also hold against JAX: the packing loses nothing)."""
     n, m = pid.shape
     old_pkey = pkey
     bucket = torch.where(e_id >= 0, e_id % m, 0).long()
     dst = e_dst.long()
-    cur_id = pid[dst, bucket]
-    cur_key = pkey[dst, bucket]
+    if ptbl is None:
+        cur_id = pid[dst, bucket]
+        cur_key = pkey[dst, bucket]
+    else:
+        cur_id, cur_key = _unpack_word(ptbl[dst, bucket])
     cur_since = psince[dst, bucket]
 
     match = e_ok & (cur_id == e_id)
@@ -124,31 +132,76 @@ def merge_entries_plain(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t, gc):
     return pid, pkey, psince.to(torch.int32)
 
 
-def merge_entries(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t: int,
-                  gc: int):
-    """Merge flat gossip/announce entries into the receivers' tables;
-    returns new (pid, pkey, psince).  K4 on the card."""
-    if pid.device.type == "cpu":
-        return merge_entries_plain(
-            pid, pkey, psince, e_dst, e_id, e_key, e_ok, t, gc
-        )
-    n, m = pid.shape
+#: K4's scratch, one zeroed uint2 (in int32 pairs) a cell per device and
+#: cell count; every K4 call leaves the cells it set zeroed again.  Kept
+#: for the life of the process (8 bytes a cell: 51.2 MB for the 100k
+#: storm's tables, 410 MB for its 8 lanes), since a CUDA graph that
+#: captured one holds its address
+_MERGE_SCRATCH = {}
+
+
+def merge_scratch(device: torch.device, cells: int) -> torch.Tensor:
+    """K4's self-clearing scratch for ``cells`` table cells on ``device``:
+    allocated zeroed at its first use and kept, so later calls (and CUDA
+    graphs that captured one) find it clean with no fill.  Its first
+    allocation must not fall inside a CUDA-graph capture: the zeros would
+    be a captured fill, and the buffer the graph's own; call this once
+    before capturing."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, cells)
+    scratch = _MERGE_SCRATCH.get(key)
+    if scratch is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "merge_entries: K4's scratch for "
+                f"{cells} cells would first be allocated under CUDA-graph "
+                "capture; call pswim.merge_scratch(device, cells) (or the "
+                "merge once) before capturing")
+        scratch = torch.zeros((cells, 2), dtype=torch.int32, device=device)
+        _MERGE_SCRATCH[key] = scratch
+    return scratch
+
+
+def _launch_merge(kernel, pid, pkey, psince, ptbl, e_dst, e_id, e_key, e_ok,
+                  t, gc, lanes=1):
+    """One K4 launch on [lanes * N, M] tables and flat entries, E / lanes
+    a lane with lane-local receivers (K4 folds lane k's into rows k·N +
+    dst): checks, fresh outputs and the device's scratch.  A launch that
+    fails at once zeroes the scratch, which it may have left dirty, and
+    keeps it, so graphs that captured it stay valid."""
+    rows, m = pid.shape
     e = e_dst.shape[0]
-    for name, x in (("pid", pid), ("pkey", pkey), ("psince", psince)):
-        check(name, x, torch.int32, (n, m))
+    for name, x in (("pid", pid), ("pkey", pkey), ("psince", psince),
+                    ("ptbl", ptbl)):
+        check(name, x, torch.int32, (rows, m))
     for name, x in (("e_dst", e_dst), ("e_id", e_id), ("e_key", e_key)):
         check(name, x, torch.int32, (e,))
     check("e_ok", e_ok, torch.bool, (e,))
-    pkey_out = pkey.clone()
-    pid_out = torch.empty_like(pid)
-    psince_out = torch.empty_like(psince)
-    winner = torch.full_like(pid, -1)
-    kernels.MERGE_ENTRIES.launch(
-        [pid, pkey, psince, pid_out, pkey_out, psince_out, winner,
-         e_dst, e_id, e_key, e_ok],
-        [e, n, m, t, gc],
-    )
-    return pid_out, pkey_out, psince_out
+    scratch = merge_scratch(pid.device, rows * m)
+    out = tuple(torch.empty_like(x) for x in (pid, pkey, psince))
+    try:
+        kernel.launch([pid, pkey, psince, ptbl, *out, scratch, e_dst, e_id,
+                       e_key, e_ok], [e, rows // lanes, m, t, gc, lanes])
+    except RuntimeError:
+        scratch.zero_()
+        raise
+    return out
+
+
+def merge_entries(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t: int,
+                  gc: int, ptbl):
+    """Merge flat gossip/announce entries into the receivers' tables;
+    returns new (pid, pkey, psince).  ``ptbl``, the packed pre-merge
+    table `_pack_tables(pid, pkey)`, gives each entry one word for the
+    bucket's id and key.  K4 on the card."""
+    if pid.device.type == "cpu":
+        return merge_entries_plain(
+            pid, pkey, psince, e_dst, e_id, e_key, e_ok, t, gc, ptbl
+        )
+    return _launch_merge(kernels.MERGE_ENTRIES, pid, pkey, psince, ptbl,
+                         e_dst, e_id, e_key, e_ok, t, gc)
 
 
 # -- the step ----------------------------------------------------------------
@@ -280,6 +333,7 @@ def pswim_step(
     pid, pkey, psince = merge_entries(
         pid, pkey, psince, all_dst.contiguous(), all_id.contiguous(),
         all_key.contiguous(), all_ok.contiguous(), t, cfg.down_gc_rounds,
+        ptbl,
     )
 
     # -- 3c. bucket refill
@@ -361,53 +415,48 @@ def psample_member_targets_lanes(state: SimState, cfg: SimConfig,
                                    slots, count)
 
 
-def _fold_merge(pid, pkey, psince, e_dst, e_id, e_key, e_ok):
-    """The lanes folded into the merge's rows: tables [K * N, M], lane
-    k's receivers at rows k * N + dst."""
+def _fold_merge(pid, pkey, psince, e_dst, e_id, e_key, e_ok, ptbl):
+    """The lanes folded into the merge's rows: tables [K * N, M] (and
+    the packed table), lane k's receivers at rows k * N + dst."""
     lanes, n, m = pid.shape
     dst = (e_dst + (torch.arange(lanes, dtype=torch.int32,
                                  device=pid.device) * n)[:, None]).reshape(-1)
     flat = [x.reshape(lanes * n, m) for x in (pid, pkey, psince)]
-    return flat, (dst, e_id.reshape(-1), e_key.reshape(-1), e_ok.reshape(-1))
+    tbl = ptbl.reshape(lanes * n, m)
+    entries = (dst, e_id.reshape(-1), e_key.reshape(-1), e_ok.reshape(-1))
+    return flat, entries, tbl
 
 
 def merge_entries_lanes_plain(pid, pkey, psince, e_dst, e_id, e_key, e_ok,
-                              t: int, gc: int):
+                              t: int, gc: int, ptbl):
     """Plain version of K4's lane entry: the solo plain merge on the
     folded rows."""
     lanes, n, m = pid.shape
-    flat, args = _fold_merge(pid, pkey, psince, e_dst, e_id, e_key, e_ok)
-    out = merge_entries_plain(*flat, *args, t, gc)
+    flat, args, tbl = _fold_merge(pid, pkey, psince, e_dst, e_id, e_key,
+                                  e_ok, ptbl)
+    out = merge_entries_plain(*flat, *args, t, gc, tbl)
     return tuple(x.reshape(lanes, n, m) for x in out)
 
 
 def merge_entries_lanes(pid, pkey, psince, e_dst, e_id, e_key, e_ok, t: int,
-                        gc: int):
-    """`merge_entries` over the lanes: tables [K, N, M], entries [K, E]
-    with lane-local receivers and ids.  The merge is per receiver row, so
-    the lanes fold into its rows: lane k's receivers move to rows k·N +
-    dst, their ids stay lane-local (a bucket and a match read only ids of
-    one lane).  K4's launcher on the card, counted as its lane entry."""
+                        gc: int, ptbl):
+    """`merge_entries` over the lanes: tables [K, N, M] (``ptbl`` their
+    packed form, [K, N, M]), entries [K, E] with
+    lane-local receivers and ids.  The merge is per receiver row, so the
+    lanes fold into its rows: lane k's receivers move to rows k·N + dst,
+    their ids stay lane-local (a bucket and a match read only ids of one
+    lane).  K4's launcher on the card, counted as its lane entry; the
+    kernel folds the receivers itself."""
     if pid.device.type == "cpu":
         return merge_entries_lanes_plain(pid, pkey, psince, e_dst, e_id,
-                                         e_key, e_ok, t, gc)
+                                         e_key, e_ok, t, gc, ptbl)
     lanes, n, m = pid.shape
-    flat, args = _fold_merge(pid, pkey, psince, e_dst, e_id, e_key, e_ok)
-    e = args[0].shape[0]
-    for name, x in zip(("e_id", "e_key"), args[1:3]):
-        check(name, x, torch.int32, (e,))
-    check("e_ok", args[3], torch.bool, (e,))
-    pkey_out = flat[1].clone()
-    pid_out = torch.empty_like(flat[0])
-    psince_out = torch.empty_like(flat[2])
-    winner = torch.full_like(flat[0], -1)
-    kernels.MERGE_ENTRIES_LANES.launch(
-        [flat[0], flat[1], flat[2], pid_out, pkey_out, psince_out, winner,
-         *args],
-        [e, lanes * n, m, t, gc],
-    )
-    return tuple(x.reshape(lanes, n, m)
-                 for x in (pid_out, pkey_out, psince_out))
+    flat = (x.reshape(lanes * n, m) for x in (pid, pkey, psince))
+    entries = (x.reshape(-1) for x in (e_dst, e_id, e_key, e_ok))
+    out = _launch_merge(kernels.MERGE_ENTRIES_LANES, *flat,
+                        ptbl.reshape(lanes * n, m), *entries, t,
+                        gc, lanes)
+    return tuple(x.reshape(lanes, n, m) for x in out)
 
 
 def _lane_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -587,7 +636,7 @@ def pswim_step_lanes(state: SimState, cfg: SimConfig, topo: Topology,
     pid, pkey, psince = merge_entries_lanes(
         pid, pkey, psince, all_dst.contiguous(), all_id.contiguous(),
         all_key.to(torch.int32).contiguous(), all_ok.contiguous(), t,
-        cfg.down_gc_rounds,
+        cfg.down_gc_rounds, ptbl,
     )
 
     # -- 3c. bucket refill

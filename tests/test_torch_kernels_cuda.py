@@ -23,6 +23,7 @@ from corrosion_tpu_torch.sim.state import (
     init_state,
     uniform_payloads,
 )
+from tests import torch_merge_cases as merge_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -109,10 +110,93 @@ def test_merge_entries(card, n, e):
         _i32(e_dst, card), _i32(e_id, card), _i32(e_key, card),
         torch.as_tensor(g.random(e) < 0.8, device=card), 40, 12,
     )
-    got = pswim.merge_entries(*args)
+    ptbl = pswim._pack_tables(args[0], args[1])
+    got = pswim.merge_entries(*args, ptbl)
     want = pswim.merge_entries_plain(*args)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", sorted(merge_cases.CASES))
+def test_merge_entries_branches(card, case):
+    inputs, fired = merge_cases.build(case)
+    args = [torch.as_tensor(x, device=card) for x in inputs]
+    ptbl = pswim._pack_tables(args[0], args[1])
+    before = kernels.MERGE_ENTRIES.launches
+    got = pswim.merge_entries(*args, merge_cases.T, merge_cases.GC, ptbl)
+    _launched(kernels.MERGE_ENTRIES, before)
+    want = pswim.merge_entries_plain(*args, merge_cases.T, merge_cases.GC,
+                                     ptbl)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert fired(inputs[:3], [x.cpu().numpy() for x in got]), case
+
+
+def _merge_args(g, n, e, dev, lanes=None):
+    """Merge inputs at ``n`` receivers (per lane with ``lanes``), crowded
+    onto a quarter of them, half the ids already in the bucket; and the
+    packed table."""
+    k = lanes or 1
+    tabs = [_tables(g, n, 64) for _ in range(k)]
+    pid, pkey, psince = (np.stack([tb[i] for tb in tabs]) for i in range(3))
+    e_dst = g.integers(0, max(1, n // 4), (k, e))
+    picked = np.take_along_axis(pid.reshape(k, -1),
+                                e_dst * 64 + g.integers(0, 64, (k, e)), 1)
+    e_id = np.where((g.random((k, e)) < 0.5) & (picked >= 0), picked,
+                    g.integers(0, n, (k, e)))
+    e_key = g.integers(0, 2047, (k, e)) * 4 + g.integers(0, 3, (k, e))
+    xs = [pid, pkey, psince, e_dst, e_id, e_key]
+    if lanes is None:
+        xs = [x[0] for x in xs]
+    args = [_i32(x, dev) for x in xs]
+    ok = g.random((k, e)) < 0.8
+    args.append(torch.as_tensor(ok if lanes else ok[0], device=dev))
+    return args, pswim._pack_tables(args[0], args[1])
+
+
+def test_merge_scratch_clears_itself(card):
+    """K4's scratch is zeroed once and cleared by each apply pass: solo
+    calls, the lane entry on the same cell count, a smaller solo shape,
+    then twenty calls replayed in one CUDA graph — each equal to the
+    plain version."""
+    g = np.random.default_rng(22)
+    t, gc = 40, 12
+    cases = [_merge_args(g, 3000, 60_000, card),
+             _merge_args(g, 1000, 20_000, card, lanes=3),  # 3000 rows too
+             _merge_args(g, 3000, 60_000, card),
+             _merge_args(g, 257, 5_000, card)]
+    for args, ptbl in cases:
+        lanes = args[0].dim() == 3
+        run = pswim.merge_entries_lanes if lanes else pswim.merge_entries
+        plain = (pswim.merge_entries_lanes_plain if lanes
+                 else pswim.merge_entries_plain)
+        got = run(*args, t, gc, ptbl)
+        want = plain(*args, t, gc, ptbl)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    scratch = pswim.merge_scratch(card, 3000 * 64)
+    assert not bool(scratch.any()), "K4 left its scratch dirty"
+    graphed = [_merge_args(g, 257, 5_000, card) for _ in range(20)]
+    graph = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(graph):
+        for args, ptbl in graphed:
+            outs.append(pswim.merge_entries(*args, t, gc, ptbl))
+    graph.replay()
+    torch.cuda.synchronize()
+    for (args, ptbl), got in zip(graphed, outs):
+        want = pswim.merge_entries_plain(*args, t, gc, ptbl)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not bool(pswim.merge_scratch(card, 257 * 64).any())
+
+
+def test_merge_scratch_refuses_capture_allocation(card):
+    """A scratch whose first allocation would fall inside a CUDA-graph
+    capture raises, never silently."""
+    args, ptbl = _merge_args(np.random.default_rng(5), 131, 900, card)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            pswim.merge_entries(*args, 40, 12, ptbl)
 
 
 def _launched(kernel, before):
@@ -198,6 +282,74 @@ def test_gaps_refresh(card, n, c, a, v, k, p_bit):
     _launched(kernels.GAPS_REFRESH, before)
     for x, y in zip(got, gaps.refresh_gaps_plain(have, cfg)):
         assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("k", (2, 3, 8, 64, 256))
+@pytest.mark.parametrize("lanes", (None, 3))
+@pytest.mark.parametrize("a, v, c, p_bit", ((16, 8, 4, 0.2),
+                                            (8, 128, 8, 0.06)))
+def test_gaps_refresh_slots(card, k, lanes, a, v, c, p_bit):
+    """K6 and its lane entry at K from 2 to 256 slots (the tile's rows
+    shrink with K; at 256 the staged slots pass 48 KB and the block opts
+    in to more shared memory), on the storm's and gapstress's version
+    shapes, with N * A a multiple of no tile's rows."""
+    n = 1001
+    cfg = SimConfig(n_nodes=n, n_payloads=a * v * c, n_writers=a,
+                    chunks_per_version=c, gap_slots=k)
+    g = np.random.default_rng(k + v)
+    have = torch.stack([_bits_words(g, n, cfg.n_payloads, p_bit, card)
+                        for _ in range(lanes or 1)])
+    if lanes is None:
+        have = have[0]
+        kernel, run, plain = (kernels.GAPS_REFRESH, gaps.refresh_gaps,
+                              gaps.refresh_gaps_plain)
+    else:
+        kernel, run, plain = (kernels.GAPS_REFRESH_LANES,
+                              gaps.refresh_gaps_lanes,
+                              gaps.refresh_gaps_lanes_plain)
+    before = kernel.launches
+    got = run(have, cfg)
+    _launched(kernel, before)
+    want = plain(have, cfg)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    if k == 2:
+        assert int(want[3].sum()) > 0, "no row overflowed K = 2"
+    if lanes:
+        for x, y in zip(got, gaps.refresh_gaps(have[-1], cfg)):
+            assert torch.equal(x[-1], y)
+
+
+@pytest.mark.parametrize("lanes", (None, 2))
+@pytest.mark.parametrize("v, k", ((2048, 8), (64, 1024)))
+def test_gaps_refresh_past_shared_memory(card, v, k, lanes):
+    """K6 and its lane entry where a 32-row tile fits the card's shared
+    memory nowhere, so the unstaged form runs (have rows and slots in
+    global memory): one writer and V = 2048 versions of 32 chunks (2048
+    have words a node, and the tile spans 33 nodes), and K = 1024 slots;
+    each equal to the plain version."""
+    n = 77
+    cfg = SimConfig(n_nodes=n, n_payloads=v * 32, n_writers=1,
+                    chunks_per_version=32, gap_slots=k)
+    g = np.random.default_rng(v + k)
+    have = torch.stack([_bits_words(g, n, cfg.n_payloads, 0.003, card)
+                        for _ in range(lanes or 1)])
+    if lanes is None:
+        have = have[0]
+        kernel, run, plain = (kernels.GAPS_REFRESH, gaps.refresh_gaps,
+                              gaps.refresh_gaps_plain)
+    else:
+        kernel, run, plain = (kernels.GAPS_REFRESH_LANES,
+                              gaps.refresh_gaps_lanes,
+                              gaps.refresh_gaps_lanes_plain)
+    before = kernel.launches
+    got = run(have, cfg)
+    _launched(kernel, before)
+    want = plain(have, cfg)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    if k == 8:
+        assert int(want[3].sum()) > 0, "no row overflowed K = 8"
 
 
 def _storm_cfg(n, p=512):

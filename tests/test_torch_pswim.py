@@ -89,9 +89,10 @@ def test_merge_entries(cfgs, seed):
         *(jnp.asarray(x) for x in (pid, pkey, psince, *ent)),
         jnp.int32(t), jcfg,
     )
+    tables = [torch.from_numpy(x) for x in (pid, pkey, psince)]
     got = pswim.merge_entries(
-        *(torch.from_numpy(x) for x in (pid, pkey, psince, *ent)),
-        t, jcfg.down_gc_rounds,
+        *tables, *(torch.from_numpy(x) for x in ent), t,
+        jcfg.down_gc_rounds, pswim._pack_tables(tables[0], tables[1]),
     )
     for name, w, p in zip(("pid", "pkey", "psince"), want, got):
         np.testing.assert_array_equal(np.asarray(w), p.numpy(), err_msg=name)
