@@ -476,9 +476,12 @@ SLOW_CALL_MS = 30.0
 # storm's and the fault storm's, counted in a process that has run
 # nothing else.  Recording must add nothing to a run that does not
 # record.  (The port made 1526 and 1560 before the recorder existed;
-# K4's redesign dropped its clone and fill, two launches a round.)
-STORM_OFF_LAUNCHES = 1520
-FAULT_STORM_OFF_LAUNCHES = 1554
+# K4's redesign dropped its clone and fill, two launches a round, then
+# 1520 and 1554; K1's in-kernel draw on unpacked tables and K3's mask
+# pass dropped 117 a round: K5's five bucket draws, the five table packs,
+# the mask block's 91 operations but one, the fruitful fill and cast.)
+STORM_OFF_LAUNCHES = 1169
+FAULT_STORM_OFF_LAUNCHES = 1203
 #: the round of latency-storm-100k the latency comparisons and profile
 #: slice: inside the loss, cut, delay and jitter windows, where a delayed
 #: slot (6 + 1) % 4 = 3 wraps to 0 under jitter
@@ -577,7 +580,7 @@ KERNEL_SYMBOLS = (
     "dense_broadcast_kernel", "dense_deliver_kernel", "dense_sync_kernel",
     "dense_gaps_rows_kernel", "dense_gaps_finish_kernel",
     "swim_timeout_kernel", "swim_merge_kernel", "swim_apply_kernel",
-    "budget_words_kernel", "sync_pull_metered_kernel",
+    "budget_words_kernel", "sync_pull_metered_kernel", "sync_masks_kernel",
     "gaps_refresh_wide_kernel", "trace_counts_words_kernel",
     "trace_counts_dense_kernel", "trace_wire_words_kernel",
     "trace_wire_rows_kernel", "trace_row_kernel",
@@ -937,6 +940,50 @@ def _random_words(g, shape, dev, ands=1):
     return torch.as_tensor(w.view(np.int32), device=dev)
 
 
+def advertised_rows(g, lead, cfg, dev):
+    """What K3's mask pass reads, drawn on ``dev`` from a generator seeded
+    by ``g``: heads [*lead, A] with 0 and V among them, gap runs [*lead,
+    A, G] with empty slots (lo 0), runs past the head, junk slots (lo >
+    hi, past V, not positive) and rows whose last slot overflows to the
+    head, and have words [*lead, W] whose version groups are held whole,
+    in part or not at all (bit 31 among them)."""
+    from corrosion_tpu_torch.sim.words import group_low_bits_mask
+
+    gen = torch.Generator(device=dev).manual_seed(int(g.integers(1 << 62)))
+    a, v, c = cfg.n_writers, cfg.n_versions, cfg.chunks_per_version
+    w = v * a * c // 32
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    heads = ints(0, v + 1, (*lead, a))
+    heads = torch.where(coin(0.1, heads.shape), 0, heads)
+    heads = torch.where(coin(0.1, heads.shape), v, heads)
+    shape = (*lead, a, cfg.gap_slots)
+    lo = ints(1, v + 1, shape)
+    hi = lo + ints(0, max(2, v // 4), shape)
+    lo = torch.where(coin(0.3, shape), 0, lo)
+    junk = coin(0.05, shape)
+    lo = torch.where(junk, ints(-3, v + 4, shape), lo)
+    hi = torch.where(junk, ints(-3, v + 4, shape), hi)
+    last = hi[..., -1]
+    hi[..., -1] = torch.where(coin(0.1, last.shape),
+                              torch.maximum(last, heads), last)
+
+    def words():
+        return ints(0, 1 << 32, (*lead, w), torch.int64)
+
+    low = group_low_bits_mask(c) & 0xFFFFFFFF
+    smear = (1 << c) - 1 if c < 32 else 0xFFFFFFFF
+    held = ((words() & low) * smear) | (words() & words())
+    have = torch.where(held >= 1 << 31, held - (1 << 32), held)
+    return heads, lo, hi.contiguous(), have.to(torch.int32)
+
+
 def _grant_words(masks, miss, peers, ok, budget=None, nbytes=None,
                  sdelay=None, d_slots=1):
     """The sync ring words a pull's grants touch (the words K3 reads and
@@ -998,21 +1045,9 @@ def compare_kernels(dev, seed=0, n=100_000):
     pid_t, pkey_t, psince_t = cuda(pid), cuda(pkey), cuda(psince)
     rows = []
 
-    # K1: member sampler, the storm's fanout/sync/relay draw (count 3)
-    table = pswim._pack_tables(pid_t, pkey_t).contiguous()
-    slots = cuda(rng.integers(0, m, (4 * 3, n)))
-    got = pswim.sample_candidates(table, slots, 3)
-    ref = pswim.sample_candidates_plain(table, slots, 3)
-    rows.append(dict(
-        name="sample_targets",
-        source="corrosion_tpu_torch/kernels/csrc/sample_targets.cu",
-        replaces="corrosion_tpu/sim/pswim.py:82",
-        equal=bool(torch.equal(got, ref)), max_abs_err=_max_abs_err(got, ref),
-        ms=_time_ms(lambda: pswim.sample_candidates(table, slots, 3)),
-        plain_ms=_time_ms(lambda: pswim.sample_candidates_plain(table, slots, 3)),
-        # the draws, one gathered word per draw, the output
-        bound_ms=_bound_ms(slots.numel() * 4 * 2 + n * 3 * 4),
-    ))
+    # K1: member sampler, the storm's fanout/sync/relay draw (count 3),
+    # its buckets drawn in the kernel
+    rows.append(compare_sample_members(dev, rng, pid_t, pkey_t, 3))
 
     # K2: broadcast ring scatter (one region: every edge lands in slot t%D)
     sending = words((n, w), 4)
@@ -1039,9 +1074,11 @@ def compare_kernels(dev, seed=0, n=100_000):
                            + ring_rows * w * 4 * 2),
     ))
 
-    # K3: sync pull, with words that carry bit 31 (the unsigned-max trap)
-    masks = words((n, 4, w))
-    miss = words((n, w), 2)
+    # K3's mask pass at the storm's layout, then the pull on its masks,
+    # whose words carry bit 31 (the unsigned-max trap)
+    cfg, _ = _storm_cfg(n, dev)
+    mask_row, (masks, miss) = compare_sync_masks(dev, rng, cfg, (n,))
+    rows.append(mask_row)
     peers = cuda(rng.integers(0, n, (n, s)))
     pok = cuda(rng.random((n, s)) < 0.7, torch.bool)
     buf0 = torch.zeros((n, w), dtype=torch.int32, device=dev)
@@ -1082,6 +1119,139 @@ def compare_kernels(dev, seed=0, n=100_000):
         if not row["equal"]:
             raise AssertionError(f"{row['name']}: kernel != plain version")
     return rows
+
+
+def _member_traps(g, pid, pkey):
+    """K1's traps added to member tables [R, M]: 3 % of buckets repeat
+    another bucket of their row (distinct candidates then dedup), a few
+    ids past 2^19 - 1 (their +1 spills into the packed key field)."""
+    r, m = pid.shape
+    dup = torch.as_tensor(g.random((r, m)) < 0.03, device=pid.device)
+    src = torch.as_tensor(g.integers(0, m, (r, m)), device=pid.device)
+    pid = torch.where(dup, torch.gather(pid, 1, src), pid)
+    pkey = torch.where(dup, torch.gather(pkey, 1, src), pkey)
+    wide = torch.as_tensor(g.random((r, m)) < 0.001, device=pid.device)
+    pid = torch.where(wide, (1 << 19) - 1 + src.to(torch.int32) % 3, pid)
+    return pid.contiguous(), pkey.contiguous()
+
+
+def _member_bound(slots, n, m, count, lanes=1):
+    """K1's bound on this draw: the larger of its hashes' u32 operations
+    (``over`` draws a node, two hashes each where randint's multiplier is
+    not 0, and the two subkeys a lane) and its bytes (the distinct (pid,
+    pkey) pairs the draws read, the output).  ``slots`` [.., over, N] are
+    the draws; also the slots form's bound (its draws in and the words
+    they gather: the narrower function the slots form computed)."""
+    from corrosion_tpu_torch.sim import rng
+
+    _, mult = rng.scalar_span(0, m)
+    srt = slots.reshape(-1, *slots.shape[-2:]).sort(dim=1).values
+    distinct = lanes * n + int((srt[:, 1:] != srt[:, :-1]).sum())
+    hashes = slots.numel() * (2 if mult else 1) + 2 * lanes
+    ops = hashes * OPS_PER_HASH
+    rate = _int32_ops_per_s()
+    nbytes = distinct * 8 + lanes * (n * count * 4 + 16)
+    ops_ms, bytes_ms = ops / rate * 1e3, _bound_ms(nbytes)
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops=ops, int32_ops_per_s=rate, bytes=nbytes,
+                slots_form_bound_ms=_bound_ms(slots.numel() * 8
+                                              + lanes * n * count * 4))
+
+
+def _member_trap_check(pid, pkey, slots, out, label):
+    """The draws reached K1's traps: a packed word with bit 31, an empty,
+    a DOWN and a duplicated bucket, an id past 2^19 - 1, and a node left
+    short (-1 padding)."""
+    from corrosion_tpu_torch.sim import pswim
+    from corrosion_tpu_torch.sim.swim import _dup_before
+
+    n = pid.shape[0]
+    me = torch.arange(n, device=pid.device)[None, :]
+    cand = pid[me, slots.long()]
+    key = pkey[me, slots.long()]
+    valid = (cand >= 0) & (cand != me) & (key % 4 != pswim.DOWN) & (key >= 0)
+    reached = {
+        "bit 31": bool((key + 1 >= 4096).any()),
+        "empty": bool((cand < 0).any()),
+        "DOWN": bool(((key % 4 == pswim.DOWN) & (cand >= 0)).any()),
+        "duplicate": bool(_dup_before(cand, valid).any()),
+        "id past 2^19 - 1": bool((cand >= (1 << 19) - 1).any()),
+        "short": bool((out == -1).any()),
+    }
+    missed = [k for k, v in reached.items() if not v]
+    if missed:
+        raise AssertionError(f"{label}: traps not reached: {missed}")
+    print(f"{label} traps reached: {sorted(reached)}", flush=True)
+
+
+def compare_sample_members(dev, g, pid, pkey, count):
+    """K1 at the storm's tables (N = 100000, M = 64): the bucket draw in
+    the kernel, the tables read unpacked, against the plain composition
+    (randint, `_pack_tables`, the candidates' dedup and compaction)."""
+    from corrosion_tpu_torch.sim import pswim, rng
+
+    n, m = pid.shape
+    pid, pkey = _member_traps(g, pid, pkey)
+    key = rng.prng_key(int(g.integers(1 << 30)), dev)
+    got = pswim.sample_members(pid, pkey, key, count)
+    ref = pswim.sample_members_plain(pid, pkey, key, count)
+    slots = rng.randint_plain(key, (4 * count, n), 0, m)
+    _member_trap_check(pid, pkey, slots, ref, "K1")
+    return dict(
+        name="sample_targets",
+        source="corrosion_tpu_torch/kernels/csrc/sample_targets.cu",
+        replaces="corrosion_tpu/sim/pswim.py:82",
+        equal=bool(torch.equal(got, ref)), max_abs_err=_max_abs_err(got, ref),
+        ms=_time_ms(lambda: pswim.sample_members(pid, pkey, key, count)),
+        plain_ms=_time_ms(lambda: pswim.sample_members_plain(
+            pid, pkey, key, count)),
+        **_member_bound(slots, n, m, count))
+
+
+def compare_sync_masks(dev, g, cfg, lead, name="sync_masks", timed=True,
+                       keep=False):
+    """K3's mask pass on rows ``lead`` ([N], or the lanes' [K, N]) of
+    `advertised_rows` at ``cfg``'s layout: the row and the (masks, miss)
+    it produced, for the pull (with ``keep`` the row holds its inputs
+    under "inputs")."""
+    from corrosion_tpu_torch.sim import packed
+    from corrosion_tpu_torch.sim.words import (
+        fold_all, fold_any, group_low_bits_mask)
+
+    heads, lo, hi, have = advertised_rows(g, lead, cfg, dev)
+    got = packed.sync_masks(heads, lo, hi, have, cfg)
+    ref = packed.sync_masks_plain(heads, lo, hi, have, cfg)
+    c = cfg.chunks_per_version
+    groups = fold_any(have, c) & ~fold_all(have, c) & group_low_bits_mask(c)
+    reached = {
+        "empty slot": bool((lo == 0).any()),
+        "head 0": bool((heads == 0).any()),
+        "head V": bool((heads == cfg.n_versions).any()),
+        "junk slot": bool(((lo > hi) & (lo > 0)).any()),
+        "run past V": bool((hi > cfg.n_versions).any()),
+        "partly held version": bool((groups != 0).any()),
+        "bit 31 in haves": bool((ref[0][..., 0, :] < 0).any()),
+    }
+    missed = [k for k, v in reached.items() if not v]
+    if missed:
+        raise AssertionError(f"{name}: traps not reached: {missed}")
+    print(f"{name} traps reached: {sorted(reached)}", flush=True)
+    nbytes = (heads.numel() + 2 * lo.numel() + have.numel()
+              + got[0].numel() + got[1].numel()) * 4
+    row = _row(name, "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
+               "corrosion_tpu/sim/packed.py:1138 (its masks, :1201-1218)",
+               all(torch.equal(a, b) for a, b in zip(got, ref)),
+               max(_max_abs_err(a, b) for a, b in zip(got, ref)),
+               _timed(timed, lambda: packed.sync_masks(heads, lo, hi, have,
+                                                       cfg)),
+               _timed(timed, lambda: packed.sync_masks_plain(
+                   heads, lo, hi, have, cfg)),
+               nbytes, kernel="sync_masks" if len(lead) == 1
+               else "sync_masks_lanes")
+    if keep:
+        row["inputs"] = (heads, lo, hi, have)
+    return row, got
 
 
 def _merge_traps(tabs, entries, t, gc, out, label):
@@ -2320,12 +2490,14 @@ def compare_gaps_wide(dev, g, n=GAPSTRESS_N, timed=True):
 
 
 def compare_gapstress_kernels(dev, seed=2):
-    """Phase 3c: K16, K3's metered entry, K10's topology stream and K6
-    past 32 versions at gapstress-25.6k's shapes, and K14 at the
+    """Phase 3c: K16, K3's mask pass and metered entry, K10's topology
+    stream and K6 past 32 versions at gapstress-25.6k's shapes, and K14 at the
     distortion control's (N = 1024, V = 128, C = 8, K = 64)."""
     g = np.random.default_rng(seed)
+    cfg, _ = _gapstress(GAPSTRESS_N, dev)
     rows = [
         compare_budget_words(dev, g),
+        compare_sync_masks(dev, g, cfg, (GAPSTRESS_N,), "sync_masks_gs")[0],
         compare_sync_pull_metered(dev, g),
         compare_scatter_topo(dev, g),
         compare_gaps_wide(dev, g),
@@ -5171,7 +5343,7 @@ WIDE_LANES = 16
 #: K10's, K9's reach and K11's lane entries
 LANE_STORM_ROWS = ("threefry_lanes", "sample_targets_lanes",
                    "merge_entries_lanes", "broadcast_scatter_lanes",
-                   "sync_pull_lanes", "gaps_refresh_lanes",
+                   "sync_masks_lanes", "sync_pull_lanes", "gaps_refresh_lanes",
                    "converge_fold_lanes", "word_phases_lanes")
 LANE_FAULT_ROWS = LANE_STORM_ROWS + ("broadcast_scatter_lossy_lanes",
                                      "fault_reach_lanes",
@@ -5181,6 +5353,7 @@ SOLO_OF_LANE = {"sample_targets_lanes": "sample_targets",
                 "merge_entries_lanes": "merge_entries",
                 "broadcast_scatter_lanes": "broadcast_scatter",
                 "broadcast_scatter_lossy_lanes": "broadcast_scatter_lossy",
+                "sync_masks_lanes": "sync_masks",
                 "sync_pull_lanes": "sync_pull",
                 "gaps_refresh_lanes": "gaps_refresh",
                 "converge_fold_lanes": "converge_fold",
@@ -5269,9 +5442,10 @@ def compare_lane_draws(dev, g, lanes, n, m, timed=True):
 
 def compare_lane_tables(dev, g, lanes, n, m, f, timed=True):
     """K1's and K4's lane entries on K lanes of storm-shaped member
-    tables (keys with bit 31 packed), each lane equal to the solo entry
-    on its own tables."""
-    from corrosion_tpu_torch.sim import pswim
+    tables (keys with bit 31 packed; K1's with its traps, drawing under
+    each lane's key), each lane equal to the solo entry on its own
+    tables."""
+    from corrosion_tpu_torch.sim import pswim, rng
 
     t, gc, k = 40, 12, 8
     tabs = [_random_tables(g, n, m, t) for _ in range(lanes)]
@@ -5285,22 +5459,28 @@ def compare_lane_tables(dev, g, lanes, n, m, f, timed=True):
     table = pswim._pack_tables(pid, pkey).contiguous()
     if not bool((table < 0).any()):
         raise AssertionError("K1 lane tables hold no word with bit 31 set")
-    slots = cuda(g.integers(0, m, (lanes, 12, n)))
-    got = pswim.sample_candidates_lanes(table, slots, 3)
-    ref = pswim.sample_candidates_lanes_plain(table, slots, 3)
+    k_pid, k_pkey = (x.reshape(lanes, n, m) for x in _member_traps(
+        g, pid.reshape(lanes * n, m), pkey.reshape(lanes * n, m)))
+    keys = _lane_keys(dev, lanes, 2000)
+    got = pswim.sample_members_lanes(k_pid, k_pkey, keys, 3)
+    ref = pswim.sample_members_lanes_plain(k_pid, k_pkey, keys, 3)
     last = lanes - 1
     _solo_trap("sample_targets lanes", [got[last]],
-               [pswim.sample_candidates(table[last], slots[last], 3)])
+               [pswim.sample_members(k_pid[last], k_pkey[last], keys[last],
+                                     3)])
+    slots = rng.randint_lanes_plain(keys, (12, n), 0, m)
+    _member_trap_check(k_pid[last], k_pkey[last], slots[last], ref[last],
+                       "K1 lane")
     rows = [_lane_row(
         "sample_targets_lanes",
         "corrosion_tpu_torch/kernels/csrc/sample_targets.cu",
         "corrosion_tpu/sim/pswim.py:82", bool(torch.equal(got, ref)),
         _max_abs_err(got, ref),
-        _timed(timed, lambda: pswim.sample_candidates_lanes(table, slots,
-                                                            3)),
-        _timed(timed, lambda: pswim.sample_candidates_lanes_plain(
-            table, slots, 3)),
-        lanes * (12 * n * 4 * 2 + n * 3 * 4), lanes)]
+        _timed(timed, lambda: pswim.sample_members_lanes(k_pid, k_pkey,
+                                                         keys, 3)),
+        _timed(timed, lambda: pswim.sample_members_lanes_plain(
+            k_pid, k_pkey, keys, 3)), 0, lanes)]
+    rows[0].update(_member_bound(slots, n, m, 3, lanes))
 
     e = n * f * (k + 1) + n
     e_dst = g.integers(0, n, (lanes, e))
@@ -5434,13 +5614,19 @@ def compare_lane_scatter(dev, g, lanes, n, w, f, timed=True):
 
 
 def compare_lane_sync(dev, g, lanes, n, w, s, timed=True):
-    """K3's lane entry: words with bit 31, lane-local peers into slot 1
-    of every lane's ring; the last lane equal to the solo entry."""
+    """K3's mask pass on the lanes' folded rows, then K3's lane entry on
+    its masks (words with bit 31): lane-local peers into slot 1 of every
+    lane's ring; the last lane of each equal to the solo entry."""
     from corrosion_tpu_torch.sim import lanes as ln
     from corrosion_tpu_torch.sim import packed
 
-    masks = _random_words(g, (lanes, n, 4, w), dev)
-    miss = _random_words(g, (lanes, n, w), dev, 2)
+    cfg, _ = _storm_cfg(n, dev)
+    mask_row, (masks, miss) = compare_sync_masks(
+        dev, g, cfg, (lanes, n), "sync_masks_lanes", timed, keep=True)
+    mask_row.update(lanes=lanes, replaces=mask_row["replaces"] + _VMAP)
+    _solo_trap("sync_masks lanes", [x[-1] for x in (masks, miss)],
+               packed.sync_masks(*(x[-1] for x in mask_row.pop("inputs")),
+                                 cfg))
     peers = torch.as_tensor(g.integers(0, n, (lanes, n, s)),
                             dtype=torch.int32, device=dev)
     ok = torch.as_tensor(g.random((lanes, n, s)) < 0.7, device=dev)
@@ -5456,7 +5642,7 @@ def compare_lane_sync(dev, g, lanes, n, w, s, timed=True):
     rk, rp = ring0.clone(), ring0.clone()
     touched = sum(_grant_words(masks[k], miss[k], peers[k], ok[k])
                   for k in range(lanes))
-    return [_lane_row(
+    return [mask_row, _lane_row(
         "sync_pull_lanes", "corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
         "corrosion_tpu/sim/packed.py:1138",
         bool(torch.equal(got, ref) and torch.equal(got_r, ref_r)),
@@ -6005,17 +6191,20 @@ def profile_ensemble(dev, lanes=ENSEMBLE_LANES, rounds=3, faults=False):
     return _profile(run, rounds, label, setup=setup)
 
 
-#: K4's and K6's kernels as the profiler names them (redesigned for the
-#: card; the storm profiles print their in-path ms)
-K4_K6_SYMBOLS = ("merge_scatter_kernel", "merge_apply_kernel",
-                 "gaps_refresh_kernel", "gaps_refresh_wide_kernel")
+#: the kernels redesigned for the card as the profiler names them (K4
+#: and K6; K1 with the draws it took from K5's randint, K3 and its mask
+#: pass), whose in-path ms the storm profiles print
+REDESIGNED_SYMBOLS = ("merge_scatter_kernel", "merge_apply_kernel",
+                      "gaps_refresh_kernel", "gaps_refresh_wide_kernel",
+                      "sample_targets_kernel", "randint_kernel",
+                      "sync_masks_kernel", "sync_pull_kernel")
 
 
 def in_path_ms(prof):
-    """K4's and K6's device ms a round in a `_profile` result, by kernel
-    symbol (the symbols the run launched)."""
+    """The redesigned kernels' device ms a round in a `_profile` result,
+    by kernel symbol (the symbols the run launched)."""
     got = prof["port_kernel_ms_per_round"]
-    return {sym: got[sym] for sym in K4_K6_SYMBOLS if sym in got}
+    return {sym: got[sym] for sym in REDESIGNED_SYMBOLS if sym in got}
 
 
 # -- the dense round's lanes (phase 3l, paths 36-40) ------------------------
@@ -12465,7 +12654,8 @@ def main() -> int:
                                  f"{prof['rounds']} telemetry-off rounds, "
                                  f"not {want}")
     storm_profiles.append(profile_storm(dev, telemetry=True))
-    print("in-path K4/K6 ms per round, " + storm_profiles[0]["run"] + ": "
+    print("in-path redesigned kernels' ms per round, "
+          + storm_profiles[0]["run"] + ": "
           + json.dumps(in_path_ms(storm_profiles[0])), flush=True)
     _lap("the storms' launch profiles")
 
@@ -12552,9 +12742,9 @@ def main() -> int:
     _storm_check(_fault_record(final, metrics, time.monotonic() - t0),
                  goldens.FAULT_STORM_512_SEED7, "fault_storm_512_seed7")
 
-    # path 1, the faultless storm: K1-K8
-    faultless_rows = ["sample_targets", "broadcast_scatter", "sync_pull",
-                      "merge_entries", "threefry", "gaps_refresh",
+    # path 1, the faultless storm: K1-K8 (K3 with its mask pass)
+    faultless_rows = ["sample_targets", "broadcast_scatter", "sync_masks",
+                      "sync_pull", "merge_entries", "threefry", "gaps_refresh",
                       "converge_fold", "word_phases"]
     kernels.reset_launch_counts()
     big = config_write_storm_100k(seed=0, device=dev, return_state=True)
@@ -12639,8 +12829,8 @@ def main() -> int:
     # on every round's scatter (K10's topology stream, so K2 is off the
     # path) and V = 128 gaps (K6's walk)
     gap_rows = ["sample_targets", "merge_entries", "threefry", "gaps_refresh",
-                "converge_fold", "word_phases", "sync_pull_metered",
-                "budget_words", "broadcast_scatter_lossy"]
+                "converge_fold", "word_phases", "sync_masks",
+                "sync_pull_metered", "budget_words", "broadcast_scatter_lossy"]
     kernels.reset_launch_counts()
     gapstress = config_write_storm_gapstress(seed=1, n_nodes=GAPSTRESS_N,
                                              device=dev, return_state=True)
@@ -12771,7 +12961,7 @@ def main() -> int:
                     "threefry", "gaps_refresh", "converge_fold",
                     "word_phases", "broadcast_scatter_lossy", "node_faults",
                     "fault_edges_delay", "broadcast_scatter_jitter",
-                    "sync_pull_delay"]
+                    "sync_masks", "sync_pull_delay"]
     cfg, meta, fplan = _latency_storm(STORM_N, dev)
     latency_launches = {}
     for tel in (False, True):
@@ -12982,8 +13172,9 @@ def main() -> int:
     # inside the packed envelope (packed_min_cells=0), forced matrix, then
     # the same run on the factored plan; equal to each other and to the
     # golden (live JAX)
-    packed_rows = ["sample_targets", "sync_pull", "merge_entries", "threefry",
-                   "gaps_refresh", "converge_fold", "word_phases",
+    packed_rows = ["sample_targets", "sync_masks", "sync_pull",
+                   "merge_entries", "threefry", "gaps_refresh",
+                   "converge_fold", "word_phases",
                    "broadcast_scatter_lossy", "node_faults", *matrix_rows]
     cfg, meta, fplan, _ = _matrix_storm(4096, dev, packed_min_cells=0)
     out = _timed_fault_run(cfg, meta, fplan, 0, dev)
@@ -13014,8 +13205,8 @@ def main() -> int:
     # through K20's caps entry; under PeerSwap every target comes from K1's
     # view entry and the view swaps through K21 (ground-truth membership:
     # no member table, K1's table entry and K4 stay off)
-    storm_core = ["sync_pull", "threefry", "gaps_refresh", "converge_fold",
-                  "word_phases"]
+    storm_core = ["sync_masks", "sync_pull", "threefry", "gaps_refresh",
+                  "converge_fold", "word_phases"]
     tiered_rows = ["sample_targets", "merge_entries", *storm_core,
                    "broadcast_scatter_tiered", "edge_slots", "edge_reach"]
     topo_paths = (
@@ -13481,7 +13672,7 @@ def main() -> int:
                             (1, False)):
         prof = profile_ensemble(dev, lanes_, faults=faults_)
         print("profile_ensemble: " + json.dumps(prof), flush=True)
-        print(f"in-path K4/K6 ms per round, {prof['run']}: "
+        print(f"in-path redesigned kernels' ms per round, {prof['run']}: "
               + json.dumps(in_path_ms(prof)), flush=True)
     print("profile_solo: " + json.dumps(profile_storm(dev)), flush=True)
     # the 8-lane dense rounds beside their solo rounds, in one process

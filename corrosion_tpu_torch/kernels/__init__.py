@@ -3,9 +3,11 @@ per C entry point.  Their wrappers live beside the plain torch versions
 they are checked against, in the sim module of the JAX function each
 replaces:
 
-- K1 `SAMPLE_TARGETS` — `sim.pswim.sample_candidates`;
+- K1 `SAMPLE_TARGETS` — `sim.pswim.sample_members` (its bucket draw
+  in the kernel);
 - K2 `BROADCAST_SCATTER` — `sim.packed.scatter_sending`;
-- K3 `SYNC_PULL` — `sim.packed.sync_pull`;
+- K3 `SYNC_PULL` — `sim.packed.sync_pull`, and its mask pass
+  `SYNC_MASKS` (K3's source) — `sim.packed.sync_masks`;
 - K4 `MERGE_ENTRIES` — `sim.pswim.merge_entries`;
 - K5 `THREEFRY`, `RANDINT` — `sim.rng.split`, `fold_in`, `bits`,
   `randint`;
@@ -93,11 +95,13 @@ replaces:
   each, counted apart from the solo entries they extend: K5
   `THREEFRY_LANES`, `RANDINT_LANES` — `sim.rng.split_lanes`,
   `fold_in_lanes`, `bits_lanes`, `randint_lanes`; K1
-  `SAMPLE_TARGETS_LANES` — `sim.pswim.sample_candidates_lanes`; K4
+  `SAMPLE_TARGETS_LANES` — `sim.pswim.sample_members_lanes`; K4
   `MERGE_ENTRIES_LANES` (K4's launcher on the lanes folded into its
   rows) — `sim.pswim.merge_entries_lanes`; K2 `BROADCAST_SCATTER_LANES`
   and K10 `BROADCAST_SCATTER_LOSSY_LANES` — `sim.lanes.scatter_lanes`;
-  K3 `SYNC_PULL_LANES` — `sim.lanes.sync_pull_lanes`; K6
+  K3 `SYNC_PULL_LANES` — `sim.lanes.sync_pull_lanes`, and its mask pass
+  on the lanes folded into its rows `SYNC_MASKS_LANES` —
+  `sim.packed.sync_masks`; K6
   `GAPS_REFRESH_LANES` — `sim.gaps.refresh_gaps_lanes`; K7
   `CONVERGE_ROWS_LANES`, `CONVERGE_FINISH_LANES` —
   `sim.lanes.converge_record_lanes`; K8 `WORD_INJECT_LANES`,
@@ -234,7 +238,7 @@ and keep counts of their own).
 from .build import Kernel, build_all
 
 SAMPLE_TARGETS = Kernel(
-    "sample_targets", "sample_targets.cu", "corro_sample_targets", 4
+    "sample_targets", "sample_targets.cu", "corro_sample_targets", 5
 )
 BROADCAST_SCATTER = Kernel(
     "broadcast_scatter", "broadcast_scatter.cu", "corro_broadcast_scatter", 4
@@ -244,6 +248,7 @@ BROADCAST_SCATTER_LOSSY = Kernel(
     "corro_broadcast_scatter_lossy", 10,
 )
 SYNC_PULL = Kernel("sync_pull", "sync_pull.cu", "corro_sync_pull", 5)
+SYNC_MASKS = Kernel("sync_masks", "sync_pull.cu", "corro_sync_masks", 6)
 MERGE_ENTRIES = Kernel(
     "merge_entries", "merge_entries.cu", "corro_merge_entries", 6
 )
@@ -408,7 +413,7 @@ THREEFRY_LANES = Kernel("threefry_lanes", "threefry.cu",
 RANDINT_LANES = Kernel("randint_lanes", "threefry.cu", "corro_randint_lanes",
                        6)
 SAMPLE_TARGETS_LANES = Kernel("sample_targets_lanes", "sample_targets.cu",
-                              "corro_sample_targets_lanes", 5)
+                              "corro_sample_targets_lanes", 6)
 MERGE_ENTRIES_LANES = Kernel("merge_entries_lanes", "merge_entries.cu",
                              "corro_merge_entries", 6)
 BROADCAST_SCATTER_LANES = Kernel("broadcast_scatter_lanes",
@@ -419,6 +424,8 @@ BROADCAST_SCATTER_LOSSY_LANES = Kernel(
     "corro_broadcast_scatter_lossy_lanes", 11)
 SYNC_PULL_LANES = Kernel("sync_pull_lanes", "sync_pull.cu",
                          "corro_sync_pull_lanes", 6)
+SYNC_MASKS_LANES = Kernel("sync_masks_lanes", "sync_pull.cu",
+                          "corro_sync_masks", 6)
 GAPS_REFRESH_LANES = Kernel("gaps_refresh_lanes", "gaps_refresh.cu",
                             "corro_gaps_refresh_lanes", 7)
 CONVERGE_ROWS_LANES = Kernel("converge_rows_lanes", "converge_fold.cu",
@@ -613,6 +620,7 @@ PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
     "sync_pull": (SYNC_PULL,),
+    "sync_masks": (SYNC_MASKS,),
     "merge_entries": (MERGE_ENTRIES,),
     "threefry": (THREEFRY, RANDINT),
     "gaps_refresh": (GAPS_REFRESH,),
@@ -670,6 +678,7 @@ PORTED = {
     "broadcast_scatter_lanes": (BROADCAST_SCATTER_LANES,),
     "broadcast_scatter_lossy_lanes": (BROADCAST_SCATTER_LOSSY_LANES,),
     "sync_pull_lanes": (SYNC_PULL_LANES,),
+    "sync_masks_lanes": (SYNC_MASKS_LANES,),
     "gaps_refresh_lanes": (GAPS_REFRESH_LANES,),
     "converge_fold_lanes": (CONVERGE_ROWS_LANES, CONVERGE_FINISH_LANES),
     "word_phases_lanes": (WORD_INJECT_LANES, WORD_SPEND_LANES,
@@ -775,7 +784,7 @@ TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
-             "sync_pull_lanes", "gaps_refresh_lanes", "converge_fold_lanes",
+             "sync_pull_lanes", "sync_masks_lanes", "gaps_refresh_lanes", "converge_fold_lanes",
              "word_phases_lanes", "fault_reach_lanes", "node_faults_lanes",
              "dense_phases_lanes", "dense_sync_lanes", "dense_gaps_lanes",
              "swim_full_lanes", "sample_uniform_lanes", "detect_full_lanes",
@@ -813,7 +822,8 @@ __all__ = [
     "BROADCAST_SCATTER_LOSSY_LANES", "CONVERGE_FINISH_LANES",
     "CONVERGE_ROWS_LANES", "FAULT_REACH_LANES", "GAPS_REFRESH_LANES",
     "LANE_ROWS", "MERGE_ENTRIES_LANES", "NODE_FAULTS_LANES",
-    "RANDINT_LANES", "SAMPLE_TARGETS_LANES", "SYNC_PULL_LANES",
+    "RANDINT_LANES", "SAMPLE_TARGETS_LANES", "SYNC_MASKS_LANES",
+    "SYNC_PULL_LANES",
     "THREEFRY_LANES", "WORD_DELIVER_LANES", "WORD_INJECT_LANES",
     "WORD_SPEND_LANES", "DENSE_INJECT_LANES", "DENSE_BROADCAST_LANES",
     "DENSE_DELIVER_LANES", "DENSE_SYNC_LANES", "DENSE_GAPS_ROWS_LANES",
@@ -860,7 +870,7 @@ __all__ = [
     "MERGE_ENTRIES", "NODE_FAULTS", "NODE_FAULTS_DENSE", "PEERSWAP_LAND",
     "PEERSWAP_PARTNER", "PEERSWAP_SWAP", "PORTED", "RANDINT",
     "SAMPLE_TARGETS", "SAMPLE_UNIFORM", "SAMPLE_VIEW",
-    "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_PULL",
+    "SWIM_APPLY", "SWIM_MERGE", "SWIM_TIMEOUT", "SYNC_MASKS", "SYNC_PULL",
     "SYNC_PULL_DELAY", "SYNC_PULL_METERED", "THREEFRY", "TRACE_COUNTS", "TRACE_COVERAGE",
     "TRACE_COVERAGE_DENSE", "TRACE_ROW", "TRACE_ROWS", "TRACE_WIRE_ROWS",
     "TRACE_WIRE_WORDS", "WORD_DELIVER", "WORD_INJECT", "WORD_SPEND",

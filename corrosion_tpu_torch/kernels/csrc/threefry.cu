@@ -4,8 +4,9 @@
 // path, first in corrosion_tpu/sim/state.py:420 init_pview (its randint
 // at state.py:427; the splits at :442-445, the countdown draw at :460),
 // then in packed.py:723 (split 4), :384 (split 3), :1161 (split 3),
-// :1292 (the rearm randint, per-element maxval) and pswim.py:92 (the
-// sampler's [4c, N] slots), :193 (split 11), :263, :308, :345, :352.
+// :1292 (the rearm randint, per-element maxval) and pswim.py:193 (split
+// 11), :263, :308, :345, :352.  The member sampler's [4c, N] slots
+// (pswim.py:92) K1 draws itself, with this file's hash (threefry.cuh).
 // The plain versions are corrosion_tpu_torch/sim/rng.py.
 //
 // Counters are jax's partitionable iota_2x32_shape: the high word 0, the

@@ -123,7 +123,7 @@ from .faults import (
     host_activity,
     round_faults,
 )
-from .gaps import gaps_to_mask, refresh_gaps_lanes
+from .gaps import refresh_gaps_lanes
 from .invariants import count_order_violations_lanes_
 from .packed import (
     CONVERGE_ROWS_PER_BLOCK,
@@ -136,6 +136,7 @@ from .packed import (
     pack_state,
     planes_set_,
     scatter_pull_plain,
+    sync_masks,
     unpack_into_state,
 )
 from .round import RunMetrics, overflow_fraction
@@ -168,7 +169,6 @@ from .words import (
     all_chunks_words,
     and_rows,
     fold_any,
-    grid_to_words,
     group_low_bits_mask,
     pack_bits,
     smear_groups,
@@ -635,8 +635,8 @@ def sync_pull_lanes(masks, miss, peers, ok, ring, slot: int, sdelay=None,
         check("sdelay", sdelay, torch.int32, (lanes, n * s))
     if granted is not None:
         check("granted", granted, torch.int32, (lanes, n * s, w))
-    fruitful = torch.zeros((lanes, n), dtype=torch.uint8,
-                           device=masks.device)
+    # every node's flag is written by the kernel: no fill, no cast
+    fruitful = torch.empty((lanes, n), dtype=torch.bool, device=masks.device)
     args = [masks, miss, peers, ok, ring, fruitful]
     if budget is not None:
         _check_budget(budget, nbytes, w)
@@ -644,14 +644,14 @@ def sync_pull_lanes(masks, miss, peers, ok, ring, slot: int, sdelay=None,
                   else kernels.SYNC_PULL_METERED_LANES_TRACE)
         kernel.launch([*args, nbytes, granted, sdelay],
                       [n, w, s, d_slots, slot, budget, lanes])
-        return fruitful.to(torch.bool)
+        return fruitful
     kernel = {(False, False): kernels.SYNC_PULL_LANES,
               (True, False): kernels.SYNC_PULL_DELAY_LANES,
               (False, True): kernels.SYNC_PULL_LANES_TRACE,
               (True, True): kernels.SYNC_PULL_DELAY_LANES_TRACE}[
         (sdelay is not None, granted is not None)]
     kernel.launch([*args, granted, sdelay], [n, w, s, d_slots, slot, lanes])
-    return fruitful.to(torch.bool)
+    return fruitful
 
 
 # -- the convergence record (K7) ---------------------------------------------
@@ -925,7 +925,8 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
                trace: Optional[RoundTrace] = None):
     """`packed.sync_packed` over the lanes: each lane's peers
     (`.swim_lanes.sample_member_targets_lanes`, as the broadcast's), the
-    need masks from its heads and gaps, the pull into its sync ring's
+    need masks from its heads and gaps (K3's mask pass, the lanes folded
+    into its rows), the pull into its sync ring's
     slot t + 1 (K3's lane entry; K3m's under the sync budget, each edge's
     grant metered) and its backoff and re-arm draws (K5); a cut in either
     direction refuses a session, and under a plan with delay factors each
@@ -955,14 +956,8 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
         if sdelay is not None:
             sdelay = sdelay.view(lanes, n * s)
 
-    v = cfg.n_versions
-    v_idx = torch.arange(1, v + 1, dtype=torch.int32, device=peers.device)
-    miss_w = grid_to_words(gaps_to_mask(state.gap_lo, state.gap_hi, v), cfg)
-    below_w = grid_to_words(v_idx <= state.heads[..., None], cfg)
-    comp_w = all_chunks_words(carry.have, cfg)
-    haves_w = below_w & ~miss_w & comp_w
-    partial_w = below_w & ~miss_w & ~comp_w
-    masks = torch.stack([haves_w, partial_w, below_w, carry.have], dim=2)
+    masks, miss_w = sync_masks(state.heads, state.gap_lo, state.gap_hi,
+                               carry.have, cfg)
     slot = (int(state.t) + 1) % carry.sync_buf.shape[1]
     granted = (None if trace is None else torch.empty(
         (lanes, n * s, carry.have.shape[2]), dtype=torch.int32,

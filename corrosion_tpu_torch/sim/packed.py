@@ -16,7 +16,8 @@ longer packs the ring.
 
 Every phase of the round runs hand-written kernels on the card: the
 word phases (K8: `inject_packed`, `spend_relay`, `deliver_packed`), the
-ring scatter (K2), the sync pull (K3) and the convergence record (K7,
+ring scatter (K2), the sync pull (K3, after its mask pass
+`sync_masks`) and the convergence record (K7,
 `converge_record`) here; the draws (K5, `.rng`), the member sampler and
 table merge (K1, K4, `.pswim`) and the gap refresh (K6, `.gaps`).  The
 byte budgets run K16 (`budget_prefix_words`, the broadcast governor)
@@ -40,6 +41,7 @@ counter ``t`` lives on the host.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -830,6 +832,43 @@ def _fold_peers(need: torch.Tensor) -> torch.Tensor:
     return pulled
 
 
+def sync_masks_plain(heads, gap_lo, gap_hi, have, cfg: SimConfig):
+    """Plain version of K3's mask pass (JAX ``sync_packed``'s
+    packed.py:1201-1218): each node's group-uniform word masks from its
+    advertised heads [..., A] and gap runs [..., A, G] and its ``have``
+    words [..., W] — (masks [..., 4, W] = (haves, partial, below, have),
+    miss [..., W]); any leading shape (the lanes' [K, N] too)."""
+    v = cfg.n_versions
+    v_idx = torch.arange(1, v + 1, dtype=torch.int32, device=have.device)
+    miss_w = grid_to_words(gaps_to_mask(gap_lo, gap_hi, v), cfg)
+    below_w = grid_to_words(v_idx <= heads[..., None], cfg)
+    comp_w = all_chunks_words(have, cfg)
+    haves_w = below_w & ~miss_w & comp_w
+    partial_w = below_w & ~miss_w & ~comp_w
+    return torch.stack([haves_w, partial_w, below_w, have], dim=-2), miss_w
+
+
+def sync_masks(heads, gap_lo, gap_hi, have, cfg: SimConfig):
+    """The sync pull's node masks, `sync_masks_plain`'s (masks, miss): K3's
+    mask pass on the card, one launch over every row — the lanes' [K, N]
+    folded into K * N rows (counted as its lane entry)."""
+    if have.device.type == "cpu":
+        return sync_masks_plain(heads, gap_lo, gap_hi, have, cfg)
+    *lead, w = have.shape
+    a, g = gap_lo.shape[-2:]
+    check("heads", heads, torch.int32, (*lead, a))
+    check("gap_lo", gap_lo, torch.int32, (*lead, a, g))
+    check("gap_hi", gap_hi, torch.int32, (*lead, a, g))
+    check("have", have, torch.int32, (*lead, w))
+    rows = math.prod(lead)
+    masks = torch.empty((*lead, 4, w), dtype=torch.int32, device=have.device)
+    miss = torch.empty((*lead, w), dtype=torch.int32, device=have.device)
+    kernel = kernels.SYNC_MASKS_LANES if len(lead) == 2 else kernels.SYNC_MASKS
+    kernel.launch([heads, gap_lo, gap_hi, have, masks, miss],
+                  [rows, a, g, cfg.n_versions, cfg.chunks_per_version, w])
+    return masks, miss
+
+
 def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
               nbytes=None, granted=None, sdelay=None,
               slot: int = 0) -> torch.Tensor:
@@ -864,17 +903,18 @@ def sync_pull(masks, miss, peers, ok, slot_words, budget=None,
             raise ValueError(f"slot {slot} outside the ring of {d_slots}")
     if granted is not None:
         check("granted", granted, torch.int32, (n * s, w))
-    fruitful = torch.zeros(n, dtype=torch.uint8, device=masks.device)
+    # every node's flag is written by the kernel: no fill, no cast
+    fruitful = torch.empty(n, dtype=torch.bool, device=masks.device)
     args = [masks, miss, peers, ok, slot_words, fruitful]
     if budget is None:
         kernel = (kernels.SYNC_PULL if sdelay is None
                   else kernels.SYNC_PULL_DELAY)
         kernel.launch([*args, granted, sdelay], [n, w, s, d_slots, slot])
-        return fruitful.to(torch.bool)
+        return fruitful
     _check_budget(budget, nbytes, w)
     kernels.SYNC_PULL_METERED.launch([*args, nbytes, granted, sdelay],
                                      [n, w, s, d_slots, slot, budget])
-    return fruitful.to(torch.bool)
+    return fruitful
 
 
 def sync_packed(
@@ -919,15 +959,8 @@ def sync_packed(
         if refused is not None:
             ok &= ~refused
 
-    v = cfg.n_versions
-    v_idx = torch.arange(1, v + 1, dtype=torch.int32, device=peers.device)
-    miss_w = grid_to_words(gaps_to_mask(state.gap_lo, state.gap_hi, v), cfg)
-    below_w = grid_to_words(v_idx <= state.heads[:, :, None], cfg)
-    comp_w = all_chunks_words(carry.have, cfg)
-    haves_w = below_w & ~miss_w & comp_w
-    partial_w = below_w & ~miss_w & ~comp_w
-    masks = torch.stack([haves_w, partial_w, below_w, carry.have], dim=1)
-
+    masks, miss_w = sync_masks(state.heads, state.gap_lo, state.gap_hi,
+                               carry.have, cfg)
     d_slots = carry.sync_buf.shape[0]
     granted = (None if trace is None else
                torch.empty((n * s, carry.have.shape[1]), dtype=torch.int32,

@@ -2,9 +2,10 @@
 ``corrosion_tpu/sim/pswim.py`` (same state machine, same RNG stream).
 
 Two hot functions run hand-written kernels on the card: the member
-sampler (`sample_candidates`, K1) and the table merge (`merge_entries`,
-K4).  Each wrapper takes the plain torch version, beside it here, for a
-CPU tensor and the kernel for a CUDA tensor.  The ``heard`` scatter-max,
+sampler (`sample_members`, K1, which draws its buckets itself and reads
+the tables unpacked) and the table merge (`merge_entries`, K4).  Each
+wrapper takes the plain torch version, beside it here, for a CPU tensor
+and the kernel for a CUDA tensor.  The ``heard`` scatter-max,
 the announce feedback and the bucket refill stay plain torch.
 """
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..device import shr
+from ..device import i32, shr
 from ..kernels.build import check
 from . import rng
 from .state import ALIVE, DOWN, SUSPECT, SimConfig, SimState
@@ -57,19 +58,32 @@ def sample_candidates_plain(
     return _compact_targets(cand, valid, count)
 
 
-def sample_candidates(
-    table: torch.Tensor, slots: torch.Tensor, count: int
-) -> torch.Tensor:
-    """i32[N, count] targets from packed tables ``[N, M]`` and bucket
-    draws ``[over, N]``; K1 on the card."""
-    if table.device.type == "cpu":
-        return sample_candidates_plain(table, slots, count)
-    n, m = table.shape
-    over = slots.shape[0]
-    check("table", table, torch.int32, (n, m))
-    check("slots", slots, torch.int32, (over, n))
-    out = torch.empty((n, count), dtype=torch.int32, device=table.device)
-    kernels.SAMPLE_TARGETS.launch([table, slots, out], [n, m, over, count])
+def sample_members_plain(pid: torch.Tensor, pkey: torch.Tensor,
+                         key: torch.Tensor, count: int) -> torch.Tensor:
+    """Plain version of K1: the [4c, N] bucket draw, the packed tables,
+    then `sample_candidates_plain` (JAX ``psample_member_targets`` op for
+    op)."""
+    n, m = pid.shape
+    slots = rng.randint_plain(key, (4 * count, n), 0, m)
+    return sample_candidates_plain(_pack_tables(pid, pkey), slots, count)
+
+
+def sample_members(pid: torch.Tensor, pkey: torch.Tensor, key: torch.Tensor,
+                   count: int) -> torch.Tensor:
+    """i32[N, count] targets from member tables ``pid``/``pkey`` [N, M]
+    under ``key``: ``4 * count`` bucket draws a node, the valid distinct
+    candidates compacted, -1 padding.  K1 on the card: one launch draws,
+    gathers and compacts, with no packed table and no slots tensor."""
+    if pid.device.type == "cpu":
+        return sample_members_plain(pid, pkey, key, count)
+    n, m = pid.shape
+    check("pid", pid, torch.int32, (n, m))
+    check("pkey", pkey, torch.int32, (n, m))
+    check("key", key, torch.int64, (2,))
+    span, mult = rng.scalar_span(0, m)
+    out = torch.empty((n, count), dtype=torch.int32, device=pid.device)
+    kernels.SAMPLE_TARGETS.launch([pid, pkey, key, out],
+                                  [n, m, count, i32(span), i32(mult)])
     return out
 
 
@@ -78,9 +92,7 @@ def psample_member_targets(
 ) -> torch.Tensor:
     """i32[N, count] targets drawn from each node's member table (believed
     not-DOWN buckets); -1 marks unfilled slots."""
-    n, m = state.pid.shape
-    slots = rng.randint(key, (4 * count, n), 0, m)
-    return sample_candidates(_pack_tables(state.pid, state.pkey), slots, count)
+    return sample_members(state.pid, state.pkey, key, count)
 
 
 # -- K4: table merge ---------------------------------------------------------
@@ -386,33 +398,41 @@ def sample_candidates_lanes_plain(table: torch.Tensor, slots: torch.Tensor,
     return _compact_targets(cand, valid, count).reshape(lanes, n, count)
 
 
-def sample_candidates_lanes(table: torch.Tensor, slots: torch.Tensor,
-                            count: int) -> torch.Tensor:
-    """`sample_candidates` over the lanes: i32[K, N, count] lane-local
-    targets from packed tables [K, N, M] and bucket draws [K, over, N];
-    K1's lane entry on the card."""
-    if table.device.type == "cpu":
-        return sample_candidates_lanes_plain(table, slots, count)
-    lanes, n, m = table.shape
-    over = slots.shape[1]
-    check("table", table, torch.int32, (lanes, n, m))
-    check("slots", slots, torch.int32, (lanes, over, n))
+def sample_members_lanes_plain(pid: torch.Tensor, pkey: torch.Tensor,
+                               keys: torch.Tensor,
+                               count: int) -> torch.Tensor:
+    """Plain version of K1's lane entry: each lane's [4c, N] bucket draw
+    under its key, the packed tables, `sample_candidates_lanes_plain`."""
+    _, n, m = pid.shape
+    slots = rng.randint_lanes_plain(keys, (4 * count, n), 0, m)
+    return sample_candidates_lanes_plain(_pack_tables(pid, pkey), slots,
+                                         count)
+
+
+def sample_members_lanes(pid: torch.Tensor, pkey: torch.Tensor,
+                         keys: torch.Tensor, count: int) -> torch.Tensor:
+    """`sample_members` over the lanes: i32[K, N, count] lane-local
+    targets from tables [K, N, M], lane k drawing under ``keys[k]``; K1's
+    lane entry on the card."""
+    if pid.device.type == "cpu":
+        return sample_members_lanes_plain(pid, pkey, keys, count)
+    lanes, n, m = pid.shape
+    check("pid", pid, torch.int32, (lanes, n, m))
+    check("pkey", pkey, torch.int32, (lanes, n, m))
+    check("keys", keys, torch.int64, (lanes, 2))
+    span, mult = rng.scalar_span(0, m)
     out = torch.empty((lanes, n, count), dtype=torch.int32,
-                      device=table.device)
-    kernels.SAMPLE_TARGETS_LANES.launch([table, slots, out],
-                                        [n, m, over, count, lanes])
+                      device=pid.device)
+    kernels.SAMPLE_TARGETS_LANES.launch(
+        [pid, pkey, keys, out], [n, m, count, i32(span), i32(mult), lanes])
     return out
 
 
 def psample_member_targets_lanes(state: SimState, cfg: SimConfig,
                                  keys: torch.Tensor,
                                  count: int) -> torch.Tensor:
-    """`psample_member_targets` over the lanes: the [K, 4c, N] bucket
-    draws (K5's lane entry) and K1's lane entry."""
-    _, n, m = state.pid.shape
-    slots = rng.randint_lanes(keys, (4 * count, n), 0, m)
-    return sample_candidates_lanes(_pack_tables(state.pid, state.pkey),
-                                   slots, count)
+    """`psample_member_targets` over the lanes: K1's lane entry."""
+    return sample_members_lanes(state.pid, state.pkey, keys, count)
 
 
 def _fold_merge(pid, pkey, psince, e_dst, e_id, e_key, e_ok, ptbl):

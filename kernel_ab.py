@@ -19,8 +19,13 @@ runs one tree in a process of its own, which puts that tree first on
 
       kernels:NAME      compare_kernels (the 100k storm's shapes)
       lane_tables:NAME  compare_lane_tables (8 lanes at the storm's)
+      lane_sync:NAME    compare_lane_sync (8 lanes at the storm's)
       lane_record:NAME  compare_lane_record (8 lanes at the storm's)
       gaps_wide:NAME    compare_gaps_wide (gapstress-25.6k's V = 128)
+
+  A row that only this tree has (a kernel the change adds) is timed in
+  this tree's turns and listed as missing in the parent's; a row this
+  tree lacks fails the run.
 
 The turns alternate parent, change, change, parent, ... (``--turns`` of
 each); the last two lines print the card's name and power limit and
@@ -43,6 +48,8 @@ SOURCES = {
     "kernels": lambda cs, dev, g: cs.compare_kernels(dev),
     "lane_tables": lambda cs, dev, g: cs.compare_lane_tables(
         dev, g, cs.ENSEMBLE_LANES, cs.STORM_N, 64, 3),
+    "lane_sync": lambda cs, dev, g: cs.compare_lane_sync(
+        dev, g, cs.ENSEMBLE_LANES, cs.STORM_N, 16, 3),
     "lane_record": lambda cs, dev, g: cs.compare_lane_record(
         dev, g, cs.ENSEMBLE_LANES, cs.STORM_N, 16),
     "gaps_wide": lambda cs, dev, g: [cs.compare_gaps_wide(dev, g)],
@@ -83,16 +90,18 @@ def tree_times(tree: Path, symbols: list[str], rows: list[str]) -> dict:
     for source in dict.fromkeys(row.split(":", 1)[0] for row in rows):
         for row in SOURCES[source](cs, dev, g):
             found[f"{source}:{row['name']}"] = row
-    timed = {}
+    timed, missing = {}, []
     for name in rows:
         row = found.get(name)
         if row is None:
-            raise RuntimeError(f"no row {name}")
+            missing.append(name)
+            continue
         if not row["equal"]:
             raise AssertionError(f"{name}: kernel != plain version")
         timed[name] = {key: row[key] for key in ("ms", "plain_ms",
                                                  "bound_ms")}
-    return {"tree": str(tree), "rows": timed, "in_path": in_path}
+    return {"tree": str(tree), "rows": timed, "missing": missing,
+            "in_path": in_path}
 
 
 def side_by_side(runs: list[tuple[str, dict]]) -> dict:
@@ -152,6 +161,8 @@ def main() -> int:
         line = [x for x in proc.stdout.splitlines() if x.startswith(TAG)][-1]
         got = json.loads(line[len(TAG):])
         print(f"{which}: " + json.dumps(got), flush=True)
+        if which == "change" and got["missing"]:
+            raise RuntimeError(f"this tree has no rows {got['missing']}")
         runs.append((which, got))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -57,15 +57,20 @@ def _tables(g, n, m):
 
 @pytest.mark.parametrize("n", (1, 257, 3000))
 @pytest.mark.parametrize("count", (1, 3))
-def test_sample_targets(card, n, count):
+@pytest.mark.parametrize("m", (64, 48))
+def test_sample_targets(card, n, count, m):
+    """K1 draws its buckets itself (no K5 launch) from the unpacked tables,
+    with keys at the clamp (bit 31), repeated buckets and ids past
+    2^19 - 1; at M = 48 randint's multiplier is not 0."""
     g = np.random.default_rng(n + count)
-    pid, pkey, _ = _tables(g, n, 64)
-    table = pswim._pack_tables(_i32(pid, card), _i32(pkey, card))
-    slots = _i32(g.integers(0, 64, (4 * count, n)), card)
-    before = kernels.SAMPLE_TARGETS.launches
-    got = pswim.sample_candidates(table, slots, count)
-    assert kernels.SAMPLE_TARGETS.launches == before + 1
-    assert torch.equal(got, pswim.sample_candidates_plain(table, slots, count))
+    pid, pkey, _ = _tables(g, n, m)
+    pid, pkey = _smoke()._member_traps(g, _i32(pid, card), _i32(pkey, card))
+    key = rng.prng_key(n + count, card)
+    before = (kernels.SAMPLE_TARGETS.launches, kernels.RANDINT.launches)
+    got = pswim.sample_members(pid, pkey, key, count)
+    assert (kernels.SAMPLE_TARGETS.launches,
+            kernels.RANDINT.launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, pswim.sample_members_plain(pid, pkey, key, count))
 
 
 @pytest.mark.parametrize("n, w, f", ((5, 1, 3), (1000, 16, 3), (333, 8, 2)))
@@ -80,6 +85,73 @@ def test_broadcast_scatter(card, n, w, f):
     packed.scatter_sending(got, sending, dst, slot, ok, f)
     packed.scatter_sending_plain(want, sending, dst, slot, ok, f)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout, lead", (
+    ("storm", (64,)), ("storm", (3001,)), ("storm", (3, 257)),
+    ("gapstress", (300,)), ("gapstress", (2, 65)), ("gapstress_k64", (64,))))
+def test_sync_masks(card, layout, lead):
+    """K3's mask pass (its lane form for a [K, N] lead) at the storm's and
+    gapstress's layouts, every trap of `advertised_rows` reached."""
+    from corrosion_tpu_torch.sim.runner import _gapstress_cfg
+
+    sm = _smoke()
+    cfg = (sm._storm_cfg(lead[-1], card)[0] if layout == "storm" else
+           _gapstress_cfg(lead[-1], 64 if layout == "gapstress_k64" else 8))
+    kern = kernels.SYNC_MASKS if len(lead) == 1 else kernels.SYNC_MASKS_LANES
+    before = kern.launches
+    row, _ = sm.compare_sync_masks(card, np.random.default_rng(len(lead)),
+                                   cfg, lead, timed=False)
+    _launched(kern, before)
+    assert row["equal"], row
+
+
+@pytest.mark.parametrize("entry", ("unmetered", "delay", "metered",
+                                   "granted", "metered_granted"))
+@pytest.mark.parametrize("lanes", (None, 3))
+def test_sync_pull_on_pass_masks(card, entry, lanes):
+    """Every pull entry (its lane entry for ``lanes``) on masks from the
+    mask pass: equal to the plain pull, ring, fruitful and granted words,
+    on a ring that already holds words."""
+    from corrosion_tpu_torch.sim import lanes as ln
+
+    sm = _smoke()
+    n, s, d = 1001, 3, 4
+    g = np.random.default_rng(len(entry) + (lanes or 0))
+    cfg = sm._storm_cfg(n, card)[0]
+    w = cfg.n_payloads // 32
+    lead = (n,) if lanes is None else (lanes, n)
+    masks, miss = packed.sync_masks(*sm.advertised_rows(g, lead, cfg, card),
+                                    cfg)
+    peers = _i32(g.integers(0, n, (*lead, s)), card)
+    ok = torch.as_tensor(g.random((*lead, s)) < 0.8, device=card)
+    edges = (n * s,) if lanes is None else (lanes, n * s)
+    sdelay = (_i32(g.integers(0, d, edges), card) if entry == "delay"
+              else None)
+    budget = 2048 if entry.startswith("metered") else None
+    nbytes = _i32(np.full(w * 32, 64), card)
+    ring = (_words(g, (d, n, w), card) & _words(g, (d, n, w), card)
+            if lanes is None else
+            _words(g, (lanes, d, n, w), card) & _words(g, (lanes, d, n, w),
+                                                        card))
+    outs = []
+    for fn in ((packed.sync_pull, packed.sync_pull_plain) if lanes is None
+               else (ln.sync_pull_lanes, ln.sync_pull_lanes_plain)):
+        r = ring.clone()
+        granted = (torch.zeros((*edges, w), dtype=torch.int32, device=card)
+                   if entry.endswith("granted") else None)
+        if lanes is None:
+            fr = fn(masks, miss, peers, ok, r if sdelay is not None else r[1],
+                    budget, nbytes, granted, sdelay, 1)
+        else:
+            fr = fn(masks, miss, peers, ok, r, 1, sdelay, granted, budget,
+                    nbytes)
+        outs.append((fr, r, granted))
+    (fr, r, gr), (want_fr, want_r, want_gr) = outs
+    assert fr.dtype == torch.bool and torch.equal(fr, want_fr)
+    assert torch.equal(r, want_r)
+    assert gr is None or torch.equal(gr, want_gr)
+    assert bool(want_fr.any())
 
 
 @pytest.mark.parametrize("n, w, s", ((7, 1, 3), (1000, 16, 3), (301, 8, 5)))
