@@ -479,9 +479,13 @@ SLOW_CALL_MS = 30.0
 # K4's redesign dropped its clone and fill, two launches a round, then
 # 1520 and 1554; K1's in-kernel draw on unpacked tables and K3's mask
 # pass dropped 117 a round: K5's five bucket draws, the five table packs,
-# the mask block's 91 operations but one, the fruitful fill and cast.)
-STORM_OFF_LAUNCHES = 1169
-FAULT_STORM_OFF_LAUNCHES = 1203
+# the mask block's 91 operations but one, the fruitful fill and cast,
+# then 1169 and 1203; K2's edge pass took the broadcast's and the sync's
+# edge-list glue, and K7's one launch its finish and the overflow fold:
+# 56.33 a round on the storm, 41.33 on the fault storm, whose broadcast
+# keeps its senders and slot glue.)
+STORM_OFF_LAUNCHES = 1000
+FAULT_STORM_OFF_LAUNCHES = 1079
 #: the round of latency-storm-100k the latency comparisons and profile
 #: slice: inside the loss, cut, delay and jitter windows, where a delayed
 #: slot (6 + 1) % 4 = 3 wraps to 0 under jitter
@@ -573,8 +577,9 @@ def _time_inplace_ms(fn, restore) -> float:
 KERNEL_SYMBOLS = (
     "sample_targets_kernel", "broadcast_scatter_kernel", "sync_pull_kernel",
     "merge_scatter_kernel", "merge_apply_kernel", "threefry_kernel",
-    "randint_kernel", "gaps_refresh_kernel", "converge_rows_kernel",
-    "converge_finish_kernel", "inject_kernel", "spend_kernel",
+    "randint_kernel", "gaps_refresh_kernel", "converge_record_kernel",
+    "broadcast_rows_kernel", "edge_list_kernel", "inject_kernel",
+    "spend_kernel",
     "deliver_kernel", "fault_edges_kernel", "fault_reach_kernel",
     "node_faults_kernel", "sample_uniform_kernel", "dense_inject_kernel",
     "dense_broadcast_kernel", "dense_deliver_kernel", "dense_sync_kernel",
@@ -744,13 +749,16 @@ def profile_gapstress(dev, rounds=3):
         torch.cuda.synchronize()
         return out
 
+    last_round = int(meta.round.max())  # run_packed's one read a run
+
     def run(loop):
         slim, carry, inj, metrics = loop
         torch.cuda.synchronize()
         t0 = time.monotonic()
         for _ in range(rounds):
             slim, carry, inj, metrics, done = packed.packed_round_step(
-                slim, carry, inj, metrics, meta, cfg, topo, region)
+                slim, carry, inj, metrics, meta, cfg, topo, region,
+                last_round=last_round)
             bool(done)  # run_packed's one host read a round
         torch.cuda.synchronize()
         return time.monotonic() - t0
@@ -779,6 +787,7 @@ def profile_latency(dev, start=LATENCY_T, rounds=3, latency=True):
     region = regions(cfg.n_nodes, 1, dev)
     activity = faults.host_activity(fplan)
     horizon = fplan.horizon
+    last_round = int(meta.round.max())  # the loop's one read a run
 
     def step(loop):
         slim, carry, inj, metrics = loop
@@ -787,7 +796,7 @@ def profile_latency(dev, start=LATENCY_T, rounds=3, latency=True):
         slim, carry = packed.apply_round_faults(slim, carry, rf)
         slim, carry, inj, metrics, done = packed.packed_round_step(
             slim, carry, inj, metrics, meta, cfg, topo, region, rf, horizon,
-            None, activity[min(t, horizon)])
+            None, activity[min(t, horizon)], last_round=last_round)
         bool(done)
         return slim, carry, inj, metrics
 
@@ -1064,7 +1073,8 @@ def compare_kernels(dev, seed=0, n=100_000):
         name="broadcast_scatter",
         source="corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
         replaces="corrosion_tpu/sim/packed.py:369",
-        equal=bool(torch.equal(got, ref)), max_abs_err=_max_abs_err(got, ref),
+        equal=bool(torch.equal(got, ref)) and _scatter_widths_equal(dev, rng),
+        max_abs_err=_max_abs_err(got, ref),
         ms=_time_ms(lambda: packed.scatter_sending(
             ring_k, sending, dst, slot, ok, f)),
         plain_ms=_time_ms(lambda: packed.scatter_sending_plain(
@@ -1073,6 +1083,9 @@ def compare_kernels(dev, seed=0, n=100_000):
         bound_ms=_bound_ms(sending.numel() * 4 + n * f * 9
                            + ring_rows * w * 4 * 2),
     ))
+    # K2's edge pass (the broadcast's and the sync's lists) on a target
+    # table
+    rows += compare_edge_pass(dev, rng, (), n, w, f, s)
 
     # K3's mask pass at the storm's layout, then the pull on its masks,
     # whose words carry bit 31 (the unsigned-max trap)
@@ -1119,6 +1132,130 @@ def compare_kernels(dev, seed=0, n=100_000):
         if not row["equal"]:
             raise AssertionError(f"{row['name']}: kernel != plain version")
     return rows
+
+
+def _edge_traps(g, dev, lead, n, f):
+    """A target table [*lead, N, F] with the edge pass's traps: -1 and
+    self targets, two partition groups, SUSPECT and DOWN rows, senders not
+    due; the flat delay over two regions (intra 0, inter 1), so both
+    delay classes come."""
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    targets = g.integers(-1, n, (*lead, n, f))
+    me = np.arange(n)[:, None]
+    targets = np.where(g.random((*lead, n, f)) < 0.02, me, targets)
+    group = (g.random((*lead, n)) < 0.1).astype(np.int32)
+    alive = np.where(g.random((*lead, n)) < 0.05,
+                     g.integers(1, 3, (*lead, n)), 0).astype(np.uint8)
+    due = g.random((*lead, n)) < 0.7
+
+    def on(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    topo = Topology(n_regions=2, intra_delay=0, inter_delay=1)
+    return (on(targets, torch.int32), on(group, torch.int32),
+            on(alive, torch.uint8), on(due, torch.bool), topo,
+            regions(n, 2, dev))
+
+
+def _edge_trap_check(got, targets, label):
+    """The edge lists must hold both ok values, self targets and -1
+    targets never ok, and (given slots) both delay classes."""
+    dst, ok, slot = got
+    flat = targets.reshape(ok.shape)
+    n, f = targets.shape[-2:]
+    me = torch.arange(n, device=ok.device).repeat_interleave(f)
+    if not (bool(ok.any()) and not bool(ok.all())):
+        raise AssertionError(f"{label}: ok takes one value only")
+    if bool((ok & ((flat < 0) | (flat == me))).any()):
+        raise AssertionError(f"{label}: a -1 or self target is ok")
+    if not bool((flat == me).any()) or not bool((flat < 0).any()):
+        raise AssertionError(f"{label}: no self or -1 target drawn")
+    if slot is not None and torch.unique(slot).numel() != 2:
+        raise AssertionError(f"{label}: one delay class only")
+    print(f"edge trap {label} reached: ok both ways, -1 and self targets "
+          "never ok", flush=True)
+
+
+def compare_edge_pass(dev, g, lead, n, w, f, s, timed=True):
+    """K2's edge pass at the broadcast's shapes (the flat slot) and the
+    sync's (the due mask, no slot), solo (``lead`` ()) or on the lanes folded into the rows
+    (``lead`` (K,)), each against its plain version; on the lanes each
+    lane is also held to the solo entry."""
+    from corrosion_tpu_torch.sim import packed
+
+    targets, group, alive, due, topo, region = _edge_traps(g, dev, lead, n,
+                                                           f)
+    peers, *_ = _edge_traps(g, dev, lead, n, s)
+    lanes = lead[0] if lead else 1
+    t, d = 40, 2
+    sfx = "_lanes" if lead else ""
+    rows = []
+    for label, tab, due_, topo_ in (("edge_list", targets, None, topo),
+                                    ("edge_list_sync", peers, due, None)):
+        args = (tab, group, alive, due_, topo_, region, t, d)
+        got = packed.edge_list(*args)
+        want = packed.edge_list_plain(*args)
+        equal = all((a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(got, want))
+        _edge_trap_check(got, tab, label + sfx)
+        if lead:
+            solo = packed.edge_list(tab[-1], group[-1], alive[-1],
+                                    None if due_ is None else due_[-1],
+                                    topo_, region, t, d)
+            _solo_trap(label + sfx, [x[-1] for x in got if x is not None],
+                       [x for x in solo if x is not None])
+        e = tab.numel()
+        # the targets in; dst, ok (and slot) out; group, alive (and due or
+        # region) read once
+        nbytes = (e * 4 + e * 4 + e + (e * 4 if topo_ else 0)
+                  + lanes * n * 5 + (lanes * n if due_ is not None else 0)
+                  + (n * 4 if topo_ else 0))
+        rows.append(_row(
+            label + sfx, "corrosion_tpu_torch/kernels/csrc/"
+            "broadcast_scatter.cu",
+            "corrosion_tpu/sim/packed.py:369" if topo_
+            else "corrosion_tpu/sim/packed.py:1138",
+            equal, max(_max_abs_err(a, b) for a, b in zip(got, want)
+                       if a is not None),
+            _timed(timed, lambda: packed.edge_list(*args)),
+            _timed(timed, lambda: packed.edge_list_plain(*args)), nbytes,
+            kernel="edge_list" + sfx))
+    if lead:
+        for row in rows:
+            row.update(lanes=lanes, replaces=row["replaces"] + _VMAP)
+    return rows
+
+
+def _scatter_widths_equal(dev, g):
+    """K2 on the edge pass's lists against its plain version at W = 256
+    (gapstress's rows, eight warps a row) and at W = 3 (a row inside a
+    warp's span), solo and on three lanes."""
+    from corrosion_tpu_torch.sim import packed
+
+    equal = True
+    for n, w in ((GAPSTRESS_N, 256), (1000, 3)):
+        for lead in ((), (3,)):
+            f = 3
+            targets, group, alive, _, topo, region = _edge_traps(
+                g, dev, lead, n, f)
+            sending = _random_words(g, (*lead, n, w), dev, 3)
+            ring0 = _random_words(g, (*lead, 2, n, w), dev, 5)
+            dst, ok, slot = packed.edge_list(targets, group, alive, None,
+                                             topo, region, 7, 2)
+            got, ref = ring0.clone(), ring0.clone()
+            if lead:
+                from corrosion_tpu_torch.sim import lanes as ln
+
+                ln.scatter_lanes(got, sending, dst, slot, ok, f)
+                ln.scatter_lanes_plain(ref, sending, dst, slot, ok, f)
+            else:
+                packed.scatter_sending(got, sending, dst, slot, ok, f)
+                packed.scatter_sending_plain(ref, sending, dst, slot, ok, f)
+            equal &= bool(torch.equal(got, ref))
+    print(f"K2 at W = 256 and W = 3, solo and 3 lanes: equal {equal}",
+          flush=True)
+    return equal
 
 
 def _member_traps(g, pid, pkey):
@@ -1424,59 +1561,90 @@ def compare_gaps_refresh(dev, g, n, w):
     )
 
 
-def compare_converge_fold(dev, g, n, w):
-    """K7 with dead rows and all-ones words (bit 31 set): once with holes
-    (payload stamps only), once complete past the last injection (node
-    stamps and the done flag); then the fault loop's exit mode at the
-    fault storm's horizon 21: before it, at it, and at it with an up row
-    wiped after its sticky stamp (done must fall back to False)."""
-    from corrosion_tpu_torch.sim import packed
+def _record_cases(g, dev, n, w, cfg):
+    """K7's cases at [N, W]: dead rows and all-ones words (bit 31 set),
+    once with holes (payload stamps only), once complete past the last
+    injection (node stamps and the done flag); then the fault loop's exit
+    mode at horizon 21: before it, at it, and at it with an up row wiped
+    after its sticky stamp (done must fall back to False).  Each with a
+    K6 overflow count and an old overflow fraction, above and below the
+    new one."""
     from corrosion_tpu_torch.sim.round import RunMetrics
 
-    cfg, meta = _storm_cfg(n, dev)
-    p = cfg.n_payloads
+    p = 32 * w
     dead = g.random(n) < 0.05
     alive = torch.as_tensor(dead * 2, dtype=torch.uint8, device=dev)
     full = np.full((n, w), 0xFFFFFFFF, dtype=np.uint32)
     holes = full.copy()
     rows = g.random(n) < 0.3
-    holes[rows, : w // 2] &= g.integers(0, 1 << 32, (int(rows.sum()), w // 2),
-                                        dtype=np.uint32)
+    half = max(1, w // 2)
+    holes[rows, :half] &= g.integers(0, 1 << 32, (int(rows.sum()), half),
+                                     dtype=np.uint32)
     holes[dead] &= g.integers(0, 1 << 32, (int(dead.sum()), w),
                               dtype=np.uint32)
     inj = torch.full((w,), -1, dtype=torch.int32, device=dev)
-    metrics = RunMetrics(
-        coverage_at=torch.full((p,), -1, dtype=torch.int32, device=dev),
-        converged_at=torch.as_tensor(
-            np.where(g.random(n) < 0.2, 3, -1), dtype=torch.int32,
-            device=dev),
-        overflow_frac=torch.zeros((), device=dev),
-        order_violations=torch.zeros((), dtype=torch.int32, device=dev),
-    )
+    cells = cfg.n_nodes * cfg.n_writers
+
+    def metrics(old):
+        return RunMetrics(
+            coverage_at=torch.full((p,), -1, dtype=torch.int32, device=dev),
+            converged_at=torch.as_tensor(
+                np.where(g.random(n) < 0.2, 3, -1), dtype=torch.int32,
+                device=dev),
+            overflow_frac=torch.tensor(old, dtype=torch.float32, device=dev),
+            order_violations=torch.zeros((), dtype=torch.int32, device=dev))
+
     wiped = full.copy()
     victim = int(np.flatnonzero(~dead)[0])
     wiped[victim] = 0
-    stamped = metrics._replace(converged_at=metrics.converged_at.clone())
-    stamped.converged_at[victim] = 3
     cases = []
-    for words, t, m, horizon in ((holes, 10, metrics, None),
-                                 (full, 20, metrics, None),
-                                 (full, 19, metrics, 21),
-                                 (full, 20, metrics, 21),
-                                 (wiped, 20, stamped, 21)):
+    for i, (words, t, horizon) in enumerate(((holes, 10, None),
+                                              (full, 20, None),
+                                              (full, 19, 21), (full, 20, 21),
+                                              (wiped, 20, 21))):
+        m = metrics(0.25 if i % 2 else 0.0)
+        if i == 4:
+            m.converged_at[victim] = 3
+        count = torch.tensor(int(g.integers(1, cells // 3)),
+                             dtype=torch.int32, device=dev)
         have = torch.as_tensor(words.view(np.int32), device=dev)
-        args = (have, inj, alive, m, meta, t, cfg, horizon)
-        cases.append((args, packed.converge_record(*args),
-                      packed.converge_record_plain(*args)))
+        cases.append((have, inj, alive, m, t, count, horizon))
+    return cases
+
+
+def compare_converge_fold(dev, g, n, w):
+    """K7 at the storm's shapes on `_record_cases`, its overflow fold
+    included; then the same cases at gapstress's W = 256 (a block a node)
+    and at W = 6 (the one-word path)."""
+    from corrosion_tpu_torch.sim import packed
+
+    cfg, meta = _storm_cfg(n, dev)
+    last = int(meta.round.max())  # a loop's one read a run
+    calls = []
+    for cfg_, n_, w_ in ((cfg, n, w),
+                         (_gapstress(GAPSTRESS_N, dev)[0], GAPSTRESS_N, 256),
+                         (dataclasses.replace(cfg, n_payloads=192), n, 6)):
+        for have, inj, alive, m, t, count, horizon in _record_cases(
+                g, dev, n_, w_, cfg_):
+            args = (have, inj, alive, m, meta, t, cfg_, count, last,
+                    horizon)
+            calls.append((args, packed.converge_record(*args),
+                          packed.converge_record_plain(*args)))
     equal, err = True, 0
-    for _, got, want in cases:
+    for _, got, want in calls:
         e, x = _equal_all(got, want)
         equal, err = equal and e, max(err, x)
-    if [bool(c[2][2]) for c in cases] != [False, True, False, True, False]:
-        raise AssertionError("K7 inputs do not reach both done values in "
-                             "both modes")
-    args = cases[0][0]
-    exit_args = cases[3][0]  # the fault loop's exit mode, done reached
+    flags = [bool(c[2][3]) for c in calls]
+    if flags != [False, True, False, True, False] * 3:
+        raise AssertionError(f"K7 inputs do not reach both done values in "
+                             f"both modes: {flags}")
+    if len({float(c[2][2]) for c in calls[:5]}) < 2:
+        raise AssertionError("K7's overflow fold keeps one value")
+    print(f"K7 at W = {w}, 256 and 6: equal {equal}, done {flags[:5]}",
+          flush=True)
+    args = calls[0][0]
+    exit_args = calls[3][0]  # the fault loop's exit mode, done reached
+    p = cfg.n_payloads
     return dict(
         name="converge_fold",
         source="corrosion_tpu_torch/kernels/csrc/converge_fold.cu",
@@ -1487,10 +1655,10 @@ def compare_converge_fold(dev, g, n, w):
         exit_mode_ms=_time_ms(lambda: packed.converge_record(*exit_args)),
         exit_mode_plain_ms=_time_ms(
             lambda: packed.converge_record_plain(*exit_args)),
-        # have, injected_p, alive, meta.round; converged_at and
-        # coverage_at in and out; the done flag
-        bound_ms=_bound_ms(n * w * 4 + w * 4 + n + p * 4 + n * 4 * 2
-                           + p * 4 * 2 + 1),
+        # have, injected_p, alive; converged_at and coverage_at in and
+        # out; the overflow count and fraction in and out; the done flag
+        bound_ms=_bound_ms(n * w * 4 + w * 4 + n + n * 4 * 2 + p * 4 * 2
+                           + 4 * 3 + 1),
     )
 
 
@@ -5343,8 +5511,9 @@ WIDE_LANES = 16
 #: K10's, K9's reach and K11's lane entries
 LANE_STORM_ROWS = ("threefry_lanes", "sample_targets_lanes",
                    "merge_entries_lanes", "broadcast_scatter_lanes",
-                   "sync_masks_lanes", "sync_pull_lanes", "gaps_refresh_lanes",
-                   "converge_fold_lanes", "word_phases_lanes")
+                   "edge_list_lanes", "sync_masks_lanes", "sync_pull_lanes",
+                   "gaps_refresh_lanes", "converge_fold_lanes",
+                   "word_phases_lanes")
 LANE_FAULT_ROWS = LANE_STORM_ROWS + ("broadcast_scatter_lossy_lanes",
                                      "fault_reach_lanes",
                                      "node_faults_lanes")
@@ -5352,6 +5521,7 @@ LANE_FAULT_ROWS = LANE_STORM_ROWS + ("broadcast_scatter_lossy_lanes",
 SOLO_OF_LANE = {"sample_targets_lanes": "sample_targets",
                 "merge_entries_lanes": "merge_entries",
                 "broadcast_scatter_lanes": "broadcast_scatter",
+                "edge_list_lanes": "edge_list",
                 "broadcast_scatter_lossy_lanes": "broadcast_scatter_lossy",
                 "sync_masks_lanes": "sync_masks",
                 "sync_pull_lanes": "sync_pull",
@@ -5590,6 +5760,8 @@ def compare_lane_scatter(dev, g, lanes, n, w, f, timed=True):
             row.update(bound_ms=max(row["bound_ms"], ops / rate * 1e3),
                        bound_by="operations", ops=ops, int32_ops_per_s=rate)
         rows.append(row)
+    # K2's edge pass on the lanes folded into their rows
+    rows += compare_edge_pass(dev, g, (lanes,), n, w, f, f, timed)
     # the 2^31 trap: WIDE_LANES lanes of E = 3N edges and P = 32W payloads
     wide = WIDE_LANES
     if n == STORM_N and wide * n * f * w * 32 < 1 << 31:
@@ -5664,6 +5836,7 @@ def compare_lane_record(dev, g, lanes, n, w, timed=True):
     lanes)."""
     from corrosion_tpu_torch.sim import gaps
     from corrosion_tpu_torch.sim import lanes as ln
+    from corrosion_tpu_torch.sim import packed
     from corrosion_tpu_torch.sim.round import RunMetrics
 
     cfg, meta = _storm_cfg(n, dev)
@@ -5706,21 +5879,49 @@ def compare_lane_record(dev, g, lanes, n, w, timed=True):
         converged_at=torch.as_tensor(
             np.where(g.random((lanes, n)) < 0.2, 3, -1), dtype=torch.int32,
             device=dev),
-        overflow_frac=torch.zeros(lanes, device=dev),
+        overflow_frac=torch.as_tensor(
+            np.where(np.arange(lanes) % 2, 0.25, 0.0), dtype=torch.float32,
+            device=dev),
         order_violations=torch.zeros(lanes, dtype=torch.int32, device=dev))
+    # each lane its own K6 count
+    counts = torch.as_tensor(g.integers(1, n * cfg.n_writers // 3, lanes),
+                             dtype=torch.int32, device=dev)
+    last = int(meta.round.max())  # a loop's one read a run
     cases = []
     for t, horizon in ((20, None), (20, 21), (19, 21)):
-        args = (words, inj, dead, metrics, meta, t, cfg, horizon)
+        args = (words, inj, dead, metrics, meta, t, cfg, counts, last,
+                horizon)
         cases.append((args, ln.converge_record_lanes(*args),
                       ln.converge_record_lanes_plain(*args)))
     eq, err = True, 0
     for _, got, want in cases:
         e, x = _equal_all(got, want)
         eq, err = eq and e, max(err, x)
-    done = cases[0][1][2].tolist()
-    if len(set(done)) < 2 or len(set(cases[1][1][2].tolist())) < 2 or any(
-            cases[2][1][2].tolist()):
+    done = cases[0][1][3].tolist()
+    if len(set(done)) < 2 or len(set(cases[1][1][3].tolist())) < 2 or any(
+            cases[2][1][3].tolist()):
         raise AssertionError("K7 lane flags miss a value in a mode")
+    if len(set(cases[0][1][2].tolist())) < 2:
+        raise AssertionError("K7 lane overflow fractions take one value")
+    _solo_trap("converge_fold lanes", [x[-1] for x in cases[1][1]],
+               packed.converge_record(
+                   words[-1], inj[-1], dead[-1],
+                   RunMetrics(*(x[-1] for x in metrics)), meta, 20, cfg,
+                   counts[-1], last, 21))
+    # gapstress's W = 256 (a block a node) and the one-word path, 3 lanes
+    for cfg_, n_, w_ in ((_gapstress(GAPSTRESS_N, dev)[0], GAPSTRESS_N, 256),
+                         (dataclasses.replace(cfg, n_payloads=192), 1000, 6)):
+        cfg_ = dataclasses.replace(cfg_, n_nodes=n_)
+        for have, inj_, alive, m, t, count, horizon in _record_cases(
+                g, dev, n_, w_, cfg_)[1:4]:
+            args = (torch.stack([have] * 3), torch.stack([inj_] * 3),
+                    torch.stack([alive] * 3),
+                    RunMetrics(*(torch.stack([x] * 3) for x in m)), meta, t,
+                    cfg_, torch.stack([count, count + 1, count * 0]),
+                    last, horizon)
+            e, x = _equal_all(ln.converge_record_lanes(*args),
+                              ln.converge_record_lanes_plain(*args))
+            eq, err = eq and e, max(err, x)
     print(f"lane trap converge_fold lanes reached: done {done}", flush=True)
     args = cases[0][0]
     rows.append(_lane_row(
@@ -5729,8 +5930,8 @@ def compare_lane_record(dev, g, lanes, n, w, timed=True):
         "corrosion_tpu/sim/packed.py:871", eq, err,
         _timed(timed, lambda: ln.converge_record_lanes(*args)),
         _timed(timed, lambda: ln.converge_record_lanes_plain(*args)),
-        lanes * (n * w * 4 + w * 4 + n + n * 4 * 2 + p * 4 * 2 + 1)
-        + p * 4, lanes))
+        lanes * (n * w * 4 + w * 4 + n + n * 4 * 2 + p * 4 * 2 + 4 * 3 + 1),
+        lanes))
     return rows
 
 
@@ -6197,7 +6398,9 @@ def profile_ensemble(dev, lanes=ENSEMBLE_LANES, rounds=3, faults=False):
 REDESIGNED_SYMBOLS = ("merge_scatter_kernel", "merge_apply_kernel",
                       "gaps_refresh_kernel", "gaps_refresh_wide_kernel",
                       "sample_targets_kernel", "randint_kernel",
-                      "sync_masks_kernel", "sync_pull_kernel")
+                      "sync_masks_kernel", "sync_pull_kernel",
+                      "converge_record_kernel", "broadcast_rows_kernel",
+                      "edge_list_kernel")
 
 
 def in_path_ms(prof):
@@ -10703,10 +10906,12 @@ def profile_packed_lanes(dev, lanes=ENSEMBLE_LANES, start=5, rounds=3,
     region = regions(cfg.n_nodes, 1, dev)
     activity = faults.host_activity(fplan)
     seeds = lane_plan_seeds(range(lanes), dev)
+    last_round = int(meta.round.max())  # run_lanes' one read a run
 
     def step(batch):
         batch, done = ln.packed_lane_step(batch, meta, cfg, topo, region,
-                                          fplan, activity, telemetry)
+                                          fplan, activity, telemetry,
+                                          last_round=last_round)
         done.tolist()  # the loop's one host read a round
         return batch
 
@@ -11559,14 +11764,18 @@ def profile_axis_lanes(dev, which, lanes=ENSEMBLE_LANES, start=5, rounds=3):
     cfg, topo, meta, seeds, _ = axis_path_case(which, dev)
     region = regions(cfg.n_nodes, topo.n_regions, dev)
 
+    last_round = int(meta.round.max())  # the loops' one read a run
+
     def step(loop):
         if lanes is None:
             slim, carry, inj, metrics = loop
             slim, carry, inj, metrics, done = packed_round_step(
-                slim, carry, inj, metrics, meta, cfg, topo, region)
+                slim, carry, inj, metrics, meta, cfg, topo, region,
+                last_round=last_round)
             loop = (slim, carry, inj, metrics)
         else:
-            loop, done = ln.packed_lane_step(loop, meta, cfg, topo, region)
+            loop, done = ln.packed_lane_step(loop, meta, cfg, topo, region,
+                                             last_round=last_round)
         done.tolist()  # the loop's one host read a round
         return loop
 
@@ -12390,14 +12599,18 @@ def profile_proto_lanes(dev, which, lanes=ENSEMBLE_LANES, start=5, rounds=3):
     meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every({}))
     region = regions(cfg.n_nodes, topo.n_regions, dev)
 
+    last_round = int(meta.round.max())  # the loops' one read a run
+
     def step(loop):
         if lanes is None:
             slim, carry, inj, metrics = loop
             slim, carry, inj, metrics, done = packed_round_step(
-                slim, carry, inj, metrics, meta, cfg, topo, region)
+                slim, carry, inj, metrics, meta, cfg, topo, region,
+                last_round=last_round)
             loop = (slim, carry, inj, metrics)
         else:
-            loop, done = ln.packed_lane_step(loop, meta, cfg, topo, region)
+            loop, done = ln.packed_lane_step(loop, meta, cfg, topo, region,
+                                             last_round=last_round)
         done.tolist()  # the loop's one host read a round
         return loop
 
@@ -12743,9 +12956,9 @@ def main() -> int:
                  goldens.FAULT_STORM_512_SEED7, "fault_storm_512_seed7")
 
     # path 1, the faultless storm: K1-K8 (K3 with its mask pass)
-    faultless_rows = ["sample_targets", "broadcast_scatter", "sync_masks",
-                      "sync_pull", "merge_entries", "threefry", "gaps_refresh",
-                      "converge_fold", "word_phases"]
+    faultless_rows = ["sample_targets", "broadcast_scatter", "edge_list",
+                      "sync_masks", "sync_pull", "merge_entries", "threefry",
+                      "gaps_refresh", "converge_fold", "word_phases"]
     kernels.reset_launch_counts()
     big = config_write_storm_100k(seed=0, device=dev, return_state=True)
     launches = _path_launches(kernels, faultless_rows, "storm_100k")
@@ -13739,9 +13952,10 @@ def main() -> int:
             print("profile_proto_ensemble: " + json.dumps(prof), flush=True)
 
     for row in rows:
-        row["launches"] = (launches if row["name"] in faultless_rows
-                           else fault_launches)[row["name"]]
-        row["fault_path_launches"] = fault_launches[row["name"]]
+        kern = row.get("kernel", row["name"])
+        row["launches"] = (launches if kern in faultless_rows
+                           else fault_launches)[kern]
+        row["fault_path_launches"] = fault_launches[kern]
     for row in dense_kernel_rows:
         path = churn_launches_5 if row["name"] in (
             "sample_uniform", "swim_full") else heal_launches

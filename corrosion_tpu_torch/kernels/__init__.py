@@ -5,15 +5,17 @@ replaces:
 
 - K1 `SAMPLE_TARGETS` — `sim.pswim.sample_members` (its bucket draw
   in the kernel);
-- K2 `BROADCAST_SCATTER` — `sim.packed.scatter_sending`;
+- K2 `BROADCAST_SCATTER` — `sim.packed.scatter_sending`; its edge pass
+  `EDGE_LIST` (K2's source) — `sim.packed.edge_list`, the edge lists of
+  the broadcast and the sync;
 - K3 `SYNC_PULL` — `sim.packed.sync_pull`, and its mask pass
   `SYNC_MASKS` (K3's source) — `sim.packed.sync_masks`;
 - K4 `MERGE_ENTRIES` — `sim.pswim.merge_entries`;
 - K5 `THREEFRY`, `RANDINT` — `sim.rng.split`, `fold_in`, `bits`,
   `randint`;
 - K6 `GAPS_REFRESH` — `sim.gaps.refresh_gaps`;
-- K7 `CONVERGE_ROWS`, `CONVERGE_FINISH` — `sim.packed.converge_record`
-  (with the fault loop's exit mode);
+- K7 `CONVERGE_RECORD` — `sim.packed.converge_record` (one launch, the
+  overflow fold in it; with the fault loop's exit mode);
 - K8 `WORD_INJECT`, `WORD_SPEND`, `WORD_DELIVER` —
   `sim.packed.inject_packed`, `spend_relay`, `deliver_packed`;
 - K9 `FAULT_EDGES`, `FAULT_REACH` — `sim.faults.fault_edge_block`,
@@ -103,8 +105,9 @@ replaces:
   on the lanes folded into its rows `SYNC_MASKS_LANES` —
   `sim.packed.sync_masks`; K6
   `GAPS_REFRESH_LANES` — `sim.gaps.refresh_gaps_lanes`; K7
-  `CONVERGE_ROWS_LANES`, `CONVERGE_FINISH_LANES` —
-  `sim.lanes.converge_record_lanes`; K8 `WORD_INJECT_LANES`,
+  `CONVERGE_RECORD_LANES` — `sim.lanes.converge_record_lanes`; K2's edge
+  pass on the lanes folded into its rows `EDGE_LIST_LANES` —
+  `sim.packed.edge_list`; K8 `WORD_INJECT_LANES`,
   `WORD_SPEND_LANES`, `WORD_DELIVER_LANES` — `sim.lanes.inject_lanes`,
   `spend_lanes`, `deliver_lanes`; K9 `FAULT_REACH_LANES` —
   `sim.faults.fault_reach_lanes_`; K11 `NODE_FAULTS_LANES` —
@@ -241,7 +244,7 @@ SAMPLE_TARGETS = Kernel(
     "sample_targets", "sample_targets.cu", "corro_sample_targets", 5
 )
 BROADCAST_SCATTER = Kernel(
-    "broadcast_scatter", "broadcast_scatter.cu", "corro_broadcast_scatter", 4
+    "broadcast_scatter", "broadcast_scatter.cu", "corro_broadcast_scatter", 5
 )
 BROADCAST_SCATTER_LOSSY = Kernel(
     "broadcast_scatter_lossy", "broadcast_scatter.cu",
@@ -257,12 +260,10 @@ RANDINT = Kernel("randint", "threefry.cu", "corro_randint", 5)
 GAPS_REFRESH = Kernel(
     "gaps_refresh", "gaps_refresh.cu", "corro_gaps_refresh", 6
 )
-CONVERGE_ROWS = Kernel(
-    "converge_rows", "converge_fold.cu", "corro_converge_rows", 7
+CONVERGE_RECORD = Kernel(
+    "converge_record", "converge_fold.cu", "corro_converge_record", 10
 )
-CONVERGE_FINISH = Kernel(
-    "converge_finish", "converge_fold.cu", "corro_converge_finish", 6
-)
+EDGE_LIST = Kernel("edge_list", "broadcast_scatter.cu", "corro_edge_list", 7)
 WORD_INJECT = Kernel("word_inject", "word_phases.cu", "corro_word_inject", 5)
 WORD_SPEND = Kernel("word_spend", "word_phases.cu", "corro_word_spend", 4)
 WORD_DELIVER = Kernel(
@@ -418,7 +419,7 @@ MERGE_ENTRIES_LANES = Kernel("merge_entries_lanes", "merge_entries.cu",
                              "corro_merge_entries", 6)
 BROADCAST_SCATTER_LANES = Kernel("broadcast_scatter_lanes",
                                  "broadcast_scatter.cu",
-                                 "corro_broadcast_scatter_lanes", 5)
+                                 "corro_broadcast_scatter", 5)
 BROADCAST_SCATTER_LOSSY_LANES = Kernel(
     "broadcast_scatter_lossy_lanes", "broadcast_scatter.cu",
     "corro_broadcast_scatter_lossy_lanes", 11)
@@ -428,10 +429,10 @@ SYNC_MASKS_LANES = Kernel("sync_masks_lanes", "sync_pull.cu",
                           "corro_sync_masks", 6)
 GAPS_REFRESH_LANES = Kernel("gaps_refresh_lanes", "gaps_refresh.cu",
                             "corro_gaps_refresh_lanes", 7)
-CONVERGE_ROWS_LANES = Kernel("converge_rows_lanes", "converge_fold.cu",
-                             "corro_converge_rows_lanes", 8)
-CONVERGE_FINISH_LANES = Kernel("converge_finish_lanes", "converge_fold.cu",
-                               "corro_converge_finish_lanes", 7)
+CONVERGE_RECORD_LANES = Kernel("converge_record_lanes", "converge_fold.cu",
+                               "corro_converge_record", 10)
+EDGE_LIST_LANES = Kernel("edge_list_lanes", "broadcast_scatter.cu",
+                         "corro_edge_list", 7)
 WORD_INJECT_LANES = Kernel("word_inject_lanes", "word_phases.cu",
                            "corro_word_inject_lanes", 6)
 WORD_SPEND_LANES = Kernel("word_spend_lanes", "word_phases.cu",
@@ -619,12 +620,13 @@ ORDER_CHECK_WORDS_LANES = Kernel("order_check_words_lanes", "order_check.cu",
 PORTED = {
     "sample_targets": (SAMPLE_TARGETS,),
     "broadcast_scatter": (BROADCAST_SCATTER,),
+    "edge_list": (EDGE_LIST,),
     "sync_pull": (SYNC_PULL,),
     "sync_masks": (SYNC_MASKS,),
     "merge_entries": (MERGE_ENTRIES,),
     "threefry": (THREEFRY, RANDINT),
     "gaps_refresh": (GAPS_REFRESH,),
-    "converge_fold": (CONVERGE_ROWS, CONVERGE_FINISH),
+    "converge_fold": (CONVERGE_RECORD,),
     "word_phases": (WORD_INJECT, WORD_SPEND, WORD_DELIVER),
     "fault_edges": (FAULT_EDGES, FAULT_REACH),
     "broadcast_scatter_lossy": (BROADCAST_SCATTER_LOSSY,),
@@ -676,11 +678,12 @@ PORTED = {
     "sample_targets_lanes": (SAMPLE_TARGETS_LANES,),
     "merge_entries_lanes": (MERGE_ENTRIES_LANES,),
     "broadcast_scatter_lanes": (BROADCAST_SCATTER_LANES,),
+    "edge_list_lanes": (EDGE_LIST_LANES,),
     "broadcast_scatter_lossy_lanes": (BROADCAST_SCATTER_LOSSY_LANES,),
     "sync_pull_lanes": (SYNC_PULL_LANES,),
     "sync_masks_lanes": (SYNC_MASKS_LANES,),
     "gaps_refresh_lanes": (GAPS_REFRESH_LANES,),
-    "converge_fold_lanes": (CONVERGE_ROWS_LANES, CONVERGE_FINISH_LANES),
+    "converge_fold_lanes": (CONVERGE_RECORD_LANES,),
     "word_phases_lanes": (WORD_INJECT_LANES, WORD_SPEND_LANES,
                           WORD_DELIVER_LANES),
     "fault_reach_lanes": (FAULT_REACH_LANES,),
@@ -784,6 +787,7 @@ TRACE_LANE_ROWS = ("trace_counts_dense_lanes", "trace_wire_rows_lanes",
 #: the rows of the lane entries, which only a seed ensemble launches
 LANE_ROWS = ("threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
              "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
+             "edge_list_lanes",
              "sync_pull_lanes", "sync_masks_lanes", "gaps_refresh_lanes", "converge_fold_lanes",
              "word_phases_lanes", "fault_reach_lanes", "node_faults_lanes",
              "dense_phases_lanes", "dense_sync_lanes", "dense_gaps_lanes",
@@ -819,8 +823,8 @@ __all__ = [
     "BROADCAST_PULL", "BROADCAST_PULL_LOSSY", "BROADCAST_PULL_TIERED",
     "DEGREE_CAPS_SCHED", "DENSE_DELIVER_FIFO", "DETECT_FULL",
     "DETECT_PARTIAL", "DENSE_PULL", "BROADCAST_SCATTER_LANES",
-    "BROADCAST_SCATTER_LOSSY_LANES", "CONVERGE_FINISH_LANES",
-    "CONVERGE_ROWS_LANES", "FAULT_REACH_LANES", "GAPS_REFRESH_LANES",
+    "BROADCAST_SCATTER_LOSSY_LANES", "CONVERGE_RECORD_LANES",
+    "EDGE_LIST", "EDGE_LIST_LANES", "FAULT_REACH_LANES", "GAPS_REFRESH_LANES",
     "LANE_ROWS", "MERGE_ENTRIES_LANES", "NODE_FAULTS_LANES",
     "RANDINT_LANES", "SAMPLE_TARGETS_LANES", "SYNC_MASKS_LANES",
     "SYNC_PULL_LANES",
@@ -860,7 +864,7 @@ __all__ = [
     "WORD_DELIVER_FIFO_LANES", "ORDER_CHECK_WORDS_LANES",
     "BROADCAST_SCATTER", "BROADCAST_SCATTER_JITTER",
     "BROADCAST_SCATTER_LOSSY", "BROADCAST_SCATTER_TIERED", "BUDGET_WORDS",
-    "CONVERGE_FINISH", "CONVERGE_ROWS", "DEGREE_CAPS", "DENSE_BROADCAST",
+    "CONVERGE_RECORD", "DEGREE_CAPS", "DENSE_BROADCAST",
     "DENSE_BROADCAST_FAULT", "DENSE_BROADCAST_TIERED", "DENSE_DELIVER",
     "DENSE_GAPS_FINISH", "DENSE_GAPS_FINISH_EXIT", "DENSE_GAPS_ROWS",
     "DENSE_GAPS_ROWS_EXIT", "DENSE_INJECT", "DENSE_SYNC", "DENSE_SYNC_DELAY",

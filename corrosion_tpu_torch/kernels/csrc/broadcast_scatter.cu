@@ -1,28 +1,49 @@
-// K2: broadcast fan-out scatter into the word delay ring.
+// K2: broadcast fan-out scatter into the word delay ring, and the edge
+// pass that builds the edge lists the packed round's scatters and pulls
+// read.
 //
 // Replaces the ring scatter of corrosion_tpu/sim/packed.py:369
 // broadcast_packed (packed.py:507-512: `inflight.at[flat_idx].max(sent)`
 // on a dense u8 [D, N, P] ring, after unpacking the sending words).
 //
-// Edge e = (src = e / fanout, dst[e]) with `ok[e]` built in plain torch
-// exactly as packed.py:435-441.  For every word k of an ok edge the
-// kernel ORs sending[src, k] into ring[slot[e], dst[e], k], with
+// Edge e = (src = e / fanout, dst[e]).  For every word k of an ok edge
+// the kernel ORs sending[src, k] into ring[slot[e], dst[e], k], with
 // slot[e] = (t + delay[e]) % D.  JAX keeps the ring dense u8 only
 // because XLA has no OR scatter (packed.py:285-293); the sent values
 // are 0/1, so a u8 max per payload and a u32 OR per word set the same
 // bits.  OR is order-independent, so the atomics keep the result
 // deterministic whatever order the edges land in.
 //
-// Bound on the H100: bytes.  Each edge reads its sender's W words (the
-// E = N*fanout rows are a regular fanout-fold repeat of the N sending
-// rows, so consecutive threads read the same row and it comes from L2)
-// and read-modify-writes W ring words at a random row.  Design: one
-// thread per (edge, word), so a warp covers two edges' rows as
-// contiguous 64-byte runs; a zero word issues no atomic at all, which
-// skips most of the ring traffic once relay budgets run out.
+// Bound on the H100: bytes — the sending rows once (N*W*4), the edge
+// arrays, the touched ring rows in and out.  Design (broadcast_rows_kernel):
+// one thread per (node, word).  The thread loads sending[node, k] once
+// and skips a zero word; then, for each of the node's F consecutive
+// edges, it reads ok/dst/slot (the node's other threads read the same
+// addresses: one transaction) and issues one atomicOr (a RED: the result
+// is unused).  The sending rows are read once, not F times, and a warp's
+// RED for one edge covers the destination row's words contiguously, one
+// L2 request a row.  A thread per (node, run of 4 words) with one 128-bit
+// load took twice as long on an H100 80GB HBM3 (0.0309 ms at the storm's
+// shapes against 0.0143): its REDs split each destination row into four
+// requests.
 //
-// K10, the second entry point, runs the same kernel with the wire's
-// per-(edge, payload) loss drawn in the kernel, from up to two streams
+// The edge pass (edge_list_kernel; corro_edge_list, counted as edge_list
+// and edge_list_lanes) turns a target table into those edge lists: the
+// glue of corrosion_tpu/sim/packed.py:435-441 (with topology.py:183
+// edge_alive and the flat branch of :157 edge_delay) and :1178-1184 (the
+// sync's, with due[src]).  One thread per edge: dst = max(target, 0), ok
+// = a real target, both ends in one partition group and up, not the
+// sender and, given `due`, the sender due; given the flat delay (region,
+// intra, inter), slot = (t + (region[src] == region[dst] ? intra :
+// inter)) % D.  The group, alive and region tables (0.5 MB at the storm)
+// stay in L2; no int64 index is formed.  Bound: bytes — the targets in,
+// dst, ok and slot out, the tables once.  The lanes are folded into the
+// rows: row r = lane * N + src, edge e = r * F + j, and a lane's targets
+// index its own rows of group, alive and due (no edge crosses a lane).
+//
+// K10, the second entry point, runs broadcast_scatter_kernel — one thread
+// per (edge, word), K2's body before its redesign, kept for the streams —
+// with the wire's per-(edge, payload) loss drawn in the kernel, from up to two streams
 // whose drops OR (a bit survives only if both draws keep it):
 //   topology  the flat Topology.loss of corrosion_tpu/sim/topology.py:267
 //             edge_payload_drop (called at packed.py:451): byte e*P + q
@@ -122,11 +143,12 @@
 // threshold) inside it; dst's rows are a random gather, served from L2
 // when the sending words fit (6.4 MB at the storm).
 //
-// The lane entries (corro_broadcast_scatter_lanes for K2,
-// corro_broadcast_scatter_lossy_lanes for K10's fault stream) run the
-// scatter over the seed ensemble's lanes (B16,
-// corrosion_tpu/campaign/ensemble.py:114 run_ensemble) as a grid
-// dimension: blockIdx.y is the lane, whose
+// K2's lane entry (corro_broadcast_scatter with lanes > 1, counted as
+// broadcast_scatter_lanes) folds the lanes into its rows: row r = lane * N + node reads sending row r and edges r * F +
+// j, and ORs into lane r / N's ring.  K10's lane entry
+// (corro_broadcast_scatter_lossy_lanes) runs the scatter over the seed
+// ensemble's lanes (B16, corrosion_tpu/campaign/ensemble.py:114
+// run_ensemble) as a grid dimension: blockIdx.y is the lane, whose
 // ring [D, N, W], sending words, edges (lane-local dst) and thresholds
 // are its slices of the [K, ...] tensors.  K10's lane entry reads the
 // lane's phase key and its plan seed (`seeds`, the per-lane
@@ -445,45 +467,111 @@ __global__ void broadcast_pull_kernel(
   if (threadIdx.x == 0 && lost_block) atomicAdd(dropped, lost_block);
 }
 
+// -- K2 and the edge pass ---------------------------------------------------
+
+// Edge e of folded row r (r = lane * N + src, e = r * F + j) from
+// targets [rows * F] (rows = lanes * N): JAX's packed.py:435-441 (and
+// :1178-1184 with due[src]) and, given `region` [N] (shared by the
+// lanes), the flat edge_delay's slot.  group and alive are [rows], due
+// [rows] or null.  A target past N is no node: never ok.
+__global__ void edge_list_kernel(
+    const int32_t* __restrict__ targets, const int32_t* __restrict__ group,
+    const uint8_t* __restrict__ alive, const bool* __restrict__ due,
+    const int32_t* __restrict__ region, int32_t* __restrict__ dst,
+    bool* __restrict__ ok, int32_t* __restrict__ slot, int n, int fanout,
+    int t, int d_slots, int intra, int inter, uint32_t total) {
+  const uint32_t e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const uint32_t r = e / (uint32_t)fanout;
+  const uint32_t lane = r / (uint32_t)n;
+  const int src = (int)(r - lane * (uint32_t)n);
+  const int tgt = targets[e];
+  const int d = tgt > 0 ? tgt : 0;
+  const size_t peer = (size_t)lane * n + d;
+  dst[e] = d;
+  ok[e] = tgt >= 0 && tgt < n && d != src && alive[r] == 0 &&
+          alive[peer] == 0 && group[r] == group[peer] &&
+          (due == nullptr || due[r]);
+  if (region != nullptr) {
+    const int delay = d < n && region[src] == region[d] ? intra : inter;
+    slot[e] = (t + delay) % d_slots;
+  }
+}
+
+// K2: thread i = (row r, word k) of the folded rows (r = lane * N + node).
+__global__ void __launch_bounds__(256) broadcast_rows_kernel(
+    uint32_t* __restrict__ ring, const uint32_t* __restrict__ sending,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ slot,
+    const bool* __restrict__ ok, int n, int d_slots, int w, int fanout,
+    uint32_t total) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const uint32_t r = i / (uint32_t)w;
+  const int k = (int)(i - r * (uint32_t)w);
+  const uint32_t x = sending[i];
+  if (x == 0u) return;
+  const uint32_t lane = r / (uint32_t)n;
+  uint32_t* lring = ring + (size_t)lane * d_slots * n * w + k;
+  for (int j = 0; j < fanout; ++j) {
+    const uint32_t e = r * (uint32_t)fanout + j;
+    if (!ok[e]) continue;
+    const int d = dst[e];
+    const int s = slot[e];
+    // jnp scatters drop out-of-range updates; so does this one
+    if (d < 0 || d >= n || s < 0 || s >= d_slots) continue;
+    atomicOr(lring + ((size_t)s * n + d) * w, x);
+  }
+}
+
 }  // namespace
 
+// K2, solo (lanes 1) and on the lanes folded into the rows: ring [lanes,
+// D, N, W], sending [lanes, N, W], dst, slot and ok [lanes, N * F]
+// (lane-local dst).
 extern "C" int corro_broadcast_scatter(void* ring, const void* sending,
                                        const void* dst, const void* slot,
                                        const void* ok, int n, int d_slots,
-                                       int w, int fanout, void* stream) {
-  if (n <= 0 || w <= 0 || fanout <= 0) return (int)cudaErrorInvalidValue;
-  int n_edges = n * fanout;
-  size_t total = (size_t)n_edges * w;
-  int threads = 256;
-  unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  broadcast_scatter_kernel<false, false>
-      <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                                       int w, int fanout, int lanes,
+                                       void* stream) {
+  if (n <= 0 || w <= 0 || fanout <= 0 || d_slots <= 0 || lanes <= 0 ||
+      lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  const unsigned long long rows = (unsigned long long)lanes * n;
+  const unsigned long long total = rows * w;
+  // edge and thread indices are u32
+  if (rows * fanout >= (1ull << 32) || total >= (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  broadcast_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
-      (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
-      nullptr, nullptr, nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u,
-      0u, 0, 0u, 1u, 0u, 0);
+      (const int32_t*)slot, (const bool*)ok, n, d_slots, w, fanout,
+      (uint32_t)total);
   return (int)cudaGetLastError();
 }
 
-// K2's lane entry: ring [lanes, D, N, W], sending [lanes, N, W], dst,
-// slot and ok [lanes, E].
-extern "C" int corro_broadcast_scatter_lanes(void* ring, const void* sending,
-                                             const void* dst, const void* slot,
-                                             const void* ok, int n,
-                                             int d_slots, int w, int fanout,
-                                             int lanes, void* stream) {
-  if (n <= 0 || w <= 0 || fanout <= 0 || lanes <= 0 || lanes > 65535)
+// The edge pass: targets [lanes, N, F] into dst, ok and (given `region`)
+// slot [lanes, N * F]; `due` [lanes, N] or null; `group`, `alive`
+// [lanes, N]; `region` [N] with the flat delay's intra and inter classes,
+// t and D, or null (then `slot` is not written and may be null).
+extern "C" int corro_edge_list(const void* targets, const void* group,
+                               const void* alive, const void* due,
+                               const void* region, void* dst, void* ok,
+                               void* slot, int n, int fanout, int lanes,
+                               int t, int d_slots, int intra, int inter,
+                               void* stream) {
+  const unsigned long long total =
+      (unsigned long long)lanes * (unsigned long long)n * fanout;
+  if (n <= 0 || fanout <= 0 || lanes <= 0 || total >= (1ull << 32) ||
+      (region != nullptr &&
+       (slot == nullptr || d_slots <= 0 || t < 0 || intra < 0 || inter < 0)))
     return (int)cudaErrorInvalidValue;
-  int n_edges = n * fanout;
-  size_t total = (size_t)n_edges * w;
-  int threads = 256;
-  unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  broadcast_scatter_kernel<false, false>
-      <<<dim3(blocks, lanes), threads, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)ring, (const uint32_t*)sending, (const int32_t*)dst,
-      (const int32_t*)slot, (const bool*)ok, nullptr, nullptr, nullptr,
-      nullptr, nullptr, nullptr, nullptr, n, d_slots, w, fanout, n_edges, 0u,
-      0u, 0, 0u, 1u, 0u, 0);
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  edge_list_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)targets, (const int32_t*)group, (const uint8_t*)alive,
+      (const bool*)due, (const int32_t*)region, (int32_t*)dst, (bool*)ok,
+      (int32_t*)slot, n, fanout, t, d_slots, intra, inter, (uint32_t)total);
   return (int)cudaGetLastError();
 }
 

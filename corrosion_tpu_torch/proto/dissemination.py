@@ -100,7 +100,9 @@ def pull_session_ok_lanes(ok: torch.Tensor, faults, src: torch.Tensor,
     """`pull_session_ok` over a seed ensemble's lanes (B16v): ok and dst
     [K, E] (lane-local ids), src [1, E]; the plan's round slice is shared,
     so the lanes fold into the edge axis of one K9 (K9m) session query,
-    which draws nothing."""
+    which draws nothing; src may be None without a plan."""
+    if faults is None:
+        return ok
     lanes = ok.shape[0]
     return pull_session_ok(ok.reshape(-1), faults,
                            src.expand(lanes, -1).reshape(-1),

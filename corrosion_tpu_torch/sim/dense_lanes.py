@@ -602,8 +602,7 @@ def sync_step_lanes(state: SimState, meta: PayloadMeta, cfg: SimConfig,
     # the cadence before every use of due: the sessions' ok and the re-arm
     due = cadence_due(state.sync_countdown <= 0, cfg)
     peers = sample_member_targets_lanes(state, cfg, k_peers, s)
-    src, dst, ok = _edges(state, peers)
-    ok &= due[:, src[0].long()]
+    src, dst, ok = _edges(state, peers, due)
     sdelay = None
     if faults is not None:
         # the refused count is taken before the mask clears them

@@ -126,16 +126,18 @@ from .faults import (
 from .gaps import refresh_gaps_lanes
 from .invariants import count_order_violations_lanes_
 from .packed import (
-    CONVERGE_ROWS_PER_BLOCK,
     JITTER_MAX,
     PackedCarry,
     Planes,
     _check_budget,
     budget_prefix_words_plain,
+    edge_list,
+    launch_converge_record,
     planes_dec_,
     pack_state,
     planes_set_,
     scatter_pull_plain,
+    senders,
     sync_masks,
     unpack_into_state,
 )
@@ -659,11 +661,15 @@ def sync_pull_lanes(masks, miss, peers, ok, ring, slot: int, sdelay=None,
 
 def converge_record_lanes_plain(have, inj, alive, metrics: RunMetrics,
                                 meta: PayloadMeta, t: int, cfg: SimConfig,
+                                n_overflow, last_round: int,
                                 horizon: Optional[int] = None):
-    """Plain version of K7's lane entries: the solo record per lane."""
+    """Plain version of K7's lane entry: the solo record per lane."""
     p = cfg.n_payloads
     c = cfg.chunks_per_version
     up = alive == ALIVE
+    overflow_frac = torch.maximum(
+        metrics.overflow_frac,
+        overflow_fraction(n_overflow, cfg.n_nodes * cfg.n_writers))
     comp_w = all_chunks_words(have, cfg)
     act_w = smear_groups(fold_any(inj, c) & group_low_bits_mask(c), c)
     masked = torch.where(up[..., None], comp_w, ONES)
@@ -681,46 +687,34 @@ def converge_record_lanes_plain(have, inj, alive, metrics: RunMetrics,
     done = (meta.round <= t + 1).all() & (settled | ~up).all(dim=1)
     if horizon is not None and t + 1 < horizon:
         done = torch.zeros_like(done)
-    return coverage_at, converged_at, done
+    return coverage_at, converged_at, overflow_frac, done
 
 
 def converge_record_lanes(have, inj, alive, metrics: RunMetrics,
                           meta: PayloadMeta, t: int, cfg: SimConfig,
+                          n_overflow, last_round: int,
                           horizon: Optional[int] = None):
     """`packed.converge_record` per lane: (coverage_at i32[K, P],
-    converged_at i32[K, N], done bool[K]) — each lane's stamps and exit
+    converged_at i32[K, N], overflow_frac f32[K], done bool[K]) — each
+    lane's stamps, overflow fold (K6's i32[K] ``n_overflow``) and exit
     flag from its own rows only, in the faultless or (with ``horizon``)
-    the fault loop's mode.  K7's lane entries on the card."""
+    the fault loop's mode.  K7's lane entry on the card, one launch."""
     if have.device.type == "cpu":
         return converge_record_lanes_plain(have, inj, alive, metrics, meta,
-                                           t, cfg, horizon)
+                                           t, cfg, n_overflow, last_round,
+                                           horizon)
     lanes, n, w = have.shape
     p = cfg.n_payloads
-    c = cfg.chunks_per_version
     check("have", have, torch.int32, (lanes, n, w))
     check("injected_p", inj, torch.int32, (lanes, w))
     check("alive", alive, torch.uint8, (lanes, n))
-    check("meta.round", meta.round, torch.int32, (p,))
     check("converged_at", metrics.converged_at, torch.int32, (lanes, n))
     check("coverage_at", metrics.coverage_at, torch.int32, (lanes, p))
-    rows = CONVERGE_ROWS_PER_BLOCK
-    blocks = -(-n // rows)
-    dev = have.device
-    partial = torch.empty((lanes, blocks, w + 1), dtype=torch.int32,
-                          device=dev)
-    converged_at = torch.empty_like(metrics.converged_at)
-    coverage_at = torch.empty_like(metrics.coverage_at)
-    done = torch.empty((lanes,), dtype=torch.bool, device=dev)
-    kernels.CONVERGE_ROWS_LANES.launch(
-        [have, inj, alive, meta.round, metrics.converged_at, converged_at,
-         partial],
-        [n, w, c, p, t, rows, int(horizon is not None), lanes],
-    )
-    kernels.CONVERGE_FINISH_LANES.launch(
-        [partial, inj, meta.round, metrics.coverage_at, coverage_at, done],
-        [blocks, w, c, p, t, -1 if horizon is None else horizon, lanes],
-    )
-    return coverage_at, converged_at, done
+    check("overflow_frac", metrics.overflow_frac, torch.float32, (lanes,))
+    check("n_overflow", n_overflow, torch.int32, (lanes,))
+    return launch_converge_record(
+        kernels.CONVERGE_RECORD_LANES, have, inj, alive, metrics, n_overflow,
+        t, cfg, horizon, last_round, lanes)
 
 
 # -- the node faults (K11) ---------------------------------------------------
@@ -788,30 +782,15 @@ def apply_round_faults_lanes(slim: SimState, carry: PackedCarry,
 # -- the round ----------------------------------------------------------------
 
 
-def _edge_alive_lanes(state: SimState, src, dst) -> torch.Tensor:
-    """`topology.edge_alive` per lane, src [1 or K, E] and dst [K, E]."""
-    lanes = state.alive.shape[0]
-    src = src.expand(lanes, -1).long()
-    dst = dst.long()
-    return ((torch.gather(state.group, 1, src)
-             == torch.gather(state.group, 1, dst))
-            & (torch.gather(state.alive, 1, src) == ALIVE)
-            & (torch.gather(state.alive, 1, dst) == ALIVE))
-
-
-def _edges(state: SimState, targets: torch.Tensor):
-    """The lanes' edge list from targets [K, N, F]: (src [1, E], dst
-    [K, E] clamped, ok [K, E]) — a real target, both ends in one group
-    and up, and not the sender itself."""
-    lanes, n, f = targets.shape
-    me = torch.arange(n, dtype=torch.int32, device=targets.device)
-    src = me.repeat_interleave(f)[None]
-    dst = targets.reshape(lanes, n * f)
-    ok = dst >= 0
-    dst = torch.clamp(dst, min=0)
-    ok &= _edge_alive_lanes(state, src, dst)
-    ok &= dst != src
-    return src, dst, ok
+def _edges(state: SimState, targets: torch.Tensor, due=None):
+    """The lanes' edge list from targets [K, N, F] (`packed.edge_list`,
+    K2's edge pass; with ``due`` [K, N] the sync's) and the senders the
+    dense lanes' consumers read: (src [1, E], dst [K, E] clamped, ok
+    [K, E])."""
+    n, f = targets.shape[1:]
+    dst, ok, _ = edge_list(targets.contiguous(), state.group, state.alive,
+                           None if due is None else due.contiguous())
+    return senders(n, f, targets.device)[None], dst, ok
 
 
 def broadcast_targets_lanes(state: SimState, cfg: SimConfig,
@@ -862,7 +841,16 @@ def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
                                       k_ring0)
     sending = spend_lanes(carry, inj, targets, state.alive,
                           cfg.rate_limit_bytes_round, meta.nbytes)
-    src, dst, ok = _edges(state, targets)
+    d_slots = carry.inflight.shape[1]
+    tiers = wire_tiers(topo)
+    topo_thr = (loss_threshold(topo.loss)
+                if topo.loss > 0 and tiers is None else 0)
+    # the flat delay without a plan: the edge pass writes the slots too
+    flat = faults is None and not topo.delay_classes
+    dst, ok, slot = edge_list(targets, state.group, state.alive, None,
+                              topo if flat else None, region, t, d_slots)
+    # the senders [1, E], for K9's queries and K20's edge entry only
+    src = None if flat else senders(cfg.n_nodes, f, targets.device)[None]
     thr = jit = fdelay = None
     if faults is not None:
         # ok is contiguous [K, E]: its flat view is cleared in place
@@ -877,12 +865,9 @@ def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
             jit = jit if active.jitter else None
     if trace is not None:
         wire_words_lanes_(trace.acc[:, WIRE], sending, meta.nbytes, ok, f)
-    tiers = wire_tiers(topo)
-    topo_thr = (loss_threshold(topo.loss)
-                if topo.loss > 0 and tiers is None else 0)
-    dst = dst.contiguous()
-    slot = edge_slot_lanes(topo, region, src[0], dst, t,
-                           carry.inflight.shape[1], fdelay).contiguous()
+    if slot is None:
+        slot = edge_slot_lanes(topo, region, src[0], dst, t, d_slots,
+                               fdelay).contiguous()
     dropped = None
     if (trace is not None and _streams_live(thr, jit, topo_thr, tiers)
             and wire_loss_active(topo, faults)):
@@ -944,10 +929,11 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
     # and the re-arm (the countdown still draws every round)
     due = cadence_due(state.sync_countdown <= 0, cfg)
     peers = sample_member_targets_lanes(state, cfg, k_peers, s)
-    src, dst, ok = _edges(state, peers)
-    ok &= due[:, src[0].long()]
+    dst, ok, _ = edge_list(peers.contiguous(), state.group, state.alive,
+                           due.contiguous())
     sdelay = None
     if faults is not None:
+        src = senders(n, s, peers.device)[None]
         # the refused count is taken before the mask clears them
         _, sdelay = fault_session_effects(
             faults, src.expand(lanes, -1).reshape(-1), dst.reshape(-1),
@@ -987,7 +973,8 @@ def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
                             cfg: SimConfig, topo: Topology, region,
                             faults=None, horizon: Optional[int] = None,
                             seeds=None, active=None,
-                            trace: Optional[RoundTrace] = None):
+                            trace: Optional[RoundTrace] = None, *,
+                            last_round: int):
     """One gossip tick of every lane, phase for phase the solo
     `packed.packed_round_step` with lane k's keys: (under PeerSwap the
     view swap, K21's lane entries, on a fifth phase key) inject →
@@ -1002,7 +989,9 @@ def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
     in it, in place, as the solo round records its own: the phases feed
     each lane's accumulators, then K17's coverage lane entry counts
     coverage and delivered and K19's lane entry writes the rows (with the
-    shared fault slice's crashes and wipes)."""
+    shared fault slice's crashes and wipes).  ``last_round`` is
+    max(meta.round), read once a run by the loop (`converge_record_lanes`).
+    """
     peerswap = cfg.peer_sampler == "peerswap"
     ks = rng.split_lanes(state.key, 5 if peerswap else 4)
     state = state._replace(key=ks[:, 0].contiguous())
@@ -1024,11 +1013,9 @@ def packed_round_step_lanes(state: SimState, carry: PackedCarry, inj,
     state = swim_step_lanes(state, cfg, topo, k_swim, faults, seeds)
     heads, gap_lo, gap_hi, n_overflow = refresh_gaps_lanes(carry.have, cfg)
     state = state._replace(heads=heads, gap_lo=gap_lo, gap_hi=gap_hi)
-    overflow_frac = torch.maximum(
-        metrics.overflow_frac,
-        overflow_fraction(n_overflow, heads[0].numel()))
-    coverage_at, converged_at, done = converge_record_lanes(
-        carry.have, inj, state.alive, metrics, meta, t, cfg, horizon)
+    coverage_at, converged_at, overflow_frac, done = converge_record_lanes(
+        carry.have, inj, state.alive, metrics, meta, t, cfg, n_overflow,
+        last_round, horizon)
     if order_checked(cfg):
         # each live lane's standing count, into its own slot in place
         count_order_violations_lanes_(metrics.order_violations, carry.have,
@@ -1230,12 +1217,14 @@ def packed_lane_batch(states: SimState, cfg: SimConfig, seeds=None,
 def packed_lane_step(batch: _Batch, meta: PayloadMeta, cfg: SimConfig,
                      topo: Topology, region,
                      fplan: Optional[FactoredFaultPlan] = None,
-                     activity=None, telemetry: bool = False):
+                     activity=None, telemetry: bool = False, *,
+                     last_round: int):
     """One round of the packed lane loop's live lanes: under ``fplan``
     the round's node faults first (K11's lane entry) and the scatter
     picked from ``activity`` (`.faults.host_activity` of the plan), then
-    the lane round, recording into the batch's trace with ``telemetry``.
-    Returns (batch, done) with done bool[K] on the device."""
+    the lane round, recording into the batch's trace with ``telemetry``;
+    ``last_round`` is max(meta.round), read once a run.  Returns
+    (batch, done) with done bool[K] on the device."""
     t = int(batch.slim.t)
     rf = active = horizon = None
     if fplan is not None:
@@ -1246,7 +1235,7 @@ def packed_lane_step(batch: _Batch, meta: PayloadMeta, cfg: SimConfig,
     slim, metrics, done = packed_round_step_lanes(
         batch.slim, batch.carry, batch.inj, batch.metrics, meta, cfg, topo,
         region, rf, horizon, batch.seeds, active,
-        trace_of(batch.extra) if telemetry else None)
+        trace_of(batch.extra) if telemetry else None, last_round=last_round)
     return batch._replace(slim=slim, metrics=metrics), done
 
 
@@ -1291,10 +1280,12 @@ def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
     batch = packed_lane_batch(states, cfg, None if fplan is None else seeds,
                               trace)
 
+    last_round = int(meta.round.max())
     finished = _run_batch(
         batch, max_rounds, _initial_done(batch, meta, cfg, fplan),
         lambda b: packed_lane_step(b, meta, cfg, topo, region, fplan,
-                                   activity, telemetry))
+                                   activity, telemetry,
+                                   last_round=last_round))
     finals, metrics = _stack_results(finished, cfg)
     if telemetry:
         return finals, metrics, stack_traces(finished)

@@ -44,6 +44,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -97,6 +98,7 @@ from .topology import (
     edge_alive,
     edge_loss_thresholds_raw,
     edge_slot,
+    edge_slot_plain,
     loss_threshold,
     regions,
     topo_table,
@@ -375,7 +377,7 @@ def scatter_sending_plain(ring, sending, dst, slot, ok, fanout: int) -> None:
 
 def scatter_sending(ring, sending, dst, slot, ok, fanout: int) -> None:
     """OR each ok edge's sender words into its ring row, in place; K2 on
-    the card."""
+    the card (a thread per word of a sender's row, for all its edges)."""
     if ring.device.type == "cpu":
         scatter_sending_plain(ring, sending, dst, slot, ok, fanout)
         return
@@ -387,8 +389,84 @@ def scatter_sending(ring, sending, dst, slot, ok, fanout: int) -> None:
     check("slot", slot, torch.int32, (e,))
     check("ok", ok, torch.bool, (e,))
     kernels.BROADCAST_SCATTER.launch(
-        [ring, sending, dst, slot, ok], [n, d, w, fanout]
-    )
+        [ring, sending, dst, slot, ok], [n, d, w, fanout, 1])
+
+
+def senders(n: int, fanout: int, device) -> torch.Tensor:
+    """src i32[N * F]: the sender e // F of each edge, for the consumers
+    that read it (K9's queries, K20's edge entry, the push-pull leg)."""
+    return torch.arange(n, dtype=torch.int32,
+                        device=device).repeat_interleave(fanout)
+
+
+def edge_list_plain(targets, group, alive, due=None, topo=None, region=None,
+                    t: int = 0, d_slots: int = 0):
+    """Plain version of K2's edge pass: JAX's edge list
+    (packed.py:435-441, and :1178-1184 with ``due``) — `topology.
+    edge_alive`, the flat `topology.edge_slot_plain` — on one table, or on
+    each lane's of [K, N, F]."""
+    if targets.dim() == 3:
+        outs = [edge_list_plain(targets[k], group[k], alive[k],
+                                None if due is None else due[k], topo,
+                                region, t, d_slots)
+                for k in range(targets.shape[0])]
+        return tuple(None if outs[0][i] is None
+                     else torch.stack([out[i] for out in outs])
+                     for i in range(3))
+    n, f = targets.shape
+    src = senders(n, f, targets.device)
+    dst = targets.reshape(-1)
+    ok = dst >= 0
+    dst = torch.clamp(dst, min=0)
+    ok &= edge_alive(group, alive, src, dst)
+    if due is not None:
+        ok &= due[src.long()]
+    ok &= dst != src
+    slot = (None if topo is None
+            else edge_slot_plain(topo, region, src, dst, t, d_slots))
+    return dst, ok, slot
+
+
+def edge_list(targets, group, alive, due=None, topo=None, region=None,
+              t: int = 0, d_slots: int = 0):
+    """The edge lists of a target table i32[N, F], or of the lanes' [K, N,
+    F] (``group``, ``alive`` and ``due`` then [K, N], each lane's targets
+    its own): (dst i32[E] clamped at 0, ok bool[E], slot i32[E] or None),
+    E = N * F, edge e from sender e // F.  ok is a real target, both ends
+    in one partition group and up, not the sender and, with ``due`` (the
+    sync's cadence mask), the sender due.  With a flat ``topo`` (no AZ or
+    matrix delay classes) the slot is (t + edge_delay) % ``d_slots`` over
+    ``region``; without one the caller's slot comes later (K20's edge
+    entry, or `topology.edge_slot` after a plan's fixed delays).  K2's
+    edge pass on the card, counted as edge_list or, by the lead shape,
+    edge_list_lanes; no sender array is built."""
+    if targets.device.type == "cpu":
+        return edge_list_plain(targets, group, alive, due, topo, region, t,
+                               d_slots)
+    lead = tuple(targets.shape[:-2])
+    n, f = targets.shape[-2:]
+    check("targets", targets, torch.int32, (*lead, n, f))
+    check("group", group, torch.int32, (*lead, n))
+    check("alive", alive, torch.uint8, (*lead, n))
+    if due is not None:
+        check("due", due, torch.bool, (*lead, n))
+    if topo is not None:
+        if topo.delay_classes:
+            raise ValueError("the edge pass takes the flat delay only: AZ "
+                             "and matrix classes go to K20's edge entry")
+        check("region", region, torch.int32, (n,))
+    dev = targets.device
+    dst = torch.empty((*lead, n * f), dtype=torch.int32, device=dev)
+    ok = torch.empty((*lead, n * f), dtype=torch.bool, device=dev)
+    slot = None if topo is None else torch.empty_like(dst)
+    kernel = kernels.EDGE_LIST_LANES if lead else kernels.EDGE_LIST
+    kernel.launch(
+        [targets, group, alive, due, None if topo is None else region, dst,
+         ok, slot],
+        [n, f, lead[0] if lead else 1, t, d_slots,
+         0 if topo is None else topo.intra_delay,
+         0 if topo is None else topo.inter_delay])
+    return dst, ok, slot
 
 
 # (edge, word) pairs per chunk of the plain lossy scatter's draw: 2^17
@@ -680,13 +758,16 @@ def broadcast_packed(
     targets = capped_schedule(targets, topo, cfg, int(state.t))
     sending = spend_relay(carry, injected_p, targets, state.alive,
                           cfg.rate_limit_bytes_round, meta.nbytes)
-    me = torch.arange(n, dtype=torch.int32, device=targets.device)
-    src = me.repeat_interleave(f)
-    dst = targets.reshape(-1)
-    ok = dst >= 0
-    dst = torch.clamp(dst, min=0)
-    ok &= edge_alive(state.group, state.alive, src, dst)
-    ok &= dst != src
+    t, d_slots = int(state.t), carry.inflight.shape[0]
+    tiers = wire_tiers(topo)
+    topo_thr = (loss_threshold(topo.loss)
+                if topo.loss > 0 and tiers is None else 0)
+    # the flat delay without a plan: the edge pass writes the slots too
+    flat = faults is None and not topo.delay_classes
+    dst, ok, slot = edge_list(targets, state.group, state.alive, None,
+                              topo if flat else None, region, t, d_slots)
+    # the senders, for K9's queries and K20's edge entry only
+    src = None if flat else senders(n, f, targets.device)
     thr = jit = fdelay = None
     if faults is not None:
         ok, thr, fdelay, jit = fault_wire_effects(
@@ -697,11 +778,8 @@ def broadcast_packed(
             jit = jit if active.jitter else None
     if trace is not None:
         wire_words_(trace.acc[WIRE], sending, meta.nbytes, ok, f)
-    tiers = wire_tiers(topo)
-    topo_thr = (loss_threshold(topo.loss)
-                if topo.loss > 0 and tiers is None else 0)
-    slot = edge_slot(topo, region, src, dst, int(state.t),
-                     carry.inflight.shape[0], fdelay)
+    if slot is None:
+        slot = edge_slot(topo, region, src, dst, t, d_slots, fdelay)
     if thr is None and jit is None and topo_thr == 0 and tiers is None:
         scatter_sending(carry.inflight, sending, dst, slot, ok, f)
     else:
@@ -715,6 +793,7 @@ def broadcast_packed(
             **({} if tiers is None else {"tiers": tiers}),
         )
     if cfg.dissemination == "push-pull":
+        # src is read there only under a plan, which builds it above
         _pull_packed(carry, sending, state, cfg, topo, faults, trace, src,
                      dst, ok, slot, thr, k_drop, topo_thr, tiers, meta)
     return carry
@@ -941,16 +1020,10 @@ def sync_packed(
     # the cadence before every use of due: the sessions' ok and the re-arm
     due = cadence_due(state.sync_countdown <= 0, cfg)
     peers = sample_member_targets(state, cfg, k_peers, s)
-    me = torch.arange(n, dtype=torch.int32, device=peers.device)
-    src = me.repeat_interleave(s)
-    dst = peers.reshape(-1)
-    ok = dst >= 0
-    dst = torch.clamp(dst, min=0)
-    ok &= edge_alive(state.group, state.alive, src, dst)
-    ok &= due[src.long()]
-    ok &= dst != src
+    dst, ok, _ = edge_list(peers, state.group, state.alive, due)
     sdelay = None
     if faults is not None:
+        src = senders(n, s, peers.device)
         if trace is None:
             refused, sdelay = fault_session_effects(faults, src, dst)
         else:
@@ -992,18 +1065,89 @@ def sync_packed(
 
 # -- the convergence record -------------------------------------------------
 
-# K7's row pass: nodes per block, so the wrapper sizes the partial rows
-CONVERGE_ROWS_PER_BLOCK = 256
+_CONVERGE_SCRATCH = {}
+
+
+def converge_scratch(device: torch.device, lanes: int, w: int) -> torch.Tensor:
+    """K7's self-clearing scratch for ``lanes`` lanes of ``w`` words on
+    ``device``: each lane's eight accumulator rows (the column AND and the
+    settled word, ones) and its ticket (0), each row W + 1 words rounded
+    up to a 128-byte line, allocated at its first use and kept,
+    so later calls (and CUDA graphs that captured one) find it clean with
+    no fill.  Its first allocation must not fall inside a CUDA-graph
+    capture; call this (or the record) once before capturing."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, lanes, w)
+    scratch = _CONVERGE_SCRATCH.get(key)
+    if scratch is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"converge_record: K7's scratch for {lanes} lanes of {w} "
+                "words would first be allocated under CUDA-graph capture; "
+                "call packed.converge_scratch(device, lanes, w) (or the "
+                "record once) before capturing")
+        scratch = _fresh_converge_scratch(device, lanes, w)
+        _CONVERGE_SCRATCH[key] = scratch
+    return scratch
+
+
+# K7's accumulator rows a lane (converge_fold.cu kReplicas)
+_CONVERGE_ROWS = 8
+
+
+def _fresh_converge_scratch(device, lanes: int, w: int) -> torch.Tensor:
+    stride = -(-(w + 1) // 32) * 32
+    scratch = torch.full((lanes, (_CONVERGE_ROWS + 1) * stride), -1,
+                         dtype=torch.int32, device=device)
+    scratch[:, _CONVERGE_ROWS * stride:] = 0
+    return scratch
+
+
+def launch_converge_record(kernel, have, injected_p, alive, metrics,
+                           n_overflow, t: int, cfg: SimConfig, horizon,
+                           last_round: int, lanes: int):
+    """One K7 launch on ``lanes`` lanes ([N, W] words solo, [K, N, W] on
+    the lanes): fresh outputs, the device's scratch, the cell count's f32
+    reciprocal as bits.  A launch that fails at once refills the scratch,
+    which it may have left dirty, in place, so graphs that captured it
+    stay valid."""
+    w = have.shape[-1]
+    scratch = converge_scratch(have.device, lanes, w)
+    converged_at = torch.empty_like(metrics.converged_at)
+    coverage_at = torch.empty_like(metrics.coverage_at)
+    overflow_frac = torch.empty_like(metrics.overflow_frac)
+    done = torch.empty(metrics.overflow_frac.shape, dtype=torch.bool,
+                       device=have.device)
+    recip = np.float32(1.0) / np.float32(cfg.n_nodes * cfg.n_writers)
+    try:
+        kernel.launch(
+            [have, injected_p, alive, metrics.converged_at, converged_at,
+             metrics.coverage_at, coverage_at, n_overflow,
+             metrics.overflow_frac, overflow_frac, done, scratch],
+            [cfg.n_nodes, w, cfg.chunks_per_version, cfg.n_payloads, t,
+             last_round, -1 if horizon is None else horizon,
+             int(horizon is not None), int(recip.view(np.int32)), lanes])
+    except RuntimeError:
+        scratch.copy_(_fresh_converge_scratch(have.device, lanes, w))
+        raise
+    return coverage_at, converged_at, overflow_frac, done
 
 
 def converge_record_plain(
     have: torch.Tensor, injected_p: torch.Tensor, alive: torch.Tensor,
     metrics: RunMetrics, meta: PayloadMeta, t: int, cfg: SimConfig,
+    n_overflow: torch.Tensor, last_round: int,
     horizon: Optional[int] = None,
 ):
-    """Plain version of K7."""
+    """Plain version of K7 (``last_round`` is the kernel's: the plain
+    version reads meta.round as JAX does)."""
     up = alive == ALIVE
     c = cfg.chunks_per_version
+    overflow_frac = torch.maximum(
+        metrics.overflow_frac,
+        overflow_fraction(n_overflow, cfg.n_nodes * cfg.n_writers))
     comp_w = all_chunks_words(have, cfg)
     act_w = smear_groups(fold_any(injected_p, c) & group_low_bits_mask(c), c)
     masked = torch.where(up[:, None], comp_w, ONES)
@@ -1021,54 +1165,43 @@ def converge_record_plain(
     done = (meta.round <= t + 1).all() & (settled | ~up).all()
     if horizon is not None and t + 1 < horizon:
         done = torch.zeros_like(done)
-    return coverage_at, converged_at, done
+    return coverage_at, converged_at, overflow_frac, done
 
 
 def converge_record(
     have: torch.Tensor, injected_p: torch.Tensor, alive: torch.Tensor,
     metrics: RunMetrics, meta: PayloadMeta, t: int, cfg: SimConfig,
+    n_overflow: torch.Tensor, last_round: int,
     horizon: Optional[int] = None,
 ):
     """Round t's convergence record on words: (coverage_at i32[P],
-    converged_at i32[N], done) — the stamps of payloads complete on
-    every up node and of nodes holding every active version, and the
-    run's exit flag for round t + 1, a bool scalar that stays on the
-    device: `_converged_done` on the new metrics, or with a fault plan's
+    converged_at i32[N], overflow_frac f32, done) — the stamps of payloads
+    complete on every up node and of nodes holding every active version,
+    the run's overflow fraction folded with this round's K6 count
+    ``n_overflow`` (JAX's max with ``overflow.mean(f32)``), and the run's
+    exit flag for round t + 1, a bool scalar that stays on the device:
+    `_converged_done` on the new metrics, or with a fault plan's
     ``horizon`` the fault loop's flag — t + 1 ≥ horizon and the FRESH
     all-have predicate (`all_have_words`), which a wipe after a node's
-    sticky stamp can undo.  K7 on the card: a row pass and a one-block
-    finish."""
+    sticky stamp can undo.  ``last_round`` is max(meta.round), which a
+    loop reads once a run.  K7 on the card, one launch
+    (its last block finishes)."""
     if have.device.type == "cpu":
         return converge_record_plain(
-            have, injected_p, alive, metrics, meta, t, cfg, horizon
-        )
+            have, injected_p, alive, metrics, meta, t, cfg, n_overflow,
+            last_round, horizon)
     n, w = have.shape
     p = cfg.n_payloads
-    c = cfg.chunks_per_version
     check("have", have, torch.int32, (n, w))
     check("injected_p", injected_p, torch.int32, (w,))
     check("alive", alive, torch.uint8, (n,))
-    check("meta.round", meta.round, torch.int32, (p,))
     check("converged_at", metrics.converged_at, torch.int32, (n,))
     check("coverage_at", metrics.coverage_at, torch.int32, (p,))
-    rows = CONVERGE_ROWS_PER_BLOCK
-    blocks = -(-n // rows)
-    dev = have.device
-    partial = torch.empty((blocks, w + 1), dtype=torch.int32, device=dev)
-    converged_at = torch.empty_like(metrics.converged_at)
-    coverage_at = torch.empty_like(metrics.coverage_at)
-    done = torch.empty((), dtype=torch.bool, device=dev)
-    kernels.CONVERGE_ROWS.launch(
-        [have, injected_p, alive, meta.round, metrics.converged_at,
-         converged_at, partial],
-        [n, w, c, p, t, rows, int(horizon is not None)],
-    )
-    kernels.CONVERGE_FINISH.launch(
-        [partial, injected_p, meta.round, metrics.coverage_at, coverage_at,
-         done],
-        [blocks, w, c, p, t, -1 if horizon is None else horizon],
-    )
-    return coverage_at, converged_at, done
+    check("overflow_frac", metrics.overflow_frac, torch.float32, ())
+    check("n_overflow", n_overflow, torch.int32, ())
+    return launch_converge_record(
+        kernels.CONVERGE_RECORD, have, injected_p, alive, metrics,
+        n_overflow, t, cfg, horizon, last_round, 1)
 
 
 # -- the round and the loop --------------------------------------------------
@@ -1079,7 +1212,7 @@ def packed_round_step(
     metrics: RunMetrics, meta: PayloadMeta, cfg: SimConfig, topo: Topology,
     region: torch.Tensor, faults: Optional[AnyRoundFaults] = None,
     horizon: Optional[int] = None, trace: Optional[RoundTrace] = None,
-    active: Optional[RoundActivity] = None,
+    active: Optional[RoundActivity] = None, *, last_round: int,
 ):
     """One gossip tick on packed words, phase-for-phase and PRNG-stream
     identical to JAX's ``packed_round_step``: (under PeerSwap the view
@@ -1095,7 +1228,8 @@ def packed_round_step(
     feed its accumulators, then K17 counts coverage and delivered and
     K19 writes the row (with the fault slice's crashes and wipes).
     ``active`` is the host's copy of the round's loss and jitter activity
-    (`broadcast_packed`)."""
+    (`broadcast_packed`); ``last_round`` is max(meta.round), read once a
+    run by the loops (`converge_record`)."""
     peerswap = cfg.peer_sampler == "peerswap"
     ks = rng.split(state.key, 5 if peerswap else 4)
     state = state._replace(key=ks[0])
@@ -1131,13 +1265,9 @@ def packed_round_step(
 
     heads, gap_lo, gap_hi, n_overflow = refresh_gaps(carry.have, cfg)
     state = state._replace(heads=heads, gap_lo=gap_lo, gap_hi=gap_hi)
-    overflow_frac = torch.maximum(
-        metrics.overflow_frac, overflow_fraction(n_overflow, heads.numel())
-    )
-
-    coverage_at, converged_at, done = converge_record(
-        carry.have, injected_p, state.alive, metrics, meta, t, cfg, horizon
-    )
+    coverage_at, converged_at, overflow_frac, done = converge_record(
+        carry.have, injected_p, state.alive, metrics, meta, t, cfg,
+        n_overflow, last_round, horizon)
     if order_checked(cfg):
         count_order_violations_(metrics.order_violations, carry.have, meta,
                                 cfg)
@@ -1184,9 +1314,11 @@ def run_packed(
     slim = shrink_state(state)
     trace = new_trace(cfg, max_rounds, dev) if telemetry else None
     done = _converged_done(slim, metrics, meta)
+    last_round = int(meta.round.max())
     while int(slim.t) < max_rounds and not bool(done):
         slim, carry, inj, metrics, done = packed_round_step(
-            slim, carry, inj, metrics, meta, cfg, topo, region, trace=trace
+            slim, carry, inj, metrics, meta, cfg, topo, region, trace=trace,
+            last_round=last_round,
         )
     full = unpack_into_state(carry, slim, cfg)
     full = full._replace(
@@ -1305,13 +1437,14 @@ def run_packed_faults(
     done = (torch.zeros((), dtype=torch.bool, device=dev)
             if int(slim.t) < horizon
             else all_have_words(carry, inj, slim, meta, cfg))
+    last_round = int(meta.round.max())
     while int(slim.t) < max_rounds and not bool(done):
         t = int(slim.t)
         rf = round_faults(fplan, t)
         slim, carry = apply_round_faults(slim, carry, rf)
         slim, carry, inj, metrics, done = packed_round_step(
             slim, carry, inj, metrics, meta, cfg, topo, region, rf, horizon,
-            trace, activity[min(t, horizon)],
+            trace, activity[min(t, horizon)], last_round=last_round,
         )
     full = unpack_into_state(carry, slim, cfg)
     full = full._replace(

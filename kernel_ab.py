@@ -19,9 +19,15 @@ runs one tree in a process of its own, which puts that tree first on
 
       kernels:NAME      compare_kernels (the 100k storm's shapes)
       lane_tables:NAME  compare_lane_tables (8 lanes at the storm's)
+      lane_scatter:NAME compare_lane_scatter (8 lanes at the storm's)
       lane_sync:NAME    compare_lane_sync (8 lanes at the storm's)
       lane_record:NAME  compare_lane_record (8 lanes at the storm's)
       gaps_wide:NAME    compare_gaps_wide (gapstress-25.6k's V = 128)
+      scatter_topo:NAME compare_scatter_topo (K10's topology stream,
+                        gapstress-25.6k's)
+      scatter_jitter:NAME   compare_scatter_jitter (K10j, the storm's)
+      scatter_tiered:NAME   compare_scatter_tiered (K10t, the storm's)
+      pull_scatter:NAME compare_pull_scatter (K10p, the storm's)
 
   A row that only this tree has (a kernel the change adds) is timed in
   this tree's turns and listed as missing in the parent's; a row this
@@ -48,11 +54,17 @@ SOURCES = {
     "kernels": lambda cs, dev, g: cs.compare_kernels(dev),
     "lane_tables": lambda cs, dev, g: cs.compare_lane_tables(
         dev, g, cs.ENSEMBLE_LANES, cs.STORM_N, 64, 3),
+    "lane_scatter": lambda cs, dev, g: cs.compare_lane_scatter(
+        dev, g, cs.ENSEMBLE_LANES, cs.STORM_N, 16, 3),
     "lane_sync": lambda cs, dev, g: cs.compare_lane_sync(
         dev, g, cs.ENSEMBLE_LANES, cs.STORM_N, 16, 3),
     "lane_record": lambda cs, dev, g: cs.compare_lane_record(
         dev, g, cs.ENSEMBLE_LANES, cs.STORM_N, 16),
     "gaps_wide": lambda cs, dev, g: [cs.compare_gaps_wide(dev, g)],
+    "scatter_topo": lambda cs, dev, g: [cs.compare_scatter_topo(dev, g)],
+    "scatter_jitter": lambda cs, dev, g: [cs.compare_scatter_jitter(dev, g)],
+    "scatter_tiered": lambda cs, dev, g: [cs.compare_scatter_tiered(dev, g)],
+    "pull_scatter": lambda cs, dev, g: cs.compare_pull_scatter(dev, g),
 }
 
 

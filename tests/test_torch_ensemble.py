@@ -98,6 +98,7 @@ def test_lane_entries_equal_the_solo_entries():
     assert {r["name"] for r in rows} == {
         "threefry_lanes", "sample_targets_lanes", "merge_entries_lanes",
         "broadcast_scatter_lanes", "broadcast_scatter_lossy_lanes",
+        "edge_list_lanes", "edge_list_sync_lanes",
         "sync_masks_lanes", "sync_pull_lanes", "gaps_refresh_lanes",
         "converge_fold_lanes", "word_phases_lanes", "fault_reach_lanes",
         "node_faults_lanes"}

@@ -121,6 +121,7 @@ def test_fault_storm_512_round_by_round(cfgs, jax_plan):
 
     step = jax.jit(jpacked.packed_round_step, static_argnums=(5, 6))
     jregion, pregion = jax_regions(N, 1), regions(N, 1, "cpu")
+    last_round = int(pmeta.round.max())
     for r in range(60):
         jslim, jcarry, jrf = node_faults(jslim, jcarry, jslim.t)
         jslim, jcarry, jinj, jmet = step(
@@ -131,7 +132,7 @@ def test_fault_storm_512_round_by_round(cfgs, jax_plan):
         pslim, pcarry = packed.apply_round_faults(pslim, pcarry, prf)
         pslim, pcarry, pinj, pmet, pdone = packed.packed_round_step(
             pslim, pcarry, pinj, pmet, pmeta, pcfg, Topology(), pregion,
-            prf, horizon,
+            prf, horizon, last_round=last_round,
         )
         label = f"round {r}"
         assert_fields_equal(fields(jslim), port_fields(pslim), label)

@@ -378,9 +378,10 @@ def test_converge_record_fault_exit_matches_jax(cfgs, t, horizon, wiped):
         overflow_frac=torch.zeros(()), order_violations=torch.zeros(()),
     )
     i32 = lambda a: torch.from_numpy(a.view(np.int32))  # noqa: E731
-    _, pconv, done = packed.converge_record(
+    none = torch.zeros((), dtype=torch.int32)
+    _, pconv, _, done = packed.converge_record(
         i32(have), i32(inj), torch.from_numpy(alive), metrics, pmeta, t,
-        pcfg, horizon=horizon,
+        pcfg, none, int(pmeta.round.max()), horizon=horizon,
     )
     jcarry = jpacked.PackedCarry(
         have=jnp.asarray(have), inflight=None, relay=None, sync_buf=None)
@@ -391,8 +392,9 @@ def test_converge_record_fault_exit_matches_jax(cfgs, t, horizon, wiped):
     assert bool(done) == want
     assert want == (t + 1 >= horizon and not wiped)
     # the stamps are the faultless mode's
-    _, fconv, _ = packed.converge_record(
-        i32(have), i32(inj), torch.from_numpy(alive), metrics, pmeta, t, pcfg)
+    _, fconv, _, _ = packed.converge_record(
+        i32(have), i32(inj), torch.from_numpy(alive), metrics, pmeta, t, pcfg,
+        none, int(pmeta.round.max()))
     assert torch.equal(pconv, fconv)
 
 
@@ -433,6 +435,7 @@ def test_packed_round_step_with_faults_matches_jax(cfgs, name):
     pslim, pcarry, pinj, pmet, _ = packed.packed_round_step(
         pslim, pcarry, pinj, pmet, pmeta, pcfg, Topology(),
         regions(N, 1, "cpu"), prf, pf.horizon,
+        last_round=int(pmeta.round.max()),
     )
     assert_fields_equal(fields(jslim), port_fields(pslim), "slim")
     assert_fields_equal(

@@ -242,11 +242,13 @@ def test_gapstress_class_round_by_round(name):
     jmet, pmet = jax_new_metrics(jcfg), new_metrics(pcfg, "cpu")
     step = jax.jit(jpacked.packed_round_step, static_argnums=(5, 6))
     jregion, pregion = jax_regions(n, 1), regions(n, 1, "cpu")
+    last_round = int(pmeta.round.max())
     for r in range(200):
         jslim, jcarry, jinj, jmet = step(
             jslim, jcarry, jinj, jmet, jmeta, jcfg, jtopo, jregion)
         pslim, pcarry, pinj, pmet, pdone = packed.packed_round_step(
-            pslim, pcarry, pinj, pmet, pmeta, pcfg, ptopo, pregion)
+            pslim, pcarry, pinj, pmet, pmeta, pcfg, ptopo, pregion,
+            last_round=last_round)
         label = f"{name} round {r}"
         assert_fields_equal(fields(jslim), port_fields(pslim), label)
         _assert_carry_equal(jcarry, pcarry, jcfg.n_payloads, label)

@@ -448,14 +448,18 @@ def test_converge_record(card, n, t):
     metrics = RunMetrics(
         coverage_at=_i32(np.where(g.random(p) < 0.3, 1, -1), card),
         converged_at=_i32(np.where(g.random(n) < 0.3, 2, -1), card),
-        overflow_frac=torch.zeros((), device=card),
+        overflow_frac=torch.tensor(0.125 if t == 14 else 0.0, device=card),
         order_violations=torch.zeros((), dtype=torch.int32, device=card),
     )
-    before = kernels.CONVERGE_ROWS.launches
-    got = packed.converge_record(have, inj, alive, metrics, meta, t, cfg)
-    _launched(kernels.CONVERGE_ROWS, before)
+    count = torch.tensor(int(g.integers(0, n * 16 // 2 + 1)),
+                         dtype=torch.int32, device=card)
+    before = kernels.CONVERGE_RECORD.launches
+    last_round = int(meta.round.max())
+    got = packed.converge_record(have, inj, alive, metrics, meta, t, cfg,
+                                 count, last_round)
+    _launched(kernels.CONVERGE_RECORD, before)  # one launch, no finish
     want = packed.converge_record_plain(have, inj, alive, metrics, meta, t,
-                                        cfg)
+                                        cfg, count, last_round)
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
@@ -692,15 +696,122 @@ def test_converge_record_fault_exit(card, n, t, horizon, wiped):
         overflow_frac=torch.zeros((), device=card),
         order_violations=torch.zeros((), dtype=torch.int32, device=card),
     )
-    before = kernels.CONVERGE_FINISH.launches
+    count = torch.tensor(n, dtype=torch.int32, device=card)
+    before = kernels.CONVERGE_RECORD.launches
+    last_round = int(meta.round.max())
     got = packed.converge_record(have, inj, alive, metrics, meta, t, cfg,
-                                 horizon)
-    _launched(kernels.CONVERGE_FINISH, before)
+                                 count, last_round, horizon)
+    _launched(kernels.CONVERGE_RECORD, before)
     want = packed.converge_record_plain(have, inj, alive, metrics, meta, t,
-                                        cfg, horizon)
+                                        cfg, count, last_round, horizon)
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and torch.equal(x, y)
-    assert bool(got[2]) == (t + 1 >= horizon and not wiped)
+    assert bool(got[3]) == (t + 1 >= horizon and not wiped)
+
+
+@pytest.mark.parametrize("n, w", ((31, 6), (1000, 6), (3000, 16),
+                                  (257, 256), (2000, 256)))
+@pytest.mark.parametrize("lanes", (None, 3))
+@pytest.mark.parametrize("horizon", (None, 21))
+def test_converge_record_widths(card, n, w, lanes, horizon):
+    """K7's one launch at W = 6 (the one-word path), 16 (the storm's
+    runs) and 256 (gapstress's: a block a node), solo and on the lanes
+    (counted apart), in both modes; three calls in a row, each on the
+    scratch the one before cleared, each with its own overflow count."""
+    from corrosion_tpu_torch.sim import lanes as ln
+
+    sm = _smoke()
+    cfg = _storm_cfg(n, 32 * w)
+    meta = uniform_payloads(_storm_cfg(n), card, inject_every=2)
+    g = np.random.default_rng(n + w)
+    cases = sm._record_cases(g, card, n, w, cfg)
+    if horizon is None:
+        cases = cases[:2]
+    else:
+        cases = cases[2:]
+    last_round = int(meta.round.max())
+    for have, inj, alive, m, t, count, hz in cases:
+        if lanes is None:
+            args = (have, inj, alive, m, meta, t, cfg, count, last_round, hz)
+            kernel, run, plain = (kernels.CONVERGE_RECORD,
+                                  packed.converge_record,
+                                  packed.converge_record_plain)
+        else:
+            def stack(x):
+                return torch.stack([x] * lanes)
+
+            args = (stack(have), stack(inj), stack(alive),
+                    RunMetrics(*(stack(x) for x in m)), meta, t, cfg,
+                    torch.stack([count + k for k in range(lanes)]),
+                    last_round, hz)
+            kernel, run, plain = (kernels.CONVERGE_RECORD_LANES,
+                                  ln.converge_record_lanes,
+                                  ln.converge_record_lanes_plain)
+        before = kernel.launches
+        got = run(*args)
+        _launched(kernel, before)
+        for x, y in zip(got, plain(*args)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n, f", ((1, 3), (257, 3), (3000, 2)))
+@pytest.mark.parametrize("lanes", (None, 3))
+@pytest.mark.parametrize("kind", ("broadcast", "sync"))
+def test_edge_list(card, n, f, lanes, kind):
+    """K2's edge pass against its plain version on targets with -1 and
+    self entries, two partition groups, SUSPECT and DOWN rows, senders not
+    due (the sync) and two delay classes (the broadcast), solo and on the
+    lanes (counted apart)."""
+    sm = _smoke()
+    g = np.random.default_rng(n + f)
+    lead = () if lanes is None else (lanes,)
+    targets, group, alive, due, topo, region = sm._edge_traps(g, card, lead,
+                                                              n, f)
+    args = ((targets, group, alive, None, topo, region, 9, 3)
+            if kind == "broadcast"
+            else (targets, group, alive, due, None, region, 9, 3))
+    kernel = kernels.EDGE_LIST if lanes is None else kernels.EDGE_LIST_LANES
+    before = kernel.launches
+    got = packed.edge_list(*args)
+    _launched(kernel, before)
+    want = packed.edge_list_plain(*args)
+    for x, y in zip(got, want):
+        assert (x is None and y is None) or (
+            x.dtype == y.dtype and torch.equal(x, y))
+
+
+@pytest.mark.parametrize("n, w", ((5, 1), (1000, 3), (1000, 16),
+                                  (257, 256)))
+@pytest.mark.parametrize("lanes", (None, 3))
+def test_broadcast_scatter_forms(card, n, w, lanes):
+    """K2 on the edge pass's lists, solo and on the lanes folded into the
+    rows, at W = 1, 3, 16 and 256 (rows within and across warps), against
+    its plain version; zero sending rows skip."""
+    from corrosion_tpu_torch.sim import lanes as ln
+
+    sm = _smoke()
+    g = np.random.default_rng(n + w)
+    lead = () if lanes is None else (lanes,)
+    f = 3
+    targets, group, alive, _, topo, region = sm._edge_traps(g, card, lead, n,
+                                                            f)
+    sending = _words(g, (*lead, n, w), card)
+    sending[..., : n // 3, :] = 0
+    ring = _words(g, (*lead, 2, n, w), card)
+    got, want = ring.clone(), ring.clone()
+    kernel = (kernels.BROADCAST_SCATTER if lanes is None
+              else kernels.BROADCAST_SCATTER_LANES)
+    dst, ok, slot = packed.edge_list_plain(targets, group, alive, None, topo,
+                                           region, 7, 2)
+    before = kernel.launches
+    if lanes is None:
+        packed.scatter_sending(got, sending, dst, slot, ok, f)
+        packed.scatter_sending_plain(want, sending, dst, slot, ok, f)
+    else:
+        ln.scatter_lanes(got, sending, dst, slot, ok, f)
+        ln.scatter_lanes_plain(want, sending, dst, slot, ok, f)
+    assert kernel.launches == before + 1
+    assert torch.equal(got, want)
 
 
 # -- the dense round: K1's uniform entry and K12-K15 --------------------------

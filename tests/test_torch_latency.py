@@ -400,6 +400,7 @@ def _lockstep(name, rounds=40):
     step = jax.jit(jpacked.packed_round_step, static_argnums=(5, 6))
     region = jax_regions(48, 1)
     calls = []
+    last_round = int(pmeta.round.max())
     for r in range(rounds):
         jslim, jcarry, jrf = node_faults(jslim, jcarry, jslim.t)
         jslim, jcarry, jinj, jmet = step(
@@ -411,7 +412,7 @@ def _lockstep(name, rounds=40):
             pslim, pcarry, pinj, pmet, pdone = packed.packed_round_step(
                 pslim, pcarry, pinj, pmet, pmeta, pcfg, Topology(),
                 regions(48, 1, "cpu"), prf, horizon, None,
-                activity[min(r, horizon)])
+                activity[min(r, horizon)], last_round=last_round)
         calls.append(spy.calls)
         label = f"{name} round {r}"
         assert jax_digest(jslim) == state_digest(pslim), label

@@ -427,6 +427,7 @@ def test_fault_plans_48_matrix_lockstep_match_jax(kind):
     ps = pround.new_sim(pcfg, 9, "cpu")
     carry, inj = packed.pack_state(ps, pcfg), packed.pack_bits(ps.injected)
     slim, pm = packed.shrink_state(ps), pround.new_metrics(pcfg, "cpu")
+    last_round = int(pmeta.round.max())
     for t in range(30):
         js, jm = dense(js, jm)
         rf = faults.round_faults(pf, t)
@@ -437,7 +438,7 @@ def test_fault_plans_48_matrix_lockstep_match_jax(kind):
         slim, carry = packed.apply_round_faults(slim, carry, rf)
         slim, carry, inj, pm, _ = packed.packed_round_step(
             slim, carry, inj, pm, pmeta, pcfg, ptopo, pregion, rf, horizon,
-            None, activity[min(t, horizon)])
+            None, activity[min(t, horizon)], last_round=last_round)
         full = packed.unpack_into_state(carry, slim, pcfg)._replace(
             injected=packed.unpack_bits(inj, 128).to(torch.uint8))
         assert jax_digest(js) == state_digest(full), f"{kind} packed round {t}"

@@ -319,9 +319,10 @@ def test_converge_record(cfgs, t, holes):
         coverage_at=torch.from_numpy(cov), converged_at=torch.from_numpy(conv),
         overflow_frac=torch.zeros(()), order_violations=torch.zeros(()),
     )
-    got = packed.converge_record(_t32(have), _t32(inj),
-                                 torch.from_numpy(alive), metrics, pmeta, t,
-                                 pcfg)
+    coverage_at, converged_at, _, done = packed.converge_record(
+        _t32(have), _t32(inj), torch.from_numpy(alive), metrics, pmeta, t,
+        pcfg, torch.zeros((), dtype=torch.int32), int(pmeta.round.max()))
+    got = (coverage_at, converged_at, done)
     for name, w, x in zip(("coverage_at", "converged_at", "done"), want, got):
         np.testing.assert_array_equal(np.asarray(w), x.numpy(), err_msg=name)
     # the last payload is injected at round 6 of the storm's 4 versions

@@ -121,12 +121,14 @@ def test_storm_512_round_by_round(cfgs):
     jmet, pmet = jax_new_metrics(jcfg), new_metrics(pcfg, "cpu")
     step = jax.jit(jpacked.packed_round_step, static_argnums=(5, 6))
     jregion, pregion = jax_regions(N, 1), regions(N, 1, "cpu")
+    last_round = int(pmeta.round.max())
     for r in range(40):
         jslim, jcarry, jinj, jmet = step(
             jslim, jcarry, jinj, jmet, jmeta, jcfg, JaxTopology(), jregion
         )
         pslim, pcarry, pinj, pmet, pdone = packed.packed_round_step(
-            pslim, pcarry, pinj, pmet, pmeta, pcfg, Topology(), pregion
+            pslim, pcarry, pinj, pmet, pmeta, pcfg, Topology(), pregion,
+            last_round=last_round,
         )
         label = f"round {r}"
         assert_fields_equal(fields(jslim), port_fields(pslim), label)

@@ -293,10 +293,11 @@ def test_tiered_storm_packed_round_by_round():
     step = jax.jit(jpacked.packed_round_step, static_argnums=(5, 6))
     jreg = jtopo.regions(N_RUN, jt.n_regions)
     preg = ptopo.regions(N_RUN, pt.n_regions, "cpu")
+    last_round = int(pmeta.round.max())
     for r in range(60):
         js, jc, ji, jm = step(js, jc, ji, jm, jmeta, jcfg, jt, jreg)
         ps, pc, pi, pm, done = ppacked.packed_round_step(
-            ps, pc, pi, pm, pmeta, pcfg, pt, preg)
+            ps, pc, pi, pm, pmeta, pcfg, pt, preg, last_round=last_round)
         label = f"round {r}"
         assert_states_equal(js, ps, label)
         assert_states_equal(jpacked.unpack_into_state(jc, js, jcfg),
