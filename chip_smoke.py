@@ -131,6 +131,12 @@ result line):
    32, pid = -1 with pkey = -1, a dead watcher whose row names dead
    members unmarked, pkey at INC_CLAMP * 4 + 2, detect_round already
    set, a wiped node with a full view row;
+   then the 1M path's kernels (phase 3m, after the lane phases) at
+   config_fault_storm_1m's shapes (N = 1000000, W = 16, E = 3000000, D =
+   2), each against its plain version at full size: K1's uniform entry
+   without a view (a [12, N] draw with self candidates, repeats and rows
+   left short), K10's fault stream under the 1M plan's round 5 (its loss
+   counter reaching 3.84e8) and K7 in both modes, its exit mode timed;
 4. run the 512-node seed-7 write storm and fault storm on the card and
    hold their final state digests, rounds and p99 against the pinned JAX
    goldens;
@@ -142,7 +148,17 @@ result line):
    goldens and require every entry point of K1's table sampler and
    K3–K11 to have launched; then ``config_packed_fault_storm(seed=0)``
    (the fault storm, then its faultless twin) for
-   ``fault_over_faultless``;
+   ``fault_over_faultless``; then the 1M-node tier (path 69):
+   ``config_fault_storm_1m(seed=0)`` from launch counters at 0 (the
+   packed round with ground-truth membership: K1's uniform entry, K2,
+   its edge pass, K3 and its mask pass, K5, K6, K7, K8, K9's edge
+   queries, K10, K11; no K4, no member sampler, no reach query), its
+   rounds, p99 and digest against ``FAULT_STORM_1M_SEED0`` (live JAX's
+   unsharded run), converged with no node left out, its wall and peak
+   device memory (its profiles run early, after the storms' launch
+   profiles: the launches, device ms and idle share a round over the
+   whole run, and rounds 0-2 and 16-18 with each kernel's bound from a
+   replay of the same rounds, `bounds_million`);
 7. each from launch counters at 0: ``config_partition_heal_10k(seed=0)``
    (K1, K4, K5, K12–K14), ``config_broadcast_1k(seed=0)`` and
    ``config_ground_truth_3node(seed=0)`` (K1's uniform entry, K5,
@@ -369,7 +385,8 @@ result line):
    at 100k each lane's
    p99, convergence and digest) against the goldens pinned from live
    JAX, every lane's final state and order count equal to the port's
-   solo run of its cell and seed on the card, the solo walls beside the
+   solo run of its cell and seed on the card (at 100k lanes 0 and K - 1),
+   the solo walls beside the
    ensemble's with ``max_memory_allocated`` (phase 3lv before the paths
    compares K12p's lane entry and its recording forms, K12f-o's, K22's
    u8, K20's schedule and K18's rows-pull lane entries at K = 8 on those
@@ -382,8 +399,9 @@ result line):
    a schedule round where the slot count drops with caps below it,
    blocks spanning two lanes, a lane without edges); then latency-
    storm-100k-seeds8 on the packed round (path 60: its ``spec_hash``,
-   the pinned 8-lane digest, every lane against its one-seed JAX pin and
-   its solo run on the card, the walls beside the dense latency
+   the pinned 8-lane digest, every lane against its one-seed JAX pin,
+   lanes 0 and 7 against their solo runs on the card, the walls beside
+   the dense latency
    ensemble's, ``max_memory_allocated`` beyond what earlier paths hold
    and the replayed peak by call site), fault-storm-100k-seeds8 with the
    recorder (path 61: its digest unmoved, the lanes' summaries pinned)
@@ -410,7 +428,15 @@ result line):
    and not in another, a prefix that stops mid-word, a payload larger
    than the budget, a delay class past D - 2 under metering, a tier at
    certainty, lanes whose k_drop, phase keys and plan seeds differ, K16's
-   blocks spanning two lanes, a lane without edges);
+   blocks spanning two lanes, a lane without edges); then the protocol
+   variants on the packed round's lanes (paths 67-68); then a matrix plan
+   on the packed round's lanes (path 70, B16x): the fault storm at 512
+   nodes x 512 payloads (its plan compiled to the matrix form, K9m's edge
+   entry with the lanes folded into its edges and its reach lane entry)
+   through ``run_campaign`` from launch counters at 0, its ``spec_hash``,
+   ``result_digest`` and every lane against
+   ``PACKED_FAULT_STORM_512_MATRIX_SEEDS8`` (each lane live JAX's
+   one-seed run), lanes 0 and 7 equal to their solo runs on the card;
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at exact counts, STORM_OFF_LAUNCHES; run
    right after the build, since the profiler's count depends on what
@@ -649,6 +675,12 @@ def _profile(run, rounds, label, setup=None):
         "port_kernel_ms_per_round": {
             sym: sum(us for key, us, _ in device
                      if _is_symbol(sym, key)) / 1e3 / rounds
+            for sym in KERNEL_SYMBOLS
+            if any(_is_symbol(sym, key) for key, _, _ in device)
+        },
+        "port_kernel_launches_per_round": {
+            sym: sum(c for key, _, c in device
+                     if _is_symbol(sym, key)) / rounds
             for sym in KERNEL_SYMBOLS
             if any(_is_symbol(sym, key) for key, _, _ in device)
         },
@@ -10090,7 +10122,8 @@ def protocol_ensemble_paths(dev, goldens):
     at 100k each lane's p99, convergence and state digest) against the
     golden pinned from live JAX; every lane's final state (the PeerSwap
     view included) equal to the port's solo run of its cell and seed on
-    this card (the walls beside, with max_memory_allocated).  Path 55
+    this card, at 100k (path 58, every lane a JAX pin) lanes 0 and K - 1
+    (the walls beside, with max_memory_allocated).  Path 55
     also through `runner.config_protocol_frontier` (its sampler cell
     against the solo PeerSwap storm's golden); path 56's broken-ordering
     lane 0 against JAX's solo golden (its 38 violations); path 58's lane
@@ -10139,15 +10172,20 @@ def protocol_ensemble_paths(dev, goldens):
         if any(c["round_path"] != "dense" for c in cells) or any(
                 got[k] != golden[k] for k in got):
             raise AssertionError(f"{label}: differs from its golden")
-        solos = _cell_solo_runs(spec, dev)
+        # every lane of the 100k cell is a live-JAX pin, so its solo runs
+        # are lanes 0 and K - 1 only (the script's time, ROADMAP)
+        lanes_ = (list(range(len(spec.seeds))) if which != "pp100k"
+                  else [0, len(spec.seeds) - 1])
+        solos = _cell_solo_runs(dataclasses.replace(
+            spec, seeds=tuple(spec.seeds[k] for k in lanes_)), dev)
         for i, (cfg, meta, runs) in enumerate(solos):
             finals = kept[i]["finals"]
             order = kept[i]["metrics"].order_violations
-            if [int(f.t) for f, _, _ in runs] != cells[i]["per_seed"][
-                    "rounds"] or not all(
-                        _same_state(f, lane_state(finals, k))
-                        and int(m.order_violations) == int(order[k])
-                        for k, (f, m, _) in enumerate(runs)):
+            if [int(f.t) for f, _, _ in runs] != [
+                    cells[i]["per_seed"]["rounds"][k] for k in lanes_] or \
+                    not all(_same_state(f, lane_state(finals, k))
+                            and int(m.order_violations) == int(order[k])
+                            for k, (f, m, _) in zip(lanes_, runs)):
                 raise AssertionError(f"{label}: a lane of cell {i} differs "
                                      "from its solo run")
         if which == "broken_1k":
@@ -10174,10 +10212,12 @@ def protocol_ensemble_paths(dev, goldens):
                 raise AssertionError(f"{label}: the one-seed campaign "
                                      "differs from JAX's")
         del kept
+        # K times the mean where only lanes 0 and K - 1 ran solo
         walls = [w for _, _, runs in solos for _, _, w in runs]
         entry = {"ensemble_wall_s": [c["wall_clock_s"] for c in cells],
                  "max_memory_allocated_bytes": peak, "solo_walls_s": walls,
-                 "solo_walls_sum_s": sum(walls)}
+                 "solo_walls_sum_s": sum(walls) * len(spec.seeds)
+                 / len(lanes_)}
         if which == "frontier":
             rec = config_protocol_frontier(seed=0, device=dev)
             storm = rec["sampler_storm"]
@@ -10189,10 +10229,10 @@ def protocol_ensemble_paths(dev, goldens):
                                      f"gives {json.dumps(rec)}")
             print(f"{label}: config_protocol_frontier {json.dumps(rec)}",
                   flush=True)
-        print(f"{label}: every lane equal to its solo run; ensemble walls "
-              f"{entry['ensemble_wall_s']} s against the solo walls' sum "
-              f"{sum(walls):.4f} s ({walls}); max_memory_allocated {peak} "
-              "bytes", flush=True)
+        print(f"{label}: lanes {lanes_} equal to their solo runs; ensemble "
+              f"walls {entry['ensemble_wall_s']} s against the solo walls' "
+              f"sum {entry['solo_walls_sum_s']:.4f} s ({walls}); "
+              f"max_memory_allocated {peak} bytes", flush=True)
         numbers[label] = entry
         del solos
         _lap(label)
@@ -10710,10 +10750,10 @@ def packed_latency_ensemble_paths(dev, goldens, trace_dir,
     from zeroed counters, every lane entry of the path launched and no
     solo entry of a kernel that has one, round_path "packed".  Path 60,
     latency-storm-100k-seeds8: the spec_hash, the pinned 8-lane digest and
-    each lane's one-seed JAX pin; each lane's final state equal to the
-    port's solo latency run of its seed on this card, lane 0 to JAX's solo
-    golden; its wall beside the 8 solo walls and the dense latency
-    ensemble's (path 45).  Path 61, fault-storm-100k-seeds8 with the
+    each lane's one-seed JAX pin; lanes 0 and 7 equal to the port's solo
+    latency runs of their seeds on this card, lane 0 to JAX's solo
+    golden; its wall beside 8 times the two solo walls' mean and the
+    dense latency ensemble's (path 45).  Path 61, fault-storm-100k-seeds8 with the
     recorder: the packed golden's spec_hash and result_digest unmoved,
     lane 0's summary JAX's solo recording golden's and lanes 1-7 the
     pinned ones (wire_bytes within the f32 bound), every lane's trace its
@@ -10786,18 +10826,24 @@ def packed_latency_ensemble_paths(dev, goldens, trace_dir,
             if {k: lanes[0][k] for k in solo0} != solo0:
                 raise AssertionError(f"{label}: lane 0 differs from JAX's "
                                      "solo golden")
-            solos = _fault_solo_runs(spec, dev)
-            if not all(_same_state(final, lane_state(finals, i))
-                       for i, (_, final, _) in enumerate(solos)):
-                raise AssertionError(f"{label}: a lane differs from its "
-                                     "solo run")
+            # every lane is a live-JAX pin: lanes 0 and K - 1 run solo
+            # (the script's time, ROADMAP)
+            k_last = len(spec.seeds) - 1
+            solos = _fault_solo_runs(dataclasses.replace(
+                spec, seeds=(spec.seeds[0], spec.seeds[k_last])), dev)
+            if not all(_same_state(final, lane_state(finals, k))
+                       for k, (_, final, _) in zip((0, k_last), solos)):
+                raise AssertionError(f"{label}: lane 0 or {k_last} differs "
+                                     "from its solo run")
             walls = [wall for _, _, wall in solos]
-            entry.update(solo_walls_s=walls, solo_walls_sum_s=sum(walls),
+            solo_sum = sum(walls) * len(spec.seeds) / len(walls)
+            entry.update(solo_walls_s=walls, solo_walls_sum_s=solo_sum,
                          dense_latency_ensemble_wall_s=dense_latency_wall)
-            print(f"{label}: every lane equal to its solo run; ensemble wall "
-                  f"{cell['wall_clock_s']} s against the solo walls' sum "
-                  f"{sum(walls):.4f} s ({walls}) and the dense latency "
-                  f"ensemble's {dense_latency_wall} s", flush=True)
+            print(f"{label}: lanes 0 and {k_last} equal to their solo runs; "
+                  f"ensemble wall {cell['wall_clock_s']} s against the solo "
+                  f"walls' sum {solo_sum:.4f} s (K x the mean of {walls}) "
+                  f"and the dense latency ensemble's {dense_latency_wall} s",
+                  flush=True)
             # where that peak lies: the same cell once more, its
             # allocations replayed (after the timed run, which it would
             # slow)
@@ -12640,6 +12686,482 @@ def profile_proto_lanes(dev, which, lanes=ENSEMBLE_LANES, start=5, rounds=3):
                     f"{start + rounds - 1}", setup)
 
 
+# -- the 1M-node tier (phase 3m, path 69) and matrix plans on the packed
+# round's lanes (path 70) -----------------------------------------------------
+
+#: config_fault_storm_1m's nodes (JAX runner.py:753)
+MILLION = 1_000_000
+#: the first rounds of the 1M fault storm's profiled windows: rounds 0-2,
+#: inside the loss window (K10's fault stream), and 16-18, past the loss
+#: and the split (K2)
+MILLION_WINDOWS = (0, 16)
+#: the rows path 69 launches: the packed round with ground-truth
+#: membership (K1's uniform entry, no SWIM step) under the factored plan
+MILLION_ROWS = ("sample_uniform", "threefry", "edge_list",
+                "broadcast_scatter", "broadcast_scatter_lossy", "word_phases",
+                "sync_masks", "sync_pull", "gaps_refresh", "converge_fold",
+                "node_faults")
+#: partial-view SWIM's rows, off under ground truth
+MILLION_OFF = ("sample_targets", "merge_entries")
+#: the nodes of path 70's cell: the fault storm below 1024 nodes, where
+#: the plan compiles to the matrix form
+MATRIX_LANE_N = 512
+
+
+def compare_million_kernels(dev, seed=19, n=MILLION, timed=True):
+    """Phase 3m: the 1M path's kernels whose indices grow the most past
+    the 100k storm's, at config_fault_storm_1m's shapes (N = 1000000, W =
+    16, F = S = 3, E = 3000000, D = 2), each against its plain version on
+    the same card tensors: K1's uniform entry without a view (the [12, N]
+    candidate draw, with self candidates, repeats and rows left short);
+    K10's fault stream at E = 3000000 under the 1M plan's round 5 (the
+    threshold 38 on every edge, the split's cuts; its loss counter e*8W +
+    8k + j reaches 3.84e8 in u32, its byte index e*P + q 1.54e9); K7's
+    exit mode at [N, W] (264 blocks of 256 rows, 15 passes each before the
+    ticket; the overflow fold's f32 reciprocal of N * A = 1.6e7)."""
+    from corrosion_tpu_torch.sim import faults, packed, swim
+    from corrosion_tpu_torch.sim import rng as trng
+
+    g = np.random.default_rng(seed)
+    w, f, count = 16, 3, 3
+    rows = []
+
+    # K1's uniform entry, no view (ground truth)
+    over = 4 * count
+    me = np.arange(n)[None, :]
+    cand = g.integers(0, n, (over, n))
+    cand = np.where(g.random((over, n)) < 0.05, me, cand)
+    cand[1] = np.where(g.random(n) < 0.3, cand[0], cand[1])  # repeats
+    short = g.random(n) < 0.001
+    cand[:, short] = me[:, short]  # rows left short
+    cand_t = torch.as_tensor(cand, dtype=torch.int32, device=dev)
+    del cand
+    got = swim.sample_uniform(cand_t, None, count)
+    want = swim.sample_uniform_plain(cand_t, None, count)
+    equal, err = _equal_all([got], [want])
+    if not bool((want == -1).any()):
+        raise AssertionError("K1 uniform inputs at 1M leave no row short")
+    rows.append(_row(
+        "sample_uniform_1m",
+        "corrosion_tpu_torch/kernels/csrc/sample_targets.cu",
+        "corrosion_tpu/sim/swim.py:59", equal, err,
+        _timed(timed, lambda: swim.sample_uniform(cand_t, None, count)),
+        _timed(timed, lambda: swim.sample_uniform_plain(cand_t, None,
+                                                        count)),
+        # the draws, the output
+        cand_t.numel() * 4 + n * count * 4, kernel="sample_uniform"))
+    del cand_t, got, want
+
+    # K10's fault stream on the wire's edges of round 5
+    cfg, meta, fplan, rf = _storm_fault_round(dev, n, 5)
+    key = trng.prng_key(99, dev)
+    e = n * f
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(f)
+    dst = torch.as_tensor(g.integers(0, n, e), dtype=torch.int32, device=dev)
+    dst = torch.where(torch.as_tensor(g.random(e) < 0.05, device=dev), src,
+                      dst).contiguous()
+    ok = torch.as_tensor(g.random(e) < 0.9, device=dev)
+    ok, thr, _, _ = faults.fault_wire_effects(rf, src, dst, ok)
+    if int(thr.max()) != 38 or bool(ok.all()):
+        raise AssertionError("K10 inputs at 1M miss the threshold or a cut")
+    sending = _random_words(g, (n, w), dev, 4)
+    slot = torch.full_like(dst, 5 % 2)
+    ring0 = _random_words(g, (2, n, w), dev, 6)
+    s = int(rf.seed)
+    got_r, want_r = ring0.clone(), ring0.clone()
+    packed.scatter_sending_lossy(got_r, sending, dst, slot, ok, thr, key, s,
+                                 f)
+    packed.scatter_sending_lossy_plain(want_r, sending, dst, slot, ok, thr,
+                                       key, s, f)
+    lossless = ring0.clone()
+    packed.scatter_sending_plain(lossless, sending, dst, slot, ok, f)
+    if torch.equal(lossless, want_r):
+        raise AssertionError("K10 inputs at 1M drop no payload")
+    del lossless
+    live = ok & (thr > 0)
+    hashes = int(((sending.repeat_interleave(f, dim=0) != 0)
+                  & live[:, None]).sum()) * 8
+    touched = torch.unique((slot.long() * n + dst.long())[ok]).numel()
+    k10_bytes = sending.numel() * 4 + e * 10 + touched * w * 4 * 2
+    k10_ops = hashes * OPS_PER_HASH
+    ring_k, ring_p = ring0.clone(), ring0.clone()
+    rows.append(_ops_row(
+        "broadcast_scatter_lossy_1m",
+        "corrosion_tpu_torch/kernels/csrc/broadcast_scatter.cu",
+        "corrosion_tpu/sim/faults.py:260",
+        bool(torch.equal(got_r, want_r)), _max_abs_err(got_r, want_r),
+        _timed(timed, lambda: packed.scatter_sending_lossy(
+            ring_k, sending, dst, slot, ok, thr, key, s, f)),
+        # the plain version finds its pairs with a host sync: eager
+        _time_eager_ms(lambda: packed.scatter_sending_lossy_plain(
+            ring_p, sending, dst, slot, ok, thr, key, s, f), reps=2,
+            warmup=1) if timed else None,
+        k10_bytes, k10_ops, kernel="broadcast_scatter_lossy",
+        hashes=hashes))
+    del got_r, want_r, ring_k, ring_p, ring0, sending, src, dst, ok, thr
+
+    # K7's exit mode on `_record_cases` at [N, W]
+    last = int(meta.round.max())
+    calls = []
+    for have, inj, alive, m, t, cnt, horizon in _record_cases(g, dev, n, w,
+                                                             cfg):
+        args = (have, inj, alive, m, meta, t, cfg, cnt, last, horizon)
+        calls.append((args, packed.converge_record(*args),
+                      packed.converge_record_plain(*args)))
+    equal, err = True, 0
+    for _, got, want in calls:
+        e2, x2 = _equal_all(got, want)
+        equal, err = equal and e2, max(err, x2)
+    flags = [bool(c[2][3]) for c in calls]
+    if flags != [False, True, False, True, False]:
+        raise AssertionError(f"K7 inputs at 1M do not reach both done "
+                             f"values in both modes: {flags}")
+    exit_args = calls[3][0]  # the fault loop's exit mode, done reached
+    p = cfg.n_payloads
+    rows.append(_row(
+        "converge_fold_exit_1m",
+        "corrosion_tpu_torch/kernels/csrc/converge_fold.cu",
+        "corrosion_tpu/sim/packed.py:1027", equal, err,
+        _timed(timed, lambda: packed.converge_record(*exit_args)),
+        _timed(timed, lambda: packed.converge_record_plain(*exit_args)),
+        # have, injected_p, alive; converged_at and coverage_at in and
+        # out; the overflow count and fraction in and out; the done flag
+        n * w * 4 + w * 4 + n + n * 4 * 2 + p * 4 * 2 + 4 * 3 + 1,
+        kernel="converge_fold"))
+    del calls
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if not row["equal"]:
+            raise AssertionError(f"{row['name']}: kernel != plain version")
+    print("phase 3m: " + json.dumps(
+        {r["name"]: [r["ms"], r["plain_ms"], r["bound_ms"]] for r in rows}),
+        flush=True)
+    return rows
+
+
+def _million_loop(dev, start, n=MILLION):
+    """config_fault_storm_1m's run (at ``n`` nodes) as the packed fault
+    loop's body (`packed.run_packed_faults`: the round's node faults, the
+    round with its slice and activity, the loop's one host read): (setup,
+    step), the setup the run's packed state after its first ``start``
+    rounds."""
+    from corrosion_tpu_torch.sim import faults, packed
+    from corrosion_tpu_torch.sim.round import new_metrics, new_sim
+    from corrosion_tpu_torch.sim.runner import fault_storm
+    from corrosion_tpu_torch.sim.topology import Topology, regions
+
+    cfg, meta, fplan = fault_storm(n, 512, 0, dev)
+    topo = Topology()
+    region = regions(cfg.n_nodes, 1, dev)
+    activity = faults.host_activity(fplan)
+    horizon = fplan.horizon
+    last_round = int(meta.round.max())  # the loop's one read a run
+
+    def step(loop):
+        slim, carry, inj, metrics = loop
+        t = int(slim.t)
+        rf = faults.round_faults(fplan, t)
+        slim, carry = packed.apply_round_faults(slim, carry, rf)
+        slim, carry, inj, metrics, done = packed.packed_round_step(
+            slim, carry, inj, metrics, meta, cfg, topo, region, rf, horizon,
+            None, activity[min(t, horizon)], last_round=last_round)
+        bool(done)
+        return slim, carry, inj, metrics
+
+    def setup():
+        state = new_sim(cfg, 0, dev)
+        loop = (packed.shrink_state(state), packed.pack_state(state, cfg),
+                packed.pack_bits(state.injected), new_metrics(cfg, dev))
+        del state
+        for _ in range(start):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return loop
+
+    return setup, step
+
+
+def profile_million(dev, start, rounds=3):
+    """Rounds ``start`` to ``start + rounds - 1`` of the 1M fault storm
+    (`_million_loop`); the rounds before, and the run's setup, are
+    outside the profile."""
+    setup, step = _million_loop(dev, start)
+
+    def run(loop):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(rounds):
+            loop = step(loop)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, f"fault-storm-1m rounds {start}-"
+                    f"{start + rounds - 1}", setup)
+
+
+def profile_million_run(dev, rounds):
+    """`config_fault_storm_1m`'s whole call of ``rounds`` rounds, its
+    setup (the config, the plan's compile, `new_sim`, the pack) and the
+    final unpack included."""
+    from corrosion_tpu_torch.sim.runner import config_fault_storm_1m
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        config_fault_storm_1m(seed=0, device=dev)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    return _profile(run, rounds, "fault-storm-1m whole run")
+
+
+#: pointers of the 1M path's entries whose cells a launch updates in
+#: place, by entry, from the launch's pointer count: "ring" ones are read
+#: and written only where a cell changes (a scatter's, a wipe's or a set
+#: bit's target), "inout" ones are read whole and written where they
+#: change, "slot" ones are rings whose slot ints[3] is read whole and
+#: cleared.  K8's pointers hold the relay planes between fixed ones.
+_INPLACE = {
+    "fault_edges": lambda n: {n - 5: "inout"},
+    "broadcast_scatter": lambda n: {0: "ring"},
+    "broadcast_scatter_lossy": lambda n: {0: "ring"},
+    "word_inject": lambda n: {i: "ring" for i in range(3, n)},
+    "word_spend": lambda n: {i: "inout" for i in range(1, n - 4)},
+    "word_deliver": lambda n: {0: "slot", 1: "slot",
+                               **{i: "ring" for i in range(2, n)}},
+    "sync_pull": lambda n: {4: "ring"},
+    "node_faults": lambda n: {i: "ring" for i in range(2, n)},
+}
+#: pointers a bound leaves out: K7's self-clearing scratch
+_SCRATCH = {"converge_record": (11,)}
+
+
+def _launch_ops(name, ptrs, ints):
+    """The u32 operations of one launch's hashes: K5's draws (a hash an
+    element; a randint element two and its modulos) and K10's fault
+    stream (eight hashes a sending (edge, word) pair whose u8 threshold is
+    not 0)."""
+    if name == "threefry":
+        return ints[0] * OPS_PER_HASH
+    if name == "randint":
+        return ints[0] * OPS_PER_RANDINT
+    if name == "broadcast_scatter_lossy" and ptrs[5] is not None:
+        sending, ok, thr = ptrs[1], ptrs[4], ptrs[5]
+        live = ok & (thr > 0)
+        pairs = (sending.repeat_interleave(ints[3], dim=0) != 0) & live[:, None]
+        return int(pairs.sum()) * 8 * OPS_PER_HASH
+    return 0
+
+
+def bounds_million(dev, start, rounds=3, n=MILLION):
+    """The least time the card could take for each 1M-path entry's work
+    in rounds ``start`` to ``start + rounds - 1`` of the 1M fault storm:
+    the rounds (deterministic) replayed from `_million_loop`'s setup with
+    every entry's launch wrapped to count the bytes it must move (each
+    input read once, each output written once; an in-place pointer as
+    `_INPLACE` says, its changed cells from a copy taken before the
+    launch) and its hashes' u32 operations (`_launch_ops`).  Per round,
+    by entry: launches, bytes, operations, bound ms and what bounds it."""
+    from corrosion_tpu_torch import kernels
+
+    setup, step = _million_loop(dev, start, n)
+    loop = setup()
+    acc = {}
+
+    def wrapped(kern):
+        orig = kern.launch
+
+        def launch(ptrs, ints):
+            rule = _INPLACE.get(kern.name)
+            inplace = {} if rule is None else rule(len(ptrs))
+            before = {i: ptrs[i].clone() for i in inplace
+                      if ptrs[i] is not None}
+            ops = _launch_ops(kern.name, ptrs, ints)
+            orig(ptrs, ints)
+            torch.cuda.synchronize()
+            nbytes = 0
+            for i, p in enumerate(ptrs):
+                if p is None or i in _SCRATCH.get(kern.name, ()):
+                    continue
+                how = inplace.get(i)
+                if how is None:
+                    nbytes += _nbytes(p)
+                    continue
+                changed = _changed_bytes([before[i]], [p])
+                if how == "inout":
+                    nbytes += _nbytes(p) + changed
+                elif how == "slot":
+                    nbytes += _nbytes(p[ints[3]]) + changed
+                else:
+                    nbytes += 2 * changed
+            a = acc.setdefault(kern.name, [0, 0, 0])
+            a[0] += 1
+            a[1] += nbytes
+            a[2] += ops
+        return launch
+
+    for kern in kernels.KERNELS:
+        kern.launch = wrapped(kern)
+    try:
+        for _ in range(rounds):
+            loop = step(loop)
+    finally:
+        for kern in kernels.KERNELS:
+            del kern.launch
+    rate = _int32_ops_per_s()
+    out = {}
+    for name, (n_launch, nbytes, ops) in sorted(acc.items()):
+        b_ms, o_ms = _bound_ms(nbytes / rounds), ops / rounds / rate * 1e3
+        out[name] = {"launches_per_round": n_launch / rounds,
+                     "bytes_per_round": nbytes / rounds,
+                     "ops_per_round": ops / rounds,
+                     "bound_ms_per_round": max(b_ms, o_ms),
+                     "bound_by": "operations" if o_ms > b_ms else "bytes"}
+    return {"rounds": f"{start}-{start + rounds - 1}", "entries": out}
+
+
+def million_path(dev, goldens, card):
+    """Path 69: `config_fault_storm_1m(seed=0)` from zeroed counters, every
+    row of `MILLION_ROWS` launched, K9's edge queries (not its reach,
+    which ground truth never calls) and no row of partial-view SWIM;
+    rounds, p99 and digest against `goldens.FAULT_STORM_1M_SEED0`,
+    converged with no node left out.  Prints the record and the peak
+    device memory beside the card; returns the path's launches."""
+    import gc
+
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.sim.runner import config_fault_storm_1m
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rec = config_fault_storm_1m(seed=0, device=dev, return_state=True)
+    peak = torch.cuda.max_memory_allocated()
+    counts = _path_launches(kernels, MILLION_ROWS, "fault_storm_1m",
+                            entries=("fault_edges",))
+    off = [row for row in MILLION_OFF if counts[row]]
+    if off or kernels.FAULT_REACH.launches:
+        raise AssertionError(f"fault_storm_1m: partial-view rows {off} or "
+                             "K9's reach launched under ground truth")
+    if (rec["round_path"], rec["membership"]) != ("packed", "ground-truth"):
+        raise AssertionError("fault_storm_1m: not the packed round with "
+                             "ground-truth membership")
+    _storm_check(rec, goldens.FAULT_STORM_1M_SEED0, "fault_storm_1m")
+    if rec["unconverged_nodes"] != 0:
+        raise AssertionError("fault_storm_1m: unconverged nodes")
+    print("config_fault_storm_1m: " + json.dumps(
+        {k: v for k, v in rec.items() if k not in ("state", "metrics")})
+        + f" max_memory_allocated {peak} bytes ({held} held at entry); "
+        f"card: {card}", flush=True)
+    return counts
+
+
+def million_profiles(dev, rounds, card):
+    """Where the 1M fault storm's time goes: its whole run profiled (the
+    launches, device ms and idle share a round, printed beside the card),
+    then the windows of `MILLION_WINDOWS` profiled and their bounds
+    replayed (`bounds_million`).  Run early in the process: the profiler
+    has dropped device events in a process that ran many phases before
+    (fractional launch counts a round)."""
+    prof = profile_million_run(dev, rounds)
+    print(f"fault_storm_1m: {prof['device_launches_per_round']} launches "
+          f"and {prof['device_ms_per_round']} device ms a round, idle "
+          f"{prof['idle_share']}, wall {prof['wall_ms_per_round'] * rounds} "
+          f"ms ({rounds} rounds, setup and unpack included); card: {card}",
+          flush=True)
+    print("profile_fault_storm_1m: " + json.dumps(prof), flush=True)
+    for start in MILLION_WINDOWS:
+        print("profile_fault_storm_1m: " + json.dumps(
+            profile_million(dev, start)), flush=True)
+        print("bounds_fault_storm_1m: " + json.dumps(
+            bounds_million(dev, start)), flush=True)
+
+
+def packed_matrix_spec(seeds=range(ENSEMBLE_LANES), n=MATRIX_LANE_N):
+    """Path 70's cell: the fault storm at ``n`` nodes on the packed round
+    (``packed_min_cells`` 0), its plan compiled to the matrix form below
+    1024 nodes (`campaign.spec.storm_seeds_spec` with ``faults``)."""
+    from corrosion_tpu_torch.campaign import spec as sp
+
+    seeds = tuple(seeds)
+    spec = sp.storm_seeds_spec(seeds, n_nodes=n, faults=True)
+    return dataclasses.replace(
+        spec, name=f"packed-fault-storm-{n}-matrix-seeds{len(seeds)}",
+        scenario=dict(spec.scenario, packed_min_cells=0))
+
+
+#: the lane rows path 70 launches: the packed lane round under a matrix
+#: plan (K9m's edge entry with the lanes folded into its edges, its reach
+#: lane entry)
+MATRIX_LANE_ROWS = LANE_STORM_ROWS + ("broadcast_scatter_lossy_lanes",
+                                      "node_faults_lanes",
+                                      "fault_reach_matrix_lanes",
+                                      "fault_edges_matrix")
+
+
+def packed_matrix_path(dev, goldens):
+    """Path 70: the packed round's lanes under a matrix plan (B16x),
+    `packed_matrix_spec` through `campaign.engine.run_campaign` from
+    zeroed counters: every row of `MATRIX_LANE_ROWS` launched, no solo
+    entry of a kernel that has a lane entry nor a factored plan's K9
+    entry; spec_hash, result_digest and every lane (rounds, p99,
+    convergence, digest) against
+    `goldens.PACKED_FAULT_STORM_512_MATRIX_SEEDS8` (each lane live JAX's
+    one-seed run); lanes 0 and K - 1 equal to their solo runs on this
+    card.  Returns the path's launches."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.campaign.engine import run_campaign
+    from corrosion_tpu_torch.campaign.ensemble import lane_state
+    from corrosion_tpu_torch.convert import state_digest
+    from corrosion_tpu_torch.sim.round import RunMetrics
+    from corrosion_tpu_torch.sim.state import uniform_payloads
+
+    label = "packed_fault_storm_512_matrix_seeds8"
+    spec = packed_matrix_spec()
+    cfg, topo = spec.sim_config({}), spec.topo({})
+    meta = uniform_payloads(cfg, dev, inject_every=spec.inject_every({}))
+    kernels.reset_launch_counts()
+    kept = {}
+    art = run_campaign(spec, device=dev, lanes_out=kept)
+    counts = _path_launches(kernels, MATRIX_LANE_ROWS, label)
+    stray = [r for r in (*SOLO_OF_LANE.values(), "fault_edges",
+                         "fault_reach_lanes") if counts[r]]
+    if stray:
+        raise AssertionError(f"{label}: {stray} launched on the lanes")
+    finals, metrics = kept[0]["finals"], kept[0]["metrics"]
+    cell = art["cells"][0]
+    ps = cell["per_seed"]
+    got = {"spec_hash": art["spec_hash"],
+           "result_digest": art["result_digest"],
+           "lanes": [{"seed": s, "rounds": ps["rounds"][i],
+                      "p99_node_convergence_round":
+                          ps["p99_node_convergence_round"][i],
+                      "converged": ps["converged"][i],
+                      "unconverged_nodes": ps["unconverged_nodes"][i],
+                      "digest": state_digest(lane_state(finals, i))}
+                     for i, s in enumerate(cell["seeds"])]}
+    print(f"{label}: {json.dumps(got)} round_path {cell['round_path']} "
+          f"wall_clock_s {cell['wall_clock_s']}", flush=True)
+    if (cell["round_path"] != "packed"
+            or got != goldens.PACKED_FAULT_STORM_512_MATRIX_SEEDS8):
+        raise AssertionError(f"{label}: differs from its golden")
+    k_last = len(spec.seeds) - 1
+    for k in (0, k_last):
+        final, m, _, _ = _proto_solo_run(spec, cfg, topo, meta, spec.seeds[k],
+                                         dev, False)
+        lane_m = RunMetrics(*(x[k] for x in metrics))
+        if not (_same_state(final, lane_state(finals, k)) and all(
+                torch.equal(a, b) for a, b in zip(m, lane_m))):
+            raise AssertionError(f"{label}: lane {k} differs from its solo "
+                                 "run")
+    print(f"{label}: lanes 0 and {k_last} equal to their solo runs",
+          flush=True)
+    return counts
+
+
 _START = time.monotonic()
 
 
@@ -12867,6 +13389,8 @@ def main() -> int:
                                  f"{prof['rounds']} telemetry-off rounds, "
                                  f"not {want}")
     storm_profiles.append(profile_storm(dev, telemetry=True))
+    # the 1M fault storm's profiles and bounds, early for the same reason
+    million_profiles(dev, goldens.FAULT_STORM_1M_SEED0["rounds"], card)
     print("in-path redesigned kernels' ms per round, "
           + storm_profiles[0]["run"] + ": "
           + json.dumps(in_path_ms(storm_profiles[0])), flush=True)
@@ -12940,6 +13464,10 @@ def main() -> int:
     print("kernel comparisons equal for the protocol variants on the packed "
           "lanes", flush=True)
     _lap("phase 3lq, packed lane protocol kernel comparisons")
+    million_rows = compare_million_kernels(dev)
+    print("kernel comparisons equal at the 1M fault storm's shapes",
+          flush=True)
+    _lap("phase 3m, the 1M path's kernel comparisons")
 
     cfg, meta = _write_storm(512, 256, dev)
     cfg = dataclasses.replace(cfg, packed_min_cells=0)
@@ -12992,6 +13520,11 @@ def main() -> int:
     print("config_packed_fault_storm: " + json.dumps({
         k: v for k, v in fault.items() if k not in ("state", "metrics")}),
         flush=True)
+
+    # path 69, the 1M-node tier: the packed round with ground-truth
+    # membership under the factored storm plan, with its profiles
+    million_launches = million_path(dev, goldens, card)
+    _lap("path 69, the 1M fault storm")
 
     # path 3, partition-heal-10k: the dense round with partial-view
     # SWIM, two regions (ring0 tiering): K1, K4, K5 and K12-K14
@@ -13852,6 +14385,9 @@ def main() -> int:
     print("packed protocol ensemble numbers: "
           + json.dumps(proto_packed_numbers), flush=True)
     _lap("paths 67-68, the protocol variants on the packed lanes")
+    # path 70: a matrix plan on the packed round's lanes
+    matrix_lane_launches = packed_matrix_path(dev, goldens)
+    _lap("path 70, a matrix plan on the packed lanes")
 
     for prof in storm_profiles:
         print("profile: " + json.dumps(prof), flush=True)
@@ -14230,6 +14766,14 @@ def main() -> int:
             label: c[row["kernel"]]
             for label, c in proto_packed_launches.items()}
     rows += proto_packed_rows
+    # each 1M row reads its kernel's launches on path 69
+    for row in million_rows:
+        row["launches"] = million_launches[row["kernel"]]
+        row["path"] = "fault_storm_1m"
+        row["other_paths_launches"] = {
+            "packed_fault_storm_512_matrix_seeds8":
+                matrix_lane_launches[row["kernel"]]}
+    rows += million_rows
     for row in rows:
         row["kernel_ms"] = row["ms"]
     _lap("profiles")

@@ -43,12 +43,11 @@ of the result digest.  Every cell whose ``ordering`` is not "none"
 bands each lane's ``order_violations`` (its standing delivery-order
 count, K22), part of the digest, as JAX's does.  A ``churn`` cell (B16c)
 appends its churn events to the cell's plan (`.spec.CampaignSpec.
-fault_plan`), which either round's lanes run: a matrix plan below 1024
-nodes on the dense round's, a factored one on the packed round's.  The
-rest raises NotImplementedError, naming its ROADMAP item: matrix plans on
-the packed round's lanes are B16x (they run on the dense round's lanes;
-`..sim.lanes.check_packed_lanes`), a mesh is A13, host-serving cells
-and host parity are host tier (not queued).  The cell's ``traceparent``
+fault_plan`), which either round's lanes run, in either form: a matrix
+plan below 1024 nodes, a factored one above (the packed round's lanes
+run matrix plans since B16x).  The rest raises NotImplementedError,
+naming its ROADMAP item: a mesh is A13, host-serving cells and host
+parity are host tier (not queued).  The cell's ``traceparent``
 and its span tree belong to the host tracing tier and are left out (the
 digest excludes them; a flight-recorder header carries ``traceparent:
 None``).
@@ -84,13 +83,13 @@ def _refuse(spec: CampaignSpec, cell: Dict[str, object], cfg) -> None:
     """The cells the engine does not run.  First JAX's own ValueErrors
     (``engine.py:190-231``), word for word: what a detect cell, or a
     wire measurement, cannot measure.  Then the port's
-    NotImplementedErrors, each naming its ROADMAP item; the refusal of
-    what a cell resolves to — on the packed round a matrix plan (B16x) —
-    follows in `..sim.lanes.check_packed_lanes`, which since B16m lets
-    every protocol family and knob, both byte budgets, every topology
-    family and key, every membership mode and PeerSwap through to the
-    packed round's lanes (JAX's ``jax.vmap`` of ``sim/packed.py:681
-    packed_round_step`` in ``campaign/ensemble.py:114 run_ensemble``).
+    NotImplementedErrors, each naming its ROADMAP item.  Whatever a cell
+    resolves to on the packed round runs on its lanes
+    (`..sim.lanes.check_packed_lanes`: every protocol family and knob,
+    both byte budgets, every topology family and key, every membership
+    mode, PeerSwap and, since B16x, a matrix plan; JAX's ``jax.vmap`` of
+    ``sim/packed.py:681 packed_round_step`` in ``campaign/ensemble.py:114
+    run_ensemble``).
     A ``churn`` cell runs (B16c) but on a detect cell, which keeps JAX's
     ValueError."""
     from .spec import _PROTO_KEYS

@@ -25,12 +25,12 @@ membership mode and either sampler (B16m's budgets and topology, B16s's
 packed half) and every protocol family and knob (B16m's rest).  Fault
 plans run on both rounds' lanes, a churn schedule's events among them
 (B16c): of either form, with delay and jitter, on the dense round's
-(under PeerSwap too: B16s-f); factored, with delay and jitter (B16l), on
-the packed round's (matrix plans there are ROADMAP B16x; a mesh is
-A13).  The flight recorder (``telemetry``) runs on both rounds' lanes
-and the detect loop's (B16r): each lane records its own trace, equal to
-its solo run's, and the stacked traces come back last, as JAX's vmapped
-recorder returns them.  Each refusal raises, naming its item.
+(under PeerSwap too: B16s-f) and on the packed round's (factored with
+delay and jitter since B16l, matrix since B16x); a mesh is A13.  The
+flight recorder (``telemetry``) runs on both rounds' lanes and the
+detect loop's (B16r): each lane records its own trace, equal to its solo
+run's, and the stacked traces come back last, as JAX's vmapped recorder
+returns them.  Each refusal raises, naming its item.
 """
 
 from __future__ import annotations

@@ -25,7 +25,13 @@ and the wire cell's ``wire_bytes``;
 lanes' axis entries at the end (B16m's budgets and topology, B16s's
 packed half) are ``tests/test_torch_packed_lane_axes.py``'s: the packed
 WAN cell's construction in tier 1, the PeerSwap storm's lanes against
-live JAX under ``-m slow``.
+live JAX under ``-m slow``.  ``FAULT_STORM_1M_SEED0`` (the 1M-node tier)
+is held against live JAX by ``tests/test_torch_fault_storm_1m.py`` under
+``-m slow``, and the packed lanes under a matrix plan
+(``PACKED_FAULT_STORM_512_MATRIX_SEEDS8``, B16x) by
+``tests/test_torch_packed_matrix_lanes.py`` (the cell's construction and
+its lanes 0 and 7 from the port in tier 1, every lane against live JAX
+under ``-m slow``).
 """
 
 # _write_storm(512, 256) with packed_min_cells=0, seed 7
@@ -55,6 +61,16 @@ FAULT_STORM_100K_SEED0 = {
     "rounds": 29,
     "p99_node_convergence_round": 25.0,
     "digest": "1cd8919e20ad0df8",
+}
+
+# the 1M-node tier (config_fault_storm_1m's run, unsharded): cfg, meta =
+# _write_storm(1_000_000, 512) (ground-truth membership above 2^18 nodes)
+# and run_fault_plan(new_sim(cfg, 0), meta, cfg, Topology(), compile_plan(
+# storm_fault_plan(1_000_000, 0), cfg, Topology()), max_rounds=3000)
+FAULT_STORM_1M_SEED0 = {
+    "rounds": 31,
+    "p99_node_convergence_round": 27.0,
+    "digest": "368cef05fd7b5ac9",
 }
 
 # the latency storm: cfg, meta = _write_storm(100000, 512) with
@@ -2709,5 +2725,55 @@ STORM_FANOUT_DECAY_100K_SEEDS8 = {
          "p99_node_convergence_round": 36.0,
          "converged": True, "unconverged_nodes": 0,
          "digest": "3aa4e147875dce53"},
+    ],
+}
+
+
+# the packed round's lanes under a matrix plan (B16x): storm_seeds_spec(
+# n_nodes=512, faults=True) with packed_min_cells=0 in its scenario, named
+# "packed-fault-storm-512-matrix-seeds8" (the fault storm at 512 nodes x
+# 512 payloads on the packed round, its plan compiled to the matrix form
+# below 1024 nodes: [22, 512, 512] cut and loss slabs).  Each lane is live
+# JAX's one-seed run of its seed: run_ensemble(seed_states(cfg, [k]), meta,
+# cfg, topo, fplan=compile_plan(spec.fault_plan({}, seed=0), cfg, topo),
+# plan_seeds=lane_plan_seeds([k]), max_rounds=3000) of JAX's campaign
+# package, which equals lane k of JAX's vmapped 8-lane run (its
+# run_campaign of the spec, whose spec_hash and result_digest these are)
+PACKED_FAULT_STORM_512_MATRIX_SEEDS8 = {
+    "spec_hash": "3153a5a5c96d34e4",
+    "result_digest": "16f1d19d4dbe1c6620361d69fcf872e8",
+    "lanes": [
+        {"seed": 0, "rounds": 24,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "192ddac864d940d4"},
+        {"seed": 1, "rounds": 25,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "5a7ffff51bb55f35"},
+        {"seed": 2, "rounds": 27,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "5a2373160af70cf3"},
+        {"seed": 3, "rounds": 25,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "5fd7fc6b4f64e6b4"},
+        {"seed": 4, "rounds": 27,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "c5550c934259c4c5"},
+        {"seed": 5, "rounds": 25,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "aafa95490bfae0d1"},
+        {"seed": 6, "rounds": 27,
+         "p99_node_convergence_round": 22.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "0e66dea80af5811d"},
+        {"seed": 7, "rounds": 24,
+         "p99_node_convergence_round": 21.0,
+         "converged": True, "unconverged_nodes": 0,
+         "digest": "09e8c33c7e95556a"},
     ],
 }

@@ -215,6 +215,16 @@
 // share one lane's keys.  Bound: K times the solo bound — bytes outside
 // loss, operations (one hash per sending (edge, word of 4 payloads) under
 // a threshold) inside it.
+//
+// At the 1M tier (config_fault_storm_1m: N = 1 000 000, W = 16, P = 512,
+// F = 3, E = 3 000 000, D = 2): the edge pass's edge e < 3e6 and K2's
+// thread (node, word) < N * W = 1.6e7 are u32 (their guards: < 2^32);
+// K2's ring offset ((size_t)s * N + d) * W < 3.2e7 and K10's thread
+// (edge, word) < E * W = 4.8e7 are size_t; K10's loss counter e*8W + 8k
+// + j < 3.84e8 is a u32 (the launcher's refusal at E*8*W >= 2^32 stands
+// far off); the byte index e*P + q < 1.54e9 is never formed (word e*8W
+// + 8k + j holds it).
+
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"

@@ -67,6 +67,12 @@
 // row and ticket.  A lane's fold never sees another lane's rows; the
 // last block of each lane writes its coverage stamps, done[lane] and
 // overflow_frac[lane].  Bound: K times the solo bound.
+//
+// At the 1M tier (config_fault_storm_1m: N = 1 000 000, W = 16, A = 16)
+// the grid is capped at 264 blocks (two an SM), each walking 256 rows a
+// pass, 15 passes before the ticket; node < N is an int and the have
+// offset (size_t)node * W < 1.6e7; the overflow fold's reciprocal is
+// f32(1) / f32(N * A = 1.6e7), whose cell count is exact in f32 (< 2^24).
 
 #include <cstdint>
 #include <cstring>

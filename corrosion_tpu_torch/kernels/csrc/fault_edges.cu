@@ -90,6 +90,10 @@
 // most, near the cost of a launch.  Design: the simplest one-pass form;
 // the masks of a half-split partition or a first-sixth delay are byte
 // arrays the caches hold whole.
+//
+// At the 1M tier (config_fault_storm_1m: N = 1 000 000, E = 3 000 000 on
+// the wire and the sessions; ground truth calls no reach query) edge i <
+// 3e6 is an int and the factor masks' offset kk * N + s < 2e6 a size_t.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -91,6 +91,10 @@
 // slots and overflow count are its slices of the [K, ...] tensors (the
 // count per lane feeds its own overflow_frac).  Bound: K times the
 // solo bound.
+//
+// At the 1M tier (config_fault_storm_1m: N = 1 000 000, W = 16, A = 16,
+// K = 8) the (node, actor) row i < N * A = 1.6e7, the have offset node *
+// W < 1.6e7 and the slots' (node * A + a) * K < 1.28e8 are size_t.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -45,6 +45,10 @@
 // lanes' u8 have and relay rows, both u8 rings, heads, gaps, member
 // tables, full views and PeerSwap views, the round's slice shared.
 // Bound: launch latency, as the solo entries'.
+//
+// At the 1M tier (config_fault_storm_1m: N = 1 000 000, W = 16, D = 2)
+// a wiped row's offsets (size_t)node * row < 1.6e7 and the rings'
+// ((size_t)s * N + node) * W < 3.2e7 are size_t.
 
 #include <cstdint>
 #include <cuda_runtime.h>

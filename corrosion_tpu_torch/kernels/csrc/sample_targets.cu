@@ -89,6 +89,12 @@
 // blockIdx.y's views [N, V], slot draws [over, N], beliefs [N, N] (when
 // given) and output [N, count], offset in 64 bits; the candidates are
 // lane-local ids.  Bound: K times the solo bound.
+//
+// At the 1M tier (config_fault_storm_1m, N = 1 000 000, count 3, no
+// view) the uniform entry reads cands[(size_t)j * n + node] < 1.2e7 and
+// writes out[(size_t)node * count + q] < 3e6; node < N is an int.  The
+// member entry's counter j * N + node is a u32 under its guard over * N
+// < 2^31.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -135,6 +135,11 @@
 // D - 2 nowhere.  Bound on the H100: bytes — K times the solo metered
 // bound: the peers' mask rows the sessions gather, the pullers' own rows,
 // the ring words the grants touch, in and out.
+//
+// At the 1M tier (config_fault_storm_1m: N = 1 000 000, W = 16, S = 3,
+// D = 2, A = 16) the mask pass's row offset row * 4 * W + k < 6.4e7 and
+// the pull's session e = node * S + s < 3e6, peer row p * 4 * W < 6.4e7
+// and ring slot offset < 3.2e7 are all size_t.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -41,6 +41,11 @@
 // past the card's ops-per-byte balance.  Design: one thread per draw,
 // keys and span in registers, the hash fully unrolled from the shared
 // header; the block's subkeys are two hashes for 256 draws.
+//
+// At the 1M tier (corrosion_tpu/sim/runner.py:753 config_fault_storm_1m:
+// N = 1 000 000, P = 512, ground-truth membership) the largest draw is
+// the uniform sampler's [12, N] randint: element index i < 1.2e7, a u32;
+// the rearm's per-element maxval row is [N]; lane offsets are size_t.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -73,6 +73,10 @@
 // alive row, injected_p and ring slices are its slots of the [K, ...]
 // tensors; the payload metadata and the round t are shared.  Bound: K
 // times the solo bound.
+//
+// At the 1M tier (config_fault_storm_1m: N = 1 000 000, W = 16, D = 2,
+// F = 3) a thread's word i < N * W = 1.6e7 and the ring offset slot * N
+// * W + i < 3.2e7 are size_t; targets[(size_t)node * F + j] < 3e6.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -91,9 +91,19 @@ after the degree caps (`broadcast_targets_lanes`).  JAX: ``packed.py:
 514-538`` and ``:584-607``, ``:644-653``, ``:821-832`` and ``:1168-1170``
 under the vmap.
 
-The lane path runs every configuration of the solo packed round but one,
-which `check_packed_lanes` refuses naming the ROADMAP item that ports it:
-matrix plans (B16x).  The dense round's lanes (`.dense_lanes`) have
+**Matrix plans** (B16x): a matrix plan's round slice (`.faults.
+RoundFaults`, the shared [N, N] slabs of its row t) reaches the same
+queries as a factored one, each picking K9m's entry for it: the
+broadcast's cut, loss threshold, delay and jitter and the pull's session
+refusal and reverse thresholds through K9m's edge entry, the lanes folded
+into its edge axis; the sync's session refusal and delay through the
+same; the probe reach through K9m's reach lane entry, each lane folding
+its phase key with its plan seed; the crashes and wipes through K11's
+lane entry.  JAX: the matrix branches of ``faults.py:195-256`` and
+``:303-312`` under the vmap.
+
+The lane path runs every configuration of the solo packed round
+(`check_packed_lanes`).  The dense round's lanes (`.dense_lanes`) have
 `check_dense_lanes`, and share this module's batch and loop (`_Batch`,
 `_run_batch`, `trace_of`, `stack_traces`).
 """
@@ -115,8 +125,8 @@ from .broadcast import ring0_targets_lanes
 from .faults import (
     JITTER_TAG,
     WIRE_LOSS_TAG,
-    FactoredFaultPlan,
-    FactoredRoundFaults,
+    AnyFaultPlan,
+    AnyRoundFaults,
     _zero_rows_,
     fault_session_effects,
     fault_wire_effects,
@@ -179,30 +189,27 @@ from .words import (
 
 
 def check_packed_lanes(cfg: SimConfig, topo: Topology, fplan=None) -> None:
-    """Refuse, loudly and naming the ROADMAP item that ports it, the one
-    configuration the packed round's lanes do not run: matrix plans
-    (B16x).  Every protocol family and knob (K10p's, K8f's, K22's words
-    and K18's words-pull lane entries, the eager cadence, K20's schedule
-    lane entry), both metered budgets (K16 on the lanes' rows, K3m's lane
-    entry), every topology family and key (K10's flat and tiered streams
-    on lanes, K20's lane entries), every membership mode and PeerSwap
-    (K1's, K15's and K21's lane entries), factored plans with delay and
-    jitter (B16l) and the flight recorder (B16r) run: JAX's ``jax.vmap`` of
+    """The packed round's lanes run every configuration of the solo
+    packed round: every protocol family and knob (K10p's, K8f's, K22's
+    words and K18's words-pull lane entries, the eager cadence, K20's
+    schedule lane entry), both metered budgets (K16 on the lanes' rows,
+    K3m's lane entry), every topology family and key (K10's flat and
+    tiered streams on lanes, K20's lane entries), every membership mode
+    and PeerSwap (K1's, K15's and K21's lane entries), fault plans of
+    either form with delay and jitter (B16l; a matrix plan's slices
+    through K9m's edge and reach lane entries, B16x) and the flight
+    recorder (B16r): JAX's ``jax.vmap`` of
     ``corrosion_tpu/sim/packed.py:681 packed_round_step`` in
-    ``corrosion_tpu/campaign/ensemble.py:114-158 run_ensemble`` over every
-    configuration of the solo packed round but that one.  Bound on the
-    H100: K times the solo round's bytes and hashes (the lanes share no
-    work); the design runs each phase's kernel once for all live lanes (a
-    lane grid dimension, or the lanes folded into a kernel's rows), so a
-    lane round issues the launches of one solo round."""
+    ``corrosion_tpu/campaign/ensemble.py:114-158 run_ensemble``; so
+    ``fplan``, of either form, is accepted.  A dense configuration
+    belongs to `.dense_lanes`.  Bound on the H100: K
+    times the solo round's bytes and hashes (the lanes share no work);
+    the design runs each phase's kernel once for all live lanes (a lane
+    grid dimension, or the lanes folded into a kernel's rows), so a lane
+    round makes the launches of one solo round."""
     if not packed_supported(cfg, topo):
         raise ValueError("a dense configuration on the packed round's "
                          "lanes: run it through `.dense_lanes`")
-    if fplan is not None and not isinstance(fplan, FactoredFaultPlan):
-        raise NotImplementedError(
-            "matrix fault plans on the packed round's lanes are not "
-            "ported yet (ROADMAP B16x); compile the plan factored, or run "
-            "it on the dense round's lanes (allow_packed=False)")
 
 
 def check_dense_lanes(cfg: SimConfig, topo: Topology, fplan=None,
@@ -721,7 +728,7 @@ def converge_record_lanes(have, inj, alive, metrics: RunMetrics,
 
 
 def apply_round_faults_lanes_plain(slim: SimState, carry: PackedCarry,
-                                   rf: FactoredRoundFaults) -> None:
+                                   rf: AnyRoundFaults) -> None:
     """Plain version of K11's lane entry, in place."""
     slim.alive.copy_(torch.where(
         rf.alive[None] >= 0, rf.alive.to(slim.alive.dtype)[None],
@@ -738,7 +745,7 @@ def apply_round_faults_lanes_plain(slim: SimState, carry: PackedCarry,
 
 
 def apply_round_faults_lanes(slim: SimState, carry: PackedCarry,
-                             rf: FactoredRoundFaults) -> None:
+                             rf: AnyRoundFaults) -> None:
     """`packed.apply_round_faults` over the lanes, in place: the round's
     shared alive overrides and wipes hit every lane's rows (JAX shares
     the schedule unbatched, ``ensemble.py:147-158``), a wiped node's
@@ -826,9 +833,10 @@ def broadcast_lanes(carry: PackedCarry, inj, state: SimState,
     instantiation under tiered loss, K10j's stream with jitter), each lane
     with its own keys and plan seed.  Under ``faults`` cuts clear edges
     and the plan's fixed delay adds to each edge's slot (K9, its latency
-    entry under delay or jitter factors, on the lanes folded into its edge
-    axis).  ``active`` is the host's copy of the round's loss and jitter
-    activity (None: every class the plan has).  With a lane ``trace``
+    entry under delay or jitter factors, K9m on a matrix slice, on the
+    lanes folded into its edge axis).  ``active`` is the host's copy of
+    the round's loss and jitter activity (None: every class the plan
+    has).  With a lane ``trace``
     each lane's cut edges (K9's lane-strided count), the frames and bytes
     it sends on its ok edges (K18's words lane entry) and the frames its
     loss ate (the scatter's recording form) go to its accumulators."""
@@ -884,9 +892,9 @@ def _pull_lanes(carry: PackedCarry, sending, cfg: SimConfig,
                 ok, slot, thr, k_drop, seeds, topo_thr: int, tiers) -> None:
     """The push-pull response leg of `broadcast_lanes`, as the solo
     `packed._pull_packed`: the session refusal across a cut in either
-    direction (K9's session query, the lanes folded), the reverse fault
-    thresholds when this round's loss applies (K9's wire query on the
-    swapped edges), the response scatter (K10p's lane entry) and, with a
+    direction (K9's session query, K9m's on a matrix slice, the lanes
+    folded), the reverse fault thresholds when this round's loss applies
+    (K9's or K9m's wire query on the swapped edges), the response scatter (K10p's lane entry) and, with a
     lane ``trace``, the pull's frames and bytes (K18's words-pull lane
     entry) and its lost frames (K10p's recording form)."""
     from ..proto.dissemination import pull_session_ok_lanes, reverse_loss_lanes
@@ -916,7 +924,8 @@ def sync_lanes(carry: PackedCarry, state: SimState, cfg: SimConfig,
     grant metered) and its backoff and re-arm draws (K5); a cut in either
     direction refuses a session, and under a plan with delay factors each
     session's grants land its session delay later (K9, its latency entry,
-    folded; K3's delay lane entry, or K3m's with the delays).  Returns
+    or K9m on a matrix slice, folded; K3's delay lane entry, or K3m's with
+    the delays).  Returns
     (countdown, backoff, ok): [K, N] each and the sessions' ok mask
     bool[K, N * S]; with a lane ``trace`` each lane's refused sessions
     (K9's lane-strided count) and grant counts (K3's or K3m's recording
@@ -1216,7 +1225,7 @@ def packed_lane_batch(states: SimState, cfg: SimConfig, seeds=None,
 
 def packed_lane_step(batch: _Batch, meta: PayloadMeta, cfg: SimConfig,
                      topo: Topology, region,
-                     fplan: Optional[FactoredFaultPlan] = None,
+                     fplan: Optional[AnyFaultPlan] = None,
                      activity=None, telemetry: bool = False, *,
                      last_round: int):
     """One round of the packed lane loop's live lanes: under ``fplan``
@@ -1241,16 +1250,16 @@ def packed_lane_step(batch: _Batch, meta: PayloadMeta, cfg: SimConfig,
 
 def run_lanes(states: SimState, meta: PayloadMeta, cfg: SimConfig,
               topo: Topology, max_rounds: int,
-              fplan: Optional[FactoredFaultPlan] = None,
+              fplan: Optional[AnyFaultPlan] = None,
               seeds: Optional[torch.Tensor] = None, telemetry: bool = False):
     """Run every lane of stacked initial states (every field [K, ...],
     ``t`` 0 in all) to its own exit or ``max_rounds`` — any configuration
-    of the solo packed round but a matrix plan (every protocol family and
-    knob, both byte budgets, every topology family and key, every
-    membership mode, PeerSwap; `check_packed_lanes`): faultless, the
-    solo `packed.run_packed`'s loop per lane; under ``fplan`` (a factored
-    plan, delay and jitter factors included, its seed replaced per lane by
-    ``seeds`` i32[K]) the solo `packed.run_packed_faults`' — the round's
+    of the solo packed round (every protocol family and knob, both byte
+    budgets, every topology family and key, every membership mode,
+    PeerSwap; `check_packed_lanes`): faultless, the solo
+    `packed.run_packed`'s loop per lane; under ``fplan`` (either form,
+    delay and jitter included, its seed replaced per lane by ``seeds``
+    i32[K]) the solo `packed.run_packed_faults`' — the round's
     node faults first (K11), each round's scatter picked from the plan's
     host activity, no exit before the horizon, then the fresh all-have
     predicate.  Returns the lanes' final (SimState, RunMetrics), stacked

@@ -6,7 +6,9 @@ the PeerSwap sampler, `_resolve_topo`, and under a named protocol
 family, `_resolve_proto`),
 the packed fault storm and its flight-recorder rung
 (`config_fault_storm_telemetry`) with their setup `fault_storm` (which
-also puts the storm on the dense round, or on full-view SWIM), and the
+also puts the storm on the dense round, or on full-view SWIM), the
+1M-node tier (`config_fault_storm_1m`: the fault storm at a million
+nodes, ground-truth membership), and the
 gapstress storm (config #5b, on the packed round from 1280 nodes) with
 its K-clamp distortion pair, membership churn (configs #2 and #2b
 through the campaign engine's detect cells, as JAX routes them, and
@@ -519,6 +521,29 @@ def config_packed_fault_storm(
     ``metrics``."""
     dev = resolve_device(device)
     cfg, meta, fplan = fault_storm(n_nodes, n_payloads, seed, dev)
+    result, final, metrics = _fault_storm_run(cfg, meta, fplan, seed, dev)
+    wall = result.pop("wall_clock_s")
+    faultless = run_scenario(cfg, meta, seed=seed, max_rounds=3000,
+                             device=dev)
+    fl_wall = faultless["wall_clock_s"]
+    result.update(
+        wall_clock_s=wall,
+        faultless_wall_clock_s=fl_wall,
+        fault_over_faultless=(wall / fl_wall if fl_wall > 0
+                              else float("inf")),
+    )
+    if return_state:
+        result["state"] = final
+        result["metrics"] = metrics
+    return result
+
+
+def _fault_storm_run(cfg: SimConfig, meta: PayloadMeta, fplan, seed: int,
+                     dev: torch.device, membership: bool = False):
+    """One `run_fault_plan` of the storm under its compiled plan from
+    ``new_sim(cfg, seed)``, its wall bracketed by synchronizes: (the
+    fault rungs' record in JAX's key order, with the ``membership`` key
+    where asked, final state, metrics)."""
     topo = Topology()
     state = new_sim(cfg, seed, dev)
     _sync(dev)
@@ -530,16 +555,14 @@ def config_packed_fault_storm(
     wall = time.monotonic() - t0
     rounds = int(final.t)
     conv = _node_convergence(metrics, final)
-
-    faultless = run_scenario(cfg, meta, topo=topo, seed=seed,
-                             max_rounds=3000, device=dev)
-    fl_wall = faultless["wall_clock_s"]
     result = {
-        "n_nodes": n_nodes,
-        "n_payloads": n_payloads,
+        "n_nodes": cfg.n_nodes,
+        "n_payloads": cfg.n_payloads,
         "n_devices": 1,
         "mesh": None,
         "round_path": "packed" if packed_supported(cfg, topo) else "dense",
+        **({"membership": ("partial-view" if cfg.swim_partial_view
+                           else "ground-truth")} if membership else {}),
         "plan_horizon": fplan.horizon,
         "plan_seed": seed,
         "rounds": rounds,
@@ -547,10 +570,32 @@ def config_packed_fault_storm(
                       and rounds >= fplan.horizon),
         **conv,
         "wall_clock_s": wall,
-        "faultless_wall_clock_s": fl_wall,
-        "fault_over_faultless": (wall / fl_wall if fl_wall > 0
-                                 else float("inf")),
     }
+    return result, final, metrics
+
+
+def config_fault_storm_1m(
+    seed: int = 0,
+    n_nodes: int = 1_000_000,
+    n_payloads: int = 512,
+    device="cuda",
+    return_state: bool = False,
+) -> Dict[str, object]:
+    """The 1M-node tier (JAX ``runner.py:753``) on one device, no mesh:
+    `storm_fault_plan` at a million nodes, compiled factored, through one
+    `run_fault_plan` (max 3000 rounds), the fault side only.  Above 2^18
+    nodes `_write_storm` drops partial-view SWIM, so the path is the
+    packed round with ground-truth membership: no SWIM step, and the
+    targets come from the uniform sampler (K5's [4c, N] draw, then K1's
+    uniform entry with no view).  Returns JAX's result keys but
+    ``sanity`` and ``phase_profile``, which need a port of
+    ``sim/perf.py``'s wall protocol and profiler (ROADMAP A11); with
+    ``return_state`` the record also carries the final ``state`` and
+    ``metrics``."""
+    dev = resolve_device(device)
+    cfg, meta, fplan = fault_storm(n_nodes, n_payloads, seed, dev)
+    result, final, metrics = _fault_storm_run(cfg, meta, fplan, seed, dev,
+                                              membership=True)
     if return_state:
         result["state"] = final
         result["metrics"] = metrics

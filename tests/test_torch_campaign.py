@@ -244,8 +244,8 @@ def _refused_spec(case):
 
 #: each refused case and the item its message names
 REFUSED = {
-    "matrix": "ROADMAP B16x", "host_parity": "ROADMAP A,",
-    "serving": "ROADMAP A,", "mesh": "ROADMAP A13",
+    "host_parity": "ROADMAP A,", "serving": "ROADMAP A,",
+    "mesh": "ROADMAP A13",
 }
 
 
@@ -254,23 +254,24 @@ REFUSED = {
 #: wire measurement (B16r's packed half) on the packed round's lanes; a
 #: metered budget, a topology family or key (B16m's budgets and
 #: topology), PeerSwap and full view (B16s's packed half), a protocol
-#: family or knob (B16m's rest) and a churn schedule (B16c) on the packed
-#: round's lanes
+#: family or knob (B16m's rest), a churn schedule (B16c) and a matrix plan
+#: (B16x) on the packed round's lanes
 RUNS = ("dense", "latency", "jitter", "telemetry", "measure_wire",
         "metered", "topo_family", "topology_key", "peerswap", "full_view",
-        "proto_family", "proto_key", "churn")
+        "proto_family", "proto_key", "churn", "matrix")
 
 
 @pytest.mark.parametrize("case", sorted((*REFUSED, *RUNS)))
 def test_engine_refuses_what_the_slice_does_not_run(case):
     """Each refused case raises NotImplementedError naming its ROADMAP
-    item (a matrix plan on the packed round's lanes: B16x); none runs some
-    other way.  A case that runs now gives live JAX's artifact (the
+    item (a mesh: A13); none runs some other way.  A case that runs now
+    gives live JAX's artifact (the
     recording cases their telemetry block and wire bytes too), on the
     dense round's lanes or the packed round's: since B16m's budgets and
     topology and B16s's packed half, a metered budget, a topology family
     or key, PeerSwap and full view on the packed round's; since B16m's
-    rest and B16c, a protocol family or knob and a churn schedule there."""
+    rest and B16c, a protocol family or knob and a churn schedule there;
+    since B16x, a matrix plan there."""
     spec = _refused_spec(case)
     if case in RUNS:
         recording = case in ("telemetry", "measure_wire")

@@ -158,8 +158,8 @@ def _dense_cfg(**kw):
 @pytest.mark.parametrize("case", ("fault_plan", "telemetry", "topology",
                                   "peerswap", "protocol"))
 def test_dense_check_refuses_by_name(case):
-    """The dense lane check runs what the packed lanes' check refuses,
-    each of which names its ROADMAP item there.  The ``fault_plan`` case
+    """The dense lane check runs what the packed lanes' check once
+    refused, each naming its ROADMAP item there.  The ``fault_plan`` case
     holds the check's acceptance of a plan, and the ensemble's run under
     it (two seeds of the 3-node parity campaign's matrix plan) equal to
     JAX's, lane by lane; the ``telemetry`` case its acceptance of the
@@ -167,12 +167,11 @@ def test_dense_check_refuses_by_name(case):
     half), a metered budget too since B16m's budgets and the eager
     cadence since B16m's rest; the ``topology`` case its acceptance of a
     topology key, which the packed lanes' check accepts since B16m's
-    topology, but for a matrix plan, which it refuses naming B16x; the
+    topology, and a matrix plan over it since B16x; the
     ``peerswap`` case its acceptance of PeerSwap with and without a plan
     (B16s-f); the ``protocol`` case its acceptance of push-pull (B16v),
-    which the packed lanes' check accepts too since B16m's rest, but
-    under a matrix plan, which it refuses naming B16x and the dense
-    round's lanes."""
+    which the packed lanes' check accepts too since B16m's rest, and
+    under a matrix plan since B16x."""
     from corrosion_tpu_torch.sim.lanes import check_packed_lanes
 
     cfg, topo, plan, kw = _dense_cfg(), Topology(), None, {}
@@ -207,9 +206,7 @@ def test_dense_check_refuses_by_name(case):
         matrix = compile_plan(FaultPlan(n_nodes=96, seed=0, events=()),
                               packed, Topology(n_regions=2), factored=False,
                               device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="matrix fault plans.*B16x"):
-            check_packed_lanes(packed, Topology(n_regions=2), matrix)
+        check_packed_lanes(packed, Topology(n_regions=2), matrix)
         return
     if case == "peerswap":
         cfg = _dense_cfg(peer_sampler="peerswap")
@@ -224,9 +221,7 @@ def test_dense_check_refuses_by_name(case):
     check_packed_lanes(push_pull, topo)
     matrix = compile_plan(FaultPlan(n_nodes=96, seed=0, events=()),
                           push_pull, topo, factored=False, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="matrix fault plans.*B16x.*dense round's lanes"):
-        check_packed_lanes(push_pull, topo, matrix)
+    check_packed_lanes(push_pull, topo, matrix)
 
 
 def test_dense_check_accepts_default_budgets_and_every_tier():
@@ -241,11 +236,10 @@ def test_dense_check_accepts_default_budgets_and_every_tier():
 
 
 def test_packed_check_names_its_refusals():
-    """The packed check's refusals, reworded to point at the dense
-    lanes: a matrix plan on the packed round (full view and the protocol
-    variants, which it pointed there before, run on the packed round's
-    lanes since B16s's packed half and B16m's rest), and a dense
-    configuration handed to it."""
+    """The packed check's refusal, worded to point at the dense lanes: a
+    dense configuration handed to it.  Full view, the protocol variants
+    and a matrix plan, which it pointed there before, run on the packed
+    round's lanes since B16s's packed half, B16m's rest and B16x."""
     from corrosion_tpu_torch.sim.faults import compile_plan
     from corrosion_tpu_torch.sim.lanes import check_packed_lanes
 
@@ -257,7 +251,6 @@ def test_packed_check_names_its_refusals():
     matrix = compile_plan(FaultPlan(n_nodes=96, seed=0, events=()),
                           push_pull, Topology(), factored=False,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="dense round's lanes"):
-        check_packed_lanes(push_pull, Topology(), matrix)
+    check_packed_lanes(push_pull, Topology(), matrix)
     with pytest.raises(ValueError, match="dense configuration"):
         check_packed_lanes(_dense_cfg(), Topology())

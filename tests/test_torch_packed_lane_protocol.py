@@ -6,8 +6,8 @@ JAX's ``campaign`` package on the CPU: every new lane entry's plain
 version against the solo entry on its lane's inputs (chip smoke's phase
 3lq at 3 lanes with its shapes shrunk, every trap reached); the six
 protocol families at 1280 nodes through the port's engine against live
-JAX, field for field; the one refusal that stays (a matrix plan, B16x);
-the goldens of chip smoke's paths 67-68.  ``-m slow`` holds every lane of
+JAX, field for field; push-pull under a matrix plan (B16x) through the
+engine against live JAX; the goldens of chip smoke's paths 67-68.  ``-m slow`` holds every lane of
 those goldens to live JAX's one-seed campaign of its seed.  The recorder,
 the dense == packed contract, a plan and every knob at once are
 ``tests/test_torch_packed_lane_protocol_runs.py``."""
@@ -96,10 +96,12 @@ def test_every_family_on_the_packed_lanes_equals_live_jax(family):
         assert min(counts) > 0 and len(set(counts)) > 1
 
 
-def test_packed_lanes_refuse_only_a_matrix_plan():
+def test_packed_lanes_accept_every_knob_and_a_matrix_plan():
     """``check_packed_lanes`` takes every family and every combination of
-    the protocol knobs, with or without a factored plan; a matrix plan
-    still names B16x, through the check, the ensemble and the engine."""
+    the protocol knobs, with a factored plan or a matrix one (B16x); a
+    push-pull cell under a matrix plan (the pull's session refusal and
+    reverse thresholds through K9m's edge entry) runs through the
+    ensemble and the engine, whose artifact and lanes are live JAX's."""
     base = proto_storm_spec_at("baseline").sim_config({})
     plan = spec_mod.FaultPlan(n_nodes=1280, seed=0, events=())
     fplan = compile_plan(plan, base, factored=True, device="cpu")
@@ -118,20 +120,26 @@ def test_packed_lanes_refuse_only_a_matrix_plan():
         name="matrix", scenario=dict(spec_mod.storm_scenario(512),
                                      n_payloads=64, packed_min_cells=0,
                                      proto_family="push-pull"),
-        events=(spec_mod.FaultEvent("loss", 0, 4, p=0.2),), seeds=(0,),
-        max_rounds=3)
+        events=(spec_mod.FaultEvent("loss", 0, 4, p=0.2),
+                spec_mod.FaultEvent("partition", 1, 3, src="0:256",
+                                    dst="256:512")),
+        seeds=(0, 1), max_rounds=6)
     cfg, topo = spec.sim_config({}), spec.topo({})
     matrix = compile_plan(spec.fault_plan({}, seed=0), cfg, topo,
                           factored=False, device="cpu")
-    match = "matrix fault plans.*B16x.*dense round's lanes"
-    with pytest.raises(NotImplementedError, match=match):
-        check_packed_lanes(cfg, topo, matrix)
-    with pytest.raises(NotImplementedError, match=match):
-        run_seed_ensemble(spec.fault_plan({}, seed=0), cfg, topo,
-                          uniform_payloads(cfg, "cpu", inject_every=2), (0,),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        run_campaign(spec, device="cpu")
+    check_packed_lanes(cfg, topo, matrix)
+    finals, _ = run_seed_ensemble(
+        spec.fault_plan({}, seed=0), cfg, topo,
+        uniform_payloads(cfg, "cpu", inject_every=2), (0,), max_rounds=6,
+        device="cpu")
+    assert finals.t.tolist() == [6]
+    want, (jf, jm) = jax_campaign_kept(spec)
+    kept = {}
+    got = run_campaign(spec, device="cpu", lanes_out=kept)
+    assert got["spec_hash"] == want["spec_hash"]
+    assert got["result_digest"] == want["result_digest"]
+    assert_lanes_equal_jax(jf, jm, kept[0]["finals"], kept[0]["metrics"],
+                           "push-pull under a matrix plan")
 
 
 # -- the goldens of paths 67-68 ---------------------------------------------

@@ -223,9 +223,8 @@ def test_peerswap_fault_ensemble_equals_jax(n_nodes):
 
 def test_peerswap_on_the_packed_lanes_names_b16s():
     """The packed round's lanes run PeerSwap since B16s's packed half:
-    the check accepts it, with or without a factored plan; under a matrix
-    plan, which they do not run yet, they refuse naming B16x and point at
-    the plan's factored form."""
+    the check accepts it, with or without a plan, factored or (since
+    B16x) matrix."""
     from corrosion_tpu_torch.campaign.spec import storm_scenario
     from corrosion_tpu_torch.sim.faults import compile_plan
     from corrosion_tpu_torch.sim.topology import Topology
@@ -238,8 +237,6 @@ def test_peerswap_on_the_packed_lanes_names_b16s():
     check_packed_lanes(cfg, Topology())
     check_packed_lanes(cfg, Topology(),
                        compile_plan(plan, cfg, device="cpu"))
-    with pytest.raises(NotImplementedError,
-                       match=r"matrix fault plans.*B16x.*factored"):
-        check_packed_lanes(cfg, Topology(), compile_plan(
-            plan, cfg, factored=False, device="cpu"))
+    check_packed_lanes(cfg, Topology(), compile_plan(
+        plan, cfg, factored=False, device="cpu"))
 

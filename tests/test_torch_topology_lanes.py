@@ -482,8 +482,7 @@ def test_packed_lanes_refuse_topology_naming_b16m():
     """The packed round's lanes take every topology family since B16m's
     topology, and over one the protocol variants, which they refused
     naming B16m, since B16m's rest (the eager cadence over wan-3x2 is
-    accepted); a matrix plan over a family still names B16x and points
-    at the dense lanes."""
+    accepted), and a matrix plan over a family since B16x."""
     from corrosion_tpu_torch.campaign.spec import storm_scenario
     from corrosion_tpu_torch.faults import FaultPlan
     from corrosion_tpu_torch.sim.faults import compile_plan
@@ -498,9 +497,7 @@ def test_packed_lanes_refuse_topology_naming_b16m():
     check_packed_lanes(eager, wan)
     matrix = compile_plan(FaultPlan(n_nodes=1280, seed=0, events=()),
                           eager, wan, factored=False, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"matrix fault plans.*B16x.*dense round"):
-        check_packed_lanes(eager, wan, matrix)
+    check_packed_lanes(eager, wan, matrix)
 
 
 def test_protocol_variants_on_lanes_name_b16v():
