@@ -437,6 +437,21 @@ result line):
    ``result_digest`` and every lane against
    ``PACKED_FAULT_STORM_512_MATRIX_SEEDS8`` (each lane live JAX's
    one-seed run), lanes 0 and 7 equal to their solo runs on the card;
+   and the command line (`corrosion_tpu_torch.cli.main`), each path
+   from zeroed counters with its launches by kernel: ``python -m
+   corrosion_tpu_torch.cli.main sim write-storm-100k --seed 0`` in a
+   process of its own, with no ``--device`` (path 71: exit 0, one JSON
+   line equal to path 1's record but the walls, its launches reported
+   by a ``sitecustomize`` hook at the child's exit, `LAUNCH_HOOK`, and
+   its process wall printed), then through ``cli.main`` in this process
+   ``sim storm-ab`` at 25 000 nodes three times (path 72: packed and
+   dense identical, rounds ``STORM_AB_25000_SEED0``'s, both walls and the
+   speedup printed beside the card), ``sim fault-campaign-3node`` (path 73) and
+   ``sim campaign run --spec fault-parity-3node`` (path 74) against
+   their goldens, and within path 8 the 100k fault storm's trace through
+   ``trace_to_registry`` (path 75: the render line for line
+   ``FAULT_STORM_100K_SEED0_REGISTRY``, the wire bytes within the f32
+   bound);
 16. profile the first 3 rounds of both storms (their telemetry-off
    launches held at exact counts, STORM_OFF_LAUNCHES; run
    right after the build, since the profiler's count depends on what
@@ -13204,39 +13219,291 @@ DETECT_ROWS = ("detect_full", "detect_partial", "detect_full_lanes",
                "detect_partial_lanes")
 
 
-def _path_launches(kernels, rows, label, telemetry=False, entries=()):
-    """Read every entry point's launch count after a path ran from 0,
-    require each entry of ``rows``' kernels, and each kernel named in
-    ``entries``, to have launched — and no entry of K23 unless ``rows``
-    names it, nor, without ``telemetry``, of the flight recorder's
-    kernels — and return the counts of every kernel row."""
-    named = {kern.name: kern for kern in kernels.KERNELS}
+def _path_launches(kernels, rows, label, telemetry=False, entries=(),
+                   counts=None):
+    """Read every entry point's launch count after a path ran from 0 (or
+    take them from ``counts``, entry name to launches, for a path another
+    process ran), require each entry of ``rows``' kernels, and each
+    kernel named in ``entries``, to have launched — and no entry of K23
+    unless ``rows`` names it, nor, without ``telemetry``, of the flight
+    recorder's kernels — and return the counts of every kernel row."""
+    if counts is None:
+        counts = {kern.name: kern.launches for kern in kernels.KERNELS}
     for name in entries:
-        if named[name].launches <= 0:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel entry {name} never launched on "
                                  f"the {label} path")
-    entries = {kern.name: kern.launches for kern in kernels.KERNELS}
     off = [row for row in kernels.PORTED if row not in rows]
-    print(f"{label} launches={json.dumps(entries)} off_path={off}",
+    print(f"{label} launches={json.dumps(counts)} off_path={off}",
           flush=True)
     for row in rows:
         for kern in kernels.PORTED[row]:
-            if kern.launches <= 0:
+            if counts[kern.name] <= 0:
                 raise AssertionError(f"kernel entry {kern.name} never "
                                      f"launched on the {label} path")
     stray = [row for row in DETECT_ROWS if row not in rows
-             and any(k.launches for k in kernels.PORTED[row])]
+             and any(counts[k.name] for k in kernels.PORTED[row])]
     if stray:
         raise AssertionError(f"{stray} launched on the {label} path, which "
                              "runs no detect loop")
     if not telemetry:
         on = [kern.name for row in kernels.TRACE_ROWS
-              for kern in kernels.PORTED[row] if kern.launches]
+              for kern in kernels.PORTED[row] if counts[kern.name]]
         if on:
             raise AssertionError(f"flight recorder kernels {on} launched "
                                  f"on the telemetry-off {label} path")
-    return {row: sum(k.launches for k in entries_)
+    return {row: sum(counts[k.name] for k in entries_)
             for row, entries_ in kernels.PORTED.items()}
+
+
+# -- the command line: paths 71-75 ---------------------------------------------
+
+#: the command line's module, as ``python -m`` runs it
+CLI_MODULE = "corrosion_tpu_torch.cli.main"
+#: the ``sitecustomize`` a command-line subprocess starts with, from a
+#: directory put first on its PYTHONPATH: at exit it writes every kernel
+#: entry point's launch count to $CHIP_SMOKE_LAUNCHES, and it runs the
+#: ``sitecustomize`` the interpreter would have found otherwise
+LAUNCH_HOOK = """\
+import atexit, importlib.util, json, os, sys
+
+
+def _write_launches():
+    kernels = sys.modules.get("corrosion_tpu_torch.kernels")
+    if kernels is not None:
+        with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
+            json.dump({k.name: k.launches for k in kernels.KERNELS}, f)
+
+
+atexit.register(_write_launches)
+_here = os.path.dirname(os.path.abspath(__file__))
+for _d in sys.path:
+    _next = os.path.join(os.path.abspath(_d or "."), "sitecustomize.py")
+    if os.path.dirname(_next) != _here and os.path.isfile(_next):
+        _spec = importlib.util.spec_from_file_location("_site_next", _next)
+        _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+        break
+"""
+#: a record's keys made of the wall clock
+WALL_KEYS = ("wall_clock_s", "rounds_per_sec", "node_rounds_per_sec")
+#: `sim storm-ab` runs in path 72, for the spread of its walls
+AB_RUNS = 3
+
+
+def cli_subprocess_path(storm, rows, card, argv=("sim", "write-storm-100k",
+                                                  "--seed", "0")):
+    """Path 71, the entry point as a user starts it: ``python -m
+    corrosion_tpu_torch.cli.main sim write-storm-100k --seed 0`` (no
+    ``--device``: the card) in a process of its own, which starts from
+    zeroed counters and reports them at exit (`LAUNCH_HOOK`).  It must
+    exit 0 and print one JSON line: path 1's record (``storm``, the same
+    config in this process) in every key but the wall's, every entry of
+    ``rows``' kernels launched.  Returns the launches by kernel row and
+    the walls: the record's (the run, synchronized) and the process's,
+    from its start to its exit."""
+    import os
+    import tempfile
+
+    from corrosion_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as harness:
+        with open(os.path.join(harness, "sitecustomize.py"), "w") as f:
+            f.write(LAUNCH_HOOK)
+        counts_path = os.path.join(harness, "launches.json")
+        env = dict(os.environ, CHIP_SMOKE_LAUNCHES=counts_path,
+                   PYTHONPATH=os.pathsep.join(
+                       d for d in (harness, os.environ.get("PYTHONPATH"))
+                       if d))
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", CLI_MODULE, *argv], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=900)
+        process_wall = time.monotonic() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {' '.join(argv)}: exit "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        if len(lines) != 1:
+            raise AssertionError(f"cli {' '.join(argv)}: {len(lines)} lines "
+                                 "of output, not one JSON line")
+        record = json.loads(lines[0])
+        with open(counts_path) as f:
+            counts = json.load(f)
+    label = "cli_" + argv[1].replace("-", "_")
+    launches = _path_launches(kernels, rows, label, counts=counts)
+    want = {k: v for k, v in storm.items()
+            if k not in ("state", "metrics", "trace", *WALL_KEYS)}
+    got = {k: v for k, v in record.items() if k not in WALL_KEYS}
+    if set(record) != set(want) | set(WALL_KEYS) or json.loads(
+            json.dumps(want, default=float)) != got:
+        raise AssertionError(f"{label}: record {record} is not path 1's "
+                             f"{want}")
+    walls = {"wall_clock_s": record["wall_clock_s"],
+             "process_wall_s": process_wall}
+    print(f"{label}: {lines[0]} process_wall_s={process_wall:.3f} "
+          f"card={card}", flush=True)
+    return launches, walls
+
+
+def _cli_main(argv):
+    """``cli.main(argv)`` in this process: its exit code and stdout."""
+    import contextlib
+    import io
+
+    from corrosion_tpu_torch.cli import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)}: exit {rc}")
+    return out.getvalue()
+
+
+def cli_paths(goldens, card, storm_rows, dense_rows, device_argv=(),
+              ab_nodes=None):
+    """Paths 72-74, the command line in this process (``cli.main``), each
+    from zeroed counters with its launches by kernel printed:
+
+    - 72, ``sim storm-ab`` at JAX's default 25 000 nodes (``ab_nodes``
+      for a rehearsal), `AB_RUNS` times: each ``results_identical``, the
+      two round paths (the config asserts them; the launches show both
+      rounds' kernels), rounds equal to ``STORM_AB_25000_SEED0``'s packed
+      and dense runs, the two walls and ``packed_speedup`` printed beside
+      the card, then the speedups' median;
+    - 73, ``sim fault-campaign-3node``: ``FAULT_CAMPAIGN_3NODE_ENGINE``'s
+      ``spec_hash``, ``result_digest`` and p99 and
+      ``FAULT_CAMPAIGN_3NODE_SEED0``'s rounds;
+    - 74, ``sim campaign run --spec fault-parity-3node --out <tmp>``:
+      ``FAULT_PARITY_3NODE_SEEDS8``'s ``spec_hash`` and ``result_digest``,
+      and the artifact's per-seed rounds and p99s its lanes'.
+
+    ``device_argv`` is ``--device cpu`` in a rehearsal on the CPU.
+    Returns (launches by path, the storm A/B's record)."""
+    import os
+    import tempfile
+
+    from corrosion_tpu_torch import kernels
+
+    launches = {}
+    label = "cli_storm_ab"
+    argv = ["sim", "storm-ab", "--seed", "0", *device_argv]
+    if ab_nodes:
+        argv += ["--nodes", str(ab_nodes)]
+    pin = goldens.STORM_AB_25000_SEED0
+    kernels.reset_launch_counts()
+    runs = []
+    for _ in range(AB_RUNS):
+        ab = json.loads(_cli_main(argv))
+        if (not ab["results_identical"] or ab["mismatched_keys"]
+                or not ab["converged"]
+                or ab["rounds"] != pin["packed"]["rounds"]
+                or ab["rounds"] != pin["dense"]["rounds"]):
+            raise AssertionError(f"{label}: {ab} against {pin}")
+        print(f"{label}: {json.dumps(ab)} card={card}", flush=True)
+        runs.append(ab)
+    launches[label] = _path_launches(
+        kernels, [*storm_rows, *dense_rows], label)
+    speedups = sorted(r["packed_speedup"] for r in runs)
+    print(f"{label}: packed_speedup median {speedups[len(runs) // 2]!r} "
+          f"of {AB_RUNS} runs {speedups} card={card}", flush=True)
+
+    label = "cli_fault_campaign_3node"
+    kernels.reset_launch_counts()
+    rec = json.loads(_cli_main(["sim", "fault-campaign-3node", "--seed", "0",
+                                *device_argv]))
+    extra = dict((p[0], p[2]) for p in DENSE_FAULT_ENSEMBLE_PATHS)
+    launches[label] = _path_launches(
+        kernels, DENSE_FAULT_LANE_CORE + extra["fault_campaign_3node"], label)
+    engine = goldens.FAULT_CAMPAIGN_3NODE_ENGINE
+    got = {k: rec[k] for k in ("spec_hash", "result_digest", "rounds",
+                               "p99_node_convergence_round")}
+    want = {"spec_hash": engine["spec_hash"],
+            "result_digest": engine["result_digest"],
+            "rounds": goldens.FAULT_CAMPAIGN_3NODE_SEED0["rounds"],
+            "p99_node_convergence_round":
+                engine["lanes"][0]["p99_node_convergence_round"]}
+    print(f"{label}: {json.dumps(rec)}", flush=True)
+    if got != want or not rec["converged"] or rec["round_path"] != "dense":
+        raise AssertionError(f"{label}: {got} != {want}")
+
+    label = "cli_campaign_fault_parity_3node"
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "fault-parity-3node.json")
+        kernels.reset_launch_counts()
+        summary = json.loads(_cli_main(
+            ["sim", "campaign", "run", "--spec", "fault-parity-3node",
+             "--out", out_path, *device_argv]))
+        launches[label] = _path_launches(
+            kernels, DENSE_FAULT_LANE_CORE + extra["fault_parity_3node"],
+            label)
+        with open(out_path) as f:
+            art = json.load(f)
+    parity = goldens.FAULT_PARITY_3NODE_SEEDS8
+    per_seed = art["cells"][0]["per_seed"]
+    lanes = [{k: lane[k] for k in ("rounds", "p99_node_convergence_round")}
+             for lane in parity["lanes"]]
+    print(f"{label}: {json.dumps(summary)}", flush=True)
+    if ((summary["spec_hash"], summary["result_digest"])
+            != (parity["spec_hash"], parity["result_digest"])
+            or summary["artifact"] != out_path
+            or list(summary["kernel_paths"].values()) != ["dense"]
+            or [{"rounds": r, "p99_node_convergence_round": p}
+                for r, p in zip(per_seed["rounds"],
+                                per_seed["p99_node_convergence_round"])]
+            != lanes):
+        raise AssertionError(f"{label}: differs from its golden")
+    return launches, ab
+
+
+def registry_path(trace, rounds, cfg, goldens, m_bcast=300_000, m_sync=512,
+                  golden="FAULT_STORM_100K_SEED0_REGISTRY"):
+    """Path 75: `trace_to_registry` of the 100k fault storm's recorded
+    trace (path 8's, held to ``FAULT_STORM_100K_SEED0_TELEMETRY``) onto a
+    fresh `Registry`, from zeroed counters (it runs on the host and
+    launches nothing): its ``render()`` equal to the golden line for
+    line, but the two ``sim_wire_bytes_total`` samples within
+    (m + 1 + 2R)·2⁻²⁴·S of JAX's (R rounds, m f32 terms a round, S the
+    total), as `_telemetry_check` bounds ``wire_bytes``."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.metrics import Registry
+    from corrosion_tpu_torch.sim.telemetry import trace_to_registry
+
+    label = "fault_storm_100k_registry"
+    kernels.reset_launch_counts()
+    reg = Registry()
+    trace_to_registry(trace, rounds, cfg, registry=reg,
+                      run="fault_storm_100k")
+    got = reg.render()
+    counts = {kern.name: kern.launches for kern in kernels.KERNELS}
+    print(f"{label} launches={json.dumps(counts)}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the export launched kernels")
+    want = getattr(goldens, golden)
+    gl, wl = got.splitlines(), want.splitlines()
+    gaps = {}
+    if len(gl) != len(wl):
+        raise AssertionError(f"{label}: {len(gl)} lines, golden {len(wl)}")
+    for g, w in zip(gl, wl):
+        if not w.startswith("sim_wire_bytes_total{"):
+            if g != w:
+                raise AssertionError(f"{label}: {g!r} != golden {w!r}")
+            continue
+        (gk, gv), (wk, wv) = g.rsplit(" ", 1), w.rsplit(" ", 1)
+        m = m_bcast if 'path="broadcast"' in wk else m_sync
+        limit = (m + 1 + 2 * rounds) * F32_ULP * abs(float(wv)) * (
+            1 + F32_ULP) + 0.1
+        gap = abs(float(gv) - float(wv))
+        if gk != wk or gap > limit:
+            raise AssertionError(f"{label}: {g!r} against golden {w!r} "
+                                 f"(limit {limit})")
+        gaps[wk] = gap
+    print(f"{label}: render equal to the golden ({len(gl)} lines; "
+          f"sim_wire_bytes_total gaps {json.dumps(gaps)})", flush=True)
+    return got
 
 
 def _timed_fault_run(cfg, meta, fplan, seed, dev, telemetry=False,
@@ -13492,6 +13759,15 @@ def main() -> int:
     launches = _path_launches(kernels, faultless_rows, "storm_100k")
     _storm_check(big, goldens.STORM_100K_SEED0, "storm_100k_seed0")
 
+    # paths 71-74, the command line: path 1's entry point in a process of
+    # its own, as a user starts it, then storm-ab and the two 3-node
+    # campaigns through cli.main in this one
+    cli_subprocess_path(big, faultless_rows, card)
+    cli_paths(goldens, card, faultless_rows,
+              ["sample_targets", "merge_entries", "threefry", "dense_phases",
+               "dense_sync", "dense_gaps"])
+    _lap("paths 71-74, the command line")
+
     # path 2, the 100k fault storm alone: K1's table entry and K3-K11.
     # Every fault round scatters through K10, so K2 is off this path.
     cfg, meta = _write_storm(100_000, 512, dev)
@@ -13643,6 +13919,8 @@ def main() -> int:
     f32_gaps["fault_storm_100k"] = _telemetry_check(
         run, goldens.FAULT_STORM_100K_SEED0_TELEMETRY, 300_000, 512,
         "fault_storm_100k_telemetry")
+    # path 75, the same trace exported on a fresh metrics registry
+    registry_path(trace, run["rounds"], cfg, goldens)
 
     kernels.reset_launch_counts()
     run = config_write_storm_gapstress(seed=1, n_nodes=GAPSTRESS_N,

@@ -31,7 +31,12 @@ is held against live JAX by ``tests/test_torch_fault_storm_1m.py`` under
 (``PACKED_FAULT_STORM_512_MATRIX_SEEDS8``, B16x) by
 ``tests/test_torch_packed_matrix_lanes.py`` (the cell's construction and
 its lanes 0 and 7 from the port in tier 1, every lane against live JAX
-under ``-m slow``).
+under ``-m slow``).  The command line's pins at the end,
+``STORM_AB_25000_SEED0`` (the packed-against-dense A/B at JAX's default
+25 000 nodes) and ``FAULT_STORM_100K_SEED0_REGISTRY`` (the 100k fault
+storm's trace exported as Prometheus text), are held against live JAX
+by ``tests/test_torch_runner_configs.py`` and
+``tests/test_torch_trace_registry.py`` under ``-m slow``.
 """
 
 # _write_storm(512, 256) with packed_min_cells=0, seed 7
@@ -2777,3 +2782,62 @@ PACKED_FAULT_STORM_512_MATRIX_SEEDS8 = {
          "digest": "09e8c33c7e95556a"},
     ],
 }
+
+
+# the command line's two new pins.  STORM_AB_25000_SEED0: config_storm_ab
+# (seed=0)'s two runs, cfg, meta = _write_storm(25_000, 512) through
+# run_scenario(dataclasses.replace(cfg, packed_min_cells=0), meta, seed=0,
+# max_rounds=3000) and the same with allow_packed=False (the dense round)
+STORM_AB_25000_SEED0 = {
+    "packed": {"rounds": 26, "p99_payload_latency_rounds": 12.0,
+               "p99_node_convergence_round": 23.0, "unconverged_nodes": 0},
+    "dense": {"rounds": 26, "p99_payload_latency_rounds": 12.0,
+              "p99_node_convergence_round": 23.0, "unconverged_nodes": 0},
+}
+
+# FAULT_STORM_100K_SEED0_REGISTRY: the telemetry run of
+# FAULT_STORM_100K_SEED0_TELEMETRY exported by trace_to_registry(trace,
+# rounds, cfg, registry=Registry(), run="fault_storm_100k"), its render()
+FAULT_STORM_100K_SEED0_REGISTRY = (
+    '# TYPE sim_coverage_latency_rounds histogram\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="1"} 0\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="2"} 0\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="4"} 0\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="8"} 0\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="16"} 0\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="32"} 512\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="64"} 512\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="128"} 512\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="256"} 512\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="512"} 512\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="1024"} 512\n'
+    'sim_coverage_latency_rounds_bucket{run="fault_storm_100k",le="+Inf"} 512\n'
+    'sim_coverage_latency_rounds_sum{run="fault_storm_100k"} 11532\n'
+    'sim_coverage_latency_rounds_count{run="fault_storm_100k"} 512\n'
+    '# TYPE sim_fault_crash_node_rounds_total counter\n'
+    'sim_fault_crash_node_rounds_total{run="fault_storm_100k"} 12\n'
+    '# TYPE sim_fault_cut_edges_total counter\n'
+    'sim_fault_cut_edges_total{run="fault_storm_100k"} 1800283\n'
+    '# TYPE sim_fault_dropped_frames_total counter\n'
+    'sim_fault_dropped_frames_total{run="fault_storm_100k"} 1022178\n'
+    '# TYPE sim_fault_refused_sessions_total counter\n'
+    'sim_fault_refused_sessions_total{run="fault_storm_100k"} 218108\n'
+    '# TYPE sim_fault_wipes_total counter\n'
+    'sim_fault_wipes_total{run="fault_storm_100k"} 1\n'
+    '# TYPE sim_gap_overflow_rounds_total counter\n'
+    'sim_gap_overflow_rounds_total{run="fault_storm_100k"} 0\n'
+    '# TYPE sim_rounds_total counter\n'
+    'sim_rounds_total{run="fault_storm_100k"} 29\n'
+    '# TYPE sim_swim_down_peak gauge\n'
+    'sim_swim_down_peak{run="fault_storm_100k"} 203417\n'
+    '# TYPE sim_swim_suspect_peak gauge\n'
+    'sim_swim_suspect_peak{run="fault_storm_100k"} 296781\n'
+    '# TYPE sim_sync_sessions_total counter\n'
+    'sim_sync_sessions_total{run="fault_storm_100k"} 990170\n'
+    '# TYPE sim_wire_bytes_total counter\n'
+    'sim_wire_bytes_total{path="broadcast",run="fault_storm_100k"} 11793075273728\n'
+    'sim_wire_bytes_total{path="sync",run="fault_storm_100k"} 102108307456\n'
+    '# TYPE sim_wire_frames_total counter\n'
+    'sim_wire_frames_total{path="broadcast",run="fault_storm_100k"} 1439584365\n'
+    'sim_wire_frames_total{path="sync",run="fault_storm_100k"} 12464393\n'
+)

@@ -1,10 +1,11 @@
 """Scenario runner for the port: `run_scenario` and the runner's configs
-(``corrosion_tpu/sim/runner.py``): the 3-node ground truth, broadcast-1k
-and partition-heal-10k on the dense round, the 100k-node write storm
-(broadcast-1k and the storm also over a named topology family, under
-the PeerSwap sampler, `_resolve_topo`, and under a named protocol
-family, `_resolve_proto`),
-the packed fault storm and its flight-recorder rung
+(``corrosion_tpu/sim/runner.py``): the 3-node ground truth and its fault
+campaign (`config_fault_campaign_3node`, through the campaign engine),
+broadcast-1k and partition-heal-10k on the dense round, the 100k-node
+write storm (broadcast-1k and the storm also over a named topology
+family, under the PeerSwap sampler, `_resolve_topo`, and under a named
+protocol family, `_resolve_proto`) and its packed-against-dense A/B
+(`config_storm_ab`), the packed fault storm and its flight-recorder rung
 (`config_fault_storm_telemetry`) with their setup `fault_storm` (which
 also puts the storm on the dense round, or on full-view SWIM), the
 1M-node tier (`config_fault_storm_1m`: the fault storm at a million
@@ -184,6 +185,39 @@ def config_ground_truth_3node(
     return run_scenario(cfg, meta, seed=seed, telemetry=telemetry,
                         trace_path=trace_path, device=device,
                         return_state=return_state)
+
+
+def config_fault_campaign_3node(seed: int = 0, device="cuda"
+                                ) -> Dict[str, object]:
+    """The fault-plan demo campaign on three nodes (JAX ``runner.py:199``):
+    a loss burst, an asymmetric cut, delay and jitter on one link and a
+    crash-with-wipe, all from one plan seed, as a one-seed cell of the
+    `fault-campaign-3node` spec through the campaign engine (the dense
+    round's lanes, its matrix plan).  JAX's keys: the cell's round path,
+    plan horizon, rounds, convergence, p99, wall, ``spec_hash`` and
+    ``result_digest``."""
+    from ..campaign.engine import run_campaign
+    from ..campaign.spec import fault_campaign_3node_spec
+
+    spec = fault_campaign_3node_spec(seed=seed)
+    artifact = run_campaign(spec, out_path=None, device=device)
+    cell = artifact["cells"][0]
+    per_seed = cell["per_seed"]
+    return {
+        "n_nodes": cell["n_nodes"],
+        "round_path": cell["round_path"],
+        "plan_seed": seed,
+        "plan_horizon": cell["plan_horizon"],
+        "rounds": per_seed["rounds"][0],
+        "wall_clock_s": cell["wall_clock_s"],
+        "converged": per_seed["converged"][0],
+        "unconverged_nodes": per_seed["unconverged_nodes"][0],
+        "p99_node_convergence_round": per_seed[
+            "p99_node_convergence_round"
+        ][0],
+        "spec_hash": artifact["spec_hash"],
+        "result_digest": artifact["result_digest"],
+    }
 
 
 def _resolve_topo(topo_family: Optional[str]) -> Topology:
@@ -464,6 +498,49 @@ def config_write_storm_100k(
         telemetry=telemetry, trace_path=trace_path, device=device,
         return_state=return_state,
     )
+
+
+def config_storm_ab(
+    seed: int = 0,
+    n_nodes: int = 25_000,
+    n_payloads: int = 512,
+    device="cuda",
+) -> Dict[str, object]:
+    """Packed against dense on the same write storm (JAX
+    ``runner.py:474``): `_write_storm` run twice to convergence (3000
+    rounds at most), once with the packed envelope forced open
+    (``packed_min_cells=0``) and once on the dense round
+    (``allow_packed=False``).  The two must agree on rounds, p99 payload
+    latency and unconverged nodes (``results_identical``, the keys that
+    differ in ``mismatched_keys``); ``packed_speedup`` is the dense wall
+    over the packed one, each bracketed by synchronizes on the card."""
+    dev = resolve_device(device)
+    cfg, meta = _write_storm(n_nodes, n_payloads, dev)
+    packed = run_scenario(dataclasses.replace(cfg, packed_min_cells=0), meta,
+                          seed=seed, max_rounds=3000, device=dev)
+    dense = run_scenario(dataclasses.replace(cfg, allow_packed=False), meta,
+                         seed=seed, max_rounds=3000, device=dev)
+    assert packed["round_path"] == "packed" and dense["round_path"] == "dense"
+    mismatch = [
+        k
+        for k in ("rounds", "p99_payload_latency_rounds", "unconverged_nodes")
+        if packed[k] != dense[k]
+    ]
+    return {
+        "n_nodes": n_nodes,
+        "n_payloads": n_payloads,
+        "rounds": packed["rounds"],
+        "converged": packed["converged"] and dense["converged"],
+        "results_identical": not mismatch,
+        "mismatched_keys": mismatch,
+        "wall_clock_s_packed": packed["wall_clock_s"],
+        "wall_clock_s_dense": dense["wall_clock_s"],
+        "packed_speedup": (
+            dense["wall_clock_s"] / packed["wall_clock_s"]
+            if packed["wall_clock_s"] > 0
+            else float("inf")
+        ),
+    }
 
 
 def storm_fault_plan(n_nodes: int, seed: int = 0) -> FaultPlan:

@@ -1,7 +1,6 @@
 """Flight recorder: per-round telemetry of both rounds, and the
 membership-churn driver `run_membership_detect` with its detect
-predicates (K23) — the port of ``corrosion_tpu/sim/telemetry.py``
-without ``trace_to_registry`` (ROADMAP A7).
+predicates (K23) — the port of ``corrosion_tpu/sim/telemetry.py``.
 
 `RoundTrace` holds JAX's sixteen channels, preallocated ``[R, ·]``
 device buffers written row by row inside the run loop: ``coverage`` and
@@ -44,7 +43,9 @@ exporters read.
 
 The host exporters (`trace_host`, `coverage_curve_digest`,
 `coverage_latency_rounds`, `trace_summary`, `trace_rows`,
-`write_flight_jsonl`) are the port's own copies of JAX's, numpy only.
+`write_flight_jsonl`, and `trace_to_registry`, which puts a finished
+trace on a `..metrics.Registry` as Prometheus families) are the port's
+own copies of JAX's, numpy only.
 """
 
 from __future__ import annotations
@@ -1242,3 +1243,71 @@ def write_flight_jsonl(
         for row in trace_rows(t, rounds, cfg, per_payload=per_payload):
             f.write(json.dumps(row, sort_keys=True) + "\n")
     os.replace(tmp, path)
+
+
+#: coverage-latency histogram buckets, in rounds
+LATENCY_ROUND_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def trace_to_registry(
+    trace,
+    rounds: int,
+    cfg: SimConfig,
+    registry=None,
+    **labels,
+) -> None:
+    """Export a finished trace as the ``sim_*`` Prometheus families on a
+    `..metrics.Registry` (the process-wide `REGISTRY` by default), in
+    JAX's families, labels and order: the rounds, the wire's bytes and
+    frames by ``path``, the five fault counters, the sync sessions, the
+    gap-overflow rounds, the SWIM peak gauges and the coverage-latency
+    histogram.  ``labels`` tag every family.  A lane trace goes through
+    `lane_trace` first."""
+    from ..metrics import REGISTRY
+
+    reg = registry if registry is not None else REGISTRY
+    r = int(rounds)
+    every = max(int(cfg.trace_every), 1)
+    t = trace_host(trace, r, every)
+    if t["coverage"].ndim != 2:
+        raise ValueError(
+            "trace_to_registry takes a solo trace; give it lane_trace(trace, k)")
+
+    reg.counter("sim_rounds_total").inc(r, **labels)
+    wire = reg.counter("sim_wire_bytes_total")
+    wire.inc(float(t["bcast_bytes"].sum()), path="broadcast", **labels)
+    wire.inc(float(t["sync_bytes"].sum()), path="sync", **labels)
+    frames = reg.counter("sim_wire_frames_total")
+    frames.inc(int(t["bcast_frames"].sum()), path="broadcast", **labels)
+    frames.inc(int(t["sync_frames"].sum()), path="sync", **labels)
+    reg.counter("sim_fault_dropped_frames_total").inc(
+        int(t["bcast_dropped"].sum()), **labels
+    )
+    reg.counter("sim_fault_cut_edges_total").inc(
+        int(t["bcast_cut"].sum()), **labels
+    )
+    reg.counter("sim_fault_refused_sessions_total").inc(
+        int(t["sync_refused"].sum()), **labels
+    )
+    reg.counter("sim_fault_crash_node_rounds_total").inc(
+        int(t["crashes"].sum()), **labels
+    )
+    reg.counter("sim_fault_wipes_total").inc(int(t["wipes"].sum()), **labels)
+    reg.counter("sim_sync_sessions_total").inc(
+        int(t["sync_sessions"].sum()), **labels
+    )
+    reg.counter("sim_gap_overflow_rounds_total").inc(
+        int((t["gap_overflow"] > 0).sum()), **labels
+    )
+    reg.gauge("sim_swim_suspect_peak").set(
+        int(t["swim_suspect"].max(initial=0)), **labels
+    )
+    reg.gauge("sim_swim_down_peak").set(
+        int(t["swim_down"].max(initial=0)), **labels
+    )
+    hist = reg.histogram(
+        "sim_coverage_latency_rounds", buckets=LATENCY_ROUND_BUCKETS
+    )
+    for lat in coverage_latency_rounds(t, r, every):
+        if lat >= 0:
+            hist.observe(float(lat), **labels)

@@ -15,12 +15,15 @@ import torch
 from corrosion_tpu_torch.device import resolve_device
 from corrosion_tpu_torch.kernels import build
 from corrosion_tpu_torch.kernels.build import CSRC, SOURCES, check
+from corrosion_tpu_torch.cli import main as cli
 from corrosion_tpu_torch.sim.runner import (
     config_broadcast_1k,
+    config_fault_campaign_3node,
     config_gapstress_distortion,
     config_ground_truth_3node,
     config_packed_fault_storm,
     config_partition_heal_10k,
+    config_storm_ab,
     config_swim_churn_64,
     config_swim_churn_partial,
     config_write_storm_100k,
@@ -61,10 +64,12 @@ def test_entry_points_refuse_cuda_without_card():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device("cuda")
-    for entry in (config_write_storm_100k, config_packed_fault_storm):
+    for entry in (config_write_storm_100k, config_packed_fault_storm,
+                  config_storm_ab):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(n_nodes=512, n_payloads=256)  # default cuda
     for entry, kw in ((config_ground_truth_3node, {}),
+                      (config_fault_campaign_3node, {}),
                       (config_broadcast_1k, {}),
                       (config_partition_heal_10k, {}),
                       (membership_churn, dict(n_nodes=64)),
@@ -74,6 +79,24 @@ def test_entry_points_refuse_cuda_without_card():
                       (config_gapstress_distortion, dict(n_nodes=64))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(**kw)  # default cuda
+
+
+@pytest.mark.parametrize("argv", [
+    ["sim", "ground-truth-3node"],
+    ["sim", "storm-ab", "--nodes", "512"],
+    ["sim", "campaign", "run", "--spec", "fault-parity-3node"],
+], ids=["scenario", "storm-ab", "campaign"])
+def test_cli_defaults_to_the_card(argv, capsys, tmp_path, monkeypatch):
+    """The command line's runs default to ``--device cuda``: without a
+    card they exit 1 with the device error, never on the CPU."""
+    if torch.cuda.is_available():
+        assert cli.build_parser().parse_args(argv).device == "cuda"
+        return
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(argv) == 1
+    out, err = capsys.readouterr()
+    assert out == "" and "device='cpu'" in err
+    assert list(tmp_path.iterdir()) == []  # no campaign artifact either
 
 
 def test_wrapper_check_refuses_what_c_cannot_take():
